@@ -1,0 +1,18 @@
+"""``mxnet_tpu_torch`` -- the PyTorch/CUDA port of ``mxnet_tpu``.
+
+The port runs on an NVIDIA Hopper GPU.  Each TPU kernel of the JAX
+package becomes a kernel written by hand for Hopper (``csrc/``, built
+on first use by :mod:`._build`) beside its plain PyTorch version, which
+runs when the tensors lie on the CPU.  Entry points run on CUDA unless
+the caller passes ``device="cpu"``, and raise without CUDA otherwise.
+
+It imports neither JAX nor anything of ``mxnet_tpu``.  Ported so far:
+the generative serving path (:mod:`.serving`) with the
+``paged_attention`` kernel (:mod:`.kernels`).
+"""
+from .base import MXNetError
+from .context import resolve_device
+
+__version__ = "0.1.0"
+
+__all__ = ["MXNetError", "resolve_device"]

@@ -1,0 +1,10 @@
+"""Base error type of the PyTorch/CUDA port (counterpart of
+``mxnet_tpu/base.py :: MXNetError``)."""
+from __future__ import annotations
+
+__all__ = ["MXNetError"]
+
+
+class MXNetError(RuntimeError):
+    """Framework error type: bad arguments, shapes or devices, and
+    failures of a kernel launch, raised as native Python exceptions."""

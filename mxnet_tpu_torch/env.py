@@ -1,0 +1,64 @@
+"""Typed registry of the ``MXNET_*`` environment variables the port reads.
+
+Counterpart of ``mxnet_tpu/env.py``, holding only the variables of the
+generative serving path.  Names and defaults are the JAX package's, so
+one environment configures both.
+"""
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Any, Callable
+
+from .base import MXNetError
+
+__all__ = ["EnvVar", "REGISTRY", "get"]
+
+
+@dataclass(frozen=True)
+class EnvVar:
+    name: str
+    type: Callable
+    default: Any
+    doc: str
+
+    def read(self):
+        raw = os.environ.get(self.name)
+        if raw is None:
+            return self.default
+        try:
+            return self.type(raw)
+        except (TypeError, ValueError) as e:
+            raise MXNetError("env var %s=%r is not a valid %s"
+                             % (self.name, raw, self.type.__name__)) from e
+
+
+_VARS = [
+    EnvVar("MXNET_TPU_SERVING_QUEUE", int, 256,
+           "Bounded pending-request depth per generative servable; a "
+           "submit against a full queue raises ServingQueueFull."),
+    EnvVar("MXNET_TPU_SERVING_KV_BLOCK", int, 16,
+           "Tokens per KV-cache block.  Per-model override: "
+           "register_generative(block_size=...)."),
+    EnvVar("MXNET_TPU_SERVING_KV_BLOCKS", int, 512,
+           "Preallocated KV-cache blocks per generative servable "
+           "(block 0 is the scratch block).  Per-model override: "
+           "register_generative(num_blocks=...)."),
+    EnvVar("MXNET_TPU_SERVING_DECODE_BUCKETS", str, "1,2,4,8",
+           "Slot-count buckets of the continuous-batching decode step; "
+           "the largest bounds concurrent sequences."),
+    EnvVar("MXNET_TPU_SERVING_PREFILL_BUCKETS", str, "16,32,64,128",
+           "Prompt-length buckets of prefill (batch 1); the largest is "
+           "the longest admissible prompt."),
+]
+
+REGISTRY = {v.name: v for v in _VARS}
+
+
+def get(name):
+    """Typed read of a registered variable (its default when unset)."""
+    try:
+        var = REGISTRY[name]
+    except KeyError:
+        raise MXNetError("unregistered env var %r" % name) from None
+    return var.read()

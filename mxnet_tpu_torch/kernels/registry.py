@@ -1,0 +1,101 @@
+"""Registry of the port's kernels (counterpart of
+``mxnet_tpu/kernels/registry.py``).
+
+Each entry names a kernel, its plain PyTorch version, its launcher and
+a launch counter.  The rule that picks between them is fixed and has
+no switch:
+
+- a CUDA tensor goes to the launcher, which launches the hand-written
+  kernel or raises;
+- a CPU tensor goes to the plain version.
+
+There is no fallback from one to the other.  The counter grows by one
+each time a launcher has launched its kernel (the launcher calls
+:func:`count_launch`), so a run can prove that its path went through
+the kernel.
+"""
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+from typing import Callable, Dict, List
+
+from ..base import MXNetError
+
+__all__ = ["KernelSpec", "register_kernel", "get", "list_kernels",
+           "dispatch", "count_launch", "launches", "reset_launches"]
+
+
+@dataclass
+class KernelSpec:
+    """One port kernel: plain version, launcher, provenance."""
+    name: str
+    plain: Callable
+    launch: Callable
+    source: str       # the kernel source, relative to the package
+    replaces: str     # the TPU kernel it ports, "file:line function"
+    launches: int = 0
+
+    def __repr__(self):
+        return "KernelSpec(%s, launches=%d)" % (self.name, self.launches)
+
+
+KERNELS: Dict[str, KernelSpec] = {}
+_count_lock = threading.Lock()
+
+
+def register_kernel(spec: KernelSpec) -> KernelSpec:
+    if spec.name in KERNELS and KERNELS[spec.name] is not spec:
+        raise MXNetError("duplicate kernel registration %r" % spec.name)
+    KERNELS[spec.name] = spec
+    return spec
+
+
+def _ensure_registered():
+    from . import paged_attention  # noqa: F401
+
+
+def get(name: str) -> KernelSpec:
+    _ensure_registered()
+    try:
+        return KERNELS[name]
+    except KeyError:
+        raise MXNetError("unknown kernel %r; registered: %s"
+                         % (name, ", ".join(sorted(KERNELS)))) from None
+
+
+def list_kernels() -> List[str]:
+    _ensure_registered()
+    return sorted(KERNELS)
+
+
+def dispatch(name: str, x, *args, **kwargs):
+    """Run kernel ``name`` on ``x`` (and the rest of its arguments):
+    its launcher when ``x`` lies on a CUDA device, its plain version
+    when ``x`` lies on the CPU."""
+    spec = get(name)
+    kind = x.device.type
+    if kind == "cuda":
+        return spec.launch(x, *args, **kwargs)
+    if kind == "cpu":
+        return spec.plain(x, *args, **kwargs)
+    raise MXNetError("kernel %r: no implementation for device %s"
+                     % (name, x.device))
+
+
+def count_launch(name: str) -> None:
+    """Called by a launcher right after its kernel launched."""
+    spec = get(name)
+    with _count_lock:
+        spec.launches += 1
+
+
+def launches(name: str) -> int:
+    return get(name).launches
+
+
+def reset_launches() -> None:
+    _ensure_registered()
+    with _count_lock:
+        for spec in KERNELS.values():
+            spec.launches = 0

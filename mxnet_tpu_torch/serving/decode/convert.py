@@ -1,0 +1,28 @@
+"""Carry a parameter dict across from the JAX package.
+
+:func:`params_from_numpy` takes the dict that the JAX
+``TinyGPT.init_params`` (or a checkpoint) gives, as numpy arrays
+(``{k: np.asarray(v)}``), and returns the port's dict: the same names
+and the same layouts (``wqkv`` stays ``(units, 3*units)`` and is used as
+``x @ w``), so both packages run on identical weights.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ...context import resolve_device
+
+__all__ = ["params_from_numpy"]
+
+
+def params_from_numpy(params, device=None, dtype=None):
+    """``{name: array}`` -> ``{name: tensor on device}``; ``dtype``
+    casts every tensor when given, else each keeps its own."""
+    dev = resolve_device(device)
+    out = {}
+    for name, value in params.items():
+        t = value if isinstance(value, torch.Tensor) \
+            else torch.from_numpy(np.array(value, copy=True))
+        out[name] = t.to(device=dev, dtype=dtype or t.dtype)
+    return out

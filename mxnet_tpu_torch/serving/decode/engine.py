@@ -1,0 +1,533 @@
+"""The autoregressive decode engine: separately bucketed prefill and
+decode, continuous batching, token streaming (counterpart of
+``mxnet_tpu/serving/decode/engine.py``).
+
+- **bucketed split**: prefill (whole prompt -> cache blocks + first
+  token) runs at batch 1, padded to a PROMPT-LENGTH bucket; the decode
+  step (one token per slot over the paged cache) runs padded to a
+  SLOT-COUNT bucket.  PyTorch runs eagerly, so there is nothing to
+  compile: :meth:`DecodeEngine.warmup` runs every bucket once, which
+  builds the CUDA kernels and sets up the matmul libraries before the
+  first request.
+- **continuous batching**: one worker thread runs an admit-then-step
+  loop.  Pending requests join the RUNNING batch at a step boundary
+  (one prefill each), finished sequences vacate their slot the step
+  they finish, and live slots pad up to the smallest decode bucket;
+  padded slots carry all-scratch block tables.
+- **admission backpressure**: the whole ``prompt + max_new`` KV budget
+  is allocated at submit; an exhausted cache or a full pending queue
+  sheds with :class:`~mxnet_tpu_torch.serving.batcher.ServingQueueFull`.
+- **token streaming**: :meth:`DecodeEngine.submit` returns a
+  :class:`GenerationStream` that yields each token as it is decoded.
+
+Hot swap: re-registering a :class:`GenerativeServable` installs the
+replacement for new requests while the old engine's
+``close(drain=True)`` steps its half-generated sequences to completion.
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+import queue as _queue_mod
+import threading
+import time
+
+import numpy as np
+import torch
+
+from ...base import MXNetError
+from ...context import resolve_device
+from ..batcher import RequestTimeout, ServableClosed, ServingQueueFull
+from .kvcache import SCRATCH_BLOCK, KVCacheExhausted, PagedKVCache
+
+__all__ = ["DecodeEngine", "GenerationStream", "GenerativeServable"]
+
+_IDLE_WAIT_S = 0.05
+_DONE = object()
+
+
+def _env_buckets(var):
+    from ... import env as _env
+    spec = _env.get(var)
+    try:
+        return tuple(sorted({int(tok) for tok in str(spec).split(",")
+                             if tok}))
+    except ValueError as e:
+        raise MXNetError("%s=%r is not a comma-separated int list"
+                         % (var, spec)) from e
+
+
+class GenerationStream:
+    """Iterator over one request's generated token ids.
+
+    Tokens arrive as the engine decodes them; iteration blocks until
+    the next token, ``StopIteration`` lands after EOS / ``max_new`` /
+    cancel / drain, and an engine-side failure re-raises here.
+    ``cancel()`` asks the engine to drop the sequence at the next step
+    boundary (its cache blocks are freed there)."""
+
+    def __init__(self, model, prompt_len, max_new):
+        self.model = model
+        self.prompt_len = int(prompt_len)
+        self.max_new = int(max_new)
+        self._q = _queue_mod.Queue()
+        self._error = None
+        self._finished = False
+        self.finish_reason = None       # eos | length | cancel | closed
+        self.cancelled = False
+        self.t_submit = time.perf_counter()
+        self.t_first_token = None
+
+    # -- engine side ----------------------------------------------------
+    def _push(self, token, now):
+        if self.t_first_token is None:
+            self.t_first_token = now
+        self._q.put(int(token))
+
+    def _finish(self, reason, error=None):
+        self.finish_reason = reason
+        self._error = error
+        self._q.put(_DONE)
+
+    # -- client side ----------------------------------------------------
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._finished:
+            raise StopIteration
+        item = self._q.get()
+        if item is _DONE:
+            self._finished = True
+            if self._error is not None:
+                raise self._error
+            raise StopIteration
+        return item
+
+    def cancel(self):
+        """Drop the sequence at the next step boundary (idempotent)."""
+        self.cancelled = True
+
+    def tokens(self):
+        """Drain the stream to completion and return every token."""
+        return list(self)
+
+    @property
+    def ttft_s(self):
+        """Submit -> first token, or None before the first token."""
+        if self.t_first_token is None:
+            return None
+        return self.t_first_token - self.t_submit
+
+
+class _GenRequest:
+    __slots__ = ("prompt", "max_new", "eos_id", "table", "stream",
+                 "deadline", "generated", "last_token", "t_submit")
+
+    def __init__(self, prompt, max_new, eos_id, table, stream, timeout):
+        self.prompt = prompt
+        self.max_new = int(max_new)
+        self.eos_id = eos_id
+        self.table = table
+        self.stream = stream
+        self.t_submit = stream.t_submit
+        self.deadline = (self.t_submit + timeout) if timeout else None
+        self.generated = 0
+        self.last_token = None
+
+    @property
+    def position(self):
+        """Cache position the NEXT decode step writes (the last
+        generated token's index in the full sequence)."""
+        return len(self.prompt) + self.generated - 1
+
+
+class DecodeEngine:
+    """Continuous-batching autoregressive decode over a paged KV cache.
+
+    Parameters
+    ----------
+    model : :class:`~.model.TinyGPT`-shaped spec (``prefill_kv`` /
+        ``decode_logits`` / geometry attributes)
+    params : flat name -> tensor dict, on ``device``
+    prefill_buckets : prompt-length buckets (prefill runs at batch 1)
+    decode_buckets : slot-count buckets; the largest is the
+        concurrent-sequence bound
+    block_size / num_blocks : :class:`~.kvcache.PagedKVCache` geometry
+    max_queue : pending-request bound past which submits shed
+    kv_dtype : cache dtype, ``"float32"`` or ``"bfloat16"``
+    device : where the cache lives and the model runs (CUDA unless
+        ``"cpu"``)
+    """
+
+    def __init__(self, model, params, prefill_buckets=None,
+                 decode_buckets=None, block_size=None, num_blocks=None,
+                 max_queue=None, label="generative", kv_dtype="float32",
+                 device=None):
+        from ... import env as _env
+        self.model = model
+        self.params = params
+        self.device = resolve_device(device)
+        self._label = label
+        if prefill_buckets is None:
+            prefill_buckets = _env_buckets(
+                "MXNET_TPU_SERVING_PREFILL_BUCKETS")
+        if decode_buckets is None:
+            decode_buckets = _env_buckets(
+                "MXNET_TPU_SERVING_DECODE_BUCKETS")
+        self.prefill_buckets = tuple(sorted(set(
+            int(b) for b in prefill_buckets)))
+        self.decode_buckets = tuple(sorted(set(
+            int(b) for b in decode_buckets)))
+        if not self.prefill_buckets or self.prefill_buckets[0] < 1 \
+                or not self.decode_buckets \
+                or self.decode_buckets[0] < 1:
+            raise MXNetError("decode engine: buckets must be positive "
+                             "ints, got prefill=%r decode=%r"
+                             % (prefill_buckets, decode_buckets))
+        # buckets past the model's context can never run: keep those
+        # that fit, plus one capped at max_seq so the longest
+        # admissible prompt stays servable
+        if self.prefill_buckets[-1] > model.max_seq:
+            kept = tuple(b for b in self.prefill_buckets
+                         if b < model.max_seq)
+            self.prefill_buckets = kept + (int(model.max_seq),)
+        block_size = int(block_size if block_size is not None
+                         else _env.get("MXNET_TPU_SERVING_KV_BLOCK"))
+        num_blocks = int(num_blocks if num_blocks is not None
+                         else _env.get("MXNET_TPU_SERVING_KV_BLOCKS"))
+        self.cache = PagedKVCache(model.num_layers, model.num_heads,
+                                  model.head_dim, block_size,
+                                  num_blocks, dtype=kv_dtype,
+                                  device=self.device)
+        # fixed block-table width: enough for the longest sequence the
+        # model can hold
+        self.max_blocks_per_seq = self.cache.blocks_for(model.max_seq)
+        self.max_queue = int(max_queue if max_queue is not None
+                             else _env.get("MXNET_TPU_SERVING_QUEUE"))
+        self.max_slots = self.decode_buckets[-1]
+        self.decode_steps = 0           # decode-step runs, warm-up included
+        self._cond = threading.Condition()
+        self._pending = collections.deque()
+        self._active = []
+        self._closed = False
+        self._drain = True
+        self._drained_live = 0      # sequences in flight at close()
+        self._thread = None
+
+    # -- the two programs -----------------------------------------------
+    def _to_device(self, array):
+        return torch.from_numpy(array).to(self.device)
+
+    def _run_prefill(self, tokens, table, true_len):
+        """tokens (1, bucket) int32, table (max_blocks,) int32 -> first
+        generated token.  The prompt's K/V go into the cache in place."""
+        bs = self.cache.block_size
+        logits, ks, vs = self.model.prefill_kv(self.params,
+                                                self._to_device(tokens))
+        pos = np.arange(true_len)
+        blk = self._to_device(table[pos // bs].astype(np.int64))
+        off = self._to_device(pos % bs)
+        self.cache.keys[:, blk, off] = ks[:, :true_len].to(self.cache.dtype)
+        self.cache.values[:, blk, off] = vs[:, :true_len].to(
+            self.cache.dtype)
+        return int(logits[0, true_len - 1].argmax())
+
+    def _run_decode(self, tokens, positions, tables):
+        """One decode step over (bucket,) tokens/positions and
+        (bucket, max_blocks) tables -> next token per slot."""
+        self.decode_steps += 1
+        out, _logits, _k, _v = self.model.decode_logits(
+            self.params, self.cache.keys, self.cache.values,
+            self._to_device(tokens), self._to_device(positions),
+            self._to_device(tables), self.cache.block_size)
+        return out.tolist()
+
+    def _device_scope(self):
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
+    def warmup(self):
+        """Run every prefill and decode bucket once on scratch-only
+        tables (kernel build, library set-up); returns the seconds it
+        took.  Warm-up writes land in the scratch block only."""
+        t0 = time.perf_counter()
+        mb = self.max_blocks_per_seq
+        scratch = np.full((mb,), SCRATCH_BLOCK, np.int32)
+        with self._device_scope():
+            for b in self.prefill_buckets:
+                self._run_prefill(np.zeros((1, b), np.int32), scratch, b)
+            for s in self.decode_buckets:
+                self._run_decode(np.zeros((s,), np.int32),
+                                 np.zeros((s,), np.int32),
+                                 np.full((s, mb), SCRATCH_BLOCK, np.int32))
+        return time.perf_counter() - t0
+
+    def _bucket(self, buckets, n, what):
+        for b in buckets:
+            if b >= n:
+                return b
+        raise MXNetError("decode engine: %s of %d exceeds the largest "
+                         "%s bucket %d" % (what, n, what, buckets[-1]))
+
+    # -- intake ---------------------------------------------------------
+    def submit(self, prompt, max_new_tokens, eos_id=None, timeout=None):
+        """Admit one generation request; returns a
+        :class:`GenerationStream`.
+
+        The FULL ``prompt + max_new_tokens`` cache budget is allocated
+        here: :class:`ServingQueueFull` is raised when the pending queue
+        is at capacity or the KV cache cannot cover the budget, so an
+        accepted request never fails for cache space mid-generation."""
+        prompt = [int(t) for t in prompt]
+        max_new = int(max_new_tokens)
+        if not prompt or max_new < 1:
+            raise MXNetError("generate needs a non-empty prompt and "
+                             "max_new_tokens >= 1")
+        if len(prompt) > self.prefill_buckets[-1]:
+            raise MXNetError(
+                "prompt of %d tokens exceeds the largest prefill "
+                "bucket %d" % (len(prompt), self.prefill_buckets[-1]))
+        total = len(prompt) + max_new
+        if total > self.model.max_seq:
+            raise MXNetError(
+                "prompt + max_new_tokens = %d exceeds model max_seq %d"
+                % (total, self.model.max_seq))
+        with self._cond:
+            if self._closed:
+                raise ServableClosed("generative servable %r is closed"
+                                     % self._label)
+            if len(self._pending) >= self.max_queue:
+                raise ServingQueueFull(
+                    "generative servable %r pending queue full (%d)"
+                    % (self._label, self.max_queue))
+            try:
+                table = self.cache.allocate(total)
+            except KVCacheExhausted as e:
+                raise ServingQueueFull(
+                    "generative servable %r shed at admission: %s"
+                    % (self._label, e)) from e
+            stream = GenerationStream(self._label, len(prompt), max_new)
+            self._pending.append(_GenRequest(prompt, max_new, eos_id,
+                                             table, stream, timeout))
+            self._cond.notify()
+        return stream
+
+    # -- the loop -------------------------------------------------------
+    def start(self):
+        if self._thread is not None:
+            raise MXNetError("DecodeEngine already started")
+        self._thread = threading.Thread(
+            target=self._worker, daemon=True,
+            name="mxtt-decode-%s" % self._label)
+        self._thread.start()
+
+    def _worker(self):
+        with self._device_scope():
+            while True:
+                with self._cond:
+                    while not self._pending and not self._active \
+                            and not self._closed:
+                        self._cond.wait(_IDLE_WAIT_S)
+                    if self._closed:
+                        if not self._drain:
+                            self._abort_locked()
+                            return
+                        if not self._pending and not self._active:
+                            return
+                self._admit()
+                if self._active:
+                    self._step()
+
+    def _abort_locked(self):
+        """close(drain=False): resolve everything as closed and free
+        every table -- every stream still ends explicitly."""
+        err = ServableClosed("generative servable %r closed without "
+                             "drain" % self._label)
+        for req in list(self._pending) + self._active:
+            self.cache.free(req.table)
+            req.stream._finish("closed", error=err)
+        self._pending.clear()
+        del self._active[:]
+
+    def _admit(self):
+        """Step-boundary admission: pending requests take free slots in
+        the RUNNING batch (one prefill each).  Expired or cancelled
+        requests resolve here and never occupy a slot."""
+        while True:
+            with self._cond:
+                if not self._pending \
+                        or len(self._active) >= self.max_slots:
+                    return
+                req = self._pending.popleft()
+            now = time.perf_counter()
+            if req.stream.cancelled:
+                self._finish(req, "cancel")
+                continue
+            if req.deadline is not None and now > req.deadline:
+                self.cache.free(req.table)
+                req.stream._finish("timeout", error=RequestTimeout(
+                    "generation waited %.1fms > timeout while queued"
+                    % (1e3 * (now - req.t_submit))))
+                continue
+            self._prefill(req)
+
+    def _prefill(self, req):
+        bucket = self._bucket(self.prefill_buckets, len(req.prompt),
+                              "prefill")
+        tokens = np.zeros((1, bucket), np.int32)
+        tokens[0, :len(req.prompt)] = req.prompt
+        table = self.cache.padded_table(req.table,
+                                        self.max_blocks_per_seq)
+        try:
+            first = self._run_prefill(tokens, table, len(req.prompt))
+        except Exception as e:  # the loop must keep serving the others
+            self.cache.free(req.table)
+            req.stream._finish("error", error=e)
+            return
+        self.cache.note_tokens(req.table, len(req.prompt) + 1)
+        self._emit(req, first, time.perf_counter())
+        if not self._maybe_finish(req):
+            self._active.append(req)
+
+    def _step(self):
+        """ONE decode iteration for every live slot."""
+        n = len(self._active)
+        bucket = self._bucket(self.decode_buckets, n, "decode")
+        tokens = np.zeros((bucket,), np.int32)
+        positions = np.zeros((bucket,), np.int32)
+        tables = np.full((bucket, self.max_blocks_per_seq),
+                         SCRATCH_BLOCK, np.int32)
+        for i, req in enumerate(self._active):
+            tokens[i] = req.last_token
+            positions[i] = req.position
+            tables[i] = self.cache.padded_table(
+                req.table, self.max_blocks_per_seq)
+        try:
+            out = self._run_decode(tokens, positions, tables)
+        except Exception as e:  # fail the batch, keep the loop alive
+            for req in self._active:
+                self.cache.free(req.table)
+                req.stream._finish("error", error=e)
+            del self._active[:]
+            return
+        now = time.perf_counter()
+        finished = []
+        for i, req in enumerate(self._active):
+            self._emit(req, out[i], now)
+            self.cache.note_tokens(req.table,
+                                   len(req.prompt) + req.generated)
+            if self._maybe_finish(req):
+                finished.append(req)
+        if finished:
+            # finished sequences vacate their slot IMMEDIATELY: the
+            # next iteration packs the survivors into a smaller bucket
+            self._active = [r for r in self._active
+                            if r not in finished]
+
+    def _emit(self, req, token, now):
+        req.generated += 1
+        req.last_token = token
+        req.stream._push(token, now)
+
+    def _maybe_finish(self, req):
+        if req.stream.cancelled:
+            self._finish(req, "cancel")
+            return True
+        if req.eos_id is not None and req.last_token == req.eos_id:
+            self._finish(req, "eos")
+            return True
+        if req.generated >= req.max_new:
+            self._finish(req, "length")
+            return True
+        return False
+
+    def _finish(self, req, reason):
+        self.cache.free(req.table)
+        req.stream._finish(reason)
+
+    # -- introspection --------------------------------------------------
+    def queue_depth(self):
+        with self._cond:
+            return len(self._pending)
+
+    # -- lifecycle ------------------------------------------------------
+    def close(self, drain=True):
+        """Stop intake and shut the loop down.  ``drain=True`` keeps
+        STEPPING until every admitted sequence runs to completion (the
+        hot-swap path rides this); ``drain=False`` resolves everything
+        as closed.  Returns the number of sequences that were in flight
+        when close was called."""
+        with self._cond:
+            if self._closed:
+                return 0
+            self._closed = True
+            self._drain = drain
+            live = len(self._pending) + len(self._active)
+            self._drained_live = live
+            self._cond.notify_all()
+        t = self._thread
+        if t is not None:
+            t.join()
+            self._thread = None
+        return live
+
+    @property
+    def closed(self):
+        return self._closed
+
+
+class GenerativeServable:
+    """One deployed generative model: a :class:`DecodeEngine` behind
+    the registry's servable surface."""
+
+    source = "generative"
+
+    def __init__(self, name, engine):
+        self.name = name
+        self._engine = engine
+
+    # -- client surface -------------------------------------------------
+    def generate(self, prompt, max_new_tokens, eos_id=None,
+                 timeout=None):
+        """Stream greedy-decoded tokens for ``prompt``; returns a
+        :class:`GenerationStream`."""
+        return self._engine.submit(prompt, max_new_tokens,
+                                   eos_id=eos_id, timeout=timeout)
+
+    # -- introspection --------------------------------------------------
+    @property
+    def engine(self):
+        return self._engine
+
+    @property
+    def buckets(self):
+        return self._engine.decode_buckets
+
+    @property
+    def prefill_buckets(self):
+        return self._engine.prefill_buckets
+
+    def queue_depth(self):
+        return self._engine.queue_depth()
+
+    @property
+    def queue_capacity(self):
+        return self._engine.max_queue
+
+    def kvcache_stats(self):
+        return self._engine.cache.stats()
+
+    @property
+    def closed(self):
+        return self._engine.closed
+
+    def close(self, drain=True):
+        return self._engine.close(drain=drain)
+
+    def __repr__(self):
+        return ("GenerativeServable(%r, prefill=%r, decode=%r, kv=%s)"
+                % (self.name, self._engine.prefill_buckets,
+                   self._engine.decode_buckets,
+                   self._engine.cache.stats()))

@@ -1,0 +1,94 @@
+"""The PyTorch port stands alone: importing it pulls in neither JAX nor
+the JAX package, no module of it imports either, and its entry points
+refuse to run without CUDA unless the caller asks for the CPU."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import mxnet_tpu_torch
+from mxnet_tpu_torch import MXNetError, resolve_device
+
+PKG = pathlib.Path(mxnet_tpu_torch.__file__).resolve().parent
+FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
+
+
+def test_import_leaves_jax_and_mxnet_tpu_out():
+    code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.serving, "
+            "mxnet_tpu_torch.serving.decode, mxnet_tpu_torch.kernels, "
+            "mxnet_tpu_torch.kernels.paged_attention; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "%r); print(bad)" % (FORBIDDEN,))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(PKG.parent)] + [p for p in env.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(PKG.parent))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_no_module_of_the_port_imports_jax_or_mxnet_tpu():
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) >= 15
+    for path in files:
+        for name in _imports(path):
+            assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+def test_resolve_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        resolve_device("cuda:0")
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(torch.device("cpu")) == torch.device("cpu")
+    with pytest.raises(MXNetError, match="unsupported device"):
+        resolve_device("meta")
+
+
+def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    from mxnet_tpu_torch.serving import ModelRegistry
+    from mxnet_tpu_torch.serving.decode import PagedKVCache, tiny_gpt
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = tiny_gpt(vocab_size=32, units=16, num_layers=2, num_heads=2,
+                     max_seq=32)
+    with pytest.raises(MXNetError):
+        model.init_params(0)
+    with pytest.raises(MXNetError):
+        PagedKVCache(1, 1, 4, block_size=4, num_blocks=4)
+    params = model.init_params(0, device="cpu")
+    with pytest.raises(MXNetError):
+        ModelRegistry().register_generative("gpt", model, params=params)
+
+
+def test_env_registry_defaults_and_typed_reads(monkeypatch):
+    from mxnet_tpu import env as jax_env
+    from mxnet_tpu_torch import env
+    assert len(env.REGISTRY) == 5
+    for name, var in env.REGISTRY.items():
+        assert var.default == jax_env.REGISTRY[name].default, name
+    monkeypatch.setenv("MXNET_TPU_SERVING_KV_BLOCK", "32")
+    assert env.get("MXNET_TPU_SERVING_KV_BLOCK") == 32
+    monkeypatch.setenv("MXNET_TPU_SERVING_KV_BLOCK", "x")
+    with pytest.raises(MXNetError, match="not a valid int"):
+        env.get("MXNET_TPU_SERVING_KV_BLOCK")
+    with pytest.raises(MXNetError, match="unregistered"):
+        env.get("MXNET_TPU_NOPE")
