@@ -6,7 +6,7 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. build every CUDA kernel of ``mxnet_tpu_torch/csrc`` with ``nvcc``;
-2. the main path: ``ModelRegistry.register_generative`` a decoder at
+2. the decode path: ``ModelRegistry.register_generative`` a decoder at
    GPT-2 small's published widths (vocab 50257, 768 units, 12 layers,
    12 heads, 1024 positions; random weights from seed 0), then eight
    concurrent ``generate`` calls, two of them joining the running
@@ -16,8 +16,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    every layer went through the kernel, and the KV cache must be empty
    after the drain.  Then one decode step is profiled to show where its
    time goes;
-3. hold each kernel against its plain PyTorch version at the shapes the
-   main path gives it, and time kernel, plain version and a library
+3. the training path: ``resnet50_v1(layout="NHWC")`` at full width,
+   fp32, batch 128 of 224x224 synthetic images (seed 0), SGD (lr 0.05,
+   momentum 0.9) through ``gluon.Trainer`` and ``parallel.TrainStep``:
+   one warm-up step, the counters zeroed, eight steps, the counters
+   read.  The loss must be finite and fall, and every BatchNorm+ReLU
+   site of every step must have launched the fused forward and backward
+   kernels.  Then one step is profiled;
+4. the training oracle: the same net and weights take one ``TrainStep``
+   at batch 8 on the card (kernels) and one on the CPU (plain
+   versions); loss, every parameter's update and every running
+   statistic must agree;
+5. hold each kernel against its plain PyTorch version at the shapes the
+   main paths give it, and time kernel, plain version and a library
    call computing the same function.
 
 The last two lines of standard output are a JSON object of per-kernel
@@ -43,6 +54,19 @@ FP32_FLOPS = 67e12                 # H100 SXM fp32 outside tensor cores
 TIE_TOL = 1e-3                     # near-tie: oracle top-2 logit gap below
 GPT2_SMALL = dict(vocab_size=50257, units=768, num_layers=12, num_heads=12,
                   max_seq=1024)
+BN_RELU_SITES = 33                 # fused sites per ResNet-50 v1 forward
+TRAIN_STEPS = 8
+# card-vs-CPU limits of the one-step training oracle.  One ResNet-50
+# step at batch 8 moves updates by ~1% in fp32 under a mere change of
+# summation order (the oracle prints that floor); a fault of plumbing
+# (a stride, a mask, a stream) moves them by O(1)
+ORACLE_LIMITS = {"loss_rel_err": 1e-5, "running_stat_rel_err": 1e-4,
+                 "update_rel_err": 2e-2, "update_rel_err_worst": 5e-2,
+                 "conv_bias_abs_err": 1e-5}
+# NHWC shapes of the fused sites the kernel phase runs: the stem and a
+# stage-4 site of ResNet-50 at batch 128
+BN_SHAPES = ((128, 112, 112, 64), (128, 7, 7, 512))
+BN_EPS = 1e-5
 
 
 class SmokeFailure(Exception):
@@ -82,7 +106,7 @@ def time_ms(fn, iters=50, flush_bytes=128 << 20):
 
 
 # ---------------------------------------------------------------------
-# phase 3: paged_attention against its plain version
+# phase 5: paged_attention against its plain version
 # ---------------------------------------------------------------------
 
 def paged_attention_inputs(kv_dtype, seed=0):
@@ -178,7 +202,7 @@ def kernel_phase(scale):
 
 
 # ---------------------------------------------------------------------
-# phase 2: the main path
+# phase 2: the decode path
 # ---------------------------------------------------------------------
 
 def oracle_check(model, params, prompt, tokens, ref):
@@ -358,13 +382,385 @@ def main_path(widths=GPT2_SMALL, device="cuda"):
     return stats, model.scale
 
 
+# ---------------------------------------------------------------------
+# phase 3: the training path
+# ---------------------------------------------------------------------
+
+def resnet50_nhwc():
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    return resnet50_v1(layout="NHWC")
+
+
+def make_train_step(net):
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.parallel import TrainStep
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.05, "momentum": 0.9})
+    return TrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(), trainer)
+
+
+def train_main_path(make_net=resnet50_nhwc, batch=128, image=224,
+                    steps=TRAIN_STEPS, sites=BN_RELU_SITES, device="cuda"):
+    """Train ``make_net()`` for ``steps`` SGD steps on one repeated
+    synthetic batch after one warm-up step; the launch counters are
+    zeroed after the warm-up and read after the last step."""
+    import torch
+    from mxnet_tpu_torch.kernels import registry
+    net = make_net()
+    net.initialize(device=device, generator=torch.Generator().manual_seed(0))
+    step = make_train_step(net)
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn((batch, image, image, 3), generator=gen, device=device)
+    y = torch.randint(0, net.output._units, (batch,), generator=gen,
+                      device=device).float()
+    cuda = device == "cuda"
+    t0 = time.perf_counter()
+    step(x, y)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    warm_s = time.perf_counter() - t0
+
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    losses = [step(x, y) for _ in range(steps)]
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd = registry.launches("bn_relu_apply")
+    bwd = registry.launches("bn_relu_bwd")
+    losses = [float(v) for v in losses]
+
+    check(all(np.isfinite(losses)), "non-finite training loss: %s" % losses)
+    check(losses[-1] < losses[0], "training loss did not fall: %s"
+          % losses)
+    check(fwd == sites * steps, "bn_relu_apply launches %d != %d sites x "
+          "%d steps" % (fwd, sites, steps))
+    check(bwd == sites * steps, "bn_relu_bwd launches %d != %d sites x "
+          "%d steps" % (bwd, sites, steps))
+    stats = {"batch": batch, "image": image, "steps": steps,
+             "losses": losses, "ms_per_step": 1e3 * wall / steps,
+             "img_per_s": batch * steps / wall, "warmup_s": warm_s,
+             "bn_relu_apply_launches": fwd, "bn_relu_bwd_launches": bwd,
+             "peak_mem_bytes": torch.cuda.max_memory_allocated()
+             if cuda else None, "card": gpu_line() if cuda else None}
+    print("training main path (ResNet-50 v1 NHWC fp32, SGD 0.05/0.9): %s"
+          % json.dumps(stats))
+    return net, step, (x, y), stats
+
+
+KERNEL_CATEGORIES = (
+    ("bn_relu", ("bn_relu_fwd_kernel", "bn_relu_bwd_kernel")),
+    ("layout_transform", ("nhwctonchw", "nchwtonhwc")),
+    ("convolution", ("conv", "dgrad", "wgrad", "fprop", "implicit_gemm")),
+    ("copy", ("copy",)),
+    ("pooling", ("pool",)),
+    ("gemm", ("gemm", "gemv")),
+    ("reduction", ("reduce",)),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def kernel_category(name):
+    low = name.lower()
+    for cat, marks in KERNEL_CATEGORIES:
+        if any(m in low for m in marks):
+            return cat
+    return "other"
+
+
+def train_step_breakdown(step, x, y, step_ms):
+    """Where one training step's time goes: device busy time from
+    ``torch.profiler``, by kernel category (ms and launches) and by the
+    operator that launched it, the fused kernels' share, the top device
+    kernels, and every copy kernel, cuDNN's own NHWC/NCHW layout
+    transforms included."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(x, y)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    check(kernels, "the profiler saw no device time")
+
+    def ms(es):
+        return sum(e.self_device_time_total for e in es) / 1e3
+
+    busy = ms(kernels)
+    fwd = [e for e in kernels if "bn_relu_fwd_kernel" in e.key]
+    bwd = [e for e in kernels if "bn_relu_bwd_kernel" in e.key]
+    check(fwd and bwd, "the profiler saw no fused BN+ReLU kernel")
+    copies = [e for e in kernels
+              if kernel_category(e.key) in ("copy", "layout_transform")]
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    top = ranked[:12]
+    other = [e for e in ranked if kernel_category(e.key) == "other"][:6]
+    # the same device time by the host-side op that launched it
+    ops = sorted((e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CPU
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)[:12]
+    by_cat = {}
+    for e in kernels:
+        cat = kernel_category(e.key)
+        ms_, n_ = by_cat.get(cat, (0.0, 0))
+        by_cat[cat] = (ms_ + e.self_device_time_total / 1e3, n_ + e.count)
+    out = {"step_ms": step_ms, "device_busy_ms": busy,
+           "by_category": {k: [v[0], v[1]] for k, v in sorted(
+               by_cat.items(), key=lambda kv: -kv[1][0])},
+           "device_idle_share": max(0.0, 1 - busy / step_ms),
+           "bn_relu_fwd_ms": ms(fwd), "bn_relu_bwd_ms": ms(bwd),
+           "bn_relu_share": (ms(fwd) + ms(bwd)) / busy,
+           "copy_ms": ms(copies),
+           "copy_kernels": [[e.key[:60], e.self_device_time_total / 1e3,
+                             e.count] for e in copies],
+           "top_kernels": [[e.key[:72], e.self_device_time_total / 1e3,
+                            e.count] for e in top],
+           "top_other_kernels": [[e.key[:72],
+                                  e.self_device_time_total / 1e3, e.count]
+                                 for e in other],
+           "top_ops": [[e.key[:48], e.self_device_time_total / 1e3,
+                        e.count] for e in ops]}
+    print("training step breakdown: %s" % json.dumps(out))
+    return out
+
+
+def oracle_step(net, x, y):
+    """One ``TrainStep`` of ``net`` from a fresh trainer: ``(loss,
+    {name: w' - w}, {name: running statistic after}, params)``, names
+    relative to the net's prefix."""
+    params = {p.name[len(net.prefix):]: p
+              for p in net.collect_params().values()}
+    before = {k: p.data().detach().cpu().double()
+              for k, p in params.items()}
+    loss = float(make_train_step(net)(x, y))
+    after = {k: p.data().detach().cpu().double() for k, p in params.items()}
+    updates = {k: after[k] - before[k] for k, p in params.items()
+               if p.grad_req != "null"}
+    stats = {k: after[k] for k, p in params.items() if p.grad_req == "null"}
+    return loss, updates, stats
+
+
+def _is_conv_bias(name):
+    return "conv" in name and name.endswith("bias")
+
+
+def update_errors(ua, ub):
+    """Norm-wise relative error of updates ``ua`` against ``ub``: over
+    all of them together, and the worst single parameter.  Conv biases
+    are left out: each feeds a BatchNorm, whose batch mean cancels it,
+    so its exact gradient is 0 and its update is rounding noise."""
+    num = den = 0.0
+    worst, worst_name = 0.0, None
+    for k, b in ub.items():
+        if _is_conv_bias(k):
+            continue
+        d = float((ua[k] - b).norm())
+        n = float(b.norm())
+        num, den = num + d * d, den + n * n
+        if n > 0 and d / n > worst:
+            worst, worst_name = d / n, k
+    return (num / den) ** 0.5, worst, worst_name
+
+
+def train_oracle(net, make_net=resnet50_nhwc, batch=8, image=224):
+    """One ``TrainStep`` of ``net`` (on the card: the kernels) and of a
+    CPU copy with the same weights (the plain versions), on the same
+    batch.  A third step, on the CPU with the batch permuted, computes
+    the same function in another fp32 summation order: its distance
+    from the CPU step is the noise floor the card is read against."""
+    import torch
+    from mxnet_tpu_torch.gluon.convert import params_from_numpy
+    arrays = {p.name: p.data().detach().cpu().numpy()
+              for p in net.collect_params().values()}
+
+    def cpu_copy():
+        n = make_net()
+        n.initialize(device="cpu")
+        params_from_numpy(n, arrays, prefix=net.prefix)
+        return n
+
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((batch, image, image, 3)).astype(np.float32)
+    y = rng.integers(0, net.output._units, batch).astype(np.float32)
+    perm = rng.permutation(batch)
+    nets = {"cpu": cpu_copy(), "cpu_permuted": cpu_copy()}
+    l_cpu, u_cpu, s_cpu = oracle_step(nets["cpu"], x, y)
+    l_perm, u_perm, _ = oracle_step(nets["cpu_permuted"], x[perm], y[perm])
+    l_card, u_card, s_card = oracle_step(net, x, y)
+    glob, worst, worst_name = update_errors(u_card, u_cpu)
+    floor, floor_worst, _ = update_errors(u_perm, u_cpu)
+    stat_err = max(float((s_card[k] - s_cpu[k]).norm() / s_cpu[k].norm())
+                   for k in s_cpu)
+    bias_err = max(float((u_card[k] - u_cpu[k]).abs().max())
+                   for k in u_cpu if _is_conv_bias(k))
+    out = {"batch": batch, "loss_card": l_card, "loss_cpu": l_cpu,
+           "loss_rel_err": abs(l_card - l_cpu) / abs(l_cpu),
+           "update_rel_err": glob, "update_rel_err_worst": worst,
+           "update_worst_param": worst_name,
+           "floor_update_rel_err": floor,
+           "floor_update_rel_err_worst": floor_worst,
+           "floor_loss_rel_err": abs(l_perm - l_cpu) / abs(l_cpu),
+           "running_stat_rel_err": stat_err, "conv_bias_abs_err": bias_err,
+           "limits": ORACLE_LIMITS}
+    print("training oracle (card vs CPU): %s" % json.dumps(out))
+    check(np.isfinite(l_card), "oracle loss on the card is not finite")
+    for key, limit in ORACLE_LIMITS.items():
+        check(out[key] <= limit, "training oracle: %s %.3g > limit %g"
+              % (key, out[key], limit))
+    return out
+
+
+# ---------------------------------------------------------------------
+# phase 5: fused BN+ReLU kernels against their plain versions
+# ---------------------------------------------------------------------
+
+def bn_relu_inputs(shape, dtype, seed=0):
+    """One fused site's tensors at NHWC ``shape``: the activation (as
+    ``(rows, C)``), the folded forward vectors, the forward output, a
+    cotangent and the backward vectors."""
+    import torch
+    from mxnet_tpu_torch.ops.fused_bn_relu import bn_relu_apply_reference
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[-1]
+    rows = int(np.prod(shape[:-1]))
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device="cuda")
+
+    x = (randn(rows, c) * 2 + 1).to(dtype)
+    gamma = torch.rand(c, generator=gen, device="cuda") + 0.5
+    beta = randn(c)
+    mean = randn(c) * 0.5 + 1
+    var = torch.rand(c, generator=gen, device="cuda") + 3.5
+    inv = torch.rsqrt(var + BN_EPS)
+    scale = gamma * inv
+    offset = beta - mean * scale
+    y = bn_relu_apply_reference(x, scale, offset)
+    dy = randn(rows, c).to(dtype)
+    return {"x": x, "scale": scale, "offset": offset, "y": y, "dy": dy,
+            "gamma": gamma, "beta": beta, "mean": mean, "var": var,
+            "bwd": (gamma * inv, mean, inv, randn(c) * 0.1,
+                    randn(c) * 0.1)}
+
+
+def bn_relu_bound(rows, c, itemsize, passes, vectors, flops):
+    """Least time: ``passes`` activation-sized reads and writes plus the
+    fp32 (C,) vectors, over the memory rate; against ``flops`` an
+    element over the fp32 rate."""
+    nbytes = passes * rows * c * itemsize + 4 * vectors * c
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops * rows * c / FP32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
+
+
+def bn_relu_kernel_phase():
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops.fused_bn_relu import (
+        bn_relu_apply_cuda, bn_relu_apply_reference, bn_relu_bwd_cuda,
+        bn_relu_bwd_reference)
+    # tolerance relative to the largest output: fp32 differs by FMA
+    # contraction; bf16 by one rounding step of the stored result
+    rtol = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+    errs = {"fwd": {}, "bwd": {}}
+    for shape in BN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            t = bn_relu_inputs(shape, dtype)
+            pairs = {
+                "fwd": (bn_relu_apply_cuda(t["x"], t["scale"], t["offset"]),
+                        t["y"]),
+                "bwd": (bn_relu_bwd_cuda(t["x"], t["dy"], t["y"], *t["bwd"]),
+                        bn_relu_bwd_reference(t["x"], t["dy"], t["y"],
+                                              *t["bwd"]))}
+            torch.cuda.synchronize()
+            for kind, (got, want) in pairs.items():
+                check(bool(torch.isfinite(got.float()).all()),
+                      "bn_relu %s %s %s: non-finite" % (kind, shape, dtype))
+                err = float((got.float() - want.float()).abs().max())
+                limit = rtol[dtype] * max(1.0, float(want.float().abs()
+                                                     .max()))
+                check(err <= limit, "bn_relu %s %s %s: max |kernel - "
+                      "plain| %.3g > %.3g" % (kind, shape, dtype, err,
+                                              limit))
+                key = str(dtype).split(".")[-1]
+                errs[kind][key] = max(errs[kind].get(key, 0.0), err)
+                print("bn_relu %s %s %s: max_abs_err %.3g (limit %.3g)"
+                      % (kind, shape, key, err, limit))
+            del t, pairs
+
+    times = {}
+    for shape in BN_SHAPES:
+        n, c = shape[0], shape[-1]
+        rows = int(np.prod(shape[:-1]))
+        t = bn_relu_inputs(shape, torch.float32)
+        x, y, dy = t["x"], t["y"], t["dy"]
+        # the same tensors as NCHW views over channels-last memory
+        x4, y4, dy4 = (v.view(shape).permute(0, 3, 1, 2)
+                       for v in (x, y, dy))
+        inv = t["bwd"][2]
+
+        def lib_fwd():
+            out = F.batch_norm(x4, t["mean"], t["var"], t["gamma"],
+                               t["beta"], False, 0.0, BN_EPS)
+            return out.relu_()
+
+        def lib_bwd():
+            g = torch.ops.aten.threshold_backward(dy4, y4, 0)
+            return torch.ops.aten.native_batch_norm_backward(
+                g, x4, t["gamma"], None, None, t["mean"], inv, True,
+                BN_EPS, [True, True, True])
+
+        fwd = {"ms": time_ms(lambda: bn_relu_apply_cuda(x, t["scale"],
+                                                         t["offset"])),
+               "plain_ms": time_ms(lambda: bn_relu_apply_reference(
+                   x, t["scale"], t["offset"])),
+               "library_ms": time_ms(lib_fwd)}
+        bwd = {"ms": time_ms(lambda: bn_relu_bwd_cuda(x, dy, y, *t["bwd"])),
+               "plain_ms": time_ms(lambda: bn_relu_bwd_reference(
+                   x, dy, y, *t["bwd"])),
+               "library_ms": time_ms(lib_bwd)}
+        # forward: x read, out written, 2 vectors, fma + max;
+        # backward: x, dy, y read, dx written, 5 vectors, ~8 flops
+        fwd["bound_ms"], fwd["bound_by"], fb = bn_relu_bound(rows, c, 4, 2,
+                                                             2, 3)
+        bwd["bound_ms"], bwd["bound_by"], bb = bn_relu_bound(rows, c, 4, 4,
+                                                             5, 8)
+        times[shape] = {"fwd": fwd, "bwd": bwd}
+        print("bn_relu times %s fp32 (batch %d): fwd %s (%d bytes at "
+              "3.35 TB/s); bwd %s (%d bytes); library fwd = "
+              "batch_norm(eval)+relu_, bwd = threshold_backward + "
+              "native_batch_norm_backward"
+              % (shape, n, json.dumps(fwd), fb, json.dumps(bwd), bb))
+        del t, x4, y4, dy4
+    main = times[BN_SHAPES[0]]
+    return {kind: dict(main[kind], max_abs_err=errs[kind]["float32"],
+                       max_abs_err_bf16=errs[kind]["bfloat16"])
+            for kind in ("fwd", "bwd")}
+
+
+def kernel_entry(name, launches, kern):
+    """One kernel's entry of the per-kernel JSON line."""
+    from mxnet_tpu_torch.kernels import registry
+    spec = registry.get(name)
+    return {"name": spec.name, "route": "cuda",
+            "source": "mxnet_tpu_torch/" + spec.source,
+            "replaces": spec.replaces.split()[0], "launches": launches,
+            "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
+            "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
+            "bound_by": kern["bound_by"], "library_ms": kern["library_ms"]}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from mxnet_tpu_torch import _build
-    from mxnet_tpu_torch.kernels import registry
     print(gpu_line())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -372,18 +768,22 @@ def main():
     libs = _build.build_all()
     print("built %s in %.1f s" % (", ".join(sorted(libs)),
                                   time.perf_counter() - t0))
-    stats, scale = main_path()
-    kern = kernel_phase(scale)
-    spec = registry.get("paged_attention")
-    line = {"kernels": [{
-        "name": spec.name, "route": "cuda",
-        "source": "mxnet_tpu_torch/" + spec.source,
-        "replaces": spec.replaces.split()[0],
-        "launches": stats["paged_attention_launches"],
-        "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
-        "bound_by": kern["bound_by"], "library_ms": kern["library_ms"]}]}
-    print(json.dumps(line))
+    decode, scale = main_path()
+    net, step, (x, y), train = train_main_path()
+    train_step_breakdown(step, x, y, train["ms_per_step"])
+    del step, x, y
+    train_oracle(net)
+    del net
+    torch.cuda.empty_cache()
+    attn = kernel_phase(scale)
+    bn = bn_relu_kernel_phase()
+    print(json.dumps({"kernels": [
+        kernel_entry("paged_attention", decode["paged_attention_launches"],
+                     attn),
+        kernel_entry("bn_relu_apply", train["bn_relu_apply_launches"],
+                     bn["fwd"]),
+        kernel_entry("bn_relu_bwd", train["bn_relu_bwd_launches"],
+                     bn["bwd"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

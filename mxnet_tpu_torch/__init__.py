@@ -7,8 +7,16 @@ runs when the tensors lie on the CPU.  Entry points run on CUDA unless
 the caller passes ``device="cpu"``, and raise without CUDA otherwise.
 
 It imports neither JAX nor anything of ``mxnet_tpu``.  Ported so far:
-the generative serving path (:mod:`.serving`) with the
-``paged_attention`` kernel (:mod:`.kernels`).
+
+- the generative serving path (:mod:`.serving`) with the
+  ``paged_attention`` kernel;
+- the ResNet training path: :mod:`.gluon` (blocks, layers, losses,
+  ``Trainer``, the ResNet model zoo), :mod:`.optimizer` (SGD),
+  :mod:`.parallel` (``TrainStep``), with the fused BatchNorm+ReLU
+  forward and backward kernels at every channels-last BatchNorm+relu
+  site.
+
+Kernels and their plain versions are registered in :mod:`.kernels`.
 """
 from .base import MXNetError
 from .context import resolve_device

@@ -1,0 +1,56 @@
+"""Carry a net's weights across from the JAX package (or any source of
+``{name: numpy array}``).
+
+:func:`params_from_numpy` sets a port net's parameters, running
+statistics included, from the arrays of a net of the same architecture.
+Names are matched relative to each net's own prefix: block counters are
+global in each package, so the same net is ``resnetv10_...`` in one
+process and ``resnetv11_...`` in another.  Both packages keep
+convolution weights OHWI for NHWC (OIHW for NCHW), so nothing is
+permuted.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..base import MXNetError
+
+__all__ = ["params_from_numpy"]
+
+
+def _relative(name, prefix):
+    if not name.startswith(prefix):
+        raise MXNetError("parameter %r does not start with prefix %r"
+                         % (name, prefix))
+    return name[len(prefix):]
+
+
+def params_from_numpy(net, arrays, prefix=None):
+    """Set every parameter of ``net`` from ``arrays`` (``{name:
+    ndarray}``).  ``prefix`` is the source net's prefix; by default the
+    names' text up to their first ``_`` (an automatic top-level prefix
+    such as ``resnetv10_``).  Raises on a missing or extra name and on a
+    shape mismatch; a deferred parameter takes the array's shape."""
+    if prefix is None:
+        firsts = {name.split("_", 1)[0] + "_" for name in arrays}
+        if len(firsts) != 1:
+            raise MXNetError("arrays have no common top-level prefix (%s); "
+                             "pass prefix=" % ", ".join(sorted(firsts)))
+        prefix = firsts.pop()
+    src = {_relative(name, prefix): np.asarray(a)
+           for name, a in arrays.items()}
+    dst = {_relative(p.name, net.prefix): p
+           for p in net.collect_params().values()}
+    missing = sorted(set(dst) - set(src))
+    extra = sorted(set(src) - set(dst))
+    if missing or extra:
+        raise MXNetError("params_from_numpy: missing %s, extra %s"
+                         % (missing, extra))
+    for name, p in dst.items():
+        a = src[name]
+        if p.shape is not None and all(p.shape) \
+                and tuple(p.shape) != a.shape:
+            raise MXNetError("params_from_numpy: %s is %s in the net, %s "
+                             "in the arrays" % (name, p.shape, a.shape))
+        p.set_data(torch.tensor(a))

@@ -1,0 +1,193 @@
+"""Basic Gluon layers (counterpart of
+``mxnet_tpu/gluon/nn/basic_layers.py``): ``Sequential``,
+``HybridSequential`` with its BatchNorm+ReLU fusion plan, ``Dense``,
+``BatchNorm`` and ``Flatten``."""
+from __future__ import annotations
+
+import math
+
+from ... import autograd
+from ... import ops
+from ..block import Block, HybridBlock
+from .activations import Activation
+
+__all__ = ["BatchNorm", "Dense", "Flatten", "HybridSequential",
+           "Sequential"]
+
+
+class Sequential(Block):
+    """Stack of blocks run in order."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+
+    def add(self, *blocks):
+        for b in blocks:
+            self.add_module(str(len(self._children)), b)
+
+    def forward(self, x):
+        for b in self._children.values():
+            x = b(x)
+        return x
+
+    def __getitem__(self, i):
+        return list(self._children.values())[i]
+
+    def __len__(self):
+        return len(self._children)
+
+
+def _bn_relu_fusion_plan(children, ndim):
+    """Pair each channels-last ``BatchNorm`` directly followed by a relu
+    ``Activation`` for the fused op.
+
+    Returns ``[(block, fused)]``; ``fused=True`` marks a BatchNorm whose
+    trailing relu runs inside ``_forward_fused_relu`` (the Activation is
+    consumed).  The port has no switch for the kernel tier, so the plan
+    is always armed; a BatchNorm whose axis is not the input's last
+    (``ndim`` axes) stays unpaired and runs BatchNorm then Activation,
+    which is what the fused op computes for it in the JAX package."""
+    blocks = list(children)
+    plan = []
+    i = 0
+    while i < len(blocks):
+        b = blocks[i]
+        nxt = blocks[i + 1] if i + 1 < len(blocks) else None
+        if type(b) is BatchNorm and b._axis in (-1, ndim - 1) \
+                and type(nxt) is Activation and nxt._act == "relu":
+            plan.append((b, True))
+            i += 2
+            continue
+        plan.append((b, False))
+        i += 1
+    return plan
+
+
+class HybridSequential(HybridBlock):
+    """Stack of hybrid blocks run in order, BatchNorm+ReLU pairs fused."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+
+    def add(self, *blocks):
+        for b in blocks:
+            self.add_module(str(len(self._children)), b)
+
+    def hybrid_forward(self, F, x):
+        for b, fused in _bn_relu_fusion_plan(self._children.values(),
+                                             x.dim()):
+            x = b._forward_fused_relu(x) if fused else b(x)
+        return x
+
+    def __getitem__(self, i):
+        return list(self._children.values())[i]
+
+    def __len__(self):
+        return len(self._children)
+
+
+class Dense(HybridBlock):
+    """Fully-connected layer; weight ``(units, in_units)``, ``in_units``
+    deferred when 0."""
+
+    def __init__(self, units, activation=None, use_bias=True, flatten=True,
+                 dtype="float32", weight_initializer=None,
+                 bias_initializer="zeros", in_units=0, **kwargs):
+        super().__init__(**kwargs)
+        self._units = units
+        self._flatten = flatten
+        self._act = activation
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(units, in_units), dtype=dtype,
+                init=weight_initializer, allow_deferred_init=True)
+            if use_bias:
+                self.bias = self.params.get(
+                    "bias", shape=(units,), dtype=dtype,
+                    init=bias_initializer, allow_deferred_init=True)
+            else:
+                self.bias = None
+
+    def infer_shape(self, x):
+        in_units = math.prod(x.shape[1:]) if self._flatten else x.shape[-1]
+        self.weight.shape = (self._units, in_units)
+
+    def hybrid_forward(self, F, x, weight, bias=None):
+        out = F.FullyConnected(x, weight, bias, num_hidden=self._units,
+                               no_bias=bias is None, flatten=self._flatten)
+        if self._act:
+            out = F.Activation(out, act_type=self._act)
+        return out
+
+
+class BatchNorm(HybridBlock):
+    """Batch normalization with MXNet's running statistics, which the
+    layer rebinds after each training forward."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones", running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._momentum = momentum
+        self._eps = epsilon
+        self._scale = scale
+        self._use_global_stats = use_global_stats
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True,
+                grad_req="write" if scale else "null")
+            self.beta = self.params.get(
+                "beta", shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True,
+                grad_req="write" if center else "null")
+            self.running_mean = self.params.get(
+                "running_mean", shape=(in_channels,),
+                init=running_mean_initializer, grad_req="null",
+                allow_deferred_init=True)
+            self.running_var = self.params.get(
+                "running_var", shape=(in_channels,),
+                init=running_variance_initializer, grad_req="null",
+                allow_deferred_init=True)
+
+    def infer_shape(self, x):
+        c = x.shape[self._axis]
+        for p in (self.gamma, self.beta, self.running_mean,
+                  self.running_var):
+            p.shape = (c,)
+
+    def _op_kwargs(self):
+        return dict(eps=self._eps, momentum=self._momentum,
+                    fix_gamma=not self._scale,
+                    use_global_stats=self._use_global_stats,
+                    axis=self._axis, training=autograd.is_training())
+
+    def _rebind_stats(self, new_mean, new_var):
+        if autograd.is_training() and not self._use_global_stats:
+            self.running_mean.set_data(new_mean)
+            self.running_var.set_data(new_var)
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        out, new_mean, new_var = F.BatchNorm(
+            x, gamma, beta, running_mean, running_var, **self._op_kwargs())
+        self._rebind_stats(new_mean, new_var)
+        return out
+
+    def _forward_fused_relu(self, x):
+        """BatchNorm followed by relu through the fused op: the
+        ``HybridSequential`` fusion-site entry.  Same running-statistic
+        contract as ``hybrid_forward``."""
+        p = self._param_values(x)
+        out, new_mean, new_var = ops.fused_batch_norm_relu(
+            x, p["gamma"], p["beta"], p["running_mean"], p["running_var"],
+            **self._op_kwargs())
+        self._rebind_stats(new_mean, new_var)
+        return out
+
+
+class Flatten(HybridBlock):
+    def hybrid_forward(self, F, x):
+        return F.Flatten(x)

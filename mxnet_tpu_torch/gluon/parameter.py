@@ -1,0 +1,241 @@
+"""Gluon Parameter / ParameterDict (counterpart of
+``mxnet_tpu/gluon/parameter.py``).
+
+A :class:`Parameter` names one tensor of a block and holds it once it
+is initialized: a ``torch.nn.Parameter`` when it takes a gradient
+(``grad_req`` ``"write"`` or ``"add"``), a plain tensor otherwise (the
+running statistics of ``BatchNorm``).  Its shape may stay unknown until
+the first forward (``allow_deferred_init``): the block's
+``infer_shape`` fills it and the deferred initialization finishes then,
+on the device and with the initializer and generator recorded at
+``initialize``.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+
+import torch
+
+from .. import initializer
+from ..base import MXNetError
+from ..context import resolve_device
+
+__all__ = ["DeferredInitializationError", "Parameter", "ParameterDict",
+           "shape_is_known"]
+
+_DTYPES = {"float32": torch.float32, "float16": torch.float16,
+           "bfloat16": torch.bfloat16, "float64": torch.float64}
+
+
+class DeferredInitializationError(MXNetError):
+    """Parameter touched before its deferred shape was inferred."""
+
+
+def shape_is_known(shape):
+    if shape is None:
+        return False
+    return all(s is not None and s > 0 for s in shape)
+
+
+def _dtype(dtype):
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    try:
+        return _DTYPES[str(dtype)]
+    except KeyError:
+        raise MXNetError("unsupported parameter dtype %r" % (dtype,)) \
+            from None
+
+
+class Parameter:
+    """A weight or auxiliary tensor of a Block."""
+
+    def __init__(self, name, grad_req="write", shape=None, dtype="float32",
+                 lr_mult=1.0, wd_mult=1.0, init=None,
+                 allow_deferred_init=False, differentiable=True):
+        self.name = name
+        self._grad_req = grad_req if differentiable else "null"
+        if isinstance(shape, int):
+            shape = (shape,)
+        self._shape = tuple(shape) if shape is not None else None
+        self.dtype = _dtype(dtype)
+        self.lr_mult = lr_mult
+        self.wd_mult = wd_mult
+        self.init = init
+        self._allow_deferred_init = allow_deferred_init
+        self._data = None           # tensor once initialized
+        self._deferred_init = None  # (init, device, default_init, generator)
+
+    # -- shape ---------------------------------------------------------
+    @property
+    def shape(self):
+        return self._shape
+
+    @shape.setter
+    def shape(self, new_shape):
+        new_shape = tuple(new_shape)
+        if shape_is_known(self._shape) and new_shape != self._shape:
+            raise MXNetError("cannot reset shape of %s from %s to %s"
+                             % (self.name, self._shape, new_shape))
+        self._shape = new_shape
+
+    @property
+    def grad_req(self):
+        return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req):
+        if req not in ("write", "add", "null"):
+            raise MXNetError("bad grad_req %r" % req)
+        self._grad_req = req
+        if self._data is not None:
+            self._data = self._wrap(self._data.detach())
+
+    # -- init ----------------------------------------------------------
+    def initialize(self, init=None, device=None, default_init=None,
+                   force_reinit=False, generator=None):
+        """Allocate and fill the tensor on ``device`` (the GPU unless the
+        caller asks for the CPU), or defer until the shape is known."""
+        if self._data is not None and not force_reinit:
+            return
+        device = resolve_device(device)
+        default_init = default_init or initializer.Uniform()
+        if not shape_is_known(self._shape):
+            if not self._allow_deferred_init:
+                raise MXNetError("cannot initialize %s: shape %s unknown "
+                                 "and deferred init not allowed"
+                                 % (self.name, self._shape))
+            self._data = None
+            self._deferred_init = (init, device, default_init, generator)
+            return
+        self._finish_init(init, device, default_init, generator)
+
+    def _finish_init(self, init, device, default_init, generator):
+        ini = initializer.create(init or self.init or default_init)
+        data = torch.empty(self._shape, dtype=self.dtype, device=device)
+        ini(self.name, data, generator)
+        self._data = self._wrap(data)
+        self._deferred_init = None
+
+    def _finish_deferred_init(self):
+        if self._deferred_init is None:
+            return
+        if not shape_is_known(self._shape):
+            raise DeferredInitializationError(
+                "parameter %s has unknown shape %s" % (self.name,
+                                                       self._shape))
+        self._finish_init(*self._deferred_init)
+
+    def _wrap(self, tensor):
+        if self._grad_req == "null":
+            return tensor
+        return torch.nn.Parameter(tensor, requires_grad=True)
+
+    # -- access --------------------------------------------------------
+    def _check_initialized(self):
+        if self._data is None:
+            if self._deferred_init is not None:
+                raise DeferredInitializationError(
+                    "parameter %s deferred; forward once or set shape"
+                    % self.name)
+            raise MXNetError("parameter %s not initialized; call "
+                             ".initialize()" % self.name)
+
+    def data(self):
+        self._check_initialized()
+        return self._data
+
+    def grad(self):
+        """The gradient of the last backward (zeros before the first)."""
+        self._check_initialized()
+        if self._grad_req == "null":
+            raise MXNetError("parameter %s has grad_req='null'" % self.name)
+        g = self._data.grad
+        return torch.zeros_like(self._data) if g is None else g
+
+    @torch.no_grad()
+    def set_data(self, data):
+        """Rebind the value, kept at the declared dtype.  A gradient-
+        taking parameter is overwritten in place (its tensor stays the
+        one the optimizer and autograd hold); an auxiliary one is
+        rebound."""
+        if self._data is None:
+            if self._deferred_init is None:
+                raise MXNetError("parameter %s not initialized" % self.name)
+            self.shape = data.shape
+            self._finish_deferred_init()
+        if tuple(data.shape) != tuple(self._data.shape):
+            raise MXNetError("set_data: %s has shape %s, got %s"
+                             % (self.name, tuple(self._data.shape),
+                                tuple(data.shape)))
+        if self._grad_req == "null":
+            self._data = data.detach().to(self._data.device, self.dtype)
+        else:
+            self._data.copy_(data)
+
+    def cast(self, dtype):
+        self.dtype = _dtype(dtype)
+        if self._data is not None:
+            self._data = self._wrap(self._data.detach().to(self.dtype))
+
+    def __repr__(self):
+        return "Parameter %s (shape=%s, dtype=%s)" % (
+            self.name, self._shape, self.dtype)
+
+
+class ParameterDict:
+    """Prefix-scoped dictionary of Parameters; ``get`` creates or
+    shares."""
+
+    def __init__(self, prefix="", shared=None):
+        self._prefix = prefix
+        self._params = OrderedDict()
+        self._shared = shared
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    def __repr__(self):
+        return "ParameterDict(%s)" % ", ".join(self._params)
+
+    def __getitem__(self, key):
+        return self._params[key]
+
+    def __iter__(self):
+        return iter(self._params)
+
+    def __len__(self):
+        return len(self._params)
+
+    def items(self):
+        return self._params.items()
+
+    def keys(self):
+        return self._params.keys()
+
+    def values(self):
+        return self._params.values()
+
+    def get(self, name, **kwargs):
+        full = self._prefix + name
+        if full in self._params:
+            param = self._params[full]
+            shape = kwargs.get("shape")
+            if shape is not None and not shape_is_known(param.shape):
+                param._shape = (shape,) if isinstance(shape, int) \
+                    else tuple(shape)
+            return param
+        if self._shared is not None and full in self._shared._params:
+            self._params[full] = self._shared._params[full]
+            return self._params[full]
+        param = Parameter(full, **kwargs)
+        self._params[full] = param
+        return param
+
+    def initialize(self, init=None, device=None, force_reinit=False,
+                   generator=None):
+        default = initializer.create(init)
+        for p in self.values():
+            p.initialize(None, device, default, force_reinit=force_reinit,
+                         generator=generator)

@@ -1,0 +1,74 @@
+"""Gluon Trainer (counterpart of ``mxnet_tpu/gluon/trainer.py``), the
+single-device path: ``kvstore=None`` only.
+
+``step(batch_size)`` applies the optimizer to every parameter that
+takes a gradient, with ``rescale_grad = _scale / batch_size``.  MXNet's
+``grad_req="write"`` overwrites a gradient at each backward where
+PyTorch accumulates, so the step clears each ``"write"`` gradient after
+using it.
+"""
+from __future__ import annotations
+
+from .. import optimizer as opt
+from ..base import MXNetError
+from .parameter import Parameter, ParameterDict
+
+__all__ = ["Trainer"]
+
+
+class Trainer:
+    def __init__(self, params, optimizer, optimizer_params=None,
+                 kvstore=None):
+        if kvstore is not None:
+            raise MXNetError("Trainer: the port runs on one device; pass "
+                             "kvstore=None (got %r)" % (kvstore,))
+        if isinstance(params, (dict, ParameterDict)):
+            params = list(params.values())
+        if not isinstance(params, (list, tuple)):
+            raise MXNetError("params must be a dict/list of Parameters")
+        self._params = []
+        for p in params:
+            if not isinstance(p, Parameter):
+                raise MXNetError("non-Parameter in Trainer params: %r"
+                                 % (p,))
+            self._params.append(p)
+        self._scale = 1.0
+        if isinstance(optimizer, opt.Optimizer):
+            self._optimizer = optimizer
+        else:
+            param_dict = dict(enumerate(self._params))
+            self._optimizer = opt.create(optimizer, param_dict=param_dict,
+                                         **(optimizer_params or {}))
+        self._updater = opt.get_updater(self._optimizer)
+
+    @property
+    def learning_rate(self):
+        return self._optimizer.learning_rate
+
+    @property
+    def optimizer(self):
+        return self._optimizer
+
+    def set_learning_rate(self, lr):
+        self._optimizer.set_learning_rate(lr)
+
+    def _updatable(self, ignore_stale_grad=False):
+        out = []
+        for i, p in enumerate(self._params):
+            if p.grad_req == "null" or p._data is None:
+                continue
+            if p._data.grad is None:
+                if ignore_stale_grad:
+                    continue
+                raise MXNetError("parameter %s has no gradient; run "
+                                 "backward first" % p.name)
+            out.append((i, p))
+        return out
+
+    def step(self, batch_size, ignore_stale_grad=False):
+        """Optimizer update of every parameter with a gradient."""
+        self._optimizer.rescale_grad = self._scale / batch_size
+        for i, p in self._updatable(ignore_stale_grad):
+            self._updater(i, p._data.grad, p._data)
+            if p.grad_req == "write":
+                p._data.grad = None

@@ -52,7 +52,7 @@ def register_kernel(spec: KernelSpec) -> KernelSpec:
 
 
 def _ensure_registered():
-    from . import paged_attention  # noqa: F401
+    from . import fused_bn_relu, paged_attention  # noqa: F401
 
 
 def get(name: str) -> KernelSpec:

@@ -1,0 +1,139 @@
+"""Optimizers (counterpart of ``mxnet_tpu/optimizer/optimizer.py``):
+the base :class:`Optimizer`, :class:`SGD` with momentum, the
+:class:`Updater` that keeps per-parameter state, ``create`` and
+``register``.
+
+``update(index, weight, grad, state)`` counts the update and then
+applies it in place through :mod:`mxnet_tpu_torch.ops.optimizer_ops`;
+``_apply`` is the update without the count, which ``TrainStep`` calls
+after its own bookkeeping.  Learning rate and weight decay are scaled
+by each parameter's ``lr_mult``/``wd_mult`` through ``param_dict``.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..base import MXNetError
+from ..ops import optimizer_ops
+
+__all__ = ["Optimizer", "SGD", "Updater", "create", "get_updater",
+           "register"]
+
+_OPT_REGISTRY = {}
+
+
+def register(klass):
+    key = klass.__name__.lower()
+    if key in _OPT_REGISTRY and _OPT_REGISTRY[key] is not klass:
+        raise MXNetError("duplicate optimizer registration %r (already %r)"
+                         % (key, _OPT_REGISTRY[key]))
+    _OPT_REGISTRY[key] = klass
+    return klass
+
+
+class Optimizer:
+    """Base optimizer."""
+
+    def __init__(self, rescale_grad=1.0, wd=0.0, clip_gradient=None,
+                 learning_rate=0.01, param_dict=None, begin_num_update=0):
+        self.rescale_grad = rescale_grad
+        self.lr = learning_rate
+        self.wd = wd
+        self.clip_gradient = clip_gradient
+        self.num_update = begin_num_update
+        self.begin_num_update = begin_num_update
+        self._index_update_count = {}
+        self.param_dict = param_dict or {}
+
+    @staticmethod
+    def create_optimizer(name, **kwargs):
+        key = name.lower()
+        if key not in _OPT_REGISTRY:
+            raise MXNetError("unknown optimizer %r; registered: %s"
+                             % (name, ", ".join(sorted(_OPT_REGISTRY))))
+        return _OPT_REGISTRY[key](**kwargs)
+
+    def create_state(self, index, weight):
+        return None
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        self._apply(index, weight, grad, state)
+
+    def _apply(self, index, weight, grad, state):
+        raise NotImplementedError
+
+    def set_learning_rate(self, lr):
+        self.lr = lr
+
+    @property
+    def learning_rate(self):
+        return self.lr
+
+    def _update_count(self, index):
+        count = self._index_update_count.get(index, self.begin_num_update)
+        self._index_update_count[index] = count + 1
+        self.num_update = max(count + 1, self.num_update)
+
+    def _get_lr(self, index):
+        p = self.param_dict.get(index)
+        return self.lr * (p.lr_mult if p is not None else 1.0)
+
+    def _get_wd(self, index):
+        p = self.param_dict.get(index)
+        return self.wd * (p.wd_mult if p is not None else 1.0)
+
+    def _common_kwargs(self, index):
+        kw = {"lr": self._get_lr(index), "wd": self._get_wd(index),
+              "rescale_grad": self.rescale_grad}
+        if self.clip_gradient is not None:
+            kw["clip_gradient"] = self.clip_gradient
+        return kw
+
+
+def create(name, **kwargs):
+    return Optimizer.create_optimizer(name, **kwargs)
+
+
+@register
+class SGD(Optimizer):
+    """SGD with momentum: ``mom' = momentum * mom - lr * g``, ``w' = w +
+    mom'`` (plain ``w' = w - lr * g`` without momentum)."""
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        if self.momentum != 0.0:
+            return torch.zeros_like(weight)
+        return None
+
+    def _apply(self, index, weight, grad, state):
+        kw = self._common_kwargs(index)
+        if state is not None:
+            optimizer_ops.sgd_mom_update(weight, grad, state,
+                                         momentum=self.momentum, **kw)
+        else:
+            optimizer_ops.sgd_update(weight, grad, **kw)
+
+
+class Updater:
+    """Per-parameter optimizer state, created at first use."""
+
+    def __init__(self, optimizer):
+        self.optimizer = optimizer
+        self.states = {}
+
+    def ensure_state(self, index, weight):
+        if index not in self.states:
+            self.states[index] = self.optimizer.create_state(index, weight)
+        return self.states[index]
+
+    def __call__(self, index, grad, weight):
+        self.optimizer.update(index, weight, grad,
+                              self.ensure_state(index, weight))
+
+
+def get_updater(optimizer):
+    return Updater(optimizer)

@@ -1,13 +1,16 @@
 """The port's CUDA kernels on an NVIDIA GPU: each against its plain
-PyTorch version, the wrapper's input checks, and the decode engine
-through the kernel.  Every test here needs the card and skips without
-one.  The file imports neither JAX nor the JAX package, so on a machine
-with a card and no JAX it runs with
+PyTorch version, the wrappers' input checks, and the decode engine and
+a ResNet training step through the kernels.  Every test here needs the
+card and skips without one.  The file imports neither JAX nor the JAX
+package, so on a machine with a card and no JAX it runs with
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda_kernels.py
 
-Tolerances: 1e-4 with fp32 caches (fp32 sums in another order), 2e-2
-with bf16 caches or a bf16 query (bf16 rounding of the output)."""
+Tolerances: paged attention 1e-4 with fp32 caches (fp32 sums in another
+order), 2e-2 with bf16 caches or a bf16 query (bf16 rounding of the
+output).  Fused BN+ReLU, relative to the largest output: 1e-5 in fp32
+(FMA contraction), 1e-2 in bf16 (one rounding step of the stored
+value)."""
 import numpy as np
 import pytest
 import torch
@@ -120,3 +123,130 @@ def test_decode_engine_runs_through_the_kernel(cuda):
         eng.close()
     assert registry.launches("paged_attention") \
         == model.num_layers * eng.decode_steps > 0
+
+
+# -- fused BatchNorm+ReLU ------------------------------------------------
+
+BN_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _bn_case(dev, rows, c, dtype, seed=0):
+    from mxnet_tpu_torch.ops.fused_bn_relu import bn_relu_apply_reference
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(rows, c, generator=g, device=dev) * 2 + 1).to(dtype)
+    scale = torch.rand(c, generator=g, device=dev) + 0.5
+    offset = torch.randn(c, generator=g, device=dev)
+    y = bn_relu_apply_reference(x, scale, offset)
+    dy = torch.randn(rows, c, generator=g, device=dev).to(dtype)
+    vecs = [torch.randn(c, generator=g, device=dev) for _ in range(5)]
+    return x, scale, offset, y, dy, vecs
+
+
+def _close(got, want, dtype):
+    want = want.float()
+    err = (got.float() - want).abs().max().item()
+    return err <= BN_RTOL[dtype] * max(1.0, want.abs().max().item()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows,c", [(1001, 64), (37, 512), (4097, 64),
+                                    (9, 3), (5, 12)])
+def test_bn_relu_kernels_match_plain(cuda, dtype, rows, c):
+    from mxnet_tpu_torch.kernels.registry import dispatch
+    from mxnet_tpu_torch.ops.fused_bn_relu import bn_relu_bwd_reference
+    x, scale, offset, y, dy, vecs = _bn_case(cuda, rows, c, dtype)
+    f0 = registry.launches("bn_relu_apply")
+    b0 = registry.launches("bn_relu_bwd")
+    got = dispatch("bn_relu_apply", x, scale, offset)
+    assert registry.launches("bn_relu_apply") == f0 + 1
+    dx = dispatch("bn_relu_bwd", x, dy, y, *vecs)
+    assert registry.launches("bn_relu_bwd") == b0 + 1
+    want_dx = bn_relu_bwd_reference(x, dy, y, *vecs)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and dx.dtype == dtype
+    ok, err = _close(got, y, dtype)
+    assert ok, ("fwd", err)
+    ok, err = _close(dx, want_dx, dtype)
+    assert ok, ("bwd", err)
+
+
+def test_bn_relu_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from mxnet_tpu_torch.ops.fused_bn_relu import (bn_relu_apply_cuda,
+                                                   bn_relu_bwd_cuda)
+    x, scale, offset, y, dy, vecs = _bn_case(cuda, 64, 8, torch.float32)
+    with pytest.raises(MXNetError, match="contiguous"):
+        bn_relu_apply_cuda(x.t().contiguous().t(), scale, offset)
+    with pytest.raises(MXNetError, match="float32 or bfloat16"):
+        bn_relu_apply_cuda(x.half(), scale, offset)
+    with pytest.raises(MXNetError, match="float32 of shape"):
+        bn_relu_apply_cuda(x, scale.double(), offset)
+    with pytest.raises(MXNetError, match="on cpu"):
+        bn_relu_apply_cuda(x, scale.cpu(), offset)
+    with pytest.raises(MXNetError, match="needs CUDA"):
+        bn_relu_apply_cuda(x.cpu(), scale, offset)
+    with pytest.raises(MXNetError, match=r"\(rows, C\)"):
+        bn_relu_apply_cuda(x.reshape(4, 16, 8), scale, offset)
+    with pytest.raises(MXNetError, match="dy is"):
+        bn_relu_bwd_cuda(x, dy[:32].contiguous(), y, *vecs)
+    with pytest.raises(MXNetError, match="float32 of shape"):
+        bn_relu_bwd_cuda(x, dy, y, vecs[0][:4].contiguous(), *vecs[1:])
+
+
+@pytest.mark.parametrize("training,use_global,fix_gamma", [
+    (True, False, False), (True, False, True), (False, False, False),
+    (True, True, False)])
+def test_fused_op_on_the_card_matches_the_cpu(cuda, training, use_global,
+                                              fix_gamma):
+    """The whole fused op (statistics, running-stat update, kernels,
+    autograd) on the card against the same op on the CPU."""
+    from mxnet_tpu_torch.kernels.fused_bn_relu import fused_bn_relu
+    rng = np.random.default_rng(1)
+    arrs = [(rng.standard_normal((4, 5, 5, 16)) * 2 + 1),
+            rng.random(16) + 0.5, rng.standard_normal(16),
+            rng.standard_normal(16) * 0.1, rng.random(16) + 0.5]
+    cot = rng.standard_normal((4, 5, 5, 16))
+    res = {}
+    for dev in ("cpu", cuda):
+        x, g, b, mm, mv = (torch.tensor(a, dtype=torch.float32,
+                                        device=dev) for a in arrs)
+        for t in (x, g, b):
+            t.requires_grad_(True)
+        out, nm, nv = fused_bn_relu(x, g, b, mm, mv, fix_gamma=fix_gamma,
+                                    use_global_stats=use_global, axis=3,
+                                    training=training)
+        (out * torch.tensor(cot, dtype=torch.float32, device=dev)).sum() \
+            .backward()
+        res[str(dev)] = [t.detach().cpu() if t is not None else None
+                         for t in (out, nm, nv, x.grad, g.grad, b.grad)]
+    for name, a, b in zip(("out", "mean", "var", "dx", "dgamma", "dbeta"),
+                          res["cpu"], res[str(cuda)]):
+        if a is None:
+            assert b is None, name
+            continue
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+
+
+def test_resnet_train_step_runs_through_the_kernels(cuda):
+    """A narrow NHWC ResNet v1 (four bottlenecks, 8 fused sites) trains
+    on the card: every site launches both kernels on every step."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo.vision import (BottleneckV1,
+                                                        ResNetV1)
+    from mxnet_tpu_torch.parallel import TrainStep
+    net = ResNetV1(BottleneckV1, [1, 1, 1, 1], [16, 32, 64, 128, 256],
+                   classes=10, thumbnail=True, layout="NHWC")
+    net.initialize(device=cuda, generator=torch.Generator().manual_seed(0))
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.05, "momentum": 0.9})
+    step = TrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(), trainer)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((4, 32, 32, 3)).astype(np.float32)
+    y = rng.integers(0, 10, 4).astype(np.float32)
+    first = float(step(x, y))
+    registry.reset_launches()
+    losses = [float(step(x, y)) for _ in range(3)]
+    assert registry.launches("bn_relu_apply") == 8 * 3
+    assert registry.launches("bn_relu_bwd") == 8 * 3
+    assert np.isfinite([first] + losses).all() and losses[-1] < first

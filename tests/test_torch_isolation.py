@@ -18,11 +18,14 @@ FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
 
 
 def test_import_leaves_jax_and_mxnet_tpu_out():
-    code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.serving, "
-            "mxnet_tpu_torch.serving.decode, mxnet_tpu_torch.kernels, "
-            "mxnet_tpu_torch.kernels.paged_attention; "
+    modules = sorted(
+        ".".join(("mxnet_tpu_torch",) + p.relative_to(PKG).with_suffix("")
+                 .parts[:-1 if p.name == "__init__.py" else None])
+        for p in PKG.rglob("*.py"))
+    code = ("import sys\n"
+            "for m in %r: __import__(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "%r); print(bad)" % (FORBIDDEN,))
+            "%r); print(bad)" % (modules, FORBIDDEN))
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(PKG.parent)] + [p for p in env.get("PYTHONPATH", "").split(
@@ -46,8 +49,8 @@ def _imports(path):
 
 def test_no_module_of_the_port_imports_jax_or_mxnet_tpu():
     files = sorted(PKG.rglob("*.py"))
-    assert len(files) >= 15
-    for path in files:
+    assert len(files) >= 35
+    for path in files + [PKG.parent / "chip_smoke.py"]:
         for name in _imports(path):
             assert name.split(".")[0] not in FORBIDDEN, (path, name)
 
@@ -77,6 +80,15 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     params = model.init_params(0, device="cpu")
     with pytest.raises(MXNetError):
         ModelRegistry().register_generative("gpt", model, params=params)
+
+
+def test_training_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet18_v1
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    net = resnet18_v1(layout="NHWC")
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        net.initialize()
+    net.initialize(device="cpu")
 
 
 def test_env_registry_defaults_and_typed_reads(monkeypatch):
