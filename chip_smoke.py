@@ -27,7 +27,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    at batch 8 on the card (kernels) and one on the CPU (plain
    versions); loss, every parameter's update and every running
    statistic must agree;
-5. hold each kernel against its plain PyTorch version at the shapes the
+5. the BERT pretraining path: ``bert_base`` at its published widths
+   (vocab 30522, 768 units, 12 layers, 12 heads, 512 positions),
+   dropout 0.1, fp32, batch 32 x seq 512 of synthetic token ids and
+   labels (seed 0), masked-LM loss, LAMB (lr 1e-4, wd 0.01) through
+   ``gluon.Trainer`` and ``parallel.TrainStep``: one warm-up step, the
+   counters zeroed, eight steps, the counters read.  The loss must be
+   finite and fall; every step must launch the flash forward and
+   backward kernels at each of the 12 layers, the LayerNorm kernel at
+   each of the 26 sites and one LAMB phase-1 pass.  Then one step is
+   profiled;
+6. the BERT oracle: one step of the same weights (dropout 0) at batch
+   2 x seq 512 on the card and on the CPU; loss, every gradient and
+   every update must agree within limits above the permuted-batch
+   floor;
+7. hold each kernel against its plain PyTorch version at the shapes the
    main paths give it, and time kernel, plain version and a library
    call computing the same function.
 
@@ -38,6 +52,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -106,7 +121,7 @@ def time_ms(fn, iters=50, flush_bytes=128 << 20):
 
 
 # ---------------------------------------------------------------------
-# phase 5: paged_attention against its plain version
+# phase 7: paged_attention against its plain version
 # ---------------------------------------------------------------------
 
 def paged_attention_inputs(kv_dtype, seed=0):
@@ -451,14 +466,24 @@ def train_main_path(make_net=resnet50_nhwc, batch=128, image=224,
 
 KERNEL_CATEGORIES = (
     ("bn_relu", ("bn_relu_fwd_kernel", "bn_relu_bwd_kernel")),
+    ("flash_attention", ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+                         "flash_bwd_dq_kernel")),
+    ("layernorm", ("layernorm_fwd_kernel",)),
+    ("lamb_phase1", ("lamb_phase1_kernel",)),
     ("layout_transform", ("nhwctonchw", "nchwtonhwc")),
     ("convolution", ("conv", "dgrad", "wgrad", "fprop", "implicit_gemm")),
     ("copy", ("copy",)),
     ("pooling", ("pool",)),
     ("gemm", ("gemm", "gemv")),
+    ("softmax", ("softmax",)),
+    ("index", ("index", "gather", "scatter", "embedding")),
     ("reduction", ("reduce",)),
     ("elementwise", ("elementwise",)),
 )
+RESNET_KERNELS = ("bn_relu_fwd_kernel", "bn_relu_bwd_kernel")
+BERT_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+                "flash_bwd_dq_kernel", "layernorm_fwd_kernel",
+                "lamb_phase1_kernel")
 
 
 def kernel_category(name):
@@ -469,12 +494,14 @@ def kernel_category(name):
     return "other"
 
 
-def train_step_breakdown(step, x, y, step_ms):
+def train_step_breakdown(step, x, y, step_ms, hand=RESNET_KERNELS,
+                         label="training step breakdown"):
     """Where one training step's time goes: device busy time from
     ``torch.profiler``, by kernel category (ms and launches) and by the
-    operator that launched it, the fused kernels' share, the top device
-    kernels, and every copy kernel, cuDNN's own NHWC/NCHW layout
-    transforms included."""
+    operator that launched it, the device time of each hand-written
+    kernel named in ``hand`` and their share, the top device kernels,
+    and every copy kernel, cuDNN's own NHWC/NCHW layout transforms
+    included."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -490,9 +517,9 @@ def train_step_breakdown(step, x, y, step_ms):
         return sum(e.self_device_time_total for e in es) / 1e3
 
     busy = ms(kernels)
-    fwd = [e for e in kernels if "bn_relu_fwd_kernel" in e.key]
-    bwd = [e for e in kernels if "bn_relu_bwd_kernel" in e.key]
-    check(fwd and bwd, "the profiler saw no fused BN+ReLU kernel")
+    own = {name: [e for e in kernels if name in e.key] for name in hand}
+    missing = [name for name, es in own.items() if not es]
+    check(not missing, "the profiler saw no %s" % ", ".join(missing))
     copies = [e for e in kernels
               if kernel_category(e.key) in ("copy", "layout_transform")]
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
@@ -508,12 +535,13 @@ def train_step_breakdown(step, x, y, step_ms):
         cat = kernel_category(e.key)
         ms_, n_ = by_cat.get(cat, (0.0, 0))
         by_cat[cat] = (ms_ + e.self_device_time_total / 1e3, n_ + e.count)
+    hand_ms = {name: ms(es) for name, es in own.items()}
     out = {"step_ms": step_ms, "device_busy_ms": busy,
            "by_category": {k: [v[0], v[1]] for k, v in sorted(
                by_cat.items(), key=lambda kv: -kv[1][0])},
            "device_idle_share": max(0.0, 1 - busy / step_ms),
-           "bn_relu_fwd_ms": ms(fwd), "bn_relu_bwd_ms": ms(bwd),
-           "bn_relu_share": (ms(fwd) + ms(bwd)) / busy,
+           "hand_kernel_ms": hand_ms,
+           "hand_kernel_share": sum(hand_ms.values()) / busy,
            "copy_ms": ms(copies),
            "copy_kernels": [[e.key[:60], e.self_device_time_total / 1e3,
                              e.count] for e in copies],
@@ -524,7 +552,7 @@ def train_step_breakdown(step, x, y, step_ms):
                                  for e in other],
            "top_ops": [[e.key[:48], e.self_device_time_total / 1e3,
                         e.count] for e in ops]}
-    print("training step breakdown: %s" % json.dumps(out))
+    print("%s: %s" % (label, json.dumps(out)))
     return out
 
 
@@ -548,22 +576,26 @@ def _is_conv_bias(name):
     return "conv" in name and name.endswith("bias")
 
 
-def update_errors(ua, ub):
-    """Norm-wise relative error of updates ``ua`` against ``ub``: over
-    all of them together, and the worst single parameter.  Conv biases
-    are left out: each feeds a BatchNorm, whose batch mean cancels it,
-    so its exact gradient is 0 and its update is rounding noise."""
+def rel_errors(a, b):
+    """Norm-wise relative error of ``a`` against ``b`` (dicts of
+    tensors): over all together, and the worst single entry."""
     num = den = 0.0
     worst, worst_name = 0.0, None
-    for k, b in ub.items():
-        if _is_conv_bias(k):
-            continue
-        d = float((ua[k] - b).norm())
-        n = float(b.norm())
+    for k, want in b.items():
+        d = float((a[k] - want).norm())
+        n = float(want.norm())
         num, den = num + d * d, den + n * n
         if n > 0 and d / n > worst:
             worst, worst_name = d / n, k
     return (num / den) ** 0.5, worst, worst_name
+
+
+def update_errors(ua, ub):
+    """:func:`rel_errors` of updates ``ua`` against ``ub``, conv biases
+    left out: each feeds a BatchNorm, whose batch mean cancels it, so
+    its exact gradient is 0 and its update is rounding noise."""
+    return rel_errors(ua, {k: v for k, v in ub.items()
+                           if not _is_conv_bias(k)})
 
 
 def train_oracle(net, make_net=resnet50_nhwc, batch=8, image=224):
@@ -615,7 +647,7 @@ def train_oracle(net, make_net=resnet50_nhwc, batch=8, image=224):
 
 
 # ---------------------------------------------------------------------
-# phase 5: fused BN+ReLU kernels against their plain versions
+# phase 7: fused BN+ReLU kernels against their plain versions
 # ---------------------------------------------------------------------
 
 def bn_relu_inputs(shape, dtype, seed=0):
@@ -743,6 +775,537 @@ def bn_relu_kernel_phase():
             for kind in ("fwd", "bwd")}
 
 
+# ---------------------------------------------------------------------
+# phases 5-6: the BERT pretraining path and its oracle
+# ---------------------------------------------------------------------
+
+BERT_VOCAB = 30522
+BERT_LAYERS = 12
+BERT_HEADS = 12
+BERT_BATCH, BERT_SEQ = 32, 512
+# LAMB of the main path: lr an explicit hyper-parameter, the rest the
+# optimizer's published defaults with BERT's weight decay
+BERT_LAMB = {"learning_rate": 1e-4, "wd": 0.01, "beta1": 0.9,
+             "beta2": 0.999, "epsilon": 1e-6, "bias_correction": True}
+# card-vs-CPU limits of the one-step BERT oracle (batch 2 x seq 512,
+# dropout 0).  A plumbing fault (a stride, a mask, a stream, a missed
+# gradient) moves gradients and updates by O(1).  Gradients are held
+# tightly; fp32 summation order alone moves them by about the floor the
+# oracle prints (the same CPU step with the batch permuted).  LAMB's
+# first step, m / (sqrt(v) + eps) = g / (|g| + eps), turns the rounding
+# noise of gradient entries far below their tensor's norm into updates
+# of either sign, so the card-vs-CPU updates are held loosely and the
+# update itself sharply: the card's bucketed LAMB against the plain
+# versions on the CPU fed the card's own gradients and weights
+# ("lamb_*").  The key third of each qkv bias is held apart: softmax
+# ignores a shift of the scores along a row, so its exact gradient is 0
+# and its update pure noise; its gradient is held against the rest of
+# the bias's
+BERT_ORACLE_LIMITS = {"loss_rel_err": 1e-5, "grad_rel_err": 1e-4,
+                      "grad_rel_err_worst": 1e-3, "lamb_rel_err": 1e-4,
+                      "lamb_rel_err_worst": 1e-3, "update_rel_err": 2e-2,
+                      "update_rel_err_worst": 2e-1,
+                      "key_bias_grad_share": 1e-4}
+
+def bert_base_net(dropout=0.1, vocab_size=BERT_VOCAB):
+    from mxnet_tpu_torch.gluon.model_zoo import bert_base
+    return bert_base(vocab_size=vocab_size, max_length=BERT_SEQ,
+                     dropout=dropout)
+
+
+def make_mlm_loss(vocab):
+    """The masked-LM loss of the JAX package's BERT step
+    (``bench.py :: bench_bert_base``): softmax cross entropy at every
+    position, summed by ``TrainStep``; next-sentence scores unused."""
+    from mxnet_tpu_torch import gluon
+
+    class MLMLoss(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self._ce = gluon.loss.SoftmaxCrossEntropyLoss()
+
+        def hybrid_forward(self, F, outs, labels):
+            return self._ce(outs[0].reshape(-1, vocab), labels.reshape(-1))
+
+    return MLMLoss()
+
+
+def make_bert_step(net, vocab):
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.parallel import TrainStep
+    trainer = gluon.Trainer(net.collect_params(), "lamb", dict(BERT_LAMB))
+    return TrainStep(net, make_mlm_loss(vocab), trainer)
+
+
+def bert_main_path(make_net=bert_base_net, vocab=BERT_VOCAB,
+                   layers=BERT_LAYERS, batch=BERT_BATCH, seq=BERT_SEQ,
+                   steps=TRAIN_STEPS, device="cuda"):
+    """Pretrain ``make_net()`` (masked LM, LAMB) for ``steps`` steps on
+    one repeated synthetic batch after one warm-up step; the launch
+    counters are zeroed after the warm-up and read after the last
+    step."""
+    import torch
+    from mxnet_tpu_torch import random
+    from mxnet_tpu_torch.kernels import registry
+    random.seed(0)
+    net = make_net()
+    net.initialize(device=device, generator=torch.Generator().manual_seed(0))
+    step = make_bert_step(net, vocab)
+    gen = torch.Generator(device=device).manual_seed(0)
+    ids = torch.randint(0, vocab, (batch, seq), generator=gen,
+                        device=device).float()
+    labels = torch.randint(0, vocab, (batch, seq), generator=gen,
+                           device=device).float()
+    cuda = device == "cuda"
+    t0 = time.perf_counter()
+    step(ids, labels)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    warm_s = time.perf_counter() - t0
+
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    losses = [step(ids, labels) for _ in range(steps)]
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: registry.launches(name) for name in (
+        "flash_attention_fwd", "flash_attention_bwd", "layernorm_fwd",
+        "lamb_phase1")}
+    losses = [float(v) for v in losses]
+
+    check(all(np.isfinite(losses)), "non-finite BERT loss: %s" % losses)
+    check(losses[-1] < losses[0], "BERT loss did not fall: %s" % losses)
+    want = {"flash_attention_fwd": layers * steps,
+            "flash_attention_bwd": layers * steps,
+            # two per encoder cell, the embedding LayerNorm, the MLM head's
+            "layernorm_fwd": (2 * layers + 2) * steps,
+            "lamb_phase1": steps}   # one fp32 bucket a step
+    for name, n in want.items():
+        check(counts[name] == n, "%s launches %d != %d" % (name,
+                                                           counts[name], n))
+    bucket = sum(p.data().numel() for p in net.collect_params().values())
+    stats = {"batch": batch, "seq": seq, "steps": steps, "losses": losses,
+             "ms_per_step": 1e3 * wall / steps,
+             "tokens_per_s": batch * seq * steps / wall, "warmup_s": warm_s,
+             "launches": counts, "lamb_bucket_elements": bucket,
+             "peak_mem_bytes": torch.cuda.max_memory_allocated()
+             if cuda else None, "card": gpu_line() if cuda else None}
+    print("BERT main path (bert_base fp32, masked LM, LAMB, dropout 0.1): "
+          "%s" % json.dumps(stats))
+    return net, step, (ids, labels), stats
+
+
+@contextlib.contextmanager
+def replaying_bucket_update(record):
+    """Within the scope, ``TrainStep``'s bucketed update runs as ever and
+    then once more on CPU copies of its inputs (weights, gradients and
+    states before the update): the plain versions fed the same
+    gradients.  ``record["replay"]`` receives ``{index: weight}`` of
+    that replay."""
+    from mxnet_tpu_torch.parallel import data_parallel
+    original = data_parallel.bucket_update
+
+    def both(opt, items):
+        cpu = [(i, w.detach().cpu().clone(), g.detach().cpu().clone(),
+                tuple(t.detach().cpu().clone() for t in s))
+               for i, w, g, s in items]
+        original(opt, items)
+        original(opt, cpu)
+        record["replay"] = {i: w for i, w, _g, _s in cpu}
+
+    data_parallel.bucket_update = both
+    try:
+        yield record
+    finally:
+        data_parallel.bucket_update = original
+
+
+def bert_grads_and_step(net, vocab, ids, labels):
+    """One forward/backward of the summed MLM loss, then one
+    ``TrainStep`` from a fresh trainer: ``(loss, {name: grad}, {name: w'
+    - w}, {name: w'' - w})``, float64 on the CPU, names relative to the
+    net's prefix, ``w''`` the replay of the step's LAMB update on the CPU
+    from the step's own gradients; parameters without a gradient are
+    left out of the gradients."""
+    import torch
+    from mxnet_tpu_torch import autograd
+    params = {p.name[len(net.prefix):]: p
+              for p in net.collect_params().values()}
+    dev = next(iter(params.values())).data().device
+    x = torch.as_tensor(ids, device=dev)
+    y = torch.as_tensor(labels, device=dev)
+    with autograd.record():
+        loss = make_mlm_loss(vocab)(net(x), y)
+    loss.sum().backward()
+    grads = {}
+    for k, p in params.items():
+        g = p.data().grad
+        if g is not None:
+            grads[k] = g.detach().cpu().double()
+        p.data().grad = None
+    before = {k: p.data().detach().cpu().double() for k, p in params.items()}
+    step = make_bert_step(net, vocab)
+    with replaying_bucket_update({}) as record:
+        loss = float(step(x, y))
+    names = {i: p.name[len(net.prefix):]
+             for i, p in enumerate(step._trainer._params)}
+    updates = {k: p.data().detach().cpu().double() - before[k]
+               for k, p in params.items()}
+    replay = {names[i]: w.double() - before[names[i]]
+              for i, w in record["replay"].items()}
+    return loss, grads, updates, replay
+
+
+def split_key_bias(values, units):
+    """``values`` with the key third of every ``qkv_bias`` cut out, and
+    the key thirds apart: ``(rest, {name: key part})``."""
+    import torch
+    rest, keys = {}, {}
+    for name, t in values.items():
+        if name.endswith("qkv_bias"):
+            keys[name] = t[units:2 * units]
+            t = torch.cat([t[:units], t[2 * units:]])
+        rest[name] = t
+    return rest, keys
+
+
+def bert_oracle(net, make_net=bert_base_net, vocab=BERT_VOCAB, batch=2,
+                seq=BERT_SEQ, device="cuda"):
+    """One BERT step (dropout 0) with ``net``'s weights on ``device``
+    (the kernels) and on the CPU (the plain versions), on the same
+    batch: loss, every gradient before the update and every update.  A
+    third step, on the CPU with the batch permuted, computes the same
+    function in another fp32 summation order: its distance from the CPU
+    step is the floor the card is read against."""
+    from mxnet_tpu_torch.gluon.convert import params_from_numpy
+    arrays = {p.name: p.data().detach().cpu().numpy()
+              for p in net.collect_params().values()}
+    units = net._units
+
+    def copy_on(dev):
+        n = make_net(dropout=0.0)
+        n.initialize(device=dev)
+        params_from_numpy(n, arrays, prefix=net.prefix)
+        return n
+
+    rng = np.random.default_rng(1)
+    ids = rng.integers(0, vocab, (batch, seq)).astype(np.float32)
+    labels = rng.integers(0, vocab, (batch, seq)).astype(np.float32)
+    perm = rng.permutation(batch)
+    runs = {"cpu": bert_grads_and_step(copy_on("cpu"), vocab, ids, labels),
+            "cpu_permuted": bert_grads_and_step(copy_on("cpu"), vocab,
+                                                ids[perm], labels[perm]),
+            "card": bert_grads_and_step(copy_on(device), vocab, ids,
+                                        labels)}
+    loss, grads, updates, key_grads = {}, {}, {}, {}
+    for run, (l, g, u, _r) in runs.items():
+        loss[run] = l
+        grads[run], key_grads[run] = split_key_bias(g, units)
+        updates[run], _ = split_key_bias(u, units)
+    replay, _ = split_key_bias(runs["card"][3], units)
+    check(sorted(grads["card"]) == sorted(grads["cpu"]),
+          "parameters with a gradient differ: card %d, CPU %d"
+          % (len(grads["card"]), len(grads["cpu"])))
+    g_glob, g_worst, g_worst_name = rel_errors(grads["card"], grads["cpu"])
+    u_glob, u_worst, u_worst_name = rel_errors(updates["card"],
+                                               updates["cpu"])
+    l_glob, l_worst, l_worst_name = rel_errors(updates["card"], replay)
+    fg_glob, fg_worst, _ = rel_errors(grads["cpu_permuted"], grads["cpu"])
+    fu_glob, fu_worst, _ = rel_errors(updates["cpu_permuted"],
+                                      updates["cpu"])
+    # the key parts' gradient (exactly 0) against the rest of the bias's
+    key_share = max(float(key_grads[run][k].norm()
+                          / grads[run][k].norm())
+                    for run in ("card", "cpu") for k in key_grads[run])
+    # where the card-vs-CPU update error of the worst qkv weight sits:
+    # its query, key and value thirds
+    worst_qkv = max((k for k in updates["cpu"] if k.endswith("qkv_weight")),
+                    key=lambda k: float((updates["card"][k]
+                                         - updates["cpu"][k]).norm()
+                                        / updates["cpu"][k].norm()))
+    thirds = [float((updates["card"][worst_qkv][j * units:(j + 1) * units]
+                     - updates["cpu"][worst_qkv][j * units:(j + 1) * units])
+                    .norm() / updates["cpu"][worst_qkv]
+                    [j * units:(j + 1) * units].norm()) for j in range(3)]
+    out = {"batch": batch, "seq": seq, "loss_card": loss["card"],
+           "loss_cpu": loss["cpu"],
+           "loss_rel_err": abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"]),
+           "grad_rel_err": g_glob, "grad_rel_err_worst": g_worst,
+           "grad_worst_param": g_worst_name,
+           "lamb_rel_err": l_glob, "lamb_rel_err_worst": l_worst,
+           "lamb_worst_param": l_worst_name,
+           "update_rel_err": u_glob, "update_rel_err_worst": u_worst,
+           "update_worst_param": u_worst_name,
+           "update_rel_err_qkv_thirds": [worst_qkv, thirds],
+           "key_bias_grad_share": key_share,
+           "floor_loss_rel_err": abs(loss["cpu_permuted"] - loss["cpu"])
+           / abs(loss["cpu"]),
+           "floor_grad_rel_err": fg_glob,
+           "floor_grad_rel_err_worst": fg_worst,
+           "floor_update_rel_err": fu_glob,
+           "floor_update_rel_err_worst": fu_worst,
+           "params_with_grad": len(grads["cpu"]),
+           "params": len(updates["cpu"]), "limits": BERT_ORACLE_LIMITS}
+    print("BERT oracle (card vs CPU): %s" % json.dumps(out))
+    check(np.isfinite(loss["card"]),
+          "BERT oracle loss on the card is not finite")
+    for key, limit in BERT_ORACLE_LIMITS.items():
+        check(out[key] <= limit, "BERT oracle: %s %.3g > limit %g"
+              % (key, out[key], limit))
+    return out
+
+
+# ---------------------------------------------------------------------
+# phase 7: flash attention, LayerNorm and LAMB phase 1 against their
+# plain versions
+# ---------------------------------------------------------------------
+
+# relative to the largest output: fp32 sums in another order (the
+# backward sums `seq` products an element), bf16 one rounding step
+FLASH_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}
+ROW_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def flash_inputs(bh, seq, d, dtype, heads=BERT_HEADS, masked=False, seed=0):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn():
+        return torch.randn(bh, seq, d, generator=gen, device="cuda") \
+            .to(dtype)
+
+    q, k, v, do = randn(), randn(), randn(), randn()
+    mask = None
+    if masked:
+        # a random padding length per batch row
+        lens = torch.randint(1, seq + 1, (bh // heads,), generator=gen,
+                             device="cuda")
+        mask = (torch.arange(seq, device="cuda")[None, None, :]
+                < lens[:, None, None]).float().expand(
+                    bh // heads, seq, seq).contiguous()
+    return q, k, v, do, mask
+
+
+def rel_err(got, want):
+    want = want.float()
+    return (float((got.float() - want).abs().max())
+            / max(1.0, float(want.abs().max())))
+
+
+def flash_check(bh, seq, d, dtype, causal=False, masked=False):
+    """Both flash kernels against their plain versions: the largest
+    relative error of the forward (out, lse) and of the backward."""
+    import torch
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    q, k, v, do, mask = flash_inputs(bh, seq, d, dtype, masked=masked)
+    kw = dict(mask=mask, causal=causal, scale=d ** -0.5, heads=BERT_HEADS)
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+    want_out, want_lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
+    delta = (do.float() * want_out.float()).sum(-1)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, want_lse, do, delta, **kw)
+    want = fa.flash_attention_bwd_reference(q, k, v, want_lse, do, delta,
+                                            **kw)
+    for t in (out, lse) + tuple(grads):
+        check(bool(torch.isfinite(t.float()).all()),
+              "flash (%d, %d, %d) %s: non-finite output" % (bh, seq, d,
+                                                            dtype))
+    fwd = max(rel_err(out, want_out), rel_err(lse, want_lse))
+    bwd = max(rel_err(a, b) for a, b in zip(grads, want))
+    key = str(dtype).split(".")[-1]
+    tol_f, tol_b = FLASH_TOL[key]
+    what = "flash (bh %d, seq %d, d %d, %s%s%s)" % (
+        bh, seq, d, key, ", causal" if causal else "",
+        ", masked" if masked else "")
+    print("%s: fwd rel err %.3g (limit %g), bwd rel err %.3g (limit %g)"
+          % (what, fwd, tol_f, bwd, tol_b))
+    check(fwd <= tol_f, "%s forward: %.3g > %g" % (what, fwd, tol_f))
+    check(bwd <= tol_b, "%s backward: %.3g > %g" % (what, bwd, tol_b))
+    return fwd, bwd
+
+
+def flash_bounds(bh, seq, d, itemsize):
+    """Least times: forward reads q, k, v and writes out and lse, 4 *
+    bh * seq^2 * d flops (two products); backward reads q, k, v, dout,
+    lse, delta and writes dq, dk, dv, 14 * bh * seq^2 * d flops (seven
+    products).  fp32 runs on the CUDA cores at 67 TFLOP/s."""
+    n = bh * seq * d * itemsize
+    out = {}
+    for kind, nbytes, flops in (
+            ("fwd", 4 * n + 4 * bh * seq, 4 * bh * seq * seq * d),
+            ("bwd", 7 * n + 8 * bh * seq, 14 * bh * seq * seq * d)):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+        out[kind] = (1e3 * max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations", nbytes,
+                     flops)
+    return out
+
+
+def flash_kernel_phase(bh, seq, d):
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        errs[str(dtype).split(".")[-1]] = flash_check(bh, seq, d, dtype)
+    flash_check(2 * BERT_HEADS, seq, d, torch.float32, causal=True)
+    flash_check(2 * BERT_HEADS, seq, d, torch.float32, masked=True)
+    flash_check(2 * BERT_HEADS, 500, d, torch.float32)
+    flash_check(2 * BERT_HEADS, 500, d, torch.bfloat16, masked=True)
+
+    q, k, v, do, _ = flash_inputs(bh, seq, d, torch.float32)
+    scale = d ** -0.5
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v, scale=scale)
+    delta = (do * out).sum(-1)
+    b = bh // BERT_HEADS
+    q4, k4, v4 = (t.view(b, BERT_HEADS, seq, d) for t in (q, k, v))
+    do4 = do.view(b, BERT_HEADS, seq, d)
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+
+    def lib_fwd_bwd():
+        o = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+        return torch.autograd.grad(o, (ql, kl, vl), do4)
+
+    fwd = {"ms": time_ms(lambda: fa.flash_attention_fwd_cuda(
+               q, k, v, scale=scale)),
+           "plain_ms": time_ms(lambda: fa.flash_attention_fwd_reference(
+               q, k, v, scale=scale)),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               q4, k4, v4, scale=scale))}
+    lib_both = time_ms(lib_fwd_bwd)
+    bwd = {"ms": time_ms(lambda: fa.flash_attention_bwd_cuda(
+               q, k, v, lse, do, delta, scale=scale)),
+           "plain_ms": time_ms(lambda: fa.flash_attention_bwd_reference(
+               q, k, v, lse, do, delta, scale=scale)),
+           # SDPA's backward alone is no public call: its forward and
+           # backward through autograd, less its forward
+           "library_ms": lib_both - fwd["library_ms"]}
+    bounds = flash_bounds(bh, seq, d, 4)
+    for kind, t in (("fwd", fwd), ("bwd", bwd)):
+        t["bound_ms"], t["bound_by"], nbytes, flops = bounds[kind]
+        print("flash %s times (bh %d, seq %d, d %d, fp32): %s (%d bytes, "
+              "%d flops at 67 TFLOP/s fp32)%s"
+              % (kind, bh, seq, d, json.dumps(t), nbytes, flops,
+                 "; library = SDPA forward+backward %.4f ms less its "
+                 "forward" % lib_both if kind == "bwd" else
+                 "; library = SDPA forward"))
+    return {"fwd": dict(fwd, max_abs_err=errs["float32"][0],
+                        max_abs_err_bf16=errs["bfloat16"][0]),
+            "bwd": dict(bwd, max_abs_err=errs["float32"][1],
+                        max_abs_err_bf16=errs["bfloat16"][1])}
+
+
+def layernorm_kernel_phase(rows, dim):
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.kernels.layernorm import (layernorm_fwd_cuda,
+                                                   layernorm_reference)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    errs = {}
+    for r, c in ((rows, dim), (1000, 100)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn(r, c, generator=gen, device="cuda") * 3 + 1) \
+                .to(dtype)
+            g = torch.rand(c, generator=gen, device="cuda") + 0.5
+            b = torch.randn(c, generator=gen, device="cuda")
+            err = rel_err(layernorm_fwd_cuda(x, g, b),
+                          layernorm_reference(x, g, b))
+            key = str(dtype).split(".")[-1]
+            print("layernorm (%d, %d) %s: rel err %.3g (limit %g)"
+                  % (r, c, key, err, ROW_TOL[key]))
+            check(err <= ROW_TOL[key], "layernorm (%d, %d) %s: %.3g > %g"
+                  % (r, c, key, err, ROW_TOL[key]))
+            errs[key] = max(errs.get(key, 0.0), err)
+    x = torch.randn(rows, dim, generator=gen, device="cuda")
+    g = torch.rand(dim, generator=gen, device="cuda") + 0.5
+    b = torch.randn(dim, generator=gen, device="cuda")
+    t = {"ms": time_ms(lambda: layernorm_fwd_cuda(x, g, b)),
+         "plain_ms": time_ms(lambda: layernorm_reference(x, g, b)),
+         "library_ms": time_ms(lambda: F.layer_norm(x, (dim,), g, b))}
+    nbytes = 2 * rows * dim * 4 + 2 * dim * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 8 * rows * dim / FP32_FLOPS
+    t["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+    t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    print("layernorm times (%d, %d) fp32: %s (%d bytes at 3.35 TB/s); "
+          "library = F.layer_norm" % (rows, dim, json.dumps(t), nbytes))
+    return dict(t, max_abs_err=errs["float32"],
+                max_abs_err_bf16=errs["bfloat16"])
+
+
+def lamb_kernel_phase(sizes):
+    """``lamb_phase1`` at the main path's bucket (the parameters'
+    ``sizes``) and at an unaligned size; times of the kernel, its plain
+    version and the eager multi-tensor (``torch._foreach_*``) phase-1
+    sequence over the same parameters."""
+    import torch
+    from mxnet_tpu_torch.kernels.optimizer_update import (lamb1_reference,
+                                                          lamb_phase1_cuda)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n = int(sum(sizes))
+    b1, b2, eps = BERT_LAMB["beta1"], BERT_LAMB["beta2"], BERT_LAMB["epsilon"]
+    scalars = (1.0 / BERT_BATCH, 1.0 / (1 - b1 ** 9), 1.0 / (1 - b2 ** 9))
+
+    def buffers(count, offset=0, dtype=torch.float32):
+        def buf(positive=False, dt=dtype):
+            t = torch.randn(count + offset, generator=gen, device="cuda")
+            return (t.abs() if positive else t).to(dt)[offset:]
+        return (buf(), buf(), buf() * 1e-3, buf(True) * 1e-6,
+                buf(True, torch.float32) * 0.01)
+
+    errs = {}
+    for count, offset, dtype in ((n, 0, torch.float32),
+                                 (1000003, 1, torch.float32),
+                                 (1000003, 1, torch.bfloat16)):
+        w, g, m, v, wd = buffers(count, offset, dtype)
+        got = lamb_phase1_cuda(w, g, m, v, wd, scalars, beta1=b1, beta2=b2,
+                               eps=eps)
+        want = lamb1_reference(w, g, m, v, wd, scalars, beta1=b1, beta2=b2,
+                               eps=eps)
+        err = max(rel_err(a, b) for a, b in zip(got, want))
+        key = str(dtype).split(".")[-1]
+        print("lamb_phase1 S=%d offset %d %s: rel err %.3g (limit %g)"
+              % (count, offset, key, err, ROW_TOL[key]))
+        check(err <= ROW_TOL[key], "lamb_phase1 S=%d %s: %.3g > %g"
+              % (count, key, err, ROW_TOL[key]))
+        errs[key] = max(errs.get(key, 0.0), err)
+        del w, g, m, v, wd, got, want
+    w, g, m, v, wd = buffers(n)
+    ws, gs, ms, vs = (list(t.split(list(sizes))) for t in (w, g, m, v))
+    wds = [0.01] * len(sizes)
+    rescale, bc1, bc2 = scalars
+
+    def foreach_phase1():
+        gr = torch._foreach_mul(gs, rescale)
+        torch._foreach_mul_(ms, b1)
+        torch._foreach_add_(ms, gr, alpha=1 - b1)
+        torch._foreach_mul_(vs, b2)
+        torch._foreach_addcmul_(vs, gr, gr, value=1 - b2)
+        den = torch._foreach_mul(vs, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, eps)
+        gw = torch._foreach_mul(ms, bc1)
+        torch._foreach_div_(gw, den)
+        torch._foreach_add_(gw, torch._foreach_mul(ws, wds))
+        return gw
+
+    t = {"ms": time_ms(lambda: lamb_phase1_cuda(w, g, m, v, wd, scalars,
+                                                beta1=b1, beta2=b2,
+                                                eps=eps)),
+         "plain_ms": time_ms(lambda: lamb1_reference(
+             w, g, m, v, wd, scalars, beta1=b1, beta2=b2, eps=eps)),
+         "library_ms": time_ms(foreach_phase1)}
+    nbytes = 8 * n * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 12 * n / FP32_FLOPS
+    t["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+    t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    print("lamb_phase1 times S=%d fp32 (%d tensors): %s (%d bytes at "
+          "3.35 TB/s); library = torch._foreach_* phase-1 sequence over "
+          "the parameter list" % (n, len(sizes), json.dumps(t), nbytes))
+    return dict(t, max_abs_err=errs["float32"],
+                max_abs_err_bf16=errs["bfloat16"])
+
+
 def kernel_entry(name, launches, kern):
     """One kernel's entry of the per-kernel JSON line."""
     from mxnet_tpu_torch.kernels import registry
@@ -775,15 +1338,34 @@ def main():
     train_oracle(net)
     del net
     torch.cuda.empty_cache()
+    net, step, (ids, labels), bert = bert_main_path()
+    train_step_breakdown(step, ids, labels, bert["ms_per_step"],
+                         hand=BERT_KERNELS, label="BERT step breakdown")
+    sizes = [p.data().numel() for p in net.collect_params().values()]
+    del step, ids, labels
+    torch.cuda.empty_cache()
+    bert_oracle(net)
+    del net
+    torch.cuda.empty_cache()
     attn = kernel_phase(scale)
     bn = bn_relu_kernel_phase()
+    flash = flash_kernel_phase(BERT_BATCH * BERT_HEADS, BERT_SEQ, 64)
+    ln = layernorm_kernel_phase(BERT_BATCH * BERT_SEQ, 768)
+    lamb = lamb_kernel_phase(sizes)
+    counts = bert["launches"]
     print(json.dumps({"kernels": [
         kernel_entry("paged_attention", decode["paged_attention_launches"],
                      attn),
         kernel_entry("bn_relu_apply", train["bn_relu_apply_launches"],
                      bn["fwd"]),
         kernel_entry("bn_relu_bwd", train["bn_relu_bwd_launches"],
-                     bn["bwd"])]}))
+                     bn["bwd"]),
+        kernel_entry("flash_attention_fwd", counts["flash_attention_fwd"],
+                     flash["fwd"]),
+        kernel_entry("flash_attention_bwd", counts["flash_attention_bwd"],
+                     flash["bwd"]),
+        kernel_entry("layernorm_fwd", counts["layernorm_fwd"], ln),
+        kernel_entry("lamb_phase1", counts["lamb_phase1"], lamb)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

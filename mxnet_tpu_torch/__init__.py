@@ -14,7 +14,11 @@ It imports neither JAX nor anything of ``mxnet_tpu``.  Ported so far:
   ``Trainer``, the ResNet model zoo), :mod:`.optimizer` (SGD),
   :mod:`.parallel` (``TrainStep``), with the fused BatchNorm+ReLU
   forward and backward kernels at every channels-last BatchNorm+relu
-  site.
+  site;
+- the BERT pretraining path: the transformer layers and
+  ``model_zoo.bert``, the LAMB optimizer and ``TrainStep``'s bucketed
+  LAMB update, with the flash-attention forward and backward, LayerNorm
+  and LAMB phase-1 kernels.
 
 Kernels and their plain versions are registered in :mod:`.kernels`.
 """

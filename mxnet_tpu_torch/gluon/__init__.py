@@ -1,6 +1,6 @@
-"""Gluon, the training slice (counterpart of ``mxnet_tpu/gluon``):
-blocks, parameters, layers, losses, the Trainer and the ResNet model
-zoo."""
+"""Gluon, the training slices (counterpart of ``mxnet_tpu/gluon``):
+blocks, parameters, layers, losses, the Trainer and the ResNet and BERT
+model zoo."""
 from . import loss, model_zoo, nn
 from .block import Block, HybridBlock
 from .parameter import (DeferredInitializationError, Parameter,

@@ -1,5 +1,7 @@
 """Model zoo (counterpart of ``mxnet_tpu/gluon/model_zoo``): the ResNet
-family."""
-from . import vision
+family and BERT."""
+from . import bert, vision
+from .bert import BERTModel, bert_base, bert_small, get_bert
 
-__all__ = ["vision"]
+__all__ = ["BERTModel", "bert", "bert_base", "bert_small", "get_bert",
+           "vision"]

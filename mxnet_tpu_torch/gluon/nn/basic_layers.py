@@ -1,7 +1,8 @@
 """Basic Gluon layers (counterpart of
 ``mxnet_tpu/gluon/nn/basic_layers.py``): ``Sequential``,
 ``HybridSequential`` with its BatchNorm+ReLU fusion plan, ``Dense``,
-``BatchNorm`` and ``Flatten``."""
+``BatchNorm``, ``Flatten``, ``Dropout``, ``Embedding`` and
+``LayerNorm``."""
 from __future__ import annotations
 
 import math
@@ -11,8 +12,8 @@ from ... import ops
 from ..block import Block, HybridBlock
 from .activations import Activation
 
-__all__ = ["BatchNorm", "Dense", "Flatten", "HybridSequential",
-           "Sequential"]
+__all__ = ["BatchNorm", "Dense", "Dropout", "Embedding", "Flatten",
+           "HybridSequential", "LayerNorm", "Sequential"]
 
 
 class Sequential(Block):
@@ -191,3 +192,64 @@ class BatchNorm(HybridBlock):
 class Flatten(HybridBlock):
     def hybrid_forward(self, F, x):
         return F.Flatten(x)
+
+
+class Dropout(HybridBlock):
+    """Dropout in training mode (``autograd.record()``), identity
+    otherwise; masks come from the port's per-device generator
+    (:mod:`mxnet_tpu_torch.random`)."""
+
+    def __init__(self, rate, axes=(), **kwargs):
+        super().__init__(**kwargs)
+        self._rate = rate
+        self._axes = axes
+
+    def hybrid_forward(self, F, x):
+        if self._rate <= 0:
+            return x
+        return F.Dropout(x, p=self._rate, axes=self._axes,
+                         training=autograd.is_training())
+
+
+class Embedding(HybridBlock):
+    """Lookup table ``(input_dim, output_dim)``; ids may be float."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(input_dim, output_dim), dtype=dtype,
+                init=weight_initializer, allow_deferred_init=True)
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight)
+
+
+class LayerNorm(HybridBlock):
+    """Layer normalization over ``axis`` (the ``layernorm_fwd`` kernel
+    over the last axis)."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._eps = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True,
+                grad_req="write" if scale else "null")
+            self.beta = self.params.get(
+                "beta", shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True,
+                grad_req="write" if center else "null")
+
+    def infer_shape(self, x):
+        c = x.shape[self._axis]
+        self.gamma.shape = (c,)
+        self.beta.shape = (c,)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self._eps)

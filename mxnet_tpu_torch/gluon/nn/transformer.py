@@ -1,0 +1,173 @@
+"""Transformer layers (counterpart of
+``mxnet_tpu/gluon/nn/transformer.py``): ``MultiHeadAttention``,
+``PositionwiseFFN``, ``TransformerEncoderCell`` and
+``TransformerEncoder``, the single-device path.
+
+Layout is batch-major ``(batch, seq, units)``; heads fold into the batch
+dimension, so attention runs over ``(batch * heads, seq, head_dim)``
+through the flash kernels (:mod:`mxnet_tpu_torch.ops.transformer`).  As
+in the JAX package, attention without a mask, or with a mask outside
+training or without dropout, takes the flash path, which applies no
+dropout to the attention probabilities; a mask together with dropout in
+training materializes the scores in plain PyTorch.  The tensor-parallel
+mode (``tp_mode``, ``shard_tp``) is not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from ... import autograd
+from ...base import MXNetError
+from ..block import HybridBlock
+from .basic_layers import Dense, Dropout, LayerNorm
+
+__all__ = ["MultiHeadAttention", "PositionwiseFFN",
+           "TransformerEncoderCell", "TransformerEncoder"]
+
+
+def _no_tp(tp_mode):
+    if tp_mode:
+        raise MXNetError("tensor-parallel attention (tp_mode=True) is not "
+                         "ported yet")
+
+
+class MultiHeadAttention(HybridBlock):
+    """Self multi-head attention with one fused ``(3 * units, in)``
+    q/k/v projection and an output projection."""
+
+    def __init__(self, units, num_heads, dropout=0.0, use_bias=True,
+                 causal=False, tp_mode=False, dtype="float32", **kwargs):
+        super().__init__(**kwargs)
+        _no_tp(tp_mode)
+        if units % num_heads:
+            raise MXNetError("units %d not divisible by heads %d"
+                             % (units, num_heads))
+        self._units = units
+        self._heads = num_heads
+        self._dropout = dropout
+        self._causal = causal
+        with self.name_scope():
+            self.qkv_weight = self.params.get(
+                "qkv_weight", shape=(3 * units, 0), dtype=dtype,
+                allow_deferred_init=True)
+            self.qkv_bias = self.params.get(
+                "qkv_bias", shape=(3 * units,), dtype=dtype,
+                init="zeros") if use_bias else None
+            self.out_weight = self.params.get(
+                "out_weight", shape=(units, units), dtype=dtype)
+            self.out_bias = self.params.get(
+                "out_bias", shape=(units,), dtype=dtype,
+                init="zeros") if use_bias else None
+
+    def infer_shape(self, x, *args):
+        self.qkv_weight.shape = (3 * self._units, x.shape[-1])
+
+    def shard_tp(self, mesh, axis="tp"):
+        raise MXNetError("tensor-parallel attention (shard_tp) is not "
+                         "ported yet")
+
+    def hybrid_forward(self, F, x, mask=None, qkv_weight=None,
+                       qkv_bias=None, out_weight=None, out_bias=None):
+        b, seq, _ = x.shape
+        u, h = self._units, self._heads
+        hd = u // h
+        qkv = F.FullyConnected(x, qkv_weight, qkv_bias, num_hidden=3 * u,
+                               no_bias=qkv_bias is None, flatten=False)
+
+        def heads_of(t):   # (b, seq, u) -> (b * h, seq, hd)
+            return t.reshape(b, seq, h, hd).permute(0, 2, 1, 3) \
+                .reshape(b * h, seq, hd)
+
+        q = heads_of(F.slice_axis(qkv, axis=2, begin=0, end=u))
+        k = heads_of(F.slice_axis(qkv, axis=2, begin=u, end=2 * u))
+        v = heads_of(F.slice_axis(qkv, axis=2, begin=2 * u, end=3 * u))
+        if mask is None:
+            ctx_out = F.flash_attention(q, k, v, causal=self._causal)
+        elif not self._dropout or not autograd.is_training():
+            ctx_out = F.flash_attention_masked(
+                q, k, v, mask.reshape(b, seq, seq), heads=h)
+        else:
+            scores = torch.bmm(q, k.transpose(1, 2)) * (1.0 / hd ** 0.5)
+            m = mask.reshape(b, 1, seq, seq).expand(b, h, seq, seq) \
+                .reshape(b * h, seq, seq)
+            scores = torch.where(m != 0, scores, -1e30)
+            att = F.Dropout(torch.softmax(scores, dim=-1), p=self._dropout,
+                            training=True)
+            ctx_out = torch.bmm(att, v)
+        out = ctx_out.reshape(b, h, seq, hd).permute(0, 2, 1, 3) \
+            .reshape(b, seq, u)
+        return F.FullyConnected(out, out_weight, out_bias, num_hidden=u,
+                                no_bias=out_bias is None, flatten=False)
+
+
+class PositionwiseFFN(HybridBlock):
+    """Feed-forward block (BERT intermediate + output)."""
+
+    def __init__(self, units, hidden_size, activation="gelu", dropout=0.0,
+                 dtype="float32", **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.ffn_1 = Dense(hidden_size, activation=activation,
+                               flatten=False, in_units=units, dtype=dtype)
+            self.ffn_2 = Dense(units, flatten=False, in_units=hidden_size,
+                               dtype=dtype)
+            self.drop = Dropout(dropout)
+
+    def hybrid_forward(self, F, x):
+        return self.drop(self.ffn_2(self.ffn_1(x)))
+
+
+class TransformerEncoderCell(HybridBlock):
+    """Post-LN encoder cell (BERT style): ``LN(x + MHA(x))``, then
+    ``LN(. + FFN(.))``."""
+
+    def __init__(self, units, hidden_size, num_heads, dropout=0.0,
+                 tp_mode=False, dtype="float32", **kwargs):
+        super().__init__(**kwargs)
+        _no_tp(tp_mode)
+        with self.name_scope():
+            self.attention = MultiHeadAttention(units, num_heads,
+                                                dropout=dropout,
+                                                dtype=dtype)
+            self.attn_drop = Dropout(dropout)
+            self.ln_1 = LayerNorm(in_channels=units)
+            self.ffn = PositionwiseFFN(units, hidden_size, dropout=dropout,
+                                       dtype=dtype)
+            self.ln_2 = LayerNorm(in_channels=units)
+
+    def hybrid_forward(self, F, x, mask=None):
+        att = self.attn_drop(self.attention(x, mask))
+        x = self.ln_1(x + att)
+        return self.ln_2(x + self.ffn(x))
+
+
+class TransformerEncoder(HybridBlock):
+    """Stack of encoder cells with a learned positional embedding."""
+
+    def __init__(self, units, hidden_size, num_layers, num_heads,
+                 max_length=512, dropout=0.0, tp_mode=False,
+                 dtype="float32", **kwargs):
+        super().__init__(**kwargs)
+        _no_tp(tp_mode)
+        self._max_length = max_length
+        self._units = units
+        with self.name_scope():
+            self.position_weight = self.params.get(
+                "position_weight", shape=(max_length, units), dtype=dtype)
+            self.drop = Dropout(dropout)
+            self.ln = LayerNorm(in_channels=units)
+            self.cells = []
+            for i in range(num_layers):
+                cell = TransformerEncoderCell(units, hidden_size, num_heads,
+                                              dropout=dropout, dtype=dtype)
+                setattr(self, "cell%d" % i, cell)
+                self.cells.append(cell)
+
+    def hybrid_forward(self, F, x, mask=None, position_weight=None):
+        seq = x.shape[1]
+        x = x + F.slice_axis(position_weight, axis=0, begin=0,
+                             end=seq).unsqueeze(0)
+        x = self.drop(self.ln(x))
+        for cell in self.cells:
+            x = cell(x, mask)
+        return x

@@ -1,0 +1,211 @@
+"""Bucket-flattened LAMB update (counterpart of the LAMB half of
+``mxnet_tpu/kernels/optimizer_update.py``).
+
+The parameter set is grouped by dtype (:mod:`mxnet_tpu_torch.bucketing`)
+and each group's weights, gradients and moments are flattened into one
+contiguous buffer.  Phase 1 (moments and update direction) runs as ONE
+pass over the flat buffer -- the ``lamb_phase1`` kernel -- the per-tensor
+trust-ratio norms are segment reductions over views of it, and phase 2
+(the trust-scaled step) and the new moments are written into each
+tensor from views of the flat results.  Per-tensor semantics
+are those of the per-parameter ``LAMB`` (``lamb_update_phase1/2``): bias
+correction, the ``r1`` bounds and the ratio of 1 where a norm is 0.
+
+Where the JAX functions return new arrays, :func:`lamb_bucket_update`
+and :func:`bucket_update` write the new weights and moments into the
+given tensors in place, so a step keeps no second copy of the model
+beyond the flat buffers.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..base import MXNetError
+from ..bucketing import dtype_groups, flatten_group, split_group
+from .registry import KernelSpec, count_launch, dispatch, register_kernel
+
+__all__ = ["bucket_supported", "bucket_update", "l2_norm",
+           "lamb1_reference", "lamb_bucket_update", "lamb_phase1_cuda"]
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def lamb1_reference(w, g, m, v, wd, scalars, beta1=0.9, beta2=0.999,
+                    eps=1e-6, clip=0.0):
+    """Plain version of the phase-1 kernel (the JAX package's
+    ``_lamb1_math``): ``scalars`` is ``(rescale, bc1, bc2)``; returns
+    ``(gw fp32, m', v')`` with the moments at ``m``'s and ``v``'s
+    dtype."""
+    rescale, bc1, bc2 = (float(s) for s in scalars)
+    wf = w.float()
+    gr = g.float() * rescale
+    if clip is not None and clip > 0:
+        gr = torch.clamp(gr, -clip, clip)
+    nm = beta1 * m.float() + (1 - beta1) * gr
+    nv = beta2 * v.float() + (1 - beta2) * gr * gr
+    gw = (nm * bc1) / (torch.sqrt(nv * bc2) + eps) + wd * wf
+    return gw, nm.to(m.dtype), nv.to(v.dtype)
+
+
+@functools.cache
+def _lib():
+    from .. import _build
+    lib = _build.load("optimizer_update")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.lamb_phase1_launch.argtypes = [p, p, p, p, p, p, p, p,
+                                       ctypes.c_int64, f, f, f, f, f, f, f,
+                                       f, f, i, p]
+    lib.lamb_phase1_launch.restype = i
+    lib.lamb_error_string.argtypes = [i]
+    lib.lamb_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def lamb_phase1_cuda(w, g, m, v, wd, scalars, beta1=0.9, beta2=0.999,
+                     eps=1e-6, clip=0.0):
+    """Launch the phase-1 kernel on PyTorch's current stream: ``w``,
+    ``g``, ``m``, ``v`` contiguous CUDA ``(S,)`` tensors of one dtype
+    (fp32 or bf16), ``wd`` a contiguous fp32 ``(S,)`` tensor; returns
+    ``(gw, m', v')`` as :func:`lamb1_reference`."""
+    fn = "lamb_phase1_cuda"
+    if w.device.type != "cuda":
+        raise MXNetError("%s needs CUDA tensors, got w on %s"
+                         % (fn, w.device))
+    if w.dim() != 1:
+        raise MXNetError("%s: w must be flat (S,), got %s"
+                         % (fn, tuple(w.shape)))
+    if w.dtype not in _DTYPE_CODES:
+        raise MXNetError("%s: w must be float32 or bfloat16, got %s"
+                         % (fn, w.dtype))
+    for name, t, dtype in (("w", w, w.dtype), ("g", g, w.dtype),
+                           ("m", m, w.dtype), ("v", v, w.dtype),
+                           ("wd", wd, torch.float32)):
+        if t.device != w.device:
+            raise MXNetError("%s: %s on %s, w on %s"
+                             % (fn, name, t.device, w.device))
+        if t.shape != w.shape or t.dtype != dtype:
+            raise MXNetError("%s: %s must be %s of shape %s, got %s %s"
+                             % (fn, name, dtype, tuple(w.shape), t.dtype,
+                                tuple(t.shape)))
+        if not t.is_contiguous():
+            raise MXNetError("%s: %s is not contiguous" % (fn, name))
+    rescale, bc1, bc2 = (float(s) for s in scalars)
+    clipv = float(clip) if clip is not None and clip > 0 else 0.0
+    lib = _lib()
+    gw = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+    nm, nv = torch.empty_like(m), torch.empty_like(v)
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        rc = lib.lamb_phase1_launch(
+            w.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
+            wd.data_ptr(), gw.data_ptr(), nm.data_ptr(), nv.data_ptr(),
+            w.numel(), rescale, bc1, bc2, float(beta1), 1.0 - beta1,
+            float(beta2), 1.0 - beta2, float(eps), clipv,
+            _DTYPE_CODES[w.dtype], stream)
+    if rc != 0:
+        raise MXNetError("lamb_phase1 kernel launch failed: %s (%d)"
+                         % (lib.lamb_error_string(rc).decode(), rc))
+    count_launch("lamb_phase1")
+    return gw, nm, nv
+
+
+register_kernel(KernelSpec(
+    name="lamb_phase1",
+    plain=lamb1_reference,
+    launch=lamb_phase1_cuda,
+    source="csrc/optimizer_update.cu",
+    replaces="mxnet_tpu/kernels/optimizer_update.py:258 lamb_phase1_pallas",
+))
+
+
+def l2_norm(t):
+    """The L2 norm of ``t`` as fp32, accumulated in fp64: PyTorch's fp32
+    ``vector_norm`` on the CPU is off by ~1e-3 relative at 2e7
+    elements (the BERT embedding and decoder weights)."""
+    return torch.linalg.vector_norm(t, dtype=torch.float64).float()
+
+
+def _segment_norms(buf, shapes):
+    """fp32 L2 norm of each piece of a flat buffer."""
+    return torch.stack([l2_norm(p) for p in split_group(buf, shapes)])
+
+
+def _per_element(values, shapes, total, device):
+    """A flat fp32 ``(total,)`` buffer holding ``values[k]`` over the
+    piece of shape ``shapes[k]`` (one fill each; ``repeat_interleave``
+    would build an int64 index of ``total`` entries first)."""
+    out = torch.empty(total, dtype=torch.float32, device=device)
+    for piece, value in zip(split_group(out, shapes), values):
+        piece.fill_(float(value))
+    return out
+
+
+@torch.no_grad()
+def lamb_bucket_update(ws, gs, means, variances, lrs, wds, t, beta1=0.9,
+                       beta2=0.999, epsilon=1e-6, bias_correction=True,
+                       lower_bound=None, upper_bound=None, rescale=1.0,
+                       clip=None):
+    """Bucket-flattened LAMB over parameter lists (weights, gradients,
+    first and second moments; per-tensor ``lrs``/``wds``; ``t`` the step
+    count for bias correction).  Writes the new weights and moments into
+    ``ws``, ``means`` and ``variances`` in place and returns them."""
+    bc1 = 1.0 / (1.0 - beta1 ** t) if bias_correction else 1.0
+    bc2 = 1.0 / (1.0 - beta2 ** t) if bias_correction else 1.0
+    for _dtype, idxs in dtype_groups(ws):
+        dev = ws[idxs[0]].device
+        shapes = [ws[i].shape for i in idxs]
+        total = sum(ws[i].numel() for i in idxs)
+        W = flatten_group(ws, idxs)
+        gw, nm, nv = dispatch(
+            "lamb_phase1", W, flatten_group(gs, idxs),
+            flatten_group(means, idxs), flatten_group(variances, idxs),
+            _per_element([wds[i] for i in idxs], shapes, total, dev),
+            (rescale, bc1, bc2), beta1=beta1, beta2=beta2, eps=epsilon,
+            clip=clip)
+        # per-tensor trust ratio (lamb_update_phase2 semantics)
+        r1 = _segment_norms(W, shapes)
+        r2 = _segment_norms(gw, shapes)
+        if lower_bound is not None and lower_bound > 0:
+            r1 = torch.clamp_min(r1, lower_bound)
+        if upper_bound is not None and upper_bound > 0:
+            r1 = torch.clamp_max(r1, upper_bound)
+        ratio = torch.where((r1 == 0) | (r2 == 0), 1.0, r1 / r2)
+        step = torch.tensor([float(lrs[i]) for i in idxs],
+                            dtype=torch.float32, device=dev) * ratio
+        # phase 2, w -= lr * ratio * gw, and the moments, written back
+        # tensor by tensor
+        for k, (i, pg, pm, pv) in enumerate(zip(
+                idxs, split_group(gw, shapes), split_group(nm, shapes),
+                split_group(nv, shapes))):
+            ws[i].addcmul_(pg, step[k], value=-1.0)
+            means[i].copy_(pm)
+            variances[i].copy_(pv)
+    return ws, means, variances
+
+
+def bucket_supported(opt) -> bool:
+    """Whether the optimizer has a bucket-flattened update (LAMB; LARS
+    is not ported yet)."""
+    from ..optimizer import LAMB
+    return type(opt) is LAMB
+
+
+def bucket_update(opt, items):
+    """The bucketed update ``TrainStep`` runs: ``items`` is ``[(index,
+    weight, grad, state)]``; ``opt``'s update counts must already have
+    advanced for this step.  Updates weights and states in place."""
+    if not bucket_supported(opt):
+        raise MXNetError("no bucketed update for %s" % type(opt).__name__)
+    idxs = [i for i, _w, _g, _s in items]
+    t = opt._index_update_count[idxs[0]]
+    lamb_bucket_update(
+        [w for _i, w, _g, _s in items], [g for _i, _w, g, _s in items],
+        [s[0] for _i, _w, _g, s in items], [s[1] for _i, _w, _g, s in items],
+        [opt._get_lr(i) for i in idxs], [opt._get_wd(i) for i in idxs], t,
+        beta1=opt.beta1, beta2=opt.beta2, epsilon=opt.epsilon,
+        bias_correction=opt.bias_correction, lower_bound=opt.lower_bound,
+        upper_bound=opt.upper_bound, rescale=opt.rescale_grad,
+        clip=opt.clip_gradient)

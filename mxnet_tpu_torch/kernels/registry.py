@@ -52,7 +52,8 @@ def register_kernel(spec: KernelSpec) -> KernelSpec:
 
 
 def _ensure_registered():
-    from . import fused_bn_relu, paged_attention  # noqa: F401
+    from . import (flash_attention, fused_bn_relu, layernorm,  # noqa: F401
+                   optimizer_update, paged_attention)
 
 
 def get(name: str) -> KernelSpec:

@@ -1,5 +1,5 @@
-"""Neural-network operators of the training slice (counterpart of the
-subset of ``mxnet_tpu/ops/nn.py`` that ResNet reaches).
+"""Neural-network operators of the training slices (counterpart of the
+subset of ``mxnet_tpu/ops/nn.py`` that ResNet and BERT reach).
 
 Plain functions on tensors, layout-aware like the JAX ops: ``layout``
 names the data layout (``NCHW`` or ``NHWC``) and the weight layout
@@ -8,6 +8,7 @@ to PyTorch (cuDNN and cuBLAS on the card), as the JAX package leaves
 them to XLA outside any Pallas kernel.  ``BatchNorm`` keeps MXNet's
 statistics (biased variance, ``new = momentum * old + (1 - momentum) *
 batch``), which are not ``torch.nn.functional.batch_norm``'s.
+``LayerNorm`` over the last axis runs the ``layernorm_fwd`` kernel.
 """
 from __future__ import annotations
 
@@ -16,11 +17,14 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .. import random as _random
 from ..base import MXNetError
+from ..kernels.registry import dispatch
 
-__all__ = ["Activation", "BatchNorm", "Convolution", "Flatten",
-           "FullyConnected", "Pooling", "fused_batch_norm_relu",
-           "log_softmax", "pick", "softmax_cross_entropy"]
+__all__ = ["Activation", "BatchNorm", "Convolution", "Dropout", "Embedding",
+           "Flatten", "FullyConnected", "LayerNorm", "Pooling",
+           "fused_batch_norm_relu", "log_softmax", "pick", "slice_axis",
+           "softmax_cross_entropy"]
 
 _DEFAULT_LAYOUTS = {3: "NCW", 4: "NCHW", 5: "NCDHW"}
 
@@ -230,3 +234,73 @@ def pick(data, index, axis=-1, keepdims=False):
 def softmax_cross_entropy(data, label):
     """Summed cross entropy over the batch."""
     return -pick(log_softmax(data, axis=-1), label, axis=-1).sum()
+
+
+class _LayerNormLastAxis(torch.autograd.Function):
+    """Forward: the ``layernorm_fwd`` kernel over a ``(rows, dim)`` view
+    (its plain version on the CPU).  Backward: the plain math recomputed
+    and differentiated, as the JAX package's ``_ln_pallas_bwd`` does."""
+
+    @staticmethod
+    def forward(ctx, data, gamma, beta, eps):
+        x2d = data.reshape(-1, data.shape[-1]).contiguous()
+        out = dispatch("layernorm_fwd", x2d, gamma, beta, eps=eps)
+        ctx.save_for_backward(data, gamma, beta)
+        ctx.eps = eps
+        return out.reshape(data.shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from ..kernels.layernorm import layernorm_reference
+        data, gamma, beta = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in (data, gamma, beta)]
+            out = layernorm_reference(*ins, eps=ctx.eps)
+            grads = torch.autograd.grad(out, ins, grad)
+        return grads + (None,)
+
+
+def LayerNorm(data, gamma, beta, axis=-1, eps=1e-5):
+    """Layer normalization with fp32 statistics, output at the input
+    dtype.  Over the last axis it runs the ``layernorm_fwd`` kernel (the
+    port has no ``use_pallas`` switch); over another axis, plain math."""
+    axis = axis % data.dim()
+    if axis == data.dim() - 1:
+        return _LayerNormLastAxis.apply(data, gamma, beta, float(eps))
+    xf = data.float()
+    mean = xf.mean(dim=axis, keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=axis, keepdim=True)
+    bshape = [1] * data.dim()
+    bshape[axis] = data.shape[axis]
+    out = (xf - mean) * torch.rsqrt(var + eps) \
+        * gamma.reshape(bshape).float() + beta.reshape(bshape).float()
+    return out.to(data.dtype)
+
+
+def Embedding(data, weight):
+    """Rows of ``weight`` at the (integer-valued, possibly float) ids in
+    ``data``; the gradient is a scatter-add."""
+    return F.embedding(data.long(), weight)
+
+
+def Dropout(data, p=0.5, axes=(), training=False, generator=None):
+    """Zero each element with probability ``p`` and scale the rest by
+    ``1 / (1 - p)``, in training.  ``axes`` share one draw along those
+    axes.  The mask is drawn from ``generator``, by default the port's
+    generator of ``data``'s device
+    (:func:`mxnet_tpu_torch.random.generator`)."""
+    if p <= 0 or not training:
+        return data
+    shape = tuple(1 if i in axes else s for i, s in enumerate(data.shape))
+    gen = generator if generator is not None \
+        else _random.generator(data.device)
+    keep = 1.0 - p
+    mask = torch.rand(shape, generator=gen, device=data.device) < keep
+    return data * mask.to(data.dtype) / keep
+
+
+def slice_axis(data, axis=0, begin=0, end=None):
+    """``data[begin:end]`` along ``axis`` (a view)."""
+    idx = [slice(None)] * data.dim()
+    idx[axis] = slice(begin, end)
+    return data[tuple(idx)]

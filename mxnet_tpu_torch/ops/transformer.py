@@ -1,0 +1,71 @@
+"""Flash attention operators (counterpart of the flash half of
+``mxnet_tpu/ops/transformer.py``).
+
+``flash_attention(q, k, v, causal, scale)`` and
+``flash_attention_masked(q, k, v, mask, heads, scale)`` over ``(batch *
+heads, seq, head_dim)`` tensors, the mask ``(batch, seq, seq)`` with
+nonzero = attend.  Both run :class:`FlashAttention`, the port of the JAX
+package's ``_flash`` / ``_flash_masked`` custom VJPs: the forward kernel
+saves ``(q, k, v, out, lse)``; the backward computes ``delta =
+rowsum(dout * out)`` in fp32 and runs the backward kernels, which replay
+the scores from ``lse``.  A CUDA tensor launches the kernels of
+:mod:`mxnet_tpu_torch.kernels.flash_attention`, a CPU tensor runs their
+plain versions.  There is no auto gate and no ``use_pallas`` switch.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..kernels.registry import dispatch
+
+__all__ = ["FlashAttention", "flash_attention", "flash_attention_masked"]
+
+
+class FlashAttention(torch.autograd.Function):
+    """``softmax(q k^T * scale [masked]) v`` with the blockwise backward.
+    ``mask`` is a float ``(b, seq, seq)`` tensor or ``None``; it takes no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, causal, scale, heads):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = dispatch("flash_attention_fwd", q, k, v, mask=mask,
+                            causal=causal, scale=scale, heads=heads)
+        ctx.save_for_backward(q, k, v, out, lse, mask)
+        ctx.causal, ctx.scale, ctx.heads = causal, scale, heads
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, mask = ctx.saved_tensors
+        dout = dout.contiguous()
+        delta = (dout.float() * out.float()).sum(dim=-1)
+        dq, dk, dv = dispatch("flash_attention_bwd", q, k, v, lse, dout,
+                              delta, mask=mask, causal=ctx.causal,
+                              scale=ctx.scale, heads=ctx.heads)
+        return dq, dk, dv, None, None, None, None
+
+
+def _scale(q, scale):
+    if scale is None or scale < 0:
+        return 1.0 / math.sqrt(q.shape[-1])
+    return float(scale)
+
+
+def flash_attention(q, k, v, causal=False, scale=-1.0):
+    """Fused scaled-dot-product attention; ``scale < 0`` means
+    ``1 / sqrt(head_dim)``."""
+    return FlashAttention.apply(q, k, v, None, bool(causal), _scale(q, scale),
+                                1)
+
+
+def flash_attention_masked(q, k, v, mask, scale=-1.0, heads=1):
+    """Masked flash attention: ``mask`` ``(batch, seq_q, seq_k)``,
+    nonzero = attend, shared across the ``heads`` heads folded into
+    q/k/v's leading dim."""
+    maskf = mask.detach().to(device=q.device, dtype=torch.float32) \
+        .contiguous()
+    return FlashAttention.apply(q, k, v, maskf, False, _scale(q, scale),
+                                int(heads))

@@ -1,7 +1,7 @@
 """Optimizers (counterpart of ``mxnet_tpu.optimizer``): SGD with
-momentum; the others come with their slices."""
-from .optimizer import (SGD, Optimizer, Updater, create, get_updater,
+momentum and LAMB; the others come with their slices."""
+from .optimizer import (LAMB, SGD, Optimizer, Updater, create, get_updater,
                         register)
 
-__all__ = ["SGD", "Optimizer", "Updater", "create", "get_updater",
+__all__ = ["LAMB", "SGD", "Optimizer", "Updater", "create", "get_updater",
            "register"]

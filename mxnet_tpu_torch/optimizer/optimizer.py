@@ -1,6 +1,6 @@
 """Optimizers (counterpart of ``mxnet_tpu/optimizer/optimizer.py``):
-the base :class:`Optimizer`, :class:`SGD` with momentum, the
-:class:`Updater` that keeps per-parameter state, ``create`` and
+the base :class:`Optimizer`, :class:`SGD` with momentum, :class:`LAMB`,
+the :class:`Updater` that keeps per-parameter state, ``create`` and
 ``register``.
 
 ``update(index, weight, grad, state)`` counts the update and then
@@ -14,10 +14,11 @@ from __future__ import annotations
 import torch
 
 from ..base import MXNetError
+from ..kernels.optimizer_update import l2_norm
 from ..ops import optimizer_ops
 
-__all__ = ["Optimizer", "SGD", "Updater", "create", "get_updater",
-           "register"]
+__all__ = ["LAMB", "Optimizer", "SGD", "Updater", "create",
+           "get_updater", "register"]
 
 _OPT_REGISTRY = {}
 
@@ -116,6 +117,39 @@ class SGD(Optimizer):
                                          momentum=self.momentum, **kw)
         else:
             optimizer_ops.sgd_update(weight, grad, **kw)
+
+
+@register
+class LAMB(Optimizer):
+    """Layer-wise adaptive large-batch optimizer (You et al. 2019):
+    phase 1 moments and direction, phase 2 trust-ratio step, per
+    parameter.  ``TrainStep`` runs the same update over one flat bucket
+    (:mod:`mxnet_tpu_torch.kernels.optimizer_update`)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, lower_bound=None, upper_bound=None,
+                 bias_correction=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.lower_bound, self.upper_bound = lower_bound, upper_bound
+        self.bias_correction = bias_correction
+
+    def create_state(self, index, weight):
+        return (torch.zeros_like(weight), torch.zeros_like(weight))
+
+    def _apply(self, index, weight, grad, state):
+        mean, var = state
+        kw = {"wd": self._get_wd(index), "rescale_grad": self.rescale_grad}
+        if self.clip_gradient is not None:
+            kw["clip_gradient"] = self.clip_gradient
+        g = optimizer_ops.lamb_update_phase1(
+            weight, grad, mean, var, beta1=self.beta1, beta2=self.beta2,
+            epsilon=self.epsilon, t=self._index_update_count[index],
+            bias_correction=self.bias_correction, **kw)
+        optimizer_ops.lamb_update_phase2(
+            weight, g, l2_norm(weight.detach()), l2_norm(g),
+            lr=self._get_lr(index),
+            lower_bound=self.lower_bound, upper_bound=self.upper_bound)
 
 
 class Updater:

@@ -13,6 +13,12 @@ it eagerly with the same contract:
   cast back before optimizer state is made from it;
 - the per-sample loss is **summed** over the batch for backward, and
   the update rescales by ``trainer._scale / batch_size``;
+- a parameter that backward leaves without a gradient is updated as
+  with a zero gradient (the JAX step's ``value_and_grad`` gives zeros);
+- a ``LAMB`` optimizer is applied over one flat bucket per dtype
+  (:func:`mxnet_tpu_torch.kernels.optimizer_update.bucket_update`, the
+  JAX step's path under ``MXNET_TPU_KERNELS=1``; the port has no
+  switch), any other optimizer parameter by parameter;
 - the update counts advance every step, but when any gradient is not
   finite the weights and optimizer state are left as they were (one
   host check per step); running statistics keep the forward's update,
@@ -25,6 +31,7 @@ import torch
 
 from .. import autograd
 from ..base import MXNetError
+from ..kernels.optimizer_update import bucket_supported, bucket_update
 
 __all__ = ["TrainStep"]
 
@@ -81,15 +88,19 @@ class TrainStep:
         bs = batch_size if batch_size is not None \
             else data.shape[self._batch_axis]
         opt.rescale_grad = tr._scale / bs
-        grads = [p._data.grad for _i, p in live]
+        grads = [p._data.grad if p._data.grad is not None
+                 else torch.zeros_like(p._data) for _i, p in live]
         finite = bool(torch.stack([torch.isfinite(g).all()
-                                   for g in grads if g is not None]).all())
+                                   for g in grads]).all())
         self.last_step_finite = finite
         if finite:
-            for i, p in live:
-                if p._data.grad is not None:
-                    opt._apply(i, p._data, p._data.grad,
-                               tr._updater.states[i])
+            states = tr._updater.states
+            if bucket_supported(opt):
+                bucket_update(opt, [(i, p._data, g, states[i])
+                                    for (i, p), g in zip(live, grads)])
+            else:
+                for (i, p), g in zip(live, grads):
+                    opt._apply(i, p._data, g, states[i])
         for _i, p in live:
             p._data.grad = None
         return loss.detach().mean()

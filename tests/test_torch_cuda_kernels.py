@@ -1,6 +1,6 @@
 """The port's CUDA kernels on an NVIDIA GPU: each against its plain
-PyTorch version, the wrappers' input checks, and the decode engine and
-a ResNet training step through the kernels.  Every test here needs the
+PyTorch version, the wrappers' input checks, and the decode engine, a
+ResNet training step and a BERT training step through the kernels.  Every test here needs the
 card and skips without one.  The file imports neither JAX nor the JAX
 package, so on a machine with a card and no JAX it runs with
 
@@ -8,9 +8,11 @@ package, so on a machine with a card and no JAX it runs with
 
 Tolerances: paged attention 1e-4 with fp32 caches (fp32 sums in another
 order), 2e-2 with bf16 caches or a bf16 query (bf16 rounding of the
-output).  Fused BN+ReLU, relative to the largest output: 1e-5 in fp32
-(FMA contraction), 1e-2 in bf16 (one rounding step of the stored
-value)."""
+output).  Fused BN+ReLU, LayerNorm and LAMB phase 1, relative to the
+largest output: 1e-5 in fp32 (FMA contraction), 1e-2 in bf16 (one
+rounding step of the stored value).  Flash attention, relative to the
+largest output: 2e-5 forward and 1e-4 backward in fp32 (sums in another
+order; the backward sums 512 products an element), 2e-2 in bf16."""
 import numpy as np
 import pytest
 import torch
@@ -249,4 +251,228 @@ def test_resnet_train_step_runs_through_the_kernels(cuda):
     losses = [float(step(x, y)) for _ in range(3)]
     assert registry.launches("bn_relu_apply") == 8 * 3
     assert registry.launches("bn_relu_bwd") == 8 * 3
+    assert np.isfinite([first] + losses).all() and losses[-1] < first
+
+
+# -- flash attention -----------------------------------------------------
+
+# relative to the largest output: fp32 sums in another order (the
+# backward sums 512 products per element), bf16 one rounding step
+FLASH_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+
+
+def _flash_case(dev, bh, seq, d, dtype, heads=2, masked=False, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn():
+        return torch.randn(bh, seq, d, generator=g, device=dev).to(dtype)
+
+    q, k, v, do = randn(), randn(), randn(), randn()
+    mask = None
+    if masked:
+        lens = torch.randint(1, seq + 1, (bh // heads,), generator=g,
+                             device=dev)
+        mask = (torch.arange(seq, device=dev)[None, None, :]
+                < lens[:, None, None]).float().expand(
+                    bh // heads, seq, seq).contiguous()
+        mask[0, min(3, seq - 1), :] = 0.0          # a row with no key
+    return q, k, v, do, mask
+
+
+def _rel_err(got, want):
+    want = want.float()
+    return ((got.float() - want).abs().max().item()
+            / max(1.0, want.abs().max().item()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("bh,seq,d,causal,masked", [
+    (4, 64, 64, False, False), (4, 100, 64, True, False),
+    (6, 77, 32, False, True), (2, 130, 128, True, False),
+    (4, 33, 20, False, False), (2, 1, 64, False, False),
+    (24, 512, 64, False, False), (384, 512, 64, False, False)])
+def test_flash_kernels_match_plain(cuda, dtype, bh, seq, d, causal, masked):
+    from mxnet_tpu_torch.kernels.registry import dispatch
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    q, k, v, do, mask = _flash_case(cuda, bh, seq, d, dtype, masked=masked)
+    kw = dict(mask=mask, causal=causal, scale=d ** -0.5, heads=2)
+    f0 = registry.launches("flash_attention_fwd")
+    b0 = registry.launches("flash_attention_bwd")
+    out, lse = dispatch("flash_attention_fwd", q, k, v, **kw)
+    assert registry.launches("flash_attention_fwd") == f0 + 1
+    want_out, want_lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
+    delta = (do.float() * want_out.float()).sum(-1)
+    grads = dispatch("flash_attention_bwd", q, k, v, want_lse, do, delta,
+                     **kw)
+    assert registry.launches("flash_attention_bwd") == b0 + 1
+    want = fa.flash_attention_bwd_reference(q, k, v, want_lse, do, delta,
+                                            **kw)
+    torch.cuda.synchronize()
+    tol_f, tol_b = FLASH_TOL[dtype]
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    assert _rel_err(out, want_out) <= tol_f
+    assert _rel_err(lse, want_lse) <= 2e-5
+    for name, got, w in zip(("dq", "dk", "dv"), grads, want):
+        assert got.dtype == dtype
+        assert _rel_err(got, w) <= tol_b, name
+
+
+def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    q, k, v, do, mask = _flash_case(cuda, 4, 16, 8, torch.float32,
+                                    masked=True)
+    with pytest.raises(MXNetError, match="head_dim 160"):
+        big = torch.zeros(2, 4, 160, device=cuda)
+        fa.flash_attention_fwd_cuda(big, big, big)
+    with pytest.raises(MXNetError, match="contiguous"):
+        fa.flash_attention_fwd_cuda(q.transpose(1, 2).contiguous()
+                                    .transpose(1, 2), k, v)
+    with pytest.raises(MXNetError, match="float32 or bfloat16"):
+        fa.flash_attention_fwd_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(MXNetError, match="k is"):
+        fa.flash_attention_fwd_cuda(q, k.bfloat16(), v)
+    with pytest.raises(MXNetError, match="mask must be"):
+        fa.flash_attention_fwd_cuda(q, k, v, mask=mask[:1].contiguous(),
+                                    heads=2)
+    with pytest.raises(MXNetError, match="lse must be"):
+        fa.flash_attention_bwd_cuda(q, k, v, torch.zeros(4, 15,
+                                                         device=cuda),
+                                    do, torch.zeros(4, 16, device=cuda))
+
+
+def test_flash_op_on_the_card_matches_the_cpu(cuda):
+    """The autograd function (forward kernel, delta, backward kernels)
+    on the card against the same op on the CPU."""
+    from mxnet_tpu_torch.ops.transformer import (flash_attention,
+                                                 flash_attention_masked)
+    q, k, v, do, mask = _flash_case(cuda, 4, 96, 64, torch.float32,
+                                    masked=True)
+    for masked in (False, True):
+        res = {}
+        for dev in ("cpu", cuda):
+            ins = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+            if masked:
+                out = flash_attention_masked(*ins, mask.to(dev), heads=2)
+            else:
+                out = flash_attention(*ins, causal=True)
+            out.backward(do.to(dev))
+            res[str(dev)] = [out.detach().cpu()] + [t.grad.cpu()
+                                                    for t in ins]
+        for name, a, b in zip(("out", "dq", "dk", "dv"), res["cpu"],
+                              res[str(cuda)]):
+            np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-4,
+                                       atol=1e-4, err_msg=name)
+
+
+# -- LayerNorm -----------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows,dim", [(16384, 768), (1000, 100), (7, 3),
+                                      (33, 1), (5, 4096)])
+def test_layernorm_kernel_matches_plain(cuda, dtype, rows, dim):
+    from mxnet_tpu_torch.kernels.layernorm import layernorm_reference
+    from mxnet_tpu_torch.kernels.registry import dispatch
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = (torch.randn(rows, dim, generator=g, device=cuda) * 3 + 1).to(dtype)
+    gamma = torch.rand(dim, generator=g, device=cuda) + 0.5
+    beta = torch.randn(dim, generator=g, device=cuda)
+    n0 = registry.launches("layernorm_fwd")
+    got = dispatch("layernorm_fwd", x, gamma, beta, eps=1e-5)
+    assert registry.launches("layernorm_fwd") == n0 + 1
+    want = layernorm_reference(x, gamma, beta, eps=1e-5)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    ok, err = _close(got, want, dtype)
+    assert ok, err
+
+
+def test_layernorm_op_on_the_card_matches_the_cpu(cuda):
+    from mxnet_tpu_torch import ops
+    rng = np.random.default_rng(2)
+    arrs = [rng.standard_normal((3, 50, 96)), rng.random(96) + 0.5,
+            rng.standard_normal(96)]
+    cot = torch.tensor(rng.standard_normal((3, 50, 96)), dtype=torch.float32)
+    res = {}
+    for dev in ("cpu", cuda):
+        ins = [torch.tensor(a, dtype=torch.float32, device=dev)
+               .requires_grad_() for a in arrs]
+        out = ops.LayerNorm(*ins)
+        out.backward(cot.to(dev))
+        res[str(dev)] = [out.detach().cpu()] + [t.grad.cpu() for t in ins]
+    for name, a, b in zip(("out", "dx", "dgamma", "dbeta"), res["cpu"],
+                          res[str(cuda)]):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-4,
+                                   atol=1e-5, err_msg=name)
+
+
+# -- LAMB phase 1 ----------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n,offset,clip", [(133547324, 0, 0.0),
+                                           (1 << 20, 0, 0.0),
+                                           (100003, 0, 1.0),
+                                           (4099, 1, 0.0), (3, 0, 0.0)])
+def test_lamb_phase1_kernel_matches_plain(cuda, dtype, n, offset, clip):
+    """BERT-base's bucket (133,547,324 values), aligned and unaligned
+    buffers (``offset`` shifts every stream off its 16-byte boundary)
+    and a scalar tail."""
+    from mxnet_tpu_torch.kernels.optimizer_update import lamb1_reference
+    from mxnet_tpu_torch.kernels.registry import dispatch
+    g = torch.Generator(device=cuda).manual_seed(3)
+
+    def buf(dt=dtype, positive=False):
+        t = torch.randn(n + offset, generator=g, device=cuda)
+        return (t.abs() if positive else t).to(dt)[offset:]
+
+    w, gr, m, v = buf(), buf(), buf(), buf(positive=True)
+    wd = buf(torch.float32, positive=True) * 0.01
+    scalars = (0.5, 1.0 / (1 - 0.9 ** 4), 1.0 / (1 - 0.999 ** 4))
+    c0 = registry.launches("lamb_phase1")
+    got = dispatch("lamb_phase1", w, gr, m, v, wd, scalars, beta1=0.9,
+                   beta2=0.999, eps=1e-6, clip=clip)
+    assert registry.launches("lamb_phase1") == c0 + 1
+    want = lamb1_reference(w, gr, m, v, wd, scalars, beta1=0.9,
+                           beta2=0.999, eps=1e-6, clip=clip)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.float32 and got[1].dtype == dtype
+    for name, a, b in zip(("gw", "m", "v"), got, want):
+        ok, err = _close(a, b, dtype)
+        assert ok, (name, err)
+
+
+def test_bert_lamb_train_step_runs_through_the_kernels(cuda):
+    """A narrow BERT trains on the card with LAMB: every step launches the
+    flash kernels once per layer, LayerNorm at every site and one
+    phase-1 pass."""
+    from mxnet_tpu_torch import gluon, random
+    from mxnet_tpu_torch.gluon.model_zoo import BERTModel
+    from mxnet_tpu_torch.parallel import TrainStep
+    random.seed(0)
+    vocab, layers = 100, 2
+    net = BERTModel(vocab_size=vocab, units=64, hidden_size=128,
+                    num_layers=layers, num_heads=2, max_length=64,
+                    dropout=0.1)
+    net.initialize(device=cuda, generator=torch.Generator().manual_seed(0))
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    class MLMLoss(gluon.HybridBlock):
+        def hybrid_forward(self, F, outs, labels):
+            return ce(outs[0].reshape(-1, vocab), labels.reshape(-1))
+
+    tr = gluon.Trainer(net.collect_params(), "lamb",
+                       {"learning_rate": 5e-3, "wd": 0.01})
+    step = TrainStep(net, MLMLoss(), tr)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, vocab, (4, 48)).astype(np.float32)
+    labels = rng.integers(0, vocab, (4, 48)).astype(np.float32)
+    first = float(step(ids, labels))
+    registry.reset_launches()
+    losses = [float(step(ids, labels)) for _ in range(3)]
+    assert registry.launches("flash_attention_fwd") == layers * 3
+    assert registry.launches("flash_attention_bwd") == layers * 3
+    assert registry.launches("layernorm_fwd") == (2 * layers + 2) * 3
+    assert registry.launches("lamb_phase1") == 3
     assert np.isfinite([first] + losses).all() and losses[-1] < first

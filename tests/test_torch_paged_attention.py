@@ -118,8 +118,10 @@ def test_registry_runs_plain_version_on_cpu_without_counting():
     want = paged_attention_reference(q, k, v, bt, ctx, scale=0.35)
     assert torch.equal(got, want)
     assert registry.launches("paged_attention") == 0
-    assert registry.list_kernels() == ["bn_relu_apply", "bn_relu_bwd",
-                                      "paged_attention"]
+    assert registry.list_kernels() == [
+        "bn_relu_apply", "bn_relu_bwd", "flash_attention_bwd",
+        "flash_attention_fwd", "lamb_phase1", "layernorm_fwd",
+        "paged_attention"]
     spec = registry.get("paged_attention")
     assert spec.source == "csrc/paged_attention.cu"
     assert "paged_attention_pallas" in spec.replaces
