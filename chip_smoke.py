@@ -41,7 +41,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    2 x seq 512 on the card and on the CPU; loss, every gradient and
    every update must agree within limits above the permuted-batch
    floor;
-7. hold each kernel against its plain PyTorch version at the shapes the
+7. the AMP LARS path: ``resnet50_v1(layout="NHWC")`` at full width,
+   1000 classes, LARS (lr 0.1, momentum 0.9, eta 0.001) through
+   ``gluon.Trainer`` and ``TrainStep.run_steps`` under
+   ``amp.scope("bfloat16")``, batch 512 of 224x224 synthetic images,
+   K = 10 steps a call over one batch: one warm-up call, the counters
+   zeroed, one timed call, the counters read.  Every loss must be
+   finite and step K below step 1; every step must launch both fused
+   BatchNorm+ReLU kernels at each of the 33 sites on bf16 rows and one
+   fp32 ``lars_flat`` pass.  Then one step is profiled;
+8. the AMP LARS oracle: one bf16 step of the same weights at batch 8 on
+   the card and on the CPU: equal output dtypes at every layer; the
+   loss, and every gradient and update whose CPU floors (the bf16 step
+   with the batch permuted, the fp32 step) are small enough to mean
+   something, the output layer's among them, within limits set from
+   those floors; and the card's bucketed LARS step against the plain
+   one on the CPU fed the card's own weights, gradients and momenta;
+9. hold each kernel against its plain PyTorch version at the shapes the
    main paths give it, and time kernel, plain version and a library
    call computing the same function.
 
@@ -82,6 +98,21 @@ ORACLE_LIMITS = {"loss_rel_err": 1e-5, "running_stat_rel_err": 1e-4,
 # stage-4 site of ResNet-50 at batch 128
 BN_SHAPES = ((128, 112, 112, 64), (128, 7, 7, 512))
 BN_EPS = 1e-5
+# the AMP LARS path: bench.py's bench_resnet50_lars settings
+LARS_BATCH = 512
+LARS_STEPS = 10                    # K steps per run_steps call
+LARS_HYPER = {"learning_rate": 0.1, "momentum": 0.9, "eta": 0.001}
+# card-vs-CPU limits of the one-step bf16 oracle: a multiple of the
+# CPU's own bf16 floor (the same CPU step with the batch permuted: bf16
+# rounding in other places), and no less than how far bf16 moves the
+# CPU step from fp32.  A plumbing fault moves loss, gradients and
+# updates by O(1), so a tensor is held only where both floors stay below
+# AMP_FLOOR_CAP.  The LARS replay
+# holds the card's bucketed update against the plain one fed the card's
+# own tensors: there only fp32 arithmetic differs
+AMP_ORACLE_FACTOR = 8.0
+AMP_FLOOR_CAP = 0.25
+LARS_REPLAY_LIMIT = 1e-5
 
 
 class SmokeFailure(Exception):
@@ -121,7 +152,7 @@ def time_ms(fn, iters=50, flush_bytes=128 << 20):
 
 
 # ---------------------------------------------------------------------
-# phase 7: paged_attention against its plain version
+# phase 9: paged_attention against its plain version
 # ---------------------------------------------------------------------
 
 def paged_attention_inputs(kv_dtype, seed=0):
@@ -470,6 +501,7 @@ KERNEL_CATEGORIES = (
                          "flash_bwd_dq_kernel")),
     ("layernorm", ("layernorm_fwd_kernel",)),
     ("lamb_phase1", ("lamb_phase1_kernel",)),
+    ("lars_flat", ("lars_flat_kernel",)),
     ("layout_transform", ("nhwctonchw", "nchwtonhwc")),
     ("convolution", ("conv", "dgrad", "wgrad", "fprop", "implicit_gemm")),
     ("copy", ("copy",)),
@@ -481,6 +513,7 @@ KERNEL_CATEGORIES = (
     ("elementwise", ("elementwise",)),
 )
 RESNET_KERNELS = ("bn_relu_fwd_kernel", "bn_relu_bwd_kernel")
+LARS_KERNELS = RESNET_KERNELS + ("lars_flat_kernel",)
 BERT_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
                 "flash_bwd_dq_kernel", "layernorm_fwd_kernel",
                 "lamb_phase1_kernel")
@@ -647,7 +680,7 @@ def train_oracle(net, make_net=resnet50_nhwc, batch=8, image=224):
 
 
 # ---------------------------------------------------------------------
-# phase 7: fused BN+ReLU kernels against their plain versions
+# phase 9: fused BN+ReLU kernels against their plain versions
 # ---------------------------------------------------------------------
 
 def bn_relu_inputs(shape, dtype, seed=0):
@@ -769,6 +802,25 @@ def bn_relu_kernel_phase():
               "native_batch_norm_backward"
               % (shape, n, json.dumps(fwd), fb, json.dumps(bwd), bb))
         del t, x4, y4, dy4
+    # the stem in bf16, as the AMP LARS path launches it
+    shape = BN_SHAPES[0]
+    rows, c = int(np.prod(shape[:-1])), shape[-1]
+    t = bn_relu_inputs(shape, torch.bfloat16)
+    x, y, dy = t["x"], t["y"], t["dy"]
+    bf16 = {
+        "fwd": {"ms": time_ms(lambda: bn_relu_apply_cuda(x, t["scale"],
+                                                          t["offset"])),
+                "plain_ms": time_ms(lambda: bn_relu_apply_reference(
+                    x, t["scale"], t["offset"]))},
+        "bwd": {"ms": time_ms(lambda: bn_relu_bwd_cuda(x, dy, y, *t["bwd"])),
+                "plain_ms": time_ms(lambda: bn_relu_bwd_reference(
+                    x, dy, y, *t["bwd"]))}}
+    bf16["fwd"]["bound_ms"], _, fb = bn_relu_bound(rows, c, 2, 2, 2, 3)
+    bf16["bwd"]["bound_ms"], _, bb = bn_relu_bound(rows, c, 2, 4, 5, 8)
+    print("bn_relu times %s bf16: fwd %s (%d bytes at 3.35 TB/s); bwd %s "
+          "(%d bytes)" % (shape, json.dumps(bf16["fwd"]), fb,
+                          json.dumps(bf16["bwd"]), bb))
+    del t, x, y, dy
     main = times[BN_SHAPES[0]]
     return {kind: dict(main[kind], max_abs_err=errs[kind]["float32"],
                        max_abs_err_bf16=errs[kind]["bfloat16"])
@@ -907,9 +959,13 @@ def replaying_bucket_update(record):
     from mxnet_tpu_torch.parallel import data_parallel
     original = data_parallel.bucket_update
 
+    def cpu_copy(t):
+        if isinstance(t, tuple):        # LAMB's (mean, var)
+            return tuple(cpu_copy(u) for u in t)
+        return t.detach().cpu().clone()
+
     def both(opt, items):
-        cpu = [(i, w.detach().cpu().clone(), g.detach().cpu().clone(),
-                tuple(t.detach().cpu().clone() for t in s))
+        cpu = [(i, cpu_copy(w), cpu_copy(g), cpu_copy(s))
                for i, w, g, s in items]
         original(opt, items)
         original(opt, cpu)
@@ -1058,7 +1114,287 @@ def bert_oracle(net, make_net=bert_base_net, vocab=BERT_VOCAB, batch=2,
 
 
 # ---------------------------------------------------------------------
-# phase 7: flash attention, LayerNorm and LAMB phase 1 against their
+# phases 7-8: the AMP LARS path and its oracle
+# ---------------------------------------------------------------------
+
+def make_lars_step(net):
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.parallel import TrainStep
+    trainer = gluon.Trainer(net.collect_params(), "lars", dict(LARS_HYPER))
+    return TrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(), trainer)
+
+
+def amp_step(step, bf16=True):
+    """``step(x, y)`` under ``amp.scope("bfloat16")`` (in fp32 when
+    ``bf16`` is false)."""
+    from mxnet_tpu_torch import amp
+
+    def run(x, y):
+        with amp.scope("bfloat16") if bf16 else contextlib.nullcontext():
+            return step(x, y)
+    return run
+
+
+def amp_lars_main_path(make_net=resnet50_nhwc, batch=LARS_BATCH, image=224,
+                       steps=LARS_STEPS, sites=BN_RELU_SITES, device="cuda"):
+    """Train ``make_net()`` with LARS under bf16 AMP through
+    ``TrainStep.run_steps``: one warm-up call of ``steps`` steps, then
+    one timed call, the launch counters zeroed just before it and read
+    just after.  Every step trains on the same batch (an expanded
+    view)."""
+    import torch
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.kernels import registry
+    net = make_net()
+    net.initialize(device=device, generator=torch.Generator().manual_seed(0))
+    step = make_lars_step(net)
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn((batch, image, image, 3), generator=gen, device=device)
+    y = torch.randint(0, net.output._units, (batch,), generator=gen,
+                      device=device).float()
+    xs, ys = x.expand(steps, *x.shape), y.expand(steps, batch)
+    cuda = device == "cuda"
+    with amp.scope("bfloat16"):
+        t0 = time.perf_counter()
+        step.run_steps(xs, ys)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        warm_s = time.perf_counter() - t0
+
+        registry.reset_launches()
+        t0 = time.perf_counter()
+        losses = step.run_steps(xs, ys)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {name: registry.launches(name)
+              for name in ("bn_relu_apply", "bn_relu_bwd", "lars_flat")}
+    dtypes = {name: registry.launch_dtypes(name) for name in counts}
+    check(losses.shape == (steps,) and losses.device.type == device,
+          "run_steps returned %s on %s" % (tuple(losses.shape),
+                                            losses.device))
+    losses = losses.tolist()
+    check(all(np.isfinite(losses)), "non-finite LARS loss: %s" % losses)
+    check(losses[-1] < losses[0], "LARS loss did not fall: %s" % losses)
+    want = {"bn_relu_apply": sites * steps, "bn_relu_bwd": sites * steps,
+            "lars_flat": steps}     # one fp32 bucket a step
+    for name, n in want.items():
+        check(counts[name] == n, "%s launches %d != %d" % (name,
+                                                           counts[name], n))
+    if cuda:
+        for name in ("bn_relu_apply", "bn_relu_bwd"):
+            check(dtypes[name] == {"bfloat16": sites * steps},
+                  "%s ran on %s, not bf16 rows" % (name, dtypes[name]))
+        check(dtypes["lars_flat"] == {"float32": steps},
+              "lars_flat ran on %s" % dtypes["lars_flat"])
+    live = [p for p in step._trainer._params if p.grad_req != "null"]
+    stats = {"batch": batch, "image": image, "steps": steps,
+             "losses": losses, "ms_per_step": 1e3 * wall / steps,
+             "img_per_s": batch * steps / wall, "warmup_s": warm_s,
+             "launches": counts, "launch_dtypes": dtypes,
+             "lars_bucket_elements": sum(p.data().numel() for p in live),
+             "lars_tensors": len(live),
+             "peak_mem_bytes": torch.cuda.max_memory_allocated()
+             if cuda else None, "card": gpu_line() if cuda else None}
+    print("AMP LARS main path (ResNet-50 v1 NHWC, bf16 AMP, LARS "
+          "0.1/0.9/0.001, run_steps K=%d): %s" % (steps, json.dumps(stats)))
+    return net, step, (x, y), stats
+
+
+def layer_dtypes(net, x):
+    """``[(block type, output dtype)]`` of every block a bf16 forward of
+    ``net`` on ``x`` calls, in call order."""
+    import torch
+    from mxnet_tpu_torch import amp, autograd
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda m, _a, out: seen.append(
+            (type(m).__name__, str(out.dtype).replace("torch.", ""))))
+        for m in net.modules()]
+    try:
+        with amp.scope("bfloat16"), autograd.pause():
+            dev = next(iter(net.collect_params().values())).data().device
+            net(torch.as_tensor(x, device=dev))
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def lars_grads_and_step(net, x, y, bf16=True):
+    """One bf16 (or fp32) forward/backward of the summed loss, then one
+    such ``TrainStep`` with LARS from a fresh trainer: ``(loss, {name:
+    grad},
+    {name: w' - w}, {name: w'' - w})``, float64 on the CPU, names
+    relative to the net's prefix, ``w''`` the replay of the step's LARS
+    update on the CPU from the step's own tensors."""
+    import torch
+    from mxnet_tpu_torch import amp, autograd, gluon
+    params = {p.name[len(net.prefix):]: p
+              for p in net.collect_params().values()}
+    dev = next(iter(params.values())).data().device
+    xt, yt = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    with amp.scope("bfloat16") if bf16 else contextlib.nullcontext():
+        with autograd.record():
+            loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(xt), yt)
+        loss.sum().backward()
+    grads = {}
+    for k, p in params.items():
+        g = p.data().grad
+        if g is not None:
+            grads[k] = g.detach().cpu().double()
+        p.data().grad = None
+    before = {k: p.data().detach().cpu().double() for k, p in params.items()}
+    step = make_lars_step(net)
+    with replaying_bucket_update({}) as record:
+        loss = float(amp_step(step, bf16)(xt, yt))
+    names = {i: p.name[len(net.prefix):]
+             for i, p in enumerate(step._trainer._params)}
+    updates = {k: p.data().detach().cpu().double() - before[k]
+               for k, p in params.items() if p.grad_req != "null"}
+    replay = {names[i]: w.double() - before[names[i]]
+              for i, w in record["replay"].items()}
+    return loss, grads, updates, replay
+
+
+def per_tensor_errors(a, b):
+    """``{name: ||a - b|| / ||b||}`` over the entries of ``b`` with a
+    nonzero norm."""
+    out = {}
+    for k, want in b.items():
+        n = float(want.norm())
+        if n > 0:
+            out[k] = float((a[k] - want).norm()) / n
+    return out
+
+
+def held_against_floors(got, floors, fp32):
+    """Hold each tensor's card-vs-CPU error ``got[k]`` to AMP_ORACLE_FACTOR
+    times its permuted floor, and no less than its fp32 distance, for the
+    tensors whose floors are both below AMP_FLOOR_CAP (elsewhere bf16
+    noise alone is O(1), as large as a fault): ``(held names, worst
+    ratio of error to limit, its name)``."""
+    held = [k for k in floors
+            if max(floors[k], fp32[k]) < AMP_FLOOR_CAP]
+    worst, worst_name = 0.0, None
+    for k in held:
+        limit = max(AMP_ORACLE_FACTOR * floors[k], fp32[k])
+        ratio = got[k] / limit if limit > 0 else (0.0 if got[k] == 0
+                                                  else float("inf"))
+        if ratio > worst:
+            worst, worst_name = ratio, k
+    return held, worst, worst_name
+
+
+def amp_lars_oracle(net, make_net=resnet50_nhwc, batch=8, image=224,
+                    device="cuda"):
+    """One bf16 LARS step with ``net``'s weights on the card (the
+    kernels) and on the CPU (the plain versions), on the same batch.  Two
+    more on the CPU give the floors the card is read against: the same
+    bf16 step with the batch permuted (the same function rounded to bf16
+    in other places), and the step in fp32 (how far bf16 itself moves
+    it).  The loss, and each gradient and update whose floors are below
+    AMP_FLOOR_CAP, are held to AMP_ORACLE_FACTOR times the permuted floor
+    and no less than the fp32 distance: the permuted floor alone can be 0
+    (the loss of a permuted batch can round to the same value).  In the
+    deep layers of ResNet-50 at initialization bf16 moves the gradients
+    by O(1) (the fp32 step already moves them by ~1% under a mere change
+    of summation order), so only the layers near the loss can be held;
+    the output layer must be among them: at batch 8 its gradient's
+    permuted floor is ~5% and its fp32 distance ~10%.  The card's bucketed LARS step
+    is held against the plain one on the CPU fed the card's own tensors.
+    Convolution biases are left out (a BatchNorm cancels each: its exact
+    gradient is 0)."""
+    from mxnet_tpu_torch.gluon.convert import params_from_numpy
+    arrays = {p.name: p.data().detach().cpu().numpy()
+              for p in net.collect_params().values()}
+
+    def copy_on(dev):
+        n = make_net()
+        n.initialize(device=dev)
+        params_from_numpy(n, arrays, prefix=net.prefix)
+        return n
+
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((batch, image, image, 3)).astype(np.float32)
+    y = rng.integers(0, net.output._units, batch).astype(np.float32)
+    perm = rng.permutation(batch)
+    card_dtypes = layer_dtypes(copy_on(device), x)
+    cpu_dtypes = layer_dtypes(copy_on("cpu"), x)
+    check(card_dtypes == cpu_dtypes and len(card_dtypes) > 20,
+          "per-layer output dtypes differ card vs CPU: %s"
+          % [(a, b) for a, b in zip(card_dtypes, cpu_dtypes) if a != b][:5])
+    t0 = time.perf_counter()
+    runs = {"cpu": lars_grads_and_step(copy_on("cpu"), x, y)}
+    cpu_step_s = time.perf_counter() - t0
+    runs["cpu_permuted"] = lars_grads_and_step(copy_on("cpu"), x[perm],
+                                               y[perm])
+    runs["cpu_fp32"] = lars_grads_and_step(copy_on("cpu"), x, y, bf16=False)
+    runs["card"] = lars_grads_and_step(copy_on(device), x, y)
+    loss = {run: r[0] for run, r in runs.items()}
+    check(sorted(runs["card"][1]) == sorted(runs["cpu"][1]),
+          "parameters with a gradient differ card vs CPU")
+    out = {"batch": batch, "cpu_step_s": cpu_step_s,
+           "layers_compared": len(card_dtypes),
+           "bf16_layers": sum(d == "bfloat16" for _t, d in card_dtypes),
+           "loss_card": loss["card"], "loss_cpu": loss["cpu"],
+           "loss_rel_err": abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"]),
+           "floor_loss_rel_err": abs(loss["cpu_permuted"] - loss["cpu"])
+           / abs(loss["cpu"]),
+           "fp32_loss_rel_err": abs(loss["cpu_fp32"] - loss["cpu"])
+           / abs(loss["cpu"])}
+    out["loss_limit"] = max(AMP_ORACLE_FACTOR * out["floor_loss_rel_err"],
+                            out["fp32_loss_rel_err"])
+    for what, j in (("grad", 1), ("update", 2)):
+        vals = {run: {k: v for k, v in r[j].items() if not _is_conv_bias(k)}
+                for run, r in runs.items()}
+        got = per_tensor_errors(vals["card"], vals["cpu"])
+        floors = per_tensor_errors(vals["cpu_permuted"], vals["cpu"])
+        fp32 = per_tensor_errors(vals["cpu_fp32"], vals["cpu"])
+        held, worst, worst_name = held_against_floors(got, floors, fp32)
+        glob, _, _ = rel_errors({k: vals["card"][k] for k in held},
+                                {k: vals["cpu"][k] for k in held})
+        out.update({
+            "%s_tensors" % what: len(got), "%s_held" % what: len(held),
+            "%s_rel_err_held" % what: glob,
+            "%s_worst_ratio_to_limit" % what: worst,
+            "%s_worst_param" % what: worst_name,
+            "%s_output_layer" % what: [got.get("dense0_weight"),
+                                       floors.get("dense0_weight"),
+                                       fp32.get("dense0_weight")],
+            "%s_rel_err_all" % what: rel_errors(vals["card"],
+                                                vals["cpu"])[0],
+            "floor_%s_rel_err_all" % what: rel_errors(vals["cpu_permuted"],
+                                                      vals["cpu"])[0]})
+    r_glob, r_worst, r_name = rel_errors(runs["card"][2], runs["card"][3])
+    out.update({"lars_replay_rel_err": r_glob,
+                "lars_replay_rel_err_worst": r_worst,
+                "lars_replay_worst_param": r_name,
+                "factor": AMP_ORACLE_FACTOR, "floor_cap": AMP_FLOOR_CAP,
+                "lars_replay_limit": LARS_REPLAY_LIMIT})
+    print("AMP LARS oracle (card vs CPU, bf16): %s" % json.dumps(out))
+    check(np.isfinite(loss["card"]), "AMP oracle loss on the card is not "
+          "finite")
+    for what in ("grad", "update"):
+        check(out["%s_output_layer" % what][0] is not None
+              and max(out["%s_output_layer" % what][1:]) < AMP_FLOOR_CAP,
+              "AMP oracle: the output layer's %s floors %s reach "
+              "AMP_FLOOR_CAP" % (what, out["%s_output_layer" % what][1:]))
+        check(out["%s_worst_ratio_to_limit" % what] <= 1.0,
+              "AMP LARS oracle: %s of %s %.3g times its limit" % (
+                  what, out["%s_worst_param" % what],
+                  out["%s_worst_ratio_to_limit" % what]))
+    check(out["loss_rel_err"] <= out["loss_limit"], "AMP LARS oracle: loss "
+          "%.3g > limit %.3g" % (out["loss_rel_err"], out["loss_limit"]))
+    check(max(r_glob, r_worst) <= LARS_REPLAY_LIMIT, "AMP LARS oracle: LARS "
+          "replay %.3g (worst %.3g, %s) > %g" % (r_glob, r_worst, r_name,
+                                                 LARS_REPLAY_LIMIT))
+    return out
+
+
+# ---------------------------------------------------------------------
+# phase 9: flash attention, LayerNorm and LAMB phase 1 against their
 # plain versions
 # ---------------------------------------------------------------------
 
@@ -1306,6 +1642,102 @@ def lamb_kernel_phase(sizes):
                 max_abs_err_bf16=errs["bfloat16"])
 
 
+def lars_kernel_phase(sizes, skips):
+    """``lars_flat`` at the main path's bucket (the parameters' ``sizes``,
+    ``skips`` their skip-list flags) in fp32 and bf16, and at an
+    unaligned size; times of the kernel, its plain version and the eager
+    multi-tensor (``torch._foreach_*``) sequence computing the same
+    per-tensor update from the same trust-scaled learning rates."""
+    import torch
+    from mxnet_tpu_torch.kernels.optimizer_update import (
+        lars_flat_cuda, lars_flat_reference)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    n = int(sum(sizes))
+    mom, rescale = LARS_HYPER["momentum"], 1.0 / LARS_BATCH
+    # per tensor: lr times a trust ratio of the size eta gives, wd 0 as
+    # on the main path, sign -1 on the skip list
+    lrs = [LARS_HYPER["learning_rate"] * (1.0 if sk else 0.01 * (1 + k % 7))
+           for k, sk in enumerate(skips)]
+    wds = [0.0] * len(sizes)
+    signs = [-1.0 if sk else 1.0 for sk in skips]
+
+    def stream(count, offset, dtype=torch.float32, scale=1.0):
+        """``count`` values starting at element ``offset`` of a buffer:
+        off the 16-byte boundary when ``offset`` is 1."""
+        t = torch.randn(count + offset, generator=gen, device="cuda")
+        return (t * scale).to(dtype)[offset:]
+
+    def inputs(count, offset, dtype):
+        w, g = stream(count, offset, dtype), stream(count, offset, dtype)
+        m = stream(count, offset, dtype, 1e-3)
+        if count == n and offset == 0:
+            vecs = []
+            for values in (lrs, wds, signs):
+                v = torch.empty(n, device="cuda")
+                for piece, value in zip(v.split(list(sizes)), values):
+                    piece.fill_(value)
+                vecs.append(v)
+        else:
+            vecs = [stream(count, offset) for _ in range(3)]
+            vecs[0].abs_().mul_(0.01)
+            vecs[1].abs_().mul_(1e-4)
+            vecs[2].sign_()
+        return (w, g, m), vecs
+
+    errs = {}
+    for count, offset, dtype in ((n, 0, torch.float32),
+                                 (n, 0, torch.bfloat16),
+                                 (1000003, 1, torch.float32),
+                                 (1000003, 1, torch.bfloat16)):
+        (w, g, m), (lr, wd, sign) = inputs(count, offset, dtype)
+        got = lars_flat_cuda(w, g, m, lr, wd, sign, rescale, momentum=mom)
+        want = lars_flat_reference(w, g, m, lr, wd, sign, rescale,
+                                   momentum=mom)
+        torch.cuda.synchronize()
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+        rel = max(rel_err(a, b) for a, b in zip(got, want))
+        key = str(dtype).split(".")[-1]
+        print("lars_flat S=%d offset %d %s: max_abs_err %.3g, rel err %.3g "
+              "(limit %g)" % (count, offset, key, err, rel, ROW_TOL[key]))
+        check(rel <= ROW_TOL[key], "lars_flat S=%d offset %d %s: %.3g > %g"
+              % (count, offset, key, rel, ROW_TOL[key]))
+        errs[key] = max(errs.get(key, 0.0), err)
+        del w, g, m, lr, wd, sign, got, want
+
+    out = {}
+    for dtype, itemsize in ((torch.float32, 4), (torch.bfloat16, 2)):
+        (w, g, m), (lr, wd, sign) = inputs(n, 0, dtype)
+        ws, gs, ms = (list(t.split(list(sizes))) for t in (w, g, m))
+
+        def foreach_lars():
+            step = torch._foreach_mul(gs, rescale)
+            torch._foreach_add_(step, torch._foreach_mul(ws, wds))
+            torch._foreach_mul_(step, lrs)
+            torch._foreach_mul_(ms, mom)
+            torch._foreach_add_(ms, torch._foreach_mul(step, signs))
+            torch._foreach_sub_(ws, torch._foreach_mul(ms, signs))
+
+        t = {"ms": time_ms(lambda: lars_flat_cuda(
+                 w, g, m, lr, wd, sign, rescale, momentum=mom)),
+             "plain_ms": time_ms(lambda: lars_flat_reference(
+                 w, g, m, lr, wd, sign, rescale, momentum=mom)),
+             "library_ms": time_ms(foreach_lars)}
+        # reads w, g, m and the fp32 lr, wd, sign; writes w', m'
+        nbytes = n * (5 * itemsize + 12)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 8 * n / FP32_FLOPS
+        t["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+        t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        key = str(dtype).split(".")[-1]
+        print("lars_flat times S=%d %s (%d tensors): %s (%d bytes at 3.35 "
+              "TB/s); library = torch._foreach_* momentum sequence over the "
+              "parameter list" % (n, key, len(sizes), json.dumps(t), nbytes))
+        out[key] = t
+        del w, g, m, lr, wd, sign, ws, gs, ms
+    return dict(out["float32"], max_abs_err=errs["float32"],
+                max_abs_err_bf16=errs["bfloat16"], bf16=out["bfloat16"])
+
+
 def kernel_entry(name, launches, kern):
     """One kernel's entry of the per-kernel JSON line."""
     from mxnet_tpu_torch.kernels import registry
@@ -1347,11 +1779,26 @@ def main():
     bert_oracle(net)
     del net
     torch.cuda.empty_cache()
+    net, step, (x, y), lars = amp_lars_main_path()
+    train_step_breakdown(amp_step(step), x, y, lars["ms_per_step"],
+                         hand=LARS_KERNELS,
+                         label="AMP LARS step breakdown")
+    live = [p for p in step._trainer._params if p.grad_req != "null"]
+    lars_sizes = [p.data().numel() for p in live]
+    lars_skips = [step._trainer.optimizer._skip_lars(i)
+                  for i, p in enumerate(step._trainer._params)
+                  if p.grad_req != "null"]
+    del step, x, y, live
+    torch.cuda.empty_cache()
+    amp_lars_oracle(net)
+    del net
+    torch.cuda.empty_cache()
     attn = kernel_phase(scale)
     bn = bn_relu_kernel_phase()
     flash = flash_kernel_phase(BERT_BATCH * BERT_HEADS, BERT_SEQ, 64)
     ln = layernorm_kernel_phase(BERT_BATCH * BERT_SEQ, 768)
     lamb = lamb_kernel_phase(sizes)
+    lars_k = lars_kernel_phase(lars_sizes, lars_skips)
     counts = bert["launches"]
     print(json.dumps({"kernels": [
         kernel_entry("paged_attention", decode["paged_attention_launches"],
@@ -1365,7 +1812,8 @@ def main():
         kernel_entry("flash_attention_bwd", counts["flash_attention_bwd"],
                      flash["bwd"]),
         kernel_entry("layernorm_fwd", counts["layernorm_fwd"], ln),
-        kernel_entry("lamb_phase1", counts["lamb_phase1"], lamb)]}))
+        kernel_entry("lamb_phase1", counts["lamb_phase1"], lamb),
+        kernel_entry("lars_flat", lars["launches"]["lars_flat"], lars_k)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

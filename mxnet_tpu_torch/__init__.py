@@ -18,13 +18,18 @@ It imports neither JAX nor anything of ``mxnet_tpu``.  Ported so far:
 - the BERT pretraining path: the transformer layers and
   ``model_zoo.bert``, the LAMB optimizer and ``TrainStep``'s bucketed
   LAMB update, with the flash-attention forward and backward, LayerNorm
-  and LAMB phase-1 kernels.
+  and LAMB phase-1 kernels;
+- large-batch ResNet training under mixed precision: :mod:`.amp` (bf16
+  and fp16 casts at the op namespace, dynamic loss scaling), the LARS
+  optimizer with ``TrainStep``'s bucketed LARS update (the ``lars_flat``
+  kernel) and ``TrainStep.run_steps``.
 
 Kernels and their plain versions are registered in :mod:`.kernels`.
 """
+from . import amp
 from .base import MXNetError
 from .context import resolve_device
 
 __version__ = "0.1.0"
 
-__all__ = ["MXNetError", "resolve_device"]
+__all__ = ["MXNetError", "amp", "resolve_device"]

@@ -6,6 +6,12 @@ takes a gradient, with ``rescale_grad = _scale / batch_size``.  MXNet's
 ``grad_req="write"`` overwrites a gradient at each backward where
 PyTorch accumulates, so the step clears each ``"write"`` gradient after
 using it.
+
+With an fp16 loss scaler attached (:func:`mxnet_tpu_torch.amp.
+init_trainer`), ``step`` folds ``1 / loss_scale`` into ``rescale_grad``
+(unless :func:`~mxnet_tpu_torch.amp.unscale` already divided the
+gradients), checks every gradient for overflow, updates the scale, and
+on overflow skips the whole update.
 """
 from __future__ import annotations
 
@@ -68,7 +74,17 @@ class Trainer:
     def step(self, batch_size, ignore_stale_grad=False):
         """Optimizer update of every parameter with a gradient."""
         self._optimizer.rescale_grad = self._scale / batch_size
-        for i, p in self._updatable(ignore_stale_grad):
-            self._updater(i, p._data.grad, p._data)
+        live = self._updatable(ignore_stale_grad)
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        skip = False
+        if scaler is not None:
+            if not getattr(self, "_amp_unscaled", False):
+                self._optimizer.rescale_grad /= scaler.loss_scale
+            self._amp_unscaled = False
+            skip = scaler.has_overflow([p._data.grad for _i, p in live])
+            scaler.update_scale(skip)
+        for i, p in live:
+            if not skip:
+                self._updater(i, p._data.grad, p._data)
             if p.grad_req == "write":
                 p._data.grad = None

@@ -1,20 +1,28 @@
-"""Bucket-flattened LAMB update (counterpart of the LAMB half of
+"""Bucket-flattened LARS and LAMB updates (counterpart of
 ``mxnet_tpu/kernels/optimizer_update.py``).
 
 The parameter set is grouped by dtype (:mod:`mxnet_tpu_torch.bucketing`)
-and each group's weights, gradients and moments are flattened into one
-contiguous buffer.  Phase 1 (moments and update direction) runs as ONE
-pass over the flat buffer -- the ``lamb_phase1`` kernel -- the per-tensor
-trust-ratio norms are segment reductions over views of it, and phase 2
-(the trust-scaled step) and the new moments are written into each
-tensor from views of the flat results.  Per-tensor semantics
-are those of the per-parameter ``LAMB`` (``lamb_update_phase1/2``): bias
-correction, the ``r1`` bounds and the ratio of 1 where a norm is 0.
+and each group's weights, gradients and optimizer state are flattened
+into one contiguous buffer.
 
-Where the JAX functions return new arrays, :func:`lamb_bucket_update`
-and :func:`bucket_update` write the new weights and moments into the
-given tensors in place, so a step keeps no second copy of the model
-beyond the flat buffers.
+- LARS: the per-tensor trust ratios are norms of each tensor's weight
+  and clipped, rescaled gradient; they are folded into a per-element
+  ``lr`` vector beside per-element ``wd`` and ``sign`` vectors, and the
+  momentum update runs as ONE pass over the flat buffer -- the
+  ``lars_flat`` kernel.  Skip-list tensors (biases, norm scales) take
+  the ratio 1 and ``sign = -1``: plain momentum SGD with SGD's momentum
+  sign, so stored state is the per-parameter optimizer's.
+- LAMB: phase 1 (moments and update direction) runs as ONE pass -- the
+  ``lamb_phase1`` kernel -- the per-tensor trust-ratio norms are segment
+  reductions over views of it, and phase 2 (the trust-scaled step) is
+  written into each tensor from views of the flat results.
+
+Per-tensor semantics are those of the per-parameter optimizers
+(``lars_update`` / ``sgd_mom_update``, ``lamb_update_phase1/2``).
+Where the JAX functions return new arrays, :func:`lars_bucket_update`,
+:func:`lamb_bucket_update` and :func:`bucket_update` write the new
+weights and states into the given tensors in place, so a step keeps no
+second copy of the model beyond the flat buffers.
 """
 from __future__ import annotations
 
@@ -28,7 +36,8 @@ from ..bucketing import dtype_groups, flatten_group, split_group
 from .registry import KernelSpec, count_launch, dispatch, register_kernel
 
 __all__ = ["bucket_supported", "bucket_update", "l2_norm",
-           "lamb1_reference", "lamb_bucket_update", "lamb_phase1_cuda"]
+           "lamb1_reference", "lamb_bucket_update", "lamb_phase1_cuda",
+           "lars_bucket_update", "lars_flat_cuda", "lars_flat_reference"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -59,18 +68,18 @@ def _lib():
                                        ctypes.c_int64, f, f, f, f, f, f, f,
                                        f, f, i, p]
     lib.lamb_phase1_launch.restype = i
-    lib.lamb_error_string.argtypes = [i]
-    lib.lamb_error_string.restype = ctypes.c_char_p
+    lib.lars_flat_launch.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_int64,
+                                     f, f, f, i, p]
+    lib.lars_flat_launch.restype = i
+    lib.optimizer_update_error_string.argtypes = [i]
+    lib.optimizer_update_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def lamb_phase1_cuda(w, g, m, v, wd, scalars, beta1=0.9, beta2=0.999,
-                     eps=1e-6, clip=0.0):
-    """Launch the phase-1 kernel on PyTorch's current stream: ``w``,
-    ``g``, ``m``, ``v`` contiguous CUDA ``(S,)`` tensors of one dtype
-    (fp32 or bf16), ``wd`` a contiguous fp32 ``(S,)`` tensor; returns
-    ``(gw, m', v')`` as :func:`lamb1_reference`."""
-    fn = "lamb_phase1_cuda"
+def _check_flat(fn, w, others):
+    """Raise unless ``w`` is a flat contiguous fp32/bf16 CUDA tensor and
+    each ``(name, tensor, dtype)`` of ``others`` a contiguous tensor of
+    ``w``'s shape and device at ``dtype``."""
     if w.device.type != "cuda":
         raise MXNetError("%s needs CUDA tensors, got w on %s"
                          % (fn, w.device))
@@ -80,9 +89,7 @@ def lamb_phase1_cuda(w, g, m, v, wd, scalars, beta1=0.9, beta2=0.999,
     if w.dtype not in _DTYPE_CODES:
         raise MXNetError("%s: w must be float32 or bfloat16, got %s"
                          % (fn, w.dtype))
-    for name, t, dtype in (("w", w, w.dtype), ("g", g, w.dtype),
-                           ("m", m, w.dtype), ("v", v, w.dtype),
-                           ("wd", wd, torch.float32)):
+    for name, t, dtype in [("w", w, w.dtype)] + others:
         if t.device != w.device:
             raise MXNetError("%s: %s on %s, w on %s"
                              % (fn, name, t.device, w.device))
@@ -92,6 +99,23 @@ def lamb_phase1_cuda(w, g, m, v, wd, scalars, beta1=0.9, beta2=0.999,
                                 tuple(t.shape)))
         if not t.is_contiguous():
             raise MXNetError("%s: %s is not contiguous" % (fn, name))
+
+
+def _raise_on(lib, rc, what):
+    if rc != 0:
+        raise MXNetError("%s kernel launch failed: %s (%d)" % (
+            what, lib.optimizer_update_error_string(rc).decode(), rc))
+
+
+def lamb_phase1_cuda(w, g, m, v, wd, scalars, beta1=0.9, beta2=0.999,
+                     eps=1e-6, clip=0.0):
+    """Launch the phase-1 kernel on PyTorch's current stream: ``w``,
+    ``g``, ``m``, ``v`` contiguous CUDA ``(S,)`` tensors of one dtype
+    (fp32 or bf16), ``wd`` a contiguous fp32 ``(S,)`` tensor; returns
+    ``(gw, m', v')`` as :func:`lamb1_reference`."""
+    _check_flat("lamb_phase1_cuda", w,
+                [("g", g, w.dtype), ("m", m, w.dtype), ("v", v, w.dtype),
+                 ("wd", wd, torch.float32)])
     rescale, bc1, bc2 = (float(s) for s in scalars)
     clipv = float(clip) if clip is not None and clip > 0 else 0.0
     lib = _lib()
@@ -105,9 +129,7 @@ def lamb_phase1_cuda(w, g, m, v, wd, scalars, beta1=0.9, beta2=0.999,
             w.numel(), rescale, bc1, bc2, float(beta1), 1.0 - beta1,
             float(beta2), 1.0 - beta2, float(eps), clipv,
             _DTYPE_CODES[w.dtype], stream)
-    if rc != 0:
-        raise MXNetError("lamb_phase1 kernel launch failed: %s (%d)"
-                         % (lib.lamb_error_string(rc).decode(), rc))
+    _raise_on(lib, rc, "lamb_phase1")
     count_launch("lamb_phase1")
     return gw, nm, nv
 
@@ -118,6 +140,55 @@ register_kernel(KernelSpec(
     launch=lamb_phase1_cuda,
     source="csrc/optimizer_update.cu",
     replaces="mxnet_tpu/kernels/optimizer_update.py:258 lamb_phase1_pallas",
+))
+
+
+def lars_flat_reference(w, g, m, lr, wd, sign, rescale, momentum=0.9,
+                        clip=0.0):
+    """Plain version of the ``lars_flat`` kernel (the JAX package's
+    ``_lars_math``): returns ``(w', m')`` at ``w``'s and ``m``'s dtype;
+    ``lr``, ``wd`` and ``sign`` are fp32 per element."""
+    wf = w.float()
+    gr = g.float() * float(rescale)
+    if clip is not None and clip > 0:
+        gr = torch.clamp(gr, -clip, clip)
+    step = lr * (gr + wd * wf)
+    nm = momentum * m.float() + sign * step
+    nw = wf - sign * nm
+    return nw.to(w.dtype), nm.to(m.dtype)
+
+
+def lars_flat_cuda(w, g, m, lr, wd, sign, rescale, momentum=0.9, clip=0.0):
+    """Launch the ``lars_flat`` kernel on PyTorch's current stream:
+    ``w``, ``g``, ``m`` contiguous CUDA ``(S,)`` tensors of one dtype
+    (fp32 or bf16), ``lr``, ``wd``, ``sign`` contiguous fp32 ``(S,)``
+    tensors; returns ``(w', m')`` in fresh buffers, as
+    :func:`lars_flat_reference`."""
+    _check_flat("lars_flat_cuda", w,
+                [("g", g, w.dtype), ("m", m, w.dtype),
+                 ("lr", lr, torch.float32), ("wd", wd, torch.float32),
+                 ("sign", sign, torch.float32)])
+    clipv = float(clip) if clip is not None and clip > 0 else 0.0
+    lib = _lib()
+    nw, nm = torch.empty_like(w), torch.empty_like(m)
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        rc = lib.lars_flat_launch(
+            w.data_ptr(), g.data_ptr(), m.data_ptr(), lr.data_ptr(),
+            wd.data_ptr(), sign.data_ptr(), nw.data_ptr(), nm.data_ptr(),
+            w.numel(), float(rescale), float(momentum), clipv,
+            _DTYPE_CODES[w.dtype], stream)
+    _raise_on(lib, rc, "lars_flat")
+    count_launch("lars_flat", w.dtype)
+    return nw, nm
+
+
+register_kernel(KernelSpec(
+    name="lars_flat",
+    plain=lars_flat_reference,
+    launch=lars_flat_cuda,
+    source="csrc/optimizer_update.cu",
+    replaces="mxnet_tpu/kernels/optimizer_update.py:114 lars_flat_pallas",
 ))
 
 
@@ -136,11 +207,60 @@ def _segment_norms(buf, shapes):
 def _per_element(values, shapes, total, device):
     """A flat fp32 ``(total,)`` buffer holding ``values[k]`` over the
     piece of shape ``shapes[k]`` (one fill each; ``repeat_interleave``
-    would build an int64 index of ``total`` entries first)."""
+    would build an int64 index of ``total`` entries first).  ``values``
+    are Python numbers or a ``(P,)`` tensor on ``device``, read without a
+    host sync."""
     out = torch.empty(total, dtype=torch.float32, device=device)
-    for piece, value in zip(split_group(out, shapes), values):
-        piece.fill_(float(value))
+    for k, piece in enumerate(split_group(out, shapes)):
+        v = values[k]
+        piece.fill_(v if isinstance(v, torch.Tensor) else float(v))
     return out
+
+
+@torch.no_grad()
+def lars_bucket_update(ws, gs, ms, lrs, wds, skips, momentum=0.9,
+                       eta=0.001, epsilon=1e-9, rescale=1.0, clip=None):
+    """Bucket-flattened LARS over parameter lists (weights, gradients,
+    momenta; per-tensor ``lrs``/``wds``; ``skips`` the per-tensor flags
+    of the plain-momentum path).  Writes the new weights and momenta into
+    ``ws`` and ``ms`` in place and returns them."""
+    clipv = float(clip) if clip is not None and clip > 0 else 0.0
+    for _dtype, idxs in dtype_groups(ws):
+        dev = ws[idxs[0]].device
+        shapes = [ws[i].shape for i in idxs]
+        total = sum(ws[i].numel() for i in idxs)
+        # lr times the per-tensor trust ratio, on the device; a skipped
+        # tensor keeps the ratio 1 and needs no norms
+        lr_t = torch.tensor([float(lrs[i]) for i in idxs],
+                            dtype=torch.float32, device=dev)
+        live = [k for k, i in enumerate(idxs) if not skips[i]]
+        if live:
+            wn = torch.stack([l2_norm(ws[idxs[k]]) for k in live])
+            gn = []
+            for k in live:
+                gr = gs[idxs[k]].float() * float(rescale)
+                if clipv > 0:
+                    gr = torch.clamp(gr, -clipv, clipv)
+                gn.append(l2_norm(gr))
+            gn = torch.stack(gn)
+            wd_l = torch.tensor([float(wds[idxs[k]]) for k in live],
+                                dtype=torch.float32, device=dev)
+            trust = torch.where((wn > 0) & (gn > 0),
+                                eta * wn / (gn + wd_l * wn + epsilon), 1.0)
+            at = torch.tensor(live, device=dev)
+            lr_t.index_copy_(0, at, lr_t.index_select(0, at) * trust)
+        nW, nM = dispatch(
+            "lars_flat", flatten_group(ws, idxs), flatten_group(gs, idxs),
+            flatten_group(ms, idxs), _per_element(lr_t, shapes, total, dev),
+            _per_element([wds[i] for i in idxs], shapes, total, dev),
+            _per_element([-1.0 if skips[i] else 1.0 for i in idxs], shapes,
+                         total, dev),
+            rescale, momentum=momentum, clip=clipv)
+        for i, pw, pm in zip(idxs, split_group(nW, shapes),
+                             split_group(nM, shapes)):
+            ws[i].copy_(pw)
+            ms[i].copy_(pm)
+    return ws, ms
 
 
 @torch.no_grad()
@@ -187,10 +307,10 @@ def lamb_bucket_update(ws, gs, means, variances, lrs, wds, t, beta1=0.9,
 
 
 def bucket_supported(opt) -> bool:
-    """Whether the optimizer has a bucket-flattened update (LAMB; LARS
-    is not ported yet)."""
-    from ..optimizer import LAMB
-    return type(opt) is LAMB
+    """Whether the optimizer has a bucket-flattened update (LARS and
+    LAMB)."""
+    from ..optimizer import LAMB, LARS
+    return type(opt) in (LARS, LAMB)
 
 
 def bucket_update(opt, items):
@@ -199,12 +319,23 @@ def bucket_update(opt, items):
     advanced for this step.  Updates weights and states in place."""
     if not bucket_supported(opt):
         raise MXNetError("no bucketed update for %s" % type(opt).__name__)
+    from ..optimizer import LARS
     idxs = [i for i, _w, _g, _s in items]
+    ws = [w for _i, w, _g, _s in items]
+    gs = [g for _i, _w, g, _s in items]
+    lrs = [opt._get_lr(i) for i in idxs]
+    wds = [opt._get_wd(i) for i in idxs]
+    if type(opt) is LARS:
+        lars_bucket_update(
+            ws, gs, [s for _i, _w, _g, s in items], lrs, wds,
+            [opt._skip_lars(i) for i in idxs], momentum=opt.momentum,
+            eta=opt.eta, epsilon=opt.epsilon, rescale=opt.rescale_grad,
+            clip=opt.clip_gradient)
+        return
     t = opt._index_update_count[idxs[0]]
     lamb_bucket_update(
-        [w for _i, w, _g, _s in items], [g for _i, _w, g, _s in items],
-        [s[0] for _i, _w, _g, s in items], [s[1] for _i, _w, _g, s in items],
-        [opt._get_lr(i) for i in idxs], [opt._get_wd(i) for i in idxs], t,
+        ws, gs, [s[0] for _i, _w, _g, s in items],
+        [s[1] for _i, _w, _g, s in items], lrs, wds, t,
         beta1=opt.beta1, beta2=opt.beta2, epsilon=opt.epsilon,
         bias_correction=opt.bias_correction, lower_bound=opt.lower_bound,
         upper_bound=opt.upper_bound, rescale=opt.rescale_grad,

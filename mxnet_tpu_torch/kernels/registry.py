@@ -12,18 +12,21 @@ no switch:
 There is no fallback from one to the other.  The counter grows by one
 each time a launcher has launched its kernel (the launcher calls
 :func:`count_launch`), so a run can prove that its path went through
-the kernel.
+the kernel; a launcher that passes the dtype it ran on also counts the
+launch under that dtype (:func:`launch_dtypes`).
 """
 from __future__ import annotations
 
 import threading
-from dataclasses import dataclass
+from collections import Counter
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List
 
 from ..base import MXNetError
 
 __all__ = ["KernelSpec", "register_kernel", "get", "list_kernels",
-           "dispatch", "count_launch", "launches", "reset_launches"]
+           "dispatch", "count_launch", "launch_dtypes", "launches",
+           "reset_launches"]
 
 
 @dataclass
@@ -35,6 +38,7 @@ class KernelSpec:
     source: str       # the kernel source, relative to the package
     replaces: str     # the TPU kernel it ports, "file:line function"
     launches: int = 0
+    dtypes: Counter = field(default_factory=Counter)
 
     def __repr__(self):
         return "KernelSpec(%s, launches=%d)" % (self.name, self.launches)
@@ -84,15 +88,24 @@ def dispatch(name: str, x, *args, **kwargs):
                      % (name, x.device))
 
 
-def count_launch(name: str) -> None:
-    """Called by a launcher right after its kernel launched."""
+def count_launch(name: str, dtype=None) -> None:
+    """Called by a launcher right after its kernel launched, with the
+    dtype it ran on where that varies."""
     spec = get(name)
     with _count_lock:
         spec.launches += 1
+        if dtype is not None:
+            spec.dtypes[str(dtype).replace("torch.", "")] += 1
 
 
 def launches(name: str) -> int:
     return get(name).launches
+
+
+def launch_dtypes(name: str) -> Dict[str, int]:
+    """``{dtype name: launches}`` of the launches counted with a
+    dtype."""
+    return dict(get(name).dtypes)
 
 
 def reset_launches() -> None:
@@ -100,3 +113,4 @@ def reset_launches() -> None:
     with _count_lock:
         for spec in KERNELS.values():
             spec.launches = 0
+            spec.dtypes.clear()

@@ -1,19 +1,23 @@
-"""Optimizer update operators (counterpart of the SGD and LAMB subset of
-``mxnet_tpu/ops/optimizer_ops.py``).
+"""Optimizer update operators (counterpart of the SGD, LARS and LAMB
+subset of ``mxnet_tpu/ops/optimizer_ops.py``).
 
 MXNet's forms, exactly: ``g = clip(grad * rescale_grad) + wd * weight``;
 ``sgd_update``: ``w' = w - lr * g``; ``sgd_mom_update``: ``mom' =
-momentum * mom - lr * g``, ``w' = w + mom'``; ``lamb_update_phase1`` the
-LAMB moments and update direction, ``lamb_update_phase2`` the
-trust-ratio step.  Where the JAX ops return new arrays, these update
-``weight`` (and ``mom``, ``mean``, ``var``) in place under
-``torch.no_grad()``, so a step allocates no second copy of the model.
+momentum * mom - lr * g``, ``w' = w + mom'``; ``lars_update``: ``mom' =
+momentum * mom + lr * trust * g``, ``w' = w - mom'`` with the per-tensor
+trust ratio; ``lamb_update_phase1`` the LAMB moments and update
+direction, ``lamb_update_phase2`` the trust-ratio step.  Where the JAX
+ops return new arrays, these update ``weight`` (and ``mom``, ``mean``,
+``var``) in place under ``torch.no_grad()``, so a step allocates no
+second copy of the model.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["lamb_update_phase1", "lamb_update_phase2",
+from ..kernels.optimizer_update import l2_norm
+
+__all__ = ["lamb_update_phase1", "lamb_update_phase2", "lars_update",
            "sgd_mom_update", "sgd_update"]
 
 
@@ -38,6 +42,24 @@ def sgd_mom_update(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
     g = _apply_wd(grad, weight, wd, rescale_grad, clip_gradient)
     mom.copy_(momentum * mom - lr * g)
     weight.add_(mom)
+    return weight, mom
+
+
+@torch.no_grad()
+def lars_update(weight, grad, mom, lr=0.01, momentum=0.9, eta=0.001,
+                epsilon=1e-9, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+    """LARS: the learning rate scaled by the trust ratio ``eta * ||w|| /
+    (||g|| + wd * ||w|| + eps)`` of this tensor (1 where either norm is
+    0), ``g = clip(grad * rescale_grad)``; ``mom' = momentum * mom + lr *
+    trust * (g + wd * w)``, ``w' = w - mom'``."""
+    g = grad * rescale_grad
+    if clip_gradient is not None and clip_gradient > 0:
+        g = torch.clamp(g, -clip_gradient, clip_gradient)
+    w_norm, g_norm = l2_norm(weight), l2_norm(g)
+    trust = torch.where((w_norm > 0) & (g_norm > 0),
+                        eta * w_norm / (g_norm + wd * w_norm + epsilon), 1.0)
+    mom.copy_(momentum * mom + (lr * trust) * (g + wd * weight))
+    weight.sub_(mom)
     return weight, mom
 
 

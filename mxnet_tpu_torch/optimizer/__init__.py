@@ -1,7 +1,7 @@
 """Optimizers (counterpart of ``mxnet_tpu.optimizer``): SGD with
-momentum and LAMB; the others come with their slices."""
-from .optimizer import (LAMB, SGD, Optimizer, Updater, create, get_updater,
-                        register)
+momentum, LARS and LAMB; the others come with their slices."""
+from .optimizer import (LAMB, LARS, SGD, Optimizer, Updater, create,
+                        get_updater, register)
 
-__all__ = ["LAMB", "SGD", "Optimizer", "Updater", "create", "get_updater",
-           "register"]
+__all__ = ["LAMB", "LARS", "SGD", "Optimizer", "Updater", "create",
+           "get_updater", "register"]

@@ -1,7 +1,7 @@
 """Optimizers (counterpart of ``mxnet_tpu/optimizer/optimizer.py``):
-the base :class:`Optimizer`, :class:`SGD` with momentum, :class:`LAMB`,
-the :class:`Updater` that keeps per-parameter state, ``create`` and
-``register``.
+the base :class:`Optimizer`, :class:`SGD` with momentum, :class:`LARS`,
+:class:`LAMB`, the :class:`Updater` that keeps per-parameter state,
+``create`` and ``register``.
 
 ``update(index, weight, grad, state)`` counts the update and then
 applies it in place through :mod:`mxnet_tpu_torch.ops.optimizer_ops`;
@@ -17,7 +17,7 @@ from ..base import MXNetError
 from ..kernels.optimizer_update import l2_norm
 from ..ops import optimizer_ops
 
-__all__ = ["LAMB", "Optimizer", "SGD", "Updater", "create",
+__all__ = ["LAMB", "LARS", "Optimizer", "SGD", "Updater", "create",
            "get_updater", "register"]
 
 _OPT_REGISTRY = {}
@@ -117,6 +117,41 @@ class SGD(Optimizer):
                                          momentum=self.momentum, **kw)
         else:
             optimizer_ops.sgd_update(weight, grad, **kw)
+
+
+@register
+class LARS(Optimizer):
+    """Layer-wise Adaptive Rate Scaling for large-batch SGD (You et al.
+    2017): momentum SGD whose learning rate each tensor scales by its
+    trust ratio.  Parameters whose name ends with one of ``skip_list``
+    (biases and norm-layer scales) take plain momentum SGD instead, with
+    SGD's momentum sign.  ``TrainStep`` runs the same update over one
+    flat bucket (:mod:`mxnet_tpu_torch.kernels.optimizer_update`)."""
+
+    def __init__(self, momentum=0.9, eta=0.001, epsilon=1e-9,
+                 skip_list=("bias", "gamma", "beta"), **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.eta = eta
+        self.epsilon = epsilon
+        self.skip_list = tuple(skip_list)
+
+    def create_state(self, index, weight):
+        return torch.zeros_like(weight)
+
+    def _skip_lars(self, index):
+        p = self.param_dict.get(index)
+        return (p.name if p is not None else "").endswith(self.skip_list)
+
+    def _apply(self, index, weight, grad, state):
+        kw = self._common_kwargs(index)
+        if self._skip_lars(index):
+            optimizer_ops.sgd_mom_update(weight, grad, state,
+                                         momentum=self.momentum, **kw)
+        else:
+            optimizer_ops.lars_update(weight, grad, state,
+                                      momentum=self.momentum, eta=self.eta,
+                                      epsilon=self.epsilon, **kw)
 
 
 @register

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on an NVIDIA GPU: each against its plain
 PyTorch version, the wrappers' input checks, and the decode engine, a
-ResNet training step and a BERT training step through the kernels.  Every test here needs the
-card and skips without one.  The file imports neither JAX nor the JAX
+ResNet training step, a BERT training step and a bf16 LARS ResNet
+``run_steps`` through the kernels.  Every test here needs the card and
+skips without one.  The file imports neither JAX nor the JAX
 package, so on a machine with a card and no JAX it runs with
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda_kernels.py
@@ -10,7 +11,9 @@ Tolerances: paged attention 1e-4 with fp32 caches (fp32 sums in another
 order), 2e-2 with bf16 caches or a bf16 query (bf16 rounding of the
 output).  Fused BN+ReLU, LayerNorm and LAMB phase 1, relative to the
 largest output: 1e-5 in fp32 (FMA contraction), 1e-2 in bf16 (one
-rounding step of the stored value).  Flash attention, relative to the
+rounding step of the stored value); the LARS flat pass likewise, and the
+bucketed LARS card against CPU 2e-5 relative / 2e-6 absolute (trust-ratio
+norms summed in another order).  Flash attention, relative to the
 largest output: 2e-5 forward and 1e-4 backward in fp32 (sums in another
 order; the backward sums 512 products an element), 2e-2 in bf16."""
 import numpy as np
@@ -476,3 +479,131 @@ def test_bert_lamb_train_step_runs_through_the_kernels(cuda):
     assert registry.launches("layernorm_fwd") == (2 * layers + 2) * 3
     assert registry.launches("lamb_phase1") == 3
     assert np.isfinite([first] + losses).all() and losses[-1] < first
+
+
+# -- LARS flat update ------------------------------------------------------
+
+# ResNet-50 v1's trainable values (193 tensors; the flat bucket of the
+# large-batch training path)
+RESNET50_BUCKET = 25_575_912
+
+
+def _lars_case(dev, n, offset, dtype, seed=4):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def buf(dt=dtype):
+        return torch.randn(n + offset, generator=g, device=dev).to(dt)[offset:]
+
+    w, gr, m = buf(), buf(), buf() * 0.1
+    lr = buf(torch.float32).abs() * 0.1
+    wd = buf(torch.float32).abs() * 1e-3
+    sign = torch.where(buf(torch.float32) < 0, -1.0, 1.0)[:n].contiguous()
+    return w, gr, m, lr, wd, sign
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n,offset,clip", [(RESNET50_BUCKET, 0, 0.0),
+                                           (4099, 1, 1.0), (4099, 0, 0.0),
+                                           (127, 1, 0.0), (1, 0, 1.0),
+                                           (1, 1, 0.0)])
+def test_lars_flat_kernel_matches_plain(cuda, dtype, n, offset, clip):
+    """ResNet-50's bucket, aligned and unaligned buffers (``offset``
+    starts every stream at element 1, off its 16-byte boundary), a
+    scalar tail, with and without clipping, mixed signs."""
+    from mxnet_tpu_torch.kernels.optimizer_update import lars_flat_reference
+    from mxnet_tpu_torch.kernels.registry import dispatch
+    w, gr, m, lr, wd, sign = _lars_case(cuda, n, offset, dtype)
+    c0 = registry.launches("lars_flat")
+    got = dispatch("lars_flat", w, gr, m, lr, wd, sign, 0.25,
+                   momentum=0.9, clip=clip)
+    assert registry.launches("lars_flat") == c0 + 1
+    want = lars_flat_reference(w, gr, m, lr, wd, sign, 0.25, momentum=0.9,
+                               clip=clip)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("w", "m"), got, want):
+        assert a.dtype == dtype and a.shape == (n,)
+        ok, err = _close(a, b, dtype)
+        assert ok, (name, err)
+
+
+def test_lars_flat_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from mxnet_tpu_torch.kernels.optimizer_update import lars_flat_cuda
+    w, gr, m, lr, wd, sign = _lars_case(cuda, 64, 0, torch.float32)
+    cases = [
+        ((w.cpu(), gr, m, lr, wd, sign), "needs CUDA"),
+        ((w, gr.bfloat16(), m, lr, wd, sign), "g must be"),
+        ((w, gr, m.double(), lr, wd, sign), "m must be"),
+        ((w, gr, m, lr.bfloat16(), wd, sign), "lr must be"),
+        ((w, gr, m, lr, wd[:32], sign), "wd must be"),
+        ((w.view(8, 8), gr, m, lr, wd, sign), "flat"),
+        ((w.double(), gr.double(), m.double(), lr, wd, sign),
+         "float32 or bfloat16"),
+        ((w, gr, m, lr, wd, torch.ones(128, device=cuda)[::2]),
+         "not contiguous")]
+    for args, msg in cases:
+        with pytest.raises(MXNetError, match=msg):
+            lars_flat_cuda(*args, 1.0)
+
+
+def test_lars_bucket_update_on_the_card_matches_the_cpu(cuda):
+    """The bucketed LARS (trust ratios, per-element vectors, one kernel
+    pass, the split back) on the card against the same update on the
+    CPU (the plain pass), with skips, rescale and clip."""
+    from mxnet_tpu_torch.kernels.optimizer_update import lars_bucket_update
+    rng = np.random.default_rng(5)
+    shapes = [(7, 5), (16,), (3, 4, 2), (9,), (64, 3, 3, 8), (1000,)]
+    skips = [False, True, False, True, False, True]
+    lrs = [0.1, 0.2, 0.05, 0.15, 0.1, 0.3]
+    wds = [1e-4, 0.0, 1e-4, 5e-5, 1e-3, 0.0]
+    arrays = [[rng.standard_normal(s).astype(np.float32) for s in shapes]
+              for _ in range(3)]
+    res = {}
+    for dev in ("cpu", cuda):
+        ws, gs, ms = ([torch.tensor(a, device=dev) for a in arrs]
+                      for arrs in arrays)
+        c0 = registry.launches("lars_flat")
+        lars_bucket_update(ws, gs, ms, lrs, wds, skips, momentum=0.9,
+                           eta=0.001, epsilon=1e-9, rescale=0.5, clip=1.0)
+        res[str(dev)] = ([w.cpu() for w in ws], [m.cpu() for m in ms],
+                         registry.launches("lars_flat") - c0)
+    assert res["cpu"][2] == 0 and res[str(cuda)][2] == 1
+    for what, (a, b) in {"w": (res["cpu"][0], res[str(cuda)][0]),
+                         "m": (res["cpu"][1], res[str(cuda)][1])}.items():
+        for i, (u, v) in enumerate(zip(a, b)):
+            np.testing.assert_allclose(v.numpy(), u.numpy(), rtol=2e-5,
+                                       atol=2e-6, err_msg="%s%d" % (what, i))
+
+
+def test_resnet_bf16_lars_run_steps_runs_through_the_kernels(cuda):
+    """A narrow NHWC ResNet v1 under ``amp.scope("bfloat16")`` with LARS
+    through ``run_steps`` on the card: every step launches both fused
+    BatchNorm+ReLU kernels at each of its 8 sites on bf16 rows, and one
+    fp32 ``lars_flat`` pass."""
+    from mxnet_tpu_torch import amp, gluon
+    from mxnet_tpu_torch.gluon.model_zoo.vision import (BottleneckV1,
+                                                        ResNetV1)
+    from mxnet_tpu_torch.parallel import TrainStep
+    net = ResNetV1(BottleneckV1, [1, 1, 1, 1], [16, 32, 64, 128, 256],
+                   classes=10, thumbnail=True, layout="NHWC")
+    net.initialize(device=cuda, generator=torch.Generator().manual_seed(0))
+    trainer = gluon.Trainer(net.collect_params(), "lars",
+                            {"learning_rate": 0.1, "momentum": 0.9,
+                             "eta": 0.001})
+    step = TrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(), trainer)
+    rng = np.random.default_rng(0)
+    k = 3
+    x = np.repeat(rng.standard_normal((1, 4, 32, 32, 3)), k, 0)
+    y = np.repeat(rng.integers(0, 10, (1, 4)), k, 0)
+    with amp.scope("bfloat16"):
+        step.run_steps(x.astype(np.float32), y.astype(np.float32))
+        registry.reset_launches()
+        losses = step.run_steps(x.astype(np.float32), y.astype(np.float32))
+    assert losses.device.type == "cuda" and losses.shape == (k,)
+    losses = losses.cpu().numpy()
+    assert registry.launch_dtypes("bn_relu_apply") == {"bfloat16": 8 * k}
+    assert registry.launch_dtypes("bn_relu_bwd") == {"bfloat16": 8 * k}
+    assert registry.launch_dtypes("lars_flat") == {"float32": k}
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    for p in net.collect_params().values():
+        assert p.data().dtype == torch.float32

@@ -120,7 +120,7 @@ def test_registry_runs_plain_version_on_cpu_without_counting():
     assert registry.launches("paged_attention") == 0
     assert registry.list_kernels() == [
         "bn_relu_apply", "bn_relu_bwd", "flash_attention_bwd",
-        "flash_attention_fwd", "lamb_phase1", "layernorm_fwd",
+        "flash_attention_fwd", "lamb_phase1", "lars_flat", "layernorm_fwd",
         "paged_attention"]
     spec = registry.get("paged_attention")
     assert spec.source == "csrc/paged_attention.cu"
