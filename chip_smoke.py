@@ -59,7 +59,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    one on the CPU fed the card's own weights, gradients and momenta;
 9. hold each kernel against its plain PyTorch version at the shapes the
    main paths give it, and time kernel, plain version and a library
-   call computing the same function.
+   call computing the same function (``paged_attention`` at the
+   edge-case contexts and at the decode step's own shape, 8 slots at
+   context 152).
 
 The last two lines of standard output are a JSON object of per-kernel
 numbers and ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -133,9 +135,13 @@ def gpu_line():
 
 
 def time_ms(fn, iters=50, flush_bytes=128 << 20):
-    """Median milliseconds of ``fn()`` with the L2 cache flushed before
-    each call (the decode step finds the cache cold: each layer's slab
-    was last touched one step ago)."""
+    """Median milliseconds of ``fn()`` on the device, with the L2 cache
+    flushed before each call (the decode step finds the cache cold: each
+    layer's slab was last touched one step ago).  A spin kernel of 2e6
+    cycles (~1 ms) after the flush keeps the device busy while
+    the host enqueues the start event and ``fn``'s launches, so that a
+    kernel shorter than its wrapper's host work is timed on the device
+    and not at the host's pace."""
     import torch
     flush = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
     for _ in range(3):
@@ -144,6 +150,7 @@ def time_ms(fn, iters=50, flush_bytes=128 << 20):
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for s, e in zip(starts, ends):
         flush.zero_()
+        torch.cuda._sleep(2_000_000)
         s.record()
         fn()
         e.record()
@@ -151,18 +158,44 @@ def time_ms(fn, iters=50, flush_bytes=128 << 20):
     return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
 
 
+def host_us(fn, iters=200, repeats=5):
+    """Median host microseconds of one ``fn()`` call, over ``repeats``
+    runs of ``iters`` back-to-back calls, with a spin kernel of 2e7
+    cycles (~10 ms) keeping the device busy so that no call waits for
+    it: the wrapper's own host work, which ``time_ms`` keeps out of the
+    device time."""
+    import torch
+    for _ in range(3):
+        fn()
+    runs = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(20_000_000)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        runs.append(1e6 * (time.perf_counter() - t0) / iters)
+    torch.cuda.synchronize()
+    return float(np.median(runs))
+
+
 # ---------------------------------------------------------------------
 # phase 9: paged_attention against its plain version
 # ---------------------------------------------------------------------
 
-def paged_attention_inputs(kv_dtype, seed=0):
+EDGE_CONTEXTS = (0, 1, 15, 16, 17, 333, 1000, 1024)
+DECODE_CONTEXTS = (152,) * 8       # decode_step_breakdown's shape
+
+
+def paged_attention_inputs(kv_dtype, seed=0, contexts=EDGE_CONTEXTS):
     """The decode step's shapes at GPT-2 small width with the default
-    cache (512 blocks of 16): 8 slots, contexts over the edge cases."""
+    cache (512 blocks of 16): 8 slots at the given contexts (by default
+    over the edge cases), each on its own random cache blocks."""
     import torch
     rng = np.random.default_rng(seed)
-    slots, heads, d, nb, bs, max_seq = 8, 12, 64, 512, 16, 1024
+    slots, heads, d, nb, bs, max_seq = len(contexts), 12, 64, 512, 16, 1024
     mb = max_seq // bs
-    ctx = np.array([0, 1, 15, 16, 17, 333, 1000, 1024], np.int32)
+    ctx = np.array(contexts, np.int32)
     tables = np.zeros((slots, mb), np.int32)
     pool = rng.permutation(np.arange(1, nb)).astype(np.int32)
     used = 0
@@ -197,9 +230,50 @@ def paged_attention_bound(q, k, tables, ctx):
             "bytes" if t_bytes >= t_ops else "operations", nbytes)
 
 
-def kernel_phase(scale):
+def paged_attention_times(scale, contexts):
+    """Kernel, plain version and SDPA over pre-gathered K/V at the given
+    contexts, fp32 cache (the main path's), with the kernel held against
+    the plain version there too; the wrapper's host time a call; and
+    the byte bound."""
     import torch
     import torch.nn.functional as F
+    from mxnet_tpu_torch.ops.paged_attention import (
+        paged_attention_cuda, paged_attention_reference)
+    q, k, v, bt, ctx = paged_attention_inputs(torch.float32,
+                                              contexts=contexts)
+    got = paged_attention_cuda(q, k, v, bt, ctx, scale=scale)
+    want = paged_attention_reference(q, k, v, bt, ctx, scale=scale)
+    err = float((got - want).abs().max())
+    check(err <= 1e-4, "paged_attention at contexts %s: max |kernel - "
+          "plain| = %g > atol 1e-4" % (list(contexts), err))
+    slots, heads, d = q.shape
+    mb, bs = bt.shape[1], k.shape[1]
+    kg = k[bt.long()].reshape(slots, mb * bs, heads, d).transpose(1, 2)
+    vg = v[bt.long()].reshape(slots, mb * bs, heads, d).transpose(1, 2)
+    kg, vg = kg.contiguous(), vg.contiguous()
+    mask = (torch.arange(mb * bs, device="cuda")[None]
+            < ctx.reshape(slots, 1))[:, None, None, :]
+    q4 = q[:, :, None, :]
+    ms = time_ms(lambda: paged_attention_cuda(q, k, v, bt, ctx, scale=scale))
+    host = host_us(lambda: paged_attention_cuda(q, k, v, bt, ctx,
+                                                scale=scale))
+    plain_ms = time_ms(
+        lambda: paged_attention_reference(q, k, v, bt, ctx, scale=scale))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, kg, vg, attn_mask=mask, scale=scale))
+    bound_ms, bound_by, nbytes = paged_attention_bound(q, k, bt, ctx)
+    print("paged_attention times (float32 cache, contexts %s): kernel_ms "
+          "%.5f plain_ms %.5f library_ms %.5f (SDPA over pre-gathered K/V) "
+          "bound %.3f us (%d bytes at 3.35 TB/s), max_abs_err %.3g, "
+          "wrapper host_us %.2f a call"
+          % (list(contexts), ms, plain_ms, library_ms, 1e3 * bound_ms,
+             nbytes, err, host))
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def kernel_phase(scale):
+    import torch
     from mxnet_tpu_torch.ops.paged_attention import (
         paged_attention_cuda, paged_attention_reference)
     result = {}
@@ -221,30 +295,12 @@ def kernel_phase(scale):
         print("paged_attention %s cache: max_abs_err %.3g (atol %g)"
               % (name, err, atol))
         result[name] = err
-    # times at the main path's cache dtype (float32)
-    q, k, v, bt, ctx = paged_attention_inputs(torch.float32)
-    slots, heads, d = q.shape
-    mb, bs = bt.shape[1], k.shape[1]
-    kg = k[bt.long()].reshape(slots, mb * bs, heads, d).transpose(1, 2)
-    vg = v[bt.long()].reshape(slots, mb * bs, heads, d).transpose(1, 2)
-    kg, vg = kg.contiguous(), vg.contiguous()
-    mask = (torch.arange(mb * bs, device="cuda")[None]
-            < ctx.reshape(slots, 1))[:, None, None, :]
-    q4 = q[:, :, None, :]
-    ms = time_ms(lambda: paged_attention_cuda(q, k, v, bt, ctx, scale=scale))
-    plain_ms = time_ms(
-        lambda: paged_attention_reference(q, k, v, bt, ctx, scale=scale))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, kg, vg, attn_mask=mask, scale=scale))
-    bound_ms, bound_by, nbytes = paged_attention_bound(q, k, bt, ctx)
-    print("paged_attention times (float32 cache): kernel_ms %.5f "
-          "plain_ms %.5f library_ms %.5f (SDPA over pre-gathered K/V) "
-          "bound %.3f us (%d bytes at 3.35 TB/s)"
-          % (ms, plain_ms, library_ms, 1e3 * bound_ms, nbytes))
-    return {"max_abs_err": result["float32"],
-            "max_abs_err_bf16": result["bfloat16"], "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    # times at the main path's cache dtype (float32): the edge-case
+    # contexts, then the decode step's own shape
+    edge = paged_attention_times(scale, EDGE_CONTEXTS)
+    paged_attention_times(scale, DECODE_CONTEXTS)
+    return dict(edge, max_abs_err=result["float32"],
+                max_abs_err_bf16=result["bfloat16"])
 
 
 # ---------------------------------------------------------------------
@@ -497,8 +553,8 @@ def train_main_path(make_net=resnet50_nhwc, batch=128, image=224,
 
 KERNEL_CATEGORIES = (
     ("bn_relu", ("bn_relu_fwd_kernel", "bn_relu_bwd_kernel")),
-    ("flash_attention", ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
-                         "flash_bwd_dq_kernel")),
+    ("flash_attention", ("flash_fwd_kernel", "flash_bwd_kernel",
+                         "cast_dq_kernel")),
     ("layernorm", ("layernorm_fwd_kernel",)),
     ("lamb_phase1", ("lamb_phase1_kernel",)),
     ("lars_flat", ("lars_flat_kernel",)),
@@ -514,9 +570,8 @@ KERNEL_CATEGORIES = (
 )
 RESNET_KERNELS = ("bn_relu_fwd_kernel", "bn_relu_bwd_kernel")
 LARS_KERNELS = RESNET_KERNELS + ("lars_flat_kernel",)
-BERT_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
-                "flash_bwd_dq_kernel", "layernorm_fwd_kernel",
-                "lamb_phase1_kernel")
+BERT_KERNELS = ("flash_fwd_kernel", "flash_bwd_kernel",
+                "layernorm_fwd_kernel", "lamb_phase1_kernel")
 
 
 def kernel_category(name):
@@ -1399,7 +1454,9 @@ def amp_lars_oracle(net, make_net=resnet50_nhwc, batch=8, image=224,
 # ---------------------------------------------------------------------
 
 # relative to the largest output: fp32 sums in another order (the
-# backward sums `seq` products an element), bf16 one rounding step
+# backward sums `seq` products an element, dq's through reductions in
+# device memory whose order changes from run to run), bf16 one rounding
+# step
 FLASH_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}
 ROW_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
@@ -1464,13 +1521,16 @@ def flash_check(bh, seq, d, dtype, causal=False, masked=False):
 def flash_bounds(bh, seq, d, itemsize):
     """Least times: forward reads q, k, v and writes out and lse, 4 *
     bh * seq^2 * d flops (two products); backward reads q, k, v, dout,
-    lse, delta and writes dq, dk, dv, 14 * bh * seq^2 * d flops (seven
-    products).  fp32 runs on the CUDA cores at 67 TFLOP/s."""
+    lse, delta and writes dq, dk, dv, 10 * bh * seq^2 * d flops: the
+    five products the function needs (S = q k^T, dP = do v^T, p^T do,
+    ds^T q, ds k).  A kernel that recomputes S or dP, as a two-kernel
+    backward does, chooses to; the function does not need it.  fp32
+    runs on the CUDA cores at 67 TFLOP/s."""
     n = bh * seq * d * itemsize
     out = {}
     for kind, nbytes, flops in (
             ("fwd", 4 * n + 4 * bh * seq, 4 * bh * seq * seq * d),
-            ("bwd", 7 * n + 8 * bh * seq, 14 * bh * seq * seq * d)):
+            ("bwd", 7 * n + 8 * bh * seq, 10 * bh * seq * seq * d)):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
         out[kind] = (1e3 * max(t_bytes, t_ops),
                      "bytes" if t_bytes >= t_ops else "operations", nbytes,

@@ -88,8 +88,8 @@ def _lib():
     lib.flash_fwd_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, f, i, i,
                                      p]
     lib.flash_fwd_launch.restype = i
-    lib.flash_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,
-                                     i, f, i, i, p]
+    lib.flash_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i,
+                                     i, i, f, i, i, p]
     lib.flash_bwd_launch.restype = i
     lib.flash_error_string.argtypes = [i]
     lib.flash_error_string.restype = ctypes.c_char_p
@@ -180,23 +180,31 @@ def flash_attention_fwd_cuda(q, k, v, mask=None, causal=False, scale=1.0,
 
 def flash_attention_bwd_cuda(q, k, v, lse, dout, delta, mask=None,
                              causal=False, scale=1.0, heads=1):
-    """Launch the dk/dv and dq kernels on PyTorch's current stream (read
-    at call time: backward runs on autograd's thread); returns ``(dq,
-    dk, dv)``.  One call counts one launch."""
+    """Launch the one-pass backward kernel on PyTorch's current stream
+    (read at call time: backward runs on autograd's thread); returns
+    ``(dq, dk, dv)``.  dq is summed by fp32 reductions in device memory
+    into a zeroed buffer (dq itself in fp32; in bf16 an fp32 scratch
+    that the kernel then casts), so its sums run in an order that
+    changes from call to call.  One call counts one launch."""
     _check("flash_attention_bwd_cuda",
            [("q", q), ("k", k), ("v", v), ("dout", dout)],
            [("lse", lse), ("delta", delta)], mask, heads)
     lib = _lib()
     bh, seq, d = q.shape
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
-        torch.empty_like(v)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if q.dtype == torch.float32:
+        dq = dq_acc = torch.zeros_like(q)
+    else:
+        dq = torch.empty_like(q)
+        dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), _ptr(mask), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), bh, seq, d, int(heads),
-            float(scale), int(bool(causal)), _DTYPE_CODES[q.dtype], stream)
+            lse.data_ptr(), delta.data_ptr(), _ptr(mask), dq_acc.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, seq, d,
+            int(heads), float(scale), int(bool(causal)),
+            _DTYPE_CODES[q.dtype], stream)
     _raise_on(lib, rc, "flash_attention_bwd")
     count_launch("flash_attention_bwd")
     return dq, dk, dv

@@ -7,7 +7,11 @@ the K/V that its block table names in the paged cache (counterpart of
   is the oracle the CUDA kernel is held against on the card.
 - :func:`paged_attention_cuda` -- the wrapper of the hand-written
   Hopper kernel ``csrc/paged_attention.cu`` (built on first use by
-  :mod:`mxnet_tpu_torch._build`).
+  :mod:`mxnet_tpu_torch._build`).  The kernel cuts each slot's context
+  into partitions of :func:`partition_blocks` table blocks and merges
+  their partial softmax results; the wrapper hands it the fp32 scratch
+  for the partials and the per-(slot, head) merge tickets, both kept
+  per stream and reused from call to call.
 
 Layout: q ``(slots, heads, head_dim)``; per-layer cache slabs
 ``(num_blocks, block_size, heads, head_dim)``; ``block_tables``
@@ -25,9 +29,11 @@ import torch
 from ..base import MXNetError
 from ..kernels.registry import count_launch
 
-__all__ = ["NEG_INF", "paged_attention_reference", "paged_attention_cuda"]
+__all__ = ["NEG_INF", "PARTITION_TOKENS", "paged_attention_reference",
+           "paged_attention_cuda", "partition_blocks"]
 
 NEG_INF = -1e30
+PARTITION_TOKENS = 64      # about the tokens one kernel block takes
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -54,6 +60,12 @@ def paged_attention_reference(q, k_cache, v_cache, block_tables,
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("sht,sthd->shd", p / l, v)
     return out.to(q.dtype)
+
+
+def partition_blocks(block_size):
+    """Table blocks in one of the kernel's context partitions: about
+    ``PARTITION_TOKENS`` tokens, and at least one block."""
+    return max(1, PARTITION_TOKENS // int(block_size))
 
 
 def _check(q, k_cache, v_cache, block_tables, context_lens):
@@ -103,6 +115,9 @@ def _check(q, k_cache, v_cache, block_tables, context_lens):
             or block_tables.shape[1] < 1:
         raise MXNetError("paged_attention_cuda: heads, head_dim, "
                          "block_size and max_blocks must be positive")
+    if slots > 65535 or heads > 65535:
+        raise MXNetError("paged_attention_cuda: slots %d or heads %d > "
+                         "65535" % (slots, heads))
 
 
 @functools.cache
@@ -110,12 +125,34 @@ def _lib():
     from .. import _build
     lib = _build.load("paged_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.paged_attention_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                           ctypes.c_float, i, i, p]
+    lib.paged_attention_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
+                                           i, i, i, ctypes.c_float, i, i, p]
     lib.paged_attention_launch.restype = i
     lib.paged_attention_error_string.argtypes = [i]
     lib.paged_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+_scratch = {}
+
+
+def _scratch_for(device, stream, n_tickets, n_partials):
+    """The merge tickets (int32) and partials (fp32) of ``stream``, at
+    least ``n_tickets`` and ``n_partials`` long.  A stream's calls run
+    in order, so they share one pair, made once and grown to the largest
+    call: the kernel leaves the tickets at zero, and a call reads only
+    the partials it wrote."""
+    key = (device.index, stream)
+    pair = _scratch.get(key)
+    if pair is None or pair[0].numel() < n_tickets \
+            or pair[1].numel() < n_partials:
+        if pair is not None:
+            n_tickets = max(n_tickets, pair[0].numel())
+            n_partials = max(n_partials, pair[1].numel())
+        pair = _scratch[key] = (
+            torch.zeros(n_tickets, dtype=torch.int32, device=device),
+            torch.empty(n_partials, dtype=torch.float32, device=device))
+    return pair
 
 
 def paged_attention_cuda(q, k_cache, v_cache, block_tables, context_lens,
@@ -126,15 +163,21 @@ def paged_attention_cuda(q, k_cache, v_cache, block_tables, context_lens,
     _check(q, k_cache, v_cache, block_tables, context_lens)
     lib = _lib()
     slots, heads, d = q.shape
+    block_size, max_blocks = k_cache.shape[1], block_tables.shape[1]
+    part = partition_blocks(block_size)
+    max_parts = -(-max_blocks // part)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        tickets, partials = _scratch_for(
+            q.device, stream, slots * heads,
+            slots * max_parts * heads * (d + 2))
         rc = lib.paged_attention_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             block_tables.data_ptr(), context_lens.data_ptr(),
-            out.data_ptr(), slots, heads, d, k_cache.shape[1],
-            block_tables.shape[1], float(scale), _DTYPE_CODES[q.dtype],
-            _DTYPE_CODES[k_cache.dtype], stream)
+            out.data_ptr(), partials.data_ptr(), tickets.data_ptr(), slots,
+            heads, d, block_size, max_blocks, part, float(scale),
+            _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_cache.dtype], stream)
     if rc != 0:
         raise MXNetError("paged_attention kernel launch failed: %s (%d)"
                          % (lib.paged_attention_error_string(rc).decode(),

@@ -15,7 +15,9 @@ rounding step of the stored value); the LARS flat pass likewise, and the
 bucketed LARS card against CPU 2e-5 relative / 2e-6 absolute (trust-ratio
 norms summed in another order).  Flash attention, relative to the
 largest output: 2e-5 forward and 1e-4 backward in fp32 (sums in another
-order; the backward sums 512 products an element), 2e-2 in bf16."""
+order; the backward sums 512 products an element, and its dq sums
+arrive through reductions in device memory in an order that changes
+from call to call), 2e-2 in bf16."""
 import numpy as np
 import pytest
 import torch
@@ -89,6 +91,104 @@ def test_kernel_matches_plain(cuda, q_dtype, kv_dtype, atol):
         zero = [i for i, c in enumerate(case[-1]) if c == 0]
         for i in zero:
             assert not got[i].any()
+
+
+# the kernel's context partitions: 4 table blocks (64 tokens) at block
+# size 16, 16 blocks at block size 4, one block at block size 128
+PARTITION_CASES = [
+    (7, 5, 64, 16, 2, 64, [63, 64, 65, 0, 700]),   # at, below, above a
+    # partition boundary; ctx 0 beside the slot with the most partitions
+    (8, 4, 200, 4, 2, 8, [0, 63, 64, 65]),
+    (9, 3, 40, 128, 2, 24, [129, 0, 300]),
+    (10, 3, 64, 16, 12, 64, [128, 191, 192]),
+]
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,atol", [
+    (torch.float32, torch.float32, 1e-4),
+    (torch.float32, torch.bfloat16, 2e-2),
+    (torch.bfloat16, torch.float32, 2e-2),
+    (torch.bfloat16, torch.bfloat16, 2e-2),
+], ids=["fp32", "bf16_cache", "bf16_q", "bf16_all"])
+def test_kernel_partitions_match_plain(cuda, q_dtype, kv_dtype, atol):
+    from mxnet_tpu_torch.ops.paged_attention import partition_blocks
+    assert [partition_blocks(bs) for bs in (4, 16, 128)] == [16, 4, 1]
+    for case in PARTITION_CASES + [CASES[5], CASES[6]]:
+        q, k, v, bt, ctx = _case(cuda, *case, q_dtype=q_dtype,
+                                 kv_dtype=kv_dtype)
+        for _ in range(2):               # the merge tickets are reused
+            got = paged_attention_cuda(q, k, v, bt, ctx, scale=0.35)
+            want = paged_attention_reference(q, k, v, bt, ctx, scale=0.35)
+            torch.cuda.synchronize()
+            assert got.dtype == q_dtype
+            assert bool(torch.isfinite(got.float()).all()), case[0]
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= atol, (case[0], err)
+            for i, c in enumerate(case[-1]):
+                if c == 0:
+                    assert not got[i].any()
+
+
+def test_kernel_scratch_is_kept_per_stream(cuda):
+    # two streams in flight at once each merge in their own partials and
+    # tickets; a smaller call after a larger one reuses the larger scratch
+    big = _case(cuda, 14, 5, 64, 16, 2, 64, [63, 64, 65, 0, 700])
+    small = _case(cuda, 15, 2, 64, 16, 2, 64, [200, 1])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got_side = [paged_attention_cuda(*big, scale=0.35)
+                    for _ in range(3)]
+    got = [paged_attention_cuda(*t, scale=0.35) for t in (big, small, big)]
+    torch.cuda.synchronize()
+    want_big = paged_attention_reference(*big, scale=0.35)
+    want_small = paged_attention_reference(*small, scale=0.35)
+    for out, want in zip(got_side + got,
+                         [want_big] * 3 + [want_big, want_small, want_big]):
+        assert (out - want).abs().max().item() <= 1e-4
+
+
+def test_kernel_reads_whole_table_past_its_end(cuda):
+    # contexts past max_blocks * block_size read the whole table
+    q, k, v, bt, _ = _case(cuda, 11, 3, 64, 16, 2, 64, [128, 128, 64])
+    ctx = torch.tensor([[500], [5000], [64]], dtype=torch.int32,
+                       device=cuda)      # the tables hold 8 blocks, 128
+    got = paged_attention_cuda(q, k, v, bt, ctx, scale=0.35)
+    want = paged_attention_reference(q, k, v, bt, ctx, scale=0.35)
+    capped = paged_attention_reference(q, k, v, bt, ctx.clamp(max=128),
+                                       scale=0.35)
+    torch.cuda.synchronize()
+    assert torch.equal(want, capped)
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_kernel_d160_with_bf16_caches(cuda):
+    for q_dtype in (torch.float32, torch.bfloat16):
+        q, k, v, bt, ctx = _case(cuda, 12, 3, 64, 16, 2, 160, [17, 300, 65],
+                                 q_dtype=q_dtype, kv_dtype=torch.bfloat16)
+        got = paged_attention_cuda(q, k, v, bt, ctx, scale=0.35)
+        want = paged_attention_reference(q, k, v, bt, ctx, scale=0.35)
+        torch.cuda.synchronize()
+        assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("kv_dtype,atol", [(torch.float32, 1e-4),
+                                           (torch.bfloat16, 2e-2)],
+                         ids=["fp32", "bf16"])
+def test_kernel_takes_unaligned_cache_views(cuda, kv_dtype, atol):
+    # slabs that start one element into their storage break the 16-byte
+    # alignment of the vector loads: the kernel takes its scalar path
+    q, k, v, bt, ctx = _case(cuda, 13, 3, 64, 16, 2, 64, [65, 130, 3],
+                             kv_dtype=kv_dtype)
+    k2 = torch.empty(k.numel() + 1, dtype=kv_dtype, device=cuda)[1:] \
+        .view(k.shape).copy_(k)
+    v2 = torch.empty(v.numel() + 1, dtype=kv_dtype, device=cuda)[1:] \
+        .view(v.shape).copy_(v)
+    assert k2.data_ptr() % 16 and v2.data_ptr() % 16 and k2.is_contiguous()
+    got = paged_attention_cuda(q, k2, v2, bt, ctx, scale=0.35)
+    want = paged_attention_reference(q, k, v, bt, ctx, scale=0.35)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= atol
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -260,7 +360,9 @@ def test_resnet_train_step_runs_through_the_kernels(cuda):
 # -- flash attention -----------------------------------------------------
 
 # relative to the largest output: fp32 sums in another order (the
-# backward sums 512 products per element), bf16 one rounding step
+# backward sums 512 products per element, dq's through reductions in
+# device memory whose order changes from call to call), bf16 one
+# rounding step
 FLASH_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 
 
@@ -294,7 +396,8 @@ def _rel_err(got, want):
     (4, 64, 64, False, False), (4, 100, 64, True, False),
     (6, 77, 32, False, True), (2, 130, 128, True, False),
     (4, 33, 20, False, False), (2, 1, 64, False, False),
-    (24, 512, 64, False, False), (384, 512, 64, False, False)])
+    (24, 512, 64, False, False), (384, 512, 64, False, False),
+    (4, 70, 18, True, False)])   # d % 4 != 0: plain loads, dq atomics
 def test_flash_kernels_match_plain(cuda, dtype, bh, seq, d, causal, masked):
     from mxnet_tpu_torch.kernels.registry import dispatch
     from mxnet_tpu_torch.kernels import flash_attention as fa
@@ -319,6 +422,27 @@ def test_flash_kernels_match_plain(cuda, dtype, bh, seq, d, causal, masked):
     for name, got, w in zip(("dq", "dk", "dv"), grads, want):
         assert got.dtype == dtype
         assert _rel_err(got, w) <= tol_b, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_bwd_repeats_to_fp32_rounding(cuda, dtype):
+    """dq is summed with atomics, in an order that changes from call to
+    call: two calls on the same inputs agree to fp32 rounding of the
+    sums (1e-6 of the largest value; bf16 adds at most one rounding
+    step of the stored value), dk and dv, each written by one block,
+    bit for bit."""
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    q, k, v, do, mask = _flash_case(cuda, 24, 512, 64, dtype, masked=True)
+    kw = dict(mask=mask, scale=0.125, heads=2)
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    one = fa.flash_attention_bwd_cuda(q, k, v, lse, do, delta, **kw)
+    two = fa.flash_attention_bwd_cuda(q, k, v, lse, do, delta, **kw)
+    torch.cuda.synchronize()
+    assert _rel_err(one[0], two[0]) <= (1e-6 if dtype == torch.float32
+                                        else 1e-2)
+    assert torch.equal(one[1], two[1]) and torch.equal(one[2], two[2])
 
 
 def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
