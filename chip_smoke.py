@@ -61,7 +61,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    main paths give it, and time kernel, plain version and a library
    call computing the same function (``paged_attention`` at the
    edge-case contexts and at the decode step's own shape, 8 slots at
-   context 152).
+   context 152; the flash forward in fp32 and in bf16, with its
+   registers and shared memory, and causal with a float mask that
+   leaves a row no key).
 
 The last two lines of standard output are a JSON object of per-kernel
 numbers and ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -84,6 +86,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 FP32_FLOPS = 67e12                 # H100 SXM fp32 outside tensor cores
+TF32_FLOPS = 495e12                # H100 SXM dense TF32 tensor cores
+BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor cores
 TIE_TOL = 1e-3                     # near-tie: oracle top-2 logit gap below
 GPT2_SMALL = dict(vocab_size=50257, units=768, num_layers=12, num_heads=12,
                   max_seq=1024)
@@ -1478,6 +1482,7 @@ def flash_inputs(bh, seq, d, dtype, heads=BERT_HEADS, masked=False, seed=0):
         mask = (torch.arange(seq, device="cuda")[None, None, :]
                 < lens[:, None, None]).float().expand(
                     bh // heads, seq, seq).contiguous()
+        mask[0, min(3, seq - 1), :] = 0.0          # a row with no key
     return q, k, v, do, mask
 
 
@@ -1524,17 +1529,58 @@ def flash_bounds(bh, seq, d, itemsize):
     lse, delta and writes dq, dk, dv, 10 * bh * seq^2 * d flops: the
     five products the function needs (S = q k^T, dP = do v^T, p^T do,
     ds^T q, ds k).  A kernel that recomputes S or dP, as a two-kernel
-    backward does, chooses to; the function does not need it.  fp32
-    runs on the CUDA cores at 67 TFLOP/s."""
+    backward does, chooses to; the function does not need it.  Each at
+    the rate of the route its kernel takes: the forward on the tensor
+    cores, fp32 as three TF32 products (3xTF32) at 495 TFLOP/s and bf16
+    at 989; the backward's fp32 FMAs on the CUDA cores at 67.  Returns
+    {kind: (ms, bound_by, bytes, flops, route)}."""
     n = bh * seq * d * itemsize
+    fwd_route = ((3, TF32_FLOPS, "3xTF32 at 495 TFLOP/s") if itemsize == 4
+                 else (1, BF16_FLOPS, "bf16 at 989 TFLOP/s"))
     out = {}
-    for kind, nbytes, flops in (
-            ("fwd", 4 * n + 4 * bh * seq, 4 * bh * seq * seq * d),
-            ("bwd", 7 * n + 8 * bh * seq, 10 * bh * seq * seq * d)):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    for kind, nbytes, flops, (products, rate, route) in (
+            ("fwd", 4 * n + 4 * bh * seq, 4 * bh * seq * seq * d,
+             fwd_route),
+            ("bwd", 7 * n + 8 * bh * seq, 10 * bh * seq * seq * d,
+             (1, FP32_FLOPS, "fp32 FMAs at 67 TFLOP/s"))):
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = products * flops / rate
         out[kind] = (1e3 * max(t_bytes, t_ops),
                      "bytes" if t_bytes >= t_ops else "operations", nbytes,
-                     flops)
+                     flops, route)
+    return out
+
+
+def flash_fwd_attributes(q, k, v):
+    """(registers a thread, local bytes a thread, static and dynamic
+    shared bytes a block) of the forward kernel these inputs launch."""
+    import ctypes
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    out = (ctypes.c_int * 4)()
+    rc = fa._lib().flash_fwd_attributes(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), q.shape[-1],
+        fa._DTYPE_CODES[q.dtype], out)
+    check(rc == 0, "flash_fwd_attributes: error %d" % rc)
+    return tuple(out)
+
+
+def flash_fp64_errors(q, k, v, scale):
+    """The fp32 forward kernel and the plain fp32 version against an
+    fp64 reference: {name: (out mean relative error, out max relative
+    error, lse max absolute error)}."""
+    import torch
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    s = torch.matmul(q.double(), k.double().transpose(1, 2)) * scale
+    ref = torch.matmul(torch.softmax(s, -1), v.double())
+    ref_lse = torch.logsumexp(s, -1)
+    out = {}
+    for name, fn in (("kernel", fa.flash_attention_fwd_cuda),
+                     ("plain", fa.flash_attention_fwd_reference)):
+        o, lse = fn(q, k, v, scale=scale)
+        err = (o.double() - ref).abs()
+        out[name] = (float(err.mean() / ref.abs().mean()),
+                     float(err.max() / ref.abs().max()),
+                     float((lse.double() - ref_lse).abs().max()))
     return out
 
 
@@ -1547,15 +1593,39 @@ def flash_kernel_phase(bh, seq, d):
         errs[str(dtype).split(".")[-1]] = flash_check(bh, seq, d, dtype)
     flash_check(2 * BERT_HEADS, seq, d, torch.float32, causal=True)
     flash_check(2 * BERT_HEADS, seq, d, torch.float32, masked=True)
+    # causal with a row that has no key, left of the skipped tiles
+    for dtype in (torch.float32, torch.bfloat16):
+        flash_check(2 * BERT_HEADS, seq, d, dtype, causal=True, masked=True)
     flash_check(2 * BERT_HEADS, 500, d, torch.float32)
     flash_check(2 * BERT_HEADS, 500, d, torch.bfloat16, masked=True)
 
     q, k, v, do, _ = flash_inputs(bh, seq, d, torch.float32)
+    # fp32's accuracy: 3xTF32 with rounded adds holds the plain fp32
+    # version's mean error against fp64 within 4x, also where v's mean
+    # is far from 0 and an accumulation that rounds toward zero shows
+    n = 8 * BERT_HEADS
+    for what, vv in (("v", v[:n]), ("v * 0.05 + 1", v[:n] * 0.05 + 1)):
+        errs64 = flash_fp64_errors(q[:n], k[:n], vv, d ** -0.5)
+        print("flash fwd vs fp64 (bh %d, seq %d, d %d, fp32, %s): %s"
+              % (n, seq, d, what, json.dumps(errs64)))
+        check(errs64["kernel"][0] <= 4 * errs64["plain"][0],
+              "flash fwd (%s): mean error against fp64 %.3g > 4x the "
+              "plain version's %.3g" % (what, errs64["kernel"][0],
+                                        errs64["plain"][0]))
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    for x in ((q, k, v), (qb, kb, vb)):
+        regs, local, static, dynamic = flash_fwd_attributes(*x)
+        print("flash_fwd_kernel (d %d, %s): %d registers a thread, %d "
+              "local bytes a thread, %d static + %d dynamic shared bytes "
+              "a block" % (d, x[0].dtype, regs, local, static, dynamic))
+        check(local == 0, "flash_fwd_kernel (d %d, %s) spills: %d local "
+              "bytes" % (d, x[0].dtype, local))
     scale = d ** -0.5
     out, lse = fa.flash_attention_fwd_cuda(q, k, v, scale=scale)
     delta = (do * out).sum(-1)
     b = bh // BERT_HEADS
-    q4, k4, v4 = (t.view(b, BERT_HEADS, seq, d) for t in (q, k, v))
+    q4, k4, v4, q4b, k4b, v4b = (t.view(b, BERT_HEADS, seq, d)
+                                 for t in (q, k, v, qb, kb, vb))
     do4 = do.view(b, BERT_HEADS, seq, d)
     ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
 
@@ -1569,6 +1639,12 @@ def flash_kernel_phase(bh, seq, d):
                q, k, v, scale=scale)),
            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                q4, k4, v4, scale=scale))}
+    fwd16 = {"ms": time_ms(lambda: fa.flash_attention_fwd_cuda(
+                 qb, kb, vb, scale=scale)),
+             "plain_ms": time_ms(lambda: fa.flash_attention_fwd_reference(
+                 qb, kb, vb, scale=scale)),
+             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                 q4b, k4b, v4b, scale=scale))}
     lib_both = time_ms(lib_fwd_bwd)
     bwd = {"ms": time_ms(lambda: fa.flash_attention_bwd_cuda(
                q, k, v, lse, do, delta, scale=scale)),
@@ -1577,12 +1653,19 @@ def flash_kernel_phase(bh, seq, d):
            # SDPA's backward alone is no public call: its forward and
            # backward through autograd, less its forward
            "library_ms": lib_both - fwd["library_ms"]}
-    bounds = flash_bounds(bh, seq, d, 4)
-    for kind, t in (("fwd", fwd), ("bwd", bwd)):
-        t["bound_ms"], t["bound_by"], nbytes, flops = bounds[kind]
-        print("flash %s times (bh %d, seq %d, d %d, fp32): %s (%d bytes, "
-              "%d flops at 67 TFLOP/s fp32)%s"
-              % (kind, bh, seq, d, json.dumps(t), nbytes, flops,
+    for kind, key, t in (("fwd", "float32", fwd), ("fwd", "bfloat16", fwd16),
+                         ("bwd", "float32", bwd)):
+        item = 4 if key == "float32" else 2
+        t["bound_ms"], t["bound_by"], nbytes, flops, route = \
+            flash_bounds(bh, seq, d, item)[kind]
+        extra = ""
+        if kind == "fwd" and key == "float32":
+            extra = "; CUDA-core bound %.4f ms (fp32 FMAs at 67 TFLOP/s)" \
+                % (1e3 * max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S))
+        print("flash %s times (bh %d, seq %d, d %d, %s): %s (%d bytes, %d "
+              "flops as %s)%s%s"
+              % (kind, bh, seq, d, key, json.dumps(t), nbytes, flops, route,
+                 extra,
                  "; library = SDPA forward+backward %.4f ms less its "
                  "forward" % lib_both if kind == "bwd" else
                  "; library = SDPA forward"))

@@ -11,7 +11,13 @@ Two kernels, each with its plain version:
 - ``flash_attention_bwd`` -- ``(dq, dk, dv)`` replayed from ``lse``:
   ``p = exp(s - lse)``, ``dv = p^T do``, ``ds = p (do v^T - delta) *
   scale``, ``dk = ds^T q``, ``dq = ds k``, with ``delta = rowsum(do *
-  out)`` from the caller.
+  out)`` from the caller; a row whose keys are all masked gives each
+  key 1 / seq, as softmax does (its lse, -1e30 + log(seq), is -1e30 in
+  fp32).
+
+The forward kernel runs both products on the tensor cores: 3xTF32 in
+fp32 (about fp32's precision), bf16 products with P rounded to bf16
+before ``P v`` in bf16, as the JAX package's XLA math rounds it.
 
 Both take the optional ``causal`` flag and the optional ``(b, seq, seq)``
 mask (> 0 = attend) shared by the ``heads`` heads folded into ``bh``.
@@ -68,9 +74,14 @@ def flash_attention_bwd_reference(q, k, v, lse, dout, delta, mask=None,
                                   causal=False, scale=1.0, heads=1):
     """Plain version of the backward kernels (the math of the JAX
     package's ``_xla_attention_bwd``, replayed from the kernel's inputs
-    ``lse`` and ``delta``): ``(dq, dk, dv)``."""
+    ``lse`` and ``delta``): ``(dq, dk, dv)``.  A row whose keys are all
+    masked gives each key the weight 1 / seq, as softmax does."""
     qf, kf = q.float(), k.float()
     p = torch.exp(_scores(q, k, mask, causal, scale, heads) - lse[..., None])
+    # A row with no key has every score at NEG_INF, and fp32 holds its
+    # lse, NEG_INF + log(seq), as NEG_INF: exp(s - lse) is then 1 where
+    # softmax gives each key 1 / seq.
+    p = torch.where(lse[..., None] <= NEG_INF, p / p.shape[-1], p)
     do = dout.float()
     dv = torch.matmul(p.transpose(1, 2), do)
     dp = torch.matmul(do, v.float().transpose(1, 2))
@@ -91,6 +102,11 @@ def _lib():
     lib.flash_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i,
                                      i, i, f, i, i, p]
     lib.flash_bwd_launch.restype = i
+    lib.flash_fwd_attributes.argtypes = [p, p, p, i, i,
+                                         ctypes.POINTER(ctypes.c_int)]
+    lib.flash_fwd_attributes.restype = i
+    lib.flash_mma_test_launch.argtypes = [p, p, p, p, p, i, p]
+    lib.flash_mma_test_launch.restype = i
     lib.flash_error_string.argtypes = [i]
     lib.flash_error_string.restype = ctypes.c_char_p
     return lib

@@ -17,7 +17,10 @@ norms summed in another order).  Flash attention, relative to the
 largest output: 2e-5 forward and 1e-4 backward in fp32 (sums in another
 order; the backward sums 512 products an element, and its dq sums
 arrive through reductions in device memory in an order that changes
-from call to call), 2e-2 in bf16."""
+from call to call), 2e-2 in bf16; the fp32 forward against fp64, its
+mean error within 4x the plain fp32 version's; its MMA fragment
+helpers against fp64 products, within 4e-6 of the sum of |x||y| an
+element."""
 import numpy as np
 import pytest
 import torch
@@ -390,19 +393,13 @@ def _rel_err(got, want):
             / max(1.0, want.abs().max().item()))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["fp32", "bf16"])
-@pytest.mark.parametrize("bh,seq,d,causal,masked", [
-    (4, 64, 64, False, False), (4, 100, 64, True, False),
-    (6, 77, 32, False, True), (2, 130, 128, True, False),
-    (4, 33, 20, False, False), (2, 1, 64, False, False),
-    (24, 512, 64, False, False), (384, 512, 64, False, False),
-    (4, 70, 18, True, False)])   # d % 4 != 0: plain loads, dq atomics
-def test_flash_kernels_match_plain(cuda, dtype, bh, seq, d, causal, masked):
+def _flash_vs_plain(dtype, q, k, v, do, mask, causal):
+    """Both kernels, through the registry, against their plain versions
+    on the same inputs."""
     from mxnet_tpu_torch.kernels.registry import dispatch
     from mxnet_tpu_torch.kernels import flash_attention as fa
-    q, k, v, do, mask = _flash_case(cuda, bh, seq, d, dtype, masked=masked)
-    kw = dict(mask=mask, causal=causal, scale=d ** -0.5, heads=2)
+    what = (tuple(q.shape), dtype, causal, mask is not None)
+    kw = dict(mask=mask, causal=causal, scale=q.shape[-1] ** -0.5, heads=2)
     f0 = registry.launches("flash_attention_fwd")
     b0 = registry.launches("flash_attention_bwd")
     out, lse = dispatch("flash_attention_fwd", q, k, v, **kw)
@@ -417,11 +414,116 @@ def test_flash_kernels_match_plain(cuda, dtype, bh, seq, d, causal, masked):
     torch.cuda.synchronize()
     tol_f, tol_b = FLASH_TOL[dtype]
     assert out.dtype == dtype and lse.dtype == torch.float32
-    assert _rel_err(out, want_out) <= tol_f
-    assert _rel_err(lse, want_lse) <= 2e-5
+    assert _rel_err(out, want_out) <= tol_f, what
+    assert _rel_err(lse, want_lse) <= 2e-5, what
     for name, got, w in zip(("dq", "dk", "dv"), grads, want):
         assert got.dtype == dtype
-        assert _rel_err(got, w) <= tol_b, name
+        assert _rel_err(got, w) <= tol_b, (name,) + what
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("bh,seq,d,causal,masked", [
+    (4, 64, 64, False, False), (4, 100, 64, True, False),
+    (6, 77, 32, False, True), (2, 130, 128, True, False),
+    (4, 33, 20, False, False), (2, 1, 64, False, False),
+    (24, 512, 64, False, False), (384, 512, 64, False, False),
+    (4, 70, 18, True, False),    # d % 4 != 0: plain loads, dq atomics
+    (4, 300, 64, True, True)])   # the empty row 3 left of skipped tiles
+def test_flash_kernels_match_plain(cuda, dtype, bh, seq, d, causal, masked):
+    q, k, v, do, mask = _flash_case(cuda, bh, seq, d, dtype, masked=masked)
+    _flash_vs_plain(dtype, q, k, v, do, mask, causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("seq", [1, 15, 64, 65, 500, 512])
+@pytest.mark.parametrize("d", [8, 16, 18, 32, 64, 100, 128])
+def test_flash_kernels_match_plain_over_shapes(cuda, dtype, d, seq):
+    """Head dims padded to 32, 64 and 128 (and to the MMA's k-step
+    inside them), edge tiles, each without and with the causal mask and
+    the float mask (row 3 without a key)."""
+    q, k, v, do, mask = _flash_case(cuda, 4, seq, d, dtype, masked=True,
+                                    seed=seq + d)
+    for causal in (False, True):
+        for m in (None, mask):
+            _flash_vs_plain(dtype, q, k, v, do, m, causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("d", [32, 64])
+def test_flash_kernels_take_unaligned_views(cuda, dtype, d):
+    """Tensors that start one element into their storage break the
+    16-byte alignment of cp.async: the kernels take their plain loads."""
+    q, k, v, do, mask = _flash_case(cuda, 4, 300, d, dtype, masked=True)
+
+    def shifted(x):
+        return torch.empty(x.numel() + 1, dtype=dtype, device=cuda)[1:] \
+            .view(x.shape).copy_(x)
+
+    q, k, v, do = (shifted(x) for x in (q, k, v, do))
+    assert q.data_ptr() % 16 and q.is_contiguous()
+    for causal in (False, True):
+        _flash_vs_plain(dtype, q, k, v, do, mask, causal)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_fwd_keeps_fp32_accuracy(cuda, causal):
+    """The fp32 forward (3xTF32) against an fp64 reference: its mean
+    error on out within 4x the plain fp32 version's, with v's mean far
+    from 0, where summing P V over 512 keys in the tensor cores' own
+    accumulators (which round toward zero) misses by ~20x."""
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    q, k, v, _, _ = _flash_case(cuda, 24, 512, 64, torch.float32, seed=3)
+    v = v * 0.05 + 1
+    kw = dict(causal=causal, scale=0.125)
+    s = torch.matmul(q.double(), k.double().transpose(1, 2)) * 0.125
+    if causal:
+        s = s.masked_fill(torch.ones(512, 512, dtype=torch.bool,
+                                     device=cuda).triu(1), -1e30)
+    ref = torch.matmul(torch.softmax(s, -1), v.double())
+    errs = {}
+    for name, fn in (("kernel", fa.flash_attention_fwd_cuda),
+                     ("plain", fa.flash_attention_fwd_reference)):
+        out, _ = fn(q, k, v, **kw)
+        errs[name] = (out.double() - ref).abs().mean().item()
+    torch.cuda.synchronize()
+    assert errs["kernel"] <= 4 * errs["plain"], errs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["tf32x3", "bf16"])
+def test_flash_mma_fragments_match_fp64(cuda, dtype):
+    """The forward's MMA fragment helpers in one warp
+    (``flash_mma_test_launch``): a b^T through the score product's
+    fragments, and p v through the output product's with p read from
+    score accumulators, against fp64 products.  Within 4e-6 of sum
+    |x||y| an element: 3xTF32 keeps about fp32's precision (one TF32
+    product misses by ~2^-11 = 4.9e-4), bf16 products are exact in
+    fp32, and p is rounded to bf16 first, as the kernel rounds it."""
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    kk = 8 if dtype == torch.float32 else 16
+    rng = np.random.default_rng(5)
+
+    def normal(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda, dtype)
+
+    a, b, v = normal((16, kk)), normal((8, kk)), normal((kk, 8))
+    p = torch.from_numpy(rng.random((16, kk)).astype(np.float32)).to(cuda)
+    c = torch.zeros(2, 16, 8, device=cuda)
+    rc = fa._lib().flash_mma_test_launch(
+        a.data_ptr(), b.data_ptr(), p.data_ptr(), v.data_ptr(), c.data_ptr(),
+        0 if dtype == torch.float32 else 1,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    p64 = p.to(dtype).double()
+    for got, x, y in ((c[0], a.double(), b.double().T),
+                      (c[1], p64, v.double())):
+        err = (got.double() - x @ y).abs()
+        assert (err <= 4e-6 * (x.abs() @ y.abs())).all(), err.max().item()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

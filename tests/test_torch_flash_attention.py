@@ -177,6 +177,44 @@ def test_masked_op_matches_jax_custom_vjp_on_the_kernels():
                                    atol=ATOL, err_msg=name)
 
 
+@pytest.mark.parametrize("seq", [40, 70])
+def test_causal_masked_row_without_key_matches_xla_math(seq):
+    """Causal with a float mask that leaves a row no key (row 3 of batch
+    row 0, both its heads): the port's plain forward against the JAX
+    package's ``_attention_reference_masked`` with the mask ANDed with
+    the lower triangle, its lse against ``logsumexp`` of the same masked
+    scores, and its plain backward (from that lse and ``delta``) against
+    ``_xla_attention_bwd(..., causal=True, mask=...)``.  The empty row
+    averages every key in the forward and weights each by 1 / seq in the
+    backward, as softmax does."""
+    q, k, v, do, mask = _inputs(seq, seed=8, masked=True)
+    mask[0, 3, :] = 0.0
+    scale = 0.3
+    mask_bh = np.repeat(mask, HEADS, axis=0)
+    causal_bh = mask_bh * np.tril(np.ones((seq, seq), np.float32))
+    jout = jtr._attention_reference_masked(_j(q), _j(k), _j(v),
+                                           _j(causal_bh), scale)
+    s = jnp.einsum("bqd,bkd->bqk", _j(q), _j(k)) * scale
+    jlse = jax.nn.logsumexp(jnp.where(_j(causal_bh) > 0, s, -1e30),
+                            axis=-1)
+    tout, tlse = tfa.flash_attention_fwd_reference(
+        _t(q), _t(k), _t(v), _t(mask), causal=True, scale=scale,
+        heads=HEADS)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=ATOL)
+    np.testing.assert_allclose(tout[:HEADS, 3].numpy(),
+                               v[:HEADS].mean(axis=1), atol=ATOL)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), atol=ATOL)
+    delta = np.sum(do * tout.numpy(), axis=-1).astype(np.float32)
+    tgrads = tfa.flash_attention_bwd_reference(
+        _t(q), _t(k), _t(v), tlse, _t(do), _t(delta), _t(mask),
+        causal=True, scale=scale, heads=HEADS)
+    jgrads = jtr._xla_attention_bwd(_j(q), _j(k), _j(v), _j(do), True,
+                                    scale, mask=_j(mask_bh))
+    for name, t, j in zip(("dq", "dk", "dv"), tgrads, jgrads):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=ATOL,
+                                   err_msg=name)
+
+
 def test_bf16_forward_matches_pallas_kernel():
     q, k, v, _do, _ = _inputs(32, seed=5)
     jout, _ = jfa.flash_attention_fwd_pallas(
