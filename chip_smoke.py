@@ -57,11 +57,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    something, the output layer's among them, within limits set from
    those floors; and the card's bucketed LARS step against the plain
    one on the CPU fed the card's own weights, gradients and momenta;
-9. hold each kernel against its plain PyTorch version at the shapes the
+9. the LeNet/MNIST path, ``examples/gluon_mnist.py``'s loop through the
+   imperative API at the example's width (Conv2D 32 and 64, MaxPool,
+   Dense 128, Dropout 0.5, Dense 10; Xavier, SGD 0.05/0.9, batch 128):
+   the synthetic MNIST train set through ``DataLoader`` on the CPU,
+   ``as_in_context(mx.gpu())``, ``autograd.record()``,
+   ``loss.backward()``, ``trainer.step`` and ``metric.update``, one
+   epoch of 468 batches, then 100 batches hybridized.  Every loss must
+   be finite and the accuracy in [0, 1]; a fresh net must cut the loss
+   of one fixed batch 3x in 60 steps.  It prints samples/s, ms/step,
+   the share of wall time waiting on the loader, the device's idle
+   share (``torch.profiler`` over 20 more batches) and peak memory;
+10. the MNIST oracle: one step of the trained weights at batch 8 with
+   dropout off on the card and on the CPU; loss and every update must
+   agree;
+11. hold each kernel against its plain PyTorch version at the shapes the
    main paths give it, and time kernel, plain version and a library
    call computing the same function (``paged_attention`` at the
    edge-case contexts and at the decode step's own shape, 8 slots at
-   context 152; the flash forward in fp32 and in bf16, with its
+   context 152; the fused BatchNorm+ReLU kernels in fp32 and bf16; the
+   flash forward and backward in fp32 and in bf16, the forward with its
    registers and shared memory, and causal with a float mask that
    leaves a row no key).
 
@@ -184,7 +199,7 @@ def host_us(fn, iters=200, repeats=5):
 
 
 # ---------------------------------------------------------------------
-# phase 9: paged_attention against its plain version
+# phase 11: paged_attention against its plain version
 # ---------------------------------------------------------------------
 
 EDGE_CONTEXTS = (0, 1, 15, 16, 17, 333, 1000, 1024)
@@ -739,7 +754,335 @@ def train_oracle(net, make_net=resnet50_nhwc, batch=8, image=224):
 
 
 # ---------------------------------------------------------------------
-# phase 9: fused BN+ReLU kernels against their plain versions
+# phases 9-10: the LeNet/MNIST path (examples/gluon_mnist.py) and its oracle
+# ---------------------------------------------------------------------
+
+MNIST_BATCH = 128
+MNIST_SGD = {"learning_rate": 0.05, "momentum": 0.9}
+MNIST_HYBRID_BATCHES = 100
+MNIST_PROFILED_BATCHES = 20
+# one fixed batch of random labels, trained on alone: a learning net
+# memorises it.  At the example's width, dropout on, 60 steps cut the
+# loss 152-277x on the CPU; with a gradient planted wrong the cut is
+# 1.3x (conv gradients zeroed), 2.6x (conv gradients x0.1), 1.1x (first
+# Dense gradient zeroed), 1.06x (all x0.1), 5.7x (all x0.5) and 66x
+# (conv gradients x0.5, the one fault left to the oracle).  The limit
+# sits between, 3.8x under the lowest sound reading.
+MNIST_MEMORISE_STEPS = 60
+MNIST_MEMORISE_FACTOR = 40.0
+# card-vs-CPU limits of the one-step oracle (fresh Xavier net, batch 8,
+# dropout off).  The loss is held to the ResNet oracle's 1e-5; the
+# updates, together and each parameter's alone, to 1e-4, not the
+# ResNet's 2e-2: this net has no BatchNorm, and its fp32 floor (the CPU
+# step with the batch permuted, printed beside) is 6.1e-7-6.6e-7
+# together and 1.7e-6-2.0e-6 for the worst parameter on the CPU
+MNIST_ORACLE_LIMITS = {"loss_rel_err": 1e-5, "update_rel_err": 1e-4,
+                       "update_rel_err_worst": 1e-4}
+# a root with no idx files: the synthetic fallback, byte for byte the
+# JAX package's (seed 42)
+MNIST_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "mnist-synthetic")
+
+
+def mnist_net():
+    """``examples/gluon_mnist.py :: build_net`` on the port (NCHW)."""
+    from mxnet_tpu_torch import gluon
+    net = gluon.nn.HybridSequential()
+    net.add(gluon.nn.Conv2D(32, kernel_size=3, activation="relu"),
+            gluon.nn.Conv2D(64, kernel_size=3, activation="relu"),
+            gluon.nn.MaxPool2D(2),
+            gluon.nn.Flatten(),
+            gluon.nn.Dense(128, activation="relu"),
+            gluon.nn.Dropout(0.5),
+            gluon.nn.Dense(10))
+    return net
+
+
+def mnist_loader(batch=MNIST_BATCH, root=MNIST_ROOT):
+    """The example's train loader: synthetic MNIST, each image scaled
+    into a (1, 28, 28) float32 NDArray on the CPU, shuffled batches,
+    the last partial batch dropped."""
+    import mxnet_tpu_torch as mx
+    ds = mx.gluon.data.vision.MNIST(root=root, train=True)
+    check(ds.synthetic and len(ds) == 60000,
+          "MNIST: expected the synthetic train set under %s" % root)
+    return mx.gluon.data.DataLoader(
+        ds.transform_first(lambda d: mx.nd.array(
+            d.asnumpy().reshape(1, 28, 28) / 255.0, ctx=mx.cpu())),
+        batch_size=batch, shuffle=True, last_batch="discard")
+
+
+def mnist_setup(ctx, seed=0):
+    import torch
+    import mxnet_tpu_torch as mx
+    net = mnist_net()
+    net.initialize(mx.init.Xavier(), ctx=ctx,
+                   generator=torch.Generator().manual_seed(seed))
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", MNIST_SGD)
+    return net, trainer, mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+
+MNIST_SPLIT = ("copy", "forward", "backward", "trainer_step",
+               "metric_update")
+
+
+def mnist_loop(net, trainer, loss_fn, loader, ctx, max_batches=0):
+    """``examples/gluon_mnist.py``'s epoch loop through the public API:
+    the per-batch mean loss (read after the loop), host seconds waiting
+    on ``next(loader)`` and a step each, the step's host seconds by part
+    (MNIST_SPLIT: the copy to the card, forward, backward, ``trainer.
+    step``, and ``metric.update``, which reads the outputs on the host
+    and so waits for the card), the metric and the wall time."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    metric = mx.metric.Accuracy()
+    losses, step_s, wait_s = [], [], 0.0
+    split = dict.fromkeys(MNIST_SPLIT, 0.0)
+    it = iter(loader)
+    t_start = time.perf_counter()
+    while not max_batches or len(losses) < max_batches:
+        t0 = time.perf_counter()
+        try:
+            data, label = next(it)
+        except StopIteration:
+            break
+        marks = [time.perf_counter()]
+        wait_s += marks[0] - t0
+        data = data.as_in_context(ctx)
+        label = label.as_in_context(ctx)
+        marks.append(time.perf_counter())
+        with autograd.record():
+            out = net(data)
+            loss = loss_fn(out, label)
+        marks.append(time.perf_counter())
+        loss.backward()
+        marks.append(time.perf_counter())
+        trainer.step(data.shape[0])
+        marks.append(time.perf_counter())
+        metric.update([label], [out])
+        marks.append(time.perf_counter())
+        losses.append(loss.mean()._data)
+        step_s.append(marks[-1] - marks[0])
+        for part, a, b in zip(MNIST_SPLIT, marks, marks[1:]):
+            split[part] += b - a
+    losses = torch.stack(losses).cpu().tolist()
+    wall = time.perf_counter() - t_start
+    split = {k: 1e3 * v / max(1, len(losses)) for k, v in split.items()}
+    return losses, step_s, wait_s, split, metric, wall
+
+
+def mnist_main_path(ctx=None, epoch_batches=0,
+                    hybrid_batches=MNIST_HYBRID_BATCHES,
+                    memorise_steps=MNIST_MEMORISE_STEPS,
+                    profiled=MNIST_PROFILED_BATCHES):
+    """One epoch of the example's loop unhybridized (468 batches of
+    128), then ``hybrid_batches`` hybridized, on ``ctx`` (the card by
+    default); every loss must be finite and the accuracy in [0, 1].
+    Then ``profiled`` more batches under ``torch.profiler`` give the
+    device time a step, and a fresh net memorises one fixed batch.
+    The launch counters are zeroed before and read after (this path
+    has no hand kernel: every count stays 0)."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import registry
+    ctx = mx.gpu() if ctx is None else ctx
+    cuda = ctx.device_type == "gpu"
+    np.random.seed(0)
+    loader = mnist_loader()
+    net, trainer, loss_fn = mnist_setup(ctx)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    registry.reset_launches()
+    losses, step_s, wait_s, split, metric, wall = mnist_loop(
+        net, trainer, loss_fn, loader, ctx, epoch_batches)
+    name, acc = metric.get()
+    n = len(losses)
+    check(n == (epoch_batches or 60000 // MNIST_BATCH),
+          "MNIST epoch ran %d batches" % n)
+    check(all(np.isfinite(losses)), "MNIST: non-finite loss in the epoch")
+    check(0.0 <= acc <= 1.0, "MNIST: accuracy %r outside [0, 1]" % acc)
+    net.hybridize()
+    h_losses, h_step_s, h_wait_s, _split, h_metric, h_wall = mnist_loop(
+        net, trainer, loss_fn, loader, ctx, hybrid_batches)
+    check(len(h_losses) == hybrid_batches
+          and all(np.isfinite(h_losses)),
+          "MNIST hybridized: %d batches, losses %s" % (len(h_losses),
+                                                        h_losses[-3:]))
+    launches = {k: registry.launches(k) for k in registry.list_kernels()}
+    stats = {"batch": MNIST_BATCH, "epoch_batches": n,
+             "samples_per_s": n * MNIST_BATCH / wall, "epoch_s": wall,
+             "ms_per_step_median": 1e3 * float(np.median(step_s)),
+             "ms_per_batch": 1e3 * wall / n,
+             "loader_wait_share": wait_s / wall,
+             "loader_wait_ms_per_batch": 1e3 * wait_s / n,
+             "step_host_ms_per_batch": split,
+             "accuracy": acc, "loss_first": losses[0],
+             "loss_last": losses[-1],
+             "hybridized": {"batches": len(h_losses),
+                            "samples_per_s": len(h_losses) * MNIST_BATCH
+                            / h_wall,
+                            "ms_per_step_median":
+                            1e3 * float(np.median(h_step_s)),
+                            "loader_wait_share": h_wait_s / h_wall,
+                            "accuracy": h_metric.get()[1]},
+             "hand_kernel_launches": launches,
+             "peak_mem_bytes": torch.cuda.max_memory_allocated()
+             if cuda else None, "card": gpu_line() if cuda else None}
+    if cuda:
+        stats["breakdown"] = mnist_breakdown(net, trainer, loss_fn, loader,
+                                             ctx, profiled,
+                                             1e3 * wall / n)
+        stats["device_idle_share"] = stats["breakdown"]["device_idle_share"]
+    print("MNIST main path (examples/gluon_mnist.py, batch 128, SGD "
+          "0.05/0.9): %s" % json.dumps(stats))
+    stats["memorise"] = mnist_memorise(ctx, loader, memorise_steps)
+    return stats
+
+
+def mnist_breakdown(net, trainer, loss_fn, loader, ctx, batches,
+                    batch_ms):
+    """Device time a batch of the loop from ``torch.profiler`` over
+    ``batches`` batches, by kernel category, and the device's idle share
+    against the unprofiled epoch's wall time a batch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mnist_loop(net, trainer, loss_fn, loader, ctx, batches)
+        torch.cuda.synchronize()
+        profiled_ms = 1e3 * (time.perf_counter() - t0) / batches
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    check(kernels, "the profiler saw no device time in the MNIST loop")
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / batches
+    by_cat = {}
+    for e in kernels:
+        cat = kernel_category(e.key)
+        ms_, n_ = by_cat.get(cat, (0.0, 0))
+        by_cat[cat] = (ms_ + e.self_device_time_total / 1e3 / batches,
+                       n_ + e.count / batches)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {"batches": batches, "device_busy_ms_per_batch": busy,
+            "launches_per_batch": sum(e.count for e in kernels) / batches,
+            "batch_ms_unprofiled": batch_ms,
+            "batch_ms_profiled": profiled_ms,
+            "device_idle_share": max(0.0, 1 - busy / batch_ms),
+            "by_category_ms_per_batch": {k: [v[0], v[1]] for k, v in sorted(
+                by_cat.items(), key=lambda kv: -kv[1][0])},
+            "top_kernels": [[e.key[:64], e.self_device_time_total / 1e3
+                             / batches, e.count / batches] for e in top]}
+
+
+def mnist_memorise(ctx, loader, steps=MNIST_MEMORISE_STEPS):
+    """A fresh net trained on one fixed batch (dropout on): the loss
+    must fall by MNIST_MEMORISE_FACTOR, every loss finite."""
+    from mxnet_tpu_torch import autograd
+    np.random.seed(1)
+    data, label = next(iter(loader))
+    data, label = data.as_in_context(ctx), label.as_in_context(ctx)
+    net, trainer, loss_fn = mnist_setup(ctx, seed=1)
+    losses = []
+    for _ in range(steps):
+        with autograd.record():
+            loss = loss_fn(net(data), label)
+        loss.backward()
+        trainer.step(data.shape[0])
+        losses.append(float(loss.mean().asscalar()))
+    out = {"steps": steps, "loss_first": losses[0], "loss_last": losses[-1],
+           "factor": losses[0] / losses[-1],
+           "limit": MNIST_MEMORISE_FACTOR}
+    print("MNIST memorisation (one batch of 128, %d steps): %s"
+          % (steps, json.dumps(out)))
+    check(all(np.isfinite(losses)), "MNIST memorisation: non-finite loss")
+    check(out["factor"] >= MNIST_MEMORISE_FACTOR,
+          "MNIST memorisation: loss fell %.3gx < %gx" % (
+              out["factor"], MNIST_MEMORISE_FACTOR))
+    return out
+
+
+def mnist_oracle_step(net, x, y, ctx):
+    """One SGD step of ``net`` on ``ctx`` from a fresh trainer under
+    ``record(train_mode=False)``: (loss, {name: w' - w}) by structural
+    name."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    params = net._collect_params_with_prefix()
+    before = {k: p.data().detach().cpu().double() for k, p in params.items()}
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", MNIST_SGD)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    data = mx.nd.array(x, ctx=ctx)
+    label = mx.nd.array(y, ctx=ctx)
+    with autograd.record(train_mode=False):
+        loss = loss_fn(net(data), label)
+    loss.backward()
+    trainer.step(len(x))
+    updates = {k: p.data().detach().cpu().double() - before[k]
+               for k, p in params.items()}
+    return float(loss.mean().asscalar()), updates
+
+
+def mnist_oracle(ctx=None, batch=8, seed=2):
+    """One step of a fresh Xavier net (seed ``seed``: live, so every
+    parameter's update is nonzero) on the card and of a CPU copy, on the
+    same synthetic batch with dropout off: the loss, the updates
+    together and every parameter's update alone must agree.  A third
+    step, on the CPU with the batch permuted, is the fp32 floor."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.convert import params_from_numpy
+    ctx = mx.gpu() if ctx is None else ctx
+    net = mnist_net()
+    net.initialize(mx.init.Xavier(), ctx=mx.cpu(),
+                   generator=torch.Generator().manual_seed(seed))
+    ds = mx.gluon.data.vision.MNIST(root=MNIST_ROOT, train=False)
+    x = (ds._data[:batch].reshape(batch, 1, 28, 28) / 255.0).astype(
+        np.float32)
+    y = ds._label[:batch]
+    net(mx.nd.array(x, ctx=mx.cpu()))            # settle deferred shapes
+    arrays = {k: p.data().detach().cpu().numpy()
+              for k, p in net._collect_params_with_prefix().items()}
+
+    def copy_on(c):
+        n = mnist_net()
+        n.initialize(ctx=c)
+        params_from_numpy(n, arrays)
+        return n
+
+    perm = np.random.default_rng(1).permutation(batch)
+    l_cpu, u_cpu = mnist_oracle_step(copy_on(mx.cpu()), x, y, mx.cpu())
+    l_perm, u_perm = mnist_oracle_step(copy_on(mx.cpu()), x[perm], y[perm],
+                                       mx.cpu())
+    l_card, u_card = mnist_oracle_step(copy_on(ctx), x, y, ctx)
+    glob, worst, worst_name = rel_errors(u_card, u_cpu)
+    floor, floor_worst, floor_name = rel_errors(u_perm, u_cpu)
+    norms = {k: float(u.norm()) for k, u in u_cpu.items()}
+    out = {"batch": batch, "seed": seed, "params": len(u_cpu),
+           "loss_card": l_card, "loss_cpu": l_cpu,
+           "loss_rel_err": abs(l_card - l_cpu) / abs(l_cpu),
+           "update_rel_err": glob, "update_rel_err_worst": worst,
+           "update_worst_param": worst_name,
+           "floor_loss_rel_err": abs(l_perm - l_cpu) / abs(l_cpu),
+           "floor_update_rel_err": floor,
+           "floor_update_rel_err_worst": floor_worst,
+           "floor_worst_param": floor_name,
+           "update_norm_min": min(norms.values()),
+           "limits": MNIST_ORACLE_LIMITS}
+    print("MNIST oracle (card vs CPU): %s" % json.dumps(out))
+    check(np.isfinite(l_card), "MNIST oracle loss on the card not finite")
+    dead = sorted(k for k, n in norms.items() if not n > 0)
+    check(not dead, "MNIST oracle: no update to compare for %s" % dead)
+    for key, limit in MNIST_ORACLE_LIMITS.items():
+        check(out[key] <= limit, "MNIST oracle: %s %.3g > limit %g"
+              % (key, out[key], limit))
+    return out
+
+
+# ---------------------------------------------------------------------
+# phase 11: fused BN+ReLU kernels against their plain versions
 # ---------------------------------------------------------------------
 
 def bn_relu_inputs(shape, dtype, seed=0):
@@ -861,25 +1204,43 @@ def bn_relu_kernel_phase():
               "native_batch_norm_backward"
               % (shape, n, json.dumps(fwd), fb, json.dumps(bwd), bb))
         del t, x4, y4, dy4
-    # the stem in bf16, as the AMP LARS path launches it
+    # the stem in bf16, as the AMP LARS path launches it; the library
+    # calls on the same bf16 rows with the fp32 (C,) vectors
     shape = BN_SHAPES[0]
     rows, c = int(np.prod(shape[:-1])), shape[-1]
     t = bn_relu_inputs(shape, torch.bfloat16)
     x, y, dy = t["x"], t["y"], t["dy"]
+    x4, y4, dy4 = (v.view(shape).permute(0, 3, 1, 2) for v in (x, y, dy))
+    inv = t["bwd"][2]
+
+    def lib_fwd16():
+        out = F.batch_norm(x4, t["mean"], t["var"], t["gamma"], t["beta"],
+                           False, 0.0, BN_EPS)
+        return out.relu_()
+
+    def lib_bwd16():
+        g = torch.ops.aten.threshold_backward(dy4, y4, 0)
+        return torch.ops.aten.native_batch_norm_backward(
+            g, x4, t["gamma"], None, None, t["mean"], inv, True, BN_EPS,
+            [True, True, True])
+
     bf16 = {
         "fwd": {"ms": time_ms(lambda: bn_relu_apply_cuda(x, t["scale"],
                                                           t["offset"])),
                 "plain_ms": time_ms(lambda: bn_relu_apply_reference(
-                    x, t["scale"], t["offset"]))},
+                    x, t["scale"], t["offset"])),
+                "library_ms": time_ms(lib_fwd16)},
         "bwd": {"ms": time_ms(lambda: bn_relu_bwd_cuda(x, dy, y, *t["bwd"])),
                 "plain_ms": time_ms(lambda: bn_relu_bwd_reference(
-                    x, dy, y, *t["bwd"]))}}
+                    x, dy, y, *t["bwd"])),
+                "library_ms": time_ms(lib_bwd16)}}
     bf16["fwd"]["bound_ms"], _, fb = bn_relu_bound(rows, c, 2, 2, 2, 3)
     bf16["bwd"]["bound_ms"], _, bb = bn_relu_bound(rows, c, 2, 4, 5, 8)
     print("bn_relu times %s bf16: fwd %s (%d bytes at 3.35 TB/s); bwd %s "
-          "(%d bytes)" % (shape, json.dumps(bf16["fwd"]), fb,
-                          json.dumps(bf16["bwd"]), bb))
-    del t, x, y, dy
+          "(%d bytes); library on bf16 rows as for fp32"
+          % (shape, json.dumps(bf16["fwd"]), fb, json.dumps(bf16["bwd"]),
+             bb))
+    del t, x, y, dy, x4, y4, dy4
     main = times[BN_SHAPES[0]]
     return {kind: dict(main[kind], max_abs_err=errs[kind]["float32"],
                        max_abs_err_bf16=errs[kind]["bfloat16"])
@@ -1453,7 +1814,7 @@ def amp_lars_oracle(net, make_net=resnet50_nhwc, batch=8, image=224,
 
 
 # ---------------------------------------------------------------------
-# phase 9: flash attention, LayerNorm and LAMB phase 1 against their
+# phase 11: flash attention, LayerNorm and LAMB phase 1 against their
 # plain versions
 # ---------------------------------------------------------------------
 
@@ -1532,17 +1893,21 @@ def flash_bounds(bh, seq, d, itemsize):
     backward does, chooses to; the function does not need it.  Each at
     the rate of the route its kernel takes: the forward on the tensor
     cores, fp32 as three TF32 products (3xTF32) at 495 TFLOP/s and bf16
-    at 989; the backward's fp32 FMAs on the CUDA cores at 67.  Returns
+    at 989; the backward's fp32 FMAs on the CUDA cores at 67, and a bf16
+    backward at bf16's peak, 989.  Returns
     {kind: (ms, bound_by, bytes, flops, route)}."""
     n = bh * seq * d * itemsize
     fwd_route = ((3, TF32_FLOPS, "3xTF32 at 495 TFLOP/s") if itemsize == 4
                  else (1, BF16_FLOPS, "bf16 at 989 TFLOP/s"))
+    bwd_route = ((1, FP32_FLOPS, "fp32 FMAs at 67 TFLOP/s") if itemsize == 4
+                 else (1, BF16_FLOPS, "bf16 at 989 TFLOP/s, the peak for "
+                       "bf16 inputs; the kernel computes in fp32 FMAs"))
     out = {}
     for kind, nbytes, flops, (products, rate, route) in (
             ("fwd", 4 * n + 4 * bh * seq, 4 * bh * seq * seq * d,
              fwd_route),
             ("bwd", 7 * n + 8 * bh * seq, 10 * bh * seq * seq * d,
-             (1, FP32_FLOPS, "fp32 FMAs at 67 TFLOP/s"))):
+             bwd_route)):
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = products * flops / rate
         out[kind] = (1e3 * max(t_bytes, t_ops),
@@ -1653,8 +2018,26 @@ def flash_kernel_phase(bh, seq, d):
            # SDPA's backward alone is no public call: its forward and
            # backward through autograd, less its forward
            "library_ms": lib_both - fwd["library_ms"]}
+    # the backward in bf16: lse and delta of the bf16 forward, in fp32
+    dob = do.bfloat16()
+    outb, lseb = fa.flash_attention_fwd_cuda(qb, kb, vb, scale=scale)
+    deltab = (dob.float() * outb.float()).sum(-1)
+    qlb, klb, vlb = (t.detach().clone().requires_grad_()
+                     for t in (q4b, k4b, v4b))
+    do4b = dob.view(b, BERT_HEADS, seq, d)
+
+    def lib_fwd_bwd16():
+        o = F.scaled_dot_product_attention(qlb, klb, vlb, scale=scale)
+        return torch.autograd.grad(o, (qlb, klb, vlb), do4b)
+
+    lib_both16 = time_ms(lib_fwd_bwd16)
+    bwd16 = {"ms": time_ms(lambda: fa.flash_attention_bwd_cuda(
+                 qb, kb, vb, lseb, dob, deltab, scale=scale)),
+             "plain_ms": time_ms(lambda: fa.flash_attention_bwd_reference(
+                 qb, kb, vb, lseb, dob, deltab, scale=scale)),
+             "library_ms": lib_both16 - fwd16["library_ms"]}
     for kind, key, t in (("fwd", "float32", fwd), ("fwd", "bfloat16", fwd16),
-                         ("bwd", "float32", bwd)):
+                         ("bwd", "float32", bwd), ("bwd", "bfloat16", bwd16)):
         item = 4 if key == "float32" else 2
         t["bound_ms"], t["bound_by"], nbytes, flops, route = \
             flash_bounds(bh, seq, d, item)[kind]
@@ -1667,8 +2050,8 @@ def flash_kernel_phase(bh, seq, d):
               % (kind, bh, seq, d, key, json.dumps(t), nbytes, flops, route,
                  extra,
                  "; library = SDPA forward+backward %.4f ms less its "
-                 "forward" % lib_both if kind == "bwd" else
-                 "; library = SDPA forward"))
+                 "forward" % (lib_both if key == "float32" else lib_both16)
+                 if kind == "bwd" else "; library = SDPA forward"))
     return {"fwd": dict(fwd, max_abs_err=errs["float32"][0],
                         max_abs_err_bf16=errs["bfloat16"][0]),
             "bwd": dict(bwd, max_abs_err=errs["float32"][1],
@@ -1935,6 +2318,9 @@ def main():
     torch.cuda.empty_cache()
     amp_lars_oracle(net)
     del net
+    torch.cuda.empty_cache()
+    mnist_main_path()
+    mnist_oracle()
     torch.cuda.empty_cache()
     attn = kernel_phase(scale)
     bn = bn_relu_kernel_phase()

@@ -22,14 +22,25 @@ It imports neither JAX nor anything of ``mxnet_tpu``.  Ported so far:
 - large-batch ResNet training under mixed precision: :mod:`.amp` (bf16
   and fp16 casts at the op namespace, dynamic loss scaling), the LARS
   optimizer with ``TrainStep``'s bucketed LARS update (the ``lars_flat``
-  kernel) and ``TrainStep.run_steps``.
+  kernel) and ``TrainStep.run_steps``;
+- the imperative API: :mod:`.ndarray` (``mx.nd``: ``NDArray`` over a
+  tensor, the tensor and random ops), contexts, the NDArray entry points
+  of :mod:`.autograd`, ``gluon.data`` and :mod:`.metric`, so a script
+  written for MXNet runs with ``import mxnet_tpu_torch as mx`` and
+  ``mx.gpu()``.
 
 Kernels and their plain versions are registered in :mod:`.kernels`.
 """
-from . import amp
+from . import amp, autograd, gluon, metric, random
+from . import initializer as init
+from . import ndarray as nd
 from .base import MXNetError
-from .context import resolve_device
+from .context import (Context, cpu, cpu_pinned, current_context, gpu,
+                      num_gpus, resolve_device)
+from .ndarray import NDArray
 
 __version__ = "0.1.0"
 
-__all__ = ["MXNetError", "amp", "resolve_device"]
+__all__ = ["Context", "MXNetError", "NDArray", "amp", "autograd", "cpu",
+           "cpu_pinned", "current_context", "gluon", "gpu", "init",
+           "metric", "nd", "num_gpus", "random", "resolve_device"]

@@ -15,6 +15,12 @@ naming and parameter management:
 - ``initialize()`` allocates them on the GPU (or the CPU when asked),
   deferring any whose shape the first forward has to infer.
 
+A block takes tensors or NDArrays.  Called with an NDArray among its
+inputs, it runs on their tensors and returns NDArrays, recording for
+backward only inside ``autograd.record()``, as an ``mx.nd`` op does;
+called with tensors, it returns tensors.  ``Parameter.data()`` and
+``grad()`` return tensors either way.
+
 A :class:`HybridBlock` runs ``hybrid_forward(F, x, **params)`` with
 ``F`` the port's op namespace (:mod:`mxnet_tpu_torch.ops`).  The port
 runs eagerly: ``hybridize()`` is accepted and records its flag.
@@ -27,8 +33,10 @@ import threading
 
 import torch
 
+from .. import autograd
 from .. import ops as _ops
 from ..base import MXNetError
+from ..ndarray import NDArray
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
 __all__ = ["Block", "HybridBlock"]
@@ -112,6 +120,16 @@ class Block(torch.nn.Module):
                 out._params[p.name] = p
         return out
 
+    def _collect_params_with_prefix(self, prefix=""):
+        """Parameters by structural name (``"0.weight"``: child keys and
+        attribute names), which do not depend on block counters."""
+        if prefix:
+            prefix += "."
+        ret = {prefix + k: v for k, v in self._reg_params.items()}
+        for name, child in self._children.items():
+            ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
+
     def _all_params(self, seen=None):
         seen = seen if seen is not None else set()
         for p in list(self._reg_params.values()) \
@@ -124,11 +142,12 @@ class Block(torch.nn.Module):
                 yield from child._all_params(seen)
 
     def initialize(self, init=None, device=None, force_reinit=False,
-                   generator=None):
+                   generator=None, ctx=None):
         """Initialize every parameter on ``device`` (the GPU unless the
-        caller passes ``device="cpu"``); random initializers draw from
-        ``generator``."""
-        self.collect_params().initialize(init, device, force_reinit,
+        caller passes ``device="cpu"``; ``ctx``, a context, is MXNet's
+        spelling of it); random initializers draw from ``generator``."""
+        self.collect_params().initialize(init, device if ctx is None
+                                         else ctx, force_reinit,
                                          generator=generator)
 
     def hybridize(self, active=True, **kwargs):
@@ -138,6 +157,15 @@ class Block(torch.nn.Module):
     def forward(self, *args):
         raise NotImplementedError
 
+    def __call__(self, *args, **kwargs):
+        if not any(isinstance(a, NDArray) for a in args + tuple(
+                kwargs.values())):
+            return super().__call__(*args, **kwargs)
+        args = [_unwrap(a) for a in args]
+        kwargs = {k: _unwrap(v) for k, v in kwargs.items()}
+        with torch.set_grad_enabled(autograd.is_recording()):
+            return _wrap(super().__call__(*args, **kwargs))
+
     def __repr__(self):
         lines = [type(self).__name__ + "("]
         for name, child in self._children.items():
@@ -145,6 +173,18 @@ class Block(torch.nn.Module):
                                          repr(child).replace("\n", "\n  ")))
         lines.append(")")
         return "\n".join(lines)
+
+
+def _unwrap(x):
+    return x._data if isinstance(x, NDArray) else x
+
+
+def _wrap(out):
+    if isinstance(out, torch.Tensor):
+        return NDArray(out)
+    if isinstance(out, (tuple, list)):
+        return type(out)(_wrap(o) for o in out)
+    return out
 
 
 class HybridBlock(Block):

@@ -5,9 +5,12 @@
 statistics included, from the arrays of a net of the same architecture.
 Names are matched relative to each net's own prefix: block counters are
 global in each package, so the same net is ``resnetv10_...`` in one
-process and ``resnetv11_...`` in another.  Both packages keep
-convolution weights OHWI for NHWC (OIHW for NCHW), so nothing is
-permuted.
+process and ``resnetv11_...`` in another.  Arrays named structurally
+(``"0.weight"``, as ``_collect_params_with_prefix`` and MXNet's
+``save_parameters`` name them) are matched by structure, which also
+holds for a net whose children were made outside its ``name_scope``.
+Both packages keep convolution weights OHWI for NHWC (OIHW for NCHW),
+so nothing is permuted.
 """
 from __future__ import annotations
 
@@ -31,7 +34,12 @@ def params_from_numpy(net, arrays, prefix=None):
     ndarray}``).  ``prefix`` is the source net's prefix; by default the
     names' text up to their first ``_`` (an automatic top-level prefix
     such as ``resnetv10_``).  Raises on a missing or extra name and on a
-    shape mismatch; a deferred parameter takes the array's shape."""
+    shape mismatch; a deferred parameter takes the array's shape.
+    Structural names (each with a ``.``) are matched by structure."""
+    if arrays and all("." in name for name in arrays):
+        _set_all(net._collect_params_with_prefix(),
+                 {k: np.asarray(a) for k, a in arrays.items()})
+        return
     if prefix is None:
         firsts = {name.split("_", 1)[0] + "_" for name in arrays}
         if len(firsts) != 1:
@@ -42,6 +50,10 @@ def params_from_numpy(net, arrays, prefix=None):
            for name, a in arrays.items()}
     dst = {_relative(p.name, net.prefix): p
            for p in net.collect_params().values()}
+    _set_all(dst, src)
+
+
+def _set_all(dst, src):
     missing = sorted(set(dst) - set(src))
     extra = sorted(set(src) - set(dst))
     if missing or extra:

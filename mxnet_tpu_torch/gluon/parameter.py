@@ -129,7 +129,9 @@ class Parameter:
     def _wrap(self, tensor):
         if self._grad_req == "null":
             return tensor
-        return torch.nn.Parameter(tensor, requires_grad=True)
+        p = torch.nn.Parameter(tensor, requires_grad=True)
+        p._mx_grad_req = self._grad_req    # read by autograd.backward
+        return p
 
     # -- access --------------------------------------------------------
     def _check_initialized(self):
@@ -234,8 +236,9 @@ class ParameterDict:
         return param
 
     def initialize(self, init=None, device=None, force_reinit=False,
-                   generator=None):
+                   generator=None, ctx=None):
         default = initializer.create(init)
+        device = device if ctx is None else ctx
         for p in self.values():
             p.initialize(None, device, default, force_reinit=force_reinit,
                          generator=generator)

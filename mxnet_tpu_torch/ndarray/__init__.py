@@ -1,0 +1,14 @@
+"""``mx.nd``: the imperative NDArray API (counterpart of
+``mxnet_tpu/ndarray``).  ``linalg``, ``contrib``, ``sparse`` and
+``save``/``load`` are not ported yet."""
+import sys as _sys
+
+from .ndarray import (NDArray, arange, array, concatenate, empty, full,
+                      invoke, moveaxis, ones, onehot_encode, waitall, zeros)
+from . import register as _register
+from . import random  # noqa: F401
+
+_register.populate(_sys.modules[__name__].__dict__)
+
+# the `mx.nd.op` mirror of the flat namespace
+op = _sys.modules[__name__]

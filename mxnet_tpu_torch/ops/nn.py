@@ -24,7 +24,7 @@ from ..kernels.registry import dispatch
 __all__ = ["Activation", "BatchNorm", "Convolution", "Dropout", "Embedding",
            "Flatten", "FullyConnected", "LayerNorm", "Pooling",
            "fused_batch_norm_relu", "log_softmax", "pick", "slice_axis",
-           "softmax_cross_entropy"]
+           "softmax", "softmax_cross_entropy"]
 
 _DEFAULT_LAYOUTS = {3: "NCW", 4: "NCHW", 5: "NCDHW"}
 
@@ -219,12 +219,21 @@ def Flatten(data):
     return data.reshape(data.shape[0], -1)
 
 
-def log_softmax(data, axis=-1):
+def softmax(data, axis=-1, temperature=None):
+    if temperature is not None:
+        data = data / temperature
+    return torch.softmax(data, dim=axis)
+
+
+def log_softmax(data, axis=-1, temperature=None):
+    if temperature is not None:
+        data = data / temperature
     return torch.log_softmax(data, dim=axis)
 
 
-def pick(data, index, axis=-1, keepdims=False):
-    """``data`` indexed along ``axis`` by the integer-valued ``index``."""
+def pick(data, index, axis=-1, keepdims=False, mode="clip"):
+    """``data`` indexed along ``axis`` by the integer-valued ``index``
+    (``mode`` is accepted and unused, as in the JAX package)."""
     axis = axis % data.dim()
     idx = index.long().unsqueeze(axis)
     out = torch.gather(data, axis, idx)
@@ -277,19 +286,22 @@ def LayerNorm(data, gamma, beta, axis=-1, eps=1e-5):
     return out.to(data.dtype)
 
 
-def Embedding(data, weight):
+def Embedding(data, weight, input_dim=0, output_dim=0, dtype="float32",
+              sparse_grad=False):
     """Rows of ``weight`` at the (integer-valued, possibly float) ids in
-    ``data``; the gradient is a scatter-add."""
+    ``data``; the gradient is a scatter-add.  The other arguments are
+    MXNet's and read from ``weight``."""
     return F.embedding(data.long(), weight)
 
 
-def Dropout(data, p=0.5, axes=(), training=False, generator=None):
+def Dropout(data, p=0.5, axes=(), training=False, generator=None,
+            mode="training", cudnn_off=False):
     """Zero each element with probability ``p`` and scale the rest by
-    ``1 / (1 - p)``, in training.  ``axes`` share one draw along those
-    axes.  The mask is drawn from ``generator``, by default the port's
-    generator of ``data``'s device
+    ``1 / (1 - p)``, in training (always, with ``mode="always"``).
+    ``axes`` share one draw along those axes.  The mask is drawn from
+    ``generator``, by default the port's generator of ``data``'s device
     (:func:`mxnet_tpu_torch.random.generator`)."""
-    if p <= 0 or not training:
+    if p <= 0 or (not training and mode != "always"):
         return data
     shape = tuple(1 if i in axes else s for i, s in enumerate(data.shape))
     gen = generator if generator is not None \

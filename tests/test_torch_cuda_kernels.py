@@ -1,7 +1,9 @@
 """The port's CUDA kernels on an NVIDIA GPU: each against its plain
 PyTorch version, the wrappers' input checks, and the decode engine, a
 ResNet training step, a BERT training step and a bf16 LARS ResNet
-``run_steps`` through the kernels.  Every test here needs the card and
+``run_steps`` through the kernels, and the imperative API on the card
+(NDArrays on the default context, context round trips, pinned
+DataLoader batches, an NDArray training step).  Every test here needs the card and
 skips without one.  The file imports neither JAX nor the JAX
 package, so on a machine with a card and no JAX it runs with
 
@@ -833,3 +835,90 @@ def test_resnet_bf16_lars_run_steps_runs_through_the_kernels(cuda):
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
     for p in net.collect_params().values():
         assert p.data().dtype == torch.float32
+
+
+# -- the imperative API on the card ------------------------------------
+
+def test_ndarray_default_context_is_the_card(cuda):
+    import mxnet_tpu_torch as mx
+    assert mx.current_context() == mx.gpu(0) and mx.num_gpus() >= 1
+    a = mx.nd.array([[1.0, 2.0], [3.0, 4.0]])
+    z = mx.nd.zeros((2, 3))
+    r = mx.nd.random.uniform(shape=(4,))
+    n = mx.nd.NDArray(np.ones(3))
+    for x in (a, z, r, n, a + 1, mx.nd.dot(a, a)):
+        assert x._data.device == torch.device("cuda", 0)
+        assert x.context == mx.gpu(0)
+    with mx.cpu():
+        assert mx.nd.ones((2,)).context == mx.cpu()
+    assert mx.nd.ones((2,), ctx=mx.cpu()).context == mx.cpu()
+
+
+def test_ndarray_as_in_context_round_trips(cuda):
+    import mxnet_tpu_torch as mx
+    host = np.arange(12, dtype=np.float32).reshape(3, 4)
+    a = mx.nd.array(host, ctx=mx.cpu())
+    g = a.as_in_context(mx.gpu())
+    assert g.context == mx.gpu(0) and g.as_in_context(mx.gpu()) is g
+    back = (g * 2).as_in_context(mx.cpu())
+    assert back.context == mx.cpu()
+    np.testing.assert_array_equal(back.asnumpy(), host * 2)
+    p = a.as_in_context(mx.cpu_pinned())
+    assert p._data.is_pinned() and p.context == mx.cpu_pinned()
+    np.testing.assert_array_equal(
+        p.as_in_context(mx.gpu()).asnumpy(), host)
+
+
+def test_waitall_and_wait_to_read(cuda):
+    import mxnet_tpu_torch as mx
+    a = mx.nd.ones((256, 256))
+    for _ in range(5):
+        a = mx.nd.dot(a, a) / 256.0
+    mx.nd.waitall()
+    a.wait_to_read()
+    np.testing.assert_allclose(a.asnumpy(), np.ones((256, 256)), rtol=1e-5)
+
+
+def test_dataloader_pin_memory_batches(cuda):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
+    x = np.random.default_rng(0).standard_normal((10, 3)).astype(np.float32)
+    y = np.arange(10, dtype=np.int32)
+    loader = DataLoader(ArrayDataset(x, y), batch_size=4, pin_memory=True,
+                        last_batch="discard")
+    got = []
+    for xb, yb in loader:
+        assert xb._data.is_pinned() and yb._data.is_pinned()
+        assert xb.context == mx.cpu_pinned()
+        xg, yg = xb.as_in_context(mx.gpu()), yb.as_in_context(mx.gpu())
+        assert xg._data.is_cuda and yg.dtype == np.int32
+        got.append(xg.asnumpy())
+    np.testing.assert_array_equal(np.concatenate(got), x[:8])
+
+
+def test_ndarray_training_step_on_the_card(cuda):
+    """One step of a small conv net driven with NDArrays on the card:
+    the gradients ``loss.backward()`` leaves are what ``Trainer.step``
+    applies, and a ``write`` gradient is overwritten by the next
+    backward."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    net = gluon.nn.HybridSequential()
+    net.add(gluon.nn.Conv2D(4, kernel_size=3, activation="relu"),
+            gluon.nn.Flatten(), gluon.nn.Dense(3))
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu())
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    x = mx.nd.random.uniform(shape=(2, 1, 6, 6))
+    y = mx.nd.array([0, 2], dtype="int32")
+    for _ in range(2):
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+    g = net[2].weight.grad().clone()
+    with autograd.record():
+        loss_fn(net(x), y).backward()
+    torch.testing.assert_close(net[2].weight.grad(), g)
+    w = net[2].weight.data().clone()
+    gluon.Trainer(net.collect_params(), "sgd",
+                  {"learning_rate": 0.1}).step(2)
+    torch.testing.assert_close(net[2].weight.data(), w - 0.1 * g / 2)

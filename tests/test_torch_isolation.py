@@ -37,6 +37,32 @@ def test_import_leaves_jax_and_mxnet_tpu_out():
     assert out.stdout.strip() == "[]"
 
 
+def test_the_imperative_api_loads_neither_jax_nor_mxnet_tpu():
+    """``import mxnet_tpu_torch as mx`` with ``mx.nd``, ``gluon.data``
+    and ``metric`` in use; the new subpackages are among the modules the
+    tests above import one by one."""
+    names = {p.relative_to(PKG).parts[0] for p in PKG.rglob("*.py")}
+    assert {"ndarray", "metric.py"} <= names
+    assert (PKG / "gluon" / "data" / "vision" / "datasets.py").exists()
+    code = ("import sys\n"
+            "import mxnet_tpu_torch as mx\n"
+            "mx.nd; mx.gluon.data.vision.MNIST; mx.metric.Accuracy\n"
+            "with mx.cpu():\n"
+            "    a = mx.nd.array([1.0, 2.0]) * 2\n"
+            "assert a.asnumpy().tolist() == [2.0, 4.0]\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "%r))" % (FORBIDDEN,))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(PKG.parent)] + [p for p in env.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(PKG.parent))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def _imports(path):
     tree = ast.parse(path.read_text(), str(path))
     for node in ast.walk(tree):
