@@ -78,7 +78,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    context 152; the fused BatchNorm+ReLU kernels in fp32 and bf16; the
    flash forward and backward in fp32 and in bf16, the forward with its
    registers and shared memory, and causal with a float mask that
-   leaves a row no key).
+   leaves a row no key);
+12. checkpoint and serve.  Right after phase 3's eight steps the net
+   and its trainer are saved with ``CheckpointManager.save_training``,
+   once synchronously and once with ``async_save=True`` (the two steps'
+   files must be identical), and resumed into a fresh net and
+   ``Trainer``: every parameter and momentum state must equal the
+   saved one bitwise, and one more step of the resumed pair and of the
+   original on the same batch (cuDNN deterministic) must agree.  After
+   the kernel phases, a third fresh net is served from the checkpoint
+   by ``ModelRegistry.register(block=, checkpoint=)`` with buckets 1 to
+   32: 8 client threads send 512 single 224x224 images in bursts of
+   1-32; every request gets one response, within 1e-4 of the restored
+   net's own batch-1 forward, none after the drain, and
+   ``bn_relu_apply`` launches 33 times per executor call.  It prints
+   requests/s, latency, the bucket histogram, the device's idle share
+   (``torch.profiler`` over 128 more requests) and the closed-loop
+   images/s of the largest bucket.  Last, the decode path's weights are
+   saved as a ``params`` item and served by
+   ``register_generative(checkpoint=)``: its greedy streams must equal
+   the ``params=`` route's, and ``paged_attention`` must launch once per
+   layer per decode step.
 
 The last two lines of standard output are a JSON object of per-kernel
 numbers and ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -90,6 +110,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -108,6 +129,7 @@ GPT2_SMALL = dict(vocab_size=50257, units=768, num_layers=12, num_heads=12,
                   max_seq=1024)
 BN_RELU_SITES = 33                 # fused sites per ResNet-50 v1 forward
 TRAIN_STEPS = 8
+TRAIN_SGD = {"learning_rate": 0.05, "momentum": 0.9}
 # card-vs-CPU limits of the one-step training oracle.  One ResNet-50
 # step at batch 8 moves updates by ~1% in fp32 under a mere change of
 # summation order (the oracle prints that floor); a fault of plumbing
@@ -118,6 +140,10 @@ ORACLE_LIMITS = {"loss_rel_err": 1e-5, "running_stat_rel_err": 1e-4,
 # NHWC shapes of the fused sites the kernel phase runs: the stem and a
 # stage-4 site of ResNet-50 at batch 128
 BN_SHAPES = ((128, 112, 112, 64), (128, 7, 7, 512))
+# (H, W, C) of ResNet-50 v1's 33 fused sites at 224: the stem, then the
+# two in each bottleneck of the four stages (the stride is on conv1)
+RESNET50_SITE_SHAPES = ((112, 112, 64), (56, 56, 64), (28, 28, 128),
+                        (14, 14, 256), (7, 7, 512))
 BN_EPS = 1e-5
 # the AMP LARS path: bench.py's bench_resnet50_lars settings
 LARS_BATCH = 512
@@ -203,6 +229,8 @@ def host_us(fn, iters=200, repeats=5):
 # ---------------------------------------------------------------------
 
 EDGE_CONTEXTS = (0, 1, 15, 16, 17, 333, 1000, 1024)
+DECODE_PROMPT_LENGTHS = (5, 21, 37, 54, 70, 87, 103, 120)
+DECODE_MAX_NEW = 32
 DECODE_CONTEXTS = (152,) * 8       # decode_step_breakdown's shape
 
 
@@ -314,6 +342,29 @@ def kernel_phase(scale):
         print("paged_attention %s cache: max_abs_err %.3g (atol %g)"
               % (name, err, atol))
         result[name] = err
+    # one slot, as decode from a checkpoint runs it (one request at a
+    # time): every context its prompts and steps reach
+    ckpt_err = {}
+    lo = min(DECODE_PROMPT_LENGTHS)
+    hi = max(DECODE_PROMPT_LENGTHS) + DECODE_MAX_NEW
+    for name, kv_dtype, atol in (("float32", torch.float32, 1e-4),
+                                 ("bfloat16", torch.bfloat16, 2e-2)):
+        q, k, v, bt, _ = paged_attention_inputs(kv_dtype, seed=1,
+                                                contexts=(hi,))
+        worst = 0.0
+        for c in range(lo, hi + 1):
+            ctx = torch.full((1, 1), c, dtype=torch.int32, device="cuda")
+            got = paged_attention_cuda(q, k, v, bt, ctx, scale=scale)
+            want = paged_attention_reference(q, k, v, bt, ctx, scale=scale)
+            err = float((got - want).abs().max())
+            check(bool(torch.isfinite(got).all()) and err <= atol,
+                  "paged_attention one slot (%s cache) at context %d: max "
+                  "|kernel - plain| = %g > atol %g" % (name, c, err, atol))
+            worst = max(worst, err)
+        ckpt_err[name] = worst
+        result[name] = max(result[name], worst)
+    print("paged_attention one slot at contexts %d..%d: max_abs_err %s"
+          % (lo, hi, json.dumps(ckpt_err)))
     # times at the main path's cache dtype (float32): the edge-case
     # contexts, then the decode step's own shape
     edge = paged_attention_times(scale, EDGE_CONTEXTS)
@@ -414,10 +465,9 @@ def main_path(widths=GPT2_SMALL, device="cuda"):
     model = tiny_gpt(**widths)
     params = model.init_params(seed=0, device=device)
     rng = np.random.default_rng(0)
-    lengths = [5, 21, 37, 54, 70, 87, 103, 120]
     prompts = [rng.integers(0, model.vocab_size, n).tolist()
-               for n in lengths]
-    max_new = 32
+               for n in DECODE_PROMPT_LENGTHS]
+    max_new = DECODE_MAX_NEW
     late = {6, 7}                  # these join the running batch
 
     torch.cuda.reset_peak_memory_stats()
@@ -515,8 +565,7 @@ def resnet50_nhwc():
 def make_train_step(net):
     from mxnet_tpu_torch import gluon
     from mxnet_tpu_torch.parallel import TrainStep
-    trainer = gluon.Trainer(net.collect_params(), "sgd",
-                            {"learning_rate": 0.05, "momentum": 0.9})
+    trainer = gluon.Trainer(net.collect_params(), "sgd", TRAIN_SGD)
     return TrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(), trainer)
 
 
@@ -669,10 +718,11 @@ def oracle_step(net, x, y):
     relative to the net's prefix."""
     params = {p.name[len(net.prefix):]: p
               for p in net.collect_params().values()}
-    before = {k: p.data().detach().cpu().double()
+    before = {k: p.data()._data.detach().cpu().double()
               for k, p in params.items()}
     loss = float(make_train_step(net)(x, y))
-    after = {k: p.data().detach().cpu().double() for k, p in params.items()}
+    after = {k: p.data()._data.detach().cpu().double()
+             for k, p in params.items()}
     updates = {k: after[k] - before[k] for k, p in params.items()
                if p.grad_req != "null"}
     stats = {k: after[k] for k, p in params.items() if p.grad_req == "null"}
@@ -713,7 +763,7 @@ def train_oracle(net, make_net=resnet50_nhwc, batch=8, image=224):
     from the CPU step is the noise floor the card is read against."""
     import torch
     from mxnet_tpu_torch.gluon.convert import params_from_numpy
-    arrays = {p.name: p.data().detach().cpu().numpy()
+    arrays = {p.name: p.data()._data.detach().cpu().numpy()
               for p in net.collect_params().values()}
 
     def cpu_copy():
@@ -1011,7 +1061,8 @@ def mnist_oracle_step(net, x, y, ctx):
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import autograd
     params = net._collect_params_with_prefix()
-    before = {k: p.data().detach().cpu().double() for k, p in params.items()}
+    before = {k: p.data()._data.detach().cpu().double()
+              for k, p in params.items()}
     trainer = mx.gluon.Trainer(net.collect_params(), "sgd", MNIST_SGD)
     loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
     data = mx.nd.array(x, ctx=ctx)
@@ -1020,7 +1071,7 @@ def mnist_oracle_step(net, x, y, ctx):
         loss = loss_fn(net(data), label)
     loss.backward()
     trainer.step(len(x))
-    updates = {k: p.data().detach().cpu().double() - before[k]
+    updates = {k: p.data()._data.detach().cpu().double() - before[k]
                for k, p in params.items()}
     return float(loss.mean().asscalar()), updates
 
@@ -1043,7 +1094,7 @@ def mnist_oracle(ctx=None, batch=8, seed=2):
         np.float32)
     y = ds._label[:batch]
     net(mx.nd.array(x, ctx=mx.cpu()))            # settle deferred shapes
-    arrays = {k: p.data().detach().cpu().numpy()
+    arrays = {k: p.data()._data.detach().cpu().numpy()
               for k, p in net._collect_params_with_prefix().items()}
 
     def copy_on(c):
@@ -1159,6 +1210,29 @@ def bn_relu_kernel_phase():
                 print("bn_relu %s %s %s: max_abs_err %.3g (limit %.3g)"
                       % (kind, shape, key, err, limit))
             del t, pairs
+
+    # the serving path's shapes: each of ResNet-50's fused-site shapes at
+    # every bucket, in fp32, as the checkpoint-and-serve phase runs them
+    serve_err = 0.0
+    for b in SERVE_BUCKETS:
+        for site in RESNET50_SITE_SHAPES:
+            shape = (b,) + site
+            t = bn_relu_inputs(shape, torch.float32, seed=b)
+            got = bn_relu_apply_cuda(t["x"], t["scale"], t["offset"])
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()),
+                  "bn_relu fwd serving %s: non-finite" % (shape,))
+            err = float((got - t["y"]).abs().max())
+            limit = rtol[torch.float32] * max(1.0, float(t["y"].abs().max()))
+            check(err <= limit, "bn_relu fwd serving %s: max |kernel - "
+                  "plain| %.3g > %.3g" % (shape, err, limit))
+            serve_err = max(serve_err, err)
+            del t, got
+    print("bn_relu fwd float32 at the serving shapes (buckets %s x sites "
+          "%s): max_abs_err %.3g (rtol %g of the largest output)"
+          % (list(SERVE_BUCKETS), list(RESNET50_SITE_SHAPES), serve_err,
+             rtol[torch.float32]))
+    errs["fwd"]["float32"] = max(errs["fwd"]["float32"], serve_err)
 
     times = {}
     for shape in BN_SHAPES:
@@ -1357,7 +1431,7 @@ def bert_main_path(make_net=bert_base_net, vocab=BERT_VOCAB,
     for name, n in want.items():
         check(counts[name] == n, "%s launches %d != %d" % (name,
                                                            counts[name], n))
-    bucket = sum(p.data().numel() for p in net.collect_params().values())
+    bucket = sum(p.data().size for p in net.collect_params().values())
     stats = {"batch": batch, "seq": seq, "steps": steps, "losses": losses,
              "ms_per_step": 1e3 * wall / steps,
              "tokens_per_s": batch * seq * steps / wall, "warmup_s": warm_s,
@@ -1409,7 +1483,7 @@ def bert_grads_and_step(net, vocab, ids, labels):
     from mxnet_tpu_torch import autograd
     params = {p.name[len(net.prefix):]: p
               for p in net.collect_params().values()}
-    dev = next(iter(params.values())).data().device
+    dev = next(iter(params.values())).data()._data.device
     x = torch.as_tensor(ids, device=dev)
     y = torch.as_tensor(labels, device=dev)
     with autograd.record():
@@ -1417,17 +1491,18 @@ def bert_grads_and_step(net, vocab, ids, labels):
     loss.sum().backward()
     grads = {}
     for k, p in params.items():
-        g = p.data().grad
+        g = p.data()._data.grad
         if g is not None:
             grads[k] = g.detach().cpu().double()
-        p.data().grad = None
-    before = {k: p.data().detach().cpu().double() for k, p in params.items()}
+        p.data()._data.grad = None
+    before = {k: p.data()._data.detach().cpu().double()
+              for k, p in params.items()}
     step = make_bert_step(net, vocab)
     with replaying_bucket_update({}) as record:
         loss = float(step(x, y))
     names = {i: p.name[len(net.prefix):]
              for i, p in enumerate(step._trainer._params)}
-    updates = {k: p.data().detach().cpu().double() - before[k]
+    updates = {k: p.data()._data.detach().cpu().double() - before[k]
                for k, p in params.items()}
     replay = {names[i]: w.double() - before[names[i]]
               for i, w in record["replay"].items()}
@@ -1456,7 +1531,7 @@ def bert_oracle(net, make_net=bert_base_net, vocab=BERT_VOCAB, batch=2,
     function in another fp32 summation order: its distance from the CPU
     step is the floor the card is read against."""
     from mxnet_tpu_torch.gluon.convert import params_from_numpy
-    arrays = {p.name: p.data().detach().cpu().numpy()
+    arrays = {p.name: p.data()._data.detach().cpu().numpy()
               for p in net.collect_params().values()}
     units = net._units
 
@@ -1613,7 +1688,7 @@ def amp_lars_main_path(make_net=resnet50_nhwc, batch=LARS_BATCH, image=224,
              "losses": losses, "ms_per_step": 1e3 * wall / steps,
              "img_per_s": batch * steps / wall, "warmup_s": warm_s,
              "launches": counts, "launch_dtypes": dtypes,
-             "lars_bucket_elements": sum(p.data().numel() for p in live),
+             "lars_bucket_elements": sum(p.data().size for p in live),
              "lars_tensors": len(live),
              "peak_mem_bytes": torch.cuda.max_memory_allocated()
              if cuda else None, "card": gpu_line() if cuda else None}
@@ -1634,7 +1709,7 @@ def layer_dtypes(net, x):
         for m in net.modules()]
     try:
         with amp.scope("bfloat16"), autograd.pause():
-            dev = next(iter(net.collect_params().values())).data().device
+            dev = next(iter(net.collect_params().values())).data()._data.device
             net(torch.as_tensor(x, device=dev))
     finally:
         for h in hooks:
@@ -1653,7 +1728,7 @@ def lars_grads_and_step(net, x, y, bf16=True):
     from mxnet_tpu_torch import amp, autograd, gluon
     params = {p.name[len(net.prefix):]: p
               for p in net.collect_params().values()}
-    dev = next(iter(params.values())).data().device
+    dev = next(iter(params.values())).data()._data.device
     xt, yt = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
     with amp.scope("bfloat16") if bf16 else contextlib.nullcontext():
         with autograd.record():
@@ -1661,17 +1736,18 @@ def lars_grads_and_step(net, x, y, bf16=True):
         loss.sum().backward()
     grads = {}
     for k, p in params.items():
-        g = p.data().grad
+        g = p.data()._data.grad
         if g is not None:
             grads[k] = g.detach().cpu().double()
-        p.data().grad = None
-    before = {k: p.data().detach().cpu().double() for k, p in params.items()}
+        p.data()._data.grad = None
+    before = {k: p.data()._data.detach().cpu().double()
+              for k, p in params.items()}
     step = make_lars_step(net)
     with replaying_bucket_update({}) as record:
         loss = float(amp_step(step, bf16)(xt, yt))
     names = {i: p.name[len(net.prefix):]
              for i, p in enumerate(step._trainer._params)}
-    updates = {k: p.data().detach().cpu().double() - before[k]
+    updates = {k: p.data()._data.detach().cpu().double() - before[k]
                for k, p in params.items() if p.grad_req != "null"}
     replay = {names[i]: w.double() - before[names[i]]
               for i, w in record["replay"].items()}
@@ -1727,7 +1803,7 @@ def amp_lars_oracle(net, make_net=resnet50_nhwc, batch=8, image=224,
     Convolution biases are left out (a BatchNorm cancels each: its exact
     gradient is 0)."""
     from mxnet_tpu_torch.gluon.convert import params_from_numpy
-    arrays = {p.name: p.data().detach().cpu().numpy()
+    arrays = {p.name: p.data()._data.detach().cpu().numpy()
               for p in net.collect_params().values()}
 
     def copy_on(dev):
@@ -2264,16 +2340,410 @@ def lars_kernel_phase(sizes, skips):
                 max_abs_err_bf16=errs["bfloat16"], bf16=out["bfloat16"])
 
 
-def kernel_entry(name, launches, kern):
-    """One kernel's entry of the per-kernel JSON line."""
+# ---------------------------------------------------------------------
+# phase 12: checkpoint, resume and serve
+# ---------------------------------------------------------------------
+
+CKPT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "ckpt-smoke")
+SERVE_BUCKETS = (1, 2, 4, 8, 16, 32)
+SERVE_REQUESTS = 512
+SERVE_CLIENTS = 8
+SERVE_PROFILED_REQUESTS = 128
+# a response against the restored net's own batch-1 forward, TF32 off:
+# cuDNN may take another algorithm at each batch size, so the last bits
+# differ (fp32 sums in another order), never more
+SERVE_REL_TOL = 1e-4
+# the step after a resume against the same step of the original, where
+# cuDNN's deterministic algorithms do not make them bitwise equal
+RESUME_NORM_TOL = 1e-6
+
+
+def _manifest_files(root, step):
+    from mxnet_tpu_torch.checkpoint import CheckpointManager, load_manifest
+    return load_manifest(CheckpointManager(root).step_dir(step))["files"]
+
+
+def checkpoint_phase(net, step, x, y, make_net=resnet50_nhwc,
+                     root=CKPT_ROOT, device="cuda"):
+    """Save the trained net and its trainer with ``save_training``
+    (synchronously, then again with ``async_save=True``), resume both
+    into a fresh net and ``Trainer`` with ``restore_training``, hold
+    every parameter and momentum state bitwise, then take one more step
+    on the resumed pair and on the original on the same batch with
+    cuDNN's deterministic algorithms.  Returns the sync root."""
+    import torch
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.parallel import TrainStep
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    shutil.rmtree(root, ignore_errors=True)
+    sync_root = os.path.join(root, "sync")
+    async_root = os.path.join(root, "async")
+    trainer = step._trainer
+    sync()
+    t0 = time.perf_counter()
+    CheckpointManager(sync_root).save_training(TRAIN_STEPS, net, trainer)
+    sync_s = time.perf_counter() - t0
+    mgr = CheckpointManager(async_root, async_save=True)
+    t0 = time.perf_counter()
+    mgr.save_training(TRAIN_STEPS, net, trainer)
+    async_return_s = time.perf_counter() - t0
+    mgr.wait_until_finished()
+    async_s = time.perf_counter() - t0
+    files = _manifest_files(sync_root, TRAIN_STEPS)
+    check(files == _manifest_files(async_root, TRAIN_STEPS),
+          "the async save's files differ from the sync save's")
+    nbytes = sum(e["bytes"] for e in files.values())
+
+    fresh = make_net()
+    fresh.initialize(device=device)
+    fresh_tr = gluon.Trainer(fresh.collect_params(), "sgd", TRAIN_SGD)
+    t0 = time.perf_counter()
+    ckpt = CheckpointManager(async_root).restore_training(fresh, fresh_tr)
+    sync()
+    restore_s = time.perf_counter() - t0
+    check(ckpt is not None and ckpt.step == TRAIN_STEPS,
+          "restore_training found no step %d" % TRAIN_STEPS)
+    old = net._collect_params_with_prefix()
+    new = fresh._collect_params_with_prefix()
+    check(sorted(old) == sorted(new), "resumed net has other parameters")
+    unequal = [k for k in old if not torch.equal(old[k]._data, new[k]._data)]
+    check(not unequal, "resumed parameters differ: %s" % unequal[:5])
+    states, got = trainer._updater.states, fresh_tr._updater.states
+    live = sum(p.grad_req != "null" for p in old.values())
+    check(sorted(states) == sorted(got) and len(states) == live,
+          "resumed trainer has %d states, the original %d, for %d "
+          "parameters" % (len(got), len(states), live))
+    unequal = [i for i in states if not torch.equal(states[i], got[i])]
+    check(not unequal, "resumed momentum states differ: %s" % unequal[:5])
+
+    fresh_step = TrainStep(fresh, gluon.loss.SoftmaxCrossEntropyLoss(),
+                           fresh_tr)
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        loss_a = float(step(x, y))
+        loss_b = float(fresh_step(x, y))
+        sync()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    num = den = 0.0
+    bitwise = True
+    for k in old:
+        a, b = old[k]._data.detach().double(), new[k]._data.detach().double()
+        bitwise = bitwise and torch.equal(a, b)
+        num += float(((a - b) ** 2).sum())
+        den += float((a ** 2).sum())
+    rel = (num / den) ** 0.5
+    stats = {"step": TRAIN_STEPS, "bytes": nbytes,
+             "files": {k: v["bytes"] for k, v in files.items()},
+             "save_s": sync_s, "save_MB_per_s": nbytes / sync_s / 1e6,
+             "async_save_return_s": async_return_s,
+             "async_save_committed_s": async_s,
+             "async_MB_per_s": nbytes / async_s / 1e6,
+             "restore_s": restore_s, "params_equal": True,
+             "momentum_equal": True, "next_step_losses": [loss_a, loss_b],
+             "next_step_bitwise": bitwise,
+             "next_step_param_rel_diff": rel,
+             "card": gpu_line() if cuda else None}
+    print("checkpoint and resume (ResNet-50 v1 NHWC fp32, SGD momentum): "
+          "%s" % json.dumps(stats))
+    check(loss_a == loss_b, "resumed step loss %r != original %r"
+          % (loss_b, loss_a))
+    check(bitwise or rel <= RESUME_NORM_TOL,
+          "resumed step parameters differ by %.3g > %g (norm-wise)"
+          % (rel, RESUME_NORM_TOL))
+    del fresh_step, fresh, fresh_tr
+    return sync_root
+
+
+def _client_bursts(rng, n, clients):
+    """Each client's bursts: its share of ``n`` request indices cut into
+    runs of 1-32."""
+    shares = [list(range(c, n, clients)) for c in range(clients)]
+    bursts = []
+    for share in shares:
+        mine = []
+        while share:
+            k = int(rng.randint(1, 33))
+            mine.append(share[:k])
+            share = share[k:]
+        bursts.append(mine)
+    return bursts
+
+
+def _serve(sv, images, bursts):
+    """Run the clients: each submits a burst, waits for all of it, then
+    submits its next.  Returns ``(responses, latencies, wall seconds)``."""
+    n = len(images)
+    responses = [None] * n
+    done = [None] * n
+    sent = [None] * n
+    errors = []
+
+    def client(mine):
+        try:
+            for burst in mine:
+                futs = []
+                for i in burst:
+                    sent[i] = time.perf_counter()
+                    f = sv.submit(images[i], timeout=120)
+                    f.add_done_callback(
+                        lambda _f, i=i: done.__setitem__(
+                            i, time.perf_counter()))
+                    futs.append((i, f))
+                for i, f in futs:
+                    responses[i] = f.result(timeout=120)
+        except BaseException as e:     # reported by the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(mine,), daemon=True)
+               for mine in bursts]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "a serving client hung")
+    check(not errors, "serving client errors: %r" % (errors[:3],))
+    check(all(r is not None for r in responses),
+          "%d requests got no response"
+          % sum(r is None for r in responses))
+    return responses, np.array(done) - np.array(sent), wall
+
+
+def serve_phase(root, make_net=resnet50_nhwc, image=224,
+                buckets=SERVE_BUCKETS, requests=SERVE_REQUESTS,
+                clients=SERVE_CLIENTS, sites=BN_RELU_SITES, device="cuda"):
+    """Serve the checkpoint through ``ModelRegistry.register(block=,
+    checkpoint=)``: ``clients`` threads send ``requests`` single images
+    in bursts of 1-32; the launch counters are zeroed after registration
+    and read after the drain.  Each response is held against the
+    restored net's own batch-1 forward."""
+    import torch
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.kernels import registry
+    from mxnet_tpu_torch.serving import ModelRegistry, ServableClosed
+    cuda = device == "cuda"
+    net = make_net()
+    net.initialize(device=device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reg = ModelRegistry()
+    t0 = time.perf_counter()
+    sv = reg.register("resnet50", block=net, checkpoint=root,
+                      input_shape=(image, image, 3), buckets=buckets)
+    register_s = time.perf_counter() - t0
+    check(sv.source == "checkpoint", "servable source %r" % sv.source)
+    check(sv._pool.warm_buckets() == list(buckets),
+          "warm buckets %s" % sv._pool.warm_buckets())
+    # the served weights are the newest step's, bit for bit
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.ndarray.ndarray import load_tensors
+    mgr = CheckpointManager(root)
+    saved = load_tensors(os.path.join(mgr.step_dir(mgr.latest_step()),
+                                      "params.params"))
+    served = net._collect_params_with_prefix()
+    check(sorted(saved) == sorted(served), "served parameter names differ "
+          "from the checkpoint's")
+    differ = [k for k, p in served.items()
+              if not torch.equal(p._data.cpu(), saved[k])]
+    check(not differ, "served parameters differ from the checkpoint: %s"
+          % differ[:5])
+    del saved
+    rng = np.random.RandomState(0)
+    images = rng.standard_normal(
+        (requests, image, image, 3)).astype(np.float32)
+    bursts = _client_bursts(rng, requests, clients)
+
+    # the worker's time a batch: assembling it, the pool's call (the
+    # copy to the card and the forward's launches), then waiting for the
+    # logits and answering; and the wait for requests between batches
+    marks = []
+    batcher, pool = sv._batcher, sv._pool
+    dispatch, call = batcher._dispatch, pool.call
+
+    def timed_dispatch(reqs):
+        marks.append([time.perf_counter(), None, None, None])
+        dispatch(reqs)
+        marks[-1][3] = time.perf_counter()
+
+    def timed_call(bucket, x):
+        marks[-1][1] = time.perf_counter()
+        out = call(bucket, x)
+        marks[-1][2] = time.perf_counter()
+        return out
+
+    batcher._dispatch, pool.call = timed_dispatch, timed_call
+    registry.reset_launches()
+    responses, lat, wall = _serve(sv, images, bursts)
+    del batcher._dispatch, pool.call
+    t = np.array(marks)
+    split = {"assemble_ms": 1e3 * float(np.mean(t[:, 1] - t[:, 0])),
+             "call_ms": 1e3 * float(np.mean(t[:, 2] - t[:, 1])),
+             "wait_and_answer_ms": 1e3 * float(np.mean(t[:, 3] - t[:, 2])),
+             "between_batches_ms": 1e3 * float(np.mean(t[1:, 0]
+                                                       - t[:-1, 3]))}
+    stats = sv.stats()
+    n_calls = stats["batches"]
+    launches = registry.launches("bn_relu_apply")
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+
+    idle = None
+    if cuda:
+        from torch.profiler import ProfilerActivity, profile
+        sub = images[:SERVE_PROFILED_REQUESTS]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            _serve(sv, sub, _client_bursts(rng, len(sub), clients))
+            torch.cuda.synchronize()
+            window = time.perf_counter() - t1
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        check(busy > 0, "the profiler saw no device time while serving")
+        idle = 1 - busy / 1e6 / window
+        check(idle >= 0, "profiler device time %.6f s exceeds the serving "
+              "window %.6f s" % (busy / 1e6, window))
+    after = sv.stats()
+    reg.shutdown(drain=True)
+    check(sv.closed, "servable still open after shutdown")
+    check(sv.stats() == after, "responses after shutdown(drain=True)")
+    try:
+        sv.submit(images[0])
+    except ServableClosed:
+        pass
+    else:
+        raise SmokeFailure("a closed servable took a request")
+
+    check(stats.get("responses") == requests and
+          stats.get("timeouts", 0) == stats.get("shed", 0) ==
+          stats.get("errors", 0) == 0,
+          "serving counts %s for %d requests" % (stats, requests))
+    check(sum(v for k, v in stats.items() if k.startswith("bucket_"))
+          == n_calls, "bucket histogram does not sum to the %d batches"
+          % n_calls)
+    check(launches == sites * n_calls, "bn_relu_apply launches %d != %d "
+          "sites x %d executor calls" % (launches, sites, n_calls))
+
+    worst = 0.0
+    with torch.inference_mode(), autograd.pause():
+        for img, got in zip(images, responses):
+            want = net(torch.from_numpy(img[None]).to(device))[0]
+            want = want.cpu().numpy()
+            check(got.shape == want.shape and np.isfinite(got).all(),
+                  "response of shape %s, want %s" % (got.shape, want.shape))
+            worst = max(worst, float(np.abs(got - want).max()
+                                     / np.abs(want).max()))
+    check(worst <= SERVE_REL_TOL, "served logits differ from the batch-1 "
+          "forward by %.3g > %g (relative to the largest)"
+          % (worst, SERVE_REL_TOL))
+
+    # closed loop: the largest bucket's call back to back, host batch in
+    # and host logits out, as the batcher dispatches it
+    batch = np.ascontiguousarray(images[:buckets[-1]])
+    loops = 20
+    for _ in range(2):
+        sv._pool.call(buckets[-1], batch)[0].cpu()
+    t0 = time.perf_counter()
+    for _ in range(loops):
+        sv._pool.call(buckets[-1], batch)[0].cpu()
+    closed = buckets[-1] * loops / (time.perf_counter() - t0)
+
+    hist = {k.split("_")[1]: v for k, v in sorted(stats.items())
+            if k.startswith("bucket_")}
+    out = {"requests": requests, "clients": clients, "register_s": register_s,
+           "requests_per_s": requests / wall,
+           "latency_p50_ms": 1e3 * float(np.percentile(lat, 50)),
+           "latency_p99_ms": 1e3 * float(np.percentile(lat, 99)),
+           "batches": stats["batches"], "bucket_histogram": hist,
+           "mean_batch": requests / stats["batches"],
+           "worker_split": split,
+           "bn_relu_apply_launches": launches,
+           "max_rel_err": worst, "rel_tol": SERVE_REL_TOL,
+           "device_idle_share": idle,
+           "profiled_requests": SERVE_PROFILED_REQUESTS if cuda else 0,
+           "closed_loop_img_per_s_bucket%d" % buckets[-1]: closed,
+           "peak_mem_bytes": peak, "card": gpu_line() if cuda else None}
+    print("serving from the checkpoint (ResNet-50 v1 NHWC fp32, %d "
+          "clients): %s" % (clients, json.dumps(out)))
+    return out
+
+
+def decode_checkpoint_phase(root=CKPT_ROOT, widths=GPT2_SMALL,
+                            max_new=DECODE_MAX_NEW, device="cuda"):
+    """The decode path's weights saved as a ``params`` item and served by
+    ``register_generative(checkpoint=)``: each prompt's greedy stream,
+    generated one request at a time, must equal the ``params=`` route's.
+    The counters are zeroed before the checkpoint route's registration
+    and read after its last stream."""
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.kernels import registry
+    from mxnet_tpu_torch.serving import ModelRegistry
+    from mxnet_tpu_torch.serving.decode import tiny_gpt
+    model = tiny_gpt(**widths)
+    params = model.init_params(seed=0, device=device)
+    root = os.path.join(root, "gpt2")
+    t0 = time.perf_counter()
+    CheckpointManager(root).save(0, {"params": params})
+    save_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, model.vocab_size, n).tolist()
+               for n in DECODE_PROMPT_LENGTHS]
+    reg = ModelRegistry()
+    reg.register_generative("gpt2-params", model, params=params,
+                            device=device)
+    want = [reg.generate("gpt2-params", p, max_new).tokens()
+            for p in prompts]
+    reg.unregister("gpt2-params")
+    del params
+
+    registry.reset_launches()
+    sv = reg.register_generative("gpt2", model, checkpoint=root,
+                                 device=device)
+    got = [reg.generate("gpt2", p, max_new).tokens() for p in prompts]
+    steps = sv.engine.decode_steps
+    reg.shutdown(drain=True)
+    launches = registry.launches("paged_attention")
+    stats = {"prompts": len(prompts), "max_new": max_new,
+             "save_s": save_s, "decode_steps": steps,
+             "paged_attention_launches": launches,
+             "streams_equal": got == want}
+    print("decode from a checkpoint (GPT-2 small widths): %s"
+          % json.dumps(stats))
+    check(all(len(t) == max_new for t in got), "a stream ended early")
+    differ = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    check(not differ, "checkpoint route streams differ from params= at "
+          "prompts %s" % differ)
+    check(launches == model.num_layers * steps,
+          "paged_attention launches %d != %d layers x %d decode steps"
+          % (launches, model.num_layers, steps))
+    return stats
+
+
+def kernel_entry(name, launches, kern, serve_launches=None):
+    """One kernel's entry of the per-kernel JSON line; a kernel of the
+    checkpoint-and-serve phase also gives its launches there."""
     from mxnet_tpu_torch.kernels import registry
     spec = registry.get(name)
-    return {"name": spec.name, "route": "cuda",
-            "source": "mxnet_tpu_torch/" + spec.source,
-            "replaces": spec.replaces.split()[0], "launches": launches,
-            "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
-            "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
-            "bound_by": kern["bound_by"], "library_ms": kern["library_ms"]}
+    entry = {"name": spec.name, "route": "cuda",
+             "source": "mxnet_tpu_torch/" + spec.source,
+             "replaces": spec.replaces.split()[0], "launches": launches,
+             "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
+             "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
+             "bound_by": kern["bound_by"], "library_ms": kern["library_ms"]}
+    if serve_launches is not None:
+        entry["launches_checkpoint_and_serve"] = serve_launches
+    return entry
 
 
 def main():
@@ -2291,6 +2761,7 @@ def main():
                                   time.perf_counter() - t0))
     decode, scale = main_path()
     net, step, (x, y), train = train_main_path()
+    ckpt_root = checkpoint_phase(net, step, x, y)
     train_step_breakdown(step, x, y, train["ms_per_step"])
     del step, x, y
     train_oracle(net)
@@ -2299,7 +2770,7 @@ def main():
     net, step, (ids, labels), bert = bert_main_path()
     train_step_breakdown(step, ids, labels, bert["ms_per_step"],
                          hand=BERT_KERNELS, label="BERT step breakdown")
-    sizes = [p.data().numel() for p in net.collect_params().values()]
+    sizes = [p.data().size for p in net.collect_params().values()]
     del step, ids, labels
     torch.cuda.empty_cache()
     bert_oracle(net)
@@ -2310,7 +2781,7 @@ def main():
                          hand=LARS_KERNELS,
                          label="AMP LARS step breakdown")
     live = [p for p in step._trainer._params if p.grad_req != "null"]
-    lars_sizes = [p.data().numel() for p in live]
+    lars_sizes = [p.data().size for p in live]
     lars_skips = [step._trainer.optimizer._skip_lars(i)
                   for i, p in enumerate(step._trainer._params)
                   if p.grad_req != "null"]
@@ -2328,12 +2799,16 @@ def main():
     ln = layernorm_kernel_phase(BERT_BATCH * BERT_SEQ, 768)
     lamb = lamb_kernel_phase(sizes)
     lars_k = lars_kernel_phase(lars_sizes, lars_skips)
+    torch.cuda.empty_cache()
+    serve = serve_phase(ckpt_root)
+    decode_ckpt = decode_checkpoint_phase()
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     counts = bert["launches"]
     print(json.dumps({"kernels": [
         kernel_entry("paged_attention", decode["paged_attention_launches"],
-                     attn),
+                     attn, decode_ckpt["paged_attention_launches"]),
         kernel_entry("bn_relu_apply", train["bn_relu_apply_launches"],
-                     bn["fwd"]),
+                     bn["fwd"], serve["bn_relu_apply_launches"]),
         kernel_entry("bn_relu_bwd", train["bn_relu_bwd_launches"],
                      bn["bwd"]),
         kernel_entry("flash_attention_fwd", counts["flash_attention_fwd"],

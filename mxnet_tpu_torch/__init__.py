@@ -27,11 +27,16 @@ It imports neither JAX nor anything of ``mxnet_tpu``.  Ported so far:
   tensor, the tensor and random ops), contexts, the NDArray entry points
   of :mod:`.autograd`, ``gluon.data`` and :mod:`.metric`, so a script
   written for MXNet runs with ``import mxnet_tpu_torch as mx`` and
-  ``mx.gpu()``.
+  ``mx.gpu()``;
+- checkpoints and the fixed-shape serving tier: ``mx.nd.save``/``load``
+  and ``Block.save_parameters`` in MXNet's ``.params`` format,
+  ``Trainer.save_states``, :mod:`.checkpoint` (``CheckpointManager``)
+  and ``serving.ModelRegistry.register(block=, checkpoint=)`` over a
+  dynamic batcher and a pool of padded batch buckets.
 
 Kernels and their plain versions are registered in :mod:`.kernels`.
 """
-from . import amp, autograd, gluon, metric, random
+from . import amp, autograd, checkpoint, gluon, metric, random
 from . import initializer as init
 from . import ndarray as nd
 from .base import MXNetError
@@ -41,6 +46,6 @@ from .ndarray import NDArray
 
 __version__ = "0.1.0"
 
-__all__ = ["Context", "MXNetError", "NDArray", "amp", "autograd", "cpu",
-           "cpu_pinned", "current_context", "gluon", "gpu", "init",
+__all__ = ["Context", "MXNetError", "NDArray", "amp", "autograd",
+           "checkpoint", "cpu", "cpu_pinned", "current_context", "gluon", "gpu", "init",
            "metric", "nd", "num_gpus", "random", "resolve_device"]

@@ -1,8 +1,9 @@
 """Typed registry of the ``MXNET_*`` environment variables the port reads.
 
-Counterpart of ``mxnet_tpu/env.py``, holding only the variables of the
-generative serving path.  Names and defaults are the JAX package's, so
-one environment configures both.
+Counterpart of ``mxnet_tpu/env.py``, holding only the variables the
+port reads: checkpoints and serving.  Names, defaults and the boolean
+convention (only ``"0"`` is false) are the JAX package's, so one
+environment configures both.
 """
 from __future__ import annotations
 
@@ -27,6 +28,8 @@ class EnvVar:
         if raw is None:
             return self.default
         try:
+            if self.type is bool:
+                return raw != "0"
             return self.type(raw)
         except (TypeError, ValueError) as e:
             raise MXNetError("env var %s=%r is not a valid %s"
@@ -34,9 +37,28 @@ class EnvVar:
 
 
 _VARS = [
+    EnvVar("MXNET_TPU_CKPT_ASYNC", bool, False,
+           "'1' makes CheckpointManager saves asynchronous by default: "
+           "the state is copied to host memory at save(), then "
+           "serialized and committed on a background thread.  "
+           "Per-manager override: CheckpointManager(async_save=...)."),
+    EnvVar("MXNET_TPU_CKPT_MAX_TO_KEEP", int, 0,
+           "Default retention for CheckpointManager: keep at most this "
+           "many step checkpoints (steps matching keep_every_n_steps "
+           "are exempt).  0 keeps everything."),
+    EnvVar("MXNET_TPU_SERVING_BUCKETS", str, "1,2,4,8,16,32",
+           "Default padded batch buckets of a fixed-shape servable: a "
+           "micro-batch of n requests pads to the smallest bucket >= n; "
+           "every bucket is warmed at registration.  Per-servable "
+           "override: ModelRegistry.register(buckets=...)."),
+    EnvVar("MXNET_TPU_SERVING_MAX_WAIT_MS", float, 5.0,
+           "Micro-batch assembly deadline (milliseconds): a batch "
+           "dispatches when the largest bucket fills or the oldest "
+           "queued request has waited this long.  Per-servable "
+           "override: ModelRegistry.register(max_wait_ms=...)."),
     EnvVar("MXNET_TPU_SERVING_QUEUE", int, 256,
-           "Bounded pending-request depth per generative servable; a "
-           "submit against a full queue raises ServingQueueFull."),
+           "Bounded request-queue depth per servable; a submit against "
+           "a full queue raises ServingQueueFull."),
     EnvVar("MXNET_TPU_SERVING_KV_BLOCK", int, 16,
            "Tokens per KV-cache block.  Per-model override: "
            "register_generative(block_size=...)."),

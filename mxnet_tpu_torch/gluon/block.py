@@ -18,8 +18,10 @@ naming and parameter management:
 A block takes tensors or NDArrays.  Called with an NDArray among its
 inputs, it runs on their tensors and returns NDArrays, recording for
 backward only inside ``autograd.record()``, as an ``mx.nd`` op does;
-called with tensors, it returns tensors.  ``Parameter.data()`` and
-``grad()`` return tensors either way.
+called with tensors, it returns tensors.
+
+``save_parameters``/``load_parameters`` write and read MXNet's
+``.params`` file under structural names (``"0.weight"``).
 
 A :class:`HybridBlock` runs ``hybrid_forward(F, x, **params)`` with
 ``F`` the port's op namespace (:mod:`mxnet_tpu_torch.ops`).  The port
@@ -37,6 +39,7 @@ from .. import autograd
 from .. import ops as _ops
 from ..base import MXNetError
 from ..ndarray import NDArray
+from ..ndarray import ndarray as _nd_mod
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
 __all__ = ["Block", "HybridBlock"]
@@ -141,6 +144,48 @@ class Block(torch.nn.Module):
             if child is not None:
                 yield from child._all_params(seen)
 
+    def save_parameters(self, filename, deduplicate=False):
+        """Write the parameters to a ``.params`` file under their
+        structural names; a parameter whose deferred shape is still
+        unknown is left out."""
+        arg = {k: p._reduce()
+               for k, p in self._collect_params_with_prefix().items()
+               if p._data is not None or p._deferred_init is None}
+        _nd_mod.save(filename, arg)
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
+        """Set the parameters from a ``.params`` file named structurally
+        (``save_parameters``) or by full prefixed names (MXNet's older
+        ``collect_params().save``).  A gradient-taking parameter keeps
+        its tensor (the value is copied in); one whose shape is still
+        deferred takes the file's shape, on ``ctx`` or the device it was
+        initialized for."""
+        loaded = _nd_mod.load_tensors(filename)
+        params = self._collect_params_with_prefix()
+        if not loaded and not params:
+            return
+        if loaded and not any(k in params for k in loaded):
+            by_name = {p.name: p for p in params.values()}
+            if any(k in by_name for k in loaded):
+                params = by_name
+        if not ignore_extra:
+            for name in loaded:
+                if name not in params:
+                    raise MXNetError(
+                        "parameter %r in file not found in Block; set "
+                        "ignore_extra=True to skip" % name)
+        if not allow_missing:
+            for name in params:
+                if name not in loaded:
+                    raise MXNetError(
+                        "parameter %r missing from file; set "
+                        "allow_missing=True to skip" % name)
+        for name, data in loaded.items():
+            if name in params:
+                params[name]._load(data, ctx, cast_dtype=cast_dtype)
+
     def initialize(self, init=None, device=None, force_reinit=False,
                    generator=None, ctx=None):
         """Initialize every parameter on ``device`` (the GPU unless the
@@ -216,10 +261,13 @@ class HybridBlock(Block):
         """``{name: tensor}`` of this block's own parameters, finishing
         deferred initialization from ``args`` on the first call."""
         try:
-            return {k: p.data() for k, p in self._reg_params.items()}
+            for p in self._reg_params.values():
+                p._check_initialized()
         except DeferredInitializationError:
             self._infer_and_finish(*args)
-            return {k: p.data() for k, p in self._reg_params.items()}
+            for p in self._reg_params.values():
+                p._check_initialized()
+        return {k: p._data for k, p in self._reg_params.items()}
 
     def forward(self, *args):
         return self.hybrid_forward(_ops, *args, **self._param_values(*args))

@@ -8,17 +8,23 @@ running statistics of ``BatchNorm``).  Its shape may stay unknown until
 the first forward (``allow_deferred_init``): the block's
 ``infer_shape`` fills it and the deferred initialization finishes then,
 on the device and with the initializer and generator recorded at
-``initialize``.
+``initialize``.  ``data()`` and ``grad()`` return NDArrays over the
+parameter's own tensors (no copy); code of the port reads ``_data``.
+:meth:`ParameterDict.save` and :meth:`~ParameterDict.load` write and
+read MXNet's ``.params`` files.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
 
+import numpy as np
 import torch
 
 from .. import initializer
 from ..base import MXNetError
-from ..context import resolve_device
+from ..context import current_context, resolve_device
+from ..ndarray import NDArray
+from ..ndarray import ndarray as _nd_mod
 
 __all__ = ["DeferredInitializationError", "Parameter", "ParameterDict",
            "shape_is_known"]
@@ -144,16 +150,22 @@ class Parameter:
                              ".initialize()" % self.name)
 
     def data(self):
+        """The value as an NDArray over the parameter's tensor."""
         self._check_initialized()
-        return self._data
+        return NDArray(self._data)
 
     def grad(self):
-        """The gradient of the last backward (zeros before the first)."""
+        """The gradient of the last backward as an NDArray over it
+        (zeros before the first)."""
         self._check_initialized()
         if self._grad_req == "null":
             raise MXNetError("parameter %s has grad_req='null'" % self.name)
         g = self._data.grad
-        return torch.zeros_like(self._data) if g is None else g
+        return NDArray(torch.zeros_like(self._data) if g is None else g)
+
+    def _reduce(self):
+        """The value to save."""
+        return self.data()
 
     @torch.no_grad()
     def set_data(self, data):
@@ -161,6 +173,7 @@ class Parameter:
         taking parameter is overwritten in place (its tensor stays the
         one the optimizer and autograd hold); an auxiliary one is
         rebound."""
+        data = _as_tensor(data)
         if self._data is None:
             if self._deferred_init is None:
                 raise MXNetError("parameter %s not initialized" % self.name)
@@ -175,6 +188,32 @@ class Parameter:
         else:
             self._data.copy_(data)
 
+    @torch.no_grad()
+    def _load(self, data, ctx=None, cast_dtype=False):
+        """Take a loaded value.  An initialized parameter goes through
+        :meth:`set_data`; one not yet allocated takes the value's shape
+        and lands on ``ctx``, else on the device its deferred
+        initialization recorded, else on the current context, at its
+        declared dtype (the value's own with ``cast_dtype``)."""
+        data = _as_tensor(data)
+        if self._data is not None:
+            self.set_data(data)
+            return
+        if isinstance(ctx, (list, tuple)):
+            ctx = ctx[0]
+        if ctx is not None:
+            device = resolve_device(ctx)
+        elif self._deferred_init is not None:
+            device = self._deferred_init[1]
+        else:
+            device = current_context().torch_device()
+        if cast_dtype:
+            self.dtype = data.dtype
+        self._shape = tuple(data.shape)
+        self._deferred_init = None
+        self._data = self._wrap(data.detach().to(device, self.dtype,
+                                                 copy=True))
+
     def cast(self, dtype):
         self.dtype = _dtype(dtype)
         if self._data is not None:
@@ -183,6 +222,15 @@ class Parameter:
     def __repr__(self):
         return "Parameter %s (shape=%s, dtype=%s)" % (
             self.name, self._shape, self.dtype)
+
+
+def _as_tensor(data):
+    """A tensor from an NDArray, a tensor or an array-like."""
+    if isinstance(data, NDArray):
+        return data._data
+    if isinstance(data, torch.Tensor):
+        return data
+    return torch.from_numpy(np.array(data, copy=True))
 
 
 class ParameterDict:
@@ -242,3 +290,32 @@ class ParameterDict:
         for p in self.values():
             p.initialize(None, device, default, force_reinit=force_reinit,
                          generator=generator)
+
+    def save(self, filename, strip_prefix=""):
+        """Write every parameter to a ``.params`` file under its full
+        name, less ``strip_prefix``."""
+        arg = {}
+        for p in self.values():
+            name = p.name
+            if strip_prefix and name.startswith(strip_prefix):
+                name = name[len(strip_prefix):]
+            arg[name] = p._reduce()
+        _nd_mod.save(filename, arg)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        """Set parameters from a ``.params`` file written by
+        :meth:`save` (names prefixed with ``restore_prefix``)."""
+        loaded = _nd_mod.load_tensors(filename)
+        if restore_prefix:
+            loaded = {restore_prefix + k: v for k, v in loaded.items()}
+        if not allow_missing:
+            for name in self.keys():
+                if name not in loaded:
+                    raise MXNetError("parameter %s missing from file" % name)
+        for name, data in loaded.items():
+            if name not in self._params:
+                if not ignore_extra:
+                    raise MXNetError("unknown parameter %s in file" % name)
+                continue
+            self._params[name]._load(data, ctx, cast_dtype=True)

@@ -12,6 +12,10 @@ init_trainer`), ``step`` folds ``1 / loss_scale`` into ``rescale_grad``
 (unless :func:`~mxnet_tpu_torch.amp.unscale` already divided the
 gradients), checks every gradient for overflow, updates the scale, and
 on overflow skips the whole update.
+
+``save_states``/``load_states`` write and read the optimizer state blob
+of :meth:`~mxnet_tpu_torch.optimizer.Updater.get_states`; the write is
+atomic (:func:`mxnet_tpu_torch.checkpoint.atomic_write_bytes`).
 """
 from __future__ import annotations
 
@@ -88,3 +92,30 @@ class Trainer:
                 self._updater(i, p._data.grad, p._data)
             if p.grad_req == "write":
                 p._data.grad = None
+
+    def get_states(self):
+        """Optimizer state as an opaque bytes blob (what
+        ``CheckpointManager`` stores for the ``trainer`` item)."""
+        return self._updater.get_states(dump_optimizer=False)
+
+    def set_states(self, states):
+        """Install a :meth:`get_states` blob; each state lands on its
+        parameter's device at its parameter's dtype."""
+        placement = {}
+        for i, p in enumerate(self._params):
+            if p._data is not None:
+                placement[i] = (p._data.device, p._data.dtype)
+            elif p._deferred_init is not None:
+                placement[i] = (p._deferred_init[1], p.dtype)
+        self._updater.set_states(states, placement)
+
+    def save_states(self, fname):
+        """Write the optimizer state blob to ``fname`` atomically
+        (temporary file, fsync, rename): a crash mid-write leaves the
+        old file."""
+        from ..checkpoint.core import atomic_write_bytes
+        atomic_write_bytes(fname, self.get_states())
+
+    def load_states(self, fname):
+        with open(fname, "rb") as f:
+            self.set_states(f.read())

@@ -1,10 +1,12 @@
 """``mx.nd``: the imperative NDArray API (counterpart of
-``mxnet_tpu/ndarray``).  ``linalg``, ``contrib``, ``sparse`` and
-``save``/``load`` are not ported yet."""
+``mxnet_tpu/ndarray``), with ``save``/``load`` of the ``.params``
+container.  ``linalg``, ``contrib`` and ``sparse`` are not ported
+yet."""
 import sys as _sys
 
 from .ndarray import (NDArray, arange, array, concatenate, empty, full,
-                      invoke, moveaxis, ones, onehot_encode, waitall, zeros)
+                      invoke, load, moveaxis, ones, onehot_encode, save,
+                      waitall, zeros)
 from . import register as _register
 from . import random  # noqa: F401
 

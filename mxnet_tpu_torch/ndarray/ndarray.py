@@ -19,10 +19,13 @@ table (:mod:`mxnet_tpu_torch.ops.table`).
   becomes float32 and int64 int32, and so do op results.
 - With no ``ctx``, arrays are made on :func:`~..context.current_context`,
   the card unless a ``with mx.cpu():`` scope says otherwise; without
-  CUDA that raises.  ``save``/``load`` are not ported yet.
+  CUDA that raises.
+- :func:`save` and :func:`load` read and write MXNet's ``.params``
+  container, byte for byte the JAX package's file.
 """
 from __future__ import annotations
 
+import struct
 import weakref
 
 import numpy as np
@@ -34,8 +37,8 @@ from ..context import Context, current_context
 from ..ops.table import OpSpec, canonical, lookup, torch_dtype
 
 __all__ = ["NDArray", "arange", "array", "concatenate", "empty", "full",
-           "invoke", "moveaxis", "ones", "onehot_encode", "waitall",
-           "zeros"]
+           "invoke", "load", "moveaxis", "ones", "onehot_encode", "save",
+           "waitall", "zeros"]
 
 _NP_DTYPES = {torch.float32: np.float32, torch.float16: np.float16,
               torch.float64: np.float64, torch.int32: np.int32,
@@ -647,3 +650,137 @@ def onehot_encode(indices, out):
 
 def concatenate(arrays, axis=0):
     return invoke("Concat", list(arrays), {"dim": axis})
+
+
+# ----------------------------------------------------------------------
+# Serialization: MXNet's .params container (magic numbers
+# kMXAPINDArrayListMagic=0x112 and NDARRAY_V2_MAGIC=0xF993FAC9, the
+# layout of ``mxnet_tpu/ndarray/ndarray.py :: save``).  bfloat16 has the
+# JAX package's flag 100 and is stored as its raw 16-bit patterns.
+# ----------------------------------------------------------------------
+
+_LIST_MAGIC = 0x112
+_ND_MAGIC = 0xF993FAC9
+_BF16_FLAG = 100
+_FLAG_TO_NP = {0: np.dtype("float32"), 1: np.dtype("float64"),
+               2: np.dtype("float16"), 3: np.dtype("uint8"),
+               4: np.dtype("int32"), 5: np.dtype("int8"),
+               6: np.dtype("int64")}
+_NP_TO_FLAG = {v: k for k, v in _FLAG_TO_NP.items()}
+
+
+def _host_array(arr):
+    """``(flag, C-contiguous numpy array)`` of an NDArray, a tensor or
+    a numpy array; bfloat16 comes back as its uint16 bit patterns."""
+    if isinstance(arr, NDArray):
+        arr = arr._data
+    if isinstance(arr, torch.Tensor):
+        t = arr.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.contiguous().view(torch.int16)
+            return _BF16_FLAG, t.cpu().numpy().view(np.uint16)
+        a = t.cpu().numpy()
+    else:
+        a = np.asarray(arr)
+        if a.dtype.name == "bfloat16":      # ml_dtypes, as JAX gives it
+            return _BF16_FLAG, np.array(a, order="C").view(np.uint16)
+    try:
+        flag = _NP_TO_FLAG[a.dtype]
+    except KeyError:
+        raise MXNetError("save: dtype %s has no .params flag" % a.dtype) \
+            from None
+    # np.require, unlike ascontiguousarray, keeps a 0-d array 0-d
+    return flag, np.require(a, requirements="C")
+
+
+def _save_one(f, arr):
+    flag, a = _host_array(arr)
+    f.write(struct.pack("<IiI", _ND_MAGIC, 0, a.ndim))  # dense storage
+    f.write(struct.pack("<%dq" % a.ndim, *a.shape))
+    f.write(struct.pack("<iii", 1, 0, flag))            # cpu(0), dtype
+    f.write(memoryview(a.reshape(-1)).cast("B"))
+
+
+def save(fname, data):
+    """Write NDArrays, tensors or host numpy arrays -- a list or a
+    ``{name: array}`` dict, or one NDArray or tensor -- to ``fname`` in
+    the ``.params`` format.  The file is written in place; state
+    checkpoints go through :func:`mxnet_tpu_torch.checkpoint.commit` for
+    torn-write safety."""
+    if isinstance(data, (NDArray, torch.Tensor)):
+        data, names = [data], []
+    elif isinstance(data, dict):
+        names = list(data.keys())
+        data = [data[k] for k in names]
+    else:
+        data, names = list(data), []
+    with open(fname, "wb") as f:
+        f.write(struct.pack("<QQQ", _LIST_MAGIC, 0, len(data)))
+        for arr in data:
+            _save_one(f, arr)
+        f.write(struct.pack("<Q", len(names)))
+        for n in names:
+            b = n.encode("utf-8")
+            f.write(struct.pack("<Q", len(b)))
+            f.write(b)
+
+
+def _read(f, fmt):
+    size = struct.calcsize(fmt)
+    raw = f.read(size)
+    if len(raw) != size:
+        raise MXNetError("truncated .params file")
+    return struct.unpack(fmt, raw)
+
+
+def _load_one(f):
+    magic, _stype, ndim = _read(f, "<IiI")
+    if magic != _ND_MAGIC:
+        raise MXNetError("bad NDArray magic 0x%x" % magic)
+    shape = _read(f, "<%dq" % ndim)
+    _dev_type, _dev_id, flag = _read(f, "<iii")
+    if flag == _BF16_FLAG:
+        dtype = np.dtype("int16")
+    elif flag in _FLAG_TO_NP:
+        dtype = _FLAG_TO_NP[flag]
+    else:
+        raise MXNetError("unknown .params dtype flag %d" % flag)
+    a = np.empty(shape, dtype)
+    if f.readinto(memoryview(a.reshape(-1)).cast("B")) != a.nbytes:
+        raise MXNetError("truncated .params file")
+    t = torch.from_numpy(a)
+    return t.view(torch.bfloat16) if flag == _BF16_FLAG else t
+
+
+def load_tensors(fname):
+    """The arrays of a ``.params`` file as CPU tensors at the file's
+    dtypes: a ``{name: tensor}`` dict, or a list when the file names
+    none."""
+    with open(fname, "rb") as f:
+        magic, _reserved, count = _read(f, "<QQQ")
+        if magic != _LIST_MAGIC:
+            raise MXNetError("bad .params magic 0x%x" % magic)
+        arrays = [_load_one(f) for _ in range(count)]
+        nnames, = _read(f, "<Q")
+        names = []
+        for _ in range(nnames):
+            ln, = _read(f, "<Q")
+            raw = f.read(ln)
+            if len(raw) != ln:
+                raise MXNetError("truncated .params file")
+            names.append(raw.decode("utf-8"))
+    if names:
+        return dict(zip(names, arrays))
+    return arrays
+
+
+def load(fname, ctx=None):
+    """Load a ``.params`` file as NDArrays on ``ctx`` (the current
+    context by default); 64-bit arrays become 32-bit, as ``array``
+    makes them."""
+    ctx = _resolve_ctx(ctx)
+    loaded = load_tensors(fname)
+    if isinstance(loaded, dict):
+        return {k: NDArray(_place(canonical(t), ctx))
+                for k, t in loaded.items()}
+    return [NDArray(_place(canonical(t), ctx)) for t in loaded]

@@ -3,6 +3,11 @@ the base :class:`Optimizer`, :class:`SGD` with momentum, :class:`LARS`,
 :class:`LAMB`, the :class:`Updater` that keeps per-parameter state,
 ``create`` and ``register``.
 
+``Updater.get_states`` pickles the per-parameter state in the JAX
+package's payload (``{index: ("nd", numpy) | ("tuple", [...]) |
+("raw", value)}``), so a blob written by either package loads in the
+other.
+
 ``update(index, weight, grad, state)`` counts the update and then
 applies it in place through :mod:`mxnet_tpu_torch.ops.optimizer_ops`;
 ``_apply`` is the update without the count, which ``TrainStep`` calls
@@ -11,6 +16,9 @@ by each parameter's ``lr_mult``/``wd_mult`` through ``param_dict``.
 """
 from __future__ import annotations
 
+import pickle
+
+import numpy as np
 import torch
 
 from ..base import MXNetError
@@ -202,6 +210,73 @@ class Updater:
     def __call__(self, index, grad, weight):
         self.optimizer.update(index, weight, grad,
                               self.ensure_state(index, weight))
+
+    def get_states(self, dump_optimizer=False):
+        """The states as a pickled blob of host copies, with the
+        optimizer when ``dump_optimizer``.  A bf16 state is stored as
+        ml_dtypes' bfloat16, as the JAX package's ``asnumpy`` gives it,
+        or as float32 where ml_dtypes is not installed."""
+        def to_np(s):
+            if isinstance(s, torch.Tensor):
+                return ("nd", _state_to_numpy(s.detach()))
+            if isinstance(s, (tuple, list)):
+                return ("tuple", [to_np(x) for x in s])
+            return ("raw", s)
+        payload = {k: to_np(v) for k, v in self.states.items()}
+        if dump_optimizer:
+            return pickle.dumps((payload, self.optimizer))
+        return pickle.dumps(payload)
+
+    def set_states(self, states, placement=None):
+        """Replace the states with those of a :meth:`get_states` blob
+        (this program's or the JAX package's: unpickle only such
+        blobs).  ``placement`` maps an index to its parameter's
+        ``(device, dtype)``: each floating state of that index goes to
+        the device at the parameter's dtype (every state is made like
+        its weight), so a bf16 state stored as float32 comes back bf16.
+        An index without placement lands on the CPU as stored."""
+        data = pickle.loads(states)
+        if isinstance(data, tuple) and len(data) == 2 and \
+                isinstance(data[1], Optimizer):
+            payload, self.optimizer = data
+        else:
+            payload = data
+        placement = placement or {}
+
+        def from_np(s, where):
+            kind, val = s
+            if kind == "nd":
+                t = _state_from_numpy(val)
+                if where is None:
+                    return t
+                device, dtype = where
+                if t.is_floating_point():
+                    return t.to(device, dtype)
+                return t.to(device)
+            if kind == "tuple":
+                return tuple(from_np(x, where) for x in val)
+            return val
+        self.states = {k: from_np(v, placement.get(k))
+                       for k, v in payload.items()}
+
+
+def _state_to_numpy(t):
+    if t.dtype != torch.bfloat16:
+        return t.cpu().numpy()
+    try:
+        import ml_dtypes
+    except ImportError:
+        return t.float().cpu().numpy()
+    bits = t.contiguous().view(torch.int16).cpu().numpy()
+    return bits.view(ml_dtypes.bfloat16).copy()
+
+
+def _state_from_numpy(a):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":      # ml_dtypes
+        bits = np.array(a, order="C").view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
 
 
 def get_updater(optimizer):

@@ -1,36 +1,192 @@
-"""Multi-tenant model registry: name -> generative servable (counterpart
-of ``mxnet_tpu/serving/registry.py``; the fixed-shape ``register`` path
-and its compile cache are not ported yet).
+"""Multi-tenant model registry: sources -> servable handles (counterpart
+of ``mxnet_tpu/serving/registry.py``).
+
+A :class:`Servable` is one deployed fixed-shape model: a
+:class:`~.executor.BucketExecutorPool` (warmed at registration) behind a
+:class:`~.batcher.DynamicBatcher` with its own worker thread and bounded
+queue.  A generative servable (:mod:`.decode`) serves an autoregressive
+decoder.  The :class:`ModelRegistry` owns many of them by name.
+
+Sources:
+
+- **Gluon block** (``block=``): the block itself, run eagerly in
+  inference mode on the device its parameters lie on;
+- **checkpoint** (``checkpoint=`` with ``block=``): parameters restored
+  from a manifest-verified
+  :class:`~mxnet_tpu_torch.checkpoint.CheckpointManager` step (the
+  newest intact one by default) into the block, then served as a block;
+- ``register_generative(params=)`` or ``(checkpoint=)``: a decoder's
+  weights from a dict or from a checkpoint's ``params`` item.
+
+``symbol=`` and ``onnx=`` are not ported yet.
 
 ::
 
     reg = ModelRegistry()
-    reg.register_generative("gpt", model, params=params)
-    tokens = reg.generate("gpt", [3, 7, 1], 16).tokens()
+    reg.register("resnet", block=net, checkpoint=root,
+                 input_shape=(224, 224, 3))
+    y = reg.infer("resnet", img)           # batched with other callers
     reg.shutdown(drain=True)
 """
 from __future__ import annotations
 
 import threading
 
+import torch
+
+from .. import autograd
 from ..base import MXNetError
 from ..context import resolve_device
-from .batcher import ServableClosed
+from ..ndarray import NDArray
+from .batcher import DynamicBatcher, ServableClosed
+from .executor import BucketExecutorPool
 
-__all__ = ["ModelRegistry"]
+__all__ = ["ModelRegistry", "Servable"]
+
+
+def _default_buckets():
+    from .. import env as _env
+    spec = _env.get("MXNET_TPU_SERVING_BUCKETS")
+    try:
+        return tuple(int(tok) for tok in str(spec).split(",") if tok)
+    except ValueError as e:
+        raise MXNetError("MXNET_TPU_SERVING_BUCKETS=%r is not a "
+                         "comma-separated int list" % (spec,)) from e
+
+
+def _manager(checkpoint):
+    from ..checkpoint import CheckpointManager
+    return checkpoint if isinstance(checkpoint, CheckpointManager) \
+        else CheckpointManager(checkpoint)
+
+
+class Servable:
+    """One deployed fixed-shape model: executor pool + dynamic
+    batcher."""
+
+    def __init__(self, name, pool, batcher, source):
+        self.name = name
+        self.source = source
+        self._pool = pool
+        self._batcher = batcher
+
+    # -- client surface -------------------------------------------------
+    def submit(self, x, timeout=None):
+        """Queue one sample; returns a ``concurrent.futures.Future``."""
+        return self._batcher.submit(x, timeout=timeout)
+
+    def infer(self, x, timeout=None):
+        """Blocking single-sample inference: submit + wait.  The
+        ``timeout`` bounds the whole round trip."""
+        return self.submit(x, timeout=timeout).result(timeout=timeout)
+
+    # -- introspection --------------------------------------------------
+    @property
+    def buckets(self):
+        return self._pool.buckets
+
+    @property
+    def input_shape(self):
+        return self._pool.input_shape
+
+    @property
+    def dtype(self):
+        return self._pool.dtype
+
+    def queue_depth(self):
+        return self._batcher.queue_depth()
+
+    @property
+    def queue_capacity(self):
+        return self._batcher.max_queue
+
+    def stats(self):
+        """The batcher's counts (:meth:`DynamicBatcher.stats`)."""
+        return self._batcher.stats()
+
+    @property
+    def closed(self):
+        return self._batcher.closed
+
+    def close(self, drain=True):
+        self._batcher.close(drain=drain)
+
+    def __repr__(self):
+        return "Servable(%r, source=%r, buckets=%r, input=%r)" % (
+            self.name, self.source, self.buckets, self.input_shape)
 
 
 class ModelRegistry:
-    """Name -> servable store; the multi-tenant serving surface."""
+    """Name -> servable store; the multi-tenant serving surface.
+
+    ::
+
+        reg = ModelRegistry()
+        reg.register("lenet", block=net, input_shape=(1, 28, 28))
+        y = reg.infer("lenet", x)          # dynamically batched
+        reg.shutdown(drain=True)
+    """
 
     def __init__(self):
         self._lock = threading.Lock()
         self._servables = {}
 
     # -- registration ---------------------------------------------------
+    def register(self, name, block=None, symbol=None, params=None,
+                 onnx=None, checkpoint=None, step=None, input_shape=None,
+                 dtype="float32", input_name=None, buckets=None,
+                 max_wait_ms=None, max_queue=None, warmup=True):
+        """Load a model from one source into a warm servable handle.
+
+        ``block`` is the source (``checkpoint`` composes with it: the
+        newest intact step, or ``step``, is restored into the block
+        first).  ``input_shape`` is the per-sample shape (no batch dim)
+        and is required.  The forward runs on the device the block's
+        parameters lie on.  Registration runs every bucket once, so no
+        request pays a first run; re-registering a name drains and
+        replaces the previous servable.
+        """
+        if input_shape is None:
+            raise MXNetError("serving.register needs input_shape "
+                             "(per-sample, no batch dim)")
+        if checkpoint is not None and block is None:
+            raise MXNetError("checkpoint= needs block= for the "
+                             "architecture (a manifest stores params)")
+        if sum(s is not None for s in (block, symbol, onnx)) != 1:
+            raise MXNetError("serving.register needs exactly one of "
+                             "block= / symbol= / onnx=")
+        if block is None:
+            raise MXNetError("serving.register: %s= is not yet ported; "
+                             "pass block=" % ("onnx" if onnx is not None
+                                              else "symbol"))
+        if checkpoint is not None:
+            self._restore_checkpoint(block, checkpoint, step)
+            source = "checkpoint"
+        else:
+            source = "block"
+        fn, device = self._from_block(block, input_shape, dtype)
+        buckets = tuple(buckets) if buckets else _default_buckets()
+        pool = BucketExecutorPool(fn, input_shape, dtype, buckets, device)
+        if warmup:
+            pool.warmup()
+        batcher = DynamicBatcher(pool, label=name, max_wait_ms=max_wait_ms,
+                                 max_queue=max_queue)
+        servable = Servable(name, pool, batcher, source)
+        self._install(name, servable)
+        return servable
+
+    def _install(self, name, servable):
+        with self._lock:
+            old = self._servables.get(name)
+            self._servables[name] = servable
+        if old is not None:
+            # drain=True keeps serving (or, for a decoder, STEPPING) the
+            # old servable until everything it accepted has finished
+            old.close(drain=True)
+
     def register_generative(self, name, model, params=None,
-                            checkpoint=None, prefill_buckets=None,
-                            decode_buckets=None,
+                            checkpoint=None, step=None,
+                            prefill_buckets=None, decode_buckets=None,
                             block_size=None, num_blocks=None,
                             max_queue=None, warmup=True,
                             kv_dtype="float32", device=None):
@@ -39,19 +195,24 @@ class ModelRegistry:
         ``model`` is the pure-function spec
         (:class:`~mxnet_tpu_torch.serving.decode.TinyGPT`-shaped);
         weights come from ``params=``, a flat name->array dict (tensors
-        or numpy arrays), moved to ``device`` (CUDA unless ``"cpu"``).
-        Registration warms every prefill and decode bucket, then
-        installs; re-registering a name swaps mid-decode safely -- the
-        old engine drains its half-generated sequences to completion
+        or numpy arrays), or from ``checkpoint=``, a
+        :class:`~mxnet_tpu_torch.checkpoint.CheckpointManager` (or its
+        root) whose step (the newest intact one unless ``step``) carries
+        a ``params`` item.  They are moved to ``device`` (CUDA unless
+        ``"cpu"``).  Registration warms every prefill and decode bucket,
+        then installs; re-registering a name swaps mid-decode safely --
+        the old engine drains its half-generated sequences to completion
         while the replacement takes new requests.
         """
         from .decode.convert import params_from_numpy
         from .decode.engine import DecodeEngine, GenerativeServable
+        if (params is None) == (checkpoint is None):
+            raise MXNetError("register_generative needs exactly one "
+                             "of params= / checkpoint=")
         if checkpoint is not None:
-            raise MXNetError("register_generative: checkpoint= is not yet "
-                             "ported; pass params=")
-        if params is None:
-            raise MXNetError("register_generative needs params=")
+            params = {k: v._data if isinstance(v, NDArray) else v
+                      for k, v in self._restore_params(checkpoint,
+                                                       step).items()}
         dev = resolve_device(device)
         engine = DecodeEngine(model, params_from_numpy(params, dev),
                               prefill_buckets=prefill_buckets,
@@ -64,14 +225,60 @@ class ModelRegistry:
             engine.warmup()
         engine.start()
         servable = GenerativeServable(name, engine)
-        with self._lock:
-            old = self._servables.get(name)
-            self._servables[name] = servable
-        if old is not None:
-            # drain=True keeps STEPPING the old engine until every
-            # half-generated sequence finishes on the old weights
-            old.close(drain=True)
+        self._install(name, servable)
         return servable
+
+    @staticmethod
+    def _restore_params(checkpoint, step):
+        mgr = _manager(checkpoint)
+        ckpt = mgr.restore(step=step)
+        if ckpt is None:
+            raise MXNetError("serving: no intact checkpoint under %r"
+                             % mgr.root)
+        if "params" not in ckpt.items:
+            raise MXNetError(
+                "serving: checkpoint step %d has no 'params' item "
+                "(items: %s)" % (ckpt.step, sorted(ckpt.items)))
+        return ckpt.items["params"]
+
+    @staticmethod
+    def _restore_checkpoint(block, checkpoint, step):
+        mgr = _manager(checkpoint)
+        ckpt = mgr.restore_training(block, step=step)
+        if ckpt is None:
+            raise MXNetError("serving: no intact checkpoint under %r"
+                             % mgr.root)
+        return ckpt
+
+    @staticmethod
+    def _from_block(block, input_shape, dtype):
+        """``(fn, device)`` of a block: ``fn(x) -> tuple(outputs)``, and
+        the device its parameters lie on.  Parameters whose shape is
+        still deferred are sized by one probe forward (outside inference
+        mode, so the new parameters can take gradients later)."""
+        from ..gluon.block import HybridBlock
+        if not isinstance(block, HybridBlock):
+            raise MXNetError("serving: block= expects a HybridBlock")
+        params = list(block._all_params())
+        device = next((p._data.device for p in params
+                       if p._data is not None), None)
+        if device is None:
+            device = next((p._deferred_init[1] for p in params
+                           if p._deferred_init is not None), None)
+        if device is None:
+            raise MXNetError("serving: initialize the block first")
+        if any(p._data is None for p in params):
+            probe = torch.zeros((1,) + tuple(input_shape),
+                                dtype=getattr(torch, str(dtype)),
+                                device=device)
+            with autograd.pause():
+                block(probe)
+
+        def fn(x):
+            out = block(x)
+            return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+        return fn, device
 
     # -- lookup / client ------------------------------------------------
     def servable(self, name):
@@ -85,6 +292,28 @@ class ModelRegistry:
     def names(self):
         with self._lock:
             return sorted(self._servables)
+
+    def submit(self, name, x, timeout=None):
+        """Queue one sample on the named servable.  A concurrent
+        re-register can close the handle between the lookup and the
+        submit; the replacement is installed by then, so the lookup
+        retries against it."""
+        for _ in range(8):
+            s = self.servable(name)
+            try:
+                return s.submit(x, timeout=timeout)
+            except ServableClosed:
+                with self._lock:
+                    cur = self._servables.get(name)
+                if cur is None or cur is s:
+                    raise               # really closed, not swapped
+        raise ServableClosed(
+            "serving: servable %r kept closing mid-submit (flapping "
+            "re-registration?)" % name)
+
+    def infer(self, name, x, timeout=None):
+        return self.submit(name, x, timeout=timeout).result(
+            timeout=timeout)
 
     def generate(self, name, prompt, max_new_tokens, eos_id=None,
                  timeout=None):

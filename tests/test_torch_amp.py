@@ -115,9 +115,9 @@ def test_fp32_params_keep_fp32_gradients():
         assert out.dtype == torch.bfloat16
         loss.sum().backward()
     for p in net.collect_params().values():
-        assert p.data().dtype == torch.float32
-        assert p.grad().dtype == torch.float32
-        assert float(p.grad().abs().sum()) > 0
+        assert p.data()._data.dtype == torch.float32
+        assert p.grad()._data.dtype == torch.float32
+        assert float(p.grad()._data.abs().sum()) > 0
 
 
 def test_init_rejects_a_bad_dtype_and_scope_restores():
@@ -171,13 +171,13 @@ def test_fp16_trainer_skips_on_overflow_and_halves_the_scale():
         loss = gluon.loss.L2Loss()(net(x), torch.zeros(8, 4))
     loss.sum().backward()
     p0 = list(net.collect_params().values())[0]
-    before = {p.name: p.data().detach().clone()
+    before = {p.name: p.data()._data.detach().clone()
               for p in net.collect_params().values()}
-    p0.data().grad.mul_(float("inf"))
+    p0.data()._data.grad.mul_(float("inf"))
     tr.step(8)
     for p in net.collect_params().values():
-        assert torch.equal(before[p.name], p.data().detach())
-        assert p.data().grad is None      # "write" gradients cleared
+        assert torch.equal(before[p.name], p.data()._data.detach())
+        assert p.data()._data.grad is None      # "write" gradients cleared
     assert tr._amp_loss_scaler.loss_scale == 2.0
 
 
@@ -187,7 +187,7 @@ def test_scale_loss_scales_the_gradients():
                           amp.LossScaler(init_scale=8.0))
     x, _y = _xy(n=4)
     loss_fn = gluon.loss.L2Loss()
-    w = list(net.collect_params().values())[0].data()
+    w = list(net.collect_params().values())[0].data()._data
     with autograd.record():
         loss = loss_fn(net(x), torch.zeros(4, 4))
         with amp.scale_loss(loss, tr) as scaled:
@@ -222,7 +222,8 @@ def test_scaled_step_matches_the_unscaled_step(use_unscale):
         else:
             loss.sum().backward()
         tr.step(8)
-        return [p.data().detach() for p in net.collect_params().values()]
+        return [p.data()._data.detach()
+                for p in net.collect_params().values()]
 
     for a, b in zip(run(False), run(True)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
@@ -238,7 +239,7 @@ def test_train_step_with_a_scaler_skips_and_backs_off():
     x, y = _xy(2)
     step(x, y)
     assert tr._amp_loss_scaler.loss_scale == 8.0
-    before = [p.data().detach().clone()
+    before = [p.data()._data.detach().clone()
               for p in net.collect_params().values()]
     bad = x.clone()
     bad[0, 0] = float("inf")
@@ -246,7 +247,7 @@ def test_train_step_with_a_scaler_skips_and_backs_off():
     assert step.last_step_finite is False
     assert tr._amp_loss_scaler.loss_scale == 4.0
     for a, p in zip(before, net.collect_params().values()):
-        assert torch.equal(a, p.data().detach())
+        assert torch.equal(a, p.data()._data.detach())
 
 
 def test_train_step_with_a_scaler_matches_the_unscaled_updates():
@@ -259,7 +260,7 @@ def test_train_step_with_a_scaler_matches_the_unscaled_updates():
         step = TrainStep(net, gluon.loss.L2Loss(), tr)
         x, y = _xy(3, n=16)
         losses = [float(step(x, y)) for _ in range(3)]
-        return losses, [p.data().detach()
+        return losses, [p.data()._data.detach()
                         for p in net.collect_params().values()]
 
     (la, a), (lb, b) = run(False), run(True)

@@ -219,14 +219,14 @@ def test_parameter_write_gradient_is_overwritten_by_each_backward():
         with autograd.record():
             loss = net(x).sum()
         loss.backward()
-    np.testing.assert_allclose(net.weight.grad().numpy(),
+    np.testing.assert_allclose(net.weight.grad()._data.numpy(),
                                np.full((2, 3), 4.0))
     net.weight.grad_req = "add"
     for _ in range(2):
         with autograd.record():
             loss = net(x).sum()
         loss.backward()
-    np.testing.assert_allclose(net.weight.grad().numpy(),
+    np.testing.assert_allclose(net.weight.grad()._data.numpy(),
                                np.full((2, 3), 8.0))
 
 

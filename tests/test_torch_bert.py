@@ -196,7 +196,7 @@ def test_lamb_train_steps_match_the_jax_package(jax_run):
     np.testing.assert_allclose([float(t) for t in losses],
                                jax_run["losses"], rtol=1e-5)
     assert jax_run["losses"][-1] < jax_run["losses"][0]
-    got = {n[len(net.prefix):]: p.data().detach().numpy()
+    got = {n[len(net.prefix):]: p.data()._data.detach().numpy()
            for n, p in net.collect_params().items()}
     assert sorted(got) == sorted(jax_run["final"])
     for name, w in jax_run["final"].items():

@@ -362,6 +362,67 @@ def test_resnet_train_step_runs_through_the_kernels(cuda):
     assert np.isfinite([first] + losses).all() and losses[-1] < first
 
 
+@pytest.mark.parametrize("bucket", [1, 2, 32])
+def test_bn_relu_apply_at_a_serving_buckets_stem_shape(cuda, bucket):
+    """The forward kernel at the stem site of a ResNet-50 serving
+    bucket (rows = bucket x 112 x 112, 64 channels), in inference: the
+    scale and offset fold the running statistics."""
+    from mxnet_tpu_torch.kernels.registry import dispatch
+    x, scale, offset, y, _dy, _vecs = _bn_case(cuda, bucket * 112 * 112,
+                                                64, torch.float32)
+    f0 = registry.launches("bn_relu_apply")
+    got = dispatch("bn_relu_apply", x, scale, offset)
+    assert registry.launches("bn_relu_apply") == f0 + 1
+    torch.cuda.synchronize()
+    ok, err = _close(got, y, torch.float32)
+    assert ok, err
+
+
+def test_served_resnet_runs_through_the_kernel(cuda, tmp_path,
+                                               monkeypatch):
+    """A narrow NHWC ResNet v1 saved by ``save_training`` and served on
+    the card by ``register(block=, checkpoint=)``: each executor call
+    launches ``bn_relu_apply`` at every one of the 8 fused sites, and
+    every response agrees with the net's own batch-1 forward (TF32
+    off: cuDNN may pick another algorithm per batch size)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.gluon.model_zoo.vision import (BottleneckV1,
+                                                        ResNetV1)
+    from mxnet_tpu_torch.serving import ModelRegistry
+
+    def narrow():
+        return ResNetV1(BottleneckV1, [1, 1, 1, 1], [16, 32, 64, 128, 256],
+                        classes=10, thumbnail=True, layout="NHWC")
+
+    net = narrow()
+    net.initialize(device=cuda, generator=torch.Generator().manual_seed(0))
+    xs = np.random.default_rng(0).standard_normal(
+        (11, 32, 32, 3)).astype(np.float32)
+    with autograd.pause():
+        net(torch.from_numpy(xs[:1]).to(cuda))
+    CheckpointManager(str(tmp_path)).save_training(1, net)
+    fresh = narrow()
+    fresh.initialize(device=cuda)
+    reg = ModelRegistry()
+    try:
+        s = reg.register("r", block=fresh, checkpoint=str(tmp_path),
+                         input_shape=(32, 32, 3), buckets=(1, 2, 4, 8),
+                         max_wait_ms=20)
+        registry.reset_launches()
+        futs = [s.submit(x, timeout=60) for x in xs]
+        got = [f.result(timeout=60) for f in futs]
+        calls = s.stats()["batches"]
+        assert registry.launches("bn_relu_apply") == 8 * calls
+    finally:
+        reg.shutdown(drain=True)
+    with autograd.pause():
+        for x, g in zip(xs, got):
+            want = net(torch.from_numpy(x[None]).to(cuda))[0].cpu().numpy()
+            np.testing.assert_allclose(g, want, rtol=1e-4, atol=1e-5)
+
+
 # -- flash attention -----------------------------------------------------
 
 # relative to the largest output: fp32 sums in another order (the
@@ -834,7 +895,7 @@ def test_resnet_bf16_lars_run_steps_runs_through_the_kernels(cuda):
     assert registry.launch_dtypes("lars_flat") == {"float32": k}
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
     for p in net.collect_params().values():
-        assert p.data().dtype == torch.float32
+        assert p.data()._data.dtype == torch.float32
 
 
 # -- the imperative API on the card ------------------------------------
@@ -914,11 +975,11 @@ def test_ndarray_training_step_on_the_card(cuda):
         with autograd.record():
             loss = loss_fn(net(x), y)
         loss.backward()
-    g = net[2].weight.grad().clone()
+    g = net[2].weight.grad()._data.clone()
     with autograd.record():
         loss_fn(net(x), y).backward()
-    torch.testing.assert_close(net[2].weight.grad(), g)
-    w = net[2].weight.data().clone()
+    torch.testing.assert_close(net[2].weight.grad()._data, g)
+    w = net[2].weight.data()._data.clone()
     gluon.Trainer(net.collect_params(), "sgd",
                   {"learning_rate": 0.1}).step(2)
-    torch.testing.assert_close(net[2].weight.data(), w - 0.1 * g / 2)
+    torch.testing.assert_close(net[2].weight.data()._data, w - 0.1 * g / 2)

@@ -284,16 +284,21 @@ def test_registry_generate_and_surface(registry, params):
 
 def test_registry_takes_numpy_params_and_rejects_bad_sources(registry,
                                                              jax_params,
-                                                             params):
+                                                             params,
+                                                             tmp_path):
     numpy_params = {k: np.asarray(v) for k, v in jax_params.items()}
     registry.register_generative("np", MODEL, params=numpy_params,
                                  device="cpu", **ENGINE_KW)
     assert registry.generate("np", [5, 5, 6], 4).tokens() \
         == _reference(params, [5, 5, 6], 4)
-    with pytest.raises(MXNetError, match="needs params"):
+    with pytest.raises(MXNetError, match="exactly one"):
         registry.register_generative("x", MODEL, device="cpu")
-    with pytest.raises(MXNetError, match="not yet ported"):
-        registry.register_generative("x", MODEL, checkpoint="/nope",
+    with pytest.raises(MXNetError, match="exactly one"):
+        registry.register_generative("x", MODEL, params=numpy_params,
+                                     checkpoint=str(tmp_path),
+                                     device="cpu")
+    with pytest.raises(MXNetError, match="no intact checkpoint"):
+        registry.register_generative("x", MODEL, checkpoint=str(tmp_path),
                                      device="cpu")
 
 

@@ -231,7 +231,7 @@ def test_gluon_fusion_site_trajectory_matches_jax(monkeypatch):
     for (jn, jp), (tn, tp) in zip(jnet.collect_params().items(),
                                   tnet.collect_params().items()):
         assert jn[len(jnet.prefix):] == tn[len(tnet.prefix):]
-        np.testing.assert_allclose(tp.data().detach().numpy(),
+        np.testing.assert_allclose(tp.data()._data.detach().numpy(),
                                    jp.data().asnumpy(), rtol=5e-4,
                                    atol=5e-5, err_msg=tn)
 
@@ -269,8 +269,8 @@ def test_unpaired_channels_first_batchnorm_runs_unfused():
                                b.detach().numpy(), rtol=1e-5, atol=1e-6)
     for p, q in zip(nets[0].collect_params().values(),
                     nets[1].collect_params().values()):
-        np.testing.assert_allclose(p.data().detach().numpy(),
-                                   q.data().detach().numpy(), rtol=1e-5,
+        np.testing.assert_allclose(p.data()._data.detach().numpy(),
+                                   q.data()._data.detach().numpy(), rtol=1e-5,
                                    atol=1e-7)
 
 
@@ -285,7 +285,7 @@ def test_resnet50_v1_nhwc_wires_up():
     assert tuple(out.shape) == (1, 1000)
     params = net.collect_params()
     assert len(params) == 53 * 4 + 53 + 32 + 2     # BN, conv, conv bias, FC
-    n_weights = sum(p.data().numel() for p in params.values()
+    n_weights = sum(p.data()._data.numel() for p in params.values()
                     if p.grad_req != "null")
     assert n_weights == 25_575_912
     w = params[net.prefix + "conv2d0_weight"]
@@ -307,7 +307,7 @@ def test_params_from_numpy_checks_names_and_shapes():
     good = {"dense9_weight": np.ones((3, 2), np.float32),
             "dense9_bias": np.arange(3, dtype=np.float32)}
     params_from_numpy(net, good)
-    np.testing.assert_array_equal(net.bias.data().detach().numpy(),
+    np.testing.assert_array_equal(net.bias.data()._data.detach().numpy(),
                                   [0, 1, 2])
     with pytest.raises(MXNetError, match="missing"):
         params_from_numpy(net, {"dense9_weight": good["dense9_weight"]})
@@ -325,7 +325,7 @@ def test_deferred_init_finishes_at_the_first_forward():
     out = net(torch.ones(2, 5, 3))
     assert tuple(out.shape) == (2, 4)
     assert tuple(net.weight.shape) == (4, 15)
-    assert isinstance(net.weight.data(), torch.nn.Parameter)
+    assert isinstance(net.weight.data()._data, torch.nn.Parameter)
 
 
 def test_initializers_fill_by_name_and_draw_from_the_generator():
@@ -396,7 +396,7 @@ def test_trainer_keeps_write_semantics():
             out = net(torch.ones(1, 1))
         out.sum().backward()
         tr.step(1)
-    assert net.weight.data().item() == pytest.approx(-1.0)
+    assert net.weight.data()._data.item() == pytest.approx(-1.0)
     with pytest.raises(MXNetError, match="kvstore"):
         gluon.Trainer(net.collect_params(), "sgd", kvstore="device")
 
@@ -407,4 +407,4 @@ def test_initialize_raises_without_cuda(monkeypatch):
     with pytest.raises(MXNetError, match="CUDA is not available"):
         net.initialize()
     net.initialize(device="cpu")
-    assert net.weight.data().device.type == "cpu"
+    assert net.weight.data()._data.device.type == "cpu"

@@ -120,9 +120,14 @@ def test_training_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
 def test_env_registry_defaults_and_typed_reads(monkeypatch):
     from mxnet_tpu import env as jax_env
     from mxnet_tpu_torch import env
-    assert len(env.REGISTRY) == 5
+    assert len(env.REGISTRY) == 9
     for name, var in env.REGISTRY.items():
         assert var.default == jax_env.REGISTRY[name].default, name
+        assert var.type is jax_env.REGISTRY[name].type, name
+    for raw, want in (("0", False), ("1", True), ("yes", True)):
+        monkeypatch.setenv("MXNET_TPU_CKPT_ASYNC", raw)
+        assert env.get("MXNET_TPU_CKPT_ASYNC") is want
+        assert jax_env.get("MXNET_TPU_CKPT_ASYNC") is want
     monkeypatch.setenv("MXNET_TPU_SERVING_KV_BLOCK", "32")
     assert env.get("MXNET_TPU_SERVING_KV_BLOCK") == 32
     monkeypatch.setenv("MXNET_TPU_SERVING_KV_BLOCK", "x")

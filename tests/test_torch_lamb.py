@@ -194,14 +194,14 @@ def test_train_step_runs_the_bucket_and_updates_unused_params():
     spec.plain = lambda *a, **k: calls.append(a[0].numel()) or plain(*a,
                                                                        **k)
     try:
-        w_unused = net.unused.weight.data().detach().clone()
+        w_unused = net.unused.weight.data()._data.detach().clone()
         losses = [float(step(x, y)) for _ in range(4)]
     finally:
         spec.plain = plain
-    assert calls == [sum(p.data().numel()
+    assert calls == [sum(p.data()._data.numel()
                          for p in net.collect_params().values())] * 4
     assert losses[-1] < losses[0]
-    np.testing.assert_allclose(net.unused.weight.data().detach().numpy(),
+    np.testing.assert_allclose(net.unused.weight.data().asnumpy(),
                                w_unused.numpy() * (1 - lr) ** 4, rtol=1e-5)
 
 
@@ -241,7 +241,7 @@ def test_train_step_skips_the_bucket_on_nonfinite_gradients():
     x = rng.standard_normal((5, 6)).astype(np.float32)
     y = rng.standard_normal((5, 2)).astype(np.float32)
     step(x, y)
-    weights = [p.data().detach().clone()
+    weights = [p.data()._data.detach().clone()
                for p in net.collect_params().values()]
     states = [tuple(t.clone() for t in s)
               for _i, s in sorted(tr._updater.states.items())]
@@ -251,6 +251,6 @@ def test_train_step_skips_the_bucket_on_nonfinite_gradients():
     assert step.last_step_finite is False
     assert tr.optimizer.num_update == count + 1
     for a, p in zip(weights, net.collect_params().values()):
-        assert torch.equal(a, p.data().detach())
+        assert torch.equal(a, p.data()._data.detach())
     for a, (_i, s) in zip(states, sorted(tr._updater.states.items())):
         assert all(torch.equal(u, v) for u, v in zip(a, s))

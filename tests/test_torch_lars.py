@@ -216,7 +216,7 @@ def _batches(k=3, seed=0):
 
 
 def _snapshot(net):
-    return {p.name[len(net.prefix):]: p.data().detach().clone()
+    return {p.name[len(net.prefix):]: p.data()._data.detach().clone()
             for p in net.collect_params().values()}
 
 
@@ -243,7 +243,7 @@ def test_train_step_runs_the_lars_bucket(monkeypatch):
     assert seen == [[n.endswith(("bias", "gamma", "beta"))
                      for n in names]] * 4
     assert any(seen[0]) and not all(seen[0])
-    assert calls == [sum(p.data().numel() for p in step._trainer._params
+    assert calls == [sum(p.data()._data.numel() for p in step._trainer._params
                          if p.grad_req != "null")] * 4
     assert losses[-1] < losses[0]
 

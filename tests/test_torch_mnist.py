@@ -113,7 +113,7 @@ def test_example_net_trains_like_the_jax_package(jax_reference, hybrid):
         losses = _train(mx, autograd, net, x, y)
     np.testing.assert_allclose(losses, jlosses, rtol=1e-5)
     assert losses[-1] < losses[0]
-    got = {n: p.data().detach().numpy()
+    got = {n: p.data()._data.detach().numpy()
            for n, p in net._collect_params_with_prefix().items()}
     assert sorted(got) == sorted(want) and len(got) == 8
     assert sum(v.size for v in got.values()) == 1199882
@@ -141,7 +141,7 @@ def test_ndarray_loop_matches_the_tensor_loop():
             loss.backward() if isinstance(loss, mx.nd.NDArray) \
                 else loss.sum().backward()
             trainer.step(len(x))
-        finals.append([p.data().detach().numpy().copy()
+        finals.append([p.data()._data.detach().numpy().copy()
                        for p in net.collect_params().values()])
     for a, b in zip(*finals):
         np.testing.assert_array_equal(a, b)

@@ -106,7 +106,7 @@ def _port_run(arrays, bf16):
     x, y = _batches()
     with _amp_scope(amp, bf16):
         losses = step.run_steps(x, y)
-    final = {p.name[len(net.prefix):]: p.data().detach().numpy()
+    final = {p.name[len(net.prefix):]: p.data()._data.detach().numpy()
              for p in net.collect_params().values()}
     return losses, final, tr.optimizer
 

@@ -54,7 +54,7 @@ def _port_step(net):
 
 
 def _values(net):
-    return {p.name[len(net.prefix):]: p.data().detach().numpy().copy()
+    return {p.name[len(net.prefix):]: p.data()._data.detach().numpy().copy()
             for p in net.collect_params().values()}
 
 
@@ -111,7 +111,7 @@ def test_deferred_shapes_materialize_in_predict_mode():
     known.initialize(device="cpu")
     fresh = _port_net(seed=3)
     fresh(torch.from_numpy(x))           # materialize, then copy weights
-    params_from_numpy(known, {p.name: p.data().detach().numpy()
+    params_from_numpy(known, {p.name: p.data()._data.detach().numpy()
                               for p in fresh.collect_params().values()},
                       prefix=fresh.prefix)
     step2 = _port_step(known)
@@ -150,7 +150,7 @@ def test_dtype_drift_is_cast_back_before_the_step():
     w = net.collect_params()[net.prefix + "dense0_weight"]
     w._data = torch.nn.Parameter(w._data.detach().double())
     step(x, y)
-    assert w.data().dtype == torch.float32
+    assert w.data()._data.dtype == torch.float32
 
 
 def test_nchw_resnet_trains_without_fused_sites():
