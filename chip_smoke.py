@@ -19,8 +19,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 3. the training path: ``resnet50_v1(layout="NHWC")`` at full width,
    fp32, batch 128 of 224x224 synthetic images (seed 0), SGD (lr 0.05,
    momentum 0.9) through ``gluon.Trainer`` and ``parallel.TrainStep``:
-   one warm-up step, the counters zeroed, eight steps, the counters
-   read.  The loss must be finite and fall, and every BatchNorm+ReLU
+   two warm-up steps (eager, then captured), the counters zeroed, eight
+   steps, the counters read.  The loss must be finite and fall, and every BatchNorm+ReLU
    site of every step must have launched the fused forward and backward
    kernels.  Then one step is profiled;
 4. the training oracle: the same net and weights take one ``TrainStep``
@@ -31,8 +31,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (vocab 30522, 768 units, 12 layers, 12 heads, 512 positions),
    dropout 0.1, fp32, batch 32 x seq 512 of synthetic token ids and
    labels (seed 0), masked-LM loss, LAMB (lr 1e-4, wd 0.01) through
-   ``gluon.Trainer`` and ``parallel.TrainStep``: one warm-up step, the
-   counters zeroed, eight steps, the counters read.  The loss must be
+   ``gluon.Trainer`` and ``parallel.TrainStep``: two warm-up steps
+   (eager, then captured), the counters zeroed, eight steps, the
+   counters read.  The loss must be
    finite and fall; every step must launch the flash forward and
    backward kernels at each of the 12 layers, the LayerNorm kernel at
    each of the 26 sites and one LAMB phase-1 pass.  Then one step is
@@ -63,7 +64,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the synthetic MNIST train set through ``DataLoader`` on the CPU,
    ``as_in_context(mx.gpu())``, ``autograd.record()``,
    ``loss.backward()``, ``trainer.step`` and ``metric.update``, one
-   epoch of 468 batches, then 100 batches hybridized.  Every loss must
+   epoch of 468 batches, then hybridized two untimed batches (eager,
+   then captured) and 100 timed ones.  Every loss must
    be finite and the accuracy in [0, 1]; a fresh net must cut the loss
    of one fixed batch 3x in 60 steps.  It prints samples/s, ms/step,
    the share of wall time waiting on the loader, the device's idle
@@ -100,6 +102,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the ``params=`` route's, and ``paged_attention`` must launch once per
    layer per decode step.
 
+Every path runs from captured CUDA graphs (``mxnet_tpu_torch._capture``),
+the port's counterpart of the JAX package's compiled programs: one
+graph per decode and prefill bucket, one per ``TrainStep`` key (its
+first call runs eagerly, its second captures), the hybridized MNIST
+net's forward and backward, one per serving bucket.  The launch counts
+above are counted through the replays.  After each path a "captured
+..." line gives its graphs, capture seconds, pool bytes, replays, rate
+and the device's idle share, and the run fails unless the path
+replayed at least one graph per key.  After phase 4 the captured paths
+are held against the same work run eagerly ("captured against eager"):
+three ``TrainStep`` calls of ResNet-50 fp32 SGD at batch 16 against
+three steps of the imperative ``record``/``backward``/``trainer.step``
+loop on a copy of the net (losses, weights, momenta), one more step of
+each after ``set_learning_rate``, and the MNIST net hybridized against
+itself un-hybridized (outputs and gradients under ``record``); then
+BERT-base LAMB (dropout 0.1, batch 8 x seq 512) and ResNet-50 bf16 AMP
+LARS (batch 16), each four calls of one ``TrainStep`` (eager, captured,
+replayed, replayed after ``set_learning_rate``) against four eager
+steps on a copy of the net (losses, updates, the last update, every
+optimizer state).  The whole run goes under
+``_capture.checking_syncs()``: every capture and replay runs under
+``torch.cuda.set_sync_debug_mode("error")``, so a host read left inside
+a captured region fails it.
+
 The last two lines of standard output are a JSON object of per-kernel
 numbers and ``{"ok": true, "device": {...}}``.  Without CUDA, or without
 the rest of the repository beside it, the script exits non-zero and
@@ -129,6 +155,9 @@ GPT2_SMALL = dict(vocab_size=50257, units=768, num_layers=12, num_heads=12,
                   max_seq=1024)
 BN_RELU_SITES = 33                 # fused sites per ResNet-50 v1 forward
 TRAIN_STEPS = 8
+# untimed calls before a path's timed window: a TrainStep key's first
+# call runs eagerly, its second captures the step's graph
+WARM_STEPS = 2
 TRAIN_SGD = {"learning_rate": 0.05, "momentum": 0.9}
 # card-vs-CPU limits of the one-step training oracle.  One ResNet-50
 # step at batch 8 moves updates by ~1% in fp32 under a mere change of
@@ -177,6 +206,24 @@ def gpu_line():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def capture_report(path, stats, rates, idle, graphs_per_key):
+    """Print the capture line of a path that runs from CUDA graphs --
+    graphs captured, seconds capturing, the bytes its pool took, replays,
+    its rate and the device's idle share -- and check that it did: at
+    least ``graphs_per_key`` graphs for each of its keys, and replays."""
+    keys = stats.get("keys")
+    out = {"graphs": stats["graphs"], "capture_s": stats["capture_s"],
+           "pool_bytes": stats["pool_bytes"], "replays": stats["replays"],
+           "keys": len(keys) if keys is not None else None, **rates,
+           "device_idle_share": idle, "card": gpu_line()}
+    print("captured %s: %s" % (path, json.dumps(out)))
+    n_keys = len(keys) if keys is not None else 1
+    check(stats["graphs"] >= graphs_per_key * n_keys,
+          "%s: %d graphs for %d keys" % (path, stats["graphs"], n_keys))
+    check(stats["replays"] > 0, "%s never replayed a graph" % path)
+    return out
 
 
 def time_ms(fn, iters=50, flush_bytes=128 << 20):
@@ -549,7 +596,12 @@ def main_path(widths=GPT2_SMALL, device="cuda"):
     print("main path (GPT-2 small widths, 8 streams x %d tokens): %s"
           % (max_new, json.dumps(stats)))
     if device == "cuda":
-        decode_step_breakdown(sv.engine)
+        bd = decode_step_breakdown(sv.engine)
+        eng = sv.engine
+        capture_report("decode (GPT-2 small widths)", eng.capture_stats(),
+                       {"tokens_per_s": stats["tokens_per_s"],
+                        "step_wall_ms": bd["step_wall_ms"]},
+                       bd["device_idle_share"], 1)
     return stats, model.scale
 
 
@@ -572,8 +624,9 @@ def make_train_step(net):
 def train_main_path(make_net=resnet50_nhwc, batch=128, image=224,
                     steps=TRAIN_STEPS, sites=BN_RELU_SITES, device="cuda"):
     """Train ``make_net()`` for ``steps`` SGD steps on one repeated
-    synthetic batch after one warm-up step; the launch counters are
-    zeroed after the warm-up and read after the last step."""
+    synthetic batch after WARM_STEPS warm-up steps (eager, then
+    captured); the launch counters are zeroed after the warm-up and read
+    after the last step."""
     import torch
     from mxnet_tpu_torch.kernels import registry
     net = make_net()
@@ -585,7 +638,8 @@ def train_main_path(make_net=resnet50_nhwc, batch=128, image=224,
                       device=device).float()
     cuda = device == "cuda"
     t0 = time.perf_counter()
-    step(x, y)
+    for _ in range(WARM_STEPS):     # eager, then captured
+        step(x, y)
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -804,6 +858,306 @@ def train_oracle(net, make_net=resnet50_nhwc, batch=8, image=224):
 
 
 # ---------------------------------------------------------------------
+# the captured paths held against the same work run eagerly
+# ---------------------------------------------------------------------
+
+# A replayed graph runs the kernels the eager call runs, on the same
+# inputs, under cuDNN's deterministic algorithms: the captured
+# TrainStep's losses, weights and momenta stay within 1e-6 of the
+# imperative loop's (relative, norm-wise over all parameters; fp32 sums
+# of the update taken in another order by the bucket of scalars fed from
+# the device); the step after set_learning_rate within 1e-4 of the
+# imperative step's update (a graph that kept the old lr, 0.05 for
+# 0.01, would be 4x off); the hybridized MNIST net's outputs and
+# gradients within 1e-6 of the un-hybridized net's, relative to the
+# larger of 1 and each tensor's largest value
+CAPTURE_HOLD_LIMITS = {"loss_rel_err": 1e-6, "weights_rel_err": 1e-6,
+                       "momenta_rel_err": 1e-6,
+                       "new_lr_update_rel_err": 1e-4,
+                       "hybrid_out_rel_err": 1e-6,
+                       "hybrid_grad_rel_err": 1e-6}
+CAPTURE_HOLD_BATCH = 16
+CAPTURE_HOLD_STEPS = 3
+
+
+def _norm_rel(a, b):
+    num = sum(float((x - y).double().norm()) ** 2 for x, y in zip(a, b))
+    den = sum(float(y.double().norm()) ** 2 for y in b)
+    return (num / den) ** 0.5
+
+
+def capture_holds(make_net=resnet50_nhwc, batch=CAPTURE_HOLD_BATCH,
+                  image=224, steps=CAPTURE_HOLD_STEPS, device="cuda"):
+    """Three ``TrainStep`` calls of ResNet-50 fp32 SGD (the first eager,
+    the second captured, the third replayed) against three steps of the
+    imperative ``record``/``backward``/``trainer.step`` loop on a copy
+    of the net; then ``set_learning_rate(0.01)`` on both and one more
+    step each; then the MNIST net hybridized against itself
+    un-hybridized, forward and gradients under ``record``."""
+    import torch
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.parallel import TrainStep
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        nets = []
+        for _ in range(2):
+            n = make_net()
+            n.initialize(device=device,
+                         generator=torch.Generator().manual_seed(0))
+            nets.append(n)
+        net, ref = nets
+        gen = torch.Generator(device=device).manual_seed(3)
+        x = torch.randn((batch, image, image, 3), generator=gen,
+                        device=device)
+        y = torch.randint(0, net.output._units, (batch,), generator=gen,
+                          device=device).float()
+        tr = gluon.Trainer(net.collect_params(), "sgd", TRAIN_SGD)
+        step = TrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(), tr)
+        rtr = gluon.Trainer(ref.collect_params(), "sgd", TRAIN_SGD)
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+        def imperative():
+            with autograd.record():
+                loss = loss_fn(ref(x), y)
+            loss.sum().backward()
+            rtr.step(batch)
+            return float(loss.detach().mean())
+
+        def weights(n):
+            return [p.data()._data.detach().clone()
+                    for p in n.collect_params().values()]
+
+        got = [float(step(x, y)) for _ in range(steps)]
+        want = [imperative() for _ in range(steps)]
+        w_c, w_r = weights(net), weights(ref)
+        live = sorted(tr._updater.states)
+        m_c = [tr._updater.states[i] for i in live]
+        m_r = [rtr._updater.states[i] for i in live]
+        out = {"batch": batch, "steps": steps, "losses_captured": got,
+               "losses_imperative": want,
+               "loss_rel_err": max(abs(a - b) / abs(b)
+                                   for a, b in zip(got, want)),
+               "weights_rel_err": _norm_rel(w_c, w_r),
+               "momenta_rel_err": _norm_rel(m_c, m_r)}
+        tr.set_learning_rate(0.01)
+        rtr.set_learning_rate(0.01)
+        step(x, y)
+        imperative()
+        u_c = [a - b for a, b in zip(weights(net), w_c)]
+        u_r = [a - b for a, b in zip(weights(ref), w_r)]
+        out["new_lr_update_rel_err"] = _norm_rel(u_c, u_r)
+        cap = step.capture_stats()
+        out["train_step_graphs"] = cap["graphs"]
+        cuda = device == "cuda"
+        check(not cuda or (cap["graphs"] == 1
+                           and cap["replays"] == steps),
+              "hold: TrainStep graphs %d, replays %d"
+              % (cap["graphs"], cap["replays"]))
+        del step, net, ref, nets, x, y
+
+        # the MNIST net, hybridized against itself un-hybridized
+        import mxnet_tpu_torch as mx
+        ctx = mx.gpu() if cuda else mx.cpu()
+        hyb, _t, _l = mnist_setup(ctx, seed=4)
+        eager, _t, _l = mnist_setup(ctx, seed=4)
+        hyb.hybridize()
+        rng = np.random.default_rng(4)
+        worst_out = worst_grad = 0.0
+        # the first call sizes the deferred parameters, the second runs
+        # eagerly, the third captures, the fourth replays
+        for _ in range(4):
+            xb = mx.nd.array(rng.random((MNIST_BATCH, 1, 28, 28)).astype(
+                np.float32), ctx=ctx)
+            outs = []
+            for n in (hyb, eager):
+                with autograd.record(train_mode=False):
+                    o = n(xb)
+                    loss = (o * o).sum()
+                loss.backward()
+                outs.append(o._data.detach())
+            worst_out = max(worst_out, rel_err(outs[0], outs[1]))
+            for a, b in zip(hyb.collect_params().values(),
+                            eager.collect_params().values()):
+                worst_grad = max(worst_grad, rel_err(a._data.grad,
+                                                     b._data.grad))
+        out["hybrid_out_rel_err"] = worst_out
+        out["hybrid_grad_rel_err"] = worst_grad
+        out["hybrid_graphs"] = hyb.cache_stats()["graphs"]
+        check(not cuda or out["hybrid_graphs"][str(
+            ctx.torch_device())]["graphs"] == 2,
+              "hold: the hybridized MNIST net has %s graphs"
+              % out["hybrid_graphs"])
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    out["limits"] = CAPTURE_HOLD_LIMITS
+    print("captured against eager (ResNet-50 fp32 SGD TrainStep, MNIST "
+          "hybridized): %s" % json.dumps(out))
+    for key, limit in CAPTURE_HOLD_LIMITS.items():
+        check(out[key] <= limit, "capture hold: %s %.3g > limit %g"
+              % (key, out[key], limit))
+    return out
+
+
+# The bucketed LAMB and LARS updates read lr, wd, rescale_grad, the
+# update count t and LAMB's bias corrections from a device tensor that
+# each step refreshes.  Four calls of one TrainStep (eager, captured,
+# replayed, replayed after set_learning_rate(lr / 4)) are held against
+# four eager steps, a fresh TrainStep each, on a copy of the net:
+# losses, the whole update, the last step's update and every optimizer
+# state, relative and norm-wise.  The same kernels run on the same
+# inputs and dropout draws the same masks (the port's generator
+# reseeded before each run, a replay drawing at the offset an eager
+# step would).  What is left is the order of fp32 atomics (the flash
+# backward's dq), so a second eager run gives the floor, and each
+# error is held to the larger of its limit here and
+# BUCKET_HOLD_FACTOR times its floor.  ResNet-50's LARS step has no
+# atomics: floor 0, captured bitwise.  BERT's floor on an H100 80GB
+# HBM3 at 700 W was 3.0e-5 for the update and 6.3e-5 for the last one;
+# a graph that kept the old lr is off by O(1) in the last update.
+# As in the BERT oracle, the key third of each qkv_bias is held apart
+# (printed, no limit): its exact gradient is 0, so LAMB normalizes
+# rounding noise into an update of lr's size (0.35-0.41 apart run to
+# run)
+BUCKET_HOLD_LIMITS = {"loss_rel_err": 1e-5, "update_rel_err": 1e-5,
+                      "last_update_rel_err": 1e-5,
+                      "states_rel_err": 1e-5}
+BUCKET_HOLD_FACTOR = 4.0
+BUCKET_HOLD_BERT_BATCH = 8
+BUCKET_HOLD_LARS_BATCH = 16
+
+
+def _hold_run(make_net, opt, hyper, x, y, loss_fn, captured, bf16, units,
+              device):
+    """Four ``TrainStep`` calls (one step object, or a fresh one each
+    call) from seeded weights; the losses, updates and states."""
+    import torch
+    from mxnet_tpu_torch import amp, autograd, gluon, random
+    from mxnet_tpu_torch.parallel import TrainStep
+    from mxnet_tpu_torch.parallel.data_parallel import _tensors
+
+    def weights(net):
+        return {k: p.data()._data.detach().clone()
+                for k, p in net._collect_params_with_prefix().items()}
+
+    net = make_net()
+    net.initialize(device=device, generator=torch.Generator().manual_seed(0))
+    with autograd.pause():
+        net(x[:1])                      # sizes deferred parameters
+    tr = gluon.Trainer(net.collect_params(), opt, dict(hyper))
+    random.seed(5)
+    step = TrainStep(net, loss_fn, tr)
+    w0 = weights(net)
+    losses = []
+    for k in range(4):
+        if k == 3:
+            tr.set_learning_rate(hyper["learning_rate"] / 4)
+            w3 = weights(net)
+        if not captured:
+            step = TrainStep(net, loss_fn, tr)
+        with amp.scope("bfloat16") if bf16 else contextlib.nullcontext():
+            losses.append(float(step(x, y)))
+    w4 = weights(net)
+    states = [t.detach().clone() for i in sorted(tr._updater.states)
+              for t in _tensors(tr._updater.states[i])]
+    update, key = split_key_bias({k: w4[k] - w0[k] for k in w0}, units)
+    last, _ = split_key_bias({k: w4[k] - w3[k] for k in w0}, units)
+    return {"losses": losses, "update": update, "last": last, "key": key,
+            "states": states,
+            "capture": step.capture_stats() if captured else None}
+
+
+def _hold_errors(got, want):
+    names = sorted(want["update"])
+    worst = max(names, key=lambda k: float(
+        (got["last"][k] - want["last"][k]).norm())
+        / max(float(want["last"][k].norm()), 1e-30))
+    out = {"loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(
+               got["losses"], want["losses"])),
+           "update_rel_err": _norm_rel([got["update"][k] for k in names],
+                                       [want["update"][k] for k in names]),
+           "last_update_rel_err": _norm_rel(
+               [got["last"][k] for k in names],
+               [want["last"][k] for k in names]),
+           "last_update_worst_tensor": worst,
+           "last_update_worst_tensor_rel_err": _norm_rel(
+               [got["last"][worst]], [want["last"][worst]]),
+           "states_rel_err": _norm_rel(got["states"], want["states"])}
+    if want["key"]:
+        keys = sorted(want["key"])
+        out["key_bias_update_rel_err"] = _norm_rel(
+            [got["key"][k] for k in keys], [want["key"][k] for k in keys])
+    return out
+
+
+def _bucketed_hold(make_net, opt, hyper, x, y, loss_fn, bf16=False,
+                   units=768, device="cuda"):
+    """Four calls of one ``TrainStep`` against four eager steps, and a
+    second eager run against the first for the floor (see
+    BUCKET_HOLD_LIMITS); returns the errors, floors and limits."""
+    import torch
+    runs = []
+    for captured in (True, False, False):
+        runs.append(_hold_run(make_net, opt, hyper, x, y, loss_fn, captured,
+                              bf16, units, device))
+        torch.cuda.empty_cache()
+    got, want, again = runs
+    cap = got["capture"]
+    check(cap["graphs"] == 1 and cap["replays"] == 3,
+          "hold: %s TrainStep graphs %d, replays %d"
+          % (opt, cap["graphs"], cap["replays"]))
+    floor = _hold_errors(again, want)
+    out = dict(_hold_errors(got, want), losses_captured=got["losses"],
+               losses_eager=want["losses"], graphs=cap["graphs"],
+               replays=cap["replays"], floor=floor)
+    out["limits"] = {k: max(v, BUCKET_HOLD_FACTOR * floor[k])
+                     for k, v in BUCKET_HOLD_LIMITS.items()}
+    return out
+
+
+def bucketed_holds(device="cuda"):
+    """BERT-base LAMB (dropout 0.1, batch 8 x seq 512: the main path's
+    LAMB bucket of 133,547,324 elements) and ResNet-50 bf16 AMP LARS
+    (batch 16 at 224: the main path's LARS bucket), four captured
+    ``TrainStep`` calls against four eager steps each, beside the floor
+    of two eager runs."""
+    import torch
+    from mxnet_tpu_torch import gluon
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        gen = torch.Generator(device=device).manual_seed(6)
+        ids = torch.randint(0, BERT_VOCAB, (BUCKET_HOLD_BERT_BATCH, BERT_SEQ),
+                            generator=gen, device=device).float()
+        labels = torch.randint(0, BERT_VOCAB, ids.shape, generator=gen,
+                               device=device).float()
+        out["bert_lamb"] = _bucketed_hold(
+            bert_base_net, "lamb", BERT_LAMB, ids, labels,
+            make_mlm_loss(BERT_VOCAB), device=device)
+        del ids, labels
+        x = torch.randn((BUCKET_HOLD_LARS_BATCH, 224, 224, 3),
+                        generator=gen, device=device)
+        y = torch.randint(0, 1000, (BUCKET_HOLD_LARS_BATCH,),
+                          generator=gen, device=device).float()
+        out["resnet50_amp_lars"] = _bucketed_hold(
+            resnet50_nhwc, "lars", LARS_HYPER, x, y,
+            gluon.loss.SoftmaxCrossEntropyLoss(), bf16=True,
+            device=device)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    out["card"] = gpu_line()
+    print("captured against eager (BERT LAMB, ResNet-50 bf16 AMP LARS "
+          "TrainStep): %s" % json.dumps(out))
+    for path in ("bert_lamb", "resnet50_amp_lars"):
+        for key, limit in out[path]["limits"].items():
+            check(out[path][key] <= limit,
+                  "capture hold %s: %s %.3g > limit %g"
+                  % (path, key, out[path][key], limit))
+    return out
+
+
+# ---------------------------------------------------------------------
 # phases 9-10: the LeNet/MNIST path (examples/gluon_mnist.py) and its oracle
 # ---------------------------------------------------------------------
 
@@ -954,6 +1308,9 @@ def mnist_main_path(ctx=None, epoch_batches=0,
     check(all(np.isfinite(losses)), "MNIST: non-finite loss in the epoch")
     check(0.0 <= acc <= 1.0, "MNIST: accuracy %r outside [0, 1]" % acc)
     net.hybridize()
+    # untimed: the hybridized entry's first batch runs eagerly, its
+    # second captures the forward and backward graphs
+    mnist_loop(net, trainer, loss_fn, loader, ctx, WARM_STEPS)
     h_losses, h_step_s, h_wait_s, _split, h_metric, h_wall = mnist_loop(
         net, trainer, loss_fn, loader, ctx, hybrid_batches)
     check(len(h_losses) == hybrid_batches
@@ -961,6 +1318,12 @@ def mnist_main_path(ctx=None, epoch_batches=0,
           "MNIST hybridized: %d batches, losses %s" % (len(h_losses),
                                                         h_losses[-3:]))
     launches = {k: registry.launches(k) for k in registry.list_kernels()}
+    if cuda:
+        cache = net.cache_stats()
+        check(len(cache["keys"]) == 1 and cache["graphs"][str(
+            ctx.torch_device())]["graphs"] == 2,
+              "MNIST hybridized: keys %s, graphs %s (want one key, its "
+              "forward and backward)" % (cache["keys"], cache["graphs"]))
     stats = {"batch": MNIST_BATCH, "epoch_batches": n,
              "samples_per_s": n * MNIST_BATCH / wall, "epoch_s": wall,
              "ms_per_step_median": 1e3 * float(np.median(step_s)),
@@ -985,6 +1348,15 @@ def mnist_main_path(ctx=None, epoch_batches=0,
                                              ctx, profiled,
                                              1e3 * wall / n)
         stats["device_idle_share"] = stats["breakdown"]["device_idle_share"]
+        h_ms = 1e3 * h_wall / len(h_losses)
+        cache = net.cache_stats()
+        owner = dict(cache["graphs"][str(ctx.torch_device())],
+                     keys=cache["keys"])
+        capture_report(
+            "MNIST hybridized (forward and backward graphs)", owner,
+            {"samples_per_s": len(h_losses) * MNIST_BATCH / h_wall,
+             "ms_per_batch": h_ms},
+            1 - stats["breakdown"]["device_busy_ms_per_batch"] / h_ms, 2)
     print("MNIST main path (examples/gluon_mnist.py, batch 128, SGD "
           "0.05/0.9): %s" % json.dumps(stats))
     stats["memorise"] = mnist_memorise(ctx, loader, memorise_steps)
@@ -1387,9 +1759,9 @@ def bert_main_path(make_net=bert_base_net, vocab=BERT_VOCAB,
                    layers=BERT_LAYERS, batch=BERT_BATCH, seq=BERT_SEQ,
                    steps=TRAIN_STEPS, device="cuda"):
     """Pretrain ``make_net()`` (masked LM, LAMB) for ``steps`` steps on
-    one repeated synthetic batch after one warm-up step; the launch
-    counters are zeroed after the warm-up and read after the last
-    step."""
+    one repeated synthetic batch after WARM_STEPS warm-up steps (eager,
+    then captured); the launch counters are zeroed after the warm-up
+    and read after the last step."""
     import torch
     from mxnet_tpu_torch import random
     from mxnet_tpu_torch.kernels import registry
@@ -1404,7 +1776,8 @@ def bert_main_path(make_net=bert_base_net, vocab=BERT_VOCAB,
                            device=device).float()
     cuda = device == "cuda"
     t0 = time.perf_counter()
-    step(ids, labels)
+    for _ in range(WARM_STEPS):     # eager, then captured
+        step(ids, labels)
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1458,11 +1831,11 @@ def replaying_bucket_update(record):
             return tuple(cpu_copy(u) for u in t)
         return t.detach().cpu().clone()
 
-    def both(opt, items):
+    def both(opt, items, **kw):
         cpu = [(i, cpu_copy(w), cpu_copy(g), cpu_copy(s))
                for i, w, g, s in items]
-        original(opt, items)
-        original(opt, cpu)
+        original(opt, items, **kw)
+        original(opt, cpu)          # the scalars read on the host
         record["replay"] = {i: w for i, w, _g, _s in cpu}
 
     data_parallel.bucket_update = both
@@ -2183,6 +2556,8 @@ def lamb_kernel_phase(sizes):
     n = int(sum(sizes))
     b1, b2, eps = BERT_LAMB["beta1"], BERT_LAMB["beta2"], BERT_LAMB["epsilon"]
     scalars = (1.0 / BERT_BATCH, 1.0 / (1 - b1 ** 9), 1.0 / (1 - b2 ** 9))
+    # the kernel reads them on the device, as a captured step feeds them
+    sc = torch.tensor(scalars, dtype=torch.float32, device="cuda")
 
     def buffers(count, offset=0, dtype=torch.float32):
         def buf(positive=False, dt=dtype):
@@ -2196,9 +2571,9 @@ def lamb_kernel_phase(sizes):
                                  (1000003, 1, torch.float32),
                                  (1000003, 1, torch.bfloat16)):
         w, g, m, v, wd = buffers(count, offset, dtype)
-        got = lamb_phase1_cuda(w, g, m, v, wd, scalars, beta1=b1, beta2=b2,
+        got = lamb_phase1_cuda(w, g, m, v, wd, sc, beta1=b1, beta2=b2,
                                eps=eps)
-        want = lamb1_reference(w, g, m, v, wd, scalars, beta1=b1, beta2=b2,
+        want = lamb1_reference(w, g, m, v, wd, sc, beta1=b1, beta2=b2,
                                eps=eps)
         err = max(rel_err(a, b) for a, b in zip(got, want))
         key = str(dtype).split(".")[-1]
@@ -2227,13 +2602,13 @@ def lamb_kernel_phase(sizes):
         torch._foreach_add_(gw, torch._foreach_mul(ws, wds))
         return gw
 
-    t = {"ms": time_ms(lambda: lamb_phase1_cuda(w, g, m, v, wd, scalars,
+    t = {"ms": time_ms(lambda: lamb_phase1_cuda(w, g, m, v, wd, sc,
                                                 beta1=b1, beta2=b2,
                                                 eps=eps)),
          "plain_ms": time_ms(lambda: lamb1_reference(
-             w, g, m, v, wd, scalars, beta1=b1, beta2=b2, eps=eps)),
+             w, g, m, v, wd, sc, beta1=b1, beta2=b2, eps=eps)),
          "library_ms": time_ms(foreach_phase1)}
-    nbytes = 8 * n * 4
+    nbytes = 8 * n * 4 + 12         # and the three per-step scalars
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 12 * n / FP32_FLOPS
     t["bound_ms"] = 1e3 * max(t_bytes, t_ops)
     t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
@@ -2256,6 +2631,8 @@ def lars_kernel_phase(sizes, skips):
     gen = torch.Generator(device="cuda").manual_seed(4)
     n = int(sum(sizes))
     mom, rescale = LARS_HYPER["momentum"], 1.0 / LARS_BATCH
+    # the kernel reads it on the device, as a captured step feeds it
+    rescale_t = torch.tensor([rescale], dtype=torch.float32, device="cuda")
     # per tensor: lr times a trust ratio of the size eta gives, wd 0 as
     # on the main path, sign -1 on the skip list
     lrs = [LARS_HYPER["learning_rate"] * (1.0 if sk else 0.01 * (1 + k % 7))
@@ -2292,8 +2669,9 @@ def lars_kernel_phase(sizes, skips):
                                  (1000003, 1, torch.float32),
                                  (1000003, 1, torch.bfloat16)):
         (w, g, m), (lr, wd, sign) = inputs(count, offset, dtype)
-        got = lars_flat_cuda(w, g, m, lr, wd, sign, rescale, momentum=mom)
-        want = lars_flat_reference(w, g, m, lr, wd, sign, rescale,
+        got = lars_flat_cuda(w, g, m, lr, wd, sign, rescale_t,
+                             momentum=mom)
+        want = lars_flat_reference(w, g, m, lr, wd, sign, rescale_t,
                                    momentum=mom)
         torch.cuda.synchronize()
         err = max(float((a.float() - b.float()).abs().max())
@@ -2321,12 +2699,12 @@ def lars_kernel_phase(sizes, skips):
             torch._foreach_sub_(ws, torch._foreach_mul(ms, signs))
 
         t = {"ms": time_ms(lambda: lars_flat_cuda(
-                 w, g, m, lr, wd, sign, rescale, momentum=mom)),
+                 w, g, m, lr, wd, sign, rescale_t, momentum=mom)),
              "plain_ms": time_ms(lambda: lars_flat_reference(
-                 w, g, m, lr, wd, sign, rescale, momentum=mom)),
+                 w, g, m, lr, wd, sign, rescale_t, momentum=mom)),
              "library_ms": time_ms(foreach_lars)}
         # reads w, g, m and the fp32 lr, wd, sign; writes w', m'
-        nbytes = n * (5 * itemsize + 12)
+        nbytes = n * (5 * itemsize + 12) + 4     # and the rescale
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 8 * n / FP32_FLOPS
         t["bound_ms"] = 1e3 * max(t_bytes, t_ops)
         t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
@@ -2676,6 +3054,13 @@ def serve_phase(root, make_net=resnet50_nhwc, image=224,
            "peak_mem_bytes": peak, "card": gpu_line() if cuda else None}
     print("serving from the checkpoint (ResNet-50 v1 NHWC fp32, %d "
           "clients): %s" % (clients, json.dumps(out)))
+    if cuda:
+        capture_report(
+            "serving buckets (ResNet-50 from the checkpoint)",
+            dict(sv._pool.capture_stats(), keys=list(buckets)),
+            {"requests_per_s": out["requests_per_s"],
+             "call_ms": split["call_ms"],
+             "closed_loop_img_per_s": closed}, idle, 1)
     return out
 
 
@@ -2710,9 +3095,17 @@ def decode_checkpoint_phase(root=CKPT_ROOT, widths=GPT2_SMALL,
     registry.reset_launches()
     sv = reg.register_generative("gpt2", model, checkpoint=root,
                                  device=device)
+    t0 = time.perf_counter()
     got = [reg.generate("gpt2", p, max_new).tokens() for p in prompts]
+    wall = time.perf_counter() - t0
     steps = sv.engine.decode_steps
     reg.shutdown(drain=True)
+    if device == "cuda":
+        eng = sv.engine
+        capture_report(
+            "decode from a checkpoint (one request at a time)",
+            eng.capture_stats(),
+            {"tokens_per_s": sum(len(t) for t in got) / wall}, None, 1)
     launches = registry.launches("paged_attention")
     stats = {"prompts": len(prompts), "max_new": max_new,
              "save_s": save_s, "decode_steps": steps,
@@ -2751,6 +3144,16 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    from mxnet_tpu_torch import _capture
+    # every capture and replay of the run under
+    # torch.cuda.set_sync_debug_mode("error"): a host read left inside a
+    # captured region fails the run
+    with _capture.checking_syncs():
+        return drive()
+
+
+def drive():
+    import torch
     from mxnet_tpu_torch import _build
     print(gpu_line())
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2762,14 +3165,26 @@ def main():
     decode, scale = main_path()
     net, step, (x, y), train = train_main_path()
     ckpt_root = checkpoint_phase(net, step, x, y)
-    train_step_breakdown(step, x, y, train["ms_per_step"])
+    bd = train_step_breakdown(step, x, y, train["ms_per_step"])
+    capture_report("ResNet-50 fp32 SGD TrainStep", step.capture_stats(),
+                   {"ms_per_step": train["ms_per_step"],
+                    "img_per_s": train["img_per_s"]},
+                   bd["device_idle_share"], 1)
     del step, x, y
     train_oracle(net)
     del net
     torch.cuda.empty_cache()
+    capture_holds()
+    torch.cuda.empty_cache()
+    bucketed_holds()
+    torch.cuda.empty_cache()
     net, step, (ids, labels), bert = bert_main_path()
-    train_step_breakdown(step, ids, labels, bert["ms_per_step"],
-                         hand=BERT_KERNELS, label="BERT step breakdown")
+    bd = train_step_breakdown(step, ids, labels, bert["ms_per_step"],
+                              hand=BERT_KERNELS, label="BERT step breakdown")
+    capture_report("BERT LAMB TrainStep", step.capture_stats(),
+                   {"ms_per_step": bert["ms_per_step"],
+                    "tokens_per_s": bert["tokens_per_s"]},
+                   bd["device_idle_share"], 1)
     sizes = [p.data().size for p in net.collect_params().values()]
     del step, ids, labels
     torch.cuda.empty_cache()
@@ -2777,9 +3192,14 @@ def main():
     del net
     torch.cuda.empty_cache()
     net, step, (x, y), lars = amp_lars_main_path()
-    train_step_breakdown(amp_step(step), x, y, lars["ms_per_step"],
-                         hand=LARS_KERNELS,
-                         label="AMP LARS step breakdown")
+    bd = train_step_breakdown(amp_step(step), x, y, lars["ms_per_step"],
+                              hand=LARS_KERNELS,
+                              label="AMP LARS step breakdown")
+    capture_report("AMP LARS TrainStep.run_steps", step.capture_stats(),
+                   {"ms_per_step": lars["ms_per_step"],
+                    "img_per_s": lars["img_per_s"],
+                    "peak_mem_bytes": lars["peak_mem_bytes"]},
+                   bd["device_idle_share"], 1)
     live = [p for p in step._trainer._params if p.grad_req != "null"]
     lars_sizes = [p.data().size for p in live]
     lars_skips = [step._trainer.optimizer._skip_lars(i)

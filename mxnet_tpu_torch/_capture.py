@@ -1,0 +1,331 @@
+"""Shape-keyed CUDA-graph capture and replay: the port's counterpart of
+the JAX package's compiled programs.
+
+The JAX package compiles each of its hot paths: a hybridized block's
+shape-keyed ``jax.jit`` cache, ``TrainStep``'s donated step program, one
+executable per serving bucket, one program per decode bucket.  On a
+CUDA card the counterpart of a compiled, shape-specialized program is a
+captured CUDA graph that is replayed: one launch for the whole program
+and no Python per op.  A :class:`GraphOwner` is what each such owner
+keeps:
+
+- one side stream and one memory pool, shared by the owner's graphs
+  (``CUDAGraph.capture_begin(pool=)``).  Graphs of one pool may reuse
+  each other's scratch memory, so an owner reads a graph's outputs
+  before it replays another of its graphs; a graph whose results must
+  outlive the owner's next replay (a forward whose activations wait
+  for a backward) gets a pool of its own (:meth:`GraphOwner.new_pool`);
+- :meth:`GraphOwner.run` is the keyed cache: a key's first call runs
+  eagerly (:meth:`GraphOwner.warm`, on the side stream: cuDNN's
+  algorithm choice, the kernels' build and the allocator's growth
+  happen there, before any capture, on the stream that captures); its
+  second captures the body over static copies of its inputs; every
+  later call copies its inputs into them, replays the graph and
+  returns copies of its outputs;
+- :meth:`GraphOwner.capture` records a body into a :class:`Graph` with
+  the port's generator of the device registered (each replay draws new
+  dropout masks) and the kernels' launches tallied
+  (:func:`~.kernels.registry.counting_into`).  A host read inside the
+  region (``.item()``, a copy from pageable memory) fails the capture,
+  and the capture raises;
+- a :class:`Graph` keeps the ``data_ptr`` of every tensor it reads that
+  a user may rebind (parameters, optimizer state): :meth:`Graph.stale`
+  tells its owner to capture again after ``load_parameters``,
+  ``restore_training`` or ``cast`` put a new tensor in its place, or
+  after the backend settings that choose the kernels at capture
+  (cuDNN's ``deterministic``, ``benchmark`` and TF32 flags, the matmul
+  TF32 flag) changed.
+
+There is no eager fallback on the card: a capture that fails raises
+:class:`~.base.MXNetError` naming the owner, the key and what broke.
+On the CPU there are no graphs: an owner's cache entry is its eager
+call, under the same key.
+
+:func:`checking_syncs` runs every capture and replay under
+``torch.cuda.set_sync_debug_mode("error")``: the card's tests and
+``chip_smoke.py`` use it to show that no host read is left in a
+captured region.  The mode is PyTorch's and process-wide, so it is off
+unless asked for: a server's other threads read results on the host
+while a graph replays.
+
+While a body is warmed or captured (:func:`in_body`), hybridized blocks
+inside it run their plain forward, as the JAX package traces a
+hybridized child into its parent's program.
+"""
+from __future__ import annotations
+
+import contextlib
+import gc
+import threading
+import time
+from collections import Counter
+
+import torch
+
+from . import random as _random
+from .base import MXNetError
+from .kernels import registry
+
+__all__ = ["Graph", "GraphOwner", "checking_syncs", "in_body"]
+
+_local = threading.local()
+_capture_lock = threading.RLock()
+_sync_lock = threading.Lock()
+_checks = {"syncs": 0}
+
+
+def in_body():
+    """Whether this thread is running an owner's warmed or captured
+    body."""
+    return getattr(_local, "depth", 0) > 0
+
+
+@contextlib.contextmanager
+def body_scope():
+    _local.depth = getattr(_local, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _local.depth -= 1
+
+
+@contextlib.contextmanager
+def checking_syncs():
+    """Within the scope every capture and replay, in any thread, runs
+    under ``torch.cuda.set_sync_debug_mode("error")``: a synchronizing
+    CUDA call there raises.  The mode is process-wide while a capture or
+    replay runs, so a synchronizing call in another thread raises too:
+    a check for runs that do one thing at a time."""
+    with _sync_lock:
+        _checks["syncs"] += 1
+    try:
+        yield
+    finally:
+        with _sync_lock:
+            _checks["syncs"] -= 1
+
+
+@contextlib.contextmanager
+def _sync_checked():
+    if not _checks["syncs"]:
+        yield
+        return
+    with _sync_lock:
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+
+
+def _backend_flags():
+    """The settings a capture bakes into its choice of kernels."""
+    return (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark,
+            torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+def _fingerprint(tensors):
+    """The ``data_ptr`` and ``requires_grad`` of each tensor (None for a
+    missing one)."""
+    return tuple(None if t is None else (t.data_ptr(), t.requires_grad)
+                 for t in tensors)
+
+
+def _copies(out):
+    """``out`` with each tensor in it (through tuples and lists)
+    cloned."""
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    if isinstance(out, (tuple, list)):
+        return type(out)(_copies(o) for o in out)
+    return out
+
+
+class Graph:
+    """One captured CUDA graph and the kernel launches it recorded."""
+
+    __slots__ = ("graph", "launches", "ptrs", "flags", "owner")
+
+    def __init__(self, graph, launches, ptrs, owner):
+        self.graph = graph
+        self.launches = launches
+        self.ptrs = ptrs
+        self.flags = _backend_flags()
+        self.owner = owner
+
+    def stale(self, watched):
+        """Whether a watched tensor is no longer the one captured, or
+        the backend settings changed since capture."""
+        return _fingerprint(watched) != self.ptrs \
+            or _backend_flags() != self.flags
+
+    def replay(self):
+        """Launch the graph on the current stream and count the kernel
+        launches it makes."""
+        with _sync_checked():
+            self.graph.replay()
+        self.owner.replays += 1
+        registry.add_launches(self.launches)
+
+
+class _Entry:
+    """A key's captured graph, its static inputs and its outputs."""
+
+    __slots__ = ("graph", "inputs", "outputs")
+
+    def __init__(self, graph, inputs, outputs):
+        self.graph, self.inputs, self.outputs = graph, inputs, outputs
+
+
+class GraphOwner:
+    """The graphs of one owner (a hybridized block, a ``TrainStep``, a
+    bucket pool, a decode engine) on one device: a side stream, a
+    memory pool, the keys it has run and counts (graphs captured,
+    seconds capturing, bytes the card's reserved memory grew by while
+    capturing, replays)."""
+
+    def __init__(self, name, device):
+        self.name = name
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
+        self._stream = None
+        self._pool = None
+        self._seen = {}          # key -> None, in the order first run
+        self._entries = {}       # key -> _Entry
+        self.graphs = 0
+        self.capture_s = 0.0
+        self.pool_bytes = 0
+        self.replays = 0
+
+    @property
+    def cuda(self):
+        return self.device.type == "cuda"
+
+    @property
+    def stream(self):
+        """The side stream the owner warms and captures on (made at
+        first use, with the owner's pool)."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._stream
+
+    @staticmethod
+    def new_pool():
+        """A memory pool of its own, for a graph whose results must
+        outlive the replays of the owner's other graphs."""
+        return torch.cuda.graph_pool_handle()
+
+    def keys(self):
+        """The keys run so far, in the order of their first call."""
+        return list(self._seen)
+
+    def first_call(self, key):
+        """Record a call of ``key``; whether it is to run eagerly: on
+        the CPU always, on the card the key's first call."""
+        seen = key in self._seen
+        self._seen[key] = None
+        return not (self.cuda and seen)
+
+    @contextlib.contextmanager
+    def _on_side_stream(self):
+        side = self.stream
+        cur = torch.cuda.current_stream(self.device)
+        side.wait_stream(cur)
+        try:
+            with torch.cuda.device(self.device), torch.cuda.stream(side):
+                yield side
+        finally:
+            cur.wait_stream(side)
+
+    def warm(self, fn):
+        """``fn()``, the owner's eager call: on the card, on the side
+        stream that captures."""
+        with body_scope():
+            if not self.cuda:
+                return fn()
+            with self._on_side_stream():
+                return fn()
+
+    def run(self, key, fn, inputs, watched=(), what=None):
+        """``fn(*inputs)`` through ``key``'s entry: eagerly on the CPU
+        and at the key's first call (:meth:`warm`); on the card, at its
+        second call captured over static copies of ``inputs`` (again
+        whenever a ``watched`` tensor was rebound), and from then on
+        replayed after ``inputs`` are copied into those copies.  The
+        inputs may lie on the host.  Returns ``fn``'s result; from a
+        replay, copies of the graph's outputs, which the owner's next
+        replay does not overwrite."""
+        if self.first_call(key):
+            return self.warm(lambda: fn(*[t.to(self.device)
+                                          for t in inputs]))
+        entry = self._entries.get(key)
+        if entry is None or entry.graph.stale(watched):
+            with torch.no_grad():
+                static = [torch.empty_like(t, device=self.device).copy_(t)
+                          for t in inputs]
+            graph, out = self.capture(lambda: fn(*static),
+                                      what or repr(key), watched)
+            self._entries[key] = entry = _Entry(graph, static, out)
+        else:
+            with torch.no_grad():
+                for s, t in zip(entry.inputs, inputs):
+                    s.copy_(t)
+        entry.graph.replay()
+        with torch.no_grad():
+            return _copies(entry.outputs)
+
+    def capture(self, fn, what, watched=(), pool=None):
+        """Capture ``fn()`` into a :class:`Graph`, in ``pool`` (by
+        default the owner's); returns ``(graph, fn's result)``, whose
+        tensors the graph's replays write.  The body does not run: a
+        replay runs it.  ``watched`` are the tensors whose rebinding
+        makes the graph stale."""
+        if not self.cuda:
+            raise MXNetError("%s: no CUDA graphs on %s" % (self.name,
+                                                           self.device))
+        t0 = time.perf_counter()
+        # as torch.cuda.graph does: what the eager warm-up left cached
+        # goes back to the card, so the graph's pool can take it
+        torch.cuda.synchronize(self.device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        with _capture_lock, self._on_side_stream():
+            reserved = torch.cuda.memory_reserved(self.device)
+            graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(_random.generator(self.device))
+            tally = Counter()
+            err = out = None
+            with registry.counting_into(tally), _sync_checked(), \
+                    body_scope():
+                graph.capture_begin(pool=pool or self._pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    out = fn()
+                except Exception as e:      # reported below, once
+                    err = e
+                finally:
+                    try:
+                        graph.capture_end()
+                    except Exception as e:  # the body's error comes first
+                        err = err or e
+            if err is not None:
+                raise MXNetError(
+                    "%s: CUDA-graph capture of %s failed (no eager "
+                    "fallback on the card): %s: %s"
+                    % (self.name, what, type(err).__name__, err)) from err
+            self.pool_bytes += torch.cuda.memory_reserved(self.device) \
+                - reserved
+        self.graphs += 1
+        self.capture_s += time.perf_counter() - t0
+        return Graph(graph, tally, _fingerprint(watched), self), out
+
+    def stats(self):
+        return {"graphs": self.graphs, "capture_s": self.capture_s,
+                "pool_bytes": self.pool_bytes, "replays": self.replays,
+                "keys": self.keys()}

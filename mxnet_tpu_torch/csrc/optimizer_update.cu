@@ -10,6 +10,9 @@
 //       gw  = (m' * bc1) / (sqrt(v' * bc2) + eps) + wd * w
 //   w, g, m, v, m', v' at the parameter dtype (fp32 or bf16), wd (per
 //   element, expanded from the per-tensor values) and gw fp32.  The
+//   per-step scalars rescale, bc1 and bc2 are read from a 3-float
+//   device array, so a CUDA graph that captured the launch takes each
+//   step's values (the TPU kernel's scalar operands).  The
 //   per-tensor trust ratios (phase 2) are computed from gw outside this
 //   kernel, as on the TPU.
 //
@@ -21,8 +24,9 @@
 //   w, g, m, w', m' at the parameter dtype (fp32 or bf16); lr (the
 //   per-tensor lr times trust ratio), wd and sign (+1 for a LARS tensor,
 //   -1 for a skip-list tensor, whose momentum keeps SGD's sign) fp32 per
-//   element.  The trust ratios are computed outside this kernel, as on
-//   the TPU.
+//   element; rescale is read from a 1-float device array (a graph that
+//   captured the launch takes each step's value).  The trust ratios are
+//   computed outside this kernel, as on the TPU.
 //
 // All math is fp32 over the flat (S,) concatenation of a dtype group.
 //
@@ -66,9 +70,18 @@ struct alignas(sizeof(T) * V) Pack {
 };
 
 struct Hyper {
-  float rescale, bc1, bc2;   // per step
+  float rescale, bc1, bc2;   // per step, read from the device
   float beta1, one_minus_beta1, beta2, one_minus_beta2, eps, clip;
 };
+
+// the per-step scalars of a launch: rescale, bc1, bc2 from `scalars`
+__device__ __forceinline__ Hyper with_step(Hyper h,
+                                           const float* __restrict__ s) {
+  h.rescale = __ldg(s);
+  h.bc1 = __ldg(s + 1);
+  h.bc2 = __ldg(s + 2);
+  return h;
+}
 
 template <typename T>
 __device__ __forceinline__ void lamb1(const Hyper& h, T w, T g, T m, T v,
@@ -87,7 +100,9 @@ __global__ void __launch_bounds__(kThreads) lamb_phase1_kernel(
     const T* __restrict__ w, const T* __restrict__ g,
     const T* __restrict__ m, const T* __restrict__ v,
     const float* __restrict__ wd, float* __restrict__ gw,
-    T* __restrict__ nm, T* __restrict__ nv, int64_t n, Hyper h) {
+    T* __restrict__ nm, T* __restrict__ nv, int64_t n, Hyper hc,
+    const float* __restrict__ scalars) {
+  const Hyper h = with_step(hc, scalars);
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -114,7 +129,7 @@ __global__ void __launch_bounds__(kThreads) lamb_phase1_kernel(
 }
 
 struct LarsHyper {
-  float rescale, momentum, clip;
+  float rescale, momentum, clip;   // rescale per step, from the device
 };
 
 template <typename T>
@@ -135,7 +150,10 @@ __global__ void __launch_bounds__(kThreads) lars_flat_kernel(
     const T* __restrict__ w, const T* __restrict__ g,
     const T* __restrict__ m, const float* __restrict__ lr,
     const float* __restrict__ wd, const float* __restrict__ sign,
-    T* __restrict__ nw, T* __restrict__ nm, int64_t n, LarsHyper h) {
+    T* __restrict__ nw, T* __restrict__ nm, int64_t n, LarsHyper hc,
+    const float* __restrict__ rescale) {
+  LarsHyper h = hc;
+  h.rescale = __ldg(rescale);
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -179,7 +197,7 @@ template <typename T>
 cudaError_t launch(const void* w, const void* g, const void* m,
                    const void* v, const float* wd, float* gw, void* nm,
                    void* nv, int64_t n, const Hyper& h,
-                   cudaStream_t stream) {
+                   const float* scalars, cudaStream_t stream) {
   constexpr int V = 4;
   const T* wp = static_cast<const T*>(w);
   const T* gp = static_cast<const T*>(g);
@@ -192,10 +210,10 @@ cudaError_t launch(const void* w, const void* g, const void* m,
       aligned(nm, tb) && aligned(nv, tb) && aligned(wd, fb) &&
       aligned(gw, fb)) {
     lamb_phase1_kernel<T, V><<<grid_for(n / V), kThreads, 0, stream>>>(
-        wp, gp, mp, vp, wd, gw, nmp, nvp, n, h);
+        wp, gp, mp, vp, wd, gw, nmp, nvp, n, h, scalars);
   } else {
     lamb_phase1_kernel<T, 1><<<grid_for(n), kThreads, 0, stream>>>(
-        wp, gp, mp, vp, wd, gw, nmp, nvp, n, h);
+        wp, gp, mp, vp, wd, gw, nmp, nvp, n, h, scalars);
   }
   return cudaGetLastError();
 }
@@ -204,7 +222,7 @@ template <typename T>
 cudaError_t launch_lars(const void* w, const void* g, const void* m,
                         const float* lr, const float* wd, const float* sign,
                         void* nw, void* nm, int64_t n, const LarsHyper& h,
-                        cudaStream_t stream) {
+                        const float* rescale, cudaStream_t stream) {
   constexpr int V = 4;
   const T* wp = static_cast<const T*>(w);
   const T* gp = static_cast<const T*>(g);
@@ -216,10 +234,10 @@ cudaError_t launch_lars(const void* w, const void* g, const void* m,
       aligned(nw, tb) && aligned(nm, tb) && aligned(lr, fb) &&
       aligned(wd, fb) && aligned(sign, fb)) {
     lars_flat_kernel<T, V><<<grid_for(n / V), kThreads, 0, stream>>>(
-        wp, gp, mp, lr, wd, sign, nwp, nmp, n, h);
+        wp, gp, mp, lr, wd, sign, nwp, nmp, n, h, rescale);
   } else {
     lars_flat_kernel<T, 1><<<grid_for(n), kThreads, 0, stream>>>(
-        wp, gp, mp, lr, wd, sign, nwp, nmp, n, h);
+        wp, gp, mp, lr, wd, sign, nwp, nmp, n, h, rescale);
   }
   return cudaGetLastError();
 }
@@ -227,47 +245,51 @@ cudaError_t launch_lars(const void* w, const void* g, const void* m,
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16 (w, g, m, v and the new moments).
-// Returns the cudaError_t of the launch (0 = cudaSuccess).  Asynchronous
-// on `stream`; allocates nothing.
+// `scalars` is a device array of 3 floats: rescale, bc1, bc2.  Returns
+// the cudaError_t of the launch (0 = cudaSuccess).  Asynchronous on
+// `stream`; allocates nothing.
 extern "C" int lamb_phase1_launch(const void* w, const void* g,
                                   const void* m, const void* v,
                                   const float* wd, float* gw, void* nm,
-                                  void* nv, int64_t n, float rescale,
-                                  float bc1, float bc2, float beta1,
-                                  float one_minus_beta1, float beta2,
-                                  float one_minus_beta2, float eps,
-                                  float clip, int dtype, void* stream) {
+                                  void* nv, int64_t n, const float* scalars,
+                                  float beta1, float one_minus_beta1,
+                                  float beta2, float one_minus_beta2,
+                                  float eps, float clip, int dtype,
+                                  void* stream) {
   if (n == 0) return 0;
-  const Hyper h = {rescale, bc1, bc2, beta1, one_minus_beta1,
+  const Hyper h = {0.f, 0.f, 0.f, beta1, one_minus_beta1,
                    beta2, one_minus_beta2, eps, clip};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float>(w, g, m, v, wd, gw, nm, nv, n, h, s);
+      return launch<float>(w, g, m, v, wd, gw, nm, nv, n, h, scalars, s);
     case 1:
-      return launch<__nv_bfloat16>(w, g, m, v, wd, gw, nm, nv, n, h, s);
+      return launch<__nv_bfloat16>(w, g, m, v, wd, gw, nm, nv, n, h,
+                                   scalars, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // dtype codes as above (w, g, m and the new weights and momenta).
-// clip 0 means none.  Returns the cudaError_t of the launch; asynchronous
-// on `stream`; allocates nothing.
+// `rescale` is a device array of 1 float; clip 0 means none.  Returns the
+// cudaError_t of the launch; asynchronous on `stream`; allocates nothing.
 extern "C" int lars_flat_launch(const void* w, const void* g, const void* m,
                                 const float* lr, const float* wd,
                                 const float* sign, void* nw, void* nm,
-                                int64_t n, float rescale, float momentum,
-                                float clip, int dtype, void* stream) {
+                                int64_t n, const float* rescale,
+                                float momentum, float clip, int dtype,
+                                void* stream) {
   if (n == 0) return 0;
-  const LarsHyper h = {rescale, momentum, clip};
+  const LarsHyper h = {0.f, momentum, clip};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_lars<float>(w, g, m, lr, wd, sign, nw, nm, n, h, s);
+      return launch_lars<float>(w, g, m, lr, wd, sign, nw, nm, n, h, rescale,
+                                s);
     case 1:
       return launch_lars<__nv_bfloat16>(w, g, m, lr, wd, sign, nw, nm, n, h,
-                                        s);
+                                        rescale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -24,17 +24,47 @@ called with tensors, it returns tensors.
 ``.params`` file under structural names (``"0.weight"``).
 
 A :class:`HybridBlock` runs ``hybrid_forward(F, x, **params)`` with
-``F`` the port's op namespace (:mod:`mxnet_tpu_torch.ops`).  The port
-runs eagerly: ``hybridize()`` is accepted and records its flag.
+``F`` the port's op namespace (:mod:`mxnet_tpu_torch.ops`).
+``hybridize()`` turns on its shape-keyed cache, the counterpart of the
+JAX block's ``_call_cached``/``_build_cache``/``_run_cached``: the key
+is ``(training, amp.policy_token(), (shape, dtype) of each argument,
+device)``, as the JAX ``_CACHE_KEY_STATIC`` plus the device.  On the
+CPU an entry is the eager call.  On the card (:mod:`.._capture`) a key's
+first call in a mode runs eagerly on the capture stream; the second
+captures, and every later call replays:
+
+- when no gradient is recorded (outside ``autograd.record()`` with
+  NDArrays; under ``torch.no_grad()`` with tensors), one forward graph;
+  its outputs are copies that the next call does not overwrite;
+- when one is, a forward graph and a backward graph
+  inside **one** ``torch.autograd.Function``, one node on the tape (the
+  JAX ``TapeNode(..., name=type(self).__name__ + "_cached")``): the
+  backward graph gives the gradients of the inputs and parameters,
+  which land in ``.grad`` by each parameter's ``grad_req`` as they do
+  eagerly.  The pair has a memory pool of its own and is taken from
+  its forward until its backward: a block called again under the same
+  ``record()`` before that (a shared block applied twice, a cell in a
+  loop) captures another pair, so each call keeps its own activations,
+  as the JAX block keeps each call's residuals.
+
+BatchNorm's running statistics update inside the graph (in place).  A
+call whose parameters still have deferred shapes runs imperatively and
+makes no entry.  A parameter rebound since capture (``load_parameters``
+of running statistics, ``cast``) makes the entry capture again.  A
+hybridized child inside a hybridized parent (or a ``TrainStep``, a
+serving pool) runs its plain forward as part of the owner's program.
 """
 from __future__ import annotations
 
 import contextlib
 import re
 import threading
+import weakref
 
 import torch
 
+from .. import _capture
+from .. import amp as _amp
 from .. import autograd
 from .. import ops as _ops
 from ..base import MXNetError
@@ -205,11 +235,16 @@ class Block(torch.nn.Module):
     def __call__(self, *args, **kwargs):
         if not any(isinstance(a, NDArray) for a in args + tuple(
                 kwargs.values())):
-            return super().__call__(*args, **kwargs)
+            return self._call_tensors(*args, **kwargs)
         args = [_unwrap(a) for a in args]
         kwargs = {k: _unwrap(v) for k, v in kwargs.items()}
         with torch.set_grad_enabled(autograd.is_recording()):
-            return _wrap(super().__call__(*args, **kwargs))
+            return _wrap(self._call_tensors(*args, **kwargs))
+
+    def _call_tensors(self, *args, **kwargs):
+        """The call on tensors: ``torch.nn.Module``'s, which runs
+        ``forward``."""
+        return torch.nn.Module.__call__(self, *args, **kwargs)
 
     def __repr__(self):
         lines = [type(self).__name__ + "("]
@@ -232,18 +267,181 @@ def _wrap(out):
     return out
 
 
+def _dtype_name(dtype):
+    return str(dtype).replace("torch.", "")
+
+
+class _Pending:
+    """The token of a captured forward whose backward has not run: its
+    tape node holds it, its graphs keep a weak reference."""
+
+    __slots__ = ("__weakref__",)
+
+
+class _TrainGraphs:
+    """A captured forward and backward of a hybridized block under
+    ``autograd.record()``, in a memory pool of their own.  The floating
+    inputs and the parameters that take a gradient are what the
+    backward graph differentiates.  From a forward's replay until its
+    backward has run (or its tape node is gone) the pair is taken: the
+    block's next call of the key under ``record`` uses, or captures,
+    another pair, so each outstanding call keeps its own activations,
+    as the JAX block keeps each call's ``vjp`` residuals."""
+
+    def __init__(self, block, owner, args, watched, diff, what):
+        self.inputs = [a.detach().clone().requires_grad_(
+            a.is_floating_point()) for a in args]
+        self.grad_in = [k for k, s in enumerate(self.inputs)
+                        if s.requires_grad]
+        self.calls = 0
+        self.pending = None
+        pool = owner.new_pool()
+
+        def forward():
+            with torch.enable_grad():
+                return block._plain_call(self.inputs)
+
+        self.fwd, out = owner.capture(forward, what + " forward", watched,
+                                      pool)
+        self.single = isinstance(out, torch.Tensor)
+        self.kind = type(out)
+        self.outputs = [out] if self.single else list(out)
+        self.live = [o.requires_grad for o in self.outputs]
+        heads = [o for o in self.outputs if o.requires_grad]
+        self.head_grads = [torch.empty_like(o) for o in heads]
+        wrt = [self.inputs[k] for k in self.grad_in] + list(diff)
+
+        def backward():
+            return torch.autograd.grad(heads, wrt, self.head_grads,
+                                       allow_unused=True)
+
+        self.bwd, self.grads = owner.capture(backward, what + " backward",
+                                             watched, pool)
+
+    def free(self):
+        """Whether no call waits for this pair's backward."""
+        return self.pending is None or self.pending() is None
+
+    def __call__(self, args, diff):
+        outs = _ReplayedBlock.apply(self, len(args), *args, *diff)
+        return outs[0] if self.single else self.kind(outs)
+
+
+class _ReplayedBlock(torch.autograd.Function):
+    """The tape node of a captured forward: its backward replays the
+    backward graph."""
+
+    @staticmethod
+    def forward(ctx, graphs, n_args, *tensors):
+        for s, a in zip(graphs.inputs, tensors[:n_args]):
+            s.copy_(a)
+        graphs.fwd.replay()
+        graphs.calls += 1
+        ctx.graphs, ctx.n_args, ctx.call = graphs, n_args, graphs.calls
+        ctx.pending = _Pending()
+        graphs.pending = weakref.ref(ctx.pending)
+        outs = tuple(o.detach().clone() for o in graphs.outputs)
+        ctx.mark_non_differentiable(*[o for o, live in zip(
+            outs, graphs.live) if not live])
+        return outs
+
+    @staticmethod
+    def backward(ctx, *out_grads):
+        graphs = ctx.graphs
+        if graphs.calls != ctx.call:
+            raise MXNetError(
+                "%s: a backward kept by retain_graph ran after the block's "
+                "captured forward replayed for a later call over the "
+                "activations it reads" % graphs.fwd.owner.name)
+        with torch.no_grad():
+            for buf, g in zip(graphs.head_grads, [
+                    g for g, live in zip(out_grads, graphs.live) if live]):
+                buf.copy_(g)
+        graphs.bwd.replay()
+        ctx.pending = None
+        need = ctx.needs_input_grad[2:]
+        n_in = len(graphs.grad_in)
+        grads = [None] * ctx.n_args + list(graphs.grads[n_in:])
+        for j, k in enumerate(graphs.grad_in):
+            grads[k] = graphs.grads[j]
+        return (None, None) + tuple(
+            None if g is None or not want else g.clone()
+            for g, want in zip(grads, need))
+
+
 class HybridBlock(Block):
     """Block whose forward is ``hybrid_forward(F, *args, **params)``."""
 
     def __init__(self, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         object.__setattr__(self, "_active", False)
+        object.__setattr__(self, "_cached_entries", {})
+        object.__setattr__(self, "_graph_owners", {})
 
-    def hybridize(self, active=True, **kwargs):
-        """Record the flag (the port runs eagerly; graph capture is
-        later work) and recurse."""
+    def hybridize(self, active=True, static_alloc=False, static_shape=False,
+                  **kwargs):
+        """Turn the shape-keyed cache on (or off), clear it and recurse
+        (reference: ``HybridBlock.hybridize``; graphs are static in
+        shape and memory, so ``static_alloc``/``static_shape`` are kept
+        for the API)."""
         object.__setattr__(self, "_active", active)
-        super().hybridize(active, **kwargs)
+        object.__setattr__(self, "_cached_entries", {})
+        object.__setattr__(self, "_graph_owners", {})
+        super().hybridize(active, static_alloc=static_alloc,
+                          static_shape=static_shape, **kwargs)
+
+    def cache_stats(self):
+        """The cache's keys and, per device, the graphs captured, the
+        seconds spent capturing, the bytes the pool took and the
+        replays."""
+        return {"keys": list(self._cached_entries),
+                "graphs": {d: o.stats()
+                           for d, o in self._graph_owners.items()}}
+
+    def _call_tensors(self, *args, **kwargs):
+        if self._active and args and not kwargs \
+                and not _capture.in_body() \
+                and all(isinstance(a, torch.Tensor) for a in args):
+            return self._call_cached(args)
+        return super()._call_tensors(*args, **kwargs)
+
+    def _plain_call(self, args):
+        return torch.nn.Module.__call__(self, *args)
+
+    def _call_cached(self, args):
+        params = list(self._all_params())
+        if any(p._deferred_init is not None for p in params):
+            # the first call sizes deferred parameters imperatively
+            return self._plain_call(args)
+        device = args[0].device
+        key = (autograd.is_training(), _amp.policy_token()) + tuple(
+            (tuple(a.shape), _dtype_name(a.dtype)) for a in args) \
+            + (str(device),)
+        pairs = self._cached_entries.setdefault(key, [])
+        owner = self._graph_owners.get(str(device))
+        if owner is None:
+            owner = self._graph_owners[str(device)] = _capture.GraphOwner(
+                "%s(hybridized)" % type(self).__name__, device)
+        watched = [p._data for p in params]
+        diff = [t for t in watched if t is not None and t.requires_grad]
+        what = "%s %r" % (type(self).__name__, key)
+        if not (torch.is_grad_enabled() and (
+                diff or any(a.requires_grad for a in args))):
+            def forward(*xs):
+                with torch.no_grad():
+                    return self._plain_call(xs)
+            return owner.run(("forward",) + key, forward, args, watched,
+                             what)
+        if owner.first_call(("record",) + key):
+            return owner.warm(lambda: self._plain_call(args))
+        pair = next((p for p in pairs if p.free()), None)
+        if pair is not None and pair.fwd.stale(watched):
+            pairs.remove(pair)
+            pair = None
+        if pair is None:
+            pair = _TrainGraphs(self, owner, args, watched, diff, what)
+            pairs.append(pair)
+        return pair(args, diff)
 
     def infer_shape(self, *args):
         """Layer-specific deferred-shape rule; layers with deferred

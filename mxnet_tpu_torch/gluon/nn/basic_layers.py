@@ -123,7 +123,8 @@ class Dense(HybridBlock):
 
 class BatchNorm(HybridBlock):
     """Batch normalization with MXNet's running statistics, which the
-    layer rebinds after each training forward."""
+    layer updates in place after each training forward (a captured
+    graph keeps its running statistics accumulating)."""
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
                  scale=True, use_global_stats=False, beta_initializer="zeros",
@@ -168,8 +169,8 @@ class BatchNorm(HybridBlock):
 
     def _rebind_stats(self, new_mean, new_var):
         if autograd.is_training() and not self._use_global_stats:
-            self.running_mean.set_data(new_mean)
-            self.running_var.set_data(new_var)
+            self.running_mean._update_aux(new_mean)
+            self.running_var._update_aux(new_var)
 
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
         out, new_mean, new_var = F.BatchNorm(

@@ -189,6 +189,21 @@ class Parameter:
             self._data.copy_(data)
 
     @torch.no_grad()
+    def _update_aux(self, value):
+        """Write a layer's new auxiliary value (``BatchNorm``'s running
+        statistics) into the parameter's tensor in place, at its dtype:
+        a CUDA graph that captured the layer keeps reading and updating
+        the same tensor.  A user's :meth:`set_data` still rebinds."""
+        rebind = self._data is None \
+            or tuple(value.shape) != tuple(self._data.shape) \
+            or (self._data.is_inference()
+                and not torch.is_inference_mode_enabled())
+        if rebind:
+            self.set_data(value)
+        elif value is not self._data:
+            self._data.copy_(value)
+
+    @torch.no_grad()
     def _load(self, data, ctx=None, cast_dtype=False):
         """Take a loaded value.  An initialized parameter goes through
         :meth:`set_data`; one not yet allocated takes the value's shape

@@ -19,6 +19,14 @@ into one contiguous buffer.
 
 Per-tensor semantics are those of the per-parameter optimizers
 (``lars_update`` / ``sgd_mom_update``, ``lamb_update_phase1/2``).
+
+The per-step scalars -- each tensor's lr and wd, ``rescale_grad`` and
+LAMB's bias corrections -- may be given as device tensors (the
+``TrainStep`` of a CUDA graph refreshes them before each replay); both
+kernels read theirs through a pointer, and nothing here reads a value
+on the host or copies from host memory.  With ``finite`` (a 0-d bool
+tensor), the write-back keeps the old weights and states where it is
+false, the JAX step's ``jnp.where(all_finite, new, old)``.
 Where the JAX functions return new arrays, :func:`lars_bucket_update`,
 :func:`lamb_bucket_update` and :func:`bucket_update` write the new
 weights and states into the given tensors in place, so a step keeps no
@@ -36,19 +44,27 @@ from ..bucketing import dtype_groups, flatten_group, split_group
 from .registry import KernelSpec, count_launch, dispatch, register_kernel
 
 __all__ = ["bucket_supported", "bucket_update", "l2_norm",
-           "lamb1_reference", "lamb_bucket_update", "lamb_phase1_cuda",
-           "lars_bucket_update", "lars_flat_cuda", "lars_flat_reference"]
+           "lamb1_reference", "lamb_bias_corrections", "lamb_bucket_update",
+           "lamb_phase1_cuda", "lars_bucket_update", "lars_flat_cuda",
+           "lars_flat_reference"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _scalar_vector(values, n, device):
+    """``values`` (a tensor, or numbers) as an fp32 ``(n,)`` tensor on
+    ``device``."""
+    t = torch.as_tensor(values, dtype=torch.float32, device=device)
+    return t.reshape(n)
 
 
 def lamb1_reference(w, g, m, v, wd, scalars, beta1=0.9, beta2=0.999,
                     eps=1e-6, clip=0.0):
     """Plain version of the phase-1 kernel (the JAX package's
-    ``_lamb1_math``): ``scalars`` is ``(rescale, bc1, bc2)``; returns
-    ``(gw fp32, m', v')`` with the moments at ``m``'s and ``v``'s
-    dtype."""
-    rescale, bc1, bc2 = (float(s) for s in scalars)
+    ``_lamb1_math``): ``scalars`` is ``(rescale, bc1, bc2)``, the
+    kernel's fp32 ``(3,)`` tensor (or three numbers); returns ``(gw
+    fp32, m', v')`` with the moments at ``m``'s and ``v``'s dtype."""
+    rescale, bc1, bc2 = _scalar_vector(scalars, 3, w.device)
     wf = w.float()
     gr = g.float() * rescale
     if clip is not None and clip > 0:
@@ -65,11 +81,11 @@ def _lib():
     lib = _build.load("optimizer_update")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.lamb_phase1_launch.argtypes = [p, p, p, p, p, p, p, p,
-                                       ctypes.c_int64, f, f, f, f, f, f, f,
-                                       f, f, i, p]
+                                       ctypes.c_int64, p, f, f, f, f, f, f,
+                                       i, p]
     lib.lamb_phase1_launch.restype = i
     lib.lars_flat_launch.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_int64,
-                                     f, f, f, i, p]
+                                     p, f, f, i, p]
     lib.lars_flat_launch.restype = i
     lib.optimizer_update_error_string.argtypes = [i]
     lib.optimizer_update_error_string.restype = ctypes.c_char_p
@@ -101,6 +117,21 @@ def _check_flat(fn, w, others):
             raise MXNetError("%s: %s is not contiguous" % (fn, name))
 
 
+def _check_scalars(fn, w, scalars, n):
+    """Raise unless ``scalars`` is a contiguous fp32 CUDA tensor of
+    ``n`` elements on ``w``'s device (the kernel reads it through a
+    pointer)."""
+    if not isinstance(scalars, torch.Tensor) or scalars.device != w.device \
+            or scalars.dtype != torch.float32 or scalars.numel() != n \
+            or not scalars.is_contiguous():
+        raise MXNetError("%s: the per-step scalars must be a contiguous "
+                         "float32 tensor of %d on %s, got %r"
+                         % (fn, n, w.device, scalars if not isinstance(
+                             scalars, torch.Tensor) else (
+                                 scalars.dtype, tuple(scalars.shape),
+                                 scalars.device)))
+
+
 def _raise_on(lib, rc, what):
     if rc != 0:
         raise MXNetError("%s kernel launch failed: %s (%d)" % (
@@ -111,12 +142,14 @@ def lamb_phase1_cuda(w, g, m, v, wd, scalars, beta1=0.9, beta2=0.999,
                      eps=1e-6, clip=0.0):
     """Launch the phase-1 kernel on PyTorch's current stream: ``w``,
     ``g``, ``m``, ``v`` contiguous CUDA ``(S,)`` tensors of one dtype
-    (fp32 or bf16), ``wd`` a contiguous fp32 ``(S,)`` tensor; returns
-    ``(gw, m', v')`` as :func:`lamb1_reference`."""
+    (fp32 or bf16), ``wd`` a contiguous fp32 ``(S,)`` tensor,
+    ``scalars`` the fp32 ``(3,)`` device tensor ``(rescale, bc1, bc2)``
+    the kernel reads; returns ``(gw, m', v')`` as
+    :func:`lamb1_reference`."""
     _check_flat("lamb_phase1_cuda", w,
                 [("g", g, w.dtype), ("m", m, w.dtype), ("v", v, w.dtype),
                  ("wd", wd, torch.float32)])
-    rescale, bc1, bc2 = (float(s) for s in scalars)
+    _check_scalars("lamb_phase1_cuda", w, scalars, 3)
     clipv = float(clip) if clip is not None and clip > 0 else 0.0
     lib = _lib()
     gw = torch.empty(w.shape, dtype=torch.float32, device=w.device)
@@ -126,7 +159,7 @@ def lamb_phase1_cuda(w, g, m, v, wd, scalars, beta1=0.9, beta2=0.999,
         rc = lib.lamb_phase1_launch(
             w.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
             wd.data_ptr(), gw.data_ptr(), nm.data_ptr(), nv.data_ptr(),
-            w.numel(), rescale, bc1, bc2, float(beta1), 1.0 - beta1,
+            w.numel(), scalars.data_ptr(), float(beta1), 1.0 - beta1,
             float(beta2), 1.0 - beta2, float(eps), clipv,
             _DTYPE_CODES[w.dtype], stream)
     _raise_on(lib, rc, "lamb_phase1")
@@ -147,9 +180,10 @@ def lars_flat_reference(w, g, m, lr, wd, sign, rescale, momentum=0.9,
                         clip=0.0):
     """Plain version of the ``lars_flat`` kernel (the JAX package's
     ``_lars_math``): returns ``(w', m')`` at ``w``'s and ``m``'s dtype;
-    ``lr``, ``wd`` and ``sign`` are fp32 per element."""
+    ``lr``, ``wd`` and ``sign`` are fp32 per element, ``rescale`` the
+    kernel's fp32 ``(1,)`` tensor (or a number)."""
     wf = w.float()
-    gr = g.float() * float(rescale)
+    gr = g.float() * _scalar_vector(rescale, 1, w.device)
     if clip is not None and clip > 0:
         gr = torch.clamp(gr, -clip, clip)
     step = lr * (gr + wd * wf)
@@ -162,12 +196,14 @@ def lars_flat_cuda(w, g, m, lr, wd, sign, rescale, momentum=0.9, clip=0.0):
     """Launch the ``lars_flat`` kernel on PyTorch's current stream:
     ``w``, ``g``, ``m`` contiguous CUDA ``(S,)`` tensors of one dtype
     (fp32 or bf16), ``lr``, ``wd``, ``sign`` contiguous fp32 ``(S,)``
-    tensors; returns ``(w', m')`` in fresh buffers, as
+    tensors, ``rescale`` the fp32 ``(1,)`` device tensor the kernel
+    reads; returns ``(w', m')`` in fresh buffers, as
     :func:`lars_flat_reference`."""
     _check_flat("lars_flat_cuda", w,
                 [("g", g, w.dtype), ("m", m, w.dtype),
                  ("lr", lr, torch.float32), ("wd", wd, torch.float32),
                  ("sign", sign, torch.float32)])
+    _check_scalars("lars_flat_cuda", w, rescale, 1)
     clipv = float(clip) if clip is not None and clip > 0 else 0.0
     lib = _lib()
     nw, nm = torch.empty_like(w), torch.empty_like(m)
@@ -176,7 +212,7 @@ def lars_flat_cuda(w, g, m, lr, wd, sign, rescale, momentum=0.9, clip=0.0):
         rc = lib.lars_flat_launch(
             w.data_ptr(), g.data_ptr(), m.data_ptr(), lr.data_ptr(),
             wd.data_ptr(), sign.data_ptr(), nw.data_ptr(), nm.data_ptr(),
-            w.numel(), float(rescale), float(momentum), clipv,
+            w.numel(), rescale.data_ptr(), float(momentum), clipv,
             _DTYPE_CODES[w.dtype], stream)
     _raise_on(lib, rc, "lars_flat")
     count_launch("lars_flat", w.dtype)
@@ -204,6 +240,24 @@ def _segment_norms(buf, shapes):
     return torch.stack([l2_norm(p) for p in split_group(buf, shapes)])
 
 
+def _vector(values, device):
+    """Per-tensor values as an fp32 vector on ``device``: a tensor as it
+    is, numbers through one copy (the eager caller's lists)."""
+    if isinstance(values, torch.Tensor):
+        return values.to(device, torch.float32)
+    return torch.tensor([float(v) for v in values], dtype=torch.float32,
+                        device=device)
+
+
+def _take(vec, ks):
+    """``vec[ks]`` for a list of positions, without an index tensor from
+    the host: a slice where ``ks`` is a run, else a stack of
+    elements."""
+    if ks == list(range(ks[0], ks[0] + len(ks))):
+        return vec[ks[0]:ks[0] + len(ks)]
+    return torch.stack([vec[k] for k in ks])
+
+
 def _per_element(values, shapes, total, device):
     """A flat fp32 ``(total,)`` buffer holding ``values[k]`` over the
     piece of shape ``shapes[k]`` (one fill each; ``repeat_interleave``
@@ -217,63 +271,96 @@ def _per_element(values, shapes, total, device):
     return out
 
 
+def _keep_if(finite, new, old):
+    """``new`` where ``finite`` (a 0-d bool tensor) holds, else
+    ``old``; ``new`` when ``finite`` is None."""
+    return new if finite is None else torch.where(finite, new, old)
+
+
 @torch.no_grad()
 def lars_bucket_update(ws, gs, ms, lrs, wds, skips, momentum=0.9,
-                       eta=0.001, epsilon=1e-9, rescale=1.0, clip=None):
+                       eta=0.001, epsilon=1e-9, rescale=1.0, clip=None,
+                       finite=None):
     """Bucket-flattened LARS over parameter lists (weights, gradients,
-    momenta; per-tensor ``lrs``/``wds``; ``skips`` the per-tensor flags
-    of the plain-momentum path).  Writes the new weights and momenta into
-    ``ws`` and ``ms`` in place and returns them."""
+    momenta; per-tensor ``lrs``/``wds``, numbers or fp32 ``(P,)``
+    tensors; ``skips`` the per-tensor flags of the plain-momentum path;
+    ``rescale`` a number or an fp32 tensor of one element).  Writes the
+    new weights and momenta into ``ws`` and ``ms`` in place (the old ones
+    where ``finite`` is false) and returns them."""
+    if not ws:
+        return ws, ms
     clipv = float(clip) if clip is not None and clip > 0 else 0.0
+    dev0 = ws[0].device
+    lrs, wds = _vector(lrs, dev0), _vector(wds, dev0)
+    rescale = _scalar_vector(rescale, 1, dev0)
     for _dtype, idxs in dtype_groups(ws):
         dev = ws[idxs[0]].device
         shapes = [ws[i].shape for i in idxs]
         total = sum(ws[i].numel() for i in idxs)
         # lr times the per-tensor trust ratio, on the device; a skipped
         # tensor keeps the ratio 1 and needs no norms
-        lr_t = torch.tensor([float(lrs[i]) for i in idxs],
-                            dtype=torch.float32, device=dev)
+        lr_t = _take(lrs, idxs)
         live = [k for k, i in enumerate(idxs) if not skips[i]]
         if live:
             wn = torch.stack([l2_norm(ws[idxs[k]]) for k in live])
             gn = []
             for k in live:
-                gr = gs[idxs[k]].float() * float(rescale)
+                gr = gs[idxs[k]].float() * rescale
                 if clipv > 0:
                     gr = torch.clamp(gr, -clipv, clipv)
                 gn.append(l2_norm(gr))
             gn = torch.stack(gn)
-            wd_l = torch.tensor([float(wds[idxs[k]]) for k in live],
-                                dtype=torch.float32, device=dev)
+            wd_l = _take(wds, [idxs[k] for k in live])
             trust = torch.where((wn > 0) & (gn > 0),
                                 eta * wn / (gn + wd_l * wn + epsilon), 1.0)
-            at = torch.tensor(live, device=dev)
-            lr_t.index_copy_(0, at, lr_t.index_select(0, at) * trust)
+            scaled = _take(lr_t, live) * trust
+            at = {k: j for j, k in enumerate(live)}
+            lr_t = torch.stack([scaled[at[k]] if k in at else lr_t[k]
+                                for k in range(len(idxs))])
         nW, nM = dispatch(
             "lars_flat", flatten_group(ws, idxs), flatten_group(gs, idxs),
             flatten_group(ms, idxs), _per_element(lr_t, shapes, total, dev),
-            _per_element([wds[i] for i in idxs], shapes, total, dev),
+            _per_element(_take(wds, idxs), shapes, total, dev),
             _per_element([-1.0 if skips[i] else 1.0 for i in idxs], shapes,
                          total, dev),
             rescale, momentum=momentum, clip=clipv)
         for i, pw, pm in zip(idxs, split_group(nW, shapes),
                              split_group(nM, shapes)):
-            ws[i].copy_(pw)
-            ms[i].copy_(pm)
+            ws[i].copy_(_keep_if(finite, pw, ws[i]))
+            ms[i].copy_(_keep_if(finite, pm, ms[i]))
     return ws, ms
+
+
+def lamb_bias_corrections(t, beta1=0.9, beta2=0.999, bias_correction=True):
+    """LAMB's ``(bc1, bc2) = (1 / (1 - beta1**t), 1 / (1 - beta2**t))``
+    for step ``t`` (``(1, 1)`` without bias correction), on the host."""
+    if not bias_correction:
+        return 1.0, 1.0
+    return 1.0 / (1.0 - beta1 ** t), 1.0 / (1.0 - beta2 ** t)
 
 
 @torch.no_grad()
 def lamb_bucket_update(ws, gs, means, variances, lrs, wds, t, beta1=0.9,
                        beta2=0.999, epsilon=1e-6, bias_correction=True,
                        lower_bound=None, upper_bound=None, rescale=1.0,
-                       clip=None):
+                       clip=None, finite=None, corrections=None):
     """Bucket-flattened LAMB over parameter lists (weights, gradients,
-    first and second moments; per-tensor ``lrs``/``wds``; ``t`` the step
-    count for bias correction).  Writes the new weights and moments into
-    ``ws``, ``means`` and ``variances`` in place and returns them."""
-    bc1 = 1.0 / (1.0 - beta1 ** t) if bias_correction else 1.0
-    bc2 = 1.0 / (1.0 - beta2 ** t) if bias_correction else 1.0
+    first and second moments; per-tensor ``lrs``/``wds``, numbers or
+    fp32 ``(P,)`` tensors; ``t`` the step count for bias correction,
+    unless ``corrections``, an fp32 ``(2,)`` tensor, gives ``(bc1,
+    bc2)``; ``rescale`` a number or an fp32 tensor of one element).
+    Writes the new weights and moments into ``ws``, ``means`` and
+    ``variances`` in place (the old ones where ``finite`` is false) and
+    returns them."""
+    if not ws:
+        return ws, means, variances
+    dev0 = ws[0].device
+    lrs, wds = _vector(lrs, dev0), _vector(wds, dev0)
+    if corrections is None:
+        corrections = lamb_bias_corrections(t, beta1, beta2,
+                                            bias_correction)
+    scalars = torch.cat([_scalar_vector(rescale, 1, dev0),
+                         _scalar_vector(corrections, 2, dev0)])
     for _dtype, idxs in dtype_groups(ws):
         dev = ws[idxs[0]].device
         shapes = [ws[i].shape for i in idxs]
@@ -282,9 +369,8 @@ def lamb_bucket_update(ws, gs, means, variances, lrs, wds, t, beta1=0.9,
         gw, nm, nv = dispatch(
             "lamb_phase1", W, flatten_group(gs, idxs),
             flatten_group(means, idxs), flatten_group(variances, idxs),
-            _per_element([wds[i] for i in idxs], shapes, total, dev),
-            (rescale, bc1, bc2), beta1=beta1, beta2=beta2, eps=epsilon,
-            clip=clip)
+            _per_element(_take(wds, idxs), shapes, total, dev),
+            scalars, beta1=beta1, beta2=beta2, eps=epsilon, clip=clip)
         # per-tensor trust ratio (lamb_update_phase2 semantics)
         r1 = _segment_norms(W, shapes)
         r2 = _segment_norms(gw, shapes)
@@ -293,16 +379,16 @@ def lamb_bucket_update(ws, gs, means, variances, lrs, wds, t, beta1=0.9,
         if upper_bound is not None and upper_bound > 0:
             r1 = torch.clamp_max(r1, upper_bound)
         ratio = torch.where((r1 == 0) | (r2 == 0), 1.0, r1 / r2)
-        step = torch.tensor([float(lrs[i]) for i in idxs],
-                            dtype=torch.float32, device=dev) * ratio
+        step = _take(lrs, idxs) * ratio
         # phase 2, w -= lr * ratio * gw, and the moments, written back
         # tensor by tensor
         for k, (i, pg, pm, pv) in enumerate(zip(
                 idxs, split_group(gw, shapes), split_group(nm, shapes),
                 split_group(nv, shapes))):
-            ws[i].addcmul_(pg, step[k], value=-1.0)
-            means[i].copy_(pm)
-            variances[i].copy_(pv)
+            new = torch.addcmul(ws[i], pg, step[k], value=-1.0)
+            ws[i].copy_(_keep_if(finite, new, ws[i]))
+            means[i].copy_(_keep_if(finite, pm, means[i]))
+            variances[i].copy_(_keep_if(finite, pv, variances[i]))
     return ws, means, variances
 
 
@@ -313,30 +399,42 @@ def bucket_supported(opt) -> bool:
     return type(opt) in (LARS, LAMB)
 
 
-def bucket_update(opt, items):
+def bucket_update(opt, items, feed=None, finite=None):
     """The bucketed update ``TrainStep`` runs: ``items`` is ``[(index,
     weight, grad, state)]``; ``opt``'s update counts must already have
-    advanced for this step.  Updates weights and states in place."""
+    advanced for this step.  Updates weights and states in place.
+
+    ``feed``, when given, holds this step's scalars as device tensors
+    (``lrs`` and ``wds`` ``(P,)`` in ``items``' order, ``rescale``
+    ``(1,)``, ``corrections`` LAMB's ``(bc1, bc2)``): the JAX step's
+    traced ``lrs, wds, rescale, t``.  Without it they are read from the
+    optimizer on the host.  ``finite`` keeps the old weights and states
+    where it is false."""
     if not bucket_supported(opt):
         raise MXNetError("no bucketed update for %s" % type(opt).__name__)
     from ..optimizer import LARS
     idxs = [i for i, _w, _g, _s in items]
     ws = [w for _i, w, _g, _s in items]
     gs = [g for _i, _w, g, _s in items]
-    lrs = [opt._get_lr(i) for i in idxs]
-    wds = [opt._get_wd(i) for i in idxs]
+    if feed is not None:
+        lrs, wds, rescale = feed["lrs"], feed["wds"], feed["rescale"]
+    else:
+        lrs = [opt._get_lr(i) for i in idxs]
+        wds = [opt._get_wd(i) for i in idxs]
+        rescale = opt.rescale_grad
     if type(opt) is LARS:
         lars_bucket_update(
             ws, gs, [s for _i, _w, _g, s in items], lrs, wds,
             [opt._skip_lars(i) for i in idxs], momentum=opt.momentum,
-            eta=opt.eta, epsilon=opt.epsilon, rescale=opt.rescale_grad,
-            clip=opt.clip_gradient)
+            eta=opt.eta, epsilon=opt.epsilon, rescale=rescale,
+            clip=opt.clip_gradient, finite=finite)
         return
-    t = opt._index_update_count[idxs[0]]
+    t = opt._index_update_count[idxs[0]] if idxs else 0
     lamb_bucket_update(
         ws, gs, [s[0] for _i, _w, _g, s in items],
         [s[1] for _i, _w, _g, s in items], lrs, wds, t,
         beta1=opt.beta1, beta2=opt.beta2, epsilon=opt.epsilon,
         bias_correction=opt.bias_correction, lower_bound=opt.lower_bound,
-        upper_bound=opt.upper_bound, rescale=opt.rescale_grad,
-        clip=opt.clip_gradient)
+        upper_bound=opt.upper_bound, rescale=rescale,
+        clip=opt.clip_gradient, finite=finite,
+        corrections=None if feed is None else feed["corrections"])

@@ -14,9 +14,16 @@ each time a launcher has launched its kernel (the launcher calls
 :func:`count_launch`), so a run can prove that its path went through
 the kernel; a launcher that passes the dtype it ran on also counts the
 launch under that dtype (:func:`launch_dtypes`).
+
+A launch made while a CUDA graph is being captured does not run: it is
+recorded.  Inside :func:`counting_into` such launches go to the graph's
+tally instead of the counters, and :func:`add_launches` adds the tally
+at every replay of the graph, so the counters keep counting the
+kernels that ran.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from collections import Counter
 from dataclasses import dataclass, field
@@ -25,8 +32,8 @@ from typing import Callable, Dict, List
 from ..base import MXNetError
 
 __all__ = ["KernelSpec", "register_kernel", "get", "list_kernels",
-           "dispatch", "count_launch", "launch_dtypes", "launches",
-           "reset_launches"]
+           "dispatch", "count_launch", "counting_into", "add_launches",
+           "launch_dtypes", "launches", "reset_launches"]
 
 
 @dataclass
@@ -46,6 +53,7 @@ class KernelSpec:
 
 KERNELS: Dict[str, KernelSpec] = {}
 _count_lock = threading.Lock()
+_tally = None      # the Counter of the graph being captured, if any
 
 
 def register_kernel(spec: KernelSpec) -> KernelSpec:
@@ -88,14 +96,55 @@ def dispatch(name: str, x, *args, **kwargs):
                      % (name, x.device))
 
 
+def _dtype_name(dtype):
+    return None if dtype is None else str(dtype).replace("torch.", "")
+
+
 def count_launch(name: str, dtype=None) -> None:
     """Called by a launcher right after its kernel launched, with the
-    dtype it ran on where that varies."""
+    dtype it ran on where that varies.  A launch recorded into a CUDA
+    graph under :func:`counting_into` goes to that graph's tally (the
+    check of the capturing stream covers the autograd engine's thread,
+    which runs a captured backward on the capture stream)."""
     spec = get(name)
     with _count_lock:
+        if _tally is not None:
+            import torch
+            if torch.cuda.is_current_stream_capturing():
+                _tally[(name, _dtype_name(dtype))] += 1
+                return
         spec.launches += 1
         if dtype is not None:
-            spec.dtypes[str(dtype).replace("torch.", "")] += 1
+            spec.dtypes[_dtype_name(dtype)] += 1
+
+
+@contextlib.contextmanager
+def counting_into(tally: Counter):
+    """Within the scope, launches recorded by a capturing stream count
+    into ``tally`` (``{(name, dtype name or None): launches}``) and not
+    into the counters.  One capture at a time."""
+    global _tally
+    with _count_lock:
+        if _tally is not None:
+            raise MXNetError("counting_into: a capture is already "
+                             "counting")
+        _tally = tally
+    try:
+        yield tally
+    finally:
+        with _count_lock:
+            _tally = None
+
+
+def add_launches(tally) -> None:
+    """Add a captured graph's tally to the counters: called at each
+    replay, which launches every kernel the graph recorded."""
+    with _count_lock:
+        for (name, dtype), n in tally.items():
+            spec = KERNELS[name]
+            spec.launches += n
+            if dtype is not None:
+                spec.dtypes[dtype] += n
 
 
 def launches(name: str) -> int:

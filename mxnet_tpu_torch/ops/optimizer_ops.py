@@ -10,6 +10,11 @@ direction, ``lamb_update_phase2`` the trust-ratio step.  Where the JAX
 ops return new arrays, these update ``weight`` (and ``mom``, ``mean``,
 ``var``) in place under ``torch.no_grad()``, so a step allocates no
 second copy of the model.
+
+``lr``, ``wd`` and ``rescale_grad`` may be 0-d fp32 tensors (a captured
+``TrainStep`` feeds them from the device); the update of a tensor below
+fp32 is then computed in fp32, so a scalar is never rounded to the
+weight's dtype.
 """
 from __future__ import annotations
 
@@ -21,7 +26,15 @@ __all__ = ["lamb_update_phase1", "lamb_update_phase2", "lars_update",
            "sgd_mom_update", "sgd_update"]
 
 
+def _fp32_if_fed(scalar, *tensors):
+    """``tensors`` upcast to fp32 where ``scalar`` is a tensor."""
+    if isinstance(scalar, torch.Tensor):
+        return tuple(t.float() for t in tensors)
+    return tensors
+
+
 def _apply_wd(grad, weight, wd, rescale_grad, clip_gradient):
+    grad, weight = _fp32_if_fed(rescale_grad, grad, weight)
     g = grad * rescale_grad
     if clip_gradient is not None and clip_gradient > 0:
         g = torch.clamp(g, -clip_gradient, clip_gradient)
@@ -52,13 +65,14 @@ def lars_update(weight, grad, mom, lr=0.01, momentum=0.9, eta=0.001,
     (||g|| + wd * ||w|| + eps)`` of this tensor (1 where either norm is
     0), ``g = clip(grad * rescale_grad)``; ``mom' = momentum * mom + lr *
     trust * (g + wd * w)``, ``w' = w - mom'``."""
+    wf, grad = _fp32_if_fed(rescale_grad, weight, grad)
     g = grad * rescale_grad
     if clip_gradient is not None and clip_gradient > 0:
         g = torch.clamp(g, -clip_gradient, clip_gradient)
-    w_norm, g_norm = l2_norm(weight), l2_norm(g)
+    w_norm, g_norm = l2_norm(wf), l2_norm(g)
     trust = torch.where((w_norm > 0) & (g_norm > 0),
                         eta * w_norm / (g_norm + wd * w_norm + epsilon), 1.0)
-    mom.copy_(momentum * mom + (lr * trust) * (g + wd * weight))
+    mom.copy_(momentum * mom + (lr * trust) * (g + wd * wf))
     weight.sub_(mom)
     return weight, mom
 

@@ -11,7 +11,8 @@ the K/V that its block table names in the paged cache (counterpart of
   into partitions of :func:`partition_blocks` table blocks and merges
   their partial softmax results; the wrapper hands it the fp32 scratch
   for the partials and the per-(slot, head) merge tickets, both kept
-  per stream and reused from call to call.
+  per stream and reused from call to call; a stream that captures CUDA
+  graphs has its pair reserved before capture (:func:`reserve_scratch`).
 
 Layout: q ``(slots, heads, head_dim)``; per-layer cache slabs
 ``(num_blocks, block_size, heads, head_dim)``; ``block_tables``
@@ -30,7 +31,8 @@ from ..base import MXNetError
 from ..kernels.registry import count_launch
 
 __all__ = ["NEG_INF", "PARTITION_TOKENS", "paged_attention_reference",
-           "paged_attention_cuda", "partition_blocks"]
+           "paged_attention_cuda", "partition_blocks", "reserve_scratch",
+           "scratch_sizes"]
 
 NEG_INF = -1e30
 PARTITION_TOKENS = 64      # about the tokens one kernel block takes
@@ -134,19 +136,44 @@ def _lib():
 
 
 _scratch = {}
+_retired = []      # outgrown pairs: a captured graph may still use one
+
+
+def scratch_sizes(slots, heads, head_dim, max_blocks, block_size):
+    """``(tickets, partials)``: the scratch elements one call of
+    ``slots`` slots over tables ``max_blocks`` wide needs."""
+    max_parts = -(-max_blocks // partition_blocks(block_size))
+    return slots * heads, slots * max_parts * heads * (head_dim + 2)
+
+
+def reserve_scratch(device, stream, n_tickets, n_partials):
+    """Make ``stream``'s scratch at least this large now, outside any
+    capture: a CUDA graph captured on ``stream`` then uses it on every
+    replay (the decode engine reserves its largest bucket's before it
+    captures)."""
+    return _scratch_for(torch.device(device), stream, n_tickets, n_partials)
 
 
 def _scratch_for(device, stream, n_tickets, n_partials):
     """The merge tickets (int32) and partials (fp32) of ``stream``, at
     least ``n_tickets`` and ``n_partials`` long.  A stream's calls run
     in order, so they share one pair, made once and grown to the largest
-    call: the kernel leaves the tickets at zero, and a call reads only
-    the partials it wrote."""
+    call: the kernel leaves the tickets at zero (a replayed graph relies
+    on it), and a call reads only the partials it wrote.  A capturing
+    stream must find its pair made (:func:`reserve_scratch`): it never
+    allocates one into the graph's pool.  An outgrown pair is kept
+    alive, since a graph captured earlier still points at it."""
     key = (device.index, stream)
     pair = _scratch.get(key)
     if pair is None or pair[0].numel() < n_tickets \
             or pair[1].numel() < n_partials:
+        if torch.cuda.is_current_stream_capturing():
+            raise MXNetError(
+                "paged_attention: the capturing stream has no scratch of "
+                "%d tickets and %d partials; reserve_scratch() it before "
+                "capture" % (n_tickets, n_partials))
         if pair is not None:
+            _retired.append(pair)
             n_tickets = max(n_tickets, pair[0].numel())
             n_partials = max(n_partials, pair[1].numel())
         pair = _scratch[key] = (
@@ -165,13 +192,12 @@ def paged_attention_cuda(q, k_cache, v_cache, block_tables, context_lens,
     slots, heads, d = q.shape
     block_size, max_blocks = k_cache.shape[1], block_tables.shape[1]
     part = partition_blocks(block_size)
-    max_parts = -(-max_blocks // part)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         tickets, partials = _scratch_for(
-            q.device, stream, slots * heads,
-            slots * max_parts * heads * (d + 2))
+            q.device, stream, *scratch_sizes(slots, heads, d, max_blocks,
+                                             block_size))
         rc = lib.paged_attention_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             block_tables.data_ptr(), context_lens.data_ptr(),

@@ -5,8 +5,17 @@ every parameter (counterpart of
 ``step = TrainStep(net, loss_fn, trainer)`` then ``loss = step(x, y)``,
 or ``losses = step.run_steps(xs, ys)`` for K steps over batches stacked
 on a leading axis.  The JAX package compiles the step (and the K-step
-``lax.scan``) into one XLA program; the port runs it eagerly with the
-same contract:
+``lax.scan``) into one donated XLA program.  The port's counterpart on
+the card is one captured CUDA graph per key (:mod:`.._capture`): the
+data's shape and dtype, the label's, ``batch_size``, the AMP policy and
+whether an fp16 loss scaler is attached.  A key's first call runs the
+step eagerly on the capture stream (the warm-up); its second captures
+forward, loss, backward, the finite check and the update as one graph;
+every call from then on copies the batch into the graph's static inputs
+and replays it.  The graph is captured again when a parameter or
+optimizer state it read was rebound (``load_parameters``,
+``restore_training``, ``cast``).  On the CPU a key's entry is the eager
+step.  The contract is the JAX step's:
 
 - parameters whose shape is still deferred are materialized by one
   forward under ``autograd.pause()`` (predict mode) before the first
@@ -15,11 +24,18 @@ same contract:
   cast back before optimizer state is made from it;
 - the per-sample loss is **summed** over the batch for backward, and
   the update rescales by ``trainer._scale / batch_size``;
+- the per-step scalars -- ``rescale_grad``, the loss scale, the update
+  count ``t``, LAMB's bias corrections and each parameter's lr and wd --
+  reach the step as one fp32 device tensor, refreshed before each step
+  by one copy from a pinned host buffer (the JAX step's traced ``t,
+  lrs, wds, rescale, loss_scale``), so ``trainer.set_learning_rate``
+  takes effect at the next step without a new capture;
 - with an fp16 loss scaler attached to the trainer
   (:func:`mxnet_tpu_torch.amp.init_trainer`), the summed loss is scaled
   by ``loss_scale`` for backward, ``1 / loss_scale`` is folded into the
-  update's ``rescale_grad``, and the step's finite check updates the
-  scale;
+  update's ``rescale_grad``, and the step's finite flag, read on the
+  host once after the step (the scaler's counters live on the host, as
+  in the JAX package), updates the scale;
 - a parameter that backward leaves without a gradient is updated as
   with a zero gradient (the JAX step's ``value_and_grad`` gives zeros);
 - a ``LARS`` or ``LAMB`` optimizer is applied over one flat bucket per
@@ -27,9 +43,10 @@ same contract:
   the JAX step's path under ``MXNET_TPU_KERNELS=1``; the port has no
   switch), any other optimizer parameter by parameter;
 - the update counts advance every step, but when any gradient is not
-  finite the weights and optimizer state are left as they were (one
-  host check per step); running statistics keep the forward's update,
-  as in the JAX package;
+  finite the weights and optimizer state keep their old values: a
+  select on the device (``torch.where(all_finite, new, old)``), no host
+  read; running statistics keep the forward's update, as in the JAX
+  package;
 - ``__call__`` returns the mean loss, a 0-d tensor; ``run_steps``
   returns the K mean losses as a ``(K,)`` tensor on the device, reads
   lr and wd once at the start of the block, and refuses an fp16 loss
@@ -41,10 +58,13 @@ import contextlib
 
 import torch
 
+from .. import _capture
+from .. import amp as _amp
 from .. import autograd
 from ..amp.loss_scaler import all_finite
 from ..base import MXNetError
-from ..kernels.optimizer_update import bucket_supported, bucket_update
+from ..kernels.optimizer_update import (bucket_supported, bucket_update,
+                                        lamb_bias_corrections)
 
 __all__ = ["TrainStep"]
 
@@ -55,11 +75,96 @@ def _rates_held(opt, idxs):
     values read on entry."""
     lrs = {i: opt._get_lr(i) for i in idxs}
     wds = {i: opt._get_wd(i) for i in idxs}
-    opt._get_lr, opt._get_wd = lrs.__getitem__, wds.__getitem__
+    with _optimizer_reads(opt, lrs.__getitem__, wds.__getitem__):
+        yield
+
+
+@contextlib.contextmanager
+def _optimizer_reads(opt, get_lr, get_wd, rescale=None):
+    """Within the scope the optimizer reads its lr and wd from the given
+    functions (and ``rescale_grad`` from ``rescale``, where given); the
+    ones it had are back on exit."""
+    names = ("_get_lr", "_get_wd")
+    held = {k: opt.__dict__[k] for k in names if k in opt.__dict__}
+    saved = opt.rescale_grad
+    opt._get_lr, opt._get_wd = get_lr, get_wd
+    if rescale is not None:
+        opt.rescale_grad = rescale
     try:
         yield
     finally:
-        del opt._get_lr, opt._get_wd
+        for k in names:
+            opt.__dict__.pop(k, None)
+        opt.__dict__.update(held)
+        opt.rescale_grad = saved
+
+
+def _dtype_name(dtype):
+    return str(dtype).replace("torch.", "")
+
+
+def _tensors(state):
+    """The tensors of an optimizer state (None, a tensor or a tuple)."""
+    if isinstance(state, torch.Tensor):
+        return [state]
+    if isinstance(state, (tuple, list)):
+        return [t for s in state for t in _tensors(s)]
+    return []
+
+
+class _StepScalars:
+    """A step's per-step scalars as one fp32 tensor on the device:
+    ``[rescale, loss_scale, t, bc1, bc2, lr_0.., wd_0..]`` over the
+    parameters that take a gradient.  :meth:`set` refreshes it before
+    each step; on the card by one copy from a pinned host buffer, two
+    buffers taken in turn, each rewritten only once its last copy has
+    finished."""
+
+    HEAD = 5
+
+    def __init__(self, n, device):
+        self.n = n
+        self.dev = torch.zeros(self.HEAD + 2 * n, dtype=torch.float32,
+                               device=device)
+        self._host, self._done, self._turn = [], [], 0
+        if device.type == "cuda":
+            self._host = [torch.zeros(self.dev.shape, dtype=torch.float32,
+                                      pin_memory=True) for _ in range(2)]
+            self._done = [None, None]
+
+    def set(self, values):
+        vals = torch.tensor(values, dtype=torch.float32)
+        if not self._host:
+            self.dev.copy_(vals)
+            return
+        k, self._turn = self._turn, self._turn ^ 1
+        if self._done[k] is not None:
+            self._done[k].synchronize()
+        self._host[k].copy_(vals)
+        self.dev.copy_(self._host[k], non_blocking=True)
+        self._done[k] = torch.cuda.Event()
+        self._done[k].record()
+
+    @property
+    def rescale(self):
+        return self.dev[0]
+
+    @property
+    def loss_scale(self):
+        return self.dev[1]
+
+    @property
+    def lrs(self):
+        return self.dev[self.HEAD:self.HEAD + self.n]
+
+    @property
+    def wds(self):
+        return self.dev[self.HEAD + self.n:]
+
+    def feed(self):
+        """The bucketed update's scalars (:func:`bucket_update`)."""
+        return {"lrs": self.lrs, "wds": self.wds,
+                "rescale": self.dev[0:1], "corrections": self.dev[3:5]}
 
 
 class TrainStep:
@@ -71,7 +176,23 @@ class TrainStep:
         self._loss_fn = loss_fn
         self._trainer = trainer
         self._batch_axis = batch_axis
-        self.last_step_finite = None
+        self._owner = None
+        self._scalars = None
+        self._finite = None
+
+    @property
+    def last_step_finite(self):
+        """Whether every gradient of the last step was finite (None
+        before the first step).  The step keeps the flag as a 0-d bool
+        on the device; this property reads it on the host, lazily, when
+        it is asked for."""
+        return None if self._finite is None else bool(self._finite)
+
+    def capture_stats(self):
+        """The graphs of this step and its keys
+        (:meth:`GraphOwner.stats`)."""
+        return self._owner.stats() if self._owner is not None \
+            else {"keys": []}
 
     def _device(self):
         for p in self._block.collect_params().values():
@@ -105,40 +226,93 @@ class TrainStep:
             p._data.grad = None
         return live
 
-    def _step(self, live, data, label, batch_size):
-        """One forward, backward and update; the mean loss, on the
-        device."""
+    def _feed(self, live, batch_size, data):
+        """Advance the update counts and refresh the per-step scalars;
+        returns the scalars and whether the loss is scaled."""
         tr = self._trainer
         opt = tr._optimizer
         scaler = getattr(tr, "_amp_loss_scaler", None)
         loss_scale = scaler.loss_scale if scaler is not None else 1.0
-        with autograd.record():
-            loss = self._loss_fn(self._block(data), label)
-        total = loss.sum()
-        (total * loss_scale if scaler is not None else total).backward()
-
-        for i, _p in live:
+        idxs = [i for i, _p in live]
+        for i in idxs:
             opt._update_count(i)
         bs = batch_size if batch_size is not None \
             else data.shape[self._batch_axis]
         opt.rescale_grad = tr._scale / bs / loss_scale
-        grads = [p._data.grad if p._data.grad is not None
-                 else torch.zeros_like(p._data) for _i, p in live]
-        finite = bool(all_finite(grads))
-        self.last_step_finite = finite
-        if scaler is not None:
-            scaler.update_scale(not finite)
-        if finite:
-            states = tr._updater.states
-            if bucket_supported(opt):
-                bucket_update(opt, [(i, p._data, g, states[i])
-                                    for (i, p), g in zip(live, grads)])
-            else:
-                for (i, p), g in zip(live, grads):
-                    opt._apply(i, p._data, g, states[i])
+        t = opt._index_update_count[idxs[0]] if idxs else 0
+        bcs = lamb_bias_corrections(t, opt.beta1, opt.beta2,
+                                    opt.bias_correction) \
+            if hasattr(opt, "bias_correction") else (1.0, 1.0)
+        if self._scalars is None or self._scalars.n != len(idxs) \
+                or self._scalars.dev.device != data.device:
+            self._scalars = _StepScalars(len(idxs), data.device)
+        self._scalars.set([opt.rescale_grad, loss_scale, t, *bcs]
+                          + [opt._get_lr(i) for i in idxs]
+                          + [opt._get_wd(i) for i in idxs])
+        return self._scalars, scaler
+
+    def _body(self, live, data, label, sc, scaled):
+        """One forward, backward and update, reading the per-step scalars
+        from ``sc`` and nothing from the host; the mean loss and the
+        finite flag, on the device."""
+        tr = self._trainer
+        opt = tr._optimizer
         for _i, p in live:
             p._data.grad = None
-        return loss.detach().mean()
+        with autograd.record():
+            loss = self._loss_fn(self._block(data), label)
+        total = loss.sum()
+        (total * sc.loss_scale if scaled else total).backward()
+        grads = [p._data.grad if p._data.grad is not None
+                 else torch.zeros_like(p._data) for _i, p in live]
+        finite = all_finite(grads)
+        states = tr._updater.states
+        if bucket_supported(opt):
+            bucket_update(opt, [(i, p._data, g, states[i])
+                                for (i, p), g in zip(live, grads)],
+                          feed=sc.feed(), finite=finite)
+        else:
+            pos = {i: k for k, (i, _p) in enumerate(live)}
+            with _optimizer_reads(opt, lambda i: sc.lrs[pos[i]],
+                                  lambda i: sc.wds[pos[i]], sc.rescale), \
+                    torch.no_grad():
+                for (i, p), g in zip(live, grads):
+                    kept = [p._data] + _tensors(states[i])
+                    old = [t.clone() for t in kept]
+                    opt._apply(i, p._data, g, states[i])
+                    for t, o in zip(kept, old):
+                        t.copy_(torch.where(finite, t, o))
+        for _i, p in live:
+            p._data.grad = None
+        return loss.detach().mean(), finite
+
+    def _watched(self, live):
+        """The tensors a captured step reads that a user may rebind:
+        every parameter of the block and every optimizer state."""
+        states = self._trainer._updater.states
+        return [p._data for p in self._block.collect_params().values()] \
+            + [t for i, _p in live for t in _tensors(states.get(i))] \
+            + [self._scalars.dev]
+
+    def _step(self, live, data, label, batch_size):
+        """One step through the key's entry: eager on the CPU and on a
+        key's first call on the card, a replay of its graph after."""
+        sc, scaler = self._feed(live, batch_size, data)
+        scaled = scaler is not None
+        key = (tuple(data.shape), _dtype_name(data.dtype),
+               tuple(label.shape), _dtype_name(label.dtype), batch_size,
+               _amp.policy_token(), scaled, str(data.device))
+        if self._owner is None:
+            self._owner = _capture.GraphOwner(
+                "TrainStep(%s)" % type(self._block).__name__, data.device)
+        loss, finite = self._owner.run(
+            key, lambda x, y: self._body(live, x, y, sc, scaled),
+            [data, label], self._watched(live),
+            "the step of key %r" % (key,))
+        self._finite = finite
+        if scaled:
+            scaler.update_scale(not bool(finite))
+        return loss
 
     def __call__(self, data, label, batch_size=None):
         device = self._device()
@@ -149,8 +323,9 @@ class TrainStep:
 
     def run_steps(self, data, label, batch_size=None):
         """K training steps over ``data``/``label`` of shape ``(K, B,
-        ...)``: step k trains on ``data[k]``, ``label[k]``.  Returns the
-        K mean losses as a ``(K,)`` tensor on the device."""
+        ...)``: step k trains on ``data[k]``, ``label[k]`` (on the card,
+        K replays of the step's graph, each batch copied on the device).
+        Returns the K mean losses as a ``(K,)`` tensor on the device."""
         tr = self._trainer
         if getattr(tr, "_amp_loss_scaler", None) is not None:
             raise MXNetError(

@@ -3,8 +3,10 @@
 MXNet draws dropout masks and random initial values from one
 process-wide seed.  The port keeps one :class:`torch.Generator` per
 device, made from that seed at first use; :func:`seed` starts them all
-again.  The numbers differ from the JAX package's for the same seed
-(another generator): tests hand both the same inputs instead.
+again, in place, so a CUDA graph that registered a generator
+(:mod:`mxnet_tpu_torch._capture`) keeps drawing from it.  The numbers
+differ from the JAX package's for the same seed (another generator):
+tests hand both the same inputs instead.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ def seed(seed_state):
     """Re-seed every device's generator with ``seed_state``."""
     with _lock:
         _state["seed"] = int(seed_state)
-        _state["generators"] = {}
+        for gen in _state["generators"].values():
+            gen.manual_seed(_state["seed"])
 
 
 def generator(device):

@@ -5,10 +5,16 @@ decode, continuous batching, token streaming (counterpart of
 - **bucketed split**: prefill (whole prompt -> cache blocks + first
   token) runs at batch 1, padded to a PROMPT-LENGTH bucket; the decode
   step (one token per slot over the paged cache) runs padded to a
-  SLOT-COUNT bucket.  PyTorch runs eagerly, so there is nothing to
-  compile: :meth:`DecodeEngine.warmup` runs every bucket once, which
-  builds the CUDA kernels and sets up the matmul libraries before the
-  first request.
+  SLOT-COUNT bucket.  The JAX engine compiles one program per bucket;
+  on the card the port captures one CUDA graph per bucket, all in one
+  memory pool (:mod:`..._capture`): :meth:`DecodeEngine.warmup` runs
+  every bucket once eagerly on the capture stream (the kernels' build,
+  the matmul libraries' set-up), then captures and replays it.  A
+  decode graph reads tokens, positions and block tables from static
+  buffers that each step refreshes with ``copy_``, and writes the new
+  K/V into the cache slabs, allocated once; a prefill graph's K/V go
+  into the cache blocks after its replay, by an eager scatter over
+  host-computed positions.  On the CPU every bucket runs eagerly.
 - **continuous batching**: one worker thread runs an admit-then-step
   loop.  Pending requests join the RUNNING batch at a step boundary
   (one prefill each), finished sequences vacate their slot the step
@@ -35,8 +41,10 @@ import time
 import numpy as np
 import torch
 
+from ... import _capture
 from ...base import MXNetError
 from ...context import resolve_device
+from ...ops.paged_attention import reserve_scratch, scratch_sizes
 from ..batcher import RequestTimeout, ServableClosed, ServingQueueFull
 from .kvcache import SCRATCH_BLOCK, KVCacheExhausted, PagedKVCache
 
@@ -214,17 +222,33 @@ class DecodeEngine:
         self._drain = True
         self._drained_live = 0      # sequences in flight at close()
         self._thread = None
+        self._owner = _capture.GraphOwner("DecodeEngine(%s)" % label,
+                                          self.device)
 
     # -- the two programs -----------------------------------------------
     def _to_device(self, array):
         return torch.from_numpy(array).to(self.device)
 
+    def capture_stats(self):
+        """Graphs captured, seconds capturing, pool bytes, replays."""
+        return self._owner.stats()
+
+    def _program(self, kind, bucket, arrays, fn):
+        """``fn`` over ``arrays`` (host int32 arrays) on the device:
+        eagerly on the CPU and at a bucket's first run (on the card, on
+        the capture stream); after that a replay of the bucket's graph,
+        its static inputs refreshed by ``copy_``."""
+        return self._owner.run((kind, bucket), fn,
+                               [torch.from_numpy(a) for a in arrays],
+                               what="%s bucket %d" % (kind, bucket))
+
     def _run_prefill(self, tokens, table, true_len):
         """tokens (1, bucket) int32, table (max_blocks,) int32 -> first
         generated token.  The prompt's K/V go into the cache in place."""
         bs = self.cache.block_size
-        logits, ks, vs = self.model.prefill_kv(self.params,
-                                                self._to_device(tokens))
+        logits, ks, vs = self._program(
+            "prefill", tokens.shape[1], [tokens],
+            lambda t: self.model.prefill_kv(self.params, t))
         pos = np.arange(true_len)
         blk = self._to_device(table[pos // bs].astype(np.int64))
         off = self._to_device(pos % bs)
@@ -237,10 +261,11 @@ class DecodeEngine:
         """One decode step over (bucket,) tokens/positions and
         (bucket, max_blocks) tables -> next token per slot."""
         self.decode_steps += 1
-        out, _logits, _k, _v = self.model.decode_logits(
-            self.params, self.cache.keys, self.cache.values,
-            self._to_device(tokens), self._to_device(positions),
-            self._to_device(tables), self.cache.block_size)
+        out = self._program(
+            "decode", tokens.shape[0], [tokens, positions, tables],
+            lambda t, p, b: self.model.decode_logits(
+                self.params, self.cache.keys, self.cache.values, t, p, b,
+                self.cache.block_size)[0])
         return out.tolist()
 
     def _device_scope(self):
@@ -250,18 +275,32 @@ class DecodeEngine:
 
     def warmup(self):
         """Run every prefill and decode bucket once on scratch-only
-        tables (kernel build, library set-up); returns the seconds it
-        took.  Warm-up writes land in the scratch block only."""
+        tables (kernel build, library set-up) and, on the card, capture
+        and replay its graph; returns the seconds it took.  Warm-up
+        writes land in the scratch block only."""
         t0 = time.perf_counter()
         mb = self.max_blocks_per_seq
         scratch = np.full((mb,), SCRATCH_BLOCK, np.int32)
+        runs = 2 if self._owner.cuda else 1
         with self._device_scope():
+            if self._owner.cuda:
+                # the paged-attention scratch of the largest bucket, made
+                # before any capture on the engine's stream
+                reserve_scratch(self._owner.device,
+                                self._owner.stream.cuda_stream,
+                                *scratch_sizes(
+                                    self.max_slots, self.model.num_heads,
+                                    self.model.head_dim, mb,
+                                    self.cache.block_size))
             for b in self.prefill_buckets:
-                self._run_prefill(np.zeros((1, b), np.int32), scratch, b)
+                for _ in range(runs):
+                    self._run_prefill(np.zeros((1, b), np.int32), scratch,
+                                      b)
             for s in self.decode_buckets:
-                self._run_decode(np.zeros((s,), np.int32),
-                                 np.zeros((s,), np.int32),
-                                 np.full((s, mb), SCRATCH_BLOCK, np.int32))
+                for _ in range(runs):
+                    self._run_decode(
+                        np.zeros((s,), np.int32), np.zeros((s,), np.int32),
+                        np.full((s, mb), SCRATCH_BLOCK, np.int32))
         return time.perf_counter() - t0
 
     def _bucket(self, buckets, n, what):

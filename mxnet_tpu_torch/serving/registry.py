@@ -166,7 +166,9 @@ class ModelRegistry:
             source = "block"
         fn, device = self._from_block(block, input_shape, dtype)
         buckets = tuple(buckets) if buckets else _default_buckets()
-        pool = BucketExecutorPool(fn, input_shape, dtype, buckets, device)
+        pool = BucketExecutorPool(
+            fn, input_shape, dtype, buckets, device,
+            watch=lambda: [p._data for p in block._all_params()])
         if warmup:
             pool.warmup()
         batcher = DynamicBatcher(pool, label=name, max_wait_ms=max_wait_ms,

@@ -721,7 +721,8 @@ def test_lamb_phase1_kernel_matches_plain(cuda, dtype, n, offset, clip):
 
     w, gr, m, v = buf(), buf(), buf(), buf(positive=True)
     wd = buf(torch.float32, positive=True) * 0.01
-    scalars = (0.5, 1.0 / (1 - 0.9 ** 4), 1.0 / (1 - 0.999 ** 4))
+    scalars = torch.tensor((0.5, 1.0 / (1 - 0.9 ** 4),
+                            1.0 / (1 - 0.999 ** 4)), device=cuda)
     c0 = registry.launches("lamb_phase1")
     got = dispatch("lamb_phase1", w, gr, m, v, wd, scalars, beta1=0.9,
                    beta2=0.999, eps=1e-6, clip=clip)
@@ -804,11 +805,12 @@ def test_lars_flat_kernel_matches_plain(cuda, dtype, n, offset, clip):
     from mxnet_tpu_torch.kernels.registry import dispatch
     w, gr, m, lr, wd, sign = _lars_case(cuda, n, offset, dtype)
     c0 = registry.launches("lars_flat")
-    got = dispatch("lars_flat", w, gr, m, lr, wd, sign, 0.25,
+    rescale = torch.tensor([0.25], device=cuda)
+    got = dispatch("lars_flat", w, gr, m, lr, wd, sign, rescale,
                    momentum=0.9, clip=clip)
     assert registry.launches("lars_flat") == c0 + 1
-    want = lars_flat_reference(w, gr, m, lr, wd, sign, 0.25, momentum=0.9,
-                               clip=clip)
+    want = lars_flat_reference(w, gr, m, lr, wd, sign, rescale,
+                               momentum=0.9, clip=clip)
     torch.cuda.synchronize()
     for name, a, b in zip(("w", "m"), got, want):
         assert a.dtype == dtype and a.shape == (n,)
@@ -832,7 +834,10 @@ def test_lars_flat_wrapper_rejects_what_the_kernel_does_not_take(cuda):
          "not contiguous")]
     for args, msg in cases:
         with pytest.raises(MXNetError, match=msg):
-            lars_flat_cuda(*args, 1.0)
+            lars_flat_cuda(*args, torch.ones(1, device=cuda))
+    for rescale in (1.0, torch.ones(1), torch.ones(2, device=cuda)):
+        with pytest.raises(MXNetError, match="per-step scalars"):
+            lars_flat_cuda(w, gr, m, lr, wd, sign, rescale)
 
 
 def test_lars_bucket_update_on_the_card_matches_the_cpu(cuda):

@@ -64,7 +64,8 @@ def test_phase1_matches_pallas_kernel(clip, n):
         jnp.asarray(scalars, jnp.float32), beta1=0.9, beta2=0.999,
         eps=1e-6, clip=clip, interpret=True)
     tgw, tm, tv = tkopt.lamb1_reference(
-        *(torch.tensor(a) for a in (w, g, m, v, wd)), scalars, beta1=0.9,
+        *(torch.tensor(a) for a in (w, g, m, v, wd)),
+        torch.tensor(scalars, dtype=torch.float32), beta1=0.9,
         beta2=0.999, eps=1e-6, clip=clip)
     assert tgw.dtype == torch.float32
     for name, t, j in (("gw", tgw, jgw), ("m", tm, jm), ("v", tv, jv)):

@@ -72,8 +72,8 @@ def test_flat_pass_matches_pallas_kernel(n, clip, dtype):
         clip=clip, interpret=True)
     tw, tm = tkopt.lars_flat_reference(
         *(torch.tensor(a).to(tdt) for a in (w, g, m)),
-        *(torch.tensor(a) for a in (lr, wd, sign)), 0.5, momentum=0.9,
-        clip=clip)
+        *(torch.tensor(a) for a in (lr, wd, sign)), torch.tensor([0.5]),
+        momentum=0.9, clip=clip)
     assert tw.dtype == tm.dtype == tdt and tw.shape == (n,)
     tol = 1e-6 if dtype == "float32" else 2.0 ** -7
     for name, t, j in (("w", tw, jw), ("m", tm, jm)):
@@ -228,9 +228,9 @@ def test_train_step_runs_the_lars_bucket(monkeypatch):
     seen, calls = [], []
     original = data_parallel.bucket_update
 
-    def spy(opt, items):
+    def spy(opt, items, **kw):
         seen.append([opt._skip_lars(i) for i, *_ in items])
-        return original(opt, items)
+        return original(opt, items, **kw)
 
     monkeypatch.setattr(data_parallel, "bucket_update", spy)
     spec = registry.get("lars_flat")
@@ -300,10 +300,10 @@ def test_run_steps_reads_lr_once_per_block():
     seen = []
     original = data_parallel.bucket_update
 
-    def spy(o, items):
+    def spy(o, items, **kw):
         seen.append(o._get_lr(items[0][0]))
         o.lr *= 10          # a change inside the block is not seen
-        return original(o, items)
+        return original(o, items, **kw)
 
     data_parallel.bucket_update = spy
     try:
