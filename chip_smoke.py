@@ -58,7 +58,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    something, the output layer's among them, within limits set from
    those floors; and the card's bucketed LARS step against the plain
    one on the CPU fed the card's own weights, gradients and momenta;
-9. the LeNet/MNIST path, ``examples/gluon_mnist.py``'s loop through the
+9. the bf16 BERT path, ``bench.py :: bench_bert_base``'s
+   configuration: ``bert_base(vocab_size=30522, max_length=seq,
+   dropout=0.0)`` (random weights from seed 0) under
+   ``amp.scope("bfloat16")``, masked-LM loss, Adam (lr 1e-4) through
+   ``gluon.Trainer`` and ``TrainStep``, at batch 256 x seq 128 and at
+   64 x 512, each with every earlier owner released: two warm-up
+   steps (eager, then captured), the counters zeroed, eight steps, the
+   counters read.  Every loss must be finite and the last below the
+   first; flash forward and backward must launch 12 x 8 times on bf16
+   and ``layernorm_fwd`` 26 x 8, 25 sites on fp32 rows and the MLM
+   head's on bf16 (the dtypes ``tests/test_torch_bert_bf16.py`` holds
+   against the JAX package's).  It prints tokens/s, ms/step, peak
+   memory and the graph pool, then profiles one step: device time by
+   category (bf16 GEMM, flash forward, flash backward, LayerNorm,
+   Adam's elementwise passes, casts, other) and the idle share.  Then
+   the bf16 oracle: one Adam step of the 256 x 128 net's weights at 2 x
+   128 on the card and on the CPU, the loss and each gradient and
+   update held against the permuted-batch bf16 floor and the fp32
+   distance (the AMP LARS oracle's method; the tensors it cannot hold
+   printed); and
+   BERT-base bf16 at 8 x 128 with Adam and a ``PolyScheduler`` in
+   warm-up, four calls of one ``TrainStep`` against four eager steps;
+10. the LeNet/MNIST path, ``examples/gluon_mnist.py``'s loop through the
    imperative API at the example's width (Conv2D 32 and 64, MaxPool,
    Dense 128, Dropout 0.5, Dense 10; Xavier, SGD 0.05/0.9, batch 128):
    the synthetic MNIST train set through ``DataLoader`` on the CPU,
@@ -70,18 +92,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    of one fixed batch 3x in 60 steps.  It prints samples/s, ms/step,
    the share of wall time waiting on the loader, the device's idle
    share (``torch.profiler`` over 20 more batches) and peak memory;
-10. the MNIST oracle: one step of the trained weights at batch 8 with
+11. the MNIST oracle: one step of the trained weights at batch 8 with
    dropout off on the card and on the CPU; loss and every update must
    agree;
-11. hold each kernel against its plain PyTorch version at the shapes the
+12. hold each kernel against its plain PyTorch version at the shapes the
    main paths give it, and time kernel, plain version and a library
    call computing the same function (``paged_attention`` at the
    edge-case contexts and at the decode step's own shape, 8 slots at
    context 152; the fused BatchNorm+ReLU kernels in fp32 and bf16; the
    flash forward and backward in fp32 and in bf16, the forward with its
    registers and shared memory, and causal with a float mask that
-   leaves a row no key);
-12. checkpoint and serve.  Right after phase 3's eight steps the net
+   leaves a row no key; at phase 9's shapes the flash kernels in bf16
+   at (3072, 128, 64) and (768, 512, 64) and LayerNorm on its 32,768 x
+   768 rows in fp32 and bf16, beside SDPA and ``F.layer_norm``);
+13. checkpoint and serve.  Right after phase 3's eight steps the net
    and its trainer are saved with ``CheckpointManager.save_training``,
    once synchronously and once with ``async_save=True`` (the two steps'
    files must be identical), and resumed into a fresh net and
@@ -134,6 +158,7 @@ prints no result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import shutil
@@ -272,7 +297,7 @@ def host_us(fn, iters=200, repeats=5):
 
 
 # ---------------------------------------------------------------------
-# phase 11: paged_attention against its plain version
+# phase 12: paged_attention against its plain version
 # ---------------------------------------------------------------------
 
 EDGE_CONTEXTS = (0, 1, 15, 16, 17, 333, 1000, 1024)
@@ -1044,7 +1069,8 @@ def _hold_run(make_net, opt, hyper, x, y, loss_fn, captured, bf16, units,
     net.initialize(device=device, generator=torch.Generator().manual_seed(0))
     with autograd.pause():
         net(x[:1])                      # sizes deferred parameters
-    tr = gluon.Trainer(net.collect_params(), opt, dict(hyper))
+    hyper = hyper() if callable(hyper) else dict(hyper)
+    tr = gluon.Trainer(net.collect_params(), opt, hyper)
     random.seed(5)
     step = TrainStep(net, loss_fn, tr)
     w0 = weights(net)
@@ -1158,7 +1184,7 @@ def bucketed_holds(device="cuda"):
 
 
 # ---------------------------------------------------------------------
-# phases 9-10: the LeNet/MNIST path (examples/gluon_mnist.py) and its oracle
+# phases 10-11: the LeNet/MNIST path (examples/gluon_mnist.py) and its oracle
 # ---------------------------------------------------------------------
 
 MNIST_BATCH = 128
@@ -1505,7 +1531,7 @@ def mnist_oracle(ctx=None, batch=8, seed=2):
 
 
 # ---------------------------------------------------------------------
-# phase 11: fused BN+ReLU kernels against their plain versions
+# phase 12: fused BN+ReLU kernels against their plain versions
 # ---------------------------------------------------------------------
 
 def bn_relu_inputs(shape, dtype, seed=0):
@@ -2138,17 +2164,17 @@ def per_tensor_errors(a, b):
     return out
 
 
-def held_against_floors(got, floors, fp32):
+def held_against_floors(got, floors, fp32, fp32_factor=1.0):
     """Hold each tensor's card-vs-CPU error ``got[k]`` to AMP_ORACLE_FACTOR
-    times its permuted floor, and no less than its fp32 distance, for the
-    tensors whose floors are both below AMP_FLOOR_CAP (elsewhere bf16
-    noise alone is O(1), as large as a fault): ``(held names, worst
-    ratio of error to limit, its name)``."""
+    times its permuted floor, and no less than ``fp32_factor`` times its
+    fp32 distance, for the tensors whose floors are both below
+    AMP_FLOOR_CAP (elsewhere bf16 noise alone is O(1), as large as a
+    fault): ``(held names, worst ratio of error to limit, its name)``."""
     held = [k for k in floors
             if max(floors[k], fp32[k]) < AMP_FLOOR_CAP]
     worst, worst_name = 0.0, None
     for k in held:
-        limit = max(AMP_ORACLE_FACTOR * floors[k], fp32[k])
+        limit = max(AMP_ORACLE_FACTOR * floors[k], fp32_factor * fp32[k])
         ratio = got[k] / limit if limit > 0 else (0.0 if got[k] == 0
                                                   else float("inf"))
         if ratio > worst:
@@ -2263,7 +2289,515 @@ def amp_lars_oracle(net, make_net=resnet50_nhwc, batch=8, image=224,
 
 
 # ---------------------------------------------------------------------
-# phase 11: flash attention, LayerNorm and LAMB phase 1 against their
+# phase 9: BERT-base bf16 AMP pretraining with Adam (bench_bert_base)
+# ---------------------------------------------------------------------
+
+# bench.py :: bench_bert_base's configuration: bert_base with
+# max_length = seq and dropout 0, masked-LM loss, amp.scope("bfloat16"),
+# Adam at lr 1e-4 (its other hyper-parameters the optimizer's defaults)
+BERT_BF16_SHAPES = ((256, 128), (64, 512))
+BERT_ADAM = {"learning_rate": 1e-4}
+# the dtype each kernel site gets under the bf16 policy, per step
+# (tests/test_torch_bert_bf16.py holds them against the JAX package's):
+# flash attention bf16 q/k/v at every layer; LayerNorm fp32 after the
+# embedding sum and each residual add (a widest-type cast of the fp32
+# stream and a bf16 branch), bf16 in the MLM head after its bf16 Dense
+BERT_BF16_SITE_DTYPES = {
+    "flash_attention_fwd": {"bfloat16": BERT_LAYERS},
+    "flash_attention_bwd": {"bfloat16": BERT_LAYERS},
+    "layernorm_fwd": {"float32": 2 * BERT_LAYERS + 1, "bfloat16": 1}}
+BERT_BF16_ORACLE_BATCH, BERT_BF16_ORACLE_SEQ = 2, 128
+# the card and the CPU each round to bf16 in their own places, each about
+# its fp32 distance from the fp32 step: two such steps lie up to twice
+# that apart (bert_bf16_oracle)
+BF16_PLACEMENT_FACTOR = 2.0
+ADAM_REPLAY_LIMIT = 1e-5
+BERT_BF16_HOLD_BATCH, BERT_BF16_HOLD_SEQ = 8, 128
+# device-time categories of the bf16 step (matched in this order);
+# copies whose kernel names a bf16 type are casts
+BF16_STEP_CATEGORIES = (
+    ("flash_fwd", ("flash_fwd_kernel",)),
+    ("flash_bwd", ("flash_bwd_kernel", "cast_dq_kernel")),
+    ("layernorm_fwd", ("layernorm_fwd_kernel",)),
+    ("bf16_gemm", ("gemm", "gemv", "nvjet", "xmma", "cutlass")),
+)
+
+
+def bert_bf16_net(seq, dropout=0.0, vocab_size=BERT_VOCAB):
+    from mxnet_tpu_torch.gluon.model_zoo import bert_base
+    return bert_base(vocab_size=vocab_size, max_length=seq, dropout=dropout)
+
+
+def make_adam_step(net, vocab, hyper=None):
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.parallel import TrainStep
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            dict(hyper or BERT_ADAM))
+    return TrainStep(net, make_mlm_loss(vocab), trainer)
+
+
+def bf16_step_category(name):
+    low = name.lower()
+    for cat, marks in BF16_STEP_CATEGORIES:
+        if any(m in low for m in marks):
+            return cat
+    if "copy" in low:
+        return "casts" if "bfloat16" in low else "copy"
+    cat = kernel_category(name)
+    return cat if cat in ("softmax", "index", "reduction",
+                          "elementwise") else "other"
+
+
+def bert_bf16_main_path(make_net=bert_bf16_net, vocab=BERT_VOCAB,
+                        layers=BERT_LAYERS, batch=256, seq=128,
+                        steps=TRAIN_STEPS, site_dtypes=BERT_BF16_SITE_DTYPES,
+                        device="cuda"):
+    """Pretrain ``make_net(seq)`` (masked LM, Adam, bf16 AMP) for
+    ``steps`` steps on one synthetic batch after WARM_STEPS warm-up
+    steps (eager, then captured); the launch counters are zeroed after
+    the warm-up and read after the last step, with the dtype of each
+    launch."""
+    import torch
+    from mxnet_tpu_torch import amp, random
+    from mxnet_tpu_torch.kernels import registry
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated() if cuda else None
+    random.seed(0)
+    net = make_net(seq)
+    net.initialize(device=device, generator=torch.Generator().manual_seed(0))
+    step = make_adam_step(net, vocab)
+    gen = torch.Generator(device=device).manual_seed(0)
+    ids = torch.randint(0, vocab, (batch, seq), generator=gen,
+                        device=device).float()
+    labels = torch.randint(0, vocab, (batch, seq), generator=gen,
+                           device=device).float()
+    with amp.scope("bfloat16"):
+        t0 = time.perf_counter()
+        for _ in range(WARM_STEPS):     # eager, then captured
+            step(ids, labels)
+        if cuda:
+            torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        registry.reset_launches()
+        t0 = time.perf_counter()
+        losses = [step(ids, labels) for _ in range(steps)]
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    names = ("flash_attention_fwd", "flash_attention_bwd", "layernorm_fwd")
+    counts = {name: registry.launches(name) for name in names}
+    dtypes = {name: registry.launch_dtypes(name) for name in names}
+    losses = [float(v) for v in losses]
+    what = "BERT bf16 Adam %dx%d" % (batch, seq)
+    check(all(np.isfinite(losses)), "%s: non-finite loss %s"
+          % (what, losses))
+    check(losses[-1] < losses[0], "%s: loss did not fall: %s"
+          % (what, losses))
+    for name, per_step in site_dtypes.items():
+        n = sum(per_step.values()) * steps
+        check(counts[name] == n, "%s: %s launches %d != %d"
+              % (what, name, counts[name], n))
+        if cuda:
+            want = {k: v * steps for k, v in per_step.items()}
+            check(dtypes[name] == want, "%s: %s ran on %s, not %s"
+                  % (what, name, dtypes[name], want))
+    stats = {"batch": batch, "seq": seq, "steps": steps, "losses": losses,
+             "ms_per_step": 1e3 * wall / steps,
+             "tokens_per_s": batch * seq * steps / wall, "warmup_s": warm_s,
+             "launches": counts, "launch_dtypes": dtypes,
+             "pool_bytes": step.capture_stats().get("pool_bytes"),
+             "peak_mem_bytes": torch.cuda.max_memory_allocated()
+             if cuda else None, "allocated_before_bytes": held_before,
+             "card": gpu_line() if cuda else None}
+    print("BERT bf16 Adam main path (bert_base, max_length %d, dropout 0, "
+          "masked LM, amp.scope('bfloat16'), Adam lr 1e-4): %s"
+          % (seq, json.dumps(stats)))
+    return net, step, (ids, labels), stats
+
+
+def adam_device_ms(step, ids, labels):
+    """Device time of Adam's elementwise passes in one step: an eager
+    step (a fresh ``TrainStep`` on the same net and trainer, whose first
+    call runs eagerly) profiled with the optimizer's update of each
+    parameter in a ``record_function`` range; the kernels under the
+    ranges are the ones the captured step replays."""
+    import torch
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.parallel import TrainStep
+    from torch.profiler import ProfilerActivity, profile, record_function
+    opt = step._trainer._optimizer
+    apply = opt._apply_multi_precision
+
+    def ranged(*a, **k):
+        with record_function("adam_update"):
+            return apply(*a, **k)
+
+    opt._apply_multi_precision = ranged
+    eager = TrainStep(step._block, step._loss_fn, step._trainer)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof, \
+                amp.scope("bfloat16"):
+            eager(ids, labels)
+            torch.cuda.synchronize()
+    finally:
+        del opt._apply_multi_precision
+    events = prof.events()
+    ranges = [e for e in events if e.name == "adam_update"]
+    check(ranges, "the profiler saw no adam_update range")
+
+    def device_us(e):
+        return sum(k.duration for k in e.kernels) + sum(
+            device_us(c) for c in e.cpu_children)
+
+    return sum(device_us(e) for e in ranges) / 1e3, len(ranges)
+
+
+def bert_bf16_breakdown(step, ids, labels, step_ms, label):
+    """Device time of one replayed bf16 step by category (bf16 GEMM,
+    flash forward, flash backward, LayerNorm forward, Adam's elementwise
+    passes, casts, other), and the device's idle share."""
+    import torch
+    from mxnet_tpu_torch import amp
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, \
+            amp.scope("bfloat16"):
+        step(ids, labels)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    check(kernels, "the profiler saw no device time")
+    by_cat = {}
+    for e in kernels:
+        cat = bf16_step_category(e.key)
+        ms_, n_ = by_cat.get(cat, (0.0, 0))
+        by_cat[cat] = (ms_ + e.self_device_time_total / 1e3, n_ + e.count)
+    busy = sum(v[0] for v in by_cat.values())
+    for cat in ("flash_fwd", "flash_bwd", "layernorm_fwd", "bf16_gemm"):
+        check(cat in by_cat, "%s: the profiler saw no %s kernel"
+              % (label, cat))
+    adam_ms, adam_ranges = adam_device_ms(step, ids, labels)
+    ew_ms, ew_n = by_cat.pop("elementwise", (0.0, 0))
+    by_cat["adam_elementwise"] = (adam_ms, None)
+    by_cat["elementwise_other"] = (max(0.0, ew_ms - adam_ms), None)
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    out = {"step_ms": step_ms, "device_busy_ms": busy,
+           "device_idle_share": max(0.0, 1 - busy / step_ms),
+           "by_category": {k: [v[0], v[1], v[0] / busy] for k, v in sorted(
+               by_cat.items(), key=lambda kv: -kv[1][0])},
+           "flash_bwd_share": by_cat["flash_bwd"][0] / busy,
+           "adam_updates_profiled": adam_ranges,
+           "elementwise_kernels_in_step": ew_n,
+           "top_kernels": [[e.key[:72], e.self_device_time_total / 1e3,
+                            e.count, bf16_step_category(e.key)]
+                           for e in ranked[:14]],
+           "card": gpu_line()}
+    print("%s: %s" % (label, json.dumps(out)))
+    return out
+
+
+def bert_bf16_grads_and_step(net, vocab, ids, labels, bf16=True,
+                             replay=False):
+    """One forward/backward of the summed MLM loss under the bf16
+    policy (fp32 when ``bf16`` is false), then one such ``TrainStep``
+    with Adam from a fresh trainer: ``(loss, {name: grad}, {name: w' -
+    w}, {name: w'' - w} or None)``, float64 on the CPU, names relative
+    to the net's prefix.  With ``replay``, ``w''`` is the step's Adam
+    update replayed on the CPU by the plain ops from the step's own
+    weights, gradients, states and device scalars."""
+    import torch
+    from mxnet_tpu_torch import amp, autograd
+    from mxnet_tpu_torch.optimizer import create
+    from mxnet_tpu_torch.parallel.data_parallel import _optimizer_reads
+    params = {p.name[len(net.prefix):]: p
+              for p in net.collect_params().values()}
+    dev = next(iter(params.values())).data()._data.device
+    x = torch.as_tensor(ids, device=dev)
+    y = torch.as_tensor(labels, device=dev)
+
+    def scope():
+        return amp.scope("bfloat16") if bf16 else contextlib.nullcontext()
+
+    with scope():
+        with autograd.record():
+            loss = make_mlm_loss(vocab)(net(x), y)
+        loss.sum().backward()
+    grads = {}
+    for k, p in params.items():
+        g = p.data()._data.grad
+        if g is not None:
+            grads[k] = g.detach().cpu().double()
+        p.data()._data.grad = None
+    before = {k: p.data()._data.detach().cpu().double()
+              for k, p in params.items()}
+    step = make_adam_step(net, vocab)
+    opt = step._trainer._optimizer
+    inputs = {}
+    if replay:
+        apply = opt._apply_multi_precision
+
+        def recording(i, w, g, state):
+            def cpu(t):
+                return t.detach().cpu().clone()
+            inputs[i] = (cpu(w), cpu(g), tuple(cpu(t) for t in state),
+                         [cpu(torch.as_tensor(v)) for v in (
+                             opt._get_lr(i), opt._get_wd(i),
+                             opt.rescale_grad, opt._index_update_count[i])])
+            return apply(i, w, g, state)
+
+        opt._apply_multi_precision = recording
+    with scope():
+        loss = float(step(x, y))
+    updates = {k: p.data()._data.detach().cpu().double() - before[k]
+               for k, p in params.items()}
+    if not replay:
+        return loss, grads, updates, None
+    del opt._apply_multi_precision
+    names = {i: p.name[len(net.prefix):]
+             for i, p in enumerate(step._trainer._params)}
+    plain = create("adam", **BERT_ADAM)
+    replayed = {}
+    for i, (w, g, state, (lr, wd, rescale, t)) in inputs.items():
+        w0 = w.double()
+        with _optimizer_reads(plain, lambda _i: lr, lambda _i: wd, rescale,
+                              t):
+            plain._apply_multi_precision(i, w, g, state)
+        replayed[names[i]] = w.double() - w0
+    return loss, grads, updates, replayed
+
+
+def bert_bf16_oracle(arrays, prefix, vocab=BERT_VOCAB,
+                     batch=BERT_BF16_ORACLE_BATCH,
+                     seq=BERT_BF16_ORACLE_SEQ, make_net=bert_bf16_net,
+                     device="cuda"):
+    """One bf16 Adam step of the main path's weights (``arrays``) on
+    the card (the kernels) and on the CPU (the plain versions), on the
+    same batch, held by the AMP LARS oracle's floor method
+    (``held_against_floors``):
+    two more CPU steps give the floors, the bf16 step with the batch
+    permuted and the step in fp32.  Here the permuted floor is ~0 (no
+    layer couples the rows of a batch, so every bf16 rounding falls where
+    it fell), and the card and the CPU round to bf16 in different places
+    (cuBLAS reduces bf16 products split along K in bf16; the flash
+    kernel rounds the probabilities to bf16 before the PV product, which
+    its plain version takes in fp32): each lies about its fp32 distance
+    from the fp32 step, so the two may lie up to twice that apart
+    (BF16_PLACEMENT_FACTOR).
+
+    - The loss is held to the larger of AMP_ORACLE_FACTOR times its
+      permuted floor and its fp32 distance.
+    - Each gradient whose floors are below AMP_FLOOR_CAP is held to the
+      larger of AMP_ORACLE_FACTOR times its permuted floor and
+      BF16_PLACEMENT_FACTOR times its fp32 distance.
+    - The Adam update: the card's against the plain ops on the CPU fed
+      the card's own weights, gradients, states and scalars, 1e-5
+      norm-wise ("adam_replay"); and the card's against the CPU's over
+      the tensors the floors hold, norm-wise, to BF16_PLACEMENT_FACTOR
+      times their fp32 distance.  Adam's first update is ``-lr * g /
+      |g|`` an element: a gradient entry whose sign the rounding flips
+      moves a full step, so a small tensor's error counts a few flips
+      and is printed per tensor, not held alone; the tensors whose
+      floors reach the cap are printed, unheld.
+    - The same step in fp32 on the card (TF32 off) against the CPU's:
+      loss and gradients within BERT_ORACLE_LIMITS (the fp32 oracle's).
+
+    The key third of each qkv bias is left out (its exact gradient is
+    0)."""
+    from mxnet_tpu_torch.gluon.convert import params_from_numpy
+
+    def copy_on(dev):
+        n = make_net(seq)
+        n.initialize(device=dev)
+        params_from_numpy(n, arrays, prefix=prefix)
+        return n
+
+    units = copy_on("cpu")._units
+    rng = np.random.default_rng(3)
+    ids = rng.integers(0, vocab, (batch, seq)).astype(np.float32)
+    labels = rng.integers(0, vocab, (batch, seq)).astype(np.float32)
+    perm = rng.permutation(batch)
+    if (perm == np.arange(batch)).all():
+        perm = perm[::-1].copy()
+    t0 = time.perf_counter()
+    runs = {"cpu": bert_bf16_grads_and_step(copy_on("cpu"), vocab, ids,
+                                            labels)}
+    cpu_step_s = time.perf_counter() - t0
+    runs["cpu_permuted"] = bert_bf16_grads_and_step(
+        copy_on("cpu"), vocab, ids[perm], labels[perm])
+    runs["cpu_fp32"] = bert_bf16_grads_and_step(copy_on("cpu"), vocab, ids,
+                                                labels, bf16=False)
+    runs["card"] = bert_bf16_grads_and_step(copy_on(device), vocab, ids,
+                                            labels, replay=True)
+    runs["card_fp32"] = bert_bf16_grads_and_step(copy_on(device), vocab,
+                                                 ids, labels, bf16=False)
+    loss = {run: r[0] for run, r in runs.items()}
+    check(sorted(runs["card"][1]) == sorted(runs["cpu"][1]),
+          "BERT bf16 oracle: parameters with a gradient differ card vs CPU")
+    out = {"batch": batch, "seq": seq, "cpu_step_s": cpu_step_s,
+           "loss_card": loss["card"], "loss_cpu": loss["cpu"],
+           "loss_rel_err": abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"]),
+           "floor_loss_rel_err": abs(loss["cpu_permuted"] - loss["cpu"])
+           / abs(loss["cpu"]),
+           "fp32_loss_rel_err": abs(loss["cpu_fp32"] - loss["cpu"])
+           / abs(loss["cpu"])}
+    out["loss_limit"] = max(AMP_ORACLE_FACTOR * out["floor_loss_rel_err"],
+                            out["fp32_loss_rel_err"])
+    vals = {}
+    for what, j in (("grad", 1), ("update", 2)):
+        vals[what] = {run: split_key_bias(r[j], units)[0]
+                      for run, r in runs.items()}
+        v = vals[what]
+        got = per_tensor_errors(v["card"], v["cpu"])
+        floors = per_tensor_errors(v["cpu_permuted"], v["cpu"])
+        fp32 = per_tensor_errors(v["cpu_fp32"], v["cpu"])
+        held, worst, worst_name = held_against_floors(
+            got, floors, fp32, BF16_PLACEMENT_FACTOR)
+        glob, _, _ = rel_errors({k: v["card"][k] for k in held},
+                                {k: v["cpu"][k] for k in held})
+        fp32_glob, _, _ = rel_errors({k: v["cpu_fp32"][k] for k in held},
+                                     {k: v["cpu"][k] for k in held})
+        ratios = sorted(got[k] / max(BF16_PLACEMENT_FACTOR * fp32[k],
+                                     AMP_ORACLE_FACTOR * floors[k], 1e-30)
+                        for k in held)
+        out.update({
+            "%s_tensors" % what: len(got), "%s_held" % what: len(held),
+            "%s_rel_err_held" % what: glob,
+            "fp32_%s_rel_err_held" % what: fp32_glob,
+            "%s_worst_ratio_to_limit" % what: worst,
+            "%s_median_ratio_to_limit" % what:
+                ratios[len(ratios) // 2] if ratios else None,
+            "%s_worst_param" % what: worst_name,
+            "%s_unheld" % what: sorted(
+                [k, floors[k], fp32[k]] for k in floors if k not in held),
+            "%s_rel_err_all" % what: rel_errors(v["card"], v["cpu"])[0],
+            "floor_%s_rel_err_all" % what: rel_errors(v["cpu_permuted"],
+                                                      v["cpu"])[0]})
+    replay, _ = split_key_bias(runs["card"][3], units)
+    r_glob, r_worst, r_name = rel_errors(vals["update"]["card"], replay)
+    f_glob, f_worst, f_name = rel_errors(vals["grad"]["card_fp32"],
+                                         vals["grad"]["cpu_fp32"])
+    out.update({
+        "adam_replay_rel_err": r_glob, "adam_replay_rel_err_worst": r_worst,
+        "adam_replay_worst_param": r_name,
+        "fp32_card_loss_rel_err": abs(loss["card_fp32"] - loss["cpu_fp32"])
+        / abs(loss["cpu_fp32"]),
+        "fp32_card_grad_rel_err": f_glob,
+        "fp32_card_grad_rel_err_worst": f_worst,
+        "fp32_card_grad_worst_param": f_name,
+        "factor": AMP_ORACLE_FACTOR, "placement_factor":
+        BF16_PLACEMENT_FACTOR, "floor_cap": AMP_FLOOR_CAP,
+        "card": gpu_line()})
+    print("BERT bf16 Adam oracle (card vs CPU): %s" % json.dumps(out))
+    check(np.isfinite(loss["card"]), "BERT bf16 oracle: the card's loss is "
+          "not finite")
+    check(out["loss_rel_err"] <= out["loss_limit"], "BERT bf16 oracle: "
+          "loss %.3g > limit %.3g" % (out["loss_rel_err"],
+                                      out["loss_limit"]))
+    check(out["grad_held"] > 0 and out["update_held"] > 0,
+          "BERT bf16 oracle: the floors hold no gradient or no update")
+    check(out["grad_worst_ratio_to_limit"] <= 1.0,
+          "BERT bf16 oracle: grad of %s %.3g times its limit" % (
+              out["grad_worst_param"], out["grad_worst_ratio_to_limit"]))
+    check(out["update_rel_err_held"]
+          <= BF16_PLACEMENT_FACTOR * out["fp32_update_rel_err_held"],
+          "BERT bf16 oracle: held updates %.3g > %g x their fp32 distance "
+          "%.3g" % (out["update_rel_err_held"], BF16_PLACEMENT_FACTOR,
+                    out["fp32_update_rel_err_held"]))
+    check(max(r_glob, r_worst) <= ADAM_REPLAY_LIMIT, "BERT bf16 oracle: "
+          "Adam replay %.3g (worst %.3g, %s) > %g"
+          % (r_glob, r_worst, r_name, ADAM_REPLAY_LIMIT))
+    check(out["fp32_card_loss_rel_err"] <= BERT_ORACLE_LIMITS["loss_rel_err"]
+          and f_glob <= BERT_ORACLE_LIMITS["grad_rel_err"],
+          "BERT bf16 oracle: the fp32 step, card vs CPU: loss %.3g, grads "
+          "%.3g" % (out["fp32_card_loss_rel_err"], f_glob))
+    return out
+
+
+def bert_bf16_hold(vocab=BERT_VOCAB, batch=BERT_BF16_HOLD_BATCH,
+                   seq=BERT_BF16_HOLD_SEQ, make_net=bert_bf16_net,
+                   device="cuda"):
+    """BERT-base bf16 with Adam and a ``PolyScheduler`` in warm-up (lr
+    and the bias correction's ``t`` change at every step): four calls of
+    one ``TrainStep`` against four eager steps, beside the floor of two
+    eager runs (``_bucketed_hold``'s rule: the larger of 1e-5 and 4x the
+    floor)."""
+    import torch
+    from mxnet_tpu_torch import lr_scheduler
+
+    def hyper():
+        return {"learning_rate": 1e-4, "lr_scheduler":
+                lr_scheduler.PolyScheduler(max_update=100, base_lr=1e-4,
+                                           pwr=1, warmup_steps=4)}
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    ids = torch.randint(0, vocab, (batch, seq), generator=gen,
+                        device=device).float()
+    labels = torch.randint(0, vocab, ids.shape, generator=gen,
+                           device=device).float()
+    out = _bucketed_hold(lambda: make_net(seq), "adam", hyper, ids, labels,
+                         make_mlm_loss(vocab), bf16=True, device=device)
+    out["card"] = gpu_line()
+    print("captured against eager (BERT-base bf16 Adam + PolyScheduler "
+          "TrainStep, %dx%d): %s" % (batch, seq, json.dumps(out)))
+    for key, limit in out["limits"].items():
+        check(out[key] <= limit, "capture hold BERT bf16 Adam: %s %.3g > "
+              "limit %g" % (key, out[key], limit))
+    return out
+
+
+def bert_bf16_phase(shapes=BERT_BF16_SHAPES):
+    """The main path at each of bench_bert_base's shapes, each with its
+    breakdown and capture report, each net released before the next;
+    then the oracle on the first shape's weights and the
+    captured-against-eager hold."""
+    import gc
+    import torch
+
+    def release():
+        # each capture stream of the earlier paths (a hold makes a fresh
+        # TrainStep a call) left a cuBLAS workspace in PyTorch's cache
+        gc.collect()
+        clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+        if clear is not None:
+            clear()
+        torch.cuda.empty_cache()
+
+    out = {"main": {}, "breakdown": {}}
+    arrays = prefix = None
+    for batch, seq in shapes:
+        release()
+        net, step, (ids, labels), stats = bert_bf16_main_path(batch=batch,
+                                                              seq=seq)
+        key = "%dx%d" % (batch, seq)
+        bd = bert_bf16_breakdown(step, ids, labels, stats["ms_per_step"],
+                                 "BERT bf16 Adam step breakdown %s" % key)
+        capture_report("BERT bf16 Adam TrainStep %s" % key,
+                       step.capture_stats(),
+                       {"ms_per_step": stats["ms_per_step"],
+                        "tokens_per_s": stats["tokens_per_s"],
+                        "peak_mem_bytes": stats["peak_mem_bytes"]},
+                       bd["device_idle_share"], 1)
+        out["main"][key], out["breakdown"][key] = stats, bd
+        if arrays is None:
+            arrays = {p.name: p.data()._data.detach().cpu().numpy()
+                      for p in net.collect_params().values()}
+            prefix = net.prefix
+        del net, step, ids, labels
+    release()
+    out["oracle"] = bert_bf16_oracle(arrays, prefix)
+    del arrays
+    release()
+    out["hold"] = bert_bf16_hold()
+    release()
+    return out
+
+
+# ---------------------------------------------------------------------
+# phase 12: flash attention, LayerNorm and LAMB phase 1 against their
 # plain versions
 # ---------------------------------------------------------------------
 
@@ -2398,10 +2932,59 @@ def flash_fp64_errors(q, k, v, scale):
     return out
 
 
-def flash_kernel_phase(bh, seq, d):
+def flash_times(bh, seq, d, dtype):
+    """Times of the flash forward and backward kernels at ``(bh, seq,
+    d)`` in ``dtype``, of their plain versions and of SDPA (the
+    backward's: SDPA forward+backward through autograd, less its
+    forward), with each one's bound; printed and returned as ``(fwd,
+    bwd)`` dicts."""
     import torch
     import torch.nn.functional as F
     from mxnet_tpu_torch.kernels import flash_attention as fa
+    q, k, v, do, _ = flash_inputs(bh, seq, d, dtype)
+    scale = d ** -0.5
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v, scale=scale)
+    delta = (do.float() * out.float()).sum(-1)
+    b = bh // BERT_HEADS
+    q4, k4, v4, do4 = (t.view(b, BERT_HEADS, seq, d) for t in (q, k, v, do))
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+
+    def lib_fwd_bwd():
+        o = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+        return torch.autograd.grad(o, (ql, kl, vl), do4)
+
+    fwd = {"ms": time_ms(lambda: fa.flash_attention_fwd_cuda(
+               q, k, v, scale=scale)),
+           "plain_ms": time_ms(lambda: fa.flash_attention_fwd_reference(
+               q, k, v, scale=scale)),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               q4, k4, v4, scale=scale))}
+    lib_both = time_ms(lib_fwd_bwd)
+    bwd = {"ms": time_ms(lambda: fa.flash_attention_bwd_cuda(
+               q, k, v, lse, do, delta, scale=scale)),
+           "plain_ms": time_ms(lambda: fa.flash_attention_bwd_reference(
+               q, k, v, lse, do, delta, scale=scale)),
+           "library_ms": lib_both - fwd["library_ms"]}
+    key = str(dtype).split(".")[-1]
+    for kind, t in (("fwd", fwd), ("bwd", bwd)):
+        t["bound_ms"], t["bound_by"], nbytes, flops, route = \
+            flash_bounds(bh, seq, d, q.element_size())[kind]
+        extra = ""
+        if kind == "fwd" and dtype == torch.float32:
+            extra = "; CUDA-core bound %.4f ms (fp32 FMAs at 67 TFLOP/s)" \
+                % (1e3 * max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S))
+        print("flash %s times (bh %d, seq %d, d %d, %s): %s (%d bytes, %d "
+              "flops as %s)%s%s"
+              % (kind, bh, seq, d, key, json.dumps(t), nbytes, flops, route,
+                 extra,
+                 "; library = SDPA forward+backward %.4f ms less its "
+                 "forward" % lib_both if kind == "bwd"
+                 else "; library = SDPA forward"))
+    return fwd, bwd
+
+
+def flash_kernel_phase(bh, seq, d):
+    import torch
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         errs[str(dtype).split(".")[-1]] = flash_check(bh, seq, d, dtype)
@@ -2434,114 +3017,102 @@ def flash_kernel_phase(bh, seq, d):
               "a block" % (d, x[0].dtype, regs, local, static, dynamic))
         check(local == 0, "flash_fwd_kernel (d %d, %s) spills: %d local "
               "bytes" % (d, x[0].dtype, local))
-    scale = d ** -0.5
-    out, lse = fa.flash_attention_fwd_cuda(q, k, v, scale=scale)
-    delta = (do * out).sum(-1)
-    b = bh // BERT_HEADS
-    q4, k4, v4, q4b, k4b, v4b = (t.view(b, BERT_HEADS, seq, d)
-                                 for t in (q, k, v, qb, kb, vb))
-    do4 = do.view(b, BERT_HEADS, seq, d)
-    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
-
-    def lib_fwd_bwd():
-        o = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
-        return torch.autograd.grad(o, (ql, kl, vl), do4)
-
-    fwd = {"ms": time_ms(lambda: fa.flash_attention_fwd_cuda(
-               q, k, v, scale=scale)),
-           "plain_ms": time_ms(lambda: fa.flash_attention_fwd_reference(
-               q, k, v, scale=scale)),
-           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-               q4, k4, v4, scale=scale))}
-    fwd16 = {"ms": time_ms(lambda: fa.flash_attention_fwd_cuda(
-                 qb, kb, vb, scale=scale)),
-             "plain_ms": time_ms(lambda: fa.flash_attention_fwd_reference(
-                 qb, kb, vb, scale=scale)),
-             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                 q4b, k4b, v4b, scale=scale))}
-    lib_both = time_ms(lib_fwd_bwd)
-    bwd = {"ms": time_ms(lambda: fa.flash_attention_bwd_cuda(
-               q, k, v, lse, do, delta, scale=scale)),
-           "plain_ms": time_ms(lambda: fa.flash_attention_bwd_reference(
-               q, k, v, lse, do, delta, scale=scale)),
-           # SDPA's backward alone is no public call: its forward and
-           # backward through autograd, less its forward
-           "library_ms": lib_both - fwd["library_ms"]}
-    # the backward in bf16: lse and delta of the bf16 forward, in fp32
-    dob = do.bfloat16()
-    outb, lseb = fa.flash_attention_fwd_cuda(qb, kb, vb, scale=scale)
-    deltab = (dob.float() * outb.float()).sum(-1)
-    qlb, klb, vlb = (t.detach().clone().requires_grad_()
-                     for t in (q4b, k4b, v4b))
-    do4b = dob.view(b, BERT_HEADS, seq, d)
-
-    def lib_fwd_bwd16():
-        o = F.scaled_dot_product_attention(qlb, klb, vlb, scale=scale)
-        return torch.autograd.grad(o, (qlb, klb, vlb), do4b)
-
-    lib_both16 = time_ms(lib_fwd_bwd16)
-    bwd16 = {"ms": time_ms(lambda: fa.flash_attention_bwd_cuda(
-                 qb, kb, vb, lseb, dob, deltab, scale=scale)),
-             "plain_ms": time_ms(lambda: fa.flash_attention_bwd_reference(
-                 qb, kb, vb, lseb, dob, deltab, scale=scale)),
-             "library_ms": lib_both16 - fwd16["library_ms"]}
-    for kind, key, t in (("fwd", "float32", fwd), ("fwd", "bfloat16", fwd16),
-                         ("bwd", "float32", bwd), ("bwd", "bfloat16", bwd16)):
-        item = 4 if key == "float32" else 2
-        t["bound_ms"], t["bound_by"], nbytes, flops, route = \
-            flash_bounds(bh, seq, d, item)[kind]
-        extra = ""
-        if kind == "fwd" and key == "float32":
-            extra = "; CUDA-core bound %.4f ms (fp32 FMAs at 67 TFLOP/s)" \
-                % (1e3 * max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S))
-        print("flash %s times (bh %d, seq %d, d %d, %s): %s (%d bytes, %d "
-              "flops as %s)%s%s"
-              % (kind, bh, seq, d, key, json.dumps(t), nbytes, flops, route,
-                 extra,
-                 "; library = SDPA forward+backward %.4f ms less its "
-                 "forward" % (lib_both if key == "float32" else lib_both16)
-                 if kind == "bwd" else "; library = SDPA forward"))
+    fwd, bwd = flash_times(bh, seq, d, torch.float32)
+    flash_times(bh, seq, d, torch.bfloat16)
     return {"fwd": dict(fwd, max_abs_err=errs["float32"][0],
                         max_abs_err_bf16=errs["bfloat16"][0]),
             "bwd": dict(bwd, max_abs_err=errs["float32"][1],
                         max_abs_err_bf16=errs["bfloat16"][1])}
 
 
-def layernorm_kernel_phase(rows, dim):
+def layernorm_check(rows, dim, dtype, gen):
+    """The LayerNorm kernel against its plain version: the largest
+    error relative to the largest output."""
+    import torch
+    from mxnet_tpu_torch.kernels.layernorm import (layernorm_fwd_cuda,
+                                                   layernorm_reference)
+    x = (torch.randn(rows, dim, generator=gen, device="cuda") * 3 + 1) \
+        .to(dtype)
+    g = torch.rand(dim, generator=gen, device="cuda") + 0.5
+    b = torch.randn(dim, generator=gen, device="cuda")
+    err = rel_err(layernorm_fwd_cuda(x, g, b), layernorm_reference(x, g, b))
+    key = str(dtype).split(".")[-1]
+    print("layernorm (%d, %d) %s: rel err %.3g (limit %g)"
+          % (rows, dim, key, err, ROW_TOL[key]))
+    check(err <= ROW_TOL[key], "layernorm (%d, %d) %s: %.3g > %g"
+          % (rows, dim, key, err, ROW_TOL[key]))
+    return err
+
+
+def layernorm_times(rows, dim, dtype, gen):
+    """Times of the LayerNorm kernel, its plain version and
+    ``F.layer_norm`` on ``(rows, dim)`` rows of ``dtype`` (fp32 gamma and
+    beta, as the layers hold them), with the bound: the rows read and
+    written once at 3.35 TB/s, 8 fp32 operations an element."""
     import torch
     import torch.nn.functional as F
     from mxnet_tpu_torch.kernels.layernorm import (layernorm_fwd_cuda,
                                                    layernorm_reference)
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    errs = {}
-    for r, c in ((rows, dim), (1000, 100)):
-        for dtype in (torch.float32, torch.bfloat16):
-            x = (torch.randn(r, c, generator=gen, device="cuda") * 3 + 1) \
-                .to(dtype)
-            g = torch.rand(c, generator=gen, device="cuda") + 0.5
-            b = torch.randn(c, generator=gen, device="cuda")
-            err = rel_err(layernorm_fwd_cuda(x, g, b),
-                          layernorm_reference(x, g, b))
-            key = str(dtype).split(".")[-1]
-            print("layernorm (%d, %d) %s: rel err %.3g (limit %g)"
-                  % (r, c, key, err, ROW_TOL[key]))
-            check(err <= ROW_TOL[key], "layernorm (%d, %d) %s: %.3g > %g"
-                  % (r, c, key, err, ROW_TOL[key]))
-            errs[key] = max(errs.get(key, 0.0), err)
-    x = torch.randn(rows, dim, generator=gen, device="cuda")
+    x = torch.randn(rows, dim, generator=gen, device="cuda").to(dtype)
     g = torch.rand(dim, generator=gen, device="cuda") + 0.5
     b = torch.randn(dim, generator=gen, device="cuda")
     t = {"ms": time_ms(lambda: layernorm_fwd_cuda(x, g, b)),
          "plain_ms": time_ms(lambda: layernorm_reference(x, g, b)),
-         "library_ms": time_ms(lambda: F.layer_norm(x, (dim,), g, b))}
-    nbytes = 2 * rows * dim * 4 + 2 * dim * 4
+         "library_ms": time_ms(lambda: F.layer_norm(
+             x, (dim,), g.to(dtype), b.to(dtype)))}
+    nbytes = 2 * rows * dim * x.element_size() + 2 * dim * 4
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 8 * rows * dim / FP32_FLOPS
     t["bound_ms"] = 1e3 * max(t_bytes, t_ops)
     t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    print("layernorm times (%d, %d) fp32: %s (%d bytes at 3.35 TB/s); "
-          "library = F.layer_norm" % (rows, dim, json.dumps(t), nbytes))
+    print("layernorm times (%d, %d) %s: %s (%d bytes at 3.35 TB/s); "
+          "library = F.layer_norm" % (rows, dim, str(dtype).split(".")[-1],
+                                      json.dumps(t), nbytes))
+    return t
+
+
+def layernorm_kernel_phase(rows, dim):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    errs = {}
+    for r, c in ((rows, dim), (1000, 100)):
+        for dtype in (torch.float32, torch.bfloat16):
+            key = str(dtype).split(".")[-1]
+            errs[key] = max(errs.get(key, 0.0),
+                            layernorm_check(r, c, dtype, gen))
+    t = layernorm_times(rows, dim, torch.float32, gen)
     return dict(t, max_abs_err=errs["float32"],
                 max_abs_err_bf16=errs["bfloat16"])
+
+
+def bert_bf16_kernel_phase(shapes=BERT_BF16_SHAPES, d=64, dim=768):
+    """The kernels of the bf16 BERT path at its shapes: flash forward
+    and backward in bf16 at ``(batch * 12, seq, 64)``, LayerNorm on the
+    path's ``batch * seq`` rows in fp32 (the residual sites) and bf16
+    (the MLM head), each held against its plain version and timed beside
+    its plain version, its library call and its bound."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    out = {"flash_attention_fwd": {}, "flash_attention_bwd": {},
+           "layernorm_fwd": {}}
+    for batch, seq in shapes:
+        bh = batch * BERT_HEADS
+        fwd_err, bwd_err = flash_check(bh, seq, d, torch.bfloat16)
+        fwd, bwd = flash_times(bh, seq, d, torch.bfloat16)
+        key = "%dx%d" % (batch, seq)
+        out["flash_attention_fwd"][key] = dict(
+            fwd, max_abs_err=fwd_err, shape=[bh, seq, d], dtype="bfloat16")
+        out["flash_attention_bwd"][key] = dict(
+            bwd, max_abs_err=bwd_err, shape=[bh, seq, d], dtype="bfloat16")
+    rows = {b * s for b, s in shapes}
+    check(len(rows) == 1, "the bf16 shapes differ in tokens: %s" % rows)
+    rows = rows.pop()
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).split(".")[-1]
+        err = layernorm_check(rows, dim, dtype, gen)
+        out["layernorm_fwd"][key] = dict(
+            layernorm_times(rows, dim, dtype, gen), max_abs_err=err,
+            shape=[rows, dim])
+    return out
 
 
 def lamb_kernel_phase(sizes):
@@ -2719,7 +3290,7 @@ def lars_kernel_phase(sizes, skips):
 
 
 # ---------------------------------------------------------------------
-# phase 12: checkpoint, resume and serve
+# phase 13: checkpoint, resume and serve
 # ---------------------------------------------------------------------
 
 CKPT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -3123,9 +3694,11 @@ def decode_checkpoint_phase(root=CKPT_ROOT, widths=GPT2_SMALL,
     return stats
 
 
-def kernel_entry(name, launches, kern, serve_launches=None):
+def kernel_entry(name, launches, kern, serve_launches=None, **extra):
     """One kernel's entry of the per-kernel JSON line; a kernel of the
-    checkpoint-and-serve phase also gives its launches there."""
+    checkpoint-and-serve phase also gives its launches there, and
+    ``extra`` adds the entries of other paths (their launches, their
+    shapes' numbers)."""
     from mxnet_tpu_torch.kernels import registry
     spec = registry.get(name)
     entry = {"name": spec.name, "route": "cuda",
@@ -3136,6 +3709,7 @@ def kernel_entry(name, launches, kern, serve_launches=None):
              "bound_by": kern["bound_by"], "library_ms": kern["library_ms"]}
     if serve_launches is not None:
         entry["launches_checkpoint_and_serve"] = serve_launches
+    entry.update(extra)
     return entry
 
 
@@ -3209,7 +3783,9 @@ def drive():
     torch.cuda.empty_cache()
     amp_lars_oracle(net)
     del net
+    gc.collect()
     torch.cuda.empty_cache()
+    bert_bf16 = bert_bf16_phase()
     mnist_main_path()
     mnist_oracle()
     torch.cuda.empty_cache()
@@ -3219,11 +3795,19 @@ def drive():
     ln = layernorm_kernel_phase(BERT_BATCH * BERT_SEQ, 768)
     lamb = lamb_kernel_phase(sizes)
     lars_k = lars_kernel_phase(lars_sizes, lars_skips)
+    bf16_k = bert_bf16_kernel_phase()
     torch.cuda.empty_cache()
     serve = serve_phase(ckpt_root)
     decode_ckpt = decode_checkpoint_phase()
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     counts = bert["launches"]
+
+    def bf16_path(name):
+        return {"launches_bert_bf16_adam": {
+                    key: run["launches"][name]
+                    for key, run in bert_bf16["main"].items()},
+                "bert_bf16_adam": bf16_k[name]}
+
     print(json.dumps({"kernels": [
         kernel_entry("paged_attention", decode["paged_attention_launches"],
                      attn, decode_ckpt["paged_attention_launches"]),
@@ -3232,10 +3816,11 @@ def drive():
         kernel_entry("bn_relu_bwd", train["bn_relu_bwd_launches"],
                      bn["bwd"]),
         kernel_entry("flash_attention_fwd", counts["flash_attention_fwd"],
-                     flash["fwd"]),
+                     flash["fwd"], **bf16_path("flash_attention_fwd")),
         kernel_entry("flash_attention_bwd", counts["flash_attention_bwd"],
-                     flash["bwd"]),
-        kernel_entry("layernorm_fwd", counts["layernorm_fwd"], ln),
+                     flash["bwd"], **bf16_path("flash_attention_bwd")),
+        kernel_entry("layernorm_fwd", counts["layernorm_fwd"], ln,
+                     **bf16_path("layernorm_fwd")),
         kernel_entry("lamb_phase1", counts["lamb_phase1"], lamb),
         kernel_entry("lars_flat", lars["launches"]["lars_flat"], lars_k)]}))
     print(json.dumps({"ok": True, "device": {

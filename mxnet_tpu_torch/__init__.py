@@ -11,7 +11,7 @@ It imports neither JAX nor anything of ``mxnet_tpu``.  Ported so far:
 - the generative serving path (:mod:`.serving`) with the
   ``paged_attention`` kernel;
 - the ResNet training path: :mod:`.gluon` (blocks, layers, losses,
-  ``Trainer``, the ResNet model zoo), :mod:`.optimizer` (SGD),
+  ``Trainer``, the ResNet model zoo), :mod:`.optimizer`,
   :mod:`.parallel` (``TrainStep``), with the fused BatchNorm+ReLU
   forward and backward kernels at every channels-last BatchNorm+relu
   site;
@@ -32,20 +32,26 @@ It imports neither JAX nor anything of ``mxnet_tpu``.  Ported so far:
   and ``Block.save_parameters`` in MXNet's ``.params`` format,
   ``Trainer.save_states``, :mod:`.checkpoint` (``CheckpointManager``)
   and ``serving.ModelRegistry.register(block=, checkpoint=)`` over a
-  dynamic batcher and a pool of padded batch buckets.
+  dynamic batcher and a pool of padded batch buckets;
+- the whole optimizer module (every optimizer of the JAX package's
+  registry, ``mx.lr_scheduler``, multi-precision fp16, the ``mx.nd``
+  update ops) and BERT pretraining under bf16 AMP with Adam, with the
+  runtime half of the numerics sentinel (:mod:`.analysis.numerics`).
 
 Kernels and their plain versions are registered in :mod:`.kernels`.
 """
-from . import amp, autograd, checkpoint, gluon, metric, random
+from . import amp, autograd, checkpoint, gluon, metric, optimizer, random
 from . import initializer as init
 from . import ndarray as nd
 from .base import MXNetError
 from .context import (Context, cpu, cpu_pinned, current_context, gpu,
                       num_gpus, resolve_device)
 from .ndarray import NDArray
+from .optimizer import lr_scheduler
 
 __version__ = "0.1.0"
 
 __all__ = ["Context", "MXNetError", "NDArray", "amp", "autograd",
-           "checkpoint", "cpu", "cpu_pinned", "current_context", "gluon", "gpu", "init",
-           "metric", "nd", "num_gpus", "random", "resolve_device"]
+           "checkpoint", "cpu", "cpu_pinned", "current_context", "gluon",
+           "gpu", "init", "lr_scheduler", "metric", "nd", "num_gpus",
+           "optimizer", "random", "resolve_device"]

@@ -1,9 +1,9 @@
 """Typed registry of the ``MXNET_*`` environment variables the port reads.
 
 Counterpart of ``mxnet_tpu/env.py``, holding only the variables the
-port reads: checkpoints and serving.  Names, defaults and the boolean
-convention (only ``"0"`` is false) are the JAX package's, so one
-environment configures both.
+port reads: checkpoints, serving and the numerics sentinel.  Names,
+defaults and the boolean convention (only ``"0"`` is false) are the JAX
+package's, so one environment configures both.
 """
 from __future__ import annotations
 
@@ -69,6 +69,12 @@ _VARS = [
     EnvVar("MXNET_TPU_SERVING_DECODE_BUCKETS", str, "1,2,4,8",
            "Slot-count buckets of the continuous-batching decode step; "
            "the largest bounds concurrent sequences."),
+    EnvVar("MXNET_TPU_NUMERICS_CHECK", bool, False,
+           "'1' arms the non-finite sentinel (analysis.numerics): "
+           "TrainStep reads its step's finite flag once after the step "
+           "and, on the first non-finite step, recomputes the gradients "
+           "from the kept weights to name WHICH parameter went NaN/Inf, "
+           "then raises NonFiniteError.  Off: no host read."),
     EnvVar("MXNET_TPU_SERVING_PREFILL_BUCKETS", str, "16,32,64,128",
            "Prompt-length buckets of prefill (batch 1); the largest is "
            "the longest admissible prompt."),

@@ -174,6 +174,18 @@ class Block(torch.nn.Module):
             if child is not None:
                 yield from child._all_params(seen)
 
+    def cast(self, dtype):
+        """Cast every parameter of this block and its descendants to
+        ``dtype`` (a subclass may keep its own at another dtype:
+        ``BatchNorm`` keeps fp32 below 32 bits).  A captured step that
+        read a cast parameter captures again."""
+        for child in self._children.values():
+            if child is not None:
+                child.cast(dtype)
+        for p in list(self._reg_params.values()) \
+                + list(self._scope_params.values()):
+            p.cast(dtype)
+
     def save_parameters(self, filename, deduplicate=False):
         """Write the parameters to a ``.params`` file under their
         structural names; a parameter whose deferred shape is still

@@ -10,6 +10,7 @@ import math
 from ... import autograd
 from ... import ops
 from ..block import Block, HybridBlock
+from ..parameter import _dtype
 from .activations import Activation
 
 __all__ = ["BatchNorm", "Dense", "Dropout", "Embedding", "Flatten",
@@ -171,6 +172,11 @@ class BatchNorm(HybridBlock):
         if autograd.is_training() and not self._use_global_stats:
             self.running_mean._update_aux(new_mean)
             self.running_var._update_aux(new_var)
+
+    def cast(self, dtype):
+        if _dtype(dtype).itemsize < 4:
+            dtype = "float32"   # statistics and scale stay fp32 (AMP-safe)
+        super().cast(dtype)
 
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
         out, new_mean, new_var = F.BatchNorm(

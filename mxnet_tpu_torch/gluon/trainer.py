@@ -2,10 +2,15 @@
 single-device path: ``kvstore=None`` only.
 
 ``step(batch_size)`` applies the optimizer to every parameter that
-takes a gradient, with ``rescale_grad = _scale / batch_size``.  MXNet's
-``grad_req="write"`` overwrites a gradient at each backward where
-PyTorch accumulates, so the step clears each ``"write"`` gradient after
-using it.
+takes a gradient, with ``rescale_grad = _scale / batch_size``, through
+the updater's multi-precision entry point (an fp16 parameter of a
+``multi_precision`` optimizer is updated through an fp32 master copy).
+``learning_rate`` is the optimizer's: its scheduler's value at the
+current update count where it has one.  Plain SGD updates parameter by
+parameter: the JAX package's grouping into ``multi_sgd`` calls is not
+ported.  MXNet's ``grad_req="write"`` overwrites a gradient at each
+backward where PyTorch accumulates, so the step clears each ``"write"``
+gradient after using it.
 
 With an fp16 loss scaler attached (:func:`mxnet_tpu_torch.amp.
 init_trainer`), ``step`` folds ``1 / loss_scale`` into ``rescale_grad``
@@ -18,6 +23,8 @@ of :meth:`~mxnet_tpu_torch.optimizer.Updater.get_states`; the write is
 atomic (:func:`mxnet_tpu_torch.checkpoint.atomic_write_bytes`).
 """
 from __future__ import annotations
+
+import torch
 
 from .. import optimizer as opt
 from ..base import MXNetError
@@ -100,13 +107,20 @@ class Trainer:
 
     def set_states(self, states):
         """Install a :meth:`get_states` blob; each state lands on its
-        parameter's device at its parameter's dtype."""
+        parameter's device at its parameter's dtype, or in fp32 where the
+        optimizer keeps an fp32 master copy of an fp16 parameter (the
+        copy and the states made from it)."""
         placement = {}
         for i, p in enumerate(self._params):
             if p._data is not None:
-                placement[i] = (p._data.device, p._data.dtype)
+                device, dtype = p._data.device, p._data.dtype
             elif p._deferred_init is not None:
-                placement[i] = (p._deferred_init[1], p.dtype)
+                device, dtype = p._deferred_init[1], p.dtype
+            else:
+                continue
+            if self._optimizer.multi_precision and dtype == torch.float16:
+                dtype = torch.float32
+            placement[i] = (device, dtype)
         self._updater.set_states(states, placement)
 
     def save_states(self, fname):

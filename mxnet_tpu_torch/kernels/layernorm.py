@@ -85,7 +85,7 @@ def layernorm_fwd_cuda(x2d, gamma, beta, eps=1e-5):
     if rc != 0:
         raise MXNetError("layernorm_fwd kernel launch failed: %s (%d)"
                          % (lib.layernorm_error_string(rc).decode(), rc))
-    count_launch("layernorm_fwd")
+    count_launch("layernorm_fwd", x2d.dtype)
     return out
 
 

@@ -1,18 +1,30 @@
-"""Optimizers (counterpart of ``mxnet_tpu/optimizer/optimizer.py``):
-the base :class:`Optimizer`, :class:`SGD` with momentum, :class:`LARS`,
-:class:`LAMB`, the :class:`Updater` that keeps per-parameter state,
-``create`` and ``register``.
+"""Optimizers (counterpart of ``mxnet_tpu/optimizer/optimizer.py``): the
+base :class:`Optimizer`, :class:`SGD`, :class:`NAG`, :class:`Adam`,
+:class:`AdamW`, :class:`RMSProp`, :class:`AdaGrad`, :class:`Ftrl`,
+:class:`Signum`, :class:`LARS` and :class:`LAMB`, the :class:`Updater`
+that keeps per-parameter state, ``create`` and ``register``.
+
+``update(index, weight, grad, state)`` counts the update and then
+applies it in place through :mod:`mxnet_tpu_torch.ops.optimizer_ops`;
+``_apply`` is the update without the count, which ``TrainStep`` calls
+after its own bookkeeping.  Every update writes the weight and its
+states in place: a captured step reads them at fixed addresses.
+
+The learning rate is ``lr_scheduler(num_update)`` where a scheduler is
+given, else ``learning_rate``, scaled by the parameter's multiplier:
+its ``param_dict`` entry's ``lr_mult``, else ``lr_mult[index]``, else
+``lr_mult[name]`` (``name`` from ``param_idx2name``); weight decay
+alike.  With ``multi_precision``, an fp16 weight is updated through an
+fp32 master copy: its state is ``(state, weight32)``
+(:meth:`Optimizer.create_state_multi_precision`), the update runs on
+the copy and the weight is written as its cast
+(:meth:`Optimizer.update_multi_precision`).  As in the JAX package this
+applies to float16 weights only; a bf16 weight takes the plain update.
 
 ``Updater.get_states`` pickles the per-parameter state in the JAX
 package's payload (``{index: ("nd", numpy) | ("tuple", [...]) |
 ("raw", value)}``), so a blob written by either package loads in the
 other.
-
-``update(index, weight, grad, state)`` counts the update and then
-applies it in place through :mod:`mxnet_tpu_torch.ops.optimizer_ops`;
-``_apply`` is the update without the count, which ``TrainStep`` calls
-after its own bookkeeping.  Learning rate and weight decay are scaled
-by each parameter's ``lr_mult``/``wd_mult`` through ``param_dict``.
 """
 from __future__ import annotations
 
@@ -25,7 +37,8 @@ from ..base import MXNetError
 from ..kernels.optimizer_update import l2_norm
 from ..ops import optimizer_ops
 
-__all__ = ["LAMB", "LARS", "Optimizer", "SGD", "Updater", "create",
+__all__ = ["AdaGrad", "Adam", "AdamW", "Ftrl", "LAMB", "LARS", "NAG",
+           "Optimizer", "RMSProp", "SGD", "Signum", "Updater", "create",
            "get_updater", "register"]
 
 _OPT_REGISTRY = {}
@@ -43,16 +56,24 @@ def register(klass):
 class Optimizer:
     """Base optimizer."""
 
-    def __init__(self, rescale_grad=1.0, wd=0.0, clip_gradient=None,
-                 learning_rate=0.01, param_dict=None, begin_num_update=0):
+    def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
+                 clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
+                 multi_precision=False, param_dict=None, begin_num_update=0):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            self.lr_scheduler.base_lr = learning_rate
         self.wd = wd
         self.clip_gradient = clip_gradient
+        self.multi_precision = multi_precision
         self.num_update = begin_num_update
         self.begin_num_update = begin_num_update
         self._index_update_count = {}
+        self.idx2name = dict(param_idx2name or {})
         self.param_dict = param_dict or {}
+        self.lr_mult = {}
+        self.wd_mult = {}
 
     @staticmethod
     def create_optimizer(name, **kwargs):
@@ -65,32 +86,75 @@ class Optimizer:
     def create_state(self, index, weight):
         return None
 
+    def _master_copy(self, weight):
+        """Whether ``weight`` is updated through an fp32 master copy."""
+        return self.multi_precision and weight.dtype == torch.float16
+
+    def create_state_multi_precision(self, index, weight):
+        if self._master_copy(weight):
+            w32 = weight.detach().float()
+            return (self.create_state(index, w32), w32)
+        return self.create_state(index, weight)
+
     def update(self, index, weight, grad, state):
         self._update_count(index)
         self._apply(index, weight, grad, state)
 
+    def update_multi_precision(self, index, weight, grad, state):
+        self._update_count(index)
+        self._apply_multi_precision(index, weight, grad, state)
+
     def _apply(self, index, weight, grad, state):
         raise NotImplementedError
+
+    @torch.no_grad()
+    def _apply_multi_precision(self, index, weight, grad, state):
+        """The update without the count, through the master copy where
+        there is one."""
+        if not self._master_copy(weight):
+            self._apply(index, weight, grad, state)
+            return
+        inner, w32 = state
+        self._apply(index, w32, grad.float(), inner)
+        weight.copy_(w32)
 
     def set_learning_rate(self, lr):
         self.lr = lr
 
     @property
     def learning_rate(self):
+        if self.lr_scheduler is not None:
+            return self.lr_scheduler(self.num_update)
         return self.lr
+
+    def set_lr_mult(self, args_lr_mult):
+        self.lr_mult = dict(args_lr_mult)
+
+    def set_wd_mult(self, args_wd_mult):
+        self.wd_mult = dict(args_wd_mult)
 
     def _update_count(self, index):
         count = self._index_update_count.get(index, self.begin_num_update)
         self._index_update_count[index] = count + 1
         self.num_update = max(count + 1, self.num_update)
 
+    def _mult(self, index, attr, table):
+        name = self.idx2name.get(index, index)
+        if name in self.param_dict:
+            return getattr(self.param_dict[name], attr)
+        if index in table:
+            return table[index]
+        if name in table:
+            return table[name]
+        return 1.0
+
     def _get_lr(self, index):
-        p = self.param_dict.get(index)
-        return self.lr * (p.lr_mult if p is not None else 1.0)
+        lr = self.lr_scheduler(self.num_update) if self.lr_scheduler \
+            else self.lr
+        return lr * self._mult(index, "lr_mult", self.lr_mult)
 
     def _get_wd(self, index):
-        p = self.param_dict.get(index)
-        return self.wd * (p.wd_mult if p is not None else 1.0)
+        return self.wd * self._mult(index, "wd_mult", self.wd_mult)
 
     def _common_kwargs(self, index):
         kw = {"lr": self._get_lr(index), "wd": self._get_wd(index),
@@ -104,12 +168,19 @@ def create(name, **kwargs):
     return Optimizer.create_optimizer(name, **kwargs)
 
 
+def _zeros(weight, n=1):
+    zs = tuple(torch.zeros_like(weight) for _ in range(n))
+    return zs if n > 1 else zs[0]
+
+
 @register
 class SGD(Optimizer):
     """SGD with momentum: ``mom' = momentum * mom - lr * g``, ``w' = w +
-    mom'`` (plain ``w' = w - lr * g`` without momentum)."""
+    mom'`` (plain ``w' = w - lr * g`` without momentum).  Its
+    multi-precision update is the fused ``mp_sgd(_mom)_update``; its
+    master state is ``(momentum or None, weight32)``."""
 
-    def __init__(self, momentum=0.0, **kwargs):
+    def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
 
@@ -125,6 +196,175 @@ class SGD(Optimizer):
                                          momentum=self.momentum, **kw)
         else:
             optimizer_ops.sgd_update(weight, grad, **kw)
+
+    def update_multi_precision(self, index, weight, grad, state):
+        if not self._master_copy(weight):
+            self.update(index, weight, grad, state)
+            return
+        # the JAX package reads lr and wd before it counts the update
+        kw = self._common_kwargs(index)
+        self._update_count(index)
+        self._mp_sgd(weight, grad, state, kw)
+
+    def _apply_multi_precision(self, index, weight, grad, state):
+        if not self._master_copy(weight):
+            self._apply(index, weight, grad, state)
+            return
+        self._mp_sgd(weight, grad, state, self._common_kwargs(index))
+
+    def _mp_sgd(self, weight, grad, state, kw):
+        mom, w32 = state
+        if self.momentum != 0.0:
+            optimizer_ops.mp_sgd_mom_update(weight, grad, mom, w32,
+                                            momentum=self.momentum, **kw)
+        else:
+            optimizer_ops.mp_sgd_update(weight, grad, w32, **kw)
+
+
+@register
+class NAG(SGD):
+    """Nesterov accelerated SGD: ``mom' = momentum * mom + g``, ``w' = w
+    - lr * (g + momentum * mom')``."""
+
+    def _apply(self, index, weight, grad, state):
+        kw = self._common_kwargs(index)
+        if state is not None:
+            optimizer_ops.nag_mom_update(weight, grad, state,
+                                         momentum=self.momentum, **kw)
+        else:
+            optimizer_ops.sgd_update(weight, grad, **kw)
+
+
+@register
+class Adam(Optimizer):
+    """Adam (Kingma & Ba 2015), with the bias correction folded into the
+    learning rate: ``lr * sqrt(1 - beta2^t) / (1 - beta1^t)``."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def create_state(self, index, weight):
+        return _zeros(weight, 2)
+
+    def _bias_corrected(self, index, kw):
+        """``kw`` with the bias correction folded into its lr, at the
+        update count ``t`` (a 0-d tensor under a captured step)."""
+        t = self._index_update_count[index]
+        kw["lr"] = kw["lr"] * ((1.0 - self.beta2 ** t) ** 0.5
+                               / (1.0 - self.beta1 ** t))
+        return kw
+
+    def _apply(self, index, weight, grad, state):
+        mean, var = state
+        optimizer_ops.adam_update(
+            weight, grad, mean, var, beta1=self.beta1, beta2=self.beta2,
+            epsilon=self.epsilon,
+            **self._bias_corrected(index, self._common_kwargs(index)))
+
+
+@register
+class AdamW(Adam):
+    """Adam with decoupled weight decay (Loshchilov & Hutter 2019)."""
+
+    def _apply(self, index, weight, grad, state):
+        mean, var = state
+        optimizer_ops.adamw_update(
+            weight, grad, mean, var, beta1=self.beta1, beta2=self.beta2,
+            epsilon=self.epsilon,
+            **self._bias_corrected(index, self._common_kwargs(index)))
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp (Tieleman & Hinton 2012); ``centered`` is Graves's
+    variant; ``clip_weights`` bounds the weights after each update."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1, self.gamma2 = gamma1, gamma2
+        self.epsilon = epsilon
+        self.centered = centered
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        return _zeros(weight, 3) if self.centered else _zeros(weight)
+
+    def _apply(self, index, weight, grad, state):
+        kw = self._common_kwargs(index)
+        if self.clip_weights is not None:
+            kw["clip_weights"] = self.clip_weights
+        if self.centered:
+            n, g, delta = state
+            optimizer_ops.rmspropalex_update(
+                weight, grad, n, g, delta, gamma1=self.gamma1,
+                gamma2=self.gamma2, epsilon=self.epsilon, **kw)
+        else:
+            optimizer_ops.rmsprop_update(weight, grad, state,
+                                         gamma1=self.gamma1,
+                                         epsilon=self.epsilon, **kw)
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad (Duchi et al. 2011)."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return _zeros(weight)
+
+    def _apply(self, index, weight, grad, state):
+        optimizer_ops.adagrad_update(weight, grad, state,
+                                     epsilon=self.float_stable_eps,
+                                     **self._common_kwargs(index))
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-Proximal (McMahan et al. 2013)."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1.0, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1, self.beta = lamda1, beta
+
+    def create_state(self, index, weight):
+        return _zeros(weight, 2)
+
+    def _apply(self, index, weight, grad, state):
+        z, n = state
+        optimizer_ops.ftrl_update(weight, grad, z, n, lamda1=self.lamda1,
+                                  beta=self.beta,
+                                  **self._common_kwargs(index))
+
+
+@register
+class Signum(Optimizer):
+    """signSGD with momentum (Bernstein et al. 2018); ``wd_lh`` decays
+    the weight apart from the gradient."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def create_state(self, index, weight):
+        if self.momentum != 0.0:
+            return _zeros(weight)
+        return None
+
+    def _apply(self, index, weight, grad, state):
+        kw = self._common_kwargs(index)
+        if state is not None:
+            optimizer_ops.signum_update(weight, grad, state,
+                                        momentum=self.momentum,
+                                        wd_lh=self.wd_lh, **kw)
+        else:
+            optimizer_ops.signsgd_update(weight, grad, **kw)
 
 
 @register
@@ -149,7 +389,8 @@ class LARS(Optimizer):
 
     def _skip_lars(self, index):
         p = self.param_dict.get(index)
-        return (p.name if p is not None else "").endswith(self.skip_list)
+        name = p.name if p is not None else str(self.idx2name.get(index, ""))
+        return name.endswith(self.skip_list)
 
     def _apply(self, index, weight, grad, state):
         kw = self._common_kwargs(index)
@@ -178,7 +419,7 @@ class LAMB(Optimizer):
         self.bias_correction = bias_correction
 
     def create_state(self, index, weight):
-        return (torch.zeros_like(weight), torch.zeros_like(weight))
+        return _zeros(weight, 2)
 
     def _apply(self, index, weight, grad, state):
         mean, var = state
@@ -196,7 +437,8 @@ class LAMB(Optimizer):
 
 
 class Updater:
-    """Per-parameter optimizer state, created at first use."""
+    """Per-parameter optimizer state, created at first use, and the
+    update through the multi-precision entry points."""
 
     def __init__(self, optimizer):
         self.optimizer = optimizer
@@ -204,12 +446,13 @@ class Updater:
 
     def ensure_state(self, index, weight):
         if index not in self.states:
-            self.states[index] = self.optimizer.create_state(index, weight)
+            self.states[index] = \
+                self.optimizer.create_state_multi_precision(index, weight)
         return self.states[index]
 
     def __call__(self, index, grad, weight):
-        self.optimizer.update(index, weight, grad,
-                              self.ensure_state(index, weight))
+        self.optimizer.update_multi_precision(
+            index, weight, grad, self.ensure_state(index, weight))
 
     def get_states(self, dump_optimizer=False):
         """The states as a pickled blob of host copies, with the
@@ -230,11 +473,10 @@ class Updater:
     def set_states(self, states, placement=None):
         """Replace the states with those of a :meth:`get_states` blob
         (this program's or the JAX package's: unpickle only such
-        blobs).  ``placement`` maps an index to its parameter's
-        ``(device, dtype)``: each floating state of that index goes to
-        the device at the parameter's dtype (every state is made like
-        its weight), so a bf16 state stored as float32 comes back bf16.
-        An index without placement lands on the CPU as stored."""
+        blobs).  ``placement`` maps an index to ``(device, dtype)``: each
+        floating state of that index goes to the device at that dtype,
+        so a bf16 state stored as float32 comes back bf16.  An index
+        without placement lands on the CPU as stored."""
         data = pickle.loads(states)
         if isinstance(data, tuple) and len(data) == 2 and \
                 isinstance(data[1], Optimizer):

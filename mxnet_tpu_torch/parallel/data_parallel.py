@@ -38,19 +38,31 @@ step.  The contract is the JAX step's:
   in the JAX package), updates the scale;
 - a parameter that backward leaves without a gradient is updated as
   with a zero gradient (the JAX step's ``value_and_grad`` gives zeros);
+- optimizer state is made by ``create_state_multi_precision`` and the
+  update applied by the optimizer's multi-precision entry point, so an
+  fp16 weight of a ``multi_precision`` optimizer is updated through its
+  fp32 master copy, written back in place;
 - a ``LARS`` or ``LAMB`` optimizer is applied over one flat bucket per
   dtype (:func:`mxnet_tpu_torch.kernels.optimizer_update.bucket_update`,
   the JAX step's path under ``MXNET_TPU_KERNELS=1``; the port has no
-  switch), any other optimizer parameter by parameter;
+  switch), any other optimizer parameter by parameter.  There the
+  optimizer reads its lr, wd, ``rescale_grad`` and update count ``t``
+  from the device tensor (``_optimizer_reads``), so Adam's bias
+  correction and a per-parameter LAMB's follow ``t`` across replays;
 - the update counts advance every step, but when any gradient is not
-  finite the weights and optimizer state keep their old values: a
-  select on the device (``torch.where(all_finite, new, old)``), no host
-  read; running statistics keep the forward's update, as in the JAX
-  package;
+  finite the weights and optimizer state (a master copy included) keep
+  their old values: a select on the device (``torch.where(all_finite,
+  new, old)``), no host read; running statistics keep the forward's
+  update, as in the JAX package;
+- with the numerics sentinel armed (``MXNET_TPU_NUMERICS_CHECK=1``,
+  :mod:`..analysis.numerics`), ``__call__`` reads the finite flag once
+  after the step and on a non-finite step raises ``NonFiniteError``
+  naming the first offender, the weights at their pre-step values;
+  disarmed it reads nothing;
 - ``__call__`` returns the mean loss, a 0-d tensor; ``run_steps``
   returns the K mean losses as a ``(K,)`` tensor on the device, reads
-  lr and wd once at the start of the block, and refuses an fp16 loss
-  scaler, as the JAX package does.
+  lr and wd once for the block, at its first step's count, and refuses
+  an fp16 loss scaler, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -61,6 +73,8 @@ import torch
 from .. import _capture
 from .. import amp as _amp
 from .. import autograd
+from .. import random as _random
+from ..analysis import numerics as _numerics
 from ..amp.loss_scaler import all_finite
 from ..base import MXNetError
 from ..kernels.optimizer_update import (bucket_supported, bucket_update,
@@ -72,31 +86,58 @@ __all__ = ["TrainStep"]
 @contextlib.contextmanager
 def _rates_held(opt, idxs):
     """Within the scope the optimizer's lr and wd of each index are the
-    values read on entry."""
-    lrs = {i: opt._get_lr(i) for i in idxs}
-    wds = {i: opt._get_wd(i) for i in idxs}
+    values at the block's first step: read with ``num_update`` at that
+    step's count, as the JAX package's ``run_steps`` reads them."""
+    first = opt._index_update_count.get(idxs[0], opt.begin_num_update) \
+        + 1 if idxs else opt.num_update
+    saved = opt.num_update
+    opt.num_update = max(saved, first)
+    try:
+        lrs = {i: opt._get_lr(i) for i in idxs}
+        wds = {i: opt._get_wd(i) for i in idxs}
+    finally:
+        opt.num_update = saved
     with _optimizer_reads(opt, lrs.__getitem__, wds.__getitem__):
         yield
 
 
+class _StepCount(dict):
+    """Stands in for ``Optimizer._index_update_count`` inside a step
+    body: every index reads the step's count ``t``, a 0-d tensor on the
+    device (the JAX package's ``_TracedCount``)."""
+
+    def __init__(self, t):
+        super().__init__()
+        self._t = t
+
+    def __getitem__(self, index):
+        return self._t
+
+    def __contains__(self, index):
+        return True
+
+
 @contextlib.contextmanager
-def _optimizer_reads(opt, get_lr, get_wd, rescale=None):
+def _optimizer_reads(opt, get_lr, get_wd, rescale=None, count=None):
     """Within the scope the optimizer reads its lr and wd from the given
-    functions (and ``rescale_grad`` from ``rescale``, where given); the
-    ones it had are back on exit."""
+    functions, ``rescale_grad`` from ``rescale`` and its update count
+    from ``count`` (a device tensor), where given; the ones it had are
+    back on exit."""
     names = ("_get_lr", "_get_wd")
     held = {k: opt.__dict__[k] for k in names if k in opt.__dict__}
-    saved = opt.rescale_grad
+    saved = opt.rescale_grad, opt._index_update_count
     opt._get_lr, opt._get_wd = get_lr, get_wd
     if rescale is not None:
         opt.rescale_grad = rescale
+    if count is not None:
+        opt._index_update_count = _StepCount(count)
     try:
         yield
     finally:
         for k in names:
             opt.__dict__.pop(k, None)
         opt.__dict__.update(held)
-        opt.rescale_grad = saved
+        opt.rescale_grad, opt._index_update_count = saved
 
 
 def _dtype_name(dtype):
@@ -154,6 +195,10 @@ class _StepScalars:
         return self.dev[1]
 
     @property
+    def t(self):
+        return self.dev[2]
+
+    @property
     def lrs(self):
         return self.dev[self.HEAD:self.HEAD + self.n]
 
@@ -179,6 +224,7 @@ class TrainStep:
         self._owner = None
         self._scalars = None
         self._finite = None
+        self._finite_host = None
 
     @property
     def last_step_finite(self):
@@ -274,12 +320,12 @@ class TrainStep:
         else:
             pos = {i: k for k, (i, _p) in enumerate(live)}
             with _optimizer_reads(opt, lambda i: sc.lrs[pos[i]],
-                                  lambda i: sc.wds[pos[i]], sc.rescale), \
-                    torch.no_grad():
+                                  lambda i: sc.wds[pos[i]], sc.rescale,
+                                  sc.t), torch.no_grad():
                 for (i, p), g in zip(live, grads):
                     kept = [p._data] + _tensors(states[i])
                     old = [t.clone() for t in kept]
-                    opt._apply(i, p._data, g, states[i])
+                    opt._apply_multi_precision(i, p._data, g, states[i])
                     for t, o in zip(kept, old):
                         t.copy_(torch.where(finite, t, o))
         for _i, p in live:
@@ -309,9 +355,10 @@ class TrainStep:
             key, lambda x, y: self._body(live, x, y, sc, scaled),
             [data, label], self._watched(live),
             "the step of key %r" % (key,))
-        self._finite = finite
+        self._finite, self._finite_host = finite, None
         if scaled:
-            scaler.update_scale(not bool(finite))
+            self._finite_host = bool(finite)
+            scaler.update_scale(not self._finite_host)
         return loss
 
     def __call__(self, data, label, batch_size=None):
@@ -319,7 +366,50 @@ class TrainStep:
         data = self._stage(data, device)
         label = self._stage(label, device)
         live = self._prepare(data)
-        return self._step(live, data, label, batch_size)
+        if not _numerics.check_enabled():
+            return self._step(live, data, label, batch_size)
+        gen = _random.generator(device)
+        rng_state = gen.get_state()
+        loss = self._step(live, data, label, batch_size)
+        finite = self._finite_host if self._finite_host is not None \
+            else bool(self._finite)
+        if not finite:
+            gen.set_state(rng_state)
+            self._raise_nonfinite(live, data, label)
+        return loss
+
+    def _raise_nonfinite(self, live, data, label):
+        """The sentinel's failure path: the step's gradients recomputed
+        eagerly from the weights it kept (its pre-step values), on the
+        same batch and random state, named, and the first offender
+        raised as :class:`~..analysis.numerics.NonFiniteError`.  The
+        recomputation's forward leaves the running statistics as the
+        step left them."""
+        tr = self._trainer
+        frozen = [(p._data, p._data.clone())
+                  for p in self._block.collect_params().values()
+                  if p.grad_req == "null" and p._data is not None]
+        scaler = getattr(tr, "_amp_loss_scaler", None)
+        try:
+            with autograd.record():
+                loss = self._loss_fn(self._block(data), label)
+            total = loss.sum()
+            (total * scaler.loss_scale if scaler is not None
+             else total).backward()
+            named = [(p.name, p._data.grad) for _i, p in live] \
+                + [("loss", loss.detach().mean())]
+            hit = _numerics.attribute_nonfinite(named)
+        finally:
+            for _i, p in live:
+                p._data.grad = None
+            with torch.no_grad():
+                for t, kept in frozen:
+                    t.copy_(kept)
+        param, kind = hit if hit is not None \
+            else ("<unattributed>", "nonfinite")
+        step_no = tr._optimizer.num_update
+        _numerics.record_nonfinite(param, step_no, kind)
+        raise _numerics.NonFiniteError(param, step_no, kind)
 
     def run_steps(self, data, label, batch_size=None):
         """K training steps over ``data``/``label`` of shape ``(K, B,

@@ -26,7 +26,10 @@ top-2 logit gap is under 1e-3); four LAMB or LARS steps of a Dense net
 captured against four eager ones 1e-6 (the same kernels on the same
 inputs; a graph that kept step 2's lr or bias corrections is off by
 more than 1e-3 in the last step's update of some tensor, held
-norm-wise per tensor to 1e-5).
+norm-wise per tensor to 1e-5); likewise four Adam, AdamW or
+per-parameter LAMB steps under a ``PolyScheduler`` in warm-up (lr and
+``t`` change at every call), and four multi-precision SGD steps of an
+fp16 net.
 
 Every test but the serving hot swap runs under
 ``_capture.checking_syncs()``: each capture and replay runs under
@@ -407,6 +410,155 @@ def test_captured_bucketed_steps_match_eager_steps(cuda, opt, hyper):
     for i, s in tr._updater.states.items():
         for u, v in zip(_tensors(s), _tensors(rtr._updater.states[i])):
             assert _rel(u, v) <= 1e-6, i
+
+
+def _captured_against_eager(cuda, make_opt, make_net, x, y, loss_fn,
+                            kernel=None):
+    """Four calls of one ``TrainStep`` (eager, captured, replayed,
+    replayed) against four eager steps -- a fresh ``TrainStep`` each
+    time -- on a copy of the net, each run with its own optimizer from
+    ``make_opt()``: losses 1e-6, weights 1e-6, the last step's update
+    per tensor 1e-5 norm-wise, every optimizer state 1e-6."""
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.parallel import TrainStep
+    from mxnet_tpu_torch.parallel.data_parallel import _tensors
+    runs = []
+    for captured in (True, False):
+        net = make_net()
+        tr = gluon.Trainer(net.collect_params(), make_opt())
+        mxrandom.seed(11)
+        step = TrainStep(net, loss_fn, tr)
+        n0 = registry.launches(kernel) if kernel else 0
+        losses, before = [], None
+        for k in range(4):
+            if k == 3:
+                before = [p._data.clone()
+                          for p in net.collect_params().values()]
+            if not captured:
+                step = TrainStep(net, loss_fn, tr)
+            losses.append(float(step(x, y)))
+        if kernel:
+            assert registry.launches(kernel) - n0 > 0
+        runs.append((net, tr, losses, before, step))
+    (net, tr, got, w3, step), (ref, rtr, want, r3, _s) = runs
+    stats = step.capture_stats()
+    assert stats["graphs"] == 1 and stats["replays"] == 3
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    for a, b, a3, b3 in zip(net.collect_params().values(),
+                            ref.collect_params().values(), w3, r3):
+        assert a._data.dtype == b._data.dtype
+        du, dv = (a._data - a3).double(), (b._data - b3).double()
+        err = float((du - dv).norm()) / float(dv.norm())
+        assert err <= 1e-5, "%s: last update %.3g apart" % (a.name, err)
+        assert _rel(a._data, b._data) <= 1e-6, a.name
+    assert sorted(tr._updater.states) == sorted(rtr._updater.states)
+    for i, s in tr._updater.states.items():
+        for u, v in zip(_tensors(s), _tensors(rtr._updater.states[i])):
+            assert u.dtype == v.dtype
+            assert _rel(u, v) <= 1e-6, i
+    return tr
+
+
+def _dense_batch(cuda, dtype=torch.float32):
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.standard_normal((8, 20)), dtype=dtype, device=cuda)
+    y = torch.tensor(rng.integers(0, 10, 8), dtype=torch.float32,
+                     device=cuda)
+    return x, y
+
+
+def _per_parameter_lamb(**kw):
+    """A subclass of LAMB: ``bucket_supported`` takes only LARS and LAMB
+    themselves, so ``TrainStep`` applies it parameter by parameter."""
+    from mxnet_tpu_torch.optimizer import LAMB
+
+    class PerParameterLAMB(LAMB):
+        pass
+
+    return PerParameterLAMB(**kw)
+
+
+def test_captured_per_parameter_lamb_follows_the_update_count(cuda):
+    """A per-parameter LAMB reads the update count ``t`` in its bias
+    corrections: a captured step must take ``t`` from the device at
+    every replay, not the count of the call that captured it (the
+    port's TrainStep before its repair baked that count into the graph;
+    the last update then strayed by more than 1e-3)."""
+    x, y = _dense_batch(cuda)
+    _captured_against_eager(
+        cuda, lambda: _per_parameter_lamb(learning_rate=0.01, wd=0.1),
+        _dense_net, x, y, gluon.loss.SoftmaxCrossEntropyLoss())
+
+
+@pytest.mark.parametrize("name", ["adam", "adamw", "lamb_per_parameter"])
+def test_captured_scheduled_steps_match_eager_steps(cuda, name):
+    """Adam, AdamW and a per-parameter LAMB under a ``PolyScheduler``
+    in warm-up: the lr and ``t`` change at every call, and both reach
+    each replay from the device."""
+    from mxnet_tpu_torch import lr_scheduler, optimizer
+
+    def make_opt():
+        sched = lr_scheduler.PolyScheduler(max_update=100, base_lr=1e-2,
+                                           pwr=1, warmup_steps=4)
+        kw = {"learning_rate": 1e-2, "wd": 0.05, "lr_scheduler": sched}
+        if name == "lamb_per_parameter":
+            return _per_parameter_lamb(**kw)
+        return optimizer.create(name, **kw)
+
+    x, y = _dense_batch(cuda)
+    tr = _captured_against_eager(cuda, make_opt, _dense_net, x, y,
+                                 gluon.loss.SoftmaxCrossEntropyLoss())
+    assert tr.optimizer.num_update == 4
+    assert tr.learning_rate == pytest.approx(1e-2)
+
+
+def test_captured_multi_precision_fp16_step_matches_eager(cuda):
+    """``net.cast("float16")`` and SGD with ``multi_precision``: the
+    captured step updates the fp32 master copies and writes each fp16
+    weight as its cast, in place, as the eager steps do."""
+    def make_net():
+        net = _dense_net(dropout=0.0)
+        net.cast("float16")
+        return net
+
+    x, y = _dense_batch(cuda, torch.float16)
+    tr = _captured_against_eager(
+        cuda, lambda: __import__("mxnet_tpu_torch").optimizer.create(
+            "sgd", learning_rate=0.1, momentum=0.9, multi_precision=True),
+        make_net, x, y, gluon.loss.SoftmaxCrossEntropyLoss())
+    for i, (mom, w32) in tr._updater.states.items():
+        assert mom.dtype == w32.dtype == torch.float32
+        assert torch.equal(tr._params[i].data()._data, w32.half())
+
+
+def test_sentinel_names_the_offender_of_a_captured_step(cuda):
+    """With the numerics sentinel armed, a replayed step on a poisoned
+    batch raises ``NonFiniteError`` naming the first parameter, the
+    weights bitwise at their pre-step values."""
+    from mxnet_tpu_torch.analysis import numerics
+    from mxnet_tpu_torch.parallel import TrainStep
+    net = _dense_net(dropout=0.0)
+    tr = gluon.Trainer(net.collect_params(), "adam",
+                       {"learning_rate": 1e-3})
+    step = TrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(), tr)
+    x, y = _dense_batch(cuda)
+    prev = numerics._set_check(True)
+    try:
+        step(x, y)
+        step(x, y)                      # captured
+        before = [p._data.clone() for p in net.collect_params().values()]
+        bad = x.clone()
+        bad[2, 1] = float("nan")
+        with pytest.raises(numerics.NonFiniteError) as err:
+            step(bad, y)
+    finally:
+        numerics._set_check(prev)
+    first = next(iter(net.collect_params().values()))
+    assert err.value.param == first.name and err.value.kind == "nan"
+    assert err.value.step == 3
+    for p, w in zip(net.collect_params().values(), before):
+        assert torch.equal(p._data, w), p.name
+    assert step.capture_stats()["graphs"] == 1
 
 
 def test_replays_make_no_host_read(cuda):

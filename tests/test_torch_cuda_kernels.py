@@ -492,7 +492,9 @@ def _flash_vs_plain(dtype, q, k, v, do, mask, causal):
     (4, 33, 20, False, False), (2, 1, 64, False, False),
     (24, 512, 64, False, False), (384, 512, 64, False, False),
     (4, 70, 18, True, False),    # d % 4 != 0: plain loads, dq atomics
-    (4, 300, 64, True, True)])   # the empty row 3 left of skipped tiles
+    (4, 300, 64, True, True),    # the empty row 3 left of skipped tiles
+    (3072, 128, 64, False, False),   # bf16 BERT-base, batch 256 x seq 128
+    (768, 512, 64, False, False)])   # bf16 BERT-base, batch 64 x seq 512
 def test_flash_kernels_match_plain(cuda, dtype, bh, seq, d, causal, masked):
     q, k, v, do, mask = _flash_case(cuda, bh, seq, d, dtype, masked=masked)
     _flash_vs_plain(dtype, q, k, v, do, mask, causal)
@@ -662,7 +664,8 @@ def test_flash_op_on_the_card_matches_the_cpu(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("rows,dim", [(16384, 768), (1000, 100), (7, 3),
-                                      (33, 1), (5, 4096)])
+                                      (33, 1), (5, 4096),
+                                      (32768, 768)])   # bf16 BERT-base
 def test_layernorm_kernel_matches_plain(cuda, dtype, rows, dim):
     from mxnet_tpu_torch.kernels.layernorm import layernorm_reference
     from mxnet_tpu_torch.kernels.registry import dispatch
@@ -678,6 +681,27 @@ def test_layernorm_kernel_matches_plain(cuda, dtype, rows, dim):
     assert got.dtype == dtype
     ok, err = _close(got, want, dtype)
     assert ok, err
+
+
+def test_flash_and_layernorm_count_launches_by_dtype(cuda):
+    """The flash and LayerNorm launchers count each launch under the
+    dtype it ran on (``registry.launch_dtypes``), as a bf16 path reads
+    them."""
+    from mxnet_tpu_torch.kernels.registry import dispatch
+    registry.reset_launches()
+    for dtype in (torch.bfloat16, torch.float32, torch.bfloat16):
+        q, k, v, do, _m = _flash_case(cuda, 4, 64, 64, dtype)
+        out, lse = dispatch("flash_attention_fwd", q, k, v, scale=0.125)
+        delta = (do.float() * out.float()).sum(-1)
+        dispatch("flash_attention_bwd", q, k, v, lse, do, delta,
+                 scale=0.125)
+        x = torch.ones(8, 768, device=cuda, dtype=dtype)
+        dispatch("layernorm_fwd", x, torch.ones(768, device=cuda),
+                 torch.zeros(768, device=cuda))
+    want = {"bfloat16": 2, "float32": 1}
+    for name in ("flash_attention_fwd", "flash_attention_bwd",
+                 "layernorm_fwd"):
+        assert registry.launch_dtypes(name) == want, name
 
 
 def test_layernorm_op_on_the_card_matches_the_cpu(cuda):

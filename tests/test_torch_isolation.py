@@ -63,6 +63,39 @@ def test_the_imperative_api_loads_neither_jax_nor_mxnet_tpu():
     assert out.stdout.strip() == "[]"
 
 
+def test_the_optimizer_and_sentinel_load_neither_jax_nor_mxnet_tpu():
+    """The optimizer module (schedulers, every optimizer, the ``mx.nd``
+    update ops) and the numerics sentinel, imported and used in a fresh
+    process; the scan above imports each of their modules too."""
+    names = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
+    assert {"optimizer/lr_scheduler.py", "analysis/numerics.py",
+            "ops/optimizer_ops.py"} <= names
+    code = ("import sys, torch\n"
+            "import mxnet_tpu_torch as mx\n"
+            "from mxnet_tpu_torch.analysis import numerics\n"
+            "s = mx.lr_scheduler.PolyScheduler(max_update=10, base_lr=0.1)\n"
+            "o = mx.optimizer.create('adam', lr_scheduler=s)\n"
+            "u = mx.optimizer.get_updater(o)\n"
+            "w = torch.ones(3)\n"
+            "u(0, torch.ones(3), w)\n"
+            "assert (w < 1).all() and not numerics.check_enabled()\n"
+            "with mx.cpu():\n"
+            "    mx.nd.adam_update(mx.nd.ones((2,)), mx.nd.ones((2,)),\n"
+            "                      mx.nd.zeros((2,)), mx.nd.zeros((2,)))\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "%r))" % (FORBIDDEN,))
+    env = dict(os.environ)
+    env.pop("MXNET_TPU_NUMERICS_CHECK", None)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(PKG.parent)] + [p for p in env.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(PKG.parent))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def _imports(path):
     tree = ast.parse(path.read_text(), str(path))
     for node in ast.walk(tree):
@@ -120,7 +153,7 @@ def test_training_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
 def test_env_registry_defaults_and_typed_reads(monkeypatch):
     from mxnet_tpu import env as jax_env
     from mxnet_tpu_torch import env
-    assert len(env.REGISTRY) == 9
+    assert len(env.REGISTRY) == 10
     for name, var in env.REGISTRY.items():
         assert var.default == jax_env.REGISTRY[name].default, name
         assert var.type is jax_env.REGISTRY[name].type, name

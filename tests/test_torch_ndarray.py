@@ -1,9 +1,10 @@
 """The port's imperative NDArray API (``mxnet_tpu_torch.nd``) against the
 JAX package's ``mx.nd`` on the CPU: the behaviour of
 ``tests/test_ndarray.py`` (save/load excepted: not ported yet), one case
-per op name and alias of the port's op table with the same numpy inputs
-through both, and the list of the JAX package's tensor and random op
-names the port still lacks.
+per op name and alias of the port's op table (the optimizer update ops
+excepted: ``tests/test_torch_optimizer_ops.py`` holds them) with the same
+numpy inputs through both, and the list of the JAX package's tensor and
+random op names the port still lacks.
 
 Tolerance: 1e-5 relative and 1e-6 absolute, the JAX tests' own
 ``assert_almost_equal`` rtol; dtypes and shapes must be equal.  Random
@@ -493,7 +494,13 @@ def _outputs(res):
     return list(res) if isinstance(res, (list, tuple)) else [res]
 
 
-@pytest.mark.parametrize("name", table.names())
+# the optimizer update ops have their own cases:
+# tests/test_torch_optimizer_ops.py
+TENSOR_OPS = [n for n in table.names()
+              if not table.lookup(n).fn.__module__.endswith(".optimizer_ops")]
+
+
+@pytest.mark.parametrize("name", TENSOR_OPS)
 def test_op_matches_the_jax_package(name):
     spec = table.lookup(name)
     inputs, params = _inputs(name)
