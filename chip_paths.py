@@ -1,0 +1,62 @@
+"""Run chosen paths of the ``chip_smoke.py`` of the current directory on
+one card: the way to compare a checkout with another on the same card
+without the whole smoke run.
+
+    cd <checkout> && python3 <repo>/chip_paths.py decode mnist
+    cd <checkout> && python3 <repo>/chip_paths.py pretrain
+
+``decode`` is ``chip_smoke.main_path`` (GPT-2 small decode serving),
+``mnist`` is ``mnist_main_path`` (the imperative LeNet loop, then 100
+hybridized batches) and ``pretrain`` is ``bert_pretrain_phase`` (BERT
+pretraining as users run it, with its oracle).  The checkout's own
+``chip_smoke`` and package are imported, its kernels built, and each
+path prints its lines as in the smoke run, under the same host-read
+check of every capture.  Exits 1 when a path's check fails, 2 without a
+card or on an unknown path.
+"""
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+PATHS = {"decode": "main_path", "mnist": "mnist_main_path",
+         "pretrain": "bert_pretrain_phase"}
+
+
+def main(argv):
+    names = argv or ["decode", "mnist"]
+    unknown = [n for n in names if n not in PATHS]
+    if unknown:
+        print("chip_paths: unknown path %s; choose from %s"
+              % (", ".join(unknown), ", ".join(PATHS)), file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.getcwd())
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_paths: CUDA is not available", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from mxnet_tpu_torch import _build, _capture
+    print(cs.gpu_line(), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.build_all()
+    print("built in %.1f s" % (time.perf_counter() - t0), flush=True)
+    with _capture.checking_syncs():
+        for name in names:
+            t0 = time.perf_counter()
+            try:
+                getattr(cs, PATHS[name])()
+            except cs.SmokeFailure as e:
+                print("chip_paths: %s FAILED: %s" % (name, e))
+                return 1
+            torch.cuda.empty_cache()
+            print("chip_paths: %s ok in %.1f s"
+                  % (name, time.perf_counter() - t0), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

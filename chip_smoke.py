@@ -77,9 +77,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    128 on the card and on the CPU, the loss and each gradient and
    update held against the permuted-batch bf16 floor and the fp32
    distance (the AMP LARS oracle's method; the tensors it cannot hold
-   printed); and
+   printed; the card against a CPU step given the flash kernel's
+   rounding of P, printed beside it); and
    BERT-base bf16 at 8 x 128 with Adam and a ``PolyScheduler`` in
    warm-up, four calls of one ``TrainStep`` against four eager steps;
+9b. BERT pretraining as its users run it: ``bert_base(vocab_size=30522,
+   max_length=512, dropout=0)`` hybridized under
+   ``amp.scope("bfloat16")``, a padded batch of 64 x 512 made by the
+   rules of google-research/bert ``create_pretraining_data.py`` (seed 0:
+   short_seq_prob 0.1, two segments with token types, NSP labels 50/50,
+   masked_lm_prob 0.15 up to 77 a row) with ``valid_mask[b, i, j] = j <
+   len_b``, the loop ``autograd.record()`` -> NSP + MLM losses ->
+   ``backward()`` -> ``trainer.step`` with Adam (lr 1e-4, wd 0.01) and
+   the default ``Trainer(kvstore="device")``: two warm-up steps (eager,
+   then captured), eight timed; the counters zeroed before the warm-up
+   and read after.  Losses finite, the MLM loss falling; masked flash
+   forward and backward 12 x 10 on bf16, ``layernorm_fwd`` 25 x 10
+   fp32 + 10 bf16; one ``pushpull`` a live gradient a step.  It prints
+   ms/step, tokens/s over valid and padded tokens, ``trainer.step``
+   host ms (pushpull and update), peak memory, graphs and replays, then
+   profiles one step (idle share), and runs the oracle: one step of
+   the loop at 2 x 128 with lengths 128 and 71, bf16 and fp32, card
+   against CPU;
 10. the LeNet/MNIST path, ``examples/gluon_mnist.py``'s loop through the
    imperative API at the example's width (Conv2D 32 and 64, MaxPool,
    Dense 128, Dropout 0.5, Dense 10; Xavier, SGD 0.05/0.9, batch 128):
@@ -104,7 +123,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    registers and shared memory, and causal with a float mask that
    leaves a row no key; at phase 9's shapes the flash kernels in bf16
    at (3072, 128, 64) and (768, 512, 64) and LayerNorm on its 32,768 x
-   768 rows in fp32 and bf16, beside SDPA and ``F.layer_norm``);
+   768 rows in fp32 and bf16, beside SDPA and ``F.layer_norm``; at
+   phase 9b's shape the masked flash kernels in bf16 at (768, 512, 64)
+   with its valid_mask, beside SDPA with the boolean mask);
 13. checkpoint and serve.  Right after phase 3's eight steps the net
    and its trainer are saved with ``CheckpointManager.save_training``,
    once synchronously and once with ``async_save=True`` (the two steps'
@@ -2164,22 +2185,31 @@ def per_tensor_errors(a, b):
     return out
 
 
-def held_against_floors(got, floors, fp32, fp32_factor=1.0):
-    """Hold each tensor's card-vs-CPU error ``got[k]`` to AMP_ORACLE_FACTOR
-    times its permuted floor, and no less than ``fp32_factor`` times its
-    fp32 distance, for the tensors whose floors are both below
-    AMP_FLOOR_CAP (elsewhere bf16 noise alone is O(1), as large as a
-    fault): ``(held names, worst ratio of error to limit, its name)``."""
-    held = [k for k in floors
-            if max(floors[k], fp32[k]) < AMP_FLOOR_CAP]
-    worst, worst_name = 0.0, None
-    for k in held:
+def limit_ratios(got, floors, fp32, fp32_factor=1.0):
+    """Each tensor's card-vs-CPU error ``got[k]`` over its limit:
+    AMP_ORACLE_FACTOR times its permuted floor, and no less than
+    ``fp32_factor`` times its fp32 distance.  Only the tensors whose
+    floors are both below AMP_FLOOR_CAP are held (elsewhere bf16 noise
+    alone is O(1), as large as a fault): ``{held name: ratio}``."""
+    out = {}
+    for k in floors:
+        if max(floors[k], fp32[k]) >= AMP_FLOOR_CAP:
+            continue
         limit = max(AMP_ORACLE_FACTOR * floors[k], fp32_factor * fp32[k])
-        ratio = got[k] / limit if limit > 0 else (0.0 if got[k] == 0
-                                                  else float("inf"))
+        out[k] = got[k] / limit if limit > 0 else (0.0 if got[k] == 0
+                                                   else float("inf"))
+    return out
+
+
+def held_against_floors(got, floors, fp32, fp32_factor=1.0):
+    """:func:`limit_ratios` summed up: ``(held names, worst ratio of
+    error to limit, its name)``."""
+    ratios = limit_ratios(got, floors, fp32, fp32_factor)
+    worst, worst_name = 0.0, None
+    for k, ratio in ratios.items():
         if ratio > worst:
             worst, worst_name = ratio, k
-    return held, worst, worst_name
+    return list(ratios), worst, worst_name
 
 
 def amp_lars_oracle(net, make_net=resnet50_nhwc, batch=8, image=224,
@@ -2309,7 +2339,8 @@ BERT_BF16_SITE_DTYPES = {
 BERT_BF16_ORACLE_BATCH, BERT_BF16_ORACLE_SEQ = 2, 128
 # the card and the CPU each round to bf16 in their own places, each about
 # its fp32 distance from the fp32 step: two such steps lie up to twice
-# that apart (bert_bf16_oracle)
+# that apart (bert_bf16_oracle; the flash forward's rounding of P, given
+# to the CPU, does not bring them closer: PERF.md section 2)
 BF16_PLACEMENT_FACTOR = 2.0
 ADAM_REPLAY_LIMIT = 1e-5
 BERT_BF16_HOLD_BATCH, BERT_BF16_HOLD_SEQ = 8, 128
@@ -2570,6 +2601,88 @@ def bert_bf16_grads_and_step(net, vocab, ids, labels, bf16=True,
     return loss, grads, updates, replayed
 
 
+FLASH_KEY_TILE = 64     # keys of a tile of csrc/flash_attention.cu's forward
+
+
+def kernel_rounded_flash_fwd(q, k, v, mask=None, causal=False, scale=1.0,
+                             heads=1):
+    """The plain flash forward with the bf16 kernel's rounding, for a
+    CPU step of the pretraining oracle only (never the port's path):
+    the kernel walks the keys in tiles of 64 with an online softmax and,
+    on bf16 inputs, rounds each tile's unnormalized probabilities
+    ``exp(s - m_j)`` (``m_j`` the row's running maximum through tile j)
+    to bf16 for its bf16 ``P V`` product, summing them unrounded into
+    the row's denominator; the plain version keeps P in fp32.  Other
+    dtypes take the plain version."""
+    import torch
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    if q.dtype != torch.bfloat16:
+        return fa.flash_attention_fwd_reference(q, k, v, mask, causal,
+                                                scale, heads)
+    s = fa._scores(q, k, mask, causal, scale, heads)
+    bh, n_q, n_k = s.shape
+    tiles = -(-n_k // FLASH_KEY_TILE)
+    pad = tiles * FLASH_KEY_TILE - n_k
+    st = torch.nn.functional.pad(s, (0, pad), value=-float("inf")) \
+        .reshape(bh, n_q, tiles, FLASH_KEY_TILE)
+    vt = torch.nn.functional.pad(v.float(), (0, 0, 0, pad)) \
+        .reshape(bh, tiles, FLASH_KEY_TILE, -1)
+    m_run = torch.cummax(st.amax(-1), dim=-1).values      # (bh, q, tiles)
+    m = m_run[..., -1]
+    p = torch.exp(st - m_run[..., None]).to(torch.bfloat16).float()
+    pv = torch.einsum("bqtk,btkd->bqtd", p, vt)
+    o = (pv * torch.exp(m_run - m[..., None])[..., None]).sum(2)
+    den = torch.exp(st - m[..., None, None]).sum((-1, -2))
+    return (o / den[..., None]).to(q.dtype), m + torch.log(den)
+
+
+@contextlib.contextmanager
+def kernel_rounding():
+    """Within the scope, the flash forward's plain version (the CPU
+    path) is :func:`kernel_rounded_flash_fwd`."""
+    from mxnet_tpu_torch.kernels import registry
+    spec = registry.get("flash_attention_fwd")
+    plain = spec.plain
+    spec.plain = kernel_rounded_flash_fwd
+    try:
+        yield
+    finally:
+        spec.plain = plain
+
+
+def round_mantissa(t, bits):
+    """``t`` rounded to ``bits`` explicit mantissa bits (to nearest,
+    ties to even), in its dtype and exponent range."""
+    import torch
+    m, e = torch.frexp(t.float())
+    scale = float(2 ** (bits + 1))
+    return torch.ldexp(torch.round(m * scale) / scale, e).to(t.dtype)
+
+
+@contextlib.contextmanager
+def coarse_casts(bits):
+    """Within the scope, every cast of the AMP policy to bf16 also
+    rounds to ``bits`` mantissa bits: the same step at a lower
+    precision (the pretraining oracle's control).  The gradient passes
+    the extra rounding unchanged, as it passes the cast."""
+    import torch
+    from mxnet_tpu_torch import amp
+    cast = amp._cast_floats
+
+    def coarse(datas, dtype):
+        out = cast(datas, dtype)
+        if dtype != torch.bfloat16:
+            return out
+        return [d + (round_mantissa(d.detach(), bits) - d.detach())
+                if amp._is_float(d) else d for d in out]
+
+    amp._cast_floats = coarse
+    try:
+        yield
+    finally:
+        amp._cast_floats = cast
+
+
 def bert_bf16_oracle(arrays, prefix, vocab=BERT_VOCAB,
                      batch=BERT_BF16_ORACLE_BATCH,
                      seq=BERT_BF16_ORACLE_SEQ, make_net=bert_bf16_net,
@@ -2582,10 +2695,10 @@ def bert_bf16_oracle(arrays, prefix, vocab=BERT_VOCAB,
     permuted and the step in fp32.  Here the permuted floor is ~0 (no
     layer couples the rows of a batch, so every bf16 rounding falls where
     it fell), and the card and the CPU round to bf16 in different places
-    (cuBLAS reduces bf16 products split along K in bf16; the flash
-    kernel rounds the probabilities to bf16 before the PV product, which
-    its plain version takes in fp32): each lies about its fp32 distance
-    from the fp32 step, so the two may lie up to twice that apart
+    (the accumulation order of every product; the flash kernel rounds
+    the probabilities to bf16 before the PV product, which its plain
+    version takes in fp32): each lies about its fp32 distance from the
+    fp32 step, so the two may lie up to twice that apart
     (BF16_PLACEMENT_FACTOR).
 
     - The loss is held to the larger of AMP_ORACLE_FACTOR times its
@@ -2749,27 +2862,27 @@ def bert_bf16_hold(vocab=BERT_VOCAB, batch=BERT_BF16_HOLD_BATCH,
     return out
 
 
+def release_cuda():
+    """Free what earlier owners left in PyTorch's caches: each capture
+    stream of the earlier paths (a hold makes a fresh ``TrainStep`` a
+    call) left a cuBLAS workspace there."""
+    import torch
+    gc.collect()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+
+
 def bert_bf16_phase(shapes=BERT_BF16_SHAPES):
     """The main path at each of bench_bert_base's shapes, each with its
     breakdown and capture report, each net released before the next;
     then the oracle on the first shape's weights and the
     captured-against-eager hold."""
-    import gc
-    import torch
-
-    def release():
-        # each capture stream of the earlier paths (a hold makes a fresh
-        # TrainStep a call) left a cuBLAS workspace in PyTorch's cache
-        gc.collect()
-        clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
-        if clear is not None:
-            clear()
-        torch.cuda.empty_cache()
-
     out = {"main": {}, "breakdown": {}}
     arrays = prefix = None
     for batch, seq in shapes:
-        release()
+        release_cuda()
         net, step, (ids, labels), stats = bert_bf16_main_path(batch=batch,
                                                               seq=seq)
         key = "%dx%d" % (batch, seq)
@@ -2787,13 +2900,634 @@ def bert_bf16_phase(shapes=BERT_BF16_SHAPES):
                       for p in net.collect_params().values()}
             prefix = net.prefix
         del net, step, ids, labels
-    release()
+    release_cuda()
     out["oracle"] = bert_bf16_oracle(arrays, prefix)
     del arrays
-    release()
+    release_cuda()
     out["hold"] = bert_bf16_hold()
-    release()
+    release_cuda()
     return out
+
+
+# ---------------------------------------------------------------------
+# phase 10: BERT pretraining as users run it -- padded batches with a
+# valid_mask, NSP beside masked LM, the imperative loop, the default
+# Trainer(kvstore="device")
+# ---------------------------------------------------------------------
+
+# google-research/bert create_pretraining_data.py's defaults for
+# pretraining at 512 tokens: short_seq_prob 0.1, masked_lm_prob 0.15,
+# max_predictions_per_seq 77 (= 512 x 0.15)
+PRETRAIN_BATCH, PRETRAIN_SEQ = 64, 512
+PRETRAIN_SHORT_SEQ_PROB = 0.1
+PRETRAIN_MASKED_LM_PROB = 0.15
+PRETRAIN_MAX_PREDICTIONS = 77
+PRETRAIN_ADAM = {"learning_rate": 1e-4, "wd": 0.01}
+PRETRAIN_ORACLE_SEQ, PRETRAIN_ORACLE_LENGTHS = 128, (128, 71)
+# the oracle's control: the CPU step with every bf16 cast of the AMP
+# policy rounded to fp8 e4m3's 3 mantissa bits (bf16 keeps 7) must fail
+# its loss check
+PRETRAIN_CONTROL_MANTISSA_BITS = 3
+# BERT's uncased WordPiece vocabulary: [PAD] 0, [CLS] 101, [SEP] 102,
+# [MASK] 103, word pieces from 999 on
+BERT_SPECIAL_IDS = {"pad": 0, "cls": 101, "sep": 102, "mask": 103,
+                    "first_word": 999}
+# per step: masked flash attention on bf16 q/k/v at every layer (forward
+# and backward); LayerNorm at the bf16 policy's dtypes, as unmasked
+# (tests/test_torch_bert_pretrain.py holds both against the JAX package)
+BERT_PRETRAIN_SITE_DTYPES = {
+    "flash_attention_fwd": {"bfloat16 masked": BERT_LAYERS},
+    "flash_attention_bwd": {"bfloat16 masked": BERT_LAYERS},
+    "layernorm_fwd": {"float32": 2 * BERT_LAYERS + 1, "bfloat16": 1}}
+
+
+def bert_pretrain_net(dropout=0.0, vocab_size=BERT_VOCAB):
+    from mxnet_tpu_torch.gluon.model_zoo import bert_base
+    return bert_base(vocab_size=vocab_size, max_length=BERT_SEQ,
+                     dropout=dropout)
+
+
+def pretraining_batch(batch, seq, vocab, seed=0, lengths=None,
+                      short_seq_prob=PRETRAIN_SHORT_SEQ_PROB,
+                      masked_lm_prob=PRETRAIN_MASKED_LM_PROB,
+                      max_predictions=PRETRAIN_MAX_PREDICTIONS):
+    """A padded pretraining batch by the rules of google-research/bert
+    ``create_pretraining_data.py``: one row in ten (``short_seq_prob``)
+    of a length uniform in [8, seq], the others in [seq - seq / 8, seq]
+    (unless ``lengths`` gives them); ``[CLS] A [SEP] B [SEP]`` split at a
+    random point with token types 0/1; next-sentence labels 50/50;
+    ``masked_lm_prob`` of the row's tokens, at most ``max_predictions``,
+    picked among its non-special positions for the MLM loss (80%
+    [MASK], 10% a random word, 10% kept).  Returns numpy arrays: ids,
+    types, lens, labels, weights (batch, seq, 1), nsp."""
+    rng = np.random.default_rng(seed)
+    sp = BERT_SPECIAL_IDS if vocab > BERT_SPECIAL_IDS["first_word"] \
+        else {"pad": 0, "cls": 1, "sep": 2, "mask": 3, "first_word": 4}
+    if lengths is None:
+        short = rng.random(batch) < short_seq_prob
+        lens = np.where(short, rng.integers(8, seq + 1, batch),
+                        rng.integers(seq - seq // 8, seq + 1, batch))
+    else:
+        lens = np.asarray(lengths)
+    ids = np.full((batch, seq), sp["pad"], np.float32)
+    types = np.zeros((batch, seq), np.float32)
+    labels = np.zeros((batch, seq), np.float32)
+    weights = np.zeros((batch, seq, 1), np.float32)
+    for b, n in enumerate(lens):
+        len_a = int(rng.integers(1, n - 3))
+        ids[b, :n] = rng.integers(sp["first_word"], vocab, n)
+        ids[b, 0] = sp["cls"]
+        ids[b, len_a + 1] = ids[b, n - 1] = sp["sep"]
+        types[b, len_a + 2:n] = 1
+        cand = [i for i in range(1, n - 1) if i != len_a + 1]
+        num = min(max_predictions, max(1, int(round(n * masked_lm_prob))))
+        picks = rng.permutation(cand)[:num]
+        labels[b, picks] = ids[b, picks]
+        weights[b, picks, 0] = 1.0
+        for i in picks:
+            r = rng.random()
+            if r < 0.8:
+                ids[b, i] = sp["mask"]
+            elif r < 0.9:
+                ids[b, i] = rng.integers(sp["first_word"], vocab)
+    nsp = rng.integers(0, 2, batch).astype(np.float32)
+    return {"ids": ids, "types": types, "lens": lens, "labels": labels,
+            "weights": weights, "nsp": nsp}
+
+
+def valid_mask(lens, seq, device):
+    """``valid_mask[b, i, j] = j < lens[b]``: every query row keeps its
+    batch row's valid keys (a padded query row too, whose loss weight
+    is 0), so no row is left without a key."""
+    import torch
+    lens = torch.as_tensor(np.asarray(lens), device=device)
+    return (torch.arange(seq, device=device)[None, None, :]
+            < lens[:, None, None]).float().expand(len(lens), seq, seq) \
+        .contiguous()
+
+
+def pretrain_inputs(data, ctx):
+    """The batch as NDArrays on ``ctx``, the mask made on the device."""
+    from mxnet_tpu_torch import NDArray
+    from mxnet_tpu_torch import nd
+    arrays = {k: nd.array(data[k], ctx=ctx)
+              for k in ("ids", "types", "labels", "weights", "nsp")}
+    arrays["mask"] = NDArray(valid_mask(data["lens"], data["ids"].shape[1],
+                                        ctx.torch_device()))
+    return arrays
+
+
+def pretrain_loop_step(net, trainer, inputs, mlm_ce, nsp_ce, batch):
+    """The user's loop, one step: ``(loss, MLM loss)`` per sample (device
+    NDArrays) and the host seconds of ``trainer.step``."""
+    from mxnet_tpu_torch import autograd
+    with autograd.record():
+        mlm, nsp = net(inputs["ids"], inputs["types"], inputs["mask"])
+        mlm_loss = mlm_ce(mlm, inputs["labels"], inputs["weights"])
+        loss = mlm_loss + nsp_ce(nsp, inputs["nsp"])
+    loss.backward()
+    t0 = time.perf_counter()
+    trainer.step(batch)
+    return loss, mlm_loss, time.perf_counter() - t0
+
+
+def counting_pushpull(kv):
+    """Wrap the store's ``pushpull`` to count its calls and their host
+    seconds: ``{"calls": n, "s": seconds}``."""
+    tally = {"calls": 0, "s": 0.0}
+    pushpull = kv.pushpull
+
+    def counted(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return pushpull(*args, **kwargs)
+        finally:
+            tally["calls"] += 1
+            tally["s"] += time.perf_counter() - t0
+
+    kv.pushpull = counted
+    return tally
+
+
+def bert_pretrain_main_path(make_net=bert_pretrain_net, vocab=BERT_VOCAB,
+                            batch=PRETRAIN_BATCH, seq=PRETRAIN_SEQ,
+                            steps=TRAIN_STEPS,
+                            site_dtypes=BERT_PRETRAIN_SITE_DTYPES,
+                            ctx=None):
+    """BERT-base pretraining the way its users run it: the hybridized
+    net under ``amp.scope("bfloat16")``, NSP + MLM over a padded batch
+    with its ``valid_mask``, ``autograd.record`` -> ``backward`` ->
+    ``Trainer.step`` with Adam and the default kvstore.  The launch
+    counters are zeroed before the WARM_STEPS warm-up steps (eager, then
+    captured) and read after the ``steps`` timed ones."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, gluon, random
+    from mxnet_tpu_torch.kernels import registry
+    ctx = mx.gpu() if ctx is None else ctx
+    cuda = ctx.device_type == "gpu"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    random.seed(0)
+    net = make_net()
+    net.initialize(mx.init.Normal(0.02), ctx=ctx,
+                   generator=torch.Generator().manual_seed(0))
+    net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            dict(PRETRAIN_ADAM))
+    data = pretraining_batch(batch, seq, vocab, seed=0)
+    inputs = pretrain_inputs(data, ctx)
+    mlm_ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    nsp_ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    registry.reset_launches()
+    with amp.scope("bfloat16"):
+        t0 = time.perf_counter()
+        for _ in range(WARM_STEPS):         # eager, then captured
+            pretrain_loop_step(net, trainer, inputs, mlm_ce, nsp_ce, batch)
+        if cuda:
+            torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        kv = counting_pushpull(trainer._kvstore)
+        losses, mlm_losses, step_s = [], [], []
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            loss, mlm_loss, s = pretrain_loop_step(net, trainer, inputs,
+                                                   mlm_ce, nsp_ce, batch)
+            losses.append(loss._data.detach().mean())
+            mlm_losses.append(mlm_loss._data.detach().mean())
+            step_s.append(s)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    names = ("flash_attention_fwd", "flash_attention_bwd", "layernorm_fwd")
+    counts = {name: registry.launches(name) for name in names}
+    dtypes = {name: registry.launch_dtypes(name) for name in names}
+    losses = torch.stack(losses).tolist()
+    mlm_losses = torch.stack(mlm_losses).tolist()
+    live = [p for p in net.collect_params().values()
+            if p.grad_req != "null"]
+    what = "BERT pretraining %dx%d" % (batch, seq)
+    check(all(np.isfinite(losses + mlm_losses)), "%s: non-finite loss %s"
+          % (what, losses))
+    check(mlm_losses[-1] < mlm_losses[0], "%s: MLM loss did not fall: %s"
+          % (what, mlm_losses))
+    check(trainer._kvstore.type == "device", "%s: kvstore %r" % (
+        what, trainer._kvstore.type))
+    check(kv["calls"] == steps * len(live), "%s: %d pushpulls in %d steps "
+          "of %d live gradients" % (what, kv["calls"], steps, len(live)))
+    runs = steps + WARM_STEPS
+    for name, per_step in site_dtypes.items():
+        n = sum(per_step.values()) * runs
+        check(counts[name] == n, "%s: %s launches %d != %d"
+              % (what, name, counts[name], n))
+        if cuda:
+            want = {k: v * runs for k, v in per_step.items()}
+            check(dtypes[name] == want, "%s: %s ran on %s, not %s"
+                  % (what, name, dtypes[name], want))
+    step_host = 1e3 * float(np.mean(step_s))
+    push_host = 1e3 * kv["s"] / steps
+    stats = {"batch": batch, "seq": seq, "steps": steps,
+             "valid_tokens": int(data["lens"].sum()),
+             "short_rows": int((data["lens"] < seq - seq // 8).sum()),
+             "masked_positions": int(data["weights"].sum()),
+             "losses": losses, "mlm_losses": mlm_losses,
+             "ms_per_step": 1e3 * wall / steps,
+             "tokens_per_s_valid": int(data["lens"].sum()) * steps / wall,
+             "tokens_per_s_padded": batch * seq * steps / wall,
+             "warmup_s": warm_s, "trainer_step_host_ms": step_host,
+             "pushpull_host_ms": push_host,
+             "update_host_ms": step_host - push_host,
+             "pushpull_per_step": kv["calls"] / steps,
+             "live_gradients": len(live), "kvstore": trainer._kvstore.type,
+             "launches": counts, "launch_dtypes": dtypes,
+             "peak_mem_bytes": torch.cuda.max_memory_allocated()
+             if cuda else None, "card": gpu_line() if cuda else None}
+    if cuda:
+        cache = net.cache_stats()
+        stats["graphs"] = cache["graphs"][str(ctx.torch_device())]
+        stats["keys"] = len(cache["keys"])
+    print("BERT pretraining main path (bert_base, dropout 0, padded %dx%d "
+          "with valid_mask, NSP + MLM, amp.scope('bfloat16'), Adam lr 1e-4 "
+          "wd 0.01, Trainer(kvstore='device'), imperative loop, "
+          "hybridized): %s" % (batch, seq, json.dumps(stats)))
+    return net, trainer, inputs, stats
+
+
+def bert_pretrain_breakdown(net, trainer, inputs, step_ms, batch):
+    """Device time of one step of the loop by category (the bf16
+    categories), from ``torch.profiler``, and the device's idle share
+    against the loop's ms a step."""
+    import torch
+    from mxnet_tpu_torch import amp, gluon
+    from torch.profiler import ProfilerActivity, profile
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    with amp.scope("bfloat16"):
+        pretrain_loop_step(net, trainer, inputs, ce, ce, batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            pretrain_loop_step(net, trainer, inputs, ce, ce, batch)
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    check(kernels, "the profiler saw no device time")
+    by_cat = {}
+    for e in kernels:
+        cat = bf16_step_category(e.key)
+        ms_, n_ = by_cat.get(cat, (0.0, 0))
+        by_cat[cat] = (ms_ + e.self_device_time_total / 1e3, n_ + e.count)
+    busy = sum(v[0] for v in by_cat.values())
+    for cat in ("flash_fwd", "flash_bwd", "layernorm_fwd", "bf16_gemm"):
+        check(cat in by_cat, "BERT pretraining: the profiler saw no %s "
+              "kernel" % cat)
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    out = {"step_ms": step_ms, "device_busy_ms": busy,
+           "device_idle_share": 1 - busy / step_ms,
+           "by_category": {k: [v[0], v[1], v[0] / busy] for k, v in sorted(
+               by_cat.items(), key=lambda kv: -kv[1][0])},
+           "top_kernels": [[e.key[:72], e.self_device_time_total / 1e3,
+                            e.count, bf16_step_category(e.key)]
+                           for e in ranked[:14]],
+           "card": gpu_line()}
+    print("BERT pretraining step breakdown %dx%d: %s"
+          % (batch, inputs["ids"].shape[1], json.dumps(out)))
+    check(busy <= step_ms * 1.05, "BERT pretraining: device busy %.2f ms "
+          "> the loop's %.2f ms a step" % (busy, step_ms))
+    return out
+
+
+def pretrain_loss_terms(mlm, nsp, inputs):
+    """The loss term by term: each position's MLM cross-entropy times
+    its weight (0 off the masked positions) and each row's NSP
+    cross-entropy, ``(batch, seq + 1)`` float64 on the CPU."""
+    import torch
+    lp = torch.log_softmax(mlm._data.detach().double(), -1)
+    tok = -lp.gather(-1, inputs["labels"]._data.long()[..., None])[..., 0] \
+        * inputs["weights"]._data[..., 0].double()
+    lpn = torch.log_softmax(nsp._data.detach().double(), -1)
+    sent = -lpn.gather(-1, inputs["nsp"]._data.long()[:, None])
+    return torch.cat([tok, sent], 1).cpu()
+
+
+def pretrain_grads_and_step(net, data, bf16=True):
+    """One step of the loop on ``data`` from a fresh Adam trainer,
+    unhybridized: ``(loss, {name: grad}, {name: w' - w}, loss terms)``,
+    float64 on the CPU, names relative to the net's prefix, the terms as
+    :func:`pretrain_loss_terms`."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, autograd, gluon
+    params = {p.name[len(net.prefix):]: p
+              for p in net.collect_params().values()}
+    dev = next(iter(params.values())).data()._data.device
+    ctx = mx.cpu() if dev.type == "cpu" else mx.gpu(dev.index or 0)
+    inputs = pretrain_inputs(data, ctx)
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            dict(PRETRAIN_ADAM))
+    scope = amp.scope("bfloat16") if bf16 else contextlib.nullcontext()
+    with scope:
+        with autograd.record():
+            mlm, nsp = net(inputs["ids"], inputs["types"], inputs["mask"])
+            loss = ce(mlm, inputs["labels"], inputs["weights"]) \
+                + ce(nsp, inputs["nsp"])
+        loss.backward()
+        terms = pretrain_loss_terms(mlm, nsp, inputs)
+        grads = {k: p.data()._data.grad.detach().cpu().double()
+                 for k, p in params.items()
+                 if p.data()._data.grad is not None}
+        before = {k: p.data()._data.detach().cpu().double()
+                  for k, p in params.items()}
+        trainer.step(data["ids"].shape[0])
+    updates = {k: p.data()._data.detach().cpu().double() - before[k]
+               for k, p in params.items()}
+    return float(loss._data.detach().double().sum()), grads, updates, terms
+
+
+def bert_pretrain_oracle(arrays, prefix, vocab=BERT_VOCAB,
+                         seq=PRETRAIN_ORACLE_SEQ,
+                         lengths=PRETRAIN_ORACLE_LENGTHS,
+                         make_net=bert_pretrain_net, device="cuda"):
+    """One step of the pretraining loop (NSP + MLM, ragged lengths
+    ``lengths`` at ``seq``, dropout 0) with the main path's weights on
+    the card and on the CPU.  bf16, the bf16 BERT oracle's rule
+    (``held_against_floors`` over the permuted and fp32 floors): each
+    gradient and the held updates (norm-wise) within the larger of
+    AMP_ORACLE_FACTOR x its permuted floor and BF16_PLACEMENT_FACTOR x
+    its fp32 distance; the card and the CPU each lie about their fp32
+    distance from the fp32 step.  A tensor is held on its own only with
+    at least ``units`` entries: the NSP classifier's bias has two, whose
+    gradient is one number, the two rows' probabilities summed, so its
+    fp32 distance is one draw that lands near 0 by chance.  The loss is
+    held term by term (:func:`pretrain_loss_terms`, norm-wise, each NSP
+    row's term among them) to the larger of AMP_ORACLE_FACTOR x its
+    permuted floor and BF16_PLACEMENT_FACTOR x the larger of its fp32
+    distance and its placement shift, the CPU's loss with the flash
+    forward rounding P as the kernel does (:func:`kernel_rounding`).
+    The summed loss is printed, not held: one number over a few masked
+    tokens and two NSP rows whose errors cancel by chance, as the NSP
+    bias's do.  A control shows the checks have teeth: the CPU step with
+    every bf16 cast of the AMP policy rounded to
+    PRETRAIN_CONTROL_MANTISSA_BITS (:func:`coarse_casts`) must fail the
+    terms check and the gradient check.  fp32 (TF32 off): loss and
+    gradients within BERT_ORACLE_LIMITS.  The key third of each qkv bias
+    is left out (its exact gradient is 0)."""
+    import torch
+    from mxnet_tpu_torch.gluon.convert import params_from_numpy
+
+    def copy_on(dev):
+        n = make_net()
+        n.initialize(device=dev)
+        params_from_numpy(n, arrays, prefix=prefix)
+        return n
+
+    units = copy_on("cpu")._units
+    batch = len(lengths)
+    data = pretraining_batch(batch, seq, vocab, seed=5, lengths=lengths)
+    perm = np.arange(batch)[::-1].copy()
+    t0 = time.perf_counter()
+    runs = {"cpu": pretrain_grads_and_step(copy_on("cpu"), data)}
+    cpu_step_s = time.perf_counter() - t0
+    runs["cpu_permuted"] = pretrain_grads_and_step(
+        copy_on("cpu"), {k: v[perm] for k, v in data.items()})
+    with kernel_rounding():
+        runs["cpu_twin"] = pretrain_grads_and_step(copy_on("cpu"), data)
+    with coarse_casts(PRETRAIN_CONTROL_MANTISSA_BITS):
+        runs["cpu_control"] = pretrain_grads_and_step(copy_on("cpu"), data)
+    runs["cpu_fp32"] = pretrain_grads_and_step(copy_on("cpu"), data,
+                                               bf16=False)
+    runs["card"] = pretrain_grads_and_step(copy_on(device), data)
+    runs["card_fp32"] = pretrain_grads_and_step(copy_on(device), data,
+                                                bf16=False)
+    loss = {run: r[0] for run, r in runs.items()}
+    terms = {run: r[3] for run, r in runs.items()}
+    terms["cpu_permuted"] = terms["cpu_permuted"][np.argsort(perm)]
+    check(sorted(runs["card"][1]) == sorted(runs["cpu"][1]),
+          "BERT pretraining oracle: parameters with a gradient differ")
+
+    def rel(a, b):
+        return abs(loss[a] - loss[b]) / abs(loss[b])
+
+    def rel_terms(a, b):
+        return float((terms[a] - terms[b]).norm() / terms[b].norm())
+
+    out = {"batch": batch, "seq": seq, "lengths": list(lengths),
+           "cpu_step_s": cpu_step_s, "loss_card": loss["card"],
+           "loss_cpu": loss["cpu"],
+           "fp32_card_loss_rel_err": rel("card_fp32", "cpu_fp32"),
+           "loss_terms": int((terms["cpu"] != 0).sum())}
+    for what, err in (("loss", rel), ("terms", rel_terms)):
+        for pre, run in (("", "card"), ("floor_", "cpu_permuted"),
+                         ("placement_", "cpu_twin"), ("fp32_", "cpu_fp32"),
+                         ("control_", "cpu_control")):
+            out["%s%s_rel_err" % (pre, what)] = err(run, "cpu")
+        out["%s_limit" % what] = max(
+            AMP_ORACLE_FACTOR * out["floor_%s_rel_err" % what],
+            BF16_PLACEMENT_FACTOR * max(out["fp32_%s_rel_err" % what],
+                                        out["placement_%s_rel_err" % what]))
+    vals = {}
+    for what, j in (("grad", 1), ("update", 2)):
+        vals[what] = {run: split_key_bias(r[j], units)[0]
+                      for run, r in runs.items()}
+        v = vals[what]
+        got = per_tensor_errors(v["card"], v["cpu"])
+        floors = per_tensor_errors(v["cpu_permuted"], v["cpu"])
+        fp32 = per_tensor_errors(v["cpu_fp32"], v["cpu"])
+        small = sorted(k for k in floors if v["cpu"][k].numel() < units)
+        floors = {k: f for k, f in floors.items() if k not in small}
+        ratios = limit_ratios(got, floors, fp32, BF16_PLACEMENT_FACTOR)
+        held, worst, worst_name = held_against_floors(
+            got, floors, fp32, BF16_PLACEMENT_FACTOR)
+        closest = sorted([r, k, got[k], floors[k], fp32[k]]
+                         for k, r in ratios.items())[::-1][:3]
+
+        def norm(a, names=held):
+            return rel_errors({k: v[a][k] for k in names},
+                              {k: v["cpu"][k] for k in names})[0]
+
+        out.update({
+            "%s_tensors" % what: len(got), "%s_held" % what: len(held),
+            "%s_rel_err_held" % what: norm("card"),
+            "fp32_%s_rel_err_held" % what: norm("cpu_fp32"),
+            "control_%s_rel_err_held" % what: norm("cpu_control"),
+            "control_%s_worst_ratio_to_limit" % what: held_against_floors(
+                per_tensor_errors(v["cpu_control"], v["cpu"]), floors,
+                fp32, BF16_PLACEMENT_FACTOR)[1],
+            "%s_worst_ratio_to_limit" % what: worst,
+            "%s_worst_param" % what: worst_name,
+            "%s_closest" % what: closest,
+            "%s_small" % what: [[k, got.get(k), fp32.get(k)]
+                                for k in small],
+            "%s_unheld" % what: sorted(
+                [k, floors[k], fp32[k]] for k in floors if k not in held)})
+    f_glob, f_worst, f_name = rel_errors(vals["grad"]["card_fp32"],
+                                         vals["grad"]["cpu_fp32"])
+    out.update({"fp32_card_grad_rel_err": f_glob,
+                "fp32_card_grad_rel_err_worst": f_worst,
+                "fp32_card_grad_worst_param": f_name,
+                "factor": AMP_ORACLE_FACTOR,
+                "placement_factor": BF16_PLACEMENT_FACTOR,
+                "control_mantissa_bits": PRETRAIN_CONTROL_MANTISSA_BITS,
+                "card": gpu_line() if device != "cpu" else None})
+    print("BERT pretraining oracle (card vs CPU, NSP + MLM, lengths %s at "
+          "%d): %s" % (list(lengths), seq, json.dumps(out)))
+    check(np.isfinite(loss["card"]), "BERT pretraining oracle: the card's "
+          "loss is not finite")
+    check(out["terms_rel_err"] <= out["terms_limit"], "BERT pretraining "
+          "oracle: loss terms %.3g > limit %.3g" % (out["terms_rel_err"],
+                                                    out["terms_limit"]))
+    check(out["control_terms_rel_err"] > out["terms_limit"]
+          and out["control_grad_worst_ratio_to_limit"] > 1.0, "BERT "
+          "pretraining oracle: the control (%d-bit casts) passes: loss "
+          "terms %.3g against limit %.3g, worst gradient %.3g of its "
+          "limit" % (PRETRAIN_CONTROL_MANTISSA_BITS,
+                     out["control_terms_rel_err"], out["terms_limit"],
+                     out["control_grad_worst_ratio_to_limit"]))
+    check(out["grad_held"] > 0 and out["update_held"] > 0,
+          "BERT pretraining oracle: the floors hold no gradient or update")
+    check(out["grad_worst_ratio_to_limit"] <= 1.0, "BERT pretraining "
+          "oracle: grad of %s %.3g times its limit" % (
+              out["grad_worst_param"], out["grad_worst_ratio_to_limit"]))
+    check(out["update_rel_err_held"]
+          <= BF16_PLACEMENT_FACTOR * out["fp32_update_rel_err_held"],
+          "BERT pretraining oracle: held updates %.3g > %g x their fp32 "
+          "distance %.3g" % (out["update_rel_err_held"],
+                             BF16_PLACEMENT_FACTOR,
+                             out["fp32_update_rel_err_held"]))
+    check(out["fp32_card_loss_rel_err"] <= BERT_ORACLE_LIMITS["loss_rel_err"]
+          and f_glob <= BERT_ORACLE_LIMITS["grad_rel_err"],
+          "BERT pretraining oracle: the fp32 step, card vs CPU: loss %.3g, "
+          "grads %.3g" % (out["fp32_card_loss_rel_err"], f_glob))
+    return out
+
+
+def bert_pretrain_phase():
+    """The main path, its breakdown and capture report, then the oracle
+    on its weights; every earlier owner released first."""
+    import torch
+    release_cuda()
+    net, trainer, inputs, stats = bert_pretrain_main_path()
+    bd = bert_pretrain_breakdown(net, trainer, inputs,
+                                 stats["ms_per_step"], PRETRAIN_BATCH)
+    stats["device_idle_share"] = bd["device_idle_share"]
+    cache = net.cache_stats()
+    owner = dict(cache["graphs"][str(torch.device("cuda", 0))],
+                 keys=cache["keys"])
+    capture_report("BERT pretraining (hybridized forward and backward)",
+                   owner, {"ms_per_step": stats["ms_per_step"],
+                           "tokens_per_s_valid":
+                           stats["tokens_per_s_valid"],
+                           "peak_mem_bytes": stats["peak_mem_bytes"]},
+                   bd["device_idle_share"], 2)
+    arrays = {p.name: p.data()._data.detach().cpu().numpy()
+              for p in net.collect_params().values()}
+    prefix = net.prefix
+    del net, trainer, inputs
+    release_cuda()
+    oracle = bert_pretrain_oracle(arrays, prefix)
+    release_cuda()
+    return {"main": stats, "breakdown": bd, "oracle": oracle}
+
+
+def masked_flash_bounds(lens, heads, seq, d, itemsize):
+    """Least times of the masked flash forward and backward at the
+    pretraining batch's valid ``lens``: bytes as :func:`flash_bounds`
+    plus the fp32 ``(b, seq, seq)`` mask read once per batch element
+    (the 12 heads of an element run side by side and share it in L2),
+    and only the products of valid keys (``4 (fwd) / 10 (bwd) x heads x
+    seq x sum(lens) x d`` flops) at bf16's 989 TFLOP/s.  Also the mask's
+    bytes as the kernels would read them with no L2 sharing, once per
+    head.  Returns {kind: dict}."""
+    b = len(lens)
+    bh = b * heads
+    n = bh * seq * d * itemsize
+    mask_once = b * seq * seq * 4
+    valid = heads * seq * int(np.sum(lens)) * d
+    out = {}
+    for kind, nbytes, flops in (
+            ("fwd", 4 * n + 4 * bh * seq + mask_once, 4 * valid),
+            ("bwd", 7 * n + 8 * bh * seq + mask_once, 10 * valid)):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+        out[kind] = {"bound_ms": 1e3 * max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations",
+                     "bytes": nbytes, "flops": flops,
+                     "mask_bytes_once_per_element": mask_once,
+                     "mask_bytes_once_per_head": mask_once * heads,
+                     "mask_per_head_ms_at_hbm_rate":
+                         1e3 * mask_once * heads / HBM_BYTES_PER_S}
+    return out
+
+
+def bert_pretrain_kernel_phase(batch=PRETRAIN_BATCH, seq=PRETRAIN_SEQ,
+                               d=64, vocab=BERT_VOCAB):
+    """The masked flash kernels in bf16 at the pretraining path's
+    ``(batch * 12, seq, 64)`` with its ragged ``valid_mask``: held
+    against the plain versions and timed beside them, SDPA with the
+    boolean mask broadcast over the heads (``attn_mask`` ``(b, 1, seq,
+    seq)``; a yardstick, never on the path) and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    lens = pretraining_batch(batch, seq, vocab, seed=0)["lens"]
+    bh = batch * BERT_HEADS
+    q, k, v, do, _ = flash_inputs(bh, seq, d, torch.bfloat16, seed=11)
+    mask = valid_mask(lens, seq, "cuda")
+    kw = dict(mask=mask, scale=d ** -0.5, heads=BERT_HEADS)
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+    want_out, want_lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
+    delta = (do.float() * want_out.float()).sum(-1)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, want_lse, do, delta, **kw)
+    want = fa.flash_attention_bwd_reference(q, k, v, want_lse, do, delta,
+                                            **kw)
+    fwd_err = max(rel_err(out, want_out), rel_err(lse, want_lse))
+    bwd_err = max(rel_err(a, b) for a, b in zip(grads, want))
+    tol_f, tol_b = FLASH_TOL["bfloat16"]
+    what = "masked flash (bh %d, seq %d, d %d, bfloat16, pretraining " \
+        "valid_mask)" % (bh, seq, d)
+    print("%s: fwd rel err %.3g (limit %g), bwd rel err %.3g (limit %g)"
+          % (what, fwd_err, tol_f, bwd_err, tol_b))
+    check(fwd_err <= tol_f, "%s forward: %.3g > %g" % (what, fwd_err, tol_f))
+    check(bwd_err <= tol_b, "%s backward: %.3g > %g" % (what, bwd_err,
+                                                        tol_b))
+    b4 = (batch, BERT_HEADS, seq, d)
+    q4, k4, v4, do4 = (t.view(*b4) for t in (q, k, v, do))
+    keep = mask.bool()[:, None]
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep,
+                                              scale=kw["scale"])
+
+    def lib_fwd_bwd():
+        o = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=keep,
+                                           scale=kw["scale"])
+        return torch.autograd.grad(o, (ql, kl, vl), do4)
+
+    fwd = {"ms": time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, **kw)),
+           "plain_ms": time_ms(lambda: fa.flash_attention_fwd_reference(
+               q, k, v, **kw)),
+           "library_ms": time_ms(lib_fwd)}
+    lib_both = time_ms(lib_fwd_bwd)
+    bwd = {"ms": time_ms(lambda: fa.flash_attention_bwd_cuda(
+               q, k, v, lse, do, delta, **kw)),
+           "plain_ms": time_ms(lambda: fa.flash_attention_bwd_reference(
+               q, k, v, lse, do, delta, **kw)),
+           "library_ms": lib_both - fwd["library_ms"]}
+    bounds = masked_flash_bounds(lens, BERT_HEADS, seq, d, 2)
+    res = {}
+    for kind, t, err in (("fwd", fwd, fwd_err), ("bwd", bwd, bwd_err)):
+        t.update(bounds[kind], max_abs_err=err, shape=[bh, seq, d],
+                 dtype="bfloat16", masked=True,
+                 valid_tokens=int(np.sum(lens)))
+        print("masked flash %s times (bh %d, seq %d, d %d, bfloat16, "
+              "valid_mask of the pretraining batch): %s; library = SDPA "
+              "with the boolean mask over the heads%s" % (
+                  kind, bh, seq, d, json.dumps(t),
+                  " (forward+backward %.4f ms less its forward)" % lib_both
+                  if kind == "bwd" else ""))
+        res[kind] = t
+    return res
 
 
 # ---------------------------------------------------------------------
@@ -3786,6 +4520,7 @@ def drive():
     gc.collect()
     torch.cuda.empty_cache()
     bert_bf16 = bert_bf16_phase()
+    pretrain = bert_pretrain_phase()
     mnist_main_path()
     mnist_oracle()
     torch.cuda.empty_cache()
@@ -3796,6 +4531,7 @@ def drive():
     lamb = lamb_kernel_phase(sizes)
     lars_k = lars_kernel_phase(lars_sizes, lars_skips)
     bf16_k = bert_bf16_kernel_phase()
+    pretrain_k = bert_pretrain_kernel_phase()
     torch.cuda.empty_cache()
     serve = serve_phase(ckpt_root)
     decode_ckpt = decode_checkpoint_phase()
@@ -3803,10 +4539,17 @@ def drive():
     counts = bert["launches"]
 
     def bf16_path(name):
-        return {"launches_bert_bf16_adam": {
-                    key: run["launches"][name]
-                    for key, run in bert_bf16["main"].items()},
-                "bert_bf16_adam": bf16_k[name]}
+        extra = {"launches_bert_bf16_adam": {
+                     key: run["launches"][name]
+                     for key, run in bert_bf16["main"].items()},
+                 "bert_bf16_adam": bf16_k[name],
+                 "launches_bert_pretrain":
+                     pretrain["main"]["launches"][name]}
+        kind = {"flash_attention_fwd": "fwd",
+                "flash_attention_bwd": "bwd"}.get(name)
+        if kind is not None:
+            extra["bert_pretrain_masked"] = pretrain_k[kind]
+        return extra
 
     print(json.dumps({"kernels": [
         kernel_entry("paged_attention", decode["paged_attention_launches"],

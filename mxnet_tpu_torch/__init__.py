@@ -36,12 +36,25 @@ It imports neither JAX nor anything of ``mxnet_tpu``.  Ported so far:
 - the whole optimizer module (every optimizer of the JAX package's
   registry, ``mx.lr_scheduler``, multi-precision fp16, the ``mx.nd``
   update ops) and BERT pretraining under bf16 AMP with Adam, with the
-  runtime half of the numerics sentinel (:mod:`.analysis.numerics`).
+  runtime half of the numerics sentinel (:mod:`.analysis.numerics`);
+- BERT pretraining as users run it -- padded batches with a
+  ``valid_mask``, NSP beside masked LM -- through the imperative loop
+  and ``Trainer``'s default single-process :mod:`.kvstore`, with the
+  everyday Gluon members of the JAX package (``Parameter`` and
+  ``ParameterDict`` members, ``gluon.Constant``, ``Block.summary``, the
+  initializers, ``autograd.set_recording``).
+
+``import mxnet_tpu_torch as mx`` binds ``mx.parallel``, ``mx.serving``
+and ``mx.kv``/``mx.kvstore`` as the JAX package's ``__init__`` does.
 
 Kernels and their plain versions are registered in :mod:`.kernels`.
 """
 from . import amp, autograd, checkpoint, gluon, metric, optimizer, random
+from . import initializer
 from . import initializer as init
+from . import kvstore
+from . import kvstore as kv
+from . import parallel, serving
 from . import ndarray as nd
 from .base import MXNetError
 from .context import (Context, cpu, cpu_pinned, current_context, gpu,
@@ -53,5 +66,6 @@ __version__ = "0.1.0"
 
 __all__ = ["Context", "MXNetError", "NDArray", "amp", "autograd",
            "checkpoint", "cpu", "cpu_pinned", "current_context", "gluon",
-           "gpu", "init", "lr_scheduler", "metric", "nd", "num_gpus",
-           "optimizer", "random", "resolve_device"]
+           "gpu", "init", "initializer", "kv", "kvstore", "lr_scheduler",
+           "metric", "nd", "num_gpus", "optimizer", "parallel", "random",
+           "resolve_device", "serving"]

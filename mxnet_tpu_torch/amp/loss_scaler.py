@@ -2,19 +2,17 @@
 ``mxnet_tpu/amp/loss_scaler.py``): the scale doubles after
 ``scale_window`` clean steps and halves on overflow, never below
 ``min_scale``.  bf16 keeps fp32's exponent range and needs no scaling.
+The overflow check is the numerics sentinel's eager twin,
+:func:`~mxnet_tpu_torch.analysis.numerics.finite_all` (``all_finite``
+here too), as the JAX ``LossScaler.has_overflow`` calls it.
 """
 from __future__ import annotations
 
-import torch
+from ..analysis.numerics import finite_all
 
 __all__ = ["LossScaler", "all_finite"]
 
-
-def all_finite(tensors):
-    """A 0-d bool tensor on the tensors' device: whether every element of
-    every tensor is finite.  One reduction per tensor and one stack; no
-    host read."""
-    return torch.stack([torch.isfinite(t).all() for t in tensors]).all()
+all_finite = finite_all
 
 
 class LossScaler:
@@ -32,7 +30,7 @@ class LossScaler:
         grads = [g for g in grad_arrays if g is not None]
         if not grads:
             return False
-        return not bool(all_finite(grads))
+        return not bool(finite_all(grads))
 
     def update_scale(self, overflow):
         """Adjust the scale after a step."""

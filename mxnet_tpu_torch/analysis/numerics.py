@@ -11,22 +11,38 @@ offender (:func:`attribute_nonfinite`, NaN before Inf) and raises
 :class:`NonFiniteError`.  Disarmed, the default, the step makes no host
 read for it.
 
+The eager twins serve code outside ``TrainStep``:
+:func:`finite_all` (and :func:`finite_tree` on tensors) is one finite
+check over a set of arrays, a 0-d bool on their device, with no host
+read (the fp16 loss scaler's overflow check, ``TrainStep``'s finite
+select); :func:`finite_sentinel` checks named arrays when the sentinel
+is armed, with one host read, and raises :class:`NonFiniteError`
+naming the first offender.  Where the JAX functions flatten each dtype
+group into one buffer for XLA to fuse, these reduce each array where it
+lies and combine the flags: the same answer without a copy of every
+gradient.
+
 The JAX package's static lints, HLO audit, chaos point and telemetry
 hooks are not part of the port.
 """
 from __future__ import annotations
 
+import time
+
 import torch
 
 from .. import env
+from ..bucketing import dtype_groups
 
 __all__ = ["NonFiniteError", "attribute_nonfinite", "check_enabled",
+           "finite_all", "finite_sentinel", "finite_tree", "note_check",
            "record_nonfinite"]
 
 _CHECK = env.get("MXNET_TPU_NUMERICS_CHECK")
 
-# the sentinel's record: non-finite steps seen, the last one
-_STATE = {"nonfinite": 0, "last": None}
+# the sentinel's record: checks made and their host-read seconds,
+# non-finite steps seen, the last one
+_STATE = {"checks": 0, "check_seconds": 0.0, "nonfinite": 0, "last": None}
 
 
 def check_enabled() -> bool:
@@ -59,6 +75,30 @@ class NonFiniteError(RuntimeError):
         self.kind = kind
 
 
+def _float_leaves(leaves):
+    return [x for x in leaves
+            if isinstance(x, torch.Tensor) and x.is_floating_point()]
+
+
+def finite_tree(leaves):
+    """Whether every element of every floating tensor of ``leaves`` is
+    finite, as a 0-d bool on their device (on the CPU when there is
+    none); other leaves (integer counters) are skipped.  Each dtype
+    group reduces to one flag; no host read."""
+    fl = _float_leaves(leaves)
+    if not fl:
+        return torch.tensor(True)
+    flags = [torch.stack([torch.isfinite(fl[i]).all() for i in idxs]).all()
+             for _dtype, idxs in dtype_groups(fl)]
+    return flags[0] if len(flags) == 1 else torch.stack(flags).all()
+
+
+def finite_all(arrays):
+    """:func:`finite_tree` over NDArrays or tensors: one finite check
+    over the set, a device boolean the caller reads when it chooses."""
+    return finite_tree([getattr(a, "_data", a) for a in arrays])
+
+
 def attribute_nonfinite(named):
     """``(name, kind)`` of the first non-finite entry of ``(name,
     tensor)`` pairs, NaN reported before Inf when both occur; None when
@@ -74,6 +114,34 @@ def attribute_nonfinite(named):
         if first_inf is None and bool(torch.isinf(t).any()):
             first_inf = (name, "inf")
     return first_inf
+
+
+def note_check(seconds):
+    """Book one sentinel check of ``seconds`` (its host read)."""
+    _STATE["checks"] += 1
+    _STATE["check_seconds"] += seconds
+
+
+def finite_sentinel(named, step=None):
+    """Check ``(name, array)`` pairs for non-finite values with one
+    host read and raise :class:`NonFiniteError` naming the first
+    offender (NaN before Inf).  Disarmed, the default, it touches
+    nothing.  Returns True on a clean pass."""
+    if not _CHECK:
+        return True
+    named = list(named)
+    ok_dev = finite_all([a for _n, a in named])
+    t0 = time.perf_counter()
+    ok = bool(ok_dev)
+    note_check(time.perf_counter() - t0)
+    if ok:
+        return True
+    hit = attribute_nonfinite(
+        [(n, getattr(a, "_data", a)) for n, a in named])
+    param, kind = hit if hit is not None else ("<unattributed>",
+                                               "nonfinite")
+    record_nonfinite(param, step, kind)
+    raise NonFiniteError(param, step, kind)
 
 
 def record_nonfinite(param, step, kind):

@@ -13,6 +13,9 @@ of thread-local flags the layers read:
 
 ``record()`` sets both, ``pause()`` clears recording and (by default)
 training, ``train_mode()`` and ``predict_mode()`` set training alone.
+:func:`set_recording` and :func:`set_training` set one flag outside a
+scope and return its previous value; ``set_recording`` sets PyTorch's
+grad mode with it.
 
 On NDArrays (:mod:`mxnet_tpu_torch.ndarray`), :func:`backward`,
 :func:`grad`, :func:`mark_variables` and :class:`Function` keep MXNet's
@@ -41,7 +44,7 @@ from .base import MXNetError
 
 __all__ = ["Function", "backward", "grad", "is_recording", "is_training",
            "mark_variables", "pause", "predict_mode", "record",
-           "train_mode"]
+           "set_recording", "set_training", "train_mode"]
 
 _state = threading.local()
 
@@ -59,6 +62,21 @@ def is_recording():
 
 def is_training():
     return _st().training
+
+
+def set_recording(is_record):
+    """Turn recording on or off; returns the previous setting."""
+    st = _st()
+    prev, st.recording = st.recording, bool(is_record)
+    torch.set_grad_enabled(st.recording)
+    return prev
+
+
+def set_training(train_mode):
+    """Turn training mode on or off; returns the previous setting."""
+    st = _st()
+    prev, st.training = st.training, bool(train_mode)
+    return prev
 
 
 class _RecordingStateScope:

@@ -3,10 +3,10 @@ layers, losses, the Trainer, ``data`` (datasets, samplers, DataLoader,
 vision) and the ResNet and BERT model zoo."""
 from . import data, loss, model_zoo, nn
 from .block import Block, HybridBlock
-from .parameter import (DeferredInitializationError, Parameter,
+from .parameter import (Constant, DeferredInitializationError, Parameter,
                         ParameterDict)
 from .trainer import Trainer
 
-__all__ = ["Block", "DeferredInitializationError", "HybridBlock",
+__all__ = ["Block", "Constant", "DeferredInitializationError", "HybridBlock",
            "Parameter", "ParameterDict", "Trainer", "data", "loss",
            "model_zoo", "nn"]

@@ -12,8 +12,15 @@ naming and parameter management:
   as in MXNet;
 - parameters are :class:`~.parameter.Parameter` objects, created with
   ``self.params.get(...)`` and gathered by ``collect_params()``;
-- ``initialize()`` allocates them on the GPU (or the CPU when asked),
-  deferring any whose shape the first forward has to infer.
+- ``initialize(init, ctx, verbose, force_reinit)`` allocates them on
+  the GPU (or the CPU when asked), deferring any whose shape the first
+  forward has to infer;
+- ``register_forward_pre_hook(hook)`` runs ``hook(block, args)`` before
+  each call with the call's own arguments, ``apply(fn)`` runs ``fn`` on
+  every descendant and then the block (``torch.nn.Module``'s), and
+  ``summary(*inputs)`` prints the reference's table of the direct
+  children's outputs and parameter counts.  ``register_forward_hook``
+  is ``torch.nn.Module``'s.
 
 A block takes tensors or NDArrays.  Called with an NDArray among its
 inputs, it runs on their tensors and returns NDArrays, recording for
@@ -57,6 +64,7 @@ serving pool) runs its plain forward as part of the owner's program.
 from __future__ import annotations
 
 import contextlib
+import math
 import re
 import threading
 import weakref
@@ -70,7 +78,8 @@ from .. import ops as _ops
 from ..base import MXNetError
 from ..ndarray import NDArray
 from ..ndarray import ndarray as _nd_mod
-from .parameter import DeferredInitializationError, Parameter, ParameterDict
+from .parameter import (DeferredInitializationError, Parameter,
+                        ParameterDict, shape_is_known)
 
 __all__ = ["Block", "HybridBlock"]
 
@@ -102,6 +111,7 @@ class Block(torch.nn.Module):
         object.__setattr__(self, "_reg_params", {})
         object.__setattr__(self, "_scope_params",
                            ParameterDict(prefix, shared=params))
+        object.__setattr__(self, "_mx_pre_hooks", [])
 
     def __setattr__(self, name, value):
         if isinstance(value, Parameter):
@@ -228,14 +238,50 @@ class Block(torch.nn.Module):
             if name in params:
                 params[name]._load(data, ctx, cast_dtype=cast_dtype)
 
-    def initialize(self, init=None, device=None, force_reinit=False,
-                   generator=None, ctx=None):
-        """Initialize every parameter on ``device`` (the GPU unless the
-        caller passes ``device="cpu"``; ``ctx``, a context, is MXNet's
-        spelling of it); random initializers draw from ``generator``."""
-        self.collect_params().initialize(init, device if ctx is None
-                                         else ctx, force_reinit,
-                                         generator=generator)
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False, *, device=None, generator=None):
+        """Initialize every parameter on ``ctx`` (a context; or
+        ``device``, the GPU unless the caller passes ``device="cpu"``);
+        random initializers draw from ``generator``."""
+        self.collect_params().initialize(init, ctx, verbose, force_reinit,
+                                         device=device, generator=generator)
+
+    def register_forward_pre_hook(self, hook):
+        """Run ``hook(block, args)`` before each call, with the call's
+        arguments (reference: ``Block.register_forward_pre_hook``);
+        returns ``hook``."""
+        self._mx_pre_hooks.append(hook)
+        return hook
+
+    def summary(self, *inputs):
+        """Run ``inputs`` through the block and return the reference's
+        table: each direct child's type, output shape and own parameter
+        count, and their total."""
+        lines = ["-" * 64,
+                 "%-30s %-20s %s" % ("Layer", "Output", "Params"),
+                 "=" * 64]
+        total = 0
+
+        def hook(block, _args, out):
+            nonlocal total
+            n = sum(math.prod(p.shape) for p in block._reg_params.values()
+                    if p.shape and shape_is_known(p.shape))
+            total += n
+            shape = tuple(out.shape) if isinstance(out, torch.Tensor) \
+                else "-"
+            lines.append("%-30s %-20s %d" % (type(block).__name__, shape,
+                                             n))
+
+        handles = [child.register_forward_hook(hook)
+                   for child in self._children.values()]
+        try:
+            self(*inputs)
+        finally:
+            for h in handles:
+                h.remove()
+        lines.append("=" * 64)
+        lines.append("Total params (direct children): %d" % total)
+        return "\n".join(lines)
 
     def hybridize(self, active=True, **kwargs):
         for child in self._children.values():
@@ -245,6 +291,8 @@ class Block(torch.nn.Module):
         raise NotImplementedError
 
     def __call__(self, *args, **kwargs):
+        for hook in self._mx_pre_hooks:
+            hook(self, args)
         if not any(isinstance(a, NDArray) for a in args + tuple(
                 kwargs.values())):
             return self._call_tensors(*args, **kwargs)

@@ -6,7 +6,9 @@ pretraining heads (masked LM and next-sentence prediction), ``get_bert``,
 Parameter names are the JAX package's, so
 :func:`mxnet_tpu_torch.gluon.convert.params_from_numpy` carries a JAX
 BERT across by name.  Without ``valid_mask`` the encoder's attention runs
-the flash kernels unmasked.  Tensor parallelism (``tp_mesh``,
+the flash kernels unmasked; with it, the masked flash kernels at every
+layer (outside training, or at dropout 0).  ``use_flash=False`` runs
+the plain attention math instead.  Tensor parallelism (``tp_mesh``,
 ``shard_tp``) is not ported yet.
 """
 from __future__ import annotations
@@ -29,8 +31,8 @@ class BERTModel(HybridBlock):
 
     def __init__(self, vocab_size=30522, units=768, hidden_size=3072,
                  num_layers=12, num_heads=12, max_length=512,
-                 type_vocab_size=2, dropout=0.1, tp_mesh=None,
-                 dtype="float32", **kwargs):
+                 type_vocab_size=2, dropout=0.1, use_flash=None,
+                 tp_mesh=None, dtype="float32", **kwargs):
         super().__init__(**kwargs)
         if tp_mesh is not None:
             raise MXNetError("tensor-parallel BERT (tp_mesh) is not ported "
@@ -42,7 +44,8 @@ class BERTModel(HybridBlock):
                                               dtype=dtype)
             self.encoder = TransformerEncoder(
                 units, hidden_size, num_layers, num_heads,
-                max_length=max_length, dropout=dropout, dtype=dtype)
+                max_length=max_length, dropout=dropout, use_flash=use_flash,
+                dtype=dtype)
             # pooler over [CLS] for next-sentence prediction
             self.pooler = Dense(units, activation="tanh", flatten=False,
                                 in_units=units, dtype=dtype)
@@ -82,11 +85,12 @@ _SPECS = {
 
 
 def get_bert(name, vocab_size=30522, max_length=512, dropout=0.1,
-             **kwargs):
+             use_flash=None, tp_mesh=None, **kwargs):
     units, hidden, layers, heads = _SPECS[name]
     return BERTModel(vocab_size=vocab_size, units=units, hidden_size=hidden,
                      num_layers=layers, num_heads=heads,
-                     max_length=max_length, dropout=dropout, **kwargs)
+                     max_length=max_length, dropout=dropout,
+                     use_flash=use_flash, tp_mesh=tp_mesh, **kwargs)
 
 
 def bert_base(**kwargs):

@@ -257,10 +257,12 @@ resnet_block_versions = [
 ]
 
 
-def get_resnet(version, num_layers, pretrained=False, **kwargs):
+def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
+               **kwargs):
     """ResNet ``version`` (1 or 2) of depth ``num_layers``.  There are
     no pretrained weights to download: carry weights across with
-    ``gluon.convert.params_from_numpy``."""
+    ``gluon.convert.params_from_numpy``.  ``ctx`` and ``root`` (where
+    pretrained weights would load) are the reference's, and unused."""
     if num_layers not in resnet_spec:
         raise MXNetError("unsupported num_layers %d" % num_layers)
     if version not in (1, 2):

@@ -9,6 +9,7 @@ import math
 
 from ... import autograd
 from ... import ops
+from ...base import MXNetError
 from ..block import Block, HybridBlock
 from ..parameter import _dtype
 from .activations import Activation
@@ -219,10 +220,15 @@ class Dropout(HybridBlock):
 
 
 class Embedding(HybridBlock):
-    """Lookup table ``(input_dim, output_dim)``; ids may be float."""
+    """Lookup table ``(input_dim, output_dim)``; ids may be float.  Its
+    gradient is dense: ``sparse_grad=True`` (a row-sparse gradient)
+    waits for sparse arrays."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
-                 weight_initializer=None, **kwargs):
+                 weight_initializer=None, sparse_grad=False, **kwargs):
+        if sparse_grad:
+            raise MXNetError("Embedding(sparse_grad=True): sparse arrays "
+                             "are not ported yet (ROADMAP Queue 1 item 10)")
         super().__init__(**kwargs)
         with self.name_scope():
             self.weight = self.params.get(

@@ -9,8 +9,12 @@ through the flash kernels (:mod:`mxnet_tpu_torch.ops.transformer`).  As
 in the JAX package, attention without a mask, or with a mask outside
 training or without dropout, takes the flash path, which applies no
 dropout to the attention probabilities; a mask together with dropout in
-training materializes the scores in plain PyTorch.  The tensor-parallel
-mode (``tp_mode``, ``shard_tp``) is not ported yet.
+training materializes the scores in plain PyTorch.  ``use_flash``
+(``MultiHeadAttention``, the encoder and its cells): ``None``, the
+default, and ``True`` run the flash kernels; ``False`` runs the plain
+attention math (``F.attention_reference``) where the JAX package runs
+XLA's.  The tensor-parallel mode (``tp_mode``, ``shard_tp``) is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -36,7 +40,8 @@ class MultiHeadAttention(HybridBlock):
     q/k/v projection and an output projection."""
 
     def __init__(self, units, num_heads, dropout=0.0, use_bias=True,
-                 causal=False, tp_mode=False, dtype="float32", **kwargs):
+                 use_flash=None, causal=False, tp_mode=False,
+                 dtype="float32", **kwargs):
         super().__init__(**kwargs)
         _no_tp(tp_mode)
         if units % num_heads:
@@ -45,6 +50,7 @@ class MultiHeadAttention(HybridBlock):
         self._units = units
         self._heads = num_heads
         self._dropout = dropout
+        self._use_flash = use_flash
         self._causal = causal
         with self.name_scope():
             self.qkv_weight = self.params.get(
@@ -81,7 +87,13 @@ class MultiHeadAttention(HybridBlock):
         q = heads_of(F.slice_axis(qkv, axis=2, begin=0, end=u))
         k = heads_of(F.slice_axis(qkv, axis=2, begin=u, end=2 * u))
         v = heads_of(F.slice_axis(qkv, axis=2, begin=2 * u, end=3 * u))
-        if mask is None:
+        if self._use_flash is False and (
+                mask is None or not self._dropout
+                or not autograd.is_training()):
+            ctx_out = F.attention_reference(
+                q, k, v, None if mask is None else mask.reshape(b, seq, seq),
+                causal=self._causal, heads=h)
+        elif mask is None:
             ctx_out = F.flash_attention(q, k, v, causal=self._causal)
         elif not self._dropout or not autograd.is_training():
             ctx_out = F.flash_attention_masked(
@@ -122,12 +134,13 @@ class TransformerEncoderCell(HybridBlock):
     ``LN(. + FFN(.))``."""
 
     def __init__(self, units, hidden_size, num_heads, dropout=0.0,
-                 tp_mode=False, dtype="float32", **kwargs):
+                 use_flash=None, tp_mode=False, dtype="float32", **kwargs):
         super().__init__(**kwargs)
         _no_tp(tp_mode)
         with self.name_scope():
             self.attention = MultiHeadAttention(units, num_heads,
                                                 dropout=dropout,
+                                                use_flash=use_flash,
                                                 dtype=dtype)
             self.attn_drop = Dropout(dropout)
             self.ln_1 = LayerNorm(in_channels=units)
@@ -145,8 +158,8 @@ class TransformerEncoder(HybridBlock):
     """Stack of encoder cells with a learned positional embedding."""
 
     def __init__(self, units, hidden_size, num_layers, num_heads,
-                 max_length=512, dropout=0.0, tp_mode=False,
-                 dtype="float32", **kwargs):
+                 max_length=512, dropout=0.0, use_flash=None,
+                 tp_mode=False, dtype="float32", **kwargs):
         super().__init__(**kwargs)
         _no_tp(tp_mode)
         self._max_length = max_length
@@ -159,7 +172,9 @@ class TransformerEncoder(HybridBlock):
             self.cells = []
             for i in range(num_layers):
                 cell = TransformerEncoderCell(units, hidden_size, num_heads,
-                                              dropout=dropout, dtype=dtype)
+                                              dropout=dropout,
+                                              use_flash=use_flash,
+                                              dtype=dtype)
                 setattr(self, "cell%d" % i, cell)
                 self.cells.append(cell)
 

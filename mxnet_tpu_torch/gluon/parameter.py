@@ -10,8 +10,15 @@ the first forward (``allow_deferred_init``): the block's
 on the device and with the initializer and generator recorded at
 ``initialize``.  ``data()`` and ``grad()`` return NDArrays over the
 parameter's own tensors (no copy); code of the port reads ``_data``.
-:meth:`ParameterDict.save` and :meth:`~ParameterDict.load` write and
-read MXNet's ``.params`` files.
+A parameter keeps one copy, on one device: the ``ctx`` arguments of the
+reference's API (``initialize``, ``data``, ``grad``, ``list_ctx``,
+``reset_ctx``) name or move that one copy.  ``initialize`` takes the
+reference's positional order, ``(init, ctx, default_init,
+force_reinit)``; ``device=`` (a spelling of ``ctx``) and ``generator=``
+(the random initializers' :class:`torch.Generator`) are keyword-only.
+:class:`Constant` is a parameter that takes no gradient and holds a
+given value.  :meth:`ParameterDict.save` and
+:meth:`~ParameterDict.load` write and read MXNet's ``.params`` files.
 """
 from __future__ import annotations
 
@@ -22,12 +29,12 @@ import torch
 
 from .. import initializer
 from ..base import MXNetError
-from ..context import current_context, resolve_device
+from ..context import Context, current_context, resolve_device
 from ..ndarray import NDArray
 from ..ndarray import ndarray as _nd_mod
 
-__all__ = ["DeferredInitializationError", "Parameter", "ParameterDict",
-           "shape_is_known"]
+__all__ = ["Constant", "DeferredInitializationError", "Parameter",
+           "ParameterDict", "shape_is_known"]
 
 _DTYPES = {"float32": torch.float32, "float16": torch.float16,
            "bfloat16": torch.bfloat16, "float64": torch.float64}
@@ -51,6 +58,14 @@ def _dtype(dtype):
     except KeyError:
         raise MXNetError("unsupported parameter dtype %r" % (dtype,)) \
             from None
+
+
+def _one_ctx(ctx):
+    """The device of ``ctx``: a context, a device spelling, or a list of
+    them (the first: a parameter keeps one copy)."""
+    if isinstance(ctx, (list, tuple)):
+        ctx = ctx[0] if ctx else None
+    return resolve_device(ctx)
 
 
 class Parameter:
@@ -98,13 +113,14 @@ class Parameter:
             self._data = self._wrap(self._data.detach())
 
     # -- init ----------------------------------------------------------
-    def initialize(self, init=None, device=None, default_init=None,
-                   force_reinit=False, generator=None):
-        """Allocate and fill the tensor on ``device`` (the GPU unless the
-        caller asks for the CPU), or defer until the shape is known."""
+    def initialize(self, init=None, ctx=None, default_init=None,
+                   force_reinit=False, *, device=None, generator=None):
+        """Allocate and fill the tensor on ``ctx`` (or ``device``: the GPU
+        unless the caller asks for the CPU), or defer until the shape is
+        known."""
         if self._data is not None and not force_reinit:
             return
-        device = resolve_device(device)
+        device = _one_ctx(device if ctx is None else ctx)
         default_init = default_init or initializer.Uniform()
         if not shape_is_known(self._shape):
             if not self._allow_deferred_init:
@@ -149,12 +165,20 @@ class Parameter:
             raise MXNetError("parameter %s not initialized; call "
                              ".initialize()" % self.name)
 
-    def data(self):
+    def data(self, ctx=None):
         """The value as an NDArray over the parameter's tensor."""
         self._check_initialized()
         return NDArray(self._data)
 
-    def grad(self):
+    def list_data(self):
+        return [self.data()]
+
+    def list_ctx(self):
+        """The context of the one copy."""
+        self._check_initialized()
+        return [Context.of_tensor(self._data)]
+
+    def grad(self, ctx=None):
         """The gradient of the last backward as an NDArray over it
         (zeros before the first)."""
         self._check_initialized()
@@ -162,6 +186,33 @@ class Parameter:
             raise MXNetError("parameter %s has grad_req='null'" % self.name)
         g = self._data.grad
         return NDArray(torch.zeros_like(self._data) if g is None else g)
+
+    def list_grad(self):
+        return [self.grad()]
+
+    @property
+    def grad_or_none(self):
+        """:meth:`grad`, or None where there is no gradient (not
+        initialized, or ``grad_req="null"``)."""
+        if self._data is None or self._grad_req == "null":
+            return None
+        return self.grad()
+
+    @torch.no_grad()
+    def zero_grad(self):
+        """Set the gradient to zeros, in place."""
+        if self._data is not None and self._data.grad is not None:
+            self._data.grad.zero_()
+
+    def reset_ctx(self, ctx):
+        """Move the value to ``ctx`` (a parameter whose initialization is
+        deferred will land there)."""
+        device = _one_ctx(ctx)
+        if self._data is not None:
+            self._data = self._wrap(self._data.detach().to(device))
+        elif self._deferred_init is not None:
+            init, _dev, default_init, generator = self._deferred_init
+            self._deferred_init = (init, device, default_init, generator)
 
     def _reduce(self):
         """The value to save."""
@@ -248,6 +299,26 @@ def _as_tensor(data):
     return torch.from_numpy(np.array(data, copy=True))
 
 
+class Constant(Parameter):
+    """A parameter that takes no gradient and holds ``value`` (reference:
+    ``gluon.Constant``)."""
+
+    def __init__(self, name, value):
+        if isinstance(value, NDArray):
+            value = value._data
+        elif not isinstance(value, torch.Tensor):
+            value = _nd_mod._host_tensor(np.asarray(value))
+        self.value = NDArray(value)
+        src = value.detach()
+
+        class _CInit(initializer.Initializer):
+            def _init_weight(self, _name, arr, _generator):
+                arr.copy_(src)
+
+        super().__init__(name, grad_req="null", shape=tuple(value.shape),
+                         dtype=value.dtype, init=_CInit())
+
+
 class ParameterDict:
     """Prefix-scoped dictionary of Parameters; ``get`` creates or
     shares."""
@@ -298,13 +369,46 @@ class ParameterDict:
         self._params[full] = param
         return param
 
-    def initialize(self, init=None, device=None, force_reinit=False,
-                   generator=None, ctx=None):
+    def get_constant(self, name, value=None):
+        """The :class:`Constant` ``prefix + name``, made from ``value``
+        on first use."""
+        full = self._prefix + name
+        if full not in self._params:
+            if value is None:
+                raise MXNetError("constant %s has no value" % full)
+            self._params[full] = Constant(full, value)
+        return self._params[full]
+
+    def update(self, other):
+        """Add ``other``'s parameters; a name bound to another parameter
+        raises."""
+        for k, v in other.items():
+            if k in self._params and self._params[k] is not v:
+                raise MXNetError("duplicate parameter name %s" % k)
+            self._params[k] = v
+
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False, *, device=None, generator=None):
+        """Initialize every parameter on ``ctx`` (or ``device``), those
+        without an initializer of their own by ``init``."""
         default = initializer.create(init)
-        device = device if ctx is None else ctx
         for p in self.values():
-            p.initialize(None, device, default, force_reinit=force_reinit,
+            p.initialize(None, ctx, default, force_reinit, device=device,
                          generator=generator)
+
+    def zero_grad(self):
+        for p in self.values():
+            p.zero_grad()
+
+    def setattr(self, name, value):
+        """Set attribute ``name`` of every parameter (``grad_req``,
+        ``lr_mult``, ...)."""
+        for p in self.values():
+            setattr(p, name, value)
+
+    def reset_ctx(self, ctx):
+        for p in self.values():
+            p.reset_ctx(ctx)
 
     def save(self, filename, strip_prefix=""):
         """Write every parameter to a ``.params`` file under its full

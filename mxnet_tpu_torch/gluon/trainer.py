@@ -1,22 +1,34 @@
-"""Gluon Trainer (counterpart of ``mxnet_tpu/gluon/trainer.py``), the
-single-device path: ``kvstore=None`` only.
+"""Gluon Trainer (counterpart of ``mxnet_tpu/gluon/trainer.py``), on
+one process.
 
-``step(batch_size)`` applies the optimizer to every parameter that
-takes a gradient, with ``rescale_grad = _scale / batch_size``, through
-the updater's multi-precision entry point (an fp16 parameter of a
-``multi_precision`` optimizer is updated through an fp32 master copy).
+``step(batch_size)`` is ``allreduce_grads()`` then ``update(batch_size)``:
+
+- the gradients go through the kvstore (:mod:`mxnet_tpu_torch.kvstore`),
+  one ``pushpull`` a live gradient, written back in place.  The default
+  ``kvstore="device"``, ``"local"`` and ``"nccl"`` are single-process
+  stores: they return the gradient as it is, or its 2-bit quantization
+  with ``compression_params={"type": "2bit", "threshold": t}``.
+  ``kvstore=None`` skips the pass.  A ``dist_*`` store is not ported
+  yet.  ``update_on_kvstore`` is kept for the API, as the JAX package
+  keeps it: the update runs here;
+- the update applies the optimizer to every parameter that takes a
+  gradient, with ``rescale_grad = _scale / batch_size``, through the
+  updater's multi-precision entry point (an fp16 parameter of a
+  ``multi_precision`` optimizer is updated through an fp32 master
+  copy).  The JAX package groups plain SGD into ``multi_sgd(_mom)_update``
+  calls to cut XLA dispatches; here those ops launch one update a
+  tensor, so SGD takes the updater like every other optimizer.
+
 ``learning_rate`` is the optimizer's: its scheduler's value at the
-current update count where it has one.  Plain SGD updates parameter by
-parameter: the JAX package's grouping into ``multi_sgd`` calls is not
-ported.  MXNet's ``grad_req="write"`` overwrites a gradient at each
-backward where PyTorch accumulates, so the step clears each ``"write"``
-gradient after using it.
+current update count where it has one.  MXNet's ``grad_req="write"``
+overwrites a gradient at each backward where PyTorch accumulates, so
+the update clears each ``"write"`` gradient after using it.
 
 With an fp16 loss scaler attached (:func:`mxnet_tpu_torch.amp.
 init_trainer`), ``step`` folds ``1 / loss_scale`` into ``rescale_grad``
 (unless :func:`~mxnet_tpu_torch.amp.unscale` already divided the
-gradients), checks every gradient for overflow, updates the scale, and
-on overflow skips the whole update.
+gradients), checks every reduced gradient for overflow, updates the
+scale, and on overflow skips the whole update.
 
 ``save_states``/``load_states`` write and read the optimizer state blob
 of :meth:`~mxnet_tpu_torch.optimizer.Updater.get_states`; the write is
@@ -26,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import kvstore as kvs
 from .. import optimizer as opt
 from ..base import MXNetError
 from .parameter import Parameter, ParameterDict
@@ -35,10 +48,8 @@ __all__ = ["Trainer"]
 
 class Trainer:
     def __init__(self, params, optimizer, optimizer_params=None,
-                 kvstore=None):
-        if kvstore is not None:
-            raise MXNetError("Trainer: the port runs on one device; pass "
-                             "kvstore=None (got %r)" % (kvstore,))
+                 kvstore="device", compression_params=None,
+                 update_on_kvstore=None):
         if isinstance(params, (dict, ParameterDict)):
             params = list(params.values())
         if not isinstance(params, (list, tuple)):
@@ -57,6 +68,12 @@ class Trainer:
             self._optimizer = opt.create(optimizer, param_dict=param_dict,
                                          **(optimizer_params or {}))
         self._updater = opt.get_updater(self._optimizer)
+        if isinstance(kvstore, str):
+            kvstore = kvs.create(kvstore) if kvstore else None
+        if kvstore is not None and compression_params:
+            kvstore.set_gradient_compression(compression_params)
+        self._kvstore = kvstore
+        self._update_on_kvstore = update_on_kvstore
 
     @property
     def learning_rate(self):
@@ -68,6 +85,12 @@ class Trainer:
 
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
+
+    def _live(self):
+        """``(index, param)`` of every parameter holding a gradient."""
+        return [(i, p) for i, p in enumerate(self._params)
+                if p.grad_req != "null" and p._data is not None
+                and p._data.grad is not None]
 
     def _updatable(self, ignore_stale_grad=False):
         out = []
@@ -83,20 +106,45 @@ class Trainer:
         return out
 
     def step(self, batch_size, ignore_stale_grad=False):
-        """Optimizer update of every parameter with a gradient."""
+        """Reduce the gradients through the kvstore, then apply the
+        optimizer to every parameter with a gradient."""
         self._optimizer.rescale_grad = self._scale / batch_size
-        live = self._updatable(ignore_stale_grad)
+        self.allreduce_grads()
         scaler = getattr(self, "_amp_loss_scaler", None)
-        skip = False
         if scaler is not None:
             if not getattr(self, "_amp_unscaled", False):
                 self._optimizer.rescale_grad /= scaler.loss_scale
             self._amp_unscaled = False
-            skip = scaler.has_overflow([p._data.grad for _i, p in live])
-            scaler.update_scale(skip)
-        for i, p in live:
-            if not skip:
-                self._updater(i, p._data.grad, p._data)
+            overflow = scaler.has_overflow(
+                [p._data.grad for _i, p in self._live()])
+            scaler.update_scale(overflow)
+            if overflow:
+                self._clear_written(self._updatable(ignore_stale_grad))
+                return
+        self._update(ignore_stale_grad)
+
+    def allreduce_grads(self):
+        """Reduce every live gradient through the kvstore, in place."""
+        if self._kvstore is None:
+            return
+        for i, p in self._live():
+            g = p._data.grad
+            self._kvstore.pushpull(i, g, out=g)
+
+    def update(self, batch_size, ignore_stale_grad=False):
+        """The optimizer update alone (after :meth:`allreduce_grads`)."""
+        self._optimizer.rescale_grad = self._scale / batch_size
+        self._update(ignore_stale_grad)
+
+    def _update(self, ignore_stale_grad=False):
+        updatable = self._updatable(ignore_stale_grad)
+        for i, p in updatable:
+            self._updater(i, p._data.grad, p._data)
+        self._clear_written(updatable)
+
+    @staticmethod
+    def _clear_written(updatable):
+        for _i, p in updatable:
             if p.grad_req == "write":
                 p._data.grad = None
 

@@ -190,7 +190,8 @@ def flash_attention_fwd_cuda(q, k, v, mask=None, causal=False, scale=1.0,
             out.data_ptr(), lse.data_ptr(), bh, seq, d, int(heads),
             float(scale), int(bool(causal)), _DTYPE_CODES[q.dtype], stream)
     _raise_on(lib, rc, "flash_attention_fwd")
-    count_launch("flash_attention_fwd", q.dtype)
+    count_launch("flash_attention_fwd", q.dtype,
+                 None if mask is None else "masked")
     return out, lse
 
 
@@ -222,7 +223,8 @@ def flash_attention_bwd_cuda(q, k, v, lse, dout, delta, mask=None,
             int(heads), float(scale), int(bool(causal)),
             _DTYPE_CODES[q.dtype], stream)
     _raise_on(lib, rc, "flash_attention_bwd")
-    count_launch("flash_attention_bwd", q.dtype)
+    count_launch("flash_attention_bwd", q.dtype,
+                 None if mask is None else "masked")
     return dq, dk, dv
 
 

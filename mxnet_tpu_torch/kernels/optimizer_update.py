@@ -31,11 +31,21 @@ Where the JAX functions return new arrays, :func:`lars_bucket_update`,
 :func:`lamb_bucket_update` and :func:`bucket_update` write the new
 weights and states into the given tensors in place, so a step keeps no
 second copy of the model beyond the flat buffers.
+
+The two bucket updates are differentiable, as the JAX ones are: when
+grad mode is on and an input requires a gradient, they write nothing in
+place and return new tensors whose graph runs through the flat pass as
+a ``torch.autograd.Function`` (:class:`FlatLars`, :class:`FlatLamb1`,
+the JAX ``custom_vjp``s ``_flat_lars`` and ``_flat_lamb1``).  Its
+forward dispatches as always -- the kernel on CUDA, the plain version
+on the CPU -- and its backward replays autodiff of the plain math over
+the saved inputs (the JAX ``_flat_lars_bwd``/``_flat_lamb1_bwd``).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -43,7 +53,8 @@ from ..base import MXNetError
 from ..bucketing import dtype_groups, flatten_group, split_group
 from .registry import KernelSpec, count_launch, dispatch, register_kernel
 
-__all__ = ["bucket_supported", "bucket_update", "l2_norm",
+__all__ = ["FlatLamb1", "FlatLars", "bucket_supported", "bucket_update",
+           "l2_norm",
            "lamb1_reference", "lamb_bias_corrections", "lamb_bucket_update",
            "lamb_phase1_cuda", "lars_bucket_update", "lars_flat_cuda",
            "lars_flat_reference"]
@@ -228,6 +239,67 @@ register_kernel(KernelSpec(
 ))
 
 
+def _replay_grads(plain, saved, out_grads, **kw):
+    """The gradients of ``plain(*saved, **kw)``'s outputs, weighted by
+    ``out_grads`` (None where an output took none), w.r.t. every saved
+    input: autodiff of the plain math."""
+    ins = [t.detach().requires_grad_() for t in saved]
+    with torch.enable_grad():
+        outs = plain(*ins, **kw)
+    live = [(o, g) for o, g in zip(outs, out_grads) if g is not None]
+    return torch.autograd.grad([o for o, _g in live], ins,
+                               [g for _o, g in live], allow_unused=True)
+
+
+class FlatLars(torch.autograd.Function):
+    """``lars_flat`` with a gradient: the forward dispatches the kernel
+    (or its plain version on the CPU); the backward replays autodiff of
+    :func:`lars_flat_reference` over the saved ``(w, g, m, lr, wd, sign,
+    rescale)``."""
+
+    @staticmethod
+    def forward(ctx, w, g, m, lr, wd, sign, rescale, momentum, clip):
+        ctx.save_for_backward(w, g, m, lr, wd, sign, rescale)
+        ctx.kw = dict(momentum=momentum, clip=clip)
+        return dispatch("lars_flat", w, g, m, lr, wd, sign, rescale,
+                        momentum=momentum, clip=clip)
+
+    @staticmethod
+    def backward(ctx, dw, dm):
+        return _replay_grads(lars_flat_reference, ctx.saved_tensors,
+                             (dw, dm), **ctx.kw) + (None, None)
+
+
+class FlatLamb1(torch.autograd.Function):
+    """``lamb_phase1`` with a gradient: the forward dispatches the
+    kernel (or its plain version on the CPU); the backward replays
+    autodiff of :func:`lamb1_reference` over the saved ``(w, g, m, v,
+    wd, scalars)``."""
+
+    @staticmethod
+    def forward(ctx, w, g, m, v, wd, scalars, beta1, beta2, eps, clip):
+        ctx.save_for_backward(w, g, m, v, wd, scalars)
+        ctx.kw = dict(beta1=beta1, beta2=beta2, eps=eps, clip=clip)
+        return dispatch("lamb_phase1", w, g, m, v, wd, scalars, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, dgw, dm, dv):
+        return _replay_grads(lamb1_reference, ctx.saved_tensors,
+                             (dgw, dm, dv), **ctx.kw) + (None,) * 4
+
+
+def _differentiating(*groups):
+    """Whether grad mode is on and a tensor among ``groups`` (tensors,
+    or lists holding tensors and numbers) requires a gradient."""
+    if not torch.is_grad_enabled():
+        return False
+    for grp in groups:
+        for t in grp if isinstance(grp, (list, tuple)) else [grp]:
+            if isinstance(t, torch.Tensor) and t.requires_grad:
+                return True
+    return False
+
+
 def l2_norm(t):
     """The L2 norm of ``t`` as fp32, accumulated in fp64: PyTorch's fp32
     ``vector_norm`` on the CPU is off by ~1e-3 relative at 2e7
@@ -258,12 +330,18 @@ def _take(vec, ks):
     return torch.stack([vec[k] for k in ks])
 
 
-def _per_element(values, shapes, total, device):
+def _per_element(values, shapes, total, device, diff=False):
     """A flat fp32 ``(total,)`` buffer holding ``values[k]`` over the
     piece of shape ``shapes[k]`` (one fill each; ``repeat_interleave``
     would build an int64 index of ``total`` entries first).  ``values``
     are Python numbers or a ``(P,)`` tensor on ``device``, read without a
-    host sync."""
+    host sync.  With ``diff``, a concatenation that carries the
+    gradient of ``values``."""
+    if diff:
+        return torch.cat([_vector([v] if not isinstance(v, torch.Tensor)
+                                  else v, device).reshape(1).expand(
+                                      math.prod(shape))
+                          for v, shape in zip(values, shapes)])
     out = torch.empty(total, dtype=torch.float32, device=device)
     for k, piece in enumerate(split_group(out, shapes)):
         v = values[k]
@@ -277,7 +355,6 @@ def _keep_if(finite, new, old):
     return new if finite is None else torch.where(finite, new, old)
 
 
-@torch.no_grad()
 def lars_bucket_update(ws, gs, ms, lrs, wds, skips, momentum=0.9,
                        eta=0.001, epsilon=1e-9, rescale=1.0, clip=None,
                        finite=None):
@@ -286,10 +363,21 @@ def lars_bucket_update(ws, gs, ms, lrs, wds, skips, momentum=0.9,
     tensors; ``skips`` the per-tensor flags of the plain-momentum path;
     ``rescale`` a number or an fp32 tensor of one element).  Writes the
     new weights and momenta into ``ws`` and ``ms`` in place (the old ones
-    where ``finite`` is false) and returns them."""
+    where ``finite`` is false) and returns them; when an input requires a
+    gradient (grad mode on), returns new lists instead, differentiable
+    w.r.t. every input."""
     if not ws:
         return ws, ms
+    diff = _differentiating(ws, gs, ms, lrs, wds, rescale)
+    with torch.set_grad_enabled(diff):
+        return _lars_bucket(ws, gs, ms, lrs, wds, skips, momentum, eta,
+                            epsilon, rescale, clip, finite, diff)
+
+
+def _lars_bucket(ws, gs, ms, lrs, wds, skips, momentum, eta, epsilon,
+                 rescale, clip, finite, diff):
     clipv = float(clip) if clip is not None and clip > 0 else 0.0
+    new_ws, new_ms = list(ws), list(ms)
     dev0 = ws[0].device
     lrs, wds = _vector(lrs, dev0), _vector(wds, dev0)
     rescale = _scalar_vector(rescale, 1, dev0)
@@ -317,18 +405,23 @@ def lars_bucket_update(ws, gs, ms, lrs, wds, skips, momentum=0.9,
             at = {k: j for j, k in enumerate(live)}
             lr_t = torch.stack([scaled[at[k]] if k in at else lr_t[k]
                                 for k in range(len(idxs))])
-        nW, nM = dispatch(
-            "lars_flat", flatten_group(ws, idxs), flatten_group(gs, idxs),
-            flatten_group(ms, idxs), _per_element(lr_t, shapes, total, dev),
-            _per_element(_take(wds, idxs), shapes, total, dev),
-            _per_element([-1.0 if skips[i] else 1.0 for i in idxs], shapes,
-                         total, dev),
-            rescale, momentum=momentum, clip=clipv)
+        args = (flatten_group(ws, idxs), flatten_group(gs, idxs),
+                flatten_group(ms, idxs),
+                _per_element(lr_t, shapes, total, dev, diff),
+                _per_element(_take(wds, idxs), shapes, total, dev, diff),
+                _per_element([-1.0 if skips[i] else 1.0 for i in idxs],
+                             shapes, total, dev),
+                rescale)
+        nW, nM = FlatLars.apply(*args, momentum, clipv)
         for i, pw, pm in zip(idxs, split_group(nW, shapes),
                              split_group(nM, shapes)):
-            ws[i].copy_(_keep_if(finite, pw, ws[i]))
-            ms[i].copy_(_keep_if(finite, pm, ms[i]))
-    return ws, ms
+            if diff:
+                new_ws[i] = _keep_if(finite, pw, ws[i])
+                new_ms[i] = _keep_if(finite, pm, ms[i])
+            else:
+                ws[i].copy_(_keep_if(finite, pw, ws[i]))
+                ms[i].copy_(_keep_if(finite, pm, ms[i]))
+    return (new_ws, new_ms) if diff else (ws, ms)
 
 
 def lamb_bias_corrections(t, beta1=0.9, beta2=0.999, bias_correction=True):
@@ -339,7 +432,6 @@ def lamb_bias_corrections(t, beta1=0.9, beta2=0.999, bias_correction=True):
     return 1.0 / (1.0 - beta1 ** t), 1.0 / (1.0 - beta2 ** t)
 
 
-@torch.no_grad()
 def lamb_bucket_update(ws, gs, means, variances, lrs, wds, t, beta1=0.9,
                        beta2=0.999, epsilon=1e-6, bias_correction=True,
                        lower_bound=None, upper_bound=None, rescale=1.0,
@@ -351,9 +443,23 @@ def lamb_bucket_update(ws, gs, means, variances, lrs, wds, t, beta1=0.9,
     bc2)``; ``rescale`` a number or an fp32 tensor of one element).
     Writes the new weights and moments into ``ws``, ``means`` and
     ``variances`` in place (the old ones where ``finite`` is false) and
-    returns them."""
+    returns them; when an input requires a gradient (grad mode on),
+    returns new lists instead, differentiable w.r.t. every input."""
     if not ws:
         return ws, means, variances
+    diff = _differentiating(ws, gs, means, variances, lrs, wds, rescale,
+                            corrections)
+    with torch.set_grad_enabled(diff):
+        return _lamb_bucket(ws, gs, means, variances, lrs, wds, t, beta1,
+                            beta2, epsilon, bias_correction, lower_bound,
+                            upper_bound, rescale, clip, finite, corrections,
+                            diff)
+
+
+def _lamb_bucket(ws, gs, means, variances, lrs, wds, t, beta1, beta2,
+                 epsilon, bias_correction, lower_bound, upper_bound,
+                 rescale, clip, finite, corrections, diff):
+    new = [list(ws), list(means), list(variances)]
     dev0 = ws[0].device
     lrs, wds = _vector(lrs, dev0), _vector(wds, dev0)
     if corrections is None:
@@ -366,11 +472,11 @@ def lamb_bucket_update(ws, gs, means, variances, lrs, wds, t, beta1=0.9,
         shapes = [ws[i].shape for i in idxs]
         total = sum(ws[i].numel() for i in idxs)
         W = flatten_group(ws, idxs)
-        gw, nm, nv = dispatch(
-            "lamb_phase1", W, flatten_group(gs, idxs),
-            flatten_group(means, idxs), flatten_group(variances, idxs),
-            _per_element(_take(wds, idxs), shapes, total, dev),
-            scalars, beta1=beta1, beta2=beta2, eps=epsilon, clip=clip)
+        args = (W, flatten_group(gs, idxs), flatten_group(means, idxs),
+                flatten_group(variances, idxs),
+                _per_element(_take(wds, idxs), shapes, total, dev, diff),
+                scalars)
+        gw, nm, nv = FlatLamb1.apply(*args, beta1, beta2, epsilon, clip)
         # per-tensor trust ratio (lamb_update_phase2 semantics)
         r1 = _segment_norms(W, shapes)
         r2 = _segment_norms(gw, shapes)
@@ -385,11 +491,16 @@ def lamb_bucket_update(ws, gs, means, variances, lrs, wds, t, beta1=0.9,
         for k, (i, pg, pm, pv) in enumerate(zip(
                 idxs, split_group(gw, shapes), split_group(nm, shapes),
                 split_group(nv, shapes))):
-            new = torch.addcmul(ws[i], pg, step[k], value=-1.0)
-            ws[i].copy_(_keep_if(finite, new, ws[i]))
-            means[i].copy_(_keep_if(finite, pm, means[i]))
-            variances[i].copy_(_keep_if(finite, pv, variances[i]))
-    return ws, means, variances
+            nw = torch.addcmul(ws[i], pg, step[k], value=-1.0) \
+                .to(ws[i].dtype)
+            for lst, src, val in zip(new, (ws, means, variances),
+                                     (nw, pm, pv)):
+                kept = _keep_if(finite, val, src[i])
+                if diff:
+                    lst[i] = kept
+                else:
+                    src[i].copy_(kept)
+    return tuple(new) if diff else (ws, means, variances)
 
 
 def bucket_supported(opt) -> bool:
@@ -399,10 +510,13 @@ def bucket_supported(opt) -> bool:
     return type(opt) in (LARS, LAMB)
 
 
+@torch.no_grad()
 def bucket_update(opt, items, feed=None, finite=None):
     """The bucketed update ``TrainStep`` runs: ``items`` is ``[(index,
     weight, grad, state)]``; ``opt``'s update counts must already have
-    advanced for this step.  Updates weights and states in place.
+    advanced for this step.  Updates weights and states in place (under
+    ``no_grad``: the parameters require gradients, and the step does not
+    differentiate its update).
 
     ``feed``, when given, holds this step's scalars as device tensors
     (``lrs`` and ``wds`` ``(P,)`` in ``items``' order, ``rescale``

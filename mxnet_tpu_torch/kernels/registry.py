@@ -13,7 +13,10 @@ There is no fallback from one to the other.  The counter grows by one
 each time a launcher has launched its kernel (the launcher calls
 :func:`count_launch`), so a run can prove that its path went through
 the kernel; a launcher that passes the dtype it ran on also counts the
-launch under that dtype (:func:`launch_dtypes`).
+launch under that dtype (:func:`launch_dtypes`), and under
+``"<dtype> <variant>"`` where it names a variant of its kernel (the
+flash kernels' ``"masked"``), so a path's masked launches count apart
+from its unmasked ones.
 
 A launch made while a CUDA graph is being captured does not run: it is
 recorded.  Inside :func:`counting_into` such launches go to the graph's
@@ -96,13 +99,17 @@ def dispatch(name: str, x, *args, **kwargs):
                      % (name, x.device))
 
 
-def _dtype_name(dtype):
-    return None if dtype is None else str(dtype).replace("torch.", "")
+def _dtype_name(dtype, variant=None):
+    if dtype is None:
+        return None
+    name = str(dtype).replace("torch.", "")
+    return name if variant is None else "%s %s" % (name, variant)
 
 
-def count_launch(name: str, dtype=None) -> None:
+def count_launch(name: str, dtype=None, variant=None) -> None:
     """Called by a launcher right after its kernel launched, with the
-    dtype it ran on where that varies.  A launch recorded into a CUDA
+    dtype it ran on where that varies (and the variant of the kernel it
+    launched, where it has several).  A launch recorded into a CUDA
     graph under :func:`counting_into` goes to that graph's tally (the
     check of the capturing stream covers the autograd engine's thread,
     which runs a captured backward on the capture stream)."""
@@ -111,11 +118,11 @@ def count_launch(name: str, dtype=None) -> None:
         if _tally is not None:
             import torch
             if torch.cuda.is_current_stream_capturing():
-                _tally[(name, _dtype_name(dtype))] += 1
+                _tally[(name, _dtype_name(dtype, variant))] += 1
                 return
         spec.launches += 1
         if dtype is not None:
-            spec.dtypes[_dtype_name(dtype)] += 1
+            spec.dtypes[_dtype_name(dtype, variant)] += 1
 
 
 @contextlib.contextmanager
@@ -152,8 +159,8 @@ def launches(name: str) -> int:
 
 
 def launch_dtypes(name: str) -> Dict[str, int]:
-    """``{dtype name: launches}`` of the launches counted with a
-    dtype."""
+    """``{dtype name: launches}`` of the launches counted with a dtype
+    (``"bfloat16 masked"`` for a masked flash launch on bf16)."""
     return dict(get(name).dtypes)
 
 

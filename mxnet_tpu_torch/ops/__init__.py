@@ -23,11 +23,12 @@ from .nn import (Activation, BatchNorm, Convolution, Dropout, Embedding,
                  softmax, softmax_cross_entropy)
 from .optimizer_ops import (lamb_update_phase1, lamb_update_phase2,
                             lars_update, sgd_mom_update, sgd_update)
-from .transformer import flash_attention, flash_attention_masked
+from .transformer import (attention_reference, flash_attention,
+                          flash_attention_masked)
 
 __all__ = ["Activation", "BatchNorm", "Convolution", "Dropout", "Embedding",
            "Flatten", "FullyConnected", "LayerNorm", "Pooling",
-           "flash_attention", "flash_attention_masked",
+           "attention_reference", "flash_attention", "flash_attention_masked",
            "fused_batch_norm_relu", "lamb_update_phase1",
            "lamb_update_phase2", "lars_update", "log_softmax", "pick",
            "sgd_mom_update", "sgd_update", "slice_axis", "softmax",

@@ -10,7 +10,10 @@ saves ``(q, k, v, out, lse)``; the backward computes ``delta =
 rowsum(dout * out)`` in fp32 and runs the backward kernels, which replay
 the scores from ``lse``.  A CUDA tensor launches the kernels of
 :mod:`mxnet_tpu_torch.kernels.flash_attention`, a CPU tensor runs their
-plain versions.  There is no auto gate and no ``use_pallas`` switch.
+plain versions.  There is no auto gate and no ``use_pallas`` switch:
+:func:`attention_reference` is the plain attention math a layer runs
+when its caller asks for it (``use_flash=False``), the JAX package's
+``_attention_reference(_masked)``, differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -20,7 +23,8 @@ import torch
 
 from ..kernels.registry import dispatch
 
-__all__ = ["FlashAttention", "flash_attention", "flash_attention_masked"]
+__all__ = ["FlashAttention", "attention_reference", "flash_attention",
+           "flash_attention_masked"]
 
 
 class FlashAttention(torch.autograd.Function):
@@ -69,3 +73,25 @@ def flash_attention_masked(q, k, v, mask, scale=-1.0, heads=1):
         .contiguous()
     return FlashAttention.apply(q, k, v, maskf, False, _scale(q, scale),
                                 int(heads))
+
+
+def attention_reference(q, k, v, mask=None, causal=False, scale=-1.0,
+                        heads=1):
+    """Plain attention over ``(batch * heads, seq, head_dim)`` tensors:
+    the products of the inputs' values accumulated in fp32, masked
+    scores (``mask`` ``(batch, seq_q, seq_k)``, nonzero = attend, shared
+    by ``heads``; ``causal``) at -1e30, softmax in fp32, the
+    probabilities rounded to ``v``'s dtype before ``P v``, the result
+    at ``q``'s dtype."""
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * _scale(q,
+                                                                  scale)
+    if causal:
+        n = s.shape[-1]
+        keep = torch.ones(n, n, dtype=torch.bool, device=s.device).tril()
+        s = torch.where(keep, s, -1e30)
+    if mask is not None:
+        keep = mask.detach().to(s.device).repeat_interleave(heads,
+                                                            dim=0) > 0
+        s = torch.where(keep, s, -1e30)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.matmul(p.float(), v.float()).to(q.dtype)

@@ -21,8 +21,10 @@ _lock = threading.Lock()
 _state = {"seed": _DEFAULT_SEED, "generators": {}}
 
 
-def seed(seed_state):
-    """Re-seed every device's generator with ``seed_state``."""
+def seed(seed_state, ctx="all"):
+    """Re-seed every device's generator with ``seed_state`` (``ctx`` is
+    the reference's; one seed drives every device here, as in the JAX
+    package)."""
     with _lock:
         _state["seed"] = int(seed_state)
         for gen in _state["generators"].values():

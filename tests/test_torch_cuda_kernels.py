@@ -456,13 +456,14 @@ def _rel_err(got, want):
             / max(1.0, want.abs().max().item()))
 
 
-def _flash_vs_plain(dtype, q, k, v, do, mask, causal):
+def _flash_vs_plain(dtype, q, k, v, do, mask, causal, heads=2):
     """Both kernels, through the registry, against their plain versions
     on the same inputs."""
     from mxnet_tpu_torch.kernels.registry import dispatch
     from mxnet_tpu_torch.kernels import flash_attention as fa
     what = (tuple(q.shape), dtype, causal, mask is not None)
-    kw = dict(mask=mask, causal=causal, scale=q.shape[-1] ** -0.5, heads=2)
+    kw = dict(mask=mask, causal=causal, scale=q.shape[-1] ** -0.5,
+              heads=heads)
     f0 = registry.launches("flash_attention_fwd")
     b0 = registry.launches("flash_attention_bwd")
     out, lse = dispatch("flash_attention_fwd", q, k, v, **kw)
@@ -498,6 +499,32 @@ def _flash_vs_plain(dtype, q, k, v, do, mask, causal):
 def test_flash_kernels_match_plain(cuda, dtype, bh, seq, d, causal, masked):
     q, k, v, do, mask = _flash_case(cuda, bh, seq, d, dtype, masked=masked)
     _flash_vs_plain(dtype, q, k, v, do, mask, causal)
+
+
+def test_masked_flash_kernels_at_the_bert_pretraining_shape(cuda):
+    """Masked flash forward and backward in bf16 at BERT-base
+    pretraining's (64 x 12, 512, 64), with its key-only ragged mask (one
+    row in ten of a length in [8, 512], the others in [448, 512]; every
+    query row keeps its keys), against the plain versions; each launch
+    counts as a masked bf16 launch."""
+    b, heads, seq, d = 64, 12, 512, 64
+    g = torch.Generator(device=cuda).manual_seed(3)
+
+    def randn():
+        return torch.randn(b * heads, seq, d, generator=g, device=cuda) \
+            .to(torch.bfloat16)
+
+    q, k, v, do = randn(), randn(), randn(), randn()
+    rng = np.random.default_rng(3)
+    lens = np.where(rng.random(b) < 0.1, rng.integers(8, seq + 1, b),
+                    rng.integers(448, seq + 1, b))
+    mask = (torch.arange(seq, device=cuda)[None, None, :]
+            < torch.tensor(lens, device=cuda)[:, None, None]).float() \
+        .expand(b, seq, seq).contiguous()
+    registry.reset_launches()
+    _flash_vs_plain(torch.bfloat16, q, k, v, do, mask, False, heads=heads)
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        assert registry.launch_dtypes(name) == {"bfloat16 masked": 1}, name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -891,6 +918,79 @@ def test_lars_bucket_update_on_the_card_matches_the_cpu(cuda):
         for i, (u, v) in enumerate(zip(a, b)):
             np.testing.assert_allclose(v.numpy(), u.numpy(), rtol=2e-5,
                                        atol=2e-6, err_msg="%s%d" % (what, i))
+
+
+@pytest.mark.parametrize("which", ["lars", "lamb"])
+def test_flat_update_functions_differentiate_on_the_card_as_on_the_cpu(
+        cuda, which):
+    """``FlatLars`` and ``FlatLamb1``: the forward launches the kernel on
+    the card (its plain version on the CPU), the backward replays
+    autodiff of the plain math; outputs and the gradient w.r.t. every
+    input on the card equal the CPU's within 1e-5 relative."""
+    from mxnet_tpu_torch.kernels import optimizer_update as ou
+    n = 4099
+    rng = np.random.default_rng(9)
+
+    def arr(scale=1.0, positive=False):
+        a = rng.standard_normal(n).astype(np.float32) * scale
+        return np.abs(a) if positive else a
+
+    if which == "lars":
+        fn, name = ou.FlatLars, "lars_flat"
+        arrays = [arr(), arr(), arr(0.1), arr(0.1, True), arr(1e-3, True),
+                  np.where(rng.random(n) < 0.5, -1.0, 1.0)
+                  .astype(np.float32), np.array([0.5], np.float32)]
+        extra = (0.9, 1.0)
+    else:
+        fn, name = ou.FlatLamb1, "lamb_phase1"
+        arrays = [arr(), arr(), arr(0.1), arr(0.1, True), arr(1e-3, True),
+                  np.array([0.5, 10.0, 1000.0], np.float32)]
+        extra = (0.9, 0.999, 1e-6, 1.0)
+    weights = [rng.standard_normal(n).astype(np.float32) for _ in range(3)]
+    got = {}
+    for dev in ("cpu", cuda):
+        leaves = [torch.tensor(a, device=dev, requires_grad=True)
+                  for a in arrays]
+        c0 = registry.launches(name)
+        outs = fn.apply(*leaves, *extra)
+        loss = sum((o * torch.tensor(w, device=dev)).sum()
+                   for o, w in zip(outs, weights))
+        grads = torch.autograd.grad(loss, leaves)
+        got[str(dev)] = ([o.detach().cpu() for o in outs],
+                         [g.cpu() for g in grads],
+                         registry.launches(name) - c0)
+    cpu, card = got["cpu"], got[str(cuda)]
+    assert cpu[2] == 0 and card[2] == 1
+    for what, a, b in (("out", cpu[0], card[0]), ("grad", cpu[1], card[1])):
+        for i, (u, w) in enumerate(zip(a, b)):
+            np.testing.assert_allclose(w.numpy(), u.numpy(), rtol=1e-5,
+                                       atol=1e-6, err_msg="%s%d" % (what, i))
+
+
+def test_single_process_kvstore_stays_on_the_card(cuda):
+    """``pushpull`` (a list merged, then 2-bit compressed), ``push`` and
+    ``pull`` on card tensors, with every host synchronization refused:
+    the results stay on the card and ``out`` is written in place."""
+    from mxnet_tpu_torch import NDArray, kvstore
+    g = [torch.randn(1000, device=cuda) for _ in range(3)]
+    out = NDArray(torch.zeros(1000, device=cuda))
+    held = out._data
+    kv = kvstore.create("device")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kv.pushpull(0, [NDArray(t) for t in g], out=out)
+        merged = held.clone()
+        kv.set_gradient_compression({"type": "2bit", "threshold": 0.5})
+        kv.init(1, NDArray(g[0]))
+        kv.push(1, NDArray(g[1]))
+        kv.pull(1, out=out)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out._data is held and held.is_cuda
+    torch.testing.assert_close(merged, g[0] + g[1] + g[2])
+    q = torch.where(g[1] >= 0.5, 0.5, torch.where(g[1] <= -0.5, -0.5, 0.0))
+    torch.testing.assert_close(held, q)
 
 
 def test_resnet_bf16_lars_run_steps_runs_through_the_kernels(cuda):

@@ -96,6 +96,54 @@ def test_the_optimizer_and_sentinel_load_neither_jax_nor_mxnet_tpu():
     assert out.stdout.strip() == "[]"
 
 
+def test_the_pretraining_loop_and_kvstore_load_neither_jax_nor_mxnet_tpu():
+    """The slice of BERT pretraining as users run it: ``mx.kv``,
+    ``Trainer`` with its default single-process kvstore and 2-bit
+    compression, ``gluon.Constant``, the new initializers, ``summary``,
+    ``set_recording`` and the differentiable flat updates, used in a
+    fresh process; the scan above imports ``kvstore.py`` too."""
+    names = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
+    assert "kvstore.py" in names
+    code = ("import sys, torch\n"
+            "import mxnet_tpu_torch as mx\n"
+            "from mxnet_tpu_torch import autograd, gluon\n"
+            "from mxnet_tpu_torch.kernels import optimizer_update as ou\n"
+            "assert mx.kv is mx.kvstore and mx.parallel and mx.serving\n"
+            "net = gluon.nn.HybridSequential()\n"
+            "net.add(gluon.nn.Dense(3, in_units=4))\n"
+            "net.initialize(mx.init.Mixed(['.*'], [mx.init.Orthogonal()]),\n"
+            "               mx.cpu(), False, True)\n"
+            "c = gluon.Constant('c', [1.0, 2.0])\n"
+            "c.initialize(ctx=mx.cpu())\n"
+            "tr = gluon.Trainer(net.collect_params(), 'adam',\n"
+            "                   compression_params={'type': '2bit'})\n"
+            "x = mx.nd.NDArray(torch.ones(2, 4))\n"
+            "with autograd.record():\n"
+            "    loss = net(x).sum()\n"
+            "loss.backward()\n"
+            "tr.step(2)\n"
+            "assert tr._kvstore.type == 'device'\n"
+            "assert 'Total params' in net.summary(x)\n"
+            "w = torch.ones(5, requires_grad=True)\n"
+            "nw, nm = ou.lars_bucket_update([w], [torch.ones(5)],\n"
+            "                               [torch.zeros(5)], [0.1], [0.0],\n"
+            "                               [False])\n"
+            "nw[0].sum().backward()\n"
+            "assert w.grad is not None\n"
+            "assert autograd.set_recording(True) is False\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "%r))" % (FORBIDDEN,))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(PKG.parent)] + [p for p in env.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(PKG.parent))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def _imports(path):
     tree = ast.parse(path.read_text(), str(path))
     for node in ast.walk(tree):
@@ -109,9 +157,24 @@ def _imports(path):
 def test_no_module_of_the_port_imports_jax_or_mxnet_tpu():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) >= 35
-    for path in files + [PKG.parent / "chip_smoke.py"]:
+    for path in files + [PKG.parent / "chip_smoke.py",
+                         PKG.parent / "chip_paths.py"]:
         for name in _imports(path):
             assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+@pytest.mark.parametrize("args", [["bogus"], ["decode", "mnist"]])
+def test_chip_paths_exits_2_on_an_unknown_path_or_without_a_card(args):
+    """``chip_paths.py`` names an unknown path, and without CUDA it
+    exits before building or running anything."""
+    out = subprocess.run([sys.executable, str(PKG.parent / "chip_paths.py")]
+                         + args, capture_output=True, text=True,
+                         timeout=120, cwd=str(PKG.parent),
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode == 2, out.stderr
+    assert out.stdout == ""
+    assert ("unknown path bogus" if args == ["bogus"]
+            else "CUDA is not available") in out.stderr
 
 
 def test_resolve_device_raises_without_cuda(monkeypatch):

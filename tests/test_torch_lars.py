@@ -319,3 +319,61 @@ def test_lars_flat_wrapper_refuses_cpu_tensors():
     with pytest.raises(MXNetError, match="needs CUDA"):
         tkopt.lars_flat_cuda(w, w, w, w, w, w, 1.0)
     assert tkopt.bucket_supported(optimizer.create("lars"))
+
+
+@pytest.mark.parametrize("clip", [None, 1.0])
+def test_bucket_update_gradient_matches_jax_grad(kernels_on, clip):
+    """With inputs that require a gradient, ``lars_bucket_update``
+    writes nothing in place and returns new tensors whose gradient --
+    through the trust ratios and ``FlatLars``'s replayed backward --
+    w.r.t. weights, gradients, momenta and the per-tensor lrs equals
+    ``jax.grad`` of the JAX bucket (its ``custom_vjp``, the Pallas pass
+    in interpret mode), at the flat pass's tolerance after the trust
+    ratios (2e-5 relative)."""
+    import jax
+    ws, gs, ms = _param_set(4)
+    rng = np.random.default_rng(5)
+    cw = [rng.standard_normal(s).astype(np.float32) for s in SHAPES]
+    kw = dict(momentum=0.9, eta=0.001, epsilon=1e-9, rescale=0.5, clip=clip)
+
+    def jloss(ws_, gs_, ms_, lrs_):
+        nw, nm = jkopt.lars_bucket_update(ws_, gs_, ms_, list(lrs_), WDS,
+                                          SKIPS, **kw)
+        return sum(jnp.sum(w * w * c) + jnp.sum(m) for w, m, c in
+                   zip(nw, nm, cw))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3))(
+        *([jnp.asarray(a) for a in arrs] for arrs in (ws, gs, ms)),
+        jnp.asarray(LRS, jnp.float32))
+    leaves = [[torch.tensor(a, requires_grad=True) for a in arrs]
+              for arrs in (ws, gs, ms)]
+    lrs = torch.tensor(LRS, requires_grad=True)
+    nw, nm = tkopt.lars_bucket_update(*leaves, lrs, WDS, SKIPS, **kw)
+    assert all(a is not b for a, b in zip(nw, leaves[0]))
+    loss = sum((w * w * torch.tensor(c)).sum() + m.sum()
+               for w, m, c in zip(nw, nm, cw))
+    loss.backward()
+    for k, (got, jw) in enumerate(zip(leaves + [[lrs]], want[:3]
+                                      + ([want[3]],))):
+        for i, (t, j) in enumerate(zip(got, jw)):
+            np.testing.assert_allclose(t.grad.numpy(), np.asarray(j),
+                                       rtol=2e-5, atol=2e-6,
+                                       err_msg="input %d, tensor %d"
+                                       % (k, i))
+    for t, a in zip(leaves[0], ws):          # nothing written in place
+        np.testing.assert_array_equal(t.detach().numpy(), a)
+
+
+def test_flat_lars_function_backward_is_autodiff_of_the_plain_math():
+    n = 300
+    rng = np.random.default_rng(6)
+    ins = [torch.tensor(rng.standard_normal(n).astype(np.float32),
+                        requires_grad=True) for _ in range(3)]
+    lr, wd = torch.full((n,), 0.1), torch.full((n,), 1e-4)
+    sign, rs = torch.ones(n), torch.tensor([0.5])
+    nw, nm = tkopt.FlatLars.apply(*ins, lr, wd, sign, rs, 0.9, 0.0)
+    got = torch.autograd.grad((nw * nw).sum() + nm.sum(), ins)
+    pw, pm = tkopt.lars_flat_reference(*ins, lr, wd, sign, rs, momentum=0.9)
+    want = torch.autograd.grad((pw * pw).sum() + pm.sum(), ins)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)

@@ -162,3 +162,86 @@ def test_the_switch_is_the_jax_package_variable(monkeypatch):
     assert numerics._set_check(True) is False
     assert numerics.check_enabled()
     assert numerics._set_check(False) is True
+
+
+# -- the eager twins ---------------------------------------------------
+
+def _poisoned(kind, dtype):
+    rng = np.random.default_rng(1)
+    arrays = [rng.standard_normal(s).astype(np.float32)
+              for s in ((3, 4), (5,), (2, 2, 2))]
+    if kind is not None:
+        arrays[1][3] = np.nan if kind == "nan" else np.inf
+    return [torch.tensor(a).to(dtype if k != 2 else torch.float32)
+            for k, a in enumerate(arrays)], arrays
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", [None, "nan", "inf"])
+def test_finite_tree_and_finite_all_match_the_jax_package(kind, dtype):
+    """One device flag over a set of arrays (mixed dtypes, an integer
+    counter skipped), as the JAX twins give it; no host read."""
+    import jax.numpy as jnp
+    tensors, arrays = _poisoned(kind, dtype)
+    counter = torch.tensor(7)
+    with _host_reads_raise():
+        tree = numerics.finite_tree(tensors + [counter])
+        both = numerics.finite_all(tensors)
+    assert tree.dim() == 0 and tree.dtype == torch.bool
+    want = bool(jnumerics.finite_tree([jnp.asarray(a) for a in arrays]
+                                      + [jnp.int32(7)]))
+    assert bool(tree) == bool(both) == want == (kind is None)
+    assert bool(jnumerics.finite_all([jnp.asarray(a) for a in arrays])) \
+        == want
+    assert bool(numerics.finite_tree([counter]))
+    from mxnet_tpu_torch import NDArray
+    assert bool(numerics.finite_all([NDArray(t) for t in tensors])) == want
+
+
+@pytest.mark.parametrize("kind", [None, "nan", "inf"])
+def test_finite_sentinel_matches_the_jax_package(armed, kind):
+    tensors, arrays = _poisoned(kind, torch.float32)
+    named = list(zip(("w0", "w1", "w2"), tensors))
+    jnamed = list(zip(("w0", "w1", "w2"), arrays))
+    checks, jchecks = numerics._STATE["checks"], jnumerics._STATE["checks"]
+    if kind is None:
+        assert numerics.finite_sentinel(named, step=4) is True
+        assert jnumerics.finite_sentinel(jnamed, step=4) is True
+    else:
+        with pytest.raises(numerics.NonFiniteError) as err:
+            numerics.finite_sentinel(named, step=4)
+        with pytest.raises(jnumerics.NonFiniteError) as jerr:
+            jnumerics.finite_sentinel(jnamed, step=4)
+        assert (err.value.param, err.value.kind, err.value.step) == \
+            (jerr.value.param, jerr.value.kind, jerr.value.step) == \
+            ("w1", kind, 4)
+        assert numerics._STATE["last"] == {"param": "w1", "step": 4,
+                                           "kind": kind}
+    assert numerics._STATE["checks"] == checks + 1
+    assert jnumerics._STATE["checks"] == jchecks + 1
+
+
+def test_disarmed_sentinel_touches_nothing():
+    assert not numerics.check_enabled()
+    checks = numerics._STATE["checks"]
+    seconds = numerics._STATE["check_seconds"]
+    with _host_reads_raise():
+        assert numerics.finite_sentinel([("w", torch.tensor([np.nan]))])
+    numerics.note_check(0.25)
+    assert numerics._STATE["checks"] == checks + 1
+    assert numerics._STATE["check_seconds"] == seconds + 0.25
+
+
+def test_the_loss_scaler_checks_through_finite_all(monkeypatch):
+    """``LossScaler.has_overflow`` calls ``numerics.finite_all``, as the
+    JAX one does; ``amp.loss_scaler.all_finite`` is that function."""
+    from mxnet_tpu_torch.amp import loss_scaler
+    calls = []
+    real = numerics.finite_all
+    monkeypatch.setattr(loss_scaler, "finite_all",
+                        lambda a: calls.append(len(a)) or real(a))
+    scaler = loss_scaler.LossScaler()
+    assert scaler.has_overflow([torch.ones(2), torch.tensor([np.inf])])
+    assert not scaler.has_overflow([torch.ones(2), None])
+    assert calls == [2, 1]
+    assert loss_scaler.all_finite is numerics.finite_all
