@@ -4,11 +4,16 @@ without the whole smoke run.
 
     cd <checkout> && python3 <repo>/chip_paths.py decode mnist
     cd <checkout> && python3 <repo>/chip_paths.py pretrain
+    cd <checkout> && python3 <repo>/chip_paths.py densenet
 
 ``decode`` is ``chip_smoke.main_path`` (GPT-2 small decode serving),
 ``mnist`` is ``mnist_main_path`` (the imperative LeNet loop, then 100
-hybridized batches) and ``pretrain`` is ``bert_pretrain_phase`` (BERT
-pretraining as users run it, with its oracle).  The checkout's own
+hybridized batches), ``pretrain`` is ``bert_pretrain_phase`` (BERT
+pretraining as users run it, with its oracle) and ``densenet`` is
+``densenet_phase`` (DenseNet-121 NHWC trained by a captured
+``TrainStep`` and by the imperative loop, its oracle, the fused kernels
+at its site shapes, the model-zoo sweep and the ``mx.nd`` kernel
+routes).  The checkout's own
 ``chip_smoke`` and package are imported, its kernels built, and each
 path prints its lines as in the smoke run, under the same host-read
 check of every capture.  Exits 1 when a path's check fails, 2 without a
@@ -21,7 +26,7 @@ import sys
 import time
 
 PATHS = {"decode": "main_path", "mnist": "mnist_main_path",
-         "pretrain": "bert_pretrain_phase"}
+         "pretrain": "bert_pretrain_phase", "densenet": "densenet_phase"}
 
 
 def main(argv):

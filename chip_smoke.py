@@ -147,6 +147,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the ``params=`` route's, and ``paged_attention`` must launch once per
    layer per decode step.
 
+14. DenseNet-121 (``densenet121(layout="NHWC")``: growth 32, blocks
+   6/12/24/16, 1000 classes; random weights from seed 0, random labels),
+   fp32 with TF32 off, batch 64 of 224x224, SGD 0.05/0.9 and
+   ``SoftmaxCrossEntropyLoss``, after the MNIST oracle: (a) the captured
+   ``TrainStep``, two warm-up and eight timed steps, its breakdown and
+   capture line; ``bn_relu_apply`` and ``bn_relu_bwd`` must launch
+   exactly 121 times a step (every BatchNorm+ReLU pair of the JAX
+   package's fusion plan); (c) its oracle, card against CPU at batch 8
+   by the training oracle's limits; (b) the imperative loop users write
+   (the hybridized net under ``record``, ``backward``,
+   ``Trainer(kvstore="device")`` with ``allreduce_grads``/``update``),
+   two warm-up and five timed steps, 121 launches of each kernel a
+   step; (d) both fused kernels against their plain versions at every
+   distinct ``(rows, C)`` the net gives them at batch 64, and their
+   times (beside their bound and the library calls) at the stem, the
+   largest site of dense block 3's resolution and the head; (e) every
+   ``get_model`` net, NHWC, eval, hybridized, batch 8 at 224x224 (299
+   for Inception V3), four forwards: logits (8, 1000) and finite,
+   ``bn_relu_apply`` launched ``ZOO_FUSED_SITES[name]`` times a forward;
+   (f) ``mx.nd.flash_attention``, ``flash_attention_masked`` and
+   ``fused_batch_norm_relu`` on CUDA NDArrays, forward and backward:
+   each launches its kernels and matches its plain version, and the
+   fused op on an NCHW input launches none.
+
 Every path runs from captured CUDA graphs (``mxnet_tpu_torch._capture``),
 the port's counterpart of the JAX package's compiled programs: one
 graph per decode and prefill bucket, one per ``TrainStep`` key (its
@@ -220,6 +244,23 @@ BN_SHAPES = ((128, 112, 112, 64), (128, 7, 7, 512))
 RESNET50_SITE_SHAPES = ((112, 112, 64), (56, 56, 64), (28, 28, 128),
                         (14, 14, 256), (7, 7, 512))
 BN_EPS = 1e-5
+# BatchNorm+ReLU fusion sites a forward of each get_model net with
+# layout="NHWC" (the JAX package's fusion plan; tests/test_torch_model_zoo.py
+# holds these against it): the zoo sweep's bn_relu_apply launches a forward
+ZOO_FUSED_SITES = {
+    "alexnet": 0, "densenet121": 121, "densenet161": 161,
+    "densenet169": 169, "densenet201": 201, "inceptionv3": 94,
+    "mobilenet0.25": 27, "mobilenet0.5": 27, "mobilenet0.75": 27,
+    "mobilenet1.0": 27, "mobilenetv2_0.25": 0, "mobilenetv2_0.5": 0,
+    "mobilenetv2_0.75": 0, "mobilenetv2_1.0": 0, "resnet101_v1": 67,
+    "resnet101_v2": 2, "resnet152_v1": 101, "resnet152_v2": 2,
+    "resnet18_v1": 9, "resnet18_v2": 2, "resnet34_v1": 17,
+    "resnet34_v2": 2, "resnet50_v1": 33, "resnet50_v2": 2,
+    "squeezenet1.0": 0, "squeezenet1.1": 0, "vgg11": 0, "vgg11_bn": 8,
+    "vgg13": 0, "vgg13_bn": 10, "vgg16": 0, "vgg16_bn": 13, "vgg19": 0,
+    "vgg19_bn": 16,
+}
+DENSENET_SITES = ZOO_FUSED_SITES["densenet121"]
 # the AMP LARS path: bench.py's bench_resnet50_lars settings
 LARS_BATCH = 512
 LARS_STEPS = 10                    # K steps per run_steps call
@@ -668,11 +709,15 @@ def make_train_step(net):
 
 
 def train_main_path(make_net=resnet50_nhwc, batch=128, image=224,
-                    steps=TRAIN_STEPS, sites=BN_RELU_SITES, device="cuda"):
+                    steps=TRAIN_STEPS, sites=BN_RELU_SITES, device="cuda",
+                    label="training main path (ResNet-50 v1 NHWC fp32, "
+                          "SGD 0.05/0.9)", peak_with_warmup=False):
     """Train ``make_net()`` for ``steps`` SGD steps on one repeated
     synthetic batch after WARM_STEPS warm-up steps (eager, then
     captured); the launch counters are zeroed after the warm-up and read
-    after the last step."""
+    after the last step.  The peak memory is the timed steps' own, or
+    with ``peak_with_warmup`` the whole run's (the eager step and the
+    graph's pool included)."""
     import torch
     from mxnet_tpu_torch.kernels import registry
     net = make_net()
@@ -683,12 +728,15 @@ def train_main_path(make_net=resnet50_nhwc, batch=128, image=224,
     y = torch.randint(0, net.output._units, (batch,), generator=gen,
                       device=device).float()
     cuda = device == "cuda"
+    if cuda and peak_with_warmup:
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(WARM_STEPS):     # eager, then captured
         step(x, y)
     if cuda:
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        if not peak_with_warmup:
+            torch.cuda.reset_peak_memory_stats()
     warm_s = time.perf_counter() - t0
 
     registry.reset_launches()
@@ -714,8 +762,7 @@ def train_main_path(make_net=resnet50_nhwc, batch=128, image=224,
              "bn_relu_apply_launches": fwd, "bn_relu_bwd_launches": bwd,
              "peak_mem_bytes": torch.cuda.max_memory_allocated()
              if cuda else None, "card": gpu_line() if cuda else None}
-    print("training main path (ResNet-50 v1 NHWC fp32, SGD 0.05/0.9): %s"
-          % json.dumps(stats))
+    print("%s: %s" % (label, json.dumps(stats)))
     return net, step, (x, y), stats
 
 
@@ -855,12 +902,18 @@ def update_errors(ua, ub):
                            if not _is_conv_bias(k)})
 
 
-def train_oracle(net, make_net=resnet50_nhwc, batch=8, image=224):
+def train_oracle(net, make_net=resnet50_nhwc, batch=8, image=224,
+                 label="training oracle (card vs CPU)", floor_factor=None):
     """One ``TrainStep`` of ``net`` (on the card: the kernels) and of a
     CPU copy with the same weights (the plain versions), on the same
     batch.  A third step, on the CPU with the batch permuted, computes
     the same function in another fp32 summation order: its distance
-    from the CPU step is the noise floor the card is read against."""
+    from the CPU step is the noise floor the card is read against.
+    With ``floor_factor``, a parameter's own update is held to the
+    larger of the worst-entry limit and ``floor_factor`` times its own
+    floor: one whose update the permuted CPU step already moves past the
+    limit (rounding carried back through many BatchNorms) is held to
+    its noise, not to a limit the CPU cannot meet."""
     import torch
     from mxnet_tpu_torch.gluon.convert import params_from_numpy
     arrays = {p.name: p.data()._data.detach().cpu().numpy()
@@ -882,10 +935,26 @@ def train_oracle(net, make_net=resnet50_nhwc, batch=8, image=224):
     l_card, u_card, s_card = oracle_step(net, x, y)
     glob, worst, worst_name = update_errors(u_card, u_cpu)
     floor, floor_worst, _ = update_errors(u_perm, u_cpu)
+    limits = dict(ORACLE_LIMITS)
+    by_floor = {}
+    if floor_factor is not None:
+        worst_limit = limits.pop("update_rel_err_worst")
+        ratio = 0.0
+        for k, want in u_cpu.items():
+            n = float(want.norm())
+            if _is_conv_bias(k) or n == 0:
+                continue
+            err = float((u_card[k] - want).norm()) / n
+            fl = float((u_perm[k] - want).norm()) / n
+            lim = max(worst_limit, floor_factor * fl)
+            ratio = max(ratio, err / lim)
+            if lim > worst_limit:
+                by_floor[k] = [err, fl]
+        limits["update_worst_over_limit"] = 1.0
     stat_err = max(float((s_card[k] - s_cpu[k]).norm() / s_cpu[k].norm())
                    for k in s_cpu)
-    bias_err = max(float((u_card[k] - u_cpu[k]).abs().max())
-                   for k in u_cpu if _is_conv_bias(k))
+    bias_err = max((float((u_card[k] - u_cpu[k]).abs().max())
+                    for k in u_cpu if _is_conv_bias(k)), default=0.0)
     out = {"batch": batch, "loss_card": l_card, "loss_cpu": l_cpu,
            "loss_rel_err": abs(l_card - l_cpu) / abs(l_cpu),
            "update_rel_err": glob, "update_rel_err_worst": worst,
@@ -894,12 +963,15 @@ def train_oracle(net, make_net=resnet50_nhwc, batch=8, image=224):
            "floor_update_rel_err_worst": floor_worst,
            "floor_loss_rel_err": abs(l_perm - l_cpu) / abs(l_cpu),
            "running_stat_rel_err": stat_err, "conv_bias_abs_err": bias_err,
-           "limits": ORACLE_LIMITS}
-    print("training oracle (card vs CPU): %s" % json.dumps(out))
-    check(np.isfinite(l_card), "oracle loss on the card is not finite")
-    for key, limit in ORACLE_LIMITS.items():
-        check(out[key] <= limit, "training oracle: %s %.3g > limit %g"
-              % (key, out[key], limit))
+           "limits": limits}
+    if floor_factor is not None:
+        out.update(update_worst_over_limit=ratio, floor_factor=floor_factor,
+                   held_by_their_floor=by_floor)
+    print("%s: %s" % (label, json.dumps(out)))
+    check(np.isfinite(l_card), "%s: loss on the card is not finite" % label)
+    for key, limit in limits.items():
+        check(out[key] <= limit, "%s: %s %.3g > limit %g"
+              % (label, key, out[key], limit))
     return out
 
 
@@ -1595,145 +1667,137 @@ def bn_relu_bound(rows, c, itemsize, passes, vectors, flops):
             "bytes" if t_bytes >= t_ops else "operations", nbytes)
 
 
-def bn_relu_kernel_phase():
+def bn_relu_shape_times(shape, dtype):
+    """Kernel, plain and library times of both fused passes at one NHWC
+    site ``shape``, with their bounds: ``{"fwd": {...}, "bwd": {...}}``.
+    The library calls run on NCHW views of the same channels-last
+    memory: eval ``F.batch_norm`` + ``relu_``, and ``threshold_backward``
+    + ``native_batch_norm_backward``."""
     import torch
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops.fused_bn_relu import (
         bn_relu_apply_cuda, bn_relu_apply_reference, bn_relu_bwd_cuda,
         bn_relu_bwd_reference)
-    # tolerance relative to the largest output: fp32 differs by FMA
-    # contraction; bf16 by one rounding step of the stored result
-    rtol = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+    rows, c = int(np.prod(shape[:-1])), shape[-1]
+    t = bn_relu_inputs(shape, dtype)
+    x, y, dy = t["x"], t["y"], t["dy"]
+    x4, y4, dy4 = (v.view(shape).permute(0, 3, 1, 2) for v in (x, y, dy))
+    inv = t["bwd"][2]
+
+    def lib_fwd():
+        out = F.batch_norm(x4, t["mean"], t["var"], t["gamma"], t["beta"],
+                           False, 0.0, BN_EPS)
+        return out.relu_()
+
+    def lib_bwd():
+        g = torch.ops.aten.threshold_backward(dy4, y4, 0)
+        return torch.ops.aten.native_batch_norm_backward(
+            g, x4, t["gamma"], None, None, t["mean"], inv, True, BN_EPS,
+            [True, True, True])
+
+    out = {"fwd": {"ms": time_ms(lambda: bn_relu_apply_cuda(
+                       x, t["scale"], t["offset"])),
+                   "plain_ms": time_ms(lambda: bn_relu_apply_reference(
+                       x, t["scale"], t["offset"])),
+                   "library_ms": time_ms(lib_fwd)},
+           "bwd": {"ms": time_ms(lambda: bn_relu_bwd_cuda(x, dy, y,
+                                                          *t["bwd"])),
+                   "plain_ms": time_ms(lambda: bn_relu_bwd_reference(
+                       x, dy, y, *t["bwd"])),
+                   "library_ms": time_ms(lib_bwd)}}
+    # forward: x read, out written, 2 vectors, fma + max;
+    # backward: x, dy, y read, dx written, 5 vectors, ~8 flops
+    size = x.element_size()
+    for kind, passes, vectors, flops in (("fwd", 2, 2, 3),
+                                         ("bwd", 4, 5, 8)):
+        bound, by, nbytes = bn_relu_bound(rows, c, size, passes, vectors,
+                                          flops)
+        out[kind].update(bound_ms=bound, bound_by=by, bytes=nbytes)
+    del t, x, y, dy, x4, y4, dy4
+    return out
+
+
+# kernel-vs-plain tolerance of the fused passes, relative to the largest
+# output: fp32 differs by FMA contraction; bf16 by one rounding step of
+# the stored result
+BN_RELU_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def bn_relu_errors(shape, dtype, seed=0, kinds=("fwd", "bwd")):
+    """Both fused passes at NHWC site ``shape`` against their plain
+    versions: ``{kind: (max |kernel - plain|, limit)}``; fails past the
+    limit."""
+    import torch
+    from mxnet_tpu_torch.ops.fused_bn_relu import (
+        bn_relu_apply_cuda, bn_relu_bwd_cuda, bn_relu_bwd_reference)
+    key = str(dtype).split(".")[-1]
+    t = bn_relu_inputs(shape, dtype, seed=seed)
+    pairs = {"fwd": lambda: (bn_relu_apply_cuda(t["x"], t["scale"],
+                                                t["offset"]), t["y"]),
+             "bwd": lambda: (bn_relu_bwd_cuda(t["x"], t["dy"], t["y"],
+                                              *t["bwd"]),
+                             bn_relu_bwd_reference(t["x"], t["dy"], t["y"],
+                                                   *t["bwd"]))}
+    out = {}
+    for kind in kinds:
+        got, want = pairs[kind]()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got.float()).all()),
+              "bn_relu %s %s %s: non-finite" % (kind, shape, key))
+        err = float((got.float() - want.float()).abs().max())
+        limit = BN_RELU_RTOL[key] * max(1.0, float(want.float().abs()
+                                                   .max()))
+        check(err <= limit, "bn_relu %s %s %s: max |kernel - plain| %.3g "
+              "> %.3g" % (kind, shape, key, err, limit))
+        out[kind] = (err, limit)
+        del got, want
+    del t
+    return out
+
+
+def bn_relu_kernel_phase():
+    import torch
     errs = {"fwd": {}, "bwd": {}}
     for shape in BN_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            t = bn_relu_inputs(shape, dtype)
-            pairs = {
-                "fwd": (bn_relu_apply_cuda(t["x"], t["scale"], t["offset"]),
-                        t["y"]),
-                "bwd": (bn_relu_bwd_cuda(t["x"], t["dy"], t["y"], *t["bwd"]),
-                        bn_relu_bwd_reference(t["x"], t["dy"], t["y"],
-                                              *t["bwd"]))}
-            torch.cuda.synchronize()
-            for kind, (got, want) in pairs.items():
-                check(bool(torch.isfinite(got.float()).all()),
-                      "bn_relu %s %s %s: non-finite" % (kind, shape, dtype))
-                err = float((got.float() - want.float()).abs().max())
-                limit = rtol[dtype] * max(1.0, float(want.float().abs()
-                                                     .max()))
-                check(err <= limit, "bn_relu %s %s %s: max |kernel - "
-                      "plain| %.3g > %.3g" % (kind, shape, dtype, err,
-                                              limit))
-                key = str(dtype).split(".")[-1]
+            key = str(dtype).split(".")[-1]
+            for kind, (err, limit) in bn_relu_errors(shape, dtype).items():
                 errs[kind][key] = max(errs[kind].get(key, 0.0), err)
                 print("bn_relu %s %s %s: max_abs_err %.3g (limit %.3g)"
                       % (kind, shape, key, err, limit))
-            del t, pairs
 
     # the serving path's shapes: each of ResNet-50's fused-site shapes at
     # every bucket, in fp32, as the checkpoint-and-serve phase runs them
     serve_err = 0.0
     for b in SERVE_BUCKETS:
         for site in RESNET50_SITE_SHAPES:
-            shape = (b,) + site
-            t = bn_relu_inputs(shape, torch.float32, seed=b)
-            got = bn_relu_apply_cuda(t["x"], t["scale"], t["offset"])
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(got).all()),
-                  "bn_relu fwd serving %s: non-finite" % (shape,))
-            err = float((got - t["y"]).abs().max())
-            limit = rtol[torch.float32] * max(1.0, float(t["y"].abs().max()))
-            check(err <= limit, "bn_relu fwd serving %s: max |kernel - "
-                  "plain| %.3g > %.3g" % (shape, err, limit))
+            err, _ = bn_relu_errors((b,) + site, torch.float32, seed=b,
+                                    kinds=("fwd",))["fwd"]
             serve_err = max(serve_err, err)
-            del t, got
     print("bn_relu fwd float32 at the serving shapes (buckets %s x sites "
           "%s): max_abs_err %.3g (rtol %g of the largest output)"
           % (list(SERVE_BUCKETS), list(RESNET50_SITE_SHAPES), serve_err,
-             rtol[torch.float32]))
+             BN_RELU_RTOL["float32"]))
     errs["fwd"]["float32"] = max(errs["fwd"]["float32"], serve_err)
 
     times = {}
     for shape in BN_SHAPES:
-        n, c = shape[0], shape[-1]
-        rows = int(np.prod(shape[:-1]))
-        t = bn_relu_inputs(shape, torch.float32)
-        x, y, dy = t["x"], t["y"], t["dy"]
-        # the same tensors as NCHW views over channels-last memory
-        x4, y4, dy4 = (v.view(shape).permute(0, 3, 1, 2)
-                       for v in (x, y, dy))
-        inv = t["bwd"][2]
-
-        def lib_fwd():
-            out = F.batch_norm(x4, t["mean"], t["var"], t["gamma"],
-                               t["beta"], False, 0.0, BN_EPS)
-            return out.relu_()
-
-        def lib_bwd():
-            g = torch.ops.aten.threshold_backward(dy4, y4, 0)
-            return torch.ops.aten.native_batch_norm_backward(
-                g, x4, t["gamma"], None, None, t["mean"], inv, True,
-                BN_EPS, [True, True, True])
-
-        fwd = {"ms": time_ms(lambda: bn_relu_apply_cuda(x, t["scale"],
-                                                         t["offset"])),
-               "plain_ms": time_ms(lambda: bn_relu_apply_reference(
-                   x, t["scale"], t["offset"])),
-               "library_ms": time_ms(lib_fwd)}
-        bwd = {"ms": time_ms(lambda: bn_relu_bwd_cuda(x, dy, y, *t["bwd"])),
-               "plain_ms": time_ms(lambda: bn_relu_bwd_reference(
-                   x, dy, y, *t["bwd"])),
-               "library_ms": time_ms(lib_bwd)}
-        # forward: x read, out written, 2 vectors, fma + max;
-        # backward: x, dy, y read, dx written, 5 vectors, ~8 flops
-        fwd["bound_ms"], fwd["bound_by"], fb = bn_relu_bound(rows, c, 4, 2,
-                                                             2, 3)
-        bwd["bound_ms"], bwd["bound_by"], bb = bn_relu_bound(rows, c, 4, 4,
-                                                             5, 8)
-        times[shape] = {"fwd": fwd, "bwd": bwd}
+        times[shape] = bn_relu_shape_times(shape, torch.float32)
         print("bn_relu times %s fp32 (batch %d): fwd %s (%d bytes at "
               "3.35 TB/s); bwd %s (%d bytes); library fwd = "
               "batch_norm(eval)+relu_, bwd = threshold_backward + "
               "native_batch_norm_backward"
-              % (shape, n, json.dumps(fwd), fb, json.dumps(bwd), bb))
-        del t, x4, y4, dy4
+              % (shape, shape[0], json.dumps(times[shape]["fwd"]),
+                 times[shape]["fwd"]["bytes"],
+                 json.dumps(times[shape]["bwd"]),
+                 times[shape]["bwd"]["bytes"]))
     # the stem in bf16, as the AMP LARS path launches it; the library
     # calls on the same bf16 rows with the fp32 (C,) vectors
-    shape = BN_SHAPES[0]
-    rows, c = int(np.prod(shape[:-1])), shape[-1]
-    t = bn_relu_inputs(shape, torch.bfloat16)
-    x, y, dy = t["x"], t["y"], t["dy"]
-    x4, y4, dy4 = (v.view(shape).permute(0, 3, 1, 2) for v in (x, y, dy))
-    inv = t["bwd"][2]
-
-    def lib_fwd16():
-        out = F.batch_norm(x4, t["mean"], t["var"], t["gamma"], t["beta"],
-                           False, 0.0, BN_EPS)
-        return out.relu_()
-
-    def lib_bwd16():
-        g = torch.ops.aten.threshold_backward(dy4, y4, 0)
-        return torch.ops.aten.native_batch_norm_backward(
-            g, x4, t["gamma"], None, None, t["mean"], inv, True, BN_EPS,
-            [True, True, True])
-
-    bf16 = {
-        "fwd": {"ms": time_ms(lambda: bn_relu_apply_cuda(x, t["scale"],
-                                                          t["offset"])),
-                "plain_ms": time_ms(lambda: bn_relu_apply_reference(
-                    x, t["scale"], t["offset"])),
-                "library_ms": time_ms(lib_fwd16)},
-        "bwd": {"ms": time_ms(lambda: bn_relu_bwd_cuda(x, dy, y, *t["bwd"])),
-                "plain_ms": time_ms(lambda: bn_relu_bwd_reference(
-                    x, dy, y, *t["bwd"])),
-                "library_ms": time_ms(lib_bwd16)}}
-    bf16["fwd"]["bound_ms"], _, fb = bn_relu_bound(rows, c, 2, 2, 2, 3)
-    bf16["bwd"]["bound_ms"], _, bb = bn_relu_bound(rows, c, 2, 4, 5, 8)
+    bf16 = bn_relu_shape_times(BN_SHAPES[0], torch.bfloat16)
     print("bn_relu times %s bf16: fwd %s (%d bytes at 3.35 TB/s); bwd %s "
           "(%d bytes); library on bf16 rows as for fp32"
-          % (shape, json.dumps(bf16["fwd"]), fb, json.dumps(bf16["bwd"]),
-             bb))
-    del t, x, y, dy, x4, y4, dy4
+          % (BN_SHAPES[0], json.dumps(bf16["fwd"]), bf16["fwd"]["bytes"],
+             json.dumps(bf16["bwd"]), bf16["bwd"]["bytes"]))
     main = times[BN_SHAPES[0]]
     return {kind: dict(main[kind], max_abs_err=errs[kind]["float32"],
                        max_abs_err_bf16=errs[kind]["bfloat16"])
@@ -4428,6 +4492,396 @@ def decode_checkpoint_phase(root=CKPT_ROOT, widths=GPT2_SMALL,
     return stats
 
 
+# ---------------------------------------------------------------------
+# phase 14: DenseNet-121 NHWC, the model zoo and the mx.nd kernel routes
+# ---------------------------------------------------------------------
+
+DENSENET_BATCH = 64
+# DenseNet-121's oracle holds each parameter's update to max(5e-2, this
+# times its own permuted-batch floor): the stem BatchNorm's gamma moves
+# 0.15-0.44 between two CPU steps that sum in another order, past the
+# 5e-2 no step can meet; the norm-wise 2e-2 stays
+DENSENET_FLOOR_FACTOR = 4.0
+DENSENET_LOOP_STEPS = 5
+# (init features, growth, block config) of DenseNet-121
+DENSENET121_SPEC = (64, 32, (6, 12, 24, 16))
+ZOO_BATCH = 8
+# forwards a zoo net: the call sizing deferred shapes, eager, captured, replayed
+ZOO_CALLS = 4
+
+
+def densenet121_nhwc():
+    from mxnet_tpu_torch.gluon.model_zoo.vision import densenet121
+    return densenet121(layout="NHWC")
+
+
+def densenet_site_shapes(batch, image=224, spec=DENSENET121_SPEC):
+    """NHWC shape of each fused BatchNorm+ReLU site of a DenseNet forward,
+    in order: the stem; in each dense block, each layer's input (its
+    channels growing by ``growth``) then its bottleneck (4 x growth); each
+    transition; the head."""
+    init, growth, blocks = spec
+    side = image // 4                   # the stride-2 stem and max pool
+    shapes = [(batch, image // 2, image // 2, init)]
+    c = init
+    for i, layers in enumerate(blocks):
+        for j in range(layers):
+            shapes += [(batch, side, side, c + j * growth),
+                       (batch, side, side, 4 * growth)]
+        c += layers * growth
+        if i != len(blocks) - 1:
+            shapes.append((batch, side, side, c))     # the transition's
+            c //= 2
+            side //= 2
+    shapes.append((batch, side, side, c))             # the head's
+    return shapes
+
+
+def densenet_kernel_checks(batch=DENSENET_BATCH):
+    """Both fused kernels against their plain versions at every distinct
+    ``(rows, C)`` DenseNet-121 gives them at ``batch``, fp32, and the
+    times of three: the stem, the largest site of dense block 3's
+    resolution (its transition) and the head."""
+    import torch
+    sites = densenet_site_shapes(batch)
+    distinct = sorted(set(sites), key=lambda s: (-s[1], s[3]))
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for shape in distinct:
+        for kind, (err, limit) in bn_relu_errors(shape,
+                                                 torch.float32).items():
+            worst[kind] = max(worst[kind], err / limit)
+    print("bn_relu at DenseNet-121's %d distinct site shapes (batch %d, "
+          "rows %d..%d, C %d..%d; every C a multiple of 32, the kernels' "
+          "16-byte vector path): largest error over its limit fwd %.3g, "
+          "bwd %.3g (limit %g of the largest output)"
+          % (len(distinct), batch, min(int(np.prod(s[:3])) for s in sites),
+             max(int(np.prod(s[:3])) for s in sites),
+             min(s[3] for s in sites), max(s[3] for s in sites),
+             worst["fwd"], worst["bwd"], BN_RELU_RTOL["float32"]))
+    stage3 = [t for t in sites if t[1] == sites[0][1] // 8]
+    timed = {"stem": sites[0], "stage3_largest": max(stage3,
+                                                     key=lambda t: t[3]),
+             "head": sites[-1]}
+    times = {}
+    for what, shape in timed.items():
+        times[what] = dict(shape=list(shape), rows=int(np.prod(shape[:3])),
+                           **bn_relu_shape_times(shape, torch.float32))
+        print("bn_relu times DenseNet-121 %s %s fp32: %s"
+              % (what, shape, json.dumps(times[what])))
+    return {"distinct_shapes": len(distinct),
+            "max_err_over_limit": worst, "times": times}
+
+
+def densenet_loop(net, trainer, loss_fn, x, y, steps, batch):
+    """``steps`` steps of the loop users write: the hybridized net under
+    ``autograd.record()``, ``loss.backward()``, then
+    ``trainer.allreduce_grads()`` and ``trainer.update(batch)``.  Returns
+    the losses (device means)."""
+    from mxnet_tpu_torch import autograd
+    losses = []
+    for _ in range(steps):
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.allreduce_grads()
+        trainer.update(batch)
+        losses.append(loss._data.detach().mean())
+    return losses
+
+
+def densenet_loop_split(net, trainer, loss_fn, x, y, batch, cuda):
+    """Host ms of each part of one more loop step, the device drained
+    after each: forward and loss, ``backward``, ``allreduce_grads``,
+    ``update``."""
+    import torch
+    from mxnet_tpu_torch import autograd
+    marks = [time.perf_counter()]
+
+    def mark():
+        if cuda:
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    with autograd.record():
+        loss = loss_fn(net(x), y)
+    mark()
+    loss.backward()
+    mark()
+    trainer.allreduce_grads()
+    mark()
+    trainer.update(batch)
+    mark()
+    return dict(zip(("forward", "backward", "allreduce_grads", "update"),
+                    (1e3 * (b - a) for a, b in zip(marks, marks[1:]))))
+
+
+def densenet_loop_profile(net, trainer, loss_fn, x, y, batch, step_ms,
+                          steps=3):
+    """Device busy ms a step of the loop from ``torch.profiler`` over
+    ``steps`` steps run back to back, its launches a step and the
+    device's idle share against the unprofiled ms a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        densenet_loop(net, trainer, loss_fn, x, y, steps, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    check(kernels, "the profiler saw no device time in the DenseNet loop")
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    return {"steps": steps, "device_busy_ms_per_step": busy,
+            "launches_per_step": sum(e.count for e in kernels) / steps,
+            "device_idle_share": max(0.0, 1 - busy / step_ms)}
+
+
+def densenet_imperative_path(batch=DENSENET_BATCH, image=224,
+                             steps=DENSENET_LOOP_STEPS,
+                             sites=DENSENET_SITES, ctx=None):
+    """DenseNet-121 NHWC trained by the imperative loop (SGD 0.05/0.9,
+    ``Trainer(kvstore="device")``): WARM_STEPS warm-up steps (eager,
+    then captured), the counters zeroed, ``steps`` timed steps."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.kernels import registry
+    ctx = mx.gpu() if ctx is None else ctx
+    cuda = ctx.device_type == "gpu"
+    net = densenet121_nhwc()
+    net.initialize(ctx=ctx, generator=torch.Generator().manual_seed(0))
+    net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(TRAIN_SGD),
+                            kvstore="device")
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    gen = torch.Generator(device=ctx.torch_device()).manual_seed(0)
+    x = mx.nd.NDArray(torch.randn((batch, image, image, 3), generator=gen,
+                                  device=ctx.torch_device()))
+    y = mx.nd.NDArray(torch.randint(0, 1000, (batch,), generator=gen,
+                                    device=ctx.torch_device()).float())
+    densenet_loop(net, trainer, loss_fn, x, y, WARM_STEPS, batch)
+    if cuda:
+        torch.cuda.synchronize()
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    losses = densenet_loop(net, trainer, loss_fn, x, y, steps, batch)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = torch.stack(losses).tolist()
+    fwd, bwd = (registry.launches("bn_relu_apply"),
+                registry.launches("bn_relu_bwd"))
+    split = densenet_loop_split(net, trainer, loss_fn, x, y, batch, cuda)
+    stats = {"batch": batch, "steps": steps, "losses": losses,
+             "ms_per_step": 1e3 * wall / steps,
+             "img_per_s": batch * steps / wall,
+             "one_step_host_ms_synchronized": split,
+             "profiled": densenet_loop_profile(
+                 net, trainer, loss_fn, x, y, batch,
+                 1e3 * wall / steps) if cuda else None,
+             "bn_relu_apply_launches": fwd, "bn_relu_bwd_launches": bwd,
+             "cache": {k: v for k, v in net.cache_stats()["graphs"].items()}
+             if cuda else None,
+             "card": gpu_line() if cuda else None}
+    print("DenseNet-121 imperative loop (hybridized, record/backward, "
+          "Trainer(kvstore=\"device\") allreduce_grads/update): %s"
+          % json.dumps(stats))
+    check(all(np.isfinite(losses)), "DenseNet loop: non-finite loss %s"
+          % losses)
+    check(losses[-1] < losses[0], "DenseNet loop: loss did not fall: %s"
+          % losses)
+    if sites:
+        check(fwd == sites * steps and bwd == sites * steps,
+              "DenseNet loop: bn_relu launches %d/%d != %d sites x %d steps"
+              % (fwd, bwd, sites, steps))
+    return stats
+
+
+def zoo_sweep(names=None, batch=ZOO_BATCH, device="cuda"):
+    """Every ``get_model`` net with ``layout="NHWC"``, 1000 classes, eval
+    and hybridized, ZOO_CALLS forwards of one batch of 224 x 224 (299
+    for Inception V3): logits of shape (batch, 1000), finite, and
+    ``bn_relu_apply`` launched ZOO_FUSED_SITES[name] times a forward."""
+    import torch
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.kernels import registry
+    out = {}
+    for name in names or sorted(ZOO_FUSED_SITES):
+        side = 299 if name == "inceptionv3" else 224
+        net = vision.get_model(name, layout="NHWC")
+        net.initialize(device=device,
+                       generator=torch.Generator().manual_seed(0))
+        net.hybridize()
+        gen = torch.Generator(device=device).manual_seed(1)
+        x = torch.randn((batch, side, side, 3), generator=gen, device=device)
+        registry.reset_launches()
+        with torch.no_grad():
+            logits = [net(x) for _ in range(ZOO_CALLS)]
+        launches = registry.launches("bn_relu_apply")
+        graphs = sum(g["graphs"] for g in net.cache_stats()["graphs"]
+                     .values()) if device == "cuda" else 0
+        ok = all(tuple(v.shape) == (batch, 1000)
+                 and bool(torch.isfinite(v).all()) for v in logits)
+        same = float((logits[-1] - logits[1]).abs().max())
+        out[name] = {"launches": launches, "sites": ZOO_FUSED_SITES[name],
+                     "graphs": graphs, "replay_vs_eager_max_abs": same}
+        check(ok, "zoo %s: logits not (%d, 1000) and finite" % (name, batch))
+        if device == "cuda":
+            check(launches == ZOO_CALLS * ZOO_FUSED_SITES[name],
+                  "zoo %s: bn_relu_apply launches %d != %d forwards x %d "
+                  "sites" % (name, launches, ZOO_CALLS,
+                             ZOO_FUSED_SITES[name]))
+            check(graphs >= 1, "zoo %s: no graph captured" % name)
+        del net, x, logits
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    print("zoo sweep (get_model, NHWC, eval, hybridized, batch %d, %d "
+          "forwards each): %s" % (batch, ZOO_CALLS, json.dumps(out)))
+    return out
+
+
+def nd_kernel_routes(device="cuda"):
+    """``mx.nd.flash_attention``, ``flash_attention_masked`` and
+    ``fused_batch_norm_relu`` on CUDA NDArrays, forward and backward
+    under ``autograd.record``: each launches its kernels, counted, and
+    matches its plain version; ``fused_batch_norm_relu`` on NCHW
+    launches none (``relu(BatchNorm)``, as the JAX op)."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, ops
+    from mxnet_tpu_torch.kernels import registry
+    gen = torch.Generator(device=device).manual_seed(3)
+
+    def nd(*shape, scale=1.0, shift=0.0):
+        a = mx.nd.NDArray(torch.randn(shape, generator=gen, device=device)
+                          * scale + shift)
+        a.attach_grad()
+        return a
+
+    def run(fn, ins, head):
+        registry.reset_launches()
+        with autograd.record():
+            out = fn(*ins)
+        out = out[0] if isinstance(out, (list, tuple)) else out
+        out.backward(head)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        names = ("flash_attention_fwd", "flash_attention_bwd",
+                 "bn_relu_apply", "bn_relu_bwd")
+        launches = {n: registry.launches(n) for n in names
+                    if registry.launches(n)}
+        return out._data.detach(), [a.grad._data for a in ins
+                                    if a.grad is not None], launches
+
+    def plain(fn, ins, head):
+        xs = [a._data.detach().clone().requires_grad_(True) for a in ins]
+        out = fn(*xs)
+        out = out[0] if isinstance(out, (list, tuple)) else out
+        out.backward(head._data)
+        return out.detach(), [t.grad for t in xs if t.grad is not None]
+
+    def rel(got, want):
+        return float((got - want).abs().max()) / max(
+            1.0, float(want.abs().max()))
+
+    bh, seq, d, heads = 24, 128, 64, 12
+    q, k, v = (nd(bh, seq, d) for _ in range(3))
+    mask = mx.nd.NDArray((torch.rand((bh // heads, seq, seq), generator=gen,
+                                     device=device) > 0.2).float())
+    mask._data[:, :, 0] = 1.0
+    head_attn = nd(bh, seq, d)
+    x_nhwc = nd(16, 14, 14, 256, scale=2.0, shift=1.0)
+    x_nchw = nd(16, 256, 14, 14, scale=2.0, shift=1.0)
+    vecs = [nd(256, scale=0.2, shift=1.0), nd(256), nd(256, scale=0.1),
+            nd(256, scale=0.1, shift=2.0)]
+    cases = {
+        "flash_attention": (
+            lambda a, b, c: mx.nd.flash_attention(a, b, c, causal=True),
+            lambda a, b, c: ops.attention_reference(a, b, c, causal=True),
+            [q, k, v], head_attn, FLASH_TOL["float32"],
+            {"flash_attention_fwd": 1, "flash_attention_bwd": 1}),
+        "flash_attention_masked": (
+            lambda a, b, c: mx.nd.flash_attention_masked(a, b, c, mask,
+                                                         heads=heads),
+            lambda a, b, c: ops.attention_reference(a, b, c,
+                                                    mask=mask._data,
+                                                    heads=heads),
+            [q, k, v], head_attn, FLASH_TOL["float32"],
+            {"flash_attention_fwd": 1, "flash_attention_bwd": 1}),
+        "fused_batch_norm_relu NHWC": (
+            lambda a, g, b: mx.nd.fused_batch_norm_relu(
+                a, g, b, vecs[2], vecs[3], axis=3, fix_gamma=False),
+            lambda a, g, b: ops.BatchNorm(
+                a, g, b, vecs[2]._data, vecs[3]._data, axis=3,
+                fix_gamma=False, training=True)[0].relu(),
+            [x_nhwc, vecs[0], vecs[1]], nd(16, 14, 14, 256),
+            (1e-5, 1e-4), {"bn_relu_apply": 1, "bn_relu_bwd": 1}),
+        "fused_batch_norm_relu NCHW": (
+            lambda a, g, b: mx.nd.fused_batch_norm_relu(
+                a, g, b, vecs[2], vecs[3], fix_gamma=False),
+            lambda a, g, b: ops.BatchNorm(
+                a, g, b, vecs[2]._data, vecs[3]._data, axis=1,
+                fix_gamma=False, training=True)[0].relu(),
+            [x_nchw, vecs[0], vecs[1]], nd(16, 256, 14, 14),
+            (1e-5, 1e-4), {}),
+    }
+    out = {}
+    for name, (fn, ref, ins, head, (ftol, btol), want) in cases.items():
+        for a in ins:
+            a.grad._data.zero_()
+        got, grads, launches = run(fn, ins, head)
+        pout, pgrads = plain(ref, ins, head)
+        err = {"fwd": rel(got, pout),
+               "bwd": max(rel(g, p) for g, p in zip(grads, pgrads))}
+        out[name] = {"launches": launches, "rel_err": err}
+        check(launches == (want if device == "cuda" else {}),
+              "mx.nd route %s: launches %s, want %s"
+              % (name, launches, want))
+        check(err["fwd"] <= ftol and err["bwd"] <= btol,
+              "mx.nd route %s: kernel vs plain %s > (%g, %g)"
+              % (name, err, ftol, btol))
+    print("mx.nd kernel routes (CUDA NDArrays, forward and backward under "
+          "record; error relative to the largest plain value): %s"
+          % json.dumps(out))
+    return out
+
+
+def densenet_phase():
+    """DenseNet-121 NHWC fp32 at batch 64: the captured ``TrainStep``
+    (2 warm-up, 8 timed) with its breakdown and capture report, the
+    oracle, the imperative loop, the kernels at every site shape, the
+    zoo sweep and the ``mx.nd`` kernel routes."""
+    release_cuda()
+    net, step, (x, y), train = train_main_path(
+        make_net=densenet121_nhwc, batch=DENSENET_BATCH, sites=DENSENET_SITES,
+        label="DenseNet-121 main path (NHWC fp32, SGD 0.05/0.9, captured "
+              "TrainStep)", peak_with_warmup=True)
+    bd = train_step_breakdown(step, x, y, train["ms_per_step"],
+                              label="DenseNet-121 step breakdown")
+    capture = capture_report(
+        "DenseNet-121 fp32 SGD TrainStep", step.capture_stats(),
+        {"ms_per_step": train["ms_per_step"],
+         "img_per_s": train["img_per_s"],
+         "peak_mem_bytes": train["peak_mem_bytes"]},
+        bd["device_idle_share"], 1)
+    del step, x, y
+    release_cuda()
+    oracle = train_oracle(net, make_net=densenet121_nhwc,
+                          label="DenseNet-121 oracle (card vs CPU)",
+                          floor_factor=DENSENET_FLOOR_FACTOR)
+    del net
+    release_cuda()
+    loop = densenet_imperative_path()
+    release_cuda()
+    kernels = densenet_kernel_checks()
+    release_cuda()
+    zoo = zoo_sweep()
+    routes = nd_kernel_routes()
+    release_cuda()
+    return {"main": train, "breakdown": bd, "capture": capture,
+            "oracle": oracle, "loop": loop, "kernels": kernels, "zoo": zoo,
+            "routes": routes}
+
+
 def kernel_entry(name, launches, kern, serve_launches=None, **extra):
     """One kernel's entry of the per-kernel JSON line; a kernel of the
     checkpoint-and-serve phase also gives its launches there, and
@@ -4523,6 +4977,7 @@ def drive():
     pretrain = bert_pretrain_phase()
     mnist_main_path()
     mnist_oracle()
+    dense = densenet_phase()
     torch.cuda.empty_cache()
     attn = kernel_phase(scale)
     bn = bn_relu_kernel_phase()
@@ -4551,17 +5006,43 @@ def drive():
             extra["bert_pretrain_masked"] = pretrain_k[kind]
         return extra
 
+    def densenet_path(name):
+        """A ``bn_relu_*`` kernel's launches on DenseNet-121's paths and its
+        times at three of its shapes; a kernel's launches through the
+        ``mx.nd`` routes."""
+        routes = {route: r["launches"].get(name, 0)
+                  for route, r in dense["routes"].items()}
+        kind = {"bn_relu_apply": "fwd", "bn_relu_bwd": "bwd"}.get(name)
+        if kind is None:
+            return {"launches_mx_nd_routes": routes}
+        key = name + "_launches"
+        extra = {"launches_densenet": {
+                     "train_step": dense["main"][key],
+                     "imperative_loop": dense["loop"][key],
+                     "mx_nd_routes": routes},
+                 "densenet": {what: dict(t[kind], shape=t["shape"],
+                                         rows=t["rows"])
+                              for what, t in
+                              dense["kernels"]["times"].items()}}
+        if kind == "fwd":
+            extra["launches_densenet"]["zoo_sweep"] = {
+                n: z["launches"] for n, z in dense["zoo"].items()}
+        return extra
+
     print(json.dumps({"kernels": [
         kernel_entry("paged_attention", decode["paged_attention_launches"],
                      attn, decode_ckpt["paged_attention_launches"]),
         kernel_entry("bn_relu_apply", train["bn_relu_apply_launches"],
-                     bn["fwd"], serve["bn_relu_apply_launches"]),
+                     bn["fwd"], serve["bn_relu_apply_launches"],
+                     **densenet_path("bn_relu_apply")),
         kernel_entry("bn_relu_bwd", train["bn_relu_bwd_launches"],
-                     bn["bwd"]),
+                     bn["bwd"], **densenet_path("bn_relu_bwd")),
         kernel_entry("flash_attention_fwd", counts["flash_attention_fwd"],
-                     flash["fwd"], **bf16_path("flash_attention_fwd")),
+                     flash["fwd"], **bf16_path("flash_attention_fwd"),
+                     **densenet_path("flash_attention_fwd")),
         kernel_entry("flash_attention_bwd", counts["flash_attention_bwd"],
-                     flash["bwd"], **bf16_path("flash_attention_bwd")),
+                     flash["bwd"], **bf16_path("flash_attention_bwd"),
+                     **densenet_path("flash_attention_bwd")),
         kernel_entry("layernorm_fwd", counts["layernorm_fwd"], ln,
                      **bf16_path("layernorm_fwd")),
         kernel_entry("lamb_phase1", counts["lamb_phase1"], lamb),

@@ -9,6 +9,7 @@ process and ``resnetv11_...`` in another.  Arrays named structurally
 (``"0.weight"``, as ``_collect_params_with_prefix`` and MXNet's
 ``save_parameters`` name them) are matched by structure, which also
 holds for a net whose children were made outside its ``name_scope``.
+A name outside the net's prefix is matched whole.
 Both packages keep convolution weights OHWI for NHWC (OIHW for NCHW),
 so nothing is permuted.
 """
@@ -23,10 +24,10 @@ __all__ = ["params_from_numpy"]
 
 
 def _relative(name, prefix):
-    if not name.startswith(prefix):
-        raise MXNetError("parameter %r does not start with prefix %r"
-                         % (name, prefix))
-    return name[len(prefix):]
+    """``name`` less ``prefix``; a name outside the prefix (a child
+    given an explicit prefix of its own, as MobileNetV2's ``pred_``
+    convolution) is matched whole."""
+    return name[len(prefix):] if name.startswith(prefix) else name
 
 
 def params_from_numpy(net, arrays, prefix=None):

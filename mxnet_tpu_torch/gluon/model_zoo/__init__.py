@@ -1,5 +1,5 @@
-"""Model zoo (counterpart of ``mxnet_tpu/gluon/model_zoo``): the ResNet
-family and BERT."""
+"""Model zoo (counterpart of ``mxnet_tpu/gluon/model_zoo``): the vision
+nets and BERT."""
 from . import bert, vision
 from .bert import BERTModel, bert_base, bert_small, get_bert
 

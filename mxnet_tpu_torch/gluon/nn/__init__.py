@@ -1,13 +1,28 @@
-"""Gluon layers of the training slices (counterpart of
-``mxnet_tpu/gluon/nn``)."""
-from .activations import Activation
+"""Gluon layers (counterpart of ``mxnet_tpu/gluon/nn``).  ``SymbolBlock``
+is not ported yet."""
+from ..block import Block, HybridBlock
+from .activations import (ELU, GELU, SELU, Activation, LeakyReLU, PReLU,
+                          Swish)
 from .basic_layers import (BatchNorm, Dense, Dropout, Embedding, Flatten,
-                           HybridSequential, LayerNorm, Sequential)
-from .conv_layers import Conv2D, GlobalAvgPool2D, MaxPool2D
+                           GroupNorm, HybridLambda, HybridSequential,
+                           InstanceNorm, Lambda, LayerNorm, Sequential,
+                           SyncBatchNorm)
+from .conv_layers import (AvgPool1D, AvgPool2D, AvgPool3D, Conv1D,
+                          Conv1DTranspose, Conv2D, Conv2DTranspose, Conv3D,
+                          GlobalAvgPool1D, GlobalAvgPool2D, GlobalAvgPool3D,
+                          GlobalMaxPool1D, GlobalMaxPool2D, GlobalMaxPool3D,
+                          MaxPool1D, MaxPool2D, MaxPool3D, ReflectionPad2D)
 from .transformer import (MultiHeadAttention, PositionwiseFFN,
                           TransformerEncoder, TransformerEncoderCell)
 
-__all__ = ["Activation", "BatchNorm", "Conv2D", "Dense", "Dropout",
-           "Embedding", "Flatten", "GlobalAvgPool2D", "HybridSequential",
-           "LayerNorm", "MaxPool2D", "MultiHeadAttention", "PositionwiseFFN",
-           "Sequential", "TransformerEncoder", "TransformerEncoderCell"]
+__all__ = ["Activation", "AvgPool1D", "AvgPool2D", "AvgPool3D", "BatchNorm",
+           "Block", "Conv1D", "Conv1DTranspose", "Conv2D", "Conv2DTranspose",
+           "Conv3D", "Dense", "Dropout", "ELU", "Embedding", "Flatten",
+           "GELU", "GlobalAvgPool1D", "GlobalAvgPool2D", "GlobalAvgPool3D",
+           "GlobalMaxPool1D", "GlobalMaxPool2D", "GlobalMaxPool3D",
+           "GroupNorm", "HybridBlock", "HybridLambda", "HybridSequential",
+           "InstanceNorm", "Lambda", "LayerNorm", "LeakyReLU", "MaxPool1D",
+           "MaxPool2D", "MaxPool3D", "MultiHeadAttention", "PReLU",
+           "PositionwiseFFN", "ReflectionPad2D", "SELU", "Sequential",
+           "Swish", "SyncBatchNorm", "TransformerEncoder",
+           "TransformerEncoderCell"]

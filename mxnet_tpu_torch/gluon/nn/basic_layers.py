@@ -1,8 +1,9 @@
 """Basic Gluon layers (counterpart of
 ``mxnet_tpu/gluon/nn/basic_layers.py``): ``Sequential``,
 ``HybridSequential`` with its BatchNorm+ReLU fusion plan, ``Dense``,
-``BatchNorm``, ``Flatten``, ``Dropout``, ``Embedding`` and
-``LayerNorm``."""
+``BatchNorm``, ``SyncBatchNorm``, ``Flatten``, ``Dropout``,
+``Embedding``, ``LayerNorm``, ``InstanceNorm``, ``GroupNorm``,
+``Lambda`` and ``HybridLambda``."""
 from __future__ import annotations
 
 import math
@@ -15,7 +16,8 @@ from ..parameter import _dtype
 from .activations import Activation
 
 __all__ = ["BatchNorm", "Dense", "Dropout", "Embedding", "Flatten",
-           "HybridSequential", "LayerNorm", "Sequential"]
+           "GroupNorm", "HybridLambda", "HybridSequential", "InstanceNorm",
+           "Lambda", "LayerNorm", "Sequential", "SyncBatchNorm"]
 
 
 class Sequential(Block):
@@ -41,8 +43,8 @@ class Sequential(Block):
 
 
 def _bn_relu_fusion_plan(children, ndim):
-    """Pair each channels-last ``BatchNorm`` directly followed by a relu
-    ``Activation`` for the fused op.
+    """Pair each channels-last ``BatchNorm`` or ``SyncBatchNorm``
+    directly followed by a relu ``Activation`` for the fused op.
 
     Returns ``[(block, fused)]``; ``fused=True`` marks a BatchNorm whose
     trailing relu runs inside ``_forward_fused_relu`` (the Activation is
@@ -56,7 +58,8 @@ def _bn_relu_fusion_plan(children, ndim):
     while i < len(blocks):
         b = blocks[i]
         nxt = blocks[i + 1] if i + 1 < len(blocks) else None
-        if type(b) is BatchNorm and b._axis in (-1, ndim - 1) \
+        if type(b) in (BatchNorm, SyncBatchNorm) \
+                and b._axis in (-1, ndim - 1) \
                 and type(nxt) is Activation and nxt._act == "relu":
             plan.append((b, True))
             i += 2
@@ -197,6 +200,15 @@ class BatchNorm(HybridBlock):
         return out
 
 
+class SyncBatchNorm(BatchNorm):
+    """Cross-device BatchNorm (reference: ``contrib.nn.SyncBatchNorm``).
+    In one process it is ``BatchNorm``; ``num_devices`` is kept for the
+    API until the multi-device slice."""
+
+    def __init__(self, in_channels=0, num_devices=None, **kwargs):
+        super().__init__(in_channels=in_channels, **kwargs)
+
+
 class Flatten(HybridBlock):
     def hybrid_forward(self, F, x):
         return F.Flatten(x)
@@ -266,3 +278,89 @@ class LayerNorm(HybridBlock):
 
     def hybrid_forward(self, F, x, gamma, beta):
         return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self._eps)
+
+
+class _ChannelNorm(HybridBlock):
+    """A normalization with a ``gamma``/``beta`` pair over axis 1."""
+
+    def __init__(self, epsilon, center, scale, beta_initializer,
+                 gamma_initializer, in_channels, **kwargs):
+        super().__init__(**kwargs)
+        self._eps = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True,
+                grad_req="write" if scale else "null")
+            self.beta = self.params.get(
+                "beta", shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True,
+                grad_req="write" if center else "null")
+
+    def infer_shape(self, x):
+        self.gamma.shape = (x.shape[1],)
+        self.beta.shape = (x.shape[1],)
+
+
+class InstanceNorm(_ChannelNorm):
+    """Each sample's channel normalized over its spatial axes; the
+    channel axis is 1 whatever ``axis`` says, as in the JAX layer."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, **kwargs)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._eps)
+
+
+class GroupNorm(_ChannelNorm):
+    """Each sample normalized over ``num_groups`` groups of its channels
+    (NCHW)."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, **kwargs)
+        self._ngroups = num_groups
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.GroupNorm(x, gamma, beta, num_groups=self._ngroups,
+                           eps=self._eps)
+
+
+def _op_function(name):
+    """The op-table function named ``name`` (an ``mx.nd`` op name)."""
+    return ops.table.lookup(name).fn
+
+
+class Lambda(Block):
+    """Wrap ``function``, a callable or the name of an ``mx.nd``
+    function, as a block: ``forward(*args)`` is ``function(*args)``."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        self._func = _op_function(function) if isinstance(function, str) \
+            else function
+
+    def forward(self, *args):
+        return self._func(*args)
+
+
+class HybridLambda(HybridBlock):
+    """Wrap ``function``, a callable ``function(F, *args)`` or the name
+    of an ``mx.nd`` function, as a hybrid block."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            fn = _op_function(function)
+            self._func = lambda F, *a: fn(*a)
+        else:
+            self._func = function
+
+    def hybrid_forward(self, F, *args):
+        return self._func(F, *args)

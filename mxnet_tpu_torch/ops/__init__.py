@@ -16,37 +16,76 @@ of this namespace is that same wrapped function."""
 import functools
 
 from .. import amp as _amp
-from . import random_ops, table, tensor  # noqa: F401 -- fill the table
-from .nn import (Activation, BatchNorm, Convolution, Dropout, Embedding,
-                 Flatten, FullyConnected, LayerNorm, Pooling,
-                 fused_batch_norm_relu, log_softmax, pick, slice_axis,
-                 softmax, softmax_cross_entropy)
+from ..base import MXNetError
+from . import contrib_ops, random_ops, table, tensor  # noqa: F401
+from .contrib_ops import CTCLoss, col2im, im2col
+from .nn import (Activation, BatchNorm, BilinearResize2D, Convolution,
+                 Deconvolution, Dropout, Embedding, Flatten, FullyConnected,
+                 GroupNorm, InstanceNorm, LayerNorm, LeakyReLU,
+                 LinearRegressionOutput, LogisticRegressionOutput,
+                 MAERegressionOutput, MakeLoss, Pooling, SoftmaxOutput,
+                 UpSampling, fused_batch_norm_relu, log_softmax, moments,
+                 pick, prelu, slice_axis, smooth_l1, softmax,
+                 softmax_cross_entropy, softmin)
 from .optimizer_ops import (lamb_update_phase1, lamb_update_phase2,
                             lars_update, sgd_mom_update, sgd_update)
 from .transformer import (attention_reference, flash_attention,
                           flash_attention_masked)
 
-__all__ = ["Activation", "BatchNorm", "Convolution", "Dropout", "Embedding",
-           "Flatten", "FullyConnected", "LayerNorm", "Pooling",
-           "attention_reference", "flash_attention", "flash_attention_masked",
-           "fused_batch_norm_relu", "lamb_update_phase1",
-           "lamb_update_phase2", "lars_update", "log_softmax", "pick",
-           "sgd_mom_update", "sgd_update", "slice_axis", "softmax",
-           "softmax_cross_entropy", "table"]
+__all__ = ["Activation", "BatchNorm", "BilinearResize2D", "CTCLoss",
+           "Convolution", "Deconvolution", "Dropout", "Embedding", "Flatten",
+           "FullyConnected", "GroupNorm", "InstanceNorm", "LayerNorm",
+           "LeakyReLU", "LinearRegressionOutput", "LogisticRegressionOutput",
+           "MAERegressionOutput", "MakeLoss", "Pooling", "SoftmaxOutput",
+           "UpSampling", "attention_reference", "col2im", "flash_attention",
+           "flash_attention_masked", "fused_batch_norm_relu", "im2col",
+           "lamb_update_phase1", "lamb_update_phase2", "lars_update",
+           "log_softmax", "moments", "pick", "prelu", "sgd_mom_update",
+           "sgd_update", "slice_axis", "smooth_l1", "softmax",
+           "softmax_cross_entropy", "softmin", "table"]
 
+_BN_ARGS = ("data", "gamma", "beta", "moving_mean", "moving_var")
 # the layer ops of mx.nd, under the JAX package's names and arguments
-for _name, _args, _aliases in (
-        ("Activation", ("data",), ()),
-        ("Convolution", ("data", "weight", "bias"), ()),
-        ("Dropout", ("data",), ()),
-        ("Embedding", ("data", "weight"), ()),
-        ("FullyConnected", ("data", "weight", "bias"), ()),
-        ("LayerNorm", ("data", "gamma", "beta"), ()),
-        ("Pooling", ("data",), ()),
-        ("log_softmax", ("data",), ()),
-        ("softmax", ("data",), ("SoftmaxActivation",)),
-        ("softmax_cross_entropy", ("data", "label"), ())):
-    table.register(_name, args=_args, aliases=_aliases)(globals()[_name])
+for _name, _fn, _args, _aliases, _variadic in (
+        ("Activation", Activation, ("data",), (), False),
+        ("BatchNorm", BatchNorm, _BN_ARGS, (), False),
+        ("BilinearResize2D", BilinearResize2D, ("data",), (), False),
+        ("Convolution", Convolution, ("data", "weight", "bias"), (), False),
+        ("Deconvolution", Deconvolution, ("data", "weight", "bias"), (),
+         False),
+        ("Dropout", Dropout, ("data",), (), False),
+        ("Embedding", Embedding, ("data", "weight"), (), False),
+        ("FullyConnected", FullyConnected, ("data", "weight", "bias"), (),
+         False),
+        ("GroupNorm", GroupNorm, ("data", "gamma", "beta"), (), False),
+        ("InstanceNorm", InstanceNorm, ("data", "gamma", "beta"), (), False),
+        ("LayerNorm", LayerNorm, ("data", "gamma", "beta"), (), False),
+        ("LeakyReLU", LeakyReLU, ("data", "gamma"), (), False),
+        ("LinearRegressionOutput", LinearRegressionOutput,
+         ("data", "label"), (), False),
+        ("LogisticRegressionOutput", LogisticRegressionOutput,
+         ("data", "label"), (), False),
+        ("MAERegressionOutput", MAERegressionOutput, ("data", "label"), (),
+         False),
+        ("MakeLoss", MakeLoss, ("data",), ("make_loss",), False),
+        ("Pooling", Pooling, ("data",), (), False),
+        ("SoftmaxOutput", SoftmaxOutput, ("data", "label"), (), False),
+        ("UpSampling", UpSampling, ("data",), (), True),
+        ("_prelu", prelu, ("data", "gamma"), (), False),
+        ("flash_attention", flash_attention, ("q", "k", "v"), (), False),
+        ("flash_attention_masked", flash_attention_masked,
+         ("q", "k", "v", "mask"), (), False),
+        ("fused_batch_norm_relu", fused_batch_norm_relu, _BN_ARGS, (),
+         False),
+        ("log_softmax", log_softmax, ("data",), (), False),
+        ("moments", moments, ("data",), (), False),
+        ("smooth_l1", smooth_l1, ("data",), (), False),
+        ("softmax", softmax, ("data",), ("SoftmaxActivation",), False),
+        ("softmax_cross_entropy", softmax_cross_entropy, ("data", "label"),
+         (), False),
+        ("softmin", softmin, ("data",), (), False)):
+    table.register(_name, args=_args, aliases=_aliases,
+                   variadic=_variadic)(_fn)
 
 
 def _with_amp_casts(name, fn):
@@ -68,3 +107,14 @@ for _spec in table.TABLE.values():
         _spec.fn = _with_amp_casts(_spec.name, _spec.fn)
         if _spec.name in __all__:
             globals()[_spec.name] = _spec.fn
+
+
+def __getattr__(name):
+    """Every other op of the table under its ``mx.nd`` name or alias,
+    as the ``F`` of a ``hybrid_forward`` (``F.Concat``, ``F.clip``,
+    ``F.sigmoid``): the table's function on tensors."""
+    try:
+        return table.lookup(name).fn
+    except MXNetError:
+        raise AttributeError("module %r has no attribute %r"
+                             % (__name__, name)) from None

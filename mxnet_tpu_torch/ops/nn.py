@@ -1,5 +1,5 @@
-"""Neural-network operators of the training slices (counterpart of the
-subset of ``mxnet_tpu/ops/nn.py`` that ResNet and BERT reach).
+"""Neural-network operators (counterpart of ``mxnet_tpu/ops/nn.py`` and
+of ``moments`` in ``mxnet_tpu/ops/linalg.py``).
 
 Plain functions on tensors, layout-aware like the JAX ops: ``layout``
 names the data layout (``NCHW`` or ``NHWC``) and the weight layout
@@ -9,6 +9,9 @@ them to XLA outside any Pallas kernel.  ``BatchNorm`` keeps MXNet's
 statistics (biased variance, ``new = momentum * old + (1 - momentum) *
 batch``), which are not ``torch.nn.functional.batch_norm``'s.
 ``LayerNorm`` over the last axis runs the ``layernorm_fwd`` kernel.
+``SoftmaxOutput``, the three regression outputs and ``MakeLoss`` write
+their own gradient and ignore the head gradient, as the JAX package's
+custom VJPs do.
 """
 from __future__ import annotations
 
@@ -21,10 +24,14 @@ from .. import random as _random
 from ..base import MXNetError
 from ..kernels.registry import dispatch
 
-__all__ = ["Activation", "BatchNorm", "Convolution", "Dropout", "Embedding",
-           "Flatten", "FullyConnected", "LayerNorm", "Pooling",
-           "fused_batch_norm_relu", "log_softmax", "pick", "slice_axis",
-           "softmax", "softmax_cross_entropy"]
+__all__ = ["Activation", "BatchNorm", "BilinearResize2D", "Convolution",
+           "Deconvolution", "Dropout", "Embedding", "Flatten",
+           "FullyConnected", "GroupNorm", "InstanceNorm", "LayerNorm",
+           "LeakyReLU", "LinearRegressionOutput", "LogisticRegressionOutput",
+           "MAERegressionOutput", "MakeLoss", "Pooling", "SoftmaxOutput",
+           "UpSampling", "fused_batch_norm_relu", "log_softmax", "moments",
+           "pick", "prelu", "slice_axis", "smooth_l1", "softmax",
+           "softmax_cross_entropy", "softmin"]
 
 _DEFAULT_LAYOUTS = {3: "NCW", 4: "NCHW", 5: "NCDHW"}
 
@@ -142,7 +149,7 @@ _POOL = {1: (F.max_pool1d, F.avg_pool1d), 2: (F.max_pool2d, F.avg_pool2d),
 
 def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
               momentum=0.9, fix_gamma=True, use_global_stats=False, axis=1,
-              training=False):
+              output_mean_var=False, training=False):
     """Batch normalization with MXNet's statistics; returns ``(out,
     new_moving_mean, new_moving_var)``.  Statistics accumulate in fp32
     whatever the activation dtype.  In training the gradient flows
@@ -181,11 +188,18 @@ def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
 
 def fused_batch_norm_relu(data, gamma, beta, moving_mean, moving_var,
                           eps=1e-5, momentum=0.9, fix_gamma=True,
-                          use_global_stats=False, axis=-1, training=False):
-    """Fused BatchNorm+ReLU through the kernel tier
-    (:func:`mxnet_tpu_torch.kernels.fused_bn_relu.fused_bn_relu`):
-    ``(out, new_moving_mean, new_moving_var)``.  Channels-last only; it
-    raises on any other ``axis``."""
+                          use_global_stats=False, axis=1, training=False):
+    """Fused BatchNorm+ReLU: ``(out, new_moving_mean, new_moving_var)``.
+    Over the last axis it runs the kernel tier
+    (:func:`mxnet_tpu_torch.kernels.fused_bn_relu.fused_bn_relu`); over
+    another axis it is ``relu(BatchNorm(...))`` and launches no kernel,
+    as the JAX op falls back to its reference there."""
+    if axis % data.dim() != data.dim() - 1:
+        out, new_mean, new_var = BatchNorm(
+            data, gamma, beta, moving_mean, moving_var, eps=eps,
+            momentum=momentum, fix_gamma=fix_gamma,
+            use_global_stats=use_global_stats, axis=axis, training=training)
+        return torch.relu(out), new_mean, new_var
     from ..kernels.fused_bn_relu import fused_bn_relu
     return fused_bn_relu(data, gamma, beta, moving_mean, moving_var,
                          eps=eps, momentum=momentum, fix_gamma=fix_gamma,
@@ -316,3 +330,294 @@ def slice_axis(data, axis=0, begin=0, end=None):
     idx = [slice(None)] * data.dim()
     idx[axis] = slice(begin, end)
     return data[tuple(idx)]
+
+
+# ----------------------------------------------------------------------
+# The layer ops of the everyday Gluon layers and losses
+# ----------------------------------------------------------------------
+
+def _channel_shape(data):
+    """Broadcast shape of a per-channel ``(C,)`` vector over axis 1 (axis
+    0 of a 1-d input)."""
+    shape = [1] * data.dim()
+    shape[1 if data.dim() > 1 else 0] = -1
+    return shape
+
+
+def prelu(data, gamma):
+    """``x`` where positive, ``gamma * x`` elsewhere, ``gamma`` per
+    channel (the JAX package's ``_prelu``)."""
+    return torch.where(data > 0, data, gamma.reshape(_channel_shape(data))
+                       * data)
+
+
+def LeakyReLU(data, gamma=None, act_type="leaky", slope=0.25,
+              lower_bound=0.125, upper_bound=0.334, training=False,
+              generator=None):
+    """MXNet's ``LeakyReLU`` family: ``leaky`` (``slope * x`` below 0),
+    ``elu`` (``slope * expm1(x)``), ``selu``, ``gelu`` (exact, erf),
+    ``prelu`` (``gamma`` per channel) and ``rrelu`` (in training a slope
+    drawn per element from U(lower_bound, upper_bound) by ``generator``,
+    by default the port's generator of ``data``'s device; their mean
+    otherwise).  The JAX op takes the first four; ``prelu`` and ``rrelu``
+    follow the reference MXNet operator."""
+    if act_type == "leaky":
+        return torch.where(data > 0, data, slope * data)
+    if act_type == "elu":
+        return torch.where(data > 0, data, slope * torch.expm1(data))
+    if act_type == "selu":
+        return F.selu(data)
+    if act_type == "gelu":
+        return F.gelu(data)
+    if act_type == "prelu":
+        if gamma is None:
+            raise MXNetError("LeakyReLU(act_type='prelu') needs gamma")
+        return prelu(data, gamma)
+    if act_type == "rrelu":
+        if training:
+            gen = generator if generator is not None \
+                else _random.generator(data.device)
+            u = torch.rand(data.shape, generator=gen, device=data.device)
+            s = (lower_bound + (upper_bound - lower_bound) * u) \
+                .to(data.dtype)
+        else:
+            s = (lower_bound + upper_bound) / 2.0
+        return torch.where(data > 0, data, s * data)
+    raise MXNetError("LeakyReLU: bad act_type %r" % act_type)
+
+
+def softmin(data, axis=-1):
+    return torch.softmax(-data, dim=axis)
+
+
+def InstanceNorm(data, gamma, beta, eps=1e-3):
+    """Normalize each sample's channel over its spatial axes (biased
+    variance, the input's dtype), then scale and shift per channel."""
+    dims = tuple(range(2, data.dim()))
+    mean = data.mean(dim=dims, keepdim=True)
+    var = data.var(dim=dims, keepdim=True, unbiased=False)
+    out = (data - mean) * torch.rsqrt(var + eps)
+    bshape = _channel_shape(data)
+    return out * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+def GroupNorm(data, gamma, beta, num_groups=1, eps=1e-5):
+    """Normalize each sample over ``num_groups`` groups of its channels
+    and their spatial axes (NCHW), then scale and shift per channel."""
+    n, c = data.shape[:2]
+    x = data.reshape((n, num_groups, c // num_groups) + data.shape[2:])
+    dims = tuple(range(2, x.dim()))
+    mean = x.mean(dim=dims, keepdim=True)
+    var = x.var(dim=dims, keepdim=True, unbiased=False)
+    x = ((x - mean) * torch.rsqrt(var + eps)).reshape(data.shape)
+    bshape = _channel_shape(data)
+    return x * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def Deconvolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                  pad=(), adj=(), num_filter=0, num_group=1, no_bias=True,
+                  layout="NCHW"):
+    """Transposed convolution, the gradient of ``Convolution``: weight
+    ``(in_c, out_c / num_group, *k)`` (``(in_c, *k, out_c / num_group)``
+    channels-last).  Output extent ``(in - 1) * stride - 2 * pad +
+    dilate * (k - 1) + 1 + adj``: the full transposed product cropped by
+    ``pad`` on each side and extended by ``adj`` zeros-or-products on
+    the right, so ``adj`` may reach past ``stride`` as in the JAX op
+    (which, like this one, takes no ``target_shape``)."""
+    nsp = data.dim() - 2
+    if layout and len(layout) == data.dim() and _channels_last(layout):
+        w = weight.permute(0, weight.dim() - 1, *range(1, weight.dim() - 1))
+        out = Deconvolution(_to_channels_first(data), w, bias, kernel,
+                            stride, dilate, pad, adj, num_filter, num_group,
+                            no_bias, layout=None)
+        return _to_channels_last(out)
+    stride = _tuple(stride, nsp) if stride else (1,) * nsp
+    dilate = _tuple(dilate, nsp) if dilate else (1,) * nsp
+    pad = _tuple(pad, nsp) if pad else (0,) * nsp
+    adj = _tuple(adj, nsp) if adj else (0,) * nsp
+    full = _CONV_T[nsp](data, weight, None, stride, 0, 0, num_group, dilate)
+    idx = [slice(None), slice(None)]
+    widths = []
+    for j in range(nsp):
+        size = full.shape[2 + j] - 2 * pad[j] + adj[j]
+        idx.append(slice(pad[j], pad[j] + size))
+        widths = [0, max(0, adj[j] - pad[j])] + widths
+    out = F.pad(full, widths)[tuple(idx)] if any(widths) \
+        else full[tuple(idx)]
+    if not no_bias and bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * nsp)
+    return out
+
+
+def UpSampling(*data, scale=1, sample_type="nearest", num_args=1):
+    """Nearest: each pixel of the first input repeated ``scale`` times
+    along H and W.  Bilinear: a resize to ``scale`` times H and W with
+    half-pixel centers (the JAX op's ``jax.image.resize``)."""
+    x = data[0]
+    if sample_type == "nearest":
+        return x.repeat_interleave(scale, dim=2).repeat_interleave(scale,
+                                                                   dim=3)
+    return _resize_bilinear(x, x.shape[2] * scale, x.shape[3] * scale)
+
+
+def _resize_bilinear(x, h, w):
+    """``jax.image.resize(x, (N, C, h, w), "bilinear")``: half-pixel
+    centers, and a triangle kernel widened by the scale when shrinking
+    (antialiased), edges renormalized."""
+    out = x.float()
+    for axis, size in ((2, h), (3, w)):
+        out = _resize_axis(out, axis, int(size))
+    return out.to(x.dtype)
+
+
+def _resize_axis(x, axis, size):
+    n_in = x.shape[axis]
+    if n_in == size:
+        return x
+    scale = size / n_in
+    kscale = min(scale, 1.0)        # widen the kernel when shrinking
+    centers = (torch.arange(size, dtype=torch.float64) + 0.5) / scale - 0.5
+    src = torch.arange(n_in, dtype=torch.float64)
+    wts = torch.clamp_min(
+        1.0 - (centers[:, None] - src[None, :]).abs() * kscale, 0.0)
+    wts = wts / wts.sum(dim=1, keepdim=True).clamp_min(1e-12)
+    moved = x.movedim(axis, -1)
+    out = torch.matmul(moved, wts.to(x.dtype).t().to(x.device))
+    return out.movedim(-1, axis)
+
+
+def BilinearResize2D(data, height=0, width=0, scale_height=None,
+                     scale_width=None):
+    """Bilinear resize of an NCHW input to ``(height, width)`` or by
+    ``scale_height``/``scale_width``, with the JAX op's convention
+    (``jax.image.resize``: half-pixel centers, antialiased when
+    shrinking)."""
+    h = int(data.shape[2] * scale_height) if scale_height else height
+    w = int(data.shape[3] * scale_width) if scale_width else width
+    return _resize_bilinear(data, h, w)
+
+
+def smooth_l1(data, scalar=1.0):
+    s2 = scalar * scalar
+    return torch.where(data.abs() < 1.0 / s2, 0.5 * s2 * data * data,
+                       data.abs() - 0.5 / s2)
+
+
+def moments(data, axes=None, keepdims=False):
+    """Mean and (biased) variance over ``axes`` (every axis by
+    default)."""
+    dims = tuple(range(data.dim())) if axes is None \
+        else tuple(int(a) for a in axes)
+    return (data.mean(dim=dims, keepdim=keepdims),
+            data.var(dim=dims, keepdim=keepdims, unbiased=False))
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """Forward ``softmax``; backward ``(p - one_hot(label)) *
+    grad_scale``, masked and normalized, whatever the head gradient."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, ignore_label, use_ignore,
+                multi_output, normalization):
+        axis = 1 if multi_output else -1
+        prob = torch.softmax(data, dim=axis)
+        ctx.save_for_backward(prob, label)
+        ctx.args = (grad_scale, ignore_label, use_ignore, multi_output,
+                    normalization)
+        return prob
+
+    @staticmethod
+    def backward(ctx, _head):
+        prob, label = ctx.saved_tensors
+        grad_scale, ignore_label, use_ignore, multi_output, norm = ctx.args
+        axis = 1 if multi_output else -1
+        lab = label.long()
+        onehot = F.one_hot(lab.clamp_min(0), prob.shape[axis]) \
+            .to(prob.dtype) * (lab >= 0).unsqueeze(-1).to(prob.dtype)
+        if multi_output:
+            onehot = onehot.movedim(-1, 1)
+        grad = prob - onehot
+        keep = label != ignore_label
+        if use_ignore:
+            grad = grad * keep.to(prob.dtype).unsqueeze(axis)
+        if norm == "batch":
+            grad = grad / prob.shape[0]
+        elif norm == "valid":
+            valid = keep.sum().clamp_min(1) if use_ignore else label.numel()
+            grad = grad / valid
+        return (grad * grad_scale, None, None, None, None, None, None)
+
+
+def SoftmaxOutput(data, label, grad_scale=1.0, ignore_label=-1.0,
+                  use_ignore=False, multi_output=False,
+                  normalization="null"):
+    """Softmax whose backward writes the cross-entropy gradient
+    ``(p - one_hot(label)) * grad_scale`` and ignores the head gradient;
+    ``normalization`` ``null``, ``batch`` or ``valid``."""
+    if normalization not in ("null", "batch", "valid"):
+        raise MXNetError("SoftmaxOutput: bad normalization %r"
+                         % (normalization,))
+    return _SoftmaxOutput.apply(data, label.detach(), float(grad_scale),
+                                float(ignore_label), bool(use_ignore),
+                                bool(multi_output), normalization)
+
+
+class _RegressionOutput(torch.autograd.Function):
+    """Forward ``data`` (``sigmoid(data)`` for the logistic kind);
+    backward ``(out - label)`` (its sign for MAE) times ``grad_scale``
+    over the entries of one sample, whatever the head gradient."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, kind):
+        out = torch.sigmoid(data) if kind == "logistic" else data.clone()
+        ctx.save_for_backward(out, label)
+        ctx.grad_scale, ctx.kind = grad_scale, kind
+        return out
+
+    @staticmethod
+    def backward(ctx, _head):
+        out, label = ctx.saved_tensors
+        diff = out - label.reshape(out.shape).to(out.dtype)
+        grad = torch.sign(diff) if ctx.kind == "mae" else diff
+        n = out.shape[0] if out.dim() else 1
+        grad = grad * ctx.grad_scale / (out.numel() // max(n, 1))
+        return grad, None, None, None
+
+
+def LinearRegressionOutput(data, label, grad_scale=1.0):
+    return _RegressionOutput.apply(data, label.detach(), float(grad_scale),
+                                   "linear")
+
+
+def MAERegressionOutput(data, label, grad_scale=1.0):
+    return _RegressionOutput.apply(data, label.detach(), float(grad_scale),
+                                   "mae")
+
+
+def LogisticRegressionOutput(data, label, grad_scale=1.0):
+    return _RegressionOutput.apply(data, label.detach(), float(grad_scale),
+                                   "logistic")
+
+
+class _MakeLoss(torch.autograd.Function):
+    """Identity forward; backward ``grad_scale`` everywhere, whatever
+    the head gradient."""
+
+    @staticmethod
+    def forward(ctx, data, grad_scale):
+        ctx.grad_scale = grad_scale
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, head):
+        return torch.full_like(head, ctx.grad_scale), None
+
+
+def MakeLoss(data, grad_scale=1.0, normalization="null"):
+    """Mark ``data`` as a loss: its gradient is ``grad_scale`` (the JAX
+    op ignores ``normalization``)."""
+    return _MakeLoss.apply(data, float(grad_scale))

@@ -58,17 +58,21 @@ def _scale(q, scale):
     return float(scale)
 
 
-def flash_attention(q, k, v, causal=False, scale=-1.0):
+def flash_attention(q, k, v, causal=False, scale=-1.0, use_pallas=None,
+                    block_q=256, block_k=256):
     """Fused scaled-dot-product attention; ``scale < 0`` means
-    ``1 / sqrt(head_dim)``."""
+    ``1 / sqrt(head_dim)``.  ``use_pallas``, ``block_q`` and ``block_k``
+    are the JAX op's and unused: the port has no switch, and the kernel
+    picks its own tiles."""
     return FlashAttention.apply(q, k, v, None, bool(causal), _scale(q, scale),
                                 1)
 
 
-def flash_attention_masked(q, k, v, mask, scale=-1.0, heads=1):
+def flash_attention_masked(q, k, v, mask, scale=-1.0, use_pallas=None,
+                           heads=1, block_q=256, block_k=256):
     """Masked flash attention: ``mask`` ``(batch, seq_q, seq_k)``,
     nonzero = attend, shared across the ``heads`` heads folded into
-    q/k/v's leading dim."""
+    q/k/v's leading dim (the JAX op's arguments, in its order)."""
     maskf = mask.detach().to(device=q.device, dtype=torch.float32) \
         .contiguous()
     return FlashAttention.apply(q, k, v, maskf, False, _scale(q, scale),

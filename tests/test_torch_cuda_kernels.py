@@ -1112,3 +1112,114 @@ def test_ndarray_training_step_on_the_card(cuda):
     gluon.Trainer(net.collect_params(), "sgd",
                   {"learning_rate": 0.1}).step(2)
     torch.testing.assert_close(net[2].weight.data()._data, w - 0.1 * g / 2)
+
+
+# DenseNet-121's smallest and largest fused-site shapes at batch 64:
+# (rows, C) of the head (3136, 1024), of the smallest rows with the
+# fewest channels (3136, 128) and of the stem (802816, 64)
+@pytest.mark.parametrize("rows,c", [(3136, 1024), (3136, 128),
+                                    (802816, 64)])
+def test_bn_relu_kernels_at_densenets_site_shapes(cuda, rows, c):
+    from mxnet_tpu_torch.kernels.registry import dispatch
+    from mxnet_tpu_torch.ops.fused_bn_relu import bn_relu_bwd_reference
+    x, scale, offset, y, dy, vecs = _bn_case(cuda, rows, c, torch.float32)
+    got = dispatch("bn_relu_apply", x, scale, offset)
+    dx = dispatch("bn_relu_bwd", x, dy, y, *vecs)
+    want_dx = bn_relu_bwd_reference(x, dy, y, *vecs)
+    torch.cuda.synchronize()
+    ok, err = _close(got, y, torch.float32)
+    assert ok, ("fwd", err)
+    ok, err = _close(dx, want_dx, torch.float32)
+    assert ok, ("bwd", err)
+
+
+def _nd_route(fn, ins, head):
+    """``fn(*ins)`` on NDArrays under ``record``, backward under
+    ``head``: the output, the inputs' gradients and the launches of the
+    fused and flash kernels it made."""
+    from mxnet_tpu_torch import autograd
+    names = ("flash_attention_fwd", "flash_attention_bwd", "bn_relu_apply",
+             "bn_relu_bwd")
+    before = {n: registry.launches(n) for n in names}
+    for a in ins:
+        a.attach_grad()
+    with autograd.record():
+        out = fn(*ins)
+    out = out[0] if isinstance(out, (list, tuple)) else out
+    out.backward(head)
+    torch.cuda.synchronize()
+    launched = {n: registry.launches(n) - before[n] for n in names
+                if registry.launches(n) != before[n]}
+    return out.asnumpy(), [a.grad.asnumpy() for a in ins], launched
+
+
+def _nd(cuda, rng, *shape):
+    import mxnet_tpu_torch as mx
+    return mx.nd.array(rng.standard_normal(shape).astype(np.float32),
+                       ctx=mx.gpu())
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["causal", "masked"])
+def test_nd_flash_attention_routes_launch_the_kernels(cuda, masked):
+    """``mx.nd.flash_attention`` / ``flash_attention_masked`` on CUDA
+    NDArrays launch the forward and backward kernels once each and match
+    the same ops on the CPU (their plain versions)."""
+    import mxnet_tpu_torch as mx
+    rng = np.random.default_rng(4)
+    q, k, v, head = (_nd(cuda, rng, 8, 64, 32) for _ in range(4))
+    mask = (rng.random((2, 64, 64)) > 0.3).astype(np.float32)
+    mask[:, :, 0] = 1.0
+
+    def fn(nd, mask_):
+        if masked:
+            return lambda a, b, c: nd.flash_attention_masked(
+                a, b, c, mask_, heads=4)
+        return lambda a, b, c: nd.flash_attention(a, b, c, causal=True)
+    out, grads, launched = _nd_route(
+        fn(mx.nd, mx.nd.array(mask, ctx=mx.gpu())), [q, k, v], head)
+    assert launched == {"flash_attention_fwd": 1, "flash_attention_bwd": 1}
+    with mx.cpu():
+        cpu = [mx.nd.array(a.asnumpy(), ctx=mx.cpu())
+               for a in (q, k, v, head)]
+        want, wgrads, none = _nd_route(
+            fn(mx.nd, mx.nd.array(mask, ctx=mx.cpu())), cpu[:3], cpu[3])
+    assert none == {}
+    scale = max(1.0, np.abs(want).max())
+    assert np.abs(out - want).max() <= FLASH_TOL[torch.float32][0] * scale
+    for g, w in zip(grads, wgrads):
+        assert np.abs(g - w).max() <= FLASH_TOL[torch.float32][1] * max(
+            1.0, np.abs(w).max())
+
+
+@pytest.mark.parametrize("layout", ["NHWC", "NCHW"])
+def test_nd_fused_batch_norm_relu_route(cuda, layout):
+    """``mx.nd.fused_batch_norm_relu`` on a CUDA NDArray: on the last
+    axis it launches ``bn_relu_apply`` and ``bn_relu_bwd`` once each, on
+    NCHW none (it is ``relu(BatchNorm)`` there, as the JAX op); both
+    match the op on the CPU."""
+    import mxnet_tpu_torch as mx
+    rng = np.random.default_rng(5)
+    shape = (4, 6, 6, 32) if layout == "NHWC" else (4, 32, 6, 6)
+    axis = 3 if layout == "NHWC" else 1
+    x, head = _nd(cuda, rng, *shape), _nd(cuda, rng, *shape)
+    g = mx.nd.array(rng.random(32).astype(np.float32) + 0.5, ctx=mx.gpu())
+    b, mm = _nd(cuda, rng, 32), _nd(cuda, rng, 32)
+    mv = mx.nd.array(rng.random(32).astype(np.float32) + 0.5, ctx=mx.gpu())
+
+    def fn(a, ga, be, mm_, mv_):
+        return mx.nd.fused_batch_norm_relu(a, ga, be, mm_, mv_, axis=axis,
+                                           fix_gamma=False)
+    out, grads, launched = _nd_route(lambda a, ga, be: fn(a, ga, be, mm, mv),
+                                     [x, g, b], head)
+    want_launches = {"bn_relu_apply": 1, "bn_relu_bwd": 1} \
+        if layout == "NHWC" else {}
+    assert launched == want_launches
+    with mx.cpu():
+        cpu = [mx.nd.array(a.asnumpy(), ctx=mx.cpu())
+               for a in (x, g, b, mm, mv, head)]
+        want, wgrads, _ = _nd_route(
+            lambda a, ga, be: fn(a, ga, be, cpu[3], cpu[4]), cpu[:3],
+            cpu[5])
+    np.testing.assert_allclose(out, want, rtol=1e-5, atol=1e-5)
+    for gg, w in zip(grads, wgrads):
+        np.testing.assert_allclose(gg, w, rtol=1e-4, atol=1e-4)

@@ -428,6 +428,39 @@ SPECS = {
     "softmax": ([_u(3, 4)], {"axis": 0}),
     "softmax_cross_entropy": ([_u(3, 4), np.array([0, 3, 1], np.float32)],
                               {}),
+    # the layer ops of the layer slice (forward here; gradients, every
+    # option and the regression outputs in tests/test_torch_nd_layer_ops.py)
+    "BatchNorm": ([_u(2, 3, 4, 4), _u(3, **POS), _u(3), _u(3),
+                   _u(3, **POS)], {"fix_gamma": False}),
+    "fused_batch_norm_relu": ([_u(2, 4, 4, 3), _u(3, **POS), _u(3), _u(3),
+                               _u(3, **POS)], {"axis": 3,
+                                               "fix_gamma": False}),
+    "BilinearResize2D": ([_u(2, 3, 4, 5)], {"height": 7, "width": 3}),
+    "UpSampling": ([_u(2, 3, 4, 5)], {"scale": 2}),
+    "Deconvolution": ([_u(2, 3, 4, 4), _u(3, 2, 3, 3), _u(2)],
+                      {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1),
+                       "adj": (1, 1), "num_filter": 2, "no_bias": False}),
+    "InstanceNorm": ([_u(2, 3, 4, 4), _u(3, **POS), _u(3)], {}),
+    "GroupNorm": ([_u(2, 4, 3, 3), _u(4, **POS), _u(4)],
+                  {"num_groups": 2}),
+    "LeakyReLU": ([_u(3, 4)], {"act_type": "elu", "slope": 0.3}),
+    "_prelu": ([_u(3, 4), _u(4)], {}),
+    "softmin": ([_u(3, 4)], {"axis": 0}),
+    "smooth_l1": ([_u(3, 4)], {"scalar": 1.5}),
+    "moments": ([_u(2, 3, 4)], {"axes": (0, 2)}),
+    "MakeLoss": ([_u(3, 4)], {"grad_scale": 2.0}),
+    "SoftmaxOutput": ([_u(3, 4), np.array([0, 3, 1], np.float32)], {}),
+    "im2col": ([_u(2, 3, 5, 5)], {"kernel": (2, 2), "stride": (1, 2)}),
+    "col2im": ([_u(2, 12, 8)], {"output_size": (5, 5), "kernel": (2, 2),
+                                "stride": (1, 2)}),
+    "CTCLoss": ([_u(6, 2, 4), np.array([[1, 2], [3, -1]], np.float32)],
+                {}),
+    "flash_attention": ([_u(2, 5, 4), _u(2, 5, 4, seed=1),
+                         _u(2, 5, 4, seed=2)], {"causal": True}),
+    "flash_attention_masked": ([_u(2, 5, 4), _u(2, 5, 4, seed=1),
+                                _u(2, 5, 4, seed=2),
+                                np.tril(np.ones((1, 5, 5), np.float32))],
+                               {"heads": 2}),
 }
 RANDOM = {
     "_random_uniform": ([], {"low": -1.0, "high": 3.0, "shape": (20000,)}),
@@ -495,9 +528,13 @@ def _outputs(res):
 
 
 # the optimizer update ops have their own cases:
-# tests/test_torch_optimizer_ops.py
+# tests/test_torch_optimizer_ops.py; so do the regression outputs, whose
+# JAX ops fail in their own forward (tests/test_torch_nd_layer_ops.py)
+REGRESSION_OUTPUTS = ("LinearRegressionOutput", "LogisticRegressionOutput",
+                      "MAERegressionOutput")
 TENSOR_OPS = [n for n in table.names()
-              if not table.lookup(n).fn.__module__.endswith(".optimizer_ops")]
+              if not table.lookup(n).fn.__module__.endswith(".optimizer_ops")
+              and n not in REGRESSION_OUTPUTS]
 
 
 @pytest.mark.parametrize("name", TENSOR_OPS)
