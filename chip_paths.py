@@ -5,15 +5,19 @@ without the whole smoke run.
     cd <checkout> && python3 <repo>/chip_paths.py decode mnist
     cd <checkout> && python3 <repo>/chip_paths.py pretrain
     cd <checkout> && python3 <repo>/chip_paths.py densenet
+    cd <checkout> && python3 <repo>/chip_paths.py input mnistfeed
 
 ``decode`` is ``chip_smoke.main_path`` (GPT-2 small decode serving),
 ``mnist`` is ``mnist_main_path`` (the imperative LeNet loop, then 100
 hybridized batches), ``pretrain`` is ``bert_pretrain_phase`` (BERT
-pretraining as users run it, with its oracle) and ``densenet`` is
+pretraining as users run it, with its oracle), ``densenet`` is
 ``densenet_phase`` (DenseNet-121 NHWC trained by a captured
 ``TrainStep`` and by the imperative loop, its oracle, the fused kernels
 at its site shapes, the model-zoo sweep and the ``mx.nd`` kernel
-routes).  The checkout's own
+routes), ``input`` is ``imagenet_input_phase`` (ResNet-50 bf16 LARS
+trained from a ``.rec`` through ``ImageRecordIter(ctx=)`` and the device
+feed, with the loader's parts) and ``mnistfeed`` is ``mnist_feed_path``
+(the MNIST loop through ``DataLoader(ctx=mx.gpu(0))``).  The checkout's own
 ``chip_smoke`` and package are imported, its kernels built, and each
 path prints its lines as in the smoke run, under the same host-read
 check of every capture.  Exits 1 when a path's check fails, 2 without a
@@ -26,7 +30,8 @@ import sys
 import time
 
 PATHS = {"decode": "main_path", "mnist": "mnist_main_path",
-         "pretrain": "bert_pretrain_phase", "densenet": "densenet_phase"}
+         "pretrain": "bert_pretrain_phase", "densenet": "densenet_phase",
+         "input": "imagenet_input_phase", "mnistfeed": "mnist_feed_path"}
 
 
 def main(argv):

@@ -110,7 +110,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    be finite and the accuracy in [0, 1]; a fresh net must cut the loss
    of one fixed batch 3x in 60 steps.  It prints samples/s, ms/step,
    the share of wall time waiting on the loader, the device's idle
-   share (``torch.profiler`` over 20 more batches) and peak memory;
+   share (``torch.profiler`` over 20 more batches) and peak memory.
+   Then the same loop through the DataLoader's device-feed route,
+   ``DataLoader(..., ctx=mx.gpu(0))``: one epoch of a fresh net, its
+   samples/s and the feed's overlap share beside the host route's;
 11. the MNIST oracle: one step of the trained weights at batch 8 with
    dropout off on the card and on the CPU; loss and every update must
    agree;
@@ -170,6 +173,34 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``fused_batch_norm_relu`` on CUDA NDArrays, forward and backward:
    each launches its kernels and matches its plain version, and the
    fused op on an NCHW input launches none.
+
+15. the ImageNet input path (ROADMAP item 6), after DenseNet: 8,192
+   raw 224x224x3 records (``bench.py :: _build_rec(fmt="raw")``'s
+   images from seed 0, labels ``i % 1000``, 1.23 GB) written by the
+   port's ``recordio`` into a temporary directory under ``build/`` and
+   removed at the end; ``mx.io.ImageRecordIter(ctx=mx.gpu(0),
+   dtype="bfloat16")`` (batch 512, shuffle, random mirror, ImageNet's
+   mean and std, 4 threads) -- a ``DeviceFeed`` over an ``ImageIter``
+   -- feeding ResNet-50 v1 NHWC under bf16 AMP with bucketed LARS
+   (``make_lars_step``) as ``step(batch)`` after an NHWC transpose on
+   the card, at most two steps ahead of it.  The step is warmed and
+   captured on a zero batch, timed on a synthetic device batch, then the
+   counters are zeroed and two streamed epochs (32 steps) timed from
+   the first record read to the last step's sync: img/s each epoch
+   beside the synthetic rate, the overlap share ``1 - consumer_wait /
+   producer_busy``, peak memory and reservation; every loss finite and
+   the last below the first; ``bn_relu_apply`` and ``bn_relu_bwd``
+   33 x 32 on bf16 rows and ``lars_flat`` 32 on fp32.  Then the card's
+   idle share over six profiled streamed steps, the loader's parts each
+   timed alone (``read_batch`` native and Python, ``next_np`` at
+   0/1/2/4/8 threads, the pinned copy of a 77 MB batch,
+   ``DeviceTransform`` and the transpose), a landed batch against ``DeviceTransform``'s plain
+   CPU result on its host batch (1 bf16 ulp), which recordio route
+   ran and which codecs import; with OpenCV or PIL, 2,048 JPEG records
+   at 256x256, quality 90, read with ``rand_crop`` at 1/2/4/8 threads
+   and streamed through four steps.  The records were just written; two
+   sequential passes over the file show whether the checkout's file
+   system serves them at the page cache's pace.
 
 Every path runs from captured CUDA graphs (``mxnet_tpu_torch._capture``),
 the port's counterpart of the JAX package's compiled programs: one
@@ -4882,6 +4913,584 @@ def densenet_phase():
             "routes": routes}
 
 
+# ---------------------------------------------------------------------
+# phase 15: the ImageNet input path
+# ---------------------------------------------------------------------
+
+# bench.py :: _build_rec's synthetic records: raw 224x224x3 crops of
+# 256x256 natural-like images (seed 0), label i % 1000
+INPUT_RECORDS = 8192
+INPUT_IMAGE = 224
+INPUT_SOURCE = 256
+INPUT_BATCH = 512                  # BASELINE config 5's batch
+INPUT_EPOCHS = 2
+INPUT_THREADS = 4
+INPUT_THREAD_SWEEP = (0, 1, 2, 4, 8)
+INPUT_SWEEP_BATCHES = 3
+INPUT_MEAN = (123.68, 116.779, 103.939)     # ImageNet's per-channel mean
+INPUT_STD = (58.393, 57.12, 57.375)         # and std, RGB
+# steps the loop lets run ahead of the card before it waits on the
+# oldest: the back-pressure the JAX TrainStep gets from donated buffers
+INPUT_IN_FLIGHT = 2
+INPUT_SYNTH_STEPS = 8
+INPUT_PROFILED_STEPS = 6
+JPEG_RECORDS = 2048
+JPEG_QUALITY = 90
+JPEG_THREAD_SWEEP = (1, 2, 4, 8)
+JPEG_STEPS = 4
+INPUT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build")
+
+
+def codec_versions():
+    """``{"cv2": version or None, "PIL": version or None}``."""
+    out = {}
+    for name in ("cv2", "PIL"):
+        try:
+            mod = __import__(name)
+            out[name] = getattr(mod, "__version__", "unknown")
+        except ImportError:
+            out[name] = None
+    return out
+
+
+def _upsample_linear(a, size):
+    """Bilinear upsampling of an HWC uint8 image to ``size`` squared with
+    half-pixel centres (OpenCV's INTER_LINEAR in float), for a host
+    with neither OpenCV nor PIL."""
+    def axis(n_in):
+        src = np.clip((np.arange(size) + 0.5) * n_in / size - 0.5, 0,
+                      n_in - 1)
+        lo = np.floor(src).astype(int)
+        hi = np.minimum(lo + 1, n_in - 1)
+        return lo, hi, (src - lo)[:, None]
+    lo, hi, f = axis(a.shape[0])
+    a = a.astype(np.float32)
+    rows = a[lo] * (1 - f[:, :, None]) + a[hi] * f[:, :, None]
+    lo, hi, f = axis(a.shape[1])
+    out = rows[:, lo] * (1 - f[None]) + rows[:, hi] * f[None]
+    return np.clip(np.round(out), 0, 255).astype(np.uint8)
+
+
+def make_records(prefix, n, fmt="raw", hw=INPUT_SOURCE, crop=INPUT_IMAGE,
+                 seed=0):
+    """``bench.py :: _build_rec`` on the port's ``recordio``: ``n``
+    natural-like ``hw``-square images from ``seed`` (a 16x16 random
+    image upsampled, plus noise in [-8, 8]), label ``i % 1000``; raw
+    records hold the top-left ``crop``-square HWC bytes, JPEG records
+    the whole image at quality 90 (PIL's encoder, as ``pack_img``; with
+    only OpenCV there, OpenCV's).  Returns the ``.rec`` path."""
+    from mxnet_tpu_torch import recordio
+    from mxnet_tpu_torch.image.image import _resize_np
+    codecs = codec_versions()
+    rng = np.random.RandomState(seed)
+    rec = recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    for i in range(n):
+        base = rng.randint(0, 255, (16, 16, 3), dtype=np.uint8)
+        img = (_resize_np(base, hw, hw) if codecs["cv2"] or codecs["PIL"]
+               else _upsample_linear(base, hw)).astype(np.int16)
+        img += rng.randint(-8, 9, img.shape, dtype=np.int16)
+        img = np.clip(img, 0, 255).astype(np.uint8)
+        header = recordio.IRHeader(0, float(i % 1000), i, 0)
+        if fmt == "raw":
+            rec.write_idx(i, recordio.pack(header,
+                                           img[:crop, :crop].tobytes()))
+        elif codecs["PIL"]:
+            rec.write_idx(i, recordio.pack_img(header, img,
+                                               quality=JPEG_QUALITY))
+        else:
+            import cv2
+            ok, buf = cv2.imencode(".jpg", img[:, :, ::-1],
+                                   [cv2.IMWRITE_JPEG_QUALITY, JPEG_QUALITY])
+            check(ok, "cv2.imencode failed")
+            rec.write_idx(i, recordio.pack(header, buf.tobytes()))
+    rec.close()
+    return prefix + ".rec"
+
+
+def input_iter_kw(batch, image, threads, **extra):
+    """``mx.io.ImageRecordIter``'s arguments on this path."""
+    kw = dict(data_shape=(3, image, image), batch_size=batch, shuffle=True,
+              rand_mirror=True, preprocess_threads=threads,
+              mean_r=INPUT_MEAN[0], mean_g=INPUT_MEAN[1],
+              mean_b=INPUT_MEAN[2], std_r=INPUT_STD[0], std_g=INPUT_STD[1],
+              std_b=INPUT_STD[2])
+    kw.update(extra)
+    return kw
+
+
+def host_image_iter(rec, batch, image, threads, rand_crop=False):
+    """The ``ImageIter`` that ``ImageRecordIter(ctx=...)`` wraps: uint8,
+    crop (centre or random) and mirror on the host."""
+    from mxnet_tpu_torch import image as mximage
+    aug = [a for a in mximage.CreateAugmenter((3, image, image),
+                                              rand_crop=rand_crop,
+                                              rand_mirror=True)
+           if not isinstance(a, mximage.CastAug)]
+    return mximage.ImageIter(batch, (3, image, image), path_imgrec=rec,
+                             aug_list=aug, shuffle=True,
+                             preprocess_threads=threads, dtype="uint8")
+
+
+def nhwc_batch(b):
+    """The landed CHW batch made NHWC on its device, with its label."""
+    from mxnet_tpu_torch.dataio import DeviceBatch
+    return DeviceBatch([b.data._data.permute(0, 2, 3, 1).contiguous(),
+                        b.label], pad=b.pad)
+
+
+def streamed_epochs(feed, step, epochs, in_flight, cuda, t0):
+    """Train ``step`` on ``epochs`` passes of ``feed`` under bf16 AMP,
+    at most ``in_flight`` steps ahead of the card; each epoch's seconds
+    run from its first read (``t0``, taken before the feed was made, or
+    ``reset``) to the sync after its last step.  Returns the losses (on
+    the device) and the epochs' seconds and steps."""
+    import torch
+    from mxnet_tpu_torch import amp
+    losses, epochs_s, steps = [], [], []
+    for epoch in range(epochs):
+        if epoch:
+            t0 = time.perf_counter()
+            feed.reset()
+        pending, n = [], 0
+        with amp.scope("bfloat16"):
+            for b in feed:
+                losses.append(step(nhwc_batch(b)))
+                n += 1
+                if cuda:
+                    ev = torch.cuda.Event()
+                    ev.record()
+                    pending.append(ev)
+                    if len(pending) > in_flight:
+                        pending.pop(0).synchronize()
+        if cuda:
+            torch.cuda.synchronize()
+        epochs_s.append(time.perf_counter() - t0)
+        steps.append(n)
+    return losses, epochs_s, steps
+
+
+def input_idle_share(feed, step, steps, skip=2):
+    """The card's idle share over ``steps`` streamed steps under
+    ``torch.profiler``, after ``skip`` unprofiled ones (the feed's fill):
+    device busy time over the stretch's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch import amp
+    feed.reset()
+    it = iter(feed)
+    with amp.scope("bfloat16"):
+        for _ in range(skip):
+            step(nhwc_batch(next(it)))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pending = []
+            for _ in range(steps):
+                step(nhwc_batch(next(it)))
+                ev = torch.cuda.Event()
+                ev.record()
+                pending.append(ev)
+                if len(pending) > INPUT_IN_FLIGHT:
+                    pending.pop(0).synchronize()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    feed.close()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    check(kernels, "the profiler saw no device time in the streamed steps")
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    copies = sum(e.self_device_time_total for e in kernels
+                 if "Memcpy" in e.key or "memcpy" in e.key) / 1e3
+    return {"steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1 - busy / wall_ms),
+            "memcpy_ms": copies}
+
+
+def input_parts(rec, batch, image, threads, sweep, sweep_batches, cuda):
+    """The loader's cost by part, each timed alone: the record read
+    (``read_batch``, native thread pool and Python), the host rate of
+    ``next_np`` at each thread count of ``sweep``, the pinned copy of a
+    batch to the card and ``DeviceTransform`` plus the NHWC transpose on
+    it (CUDA events)."""
+    import torch
+    from mxnet_tpu_torch import _native, recordio
+    from mxnet_tpu_torch.dataio import DeviceTransform
+    out = {}
+    # whether the file reads at the page cache's pace: two sequential
+    # passes over the whole .rec in 16 MiB chunks
+    passes = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        with open(rec, "rb", buffering=0) as f:
+            while f.read(16 << 20):
+                pass
+        passes.append(os.path.getsize(rec) / (time.perf_counter() - t0)
+                      / 1e6)
+    out["file_sequential_MB_per_s"] = passes
+    r = recordio.MXIndexedRecordIO(rec[:-4] + ".idx", rec, "r")
+    keys = list(np.random.RandomState(1).permutation(len(r.keys)))
+    routes = [("python", 1)]
+    if _native.load() is not None and (os.cpu_count() or 1) > 1:
+        routes.insert(0, ("native", threads))
+    reads = {}
+    for route, n in routes:
+        times = []
+        for k in range(sweep_batches):
+            chunk = [int(x) for x in keys[k * batch:(k + 1) * batch]]
+            t0 = time.perf_counter()
+            recs = r.read_batch(chunk, nthreads=n)
+            times.append(time.perf_counter() - t0)
+            check(len(recs) == batch and all(recs), "read_batch failed")
+        nbytes = sum(len(x) for x in recs)
+        med = float(np.median(times))
+        reads[route] = {"threads": n, "ms_per_batch": 1e3 * med,
+                        "MB_per_s": nbytes / med / 1e6,
+                        "records_per_s": batch / med}
+    r.close()
+    out["record_read"] = reads
+    shape = (batch, 3, image, image)
+    pinned = torch.empty(shape, dtype=torch.uint8, pin_memory=cuda)
+    rates = {}
+    for n in sweep:
+        it = host_image_iter(rec, batch, image, n)
+        it.next_np(out=pinned.numpy())         # warm: pools, page cache
+        t0 = time.perf_counter()
+        for _ in range(sweep_batches):
+            it.next_np(out=pinned.numpy())
+        dt = time.perf_counter() - t0
+        it.close()
+        rates[str(n)] = {"img_per_s": batch * sweep_batches / dt,
+                         "ms_per_batch": 1e3 * dt / sweep_batches}
+    out["next_np_by_threads"] = rates
+    if not cuda:
+        return out
+    dev = torch.empty(shape, dtype=torch.uint8, device="cuda")
+    nbytes = dev.numel()
+    for _ in range(3):
+        dev.copy_(pinned, non_blocking=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    copies = 20
+    start.record()
+    for _ in range(copies):
+        dev.copy_(pinned, non_blocking=True)
+    end.record()
+    torch.cuda.synchronize()
+    copy_ms = start.elapsed_time(end) / copies
+    out["pinned_copy"] = {"bytes": nbytes, "ms": copy_ms,
+                          "GB_per_s": nbytes / copy_ms / 1e6}
+    tf = DeviceTransform(dtype="bfloat16", mean=INPUT_MEAN, std=INPUT_STD)
+    tf_ms = time_ms(lambda: tf(dev).permute(0, 2, 3, 1).contiguous(),
+                    iters=20)
+    # uint8 read once, the bf16 NHWC batch written once
+    tf_bytes = nbytes + 2 * nbytes
+    out["transform_and_nhwc"] = {"ms": tf_ms, "bytes": tf_bytes,
+                                 "bound_ms": 1e3 * tf_bytes / HBM_BYTES_PER_S,
+                                 "bound_by": "bytes"}
+    del dev, pinned
+    return out
+
+
+def landed_batch_check(rec, batch, image, threads, ctx, seed=3):
+    """One batch of ``ImageRecordIter(ctx=...)`` against the host batch
+    the same seed gives a plain ``ImageIter``: the landed uint8 bytes
+    equal, and the landed bf16 batch within 1 bf16 ulp of
+    ``DeviceTransform``'s plain CPU result on the host batch."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.dataio import DeviceTransform
+    np.random.seed(seed)
+    it = host_image_iter(rec, batch, image, 0)
+    host, labels, _pad = it.next_np()
+    it.close()
+    np.random.seed(seed)
+    feed = mx.io.ImageRecordIter(path_imgrec=rec, ctx=ctx, dtype="bfloat16",
+                                 **input_iter_kw(batch, image, threads))
+    b = next(feed)
+    feed.close()
+    want = DeviceTransform(dtype="bfloat16", mean=INPUT_MEAN,
+                           std=INPUT_STD)(torch.from_numpy(host))
+    got = b.data._data.cpu()
+    check(b.data._data.device == feed.device
+          and b.data._data.dtype == torch.bfloat16,
+          "landed batch on %s as %s" % (b.data._data.device,
+                                        b.data._data.dtype))
+
+    def ordered(t):
+        bits = t.view(torch.int16).to(torch.int64)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    ulps = int((ordered(got) - ordered(want)).abs().max())
+    raw_equal = torch.equal(b.raw[0].cpu(), torch.from_numpy(host))
+    labels_equal = torch.equal(b.label._data.cpu(), torch.from_numpy(labels))
+    out = {"raw_equal": raw_equal, "labels_equal": labels_equal,
+           "max_bf16_ulps": ulps}
+    check(raw_equal and labels_equal and ulps <= 1,
+          "landed batch differs from its host batch: %s" % out)
+    return out
+
+
+def jpeg_path(root, step, batch, image, records, sweep, ctx,
+              source=INPUT_SOURCE):
+    """JPEG records (``source``-square, quality 90) read through the same
+    iterator with ``rand_crop=True``: host img/s at each thread count of
+    ``sweep``, then one streamed pass of ``steps`` steps into ``step``."""
+    import torch
+    import mxnet_tpu_torch as mx
+    cuda = ctx.device_type == "gpu"
+    t0 = time.perf_counter()
+    rec = make_records(os.path.join(root, "jpg"), records, fmt="jpg",
+                       hw=source)
+    out = {"records": records, "write_s": time.perf_counter() - t0,
+           "file_bytes": os.path.getsize(rec)}
+    rates = {}
+    timed = min(INPUT_SWEEP_BATCHES, records // batch) - 1
+    for n in sweep:
+        it = host_image_iter(rec, batch, image, n, rand_crop=True)
+        it.next_np()                           # warm: pools, page cache
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            it.next_np()
+        dt = time.perf_counter() - t0
+        it.close()
+        rates[str(n)] = batch * timed / dt
+    out["host_img_per_s_by_threads"] = rates
+    t0 = time.perf_counter()
+    feed = mx.io.ImageRecordIter(path_imgrec=rec, ctx=ctx, dtype="bfloat16",
+                                 **input_iter_kw(batch, image, INPUT_THREADS,
+                                                 rand_crop=True))
+    losses, secs, n = streamed_epochs(feed, step, 1, INPUT_IN_FLIGHT, cuda,
+                                      t0)
+    feed.close()
+    losses = torch.stack(losses).float().cpu().tolist()
+    check(n == [records // batch] and all(np.isfinite(losses)),
+          "JPEG pass: %s steps, losses %s" % (n, losses))
+    out.update({"steps": n[0], "img_per_s": batch * n[0] / secs[0],
+                "overlap_share": feed.overlap_frac(), "feed": feed.stats(),
+                "losses": losses})
+    return out
+
+
+def imagenet_input_phase(make_net=resnet50_nhwc, records=INPUT_RECORDS,
+                         batch=INPUT_BATCH, image=INPUT_IMAGE,
+                         epochs=INPUT_EPOCHS, threads=INPUT_THREADS,
+                         sweep=INPUT_THREAD_SWEEP,
+                         sweep_batches=INPUT_SWEEP_BATCHES,
+                         jpeg_records=JPEG_RECORDS,
+                         jpeg_sweep=JPEG_THREAD_SWEEP, source=INPUT_SOURCE,
+                         sites=BN_RELU_SITES, ctx=None, root=INPUT_ROOT):
+    """ResNet-50 v1 NHWC under bf16 AMP with bucketed LARS trained from
+    a ``.rec``: ``records`` raw records written by the port's
+    ``recordio`` into a temporary directory (removed at the end), read
+    by ``mx.io.ImageRecordIter(ctx=...)`` (a ``DeviceFeed`` over an
+    ``ImageIter``) and fed to a captured ``TrainStep`` as ``step(batch)``
+    after an NHWC transpose on the card.  The step is warmed and
+    captured on a zero batch first; the launch counters are zeroed just
+    before the timed window of ``epochs`` streamed epochs and read just
+    after.  Its peak memory is what the window allocated beyond what the
+    step held before it (the graph's pool not among it), beside the
+    allocator's peak reservation, the pool's included.  Then the card's
+    idle share over a profiled stretch, the loader's parts, a landed
+    batch against its host batch, and the JPEG path where a codec
+    imports.  With ``sites=0`` the launch checks are
+    skipped (the CPU rehearsal)."""
+    import tempfile
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _native, amp
+    from mxnet_tpu_torch.kernels import registry
+    ctx = mx.gpu(0) if ctx is None else ctx
+    cuda = ctx.device_type == "gpu"
+    device = ctx.torch_device()
+    codecs = codec_versions()
+    native = _native.load() is not None
+    route = "native" if native and threads > 1 \
+        and (os.cpu_count() or 1) > 1 else "python"
+    print("ImageNet input codecs and recordio route: %s" % json.dumps(
+        {"codecs": codecs, "recordio_route": route,
+         "native_library": str(_native.so_path()) if native else None,
+         "cpu_count": os.cpu_count()}))
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="imagenet-input-", dir=root)
+    try:
+        t0 = time.perf_counter()
+        rec = make_records(os.path.join(tmp, "raw"), records, crop=image,
+                           hw=source)
+        write_s = time.perf_counter() - t0
+        net = make_net()
+        net.initialize(device=device,
+                       generator=torch.Generator().manual_seed(0))
+        step = make_lars_step(net)
+        n_class = net.output._units
+        zero_x = torch.zeros((batch, image, image, 3), dtype=torch.bfloat16,
+                             device=device)
+        zero_y = torch.zeros((batch,), device=device)
+        t0 = time.perf_counter()
+        with amp.scope("bfloat16"):
+            for _ in range(WARM_STEPS):         # eager, then captured
+                step(zero_x, zero_y)
+            if cuda:
+                torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            gen = torch.Generator(device=device).manual_seed(0)
+            sx = torch.randn((batch, image, image, 3), generator=gen,
+                             device=device).to(torch.bfloat16)
+            sy = torch.randint(0, n_class, (batch,), generator=gen,
+                               device=device).float()
+            step(sx, sy)
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(INPUT_SYNTH_STEPS):
+                step(sx, sy)
+            if cuda:
+                torch.cuda.synchronize()
+            synth_s = time.perf_counter() - t0
+        del zero_x, zero_y, sx, sy
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+
+        np.random.seed(0)
+        registry.reset_launches()
+        t_start = time.perf_counter()
+        feed = mx.io.ImageRecordIter(path_imgrec=rec, ctx=ctx,
+                                     dtype="bfloat16",
+                                     **input_iter_kw(batch, image, threads))
+        losses, epochs_s, steps = streamed_epochs(feed, step, epochs,
+                                                  INPUT_IN_FLIGHT, cuda,
+                                                  t_start)
+        wall = time.perf_counter() - t_start
+        counts = {name: registry.launches(name)
+                  for name in ("bn_relu_apply", "bn_relu_bwd", "lars_flat")}
+        dtypes = {name: registry.launch_dtypes(name) for name in counts}
+        feed_stats = feed.stats()
+        overlap = feed.overlap_frac()
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+        reserved = torch.cuda.max_memory_reserved() if cuda else None
+        losses = torch.stack(losses).float().cpu().tolist()
+        n_steps = sum(steps)
+        per_epoch = records // batch
+        check(steps == [per_epoch] * epochs,
+              "streamed %s steps a epoch, want %d" % (steps, per_epoch))
+        check(all(np.isfinite(losses)), "non-finite loss: %s" % losses)
+        check(losses[-1] < losses[0], "loss did not fall: %s" % losses)
+        if sites:
+            want = {"bn_relu_apply": sites * n_steps,
+                    "bn_relu_bwd": sites * n_steps, "lars_flat": n_steps}
+            for name, n in want.items():
+                check(counts[name] == n, "%s launches %d != %d"
+                      % (name, counts[name], n))
+            for name in ("bn_relu_apply", "bn_relu_bwd"):
+                check(dtypes[name] == {"bfloat16": sites * n_steps},
+                      "%s ran on %s, not bf16 rows" % (name, dtypes[name]))
+            check(dtypes["lars_flat"] == {"float32": n_steps},
+                  "lars_flat ran on %s" % dtypes["lars_flat"])
+        synth_rate = batch * INPUT_SYNTH_STEPS / synth_s
+        rates = [batch * n / s for n, s in zip(steps, epochs_s)]
+        stats = {"records": records, "record_bytes": os.path.getsize(rec),
+                 "write_s": write_s, "batch": batch, "epochs": epochs,
+                 "steps": n_steps, "preprocess_threads": threads,
+                 "recordio_route": route, "warmup_s": warm_s,
+                 "epoch_s": epochs_s, "epoch_img_per_s": rates,
+                 "window_s": wall, "window_img_per_s": batch * n_steps / wall,
+                 "synthetic_img_per_s": synth_rate,
+                 "synthetic_ms_per_step": 1e3 * synth_s / INPUT_SYNTH_STEPS,
+                 "epoch_rate_vs_synthetic": [r / synth_rate for r in rates],
+                 "overlap_share": overlap, "feed": feed_stats,
+                 "in_flight": INPUT_IN_FLIGHT, "losses": losses,
+                 "launches": counts, "launch_dtypes": dtypes,
+                 "peak_mem_bytes": peak, "peak_reserved_bytes": reserved,
+                 "card": gpu_line() if cuda else None}
+        print("ImageNet input main path (.rec -> ImageRecordIter(ctx=gpu, "
+              "bf16) -> DeviceFeed -> NHWC -> captured TrainStep, ResNet-50 "
+              "v1 bf16 AMP LARS; records just written): %s"
+              % json.dumps(stats))
+        out = {"main": stats}
+        if cuda:
+            out["idle"] = input_idle_share(feed, step, INPUT_PROFILED_STEPS)
+            print("ImageNet input device idle share: %s"
+                  % json.dumps(dict(out["idle"], card=gpu_line())))
+            capture_report("ImageNet input TrainStep", step.capture_stats(),
+                           {"img_per_s": stats["window_img_per_s"]},
+                           out["idle"]["device_idle_share"], 1)
+        feed.close()
+        out["parts"] = input_parts(rec, batch, image, threads, sweep,
+                                   sweep_batches, cuda)
+        print("ImageNet input parts (each alone; records just "
+              "written): %s" % json.dumps(dict(out["parts"], card=gpu_line()
+                                             if cuda else None)))
+        out["landed"] = landed_batch_check(rec, batch, image, threads, ctx)
+        print("ImageNet input landed batch vs host batch: %s"
+              % json.dumps(out["landed"]))
+        if codecs["cv2"] or codecs["PIL"]:
+            out["jpeg"] = jpeg_path(tmp, step, batch, image, jpeg_records,
+                                    jpeg_sweep, ctx, source)
+            print("ImageNet input JPEG (256-square, quality 90, "
+                  "rand_crop): %s" % json.dumps(dict(
+                      out["jpeg"], card=gpu_line() if cuda else None)))
+        else:
+            out["jpeg"] = None
+            print("ImageNet input JPEG: neither cv2 nor PIL imports; the "
+                  "JPEG path did not run (the raw path above did)")
+        del step, net
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mnist_feed_path(host_stats=None, ctx=None):
+    """The MNIST loop of ``mnist_main_path`` through the DataLoader's
+    device-feed route: ``DataLoader(..., ctx=mx.gpu(0))`` lands each
+    batch on the card (no ``as_in_context`` copy left in the loop), one
+    epoch of a fresh net, unhybridized.  Prints samples/s and the feed's
+    overlap share beside the host route's epoch from ``host_stats``, and
+    the loader's own pace over one more epoch with no training."""
+    import mxnet_tpu_torch as mx
+    ctx = mx.gpu(0) if ctx is None else ctx
+    np.random.seed(0)
+    ds = mx.gluon.data.vision.MNIST(root=MNIST_ROOT, train=True)
+    loader = mx.gluon.data.DataLoader(
+        ds.transform_first(lambda d: mx.nd.array(
+            d.asnumpy().reshape(1, 28, 28) / 255.0, ctx=mx.cpu())),
+        batch_size=MNIST_BATCH, shuffle=True, last_batch="discard", ctx=ctx)
+    net, trainer, loss_fn = mnist_setup(ctx)
+    losses, step_s, wait_s, split, metric, wall = mnist_loop(
+        net, trainer, loss_fn, loader, ctx)
+    n = len(losses)
+    check(n == 60000 // MNIST_BATCH and all(np.isfinite(losses)),
+          "MNIST feed route: %d batches, losses %s" % (n, losses[-3:]))
+    feed = loader._feed
+    # the loader alone, no training: the producer's own pace
+    t0 = time.perf_counter()
+    alone = 0
+    for data, _label in loader:
+        alone += 1
+    alone_s = time.perf_counter() - t0
+    check(data._data.device == ctx.torch_device(),
+          "MNIST feed route landed on %s" % data._data.device)
+    stats = {"batches": n, "samples_per_s": n * MNIST_BATCH / wall,
+             "ms_per_batch": 1e3 * wall / n,
+             "loader_wait_share": wait_s / wall,
+             "overlap_share": feed.overlap_frac(), "feed": feed.stats(),
+             "producer_busy_ms_per_batch": 1e3 * feed.stats()[
+                 "producer_busy"] / n,
+             "loader_alone": {
+                 "samples_per_s": alone * MNIST_BATCH / alone_s,
+                 "producer_busy_ms_per_batch": 1e3 * loader._feed.stats()[
+                     "producer_busy"] / alone},
+             "accuracy": metric.get()[1],
+             "host_route_samples_per_s": None if host_stats is None
+             else host_stats["samples_per_s"],
+             "host_route_loader_wait_share": None if host_stats is None
+             else host_stats["loader_wait_share"],
+             "card": gpu_line() if ctx.device_type == "gpu" else None}
+    print("MNIST through DataLoader(ctx=gpu) (the device-feed route, batch "
+          "128, SGD 0.05/0.9): %s" % json.dumps(stats))
+    return stats
+
+
 def kernel_entry(name, launches, kern, serve_launches=None, **extra):
     """One kernel's entry of the per-kernel JSON line; a kernel of the
     checkpoint-and-serve phase also gives its launches there, and
@@ -4975,10 +5584,12 @@ def drive():
     torch.cuda.empty_cache()
     bert_bf16 = bert_bf16_phase()
     pretrain = bert_pretrain_phase()
-    mnist_main_path()
+    mnist_feed_path(mnist_main_path())
     mnist_oracle()
     dense = densenet_phase()
-    torch.cuda.empty_cache()
+    release_cuda()
+    imagenet = imagenet_input_phase()
+    release_cuda()
     attn = kernel_phase(scale)
     bn = bn_relu_kernel_phase()
     flash = flash_kernel_phase(BERT_BATCH * BERT_HEADS, BERT_SEQ, 64)
@@ -5029,14 +5640,24 @@ def drive():
                 n: z["launches"] for n, z in dense["zoo"].items()}
         return extra
 
+    def input_path(name):
+        """A kernel's launches on the ImageNet input path's timed window
+        (two streamed epochs), by dtype."""
+        main = imagenet["main"]
+        return {"launches_imagenet_input": main["launches"][name],
+                "launch_dtypes_imagenet_input":
+                    main["launch_dtypes"][name]}
+
     print(json.dumps({"kernels": [
         kernel_entry("paged_attention", decode["paged_attention_launches"],
                      attn, decode_ckpt["paged_attention_launches"]),
         kernel_entry("bn_relu_apply", train["bn_relu_apply_launches"],
                      bn["fwd"], serve["bn_relu_apply_launches"],
-                     **densenet_path("bn_relu_apply")),
+                     **densenet_path("bn_relu_apply"),
+                     **input_path("bn_relu_apply")),
         kernel_entry("bn_relu_bwd", train["bn_relu_bwd_launches"],
-                     bn["bwd"], **densenet_path("bn_relu_bwd")),
+                     bn["bwd"], **densenet_path("bn_relu_bwd"),
+                     **input_path("bn_relu_bwd")),
         kernel_entry("flash_attention_fwd", counts["flash_attention_fwd"],
                      flash["fwd"], **bf16_path("flash_attention_fwd"),
                      **densenet_path("flash_attention_fwd")),
@@ -5046,7 +5667,8 @@ def drive():
         kernel_entry("layernorm_fwd", counts["layernorm_fwd"], ln,
                      **bf16_path("layernorm_fwd")),
         kernel_entry("lamb_phase1", counts["lamb_phase1"], lamb),
-        kernel_entry("lars_flat", lars["launches"]["lars_flat"], lars_k)]}))
+        kernel_entry("lars_flat", lars["launches"]["lars_flat"], lars_k,
+                     **input_path("lars_flat"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

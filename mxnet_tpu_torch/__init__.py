@@ -42,14 +42,23 @@ It imports neither JAX nor anything of ``mxnet_tpu``.  Ported so far:
   and ``Trainer``'s default single-process :mod:`.kvstore`, with the
   everyday Gluon members of the JAX package (``Parameter`` and
   ``ParameterDict`` members, ``gluon.Constant``, ``Block.summary``, the
-  initializers, ``autograd.set_recording``).
+  initializers, ``autograd.set_recording``);
+- the ImageNet input path: :mod:`.recordio` (with its native engine,
+  :mod:`._native`), :mod:`.image` (decode, augmenters, ``ImageIter``),
+  :mod:`.io` (the legacy iterators and ``ImageRecordIter``) and
+  :mod:`.dataio` (``DeviceFeed``, which lands batches on the card
+  through a pinned ring behind the consumer's compute, and
+  ``DeviceTransform``), with ``DataLoader(ctx=)`` and
+  ``TrainStep(DeviceBatch)``.
 
-``import mxnet_tpu_torch as mx`` binds ``mx.parallel``, ``mx.serving``
-and ``mx.kv``/``mx.kvstore`` as the JAX package's ``__init__`` does.
+``import mxnet_tpu_torch as mx`` binds ``mx.parallel``, ``mx.serving``,
+``mx.kv``/``mx.kvstore``, ``mx.recordio``, ``mx.io``, ``mx.image`` and
+``mx.dataio`` as the JAX package's ``__init__`` does.
 
 Kernels and their plain versions are registered in :mod:`.kernels`.
 """
 from . import amp, autograd, checkpoint, gluon, metric, optimizer, random
+from . import dataio, image, io, recordio
 from . import initializer
 from . import initializer as init
 from . import kvstore
@@ -65,7 +74,8 @@ from .optimizer import lr_scheduler
 __version__ = "0.1.0"
 
 __all__ = ["Context", "MXNetError", "NDArray", "amp", "autograd",
-           "checkpoint", "cpu", "cpu_pinned", "current_context", "gluon",
-           "gpu", "init", "initializer", "kv", "kvstore", "lr_scheduler",
-           "metric", "nd", "num_gpus", "optimizer", "parallel", "random",
-           "resolve_device", "serving"]
+           "checkpoint", "cpu", "cpu_pinned", "current_context", "dataio",
+           "gluon", "gpu", "image", "init", "initializer", "io", "kv",
+           "kvstore", "lr_scheduler", "metric", "nd", "num_gpus",
+           "optimizer", "parallel", "random", "recordio", "resolve_device",
+           "serving"]

@@ -107,6 +107,14 @@ def num_gpus():
     return torch.cuda.device_count() if torch.cuda.is_available() else 0
 
 
+def scoped_context():
+    """The innermost ``with ctx:`` context of this thread, or None: what
+    a worker thread re-enters so that arrays it makes land where its
+    creator's would."""
+    stack = getattr(Context._default_ctx, "stack", None)
+    return stack[-1] if stack else None
+
+
 def current_context():
     """The innermost ``with ctx:`` context of this thread, else
     ``gpu(0)``; raises :class:`MXNetError` when that default is taken

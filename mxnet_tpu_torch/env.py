@@ -1,9 +1,9 @@
 """Typed registry of the ``MXNET_*`` environment variables the port reads.
 
 Counterpart of ``mxnet_tpu/env.py``, holding only the variables the
-port reads: checkpoints, serving and the numerics sentinel.  Names,
-defaults and the boolean convention (only ``"0"`` is false) are the JAX
-package's, so one environment configures both.
+port reads: checkpoints, serving, the numerics sentinel and the device
+feed.  Names, defaults and the boolean convention (only ``"0"`` is
+false) are the JAX package's, so one environment configures both.
 """
 from __future__ import annotations
 
@@ -78,6 +78,19 @@ _VARS = [
     EnvVar("MXNET_TPU_SERVING_PREFILL_BUCKETS", str, "16,32,64,128",
            "Prompt-length buckets of prefill (batch 1); the largest is "
            "the longest admissible prompt."),
+    EnvVar("MXNET_TPU_FEED_DEPTH", int, 2,
+           "Default bounded-queue depth of mx.dataio.DeviceFeed: how "
+           "many landed batches the background producer may run ahead "
+           "of the consumer (its pinned ring holds one slot more).  2 = "
+           "double buffering.  Per-feed override: "
+           "DeviceFeed(depth=...)."),
+    EnvVar("MXNET_TPU_FEED_COMPACT", bool, True,
+           "Ship feed batches to the card in their compact source dtype "
+           "(uint8 stays uint8 -- 4x less copy traffic than its float32 "
+           "cast) and expand them there with the feed's transform.  "
+           "'0' casts on the host to the transform's dtype before the "
+           "copy (A/B numerics debugging).  Per-feed override: "
+           "DeviceFeed(compact=...)."),
 ]
 
 REGISTRY = {v.name: v for v in _VARS}

@@ -2,10 +2,11 @@
 samplers, the DataLoader and the vision datasets and transforms."""
 from . import vision
 from .dataloader import DataLoader
-from .dataset import ArrayDataset, Dataset, SimpleDataset
+from .dataset import (ArrayDataset, Dataset, RecordFileDataset,
+                      SimpleDataset)
 from .sampler import (BatchSampler, IntervalSampler, RandomSampler, Sampler,
                       SequentialSampler)
 
 __all__ = ["ArrayDataset", "BatchSampler", "DataLoader", "Dataset",
-           "IntervalSampler", "RandomSampler", "Sampler", "SequentialSampler",
-           "SimpleDataset", "vision"]
+           "IntervalSampler", "RandomSampler", "RecordFileDataset", "Sampler",
+           "SequentialSampler", "SimpleDataset", "vision"]

@@ -1,14 +1,24 @@
-"""DataLoader (counterpart of ``mxnet_tpu/gluon/data/dataloader.py``),
-the host path.
+"""DataLoader (counterpart of ``mxnet_tpu/gluon/data/dataloader.py``).
 
 Port rule: samples and batches are built in host memory -- on
 ``mx.cpu()``, or ``mx.cpu_pinned()`` with ``pin_memory=True`` -- never
-on the default context (the card).  The training loop's
-``as_in_context(mx.gpu())`` is then the one copy to the card a batch,
-asynchronous from pinned memory.  ``num_workers`` threads build batches
-ahead of the consumer, in order, at most ``prefetch`` at a time.  The
-device-feed path (``ctx=``/``mesh=``, the JAX package's
-``_device_feed_iter``) and the telemetry hooks are not ported yet.
+on the default context (the card).  ``num_workers`` threads build
+batches ahead of the consumer, in order, at most ``prefetch`` at a time.
+
+Two routes, as in the JAX package:
+
+- the host route: batches are NDArrays on the host, and the training
+  loop's ``as_in_context(mx.gpu())`` is the one copy to the card a
+  batch, asynchronous from pinned memory;
+- the device-feed route, with ``ctx=``: batches stay host numpy in
+  their own dtype through batchify (``host_batchify_fn``) and a
+  :class:`~...dataio.DeviceFeed` lands them on ``ctx`` behind the
+  consumer's compute, optionally expanded there by
+  ``device_transform``; iteration yields landed NDArrays (a
+  :class:`~...dataio.DeviceBatch` when a batch has several parts).
+  ``mesh=`` and ``sharding=`` raise until ROADMAP item 9 ports the mesh.
+
+The JAX package's telemetry hooks are not ported yet.
 """
 from __future__ import annotations
 
@@ -52,9 +62,11 @@ def _pinned_batchify_fn(data):
 
 
 def host_batchify_fn(data):
-    """Stack samples into host numpy arrays in their own dtype."""
+    """Stack samples into host numpy arrays in their own dtype (bf16 as
+    float32, as ``asnumpy`` gives it)."""
     if isinstance(data[0], NDArray):
-        return np.stack([d.asnumpy() for d in data])
+        t = torch.stack([d._data.detach() for d in data]).cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     if isinstance(data[0], (tuple, list)):
         return tuple(host_batchify_fn(list(x)) for x in zip(*data))
     arr = np.asarray(data)
@@ -65,9 +77,20 @@ class DataLoader:
     def __init__(self, dataset, batch_size=None, shuffle=False, sampler=None,
                  last_batch=None, batch_sampler=None, batchify_fn=None,
                  num_workers=0, pin_memory=False, prefetch=None,
-                 thread_pool=False, timeout=120):
+                 thread_pool=False, timeout=120, ctx=None, mesh=None,
+                 sharding=None, device_transform=None, feed_depth=None):
         self._dataset = dataset
         self._timeout = timeout
+        if mesh is not None or sharding is not None:
+            from ...dataio.feed import _no_mesh
+            _no_mesh("DataLoader")
+        self._feed_kw = None
+        self._feed = None
+        if ctx is not None:
+            self._feed_kw = dict(ctx=ctx, transform=device_transform,
+                                 depth=feed_depth)
+            if batchify_fn is None:
+                batchify_fn = host_batchify_fn
         if batch_sampler is None:
             if batch_size is None:
                 raise ValueError("batch_size required when no batch_sampler")
@@ -92,11 +115,30 @@ class DataLoader:
         return self._batchify_fn([self._dataset[i] for i in indices])
 
     def __iter__(self):
+        if self._feed_kw is not None:
+            yield from self._device_feed_iter()
+            return
+        yield from self._host_iter()
+
+    def _host_iter(self):
         if self._num_workers == 0:
             for indices in self._batch_sampler:
                 yield self._make_batch(indices)
             return
         yield from self._threaded_iter()
+
+    def _device_feed_iter(self):
+        """Stage every host batch through a DeviceFeed (kept as
+        ``_feed`` for its ``stats()`` until the next iteration);
+        single-component batches unwrap to the bare NDArray, as on the
+        host route."""
+        from ...dataio import DeviceFeed
+        self._feed = feed = DeviceFeed(self._host_iter(), **self._feed_kw)
+        try:
+            for batch in feed:
+                yield batch.data if len(batch) == 1 else batch
+        finally:
+            feed.close()
 
     def _threaded_iter(self):
         """Ordered thread-pool pipeline with bounded prefetch."""

@@ -1,10 +1,10 @@
-"""Datasets (counterpart of ``mxnet_tpu/gluon/data/dataset.py``).
-``RecordFileDataset`` waits for the port of ``recordio``."""
+"""Datasets (counterpart of ``mxnet_tpu/gluon/data/dataset.py``)."""
 from __future__ import annotations
 
 from ...base import MXNetError
 
-__all__ = ["ArrayDataset", "Dataset", "SimpleDataset"]
+__all__ = ["ArrayDataset", "Dataset", "RecordFileDataset",
+           "SimpleDataset"]
 
 
 class Dataset:
@@ -108,3 +108,19 @@ class ArrayDataset(Dataset):
 
     def __len__(self):
         return self._length
+
+
+class RecordFileDataset(Dataset):
+    """Dataset over an indexed RecordIO file: item ``i`` is the raw
+    record bytes of the ``i``-th key of its ``.idx``."""
+
+    def __init__(self, filename):
+        from ...recordio import MXIndexedRecordIO
+        idx_file = filename[:filename.rindex(".")] + ".idx"
+        self._record = MXIndexedRecordIO(idx_file, filename, "r")
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])
+
+    def __len__(self):
+        return len(self._record.keys)

@@ -1,13 +1,14 @@
 """Vision datasets (counterpart of
 ``mxnet_tpu/gluon/data/vision/datasets.py``): MNIST, Fashion-MNIST,
-CIFAR-10 and CIFAR-100.
+CIFAR-10, CIFAR-100, ``ImageRecordDataset`` and ``ImageFolderDataset``.
 
 Each reads the standard files under ``root`` when they are there and
 otherwise falls back, with a warning, to the JAX package's deterministic
 synthetic sample of the same shape and dtype (``.synthetic`` is set):
 nothing is downloaded.  The synthetic data are byte for byte the JAX
 package's.  Items are built on ``mx.cpu()``: an image NDArray in the
-file's HWC uint8 layout, and its label as an int32 number.
+file's HWC uint8 layout, and its label as an int32 number (a record's
+label as its header gives it, a folder's class index).
 """
 from __future__ import annotations
 
@@ -21,9 +22,10 @@ import numpy as np
 
 from ....context import cpu
 from ....ndarray import array
-from ..dataset import Dataset
+from ..dataset import Dataset, RecordFileDataset
 
-__all__ = ["CIFAR10", "CIFAR100", "FashionMNIST", "MNIST"]
+__all__ = ["CIFAR10", "CIFAR100", "FashionMNIST", "ImageFolderDataset",
+           "ImageRecordDataset", "MNIST"]
 
 
 def _synthetic_images(n, shape, num_classes, seed):
@@ -152,3 +154,61 @@ class CIFAR100(CIFAR10):
             data, label = _synthetic_images(
                 n, (32, 32, 3), 100, seed=46 if self._train else 47)
         self._data, self._label = data, label
+
+
+class ImageRecordDataset(RecordFileDataset):
+    """Images in an indexed RecordIO file: item ``i`` is the decoded HWC
+    uint8 image of record ``i`` and its header's label."""
+
+    def __init__(self, filename, flag=1, transform=None):
+        super().__init__(filename)
+        self._flag = flag
+        self._transform = transform
+
+    def __getitem__(self, idx):
+        from ....recordio import unpack_img
+        record = super().__getitem__(idx)
+        header, img = unpack_img(record)
+        label = header.label
+        img = array(img, ctx=cpu())
+        if self._transform is not None:
+            return self._transform(img, label)
+        return img, label
+
+
+class ImageFolderDataset(Dataset):
+    """A folder per class under ``root``, in sorted order (``synsets``);
+    items are ``(image, class index)`` over the image files (and
+    ``.npy`` arrays) of each folder, sorted by name."""
+
+    def __init__(self, root, flag=1, transform=None):
+        self._root = os.path.expanduser(root)
+        self._flag = flag
+        self._transform = transform
+        self._exts = (".jpg", ".jpeg", ".png", ".bmp", ".npy")
+        self.synsets = []
+        self.items = []
+        for folder in sorted(os.listdir(self._root)):
+            path = os.path.join(self._root, folder)
+            if not os.path.isdir(path):
+                continue
+            label = len(self.synsets)
+            self.synsets.append(folder)
+            for fname in sorted(os.listdir(path)):
+                if fname.lower().endswith(self._exts):
+                    self.items.append((os.path.join(path, fname), label))
+
+    def __getitem__(self, idx):
+        from ....image.image import _decode_np
+        path, label = self.items[idx]
+        if path.endswith(".npy"):
+            img = array(np.load(path), ctx=cpu())
+        else:
+            with open(path, "rb") as f:
+                img = array(_decode_np(f.read(), self._flag), ctx=cpu())
+        if self._transform is not None:
+            return self._transform(img, label)
+        return img, label
+
+    def __len__(self):
+        return len(self.items)

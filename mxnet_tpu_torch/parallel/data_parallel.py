@@ -79,6 +79,7 @@ from ..amp.loss_scaler import all_finite
 from ..base import MXNetError
 from ..kernels.optimizer_update import (bucket_supported, bucket_update,
                                         lamb_bias_corrections)
+from ..ndarray import NDArray
 
 __all__ = ["TrainStep"]
 
@@ -249,6 +250,8 @@ class TrainStep:
         raise MXNetError("TrainStep: initialize the block first")
 
     def _stage(self, t, device):
+        if isinstance(t, NDArray):
+            t = t._data
         if not isinstance(t, torch.Tensor):
             t = torch.as_tensor(t)
         return t.to(device, non_blocking=True)
@@ -361,7 +364,18 @@ class TrainStep:
             scaler.update_scale(not self._finite_host)
         return loss
 
-    def __call__(self, data, label, batch_size=None):
+    def __call__(self, data, label=None, batch_size=None):
+        """One training step on ``(data, label)``, or on a
+        :class:`~..dataio.DeviceBatch` alone (a fed batch carries its
+        label as its second part; it is used where it landed)."""
+        if label is None:
+            from ..dataio import DeviceBatch
+            if isinstance(data, DeviceBatch):
+                data, label = data.data, data.label
+            if label is None:
+                raise MXNetError(
+                    "TrainStep needs (data, label) or a DeviceBatch "
+                    "with a label component")
         device = self._device()
         data = self._stage(data, device)
         label = self._stage(label, device)

@@ -144,6 +144,57 @@ def test_the_pretraining_loop_and_kvstore_load_neither_jax_nor_mxnet_tpu():
     assert out.stdout.strip() == "[]"
 
 
+def test_the_input_path_and_its_process_pool_load_neither_jax_nor_mxnet_tpu(
+        tmp_path):
+    """``mx.recordio``, ``mx.image``, ``mx.io`` and ``mx.dataio`` used in
+    a fresh process, ``ImageIter``'s forkserver process pool among them:
+    an augmenter run inside the worker writes into the image whether a
+    forbidden module is loaded there."""
+    names = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
+    assert {"recordio.py", "_native/__init__.py", "image/image.py",
+            "io/io.py", "dataio/feed.py", "dataio/transforms.py"} <= names
+    (tmp_path / "probe.py").write_text(
+        "import sys\n"
+        "import numpy as np\n"
+        "class Probe:\n"
+        "    def __call__(self, img):\n"
+        "        bad = any(m.split('.')[0] in %r for m in sys.modules)\n"
+        "        return np.full_like(np.asarray(img), 200 if bad else 100)\n"
+        % (FORBIDDEN,))
+    code = ("import sys\n"
+            "import numpy as np\n"
+            "import mxnet_tpu_torch as mx\n"
+            "from probe import Probe\n"
+            "rec = mx.recordio.MXIndexedRecordIO(%r, %r, 'w')\n"
+            "for i in range(4):\n"
+            "    rec.write_idx(i, mx.recordio.pack(\n"
+            "        mx.recordio.IRHeader(0, float(i), i, 0),\n"
+            "        np.full((8, 8, 3), i, np.uint8).tobytes()))\n"
+            "rec.close()\n"
+            "it = mx.image.ImageIter(2, (3, 8, 8), path_imgrec=%r,\n"
+            "    aug_list=[Probe()], preprocess_procs=1, dtype='uint8')\n"
+            "data, labels, pad = it.next_np()\n"
+            "it.close()\n"
+            "assert (data == 100).all(), np.unique(data)\n"
+            "feed = mx.io.ImageRecordIter(path_imgrec=%r,\n"
+            "    data_shape=(3, 8, 8), batch_size=2, ctx=mx.cpu(),\n"
+            "    preprocess_threads=0, dtype='bfloat16', mean_r=1.0)\n"
+            "assert len(list(feed)) == 2\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "%r))" % (str(tmp_path / "d.idx"), str(tmp_path / "d.rec"),
+                      str(tmp_path / "d.rec"), str(tmp_path / "d.rec"),
+                      FORBIDDEN))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(PKG.parent), str(tmp_path)]
+        + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(tmp_path))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def _imports(path):
     tree = ast.parse(path.read_text(), str(path))
     for node in ast.walk(tree):
@@ -216,7 +267,7 @@ def test_training_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
 def test_env_registry_defaults_and_typed_reads(monkeypatch):
     from mxnet_tpu import env as jax_env
     from mxnet_tpu_torch import env
-    assert len(env.REGISTRY) == 10
+    assert len(env.REGISTRY) == 12
     for name, var in env.REGISTRY.items():
         assert var.default == jax_env.REGISTRY[name].default, name
         assert var.type is jax_env.REGISTRY[name].type, name
