@@ -202,6 +202,43 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    sequential passes over the file show whether the checkout's file
    system serves them at the page cache's pace.
 
+16. the always-on train -> serve loop (ROADMAP item 7), after the
+   checkpoint-and-serve phase, outside the sync check (a servable is
+   captured while another replays and reads its logits on the host and
+   the trainer runs).  (a) ``ContinuousTrainer`` trains ResNet-50 v1
+   NHWC fp32 (SGD 0.05/0.9, one synthetic batch of 32 at 224x224,
+   seed 0) imperatively on its own thread, 96 steps publishing every 8
+   through ``save_training``, after two publish cycles alone; a
+   ``RegistryWatcher`` (poll 0.2 s) hot-swaps a second ResNet-50,
+   served at buckets 1-32, to each new verified step, while 8
+   open-loop clients each send one of 32 seeded images every 20 ms.
+   The window's first swap dies at the ``serving.swap`` fail point and
+   retries; after the trainer's steps the next publish is torn after
+   its commit (``chaos.truncate``) and must be quarantined while the
+   previous step keeps serving.  Nothing may be dropped, shed, timed
+   out or fail; at least 3 swaps, the served step strictly increasing;
+   each answer within 1e-4 of one published step's batch-1 forward
+   (restored after the run) and never an older step than its client's
+   previous answer; ``bn_relu_apply`` 33 x (trainer steps + executor
+   calls + warm-up runs) and ``bn_relu_bwd`` 33 x trainer steps, each
+   term from its own counter; ``serving.*`` and ``train_loop.*``
+   telemetry equal to the phase's counts.  It prints the swap wall
+   (publish committed to step serving), latency p50/p99 steady and
+   during swaps as ``bench.py :: bench_serving_hotswap`` splits them,
+   requests/s, the trainer's ms/step alone and while serving, and
+   ``hbm_plan``'s bucket-32 prediction beside the measured warm-up
+   peak.  (b) a ``GenerativeWatcher`` serves GPT-2-small-width
+   ``tiny_gpt`` from a checkpoint's ``params`` item; eight streams are
+   admitted, step 2 (other weights) is published and swapped in while
+   they are mid-decode (each old decode step held at
+   ``serving.decode.step`` until the replacement installs), and eight
+   more are admitted on it: every stream finishes and equals the
+   greedy oracle of the weights it was admitted under, the old engine
+   ends with no live sequence, and ``paged_attention`` launches 12 x
+   the decode steps of both engines (the new one's warm-up included).
+   The kernels line's three rows on these paths carry
+   ``launches_hotswap`` and ``launches_generative_swap``.
+
 Every path runs from captured CUDA graphs (``mxnet_tpu_torch._capture``),
 the port's counterpart of the JAX package's compiled programs: one
 graph per decode and prefill bucket, one per ``TrainStep`` key (its
@@ -221,7 +258,7 @@ BERT-base LAMB (dropout 0.1, batch 8 x seq 512) and ResNet-50 bf16 AMP
 LARS (batch 16), each four calls of one ``TrainStep`` (eager, captured,
 replayed, replayed after ``set_learning_rate``) against four eager
 steps on a copy of the net (losses, updates, the last update, every
-optimizer state).  The whole run goes under
+optimizer state).  Phases 1-15 run under
 ``_capture.checking_syncs()``: every capture and replay runs under
 ``torch.cuda.set_sync_debug_mode("error")``, so a host read left inside
 a captured region fails it.
@@ -5491,6 +5528,495 @@ def mnist_feed_path(host_stats=None, ctx=None):
     return stats
 
 
+# ---------------------------------------------------------------------
+# phase 16: the always-on train -> serve loop
+# ---------------------------------------------------------------------
+
+HOTSWAP_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "hotswap-smoke")
+HOTSWAP_BATCH = 32
+HOTSWAP_PUBLISH_EVERY = 8
+HOTSWAP_STEPS = 40                 # the trainer thread's steps while serving
+HOTSWAP_MIN_SWAPS = 3
+HOTSWAP_POLL_S = 0.2
+HOTSWAP_IMAGES = 32                # distinct request images, from seed 0
+HOTSWAP_INTERVAL_S = 0.02          # each open-loop client's send interval
+HOTSWAP_WAIT_S = 120.0             # a swap, a drain or a client past this hung
+
+
+def _open_loop_client(reg, name, images, records, rejects, lock, stop,
+                      seed, interval=HOTSWAP_INTERVAL_S):
+    """One open-loop client: a single image every ``interval`` seconds,
+    whatever the answers do; each accepted request is kept as
+    ``[image index, submit time, done time, future]``."""
+    from mxnet_tpu_torch.serving import ServingQueueFull
+    rng = np.random.RandomState(seed)
+    mine = []
+    next_t = time.perf_counter()
+    while not stop.is_set():
+        i = int(rng.randint(len(images)))
+        t0 = time.perf_counter()
+        try:
+            fut = reg.submit(name, images[i], timeout=HOTSWAP_WAIT_S)
+        except ServingQueueFull:
+            with lock:
+                rejects["shed"] += 1
+        except Exception as e:     # noqa: BLE001 -- counted as an error
+            with lock:
+                rejects["errors"].append(repr(e))
+        else:
+            rec = [i, t0, None, fut]
+            fut.add_done_callback(
+                lambda _f, rec=rec: rec.__setitem__(2, time.perf_counter()))
+            mine.append(rec)
+        next_t += interval
+        stop.wait(max(0.0, next_t - time.perf_counter()))
+    with lock:
+        records.append(mine)
+
+
+def _pct(values, q):
+    values = sorted(values)
+    return 1e3 * values[min(len(values) - 1, int(q * len(values)))] \
+        if values else None
+
+
+def hotswap_phase(make_net=resnet50_nhwc, image=224, batch=HOTSWAP_BATCH,
+                  buckets=SERVE_BUCKETS, clients=SERVE_CLIENTS,
+                  publish_every=HOTSWAP_PUBLISH_EVERY, steps=HOTSWAP_STEPS,
+                  sites=BN_RELU_SITES, device="cuda", root=HOTSWAP_ROOT):
+    """ROADMAP item 7 on the card: ``ContinuousTrainer`` trains
+    ``make_net()`` (fp32, SGD momentum, a fixed synthetic batch) on its
+    own thread and publishes every ``publish_every`` steps, while a
+    ``RegistryWatcher`` (``poll_s`` 0.2) hot-swaps a second instance,
+    served at ``buckets``, to each new verified step and ``clients``
+    open-loop threads send single images.  The first swap of the window
+    dies at the ``serving.swap`` fail point and retries; after the
+    trainer's steps the next publish is torn after its commit
+    (``chaos.truncate``) and must be quarantined while the previous step
+    keeps serving.  Checks: nothing dropped, shed, timed out or failed;
+    at least ``HOTSWAP_MIN_SWAPS`` swaps, the served step strictly
+    increasing; each answer the batch-1 forward of one published step
+    within SERVE_REL_TOL, and never an older step than the client's
+    previous answer; the fused kernels' launches the sum of their
+    sources' counts; telemetry equal to the phase's own counts."""
+    import torch
+    from mxnet_tpu_torch import chaos, gluon, telemetry
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.chaos.scenarios import corrupt_dirs
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.kernels import registry
+    from mxnet_tpu_torch.ndarray import NDArray
+    from mxnet_tpu_torch.serving import (ContinuousTrainer, ModelRegistry,
+                                         RegistryWatcher)
+    cuda = device == "cuda"
+    t_phase = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    telemetry.enable()
+    chaos.reset()
+    net = make_net()
+    net.initialize(device=device, generator=torch.Generator().manual_seed(0))
+    trainer = gluon.Trainer(net.collect_params(), "sgd", TRAIN_SGD)
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn((batch, image, image, 3), generator=gen, device=device)
+    y = torch.randint(0, net.output._units, (batch,), generator=gen,
+                      device=device).float()
+    ct = ContinuousTrainer(net, trainer,
+                           gluon.loss.SoftmaxCrossEntropyLoss(),
+                           (NDArray(x), NDArray(y)), root,
+                           publish_every=publish_every)
+    publishes = []              # (step, seconds, done time)
+    publish = ct.publish
+
+    def timed_publish():
+        t0 = time.perf_counter()
+        step = publish()
+        publishes.append((step, time.perf_counter() - t0,
+                          time.perf_counter()))
+        return step
+
+    ct.publish = timed_publish
+    served_net = make_net()
+    served_net.initialize(device=device)
+    reg = ModelRegistry(compile_cache=False)
+    installed = []              # every servable the window installs
+    install = reg._install
+
+    def recording_install(name, servable):
+        installed.append(servable)
+        return install(name, servable)
+
+    reg._install = recording_install
+    w = RegistryWatcher(reg, "resnet50", ct.manager, served_net,
+                        input_shape=(image, image, 3), buckets=buckets,
+                        max_queue=1 << 16, poll_s=HOTSWAP_POLL_S)
+    swaps = []                  # (start, end, step, served or None)
+    swap = w._swap
+
+    def timed_swap(step):
+        t0 = time.perf_counter()
+        got = swap(step)
+        swaps.append((t0, time.perf_counter(), step, got))
+        return got
+
+    w._swap = timed_swap
+
+    # alone: two publish cycles (the first warms cuDNN), then the first
+    # servable, registered before anything else runs (its warm-up peaks
+    # are hbm_plan's line)
+    ct.run_steps(publish_every)
+    t1 = time.perf_counter()
+    ct.run_steps(publish_every)
+    alone_ms = 1e3 * (time.perf_counter() - t1 - publishes[-1][1]) \
+        / publish_every
+    first = w.poll_once()
+    check(first == 2 * publish_every, "the first poll served %r" % first)
+    pool = reg.servable("resnet50")._pool
+    plan = pool.hbm_plan(torch.cuda.mem_get_info()[1]) if cuda else None
+    peaks = pool.warmup_peaks()
+
+    rng = np.random.RandomState(0)
+    images = rng.standard_normal(
+        (HOTSWAP_IMAGES, image, image, 3)).astype(np.float32)
+    records, rejects = [], {"shed": 0, "errors": []}
+    lock, stop = threading.Lock(), threading.Event()
+    threads = [threading.Thread(
+        target=_open_loop_client,
+        args=(reg, "resnet50", images, records, rejects, lock, stop,
+              100 + c))
+        for c in range(clients)]
+    first_step = ct.step
+    n_publish0, n_swap0 = len(publishes), len(swaps)
+    installed[:] = [reg.servable("resnet50")]
+    registry.reset_launches()
+    telemetry.reset()
+    with chaos.scenario(seed=0):
+        chaos.on("serving.swap", nth=1)      # the window's first swap
+        t_window = time.perf_counter()
+        w.start()
+        for t in threads:
+            t.start()
+        try:
+            ct.start(max_steps=steps)
+            ct._thread.join(HOTSWAP_WAIT_S * 2)
+            check(not ct._thread.is_alive(), "the trainer thread hung")
+            t_trained = time.perf_counter()
+            last = ct.published_step
+            deadline = time.perf_counter() + HOTSWAP_WAIT_S
+            while w.served_step != last and time.perf_counter() < deadline:
+                stop.wait(0.05)
+            check(w.served_step == last, "the watcher serves step %r, "
+                  "not the last published %r" % (w.served_step, last))
+            # tear the next publish after its commit: the watcher must
+            # quarantine it and keep serving `last`
+            chaos.on("checkpoint.commit.post_commit", times=1,
+                     action=chaos.truncate("params.params"))
+            ct.run_steps(publish_every)
+            torn = ct.published_step
+            deadline = time.perf_counter() + HOTSWAP_WAIT_S
+            want = "step_%08d.corrupt" % torn
+            while want not in corrupt_dirs(root) \
+                    and time.perf_counter() < deadline:
+                stop.wait(0.05)
+            stop.wait(3 * HOTSWAP_POLL_S)
+            quarantined = corrupt_dirs(root)
+            served_after_tear = w.served_step
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(HOTSWAP_WAIT_S)
+            w.close()
+            ct.close()
+        check(not any(t.is_alive() for t in threads), "a client hung")
+        t_end = time.perf_counter()
+        chaos_stats = chaos.stats()
+    # every accepted request answered (a future still pending is dropped)
+    from mxnet_tpu_torch.serving import RequestTimeout
+    flat = [r for mine in records for r in mine]
+    dropped = timeouts = 0
+    errors = list(rejects["errors"])
+    for _i, _t0, _done, fut in flat:
+        try:
+            fut.result(timeout=HOTSWAP_WAIT_S)
+        except TimeoutError:
+            dropped += 1
+        except RequestTimeout:
+            timeouts += 1
+        except Exception as e:      # noqa: BLE001 -- checked below
+            errors.append(repr(e))
+    window_wall = t_end - t_window
+    reg.shutdown(drain=True)
+    train_steps = ct.step - first_step
+    calls = sum(s.stats().get("batches", 0) for s in installed)
+    fwd = registry.launches("bn_relu_apply")
+    bwd = registry.launches("bn_relu_bwd")
+    snap = {r["name"]: r for r in telemetry.snapshot()}
+    telemetry.disable()
+
+    def tval(name, key="value"):
+        rec = snap.get(name)
+        return rec[key] if rec is not None else 0
+
+    warm_registrations = tval("serving.warmup_time", "count")
+    warm_runs = warm_registrations * len(buckets) * (2 if cuda else 1)
+    ok_swaps = [s for s in swaps[n_swap0:] if s[3] is not None]
+    served_steps = [first] + [s[3] for s in ok_swaps]
+    window_publishes = publishes[n_publish0:]
+
+    # the published steps' own batch-1 forwards, restored after the run
+    ref = make_net()
+    ref.initialize(device=device)
+    mgr = CheckpointManager(root)
+    refs = {}
+    with torch.inference_mode(), autograd.pause():
+        for step in served_steps:
+            mgr.restore_training(ref, step=step)
+            refs[step] = np.stack([
+                ref(torch.from_numpy(img[None]).to(device))[0].cpu().numpy()
+                for img in images])
+    worst, runner_up, backwards = 0.0, np.inf, 0
+    matched = {}
+    for mine in records:
+        prev = None
+        for i, t0, _done, fut in mine:
+            got = fut.result(timeout=0) if fut.done() and \
+                fut.exception() is None else None
+            if got is None:
+                continue
+            errs = {s: float(np.abs(got - r[i]).max() / np.abs(r[i]).max())
+                    for s, r in refs.items()}
+            best = min(errs, key=errs.get)
+            worst = max(worst, errs[best])
+            others = [e for s, e in errs.items() if s != best]
+            if others:
+                runner_up = min(runner_up, min(others))
+            matched[best] = matched.get(best, 0) + 1
+            if prev is not None and best < prev:
+                backwards += 1
+            prev = best
+    shutil.rmtree(root, ignore_errors=True)
+
+    lat = [(t0, done - t0) for _i, t0, done, fut in flat
+           if done is not None and fut.exception() is None]
+    # a swap's wall: from its step's publish committing to the step
+    # serving
+    visible = {p[0]: p[2] for p in publishes}
+    swap_walls = [s[1] - visible[s[3]] for s in ok_swaps]
+    # the bench's split: a request whose round trip overlaps a swap
+    # attempt ran during the swap
+    window_swaps = swaps[n_swap0:]
+    during = [l for t0, l in lat
+              if any(t0 <= s[1] and t0 + l >= s[0] for s in window_swaps)]
+    steady = [l for t0, l in lat
+              if not any(t0 <= s[1] and t0 + l >= s[0]
+                         for s in window_swaps)]
+    cycles = [b[2] - a[2] - b[1] for a, b in zip(window_publishes,
+                                                 window_publishes[1:])]
+    out = {
+        "train_batch": batch, "publish_every": publish_every,
+        "trainer_steps": train_steps,
+        "publishes": len(window_publishes),
+        "swaps": len(ok_swaps), "swaps_tried": len(swaps) - n_swap0,
+        "swap_failures": tval("serving.swap_failures"),
+        "served_steps": served_steps,
+        "swap_wall_p50_ms": _pct(swap_walls, 0.5),
+        "swap_wall_max_ms": 1e3 * max(swap_walls) if swap_walls else None,
+        "requests": len(flat), "responses": len(lat),
+        "requests_per_s": len(lat) / window_wall,
+        "latency_p50_steady_ms": _pct(steady, 0.5),
+        "latency_p99_steady_ms": _pct(steady, 0.99),
+        "latency_p50_during_swap_ms": _pct(during, 0.5),
+        "latency_p99_during_swap_ms": _pct(during, 0.99),
+        "requests_during_swap": len(during),
+        "trainer_ms_per_step_alone": alone_ms,
+        "trainer_ms_per_step_serving":
+            1e3 * float(np.median(cycles)) / publish_every
+            if cycles else None,
+        "dropped": dropped, "shed": rejects["shed"], "timeouts": timeouts,
+        "errors": len(errors),
+        "answers_per_step": {str(k): v for k, v in sorted(matched.items())},
+        "max_rel_err": worst, "nearest_other_step_rel_err": runner_up,
+        "rel_tol": SERVE_REL_TOL, "backwards_answers": backwards,
+        "torn_step": torn, "quarantined": quarantined,
+        "served_after_tear": served_after_tear,
+        "chaos": chaos_stats,
+        "executor_calls": calls, "warmup_registrations": warm_registrations,
+        "bn_relu_apply_launches": fwd, "bn_relu_bwd_launches": bwd,
+        "hbm_plan_bucket_%d_bytes" % buckets[-1]:
+            plan["buckets"][-1]["predicted_peak_hbm_bytes"] if plan else None,
+        "measured_warmup_peak_bucket_%d_bytes" % buckets[-1]:
+            peaks.get(buckets[-1]),
+        "warmup_peaks_bytes": {str(b): v for b, v in peaks.items()},
+        "peak_mem_bytes_since_last_warmup":
+            torch.cuda.max_memory_allocated() if cuda else None,
+        "window_s": window_wall, "trained_s": t_trained - t_window,
+        "phase_s": time.perf_counter() - t_phase,
+        "card": gpu_line() if cuda else None}
+    print("hot-swap loop (ResNet-50 v1 NHWC fp32 trained and served): %s"
+          % json.dumps(out))
+    check(not errors, "request errors: %s" % errors[:3])
+    check(dropped == rejects["shed"] == timeouts == 0,
+          "dropped %d, shed %d, timed out %d"
+          % (dropped, rejects["shed"], timeouts))
+    check(len(ok_swaps) >= HOTSWAP_MIN_SWAPS, "%d swaps in the window, "
+          "want >= %d" % (len(ok_swaps), HOTSWAP_MIN_SWAPS))
+    check(served_steps == sorted(set(served_steps)),
+          "served steps not strictly increasing: %s" % served_steps)
+    check(worst <= SERVE_REL_TOL, "an answer is %.3g from every published "
+          "step's batch-1 forward (tolerance %g)" % (worst, SERVE_REL_TOL))
+    check(backwards == 0, "%d answers went back to an older step than the "
+          "client's previous one" % backwards)
+    check(chaos_stats["injected"].get("serving.swap") == 1
+          and chaos_stats["survived"].get("serving.swap") == 1,
+          "the injected swap fault was not retried: %s" % chaos_stats)
+    check(quarantined == ["step_%08d.corrupt" % torn],
+          "quarantined %s, want step %d" % (quarantined, torn))
+    check(served_after_tear == last, "serving step %r after the tear, "
+          "want %r" % (served_after_tear, last))
+    check(tval("trainer.steps") == train_steps, "trainer.steps %r != %d"
+          % (tval("trainer.steps"), train_steps))
+    check(tval("serving.batches") == calls, "serving.batches %r != %d "
+          "executor calls" % (tval("serving.batches"), calls))
+    attempts = len(ok_swaps) + tval("serving.swap_failures")
+    check(warm_registrations == attempts, "%d warm-ups for %d swap "
+          "attempts" % (warm_registrations, attempts))
+    if sites:
+        check(fwd == sites * (train_steps + calls + warm_runs),
+              "bn_relu_apply launches %d != %d sites x (%d trainer steps + "
+              "%d executor calls + %d warm-up runs)"
+              % (fwd, sites, train_steps, calls, warm_runs))
+        check(bwd == sites * train_steps, "bn_relu_bwd launches %d != %d "
+              "sites x %d trainer steps" % (bwd, sites, train_steps))
+    check(tval("serving.requests") == len(flat), "serving.requests %r != "
+          "%d accepted" % (tval("serving.requests"), len(flat)))
+    check(tval("serving.latency", "count") == len(lat),
+          "serving.latency count %r != %d responses"
+          % (tval("serving.latency", "count"), len(lat)))
+    check(tval("serving.swaps") == len(ok_swaps), "serving.swaps %r != %d"
+          % (tval("serving.swaps"), len(ok_swaps)))
+    check(tval("train_loop.publishes") == len(window_publishes),
+          "train_loop.publishes %r != %d"
+          % (tval("train_loop.publishes"), len(window_publishes)))
+    out["launches"] = {
+        "bn_relu_apply": {"trainer": sites * train_steps,
+                          "servables": sites * calls,
+                          "warmups": sites * warm_runs, "total": fwd},
+        "bn_relu_bwd": {"trainer": sites * train_steps, "total": bwd}}
+    return out
+
+
+def generative_swap_phase(widths=GPT2_SMALL, max_new=DECODE_MAX_NEW,
+                          device="cuda", root=HOTSWAP_ROOT):
+    """A ``GenerativeWatcher`` serves ``tiny_gpt(**widths)`` from a
+    checkpoint's ``params`` item; eight streams are admitted on step 1,
+    each old decode step is held at the ``serving.decode.step`` fail
+    point until the replacement installs, step 2 (other weights) is
+    published and swapped in, and eight more streams are admitted on
+    it.  Every stream must finish its ``max_new`` tokens and equal the
+    greedy oracle of the weights it was admitted under; the old engine
+    ends with no live sequence; ``paged_attention`` launches once per
+    layer per decode step of both engines (the new one's warm-up
+    included)."""
+    from mxnet_tpu_torch import chaos
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.kernels import registry
+    from mxnet_tpu_torch.serving import GenerativeWatcher, ModelRegistry
+    from mxnet_tpu_torch.serving.decode import tiny_gpt
+    t_phase = time.perf_counter()
+    root = os.path.join(root, "gpt2")
+    shutil.rmtree(root, ignore_errors=True)
+    model = tiny_gpt(**widths)
+    params = {1: model.init_params(seed=0, device=device),
+              2: model.init_params(seed=1, device=device)}
+    mgr = CheckpointManager(root)
+    mgr.save(1, {"params": params[1]})
+    reg = ModelRegistry()
+    w = GenerativeWatcher(reg, "gpt2", mgr, model, device=device)
+    check(w.poll_once() == 1, "the generative watcher served no step 1")
+    old = reg.servable("gpt2")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, model.vocab_size, n).tolist()
+               for n in DECODE_PROMPT_LENGTHS]
+    registry.reset_launches()
+    steps_old0 = old.engine.decode_steps
+    chaos.reset()
+    submitted = threading.Event()
+    with chaos.scenario(seed=0):
+        deadline = time.perf_counter() + HOTSWAP_WAIT_S
+
+        def hold_until_swapped(ctx):
+            # once every stream is admitted, each old decode step waits
+            # for the replacement to install: the swap lands mid-decode
+            if not submitted.is_set() or old.engine.queue_depth():
+                return
+            while reg._servables.get("gpt2") is old \
+                    and time.perf_counter() < deadline:
+                time.sleep(0.002)
+
+        chaos.on("serving.decode.step", action=hold_until_swapped)
+        first = [reg.generate("gpt2", p, max_new) for p in prompts]
+        submitted.set()
+        heads = [next(s) for s in first]      # from prefill
+        live_before = old.engine.live_sequences()
+        mgr.save(2, {"params": params[2]})
+        t0 = time.perf_counter()
+        check(w.poll_once() == 2, "the generative watcher did not swap")
+        swap_s = time.perf_counter() - t0
+        new = reg.servable("gpt2")
+        second = [reg.generate("gpt2", p, max_new) for p in prompts]
+        toks_first = [[h] + s.tokens() for h, s in zip(heads, first)]
+        toks_second = [s.tokens() for s in second]
+        check(all(s.finish_reason == "length" for s in first + second),
+              "a stream ended early: %s" % [s.finish_reason
+                                            for s in first + second])
+        stats = chaos.stats()
+    live_after = old.engine.live_sequences()
+    active_after = old.engine.active_sequences()
+    steps_old = old.engine.decode_steps - steps_old0
+    steps_new = new.engine.decode_steps
+    reg.shutdown(drain=True)
+    w.close()
+    launches = registry.launches("paged_attention")
+    ties = 0
+    for streams, p in ((toks_first, params[1]), (toks_second, params[2])):
+        for prompt, toks in zip(prompts, streams):
+            check(len(toks) == max_new, "a stream ended after %d tokens"
+                  % len(toks))
+            ties += oracle_check(model, p, prompt, toks,
+                                 model.reference_decode(p, prompt, max_new))
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"streams_old": len(first), "streams_new": len(second),
+           "max_new": max_new, "live_at_swap": live_before,
+           "swap_s": swap_s, "old_engine_decode_steps": steps_old,
+           "new_engine_decode_steps_with_warmup": steps_new,
+           "paged_attention_launches": launches, "near_ties": ties,
+           "old_live_after_drain": live_after,
+           "old_active_after_drain": active_after,
+           "decode_swap_survived": stats["survived"].get(
+               "serving.decode_swap"),
+           "streams_differ_between_steps": toks_first != toks_second,
+           "phase_s": time.perf_counter() - t_phase,
+           "card": gpu_line() if device == "cuda" else None}
+    print("generative swap (GPT-2 small widths, mid-decode): %s"
+          % json.dumps(out))
+    check(live_before == len(prompts), "%d live sequences at the swap, "
+          "want %d" % (live_before, len(prompts)))
+    check(toks_first != toks_second, "the two steps' weights decode the "
+          "same streams")
+    check(live_after == active_after == 0, "the old engine kept %d live "
+          "(%d active) after its drain" % (live_after, active_after))
+    check(stats["survived"].get("serving.decode_swap") == 1,
+          "no drained mid-decode swap recorded: %s" % stats)
+    check(launches == model.num_layers * (steps_old + steps_new),
+          "paged_attention launches %d != %d layers x (%d old + %d new "
+          "decode steps)" % (launches, model.num_layers, steps_old,
+                             steps_new))
+    out["launches"] = {"paged_attention": {
+        "old_engine": model.num_layers * steps_old,
+        "new_engine": model.num_layers * steps_new, "total": launches}}
+    return out
+
+
 def kernel_entry(name, launches, kern, serve_launches=None, **extra):
     """One kernel's entry of the per-kernel JSON line; a kernel of the
     checkpoint-and-serve phase also gives its launches there, and
@@ -5516,14 +6042,36 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from mxnet_tpu_torch import _capture
-    # every capture and replay of the run under
+    # every capture and replay of phases 1-15 under
     # torch.cuda.set_sync_debug_mode("error"): a host read left inside a
     # captured region fails the run
     with _capture.checking_syncs():
-        return drive()
+        entries = drive()
+    # phase 16 captures a servable while another replays and reads its
+    # logits on the host and a trainer runs: the process-wide check is
+    # for runs that do one thing at a time, so it runs outside it
+    release_cuda()
+    print("hot-swap phases: outside the sync check (three threads use "
+          "the card at once)")
+    hot = hotswap_phase()
+    release_cuda()
+    gen = generative_swap_phase()
+    for entry in entries:
+        name = entry["name"]
+        if name in ("bn_relu_apply", "bn_relu_bwd", "paged_attention"):
+            entry["launches_hotswap"] = hot["launches"].get(
+                name, {"total": 0})
+            entry["launches_generative_swap"] = gen["launches"].get(
+                name, {"total": 0})
+    print(json.dumps({"kernels": entries}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def drive():
+    """Phases 1-15; returns the per-kernel entries of the JSON line."""
     import torch
     from mxnet_tpu_torch import _build
     print(gpu_line())
@@ -5648,7 +6196,7 @@ def drive():
                 "launch_dtypes_imagenet_input":
                     main["launch_dtypes"][name]}
 
-    print(json.dumps({"kernels": [
+    return [
         kernel_entry("paged_attention", decode["paged_attention_launches"],
                      attn, decode_ckpt["paged_attention_launches"]),
         kernel_entry("bn_relu_apply", train["bn_relu_apply_launches"],
@@ -5668,11 +6216,7 @@ def drive():
                      **bf16_path("layernorm_fwd")),
         kernel_entry("lamb_phase1", counts["lamb_phase1"], lamb),
         kernel_entry("lars_flat", lars["launches"]["lars_flat"], lars_k,
-                     **input_path("lars_flat"))]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+                     **input_path("lars_flat"))]
 
 
 if __name__ == "__main__":

@@ -49,21 +49,29 @@ It imports neither JAX nor anything of ``mxnet_tpu``.  Ported so far:
   :mod:`.dataio` (``DeviceFeed``, which lands batches on the card
   through a pinned ring behind the consumer's compute, and
   ``DeviceTransform``), with ``DataLoader(ctx=)`` and
-  ``TrainStep(DeviceBatch)``.
+  ``TrainStep(DeviceBatch)``;
+- the always-on train -> serve loop (``serving.loop``:
+  ``ContinuousTrainer``, ``RegistryWatcher``, ``GenerativeWatcher``) and
+  the ops-plane core it stands on: :mod:`.sync` (named locks with a
+  lock-order sanitizer and deadlock watchdog), :mod:`.telemetry`,
+  :mod:`.chaos` (fail points and scenarios), :mod:`.obs` (tracing and
+  the status board) and :mod:`.preemption`.
 
 ``import mxnet_tpu_torch as mx`` binds ``mx.parallel``, ``mx.serving``,
-``mx.kv``/``mx.kvstore``, ``mx.recordio``, ``mx.io``, ``mx.image`` and
-``mx.dataio`` as the JAX package's ``__init__`` does.
+``mx.kv``/``mx.kvstore``, ``mx.recordio``, ``mx.io``, ``mx.image``,
+``mx.dataio``, ``mx.sync``, ``mx.telemetry``, ``mx.obs``, ``mx.chaos``
+and ``mx.preemption`` as the JAX package's ``__init__`` does.
 
 Kernels and their plain versions are registered in :mod:`.kernels`.
 """
+from . import sync, telemetry, obs, chaos
 from . import amp, autograd, checkpoint, gluon, metric, optimizer, random
 from . import dataio, image, io, recordio
 from . import initializer
 from . import initializer as init
 from . import kvstore
 from . import kvstore as kv
-from . import parallel, serving
+from . import parallel, preemption, serving
 from . import ndarray as nd
 from .base import MXNetError
 from .context import (Context, cpu, cpu_pinned, current_context, gpu,
@@ -73,9 +81,9 @@ from .optimizer import lr_scheduler
 
 __version__ = "0.1.0"
 
-__all__ = ["Context", "MXNetError", "NDArray", "amp", "autograd",
+__all__ = ["Context", "MXNetError", "NDArray", "amp", "autograd", "chaos",
            "checkpoint", "cpu", "cpu_pinned", "current_context", "dataio",
            "gluon", "gpu", "image", "init", "initializer", "io", "kv",
-           "kvstore", "lr_scheduler", "metric", "nd", "num_gpus",
-           "optimizer", "parallel", "random", "recordio", "resolve_device",
-           "serving"]
+           "kvstore", "lr_scheduler", "metric", "nd", "num_gpus", "obs",
+           "optimizer", "parallel", "preemption", "random", "recordio",
+           "resolve_device", "serving", "sync", "telemetry"]

@@ -20,7 +20,7 @@ from pathlib import Path
 
 from .base import MXNetError
 
-__all__ = ["NVCC_FLAGS", "build_all", "load", "sources"]
+__all__ = ["NVCC_FLAGS", "build_all", "library_names", "load", "sources"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -34,6 +34,14 @@ _libs = {}
 def sources():
     """``{name: path}`` of every kernel source in ``csrc/``."""
     return {p.stem: p for p in sorted(_CSRC.glob("*.cu"))}
+
+
+def library_names():
+    """The file name of each kernel library, as :func:`build_all` names
+    it (a hash of the source, its headers and the flags): what a serving
+    fingerprint records of the kernels.  Reads no compiler and builds
+    nothing."""
+    return sorted(_target(src).name for src in sources().values())
 
 
 def _nvcc():

@@ -33,13 +33,21 @@ class LossScaler:
         return not bool(finite_all(grads))
 
     def update_scale(self, overflow):
-        """Adjust the scale after a step."""
+        """Adjust the scale after a step (``amp.*`` telemetry when it
+        is on)."""
+        from .. import telemetry as _telemetry
         if overflow:
+            before = self.loss_scale
             self.loss_scale = max(self._min_scale,
                                   self.loss_scale / self._scale_factor)
             self._unskipped = 0
+            if _telemetry._ENABLED:
+                _telemetry.hooks.amp_overflow(before, self.loss_scale)
         else:
             self._unskipped += 1
             if self._unskipped >= self._scale_window:
+                before = self.loss_scale
                 self.loss_scale *= self._scale_factor
                 self._unskipped = 0
+                if _telemetry._ENABLED:
+                    _telemetry.hooks.amp_rescale(before, self.loss_scale)

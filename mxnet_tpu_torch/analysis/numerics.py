@@ -22,8 +22,14 @@ group into one buffer for XLA to fuse, these reduce each array where it
 lies and combine the flags: the same answer without a copy of every
 gradient.
 
-The JAX package's static lints, HLO audit, chaos point and telemetry
-hooks are not part of the port.
+The ``numerics.nonfinite`` chaos point (armed with
+:func:`poison_action`) lets a test or a chaos run poison one batch with
+:func:`poison_nd`, so the fault flows through forward and backward and
+the sentinel, not the injector, must catch it; ``TrainStep`` and the
+continuous trainer visit it once a step.  Checks and detections count
+under the JAX package's ``numerics.*`` telemetry instruments, and
+:func:`status_row` is the ``/statusz`` row.  The JAX package's static
+lints and HLO audit are not part of the port.
 """
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ from ..bucketing import dtype_groups
 
 __all__ = ["NonFiniteError", "attribute_nonfinite", "check_enabled",
            "finite_all", "finite_sentinel", "finite_tree", "note_check",
-           "record_nonfinite"]
+           "poison_action", "poison_nd", "record_nonfinite", "status_row"]
 
 _CHECK = env.get("MXNET_TPU_NUMERICS_CHECK")
 
@@ -117,9 +123,14 @@ def attribute_nonfinite(named):
 
 
 def note_check(seconds):
-    """Book one sentinel check of ``seconds`` (its host read)."""
+    """Book one sentinel check of ``seconds`` (its host read): the
+    ``/statusz`` counter and the ``numerics.checks`` /
+    ``numerics.check_time`` instruments."""
     _STATE["checks"] += 1
     _STATE["check_seconds"] += seconds
+    from .. import telemetry as _telemetry
+    if _telemetry._ENABLED:
+        _telemetry.hooks.numerics_check(seconds)
 
 
 def finite_sentinel(named, step=None):
@@ -145,6 +156,47 @@ def finite_sentinel(named, step=None):
 
 
 def record_nonfinite(param, step, kind):
-    """Book a detected non-finite step."""
+    """Book a detected non-finite step: telemetry and the ``/statusz``
+    row."""
     _STATE["nonfinite"] += 1
     _STATE["last"] = {"param": param, "step": step, "kind": kind}
+    from .. import telemetry as _telemetry
+    if _telemetry._ENABLED:
+        _telemetry.hooks.numerics_nonfinite(param, step, kind)
+
+
+# -- chaos integration -------------------------------------------------
+
+def poison_action(ctx):
+    """The ``numerics.nonfinite`` chaos action: instead of raising,
+    mark the caller's ``box`` so IT poisons the in-flight batch with a
+    NaN -- the fault then flows through forward/backward and must be
+    caught by the sentinel, not by the injector.  Arm with::
+
+        chaos.on("numerics.nonfinite", numerics.poison_action, nth=3)
+    """
+    box = ctx.get("box")
+    if box is not None:
+        box["poison"] = True
+
+
+def poison_nd(x):
+    """A copy of a floating array (NDArray or tensor) with element 0 set
+    to NaN, in the wrapper it came in; any other array comes back as it
+    is."""
+    data = getattr(x, "_data", x)
+    if not data.is_floating_point():
+        return x
+    poisoned = data.detach().clone()
+    poisoned.view(-1)[0] = float("nan")
+    if hasattr(x, "_data"):
+        from ..ndarray import NDArray
+        return NDArray(poisoned)
+    return poisoned
+
+
+def status_row():
+    """The ``/statusz`` numerics row: sentinel arm state, checks run,
+    non-finite steps seen, and the last attribution."""
+    return {"armed": _CHECK, "checks": _STATE["checks"],
+            "nonfinite": _STATE["nonfinite"], "last": _STATE["last"]}

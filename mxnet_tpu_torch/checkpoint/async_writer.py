@@ -14,9 +14,13 @@ Contract:
 - **at most one in flight** -- a new save first drains the previous
   one, so checkpoints land in order and host memory holds at most one
   extra copy of the state;
-- **retries** -- a failed background write retries ``_RETRIES`` times
-  with exponential backoff from ``_BACKOFF_S`` seconds;
+- **retries** -- a failed background write (a full disk blip, an NFS
+  hiccup, an injected chaos fault at ``checkpoint.async_write``) retries
+  up to ``MXNET_TPU_CKPT_WRITE_RETRIES`` times with exponential backoff
+  from ``MXNET_TPU_CKPT_RETRY_BACKOFF_S`` seconds; a retry that lands
+  counts as ``chaos.survived.checkpoint.async_write``;
 - **errors are never swallowed** -- a write that fails every attempt is
+  surfaced through the ``checkpoint.write_failed`` telemetry event and
   stored and re-raised at the next ``save()``/``wait_until_finished()``;
 - ``wait_until_finished()`` is the durability barrier: after it returns
   the bytes are committed.
@@ -29,6 +33,9 @@ import time
 import numpy as np
 import torch
 
+from .. import chaos as _chaos
+from .. import sync as _sync
+from .. import telemetry as _telemetry
 from ..base import MXNetError
 
 __all__ = ["AsyncWriter", "snapshot_items"]
@@ -38,8 +45,16 @@ __all__ = ["AsyncWriter", "snapshot_items"]
 # advancing while the bytes are not yet on disk.
 _TEST_WRITE_GATE = None
 
-_RETRIES = 2
-_BACKOFF_S = 0.25
+
+def _env_default(name):
+    from .. import env as _env
+    return _env.get(name)
+
+
+# a writer's defaults when its constructor is given none, read from the
+# environment when the module loads
+_RETRIES = _env_default("MXNET_TPU_CKPT_WRITE_RETRIES")
+_BACKOFF_S = _env_default("MXNET_TPU_CKPT_RETRY_BACKOFF_S")
 
 
 def _to_host(value):
@@ -77,10 +92,13 @@ def snapshot_items(items):
 class AsyncWriter:
     """Background committer with the at-most-one-in-flight contract."""
 
-    def __init__(self):
+    def __init__(self, retries=None, backoff_s=None):
         self._thread = None
         self._error = None
-        self._lock = threading.Lock()
+        self._lock = _sync.Lock(name="checkpoint.async_writer")
+        self._retries = int(retries if retries is not None else _RETRIES)
+        self._backoff_s = float(backoff_s if backoff_s is not None
+                                else _BACKOFF_S)
 
     def check(self):
         """Re-raise (once) an error from a completed background save."""
@@ -91,28 +109,48 @@ class AsyncWriter:
 
     def submit(self, fn, step=None):
         """Run ``fn()`` on the writer thread after draining the previous
-        save (and re-raising its error)."""
+        save (recorded as ``checkpoint.async_wait``) and re-raising its
+        error; returns the seconds the drain took."""
+        t0 = time.perf_counter()
         self.wait_until_finished()
+        waited = time.perf_counter() - t0
+        if _telemetry._ENABLED:
+            _telemetry.hooks.checkpoint_wait(waited, step=step)
 
         def _run():
             gate = _TEST_WRITE_GATE
             if gate is not None:
                 gate.wait()
-            attempts = _RETRIES + 1
+            attempts = self._retries + 1
             for attempt in range(1, attempts + 1):
                 try:
+                    _chaos.fail_point("checkpoint.async_write",
+                                      step=step, attempt=attempt)
                     fn()
-                    return
                 except Exception as e:  # re-raised by check()
                     if attempt < attempts:
-                        time.sleep(_BACKOFF_S * (2 ** (attempt - 1)))
+                        # transient weather: back off and retry; the
+                        # staged dir is made anew, so a partial attempt
+                        # cannot poison the next one
+                        if _telemetry._ENABLED:
+                            _telemetry.hooks.checkpoint_retry(
+                                attempt, str(e), step=step)
+                        time.sleep(self._backoff_s * (2 ** (attempt - 1)))
                         continue
+                    if _telemetry._ENABLED:
+                        _telemetry.hooks.checkpoint_write_failed(
+                            attempts, str(e), step=step)
                     with self._lock:
                         self._error = e
+                else:
+                    if attempt > 1:
+                        _chaos.survived("checkpoint.async_write", "retry")
+                    return
 
         self._thread = threading.Thread(
             target=_run, name="mxtt-ckpt-writer-%s" % step, daemon=True)
         self._thread.start()
+        return waited
 
     def wait_until_finished(self):
         """Join the in-flight save (if any) and surface its error."""

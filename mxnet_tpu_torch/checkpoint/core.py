@@ -20,6 +20,13 @@ previous good step wins.  Retention (``max_to_keep`` /
 ``keep_every_n_steps``) and async writing (:mod:`.async_writer`) hang
 off the manager.
 
+The chaos fail points ``checkpoint.commit.pre_manifest`` (data files
+staged, manifest not yet written: the kill-mid-commit spot) and
+``checkpoint.commit.post_commit`` (after the publishing rename: a
+corruption there is what verification and quarantine exist to catch)
+sit where the JAX package has them, and saves, restores and
+quarantines count under its ``checkpoint.*`` telemetry.
+
 Files and manifests are the JAX package's: a step written by either
 package restores in the other.  Restored arrays come back on the host;
 :meth:`CheckpointManager.restore_training` copies each into its
@@ -31,9 +38,13 @@ import json
 import os
 import re
 import shutil
+import time
 import warnings
 import zlib
 
+from .. import chaos as _chaos
+from .. import obs as _obs
+from .. import telemetry as _telemetry
 from ..base import MXNetError
 
 __all__ = [
@@ -294,14 +305,24 @@ class CheckpointManager:
       thread; at most one save in flight, a writer error re-raised at
       the next ``save``/``wait_until_finished``;
 
-    A step that fails verification during :meth:`latest_step` is
-    renamed ``step_<N>.corrupt`` (quarantined) instead of silently
-    skipped.
+    - ``quarantine`` (``MXNET_TPU_CKPT_QUARANTINE``, default on): a
+      step that fails verification during :meth:`latest_step` is
+      renamed ``step_<N>.corrupt`` (counted in
+      ``checkpoint.quarantined``) instead of silently skipped.
+
+    ``sharded=`` is the JAX package's multi-process layout; it waits for
+    the multi-device slice (ROADMAP item 9) and raises if asked for.
     """
 
     def __init__(self, root, max_to_keep=None, keep_every_n_steps=None,
-                 async_save=None):
+                 async_save=None, sharded=None, quarantine=None):
         from .. import env as _env
+        if sharded:
+            raise CheckpointError("sharded checkpoints are not ported yet "
+                                  "(ROADMAP item 9)")
+        if quarantine is None:
+            quarantine = _env.get("MXNET_TPU_CKPT_QUARANTINE")
+        self.quarantine = bool(quarantine)
         self.root = os.fspath(root)
         if max_to_keep is None:
             max_to_keep = _env.get("MXNET_TPU_CKPT_MAX_TO_KEEP") or None
@@ -356,7 +377,11 @@ class CheckpointManager:
     def _quarantine_step(self, step):
         """Rename a step dir that failed verification to
         ``<dir>.corrupt``, so the rollback is visible and the torn bytes
-        stay as evidence."""
+        stay as evidence (a no-op with ``quarantine`` off).  Tolerant of
+        a concurrent writer re-saving the step or another process
+        quarantining first."""
+        if not self.quarantine:
+            return False
         src = self.step_dir(step)
         dst = src + ".corrupt"
         try:
@@ -365,6 +390,9 @@ class CheckpointManager:
             os.replace(src, dst)
         except OSError:
             return False
+        if _telemetry._ENABLED:
+            _telemetry.hooks.checkpoint_quarantine(step, dst)
+        _chaos.survived("checkpoint.commit", "quarantine")
         return True
 
     def latest_step(self):
@@ -389,6 +417,7 @@ class CheckpointManager:
         if self._writer is not None:
             self._writer.check()        # re-raise a prior writer error
         from .async_writer import snapshot_items
+        t0 = time.perf_counter()
         snapshot = snapshot_items(items)
 
         def _write():
@@ -398,13 +427,33 @@ class CheckpointManager:
 
         if self._writer is not None:
             self._writer.submit(_write, step=step)
+            self._record_save(step, None, time.perf_counter() - t0,
+                              async_save=True)
         else:
-            _write()
+            nbytes = _write()
+            self._record_save(step, nbytes, time.perf_counter() - t0,
+                              async_save=False)
+
+    def _record_save(self, step, nbytes, seconds, async_save):
+        if _telemetry._ENABLED:
+            _telemetry.hooks.checkpoint("save", nbytes=nbytes,
+                                        seconds=seconds, step=step,
+                                        root=self.root,
+                                        async_save=async_save)
 
     def _write_step(self, step, snapshot, metadata):
         """Serialize a host snapshot into a staged dir and commit it;
         returns the bytes written.  Runs on the writer thread under
         async saves."""
+        sp = _obs.begin_span("checkpoint.commit", step=step) \
+            if _obs._TRACE_ENABLED else None
+        try:
+            return self._write_step_inner(step, snapshot, metadata)
+        finally:
+            if sp is not None:
+                _obs.end_span(sp)
+
+    def _write_step_inner(self, step, snapshot, metadata):
         final = self.step_dir(step)
         staging = "%s.%d.tmp" % (final, os.getpid())
         if os.path.isdir(staging):
@@ -429,6 +478,11 @@ class CheckpointManager:
                 json.dump(manifest, f, indent=1, sort_keys=True)
                 f.flush()
                 os.fsync(f.fileno())
+        # chaos: a KILL here is the canonical kill-mid-commit -- data
+        # files staged, manifest absent -- which must cost at most one
+        # step, never the job
+        _chaos.fail_point("checkpoint.commit.pre_manifest", step=step,
+                          path=staging)
         # manifest LAST: its presence asserts every data file above it
         # is complete, so the rename below publishes all-or-nothing
         commit(os.path.join(staging, MANIFEST_NAME), _write_manifest)
@@ -438,6 +492,11 @@ class CheckpointManager:
         os.replace(staging, final)
         _fsync_dir(self.root)
         sweep_stale_tmps(self.root)
+        # chaos: corruption AFTER the atomic publish models bit-rot or a
+        # non-atomic foreign writer -- what manifest verification and
+        # quarantine exist to catch
+        _chaos.fail_point("checkpoint.commit.post_commit", step=step,
+                          path=final)
         return total
 
     def _apply_retention(self):
@@ -457,6 +516,7 @@ class CheckpointManager:
         CheckpointError if it fails verification).  Arrays come back as
         NDArrays on the host."""
         self.wait_until_finished()
+        t0 = time.perf_counter()
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -473,6 +533,13 @@ class CheckpointManager:
         dirpath = self.step_dir(step)
         items = {entry.get("item", fname): read_item(dirpath, fname, entry)
                  for fname, entry in sorted(manifest["files"].items())}
+        if _telemetry._ENABLED:
+            _telemetry.hooks.checkpoint(
+                "restore",
+                nbytes=sum(e.get("bytes", 0)
+                           for e in manifest["files"].values()),
+                seconds=time.perf_counter() - t0, step=step,
+                root=self.root)
         return Checkpoint(step, items, manifest.get("metadata", {}))
 
     # -- training-loop conveniences ------------------------------------

@@ -1,8 +1,9 @@
 """Typed registry of the ``MXNET_*`` environment variables the port reads.
 
 Counterpart of ``mxnet_tpu/env.py``, holding only the variables the
-port reads: checkpoints, serving, the numerics sentinel and the device
-feed.  Names, defaults and the boolean convention (only ``"0"`` is
+port reads: checkpoints, serving and the always-on loop, the numerics
+sentinel, the device feed, telemetry, tracing, chaos and the
+concurrency sanitizer.  Names, defaults and the boolean convention (only ``"0"`` is
 false) are the JAX package's, so one environment configures both.
 """
 from __future__ import annotations
@@ -91,6 +92,89 @@ _VARS = [
            "'0' casts on the host to the transform's dtype before the "
            "copy (A/B numerics debugging).  Per-feed override: "
            "DeviceFeed(compact=...)."),
+    EnvVar("MXNET_CHECKPOINT_ON_SIGTERM", str, "",
+           "Checkpoint prefix used by preemption.install() when no "
+           "prefix argument is given: SIGTERM drains pending work and "
+           "writes <prefix>-preempt.params/.states/.meta before exit."),
+    EnvVar("MXNET_TPU_TELEMETRY", bool, False,
+           "'1' enables the runtime telemetry subsystem (telemetry) at "
+           "import: counters/timers/events over serving, decode, "
+           "checkpoints, the trainer, AMP, the numerics sentinel, "
+           "chaos and preemption.  Off (the default), every hook is a "
+           "single module-flag check with zero instrument calls.  "
+           "Runtime toggle: telemetry.enable()/disable()."),
+    EnvVar("MXNET_TPU_TELEMETRY_JSONL", str, "",
+           "Path of the telemetry JSONL run log, attached at import "
+           "(events and timer samples stream; the aggregate snapshot "
+           "lands at exit or telemetry.flush())."),
+    EnvVar("MXNET_TPU_TSAN", bool, False,
+           "'1' arms the concurrency sanitizer (sync): every "
+           "Lock/RLock/Condition/Event the framework creates records "
+           "per-thread acquisition stacks, keeps the lock-order graph "
+           "and raises LockOrderError on an A/B-B/A inversion, and "
+           "time-bounds every untimed blocking acquisition/wait with a "
+           "deadlock watchdog that dumps all thread stacks.  Off (the "
+           "default), the factories return raw threading primitives."),
+    EnvVar("MXNET_TPU_TSAN_WATCHDOG_S", float, 20.0,
+           "Deadlock-watchdog budget (seconds) for untimed lock "
+           "acquisitions and Condition/Event waits under "
+           "MXNET_TPU_TSAN=1."),
+    EnvVar("MXNET_TPU_CKPT_QUARANTINE", bool, True,
+           "Checkpoint discovery quarantine: a step that fails "
+           "manifest/CRC verification during "
+           "CheckpointManager.latest_step() is renamed step_<N>.corrupt "
+           "(counted in checkpoint.quarantined) instead of silently "
+           "skipped.  '0' restores skip-only discovery.  Per-manager "
+           "override: CheckpointManager(quarantine=...)."),
+    EnvVar("MXNET_TPU_CKPT_WRITE_RETRIES", int, 2,
+           "How many times the async checkpoint writer retries a failed "
+           "background write (exponential backoff from "
+           "MXNET_TPU_CKPT_RETRY_BACKOFF_S) before surfacing the error "
+           "through the checkpoint.write_failed telemetry event and the "
+           "next save()/wait_until_finished().  Per-writer override: "
+           "AsyncWriter(retries=...)."),
+    EnvVar("MXNET_TPU_CKPT_RETRY_BACKOFF_S", float, 0.25,
+           "Initial backoff (seconds) between async checkpoint write "
+           "retries; doubles per attempt."),
+    EnvVar("MXNET_TPU_CHAOS_SEED", int, 0,
+           "Default seed for chaos.arm(): per-rule probability streams "
+           "derive from (seed, fail point, rule index), so a chaos "
+           "scenario replays identically for a fixed seed.  Chaos is "
+           "only ever armed programmatically."),
+    EnvVar("MXNET_TPU_CHAOS_SPEC", str, "",
+           "Serialized chaos scenario (chaos.make_spec() JSON) that a "
+           "launched process replays only by calling "
+           "chaos.arm_from_spec(); never arms anything by itself."),
+    EnvVar("MXNET_TPU_SERVING_POLL_S", float, 0.5,
+           "RegistryWatcher poll interval (seconds).  Per-watcher "
+           "override: RegistryWatcher(poll_s=...)."),
+    EnvVar("MXNET_TPU_SERVING_SWAP_RETRIES", int, 2,
+           "How many times a RegistryWatcher retries an aborted "
+           "hot-swap (exponential backoff from "
+           "MXNET_TPU_SERVING_SWAP_BACKOFF_S) before marking the step "
+           "bad and keeping the previous model in service."),
+    EnvVar("MXNET_TPU_SERVING_SWAP_BACKOFF_S", float, 0.25,
+           "Initial backoff (seconds) between hot-swap retries; doubles "
+           "per attempt."),
+    EnvVar("MXNET_TPU_SERVING_SWAP_BUDGET", int, 3,
+           "RegistryWatcher failure budget: after this many CONSECUTIVE "
+           "steps fail to swap (each already retried), the watcher "
+           "suspends itself instead of flapping; the last good model "
+           "keeps serving."),
+    EnvVar("MXNET_TPU_OBS_TRACE", bool, False,
+           "'1' arms request/step tracing (obs): trace/span IDs through "
+           "the serving path and the training loop, streamed into the "
+           "telemetry sinks as span records and exportable as "
+           "Chrome-trace JSON (obs.export_chrome_trace).  Off (the "
+           "default), every traced site is a single module-flag check."),
+    EnvVar("MXNET_TPU_OBS_GOODPUT", bool, False,
+           "The goodput ledger of the JAX package's ops plane; not "
+           "ported yet (ROADMAP item 8): '1' makes the continuous "
+           "trainer raise."),
+    EnvVar("MXNET_TPU_MEMORY_WATCH", bool, False,
+           "The live-buffer leak sentinel of the JAX package's ops "
+           "plane; not ported yet (ROADMAP item 8): '1' makes the "
+           "continuous trainer raise."),
 ]
 
 REGISTRY = {v.name: v for v in _VARS}

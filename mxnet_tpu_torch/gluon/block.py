@@ -60,6 +60,11 @@ makes no entry.  A parameter rebound since capture (``load_parameters``
 of running statistics, ``cast``) makes the entry capture again.  A
 hybridized child inside a hybridized parent (or a ``TrainStep``, a
 serving pool) runs its plain forward as part of the owner's program.
+
+:func:`param_values_from` runs forwards over other tensors than the
+parameters' own, in the calling thread only: a servable reads its
+snapshot of the weights through it while the same block trains in
+another thread (the JAX package's pure function over a parameter dict).
 """
 from __future__ import annotations
 
@@ -81,9 +86,23 @@ from ..ndarray import ndarray as _nd_mod
 from .parameter import (DeferredInitializationError, Parameter,
                         ParameterDict, shape_is_known)
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "param_values_from"]
 
 _naming = threading.local()
+_bound = threading.local()
+
+
+@contextlib.contextmanager
+def param_values_from(values):
+    """Within the scope, in this thread, a block's forward reads
+    ``values[p]`` in place of each :class:`Parameter` ``p`` it names
+    (others read their own tensor)."""
+    prev = getattr(_bound, "values", None)
+    _bound.values = values
+    try:
+        yield
+    finally:
+        _bound.values = prev
 
 
 def _naming_state():
@@ -525,6 +544,10 @@ class HybridBlock(Block):
             self._infer_and_finish(*args)
             for p in self._reg_params.values():
                 p._check_initialized()
+        bound = getattr(_bound, "values", None)
+        if bound is not None:
+            return {k: bound.get(p, p._data)
+                    for k, p in self._reg_params.items()}
         return {k: p._data for k, p in self._reg_params.items()}
 
     def forward(self, *args):

@@ -30,16 +30,22 @@ init_trainer`), ``step`` folds ``1 / loss_scale`` into ``rescale_grad``
 gradients), checks every reduced gradient for overflow, updates the
 scale, and on overflow skips the whole update.
 
+With telemetry on, ``step`` records ``trainer.step_time``,
+``trainer.steps`` and ``trainer.samples`` as the JAX package does.
+
 ``save_states``/``load_states`` write and read the optimizer state blob
 of :meth:`~mxnet_tpu_torch.optimizer.Updater.get_states`; the write is
 atomic (:func:`mxnet_tpu_torch.checkpoint.atomic_write_bytes`).
 """
 from __future__ import annotations
 
+import time
+
 import torch
 
 from .. import kvstore as kvs
 from .. import optimizer as opt
+from .. import telemetry as _telemetry
 from ..base import MXNetError
 from .parameter import Parameter, ParameterDict
 
@@ -107,7 +113,18 @@ class Trainer:
 
     def step(self, batch_size, ignore_stale_grad=False):
         """Reduce the gradients through the kvstore, then apply the
-        optimizer to every parameter with a gradient."""
+        optimizer to every parameter with a gradient (``trainer.*``
+        telemetry when it is on: the host wall of the call, which does
+        not wait for the card)."""
+        t0 = time.perf_counter() if _telemetry._ENABLED else None
+        try:
+            self._step(batch_size, ignore_stale_grad)
+        finally:
+            if t0 is not None:
+                _telemetry.hooks.trainer_step(time.perf_counter() - t0,
+                                              batch_size)
+
+    def _step(self, batch_size, ignore_stale_grad):
         self._optimizer.rescale_grad = self._scale / batch_size
         self.allreduce_grads()
         scaler = getattr(self, "_amp_loss_scaler", None)

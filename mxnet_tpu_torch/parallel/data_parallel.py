@@ -73,6 +73,7 @@ import torch
 from .. import _capture
 from .. import amp as _amp
 from .. import autograd
+from .. import chaos as _chaos
 from .. import random as _random
 from ..analysis import numerics as _numerics
 from ..amp.loss_scaler import all_finite
@@ -380,6 +381,14 @@ class TrainStep:
         data = self._stage(data, device)
         label = self._stage(label, device)
         live = self._prepare(data)
+        # numerics.nonfinite chaos point: poison_action marks the box
+        # and THIS step injects the NaN into its own batch, so the fault
+        # flows through forward/backward and the sentinel must catch it
+        box = {}
+        _chaos.fail_point("numerics.nonfinite", box=box,
+                          step=self._trainer._optimizer.num_update + 1)
+        if box.get("poison"):
+            data = _numerics.poison_nd(data)
         if not _numerics.check_enabled():
             return self._step(live, data, label, batch_size)
         gen = _random.generator(device)

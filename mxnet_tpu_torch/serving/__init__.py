@@ -2,20 +2,34 @@
 (counterpart of ``mxnet_tpu/serving``):
 
 - the fixed-shape tier: ``ModelRegistry.register(block=, checkpoint=)``
-  -> :class:`DynamicBatcher` -> :class:`BucketExecutorPool`, one eager
-  inference forward per padded batch bucket;
+  -> :class:`DynamicBatcher` -> :class:`BucketExecutorPool`, one
+  captured CUDA graph per padded batch bucket on the card;
 - the generative tier: ``ModelRegistry.register_generative`` /
-  ``generate`` over the :mod:`.decode` engine.
+  ``generate`` over the :mod:`.decode` engine;
+- the always-on loop (``loop.py``): :class:`ContinuousTrainer` publishes
+  atomic checkpoints while :class:`RegistryWatcher` (and, for a
+  decoder, :class:`GenerativeWatcher`) discovers each new verified step
+  and hot-swaps the servable with zero dropped requests.
 
-The JAX package's compile cache and StableHLO fingerprints, ``symbol=``
-and ``onnx=`` sources, ``RegistryWatcher`` and telemetry are not ported
-yet.
+The exports are the JAX package's, less its ``CompileCache`` and
+``stablehlo_fingerprint``: CUDA graphs have no portable serialized form
+to cache, and there is no StableHLO (ROADMAP, port conventions).
+``symbol=`` and ``onnx=`` sources are not ported yet.
 """
 from .batcher import (DynamicBatcher, RequestTimeout, ServableClosed,
                       ServingQueueFull)
+from .decode import (DecodeEngine, GenerationStream, GenerativeServable,
+                     GenerativeWatcher, KVCacheExhausted, PagedKVCache,
+                     TinyGPT, tiny_gpt)
 from .executor import BucketExecutorPool
+from .loop import ContinuousTrainer, RegistryWatcher
 from .registry import ModelRegistry, Servable
 
-__all__ = ["BucketExecutorPool", "DynamicBatcher", "ModelRegistry",
-           "RequestTimeout", "Servable", "ServableClosed",
-           "ServingQueueFull"]
+__all__ = [
+    "ModelRegistry", "Servable", "DynamicBatcher", "BucketExecutorPool",
+    "ContinuousTrainer", "RegistryWatcher",
+    "ServingQueueFull", "RequestTimeout", "ServableClosed",
+    "DecodeEngine", "GenerationStream", "GenerativeServable",
+    "GenerativeWatcher", "KVCacheExhausted", "PagedKVCache",
+    "TinyGPT", "tiny_gpt",
+]

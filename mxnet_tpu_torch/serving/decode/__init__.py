@@ -5,6 +5,8 @@
 - :class:`~.engine.DecodeEngine` -- bucketed prefill and decode with
   continuous batching and whole-budget admission;
 - :class:`~.engine.GenerativeServable` -- the registry's handle;
+- :class:`~.engine.GenerativeWatcher` -- hot-swaps a generative
+  servable to each new verified checkpoint step, mid-decode;
 - :class:`~.model.TinyGPT` -- a GPT-style decoder in pure-function
   form whose decode step attends through the Hopper ``paged_attention``
   kernel (``kernels.paged_attention``);
@@ -12,11 +14,12 @@
   across by name.
 """
 from .convert import params_from_numpy
-from .engine import DecodeEngine, GenerationStream, GenerativeServable
+from .engine import (DecodeEngine, GenerationStream, GenerativeServable,
+                     GenerativeWatcher)
 from .kvcache import (SCRATCH_BLOCK, BlockTable, KVCacheExhausted,
                       PagedKVCache)
 from .model import TinyGPT, tiny_gpt
 
 __all__ = ["BlockTable", "DecodeEngine", "GenerationStream",
-           "GenerativeServable", "KVCacheExhausted", "PagedKVCache",
+           "GenerativeServable", "GenerativeWatcher", "KVCacheExhausted", "PagedKVCache",
            "SCRATCH_BLOCK", "TinyGPT", "params_from_numpy", "tiny_gpt"]

@@ -17,12 +17,17 @@ __all__ = ["params_from_numpy"]
 
 
 def params_from_numpy(params, device=None, dtype=None):
-    """``{name: array}`` -> ``{name: tensor on device}``; ``dtype``
-    casts every tensor when given, else each keeps its own."""
+    """``{name: array}`` -> ``{name: tensor on device}``, each a fresh
+    tensor (never the caller's own); ``dtype`` casts every tensor when
+    given, else each keeps its own."""
     dev = resolve_device(device)
     out = {}
     for name, value in params.items():
-        t = value if isinstance(value, torch.Tensor) \
-            else torch.from_numpy(np.array(value, copy=True))
-        out[name] = t.to(device=dev, dtype=dtype or t.dtype)
+        if isinstance(value, torch.Tensor):
+            out[name] = value.detach().to(device=dev,
+                                          dtype=dtype or value.dtype,
+                                          copy=True)
+        else:
+            t = torch.from_numpy(np.array(value, copy=True))
+            out[name] = t.to(device=dev, dtype=dtype or t.dtype)
     return out

@@ -12,9 +12,11 @@ decode, continuous batching, token streaming (counterpart of
   the matmul libraries' set-up), then captures and replays it.  A
   decode graph reads tokens, positions and block tables from static
   buffers that each step refreshes with ``copy_``, and writes the new
-  K/V into the cache slabs, allocated once; a prefill graph's K/V go
-  into the cache blocks after its replay, by an eager scatter over
-  host-computed positions.  On the CPU every bucket runs eagerly.
+  K/V into the cache slabs, allocated once; a prefill graph reads the
+  prompt, its block table and its true length the same way and
+  scatters the prompt's K/V into the cache blocks inside the graph
+  (positions past the true length land in the scratch block), as the
+  JAX prefill program does.  On the CPU every bucket runs eagerly.
 - **continuous batching**: one worker thread runs an admit-then-step
   loop.  Pending requests join the RUNNING batch at a step boundary
   (one prefill each), finished sequences vacate their slot the step
@@ -28,12 +30,26 @@ decode, continuous batching, token streaming (counterpart of
 
 Hot swap: re-registering a :class:`GenerativeServable` installs the
 replacement for new requests while the old engine's
-``close(drain=True)`` steps its half-generated sequences to completion.
+``close(drain=True)`` steps its half-generated sequences to completion;
+:class:`GenerativeWatcher` drives that swap from a checkpoint root.
+Each engine's graphs live on its own capture stream, so the old and the
+new engine keep separate paged-attention scratch.
+
+The chaos fail points ``serving.decode.prefill`` and
+``serving.decode.step`` sit before each program call; the ``decode.*``
+telemetry and the ``serving.decode_step`` / ``serving.request`` spans
+are the JAX package's.  :meth:`DecodeEngine.fingerprint` is a stable
+digest of what a bucket's graph computes (the model's geometry, the
+parameters' names, shapes and dtypes, the bucket's input shapes, the
+cache's geometry and dtype, the backend settings and the kernel
+libraries).
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import hashlib
+import json
 import queue as _queue_mod
 import threading
 import time
@@ -41,14 +57,20 @@ import time
 import numpy as np
 import torch
 
-from ... import _capture
+from ... import _build, _capture
+from ... import chaos as _chaos
+from ... import obs as _obs
+from ... import sync as _sync
+from ... import telemetry as _telemetry
 from ...base import MXNetError
 from ...context import resolve_device
 from ...ops.paged_attention import reserve_scratch, scratch_sizes
 from ..batcher import RequestTimeout, ServableClosed, ServingQueueFull
+from ..loop import RegistryWatcher as _RegistryWatcher
 from .kvcache import SCRATCH_BLOCK, KVCacheExhausted, PagedKVCache
 
-__all__ = ["DecodeEngine", "GenerationStream", "GenerativeServable"]
+__all__ = ["DecodeEngine", "GenerationStream", "GenerativeServable",
+           "GenerativeWatcher"]
 
 _IDLE_WAIT_S = 0.05
 _DONE = object()
@@ -130,7 +152,8 @@ class GenerationStream:
 
 class _GenRequest:
     __slots__ = ("prompt", "max_new", "eos_id", "table", "stream",
-                 "deadline", "generated", "last_token", "t_submit")
+                 "deadline", "generated", "last_token", "t_submit",
+                 "t_last_emit", "tctx")
 
     def __init__(self, prompt, max_new, eos_id, table, stream, timeout):
         self.prompt = prompt
@@ -142,6 +165,8 @@ class _GenRequest:
         self.deadline = (self.t_submit + timeout) if timeout else None
         self.generated = 0
         self.last_token = None
+        self.t_last_emit = None
+        self.tctx = None
 
     @property
     def position(self):
@@ -215,7 +240,8 @@ class DecodeEngine:
                              else _env.get("MXNET_TPU_SERVING_QUEUE"))
         self.max_slots = self.decode_buckets[-1]
         self.decode_steps = 0           # decode-step runs, warm-up included
-        self._cond = threading.Condition()
+        self._fingerprints = {}         # (kind, bucket) -> digest
+        self._cond = _sync.Condition(name="serving.decode")
         self._pending = collections.deque()
         self._active = []
         self._closed = False
@@ -226,9 +252,6 @@ class DecodeEngine:
                                           self.device)
 
     # -- the two programs -----------------------------------------------
-    def _to_device(self, array):
-        return torch.from_numpy(array).to(self.device)
-
     def capture_stats(self):
         """Graphs captured, seconds capturing, pool bytes, replays."""
         return self._owner.stats()
@@ -242,20 +265,31 @@ class DecodeEngine:
                                [torch.from_numpy(a) for a in arrays],
                                what="%s bucket %d" % (kind, bucket))
 
+    def _prefill_body(self, tokens, table, true_len):
+        """The prefill program: tokens (1, bucket), table (max_blocks,)
+        and true_len (1,) int32 tensors -> the first generated token,
+        (1,).  The prompt's K/V go into the cache blocks in place;
+        padded positions write the scratch block."""
+        bs = self.cache.block_size
+        logits, ks, vs = self.model.prefill_kv(self.params, tokens)
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        blk = torch.where(pos < true_len, table.long()[pos // bs],
+                          SCRATCH_BLOCK)
+        off = pos % bs
+        self.cache.keys[:, blk, off] = ks.to(self.cache.dtype)
+        self.cache.values[:, blk, off] = vs.to(self.cache.dtype)
+        last = logits[0].index_select(0, true_len.long() - 1)
+        return last.argmax(dim=-1)
+
     def _run_prefill(self, tokens, table, true_len):
         """tokens (1, bucket) int32, table (max_blocks,) int32 -> first
-        generated token.  The prompt's K/V go into the cache in place."""
-        bs = self.cache.block_size
-        logits, ks, vs = self._program(
-            "prefill", tokens.shape[1], [tokens],
-            lambda t: self.model.prefill_kv(self.params, t))
-        pos = np.arange(true_len)
-        blk = self._to_device(table[pos // bs].astype(np.int64))
-        off = self._to_device(pos % bs)
-        self.cache.keys[:, blk, off] = ks[:, :true_len].to(self.cache.dtype)
-        self.cache.values[:, blk, off] = vs[:, :true_len].to(
-            self.cache.dtype)
-        return int(logits[0, true_len - 1].argmax())
+        generated token.  The prompt's K/V go into the cache in place,
+        inside the program."""
+        first = self._program(
+            "prefill", tokens.shape[1],
+            [tokens, table.astype(np.int32),
+             np.array([true_len], np.int32)], self._prefill_body)
+        return int(first[0])
 
     def _run_decode(self, tokens, positions, tables):
         """One decode step over (bucket,) tokens/positions and
@@ -301,7 +335,34 @@ class DecodeEngine:
                     self._run_decode(
                         np.zeros((s,), np.int32), np.zeros((s,), np.int32),
                         np.full((s, mb), SCRATCH_BLOCK, np.int32))
-        return time.perf_counter() - t0
+        for kind, buckets, shapes in (
+                ("prefill", self.prefill_buckets,
+                 lambda b: [[1, b], [mb], [1]]),
+                ("decode", self.decode_buckets,
+                 lambda b: [[b], [b], [b, mb]])):
+            for b in buckets:
+                self._fingerprints[(kind, b)] = self._digest(kind,
+                                                             shapes(b))
+        dt = time.perf_counter() - t0
+        if _telemetry._ENABLED:
+            _telemetry.hooks.serving_warmup(
+                self._label, dt,
+                len(self.prefill_buckets) + len(self.decode_buckets))
+        return dt
+
+    def _digest(self, kind, input_shapes):
+        m = self.model
+        doc = {"model": [type(m).__name__, m.vocab_size, m.units,
+                         m.num_layers, m.num_heads, m.max_seq],
+               "params": [[k, list(v.shape), str(v.dtype)]
+                          for k, v in sorted(self.params.items())],
+               "program": kind, "inputs": input_shapes,
+               "cache": [self.cache.block_size, self.cache.num_blocks,
+                         str(self.cache.dtype)],
+               "backend": list(_capture._backend_flags()),
+               "kernels": _build.library_names()}
+        return hashlib.sha256(json.dumps(doc, sort_keys=True).encode()
+                              ).hexdigest()
 
     def _bucket(self, buckets, n, what):
         for b in buckets:
@@ -338,19 +399,29 @@ class DecodeEngine:
                 raise ServableClosed("generative servable %r is closed"
                                      % self._label)
             if len(self._pending) >= self.max_queue:
+                if _telemetry._ENABLED:
+                    _telemetry.hooks.decode_shed(self._label, "queue")
                 raise ServingQueueFull(
                     "generative servable %r pending queue full (%d)"
                     % (self._label, self.max_queue))
             try:
                 table = self.cache.allocate(total)
             except KVCacheExhausted as e:
+                if _telemetry._ENABLED:
+                    _telemetry.hooks.decode_shed(self._label, "kvcache")
                 raise ServingQueueFull(
                     "generative servable %r shed at admission: %s"
                     % (self._label, e)) from e
             stream = GenerationStream(self._label, len(prompt), max_new)
-            self._pending.append(_GenRequest(prompt, max_new, eos_id,
-                                             table, stream, timeout))
+            req = _GenRequest(prompt, max_new, eos_id, table, stream,
+                              timeout)
+            if _obs._TRACE_ENABLED:
+                req.tctx = _obs.trace.fresh_context()
+            self._pending.append(req)
+            depth = len(self._pending)
             self._cond.notify()
+        if _telemetry._ENABLED:
+            _telemetry.hooks.decode_request(self._label, depth)
         return stream
 
     # -- the loop -------------------------------------------------------
@@ -409,6 +480,8 @@ class DecodeEngine:
                 req.stream._finish("timeout", error=RequestTimeout(
                     "generation waited %.1fms > timeout while queued"
                     % (1e3 * (now - req.t_submit))))
+                if _telemetry._ENABLED:
+                    _telemetry.hooks.serving_timeout(self._label)
                 continue
             self._prefill(req)
 
@@ -419,14 +492,24 @@ class DecodeEngine:
         tokens[0, :len(req.prompt)] = req.prompt
         table = self.cache.padded_table(req.table,
                                         self.max_blocks_per_seq)
+        t0 = time.perf_counter()
         try:
+            _chaos.fail_point("serving.decode.prefill",
+                              model=self._label, bucket=bucket)
             first = self._run_prefill(tokens, table, len(req.prompt))
         except Exception as e:  # the loop must keep serving the others
+            if _telemetry._ENABLED:
+                _telemetry.hooks.serving_error(self._label)
             self.cache.free(req.table)
             req.stream._finish("error", error=e)
             return
         self.cache.note_tokens(req.table, len(req.prompt) + 1)
-        self._emit(req, first, time.perf_counter())
+        now = time.perf_counter()
+        if _telemetry._ENABLED:
+            _telemetry.hooks.decode_prefill(self._label, bucket,
+                                            len(req.prompt), now - t0)
+            _telemetry.hooks.decode_ttft(now - req.t_submit)
+        self._emit(req, first, t0, now)
         if not self._maybe_finish(req):
             self._active.append(req)
 
@@ -443,18 +526,25 @@ class DecodeEngine:
             positions[i] = req.position
             tables[i] = self.cache.padded_table(
                 req.table, self.max_blocks_per_seq)
+        t0 = time.perf_counter()
         try:
+            _chaos.fail_point("serving.decode.step", model=self._label,
+                              occupancy=n, bucket=bucket)
             out = self._run_decode(tokens, positions, tables)
         except Exception as e:  # fail the batch, keep the loop alive
+            if _telemetry._ENABLED:
+                _telemetry.hooks.serving_error(self._label)
             for req in self._active:
                 self.cache.free(req.table)
                 req.stream._finish("error", error=e)
             del self._active[:]
             return
         now = time.perf_counter()
+        if _telemetry._ENABLED:
+            _telemetry.hooks.decode_step(self._label, n, bucket, now - t0)
         finished = []
         for i, req in enumerate(self._active):
-            self._emit(req, out[i], now)
+            self._emit(req, out[i], t0, now)
             self.cache.note_tokens(req.table,
                                    len(req.prompt) + req.generated)
             if self._maybe_finish(req):
@@ -465,9 +555,19 @@ class DecodeEngine:
             self._active = [r for r in self._active
                             if r not in finished]
 
-    def _emit(self, req, token, now):
+    def _emit(self, req, token, t_step0, now):
         req.generated += 1
         req.last_token = token
+        if _telemetry._ENABLED and req.t_last_emit is not None:
+            _telemetry.hooks.decode_inter_token(now - req.t_last_emit)
+        if _obs._TRACE_ENABLED and req.tctx is not None:
+            _obs.record_span(
+                "serving.decode_step", req.tctx.child(),
+                parent_id=req.tctx.span_id, t0=t_step0,
+                dur=now - t_step0,
+                attrs={"model": self._label,
+                       "token_index": req.generated - 1})
+        req.t_last_emit = now
         req.stream._push(token, now)
 
     def _maybe_finish(self, req):
@@ -484,12 +584,39 @@ class DecodeEngine:
 
     def _finish(self, req, reason):
         self.cache.free(req.table)
+        now = time.perf_counter()
+        if _obs._TRACE_ENABLED and req.tctx is not None:
+            _obs.record_span(
+                "serving.request", req.tctx, t0=req.t_submit,
+                dur=now - req.t_submit,
+                attrs={"model": self._label, "generative": True,
+                       "tokens": req.generated, "reason": reason})
+        if _telemetry._ENABLED:
+            _telemetry.hooks.decode_finish(self._label, reason,
+                                           req.generated)
+            _telemetry.hooks.serving_latency(now - req.t_submit)
         req.stream._finish(reason)
 
     # -- introspection --------------------------------------------------
     def queue_depth(self):
         with self._cond:
             return len(self._pending)
+
+    def active_sequences(self):
+        """Sequences in the running decode batch."""
+        with self._cond:
+            return len(self._active)
+
+    def live_sequences(self):
+        """Sequences admitted and not finished: pending plus running."""
+        with self._cond:
+            return len(self._pending) + len(self._active)
+
+    def fingerprint(self, kind, bucket):
+        """The digest of what the ``kind`` (``"prefill"`` or
+        ``"decode"``) program of ``bucket`` computes, or None before
+        warm-up."""
+        return self._fingerprints.get((kind, bucket))
 
     # -- lifecycle ------------------------------------------------------
     def close(self, drain=True):
@@ -570,3 +697,28 @@ class GenerativeServable:
                 % (self.name, self._engine.prefill_buckets,
                    self._engine.decode_buckets,
                    self._engine.cache.stats()))
+
+
+class GenerativeWatcher(_RegistryWatcher):
+    """The :class:`~mxnet_tpu_torch.serving.loop.RegistryWatcher`
+    contract for generative servables: the same verified-step
+    discovery and retry/backoff/failure-budget state machine, but a
+    swap re-registers through ``register_generative`` -- the weights
+    restored from the checkpoint's ``params`` item -- and the old engine
+    drains its half-generated sequences to completion (zero dropped,
+    counted under ``chaos.survived.serving.decode_swap``).  Extra
+    keyword arguments go to ``register_generative`` (buckets, cache
+    geometry, ``device``)."""
+
+    def __init__(self, registry, name, checkpoint, model, **kwargs):
+        # block/input_shape/dtype are fixed-shape-servable concepts; the
+        # base class only threads them into register(), which
+        # _register_step replaces wholesale
+        super().__init__(registry, name, checkpoint, block=None,
+                         input_shape=(), **kwargs)
+        self.model = model
+
+    def _register_step(self, step):
+        self.registry.register_generative(
+            self.name, model=self.model, checkpoint=self.manager,
+            step=step, **self._register_kwargs)

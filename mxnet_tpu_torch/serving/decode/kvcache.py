@@ -16,14 +16,18 @@ EOS, completion, cancel and timeout return blocks through :meth:`free`.
 
 Block 0 is the **scratch block**: padded decode slots write there, so
 it is never handed to a request and holds garbage by design.
+
+Allocations, frees and refused allocations count under the JAX
+package's ``kvcache.*`` telemetry (blocks in use, internal
+fragmentation).
 """
 from __future__ import annotations
-
-import threading
 
 import numpy as np
 import torch
 
+from ... import sync as _sync
+from ... import telemetry as _telemetry
 from ...base import MXNetError
 from ...context import resolve_device
 
@@ -99,7 +103,7 @@ class PagedKVCache:
         self.keys = torch.zeros(shape, dtype=self.dtype, device=self.device)
         self.values = torch.zeros(shape, dtype=self.dtype,
                                   device=self.device)
-        self._lock = threading.Lock()
+        self._lock = _sync.Lock(name="serving.kvcache")
         self._free = list(range(1, self.num_blocks))  # 0 = scratch
         self._used_tokens = {}          # id(table) -> tokens written
 
@@ -134,13 +138,23 @@ class PagedKVCache:
         need = self.blocks_for(n_tokens)
         with self._lock:
             if need > len(self._free):
-                raise KVCacheExhausted(
-                    "kv cache exhausted: need %d blocks for %d tokens, "
-                    "%d free (of %d)" % (need, n_tokens, len(self._free),
-                                         self.total_blocks))
-            blocks = [self._free.pop() for _ in range(need)]
-            table = BlockTable(blocks, capacity=need * self.block_size)
-            self._used_tokens[id(table)] = int(n_tokens)
+                shortfall = len(self._free)
+            else:
+                blocks = [self._free.pop() for _ in range(need)]
+                table = BlockTable(blocks, capacity=need * self.block_size)
+                self._used_tokens[id(table)] = int(n_tokens)
+                in_use = self.total_blocks - len(self._free)
+                frag = self._fragmentation_locked()
+                shortfall = None
+        if shortfall is not None:
+            if _telemetry._ENABLED:
+                _telemetry.hooks.kvcache_alloc_failure()
+            raise KVCacheExhausted(
+                "kv cache exhausted: need %d blocks for %d tokens, "
+                "%d free (of %d)" % (need, n_tokens, shortfall,
+                                     self.total_blocks))
+        if _telemetry._ENABLED:
+            _telemetry.hooks.kvcache_alloc(in_use, frag)
         return table
 
     def free(self, table):
@@ -152,6 +166,10 @@ class PagedKVCache:
             table.freed = True
             self._free.extend(table.blocks)
             self._used_tokens.pop(id(table), None)
+            in_use = self.total_blocks - len(self._free)
+            frag = self._fragmentation_locked()
+        if _telemetry._ENABLED:
+            _telemetry.hooks.kvcache_free(in_use, frag)
 
     # -- introspection --------------------------------------------------
     def _fragmentation_locked(self):

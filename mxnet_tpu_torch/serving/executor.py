@@ -15,21 +15,51 @@ copies the padded batch into the bucket's static input, replays the
 graph and returns copies of its outputs, which the next call does not
 overwrite.  A bucket whose parameters were rebound since capture (the
 pool's ``watch``) is captured again.  On the CPU a bucket runs eagerly.
+
+:meth:`BucketExecutorPool.fingerprint` is a stable digest of what a
+bucket's graph computes: the block's structure, its parameters' names,
+shapes and dtypes, the bucket's input shape and dtype, the backend
+settings a capture bakes in and the kernel libraries.  It is equal
+across re-registrations of one architecture and differs across buckets
+(the JAX package's is a digest of the normalized StableHLO).  CUDA
+graphs have no portable serialized form, so there is no compile cache:
+every registration captures anew, and with the registry's
+``compile_cache`` on every bucket counts a
+``serving.compile_cache_misses``.
+
+:meth:`BucketExecutorPool.hbm_plan` predicts each bucket's peak device
+memory from the two smallest buckets' warm-ups on the card: what the
+bucket's capture allocated at its peak above what was allocated before
+it (after the eager run, which makes the libraries' one-time
+workspaces), plus the servable's parameter bytes, fit to a const +
+per-item line.
 """
 from __future__ import annotations
 
 import contextlib
+import hashlib
+import json
 import threading
 import time
 
 import numpy as np
 import torch
 
-from .. import _capture
+from .. import _build, _capture
 from .. import autograd
+from .. import telemetry as _telemetry
 from ..base import MXNetError
 
-__all__ = ["BucketExecutorPool"]
+__all__ = ["BucketExecutorPool", "device_hbm_bytes"]
+
+
+def device_hbm_bytes(device):
+    """The card's total memory (``torch.cuda.mem_get_info``); None on
+    the CPU, where serving skips its memory validation."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return int(torch.cuda.mem_get_info(device)[1])
 
 
 class BucketExecutorPool:
@@ -47,10 +77,17 @@ class BucketExecutorPool:
     watch : callable returning the tensors ``fn`` reads that may be
         rebound (the block's parameters); a rebound one makes its
         bucket's graph capture again
+    label : the servable's name (telemetry)
+    structure : what :meth:`fingerprint` records of the model (a
+        JSON-able description of its structure and parameters)
+    param_bytes : the bytes of the parameters ``fn`` reads
+        (:meth:`hbm_plan`'s constant)
+    compile_cache : count each warmed bucket as a compile-cache miss
     """
 
     def __init__(self, fn, input_shape, dtype, buckets, device,
-                 watch=None):
+                 watch=None, label="servable", structure=None,
+                 param_bytes=0, compile_cache=False):
         self._fn = fn
         self.input_shape = tuple(int(s) for s in input_shape)
         self.dtype = np.dtype(dtype)
@@ -63,6 +100,12 @@ class BucketExecutorPool:
         self._num_outputs = None
         self._owner = _capture.GraphOwner("BucketExecutorPool", device)
         self._lock = threading.Lock()
+        self._label = label
+        self._structure = structure
+        self._param_bytes = int(param_bytes)
+        self._compile_cache = bool(compile_cache)
+        self._fingerprints = {}   # bucket -> digest
+        self._peaks = {}          # bucket -> warm-up peak bytes (card)
 
     @property
     def max_bucket(self):
@@ -79,6 +122,19 @@ class BucketExecutorPool:
     def warm_buckets(self):
         return sorted(self._owner.keys())
 
+    def fingerprint(self, bucket):
+        """The digest of what ``bucket``'s graph computes, or None for a
+        bucket not warmed yet."""
+        return self._fingerprints.get(bucket)
+
+    def _digest(self, bucket):
+        doc = {"structure": self._structure,
+               "input": [[bucket] + list(self.input_shape),
+                         self.dtype.name],
+               "backend": list(_capture._backend_flags()),
+               "kernels": _build.library_names()}
+        return hashlib.sha256(json.dumps(doc, sort_keys=True).encode()
+                              ).hexdigest()
     def capture_stats(self):
         """Graphs captured, seconds capturing, pool bytes, replays."""
         return self._owner.stats()
@@ -108,18 +164,79 @@ class BucketExecutorPool:
 
     def warmup(self):
         """Run every bucket once on zeros and, on the card, capture and
-        replay its graph; returns the seconds it took."""
+        replay its graph; returns the seconds it took.  On the card each
+        bucket's capture resets the process's peak-memory counter
+        (``torch.cuda.reset_peak_memory_stats``) to measure its peak."""
         t0 = time.perf_counter()
+        cuda = self._owner.cuda
         with self.device_scope(), self._lock:
             for b in self.buckets:
                 zeros = torch.zeros((b,) + self.input_shape,
                                     dtype=getattr(torch, self.dtype.name),
                                     device=self.device)
-                for _ in range(2 if self._owner.cuda else 1):
+                self._run(b, zeros)
+                if cuda:
+                    # the capture's peak, after the eager run made the
+                    # libraries' one-time workspaces: the bucket's own
+                    # working set
+                    torch.cuda.synchronize(self.device)
+                    torch.cuda.reset_peak_memory_stats(self.device)
+                    before = torch.cuda.memory_allocated(self.device)
                     self._run(b, zeros)
-            if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                    self._peaks[b] = self._param_bytes + (
+                        torch.cuda.max_memory_allocated(self.device)
+                        - before)
+                self._fingerprints[b] = self._digest(b)
+                if self._compile_cache and _telemetry._ENABLED:
+                    _telemetry.hooks.serving_compile_cache(False)
+            if cuda:
                 torch.cuda.synchronize(self.device)
-        return time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        if _telemetry._ENABLED:
+            _telemetry.hooks.serving_warmup(self._label, dt,
+                                            len(self.buckets))
+        return dt
+
+    def warmup_peaks(self):
+        """``{bucket: bytes}``: each bucket's measured warm-up peak on
+        the card (empty on the CPU)."""
+        return dict(self._peaks)
+
+    def hbm_plan(self, device_hbm_bytes=None):
+        """Predict each bucket's peak device memory: the two smallest
+        buckets' warm-up peaks give a const + per-item line, every
+        bucket is extrapolated along it, and ``largest_fit_bucket`` is
+        the largest bucket whose prediction fits ``device_hbm_bytes``.
+        The keys are the JAX package's (``analysis.memory.hbm_plan``).
+        Needs a warmed pool on the card."""
+        if len(self._peaks) < 1:
+            raise MXNetError("hbm_plan: no warm-up peaks measured (the "
+                             "pool warms on the card)")
+        b0 = self.buckets[0]
+        b1 = self.buckets[1] if len(self.buckets) > 1 else b0
+        peak0, peak1 = self._peaks[b0], self._peaks[b1]
+        per_item = max(0.0, (peak1 - peak0) / float(b1 - b0)) \
+            if b1 != b0 else 0.0
+        const = max(0.0, peak0 - per_item * b0)
+        plan = {"label": "serving:%s" % self._label, "batch_size": b0,
+                "const_bytes": int(const), "per_item_bytes": int(per_item),
+                "measured": {str(b0): peak0, str(b1): peak1},
+                "device_hbm_bytes": device_hbm_bytes, "buckets": [],
+                "largest_fit_batch": None, "largest_fit_bucket": None}
+        if device_hbm_bytes and per_item > 0:
+            plan["largest_fit_batch"] = int(
+                (device_hbm_bytes - const) // per_item) \
+                if device_hbm_bytes > const else 0
+        for b in self.buckets:
+            pred = int(const + per_item * b)
+            fits = (pred <= device_hbm_bytes) if device_hbm_bytes else None
+            plan["buckets"].append({"batch": b,
+                                    "predicted_peak_hbm_bytes": pred,
+                                    "fits": fits})
+            if fits:
+                plan["largest_fit_bucket"] = b
+        return plan
 
     def call(self, bucket, x):
         """Run the forward on a batch ``x`` already padded to

@@ -9,8 +9,12 @@ decoder.  The :class:`ModelRegistry` owns many of them by name.
 
 Sources:
 
-- **Gluon block** (``block=``): the block itself, run eagerly in
-  inference mode on the device its parameters lie on;
+- **Gluon block** (``block=``): the block's forward, in inference mode,
+  on the device its parameters lie on, over the servable's own copy of
+  the parameters taken at registration (after a checkpoint restore,
+  before warm-up): training the block afterwards, or restoring another
+  step into it for the next servable, leaves this servable's answers as
+  they were -- the JAX package's servable holds its immutable arrays;
 - **checkpoint** (``checkpoint=`` with ``block=``): parameters restored
   from a manifest-verified
   :class:`~mxnet_tpu_torch.checkpoint.CheckpointManager` step (the
@@ -19,6 +23,17 @@ Sources:
   weights from a dict or from a checkpoint's ``params`` item.
 
 ``symbol=`` and ``onnx=`` are not ported yet.
+
+Registration warms every bucket, checks the predicted peak device memory
+of each against the card's (:meth:`ModelRegistry._validate_hbm`, a
+warning for a bucket that cannot fit), then installs: the chaos fail
+point ``serving.swap`` sits between the two, where a swap dies late,
+and the servable it would have replaced keeps serving untouched.  The
+``serving.register.warm`` and ``.install`` spans and the
+``serving.register`` telemetry event are the JAX package's.  CUDA graphs
+have no portable serialized form, so ``ModelRegistry(cache_dir=,
+compile_cache=)`` is accepted and keeps no cache: every registration
+captures its buckets anew (counted as compile-cache misses).
 
 ::
 
@@ -30,16 +45,18 @@ Sources:
 """
 from __future__ import annotations
 
-import threading
-
 import torch
 
 from .. import autograd
+from .. import chaos as _chaos
+from .. import obs as _obs
+from .. import sync as _sync
+from .. import telemetry as _telemetry
 from ..base import MXNetError
 from ..context import resolve_device
 from ..ndarray import NDArray
 from .batcher import DynamicBatcher, ServableClosed
-from .executor import BucketExecutorPool
+from .executor import BucketExecutorPool, device_hbm_bytes
 
 __all__ = ["ModelRegistry", "Servable"]
 
@@ -52,6 +69,36 @@ def _default_buckets():
     except ValueError as e:
         raise MXNetError("MXNET_TPU_SERVING_BUCKETS=%r is not a "
                          "comma-separated int list" % (spec,)) from e
+
+
+_CONFIG_TYPES = (bool, int, float, str, type(None))
+
+
+def _config(module):
+    """A block's own settings: the scalar and tuple attributes it keeps
+    (units, strides, epsilon, activation, layout), not its name."""
+    out = []
+    for k, v in sorted(vars(module).items()):
+        if k in ("training", "_prefix", "_active"):
+            continue
+        if isinstance(v, _CONFIG_TYPES) or (
+                isinstance(v, tuple)
+                and all(isinstance(e, _CONFIG_TYPES) for e in v)):
+            out.append([k, v])
+    return out
+
+
+def _structure(block):
+    """What a serving fingerprint records of a block: each sub-block's
+    structural path, class and settings, and each parameter's
+    structural name, shape and dtype -- nothing that depends on the
+    instance's name."""
+    return {"blocks": [[path, type(m).__name__, _config(m)]
+                       for path, m in block.named_modules()],
+            "params": [[k, list(p._data.shape), str(p._data.dtype)]
+                       for k, p in sorted(
+                           block._collect_params_with_prefix().items())
+                       if p._data is not None]}
 
 
 def _manager(checkpoint):
@@ -93,11 +140,18 @@ class Servable:
     def dtype(self):
         return self._pool.dtype
 
+    def fingerprint(self, bucket):
+        """The digest of what ``bucket``'s graph computes
+        (:meth:`BucketExecutorPool.fingerprint`)."""
+        return self._pool.fingerprint(bucket)
+
     def queue_depth(self):
         return self._batcher.queue_depth()
 
     @property
     def queue_capacity(self):
+        """Bounded queue depth past which submits shed (the readiness
+        check reads depth against this)."""
         return self._batcher.max_queue
 
     def stats(self):
@@ -127,9 +181,13 @@ class ModelRegistry:
         reg.shutdown(drain=True)
     """
 
-    def __init__(self):
-        self._lock = threading.Lock()
+    def __init__(self, cache_dir=None, compile_cache=True):
+        self._lock = _sync.Lock(name="serving.registry")
         self._servables = {}
+        # no portable artifact to cache (``cache_dir`` has nothing to
+        # hold): the flag only counts each warmed bucket as a miss
+        self._compile_cache = bool(compile_cache)
+        _obs.status.register_registry(self)   # weak: health, statusz
 
     # -- registration ---------------------------------------------------
     def register(self, name, block=None, symbol=None, params=None,
@@ -164,27 +222,78 @@ class ModelRegistry:
             source = "checkpoint"
         else:
             source = "block"
-        fn, device = self._from_block(block, input_shape, dtype)
+        fn, device, snapshot, structure = self._from_block(
+            block, input_shape, dtype)
         buckets = tuple(buckets) if buckets else _default_buckets()
         pool = BucketExecutorPool(
             fn, input_shape, dtype, buckets, device,
-            watch=lambda: [p._data for p in block._all_params()])
+            watch=lambda: snapshot, label=name, structure=structure,
+            param_bytes=sum(t.numel() * t.element_size()
+                            for t in snapshot),
+            compile_cache=self._compile_cache)
         if warmup:
-            pool.warmup()
-        batcher = DynamicBatcher(pool, label=name, max_wait_ms=max_wait_ms,
-                                 max_queue=max_queue)
-        servable = Servable(name, pool, batcher, source)
-        self._install(name, servable)
+            sp = _obs.begin_span("serving.register.warm", model=name) \
+                if _obs._TRACE_ENABLED else None
+            try:
+                pool.warmup()
+            finally:
+                if sp is not None:
+                    _obs.end_span(sp)
+            self._validate_hbm(name, pool)
+        # chaos: an abort here (after the expensive warm-up, before the
+        # install) models every way a swap dies late; the previous
+        # servable MUST keep serving untouched
+        _chaos.fail_point("serving.swap", model=name)
+        sp = _obs.begin_span("serving.register.install", model=name) \
+            if _obs._TRACE_ENABLED else None
+        try:
+            batcher = DynamicBatcher(pool, label=name,
+                                     max_wait_ms=max_wait_ms,
+                                     max_queue=max_queue)
+            servable = Servable(name, pool, batcher, source)
+            self._install(name, servable)
+        finally:
+            if sp is not None:
+                _obs.end_span(sp)
+        if _telemetry._ENABLED:
+            _telemetry.hooks.serving_model(name, source, len(buckets))
         return servable
 
     def _install(self, name, servable):
+        """Install ``servable`` under ``name``; returns the number of
+        sequences a replaced generative servable drained (0 for a
+        fixed-shape one)."""
         with self._lock:
             old = self._servables.get(name)
             self._servables[name] = servable
-        if old is not None:
-            # drain=True keeps serving (or, for a decoder, STEPPING) the
-            # old servable until everything it accepted has finished
-            old.close(drain=True)
+        if old is None:
+            return 0
+        # drain=True keeps serving (or, for a decoder, STEPPING) the old
+        # servable until everything it accepted has finished
+        return old.close(drain=True) or 0
+
+    @staticmethod
+    def _validate_hbm(name, pool):
+        """Predict every bucket's peak device memory
+        (:meth:`BucketExecutorPool.hbm_plan`) and warn on buckets that
+        cannot fit the card -- registration still succeeds (an
+        oversized bucket may never be dispatched), but the operator
+        hears it before an out-of-memory error does the telling.
+        Returns the plan, or None on the CPU."""
+        limit = device_hbm_bytes(pool.device)
+        if not limit:
+            return None
+        plan = pool.hbm_plan(limit)
+        bad = [str(b["batch"]) for b in plan["buckets"]
+               if b["fits"] is False]
+        if bad:
+            import warnings
+            warnings.warn(
+                "servable %r: predicted peak device memory exceeds the "
+                "card's for bucket(s) %s (largest fitting bucket: %s)"
+                % (name, ", ".join(bad), plan["largest_fit_bucket"]),
+                RuntimeWarning, stacklevel=3)
+        return plan
 
     def register_generative(self, name, model, params=None,
                             checkpoint=None, step=None,
@@ -216,6 +325,8 @@ class ModelRegistry:
                       for k, v in self._restore_params(checkpoint,
                                                        step).items()}
         dev = resolve_device(device)
+        # a fresh dict of fresh tensors: the caller's tensors may be
+        # updated in place after this returns
         engine = DecodeEngine(model, params_from_numpy(params, dev),
                               prefill_buckets=prefill_buckets,
                               decode_buckets=decode_buckets,
@@ -224,10 +335,37 @@ class ModelRegistry:
                               max_queue=max_queue, label=name,
                               kv_dtype=kv_dtype, device=dev)
         if warmup:
-            engine.warmup()
-        engine.start()
-        servable = GenerativeServable(name, engine)
-        self._install(name, servable)
+            sp = _obs.begin_span("serving.register.warm", model=name) \
+                if _obs._TRACE_ENABLED else None
+            try:
+                engine.warmup()
+            finally:
+                if sp is not None:
+                    _obs.end_span(sp)
+        # same late-abort contract as register(): a chaos fault here
+        # (warmed, not yet installed) leaves the old servable -- and
+        # every sequence it is generating -- untouched
+        try:
+            _chaos.fail_point("serving.swap", model=name)
+        except BaseException:
+            engine.close(drain=False)
+            raise
+        sp = _obs.begin_span("serving.register.install", model=name) \
+            if _obs._TRACE_ENABLED else None
+        try:
+            engine.start()
+            servable = GenerativeServable(name, engine)
+            live = self._install(name, servable)
+            if live:
+                _chaos.survived("serving.decode_swap",
+                                "drained %d live" % live)
+        finally:
+            if sp is not None:
+                _obs.end_span(sp)
+        if _telemetry._ENABLED:
+            _telemetry.hooks.serving_model(
+                name, "generative",
+                len(engine.prefill_buckets) + len(engine.decode_buckets))
         return servable
 
     @staticmethod
@@ -254,10 +392,14 @@ class ModelRegistry:
 
     @staticmethod
     def _from_block(block, input_shape, dtype):
-        """``(fn, device)`` of a block: ``fn(x) -> tuple(outputs)``, and
-        the device its parameters lie on.  Parameters whose shape is
-        still deferred are sized by one probe forward (outside inference
-        mode, so the new parameters can take gradients later)."""
+        """``(fn, device, snapshot, structure)`` of a block:
+        ``fn(x) -> tuple(outputs)`` runs the block's forward over
+        ``snapshot``, copies of its parameters taken now, on the device
+        they lie on; ``structure`` describes the block for the pool's
+        fingerprint.  Parameters whose shape is still deferred are sized
+        by one probe forward first (outside inference mode, so the new
+        parameters can take gradients later)."""
+        from ..gluon.block import param_values_from
         from ..gluon.block import HybridBlock
         if not isinstance(block, HybridBlock):
             raise MXNetError("serving: block= expects a HybridBlock")
@@ -275,12 +417,16 @@ class ModelRegistry:
                                 device=device)
             with autograd.pause():
                 block(probe)
+        with torch.no_grad():
+            values = {p: p._data.detach().clone() for p in params
+                      if p._data is not None}
 
         def fn(x):
-            out = block(x)
+            with param_values_from(values):
+                out = block(x)
             return tuple(out) if isinstance(out, (tuple, list)) else (out,)
 
-        return fn, device
+        return fn, device, list(values.values()), _structure(block)
 
     # -- lookup / client ------------------------------------------------
     def servable(self, name):

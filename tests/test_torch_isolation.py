@@ -195,6 +195,46 @@ def test_the_input_path_and_its_process_pool_load_neither_jax_nor_mxnet_tpu(
     assert out.stdout.strip() == "[]"
 
 
+def test_the_loop_and_the_ops_plane_load_neither_jax_nor_mxnet_tpu(
+        tmp_path):
+    """``sync``, ``telemetry``, ``chaos``, ``obs``, ``preemption`` and
+    ``serving/loop.py`` imported and used in a fresh process: a chaos
+    scenario trains, publishes and hot-swaps on the CPU with telemetry,
+    tracing and the sanitizer on; the scan above imports each of their
+    modules too."""
+    names = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
+    assert {"sync.py", "preemption.py", "serving/loop.py",
+            "telemetry/hooks.py", "chaos/scenarios.py", "obs/trace.py",
+            "obs/status.py"} <= names
+    code = ("import sys, warnings\n"
+            "import mxnet_tpu_torch as mx\n"
+            "from mxnet_tpu_torch import chaos, obs, sync, telemetry\n"
+            "from mxnet_tpu_torch import preemption\n"
+            "from mxnet_tpu_torch.serving import loop\n"
+            "sync.enable(seed_static=False)\n"
+            "telemetry.enable()\n"
+            "obs.enable_tracing()\n"
+            "with mx.cpu():\n"
+            "    rep = chaos.scenarios.hotswap_scenario(%r, torn=True,\n"
+            "        device='cpu', requests_per_client=4)\n"
+            "assert rep['served_step'] == 2 and rep['errors'] == []\n"
+            "assert telemetry.counter('serving.swaps').value == 1\n"
+            "assert obs.status.statusz()['schema'] == 'mxstatusz.v1'\n"
+            "assert any(s['name'] == 'serving.swap' for s in obs.spans())\n"
+            "assert callable(preemption.install) and loop.RegistryWatcher\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "%r))" % (str(tmp_path / "loop"), FORBIDDEN))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(PKG.parent)] + [p for p in env.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(tmp_path))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def _imports(path):
     tree = ast.parse(path.read_text(), str(path))
     for node in ast.walk(tree):
@@ -267,7 +307,7 @@ def test_training_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
 def test_env_registry_defaults_and_typed_reads(monkeypatch):
     from mxnet_tpu import env as jax_env
     from mxnet_tpu_torch import env
-    assert len(env.REGISTRY) == 12
+    assert len(env.REGISTRY) == 29
     for name, var in env.REGISTRY.items():
         assert var.default == jax_env.REGISTRY[name].default, name
         assert var.type is jax_env.REGISTRY[name].type, name
