@@ -237,7 +237,49 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ends with no live sequence, and ``paged_attention`` launches 12 x
    the decode steps of both engines (the new one's warm-up included).
    The kernels line's three rows on these paths carry
-   ``launches_hotswap`` and ``launches_generative_swap``.
+   ``launches_hotswap`` and ``launches_generative_swap``.  The hot-swap
+   trainer runs with the goodput ledger (window = the publish interval)
+   and tracing on: the phase prints its categories a step beside
+   serving.
+
+17. the single-process ops plane (ROADMAP item 8) observing ResNet-50
+   training, after phase 16, outside the sync check.  (a) the AMP LARS
+   step (ResNet-50 v1 NHWC, bf16, LARS, batch 512) with
+   ``mx.profiling`` on, twice: two warm-ups (the eager one walked into
+   the step's CostReport, then the capture), five timed replays.  The
+   report's ``conv_dot`` flops must be within 2% of an independent count
+   from the layer shapes (3 x the forward's, less the stem's data
+   gradient), its categories must sum to its totals, and
+   ``bn_relu_apply``, ``bn_relu_bwd`` and ``lars_flat`` must appear in
+   its provenance with the walked warm-up's launches, equal to the
+   registry's launches a replayed step; it prints the roofline and the
+   MFU against 989 TFLOP/s; ``mxprof report`` renders the first run's
+   file and ``mxprof diff`` of the two runs must name no drift.  (b)
+   ``mx.profiler`` over a lead-in and three counted replays of the
+   second run: the dumped Chrome trace's device events, grouped by
+   graph launch, must name the three kernels inside the replayed graph,
+   the counted replays agreeing kernel for kernel, each with every hand
+   kernel's launches a step (the lead-in may only lack records: the
+   tracer drops those it timestamps before the trace's start);
+   ``dumps()`` is printed.
+   (c) phase 16's trainer (fp32, batch 32) as a ``ContinuousTrainer``
+   without serving, 60 steps publishing every 20, with telemetry into a
+   JSONL sink, the goodput ledger (window 10, its flops walked from one
+   forward/backward), the leak sentinel, the flight recorder and
+   ``obs.serve(port=0)``, and ``memory.leak`` pinning 64 MiB a step from
+   step 30: every window must reconcile, the sentinel must flag within
+   3 windows of the onset and never before, each window's scrape must
+   answer ``/healthz`` 200, ``/metrics`` with the goodput shares and
+   live bytes, ``/statusz`` with goodput and memory rows, and
+   ``mxtelemetry summarize`` over the sink must count the phase's
+   windows, steps and regressions.  (d) ``Supervisor([python, worker],
+   1, max_restarts=2)``: the worker is (c)'s trainer, 24 steps
+   publishing every 8, with ``chaos.KILL`` at step 13 of generation 0
+   (``chaos.arm_from_spec``); generation 1 must resume from step 8 and
+   finish, ``run()`` return 0 after one restart, and ``mxtelemetry
+   blackbox`` on generation 0's flight file name ``chaos.kill`` and its
+   point.  Every artifact lives in a temporary directory.  The kernels
+   line's three rows of the AMP LARS step carry ``launches_ops_plane``.
 
 Every path runs from captured CUDA graphs (``mxnet_tpu_torch._capture``),
 the port's counterpart of the JAX package's compiled programs: one
@@ -5601,9 +5643,10 @@ def hotswap_phase(make_net=resnet50_nhwc, image=224, batch=HOTSWAP_BATCH,
     previous answer; the fused kernels' launches the sum of their
     sources' counts; telemetry equal to the phase's own counts."""
     import torch
-    from mxnet_tpu_torch import chaos, gluon, telemetry
+    from mxnet_tpu_torch import chaos, gluon, obs, telemetry
     from mxnet_tpu_torch import autograd
     from mxnet_tpu_torch.chaos.scenarios import corrupt_dirs
+    from mxnet_tpu_torch.obs import goodput
     from mxnet_tpu_torch.checkpoint import CheckpointManager
     from mxnet_tpu_torch.kernels import registry
     from mxnet_tpu_torch.ndarray import NDArray
@@ -5690,6 +5733,12 @@ def hotswap_phase(make_net=resnet50_nhwc, image=224, batch=HOTSWAP_BATCH,
     installed[:] = [reg.servable("resnet50")]
     registry.reset_launches()
     telemetry.reset()
+    # the trainer's goodput ledger (a window per publish cycle) and the
+    # trace spans, on for the window: where a step goes beside serving
+    obs.enable_tracing()
+    obs.enable_goodput()
+    goodput.reset()
+    ledger = goodput.ledger(window_steps=publish_every)
     with chaos.scenario(seed=0):
         chaos.on("serving.swap", nth=1)      # the window's first swap
         t_window = time.perf_counter()
@@ -5727,9 +5776,13 @@ def hotswap_phase(make_net=resnet50_nhwc, image=224, batch=HOTSWAP_BATCH,
                 t.join(HOTSWAP_WAIT_S)
             w.close()
             ct.close()
+            obs.disable_goodput()
+            obs.disable_tracing()
         check(not any(t.is_alive() for t in threads), "a client hung")
         t_end = time.perf_counter()
         chaos_stats = chaos.stats()
+    trainer_goodput = hotswap_goodput(ledger.windows(), obs.spans())
+    goodput.reset()
     # every accepted request answered (a future still pending is dropped)
     from mxnet_tpu_torch.serving import RequestTimeout
     flat = [r for mine in records for r in mine]
@@ -5854,6 +5907,10 @@ def hotswap_phase(make_net=resnet50_nhwc, image=224, batch=HOTSWAP_BATCH,
         "card": gpu_line() if cuda else None}
     print("hot-swap loop (ResNet-50 v1 NHWC fp32 trained and served): %s"
           % json.dumps(out))
+    print("hot-swap trainer goodput beside serving (ledger window = one "
+          "publish cycle of %d steps; spans): %s"
+          % (publish_every, json.dumps(trainer_goodput)))
+    out["trainer_goodput"] = trainer_goodput
     check(not errors, "request errors: %s" % errors[:3])
     check(dropped == rejects["shed"] == timeouts == 0,
           "dropped %d, shed %d, timed out %d"
@@ -5903,6 +5960,34 @@ def hotswap_phase(make_net=resnet50_nhwc, image=224, batch=HOTSWAP_BATCH,
                           "warmups": sites * warm_runs, "total": fwd},
         "bn_relu_bwd": {"trainer": sites * train_steps, "total": bwd}}
     return out
+
+
+def hotswap_goodput(windows, spans):
+    """The trainer's time beside serving, from its goodput windows
+    (steps > 0): seconds a step by category, their shares of the
+    windows' wall, the verdicts and reconciliation errors; and the mean
+    ``train.step`` / ``train.publish`` span walls."""
+    from mxnet_tpu_torch.obs import goodput
+    active = [w for w in windows if w["steps"]]
+    steps = sum(w["steps"] for w in active)
+    wall = sum(w["wall_s"] for w in active)
+    secs = {c: sum(w["categories"][c]["seconds"] for w in active)
+            for c in goodput.CATEGORIES}
+
+    def mean_ms(name):
+        durs = [sp["dur"] for sp in spans if sp.get("name") == name]
+        return 1e3 * float(np.mean(durs)) if durs else None
+
+    return {"windows": len(active), "steps": steps, "wall_s": wall,
+            "ms_per_step": {c: 1e3 * v / steps if steps else None
+                            for c, v in secs.items()},
+            "shares": {c: v / wall if wall else None
+                       for c, v in secs.items()},
+            "verdicts": [w["verdict"]["detail"] for w in active],
+            "reconciliation_errors": [w["reconciliation"]["error"]
+                                      for w in active],
+            "train_step_span_ms": mean_ms("train.step"),
+            "train_publish_span_ms": mean_ms("train.publish")}
 
 
 def generative_swap_phase(widths=GPT2_SMALL, max_new=DECODE_MAX_NEW,
@@ -6017,6 +6102,637 @@ def generative_swap_phase(widths=GPT2_SMALL, max_new=DECODE_MAX_NEW,
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 17: the single-process ops plane over ResNet-50 training
+# ---------------------------------------------------------------------
+
+OPS_BATCH = LARS_BATCH             # phase (a): config 5's batch
+OPS_STEPS = 5                      # replays timed after the warm-ups
+OPS_PROFILER_REPLAYS = 3           # counted, after one lead-in replay
+OPS_CONV_TOL = 0.02                # conv_dot flops vs the layer count
+OPS_TRAIN_STEPS = 60               # phase (c): the observed trainer
+OPS_PUBLISH_EVERY = 20
+OPS_WINDOW = 10                    # goodput / leak-sentinel window
+OPS_LEAK_FROM = 30                 # memory.leak pins from this step
+OPS_LEAK_BYTES = 64 << 20
+OPS_LEAK_WITHIN = 3                # windows from the onset to the flag
+OPS_WORKER_STEPS = 24              # phase (d): the supervised worker
+OPS_WORKER_PUBLISH = 8
+OPS_KILL_STEP = 13                 # chaos.KILL in generation 0
+OPS_HTTP_TIMEOUT_S = 10
+OPS_SUPERVISOR_TIMEOUT_S = 300
+# the kernels of the AMP LARS step, by their __global__ names
+OPS_KERNELS = {"bn_relu_apply": "bn_relu_fwd_kernel",
+               "bn_relu_bwd": "bn_relu_bwd_kernel",
+               "lars_flat": "lars_flat_kernel"}
+
+
+def conv_dense_flops(net, image, batch, device="cuda"):
+    """An independent count of a training step's convolution and dense
+    flops from the net's layer shapes: for each ``Conv2D``/``Dense``,
+    2 x its output elements x its weight's elements per output channel
+    (kh kw Cin, or in_units), times 3 (forward, data gradient, weight
+    gradient), less the stem's data gradient (the batch takes none).
+    The output shapes come from one batch-1 forward."""
+    import torch
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import nn
+    per = []
+
+    def hook(block, _inputs, out):
+        w = block._reg_params["weight"].data()._data
+        per.append(2 * out.numel() * (w.numel() // w.shape[0]))
+
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, (nn.Conv2D, nn.Dense))]
+    try:
+        with autograd.pause():
+            net(torch.zeros((1, image, image, 3), device=device))
+    finally:
+        for h in hooks:
+            h.remove()
+    return batch * (3 * sum(per) - per[0])
+
+
+def _cli_output(main, argv):
+    """``(exit code, stdout)`` of a CLI's ``main(argv)`` in this
+    process."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+
+def trace_replays_of(events):
+    """The device kernel events of a Chrome trace grouped by the graph
+    launch that ran them (CUPTI gives a replayed graph's kernels the
+    correlation id of its launch), in launch order: for each
+    ``cudaGraphLaunch``, a ``Counter`` of its kernels' names and the
+    microseconds from the launch call to its first recorded kernel."""
+    import collections
+    launches = sorted((e["ts"], e.get("args", {}).get("correlation"))
+                      for e in events
+                      if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                      and "GraphLaunch" in e.get("name", ""))
+    kernels = collections.defaultdict(collections.Counter)
+    first = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_kernel"):
+            corr = e.get("args", {}).get("correlation")
+            kernels[corr][e.get("name", "")] += 1
+            first[corr] = min(first.get(corr, e["ts"]), e["ts"])
+    return [{"kernels": kernels[corr],
+             "launch_to_first_kernel_us":
+                 first[corr] - ts if corr in first else None}
+            for ts, corr in launches]
+
+
+def ops_profiled_run(report_dir, make_net=resnet50_nhwc, batch=OPS_BATCH,
+                     image=224, steps=OPS_STEPS, trace_replays=0,
+                     sites=BN_RELU_SITES, device="cuda"):
+    """Phase 17 (a) (and (b) with ``trace_replays``): ResNet-50 v1 NHWC
+    under bf16 AMP with bucketed LARS (``make_lars_step``) and
+    ``mx.profiling`` on: the first call's eager warm-up is walked into
+    the step's CostReport, the second captures, then ``steps`` replays
+    are timed with the counters zeroed.  Checks the report's
+    ``conv_dot`` flops against :func:`conv_dense_flops`, the categories
+    summing to the totals, and each hand kernel in ``provenance`` with
+    the warm-up's launches, equal to the registry's launches a replayed
+    step.  With ``trace_replays``, ``mx.profiler`` records that many
+    more replays, after one lead-in replay, and dumps its Chrome trace;
+    its device events, grouped by graph launch, are searched for the
+    three kernels inside the replayed graph.  The counted replays must
+    agree kernel for kernel; the lead-in may only lack kernels (the
+    tracer drops records it timestamps before the trace's start), and
+    what each replay holds is in ``trace_replays``.  Saves the reports
+    under ``report_dir``."""
+    import torch
+    from mxnet_tpu_torch import amp, profiler, profiling
+    from mxnet_tpu_torch.kernels import registry
+    from mxnet_tpu_torch.profiling import roofline
+    cuda = device == "cuda"
+    profiling.reset()
+    profiling.enable()
+    try:
+        net = make_net()
+        net.initialize(device=device,
+                       generator=torch.Generator().manual_seed(0))
+        want_conv = conv_dense_flops(net, image, batch, device)
+        step = make_lars_step(net)
+        gen = torch.Generator(device=device).manual_seed(0)
+        x = torch.randn((batch, image, image, 3), generator=gen,
+                        device=device)
+        y = torch.randint(0, net.output._units, (batch,), generator=gen,
+                          device=device).float()
+        with amp.scope("bfloat16"):
+            registry.reset_launches()
+            t0 = time.perf_counter()
+            step(x, y)                   # eager, walked
+            warm = {n: registry.launches(n) for n in OPS_KERNELS}
+            step(x, y)                   # captured
+            if cuda:
+                torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            registry.reset_launches()
+            t0 = time.perf_counter()
+            losses = [step(x, y) for _ in range(steps)]
+            if cuda:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {n: registry.launches(n) for n in OPS_KERNELS}
+            trace = None
+            if trace_replays:
+                profiler.set_config(filename=os.path.join(report_dir,
+                                                          "trace.json"))
+                profiler.set_state("run")
+                for _ in range(1 + trace_replays):
+                    step(x, y)
+                if cuda:
+                    torch.cuda.synchronize()
+                trace = profiler.dump()
+        losses = torch.stack(losses).tolist()
+        label = "train_step:%s" % type(net).__name__
+        reps = {r["label"]: r for r in profiling.reports()}
+        check(label in reps, "no CostReport for %s: %s" % (label,
+                                                          sorted(reps)))
+        rep = reps[label]
+        step_s = wall / steps
+        rl = roofline.build(rep, step_s, items_per_step=batch)
+        path = profiling.save_reports(report_dir)
+        dumps = profiler.dumps() if trace_replays else None
+        capture = step.capture_stats()
+    finally:
+        profiling.disable()
+    conv = rep["categories"]["conv_dot"]["flops"]
+    prov = {p["op_name"]: p for p in rep["provenance"] if p.get("kernel")}
+    out = {"batch": batch, "steps": steps, "losses": losses,
+           "ms_per_step": 1e3 * step_s, "img_per_s": batch / step_s,
+           "warmup_s": warm_s, "report": path,
+           "fingerprint": rep["fingerprint"], "device": rep["device"],
+           "totals": rep["totals"],
+           "categories": {c: {k: v[k] for k in ("flops", "bytes",
+                                                "flops_share",
+                                                "bytes_share")}
+                          for c, v in rep["categories"].items()},
+           "memory": rep["memory"],
+           "conv_dot_flops": conv, "layer_count_flops": want_conv,
+           "conv_dot_rel_err": abs(conv - want_conv) / want_conv,
+           "hand_kernels": {n: {k: prov.get(n, {}).get(k)
+                                for k in ("calls", "launches", "flops",
+                                          "bytes")}
+                            for n in OPS_KERNELS},
+           "warm_launches": warm, "launches": counts,
+           "roofline": {k: rl[k] for k in ("step_time_s", "peak_flops",
+                                           "peak_bytes_per_s",
+                                           "peaks_assumed", "mfu",
+                                           "bandwidth_util",
+                                           "floor_step_s",
+                                           "items_per_sec")},
+           "roofline_categories": rl["categories"],
+           "mfu_vs_989_tflops": rep["totals"]["flops"] / step_s / 989e12,
+           "graphs": capture["graphs"], "pool_bytes": capture["pool_bytes"],
+           "card": gpu_line() if cuda else None}
+    check(all(np.isfinite(losses)), "non-finite loss: %s" % losses)
+    check(out["conv_dot_rel_err"] <= OPS_CONV_TOL,
+          "conv_dot flops %d are %.4f from the layer count %d (limit %g)"
+          % (conv, out["conv_dot_rel_err"], want_conv, OPS_CONV_TOL))
+    check(sum(c["flops"] for c in rep["categories"].values())
+          == rep["totals"]["flops"]
+          and sum(c["bytes"] for c in rep["categories"].values())
+          == rep["totals"]["bytes_accessed"],
+          "the categories do not sum to the totals: %s" % out["categories"])
+    if sites:
+        for name in OPS_KERNELS:
+            got = prov.get(name, {}).get("launches")
+            check(got == warm[name] and counts[name] == steps * got,
+                  "%s: %r launches in provenance, %d in the walked "
+                  "warm-up, %d over %d replays" % (name, got, warm[name],
+                                                   counts[name], steps))
+    if trace is not None:
+        events = json.load(open(trace))["traceEvents"]
+        replays = trace_replays_of(events)
+        counted = [r["kernels"] for r in replays[1:]]
+
+        def hand(kernels):
+            return {n: sum(c for k, c in kernels.items() if g in k)
+                    for n, g in OPS_KERNELS.items()}
+        found = {n: sum(hand(k)[n] for k in counted) for n in OPS_KERNELS}
+        out["trace"] = trace
+        out["trace_device_kernel_events"] = sum(
+            1 for e in events if e.get("cat") in ("kernel", "gpu_kernel"))
+        out["trace_per_replay"] = [
+            {"lead_in": i == 0, "kernel_events": sum(r["kernels"].values()),
+             "hand_kernel_events": hand(r["kernels"]),
+             "launch_to_first_kernel_us": r["launch_to_first_kernel_us"]}
+            for i, r in enumerate(replays)]
+        out["trace_hand_kernel_events"] = found
+        out["graph_kernels_in_trace"] = all(found.values())
+        out["cachedop_ranges"] = sum(
+            1 for e in events if e.get("name", "").startswith("mx.cachedop"))
+        print("mx.profiler dumps() over %d replays:\n%s"
+              % (1 + trace_replays, dumps))
+        if cuda:
+            check(len(replays) == 1 + trace_replays,
+                  "the profiler trace holds %d graph launches, want a "
+                  "lead-in and %d counted replays"
+                  % (len(replays), trace_replays))
+            check(out["graph_kernels_in_trace"],
+                  "the profiler trace of %d replays names the hand "
+                  "kernels %s: CUPTI reported no kernel of the replayed "
+                  "graph" % (trace_replays, found))
+            check(all(k == counted[0] for k in counted),
+                  "the %d counted replays of one graph differ in their "
+                  "kernel events: %s" % (trace_replays,
+                                         out["trace_per_replay"][1:]))
+            lead = replays[0]["kernels"]
+            check(all(c <= counted[0][k] for k, c in lead.items()),
+                  "the lead-in replay holds kernel events the counted "
+                  "replays lack: %s" % out["trace_per_replay"])
+            for name, n in found.items():
+                check(n == trace_replays * prov[name]["launches"],
+                      "%s: %d kernel events in the trace of %d replays, "
+                      "want %d a step" % (name, n, trace_replays,
+                                          prov[name]["launches"]))
+    return out
+
+
+def _http_get(port, path):
+    import urllib.error
+    import urllib.request
+    url = "http://127.0.0.1:%d%s" % (port, path)
+    try:
+        with urllib.request.urlopen(url, timeout=OPS_HTTP_TIMEOUT_S) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def ops_observed_trainer(root, make_net=resnet50_nhwc, image=224,
+                         batch=HOTSWAP_BATCH, steps=OPS_TRAIN_STEPS,
+                         publish_every=OPS_PUBLISH_EVERY, window=OPS_WINDOW,
+                         leak_from=OPS_LEAK_FROM, leak_bytes=OPS_LEAK_BYTES,
+                         device="cuda"):
+    """Phase 17 (c): phase 16's trainer (ResNet-50 v1 NHWC fp32, SGD
+    0.05/0.9, batch 32) as a ``ContinuousTrainer`` without serving,
+    ``steps`` steps publishing every ``publish_every``, observed:
+    telemetry into a JSONL sink, the goodput ledger (window ``window``,
+    its flops a step walked from one forward/backward by
+    ``mx.profiling``), the leak sentinel, the flight recorder and the
+    obs server; ``memory.leak`` armed with ``pin_action`` at
+    ``leak_bytes`` a step from step ``leak_from``.  After each window
+    the server is scraped.  Checks: every window reconciles; the
+    sentinel flags within ``OPS_LEAK_WITHIN`` windows of the onset and
+    never before it; each scrape's /healthz 200, /metrics with the
+    goodput shares and live bytes, /statusz with goodput and memory
+    rows; ``mxtelemetry summarize`` over the sink counts the phase's
+    windows, steps and regressions."""
+    import torch
+    from mxnet_tpu_torch import autograd, chaos, gluon, obs, profiling
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.analysis import memory
+    from mxnet_tpu_torch.ndarray import NDArray
+    from mxnet_tpu_torch.obs import flight, goodput
+    from mxnet_tpu_torch.serving import ContinuousTrainer
+    from mxnet_tpu_torch.telemetry import cli as tcli
+    cuda = device == "cuda"
+    os.makedirs(root, exist_ok=True)
+    jsonl = os.path.join(root, "run.jsonl")
+    telemetry.disable()
+    telemetry.reset()
+    telemetry.enable()
+    sink = telemetry.attach_jsonl(jsonl)
+    obs.status.reset()
+    goodput.reset()
+    obs.enable_goodput()
+    memory.reset_watch()
+    prev_watch = memory._set_watch(True)
+    chaos.reset()
+    port = None
+    try:
+        sent = memory.sentinel(window_steps=window, min_baseline=2)
+        flight.install(os.path.join(root, "trainer.bbox"))
+        port = obs.serve(0)
+        net = make_net()
+        net.initialize(device=device,
+                       generator=torch.Generator().manual_seed(0))
+        trainer = gluon.Trainer(net.collect_params(), "sgd", TRAIN_SGD)
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        gen = torch.Generator(device=device).manual_seed(0)
+        x = torch.randn((batch, image, image, 3), generator=gen,
+                        device=device)
+        y = torch.randint(0, net.output._units, (batch,), generator=gen,
+                          device=device).float()
+        label = "continuous_trainer:%s" % type(net).__name__
+        with autograd.pause():          # deferred shapes, if any
+            net(x[:1])
+
+        def fwd_bwd():
+            with autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.sum().backward()
+            return loss
+
+        profiling.capture_jit(label, fwd_bwd, kind="train_step",
+                              arguments=[p.data()._data for p in
+                                         net.collect_params().values()])
+        flops = profiling.flops_per_step(label)
+        check(flops and flops > 0, "no walked flops for %s" % label)
+        led = goodput.ledger(window_steps=window, flops_per_step=flops)
+        ct = ContinuousTrainer(net, trainer, loss_fn,
+                               (NDArray(x), NDArray(y)),
+                               os.path.join(root, "ckpt"),
+                               publish_every=publish_every)
+        scrapes, sentinel_reports = [], []
+        t0 = time.perf_counter()
+        with chaos.scenario(seed=0):
+            chaos.on("memory.leak", nth=range(leak_from, steps + 1),
+                     action=lambda ctx: memory.pin_action(
+                         dict(ctx, nbytes=leak_bytes)))
+            for _ in range(steps // window):
+                ct.run_steps(window)
+                sentinel_reports.append(sent.last())
+                got = {p: _http_get(port, p)
+                       for p in ("/healthz", "/metrics", "/statusz")}
+                status = json.loads(got["/statusz"][1])
+                scrapes.append({
+                    "healthz": got["/healthz"][0],
+                    "metrics_goodput_shares": sum(
+                        1 for line in got["/metrics"][1].splitlines()
+                        if line.startswith("mxnet_tpu_goodput_")
+                        and "_share " in line),
+                    "metrics_live_bytes": any(
+                        line.startswith("mxnet_tpu_memory_live_bytes ")
+                        for line in got["/metrics"][1].splitlines()),
+                    "statusz_goodput": status["goodput"] is not None,
+                    "statusz_memory_censuses":
+                        (status["memory"] or {}).get("censuses"),
+                    "statusz_ready": status["ready"]})
+            ct.close()
+        wall = time.perf_counter() - t0
+        wins = led.windows()
+        pinned = memory.pinned_count()
+    finally:
+        memory.unpin_all()
+        memory._set_watch(prev_watch)
+        chaos.reset()
+        if port is not None:
+            obs.server.stop()
+        flight.uninstall()
+        obs.disable_goodput()
+        telemetry.flush()
+        telemetry.registry().detach(sink)
+        sink.close()
+        telemetry._jsonl_sink = None
+        telemetry.disable()
+    onset = (leak_from - 1) // window
+    flagged = [r["index"] for r in sentinel_reports if r and r["leak"]]
+    rc, text = _cli_output(tcli.main, ["summarize", jsonl, "--json"])
+    agg = json.loads(text)
+    _rc, human = _cli_output(tcli.main, ["summarize", jsonl])
+    gp_lines = [line for line in human.splitlines()
+                if line.startswith(("  goodput:", "  bottleneck:"))]
+    active = [w for w in wins if w["steps"]]
+    per_step = {c: float(np.mean([w["categories"][c]["per_step_s"]
+                                  for w in active]))
+                for c in goodput.CATEGORIES}
+    out = {"batch": batch, "steps": steps, "publish_every": publish_every,
+           "window": window, "wall_s": wall, "flops_per_step": flops,
+           "windows": [goodput.line_summary(w) for w in wins],
+           "reconciliation_errors": [w["reconciliation"]["error"]
+                                     for w in wins],
+           "per_step_s": per_step, "mfu": [w["mfu"] for w in active],
+           "regressions": [(w["index"], r["category"])
+                           for w in wins for r in w["regressions"]],
+           "sentinel": [{k: r[k] for k in ("index", "live_bytes",
+                                           "live_arrays", "publishes")}
+                        if r else None for r in sentinel_reports],
+           "leak_onset_window": onset, "leak_windows": flagged,
+           "leak": [r["leak"] for r in sentinel_reports if r and r["leak"]],
+           "pinned": pinned, "scrapes": scrapes,
+           "summarize_goodput": agg.get("goodput"),
+           "card": gpu_line() if cuda else None}
+    print("observed always-on trainer (ResNet-50 v1 NHWC fp32, batch %d, "
+          "goodput + leak sentinel + flight recorder + obs server): %s"
+          % (batch, json.dumps(out)))
+    print("mxtelemetry summarize (goodput section):\n%s"
+          % "\n".join(gp_lines))
+    check(all(w["reconciliation"]["ok"] for w in wins),
+          "a goodput window does not reconcile: %s"
+          % out["reconciliation_errors"])
+    check(len(active) == steps // window,
+          "%d active windows for %d steps" % (len(active), steps))
+    check(flagged and min(flagged) >= onset
+          and min(flagged) <= onset + OPS_LEAK_WITHIN,
+          "the sentinel flagged windows %s for a leak from window %d"
+          % (flagged, onset))
+    for i, sc in enumerate(scrapes):
+        check(sc["healthz"] == 200 and sc["metrics_goodput_shares"]
+              == len(goodput.CATEGORIES) and sc["metrics_live_bytes"]
+              and sc["statusz_goodput"]
+              and sc["statusz_memory_censuses"] == i + 1,
+              "scrape %d: %s" % (i, sc))
+    gp = agg.get("goodput") or {}
+    check(rc == 0 and gp.get("windows") == len(wins)
+          and gp.get("steps") == steps
+          and gp.get("regressions") == len(out["regressions"]),
+          "mxtelemetry summarize: %s against %d windows, %d steps, %d "
+          "regressions" % (gp, len(wins), steps, len(out["regressions"])))
+    check(gp_lines, "mxtelemetry summarize printed no goodput section")
+    return out
+
+
+def ops_worker(root, out_dir, steps=OPS_WORKER_STEPS,
+               publish_every=OPS_WORKER_PUBLISH, image=224,
+               batch=HOTSWAP_BATCH, device="cuda", make_net=None):
+    """The supervised worker of phase 17 (d), one process a generation:
+    phase (c)'s trainer resumed from the newest intact step of ``root``
+    and trained to step ``steps``, publishing every ``publish_every``,
+    with this generation's flight recorder in ``out_dir`` and the chaos
+    spec of ``MXNET_TPU_CHAOS_SPEC`` armed (its KILL scoped to
+    generation 0).  Writes ``gen<N>.json`` with the resumed and final
+    steps; returns 0."""
+    import torch
+    from mxnet_tpu_torch import chaos, gluon, obs, telemetry
+    from mxnet_tpu_torch.ndarray import NDArray
+    from mxnet_tpu_torch.serving import ContinuousTrainer
+    generation = int(os.environ.get("MXNET_TPU_GENERATION", "0") or 0)
+    telemetry.enable()
+    obs.install_blackbox(os.path.join(out_dir, "gen%d.bbox" % generation))
+    chaos.arm_from_spec()
+    net = (make_net or resnet50_nhwc)()
+    net.initialize(device=device, generator=torch.Generator().manual_seed(0))
+    trainer = gluon.Trainer(net.collect_params(), "sgd", TRAIN_SGD)
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn((batch, image, image, 3), generator=gen, device=device)
+    y = torch.randint(0, net.output._units, (batch,), generator=gen,
+                      device=device).float()
+    ct = ContinuousTrainer(net, trainer,
+                           gluon.loss.SoftmaxCrossEntropyLoss(),
+                           (NDArray(x), NDArray(y)), root,
+                           publish_every=publish_every)
+    ckpt = ct.resume()
+    resumed = ckpt.step if ckpt is not None else 0
+    print("generation %d resumed from step %d" % (generation, resumed),
+          flush=True)
+    loss = ct.run_steps(steps - resumed)
+    ct.close()
+    with open(os.path.join(out_dir, "gen%d.json" % generation), "w") as f:
+        json.dump({"generation": generation, "resumed_from": resumed,
+                   "final_step": ct.step,
+                   "published_step": ct.published_step,
+                   "loss": float(loss.asnumpy().mean())}, f)
+    return 0
+
+
+def ops_supervised(root, steps=OPS_WORKER_STEPS,
+                   publish_every=OPS_WORKER_PUBLISH,
+                   kill_step=OPS_KILL_STEP, worker_args=""):
+    """Phase 17 (d): ``Supervisor([python, worker], 1,
+    max_restarts=2)`` over :func:`ops_worker`, with ``chaos.KILL`` at
+    the step's first fail point (``numerics.nonfinite``) at step
+    ``kill_step`` of generation 0 only.  Checks: ``run()`` returns 0
+    with one restart; generation 1 resumed from the last publish before
+    the kill and finished; ``mxtelemetry blackbox`` on generation 0's
+    flight file names ``chaos.kill`` and its point."""
+    from mxnet_tpu_torch import chaos
+    from mxnet_tpu_torch.supervisor import Supervisor
+    from mxnet_tpu_torch.telemetry import cli as tcli
+    os.makedirs(root, exist_ok=True)
+    ckpt = os.path.join(root, "ckpt")
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys; sys.path.insert(0, %r); import chip_smoke; "
+            "sys.exit(chip_smoke.ops_worker(%r, %r, %d, %d%s))"
+            % (here, ckpt, root, steps, publish_every,
+               (", " + worker_args) if worker_args else ""))
+    spec = chaos.make_spec(seed=0, rules=[{
+        "point": "numerics.nonfinite", "action": "kill",
+        "nth": [kill_step], "generation": 0}])
+    env = dict(os.environ, MXNET_TPU_CHAOS_SPEC=spec,
+               MXNET_TPU_GENERATION="0")
+    sup = Supervisor([sys.executable, "-c", code], 1, max_restarts=2,
+                     grace_s=5.0, env=env)
+    result = {}
+    t0 = time.perf_counter()
+    th = threading.Thread(target=lambda: result.setdefault("rc", sup.run()),
+                          daemon=True)
+    th.start()
+    th.join(OPS_SUPERVISOR_TIMEOUT_S)
+    if th.is_alive():
+        sup.close()
+        th.join(30)
+        check(False, "the supervised run passed %d s"
+              % OPS_SUPERVISOR_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    gens = {}
+    for g in (0, 1):
+        path = os.path.join(root, "gen%d.json" % g)
+        if os.path.exists(path):
+            gens[g] = json.load(open(path))
+    bb_rc, bb = _cli_output(tcli.main, ["blackbox",
+                                        os.path.join(root, "gen0.bbox")])
+    kill_lines = [line for line in bb.splitlines() if "chaos.kill" in line]
+    last_publish = (kill_step - 1) // publish_every * publish_every
+    out = {"rc": result.get("rc"), "restarts": sup.restarts,
+           "generation": sup.generation, "exhausted": sup.exhausted,
+           "generations": gens, "wall_s": wall, "kill_step": kill_step,
+           "blackbox_kill_lines": kill_lines}
+    print("supervised crash-restart (ResNet-50 v1 NHWC ContinuousTrainer "
+          "worker, chaos.KILL at step %d of generation 0): %s"
+          % (kill_step, json.dumps(out)))
+    print("mxtelemetry blackbox gen0.bbox (last lines):\n%s"
+          % "\n".join(bb.splitlines()[-6:]))
+    check(out["rc"] == 0 and sup.restarts == 1 and sup.generation == 1,
+          "supervisor: rc %r, %d restarts, generation %d"
+          % (out["rc"], sup.restarts, sup.generation))
+    check(0 not in gens, "generation 0 finished past its kill")
+    g1 = gens.get(1) or {}
+    check(g1.get("resumed_from") == last_publish
+          and g1.get("final_step") == steps
+          and g1.get("published_step") == steps,
+          "generation 1: %s (want resumed from %d, final step %d)"
+          % (g1, last_publish, steps))
+    check(bb_rc == 0 and kill_lines
+          and any("numerics.nonfinite" in line for line in kill_lines),
+          "the blackbox of generation 0 does not name the kill: %s"
+          % bb[-2000:])
+    return out
+
+
+def ops_plane_phase(make_net=resnet50_nhwc, image=224, batch=OPS_BATCH,
+                    train_batch=HOTSWAP_BATCH, sites=BN_RELU_SITES,
+                    device="cuda", worker_args=""):
+    """Phase 17: (a) two profiled runs of the AMP LARS step, their
+    reports rendered by ``mxprof report`` and diffed by ``mxprof diff``
+    (no drift); (b) ``mx.profiler`` over replays in the second run; (c)
+    the observed always-on trainer; (d) the supervised crash-restart.
+    Every artifact under a temporary directory; returns the numbers."""
+    import tempfile
+    from mxnet_tpu_torch import profiling
+    from mxnet_tpu_torch.profiling import cli as pcli
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="mxtt-ops-") as tmp:
+        runs = []
+        for i in range(2):
+            runs.append(ops_profiled_run(
+                os.path.join(tmp, "run%d" % i), make_net=make_net,
+                batch=batch, image=image,
+                trace_replays=OPS_PROFILER_REPLAYS if i else 0,
+                sites=sites, device=device))
+            gc.collect()
+            if device == "cuda":
+                release_cuda()
+        rep_rc, rep_text = _cli_output(
+            pcli.main, ["report", "--dir", os.path.join(tmp, "run0")])
+        diff_rc, diff_text = _cli_output(
+            pcli.main, ["diff", runs[0]["report"], runs[1]["report"]])
+        first = runs[0]
+        print("ops plane (a) profiled step (ResNet-50 v1 NHWC, bf16 AMP, "
+              "LARS, batch %d): %s" % (batch, json.dumps(
+                  {k: v for k, v in first.items() if k != "report"})))
+        rl = first["roofline"]
+        print("ops plane (a) roofline: step %.3f ms, %.4g flops a step, "
+              "MFU %.4f against 989 TFLOP/s (bf16 dense), bandwidth "
+              "%.4f of %.4g B/s (peaks assumed: %s), floor %.3f ms (%s)"
+              % (first["ms_per_step"], first["totals"]["flops"],
+                 first["mfu_vs_989_tflops"], rl["bandwidth_util"],
+                 rl["peak_bytes_per_s"], rl["peaks_assumed"],
+                 1e3 * rl["floor_step_s"], first["card"]))
+        print("mxprof report:\n%s" % rep_text)
+        print("mxprof diff of the two runs: %s" % diff_text.strip())
+        check(rep_rc == 0 and "executables:" in rep_text,
+              "mxprof report exited %d" % rep_rc)
+        check(diff_rc == 0 and "no drift" in diff_text,
+              "mxprof diff of two runs: %s" % diff_text)
+        second = runs[1]
+        print("ops plane (b) mx.profiler: %s" % json.dumps(
+            {k: second.get(k) for k in (
+                "trace_device_kernel_events", "trace_hand_kernel_events",
+                "trace_per_replay", "graph_kernels_in_trace",
+                "cachedop_ranges",
+                "ms_per_step", "card")}))
+        out["profiled"] = runs
+        if device == "cuda":
+            release_cuda()
+        out["observed"] = ops_observed_trainer(
+            os.path.join(tmp, "observed"), make_net=make_net, image=image,
+            batch=train_batch, device=device)
+        gc.collect()
+        if device == "cuda":
+            release_cuda()
+        out["supervised"] = ops_supervised(
+            os.path.join(tmp, "supervised"), worker_args=worker_args)
+    profiling.reset()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("ops plane phase: %.1f s" % out["phase_s"])
+    out["launches"] = {n: {"warm_up_walked": first["warm_launches"][n],
+                           "replayed_%d_steps" % OPS_STEPS:
+                               first["launches"][n]}
+                       for n in OPS_KERNELS}
+    return out
+
+
 def kernel_entry(name, launches, kern, serve_launches=None, **extra):
     """One kernel's entry of the per-kernel JSON line; a kernel of the
     checkpoint-and-serve phase also gives its launches there, and
@@ -6056,6 +6772,10 @@ def main():
     hot = hotswap_phase()
     release_cuda()
     gen = generative_swap_phase()
+    # phase 17: the ops plane observing ResNet-50 training (its
+    # supervised worker and obs server are other processes and threads)
+    release_cuda()
+    ops = ops_plane_phase()
     for entry in entries:
         name = entry["name"]
         if name in ("bn_relu_apply", "bn_relu_bwd", "paged_attention"):
@@ -6063,6 +6783,8 @@ def main():
                 name, {"total": 0})
             entry["launches_generative_swap"] = gen["launches"].get(
                 name, {"total": 0})
+        if name in OPS_KERNELS:
+            entry["launches_ops_plane"] = ops["launches"][name]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

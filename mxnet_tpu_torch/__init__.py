@@ -55,12 +55,21 @@ It imports neither JAX nor anything of ``mxnet_tpu``.  Ported so far:
   the ops-plane core it stands on: :mod:`.sync` (named locks with a
   lock-order sanitizer and deadlock watchdog), :mod:`.telemetry`,
   :mod:`.chaos` (fail points and scenarios), :mod:`.obs` (tracing and
-  the status board) and :mod:`.preemption`.
+  the status board) and :mod:`.preemption`;
+- the single-process ops plane: :mod:`.profiling` (cost reports walked
+  from each shape-keyed program's eager warm-up, the roofline, the
+  ``mxprof`` CLI), :mod:`.profiler` (``torch.profiler`` behind the
+  reference's control surface), the goodput ledger, the crash-safe
+  flight recorder and the introspection server (:mod:`.obs`), the leak
+  sentinel (:mod:`.analysis.memory`), :mod:`.supervisor` and the
+  ``mxtelemetry`` CLI.
 
 ``import mxnet_tpu_torch as mx`` binds ``mx.parallel``, ``mx.serving``,
 ``mx.kv``/``mx.kvstore``, ``mx.recordio``, ``mx.io``, ``mx.image``,
-``mx.dataio``, ``mx.sync``, ``mx.telemetry``, ``mx.obs``, ``mx.chaos``
-and ``mx.preemption`` as the JAX package's ``__init__`` does.
+``mx.dataio``, ``mx.sync``, ``mx.telemetry``, ``mx.obs``, ``mx.chaos``,
+``mx.preemption``, ``mx.profiler`` and ``mx.profiling`` as the JAX
+package's ``__init__`` does (``mxnet_tpu_torch.supervisor`` is imported
+by name, as the JAX package's is).
 
 Kernels and their plain versions are registered in :mod:`.kernels`.
 """
@@ -72,6 +81,7 @@ from . import initializer as init
 from . import kvstore
 from . import kvstore as kv
 from . import parallel, preemption, serving
+from . import profiler, profiling
 from . import ndarray as nd
 from .base import MXNetError
 from .context import (Context, cpu, cpu_pinned, current_context, gpu,

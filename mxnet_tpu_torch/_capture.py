@@ -51,6 +51,16 @@ while a graph replays.
 While a body is warmed or captured (:func:`in_body`), hybridized blocks
 inside it run their plain forward, as the JAX package traces a
 hybridized child into its parent's program.
+
+A key's warm-up and capture are the port's counterpart of a compile:
+every owner adds their walls to ``build_s``, and with telemetry on an
+owner given a ``site`` (the owners whose JAX counterparts report their
+compiles: the hybridize cache, ``TrainStep``) makes each a ``compile``
+event and a ``compile.build_time`` sample (the goodput ledger's
+recompile category).  With ``mx.profiling`` on, a warm-up
+given a ``profile`` is walked into the key's CostReport
+(:func:`~.profiling.capture_jit`): the eager run is the only one a
+dispatch-mode walk can see.
 """
 from __future__ import annotations
 
@@ -62,7 +72,9 @@ from collections import Counter
 
 import torch
 
+from . import profiling as _profiling
 from . import random as _random
+from . import telemetry as _telemetry
 from .base import MXNetError
 from .kernels import registry
 
@@ -187,8 +199,9 @@ class GraphOwner:
     seconds capturing, bytes the card's reserved memory grew by while
     capturing, replays)."""
 
-    def __init__(self, name, device):
+    def __init__(self, name, device, site=None):
         self.name = name
+        self.site = site
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
@@ -199,6 +212,7 @@ class GraphOwner:
         self._entries = {}       # key -> _Entry
         self.graphs = 0
         self.capture_s = 0.0
+        self.build_s = 0.0       # warm-ups and captures, in seconds
         self.pool_bytes = 0
         self.replays = 0
 
@@ -225,6 +239,10 @@ class GraphOwner:
         """The keys run so far, in the order of their first call."""
         return list(self._seen)
 
+    def is_new(self, key):
+        """Whether ``key`` has not been run yet."""
+        return key not in self._seen
+
     def first_call(self, key):
         """Record a call of ``key``; whether it is to run eagerly: on
         the CPU always, on the card the key's first call."""
@@ -243,16 +261,41 @@ class GraphOwner:
         finally:
             cur.wait_stream(side)
 
-    def warm(self, fn):
+    def _compiled(self, stage, t0):
+        """Account one warm-up or capture that began at ``t0``."""
+        dt = time.perf_counter() - t0
+        self.build_s += dt
+        if self.site is not None and _telemetry._ENABLED:
+            _telemetry.hooks.compile_event(
+                self.site, seconds=dt, retrace=len(self._seen) > 1,
+                owner=self.name, stage=stage)
+
+    def warm(self, fn, profile=None, build=True):
         """``fn()``, the owner's eager call: on the card, on the side
-        stream that captures."""
+        stream that captures.  ``profile`` is ``(label, kind, key,
+        arguments)``: with ``mx.profiling`` on, the call is walked into
+        that key's CostReport.  ``build`` says the call is a key's first
+        (on the CPU every call is eager; only the first builds)."""
+        if profile is not None and _profiling._ENABLED:
+            label, kind, pkey, arguments = profile
+            call = fn
+
+            def fn():
+                return _profiling.capture_jit(
+                    label, call, key=pkey, kind=kind, arguments=arguments,
+                    owner=self if self.cuda else None, device=self.device)
+        t0 = time.perf_counter()
         with body_scope():
             if not self.cuda:
-                return fn()
-            with self._on_side_stream():
-                return fn()
+                out = fn()
+            else:
+                with self._on_side_stream():
+                    out = fn()
+        if build:
+            self._compiled("warm", t0)
+        return out
 
-    def run(self, key, fn, inputs, watched=(), what=None):
+    def run(self, key, fn, inputs, watched=(), what=None, profile=None):
         """``fn(*inputs)`` through ``key``'s entry: eagerly on the CPU
         and at the key's first call (:meth:`warm`); on the card, at its
         second call captured over static copies of ``inputs`` (again
@@ -260,10 +303,11 @@ class GraphOwner:
         replayed after ``inputs`` are copied into those copies.  The
         inputs may lie on the host.  Returns ``fn``'s result; from a
         replay, copies of the graph's outputs, which the owner's next
-        replay does not overwrite."""
+        replay does not overwrite.  ``profile`` is :meth:`warm`'s."""
+        new = self.is_new(key)
         if self.first_call(key):
             return self.warm(lambda: fn(*[t.to(self.device)
-                                          for t in inputs]))
+                                          for t in inputs]), profile, new)
         entry = self._entries.get(key)
         if entry is None or entry.graph.stale(watched):
             with torch.no_grad():
@@ -323,6 +367,7 @@ class GraphOwner:
                 - reserved
         self.graphs += 1
         self.capture_s += time.perf_counter() - t0
+        self._compiled("capture", t0)
         return Graph(graph, tally, _fingerprint(watched), self), out
 
     def stats(self):

@@ -230,8 +230,13 @@ def _visit(name, ctx):
         raise ChaosInjected("chaos: injected fault at %r (hit %d)"
                             % (name, fire.hits), point=name)
     if action == KILL:
-        # the JAX package dumps its crash recorder here first; the
-        # port's comes with the rest of the ops plane
+        # last act before the SIGKILL-shaped death: mark the flight
+        # recorder (injected point + in-flight trace) and msync -- the
+        # postmortem the blackbox CLI renders.  os._exit skips atexit
+        # and every buffered sink; the mmap ring is all that survives.
+        from .. import obs as _obs
+        _obs.flight.emergency_dump("chaos.kill", point=name,
+                                   hit=fire.hits)
         os._exit(137)           # SIGKILL-shaped: no atexit, no flush
     action(dict(ctx, point=name))
 

@@ -32,10 +32,14 @@ The landing device is ``ctx`` (a context, a ``torch.device`` or its
 name), the card by default; without CUDA that default raises
 :class:`~..base.MXNetError`.  A feed lands on the host only when
 ``ctx=mx.cpu()`` asks for it, and then without the ring.  ``mesh=`` and
-``sharding=`` raise until ROADMAP item 9 ports the mesh; the ``feed.*``
-telemetry instruments, the chaos point and the profiling timeline of
-the JAX package wait for item 8, while :meth:`DeviceFeed.stats` and
-:meth:`DeviceFeed.overlap_frac` keep the counters they mirror.
+``sharding=`` raise until ROADMAP item 9 ports the mesh.  With
+telemetry on, the feed writes the JAX package's ``feed.*`` instruments
+(producer busy and bytes a batch, consumer wait, the epoch's overlap
+share), which :meth:`DeviceFeed.stats` and
+:meth:`DeviceFeed.overlap_frac` mirror; the ``feed.produce`` chaos point
+sits at the top of each production (a sleep rule there starves the
+consumer, the goodput ledger's input_wait), and with ``mx.profiling`` on
+each staged batch is a ``feed.stage`` span on the step timeline.
 """
 from __future__ import annotations
 
@@ -47,8 +51,11 @@ import weakref
 import numpy as np
 import torch
 
+from .. import chaos as _chaos
 from .. import env as _env
+from .. import profiling as _profiling
 from .. import random as _random
+from .. import telemetry as _telemetry
 from ..base import MXNetError
 from ..context import cpu, resolve_device
 from ..ndarray import NDArray
@@ -346,6 +353,10 @@ class DeviceFeed:
                     k = ring.acquire(stop) if ring is not None else None
                     if ring is not None and k is None:
                         return
+                    # chaos fail point on the input path: a seeded sleep
+                    # rule here stalls the producer, so the goodput
+                    # ledger's input_wait category must show it
+                    _chaos.fail_point("feed.produce")
                     t0 = time.perf_counter()
                     try:
                         # host batches: a DataIter's NDArrays are made
@@ -372,6 +383,14 @@ class DeviceFeed:
                     # parked on a full buffer this thread must not be
                     # what keeps the feed alive
                     feed = None
+                    if _telemetry._ENABLED:
+                        _telemetry.hooks.feed_produce(busy, nbytes)
+                    if _profiling._ENABLED:
+                        # the host->device staging span on the step
+                        # timeline
+                        from ..profiling import timeline
+                        timeline.record("feed.stage", t0, busy,
+                                        {"bytes": nbytes})
                     if not DeviceFeed._producer_put(
                             q, stop, (tuple(staged), pad, event)):
                         return
@@ -413,6 +432,8 @@ class DeviceFeed:
         wait = time.perf_counter() - t0
         with self._stats_lock:
             self._stats["consumer_wait"] += wait
+        if _telemetry._ENABLED:
+            _telemetry.hooks.feed_wait(wait)
         if item is _END:
             self._finish_epoch()
             raise StopIteration
@@ -432,6 +453,8 @@ class DeviceFeed:
         th, self._thread = self._thread, None
         if th is not None:
             th.join(timeout=10)
+        if _telemetry._ENABLED:
+            _telemetry.hooks.feed_overlap(self.overlap_frac())
 
     def apply_transform(self, staged):
         """Run the transform again on a retained raw (compact) device

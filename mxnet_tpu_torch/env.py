@@ -2,8 +2,9 @@
 
 Counterpart of ``mxnet_tpu/env.py``, holding only the variables the
 port reads: checkpoints, serving and the always-on loop, the numerics
-sentinel, the device feed, telemetry, tracing, chaos and the
-concurrency sanitizer.  Names, defaults and the boolean convention (only ``"0"`` is
+sentinel, the device feed, telemetry, tracing, chaos, the concurrency
+sanitizer and the ops plane (profiling, the goodput ledger, the leak
+sentinel, the flight recorder, the obs server and the supervisor).  Names, defaults and the boolean convention (only ``"0"`` is
 false) are the JAX package's, so one environment configures both.
 """
 from __future__ import annotations
@@ -168,13 +169,93 @@ _VARS = [
            "Chrome-trace JSON (obs.export_chrome_trace).  Off (the "
            "default), every traced site is a single module-flag check."),
     EnvVar("MXNET_TPU_OBS_GOODPUT", bool, False,
-           "The goodput ledger of the JAX package's ops plane; not "
-           "ported yet (ROADMAP item 8): '1' makes the continuous "
-           "trainer raise."),
+           "'1' arms the goodput ledger (obs.goodput): the "
+           "ContinuousTrainer loop ticks a per-process StepLedger that "
+           "splits every rolling window of training steps into "
+           "device_compute / input_wait / host_sync / checkpoint_stall "
+           "/ recompile / other (reconciled to the window wall within "
+           "MXNET_TPU_OBS_GOODPUT_TOL), publishes a rolling MFU gauge "
+           "and runs the EWMA+MAD regression sentinel (goodput.* "
+           "instruments, the statusz goodput row).  Needs "
+           "MXNET_TPU_TELEMETRY=1 for non-empty attribution.  Off (the "
+           "default): one module-flag check per loop step.  Runtime "
+           "toggle: obs.enable_goodput()/disable_goodput()."),
+    EnvVar("MXNET_TPU_OBS_GOODPUT_WINDOW", int, 20,
+           "Training steps per goodput-ledger window (and per "
+           "leak-sentinel census).  Per-ledger override: "
+           "StepLedger(window_steps=...)."),
+    EnvVar("MXNET_TPU_OBS_GOODPUT_TOL", float, 0.25,
+           "Reconciliation tolerance of the goodput ledger: the "
+           "attributed categories may exceed the window wall by at most "
+           "this fraction ('other' absorbs undershoot, so only "
+           "overshoot -- double counting -- fails a window)."),
+    EnvVar("MXNET_TPU_OBS_GOODPUT_MAD_K", float, 4.0,
+           "Regression-sentinel sensitivity: a category regresses when "
+           "its per-step seconds exceed the EWMA mean by this many EWMA "
+           "absolute deviations (and move at least 5% of the window "
+           "wall).  Per-ledger override: StepLedger(mad_k=...)."),
     EnvVar("MXNET_TPU_MEMORY_WATCH", bool, False,
-           "The live-buffer leak sentinel of the JAX package's ops "
-           "plane; not ported yet (ROADMAP item 8): '1' makes the "
-           "continuous trainer raise."),
+           "'1' arms the live-memory leak sentinel "
+           "(analysis.memory.LeakSentinel): ContinuousTrainer takes a "
+           "census at every goodput-window boundary -- the caching "
+           "allocator's allocated bytes and blocks on the card (graph "
+           "pools included), the live tensors on the CPU -- into the "
+           "memory.live_bytes / memory.live_arrays gauges, and flags "
+           "monotonic growth past the EWMA+MAD baseline, naming the "
+           "top-growing shape/dtype bucket (the live tensors are walked "
+           "only when a window flags).  Publish-guarded.  Off: one "
+           "module-flag check, no per-step work."),
+    EnvVar("MXNET_TPU_PROFILING", bool, False,
+           "'1' enables step cost accounting (mx.profiling) at import: "
+           "each hybridized block's and TrainStep key's warm-up (eager) "
+           "run is walked op by op into a CostReport (flops and bytes by "
+           "category, hand kernels by their cost functions), TrainStep "
+           "dispatch walls feed the roofline, and host spans land on the "
+           "Chrome-trace step timeline.  Off (the default), every hook "
+           "is a single module-flag check.  Runtime toggle: "
+           "mx.profiling.enable()/disable(); render with the mxprof "
+           "CLI."),
+    EnvVar("MXNET_TPU_PROFILING_DIR", str, "",
+           "Directory for mx.profiling CostReport artifacts.  When set "
+           "(with profiling enabled), per-report *.cost.json files and "
+           "the combined report.json are written at interpreter exit "
+           "(and by mx.profiling.save_reports()); 'mxprof report' and "
+           "'mxprof diff' read them."),
+    EnvVar("MXNET_TPU_OBS_BLACKBOX", str, "",
+           "Path of the crash-safe flight recorder (obs.flight).  When "
+           "set, an mmap'd ring of the most recent telemetry records "
+           "and spans is installed at import and survives "
+           "os._exit/SIGKILL; the preemption handler, the chaos KILL "
+           "path and SIGUSR2 (with every thread's stack) mark and "
+           "msync it.  Render with 'mxtelemetry blackbox <path>'."),
+    EnvVar("MXNET_TPU_OBS_BLACKBOX_KB", int, 256,
+           "Flight-recorder ring capacity in KiB.  Per-recorder "
+           "override: obs.install_blackbox(capacity=...)."),
+    EnvVar("MXNET_TPU_OBS_PORT", int, 0,
+           "Port of the introspection HTTP server (obs.server, "
+           "localhost): /healthz (READY/NOT_READY), /metrics "
+           "(Prometheus text of the live registry), /statusz (the "
+           "operator JSON), /alertz.  0 (the default) = not started; "
+           "obs.serve(0) binds an ephemeral port."),
+    EnvVar("MXNET_TPU_GENERATION", int, 0,
+           "Supervisor generation of this worker, bumped by the "
+           "restart supervisor (supervisor.Supervisor) on every "
+           "relaunch; statusz and the endpoint files carry it."),
+    EnvVar("MXNET_TPU_SUPERVISOR_RESTARTS", int, 3,
+           "Restart budget: how many times the supervisor relaunches "
+           "the workers after a death before going terminal "
+           "(supervisor.exhausted event, /healthz NOT_READY).  "
+           "Per-supervisor override: Supervisor(max_restarts=...)."),
+    EnvVar("MXNET_TPU_SUPERVISOR_GRACE_S", float, 15.0,
+           "After the first worker exit of a generation, how long the "
+           "supervisor waits for the others to exit on their own "
+           "before killing the process tree."),
+    EnvVar("MXNET_TPU_OBS_ENDPOINTS_DIR", str, "",
+           "Endpoint-discovery directory: every obs server atomically "
+           "publishes its {pid, rank, generation, port} there on "
+           "serve() and withdraws it on stop(); the supervisor threads "
+           "it into every launched worker.  Empty (the default) "
+           "disables publication."),
 ]
 
 REGISTRY = {v.name: v for v in _VARS}

@@ -80,6 +80,8 @@ from .. import _capture
 from .. import amp as _amp
 from .. import autograd
 from .. import ops as _ops
+from .. import profiler as _profiler
+from .. import profiling as _profiling
 from ..base import MXNetError
 from ..ndarray import NDArray
 from ..ndarray import ndarray as _nd_mod
@@ -488,6 +490,13 @@ class HybridBlock(Block):
         return torch.nn.Module.__call__(self, *args)
 
     def _call_cached(self, args):
+        if not _profiler._scopes_enabled:
+            return self._call_keyed(args)
+        # the hybridized call as a named range in the profiler's trace
+        with _profiler.scope("mx.cachedop:%s" % type(self).__name__):
+            return self._call_keyed(args)
+
+    def _call_keyed(self, args):
         params = list(self._all_params())
         if any(p._deferred_init is not None for p in params):
             # the first call sizes deferred parameters imperatively
@@ -500,7 +509,8 @@ class HybridBlock(Block):
         owner = self._graph_owners.get(str(device))
         if owner is None:
             owner = self._graph_owners[str(device)] = _capture.GraphOwner(
-                "%s(hybridized)" % type(self).__name__, device)
+                "%s(hybridized)" % type(self).__name__, device,
+                site="hybrid_cache")
         watched = [p._data for p in params]
         diff = [t for t in watched if t is not None and t.requires_grad]
         what = "%s %r" % (type(self).__name__, key)
@@ -510,9 +520,11 @@ class HybridBlock(Block):
                 with torch.no_grad():
                     return self._plain_call(xs)
             return owner.run(("forward",) + key, forward, args, watched,
-                             what)
+                             what, self._profile(False, key, watched, args))
+        new = owner.is_new(("record",) + key)
         if owner.first_call(("record",) + key):
-            return owner.warm(lambda: self._plain_call(args))
+            return owner.warm(lambda: self._plain_call(args),
+                              self._profile(True, key, watched, args), new)
         pair = next((p for p in pairs if p.free()), None)
         if pair is not None and pair.fwd.stale(watched):
             pairs.remove(pair)
@@ -521,6 +533,18 @@ class HybridBlock(Block):
             pair = _TrainGraphs(self, owner, args, watched, diff, what)
             pairs.append(pair)
         return pair(args, diff)
+
+    def _profile(self, train, key, watched, args):
+        """The warm-up's ``mx.profiling`` capture: one CostReport per
+        key (``hybrid:<Block>``, ``hybrid:<Block>:train`` for the
+        recorded forward), keyed as the cache is; None while profiling
+        is off."""
+        if not _profiling._ENABLED:
+            return None
+        name = type(self).__name__
+        return ("hybrid:%s%s" % (name, ":train" if train else ""),
+                "hybrid_cache", ("hybrid", id(self), train) + key,
+                [t for t in watched if t is not None] + list(args))
 
     def infer_shape(self, *args):
         """Layer-specific deferred-shape rule; layers with deferred

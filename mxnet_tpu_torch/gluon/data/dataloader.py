@@ -29,6 +29,7 @@ import time
 import numpy as np
 import torch
 
+from ... import telemetry as _telemetry
 from ...base import MXNetError
 from ...ndarray import NDArray
 from ...ndarray.ndarray import _host_tensor
@@ -115,6 +116,22 @@ class DataLoader:
         return self._batchify_fn([self._dataset[i] for i in indices])
 
     def __iter__(self):
+        it = self._iter_impl()
+        if not _telemetry._ENABLED:
+            yield from it
+            return
+        # starvation probe: the time the consumer waits on each batch
+        # (data.wait_time, the goodput ledger's input_wait)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            _telemetry.hooks.dataloader_wait(time.perf_counter() - t0)
+            yield batch
+
+    def _iter_impl(self):
         if self._feed_kw is not None:
             yield from self._device_feed_iter()
             return

@@ -45,6 +45,7 @@ import torch
 
 from .. import kvstore as kvs
 from .. import optimizer as opt
+from .. import profiling as _profiling
 from .. import telemetry as _telemetry
 from ..base import MXNetError
 from .parameter import Parameter, ParameterDict
@@ -115,14 +116,21 @@ class Trainer:
         """Reduce the gradients through the kvstore, then apply the
         optimizer to every parameter with a gradient (``trainer.*``
         telemetry when it is on: the host wall of the call, which does
-        not wait for the card)."""
-        t0 = time.perf_counter() if _telemetry._ENABLED else None
+        not wait for the card; with ``mx.profiling`` on, a
+        ``trainer.step`` span on the step timeline)."""
+        t0 = time.perf_counter() \
+            if _telemetry._ENABLED or _profiling._ENABLED else None
         try:
             self._step(batch_size, ignore_stale_grad)
         finally:
             if t0 is not None:
-                _telemetry.hooks.trainer_step(time.perf_counter() - t0,
-                                              batch_size)
+                dt = time.perf_counter() - t0
+                if _telemetry._ENABLED:
+                    _telemetry.hooks.trainer_step(dt, batch_size)
+                if _profiling._ENABLED:
+                    from ..profiling import timeline
+                    timeline.record("trainer.step", t0, dt,
+                                    {"batch": batch_size})
 
     def _step(self, batch_size, ignore_stale_grad):
         self._optimizer.rescale_grad = self._scale / batch_size

@@ -37,6 +37,7 @@ import functools
 import torch
 
 from ..base import MXNetError
+from .costs import flash_bwd_cost, flash_fwd_cost
 from .registry import KernelSpec, count_launch, register_kernel
 
 __all__ = ["MAX_HEAD_DIM", "NEG_INF", "flash_attention_bwd_cuda",
@@ -191,7 +192,8 @@ def flash_attention_fwd_cuda(q, k, v, mask=None, causal=False, scale=1.0,
             float(scale), int(bool(causal)), _DTYPE_CODES[q.dtype], stream)
     _raise_on(lib, rc, "flash_attention_fwd")
     count_launch("flash_attention_fwd", q.dtype,
-                 None if mask is None else "masked")
+                 None if mask is None else "masked", cost_args=(
+                     (q, k, v), {"mask": mask, "heads": heads}))
     return out, lse
 
 
@@ -224,7 +226,9 @@ def flash_attention_bwd_cuda(q, k, v, lse, dout, delta, mask=None,
             _DTYPE_CODES[q.dtype], stream)
     _raise_on(lib, rc, "flash_attention_bwd")
     count_launch("flash_attention_bwd", q.dtype,
-                 None if mask is None else "masked")
+                 None if mask is None else "masked", cost_args=(
+                     (q, k, v, lse, dout, delta),
+                     {"mask": mask, "heads": heads}))
     return dq, dk, dv
 
 
@@ -235,6 +239,8 @@ register_kernel(KernelSpec(
     source="csrc/flash_attention.cu",
     replaces="mxnet_tpu/ops/pallas/flash_attention.py:101 "
              "flash_attention_fwd_pallas",
+    cost=flash_fwd_cost,
+    category="conv_dot",
 ))
 
 register_kernel(KernelSpec(
@@ -244,4 +250,6 @@ register_kernel(KernelSpec(
     source="csrc/flash_attention.cu",
     replaces="mxnet_tpu/ops/pallas/flash_attention.py:250 "
              "flash_attention_bwd_pallas",
+    cost=flash_bwd_cost,
+    category="conv_dot",
 ))

@@ -22,6 +22,7 @@ from ..base import MXNetError
 from ..ops.fused_bn_relu import (BNReluApply, bn_relu_apply_cuda,
                                  bn_relu_apply_reference, bn_relu_bwd_cuda,
                                  bn_relu_bwd_reference)
+from .costs import bn_relu_apply_cost, bn_relu_bwd_cost
 from .registry import KernelSpec, register_kernel
 
 __all__ = ["fused_bn_relu"]
@@ -32,6 +33,8 @@ register_kernel(KernelSpec(
     launch=bn_relu_apply_cuda,
     source="csrc/fused_bn_relu.cu",
     replaces="mxnet_tpu/kernels/fused_bn_relu.py:57 bn_relu_apply_pallas",
+    cost=bn_relu_apply_cost,
+    category="elementwise_fusion",
 ))
 
 register_kernel(KernelSpec(
@@ -40,6 +43,8 @@ register_kernel(KernelSpec(
     launch=bn_relu_bwd_cuda,
     source="csrc/fused_bn_relu.cu",
     replaces="mxnet_tpu/kernels/fused_bn_relu.py:93 bn_relu_bwd_pallas",
+    cost=bn_relu_bwd_cost,
+    category="elementwise_fusion",
 ))
 
 

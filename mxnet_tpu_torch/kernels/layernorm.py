@@ -19,6 +19,7 @@ import functools
 import torch
 
 from ..base import MXNetError
+from .costs import layernorm_cost
 from .registry import KernelSpec, count_launch, register_kernel
 
 __all__ = ["layernorm_fwd_cuda", "layernorm_reference"]
@@ -85,7 +86,8 @@ def layernorm_fwd_cuda(x2d, gamma, beta, eps=1e-5):
     if rc != 0:
         raise MXNetError("layernorm_fwd kernel launch failed: %s (%d)"
                          % (lib.layernorm_error_string(rc).decode(), rc))
-    count_launch("layernorm_fwd", x2d.dtype)
+    count_launch("layernorm_fwd", x2d.dtype,
+                 cost_args=((x2d, gamma, beta), {}))
     return out
 
 
@@ -95,4 +97,6 @@ register_kernel(KernelSpec(
     launch=layernorm_fwd_cuda,
     source="csrc/layernorm.cu",
     replaces="mxnet_tpu/ops/pallas/layernorm.py:38 layernorm_fwd_pallas",
+    cost=layernorm_cost,
+    category="elementwise_fusion",
 ))

@@ -51,6 +51,7 @@ import torch
 
 from ..base import MXNetError
 from ..bucketing import dtype_groups, flatten_group, split_group
+from .costs import lamb_phase1_cost, lars_flat_cost
 from .registry import KernelSpec, count_launch, dispatch, register_kernel
 
 __all__ = ["FlatLamb1", "FlatLars", "bucket_supported", "bucket_update",
@@ -174,7 +175,9 @@ def lamb_phase1_cuda(w, g, m, v, wd, scalars, beta1=0.9, beta2=0.999,
             float(beta2), 1.0 - beta2, float(eps), clipv,
             _DTYPE_CODES[w.dtype], stream)
     _raise_on(lib, rc, "lamb_phase1")
-    count_launch("lamb_phase1")
+    count_launch("lamb_phase1", cost_args=(
+        (w, g, m, v, wd, scalars),
+        {"beta1": beta1, "beta2": beta2, "eps": eps, "clip": clip}))
     return gw, nm, nv
 
 
@@ -184,6 +187,8 @@ register_kernel(KernelSpec(
     launch=lamb_phase1_cuda,
     source="csrc/optimizer_update.cu",
     replaces="mxnet_tpu/kernels/optimizer_update.py:258 lamb_phase1_pallas",
+    cost=lamb_phase1_cost,
+    category="elementwise_fusion",
 ))
 
 
@@ -226,7 +231,9 @@ def lars_flat_cuda(w, g, m, lr, wd, sign, rescale, momentum=0.9, clip=0.0):
             w.numel(), rescale.data_ptr(), float(momentum), clipv,
             _DTYPE_CODES[w.dtype], stream)
     _raise_on(lib, rc, "lars_flat")
-    count_launch("lars_flat", w.dtype)
+    count_launch("lars_flat", w.dtype, cost_args=(
+        (w, g, m, lr, wd, sign, rescale),
+        {"momentum": momentum, "clip": clip}))
     return nw, nm
 
 
@@ -236,6 +243,8 @@ register_kernel(KernelSpec(
     launch=lars_flat_cuda,
     source="csrc/optimizer_update.cu",
     replaces="mxnet_tpu/kernels/optimizer_update.py:114 lars_flat_pallas",
+    cost=lars_flat_cost,
+    category="elementwise_fusion",
 ))
 
 

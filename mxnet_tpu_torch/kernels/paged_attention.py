@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from ..ops.paged_attention import (paged_attention_cuda,
                                    paged_attention_reference)
+from .costs import paged_attention_cost
 from .registry import KernelSpec, dispatch, register_kernel
 
 __all__ = ["paged_attention"]
@@ -19,6 +20,8 @@ register_kernel(KernelSpec(
     source="csrc/paged_attention.cu",
     replaces="mxnet_tpu/ops/pallas/paged_attention.py:112 "
              "paged_attention_pallas",
+    cost=paged_attention_cost,
+    category="conv_dot",
 ))
 
 

@@ -18,6 +18,17 @@ launch under that dtype (:func:`launch_dtypes`), and under
 flash kernels' ``"masked"``), so a path's masked launches count apart
 from its unmasked ones.
 
+Each entry also carries the kernel's cost function (:mod:`.costs`: the
+operations and bytes of one launch, from its arguments) and its cost
+category.  A launcher hands its arguments to :func:`count_launch`;
+while a :mod:`~mxnet_tpu_torch.profiling` walk runs on the launching
+thread, the launch is charged there at its cost, since a kernel
+launched through ``ctypes`` is invisible to the walk.  On the CPU,
+:func:`dispatch` runs the plain version inside the walk's suppression
+and charges it once, as the kernel, so a step's report counts each hand
+kernel once on either device.  A kernel registered without a cost
+function is an error.
+
 A launch made while a CUDA graph is being captured does not run: it is
 recorded.  Inside :func:`counting_into` such launches go to the graph's
 tally instead of the counters, and :func:`add_launches` adds the tally
@@ -39,16 +50,34 @@ __all__ = ["KernelSpec", "register_kernel", "get", "list_kernels",
            "launch_dtypes", "launches", "reset_launches"]
 
 
+# the cost categories of the profiling reports (the JAX package's HLO
+# categories); a hand kernel takes the one its work belongs to
+_CATEGORIES = ("conv_dot", "collective", "transpose_layout",
+               "elementwise_fusion", "other")
+
+
 @dataclass
 class KernelSpec:
-    """One port kernel: plain version, launcher, provenance."""
+    """One port kernel: plain version, launcher, provenance, and the
+    cost of one launch (``cost(*args, **kwargs) -> (flops, bytes)`` over
+    the launcher's arguments) in its report category."""
     name: str
     plain: Callable
     launch: Callable
     source: str       # the kernel source, relative to the package
     replaces: str     # the TPU kernel it ports, "file:line function"
+    cost: Callable
+    category: str
     launches: int = 0
     dtypes: Counter = field(default_factory=Counter)
+
+    def __post_init__(self):
+        if not callable(self.cost):
+            raise MXNetError("kernel %r registered without a cost "
+                             "function" % self.name)
+        if self.category not in _CATEGORIES:
+            raise MXNetError("kernel %r: unknown cost category %r"
+                             % (self.name, self.category))
 
     def __repr__(self):
         return "KernelSpec(%s, launches=%d)" % (self.name, self.launches)
@@ -57,6 +86,18 @@ class KernelSpec:
 KERNELS: Dict[str, KernelSpec] = {}
 _count_lock = threading.Lock()
 _tally = None      # the Counter of the graph being captured, if any
+# profiling walks running (profiling.aten.Walk); 0 keeps launches and
+# plain calls to one integer check
+_walks = 0
+
+
+def _walk_of_thread():
+    """The profiling walk on this thread's dispatch-mode stack, or
+    None."""
+    if not _walks:
+        return None
+    from ..profiling import aten
+    return aten.current_walk()
 
 
 def register_kernel(spec: KernelSpec) -> KernelSpec:
@@ -94,7 +135,14 @@ def dispatch(name: str, x, *args, **kwargs):
     if kind == "cuda":
         return spec.launch(x, *args, **kwargs)
     if kind == "cpu":
-        return spec.plain(x, *args, **kwargs)
+        walk = _walk_of_thread()
+        if walk is None:
+            return spec.plain(x, *args, **kwargs)
+        # the walk counts the plain version once, as its kernel
+        with walk.suppressed():
+            out = spec.plain(x, *args, **kwargs)
+        walk.kernel(spec, spec.cost(x, *args, **kwargs), launched=False)
+        return out
     raise MXNetError("kernel %r: no implementation for device %s"
                      % (name, x.device))
 
@@ -106,14 +154,24 @@ def _dtype_name(dtype, variant=None):
     return name if variant is None else "%s %s" % (name, variant)
 
 
-def count_launch(name: str, dtype=None, variant=None) -> None:
+def count_launch(name: str, dtype=None, variant=None,
+                 cost_args=None) -> None:
     """Called by a launcher right after its kernel launched, with the
     dtype it ran on where that varies (and the variant of the kernel it
-    launched, where it has several).  A launch recorded into a CUDA
+    launched, where it has several) and ``cost_args``, the ``(args,
+    kwargs)`` it was called with, which the kernel's cost function
+    reads while a profiling walk runs.  A launch recorded into a CUDA
     graph under :func:`counting_into` goes to that graph's tally (the
     check of the capturing stream covers the autograd engine's thread,
     which runs a captured backward on the capture stream)."""
     spec = get(name)
+    if cost_args is None:
+        raise MXNetError("kernel %r counted a launch without its cost "
+                         "arguments" % name)
+    walk = _walk_of_thread()
+    if walk is not None:
+        args, kwargs = cost_args
+        walk.kernel(spec, spec.cost(*args, **kwargs), launched=True)
     with _count_lock:
         if _tally is not None:
             import torch

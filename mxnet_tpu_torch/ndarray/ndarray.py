@@ -26,12 +26,14 @@ table (:mod:`mxnet_tpu_torch.ops.table`).
 from __future__ import annotations
 
 import struct
+import time
 import weakref
 
 import numpy as np
 import torch
 
 from .. import autograd
+from .. import telemetry as _telemetry
 from ..base import MXNetError
 from ..context import Context, current_context
 from ..ops.table import OpSpec, canonical, lookup, torch_dtype
@@ -47,9 +49,14 @@ _NP_DTYPES = {torch.float32: np.float32, torch.float16: np.float16,
 
 
 def waitall():
-    """Block until all work queued on the card has finished."""
+    """Block until all work queued on the card has finished (the wait is
+    the ``dispatch.host_sync_time`` timer's, the goodput ledger's
+    host_sync category, while telemetry is on)."""
+    t0 = time.perf_counter() if _telemetry._ENABLED else None
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
+    if t0 is not None:
+        _telemetry.hooks.host_sync("waitall", time.perf_counter() - t0)
 
 
 def _place(t, ctx):
@@ -132,7 +139,15 @@ class NDArray:
     # -- sync / conversion --------------------------------------------
     def asnumpy(self):
         """A host copy as a numpy array (bf16 as float32); waits for the
-        card."""
+        card (timed as a ``host_sync`` while telemetry is on)."""
+        if _telemetry._ENABLED:
+            t0 = time.perf_counter()
+            out = self._host_copy()
+            _telemetry.hooks.host_sync("asnumpy", time.perf_counter() - t0)
+            return out
+        return self._host_copy()
+
+    def _host_copy(self):
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
@@ -173,8 +188,12 @@ class NDArray:
         return self.shape[0]
 
     def wait_to_read(self):
+        t0 = time.perf_counter() if _telemetry._ENABLED else None
         if self._data.is_cuda:
             torch.cuda.synchronize(self._data.device)
+        if t0 is not None:
+            _telemetry.hooks.host_sync("wait_to_read",
+                                       time.perf_counter() - t0)
 
     wait_to_write = wait_to_read
 
@@ -565,6 +584,8 @@ def invoke(op, tensor_args, kwargs, out=None):
     on ``ctx``, by default the current context.  Outside
     ``autograd.record()`` nothing is recorded for backward."""
     spec = op if isinstance(op, OpSpec) else lookup(op)
+    if _telemetry._ENABLED:
+        _telemetry.hooks.op_dispatch(spec.name)
     params = dict(kwargs)
     params.pop("name", None)
     ctx = params.pop("ctx", None) if spec.creates else None

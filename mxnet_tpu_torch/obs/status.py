@@ -13,16 +13,19 @@ pod manager needs it:
 - a failed async checkpoint write (``checkpoint.write_failures``) means
   published state is behind training -- NOT_READY;
 - a servable whose bounded queue sits at capacity is shedding load --
-  NOT_READY (scale out / back off).
+  NOT_READY (scale out / back off);
+- a restart supervisor whose generation is down (a worker died and the
+  relaunch has not landed) or whose restart budget is spent --
+  NOT_READY until the workers are back or an operator intervenes.
 
 :func:`statusz` adds the operator narrative: served vs published step,
 recent swap history (the ``serving.swap`` event ring), bucket
 occupancy, and per-rank last heartbeat (the ContinuousTrainer loop
 beats once per step; a stale heartbeat is a wedged trainer even when
-every thread is alive).  The snapshot has the JAX package's schema; the
-rows of modules the port does not have yet (the goodput ledger, the
-memory sentinel, supervisors, the fleet plane) are empty.  The HTTP
-server that serves it comes with the rest of the ops plane.
+every thread is alive), the newest goodput window (:mod:`.goodput`),
+the numerics and leak sentinels' rows and the supervisors.  The
+snapshot has the JAX package's schema; its fleet row stays empty until
+the fleet plane is ported.  :mod:`.server` serves it over HTTP.
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ import time
 import weakref
 
 __all__ = ["register_watcher", "register_registry", "register_trainer",
-           "heartbeat", "health", "statusz", "reset", "STATUSZ_SCHEMA"]
+           "register_ledger", "register_supervisor", "heartbeat",
+           "health", "statusz", "reset", "STATUSZ_SCHEMA"]
 
 # the /statusz contract version, the JAX package's
 STATUSZ_SCHEMA = "mxstatusz.v1"
@@ -39,6 +43,8 @@ STATUSZ_SCHEMA = "mxstatusz.v1"
 _watchers = weakref.WeakSet()
 _registries = weakref.WeakSet()
 _trainers = weakref.WeakSet()
+_ledgers = weakref.WeakSet()    # goodput StepLedgers (obs.goodput)
+_supervisors = weakref.WeakSet()   # restart supervisors
 _heartbeats = {}                # rank -> wall time of last beat
 
 
@@ -61,6 +67,14 @@ def register_trainer(trainer):
     _trainers.add(trainer)
 
 
+def register_ledger(ledger):
+    _ledgers.add(ledger)
+
+
+def register_supervisor(supervisor):
+    _supervisors.add(supervisor)
+
+
 def heartbeat(rank=None):
     """One liveness beat (the trainer loop calls this every step)."""
     _heartbeats[_env_int("MXNET_TPU_PROC_ID") if rank is None
@@ -72,6 +86,8 @@ def reset():
     _watchers.clear()
     _registries.clear()
     _trainers.clear()
+    _ledgers.clear()
+    _supervisors.clear()
     _heartbeats.clear()
 
 
@@ -107,6 +123,11 @@ def health():
     failures = _counter_value("checkpoint.write_failures")
     if failures:
         reasons.append("checkpoint_write_failures:%d" % failures)
+    for s in list(_supervisors):
+        if s.exhausted:
+            reasons.append("restart_budget_exhausted:%d" % s.generation)
+        elif s.generation_down:
+            reasons.append("generation_down:%d" % s.generation)
     for name, s in _servables():
         if s.queue_depth() >= s.queue_capacity:
             reasons.append("queue_saturated:%s" % name)
@@ -116,6 +137,7 @@ def health():
 def statusz():
     """The full operator snapshot (JSON-ready)."""
     from .. import telemetry as _telemetry
+    from ..analysis import memory as _memory
     from ..analysis import numerics as _numerics
     reg = _telemetry.registry()
     watchers = [{"name": w.name, "served_step": w.served_step,
@@ -127,6 +149,14 @@ def statusz():
                   "queue_capacity": s.queue_capacity,
                   "buckets": list(s.buckets)}
                  for name, s in _servables()]
+    supervisors = [{"generation": s.generation, "restarts": s.restarts,
+                    "down": s.generation_down, "exhausted": s.exhausted}
+                   for s in list(_supervisors)]
+    goodput = None
+    for led in list(_ledgers):
+        win = led.last()
+        if win is not None:
+            goodput = win       # the newest registered ledger wins
     swap_ev = reg.get("serving.swap")
     occupancy = reg.get("serving.batch_occupancy")
     served = reg.get("serving.served_step")
@@ -146,13 +176,13 @@ def statusz():
         "watchers": watchers,
         "trainers": trainers,
         "servables": servables,
-        "supervisors": [],
+        "supervisors": supervisors,
         "swap_history": swap_ev.recent if swap_ev is not None else [],
         "bucket_occupancy": (occupancy.snapshot()
                              if occupancy is not None else None),
-        "goodput": None,
+        "goodput": goodput,
         "numerics": _numerics.status_row(),
-        "memory": None,
+        "memory": _memory.status_row(),
         "heartbeats": dict(_heartbeats),
         "fleet": None,
     }

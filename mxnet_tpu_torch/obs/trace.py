@@ -22,8 +22,8 @@ Two recording surfaces:
 Every finished span lands in (1) a bounded in-process ring
 (:func:`export_chrome_trace` reads it) and (2) the attached telemetry
 sinks as a streamed ``{"kind": "span", ...}`` JSONL record, the JAX
-package's record.  The JAX package also overlays spans on its step
-timeline; that overlay comes with the rest of the ops plane.
+package's record; with ``mx.profiling`` enabled each span is also
+overlaid on the profiling step timeline.
 """
 from __future__ import annotations
 
@@ -197,6 +197,13 @@ def record_span(name, ctx, parent_id=None, t0=None, dur=0.0,
     # telemetry to be enabled, so tracing stands alone
     from .. import telemetry as _telemetry
     _telemetry.registry()._stream(rec)
+    # overlay on the profiling step timeline when cost accounting is on
+    from .. import profiling as _profiling
+    if _profiling.enabled():
+        from ..profiling import timeline as _timeline
+        _timeline.record(name, rec["t0"], rec["dur"],
+                         args={"trace": ctx.trace_id,
+                               "span": ctx.span_id})
     return rec
 
 

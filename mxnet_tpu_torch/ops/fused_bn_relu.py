@@ -123,7 +123,8 @@ def bn_relu_apply_cuda(x2d, scale, offset):
             out.data_ptr(), x2d.shape[0], x2d.shape[1],
             _DTYPE_CODES[x2d.dtype], stream)
     _raise_on(lib, rc, "bn_relu_apply")
-    count_launch("bn_relu_apply", x2d.dtype)
+    count_launch("bn_relu_apply", x2d.dtype,
+                 cost_args=((x2d, scale, offset), {}))
     return out
 
 
@@ -144,7 +145,8 @@ def bn_relu_bwd_cuda(x2d, dy2d, y2d, a, mean, inv, c1, c2):
             dx.data_ptr(), x2d.shape[0], x2d.shape[1],
             _DTYPE_CODES[x2d.dtype], stream)
     _raise_on(lib, rc, "bn_relu_bwd")
-    count_launch("bn_relu_bwd", x2d.dtype)
+    count_launch("bn_relu_bwd", x2d.dtype,
+                 cost_args=((x2d, dy2d, y2d, a, mean, inv, c1, c2), {}))
     return dx
 
 

@@ -208,5 +208,7 @@ def paged_attention_cuda(q, k_cache, v_cache, block_tables, context_lens,
         raise MXNetError("paged_attention kernel launch failed: %s (%d)"
                          % (lib.paged_attention_error_string(rc).decode(),
                             rc))
-    count_launch("paged_attention")
+    count_launch("paged_attention", cost_args=(
+        (q, k_cache, v_cache, block_tables, context_lens),
+        {"scale": scale}))
     return out

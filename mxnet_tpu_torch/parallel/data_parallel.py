@@ -62,11 +62,22 @@ step.  The contract is the JAX step's:
 - ``__call__`` returns the mean loss, a 0-d tensor; ``run_steps``
   returns the K mean losses as a ``(K,)`` tensor on the device, reads
   lr and wd once for the block, at its first step's count, and refuses
-  an fp16 loss scaler, as the JAX package does.
+  an fp16 loss scaler, as the JAX package does;
+- with ``mx.profiling`` on, a key's warm-up is walked into its
+  CostReport (label ``train_step:<Block>``, ``train_scan:<Block>``
+  under ``run_steps``), and each step's dispatch wall feeds the
+  roofline's step clock (``profiling.step_time``, the goodput ledger's
+  device_compute) and the step timeline.  A replay returns before the
+  card finishes: the wait lands where the host reads a result (the
+  ``host_sync`` category).  :meth:`cost_analysis` gives the last key's
+  flops and bytes, walking one eager step then if the key was not
+  profiled (its weights, optimizer state and random state restored
+  after).
 """
 from __future__ import annotations
 
 import contextlib
+import time
 
 import torch
 
@@ -74,6 +85,7 @@ from .. import _capture
 from .. import amp as _amp
 from .. import autograd
 from .. import chaos as _chaos
+from .. import profiling as _profiling
 from .. import random as _random
 from ..analysis import numerics as _numerics
 from ..amp.loss_scaler import all_finite
@@ -227,6 +239,8 @@ class TrainStep:
         self._scalars = None
         self._finite = None
         self._finite_host = None
+        self._last = None          # (label, key, batch shapes, live)
+        self._cost_reports = {}    # key -> CostReport walked on demand
 
     @property
     def last_step_finite(self):
@@ -344,7 +358,7 @@ class TrainStep:
             + [t for i, _p in live for t in _tensors(states.get(i))] \
             + [self._scalars.dev]
 
-    def _step(self, live, data, label, batch_size):
+    def _step(self, live, data, label, batch_size, kind="train_step"):
         """One step through the key's entry: eager on the CPU and on a
         key's first call on the card, a replay of its graph after."""
         sc, scaler = self._feed(live, batch_size, data)
@@ -354,16 +368,107 @@ class TrainStep:
                _amp.policy_token(), scaled, str(data.device))
         if self._owner is None:
             self._owner = _capture.GraphOwner(
-                "TrainStep(%s)" % type(self._block).__name__, data.device)
+                "TrainStep(%s)" % type(self._block).__name__, data.device,
+                site="train_step")
+        plabel = "%s:%s" % (kind, type(self._block).__name__)
+        self._last = (plabel, key, (data.shape, data.dtype, label.shape,
+                                    label.dtype, batch_size), live)
+        watched = self._watched(live)
+        profile = (plabel, "train_step", ("train_step", id(self), key),
+                   watched + [data, label]) if _profiling._ENABLED else None
+        t0 = time.perf_counter() if _profiling._ENABLED else None
+        built = self._owner.build_s
         loss, finite = self._owner.run(
             key, lambda x, y: self._body(live, x, y, sc, scaled),
-            [data, label], self._watched(live),
-            "the step of key %r" % (key,))
+            [data, label], watched, "the step of key %r" % (key,),
+            profile)
+        if t0 is not None:
+            # the key's warm-up and capture are compile.build_time's
+            # (the ledger's recompile), not the dispatch wall
+            self._profiling_hook(plabel, t0, time.perf_counter() - t0
+                                 - (self._owner.build_s - built),
+                                 batch_size if batch_size is not None
+                                 else data.shape[self._batch_axis])
         self._finite, self._finite_host = finite, None
         if scaled:
             self._finite_host = bool(finite)
             scaler.update_scale(not self._finite_host)
         return loss
+
+    @staticmethod
+    def _profiling_hook(label, t0, dispatch_s, items):
+        """mx.profiling for one dispatched step: the roofline's step
+        clock and a timeline span.  The dispatch wall is what the host
+        spent; a replay returns before the card finishes, so the wait
+        for the card lands where the host reads a result."""
+        from ..profiling import timeline
+        _profiling.record_step(label, dispatch_s, items=items)
+        timeline.record(label, t0, dispatch_s, {"items": items})
+
+    def cost_report(self, label=None):
+        """The CostReport of the last dispatched key: the profiling
+        store's, when ``mx.profiling`` walked its warm-up, else one
+        eager step walked now on zeros of the key's batch shapes, with
+        every parameter, optimizer state and the random state restored
+        after it.  None before the first step."""
+        if self._last is None:
+            return None
+        plabel, key, shapes, live = self._last
+        label = label or plabel
+        pkey = ("train_step", id(self), key)
+        from ..profiling import store
+        rep = store.report(pkey)
+        if rep is not None:
+            return rep
+        rep = self._cost_reports.get(key)
+        if rep is None:
+            rep = self._cost_reports[key] = self._walk(label, shapes, live)
+        return rep
+
+    def _walk(self, label, shapes, live):
+        """One eager step of the key walked into a CostReport (not
+        stored), leaving the block, the optimizer state and the random
+        state as they were."""
+        from ..profiling import aten, cost
+        dshape, ddtype, lshape, ldtype, _bs = shapes
+        device = self._device()
+        data = torch.zeros(dshape, dtype=ddtype, device=device)
+        label_t = torch.zeros(lshape, dtype=ldtype, device=device)
+        watched = self._watched(live)
+        kept = [t for t in watched if t is not None]
+        saved = [t.detach().clone() for t in kept]
+        gen = _random.generator(device)
+        rng = gen.get_state()
+        scaled = getattr(self._trainer, "_amp_loss_scaler", None) is not None
+        try:
+            with aten.Walk() as walk, _capture.body_scope():
+                out = self._body(live, data, label_t, self._scalars, scaled)
+        finally:
+            with torch.no_grad():
+                for t, s in zip(kept, saved):
+                    t.copy_(s)
+            for _i, p in live:
+                p._data.grad = None
+            gen.set_state(rng)
+        return cost.analyze_walk(
+            walk, label=label, kind="train_step", device=device,
+            argument_bytes=sum(t.numel() * t.element_size()
+                               for t in kept + [data, label_t]),
+            output_bytes=sum(t.numel() * t.element_size() for t in out))
+
+    def cost_analysis(self):
+        """Cost of the most recently dispatched key --
+        ``{"flops": ..., "bytes accessed": ..., ...}`` from its
+        CostReport (:meth:`cost_report`), or None before the first step.
+        Powers the goodput ledger's MFU."""
+        rep = self.cost_report()
+        if rep is None:
+            return None
+        return {"flops": rep["totals"]["flops"],
+                "bytes accessed": rep["totals"]["bytes_accessed"],
+                "transcendentals": rep["totals"]["transcendentals"],
+                "argument bytes": rep["memory"]["argument_bytes"],
+                "output bytes": rep["memory"]["output_bytes"]}
 
     def __call__(self, data, label=None, batch_size=None):
         """One training step on ``(data, label)``, or on a
@@ -450,6 +555,7 @@ class TrainStep:
         label = self._stage(label, device)
         live = self._prepare(data[0])
         with _rates_held(tr._optimizer, [i for i, _p in live]):
-            losses = [self._step(live, data[k], label[k], batch_size)
+            losses = [self._step(live, data[k], label[k], batch_size,
+                                 kind="train_scan")
                       for k in range(data.shape[0])]
         return torch.stack(losses)

@@ -24,8 +24,8 @@ A second SIGTERM delivered while the first one's save is on the stack
 is suppressed (``preemption.reentrant_signals``,
 ``chaos.survived.preemption.signal``), so it cannot start a second
 commit inside the first; the ``preemption.signal`` chaos fail point sits
-in the handler.  The JAX package also dumps its crash recorder from the
-handler; that recorder comes with the rest of the ops plane.
+in the handler, after the handler marks and msyncs the flight recorder
+(``obs.flight.emergency_dump``), as the JAX package does.
 """
 from __future__ import annotations
 
@@ -219,6 +219,13 @@ class PreemptionHandler:
         self._in_handler = True
         try:
             self._signal_seen = True
+            # black box: the preemption is exactly the death a flight
+            # recorder exists for -- mark it (with the in-flight trace)
+            # and msync so the final seconds survive the SIGKILL that
+            # follows the grace window
+            from . import obs as _obs
+            _obs.flight.emergency_dump("preemption.signal",
+                                       signum=signum, prefix=self.prefix)
             # chaos: a rule here can deliver a nested signal (callable
             # action invoking _on_signal again) or stall the handler --
             # how tests prove the guard above holds

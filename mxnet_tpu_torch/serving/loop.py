@@ -24,13 +24,16 @@ exhausts its retries is marked bad and skipped -- the previous model
 keeps serving -- and ``failure_budget`` consecutive failed steps suspend
 the watcher with a warning.
 
+The trainer ticks the ops plane as the JAX loop does: the process
+goodput ledger once a step (``MXNET_TPU_OBS_GOODPUT=1``; each publish
+marks its window publish-guarded, ``close()`` flushes the tail window),
+the leak sentinel likewise (``MXNET_TPU_MEMORY_WATCH=1``), and the
+``memory.leak`` chaos point before each step's forward.
+
 One process: the JAX trainer beats a cross-process liveness lease each
 step and can train past a publish aborted by a rank failure
 (``on_publish_error="continue"``); both wait for the multi-device slice
-(ROADMAP item 9), and a multi-process launch raises.  The JAX loop's
-goodput-ledger and leak-sentinel ticks wait for the rest of the ops
-plane (ROADMAP item 8): their switches (``MXNET_TPU_OBS_GOODPUT``,
-``MXNET_TPU_MEMORY_WATCH``) raise rather than do nothing.
+(ROADMAP item 9), and a multi-process launch raises.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ import warnings
 
 from .. import chaos as _chaos
 from .. import obs as _obs
+from ..analysis import memory as _memory
 from .. import sync as _sync
 from .. import telemetry as _telemetry
 from ..base import MXNetError
@@ -55,8 +59,7 @@ def _manager(checkpoint):
 
 
 def _refuse_unported():
-    """Raise for the parts of the JAX loop the port does not have."""
-    from .. import env as _env
+    """Raise for the part of the JAX loop the port does not have."""
     try:
         procs = int(os.environ.get("MXNET_TPU_NUM_PROCS", "1") or 1)
     except ValueError:
@@ -65,12 +68,6 @@ def _refuse_unported():
         raise MXNetError("ContinuousTrainer: a multi-process loop (its "
                          "liveness lease, rank-failure publishes) waits "
                          "for the multi-device slice, ROADMAP item 9")
-    for var, what in (("MXNET_TPU_OBS_GOODPUT", "goodput ledger"),
-                      ("MXNET_TPU_MEMORY_WATCH", "leak sentinel")):
-        if _env.get(var):
-            raise MXNetError("ContinuousTrainer: %s=1 asks for the %s, "
-                             "which waits for the rest of the ops plane "
-                             "(ROADMAP item 8)" % (var, what))
 
 
 class ContinuousTrainer:
@@ -170,6 +167,10 @@ class ContinuousTrainer:
                 box = {}
                 _chaos.fail_point("numerics.nonfinite", box=box,
                                   step=step)
+                # memory.leak chaos point: the armed action pins tensors
+                # in a hidden list, so the LEAK SENTINEL (not the
+                # injector) must catch the live-bytes growth
+                _chaos.fail_point("memory.leak", step=step)
                 if box.get("poison"):
                     x = _numerics.poison_nd(x)
                 with autograd.record():
@@ -192,6 +193,15 @@ class ContinuousTrainer:
             finally:
                 if sp is not None:
                     _obs.end_span(sp)
+            if _obs._GOODPUT_ENABLED:
+                # one ledger tick per training step: windows close at
+                # the MXNET_TPU_OBS_GOODPUT_WINDOW boundary and the
+                # attribution publishes through goodput.* instruments
+                _obs.goodput.ledger().step()
+            if _memory.watch_enabled():
+                # one sentinel tick per step: censuses run only at
+                # window boundaries, inside the sentinel
+                _memory.sentinel().step()
             # liveness beat for statusz: a stale heartbeat means a
             # wedged loop even when every thread is alive
             _obs.status.heartbeat()
@@ -213,6 +223,14 @@ class ContinuousTrainer:
                 _obs.end_span(sp)
         with self._lock:
             self._published_step = step
+        if _obs._GOODPUT_ENABLED:
+            # the ledger's publish guard: the checkpoint_stall spike
+            # this window is expected work, not a regression
+            _obs.goodput.ledger().note_publish()
+        if _memory.watch_enabled():
+            # same guard for the leak sentinel: the snapshot's
+            # live-bytes spike is expected work, not a leak
+            _memory.sentinel().note_publish()
         if _telemetry._ENABLED:
             _telemetry.hooks.train_publish(step, time.perf_counter() - t0)
         return step
@@ -253,6 +271,13 @@ class ContinuousTrainer:
             t.join()
             self._thread = None
         self.manager.wait_until_finished()
+        if _obs._GOODPUT_ENABLED:
+            # close the partial tail window so a short run still
+            # reports its attribution
+            _obs.goodput.ledger().flush(reason="close")
+        if _memory.watch_enabled():
+            # close the sentinel's partial tail window too
+            _memory.sentinel().flush()
         with self._lock:
             err, self._error = self._error, None
         if err is not None:

@@ -14,11 +14,14 @@ dashboard or alert written for one package reads the other.
 
 The hooks ported are those of the modules the port has: the serving
 and decode tiers, the KV cache, checkpoints, the always-on loop, the
-trainer, AMP, the numerics sentinel, the sync layer, chaos and
-preemption.  :data:`INSTRUMENTS` keeps the JAX catalogue's entries of
-the instruments they write.  The dispatch, compile, kvstore, data
-loader, device feed, memory, profiling, goodput, fleet, supervisor and
-environment-health hooks come with the rest of the ops plane.
+trainer, AMP, the numerics sentinel, the sync layer, chaos, preemption
+and the single-process ops plane (op dispatch and host syncs, graph
+warm-ups and captures, the data loader and device feed, the leak
+sentinel, profiling, the supervisor, the goodput ledger and the
+environment-health gauges).  :data:`INSTRUMENTS` keeps the JAX
+catalogue's entries of the instruments they write.  The kvstore and
+cross-process hooks wait for the multi-device slice, the fleet hooks
+for the fleet plane.
 """
 from __future__ import annotations
 
@@ -64,6 +67,24 @@ __all__ = [
     "chaos_survive",
     "checkpoint_commit_aborted",
     "serving_watcher_suspended",
+    "op_dispatch",
+    "host_sync",
+    "compile_event",
+    "samples_per_sec",
+    "dataloader_wait",
+    "feed_produce",
+    "feed_wait",
+    "feed_overlap",
+    "memory_census",
+    "memory_leak",
+    "profiling_capture",
+    "profiling_step",
+    "supervisor_restart",
+    "supervisor_exhausted",
+    "goodput_window",
+    "goodput_regression",
+    "goodput_env_degraded",
+    "env_health",
 ]
 
 
@@ -384,6 +405,188 @@ def serving_watcher_suspended(model, step, budget):
                                                 budget=budget)
 
 
+# -- the ops plane: dispatch, compile, input, memory, profiling,
+# -- supervisor, goodput and environment health
+
+def op_dispatch(opname):
+    reg = _registry()
+    reg.counter("dispatch.op_calls").inc()
+    reg.counter("dispatch.op." + opname).inc()
+
+
+def host_sync(kind, seconds=None):
+    reg = _registry()
+    reg.counter("dispatch.host_sync").inc()
+    reg.counter("dispatch.host_sync." + kind).inc()
+    if seconds is not None:
+        # the goodput ledger's host_sync category: wall the host spent
+        # blocked on device results (asnumpy / wait_to_read / waitall)
+        reg.timer("dispatch.host_sync_time").observe(seconds, sync=kind)
+
+
+def compile_event(site, seconds=None, retrace=False, **payload):
+    """One shape-keyed program was built at ``site``: the port's
+    counterpart of a compile is a key's eager warm-up and its CUDA-graph
+    capture (``hybrid_cache``, ``train_step``; ``payload`` names the
+    owner and the stage).  ``retrace`` marks a build that joined a
+    non-empty cache."""
+    reg = _registry()
+    reg.counter("compile.count").inc()
+    if retrace:
+        reg.counter("compile.retraces").inc()
+    if seconds is not None:
+        reg.timer("compile.build_time").observe(seconds, site=site)
+    reg.event("compile").emit(site=site, retrace=bool(retrace),
+                              seconds=seconds, **payload)
+
+
+def samples_per_sec(value):
+    """Throughput reported by an outer logger: the gauge the Trainer
+    feeds, so every training loop reports through one channel."""
+    _registry().gauge("trainer.samples_per_sec").set(value)
+
+
+def dataloader_wait(seconds):
+    reg = _registry()
+    reg.counter("data.batches").inc()
+    reg.timer("data.wait_time").observe(seconds)
+
+
+def feed_produce(seconds, nbytes):
+    reg = _registry()
+    reg.counter("feed.batches").inc()
+    if nbytes:
+        reg.counter("feed.bytes_staged").inc(int(nbytes))
+    reg.timer("feed.producer_busy").observe(seconds)
+
+
+def feed_wait(seconds):
+    _registry().timer("feed.consumer_wait").observe(seconds)
+
+
+def feed_overlap(frac):
+    _registry().gauge("feed.overlap_frac").set(frac)
+
+
+def memory_census(live_bytes, live_arrays):
+    """One live-buffer census ran (analysis.memory; armed by
+    MXNET_TPU_MEMORY_WATCH=1): publish the live totals as gauges."""
+    reg = _registry()
+    reg.counter("memory.censuses").inc()
+    reg.gauge("memory.live_bytes").set(live_bytes)
+    reg.gauge("memory.live_arrays").set(live_arrays)
+
+
+def memory_leak(bucket, growth_bytes, live_bytes, window):
+    """The leak sentinel flagged monotonic live-bytes growth; payload
+    names the top-growing shape/dtype bucket."""
+    reg = _registry()
+    reg.counter("memory.leaks").inc()
+    reg.event("memory.leak").emit(bucket=bucket,
+                                  growth_bytes=growth_bytes,
+                                  live_bytes=live_bytes, window=window)
+
+
+def profiling_capture(label, seconds, flops=None):
+    """One CostReport was materialized by the mx.profiling store."""
+    reg = _registry()
+    reg.counter("profiling.reports").inc()
+    reg.timer("profiling.capture_time").observe(seconds, label=label)
+    reg.event("profiling.capture").emit(label=label, seconds=seconds,
+                                        flops=flops)
+
+
+def profiling_step(label, seconds):
+    """One step wall time recorded for the roofline clock."""
+    _registry().timer("profiling.step_time").observe(seconds,
+                                                     label=label)
+
+
+def supervisor_restart(generation, rank, exit_code, restarts):
+    """The restart supervisor relaunched the workers after a death
+    (:mod:`mxnet_tpu_torch.supervisor`)."""
+    reg = _registry()
+    reg.counter("supervisor.restarts").inc()
+    reg.gauge("supervisor.generation").set(generation)
+    reg.event("supervisor.restart").emit(generation=generation,
+                                         rank=rank,
+                                         exit_code=exit_code,
+                                         restarts=restarts)
+
+
+def supervisor_exhausted(generation, budget):
+    """The supervisor's restart budget ran out -- it stops relaunching
+    and /healthz reads NOT_READY off the same state; alert here."""
+    reg = _registry()
+    reg.counter("supervisor.budget_exhausted").inc()
+    reg.event("supervisor.exhausted").emit(generation=generation,
+                                           budget=budget)
+
+
+def goodput_window(report):
+    """One StepLedger window closed (obs.goodput): publish the
+    attribution as gauges (shares, MFU -- the live/Prometheus view),
+    timers (per-category seconds -- the per-rank offline view: timer
+    sums survive into summarize, so rank files carry per-category
+    totals), and one compact ``goodput.window`` event."""
+    reg = _registry()
+    reg.counter("goodput.windows").inc()
+    if report["steps"]:
+        reg.counter("goodput.steps").inc(int(report["steps"]))
+    for cat, c in report["categories"].items():
+        reg.timer("goodput." + cat + "_s").observe(c["seconds"])
+        reg.gauge("goodput." + cat + "_share").set(c["share"])
+    if report.get("mfu") is not None:
+        reg.gauge("goodput.mfu").set(report["mfu"])
+    reg.gauge("goodput.reconciliation_error").set(
+        report["reconciliation"]["error"])
+    reg.event("goodput.window").emit(
+        index=report["index"], reason=report["reason"],
+        steps=report["steps"], wall_s=round(report["wall_s"], 6),
+        mfu=report.get("mfu"),
+        shares={cat: round(c["share"], 4)
+                for cat, c in report["categories"].items()},
+        verdict=report["verdict"]["detail"],
+        bound=report["verdict"]["bound"],
+        reconciled=report["reconciliation"]["ok"],
+        env_degraded=report["env_degraded"])
+
+
+def goodput_regression(category, per_step_s, baseline_per_step_s,
+                       ratio, window):
+    """The sentinel flagged one category as regressed vs its EWMA+MAD
+    baseline -- the event NAMES the category that moved."""
+    reg = _registry()
+    reg.counter("goodput.regressions").inc()
+    reg.event("goodput.regression").emit(
+        category=category, per_step_s=per_step_s,
+        baseline_per_step_s=baseline_per_step_s, ratio=ratio,
+        window=window)
+
+
+def goodput_env_degraded(window, dispatch_roundtrip_us):
+    """The sentinel's env guard tripped: the window ran on a degraded
+    environment (a slow dispatch round trip), so it is reported here
+    and not as a regression."""
+    reg = _registry()
+    reg.counter("goodput.env_degraded_windows").inc()
+    reg.event("goodput.env_degraded").emit(
+        window=window, dispatch_roundtrip_us=dispatch_roundtrip_us)
+
+
+def env_health(dispatch_roundtrip_us, h2d_mb_per_s=None):
+    """An environment-health probe's numbers (dispatch round trip,
+    host-to-device rate), recorded so the basis of a degraded-window
+    verdict appears in summarize and in the flight-recorder dump."""
+    reg = _registry()
+    reg.gauge("env.dispatch_roundtrip_us").set(dispatch_roundtrip_us)
+    if h2d_mb_per_s is not None:
+        reg.gauge("env.h2d_mb_per_s").set(h2d_mb_per_s)
+    reg.event("env.health").emit(
+        dispatch_roundtrip_us=dispatch_roundtrip_us,
+        h2d_mb_per_s=h2d_mb_per_s)
+
+
 # ----------------------------------------------------------------------
 # the instrument catalogue of the hooks above
 # ----------------------------------------------------------------------
@@ -598,6 +801,117 @@ INSTRUMENTS = [
     _ii("kvcache.fragmentation", "gauge", "serving", 18,
         "unused fraction of allocated KV blocks (internal "
         "fragmentation; at worst one partial block per sequence)"),
+    _ii("dispatch.op_calls", "counter", "ndarray", 2,
+        "imperative op invocations (total)"),
+    _ii("dispatch.op.<op>", "counter", "ndarray", 2,
+        "per-op invocation count"),
+    _ii("dispatch.host_sync", "counter", "ndarray", 2,
+        "host sync points (asnumpy/wait/waitall)"),
+    _ii("dispatch.host_sync.<kind>", "counter", "ndarray", 2,
+        "per-kind sync count"),
+    _ii("compile", "event", "compile", 2,
+        "one per XLA trace/compile; payload says where and why "
+        "(cache-key diff on retrace)"),
+    _ii("compile.count", "counter", "compile", 2, "total compiles"),
+    _ii("compile.retraces", "counter", "compile", 2,
+        "compiles that REPLACED warm cache state"),
+    _ii("compile.build_time", "timer", "compile", 2,
+        "wall time spent tracing/compiling"),
+    _ii("data.batches", "counter", "dataio", 2,
+        "batches produced by DataLoader"),
+    _ii("data.wait_time", "timer", "dataio", 2,
+        "consumer wait per batch (input starvation when this rivals "
+        "step_time)"),
+    _ii("feed.batches", "counter", "dataio", 4,
+        "batches staged by dataio.DeviceFeed"),
+    _ii("feed.bytes_staged", "counter", "dataio", 4,
+        "bytes shipped host->device by the feed"),
+    _ii("feed.producer_busy", "timer", "dataio", 4,
+        "per-batch producer time (host batch + async device_put "
+        "issue)"),
+    _ii("feed.consumer_wait", "timer", "dataio", 4,
+        "per-batch consumer wait on the staging queue"),
+    _ii("feed.overlap_frac", "gauge", "dataio", 4,
+        "share of producer time hidden behind compute: 1 - wait/busy"),
+    _ii("memory.censuses", "counter", "memory", 19,
+        "live-buffer censuses run (MXNET_TPU_MEMORY_WATCH=1)"),
+    _ii("memory.live_bytes", "gauge", "memory", 19,
+        "total bytes of jax.live_arrays() at the last census"),
+    _ii("memory.live_arrays", "gauge", "memory", 19,
+        "live device-array count at the last census"),
+    _ii("memory.leaks", "counter", "memory", 19,
+        "windows the leak sentinel flagged monotonic live-bytes "
+        "growth on"),
+    _ii("memory.leak", "event", "memory", 19,
+        "one per flagged leak window; payload names the top-growing "
+        "shape/dtype bucket, the growth bytes, and the window index"),
+    _ii("profiling.reports", "counter", "profiling", 6,
+        "CostReports materialized by the mx.profiling store"),
+    _ii("profiling.capture_time", "timer", "profiling", 6,
+        "wall time lowering/parsing one report"),
+    _ii("profiling.capture", "event", "profiling", 6,
+        "one per report; payload carries label + FLOPs"),
+    _ii("profiling.step_time", "timer", "profiling", 6,
+        "per-dispatch step wall recorded by TrainStep (feeds the "
+        "roofline)"),
+    _ii("dispatch.host_sync_time", "timer", "ndarray", 14,
+        "wall the host spent blocked on device results "
+        "(asnumpy/wait_to_read/waitall) -- the goodput ledger's "
+        "host_sync category"),
+    _ii("goodput.windows", "counter", "goodput", 14,
+        "StepLedger windows closed"),
+    _ii("goodput.steps", "counter", "goodput", 14,
+        "training steps attributed by the ledger"),
+    _ii("goodput.<category>_s", "timer", "goodput", 14,
+        "per-window seconds attributed to the category "
+        "(device_compute/input_wait/host_sync/checkpoint_stall/"
+        "recompile/other); timer sums give per-rank category totals "
+        "offline"),
+    _ii("goodput.<category>_share", "gauge", "goodput", 14,
+        "last window's share of wall per category"),
+    _ii("goodput.mfu", "gauge", "goodput", 14,
+        "rolling MFU: window flops (executable cost report) / wall / "
+        "device peak"),
+    _ii("goodput.reconciliation_error", "gauge", "goodput", 14,
+        "last window's attribution overshoot vs wall (0 unless "
+        "categories double-count; CI gates <= tol)"),
+    _ii("goodput.window", "event", "goodput", 14,
+        "one closed window; payload carries steps/wall/shares/mfu + "
+        "the bottleneck verdict sentence"),
+    _ii("goodput.regressions", "counter", "goodput", 14,
+        "windows where the sentinel flagged a category vs its "
+        "EWMA+MAD baseline"),
+    _ii("goodput.regression", "event", "goodput", 14,
+        "one flagged regression; payload NAMES the category that "
+        "moved (per-step seconds vs baseline, ratio)"),
+    _ii("goodput.env_degraded_windows", "counter", "goodput", 14,
+        "windows the sentinel attributed to a degraded environment "
+        "(env guard) instead of a regression"),
+    _ii("goodput.env_degraded", "event", "goodput", 14,
+        "one env-guarded window; payload carries the dispatch RTT -- "
+        "must agree with the bench line's degraded_env flag"),
+    _ii("supervisor.restarts", "counter", "supervisor", 15,
+        "elastic world relaunches after a rank death "
+        "(tools/launch.py --supervise)"),
+    _ii("supervisor.generation", "gauge", "supervisor", 15,
+        "current supervisor generation id (namespaces the "
+        "coordination-KV keys; bumped on every relaunch)"),
+    _ii("supervisor.restart", "event", "supervisor", 15,
+        "one relaunch; payload carries generation/dead rank/exit "
+        "code/restart count"),
+    _ii("supervisor.budget_exhausted", "counter", "supervisor", 15,
+        "supervisors whose restart budget ran out (terminal; "
+        "/healthz reads NOT_READY)"),
+    _ii("supervisor.exhausted", "event", "supervisor", 15,
+        "the terminal budget exhaustion; payload carries generation + "
+        "budget -- alert on this"),
+    _ii("env.dispatch_roundtrip_us", "gauge", "bench", 13,
+        "bench env-health dispatch round trip (the degraded_env "
+        "basis)"),
+    _ii("env.h2d_mb_per_s", "gauge", "bench", 13,
+        "bench env-health host->device bandwidth"),
+    _ii("env.health", "event", "bench", 13,
+        "one env-health probe; payload carries both numbers"),
 ]
 
 

@@ -304,10 +304,62 @@ def test_training_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     net.initialize(device="cpu")
 
 
+def test_the_ops_plane_loads_neither_jax_nor_mxnet_tpu(tmp_path):
+    """The single-process ops plane -- ``mx.profiling`` (a walked
+    ``TrainStep``, the roofline, the report files and ``mxprof``),
+    ``mx.profiler``, the goodput ledger, the leak sentinel, the flight
+    recorder, the obs server, the supervisor and ``mxtelemetry`` --
+    imported and used in a fresh process; the scan above imports each
+    of their modules too."""
+    names = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
+    assert {"profiling/aten.py", "profiling/cost.py", "profiling/cli.py",
+            "profiler.py", "obs/goodput.py", "obs/flight.py",
+            "obs/server.py", "obs/fleet.py", "analysis/memory.py",
+            "supervisor.py", "telemetry/cli.py",
+            "kernels/costs.py"} <= names
+    code = ("import sys, torch\n"
+            "import mxnet_tpu_torch as mx\n"
+            "from mxnet_tpu_torch import gluon, obs, parallel, profiling\n"
+            "from mxnet_tpu_torch import profiler, supervisor, telemetry\n"
+            "from mxnet_tpu_torch.analysis import memory\n"
+            "from mxnet_tpu_torch.profiling import cli, roofline\n"
+            "from mxnet_tpu_torch.telemetry import cli as tcli\n"
+            "profiling.enable(); telemetry.enable()\n"
+            "with mx.cpu():\n"
+            "    net = gluon.nn.Dense(2, in_units=3)\n"
+            "    net.initialize(device='cpu')\n"
+            "    tr = gluon.Trainer(net.collect_params(), 'sgd')\n"
+            "    st = parallel.TrainStep(net,\n"
+            "        gluon.loss.SoftmaxCrossEntropyLoss(), tr)\n"
+            "    st(torch.ones(4, 3), torch.zeros(4))\n"
+            "assert st.cost_analysis()['flops'] > 0\n"
+            "roofline.build(profiling.reports()[0], 0.01)\n"
+            "assert cli.main(['report', '--dir',\n"
+            "                 profiling.save_reports(%r)[:-12]]) == 0\n"
+            "obs.goodput.StepLedger(window_steps=1).step()\n"
+            "memory.live_census()\n"
+            "obs.install_blackbox(%r)\n"
+            "obs.serve(0); obs.server.stop()\n"
+            "supervisor.Supervisor([sys.executable, '-c', 'pass'], 1)\n"
+            "profiler.dumps()\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "%r))" % (str(tmp_path / "rep"), str(tmp_path / "bb"),
+                      FORBIDDEN))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(PKG.parent)] + [p for p in env.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(PKG.parent))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
 def test_env_registry_defaults_and_typed_reads(monkeypatch):
     from mxnet_tpu import env as jax_env
     from mxnet_tpu_torch import env
-    assert len(env.REGISTRY) == 29
+    assert len(env.REGISTRY) == 41
     for name, var in env.REGISTRY.items():
         assert var.default == jax_env.REGISTRY[name].default, name
         assert var.type is jax_env.REGISTRY[name].type, name

@@ -503,10 +503,10 @@ def test_status_board_and_spans(tmp_path):
 
 def test_unported_switches_raise(monkeypatch, tmp_path):
     _jfx, fx = _carried_fixtures()
+    # the ops plane's switches are ported: they construct as in JAX
     for var in ("MXNET_TPU_OBS_GOODPUT", "MXNET_TPU_MEMORY_WATCH"):
         monkeypatch.setenv(var, "1")
-        with pytest.raises(mx.MXNetError, match="item 8"):
-            ContinuousTrainer(*fx, str(tmp_path / "ck"))
+        ContinuousTrainer(*fx, str(tmp_path / "ck"))
         monkeypatch.delenv(var)
     monkeypatch.setenv("MXNET_TPU_NUM_PROCS", "2")
     with pytest.raises(mx.MXNetError, match="item 9"):

@@ -71,6 +71,36 @@ HOOK_CALLS = [
     ("preemption_reentry", ()),
     ("chaos_inject", ("serving.swap", "raise")),
     ("chaos_survive", ("serving.swap", "retry")),
+    ("op_dispatch", ("elemwise_add",)),
+    ("host_sync", ("asnumpy", 0.002)),
+    ("host_sync", ("waitall",)),
+    ("compile_event", ("hybrid_cache",), {"seconds": 0.4,
+                                          "retrace": True,
+                                          "block": "Net"}),
+    ("samples_per_sec", (512.0,)),
+    ("dataloader_wait", (0.003,)),
+    ("feed_produce", (0.02, 4096)),
+    ("feed_wait", (0.001,)),
+    ("feed_overlap", (0.9,)),
+    ("memory_census", (1 << 20, 12)),
+    ("memory_leak", ("(16,)/float32", 1 << 16, 1 << 20, 4)),
+    ("profiling_capture", ("train_step:Net", 0.05), {"flops": 1e9}),
+    ("profiling_step", ("train_step:Net", 0.01)),
+    ("supervisor_restart", (1, 0, 137, 1)),
+    ("supervisor_exhausted", (2, 1)),
+    ("goodput_window", ({
+        "index": 0, "reason": "steps", "steps": 10, "wall_s": 1.0,
+        "mfu": 0.3,
+        "categories": {c: {"seconds": 0.1, "share": 0.1}
+                       for c in ("device_compute", "input_wait",
+                                 "host_sync", "checkpoint_stall",
+                                 "recompile", "other")},
+        "reconciliation": {"error": 0.0, "ok": True},
+        "verdict": {"detail": "mixed", "bound": "mixed"},
+        "env_degraded": False},)),
+    ("goodput_regression", ("host_sync", 0.05, 0.01, 5.0, 3)),
+    ("goodput_env_degraded", (4, 20000.0)),
+    ("env_health", (120.0,), {"h2d_mb_per_s": 9000.0}),
 ]
 
 
