@@ -8,6 +8,7 @@ without the whole smoke run.
     cd <checkout> && python3 <repo>/chip_paths.py input mnistfeed
     cd <checkout> && python3 <repo>/chip_paths.py hotswap
     cd <checkout> && python3 <repo>/chip_paths.py ops
+    cd <checkout> && python3 <repo>/chip_paths.py dist
 
 ``decode`` is ``chip_smoke.main_path`` (GPT-2 small decode serving),
 ``mnist`` is ``mnist_main_path`` (the imperative LeNet loop, then 100
@@ -25,7 +26,10 @@ train -> serve loop: ResNet-50 trained and hot-swapped into live
 serving, and a mid-decode swap of the GPT-2-small-width decoder) and
 ``ops`` is ``ops_plane_phase`` (the ops plane observing ResNet-50
 training: profiled AMP LARS steps, ``mx.profiler``, the observed
-always-on trainer and the supervised crash-restart).  The
+always-on trainer and the supervised crash-restart) and ``dist`` is
+``dist_phase`` (two ranks training ResNet-50 through ``dist_sync`` under
+the supervisor, one killed and the world relaunched, watched by a
+fleet monitor).  The
 checkout's own ``chip_smoke`` and package are imported, its kernels
 built, and each path prints its lines as in the smoke run, under the
 same host-read check of every capture -- except ``hotswap``, which runs
@@ -44,8 +48,8 @@ PATHS = {"decode": "main_path", "mnist": "mnist_main_path",
          "pretrain": "bert_pretrain_phase", "densenet": "densenet_phase",
          "input": "imagenet_input_phase", "mnistfeed": "mnist_feed_path",
          "hotswap": ("hotswap_phase", "generative_swap_phase"),
-         "ops": "ops_plane_phase"}
-UNCHECKED = {"hotswap", "ops"}  # outside _capture.checking_syncs()
+         "ops": "ops_plane_phase", "dist": "dist_phase"}
+UNCHECKED = {"hotswap", "ops", "dist"}  # outside checking_syncs()
 
 
 def main(argv):

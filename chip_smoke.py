@@ -249,7 +249,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the step's CostReport, then the capture), five timed replays.  The
    report's ``conv_dot`` flops must be within 2% of an independent count
    from the layer shapes (3 x the forward's, less the stem's data
-   gradient), its categories must sum to its totals, and
+   gradient; a convolution's taps that fall in the padding count no
+   work, as XLA counts them), its categories must sum to its totals, and
    ``bn_relu_apply``, ``bn_relu_bwd`` and ``lars_flat`` must appear in
    its provenance with the walked warm-up's launches, equal to the
    registry's launches a replayed step; it prints the roofline and the
@@ -280,6 +281,45 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    blackbox`` on generation 0's flight file name ``chaos.kill`` and its
    point.  Every artifact lives in a temporary directory.  The kernels
    line's three rows of the AMP LARS step carry ``launches_ops_plane``.
+
+18. multi-process data-parallel training (ROADMAP items 9a and 8b),
+   after phase 17, outside the sync check.  First (c)'s oracle: one
+   process takes rank 0's initial ResNet-50 v1 NHWC (fp32, TF32 off),
+   runs both ranks' step-1 batches (32 each, from a synthetic dataset
+   split ``num_parts``/``part_index``-wise) through forward and backward
+   in turn, sums the gradients in rank order and takes one SGD step.
+   Then the port's ``Supervisor`` starts two ranks of ``dist_worker`` on
+   this card (``max_restarts=2``, barrier bound 20 s, lease TTL 4 s),
+   each initializing from its own seed, training with
+   ``Trainer(kvstore="dist_sync")`` (SGD 0.05/0.9) under
+   ``ContinuousTrainer(publish_every=2)`` with the goodput ledger on and
+   its own obs server, to step 6; a chaos spec KILLs rank 1 at the
+   ``committed`` gate of the step-4 publish in generation 0.  Checks:
+   (a) after the initial broadcast every parameter of rank 1 is rank
+   0's, bitwise; (b) after every step rank 1's weights and momenta are
+   rank 0's, bitwise (each rank writes its digests to its record, and
+   this process compares them), and
+   each rank launched ``bn_relu_apply`` and ``bn_relu_bwd`` 33 x the
+   steps it ran, in fp32; (c) the world's step-1 update is within 1e-6
+   (norm-wise) of the oracle's; (d) rank 0 raises a ``BarrierTimeout``
+   naming rank 1 and exits 3 through ``failfast_exit`` with step 2 the
+   newest and step 4 not visible, the supervisor relaunches generation
+   1, both ranks resume from step 2 with weights, momenta and running
+   statistics equal to rank 0's step-2 digests, train to step 6, and
+   the supervisor returns 0 after one restart; (e) a ``FleetMonitor``
+   here polls the endpoint files every 250 ms, and no round raises:
+   both ranks up in generation 0, rank 1 presumed down within the lease
+   TTL of its death (the chaos KILL's mark in its flight recorder) and
+   ``replica_down`` firing, both up in generation 1 on new pids and
+   the alert resolved, the goodput skew of the two ranks, ``mxtelemetry
+   fleet`` over the live generation 1 (exit 0, both up), and this
+   process's ``/alertz`` serving the engine with the resolved alert in
+   its history.  It prints each rank's ms a step, the bucketed
+   allreduce's ms and bytes a step and its share, the initial broadcast
+   and each publish in seconds, kill -> BarrierTimeout and kill -> both
+   ranks' first step of generation 1, a scrape round's ms, the alert's
+   fire and resolve latencies and each rank's peak memory.  The
+   kernels line's ``bn_relu_*`` rows carry ``launches_dist_sync``.
 
 Every path runs from captured CUDA graphs (``mxnet_tpu_torch._capture``),
 the port's counterpart of the JAX package's compiled programs: one
@@ -314,6 +354,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import hashlib
 import json
 import os
 import shutil
@@ -6127,21 +6168,45 @@ OPS_KERNELS = {"bn_relu_apply": "bn_relu_fwd_kernel",
                "lars_flat": "lars_flat_kernel"}
 
 
+def _axis_taps(size, kernel, stride, pad, dilate):
+    """(output position, kernel tap) pairs along one axis whose input
+    index falls inside the unpadded input, by enumeration."""
+    out = (size + 2 * pad - dilate * (kernel - 1) - 1) // stride + 1
+    return sum(1 for o in range(out) for t in range(kernel)
+               if 0 <= o * stride - pad + t * dilate < size)
+
+
 def conv_dense_flops(net, image, batch, device="cuda"):
     """An independent count of a training step's convolution and dense
-    flops from the net's layer shapes: for each ``Conv2D``/``Dense``,
-    2 x its output elements x its weight's elements per output channel
-    (kh kw Cin, or in_units), times 3 (forward, data gradient, weight
+    flops from the net's layer shapes, charging only the kernel taps
+    that land inside the unpadded input (XLA's count, and the
+    CostReport's): for each ``Conv2D``, 2 x output channels x input
+    channels a group x the in-bounds (output, tap) pairs of each
+    spatial axis, enumerated; for each ``Dense``, 2 x its output
+    elements x in_units; times 3 (forward, data gradient, weight
     gradient), less the stem's data gradient (the batch takes none).
-    The output shapes come from one batch-1 forward."""
+    The input shapes come from one batch-1 forward."""
     import torch
     from mxnet_tpu_torch import autograd
     from mxnet_tpu_torch.gluon import nn
     per = []
 
-    def hook(block, _inputs, out):
+    def hook(block, inputs, out):
         w = block._reg_params["weight"].data()._data
-        per.append(2 * out.numel() * (w.numel() // w.shape[0]))
+        if not isinstance(block, nn.Conv2D):
+            per.append(2 * out.numel() * (w.numel() // w.shape[0]))
+            return
+        kw = block._kwargs
+        x = inputs[0]
+        spatial = x.shape[1:3] if block._channels_last else x.shape[2:4]
+        taps = 1
+        for i, size in enumerate(spatial):
+            taps *= _axis_taps(size, kw["kernel"][i], kw["stride"][i],
+                               kw["pad"][i], kw["dilate"][i])
+        per.append(2 * x.shape[0] * w.shape[0]
+                   * (w.numel() // w.shape[0] // (kw["kernel"][0]
+                                                  * kw["kernel"][1]))
+                   * taps)
 
     hooks = [m.register_forward_hook(hook) for m in net.modules()
              if isinstance(m, (nn.Conv2D, nn.Dense))]
@@ -6733,6 +6798,649 @@ def ops_plane_phase(make_net=resnet50_nhwc, image=224, batch=OPS_BATCH,
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 18: multi-process data-parallel training under the supervisor,
+# watched by the fleet plane
+# ---------------------------------------------------------------------
+
+DIST_RANKS = 2
+DIST_BATCH = 32                    # a rank's batch
+DIST_STEPS = 6
+DIST_PUBLISH = 2                   # ContinuousTrainer(publish_every=)
+DIST_KILL_NTH = 2                  # rank 1 dies in the step-4 publish
+DIST_SEED = 0                      # rank r initializes from seed + r
+DIST_BARRIER_MS = 20000
+DIST_LEASE_TTL_S = 4.0
+DIST_GRACE_S = 40.0                # above the barrier bound
+DIST_SCRAPE_MS = 250
+DIST_LINGER_S = 60.0               # generation 1 stays up until the
+                                   # parent's mxtelemetry fleet has run
+DIST_ORACLE_TOL = 1e-6             # step-1 update, world vs one process
+DIST_SUPERVISOR_TIMEOUT_S = 360
+
+
+def dist_shard_batch(num_parts, part_index, step, batch, image, classes,
+                     device="cuda"):
+    """Step ``step``'s batch of part ``part_index`` of a synthetic
+    dataset of ``num_parts * batch`` samples a step, split the way
+    ``num_parts``/``part_index`` split a record file: part p holds the
+    contiguous samples ``[p * L, (p + 1) * L)``, and its step s reads
+    the s-th ``batch`` of them.  Sample i is drawn from seed i."""
+    import torch
+    from mxnet_tpu_torch.ndarray import NDArray
+    per_part = batch * DIST_STEPS
+    first = part_index * per_part + (step - 1) * batch
+    xs, ys = [], []
+    for i in range(first, first + batch):
+        gen = torch.Generator(device=device).manual_seed(1000003 + i)
+        xs.append(torch.randn((image, image, 3), generator=gen,
+                              device=device))
+        ys.append(torch.randint(0, classes, (1,), generator=gen,
+                                device=device))
+    return NDArray(torch.stack(xs)), NDArray(torch.cat(ys).float())
+
+
+def _bytes_digest(tensors):
+    import torch
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().reshape(-1)
+                 .view(torch.uint8).numpy().tobytes())
+    return h.digest()
+
+
+def _state_tensors(trainer, i):
+    state = trainer._updater.states.get(i)
+    if state is None:
+        return []
+    return [s for s in (state if isinstance(state, (list, tuple))
+                        else [state]) if s is not None]
+
+
+def dist_digests(net, trainer):
+    """Per structural name: the sha256 of each trainable weight
+    (``weights``), of each running statistic (``stats``) and of each
+    weight's optimizer state (``momenta``)."""
+    index = {id(p): i for i, p in enumerate(trainer._params)}
+    out = {"weights": {}, "stats": {}, "momenta": {}}
+    for name, p in sorted(net._collect_params_with_prefix().items()):
+        if p.grad_req == "null":
+            out["stats"][name] = _bytes_digest([p._data]).hex()
+        else:
+            out["weights"][name] = _bytes_digest([p._data]).hex()
+            out["momenta"][name] = _bytes_digest(
+                _state_tensors(trainer, index[id(p)])).hex()
+    return out
+
+
+def _materialize(net, image, device):
+    """Give every deferred parameter its shape and value: one batch-1
+    forward of zeros outside the tape (BatchNorm reads its running
+    statistics and leaves them)."""
+    import torch
+    from mxnet_tpu_torch import autograd
+    with autograd.pause():
+        net(torch.zeros((1, image, image, 3), device=device))
+
+
+def _write_json(path, obj):
+    tmp = path + ".%d.tmp" % os.getpid()
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
+
+
+def dist_worker(root, out_dir, steps=DIST_STEPS,
+                publish_every=DIST_PUBLISH, batch=DIST_BATCH, image=224,
+                device="cuda", make_net=None):
+    """One rank of phase 18, one process a rank and generation: joins
+    the world (``mx.distributed_init``), serves its obs server, builds
+    ResNet-50 v1 NHWC from seed ``DIST_SEED + rank``, broadcasts rank
+    0's weights through ``Trainer(kvstore="dist_sync")``, resumes a ``ContinuousTrainer`` from the newest intact step
+    of ``root`` and trains its part of the data to step ``steps``.
+    Writes ``g<gen>_r<rank>.json`` under ``out_dir`` after every step,
+    with the digest of the weights after the broadcast and of the
+    weights and momenta after every step, which the parent compares
+    across the ranks; on a ``BarrierTimeout`` records it and exits 3
+    through ``failfast_exit``.  Its flight recorder
+    (``flight_g<gen>_r<rank>``) holds the chaos KILL's wall-clock
+    mark."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import chaos, gluon, obs, telemetry
+    from mxnet_tpu_torch import distributed as dist
+    from mxnet_tpu_torch.kernels import registry
+    from mxnet_tpu_torch.obs import goodput
+    from mxnet_tpu_torch.serving import ContinuousTrainer
+    cuda = device == "cuda"
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.benchmark = False
+    t_start = time.time()
+    check(mx.distributed_init(), "distributed_init joined no world")
+    nproc, rank = dist.world()
+    # the ranks share the host's cores, as torchrun's one thread a rank
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // nproc))
+    gen = dist.generation()
+    rec = {"generation": gen, "rank": rank, "pid": os.getpid(),
+           "t_start": t_start, "t_joined": time.time(), "steps": []}
+    path = os.path.join(out_dir, "g%d_r%d.json" % (gen, rank))
+    telemetry.enable()
+    obs.flight.install(os.path.join(out_dir, "flight_g%d_r%d"
+                                    % (gen, rank)), sigusr2=False)
+    obs.enable_goodput()
+    goodput.ledger(window_steps=publish_every)
+    obs.serve(0)
+    chaos.arm_from_spec()
+    net = (make_net or resnet50_nhwc)()
+    net.initialize(device=device,
+                   generator=torch.Generator().manual_seed(DIST_SEED + rank))
+    _materialize(net, image, device)
+    trainer = gluon.Trainer(net.collect_params(), "sgd", TRAIN_SGD,
+                            kvstore="dist_sync")
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.allreduce_grads()       # no gradient yet: the initial sync
+    if cuda:
+        torch.cuda.synchronize()
+    rec["initial_broadcast_s"] = time.perf_counter() - t0
+    everything = [p._data for _n, p in
+                  sorted(net._collect_params_with_prefix().items())]
+    rec["initial_digest"] = _bytes_digest(everything).hex()
+    classes = net.output._units
+    ct = ContinuousTrainer(
+        net, trainer, gluon.loss.SoftmaxCrossEntropyLoss(),
+        lambda step: dist_shard_batch(nproc, rank, step, batch, image,
+                                      classes, device),
+        root, publish_every=publish_every)
+    ckpt = ct.resume()
+    resumed = ckpt.step if ckpt is not None else 0
+    rec["resumed_from"] = resumed
+    if ckpt is not None:
+        want = json.load(open(os.path.join(
+            out_dir, "step%d_r0.json" % resumed)))
+        got = dist_digests(net, trainer)
+        rec["resume_equal_to_rank0_dump"] = {
+            part: got[part] == want[part] for part in got}
+    registry.reset_launches()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    kv_timer = telemetry.timer("kvstore.time")
+    kv0 = (kv_timer.count, kv_timer.sum,
+           telemetry.counter("dist.bytes").value)
+    rec["publish_s"] = []
+
+    def counts():
+        publishes = telemetry.registry().get("train_loop.publish")
+        rec["publish_s"] = [e.get("seconds") for e in (
+            publishes.recent if publishes is not None else [])]
+        rec["steps_run"] = ct.step - resumed
+        rec["launches"] = {n: registry.launches(n)
+                           for n in ("bn_relu_apply", "bn_relu_bwd")}
+        rec["launch_dtypes"] = {n: registry.launch_dtypes(n)
+                                for n in ("bn_relu_apply", "bn_relu_bwd")}
+        steps_run = max(rec["steps_run"], 1)
+        rec["allreduce"] = {
+            "calls": kv_timer.count - kv0[0],
+            "ms_per_step": 1e3 * (kv_timer.sum - kv0[1]) / steps_run,
+            "bytes_per_step": (telemetry.counter("dist.bytes").value
+                               - kv0[2]) / steps_run}
+        rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated() \
+            if cuda else None
+
+    step_timer = telemetry.timer("trainer.step_time")
+    while ct.step < steps:
+        # step 1 runs cuDNN's deterministic algorithms, as the oracle
+        # does (c); the later steps its default ones
+        torch.backends.cudnn.deterministic = ct.step == 0
+        if cuda:
+            torch.cuda.synchronize()
+        before = (step_timer.sum, kv_timer.sum, len(rec["publish_s"]))
+        t0 = time.perf_counter()
+        try:
+            ct.run_steps(1)
+        except dist.BarrierTimeout as e:
+            counts()
+            rec["kill"] = {
+                "error": type(e).__name__, "tag": e.tag,
+                "ranks": list(e.ranks),
+                "presumed_dead": list(e.presumed_dead),
+                "elapsed_s": e.elapsed_s, "t_wall": time.time(),
+                "step": ct.step,
+                "latest_step": ct.manager.latest_step(),
+                "step_visible": os.path.isdir(
+                    ct.manager.step_dir(ct.step))}
+            _write_json(path, rec)
+            print("rank %d generation %d: %s: %s" % (rank, gen,
+                                                     type(e).__name__, e),
+                  flush=True)
+            dist.failfast_exit(3)
+        if cuda:
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        step = ct.step
+        digests = dist_digests(net, trainer)
+        state = json.dumps([digests["weights"], digests["momenta"]],
+                           sort_keys=True).encode()
+        counts()
+        trainer_s = step_timer.sum - before[0]
+        allreduce_s = kv_timer.sum - before[1]
+        publish_s = sum(rec["publish_s"][before[2]:])
+        rec["steps"].append({
+            "step": step, "s": dt, "published": step % publish_every == 0,
+            "train_s": dt - publish_s,
+            "forward_backward_s": dt - publish_s - trainer_s,
+            "allreduce_s": allreduce_s,
+            "update_s": trainer_s - allreduce_s,
+            "digest": hashlib.sha256(state).hexdigest(),
+            "t_wall": time.time()})
+        if step == 1 and gen == 0 and rank == 0:
+            torch.save({n: p._data.detach().cpu() for n, p in
+                        net._collect_params_with_prefix().items()
+                        if p.grad_req != "null"},
+                       os.path.join(out_dir, "step1_weights.pt"))
+        if step % publish_every == 0 and gen == 0:
+            _write_json(os.path.join(out_dir, "step%d_r%d.json"
+                                     % (step, rank)), digests)
+        counts()
+        _write_json(path, rec)
+        # the digests above are this check's work, not the step's: the
+        # ranks meet after it, so neither's next timed step waits in the
+        # allreduce for the other's digests
+        dist.barrier("dist_phase_step")
+    counts()
+    dist.barrier("dist_phase_done")
+    # both ranks stay up (their obs servers answering) until the parent
+    # has run mxtelemetry fleet against them
+    deadline = time.time() + DIST_LINGER_S
+    while time.time() < deadline and not os.path.exists(
+            os.path.join(out_dir, "fleet_rendered")):
+        time.sleep(0.1)
+    ct.close()
+    obs.server.stop()
+    rec["t_end"] = time.time()
+    _write_json(path, rec)
+    return 0
+
+
+def dist_oracle(make_net=resnet50_nhwc, image=224, batch=DIST_BATCH,
+                device="cuda"):
+    """Phase 18 (c)'s single process: rank 0's initial net, both ranks'
+    step-1 batches through forward and backward in turn (each from the
+    initial running statistics, as each rank starts), their gradients
+    summed in rank order and one SGD update at the local batch size.  Returns the trainable weights before and after, on the
+    host."""
+    import torch
+    from mxnet_tpu_torch import autograd, gluon
+    cuda = device == "cuda"
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    net = make_net()
+    net.initialize(device=device,
+                   generator=torch.Generator().manual_seed(DIST_SEED))
+    _materialize(net, image, device)
+    trainer = gluon.Trainer(net.collect_params(), "sgd", TRAIN_SGD,
+                            kvstore=None)
+    params = sorted(net._collect_params_with_prefix().items())
+    named = [(n, p) for n, p in params if p.grad_req != "null"]
+    stats = [(p, p._data.detach().clone()) for _n, p in params
+             if p.grad_req == "null"]
+    w0 = {n: p._data.detach().cpu().clone() for n, p in named}
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    grads = []
+    for part in range(DIST_RANKS):
+        # each rank's step 1 starts from the initial running statistics
+        # (BatchNorm centres its batch moments on them)
+        for p, value in stats:
+            p._data.copy_(value)
+        x, y = dist_shard_batch(DIST_RANKS, part, 1, batch, image,
+                                net.output._units, device)
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        grads.append([p._data.grad.clone() for _n, p in named])
+        for _n, p in named:
+            p._data.grad = None
+    for (_n, p), parts in zip(named, zip(*grads)):
+        total = parts[0].clone()
+        for g in parts[1:]:
+            total += g
+        p._data.grad = total
+    trainer.step(batch)
+    if cuda:
+        torch.cuda.synchronize()
+    w1 = {n: p._data.detach().cpu().clone() for n, p in named}
+    torch.backends.cudnn.deterministic = was
+    return w0, w1
+
+
+def _update_rel_err(w0, w1_world, w1_oracle):
+    """||world update - oracle update|| / ||oracle update|| over every
+    trainable weight together."""
+    import torch
+    num = den = 0.0
+    for n in w0:
+        du = (w1_world[n] - w0[n]).double()
+        do = (w1_oracle[n] - w0[n]).double()
+        num += float(((du - do) ** 2).sum())
+        den += float((do ** 2).sum())
+    return (num ** 0.5) / max(den ** 0.5, 1e-30), \
+        all(torch.equal(w1_world[n], w1_oracle[n]) for n in w0)
+
+
+def _fleet_row(snap, t0):
+    agg = snap["aggregate"]
+    return {"t": snap["t"], "rel_s": snap["t"] - t0,
+            "replicas": [(r["rank"], r["generation"], r["pid"], r["state"])
+                         for r in snap["replicas"]],
+            "firing": [a["rule"] for a in snap["alerts"]["firing"]],
+            "transitions": [(a["rule"], a["state"])
+                            for a in snap["alerts"]["transitions"]],
+            "goodput_skew": agg.get("goodput_skew")}
+
+
+def _both_up(row, gen):
+    ok = [r for r in row["replicas"] if r[1] == gen and r[3] == "ok"]
+    return sorted(r[0] for r in ok) == list(range(DIST_RANKS))
+
+
+def dist_phase(make_net=resnet50_nhwc, image=224, batch=DIST_BATCH,
+               steps=DIST_STEPS, publish_every=DIST_PUBLISH,
+               sites=BN_RELU_SITES, device="cuda", worker_args=""):
+    """Phase 18: two ranks of ``dist_worker`` under the port's
+    ``Supervisor`` (``max_restarts=2``), rank 1 chaos-KILLed at the
+    ``committed`` gate of the step-4 publish in generation 0, the world
+    relaunched and run to step ``steps``; the step-1 oracle first; a
+    ``FleetMonitor`` over the workers' endpoint files all along, with
+    ``mxtelemetry fleet`` run once against the live generation 1 and
+    this process's ``/alertz`` serving the monitor's engine.  Checks
+    (a)-(e) of the module docstring; returns the numbers."""
+    import tempfile
+    import urllib.request
+    import torch
+    from mxnet_tpu_torch import chaos, obs
+    from mxnet_tpu_torch.obs import fleet
+    from mxnet_tpu_torch.supervisor import Supervisor
+    t_phase = time.perf_counter()
+    card = gpu_line() if device == "cuda" else "cpu"
+    out = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="mxtt-dist-") as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        eps = os.path.join(tmp, "endpoints")
+        t0 = time.perf_counter()
+        w0, w1_oracle = dist_oracle(make_net, image, batch, device)
+        out["oracle_s"] = time.perf_counter() - t0
+        if device == "cuda":
+            release_cuda()
+        here = os.path.dirname(os.path.abspath(__file__))
+        code = ("import sys; sys.path.insert(0, %r); import chip_smoke; "
+                "sys.exit(chip_smoke.dist_worker(%r, %r, %d, %d, %d%s))"
+                % (here, ckpt, tmp, steps, publish_every, batch,
+                   (", " + worker_args) if worker_args else ""))
+        spec = chaos.make_spec(seed=0, rules=[{
+            "point": "checkpoint.sharded.barrier.committed",
+            "action": "kill", "nth": DIST_KILL_NTH, "rank": 1,
+            "generation": 0}])
+        env = dict(os.environ, MXNET_TPU_CHAOS_SPEC=spec,
+                   MXNET_TPU_GENERATION="0",
+                   MXNET_TPU_DIST_BARRIER_TIMEOUT_MS=str(DIST_BARRIER_MS),
+                   MXNET_TPU_DIST_LEASE_TTL_S=str(DIST_LEASE_TTL_S))
+        sup = Supervisor([sys.executable, "-u", "-c", code], DIST_RANKS,
+                         max_restarts=2, grace_s=DIST_GRACE_S, env=env,
+                         endpoints_dir=eps)
+        mon = fleet.FleetMonitor(eps, scrape_ms=DIST_SCRAPE_MS)
+        obs.serve(0)
+        alertz_url = "http://127.0.0.1:%d/alertz" % obs.server.port()
+        timeline, procs, rounds_ms, cli = [], {}, [], {}
+        stop = threading.Event()
+        t_wall0 = time.time()
+
+        def run_cli():
+            res = subprocess.run(
+                [sys.executable, "-m", "mxnet_tpu_torch.telemetry",
+                 "fleet", eps, "--rounds", "2", "--interval-ms",
+                 str(DIST_SCRAPE_MS)], capture_output=True, text=True,
+                timeout=120, cwd=here)
+            cli.update(rc=res.returncode, text=res.stdout,
+                       err=res.stderr[-2000:])
+            open(os.path.join(tmp, "fleet_rendered"), "w").close()
+
+        def watch():
+            cli_thread = None
+            while not stop.is_set():
+                # every worker of every generation, for its exit code
+                procs.update((p.pid, p) for p in list(sup._procs))
+                t = time.perf_counter()
+                try:
+                    snap = mon.poll_once()
+                except Exception as e:  # noqa: BLE001 -- (e) fails on it
+                    timeline.append({"t": time.time(), "error": repr(e)})
+                else:
+                    rounds_ms.append(1e3 * (time.perf_counter() - t))
+                    row = _fleet_row(snap, t_wall0)
+                    timeline.append(row)
+                    if cli_thread is None and _both_up(row, 1):
+                        cli_thread = threading.Thread(target=run_cli,
+                                                      daemon=True)
+                        cli_thread.start()
+                stop.wait(DIST_SCRAPE_MS / 1e3)
+            if cli_thread is not None:
+                cli_thread.join(120)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        result = {}
+        runner = threading.Thread(
+            target=lambda: result.setdefault("rc", sup.run()), daemon=True)
+        t_world = time.perf_counter()
+        watcher.start()
+        runner.start()
+        runner.join(DIST_SUPERVISOR_TIMEOUT_S)
+        if runner.is_alive():
+            sup.close()
+            runner.join(30)
+        out["world_s"] = time.perf_counter() - t_world
+        with urllib.request.urlopen(alertz_url, timeout=10) as r:
+            alertz = json.loads(r.read())
+        stop.set()
+        watcher.join(150)
+        mon.close()
+        obs.server.stop()
+        recs = {}
+        for g in (0, 1):
+            for r in range(DIST_RANKS):
+                p = os.path.join(tmp, "g%d_r%d.json" % (g, r))
+                if os.path.exists(p):
+                    recs[(g, r)] = json.load(open(p))
+        flight_g0_r1 = os.path.join(tmp, "flight_g0_r1")
+        kill_marks = [r["t"] for r in (obs.flight.read(flight_g0_r1)
+                                       if os.path.exists(flight_g0_r1)
+                                       else ())
+                      if r.get("name") == "chaos.kill"]
+        w1_path = os.path.join(tmp, "step1_weights.pt")
+        w1_world = torch.load(w1_path) if os.path.exists(w1_path) else None
+    check(not runner.is_alive() and result.get("rc") == 0
+          and sup.restarts == 1 and sup.generation == 1,
+          "supervisor: rc %r, %d restarts, generation %d"
+          % (result.get("rc"), sup.restarts, sup.generation))
+    check(sorted(recs) == [(0, 0), (0, 1), (1, 0), (1, 1)],
+          "phase 18 records: %s" % sorted(recs))
+    # (a) the initial broadcast and (b) every step: each rank's
+    # digests, written to its record, are rank 0's
+    for (g, r), rec in sorted(recs.items()):
+        if r == 0:
+            continue
+        rec0 = recs[(g, 0)]
+        check(rec["initial_digest"] == rec0["initial_digest"],
+              "(a) generation %d rank %d differs from rank 0 after the "
+              "initial broadcast" % (g, r))
+        mine = {s["step"]: s["digest"] for s in rec["steps"]}
+        theirs = {s["step"]: s["digest"] for s in rec0["steps"]}
+        bad = sorted(n for n in set(mine) | set(theirs)
+                     if mine.get(n) != theirs.get(n))
+        check(mine and not bad,
+              "(b) generation %d rank %d differs from rank 0 after steps "
+              "%s (its steps %s, rank 0's %s)"
+              % (g, r, bad, sorted(mine), sorted(theirs)))
+    # (b) the fused kernels at every site of every step a rank ran, in
+    # fp32
+    for key, rec in sorted(recs.items()):
+        want = sites * rec["steps_run"]
+        for name in ("bn_relu_apply", "bn_relu_bwd"):
+            check(rec["launches"][name] == want
+                  and (sites == 0 or rec["launch_dtypes"][name]
+                       == {"float32": want}),
+                  "(b) generation %d rank %d: %s launched %s (%s), want "
+                  "%d = %d x %d steps in float32"
+                  % (key + (name, rec["launches"][name],
+                            rec["launch_dtypes"][name], want, sites,
+                            rec["steps_run"])))
+    # (c) the step-1 update against the one-process oracle
+    check(w1_world is not None, "(c) rank 0 wrote no step-1 weights")
+    rel, bitwise = _update_rel_err(w0, w1_world, w1_oracle)
+    out["oracle"] = {"update_rel_err": rel, "bitwise": bitwise,
+                     "limit": DIST_ORACLE_TOL}
+    print("multi-process oracle (step 1, 2 ranks x batch %d vs one "
+          "process summing both shards' gradients in rank order): %s"
+          % (batch, json.dumps(out["oracle"])))
+    check(rel <= DIST_ORACLE_TOL,
+          "(c) the world's step-1 update is %.3g from the oracle's "
+          "(limit %g)" % (rel, DIST_ORACLE_TOL))
+    # (d) the kill, the abort and the relaunch
+    kill = recs[(0, 0)].get("kill") or {}
+    check(kill.get("error") == "BarrierTimeout" and 1 in kill.get("ranks", ())
+          and kill.get("step") == 2 * publish_every
+          and kill.get("latest_step") == publish_every
+          and not kill.get("step_visible"),
+          "(d) generation 0 rank 0: %s" % kill)
+    g0_pids = {recs[(0, r)]["pid"] for r in range(DIST_RANKS)}
+    rcs = {r: procs[recs[(0, r)]["pid"]].poll()
+           if recs[(0, r)]["pid"] in procs else None
+           for r in range(DIST_RANKS)}
+    check(rcs[0] == 3, "(d) rank 0 of generation 0 exited %r, not 3 "
+                       "through failfast_exit" % rcs[0])
+    # the kill's time is the dying rank's own mark, the chaos KILL's
+    # last write to its flight recorder
+    t_kill = kill_marks[0] if len(kill_marks) == 1 else None
+    check(t_kill is not None and rcs[1] not in (None, 0, 3),
+          "(d) rank 1 of generation 0 did not die at the chaos point: "
+          "exit %r, kill marks %s" % (rcs[1], kill_marks))
+    for r in range(DIST_RANKS):
+        rec = recs[(1, r)]
+        check(rec["resumed_from"] == publish_every
+              and all(rec["resume_equal_to_rank0_dump"].values())
+              and rec["steps"] and rec["steps"][-1]["step"] == steps,
+              "(d) generation 1 rank %d: resumed from %s, equal to rank "
+              "0's step-%d dump %s, last step %s"
+              % (r, rec["resumed_from"], publish_every,
+                 rec.get("resume_equal_to_rank0_dump"),
+                 rec["steps"][-1]["step"] if rec["steps"] else None))
+    # (e) the fleet
+    errors = [row["error"] for row in timeline if "error" in row]
+    rows = [row for row in timeline if "error" not in row]
+    up0 = [row for row in rows if _both_up(row, 0)]
+    down = [row for row in rows if row["t"] >= t_kill and any(
+        rr[0] == 1 and rr[1] == 0 and rr[3] == "down"
+        for rr in row["replicas"])]
+    fired = [row for row in rows if row["t"] >= t_kill
+             and "replica_down" in row["firing"]]
+    up1 = [row for row in rows if _both_up(row, 1)]
+    resolved = [row for row in rows if up1 and row["t"] >= up1[0]["t"]
+                and ("replica_down", "resolved") in row["transitions"]]
+    g1_pids = {rr[2] for row in up1[:1] for rr in row["replicas"]}
+    skew = next((row["goodput_skew"] for row in reversed(up1)
+                 if row["goodput_skew"]), None)
+    fleet_out = {
+        "rounds": len(rows), "round_errors": len(errors),
+        "round_ms_p50": sorted(rounds_ms)[len(rounds_ms) // 2]
+        if rounds_ms else None,
+        "round_ms_max": max(rounds_ms) if rounds_ms else None,
+        "down_after_kill_s": down[0]["t"] - t_kill if down else None,
+        "fire_after_kill_s": fired[0]["t"] - t_kill if fired else None,
+        "resolve_after_gen1_up_s": resolved[0]["t"] - up1[0]["t"]
+        if resolved else None,
+        "gen1_up_after_kill_s": up1[0]["t"] - t_kill if up1 else None,
+        "goodput_skew": skew}
+    out["fleet"] = fleet_out
+    print("fleet monitor over phase 18 (scrape every %d ms): %s"
+          % (DIST_SCRAPE_MS, json.dumps(fleet_out)))
+    print("goodput skew over the two ranks of generation 1: %s"
+          % json.dumps(skew))
+    print("mxtelemetry fleet (generation 1 live), exit %s:\n%s"
+          % (cli.get("rc"), cli.get("text", "").rstrip()))
+    hist = [h for h in alertz.get("history", ())
+            if h.get("rule") == "replica_down"]
+    print("/alertz of this process: monitors %s, firing %s, replica_down "
+          "history %s" % (alertz.get("monitors"),
+                          [a.get("rule") for a in alertz.get("firing", ())],
+                          [h.get("state") for h in hist]))
+    check(not errors, "(e) %d monitor round(s) raised; the first: %s"
+          % (len(errors), errors[:1]))
+    check(up0, "(e) the monitor never saw both ranks of generation 0 up")
+    check(down and down[0]["t"] - t_kill <= DIST_LEASE_TTL_S,
+          "(e) rank 1 not presumed down within %.1f s of the kill: %s"
+          % (DIST_LEASE_TTL_S, fleet_out))
+    check(fired, "(e) replica_down never fired after the kill")
+    check(up1 and not (g1_pids & g0_pids),
+          "(e) generation 1 never up on new pids: %s" % (up1[:1],))
+    check(resolved, "(e) replica_down never resolved in generation 1")
+    check(skew is not None and skew.get("max_over_median") is not None,
+          "(e) no goodput skew over the ranks of generation 1: %s" % skew)
+    check(cli.get("rc") == 0 and "2 replica(s), 2 up / 0 down"
+          in cli.get("text", ""),
+          "(e) mxtelemetry fleet: exit %s\n%s%s" % (
+              cli.get("rc"), cli.get("text"), cli.get("err")))
+    check(alertz.get("schema") == "mxalertz.v1"
+          and alertz.get("monitors") == 1
+          and any(h.get("state") == "resolved" for h in hist),
+          "(e) /alertz: %s" % json.dumps(alertz)[:2000])
+    # the numbers
+    per_rank = {}
+    for (g, r), rec in sorted(recs.items()):
+        # each process's first step sets up cuDNN and the allocator
+        plain = rec["steps"][1:]
+
+        def ms(part):
+            vals = sorted(s[part] for s in plain)
+            return 1e3 * vals[len(vals) // 2] if vals else None
+        per_rank["g%d.r%d" % (g, r)] = {
+            "steps": [s["step"] for s in rec["steps"]],
+            "ms_per_step": ms("train_s"),
+            "ms_forward_backward": ms("forward_backward_s"),
+            "ms_allreduce": ms("allreduce_s"), "ms_update": ms("update_s"),
+            "first_step_ms": {
+                part: 1e3 * rec["steps"][0][part]
+                for part in ("train_s", "forward_backward_s",
+                             "allreduce_s", "update_s")},
+            "initial_broadcast_s": rec["initial_broadcast_s"],
+            "publish_s": rec.get("publish_s"),
+            "allreduce": rec.get("allreduce"),
+            "peak_mem_bytes": rec.get("peak_mem_bytes"),
+            "launches": rec["launches"]}
+    first_g1 = max(recs[(1, r)]["steps"][0]["t_wall"]
+                   for r in range(DIST_RANKS))
+    out.update(per_rank=per_rank, kill={
+        "barrier_timeout": kill, "rank0_exit_code": rcs[0],
+        "rank1_exit_code": rcs[1],
+        "kill_to_barrier_timeout_s": kill["t_wall"] - t_kill,
+        "kill_to_gen1_first_step_both_s": first_g1 - t_kill},
+        launches={"generation %d rank %d" % k: v["launches"]
+                  for k, v in sorted(recs.items())})
+    for key, row in per_rank.items():
+        share = (row["ms_allreduce"] / row["ms_per_step"]
+                 if row["ms_allreduce"] and row["ms_per_step"] else None)
+        print("multi-process rank %s (ResNet-50 v1 NHWC fp32, dist_sync, "
+              "batch %d a rank, %d ranks on one card): %s; allreduce share "
+              "of the step %s; %s" % (key, batch, DIST_RANKS,
+                                      json.dumps(row), share, card))
+    print("multi-process kill and relaunch: %s" % json.dumps(out["kill"]))
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("multi-process phase: %.1f s (world %.1f s, oracle %.1f s)"
+          % (out["phase_s"], out["world_s"], out["oracle_s"]))
+    return out
+
+
 def kernel_entry(name, launches, kern, serve_launches=None, **extra):
     """One kernel's entry of the per-kernel JSON line; a kernel of the
     checkpoint-and-serve phase also gives its launches there, and
@@ -6776,6 +7484,10 @@ def main():
     # supervised worker and obs server are other processes and threads)
     release_cuda()
     ops = ops_plane_phase()
+    # phase 18: two ranks train through dist_sync under the supervisor
+    # (other processes on this card), watched by a fleet monitor here
+    release_cuda()
+    dist = dist_phase()
     for entry in entries:
         name = entry["name"]
         if name in ("bn_relu_apply", "bn_relu_bwd", "paged_attention"):
@@ -6785,6 +7497,10 @@ def main():
                 name, {"total": 0})
         if name in OPS_KERNELS:
             entry["launches_ops_plane"] = ops["launches"][name]
+        if name in ("bn_relu_apply", "bn_relu_bwd"):
+            entry["launches_dist_sync"] = {
+                who: counts[name] for who, counts in
+                dist["launches"].items()}
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

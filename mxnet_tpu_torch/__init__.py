@@ -62,13 +62,21 @@ It imports neither JAX nor anything of ``mxnet_tpu``.  Ported so far:
   reference's control surface), the goodput ledger, the crash-safe
   flight recorder and the introspection server (:mod:`.obs`), the leak
   sentinel (:mod:`.analysis.memory`), :mod:`.supervisor` and the
-  ``mxtelemetry`` CLI.
+  ``mxtelemetry`` CLI;
+- multi-process data-parallel training: :mod:`.distributed` (a
+  ``TCPStore`` and a gloo process group, attributed barriers, liveness
+  leases, host collectives; ``mx.distributed_init``), the ``dist_*``
+  kvstores, :mod:`.horovod`, sharded multi-process checkpoints, the
+  multi-process ``ContinuousTrainer``, :mod:`.launch` (``python -m
+  mxnet_tpu_torch.launch``), and the fleet plane watching the workers
+  (``obs.fleet.FleetMonitor``, ``obs.alerts``, ``mxtelemetry fleet``).
 
 ``import mxnet_tpu_torch as mx`` binds ``mx.parallel``, ``mx.serving``,
 ``mx.kv``/``mx.kvstore``, ``mx.recordio``, ``mx.io``, ``mx.image``,
 ``mx.dataio``, ``mx.sync``, ``mx.telemetry``, ``mx.obs``, ``mx.chaos``,
-``mx.preemption``, ``mx.profiler`` and ``mx.profiling`` as the JAX
-package's ``__init__`` does (``mxnet_tpu_torch.supervisor`` is imported
+``mx.preemption``, ``mx.profiler``, ``mx.profiling``,
+``mx.distributed_init`` and ``mx.horovod`` as the JAX package's
+``__init__`` does (``mxnet_tpu_torch.supervisor`` is imported
 by name, as the JAX package's is).
 
 Kernels and their plain versions are registered in :mod:`.kernels`.
@@ -83,7 +91,9 @@ from . import kvstore as kv
 from . import parallel, preemption, serving
 from . import profiler, profiling
 from . import ndarray as nd
+from . import horovod
 from .base import MXNetError
+from .distributed import distributed_init
 from .context import (Context, cpu, cpu_pinned, current_context, gpu,
                       num_gpus, resolve_device)
 from .ndarray import NDArray
@@ -93,7 +103,7 @@ __version__ = "0.1.0"
 
 __all__ = ["Context", "MXNetError", "NDArray", "amp", "autograd", "chaos",
            "checkpoint", "cpu", "cpu_pinned", "current_context", "dataio",
-           "gluon", "gpu", "image", "init", "initializer", "io", "kv",
+           "distributed_init", "gluon", "horovod", "gpu", "image", "init", "initializer", "io", "kv",
            "kvstore", "lr_scheduler", "metric", "nd", "num_gpus", "obs",
            "optimizer", "parallel", "preemption", "random", "recordio",
            "resolve_device", "serving", "sync", "telemetry"]

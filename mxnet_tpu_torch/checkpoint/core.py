@@ -1,5 +1,6 @@
 """Atomic, manifest-verified, step-numbered checkpoints (counterpart of
-``mxnet_tpu/checkpoint/core.py``, one process, no sharding).
+``mxnet_tpu/checkpoint/core.py``; the multi-process sharded layout is
+:mod:`.sharded`).
 
 Two layers:
 
@@ -59,8 +60,6 @@ FORMAT_VERSION = 1
 _STEP_RE = re.compile(r"^step_(\d{8})$")
 _TMP_RE = re.compile(r"\.(\d+)\.tmp$")
 _DIGEST_CHUNK = 1 << 20
-# one process: the JAX package writes its process topology here
-_TOPOLOGY = {"num_processes": 1, "process_id": 0}
 
 
 class CheckpointError(MXNetError):
@@ -243,6 +242,12 @@ def write_item(dirpath, name, kind, payload):
                    "item": name}
 
 
+def _topology():
+    from ..distributed import world
+    nprocs, rank = world()
+    return {"num_processes": int(nprocs), "process_id": int(rank)}
+
+
 def read_item(dirpath, fname, entry):
     """Load one manifest entry back: a ``params`` item as a dict of
     NDArrays on the host, a ``bin`` item as bytes."""
@@ -255,9 +260,6 @@ def read_item(dirpath, fname, entry):
     if kind == "bin":
         with open(fpath, "rb") as f:
             return f.read()
-    if kind == "shard":
-        raise CheckpointError("%s is a sharded checkpoint; sharded "
-                              "checkpoints are not ported yet" % dirpath)
     raise CheckpointError("unknown item kind %r in manifest" % kind)
 
 
@@ -310,16 +312,15 @@ class CheckpointManager:
       renamed ``step_<N>.corrupt`` (counted in
       ``checkpoint.quarantined``) instead of silently skipped.
 
-    ``sharded=`` is the JAX package's multi-process layout; it waits for
-    the multi-device slice (ROADMAP item 9) and raises if asked for.
+    - ``sharded`` (default: auto = multi-process runs): every process
+      takes part in each save, rank 0 stores the replicated arrays, and
+      three attributed barriers gate the commit (:mod:`.sharded`).
+      Saves are synchronous under it, as in the JAX package.
     """
 
     def __init__(self, root, max_to_keep=None, keep_every_n_steps=None,
                  async_save=None, sharded=None, quarantine=None):
         from .. import env as _env
-        if sharded:
-            raise CheckpointError("sharded checkpoints are not ported yet "
-                                  "(ROADMAP item 9)")
         if quarantine is None:
             quarantine = _env.get("MXNET_TPU_CKPT_QUARANTINE")
         self.quarantine = bool(quarantine)
@@ -332,12 +333,19 @@ class CheckpointManager:
         self.keep_every_n_steps = keep_every_n_steps or None
         if async_save is None:
             async_save = _env.get("MXNET_TPU_CKPT_ASYNC")
+        self._sharded = sharded
         self._writer = None
         if async_save:
             from .async_writer import AsyncWriter
             self._writer = AsyncWriter()
         os.makedirs(self.root, exist_ok=True)
         sweep_stale_tmps(self.root)
+        if _topology()["process_id"] == 0:
+            # a dead multi-rank world's shared staging: the sharded
+            # layout stages without a pid suffix, so its sweep rides an
+            # owner marker instead
+            from . import sharded as _sharded
+            _sharded.sweep_shared_staging(self.root)
 
     # -- layout --------------------------------------------------------
     def step_dir(self, step):
@@ -379,8 +387,8 @@ class CheckpointManager:
         ``<dir>.corrupt``, so the rollback is visible and the torn bytes
         stay as evidence (a no-op with ``quarantine`` off).  Tolerant of
         a concurrent writer re-saving the step or another process
-        quarantining first."""
-        if not self.quarantine:
+        quarantining first; rank 0 only in a multi-process world."""
+        if not self.quarantine or _topology()["process_id"] != 0:
             return False
         src = self.step_dir(step)
         dst = src + ".corrupt"
@@ -418,6 +426,12 @@ class CheckpointManager:
             self._writer.check()        # re-raise a prior writer error
         from .async_writer import snapshot_items
         t0 = time.perf_counter()
+        if self._use_sharded():
+            from . import sharded
+            nbytes = sharded.save_sharded(self, step, items, metadata)
+            self._record_save(step, nbytes, time.perf_counter() - t0,
+                              async_save=False)
+            return
         snapshot = snapshot_items(items)
 
         def _write():
@@ -433,6 +447,11 @@ class CheckpointManager:
             nbytes = _write()
             self._record_save(step, nbytes, time.perf_counter() - t0,
                               async_save=False)
+
+    def _use_sharded(self):
+        if self._sharded is not None:
+            return self._sharded
+        return _topology()["num_processes"] > 1
 
     def _record_save(self, step, nbytes, seconds, async_save):
         if _telemetry._ENABLED:
@@ -469,7 +488,7 @@ class CheckpointManager:
             "format_version": FORMAT_VERSION,
             "step": step,
             "files": files,
-            "topology": dict(_TOPOLOGY),
+            "topology": _topology(),
             "metadata": metadata or {},
         }
 
@@ -510,11 +529,18 @@ class CheckpointManager:
             shutil.rmtree(self.step_dir(step), ignore_errors=True)
 
     # -- restore -------------------------------------------------------
-    def restore(self, step=None):
+    def restore(self, step=None, sharding=None):
         """Load a checkpoint: the newest intact step when ``step`` is
         None (None if there is none), or exactly ``step`` (raising
         CheckpointError if it fails verification).  Arrays come back as
-        NDArrays on the host."""
+        NDArrays on the host, a sharded step's reassembled
+        (:func:`.sharded.restore_sharded`).  ``sharding`` (placement
+        onto a mesh) waits for ROADMAP item 9b and raises."""
+        if sharding is not None:
+            raise CheckpointError(
+                "restore(sharding=...): placing a restored step onto a "
+                "mesh waits for the SPMD half of the multi-device slice "
+                "(ROADMAP item 9b)")
         self.wait_until_finished()
         t0 = time.perf_counter()
         if step is None:
@@ -531,8 +557,14 @@ class CheckpointManager:
                 raise CheckpointError(
                     "checkpoint step %d failed verification" % step)
         dirpath = self.step_dir(step)
-        items = {entry.get("item", fname): read_item(dirpath, fname, entry)
-                 for fname, entry in sorted(manifest["files"].items())}
+        if any(e.get("kind") == "shard"
+               for e in manifest["files"].values()):
+            from . import sharded
+            items, _nbytes = sharded.restore_sharded(dirpath, manifest)
+        else:
+            items = {entry.get("item", fname):
+                     read_item(dirpath, fname, entry)
+                     for fname, entry in sorted(manifest["files"].items())}
         if _telemetry._ENABLED:
             _telemetry.hooks.checkpoint(
                 "restore",

@@ -32,7 +32,7 @@ The landing device is ``ctx`` (a context, a ``torch.device`` or its
 name), the card by default; without CUDA that default raises
 :class:`~..base.MXNetError`.  A feed lands on the host only when
 ``ctx=mx.cpu()`` asks for it, and then without the ring.  ``mesh=`` and
-``sharding=`` raise until ROADMAP item 9 ports the mesh.  With
+``sharding=`` raise until ROADMAP item 9b ports the mesh.  With
 telemetry on, the feed writes the JAX package's ``feed.*`` instruments
 (producer busy and bytes a batch, consumer wait, the epoch's overlap
 share), which :meth:`DeviceFeed.stats` and
@@ -81,7 +81,7 @@ def _feed_compact(compact):
 
 def _no_mesh(what):
     raise MXNetError(
-        "%s: mesh=/sharding= landing is not ported yet (ROADMAP item 9, "
+        "%s: mesh=/sharding= landing is not ported yet (ROADMAP item 9b, "
         "the mesh and SPMD path); pass ctx= for one device" % what)
 
 

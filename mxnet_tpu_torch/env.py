@@ -3,8 +3,10 @@
 Counterpart of ``mxnet_tpu/env.py``, holding only the variables the
 port reads: checkpoints, serving and the always-on loop, the numerics
 sentinel, the device feed, telemetry, tracing, chaos, the concurrency
-sanitizer and the ops plane (profiling, the goodput ledger, the leak
-sentinel, the flight recorder, the obs server and the supervisor).  Names, defaults and the boolean convention (only ``"0"`` is
+sanitizer, the ops plane (profiling, the goodput ledger, the leak
+sentinel, the flight recorder, the obs server and the supervisor), the
+multi-process world (barriers, leases, store retries) and the fleet
+plane.  Names, defaults and the boolean convention (only ``"0"`` is
 false) are the JAX package's, so one environment configures both.
 """
 from __future__ import annotations
@@ -238,9 +240,30 @@ _VARS = [
            "operator JSON), /alertz.  0 (the default) = not started; "
            "obs.serve(0) binds an ephemeral port."),
     EnvVar("MXNET_TPU_GENERATION", int, 0,
-           "Supervisor generation of this worker, bumped by the "
-           "restart supervisor (supervisor.Supervisor) on every "
-           "relaunch; statusz and the endpoint files carry it."),
+           "Supervisor generation of this worker world, bumped by the "
+           "restart supervisor (supervisor.Supervisor, python -m "
+           "mxnet_tpu_torch.launch --supervise) on every relaunch.  "
+           "Namespaces every coordination-store key (barriers, leases), "
+           "and statusz and the endpoint files carry it."),
+    EnvVar("MXNET_TPU_DIST_BARRIER_TIMEOUT_MS", int, 60000,
+           "Default bound on every attributed barrier rendezvous "
+           "(distributed.barrier and the sharded-checkpoint commit "
+           "gates), and the gloo process group's timeout.  On expiry "
+           "survivors raise a typed BarrierTimeout naming the missing "
+           "rank(s).  Per-call override: barrier(timeout_ms=...)."),
+    EnvVar("MXNET_TPU_DIST_LEASE_TTL_S", float, 10.0,
+           "Liveness-lease staleness bound: a rank whose "
+           "mxlive/g<gen>/<rank> store key is older than this (or "
+           "absent) is reported 'presumed dead' in "
+           "BarrierTimeout/RankFailure attribution.  The training "
+           "loop beats the lease every step; every barrier entry "
+           "refreshes it too."),
+    EnvVar("MXNET_TPU_DIST_KV_RETRIES", int, 2,
+           "Bounded retries (doubling backoff from 50 ms) for "
+           "transient coordination-store errors in barriers, leases "
+           "and aborts.  Deadline expiries are not transient -- they "
+           "attribute a missing peer and raise typed errors "
+           "immediately.  0 disables retries."),
     EnvVar("MXNET_TPU_SUPERVISOR_RESTARTS", int, 3,
            "Restart budget: how many times the supervisor relaunches "
            "the workers after a death before going terminal "
@@ -256,6 +279,18 @@ _VARS = [
            "serve() and withdraws it on stop(); the supervisor threads "
            "it into every launched worker.  Empty (the default) "
            "disables publication."),
+    EnvVar("MXNET_TPU_OBS_SCRAPE_MS", float, 1000.0,
+           "FleetMonitor scrape interval in milliseconds.  The "
+           "presumed-down TTL defaults to 3x this, so a replica that "
+           "stops answering is declared down within ~3 scrape "
+           "rounds."),
+    EnvVar("MXNET_TPU_OBS_ALERT_RULES", str, "",
+           "JSON list of SLO alert-rule overrides merged onto the "
+           "stock rules by name (obs.alerts.parse_rules): e.g. "
+           "'[{\"name\": \"p99_latency_ms\", \"threshold\": 250}]'.  "
+           "Unparseable specs raise loudly -- a silently-ignored "
+           "alert config is the worst failure mode an alerting plane "
+           "can have."),
 ]
 
 REGISTRY = {v.name: v for v in _VARS}

@@ -16,9 +16,11 @@ Two routes, as in the JAX package:
   consumer's compute, optionally expanded there by
   ``device_transform``; iteration yields landed NDArrays (a
   :class:`~...dataio.DeviceBatch` when a batch has several parts).
-  ``mesh=`` and ``sharding=`` raise until ROADMAP item 9 ports the mesh.
+  ``mesh=`` and ``sharding=`` raise until ROADMAP item 9b ports the
+  mesh.
 
-The JAX package's telemetry hooks are not ported yet.
+With telemetry on, each wait for a batch records the JAX package's
+``data.wait_time`` timer (``hooks.dataloader_wait``).
 """
 from __future__ import annotations
 

@@ -9,7 +9,7 @@ BERT across by name.  Without ``valid_mask`` the encoder's attention runs
 the flash kernels unmasked; with it, the masked flash kernels at every
 layer (outside training, or at dropout 0).  ``use_flash=False`` runs
 the plain attention math instead.  Tensor parallelism (``tp_mesh``,
-``shard_tp``) is not ported yet.
+``shard_tp``) is not ported yet (ROADMAP item 9b).
 """
 from __future__ import annotations
 
@@ -36,7 +36,7 @@ class BERTModel(HybridBlock):
         super().__init__(**kwargs)
         if tp_mesh is not None:
             raise MXNetError("tensor-parallel BERT (tp_mesh) is not ported "
-                             "yet")
+                             "yet (ROADMAP item 9b)")
         self._units = units
         with self.name_scope():
             self.word_embed = Embedding(vocab_size, units, dtype=dtype)
@@ -61,7 +61,8 @@ class BERTModel(HybridBlock):
             self.embed_drop = Dropout(dropout)
 
     def shard_tp(self, mesh=None, axis=None):
-        raise MXNetError("tensor-parallel BERT (shard_tp) is not ported yet")
+        raise MXNetError("tensor-parallel BERT (shard_tp) is not ported "
+                         "yet (ROADMAP item 9b)")
 
     def hybrid_forward(self, F, token_ids, token_types=None, valid_mask=None):
         x = self.word_embed(token_ids)

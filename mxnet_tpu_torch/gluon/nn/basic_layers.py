@@ -203,7 +203,8 @@ class BatchNorm(HybridBlock):
 class SyncBatchNorm(BatchNorm):
     """Cross-device BatchNorm (reference: ``contrib.nn.SyncBatchNorm``).
     In one process it is ``BatchNorm``; ``num_devices`` is kept for the
-    API until the multi-device slice."""
+    API until the SPMD half of the multi-device slice (ROADMAP item
+    9b)."""
 
     def __init__(self, in_channels=0, num_devices=None, **kwargs):
         super().__init__(in_channels=in_channels, **kwargs)

@@ -1,5 +1,4 @@
-"""Gluon Trainer (counterpart of ``mxnet_tpu/gluon/trainer.py``), on
-one process.
+"""Gluon Trainer (counterpart of ``mxnet_tpu/gluon/trainer.py``).
 
 ``step(batch_size)`` is ``allreduce_grads()`` then ``update(batch_size)``:
 
@@ -8,9 +7,18 @@ one process.
   ``kvstore="device"``, ``"local"`` and ``"nccl"`` are single-process
   stores: they return the gradient as it is, or its 2-bit quantization
   with ``compression_params={"type": "2bit", "threshold": t}``.
-  ``kvstore=None`` skips the pass.  A ``dist_*`` store is not ported
-  yet.  ``update_on_kvstore`` is kept for the API, as the JAX package
-  keeps it: the update runs here;
+  ``kvstore=None`` skips the pass.  A ``dist_*`` store in a world of
+  several processes sums the gradients across them in ONE bucketed
+  ``pushpull_bucket`` a step; each rank passes its own batch size, so
+  the update applies the sum of the ranks' gradients over the local
+  batch, as the JAX package's does.  Before its first reduction a dist
+  store broadcasts rank 0's parameters to every rank in one bucketed
+  collective (the reference's ``kv.init`` + pull), once per parameter,
+  a parameter whose deferred init lands later included: every rank
+  starts from rank 0's weights whatever its initializer drew.
+  BatchNorm's running statistics stay per rank after that, as in the
+  reference.  ``update_on_kvstore`` is kept for the API, as the JAX
+  package keeps it: the update runs here;
 - the update applies the optimizer to every parameter that takes a
   gradient, with ``rescale_grad = _scale / batch_size``, through the
   updater's multi-precision entry point (an fp16 parameter of a
@@ -81,6 +89,7 @@ class Trainer:
             kvstore.set_gradient_compression(compression_params)
         self._kvstore = kvstore
         self._update_on_kvstore = update_on_kvstore
+        self._dist_synced = set()
 
     @property
     def learning_rate(self):
@@ -148,16 +157,47 @@ class Trainer:
                 return
         self._update(ignore_stale_grad)
 
+    def _sync_initial_params(self):
+        """Broadcast rank 0's values of every parameter not yet synced
+        (one bucketed collective), on a dist store in a world of
+        several processes.  Every rank must materialize a deferred
+        parameter at the same step: the broadcast is a collective."""
+        if self._kvstore is None \
+                or not getattr(self._kvstore, "_is_dist", False):
+            return
+        from ..distributed import host_broadcast_bucketed, world
+        if world()[0] <= 1:
+            return
+        todo = [p for p in self._params
+                if p.name not in self._dist_synced and p._data is not None]
+        if not todo:
+            return
+        synced = host_broadcast_bucketed([p._data for p in todo], root=0)
+        with torch.no_grad():
+            for p, v in zip(todo, synced):
+                p._data.copy_(v)
+                self._dist_synced.add(p.name)
+
     def allreduce_grads(self):
-        """Reduce every live gradient through the kvstore, in place."""
+        """Reduce every live gradient through the kvstore, in place (a
+        dist store: one bucketed collective, after the initial
+        broadcast of parameters it has not synced yet)."""
         if self._kvstore is None:
             return
-        for i, p in self._live():
+        self._sync_initial_params()
+        live = self._live()
+        if getattr(self._kvstore, "_is_dist", False):
+            grads = [p._data.grad for _i, p in live]
+            self._kvstore.pushpull_bucket([i for i, _p in live], grads,
+                                          grads)
+            return
+        for i, p in live:
             g = p._data.grad
             self._kvstore.pushpull(i, g, out=g)
 
     def update(self, batch_size, ignore_stale_grad=False):
         """The optimizer update alone (after :meth:`allreduce_grads`)."""
+        self._sync_initial_params()
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update(ignore_stale_grad)
 

@@ -8,7 +8,7 @@ context.  With ``ctx=`` it returns a :class:`~..dataio.DeviceFeed`: the
 batch stays uint8 through decode, crop and mirror, lands on the card
 through the feed's pinned ring, and the cast and mean/std
 normalization run there (:class:`~..dataio.DeviceTransform`).
-``mesh=`` and ``sharding=`` raise until ROADMAP item 9 ports the mesh.
+``mesh=`` and ``sharding=`` raise until ROADMAP item 9b ports the mesh.
 ``num_parts``/``part_index`` shard the records as in the JAX package.
 """
 from __future__ import annotations
@@ -316,7 +316,7 @@ def ImageRecordIter(path_imgrec=None, data_shape=None, batch_size=128,
     instead of a host prefetcher: decode+crop+mirror stay host-side on
     uint8, the batch ships compact to the card, and the cast and
     mean/std normalization run there after landing.  ``mesh=`` and
-    ``sharding=`` raise :class:`MXNetError` (ROADMAP item 9)."""
+    ``sharding=`` raise :class:`MXNetError` (ROADMAP item 9b)."""
     from ..image import CastAug, CreateAugmenter, ImageIter
 
     if mesh is not None or sharding is not None:

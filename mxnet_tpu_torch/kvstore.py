@@ -1,9 +1,8 @@
-"""KVStore, the single-process types (counterpart of
-``mxnet_tpu/kvstore.py``).
+"""KVStore (counterpart of ``mxnet_tpu/kvstore.py``).
 
-``create("local" | "device" | "nccl")`` gives a :class:`KVStore` over one
-process.  There are no per-device gradient copies to reduce on one card,
-so a pushed list of values is summed (the reference's ``CommDevice``
+``create("local" | "device" | "nccl")`` gives a single-process store.
+There are no per-device gradient copies to reduce on one card, so a
+pushed list of values is summed (the reference's ``CommDevice``
 reduce) and that is all the reduction there is:
 
 - without an optimizer, ``push`` keeps the merged value until a
@@ -13,34 +12,60 @@ reduce) and that is all the reduction there is:
   the stored copy of the key through the optimizer's updater, and
   ``pull`` reads that copy (``update_on_kvstore``).
 
+``create("dist_sync" | "dist_device_sync" | "dist_async" | "dist")``
+gives the multi-process store: ``rank``/``num_workers`` are the
+world's (:func:`~mxnet_tpu_torch.distributed.world`), and each merged
+value is summed across the processes before it is stored, returned or
+applied (:func:`~mxnet_tpu_torch.distributed.host_allreduce`, a gloo
+all-gather of host copies summed in rank order);
+:meth:`KVStore.pushpull_bucket` reduces a whole list of keys in one
+collective a dtype.  The four types share this path, as they do in the
+JAX package: ``dist_async`` keeps synchronous semantics.  A store
+created before :func:`~mxnet_tpu_torch.distributed.distributed_init`
+(or in one process) reduces over one process.  ``"horovod"`` is the
+JAX package's single-process store of that name (the reduction is
+:class:`~mxnet_tpu_torch.horovod.DistributedTrainer`'s).
+
 ``set_gradient_compression({"type": "2bit", "threshold": t})`` quantizes
 each merged value to ``{-t, 0, t}`` with an error-feedback residual a
-key (:class:`_TwoBitCompression`), as ``gradient_compression.cc`` does.
+key (:class:`_TwoBitCompression`), as ``gradient_compression.cc`` does,
+before the cross-process sum.
 
 Every operation stays on the value's device: a merge, a compression or
 an update is device math, and ``out`` is written in place (its tensor
 stays the one a parameter, an optimizer or a captured graph holds).
-Values and outputs are NDArrays or tensors.  The multi-process types
-(``dist_*``, ``horovod``) and ``row_sparse_pull`` are not ported.
+Values and outputs are NDArrays or tensors.  With telemetry on, each
+verb records the JAX package's ``kvstore.*`` instruments.
+``row_sparse_pull`` is not ported (sparse arrays, ROADMAP item 10).
 """
 from __future__ import annotations
 
 import pickle
+import time
 
 import torch
 
 from . import optimizer as opt
+from . import telemetry as _telemetry
 from .base import MXNetError
 from .ndarray import NDArray
 
 __all__ = ["KVStore", "create"]
 
-_LOCAL = ("local", "device", "nccl")
-_DIST = ("dist", "dist_sync", "dist_async", "dist_device_sync", "horovod")
+_TYPES = ("local", "device", "nccl", "dist", "dist_sync", "dist_async",
+          "dist_device_sync", "horovod")
 
 
 def _tensor(value):
     return value._data if isinstance(value, NDArray) else value
+
+
+def _value_nbytes(value):
+    """Payload size of a pushed or pulled value, from its metadata."""
+    if isinstance(value, (list, tuple)):
+        return sum(_value_nbytes(v) for v in value)
+    t = _tensor(value)
+    return t.numel() * t.element_size()
 
 
 class _TwoBitCompression:
@@ -67,22 +92,25 @@ class KVStore:
     ``python/mxnet/kvstore.py :: KVStore``)."""
 
     def __init__(self, kv_type="local"):
-        if kv_type not in _LOCAL:
-            raise MXNetError(_not_ported(kv_type))
+        if kv_type not in _TYPES:
+            raise MXNetError("unknown kvstore type %r" % kv_type)
         self.type = kv_type
         self._store = {}       # key -> tensor (the "server" copy)
         self._pending = {}     # key -> merged value awaiting a pull
         self._updater = None
         self._optimizer = None
         self._compression = None
+        self._is_dist = kv_type.startswith("dist")
 
     @property
     def rank(self):
-        return 0
+        from .distributed import world
+        return world()[1] if self._is_dist else 0
 
     @property
     def num_workers(self):
-        return 1
+        from .distributed import world
+        return world()[0] if self._is_dist else 1
 
     @staticmethod
     def _keyify(key):
@@ -99,7 +127,7 @@ class KVStore:
         if key not in self._store:
             self._store[key] = _tensor(value).detach().clone()
 
-    def _reduce(self, key, value):
+    def _merge(self, key, value):
         """The sum of a pushed value or list of values, compressed when
         compression is set."""
         if isinstance(value, (list, tuple)):
@@ -110,6 +138,16 @@ class KVStore:
             merged = _tensor(value).detach()
         if self._compression is not None:
             merged = self._compression.compress_decompress(key, merged)
+        return merged
+
+    def _reduce(self, key, value):
+        """:meth:`_merge`, then summed across the processes of a dist
+        store."""
+        merged = self._merge(key, value)
+        if self._is_dist:
+            from .distributed import host_allreduce, world
+            if world()[0] > 1:
+                merged = host_allreduce(merged)
         return merged
 
     def _stored(self, key):
@@ -125,6 +163,8 @@ class KVStore:
             return
         key = self._keyify(key)
         stored = self._stored(key)
+        if _telemetry._ENABLED:
+            _telemetry.hooks.kv_op("push", _value_nbytes(value))
         merged = self._reduce(key, value)
         if self._updater is not None:
             self._updater(key, merged, stored)
@@ -153,6 +193,8 @@ class KVStore:
             return
         key = self._keyify(key)
         stored = self._stored(key)
+        if _telemetry._ENABLED:
+            _telemetry.hooks.kv_op("pull", _value_nbytes(stored))
         src = stored
         if self._updater is None and key in self._pending:
             src = self._pending.pop(key)
@@ -170,14 +212,51 @@ class KVStore:
                 self.pushpull(k, v, o, priority)
             return
         key = self._keyify(key)
+        t0 = time.perf_counter() if _telemetry._ENABLED else None
         if self._updater is not None:
             result = self._stored(key)
             self._updater(key, self._reduce(key, value), result)
         else:
             result = self._reduce(key, value)
+        if t0 is not None:
+            _telemetry.hooks.kv_op("pushpull", _value_nbytes(value),
+                                   time.perf_counter() - t0)
         if out is not None:
             self._write(out, result)
         return out
+
+    @torch.no_grad()
+    def pushpull_bucket(self, keys, values, outs, priority=0):
+        """Fused push and pull over a LIST of keys: each key's values
+        merge (and compress), then a dist store sums the whole list
+        across the processes in ONE collective a dtype
+        (:func:`~mxnet_tpu_torch.distributed.host_allreduce_bucketed`)
+        and writes each result into its ``outs`` entry.  Telemetry
+        records one ``kvstore.pushpull`` for the bucket.  With an
+        optimizer set, each key goes through :meth:`pushpull`."""
+        keys = [self._keyify(k) for k in keys]
+        t0 = time.perf_counter() if _telemetry._ENABLED else None
+        dense_idx, merged = [], []
+        for j, (key, value) in enumerate(zip(keys, values)):
+            if self._updater is not None:
+                self.pushpull(key, value, outs[j], priority)
+                continue
+            dense_idx.append(j)
+            merged.append(self._merge(key, value))
+        if not dense_idx:
+            return outs
+        if self._is_dist:
+            from .distributed import host_allreduce_bucketed, world
+            if world()[0] > 1:
+                merged = host_allreduce_bucketed(merged)
+        for j, res in zip(dense_idx, merged):
+            self._write(outs[j], res)
+        if t0 is not None:
+            _telemetry.hooks.kv_op(
+                "pushpull", sum(_value_nbytes(values[j])
+                                for j in dense_idx),
+                time.perf_counter() - t0)
+        return outs
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
         raise MXNetError("row_sparse_pull: sparse arrays are not ported "
@@ -209,19 +288,17 @@ class KVStore:
             self._updater.set_states(f.read())
 
     def barrier(self):
-        """Nothing to wait for in one process."""
-
-
-def _not_ported(name):
-    if name in _DIST:
-        return ("kvstore %r: multi-process kvstores are not ported yet "
-                "(ROADMAP Queue 1 item 9)" % name)
-    return "unknown kvstore type %r" % name
+        """An attributed rendezvous of every process of a dist store
+        (:func:`~mxnet_tpu_torch.distributed.barrier`); nothing to wait
+        for in one process."""
+        if self._is_dist:
+            from .distributed import barrier
+            barrier("kvstore_barrier")
 
 
 def create(name="local"):
-    """A single-process store: ``"local"``, ``"device"`` or ``"nccl"``
-    (reference: ``kvstore.create``)."""
-    if name not in _LOCAL:
-        raise MXNetError(_not_ported(name))
+    """Reference: ``kvstore.create``; accepted types: local, device,
+    nccl, dist_sync, dist_device_sync, dist_async, dist, horovod."""
+    if name not in _TYPES:
+        raise MXNetError("unknown kvstore type %r" % name)
     return KVStore(name)

@@ -31,8 +31,10 @@ instrumented site pays ONE module-flag check (``obs._TRACE_ENABLED``)
 and makes zero calls into ``obs.trace``.  Enable with
 ``MXNET_TPU_OBS_TRACE=1`` or ``obs.enable_tracing()``.
 
-The fleet monitor and alert engine that poll several processes'
-servers are the fleet plane, not ported yet (ROADMAP item 8b).
+The fleet plane polls several processes' servers: :mod:`.fleet`
+(endpoint discovery, the scrape client, ``FleetMonitor`` and its
+aggregates) and :mod:`.alerts` (the SLO alert engine ``/alertz``
+serves).
 """
 from __future__ import annotations
 

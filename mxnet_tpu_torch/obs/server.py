@@ -13,9 +13,10 @@ speaks:
   live telemetry registry (scrape it; no push gateway).
 - ``GET /statusz``  -- the operator JSON: served/published step, swap
   history, bucket occupancy, per-rank last-heartbeat.
-- ``GET /alertz``   -- the fleet alert plane's reply; with no fleet
-  monitor in the process (the port has no fleet plane yet) the JAX
-  package's empty shell.
+- ``GET /alertz``   -- the fleet alert plane: firing/pending alerts,
+  the resolved history and the rules of the newest
+  :class:`~mxnet_tpu_torch.obs.fleet.FleetMonitor` registered in this
+  process, or the JAX package's empty shell when none runs here.
 
 When ``MXNET_TPU_OBS_ENDPOINTS_DIR`` is set, :func:`serve` also
 publishes this process's ``{pid, rank, generation, port, started_at}``

@@ -23,9 +23,11 @@ recent swap history (the ``serving.swap`` event ring), bucket
 occupancy, and per-rank last heartbeat (the ContinuousTrainer loop
 beats once per step; a stale heartbeat is a wedged trainer even when
 every thread is alive), the newest goodput window (:mod:`.goodput`),
-the numerics and leak sentinels' rows and the supervisors.  The
-snapshot has the JAX package's schema; its fleet row stays empty until
-the fleet plane is ported.  :mod:`.server` serves it over HTTP.
+the numerics and leak sentinels' rows, the supervisors, and -- when a
+:class:`~mxnet_tpu_torch.obs.fleet.FleetMonitor` runs in the process
+(:func:`register_fleet`) -- its replicas up/down and firing alerts.
+The snapshot has the JAX package's schema.  :mod:`.server` serves it
+over HTTP.
 """
 from __future__ import annotations
 
@@ -34,8 +36,9 @@ import time
 import weakref
 
 __all__ = ["register_watcher", "register_registry", "register_trainer",
-           "register_ledger", "register_supervisor", "heartbeat",
-           "health", "statusz", "reset", "STATUSZ_SCHEMA"]
+           "register_ledger", "register_supervisor", "register_fleet",
+           "fleet_monitor", "heartbeat", "health", "statusz", "reset",
+           "STATUSZ_SCHEMA"]
 
 # the /statusz contract version, the JAX package's
 STATUSZ_SCHEMA = "mxstatusz.v1"
@@ -45,6 +48,7 @@ _registries = weakref.WeakSet()
 _trainers = weakref.WeakSet()
 _ledgers = weakref.WeakSet()    # goodput StepLedgers (obs.goodput)
 _supervisors = weakref.WeakSet()   # restart supervisors
+_fleet = weakref.WeakSet()      # FleetMonitors (obs.fleet)
 _heartbeats = {}                # rank -> wall time of last beat
 
 
@@ -75,6 +79,19 @@ def register_supervisor(supervisor):
     _supervisors.add(supervisor)
 
 
+def register_fleet(monitor):
+    _fleet.add(monitor)
+
+
+def fleet_monitor():
+    """The newest registered FleetMonitor (``/alertz`` reads it), or
+    None when this process runs no fleet plane."""
+    best = None
+    for m in list(_fleet):
+        best = m
+    return best
+
+
 def heartbeat(rank=None):
     """One liveness beat (the trainer loop calls this every step)."""
     _heartbeats[_env_int("MXNET_TPU_PROC_ID") if rank is None
@@ -88,6 +105,7 @@ def reset():
     _trainers.clear()
     _ledgers.clear()
     _supervisors.clear()
+    _fleet.clear()
     _heartbeats.clear()
 
 
@@ -159,6 +177,13 @@ def statusz():
             goodput = win       # the newest registered ledger wins
     swap_ev = reg.get("serving.swap")
     occupancy = reg.get("serving.batch_occupancy")
+    fleet_row = None
+    mon = fleet_monitor()
+    if mon is not None:
+        try:
+            fleet_row = mon.fleet_row()
+        except Exception:       # noqa: BLE001 -- a board never raises
+            fleet_row = None
     served = reg.get("serving.served_step")
     published = reg.get("train_loop.published_step")
     ready, reasons = health()
@@ -184,5 +209,5 @@ def statusz():
         "numerics": _numerics.status_row(),
         "memory": _memory.status_row(),
         "heartbeats": dict(_heartbeats),
-        "fleet": None,
+        "fleet": fleet_row,
     }

@@ -229,8 +229,10 @@ class _StepScalars:
 class TrainStep:
     def __init__(self, block, loss_fn, trainer, mesh=None, batch_axis=0):
         if mesh is not None:
-            raise MXNetError("TrainStep: the port runs on one device; "
-                             "meshes are not ported yet")
+            raise MXNetError("TrainStep runs on one device: meshes, the "
+                             "SPMD half of the multi-device slice (ROADMAP "
+                             "item 9b), are not ported; multi-process data "
+                             "parallelism is Trainer(kvstore='dist_sync')")
         self._block = block
         self._loss_fn = loss_fn
         self._trainer = trainer

@@ -25,10 +25,13 @@ elementwise_fusion  arithmetic, compare, select and reduce ops (aten's
 other               everything else
 ==================  ==================================================
 
-Flops are ``torch.utils.flop_counter``'s (the matrix and convolution
-products; elementwise ops count none), bytes are each op's tensor
-operands plus its outputs; a view moves no bytes and an ``empty``
-writes none.  Hand kernels launch through ``ctypes`` and never reach
+Flops are ``torch.utils.flop_counter``'s for the matrix products
+(elementwise ops count none).  A convolution and its two gradients are
+charged as XLA charges them: only the kernel taps whose input index
+falls inside the unpadded input do work (:func:`conv_flops`; the flop
+counter would charge every tap, those in the padding too).  Bytes
+are each op's tensor operands plus its outputs; a view moves no bytes
+and an ``empty`` writes none.  Hand kernels launch through ``ctypes`` and never reach
 the dispatcher: their launchers report them through
 :func:`~mxnet_tpu_torch.kernels.registry.count_launch`, charged here at
 their cost functions (:mod:`mxnet_tpu_torch.kernels.costs`).  On the
@@ -50,7 +53,8 @@ import torch
 from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _get_current_dispatch_mode_stack)
 
-__all__ = ["CATEGORIES", "Walk", "category_of", "current_walk"]
+__all__ = ["CATEGORIES", "Walk", "category_of", "conv_flops",
+           "current_walk", "in_bounds_taps"]
 
 CATEGORIES = ("conv_dot", "collective", "transpose_layout",
               "elementwise_fusion", "other")
@@ -129,6 +133,61 @@ def _nbytes(tensors):
 
 
 _flop_registry = None
+
+
+def in_bounds_taps(size, kernel, stride, padding, dilation, out):
+    """Pairs ``(output position, kernel tap)`` along one spatial axis
+    whose input index ``o * stride - padding + k * dilation`` lies in
+    ``[0, size)``: for each tap, the output positions between the first
+    and the last that land inside, counted in closed form."""
+    total = 0
+    for k in range(kernel):
+        off = k * dilation - padding
+        lo = max(0, -(off // stride))
+        hi = min(out - 1, (size - 1 - off) // stride)
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def conv_flops(x_shape, w_shape, out_shape, stride, padding, dilation):
+    """Flops of one (non-transposed) convolution charging only in-bounds
+    taps: 2 x batch x output channels x input channels a group x the
+    product over spatial axes of :func:`in_bounds_taps`.  Either
+    gradient of the convolution does the same products."""
+    spatial = len(w_shape) - 2
+    stride, padding, dilation = (
+        list(v) * spatial if len(v) == 1 else list(v)
+        for v in (stride, padding, dilation))
+    taps = 1
+    for i in range(spatial):
+        taps *= in_bounds_taps(x_shape[2 + i], w_shape[2 + i], stride[i],
+                               padding[i], dilation[i], out_shape[2 + i])
+    return 2 * x_shape[0] * w_shape[0] * w_shape[1] * taps
+
+
+def _conv_op_flops(base, args, out):
+    """In-bounds flops of ``convolution``/``_convolution`` (forward) and
+    ``convolution_backward`` (each gradient its ``output_mask`` asks
+    for), or None for a transposed convolution (left to the flop
+    counter)."""
+    if base == "convolution_backward":
+        grad_out, x, w = args[0], args[1], args[2]
+        stride, padding, dilation, transposed = args[4:8]
+        mask = args[10]
+        if transposed:
+            return None
+        one = conv_flops(x.shape, w.shape, grad_out.shape, stride,
+                         padding, dilation)
+        return one * (int(bool(mask[0])) + int(bool(mask[1])))
+    x, w = args[0], args[1]
+    stride, padding, dilation, transposed = args[3:7]
+    if transposed:
+        return None
+    return conv_flops(x.shape, w.shape, out.shape, stride, padding,
+                      dilation)
+
+
+_CONV_OPS = ("convolution", "_convolution", "convolution_backward")
 
 
 def _flop_fn(packet):
@@ -225,10 +284,13 @@ class Walk(TorchDispatchMode):
             return out
         base = func._schema.name.rpartition("::")[2]
         cat = category_of(func)
-        flops = 0
-        fn = _flop_fn(func._overloadpacket)
-        if fn is not None:
-            flops = int(fn(*args, **kwargs, out_val=out))
+        flops = _conv_op_flops(base, args, out) if base in _CONV_OPS \
+            and not kwargs else None
+        if flops is None:
+            flops = 0
+            fn = _flop_fn(func._overloadpacket)
+            if fn is not None:
+                flops = int(fn(*args, **kwargs, out_val=out))
         outs = _tensors(out, [])
         if base in _FREE or getattr(func, "is_view", False):
             nbytes = 0

@@ -30,14 +30,15 @@ marks its window publish-guarded, ``close()`` flushes the tail window),
 the leak sentinel likewise (``MXNET_TPU_MEMORY_WATCH=1``), and the
 ``memory.leak`` chaos point before each step's forward.
 
-One process: the JAX trainer beats a cross-process liveness lease each
-step and can train past a publish aborted by a rank failure
-(``on_publish_error="continue"``); both wait for the multi-device slice
-(ROADMAP item 9), and a multi-process launch raises.
+Multi-process runs: every rank runs the same loop; the trainer beats
+this rank's liveness lease every step (``distributed.beat_lease``, what
+barrier attribution reads to call a missing rank *presumed dead*; a
+single process binds no beater and pays one attribute check), each
+publish is a sharded save that all ranks take part in, and
+``on_publish_error`` sets the policy when it aborts on a rank failure.
 """
 from __future__ import annotations
 
-import os
 import threading
 import time
 import warnings
@@ -58,18 +59,6 @@ def _manager(checkpoint):
         else CheckpointManager(checkpoint)
 
 
-def _refuse_unported():
-    """Raise for the part of the JAX loop the port does not have."""
-    try:
-        procs = int(os.environ.get("MXNET_TPU_NUM_PROCS", "1") or 1)
-    except ValueError:
-        procs = 1
-    if procs > 1:
-        raise MXNetError("ContinuousTrainer: a multi-process loop (its "
-                         "liveness lease, rank-failure publishes) waits "
-                         "for the multi-device slice, ROADMAP item 9")
-
-
 class ContinuousTrainer:
     """Train continuously and publish checkpoints for a serving watcher.
 
@@ -85,10 +74,14 @@ class ContinuousTrainer:
     ``data`` is either a fixed ``(x, y)`` pair or a callable
     ``step -> (x, y)``.  ``handler`` (a ``preemption.PreemptionHandler``)
     is polled at every loop boundary so SIGTERM lands a consistent save
-    and stops the loop.  ``on_publish_error`` is the JAX package's
-    policy for a publish aborted by a rank failure: ``"raise"`` or
-    ``"continue"``; one process has no rank failures, so every publish
-    error raises.
+    and stops the loop.  ``on_publish_error`` sets the policy for a
+    publish aborted by a rank failure
+    (:class:`~mxnet_tpu_torch.distributed.RankFailure`): ``"raise"``
+    (the default) surfaces the typed error -- the exit the restart
+    supervisor relaunches the world on -- while ``"continue"`` warns and
+    trains past the failed publish (the abort already swept its staging
+    and counted ``checkpoint.commit_aborted``).  Any other publish error
+    raises.
     """
 
     def __init__(self, block, trainer, loss_fn, data, manager,
@@ -106,8 +99,9 @@ class ContinuousTrainer:
             raise MXNetError("ContinuousTrainer: on_publish_error must "
                              "be 'raise' or 'continue', got %r"
                              % (on_publish_error,))
-        _refuse_unported()
         self._on_publish_error = on_publish_error
+        from ..distributed import lease_beater
+        self._lease_beat = lease_beater()   # None single-process
         self.handler = handler
         self._lock = _sync.Lock(name="serving.train_loop")
         self._stop = _sync.Event(name="serving.train_loop.stop")
@@ -205,6 +199,10 @@ class ContinuousTrainer:
             # liveness beat for statusz: a stale heartbeat means a
             # wedged loop even when every thread is alive
             _obs.status.heartbeat()
+            if self._lease_beat is not None:
+                # the cross-process twin: the store lease barrier
+                # attribution reads to presume a rank dead
+                self._lease_beat()
         return last
 
     def publish(self):
@@ -218,6 +216,19 @@ class ContinuousTrainer:
         try:
             self.manager.save_training(step, self.block, self.trainer,
                                        metadata={"step": step})
+        except Exception as e:
+            from ..distributed import RankFailure
+            if self._on_publish_error == "continue" \
+                    and isinstance(e, RankFailure):
+                # the abort already swept its staging and counted
+                # checkpoint.commit_aborted; the previous published
+                # step keeps serving and training goes on
+                warnings.warn(
+                    "publish of step %d aborted on a rank failure "
+                    "(%s); continuing past it" % (step, e),
+                    RuntimeWarning, stacklevel=2)
+                return None
+            raise
         finally:
             if sp is not None:
                 _obs.end_span(sp)

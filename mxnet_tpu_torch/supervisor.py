@@ -16,11 +16,16 @@ one *generation* and keeps the work alive across a worker's death:
    while a generation is down or the budget is spent
    (``obs.status.register_supervisor``).
 
-The supervisor only launches and watches processes; workers that
-rendezvous over ``torch.distributed`` wait for the multi-device slice
-(ROADMAP item 9).  Each worker gets the JAX package's launch variables
+Each worker gets the JAX package's launch variables
 (``MXNET_TPU_COORDINATOR``, ``MXNET_TPU_NUM_PROCS``,
-``MXNET_TPU_PROC_ID``, ``MXNET_TPU_GENERATION``).
+``MXNET_TPU_PROC_ID``, ``MXNET_TPU_GENERATION``) and joins its
+generation's world with
+:func:`~mxnet_tpu_torch.distributed.distributed_init`: rank 0 hosts the
+generation's store at the fresh coordinator port, so nothing of a dead
+generation's rendezvous outlives it.  Set ``grace_s`` above
+``MXNET_TPU_DIST_BARRIER_TIMEOUT_MS`` so the survivors' logs carry
+their typed ``BarrierTimeout``.  ``python -m mxnet_tpu_torch.launch -n N
+--supervise`` runs this supervisor from the command line.
 
 Telemetry: ``supervisor.restarts`` / ``supervisor.generation`` /
 ``supervisor.restart`` / ``supervisor.exhausted``.

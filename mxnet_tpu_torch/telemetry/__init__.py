@@ -13,8 +13,9 @@ instrumented hot path pays exactly ONE module-attribute flag check
 
 Sinks: a JSONL run log (``MXNET_TPU_TELEMETRY_JSONL=/path`` or
 ``attach_jsonl(path)``), Prometheus text exposition (``prom_dump()``),
-and a console summary table (``summary()``).  The JAX package's offline
-CLI (``python -m mxnet_tpu.telemetry``) is not ported yet.
+and a console summary table (``summary()``).  The offline CLI,
+``python -m mxnet_tpu_torch.telemetry`` (``mxtelemetry``: ``summarize``,
+``blackbox``, ``fleet``), is :mod:`.cli`.
 """
 from __future__ import annotations
 

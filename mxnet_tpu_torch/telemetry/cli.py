@@ -12,12 +12,13 @@ Subcommands:
   -- a skew instrument for multi-process runs.
 - ``blackbox crash.bbox`` -- render a flight-recorder ring
   (``mx.obs.flight``): the final records before the process died.
-- ``fleet <endpoints-dir | url...>`` -- the fleet plane's scrape,
-  which the port does not have yet (ROADMAP item 8b): it raises
-  :class:`~mxnet_tpu_torch.base.MXNetError` saying so.
+- ``fleet <endpoints-dir | url...>`` -- scrape the live fleet
+  (``obs.fleet``): the per-replica table, pooled SLO aggregates and the
+  alert state, the JAX CLI's text for the same snapshots.
 
 Exit 0 on success with ``--json`` for machine-readable output, exit 1
-when the log is missing/empty, exit 2 on usage errors.
+when the log is missing/empty -- and, for ``fleet``, while ANY alert
+fires or no replica answered -- exit 2 on usage errors.
 """
 from __future__ import annotations
 
@@ -611,15 +612,49 @@ def _main_blackbox(args):
 
 
 def _main_fleet(args):
-    """``mxtelemetry fleet``: the fleet plane (the fleet monitor that
-    polls several processes' obs servers, its aggregation and alert
-    engine) is not ported yet."""
-    from ..base import MXNetError
-    raise MXNetError("mxtelemetry fleet: the fleet plane (FleetMonitor, "
-                     "alerts, the fleet_* hooks) is not ported yet "
-                     "(ROADMAP item 8b); each process's own obs server "
-                     "(obs.serve) answers /healthz, /metrics and "
-                     "/statusz")
+    """``mxtelemetry fleet``: poll the fleet ``--rounds`` times and
+    render the table + alerts.  Exit 0 healthy, 1 while ANY alert
+    fires (the pageable condition) or when nothing was scrapeable, 2 on
+    usage errors."""
+    import os as _os
+    import time as _time
+    from ..obs.fleet import FleetMonitor
+    dirs = [s for s in args.source if not s.startswith("http")]
+    urls = [s for s in args.source if s.startswith("http")]
+    if dirs and urls:
+        print("fleet: mixing an endpoints dir and URLs is ambiguous; "
+              "pass one or the other", file=sys.stderr)
+        return 2
+    if len(dirs) > 1:
+        print("fleet: exactly one endpoints directory", file=sys.stderr)
+        return 2
+    if dirs and not _os.path.isdir(dirs[0]):
+        print("fleet: %s is not a directory" % dirs[0], file=sys.stderr)
+        return 2
+    mon = FleetMonitor(dirs[0] if dirs else urls,
+                       scrape_ms=args.interval_ms)
+    try:
+        rounds = max(int(args.rounds), 1)
+        for i in range(rounds):
+            if i:
+                _time.sleep(mon.scrape_s)
+            snap = mon.poll_once()
+        if args.as_json:
+            print(json.dumps({"fleet": snap,
+                              "alerts": mon.engine.alertz()},
+                             indent=2, sort_keys=True, default=str))
+        else:
+            print(mon.table())
+        if mon.engine.firing():
+            return 1
+        if not any(r["state"] in ("ok", "init")
+                   for r in snap["replicas"]):
+            print("fleet: no scrapeable replica in %s"
+                  % " ".join(args.source), file=sys.stderr)
+            return 1
+        return 0
+    finally:
+        mon.close()
 
 
 def main(argv=None) -> int:

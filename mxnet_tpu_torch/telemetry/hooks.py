@@ -14,14 +14,13 @@ dashboard or alert written for one package reads the other.
 
 The hooks ported are those of the modules the port has: the serving
 and decode tiers, the KV cache, checkpoints, the always-on loop, the
-trainer, AMP, the numerics sentinel, the sync layer, chaos, preemption
-and the single-process ops plane (op dispatch and host syncs, graph
+trainer, AMP, the numerics sentinel, the sync layer, chaos, preemption,
+the single-process ops plane (op dispatch and host syncs, graph
 warm-ups and captures, the data loader and device feed, the leak
 sentinel, profiling, the supervisor, the goodput ledger and the
-environment-health gauges).  :data:`INSTRUMENTS` keeps the JAX
-catalogue's entries of the instruments they write.  The kvstore and
-cross-process hooks wait for the multi-device slice, the fleet hooks
-for the fleet plane.
+environment-health gauges), the kvstore, the cross-process collectives
+and rank failures, and the fleet plane.  :data:`INSTRUMENTS` keeps the
+JAX catalogue's entries of the instruments they write.
 """
 from __future__ import annotations
 
@@ -85,6 +84,14 @@ __all__ = [
     "goodput_regression",
     "goodput_env_degraded",
     "env_health",
+    "kv_op",
+    "dist_collective",
+    "dist_rank_failure",
+    "fleet_scrape",
+    "fleet_replica_down",
+    "fleet_round",
+    "fleet_alert",
+    "fleet_alerts_firing",
 ]
 
 
@@ -591,6 +598,94 @@ def env_health(dispatch_roundtrip_us, h2d_mb_per_s=None):
 # the instrument catalogue of the hooks above
 # ----------------------------------------------------------------------
 
+def kv_op(verb, nbytes, seconds=None):
+    """One kvstore verb (push/pull/pushpull) and its payload bytes."""
+    reg = _registry()
+    reg.counter("kvstore." + verb).inc()
+    if nbytes:
+        reg.counter("kvstore.bytes").inc(int(nbytes))
+    if seconds is not None:
+        reg.timer("kvstore.time").observe(seconds, verb=verb)
+
+
+def dist_collective(kind, nbytes, ntensors=1):
+    """One host-side cross-process collective (distributed.py); the
+    bucketed wrappers coalesce N tensors into one call --
+    ``dist.collectives`` vs ``dist.tensors_coalesced`` is the
+    call-count drop."""
+    reg = _registry()
+    reg.counter("dist.collectives").inc()
+    reg.counter("dist." + kind).inc()
+    if nbytes:
+        reg.counter("dist.bytes").inc(int(nbytes))
+    if ntensors:
+        reg.counter("dist.tensors_coalesced").inc(int(ntensors))
+
+
+def dist_rank_failure(kind, tag, ranks, elapsed_s=None):
+    """A host collective or barrier gave up on peer rank(s) -- the
+    typed RankFailure/BarrierTimeout surface (distributed.py), never a
+    raw store or gloo error.  ``kind``: barrier/collective/abort/
+    store."""
+    reg = _registry()
+    reg.counter("dist.rank_failures").inc()
+    reg.event("dist.rank_failure").emit(kind=kind, tag=tag,
+                                        ranks=list(ranks),
+                                        elapsed_s=elapsed_s)
+
+
+def fleet_scrape(ok):
+    """One replica scrape attempt by a FleetMonitor finished."""
+    reg = _registry()
+    reg.counter("fleet.scrapes").inc()
+    if not ok:
+        reg.counter("fleet.scrape_failures").inc()
+
+
+def fleet_replica_down(rank, generation, error):
+    """A replica flipped to presumed-down (dead pid, stale past TTL,
+    or scrape failures outliving the lease) -- the event NAMES the
+    rank and generation so the page is actionable."""
+    reg = _registry()
+    reg.counter("fleet.replica_downs").inc()
+    reg.event("fleet.replica_down").emit(rank=rank,
+                                         generation=generation,
+                                         error=error)
+
+
+def fleet_round(agg):
+    """One fleet aggregation round: publish the pooled view as gauges
+    (obs.fleet.FleetMonitor)."""
+    reg = _registry()
+    reg.gauge("fleet.replicas").set(agg["replicas"])
+    reg.gauge("fleet.replicas_down").set(agg["down"])
+    if agg.get("qps") is not None:
+        reg.gauge("fleet.qps").set(agg["qps"])
+    reg.gauge("fleet.queue_depth").set(agg["queue_depth"])
+    if agg.get("shed_ratio") is not None:
+        reg.gauge("fleet.shed_ratio").set(agg["shed_ratio"])
+    if agg.get("error_ratio") is not None:
+        reg.gauge("fleet.error_ratio").set(agg["error_ratio"])
+    lat = agg.get("latency_ms") or {}
+    for q in ("p50", "p95", "p99"):
+        if lat.get(q) is not None:
+            reg.gauge("fleet.latency_%s_ms" % q).set(lat[q])
+    skew = (agg.get("served_step") or {}).get("skew")
+    if skew is not None:
+        reg.gauge("fleet.served_step_skew").set(skew)
+
+
+def fleet_alert(rule, state, reason, value):
+    """One alert state transition (obs.alerts.AlertEngine)."""
+    _registry().event("fleet.alert").emit(rule=rule, state=state,
+                                          reason=reason, value=value)
+
+
+def fleet_alerts_firing(n):
+    """Currently-firing alert count (the pageable surface)."""
+    _registry().gauge("fleet.alerts_firing").set(n)
+
+
 class InstrumentInfo:
     """One catalogued instrument: (name, kind, subsystem, since-PR,
     meaning).  ``name`` may carry a ``<placeholder>`` segment for
@@ -912,6 +1007,67 @@ INSTRUMENTS = [
         "bench env-health host->device bandwidth"),
     _ii("env.health", "event", "bench", 13,
         "one env-health probe; payload carries both numbers"),
+    _ii("kvstore.push", "counter", "kvstore", 2,
+        "kvstore push calls"),
+    _ii("kvstore.pull", "counter", "kvstore", 2,
+        "kvstore pull calls"),
+    _ii("kvstore.pushpull", "counter", "kvstore", 2,
+        "kvstore fused pushpull calls"),
+    _ii("kvstore.bytes", "counter", "kvstore", 2,
+        "gradient bytes moved through kvstore (ZERO on the SPMD hot "
+        "path -- gradients reduce in-graph)"),
+    _ii("kvstore.time", "timer", "kvstore", 2,
+        "wall time in pushpull (dispatch side)"),
+    _ii("dist.collectives", "counter", "distributed", 9,
+        "host-side cross-process collectives issued"),
+    _ii("dist.<kind>", "counter", "distributed", 9,
+        "per-kind collective count (allreduce/broadcast/...)"),
+    _ii("dist.bytes", "counter", "distributed", 9,
+        "bytes moved by host collectives"),
+    _ii("dist.tensors_coalesced", "counter", "distributed", 9,
+        "tensors folded into bucketed collectives (vs dist.collectives "
+        "= the coalescing win)"),
+    _ii("dist.rank_failures", "counter", "distributed", 15,
+        "host collectives/barriers that gave up on peer rank(s) -- "
+        "surfaced as typed RankFailure/BarrierTimeout naming the "
+        "rank, never a raw jaxlib deadline"),
+    _ii("dist.rank_failure", "event", "distributed", 15,
+        "one attributed failure; payload carries kind/tag/ranks/"
+        "elapsed"),
+    _ii("fleet.scrapes", "counter", "fleet", 17,
+        "replica scrape attempts by a FleetMonitor"),
+    _ii("fleet.scrape_failures", "counter", "fleet", 17,
+        "scrape attempts that failed every retry"),
+    _ii("fleet.replicas", "gauge", "fleet", 17,
+        "replicas currently tracked by the monitor"),
+    _ii("fleet.replicas_down", "gauge", "fleet", 17,
+        "replicas presumed down (dead pid / stale past TTL)"),
+    _ii("fleet.replica_downs", "counter", "fleet", 17,
+        "down transitions observed"),
+    _ii("fleet.replica_down", "event", "fleet", 17,
+        "one down transition; payload NAMES rank + generation + the "
+        "last scrape error"),
+    _ii("fleet.qps", "gauge", "fleet", 17,
+        "pooled accepted-request rate over the rolling window"),
+    _ii("fleet.queue_depth", "gauge", "fleet", 17,
+        "summed request-queue depth across up replicas"),
+    _ii("fleet.shed_ratio", "gauge", "fleet", 17,
+        "shed / (accepted + shed) over the rolling window"),
+    _ii("fleet.error_ratio", "gauge", "fleet", 17,
+        "(errors + timeouts) / responses over the rolling window"),
+    _ii("fleet.latency_<q>_ms", "gauge", "fleet", 17,
+        "fleet latency percentile (p50/p95/p99) from MERGED Timer "
+        "histogram buckets across replicas -- never an average of "
+        "per-replica percentiles"),
+    _ii("fleet.served_step_skew", "gauge", "fleet", 17,
+        "max - min served checkpoint step across up replicas"),
+    _ii("fleet.alerts_firing", "gauge", "fleet", 17,
+        "currently-firing SLO alerts (page while > 0; mxtelemetry "
+        "fleet exits 1)"),
+    _ii("fleet.alert", "event", "fleet", 17,
+        "one alert state transition (pending/firing/resolved/"
+        "cancelled); payload carries rule + reason naming the "
+        "replica"),
 ]
 
 

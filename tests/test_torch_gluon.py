@@ -397,11 +397,12 @@ def test_trainer_keeps_write_semantics():
         out.sum().backward()
         tr.step(1)
     assert net.weight.data()._data.item() == pytest.approx(-1.0)
-    # the default single-process kvstore is accepted; a multi-process one
-    # is not ported yet
+    # the default single-process kvstore is accepted; a multi-process
+    # one outside a world is a world of one process
     assert tr._kvstore.type == "device"
-    with pytest.raises(MXNetError, match="item 9"):
-        gluon.Trainer(net.collect_params(), "sgd", kvstore="dist_sync")
+    dist_tr = gluon.Trainer(net.collect_params(), "sgd",
+                            kvstore="dist_sync")
+    assert (dist_tr._kvstore.rank, dist_tr._kvstore.num_workers) == (0, 1)
 
 
 def test_initialize_raises_without_cuda(monkeypatch):

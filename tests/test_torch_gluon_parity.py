@@ -149,10 +149,21 @@ def test_trainer_sgd_matches_the_grouped_jax_update(monkeypatch, momentum):
 
 
 def test_trainer_refuses_multi_process_kvstores():
-    _jnet, net = _pair()
-    for kind in ("dist_sync", "dist_device_sync", "dist_async"):
-        with pytest.raises(MXNetError, match="item 9"):
-            gluon.Trainer(net.collect_params(), "sgd", kvstore=kind)
+    """The multi-process stores are ported (tests/test_torch_kvstore_
+    dist.py runs them across processes); outside a world each trains
+    like the JAX package's: three steps equal the default store's."""
+    jnet, net = _pair()
+    tr = gluon.Trainer(net.collect_params(), "sgd", {"learning_rate": 0.1},
+                       kvstore="dist_sync")
+    jtr = jgluon.Trainer(jnet.collect_params(), "sgd",
+                         {"learning_rate": 0.1}, kvstore="dist_sync")
+    _train(jmx, jnet, jtr, steps=3)
+    _train(tmx, net, tr, steps=3)
+    want, got = _weights(jnet), _weights(net)
+    for n in want:
+        np.testing.assert_allclose(got[n], want[n], err_msg=n, **TOL)
+    with pytest.raises(MXNetError, match="unknown kvstore"):
+        gluon.Trainer(net.collect_params(), "sgd", kvstore="dist_nope")
 
 
 def test_train_step_takes_a_trainer_with_the_default_kvstore():

@@ -359,7 +359,7 @@ def test_the_ops_plane_loads_neither_jax_nor_mxnet_tpu(tmp_path):
 def test_env_registry_defaults_and_typed_reads(monkeypatch):
     from mxnet_tpu import env as jax_env
     from mxnet_tpu_torch import env
-    assert len(env.REGISTRY) == 41
+    assert len(env.REGISTRY) == 46
     for name, var in env.REGISTRY.items():
         assert var.default == jax_env.REGISTRY[name].default, name
         assert var.type is jax_env.REGISTRY[name].type, name

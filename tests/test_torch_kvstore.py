@@ -143,9 +143,17 @@ def test_two_bit_compression_keeps_its_residual_over_three_pushes():
 
 
 def test_multi_process_stores_and_row_sparse_pull_are_refused():
-    for name in ("dist_sync", "dist_device_sync", "dist_async", "horovod"):
-        with pytest.raises(MXNetError, match="item 9"):
-            tkv.create(name)
+    """The multi-process stores are ported (their cross-process cases
+    are in tests/test_torch_kvstore_dist.py); in one process they are a
+    world of one, as the JAX package's are.  row_sparse_pull is not
+    ported."""
+    for name in ("dist_sync", "dist_device_sync", "dist_async", "dist",
+                 "horovod"):
+        kv, jstore = tkv.create(name), jkv.create(name)
+        assert (kv.rank, kv.num_workers) == \
+            (jstore.rank, jstore.num_workers) == (0, 1)
+        assert kv._is_dist == jstore._is_dist
+        kv.barrier()
     with pytest.raises(MXNetError, match="unknown kvstore"):
         tkv.create("nope")
     kv = tkv.create("local")

@@ -11,8 +11,9 @@ with profiling on; then:
   estimate that misses the backend's convolution calls, so the JAX
   side's convolution/dot flops are XLA's executable total less the
   JAX report's own estimates of everything that is not a convolution
-  or dot (no padding: XLA counts a padded tap as no work, the flop
-  counter counts every tap);
+  or dot.  XLA counts a tap that falls in the padding as no work, and
+  so does the port: a second net, a 3x3 pad-1 convolution then a
+  strided 3x3 pad-1 one, holds the padded case;
 - ``roofline.build`` of each package on the same report, step time and
   peaks gives equal dicts;
 - ``mxprof report`` and ``mxprof diff`` print the same text from
@@ -72,17 +73,37 @@ def _exact_conv_dot_flops(train):
     return 2 * conv1 + 3 * conv2 + 3 * dense
 
 
-@pytest.fixture(scope="module")
-def reports():
-    """Both packages' reports of the step and the forward, computed
-    once per module."""
+def _padded_layers(nn):
+    net = nn.HybridSequential()
+    net.add(nn.Conv2D(64, 3, padding=1, in_channels=64),
+            nn.Activation("relu"),
+            nn.Conv2D(64, 3, strides=2, padding=1, in_channels=64),
+            nn.Activation("relu"), nn.Flatten(),
+            nn.Dense(CLASSES, in_units=64 * 5 * 5))
+    return net
+
+
+def _padded_conv_dot_flops(train):
+    """The padded net's products, each 3x3 pad-1 layer charged only at
+    its in-bounds taps: 28 of the 30 (output, tap) pairs along an axis
+    of the 10 -> 10 layer, 14 of the 15 of the strided 10 -> 5 one."""
+    n = SHAPE[0]
+    conv1 = n * 64 * 2 * 64 * 28 * 28
+    conv2 = n * 64 * 2 * 64 * 14 * 14
+    dense = n * 2 * 64 * 25 * CLASSES
+    if not train:
+        return conv1 + conv2 + dense
+    return 2 * conv1 + 3 * conv2 + 3 * dense
+
+
+def _both_reports(layers):
     x, y = _data()
     jprof.reset()
     profiling.reset()
     jprof.enable()
     profiling.enable()
     try:
-        jnet = _layers(jgluon.nn)
+        jnet = layers(jgluon.nn)
         jnet.initialize(ctx=jmx.cpu())
         jtr = jgluon.Trainer(jnet.collect_params(), "sgd", SGD,
                              kvstore=None)
@@ -93,7 +114,7 @@ def reports():
         jnet(jmx.nd.array(x))
         jreps = {r["label"]: r for r in jprof.reports()}
         with mx.cpu():
-            net = _layers(gluon.nn)
+            net = layers(gluon.nn)
             net.initialize(device="cpu")
             tr = gluon.Trainer(net.collect_params(), "sgd", SGD)
             step = parallel.TrainStep(
@@ -110,6 +131,19 @@ def reports():
         profiling.reset()
     return {"jax": jreps, "port": preps, "jax_combined": jcomb,
             "port_combined": pcomb, "step": step}
+
+
+@pytest.fixture(scope="module")
+def reports():
+    """Both packages' reports of the step and the forward, computed
+    once per module."""
+    return _both_reports(_layers)
+
+
+@pytest.fixture(scope="module")
+def padded_reports():
+    """The same of the padded net."""
+    return _both_reports(_padded_layers)
 
 
 def _jax_conv_dot(rep):
@@ -144,6 +178,31 @@ def test_report_keys_and_conv_dot_flops_match_the_jax_package(reports,
     assert sum(c["bytes"] for c in prep["categories"].values()) == \
         prep["totals"]["bytes_accessed"]
     assert len(prep["fingerprint"]) == 16
+
+
+@pytest.mark.parametrize("label", LABELS)
+def test_padded_conv_dot_flops_charge_in_bounds_taps_like_xla(
+        padded_reports, label):
+    jrep = padded_reports["jax"][label]
+    prep = padded_reports["port"][label]
+    got = prep["categories"]["conv_dot"]["flops"]
+    assert got == _padded_conv_dot_flops(label.startswith("train"))
+    want = _jax_conv_dot(jrep)
+    assert abs(got - want) <= 0.01 * want, (got, want)
+    assert sum(c["flops"] for c in prep["categories"].values()) == \
+        prep["totals"]["flops"]
+
+
+def test_in_bounds_taps_against_enumeration():
+    from mxnet_tpu_torch.profiling import aten
+    for size, k, s, p, d in [(10, 3, 1, 1, 1), (10, 3, 2, 1, 1),
+                             (7, 7, 2, 3, 1), (224, 7, 2, 3, 1),
+                             (9, 3, 1, 2, 2), (5, 1, 1, 0, 1),
+                             (4, 5, 3, 4, 1)]:
+        out = (size + 2 * p - d * (k - 1) - 1) // s + 1
+        want = sum(1 for o in range(out) for t in range(k)
+                   if 0 <= o * s - p + t * d < size)
+        assert aten.in_bounds_taps(size, k, s, p, d, out) == want
 
 
 @pytest.mark.parametrize("which", ["jax", "port"])

@@ -101,6 +101,21 @@ HOOK_CALLS = [
     ("goodput_regression", ("host_sync", 0.05, 0.01, 5.0, 3)),
     ("goodput_env_degraded", (4, 20000.0)),
     ("env_health", (120.0,), {"h2d_mb_per_s": 9000.0}),
+    ("kv_op", ("push", 4096)),
+    ("kv_op", ("pull", 4096)),
+    ("kv_op", ("pushpull", 8192, 0.002)),
+    ("dist_collective", ("allreduce", 4096, 3)),
+    ("dist_rank_failure", ("barrier", "ckpt_written", [1], 6.0)),
+    ("fleet_scrape", (True,)),
+    ("fleet_scrape", (False,)),
+    ("fleet_replica_down", (1, 0, "refused")),
+    ("fleet_round", ({"replicas": 2, "down": 1, "qps": 10.0,
+                      "queue_depth": 3, "shed_ratio": 0.1,
+                      "error_ratio": 0.0,
+                      "latency_ms": {"p50": 1.0, "p95": 2.0, "p99": 4.0},
+                      "served_step": {"skew": 2}},)),
+    ("fleet_alert", ("replica_down", "firing", "rank 1 down", 1.0)),
+    ("fleet_alerts_firing", (1,)),
 ]
 
 

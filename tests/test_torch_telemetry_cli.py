@@ -3,7 +3,8 @@ files -- a JSONL run log the port wrote (trainer, checkpoints, serving,
 goodput windows and a regression, memory censuses, spans), two rank
 files, a flight-recorder ring the JAX package wrote -- ``summarize``
 (console, ``--json``, ``--prom``, ranks) and ``blackbox`` print the same
-text from both CLIs; ``fleet`` raises naming the fleet plane."""
+text from both CLIs, and so does ``fleet`` over a replica that never
+answers."""
 import json
 
 import pytest
@@ -11,7 +12,7 @@ import pytest
 from mxnet_tpu.obs import flight as jflight
 from mxnet_tpu.telemetry import cli as jcli
 
-from mxnet_tpu_torch import MXNetError, obs, telemetry
+from mxnet_tpu_torch import obs, telemetry
 from mxnet_tpu_torch.obs import goodput
 from mxnet_tpu_torch.telemetry import cli as pcli
 
@@ -117,6 +118,12 @@ def test_blackbox_prints_the_same_text(tmp_path, capsys):
         assert port == jax, argv
 
 
-def test_fleet_names_the_fleet_plane():
-    with pytest.raises(MXNetError, match="item 8b"):
-        pcli.main(["fleet", "http://127.0.0.1:1"])
+def test_fleet_names_the_fleet_plane(capsys):
+    """``fleet`` is ported (tests/test_torch_fleet.py renders live
+    fleets): over a replica that never answers both CLIs print the same
+    table and exit 1, nothing being scrapeable."""
+    argv = ["fleet", "http://127.0.0.1:1", "--rounds", "2",
+            "--interval-ms", "20"]
+    port, jax = _both(argv, capsys)
+    assert port == jax and port[0] == 1, (port, jax)
+    assert "1 replica(s), 0 up / 0 down" in port[1]
