@@ -9,6 +9,7 @@ without the whole smoke run.
     cd <checkout> && python3 <repo>/chip_paths.py hotswap
     cd <checkout> && python3 <repo>/chip_paths.py ops
     cd <checkout> && python3 <repo>/chip_paths.py dist
+    cd <checkout> && python3 <repo>/chip_paths.py symbolic
 
 ``decode`` is ``chip_smoke.main_path`` (GPT-2 small decode serving),
 ``mnist`` is ``mnist_main_path`` (the imperative LeNet loop, then 100
@@ -29,7 +30,10 @@ training: profiled AMP LARS steps, ``mx.profiler``, the observed
 always-on trainer and the supervised crash-restart) and ``dist`` is
 ``dist_phase`` (two ranks training ResNet-50 through ``dist_sync`` under
 the supervisor, one killed and the world relaunched, watched by a
-fleet monitor).  The
+fleet monitor) and ``symbolic`` is ``symbolic_phase`` (phase 19:
+``Module.fit`` of ``examples/module_mnist.py``, the bucketing LSTM
+language model through ``BucketingModule`` and the Gluon word language
+model, with their card-against-CPU oracles).  The
 checkout's own ``chip_smoke`` and package are imported, its kernels
 built, and each path prints its lines as in the smoke run, under the
 same host-read check of every capture -- except ``hotswap``, which runs
@@ -48,7 +52,8 @@ PATHS = {"decode": "main_path", "mnist": "mnist_main_path",
          "pretrain": "bert_pretrain_phase", "densenet": "densenet_phase",
          "input": "imagenet_input_phase", "mnistfeed": "mnist_feed_path",
          "hotswap": ("hotswap_phase", "generative_swap_phase"),
-         "ops": "ops_plane_phase", "dist": "dist_phase"}
+         "ops": "ops_plane_phase", "dist": "dist_phase",
+         "symbolic": "symbolic_phase"}
 UNCHECKED = {"hotswap", "ops", "dist"}  # outside checking_syncs()
 
 

@@ -256,12 +256,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    registry's launches a replayed step; it prints the roofline and the
    MFU against 989 TFLOP/s; ``mxprof report`` renders the first run's
    file and ``mxprof diff`` of the two runs must name no drift.  (b)
-   ``mx.profiler`` over a lead-in and three counted replays of the
-   second run: the dumped Chrome trace's device events, grouped by
-   graph launch, must name the three kernels inside the replayed graph,
-   the counted replays agreeing kernel for kernel, each with every hand
-   kernel's launches a step (the lead-in may only lack records: the
-   tracer drops those it timestamps before the trace's start);
+   ``mx.profiler`` over a lead-in and four replays of the second run:
+   the dumped Chrome trace's device events, grouped by graph launch,
+   must name the three kernels inside the replayed graph, three replays
+   agreeing kernel for kernel (counted), each with every hand kernel's
+   launches a step, and every other replay only lacking records (the
+   tracer drops those it timestamps before the trace's start, and late
+   in a long process some inside the trace);
    ``dumps()`` is printed.
    (c) phase 16's trainer (fp32, batch 32) as a ``ContinuousTrainer``
    without serving, 60 steps publishing every 20, with telemetry into a
@@ -320,6 +321,39 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ranks' first step of generation 1, a scrape round's ms, the alert's
    fire and resolve latencies and each rank's peak memory.  The
    kernels line's ``bn_relu_*`` rows carry ``launches_dist_sync``.
+
+19. the symbolic front end and the recurrent nets, fp32 with TF32 off,
+   random weights from seed 0, token streams Zipf-distributed over
+   10,000 ids from a seed, under the host-read check of phases 1-15.
+   (a) ``examples/module_mnist.py``'s loop: ``Module.fit`` of the
+   784-128-64-10 MLP with ``SoftmaxOutput`` over 2,048 synthetic samples
+   (batch 128, SGD 0.1/0.9, 2 epochs, ``Speedometer(128, 10)``,
+   ``do_checkpoint`` under ``build/``, an eval set of 512); one train
+   graph replayed for every batch but the first; ``Module.load`` of
+   epoch 2 scores the eval set equal to the live module; the validation
+   accuracy at least the JAX example's on the CPU from the same weights
+   and batches less 0.02.  (b) MXNet's bucketing LSTM language model
+   (upstream ``cudnn_lstm_bucketing.py``'s widths: ``Embedding(10000,
+   200)`` -> time-major ``RNN(lstm, 200, 2 layers)`` ->
+   ``FullyConnected(10000)`` -> ``SoftmaxOutput``) through
+   ``BucketingModule.fit``, buckets 10-60 at batch 32, SGD 0.01, wd
+   1e-5, every bucket 6 times: perplexities finite and the second
+   epoch's under the first's, one train graph a bucket replayed for
+   every batch but its first, one shared weight tensor across the
+   buckets.  (c) the Gluon word language model (upstream
+   ``example/gluon/word_language_model``: ``Embedding(10000, 650)`` ->
+   ``LSTM(650, 2 layers, dropout 0.5)`` -> ``Dropout(0.5)`` ->
+   ``Dense(10000)``), hybridized, bptt 35, batch 32, the imperative
+   loop with the global-norm clip and ``Trainer("sgd", lr=20)``, the
+   hidden state carried and detached, 30 steps: losses finite and
+   falling; two replays of one captured training call differ (a new
+   dropout mask each), eval replays equal.  Then the oracles, card
+   against CPU at batch 4: (b) at buckets 10 and 60, (c) with dropout
+   0; the loss within 1e-5 and each gradient within 1e-4 norm-wise, or
+   4x the permuted-batch floor where that is larger.  Each path prints
+   its rate, ms/step, graphs and replays, the device's idle share and
+   peak memory; no hand kernel launches in phase 19 (the kernels line
+   carries ``launches_symbolic``, all 0).
 
 Every path runs from captured CUDA graphs (``mxnet_tpu_torch._capture``),
 the port's counterpart of the JAX package's compiled programs: one
@@ -6150,6 +6184,10 @@ def generative_swap_phase(widths=GPT2_SMALL, max_new=DECODE_MAX_NEW,
 OPS_BATCH = LARS_BATCH             # phase (a): config 5's batch
 OPS_STEPS = 5                      # replays timed after the warm-ups
 OPS_PROFILER_REPLAYS = 3           # counted, after one lead-in replay
+# one more replay traced: late in a long process the tracer may drop a
+# replay's records anywhere in the trace, not only before its start
+# (the lead-in); the counted replays are the complete ones
+OPS_PROFILER_SPARE = 1
 OPS_CONV_TOL = 0.02                # conv_dot flops vs the layer count
 OPS_TRAIN_STEPS = 60               # phase (c): the observed trainer
 OPS_PUBLISH_EVERY = 20
@@ -6253,6 +6291,15 @@ def trace_replays_of(events):
             for ts, corr in launches]
 
 
+def complete_replays(replays):
+    """Of the kernel counts of replays of one graph, the one with the
+    most kernel events (the complete replay: a replay whose records the
+    tracer dropped holds fewer, and only fewer) and every replay equal
+    to it."""
+    full = max(replays, key=lambda k: sum(k.values()), default={})
+    return full, [k for k in replays if k == full]
+
+
 def ops_profiled_run(report_dir, make_net=resnet50_nhwc, batch=OPS_BATCH,
                      image=224, steps=OPS_STEPS, trace_replays=0,
                      sites=BN_RELU_SITES, device="cuda"):
@@ -6265,13 +6312,15 @@ def ops_profiled_run(report_dir, make_net=resnet50_nhwc, batch=OPS_BATCH,
     summing to the totals, and each hand kernel in ``provenance`` with
     the warm-up's launches, equal to the registry's launches a replayed
     step.  With ``trace_replays``, ``mx.profiler`` records that many
-    more replays, after one lead-in replay, and dumps its Chrome trace;
-    its device events, grouped by graph launch, are searched for the
-    three kernels inside the replayed graph.  The counted replays must
-    agree kernel for kernel; the lead-in may only lack kernels (the
-    tracer drops records it timestamps before the trace's start), and
-    what each replay holds is in ``trace_replays``.  Saves the reports
-    under ``report_dir``."""
+    more replays and one spare, after one lead-in replay, and dumps its
+    Chrome trace; its device events, grouped by graph launch, are
+    searched for the three kernels inside the replayed graph.  At least
+    ``trace_replays`` replays after the lead-in must agree kernel for
+    kernel (they are counted); every other replay may only lack kernels
+    (the tracer drops records it timestamps before the trace's start,
+    and late in a long process some inside it), and what each replay
+    holds is in ``trace_per_replay``.  Saves the reports under
+    ``report_dir``."""
     import torch
     from mxnet_tpu_torch import amp, profiler, profiling
     from mxnet_tpu_torch.kernels import registry
@@ -6311,7 +6360,7 @@ def ops_profiled_run(report_dir, make_net=resnet50_nhwc, batch=OPS_BATCH,
                 profiler.set_config(filename=os.path.join(report_dir,
                                                           "trace.json"))
                 profiler.set_state("run")
-                for _ in range(1 + trace_replays):
+                for _ in range(1 + trace_replays + OPS_PROFILER_SPARE):
                     step(x, y)
                 if cuda:
                     torch.cuda.synchronize()
@@ -6377,7 +6426,9 @@ def ops_profiled_run(report_dir, make_net=resnet50_nhwc, batch=OPS_BATCH,
     if trace is not None:
         events = json.load(open(trace))["traceEvents"]
         replays = trace_replays_of(events)
-        counted = [r["kernels"] for r in replays[1:]]
+        full, complete = complete_replays(
+            [r["kernels"] for r in replays[1:]])
+        counted = complete[:trace_replays]
 
         def hand(kernels):
             return {n: sum(c for k, c in kernels.items() if g in k)
@@ -6387,7 +6438,8 @@ def ops_profiled_run(report_dir, make_net=resnet50_nhwc, batch=OPS_BATCH,
         out["trace_device_kernel_events"] = sum(
             1 for e in events if e.get("cat") in ("kernel", "gpu_kernel"))
         out["trace_per_replay"] = [
-            {"lead_in": i == 0, "kernel_events": sum(r["kernels"].values()),
+            {"lead_in": i == 0, "complete": i > 0 and r["kernels"] == full,
+             "kernel_events": sum(r["kernels"].values()),
              "hand_kernel_events": hand(r["kernels"]),
              "launch_to_first_kernel_us": r["launch_to_first_kernel_us"]}
             for i, r in enumerate(replays)]
@@ -6395,25 +6447,24 @@ def ops_profiled_run(report_dir, make_net=resnet50_nhwc, batch=OPS_BATCH,
         out["graph_kernels_in_trace"] = all(found.values())
         out["cachedop_ranges"] = sum(
             1 for e in events if e.get("name", "").startswith("mx.cachedop"))
-        print("mx.profiler dumps() over %d replays:\n%s"
-              % (1 + trace_replays, dumps))
+        traced = 1 + trace_replays + OPS_PROFILER_SPARE
+        print("mx.profiler dumps() over %d replays:\n%s" % (traced, dumps))
         if cuda:
-            check(len(replays) == 1 + trace_replays,
+            check(len(replays) == traced,
                   "the profiler trace holds %d graph launches, want a "
-                  "lead-in and %d counted replays"
-                  % (len(replays), trace_replays))
+                  "lead-in and %d more" % (len(replays), traced - 1))
             check(out["graph_kernels_in_trace"],
                   "the profiler trace of %d replays names the hand "
                   "kernels %s: CUPTI reported no kernel of the replayed "
                   "graph" % (trace_replays, found))
-            check(all(k == counted[0] for k in counted),
-                  "the %d counted replays of one graph differ in their "
-                  "kernel events: %s" % (trace_replays,
-                                         out["trace_per_replay"][1:]))
-            lead = replays[0]["kernels"]
-            check(all(c <= counted[0][k] for k, c in lead.items()),
-                  "the lead-in replay holds kernel events the counted "
-                  "replays lack: %s" % out["trace_per_replay"])
+            check(len(complete) >= trace_replays,
+                  "fewer than %d of the %d replays after the lead-in "
+                  "agree kernel for kernel: %s"
+                  % (trace_replays, traced - 1, out["trace_per_replay"]))
+            check(all(c <= full[k] for r in replays
+                      for k, c in r["kernels"].items()),
+                  "a replay holds kernel events the complete replays "
+                  "lack: %s" % out["trace_per_replay"])
             for name, n in found.items():
                 check(n == trace_replays * prov[name]["launches"],
                       "%s: %d kernel events in the trace of %d replays, "
@@ -7441,6 +7492,721 @@ def dist_phase(make_net=resnet50_nhwc, image=224, batch=DIST_BATCH,
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 19: the symbolic front end and recurrent nets
+# ---------------------------------------------------------------------
+
+# (a) examples/module_mnist.py at its widths
+MODULE_MNIST_SAMPLES = 2048
+MODULE_MNIST_EVAL = 512
+MODULE_MNIST_BATCH = 128
+MODULE_MNIST_EPOCHS = 2
+# the JAX example's validation accuracy on the CPU over the same batches
+# from the same initial weights (module_mnist_run with mxnet_tpu; tests/
+# test_torch_module.py reads it again), and the margin the card may lose
+MODULE_MNIST_JAX_ACCURACY = 0.8046875
+MODULE_MNIST_MARGIN = 0.02
+SYM_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "symbolic-smoke")
+# (b) upstream example/rnn/bucketing/cudnn_lstm_bucketing.py's defaults
+LM_VOCAB = 10000
+LSTM_EMBED = 200
+LSTM_HIDDEN = 200
+LSTM_LAYERS = 2
+LSTM_BUCKETS = (10, 20, 30, 40, 50, 60)
+LSTM_BATCH = 32
+LSTM_BATCHES_PER_BUCKET = 3       # an epoch: 3 batches of each bucket
+LSTM_EPOCHS = 2                   # every bucket trains 6 times
+# (c) upstream example/gluon/word_language_model/train.py's defaults
+WLM_EMBED = 650
+WLM_HIDDEN = 650
+WLM_LAYERS = 2
+WLM_DROPOUT = 0.5
+WLM_BPTT = 35
+WLM_BATCH = 32
+WLM_LR = 20.0
+WLM_CLIP = 0.25
+WLM_STEPS = 30
+SYM_PROFILED_STEPS = 5
+SYM_ORACLE_BATCH = 4
+SYM_ORACLE_BUCKETS = (10, 60)
+# card against CPU, one step at full width (fp32, TF32 off): the loss
+# relative, each gradient norm-wise; a measured permuted-batch floor
+# (two CPU runs summing in another order) larger than these sets 4x it
+SYM_LOSS_LIMIT = 1e-5
+SYM_GRAD_LIMIT = 1e-4
+SYM_FLOOR_FACTOR = 4.0
+
+
+def zipf_tokens(n, seed, vocab=LM_VOCAB):
+    """``n`` token ids drawn from a Zipf law over ``vocab`` ids (the
+    k-th most frequent id with probability proportional to 1/k), as the
+    words of a text corpus fall."""
+    p = 1.0 / np.arange(1, vocab + 1)
+    return np.random.RandomState(seed).choice(vocab, size=n, p=p / p.sum()) \
+        .astype(np.float32)
+
+
+def module_mnist_symbol(sym):
+    """``examples/module_mnist.py``'s MLP: 784-128-64-10."""
+    data = sym.var("data")
+    net = sym.FullyConnected(data, num_hidden=128, name="fc1")
+    net = sym.Activation(net, act_type="relu")
+    net = sym.FullyConnected(net, num_hidden=64, name="fc2")
+    net = sym.Activation(net, act_type="relu")
+    net = sym.FullyConnected(net, num_hidden=10, name="fc3")
+    return sym.SoftmaxOutput(net, name="softmax")
+
+
+def module_mnist_data(n, seed):
+    """``examples/module_mnist.py :: synthetic_mnist``."""
+    centers = np.random.RandomState(42).randn(10, 784).astype(np.float32)
+    rng = np.random.RandomState(seed)
+    y = rng.randint(0, 10, n)
+    x = centers[y] + 0.3 * rng.randn(n, 784).astype(np.float32)
+    return x, y.astype(np.float32)
+
+
+class _StepClock:
+    """A batch-end callback keeping each batch's end time and the
+    running value of the metric."""
+
+    def __init__(self):
+        self.t, self.values = [], []
+
+    def __call__(self, param):
+        self.t.append((param.epoch, time.perf_counter()))
+        self.values.append((param.epoch, param.eval_metric.get()[1]))
+
+    def step_ms(self, epoch):
+        ts = [t for e, t in self.t if e == epoch]
+        return 1e3 * float(np.median(np.diff(ts))) if len(ts) > 1 else None
+
+
+def _busy_share(run, steps, wall_ms):
+    """Under ``torch.profiler`` over ``steps`` calls of ``run()``: the
+    device's busy ms a step, its idle share against ``wall_ms`` (the
+    unprofiled step) and the five largest device events (name, ms a
+    step, count a step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    check(busy > 0, "the profiler saw no device time")
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+    return {"device_busy_ms_per_step": busy,
+            "device_idle_share": max(0.0, 1 - busy / wall_ms),
+            "top_device_events": [[e.key[:60],
+                                   e.self_device_time_total / 1e3 / steps,
+                                   e.count / steps] for e in top]}
+
+
+def _graph_totals(stats, mode):
+    return {"graphs": sum(s.get(mode, {}).get("graphs", 0)
+                          for s in stats.values()),
+            "replays": sum(s.get(mode, {}).get("replays", 0)
+                           for s in stats.values())}
+
+
+def _no_launches(label):
+    from mxnet_tpu_torch.kernels import registry
+    launches = {k: registry.launches(k) for k in registry.list_kernels()}
+    check(not any(launches.values()),
+          "%s launched hand kernels: %s" % (label, launches))
+    return launches
+
+
+def module_mnist_run(mx, ctx, batch_end_callback=None,
+                     epoch_end_callback=None, epochs=MODULE_MNIST_EPOCHS):
+    """``examples/module_mnist.py``'s loop with package ``mx`` (this
+    port's or the JAX package's: the calls are the same) on ``ctx``:
+    ``Module.fit`` of the MLP over 2,048 synthetic samples, batch 128,
+    shuffled, SGD 0.1/0.9, an eval set of 512.  The batch order comes
+    from numpy's seed 0 and the initial weights from a seeded numpy draw
+    of the example's ``Uniform(0.01)`` (biases 0), so both packages run
+    the same loop.  Returns ``(module, eval iterator)``."""
+    np.random.seed(0)
+    x, y = module_mnist_data(MODULE_MNIST_SAMPLES, 0)
+    train = mx.io.NDArrayIter(x, y, MODULE_MNIST_BATCH, shuffle=True)
+    val = mx.io.NDArrayIter(*module_mnist_data(MODULE_MNIST_EVAL, 1),
+                            batch_size=MODULE_MNIST_BATCH)
+    symbol = module_mnist_symbol(mx.sym)
+    shapes, _, _ = symbol.infer_shape(data=(MODULE_MNIST_BATCH, 784))
+    rng = np.random.RandomState(0)
+    init = {n: mx.nd.array(np.zeros(s, np.float32) if n.endswith("bias")
+                           else rng.uniform(-0.01, 0.01, s)
+                           .astype(np.float32), ctx=mx.cpu())
+            for n, s in zip(symbol.list_arguments(), shapes)
+            if n not in ("data", "softmax_label")}
+    mod = mx.mod.Module(symbol, context=ctx)
+    mod.fit(train, eval_data=val, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+            eval_metric="acc", arg_params=init,
+            batch_end_callback=batch_end_callback,
+            epoch_end_callback=epoch_end_callback, num_epoch=epochs)
+    return mod, val
+
+
+def module_fit_path(ctx=None, root=SYM_ROOT, epochs=MODULE_MNIST_EPOCHS):
+    """(a) ``examples/module_mnist.py``'s loop (:func:`module_mnist_run`)
+    with ``Speedometer(128, 10)`` and ``do_checkpoint``; then
+    ``Module.load`` of the last epoch scores the eval set equal to the
+    live module, and the validation accuracy reaches the JAX example's
+    on the CPU from the same weights and batches, less 0.02."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import registry
+    ctx = ctx or mx.gpu(0)
+    cuda = ctx.device_type == "gpu"
+    os.makedirs(root, exist_ok=True)
+    prefix = os.path.join(root, "mnist_module")
+    clock = _StepClock()
+    speed = mx.callback.Speedometer(MODULE_MNIST_BATCH, 10)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    mod, val = module_mnist_run(
+        mx, ctx, batch_end_callback=[clock, speed],
+        epoch_end_callback=mx.callback.do_checkpoint(prefix), epochs=epochs)
+    wall = time.perf_counter() - t0
+    launches = _no_launches("module fit")
+    score = mod.score(val, mx.metric.Accuracy())
+    acc = score[0][1]
+    check(all(np.isfinite(v) for _, v in clock.values),
+          "module fit: non-finite metric %s" % clock.values[-3:])
+    for e in range(epochs):
+        check(os.path.exists("%s-%04d.params" % (prefix, e + 1)),
+              "module fit: do_checkpoint wrote no epoch %d" % (e + 1))
+    loaded = mx.mod.Module.load(prefix, epochs, context=ctx)
+    loaded.bind(data_shapes=val.provide_data, label_shapes=val.provide_label,
+                for_training=False)
+    loaded.init_params()
+    reloaded = loaded.score(val, mx.metric.Accuracy())
+    check(reloaded == score, "module fit: Module.load scores %s, the live "
+          "module %s" % (reloaded, score))
+    out_live = mod.predict(val).asnumpy()
+    out_loaded = loaded.predict(val).asnumpy()
+    floor = MODULE_MNIST_JAX_ACCURACY - MODULE_MNIST_MARGIN
+    check(acc >= floor, "module fit: validation accuracy %.4f under %.4f "
+          "(the JAX example's %.4f less %.2f)"
+          % (acc, floor, MODULE_MNIST_JAX_ACCURACY, MODULE_MNIST_MARGIN))
+    n = len(clock.t)
+    stats = {"epochs": epochs, "batches": n, "batch": MODULE_MNIST_BATCH,
+             "samples_per_s": n * MODULE_MNIST_BATCH / wall,
+             "speedometer_samples_per_s": speed.last_speed,
+             "ms_per_step": clock.step_ms(epochs - 1),
+             "validation_accuracy": acc, "reloaded_accuracy": reloaded[0][1],
+             "jax_cpu_accuracy": MODULE_MNIST_JAX_ACCURACY,
+             "reloaded_max_abs_diff": float(np.abs(out_live
+                                                   - out_loaded).max()),
+             "hand_kernel_launches": launches}
+    if cuda:
+        cs = mod._exec.capture_stats()
+        stats.update(train=_graph_totals({0: cs}, "train"),
+                     eval=_graph_totals({0: cs}, "eval"),
+                     peak_mem_bytes=torch.cuda.max_memory_allocated())
+        check(stats["train"]["graphs"] == 1
+              and stats["train"]["replays"] == n - 1,
+              "module fit: train graphs %s over %d batches"
+              % (stats["train"], n))
+        val.reset()
+        batch = next(iter(val))
+
+        def step():
+            mod.forward_backward(batch)
+            mod.update()
+        stats.update(_busy_share(step, SYM_PROFILED_STEPS,
+                                 stats["ms_per_step"]))
+        stats["card"] = gpu_line()
+    print("module fit (examples/module_mnist.py: 784-128-64-10, batch 128, "
+          "SGD 0.1/0.9, 2 epochs): %s" % json.dumps(stats))
+    return stats
+
+
+def lstm_lm_sym_gen(sym, batch, vocab=LM_VOCAB, embed=LSTM_EMBED,
+                    hidden=LSTM_HIDDEN, layers=LSTM_LAYERS):
+    """The graph of upstream ``cudnn_lstm_bucketing.py`` a bucket:
+    ``Embedding`` -> time-major fused ``RNN`` (lstm) -> ``FullyConnected``
+    -> ``SoftmaxOutput`` over every token; zero initial states."""
+    from mxnet_tpu_torch.ops.nn import rnn_param_size
+    n_params = rnn_param_size("lstm", embed, hidden, layers, False)
+
+    def sym_gen(seq_len):
+        data = sym.var("data")
+        label = sym.var("softmax_label")
+        emb = sym.Embedding(data, input_dim=vocab, output_dim=embed,
+                            name="embed")
+        rnn = sym.RNN(sym.swapaxes(emb, dim1=0, dim2=1),
+                      sym.var("lstm_parameters", shape=(n_params,)),
+                      sym._zeros(shape=(layers, batch, hidden)),
+                      sym._zeros(shape=(layers, batch, hidden)),
+                      state_size=hidden, num_layers=layers, mode="lstm",
+                      name="lstm")
+        out = sym.Reshape(sym.swapaxes(rnn[0], dim1=0, dim2=1),
+                          shape=(-1, hidden))
+        pred = sym.FullyConnected(out, num_hidden=vocab, name="pred")
+        return (sym.SoftmaxOutput(pred, sym.Reshape(label, shape=(-1,)),
+                                  name="softmax"),
+                ("data",), ("softmax_label",))
+    return sym_gen
+
+
+class _BucketBatches:
+    """An iterator of bucketed LM batches (``bucket_key`` = sequence
+    length), each bucket ``per_bucket`` times an epoch in a shuffled
+    order, over a Zipf token stream; the label is the next token."""
+
+    def __init__(self, mx, buckets, batch, per_bucket, seed,
+                 vocab=LM_VOCAB):
+        self.mx, self.batch, self.seed = mx, batch, seed
+        rng = np.random.RandomState(seed)
+        self.keys = [k for k in buckets for _ in range(per_bucket)]
+        rng.shuffle(self.keys)
+        need = sum(batch * (k + 1) for k in self.keys)
+        self.stream = zipf_tokens(need, seed, vocab)
+        self.default_bucket_key = max(buckets)
+        self.provide_data = [mx.io.DataDesc("data", (batch, max(buckets)))]
+        self.provide_label = [mx.io.DataDesc("softmax_label",
+                                             (batch, max(buckets)))]
+        self.reset()
+
+    def reset(self):
+        self.pos, self.i = 0, 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self.i == len(self.keys):
+            raise StopIteration
+        k = self.keys[self.i]
+        n = self.batch * (k + 1)
+        seqs = self.stream[self.pos:self.pos + n].reshape(self.batch, k + 1)
+        self.pos += n
+        self.i += 1
+        mx = self.mx
+        b = mx.io.DataBatch(
+            data=[mx.nd.array(seqs[:, :-1], ctx=mx.cpu())],
+            label=[mx.nd.array(seqs[:, 1:], ctx=mx.cpu())],
+            provide_data=[mx.io.DataDesc("data", (self.batch, k))],
+            provide_label=[mx.io.DataDesc("softmax_label", (self.batch, k))])
+        b.bucket_key = k
+        return b
+
+
+def lstm_lm_init(mx):
+    """Upstream's initializer: Xavier (in, magnitude 2.34) on the
+    weight matrices, uniform on the fused RNN's flat parameters."""
+    return mx.init.Mixed(["lstm_parameters", ".*"],
+                         [mx.init.Uniform(0.1),
+                          mx.init.Xavier(factor_type="in", magnitude=2.34)])
+
+
+def bucketing_lstm_path(ctx=None, buckets=LSTM_BUCKETS, batch=LSTM_BATCH,
+                        per_bucket=LSTM_BATCHES_PER_BUCKET,
+                        epochs=LSTM_EPOCHS, widths=None):
+    """(b) MXNet's bucketing LSTM language model through
+    ``BucketingModule.fit``: buckets 10-60 at batch 32, SGD lr 0.01,
+    momentum 0, wd 1e-5; every bucket trains ``per_bucket`` x ``epochs``
+    times.  Checks: every running perplexity finite, the last epoch's
+    under the first's, one train graph a bucket, replays = the bucket's
+    batches less its one eager call, and every bucket's executor
+    reading the one set of shared weights."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import registry
+    ctx = ctx or mx.gpu(0)
+    cuda = ctx.device_type == "gpu"
+    widths = widths or {}
+    mx.random.seed(0)
+    torch.manual_seed(0)
+    vocab = widths.get("vocab", LM_VOCAB)
+    train = _BucketBatches(mx, buckets, batch, per_bucket, seed=0,
+                           vocab=vocab)
+    mod = mx.mod.BucketingModule(lstm_lm_sym_gen(mx.sym, batch, **widths),
+                                 default_bucket_key=max(buckets),
+                                 context=ctx)
+    clock = _StepClock()
+    metric = mx.metric.Perplexity(ignore_label=None)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    mod.fit(train, eval_metric=metric, batch_end_callback=clock,
+            optimizer="sgd", initializer=lstm_lm_init(mx),
+            optimizer_params={"learning_rate": 0.01, "momentum": 0.0,
+                              "wd": 1e-5},
+            num_epoch=epochs)
+    wall = time.perf_counter() - t0
+    launches = _no_launches("bucketing LSTM")
+    values = clock.values
+    check(all(np.isfinite(v) for _, v in values),
+          "bucketing LSTM: non-finite perplexity %s" % values)
+    per_epoch = [[v for e, v in values if e == k][-1] for k in range(epochs)]
+    check(per_epoch[-1] < per_epoch[0],
+          "bucketing LSTM: perplexity %s did not fall" % per_epoch)
+    tokens = sum(batch * k for k in train.keys) * epochs
+    stats = {"buckets": list(buckets), "batch": batch,
+             "batches": len(clock.t), "tokens_per_s": tokens / wall,
+             "ms_per_step": 1e3 * wall / len(clock.t),
+             "perplexity_per_epoch": per_epoch,
+             "hand_kernel_launches": launches}
+    weights = [m._exec.arg_dict["lstm_parameters"] for m in
+               mod._buckets.values()]
+    check(all(w._data.data_ptr() == weights[0]._data.data_ptr()
+              and np.array_equal(w.asnumpy(), weights[0].asnumpy())
+              for w in weights),
+          "bucketing LSTM: the buckets' weights differ")
+    if cuda:
+        cs = mod.capture_stats()
+        counts = {k: train.keys.count(k) * epochs for k in buckets}
+        per_key = {k: cs[k]["train"] for k in buckets}
+        for k in buckets:
+            check(per_key[k]["graphs"] == 1
+                  and per_key[k]["replays"] == counts[k] - 1,
+                  "bucketing LSTM: bucket %d graphs %s over %d batches"
+                  % (k, per_key[k], counts[k]))
+        stats.update(train=_graph_totals(cs, "train"),
+                     train_per_bucket={k: [v["graphs"], v["replays"]]
+                                       for k, v in per_key.items()},
+                     peak_mem_bytes=torch.cuda.max_memory_allocated())
+        b = next(iter(_BucketBatches(mx, (max(buckets),), batch, 1, 9,
+                                     vocab)))
+
+        def step():
+            mod.forward_backward(b)
+            mod.update()
+            mod.update_metric(metric, b.label)
+        # the largest bucket's steps, unprofiled then profiled
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(SYM_PROFILED_STEPS):
+            step()
+        torch.cuda.synchronize()
+        wall_top = 1e3 * (time.perf_counter() - t1) / SYM_PROFILED_STEPS
+        top = stats["bucket_%d" % max(buckets)] = dict(
+            ms_per_step=wall_top,
+            **_busy_share(step, SYM_PROFILED_STEPS, wall_top))
+        stats["device_idle_share"] = top["device_idle_share"]
+        stats["card"] = gpu_line()
+    print("bucketing LSTM (cudnn_lstm_bucketing.py: vocab %d, embed %d, "
+          "hidden %d x %d layers, buckets %s, batch %d, SGD 0.01): %s"
+          % (vocab, widths.get("embed", LSTM_EMBED),
+             widths.get("hidden", LSTM_HIDDEN),
+             widths.get("layers", LSTM_LAYERS), list(buckets), batch,
+             json.dumps(stats)))
+    return stats
+
+
+def word_lm_model(gluon, vocab=LM_VOCAB, embed=WLM_EMBED, hidden=WLM_HIDDEN,
+                  layers=WLM_LAYERS, dropout=WLM_DROPOUT):
+    """Upstream ``example/gluon/word_language_model/model.py``'s
+    ``RNNModel`` (LSTM, untied): ``(ids (T, N), h, c) -> (logits (T*N,
+    vocab), h, c)``."""
+    class RNNModel(gluon.HybridBlock):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.drop = gluon.nn.Dropout(dropout)
+                self.encoder = gluon.nn.Embedding(vocab, embed)
+                self.rnn = gluon.rnn.LSTM(hidden, num_layers=layers,
+                                          dropout=dropout, input_size=embed)
+                self.decoder = gluon.nn.Dense(vocab, in_units=hidden)
+
+        def hybrid_forward(self, F, inputs, h, c):
+            emb = self.drop(self.encoder(inputs))
+            output, (h, c) = self.rnn(emb, [h, c])
+            output = self.drop(output)
+            return self.decoder(output.reshape((-1, hidden))), h, c
+    return RNNModel()
+
+
+def clip_global_norm(mx, grads, max_norm):
+    """The example's ``clip_global_norm`` in ``mx.nd`` ops, on the
+    device: every gradient scaled by ``min(1, max_norm / norm)``."""
+    total = mx.nd.sqrt(mx.nd.add_n(*[mx.nd.sum(g * g) for g in grads]))
+    scale = mx.nd.clip(max_norm / (total + 1e-8), 0.0, 1.0)
+    for g in grads:
+        g[:] = mx.nd.broadcast_mul(g, scale)
+    return total
+
+
+def word_lm_path(ctx=None, steps=WLM_STEPS, widths=None, batch=WLM_BATCH,
+                 bptt=WLM_BPTT):
+    """(c) the Gluon word language model: the net hybridized, the loop
+    ``autograd.record()`` -> ``SoftmaxCrossEntropyLoss`` averaged over
+    the batch's tokens -> ``backward`` -> the global-norm clip at 0.25
+    -> ``Trainer("sgd", lr=20).step(1)``, the hidden state carried
+    across batches and detached between them (upstream ``train.py``).  Checks: losses finite, the last under the
+    first; two replays of one captured training call on one batch give
+    different outputs (a new dropout mask each), eval mode equal ones."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.kernels import registry
+    ctx = ctx or mx.gpu(0)
+    cuda = ctx.device_type == "gpu"
+    widths = widths or {}
+    mx.random.seed(0)
+    torch.manual_seed(0)
+    net = word_lm_model(gluon, **widths)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    net.hybridize()
+    hidden = widths.get("hidden", WLM_HIDDEN)
+    layers = widths.get("layers", WLM_LAYERS)
+    vocab = widths.get("vocab", LM_VOCAB)
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": WLM_LR, "momentum": 0.0,
+                             "wd": 0.0})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    stream = zipf_tokens((steps + 2) * bptt * batch + 1, seed=1,
+                         vocab=vocab)
+    ids = mx.nd.array(stream[:-1].reshape(batch, -1).T, ctx=ctx)
+    nxt = mx.nd.array(stream[1:].reshape(batch, -1).T, ctx=ctx)
+    h = mx.nd.zeros((layers, batch, hidden), ctx=ctx)
+    c = mx.nd.zeros((layers, batch, hidden), ctx=ctx)
+    losses, stamps = [], []
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        data = ids[i * bptt:(i + 1) * bptt]
+        target = nxt[i * bptt:(i + 1) * bptt]
+        h, c = h.detach(), c.detach()
+        with autograd.record():
+            out, h, c = net(data, h, c)
+            loss = loss_fn(out, target.reshape((-1,))).mean()
+        loss.backward()
+        clip_global_norm(mx, [p.grad() for p in params], WLM_CLIP)
+        trainer.step(1)
+        losses.append(loss)
+        stamps.append(time.perf_counter())
+    losses = [float(v.asscalar()) for v in losses]
+    wall = time.perf_counter() - t0
+    launches = _no_launches("word LM")
+    check(all(np.isfinite(losses)), "word LM: non-finite loss %s"
+          % losses[-3:])
+    check(losses[-1] < losses[0], "word LM: loss %.4f -> %.4f did not fall"
+          % (losses[0], losses[-1]))
+    # one captured training call replayed twice on one batch: a new
+    # dropout mask each replay; eval mode twice: the same output
+    data, target = ids[:bptt], nxt[:bptt]
+    outs = []
+    for _ in range(2):
+        with autograd.record():
+            out, _h, _c = net(data, h.detach(), c.detach())
+            loss = loss_fn(out, target.reshape((-1,)))
+        loss.backward()
+        outs.append(out.asnumpy())
+    check(not np.array_equal(outs[0], outs[1]),
+          "word LM: two training replays drew the same dropout mask")
+    evals = [net(data, h.detach(), c.detach())[0].asnumpy()
+             for _ in range(3)]
+    check(np.array_equal(evals[1], evals[2]),
+          "word LM: eval mode gave different outputs")
+    stats = {"steps": steps, "bptt": bptt, "batch": batch,
+             "tokens_per_s": steps * bptt * batch / wall,
+             "ms_per_step": 1e3 * float(np.median(np.diff(stamps))),
+             "loss_first": losses[0], "loss_last": losses[-1],
+             "hand_kernel_launches": launches}
+    if cuda:
+        cache = net.cache_stats()
+        owner = next(iter(cache["graphs"].values()))
+        stats.update(graphs=owner["graphs"], replays=owner["replays"],
+                     keys=len(cache["keys"]),
+                     peak_mem_bytes=torch.cuda.max_memory_allocated())
+        check(owner["graphs"] >= 2 and owner["replays"] >= steps - 1,
+              "word LM: graphs %s" % owner)
+
+        def step():
+            with autograd.record():
+                o, _h, _c = net(data, h.detach(), c.detach())
+                lo = loss_fn(o, target.reshape((-1,))).mean()
+            lo.backward()
+            clip_global_norm(mx, [p.grad() for p in params], WLM_CLIP)
+            trainer.step(1)
+        stats.update(_busy_share(step, SYM_PROFILED_STEPS,
+                                 stats["ms_per_step"]))
+        stats["card"] = gpu_line()
+    print("word LM (example/gluon/word_language_model: vocab %d, LSTM %d x "
+          "%d layers, dropout %.1f, bptt %d, batch %d, SGD lr %g, clip "
+          "%g): %s" % (vocab, hidden, layers, WLM_DROPOUT, bptt, batch,
+                       WLM_LR, WLM_CLIP, json.dumps(stats)))
+    return stats
+
+
+def _array_rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want)
+                 / max(np.linalg.norm(want), 1e-30))
+
+
+def _hold(label, dists, floors, limit):
+    """Each distance within ``limit``, or within ``SYM_FLOOR_FACTOR``
+    times its measured floor where that is larger."""
+    worst = {}
+    for k, d in dists.items():
+        bound = max(limit, SYM_FLOOR_FACTOR * floors[k])
+        worst[k] = [d, floors[k], bound]
+        check(d <= bound, "%s: %s %.3g > %.3g (floor %.3g)"
+              % (label, k, d, bound, floors[k]))
+    return worst
+
+
+def _lstm_oracle_step(mx, ctx, seq_len, arrays, data, label, widths):
+    """One training forward and backward of the bucketing LM's graph at
+    ``seq_len``: the mean token cross-entropy and every gradient."""
+    batch = data.shape[0]
+    symbol = lstm_lm_sym_gen(mx.sym, batch, **widths)(seq_len)[0]
+    mod = mx.mod.Module(symbol, context=ctx)
+    mod.bind(data_shapes=[("data", data.shape)],
+             label_shapes=[("softmax_label", label.shape)])
+    mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                for k, v in arrays.items()})
+    b = mx.io.DataBatch(data=[mx.nd.array(data, ctx=mx.cpu())],
+                        label=[mx.nd.array(label, ctx=mx.cpu())])
+    mod.forward(b, is_train=True)
+    mod.backward()
+    prob = mod.get_outputs()[0].asnumpy().astype(np.float64)
+    lab = label.reshape(-1).astype(np.int64)
+    loss = float(-np.log(prob[np.arange(lab.size), lab]).mean())
+    grads = {k: mod._exec.grad_dict[k].asnumpy() for k in arrays}
+    return loss, grads
+
+
+def symbolic_oracles(ctx=None, batch=SYM_ORACLE_BATCH,
+                     keys=SYM_ORACLE_BUCKETS, lstm_widths=None,
+                     wlm_widths=None):
+    """Card against CPU, one step each at the paths' full widths, batch
+    4: (b) at two bucket keys, (c) with dropout 0.  The loss within
+    1e-5 relative and each gradient within 1e-4 norm-wise, or 4x the
+    fp32 floor (the CPU step over the batch permuted, against the CPU
+    step) where that is larger."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    ctx = ctx or mx.gpu(0)
+    out = {}
+    rng = np.random.RandomState(5)
+    torch.manual_seed(0)
+    lstm_widths = lstm_widths or {}
+    symbol = lstm_lm_sym_gen(mx.sym, batch, **lstm_widths)(max(keys))[0]
+    shapes, _, _ = symbol.infer_shape(data=(batch, max(keys)),
+                                      softmax_label=(batch, max(keys)))
+    arrays = {n: (0.1 * rng.randn(*s)).astype(np.float32)
+              for n, s in zip(symbol.list_arguments(), shapes)
+              if n not in ("data", "softmax_label")}
+    vocab = lstm_widths.get("vocab", LM_VOCAB)
+    perm = np.roll(np.arange(batch), 1)
+    for k in keys:
+        stream = zipf_tokens(batch * (k + 1), seed=10 + k, vocab=vocab) \
+            .reshape(batch, k + 1)
+        data, label = stream[:, :-1], stream[:, 1:]
+        lc, gc_ = _lstm_oracle_step(mx, mx.cpu(), k, arrays, data, label,
+                                    lstm_widths)
+        lp, gp = _lstm_oracle_step(mx, mx.cpu(), k, arrays, data[perm],
+                                   label[perm], lstm_widths)
+        lg, gg = _lstm_oracle_step(mx, ctx, k, arrays, data, label,
+                                   lstm_widths)
+        dists = {"loss": abs(lg - lc) / abs(lc)}
+        floors = {"loss": abs(lp - lc) / abs(lc)}
+        out["bucketing LSTM bucket %d loss" % k] = _hold(
+            "bucketing LSTM oracle (bucket %d)" % k, dists, floors,
+            SYM_LOSS_LIMIT)
+        out["bucketing LSTM bucket %d gradients" % k] = _hold(
+            "bucketing LSTM oracle (bucket %d)" % k,
+            {n: _array_rel(gg[n], gc_[n]) for n in arrays},
+            {n: _array_rel(gp[n], gc_[n]) for n in arrays}, SYM_GRAD_LIMIT)
+    # (c): one step of the word LM, dropout 0
+    wlm = dict(wlm_widths or {}, dropout=0.0)
+    nets = {}
+    for where, c in (("cpu", mx.cpu()), ("card", ctx)):
+        mx.random.seed(0)
+        nets[where] = word_lm_model(gluon, **wlm)
+        nets[where].initialize(ctx=c)
+    src = nets["cpu"]
+    for i, p in enumerate(src.collect_params().values()):
+        p.set_data(mx.nd.array((0.05 * np.random.RandomState(100 + i).randn(
+            *p.shape)).astype(np.float32), ctx=mx.cpu()))
+    for a, b in zip(src.collect_params().values(),
+                    nets["card"].collect_params().values()):
+        b.set_data(mx.nd.array(a.data().asnumpy(), ctx=ctx))
+    hidden = wlm.get("hidden", WLM_HIDDEN)
+    layers = wlm.get("layers", WLM_LAYERS)
+    wvocab = wlm.get("vocab", LM_VOCAB)
+    stream = zipf_tokens(WLM_BPTT * batch + 1, seed=33, vocab=wvocab)
+    ids = stream[:-1].reshape(batch, -1).T
+    nxt = stream[1:].reshape(batch, -1).T
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def wlm_step(net, c, cols):
+        x = mx.nd.array(ids[:, cols], ctx=c)
+        y = mx.nd.array(nxt[:, cols], ctx=c)
+        z = mx.nd.zeros((layers, batch, hidden), ctx=c)
+        with autograd.record():
+            o, _h, _c = net(x, z, z)
+            lo = loss_fn(o, y.reshape((-1,)))
+        lo.backward()
+        return float(lo.mean().asscalar()), [
+            p.grad().asnumpy() for p in net.collect_params().values()]
+
+    lc, gc_ = wlm_step(nets["cpu"], mx.cpu(), np.arange(batch))
+    lp, gp = wlm_step(nets["cpu"], mx.cpu(), perm)
+    lg, gg = wlm_step(nets["card"], ctx, np.arange(batch))
+    names = [n[len(src.prefix):] for n in src.collect_params()]
+    out["word LM loss"] = _hold("word LM oracle",
+                                {"loss": abs(lg - lc) / abs(lc)},
+                                {"loss": abs(lp - lc) / abs(lc)},
+                                SYM_LOSS_LIMIT)
+    out["word LM gradients"] = _hold(
+        "word LM oracle",
+        {n: _array_rel(g, w) for n, g, w in zip(names, gg, gc_)},
+        {n: _array_rel(p, w) for n, p, w in zip(names, gp, gc_)},
+        SYM_GRAD_LIMIT)
+    for k, v in out.items():
+        print("symbolic oracle, %s (card vs CPU, batch %d, fp32, TF32 off; "
+              "[distance, permuted floor, bound]): %s"
+              % (k, batch, json.dumps(v)))
+    return out
+
+
+def symbolic_phase(root=SYM_ROOT):
+    """Phase 19: (a) ``Module.fit``, (b) the bucketing LSTM, (c) the
+    word LM, then the oracles; the checkpoints under ``root`` are
+    removed at the end."""
+    t0 = time.perf_counter()
+    try:
+        out = {"module_fit": module_fit_path(root=root)}
+        release_cuda()
+        out["bucketing_lstm"] = bucketing_lstm_path()
+        release_cuda()
+        out["word_lm"] = word_lm_path()
+        release_cuda()
+        out["oracles"] = symbolic_oracles()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = {path: out[path]["hand_kernel_launches"]
+                       for path in ("module_fit", "bucketing_lstm",
+                                    "word_lm")}
+    out["phase_s"] = time.perf_counter() - t0
+    print("symbolic phase: %.1f s" % out["phase_s"])
+    return out
+
+
 def kernel_entry(name, launches, kern, serve_launches=None, **extra):
     """One kernel's entry of the per-kernel JSON line; a kernel of the
     checkpoint-and-serve phase also gives its launches there, and
@@ -7488,6 +8254,11 @@ def main():
     # (other processes on this card), watched by a fleet monitor here
     release_cuda()
     dist = dist_phase()
+    # phase 19: the symbolic API and the recurrent nets, one thing at a
+    # time again, so under the host-read check
+    release_cuda()
+    with _capture.checking_syncs():
+        symbolic = symbolic_phase()
     for entry in entries:
         name = entry["name"]
         if name in ("bn_relu_apply", "bn_relu_bwd", "paged_attention"):
@@ -7501,6 +8272,9 @@ def main():
             entry["launches_dist_sync"] = {
                 who: counts[name] for who, counts in
                 dist["launches"].items()}
+        entry["launches_symbolic"] = {
+            path: counts[name]
+            for path, counts in symbolic["launches"].items()}
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -69,13 +69,21 @@ It imports neither JAX nor anything of ``mxnet_tpu``.  Ported so far:
   kvstores, :mod:`.horovod`, sharded multi-process checkpoints, the
   multi-process ``ContinuousTrainer``, :mod:`.launch` (``python -m
   mxnet_tpu_torch.launch``), and the fleet plane watching the workers
-  (``obs.fleet.FleetMonitor``, ``obs.alerts``, ``mxtelemetry fleet``).
+  (``obs.fleet.FleetMonitor``, ``obs.alerts``, ``mxtelemetry fleet``);
+- the symbolic front end and recurrent nets: :mod:`.symbol` (``mx.sym``:
+  graphs over the op table, shape inference, ``-symbol.json``),
+  :mod:`.executor` (one CUDA graph a mode), :mod:`.module` (``mx.mod``:
+  ``Module``, ``BucketingModule``), :mod:`.model` and :mod:`.callback`
+  (checkpoints, ``Speedometer``), :mod:`.name` and ``mx.AttrScope``,
+  and ``gluon.rnn`` over the fused ``RNN`` op.
 
 ``import mxnet_tpu_torch as mx`` binds ``mx.parallel``, ``mx.serving``,
 ``mx.kv``/``mx.kvstore``, ``mx.recordio``, ``mx.io``, ``mx.image``,
 ``mx.dataio``, ``mx.sync``, ``mx.telemetry``, ``mx.obs``, ``mx.chaos``,
 ``mx.preemption``, ``mx.profiler``, ``mx.profiling``,
-``mx.distributed_init`` and ``mx.horovod`` as the JAX package's
+``mx.distributed_init``, ``mx.horovod``, ``mx.sym``/``mx.symbol``,
+``mx.mod``, ``mx.model``, ``mx.callback``, ``mx.name``, ``mx.Executor``
+and ``mx.AttrScope`` as the JAX package's
 ``__init__`` does (``mxnet_tpu_torch.supervisor`` is imported
 by name, as the JAX package's is).
 
@@ -98,12 +106,21 @@ from .context import (Context, cpu, cpu_pinned, current_context, gpu,
                       num_gpus, resolve_device)
 from .ndarray import NDArray
 from .optimizer import lr_scheduler
+from . import attribute, callback, executor, model, name
+from . import module as mod
+from . import symbol
+from . import symbol as sym
+from .attribute import AttrScope
+from .executor import Executor
 
 __version__ = "0.1.0"
 
-__all__ = ["Context", "MXNetError", "NDArray", "amp", "autograd", "chaos",
-           "checkpoint", "cpu", "cpu_pinned", "current_context", "dataio",
-           "distributed_init", "gluon", "horovod", "gpu", "image", "init", "initializer", "io", "kv",
-           "kvstore", "lr_scheduler", "metric", "nd", "num_gpus", "obs",
-           "optimizer", "parallel", "preemption", "random", "recordio",
-           "resolve_device", "serving", "sync", "telemetry"]
+__all__ = ["AttrScope", "Context", "Executor", "MXNetError", "NDArray",
+           "amp", "attribute", "autograd", "callback", "chaos", "checkpoint",
+           "cpu", "cpu_pinned", "current_context", "dataio",
+           "distributed_init", "executor", "gluon", "horovod", "gpu",
+           "image", "init", "initializer", "io", "kv", "kvstore",
+           "lr_scheduler", "metric", "mod", "model", "name", "nd",
+           "num_gpus", "obs", "optimizer", "parallel", "preemption",
+           "random", "recordio", "resolve_device", "serving", "sym",
+           "symbol", "sync", "telemetry"]

@@ -1,13 +1,14 @@
 """Typed registry of the ``MXNET_*`` environment variables the port reads.
 
-Counterpart of ``mxnet_tpu/env.py``, holding only the variables the
-port reads: checkpoints, serving and the always-on loop, the numerics
-sentinel, the device feed, telemetry, tracing, chaos, the concurrency
-sanitizer, the ops plane (profiling, the goodput ledger, the leak
-sentinel, the flight recorder, the obs server and the supervisor), the
-multi-process world (barriers, leases, store retries) and the fleet
-plane.  Names, defaults and the boolean convention (only ``"0"`` is
-false) are the JAX package's, so one environment configures both.
+Counterpart of ``mxnet_tpu/env.py``, holding only the variables the port
+reads: checkpoints, serving and the always-on loop, the numerics
+sentinel, the device feed, the executor's graph check, telemetry,
+tracing, chaos, the concurrency sanitizer, the ops plane (profiling, the
+goodput ledger, the leak sentinel, the flight recorder, the obs server
+and the supervisor), the multi-process world (barriers, leases, store
+retries) and the fleet plane. Names, defaults and the boolean convention
+(only ``"0"`` is false) are the JAX package's, so one environment
+configures both.
 """
 from __future__ import annotations
 
@@ -99,6 +100,11 @@ _VARS = [
            "Checkpoint prefix used by preemption.install() when no "
            "prefix argument is given: SIGTERM drains pending work and "
            "writes <prefix>-preempt.params/.states/.meta before exit."),
+    EnvVar("MXNET_TPU_GRAPH_CHECK", bool, False,
+           "'1' asks every Executor bind/simple_bind for the static "
+           "graph check (mxnet_tpu.analysis), which the port does not "
+           "have yet: the bind raises, naming ROADMAP Queue 1 item 10.  "
+           "Per-bind override: bind(..., check=True)."),
     EnvVar("MXNET_TPU_TELEMETRY", bool, False,
            "'1' enables the runtime telemetry subsystem (telemetry) at "
            "import: counters/timers/events over serving, decode, "

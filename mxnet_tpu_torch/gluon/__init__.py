@@ -1,7 +1,8 @@
 """Gluon (counterpart of ``mxnet_tpu/gluon``): blocks, parameters,
 layers, losses, the Trainer, ``data`` (datasets, samplers, DataLoader,
-vision) and the ResNet and BERT model zoo."""
-from . import data, loss, model_zoo, nn
+vision), the ResNet and BERT model zoo and the recurrent layers and
+cells (``rnn``)."""
+from . import data, loss, model_zoo, nn, rnn
 from .block import Block, HybridBlock
 from .parameter import (Constant, DeferredInitializationError, Parameter,
                         ParameterDict)
@@ -9,4 +10,4 @@ from .trainer import Trainer
 
 __all__ = ["Block", "Constant", "DeferredInitializationError", "HybridBlock",
            "Parameter", "ParameterDict", "Trainer", "data", "loss",
-           "model_zoo", "nn"]
+           "model_zoo", "nn", "rnn"]

@@ -337,7 +337,12 @@ class Block(torch.nn.Module):
 
 
 def _unwrap(x):
-    return x._data if isinstance(x, NDArray) else x
+    if isinstance(x, NDArray):
+        return x._data
+    if isinstance(x, (tuple, list)):
+        # a recurrent layer's or cell's states come as a list
+        return type(x)(_unwrap(v) for v in x)
+    return x
 
 
 def _wrap(out):

@@ -36,10 +36,15 @@ def params_from_numpy(net, arrays, prefix=None):
     names' text up to their first ``_`` (an automatic top-level prefix
     such as ``resnetv10_``).  Raises on a missing or extra name and on a
     shape mismatch; a deferred parameter takes the array's shape.
-    Structural names (each with a ``.``) are matched by structure."""
-    if arrays and all("." in name for name in arrays):
-        _set_all(net._collect_params_with_prefix(),
-                 {k: np.asarray(a) for k, a in arrays.items()})
+    Structural names (each with a ``.``, or exactly the net's own
+    structural names, as a recurrent layer's ``l0_i2h_weight``) are
+    matched by structure."""
+    structural = net._collect_params_with_prefix()
+    if arrays and (all("." in name for name in arrays)
+                   or set(arrays) == set(structural)):
+        # structural names; a block's own parameters have no "." (a
+        # recurrent layer's l0_i2h_weight ... at the top level)
+        _set_all(structural, {k: np.asarray(a) for k, a in arrays.items()})
         return
     if prefix is None:
         firsts = {name.split("_", 1)[0] + "_" for name in arrays}

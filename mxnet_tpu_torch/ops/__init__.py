@@ -23,8 +23,8 @@ from .nn import (Activation, BatchNorm, BilinearResize2D, Convolution,
                  Deconvolution, Dropout, Embedding, Flatten, FullyConnected,
                  GroupNorm, InstanceNorm, LayerNorm, LeakyReLU,
                  LinearRegressionOutput, LogisticRegressionOutput,
-                 MAERegressionOutput, MakeLoss, Pooling, SoftmaxOutput,
-                 UpSampling, fused_batch_norm_relu, log_softmax, moments,
+                 MAERegressionOutput, MakeLoss, Pooling, RNN,
+                 SoftmaxOutput, UpSampling, fused_batch_norm_relu, log_softmax, moments,
                  pick, prelu, slice_axis, smooth_l1, softmax,
                  softmax_cross_entropy, softmin)
 from .optimizer_ops import (lamb_update_phase1, lamb_update_phase2,
@@ -36,7 +36,8 @@ __all__ = ["Activation", "BatchNorm", "BilinearResize2D", "CTCLoss",
            "Convolution", "Deconvolution", "Dropout", "Embedding", "Flatten",
            "FullyConnected", "GroupNorm", "InstanceNorm", "LayerNorm",
            "LeakyReLU", "LinearRegressionOutput", "LogisticRegressionOutput",
-           "MAERegressionOutput", "MakeLoss", "Pooling", "SoftmaxOutput",
+           "MAERegressionOutput", "MakeLoss", "Pooling", "RNN",
+           "SoftmaxOutput",
            "UpSampling", "attention_reference", "col2im", "flash_attention",
            "flash_attention_masked", "fused_batch_norm_relu", "im2col",
            "lamb_update_phase1", "lamb_update_phase2", "lars_update",
@@ -69,6 +70,8 @@ for _name, _fn, _args, _aliases, _variadic in (
          False),
         ("MakeLoss", MakeLoss, ("data",), ("make_loss",), False),
         ("Pooling", Pooling, ("data",), (), False),
+        ("RNN", RNN, ("data", "parameters", "state", "state_cell"), (),
+         False),
         ("SoftmaxOutput", SoftmaxOutput, ("data", "label"), (), False),
         ("UpSampling", UpSampling, ("data",), (), True),
         ("_prelu", prelu, ("data", "gamma"), (), False),

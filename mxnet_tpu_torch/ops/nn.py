@@ -28,10 +28,10 @@ __all__ = ["Activation", "BatchNorm", "BilinearResize2D", "Convolution",
            "Deconvolution", "Dropout", "Embedding", "Flatten",
            "FullyConnected", "GroupNorm", "InstanceNorm", "LayerNorm",
            "LeakyReLU", "LinearRegressionOutput", "LogisticRegressionOutput",
-           "MAERegressionOutput", "MakeLoss", "Pooling", "SoftmaxOutput",
-           "UpSampling", "fused_batch_norm_relu", "log_softmax", "moments",
+           "MAERegressionOutput", "MakeLoss", "Pooling", "RNN",
+           "SoftmaxOutput", "UpSampling", "fused_batch_norm_relu", "log_softmax", "moments",
            "pick", "prelu", "slice_axis", "smooth_l1", "softmax",
-           "softmax_cross_entropy", "softmin"]
+           "rnn_param_size", "softmax_cross_entropy", "softmin"]
 
 _DEFAULT_LAYOUTS = {3: "NCW", 4: "NCHW", 5: "NCDHW"}
 
@@ -621,3 +621,155 @@ def MakeLoss(data, grad_scale=1.0, normalization="null"):
     """Mark ``data`` as a loss: its gradient is ``grad_scale`` (the JAX
     op ignores ``normalization``)."""
     return _MakeLoss.apply(data, float(grad_scale))
+
+
+# ----------------------------------------------------------------------
+# Fused RNN (reference: src/operator/rnn.cc, cuDNN path cudnn_rnn-inl.h)
+# ----------------------------------------------------------------------
+
+# gates a mode's recurrence computes; each mode is also the name of
+# PyTorch's fused recurrence (``torch._VF.lstm``, ...: cuDNN's RNN on
+# the card, ATen's on the CPU), whose gate orders are the JAX package's
+# (LSTM i, f, g, o; GRU r, z, n with n = tanh(xn + r * (W_hn h + b_hn)))
+_GATES = {"rnn_relu": 1, "rnn_tanh": 1, "gru": 3, "lstm": 4}
+
+
+def _gates_for(mode):
+    try:
+        return _GATES[mode]
+    except KeyError:
+        raise MXNetError("RNN: unknown mode %r; choose from %s"
+                         % (mode, ", ".join(sorted(_GATES)))) from None
+
+
+def rnn_param_size(mode, input_size, state_size, num_layers, bidirectional):
+    """Total flat parameter count, matching the layout of
+    :func:`_rnn_unpack`."""
+    g = _gates_for(mode)
+    dirs = 2 if bidirectional else 1
+    total = 0
+    for layer in range(num_layers):
+        in_sz = input_size if layer == 0 else state_size * dirs
+        per_dir = g * state_size * in_sz + g * state_size * state_size \
+            + 2 * g * state_size
+        total += per_dir * dirs
+    return total
+
+
+def _rnn_unpack(params, mode, input_size, state_size, num_layers,
+                bidirectional):
+    """Views of the flat parameter vector, per layer and direction:
+    ``(W_ih (G*H, in), W_hh (G*H, H), b_ih (G*H,), b_hh (G*H,))``, in
+    that order for each layer, for each direction (the JAX package's
+    documented layout)."""
+    g = _gates_for(mode)
+    dirs = 2 if bidirectional else 1
+    gh = g * state_size
+    want = rnn_param_size(mode, input_size, state_size, num_layers,
+                          bidirectional)
+    if params.numel() != want:
+        raise MXNetError("RNN: %d parameters given, %s needs %d"
+                         % (params.numel(), mode, want))
+    layers, off = [], 0
+
+    def take(n, shape):
+        nonlocal off
+        out = params[off:off + n].view(shape)
+        off += n
+        return out
+
+    for layer in range(num_layers):
+        in_sz = input_size if layer == 0 else state_size * dirs
+        layers.append([(take(gh * in_sz, (gh, in_sz)),
+                        take(gh * state_size, (gh, state_size)),
+                        take(gh, (gh,)), take(gh, (gh,)))
+                       for _ in range(dirs)])
+    return layers
+
+
+def _rnn_cell_step(mode, x, h, c, w_ih, w_hh, b_ih, b_hh):
+    """One time step of one direction, written out (the JAX
+    ``lax.scan`` body): ``(h', c')``.  The op runs the fused recurrence
+    (:func:`_run_rnn_layer`); this is its plain statement, which the
+    tests hold it to."""
+    if mode == "gru":
+        xr, xz, xn = torch.addmm(b_ih, x, w_ih.t()).chunk(3, -1)
+        hr, hz, hn = torch.addmm(b_hh, h, w_hh.t()).chunk(3, -1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        return (1 - z) * n + z * h, c
+    gates = torch.addmm(b_ih, x, w_ih.t()) + torch.addmm(b_hh, h, w_hh.t())
+    if mode == "lstm":
+        i, f, g, o = gates.chunk(4, -1)
+        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        return torch.sigmoid(o) * torch.tanh(c_new), c_new
+    return (torch.relu(gates) if mode == "rnn_relu"
+            else torch.tanh(gates)), c
+
+
+def _run_rnn_layer(mode, x, h0, c0, wts, reverse):
+    """One direction of one layer over time, ``x`` ``(T, N, in)``:
+    ``(ys (T, N, H), hT, cT)``.  One call of PyTorch's fused recurrence
+    with ``num_layers=1`` and no dropout of its own.  Its ``train`` flag
+    (cuDNN keeps the reserve its backward reads) is set whenever a
+    gradient is to be taken, whatever the mode: the op's own dropout is
+    applied outside it."""
+    xs = torch.flip(x, (0,)) if reverse else x
+    fn = getattr(torch._VF, mode)
+    keep = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, h0, c0) + tuple(wts))
+    if mode == "lstm":
+        ys, hT, cT = fn(xs, (h0.unsqueeze(0), c0.unsqueeze(0)), list(wts),
+                        True, 1, 0.0, keep, False, False)
+        cT = cT[0]
+    else:
+        ys, hT = fn(xs, h0.unsqueeze(0), list(wts), True, 1, 0.0, keep,
+                    False, False)
+        cT = c0
+    if reverse:
+        ys = torch.flip(ys, (0,))
+    return ys, hT[0], cT
+
+
+def RNN(data, parameters, state, state_cell=None, state_size=0,
+        num_layers=1, mode="lstm", bidirectional=False, p=0.0,
+        state_outputs=True, training=False, generator=None):
+    """Fused multi-layer RNN over time-major ``data`` ``(T, N, input)``
+    with the flat ``parameters`` of :func:`_rnn_unpack` and initial
+    states ``(num_layers * dirs, N, H)``.  Returns ``(out, hy, cy)`` for
+    ``lstm``, else ``(out, hy)``.  Each direction of each layer is one
+    call of PyTorch's fused recurrence (cuDNN on the card); in training,
+    inverted dropout of rate ``p`` follows every layer but the last, its
+    mask drawn from ``generator`` (by default the port's generator of
+    ``data``'s device)."""
+    H = int(state_size)
+    dirs = 2 if bidirectional else 1
+    if data.dim() != 3:
+        raise MXNetError("RNN: data must be (T, N, input), got %s"
+                         % (tuple(data.shape),))
+    if state.shape[0] != num_layers * dirs or state.shape[-1] != H:
+        raise MXNetError("RNN: state must be (%d, N, %d), got %s"
+                         % (num_layers * dirs, H, tuple(state.shape)))
+    if mode == "lstm" and state_cell is None:
+        raise MXNetError("RNN: lstm needs state_cell")
+    layers = _rnn_unpack(parameters, mode, data.shape[2], H, num_layers,
+                         bidirectional)
+    x = data
+    hys, cys = [], []
+    for li, per_dir in enumerate(layers):
+        outs = []
+        for d in range(dirs):
+            h0 = state[li * dirs + d]
+            c0 = state_cell[li * dirs + d] if mode == "lstm" else h0
+            ys, hT, cT = _run_rnn_layer(mode, x, h0, c0, per_dir[d], d == 1)
+            outs.append(ys)
+            hys.append(hT)
+            cys.append(cT)
+        x = torch.cat(outs, dim=-1) if dirs > 1 else outs[0]
+        if p > 0 and training and li < num_layers - 1:
+            x = Dropout(x, p=p, training=True, generator=generator)
+    hy = torch.stack(hys, dim=0)
+    if mode == "lstm":
+        return x, hy, torch.stack(cys, dim=0)
+    return x, hy

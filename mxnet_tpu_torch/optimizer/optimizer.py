@@ -479,8 +479,12 @@ class Updater:
         without placement lands on the CPU as stored."""
         data = pickle.loads(states)
         if isinstance(data, tuple) and len(data) == 2 and \
-                isinstance(data[1], Optimizer):
-            payload, self.optimizer = data
+                isinstance(data[0], dict):
+            # dumped with its optimizer: this program's is adopted, the
+            # JAX package's (a Module's .states) leaves ours in place
+            payload = data[0]
+            if isinstance(data[1], Optimizer):
+                self.optimizer = data[1]
         else:
             payload = data
         placement = placement or {}

@@ -356,10 +356,76 @@ def test_the_ops_plane_loads_neither_jax_nor_mxnet_tpu(tmp_path):
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
+def test_the_symbolic_api_and_rnn_load_neither_jax_nor_mxnet_tpu(tmp_path):
+    """``mx.sym``, ``mx.mod`` (``Module.fit``, ``BucketingModule``),
+    ``mx.model``, ``mx.callback`` and ``gluon.rnn`` used in a fresh
+    process; the scan above imports each of their modules too."""
+    names = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
+    assert {"symbol/symbol.py", "executor.py", "module/module.py",
+            "module/bucketing_module.py", "model.py", "callback.py",
+            "gluon/rnn/rnn_layer.py", "gluon/rnn/rnn_cell.py", "name.py",
+            "attribute.py"} <= names
+    code = ("import sys, numpy as np\n"
+            "import mxnet_tpu_torch as mx\n"
+            "from mxnet_tpu_torch import autograd, gluon\n"
+            "with mx.cpu(), mx.AttrScope(group='a'):\n"
+            "    net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(\n"
+            "        mx.sym.var('data'), num_hidden=3, name='fc'),\n"
+            "        name='softmax')\n"
+            "    it = mx.io.NDArrayIter(np.ones((8, 4), 'f'),\n"
+            "                           np.zeros(8, 'f'), 4)\n"
+            "    mod = mx.mod.Module(net, context=mx.cpu())\n"
+            "    mod.fit(it, num_epoch=1, batch_end_callback=\n"
+            "            mx.callback.Speedometer(4, 1),\n"
+            "            epoch_end_callback=mx.callback.do_checkpoint(\n"
+            "                %r))\n"
+            "    s, arg, aux = mx.model.load_checkpoint(%r, 1)\n"
+            "    assert sorted(arg) == ['fc_bias', 'fc_weight']\n"
+            "    lstm = gluon.rnn.LSTM(4, num_layers=2)\n"
+            "    lstm.initialize(ctx=mx.cpu())\n"
+            "    with autograd.record():\n"
+            "        y = lstm(mx.nd.ones((3, 2, 5)))\n"
+            "    y.backward()\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "%r))" % (str(tmp_path / "m"), str(tmp_path / "m"), FORBIDDEN))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(PKG.parent)] + [p for p in env.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(PKG.parent))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_symbolic_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    """Without CUDA and without ``mx.cpu()`` in force, the symbolic
+    entry points raise: binding an executor, a module or a bucketing
+    module, and a recurrent layer's initialization."""
+    import mxnet_tpu_torch as mx
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    net = mx.sym.FullyConnected(mx.sym.var("data"), num_hidden=3)
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        net.simple_bind(data=(2, 4))
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        mx.mod.Module(net, label_names=None)
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        mx.mod.Module(net, label_names=None, context=mx.gpu(0)).bind(
+            data_shapes=[("data", (2, 4))])
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        mx.mod.BucketingModule(lambda k: (net, ("data",), ()), 4).bind(
+            data_shapes=[("data", (2, 4))])
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        mx.gluon.rnn.LSTM(4).initialize()
+    exe = net.simple_bind(ctx=mx.cpu(), data=(2, 4))
+    assert exe.forward()[0].shape == (2, 3)
+
+
 def test_env_registry_defaults_and_typed_reads(monkeypatch):
     from mxnet_tpu import env as jax_env
     from mxnet_tpu_torch import env
-    assert len(env.REGISTRY) == 46
+    assert len(env.REGISTRY) == 47
     for name, var in env.REGISTRY.items():
         assert var.default == jax_env.REGISTRY[name].default, name
         assert var.type is jax_env.REGISTRY[name].type, name

@@ -421,6 +421,10 @@ SPECS = {
     "Pooling": ([_u(2, 3, 6, 6)], {"kernel": (2, 2), "stride": (2, 2),
                                    "pool_type": "avg"}),
     "Dropout": ([_u(3, 4)], {"p": 0.5}),
+    # the fused RNN op of the symbolic slice (every mode, gradients and
+    # dropout in tests/test_torch_rnn.py): lstm, T 5, N 2, input 3, 4 wide
+    "RNN": ([_u(5, 2, 3), 0.3 * _u(144), _u(1, 2, 4), _u(1, 2, 4)],
+            {"state_size": 4, "num_layers": 1, "mode": "lstm"}),
     "Embedding": ([np.array([[0, 2], [1, 3]], np.float32), _u(4, 5)],
                   {"input_dim": 4, "output_dim": 5}),
     "LayerNorm": ([_u(2, 3, 4), _u(4, **POS), _u(4)], {}),

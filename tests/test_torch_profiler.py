@@ -115,3 +115,22 @@ def test_trace_replays_of_groups_a_trace_by_graph_launch():
     assert [r["launch_to_first_kernel_us"] for r in replays] == [20, 10,
                                                                  None]
     assert chip_smoke.trace_replays_of(events[3:]) == []
+
+
+def test_complete_replays_keeps_the_full_replays_of_one_graph():
+    """Phase 17 (b) counts the replays that hold every kernel event: a
+    replay the tracer dropped records of holds fewer and is left out;
+    a replay holding more than the others makes it the one complete
+    replay, so the others fall short of the three counted."""
+    from collections import Counter
+
+    import chip_smoke
+    full = Counter({"gemm": 4, "bn_relu_fwd_kernel": 2})
+    lossy = Counter({"gemm": 3, "bn_relu_fwd_kernel": 2})
+    got, complete = chip_smoke.complete_replays([full, full.copy(), lossy,
+                                                 full.copy()])
+    assert got == full and len(complete) == 3
+    extra = full + Counter({"copy": 1})
+    got, complete = chip_smoke.complete_replays([full, full, extra, full])
+    assert got == extra and len(complete) == 1
+    assert chip_smoke.complete_replays([]) == ({}, [])
