@@ -10,6 +10,8 @@ without the whole smoke run.
     cd <checkout> && python3 <repo>/chip_paths.py ops
     cd <checkout> && python3 <repo>/chip_paths.py dist
     cd <checkout> && python3 <repo>/chip_paths.py symbolic
+    cd <checkout> && python3 <repo>/chip_paths.py bertbf16
+    cd <checkout> && python3 <repo>/chip_paths.py layernorm
 
 ``decode`` is ``chip_smoke.main_path`` (GPT-2 small decode serving),
 ``mnist`` is ``mnist_main_path`` (the imperative LeNet loop, then 100
@@ -33,7 +35,12 @@ the supervisor, one killed and the world relaunched, watched by a
 fleet monitor) and ``symbolic`` is ``symbolic_phase`` (phase 19:
 ``Module.fit`` of ``examples/module_mnist.py``, the bucketing LSTM
 language model through ``BucketingModule`` and the Gluon word language
-model, with their card-against-CPU oracles).  The
+model, with their card-against-CPU oracles) and ``bertbf16`` is
+``bert_bf16_phase`` (BERT-base bf16 Adam at ``bench_bert_base``'s two
+shapes, each with its step breakdown, then its oracle and the
+captured-against-eager hold) and ``layernorm`` is
+``layernorm_phase`` (the LayerNorm kernel's checks, times, bound
+shares and routes).  The
 checkout's own ``chip_smoke`` and package are imported, its kernels
 built, and each path prints its lines as in the smoke run, under the
 same host-read check of every capture -- except ``hotswap``, which runs
@@ -53,7 +60,8 @@ PATHS = {"decode": "main_path", "mnist": "mnist_main_path",
          "input": "imagenet_input_phase", "mnistfeed": "mnist_feed_path",
          "hotswap": ("hotswap_phase", "generative_swap_phase"),
          "ops": "ops_plane_phase", "dist": "dist_phase",
-         "symbolic": "symbolic_phase"}
+         "symbolic": "symbolic_phase", "bertbf16": "bert_bf16_phase",
+         "layernorm": "layernorm_phase"}
 UNCHECKED = {"hotswap", "ops", "dist"}  # outside checking_syncs()
 
 

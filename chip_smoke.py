@@ -4008,34 +4008,61 @@ def flash_kernel_phase(bh, seq, d):
                         max_abs_err_bf16=errs["bfloat16"][1])}
 
 
-def layernorm_check(rows, dim, dtype, gen):
-    """The LayerNorm kernel against its plain version: the largest
-    error relative to the largest output."""
+def layernorm_inputs(rows, dim, dtype, gen, misalign=False):
+    """``(rows, dim)`` rows of ``dtype`` and fp32 gamma and beta; with
+    ``misalign``, x is a contiguous view one element into a flat buffer,
+    so its data pointer is not 16-byte aligned."""
     import torch
-    from mxnet_tpu_torch.kernels.layernorm import (layernorm_fwd_cuda,
-                                                   layernorm_reference)
     x = (torch.randn(rows, dim, generator=gen, device="cuda") * 3 + 1) \
         .to(dtype)
+    if misalign:
+        flat = torch.empty(rows * dim + 1, dtype=dtype, device="cuda")
+        flat[1:].copy_(x.reshape(-1))
+        x = flat[1:].view(rows, dim)
     g = torch.rand(dim, generator=gen, device="cuda") + 0.5
     b = torch.randn(dim, generator=gen, device="cuda")
+    return x, g, b
+
+
+def layernorm_check(rows, dim, dtype, gen, misalign=False):
+    """The LayerNorm kernel against its plain version: the largest
+    error relative to the largest output, on the route the launcher
+    takes for these rows."""
+    from mxnet_tpu_torch.kernels.layernorm import (layernorm_fwd_cuda,
+                                                   layernorm_reference,
+                                                   layernorm_route)
+    x, g, b = layernorm_inputs(rows, dim, dtype, gen, misalign)
     err = rel_err(layernorm_fwd_cuda(x, g, b), layernorm_reference(x, g, b))
     key = str(dtype).split(".")[-1]
-    print("layernorm (%d, %d) %s: rel err %.3g (limit %g)"
-          % (rows, dim, key, err, ROW_TOL[key]))
-    check(err <= ROW_TOL[key], "layernorm (%d, %d) %s: %.3g > %g"
-          % (rows, dim, key, err, ROW_TOL[key]))
+    what = "(%d, %d) %s%s" % (rows, dim, key,
+                              " misaligned" if misalign else "")
+    print("layernorm %s, %s route: rel err %.3g (limit %g)"
+          % (what, layernorm_route(x, g, b), err, ROW_TOL[key]))
+    check(err <= ROW_TOL[key], "layernorm %s: %.3g > %g"
+          % (what, err, ROW_TOL[key]))
     return err
+
+
+def layernorm_bound(rows, dim, itemsize):
+    """The least time of a LayerNorm forward: the rows read and written
+    once and the two fp32 vectors read once at 3.35 TB/s, against 8
+    fp32 operations an element; (ms, "bytes" or "operations", bytes)."""
+    nbytes = 2 * rows * dim * itemsize + 2 * dim * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 8 * rows * dim / FP32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
 
 
 def layernorm_times(rows, dim, dtype, gen):
     """Times of the LayerNorm kernel, its plain version and
     ``F.layer_norm`` on ``(rows, dim)`` rows of ``dtype`` (fp32 gamma and
-    beta, as the layers hold them), with the bound: the rows read and
-    written once at 3.35 TB/s, 8 fp32 operations an element."""
+    beta, as the layers hold them), with the bound, the kernel's share
+    of it and the route it took."""
     import torch
     import torch.nn.functional as F
     from mxnet_tpu_torch.kernels.layernorm import (layernorm_fwd_cuda,
-                                                   layernorm_reference)
+                                                   layernorm_reference,
+                                                   layernorm_route)
     x = torch.randn(rows, dim, generator=gen, device="cuda").to(dtype)
     g = torch.rand(dim, generator=gen, device="cuda") + 0.5
     b = torch.randn(dim, generator=gen, device="cuda")
@@ -4043,28 +4070,86 @@ def layernorm_times(rows, dim, dtype, gen):
          "plain_ms": time_ms(lambda: layernorm_reference(x, g, b)),
          "library_ms": time_ms(lambda: F.layer_norm(
              x, (dim,), g.to(dtype), b.to(dtype)))}
-    nbytes = 2 * rows * dim * x.element_size() + 2 * dim * 4
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 8 * rows * dim / FP32_FLOPS
-    t["bound_ms"] = 1e3 * max(t_bytes, t_ops)
-    t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    print("layernorm times (%d, %d) %s: %s (%d bytes at 3.35 TB/s); "
-          "library = F.layer_norm" % (rows, dim, str(dtype).split(".")[-1],
-                                      json.dumps(t), nbytes))
+    t["bound_ms"], t["bound_by"], nbytes = layernorm_bound(
+        rows, dim, x.element_size())
+    t["share_of_bound"] = t["bound_ms"] / t["ms"]
+    t["route"] = layernorm_route(x, g, b)
+    print("layernorm times (%d, %d) %s, %s route: %s (%d bytes at 3.35 "
+          "TB/s); %.1f%% of the bound; library = F.layer_norm"
+          % (rows, dim, str(dtype).split(".")[-1], t["route"],
+             json.dumps(t), nbytes, 100 * t["share_of_bound"]))
     return t
 
 
 def layernorm_kernel_phase(rows, dim):
+    """The LayerNorm kernel against its plain version at the BERT rows,
+    at a width that is no whole number of packs, on misaligned rows and
+    above the register route's cap (the generic route), both dtypes;
+    then its fp32 times at the BERT rows."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(2)
     errs = {}
-    for r, c in ((rows, dim), (1000, 100)):
+    for r, c, misalign in ((rows, dim, False), (1000, 100, False),
+                           (4099, dim, True), (257, 12288, False)):
         for dtype in (torch.float32, torch.bfloat16):
             key = str(dtype).split(".")[-1]
             errs[key] = max(errs.get(key, 0.0),
-                            layernorm_check(r, c, dtype, gen))
+                            layernorm_check(r, c, dtype, gen, misalign))
     t = layernorm_times(rows, dim, torch.float32, gen)
     return dict(t, max_abs_err=errs["float32"],
                 max_abs_err_bf16=errs["bfloat16"])
+
+
+LAYERNORM_SHAPES = ((32768, 768, "float32"), (32768, 768, "bfloat16"),
+                    (16384, 768, "float32"))
+
+
+def layernorm_routes(shapes=LAYERNORM_SHAPES):
+    """The LayerNorm kernel's two routes on the same rows, in turns
+    (ring, generic, generic, ring): the ring on x as allocated, the
+    generic route on a copy of x one element into a flat buffer (a
+    misaligned pointer, what sends a caller there), beside the bound
+    and a yardstick of what the card reaches moving the same rows
+    (``Tensor.copy_`` of x into another tensor, one read and one
+    write): what a misaligned caller pays, and how far from the
+    memory's reach the ring is."""
+    import torch
+    from mxnet_tpu_torch.kernels.layernorm import (layernorm_fwd_cuda,
+                                                   layernorm_route)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    for rows, dim, dtype in shapes:
+        x, g, b = layernorm_inputs(rows, dim, getattr(torch, dtype), gen)
+        xm = layernorm_inputs(rows, dim, getattr(torch, dtype), gen,
+                              misalign=True)[0]
+        on = {layernorm_route(x, g, b): x, layernorm_route(xm, g, b): xm}
+        check(sorted(on) == ["generic", "ring"], "layernorm routes %dx%d "
+              "%s: took %s" % (rows, dim, dtype, sorted(on)))
+
+        def run(route):
+            return lambda: layernorm_fwd_cuda(on[route], g, b)
+        order = ("ring", "generic", "generic", "ring")
+        times = [(r, time_ms(run(r))) for r in order]
+        t = {r: [ms for name, ms in times if name == r]
+             for r in ("ring", "generic")}
+        t["bound_ms"] = layernorm_bound(rows, dim, x.element_size())[0]
+        y = torch.empty_like(x)
+        t["copy_ms"] = time_ms(lambda: y.copy_(x))
+        key = "%dx%d %s" % (rows, dim, dtype)
+        out[key] = t
+        print("layernorm routes %s: %s" % (key, json.dumps(t)))
+    return out
+
+
+def layernorm_phase():
+    """The LayerNorm kernel alone: its checks and fp32 times at the BERT
+    rows, its bf16 BERT shapes and its two routes against each other."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    return {"kernel": layernorm_kernel_phase(BERT_BATCH * BERT_SEQ, 768),
+            "bf16_path": {str(d).split(".")[-1]: layernorm_times(
+                32768, 768, d, gen) for d in (torch.float32, torch.bfloat16)},
+            "routes": layernorm_routes()}
 
 
 def bert_bf16_kernel_phase(shapes=BERT_BF16_SHAPES, d=64, dim=768):

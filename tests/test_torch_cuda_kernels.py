@@ -692,9 +692,12 @@ def test_flash_op_on_the_card_matches_the_cpu(cuda):
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("rows,dim", [(16384, 768), (1000, 100), (7, 3),
                                       (33, 1), (5, 4096),
-                                      (32768, 768)])   # bf16 BERT-base
+                                      (32768, 768),    # bf16 BERT-base
+                                      (300, 2048),     # the fp32 cap
+                                      (37, 12288)])    # above both caps
 def test_layernorm_kernel_matches_plain(cuda, dtype, rows, dim):
-    from mxnet_tpu_torch.kernels.layernorm import layernorm_reference
+    from mxnet_tpu_torch.kernels.layernorm import (layernorm_reference,
+                                                   layernorm_route)
     from mxnet_tpu_torch.kernels.registry import dispatch
     g = torch.Generator(device=cuda).manual_seed(1)
     x = (torch.randn(rows, dim, generator=g, device=cuda) * 3 + 1).to(dtype)
@@ -708,6 +711,149 @@ def test_layernorm_kernel_matches_plain(cuda, dtype, rows, dim):
     assert got.dtype == dtype
     ok, err = _close(got, want, dtype)
     assert ok, err
+    assert layernorm_route(x, gamma, beta) == _ln_expected_route(x,
+                                                                 "aligned")
+
+
+def _ln_case(dev, rows, dim, dtype, seed=1):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(rows, dim, generator=g, device=dev) * 3 + 1).to(dtype)
+    gamma = torch.rand(dim, generator=g, device=dev) + 0.5
+    beta = torch.randn(dim, generator=g, device=dev)
+    return x, gamma, beta
+
+
+def _ln_misaligned(x):
+    """``x`` as a contiguous view one element into a flat buffer, so its
+    data pointer is not 16-byte aligned."""
+    flat = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
+    flat[1:].copy_(x.reshape(-1))
+    return flat[1:].view(x.shape)
+
+
+def _ln_expected_route(x, pointer):
+    v = 16 // x.element_size()
+    dim = x.shape[1]
+    held = dim % v == 0 and dim // v <= 512
+    return "ring" if held and pointer == "aligned" else "generic"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("pointer", ["aligned", "misaligned"])
+@pytest.mark.parametrize("rows,dim", [(1, 768), (7, 768), (4099, 768),
+                                      (32771, 768), (2113, 64), (9, 2048),
+                                      (3, 4096), (515, 1000)])
+def test_layernorm_routes_match_plain(cuda, dtype, pointer, rows, dim):
+    """Each route through the launcher, picked by shape and pointer:
+    aligned rows of whole packs up to the cap take the ring, a
+    misaligned x or a width above the cap the generic route.  Rows fewer
+    than the persistent grid's warps (1, 7), rows not a multiple of the
+    ring's depth, the register caps (2,048 fp32 a lane's 16 packs; 4,096
+    bf16), a width whose packs do not fill the last lane's (1,000); one
+    counted launch a call."""
+    from mxnet_tpu_torch.kernels.layernorm import (layernorm_fwd_cuda,
+                                                   layernorm_reference,
+                                                   layernorm_route)
+    x, gamma, beta = _ln_case(cuda, rows, dim, dtype)
+    if pointer == "misaligned":
+        x = _ln_misaligned(x)
+    assert layernorm_route(x, gamma, beta) == _ln_expected_route(x, pointer)
+    n0 = registry.launches("layernorm_fwd")
+    got = layernorm_fwd_cuda(x, gamma, beta)
+    assert registry.launches("layernorm_fwd") == n0 + 1
+    want = layernorm_reference(x, gamma, beta)
+    torch.cuda.synchronize()
+    ok, err = _close(got, want, dtype)
+    assert ok, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("which", ["x", "gamma"])
+def test_layernorm_takes_misaligned_pointers(cuda, dtype, which):
+    """A contiguous ``(rows, dim)`` view one element into a flat buffer
+    (x), or gamma one element into its buffer: the generic route, scalar
+    loads, the same result."""
+    from mxnet_tpu_torch.kernels.layernorm import (layernorm_reference,
+                                                   layernorm_route)
+    from mxnet_tpu_torch.kernels.registry import dispatch
+    rows, dim = 1030, 768
+    x, gamma, beta = _ln_case(cuda, rows, dim, dtype)
+    if which == "x":
+        x = _ln_misaligned(x)
+    else:
+        gamma = _ln_misaligned(gamma)
+    assert x.is_contiguous() and gamma.is_contiguous()
+    assert layernorm_route(x, gamma, beta) == "generic"
+    got = dispatch("layernorm_fwd", x, gamma, beta)
+    want = layernorm_reference(x, gamma, beta)
+    torch.cuda.synchronize()
+    ok, err = _close(got, want, dtype)
+    assert ok, err
+
+
+@pytest.mark.parametrize("pointer", ["aligned", "misaligned"])
+def test_layernorm_large_mean_rows_keep_the_variance(cuda, pointer):
+    """fp32 rows of mean 1e4 and std 0.1, on the ring (aligned) and the
+    generic route (misaligned).  The fp32 mean is good only to a few of
+    its ulps (2**-10, 1% of the std) whatever the order of the sum, so
+    two two-pass versions differ there by ~1e-3 of the output, not 1e-5:
+    each route and the plain version are held to the fp64 truth within 8
+    such ulps carried through 1/std and |gamma|, and a one-pass
+    E[x^2] - E[x]^2 on the same rows must fail that bound."""
+    from mxnet_tpu_torch.kernels.layernorm import (layernorm_fwd_cuda,
+                                                   layernorm_reference,
+                                                   layernorm_route)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    rows, dim = 4099, 768
+    x = 1e4 + 0.1 * torch.randn(rows, dim, generator=g, device=cuda)
+    gamma = torch.rand(dim, generator=g, device=cuda) + 0.5
+    beta = torch.randn(dim, generator=g, device=cuda)
+    if pointer == "misaligned":
+        x = _ln_misaligned(x)
+    assert layernorm_route(x, gamma, beta) == _ln_expected_route(x, pointer)
+    xd = x.double()
+    mean = xd.mean(-1, keepdim=True)
+    inv = torch.rsqrt(((xd - mean) ** 2).mean(-1, keepdim=True) + 1e-5)
+    truth = (xd - mean) * inv * gamma.double() + beta.double()
+    unit = (2.0 ** (mean.abs().log2().floor() - 23)) * inv \
+        * gamma.double().abs()
+
+    def units(out):
+        return float(((out.double() - truth).abs() / unit).max())
+
+    got = layernorm_fwd_cuda(x, gamma, beta)
+    plain = layernorm_reference(x, gamma, beta)
+    m = x.mean(-1, keepdim=True)
+    one = (x - m) * torch.rsqrt((x * x).mean(-1, keepdim=True) - m * m
+                                + 1e-5) * gamma + beta
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert units(got) <= 8, units(got)
+    assert units(plain) <= 8, units(plain)
+    assert not torch.isfinite(one).all() or units(one) > 1000
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows,dim", [(32768, 768), (1000, 100)])
+def test_layernorm_replays_from_a_cuda_graph(cuda, dtype, rows, dim):
+    """The launcher captured into a CUDA graph: the replay equals the
+    eager call bitwise, on new input copied into the static one."""
+    from mxnet_tpu_torch.kernels.layernorm import layernorm_fwd_cuda
+    x, gamma, beta = _ln_case(cuda, rows, dim, dtype)
+    fresh = _ln_case(cuda, rows, dim, dtype, seed=2)[0]
+    layernorm_fwd_cuda(x, gamma, beta)   # eager first, as GraphOwner does
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = layernorm_fwd_cuda(x, gamma, beta)
+    x.copy_(fresh)
+    graph.replay()
+    want = layernorm_fwd_cuda(fresh, gamma, beta)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 def test_flash_and_layernorm_count_launches_by_dtype(cuda):

@@ -6,7 +6,10 @@ same numpy inputs go to both.
 
 Tolerances: 1e-5 on fp32 outputs and gradients (fp32 sums in another
 order); 2e-2 on bf16 outputs (one bf16 rounding of the stored
-value)."""
+value).  On rows of mean 1e4 and std 0.1 the fp32 mean itself is only
+good to a few of its ulps (2**-10 each, 1% of the std), whatever the
+order of the sum, so there each version is held to the fp64 truth
+within 8 of those ulps, carried through the row's 1/std and |gamma|."""
 import numpy as np
 import pytest
 
@@ -60,6 +63,44 @@ def test_bf16_forward_matches_pallas_kernel():
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want.astype(jnp.float32)),
                                atol=2e-2)
+
+
+def _large_mean_rows(rows, dim, seed):
+    """Rows of mean 1e4 and std 0.1, and per element the fp64 truth and
+    the error unit: one ulp of the row's fp32 mean times the row's
+    1/std and |gamma|."""
+    rng = np.random.default_rng(seed)
+    x = (1e4 + 0.1 * rng.standard_normal((rows, dim))).astype(np.float32)
+    g = (rng.random(dim) + 0.5).astype(np.float32)
+    b = rng.standard_normal(dim).astype(np.float32)
+    xd = x.astype(np.float64)
+    mean = xd.mean(-1, keepdims=True)
+    inv = 1 / np.sqrt(((xd - mean) ** 2).mean(-1, keepdims=True) + 1e-5)
+    truth = (xd - mean) * inv * g + b
+    unit = 2.0 ** (np.floor(np.log2(np.abs(mean))) - 23) * inv * np.abs(g)
+    return x, g, b, truth, unit
+
+
+def test_large_mean_rows_need_two_pass_statistics():
+    """Mean 1e4, std 0.1: the plain version and the Pallas kernel (both
+    two-pass, fp32) stay within 8 ulps of the mean of the fp64 truth; a
+    one-pass E[x^2] - E[x]^2 on the same rows loses the variance (off
+    by thousands of those units, or NaN), so the case discriminates."""
+    x, g, b, truth, unit = _large_mean_rows(64, 768, seed=5)
+    want = np.asarray(jln.layernorm_fwd_pallas(
+        jnp.asarray(x), jnp.asarray(g), jnp.asarray(b), interpret=True))
+    got = tln.layernorm_reference(torch.tensor(x), torch.tensor(g),
+                                  torch.tensor(b)).numpy()
+    for name, out in (("pallas", want), ("plain", got)):
+        assert np.isfinite(out).all(), name
+        assert (np.abs(out - truth) / unit).max() <= 8, name
+    assert (np.abs(got - want) / unit).max() <= 16
+    m = x.mean(-1, keepdims=True, dtype=np.float32)
+    var = (x * x).mean(-1, keepdims=True, dtype=np.float32) - m * m
+    with np.errstate(invalid="ignore"):
+        one = (x - m) / np.sqrt(var + np.float32(1e-5)) * g + b
+        err = np.abs(one - truth) / unit
+    assert np.isnan(one).any() or np.nanmax(err) > 1000
 
 
 @pytest.mark.parametrize("shape", [(2, 9, 32), (7, 100)])
