@@ -12,6 +12,7 @@ without the whole smoke run.
     cd <checkout> && python3 <repo>/chip_paths.py symbolic
     cd <checkout> && python3 <repo>/chip_paths.py bertbf16
     cd <checkout> && python3 <repo>/chip_paths.py layernorm
+    cd <checkout> && python3 <repo>/chip_paths.py deploy
 
 ``decode`` is ``chip_smoke.main_path`` (GPT-2 small decode serving),
 ``mnist`` is ``mnist_main_path`` (the imperative LeNet loop, then 100
@@ -40,7 +41,10 @@ model, with their card-against-CPU oracles) and ``bertbf16`` is
 shapes, each with its step breakdown, then its oracle and the
 captured-against-eager hold) and ``layernorm`` is
 ``layernorm_phase`` (the LayerNorm kernel's checks, times, bound
-shares and routes).  The
+shares and routes) and ``deploy`` is ``deploy_phase`` (phase 20:
+ResNet-50 exported and run back through ``SymbolBlock``, ``Module``,
+``mx.Predictor``, the ``.mxa`` archive, the registry's ``symbol=`` and
+``onnx=`` sources and the C predict runtime).  The
 checkout's own ``chip_smoke`` and package are imported, its kernels
 built, and each path prints its lines as in the smoke run, under the
 same host-read check of every capture -- except ``hotswap``, which runs
@@ -61,7 +65,7 @@ PATHS = {"decode": "main_path", "mnist": "mnist_main_path",
          "hotswap": ("hotswap_phase", "generative_swap_phase"),
          "ops": "ops_plane_phase", "dist": "dist_phase",
          "symbolic": "symbolic_phase", "bertbf16": "bert_bf16_phase",
-         "layernorm": "layernorm_phase"}
+         "layernorm": "layernorm_phase", "deploy": "deploy_phase"}
 UNCHECKED = {"hotswap", "ops", "dist"}  # outside checking_syncs()
 
 

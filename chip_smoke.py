@@ -354,6 +354,38 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    its rate, ms/step, graphs and replays, the device's idle share and
    peak memory; no hand kernel launches in phase 19 (the kernels line
    carries ``launches_symbolic``, all 0).
+20. the deployment path, after phase 19, under the same host-read check,
+   random weights from seed 0 at full width with every running
+   statistic and BatchNorm scale moved off its default (two
+   training-mode forwards, then a seeded draw of gamma and beta).  (1)
+   ``resnet50_v1(layout="NHWC")`` fp32 hybridized at b32 x 224^2, then
+   ``net.export``: the graph holds 33 ``fused_batch_norm_relu`` nodes
+   and no BatchNorm feeding a relu; ``SymbolBlock.imports`` on the card,
+   hybridized, ``optimize_for`` and an inference ``mx.mod.Module`` from
+   ``mx.model.load_checkpoint`` each within 1e-5 of the largest logit of
+   the live net, with ``bn_relu_apply`` = 33 x forwards; the card
+   against the CPU at b8 within 1e-4.  (2) ``ModelRegistry.register(
+   symbol=, params=)`` served by 8 clients (256 requests, phase 13's
+   bursts and buckets) beside a ``block=`` servable of the live net:
+   one answer per request, none after the drain, each within 1e-4 of
+   the ``SymbolBlock``'s batch-1 forward, ``bn_relu_apply`` = 33 x
+   executor calls.  (3) ``mx.Predictor`` over b1, b8 and b32 with room
+   for two: two graphs resident, one ``serving.compile_evictions``, the
+   evicted class recaptured within 1e-5; ``export_compiled`` ->
+   ``CompiledPredictor`` in a child process whose one block is the
+   archive's ``SymbolBlock``, within 1e-5 (the child runs beside (4)).
+   (4) ResNet-50 v1 NCHW exported, ``mx.onnx.export_model``,
+   ``get_model_metadata``, ``import_model``, ``register(onnx=)`` at
+   buckets 1, 4, 8: answers within 1e-4 of the live net's batch-1
+   forward, no hand-kernel launch; the channels-last graph and a lone
+   fused node do not convert (the JAX package's errors).  (5) the C
+   predict runtime on the host against the card's logits for one image
+   within 1e-4, and ``examples/cpp_predict/main.cc`` built with ``g++``
+   against the port's library (built in a thread from the phase's
+   start) printing ``output shape: (1, 1000)``; both run on the host
+   while (4) serves.  Each step prints its times, sizes, rates and
+   the card's name and power limit; the kernels line carries
+   ``launches_deploy`` by route (every kernel but ``bn_relu_apply`` 0).
 
 Every path runs from captured CUDA graphs (``mxnet_tpu_torch._capture``),
 the port's counterpart of the JAX package's compiled programs: one
@@ -374,7 +406,7 @@ BERT-base LAMB (dropout 0.1, batch 8 x seq 512) and ResNet-50 bf16 AMP
 LARS (batch 16), each four calls of one ``TrainStep`` (eager, captured,
 replayed, replayed after ``set_learning_rate``) against four eager
 steps on a copy of the net (losses, updates, the last update, every
-optimizer state).  Phases 1-15 run under
+optimizer state).  Phases 1-15, 19 and 20 run under
 ``_capture.checking_syncs()``: every capture and replay runs under
 ``torch.cuda.set_sync_debug_mode("error")``, so a host read left inside
 a captured region fails it.
@@ -8292,6 +8324,729 @@ def symbolic_phase(root=SYM_ROOT):
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 20: deployment -- export, SymbolBlock, Module, Predictor, the
+# .mxa archive, the registry's graph sources, ONNX and the C predict ABI
+# ---------------------------------------------------------------------
+
+DEPLOY_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "deploy-smoke")
+DEPLOY_BATCH = 32
+DEPLOY_CPU_BATCH = 8
+DEPLOY_FORWARDS = 4                # counted forwards of a route
+DEPLOY_REQUESTS = 256
+DEPLOY_CLIENTS = 8
+DEPLOY_ONNX_REQUESTS = 32
+DEPLOY_ONNX_BUCKETS = (1, 4, 8)
+DEPLOY_PREDICTOR_BATCHES = (1, 8, 32)
+# two routes running the same kernels in the same order on the same
+# inputs (the live net and its exported graph, a replay and an eager
+# call): their logits agree to the last bits, relative to the largest
+DEPLOY_SAME_TOL = 1e-5
+# the card against the CPU, a served answer against a batch-1 forward,
+# an ONNX runtime against the card: fp32 summed in other orders
+DEPLOY_REL_TOL = SERVE_REL_TOL
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def resnet50_nchw():
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    return resnet50_v1()
+
+
+def _np(a):
+    """An NDArray, a tensor or an array as float64 numpy."""
+    a = getattr(a, "_data", a)
+    if hasattr(a, "detach"):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a, np.float64)
+
+
+def _max_rel(got, want):
+    """``max |got - want|`` relative to ``max |want|``; the shapes must
+    agree and ``got`` be finite."""
+    got, want = _np(got), _np(want)
+    check(got.shape == want.shape and np.isfinite(got).all(),
+          "output of shape %s (finite: %s), want %s"
+          % (got.shape, bool(np.isfinite(got).all()), want.shape))
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def deploy_net(make_net, image, channels_last, device, seed=0):
+    """A net of random weights from ``seed`` whose running statistics
+    and BatchNorm scales are off their defaults (running mean 0 and
+    variance 1 would hide a swapped or missing aux state): two
+    training-mode forwards, then a seeded draw of every gamma and
+    beta."""
+    import torch
+    from mxnet_tpu_torch import autograd
+    net = make_net()
+    net.initialize(device=device,
+                   generator=torch.Generator().manual_seed(seed))
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    shape = (8, image, image, 3) if channels_last else (8, 3, image, image)
+    with torch.no_grad():
+        for _ in range(2):
+            with autograd.train_mode():
+                net(torch.randn(shape, generator=gen, device=device))
+        draw = torch.Generator().manual_seed(seed + 2)
+        for p in net.collect_params().values():
+            if p.name.endswith("_gamma"):
+                p.set_data(torch.rand(p.shape, generator=draw) + 0.5)
+            elif p.name.endswith("_beta"):
+                p.set_data(0.1 * torch.randn(p.shape, generator=draw))
+    return net
+
+
+def _graph_ops(sym_file):
+    """The exported graph's op counts, and the BatchNorm nodes that feed
+    a relu ``Activation`` directly (a pair the graph did not fuse)."""
+    from collections import Counter
+    with open(sym_file) as f:
+        nodes = json.load(f)["nodes"]
+    unfused = [n["name"] for n in nodes
+               if n["op"] == "Activation"
+               and n["attrs"].get("act_type") == "relu"
+               and nodes[n["inputs"][0][0]]["op"] == "BatchNorm"]
+    return Counter(n["op"] for n in nodes), unfused
+
+
+def _route_launches(kernels, run):
+    """``run()`` with every launch counter zeroed first; the counts of
+    ``kernels`` after it, by name."""
+    from mxnet_tpu_torch.kernels import registry
+    registry.reset_launches()
+    out = run()
+    return out, {k: registry.launches(k) for k in kernels}
+
+
+def _repeat(fn, n):
+    def run():
+        out = None
+        for _ in range(n):
+            out = fn()
+        return out
+    return run
+
+
+def _cpu_model():
+    """The host CPU's model name (``/proc/cpuinfo``) and core count."""
+    import platform
+    name = None
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    name = line.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    return "%s, %s, %d cores" % (name, platform.machine(), os.cpu_count())
+
+
+_COMPILED_CHILD = r"""
+import gc, json, sys, time
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import _capture
+from mxnet_tpu_torch.gluon import Block
+from mxnet_tpu_torch.kernels import registry
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+ctx = mx.cpu() if sys.argv[5] == "cpu" else mx.gpu(0)
+x = np.load(sys.argv[3])
+with _capture.checking_syncs():
+    t0 = time.perf_counter()
+    cp = mx.CompiledPredictor(sys.argv[2], ctx=ctx)
+    load_s = time.perf_counter() - t0
+    registry.reset_launches()
+    for _ in range(int(sys.argv[6])):
+        y = cp(x)[0]
+    launches = {k: registry.launches(k) for k in registry.list_kernels()}
+blocks = sorted({type(o).__name__ for o in gc.get_objects()
+                 if isinstance(o, Block)})
+np.save(sys.argv[4], y.asnumpy())
+print(json.dumps({"load_s": load_s, "launches": launches,
+                  "blocks": blocks, "meta": cp.meta,
+                  "graphs": cp._owner.graphs}))
+"""
+
+
+def deploy_graph_route(net, x, root, image, cpu_batch, sites, device,
+                       fused_nodes=BN_RELU_SITES, forwards=DEPLOY_FORWARDS):
+    """Step 1: the channels-last net hybridized, exported and run back
+    through ``SymbolBlock``, ``optimize_for`` and an inference
+    ``Module``; the card against the CPU."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import registry
+    cuda = device == "cuda"
+    ctx = mx.gpu(0) if cuda else mx.cpu()
+    kernels = registry.list_kernels()
+    net.hybridize()
+    with torch.no_grad():
+        for _ in range(3):              # eager, capture, replay
+            live = net(x)
+    prefix = os.path.join(root, "resnet50-nhwc")
+    t0 = time.perf_counter()
+    sym_file, params_file = net.export(prefix)
+    export_s = time.perf_counter() - t0
+    ops, unfused = _graph_ops(sym_file)
+    check(ops["fused_batch_norm_relu"] == fused_nodes,
+          "exported graph holds %d fused_batch_norm_relu nodes, want %d"
+          % (ops["fused_batch_norm_relu"], fused_nodes))
+    check(not unfused, "BatchNorm directly followed by a relu in the "
+          "exported graph: %s" % unfused[:3])
+    out = {"export_s": export_s, "json_bytes": os.path.getsize(sym_file),
+           "params_bytes": os.path.getsize(params_file),
+           "graph_ops": dict(ops)}
+
+    # SymbolBlock on the card, hybridized
+    t0 = time.perf_counter()
+    sb = mx.gluon.SymbolBlock.imports(sym_file, ["data"], params_file,
+                                      ctx=ctx)
+    out["imports_s"] = time.perf_counter() - t0
+    sb.hybridize()
+    with torch.no_grad():
+        for _ in range(2):
+            sb(x)
+        got, counts = _route_launches(kernels,
+                                      _repeat(lambda: sb(x), forwards))
+    out["symbol_block_rel_err"] = _max_rel(got, live)
+    check(out["symbol_block_rel_err"] <= DEPLOY_SAME_TOL,
+          "SymbolBlock logits differ from the live net's by %.3g"
+          % out["symbol_block_rel_err"])
+    launches = {"symbol_block": counts}
+    check(counts["bn_relu_apply"] == sites * forwards,
+          "SymbolBlock: bn_relu_apply %d launches != %d sites x %d "
+          "forwards" % (counts["bn_relu_apply"], sites, forwards))
+    if cuda:
+        stats = sb.cache_stats()["graphs"]
+        out["symbol_block_graphs"] = {d: {k: s[k] for k in (
+            "graphs", "capture_s", "pool_bytes", "replays")}
+            for d, s in stats.items()}
+
+    # optimize_for: hybridize and call, the eager call of a fresh key
+    with torch.no_grad():
+        opt = net.optimize_for(x)
+    out["optimize_for_rel_err"] = _max_rel(opt, live)
+    out["optimize_for_bitwise"] = bool(torch.equal(opt.cpu(), live.cpu()))
+    check(out["optimize_for_rel_err"] <= DEPLOY_SAME_TOL,
+          "optimize_for differs from the hybridized call by %.3g"
+          % out["optimize_for_rel_err"])
+
+    # the exported files as a checkpoint of an inference Module
+    sym, arg_params, aux_params = mx.model.load_checkpoint(prefix, 0)
+    mod = mx.mod.Module(sym, data_names=("data",), label_names=(),
+                        context=ctx)
+    mod.bind(data_shapes=[("data", tuple(x.shape))], for_training=False)
+    mod.init_params(arg_params=arg_params, aux_params=aux_params)
+    batch = mx.io.DataBatch(data=[mx.NDArray(x)])
+
+    def module_forward():
+        mod.forward(batch, is_train=False)
+        return mod.get_outputs()[0]
+
+    for _ in range(2):
+        module_forward()
+    got, counts = _route_launches(kernels, _repeat(module_forward,
+                                                   forwards))
+    out["module_rel_err"] = _max_rel(got, live)
+    check(out["module_rel_err"] <= DEPLOY_SAME_TOL,
+          "Module logits differ from the live net's by %.3g"
+          % out["module_rel_err"])
+    check(counts["bn_relu_apply"] == sites * forwards,
+          "Module: bn_relu_apply %d launches != %d sites x %d forwards"
+          % (counts["bn_relu_apply"], sites, forwards))
+    launches["module"] = counts
+    del mod
+
+    # the card against the CPU on the same files at the smaller batch
+    xs = x[:cpu_batch]
+    with torch.no_grad():
+        for _ in range(2):
+            dev = sb(xs)
+        with mx.cpu():
+            host = mx.gluon.SymbolBlock.imports(
+                sym_file, ["data"], params_file, ctx=mx.cpu())
+            t0 = time.perf_counter()
+            ref = host(xs.cpu())
+            out["cpu_forward_s"] = time.perf_counter() - t0
+    out["card_vs_cpu_rel_err"] = _max_rel(dev, ref)
+    check(out["card_vs_cpu_rel_err"] <= DEPLOY_REL_TOL,
+          "the card's SymbolBlock differs from the CPU's by %.3g > %g"
+          % (out["card_vs_cpu_rel_err"], DEPLOY_REL_TOL))
+    return sb, live, sym_file, params_file, out, launches
+
+
+def deploy_registry_route(net, sb, sym_file, params_file, image, buckets,
+                          requests, clients, sites, device):
+    """Step 2: ``register(symbol=, params=)`` served by concurrent
+    clients beside a ``block=`` servable of the live net."""
+    import torch
+    from mxnet_tpu_torch.kernels import registry
+    from mxnet_tpu_torch.serving import ModelRegistry, ServableClosed
+    rng = np.random.RandomState(20)
+    images = rng.standard_normal(
+        (requests, image, image, 3)).astype(np.float32)
+    reg = ModelRegistry()
+    out = {}
+    try:
+        for source in ("symbol", "block"):
+            t0 = time.perf_counter()
+            if source == "symbol":
+                sv = reg.register("resnet50-" + source, symbol=sym_file,
+                                  params=params_file,
+                                  input_shape=(image, image, 3),
+                                  buckets=buckets)
+            else:
+                sv = reg.register("resnet50-" + source, block=net,
+                                  input_shape=(image, image, 3),
+                                  buckets=buckets)
+            register_s = time.perf_counter() - t0
+            check(sv.source == source, "servable source %r, want %r"
+                  % (sv.source, source))
+            registry.reset_launches()
+            responses, lat, wall = _serve(
+                sv, images, _client_bursts(rng, requests, clients))
+            stats = sv.stats()
+            launches = {k: registry.launches(k)
+                        for k in registry.list_kernels()}
+            reg.unregister(sv.name, drain=True)
+            check(sv.closed and sv.stats() == stats,
+                  "%s servable answered after its drain" % source)
+            try:
+                sv.submit(images[0])
+            except ServableClosed:
+                pass
+            else:
+                raise SmokeFailure("a closed servable took a request")
+            check(stats.get("responses") == requests
+                  and stats.get("errors", 0) == 0,
+                  "%s servable counts %s for %d requests"
+                  % (source, stats, requests))
+            check(launches["bn_relu_apply"] == sites * stats["batches"],
+                  "%s servable: bn_relu_apply %d launches != %d sites x "
+                  "%d executor calls" % (source, launches["bn_relu_apply"],
+                                         sites, stats["batches"]))
+            out[source] = {
+                "register_s": register_s,
+                "requests_per_s": requests / wall,
+                "latency_p50_ms": 1e3 * float(np.percentile(lat, 50)),
+                "latency_p99_ms": 1e3 * float(np.percentile(lat, 99)),
+                "batches": stats["batches"], "launches": launches}
+            if source == "symbol":
+                worst = 0.0
+                with torch.no_grad():
+                    for img, got in zip(images, responses):
+                        want = sb(torch.from_numpy(img[None]).to(device))
+                        worst = max(worst, _max_rel(got, want[0]))
+                out[source]["max_rel_err"] = worst
+                check(worst <= DEPLOY_REL_TOL,
+                      "symbol servable differs from the SymbolBlock's "
+                      "batch-1 forward by %.3g > %g" % (worst,
+                                                        DEPLOY_REL_TOL))
+    finally:
+        reg.shutdown(drain=False)
+    return out
+
+
+def deploy_predictor_route(net, sym_file, params_file, x, root, sites,
+                           device, forwards=DEPLOY_FORWARDS,
+                           batches=DEPLOY_PREDICTOR_BATCHES):
+    """Step 3: ``mx.Predictor`` over three shape classes with room for
+    two, then ``export_compiled``: returns the numbers, the launches and
+    the archive's job for a ``CompiledPredictor`` child
+    (:func:`start_compiled_child`), the archive's input and the live
+    net's logits for it saved beside it."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.kernels import registry
+    cuda = device == "cuda"
+    ctx = mx.gpu(0) if cuda else mx.cpu()
+    kernels = registry.list_kernels()
+    with torch.no_grad():
+        wants = {b: net(x[:b]) for b in batches}
+    was_on = telemetry.enabled()
+    telemetry.enable()
+    telemetry.reset("serving.")
+    out = {}
+    try:
+        pred = mx.Predictor(sym_file, params_file, ctx=ctx,
+                            jit_cache_size=2)
+        for b in batches:
+            for _ in range(2):           # eager, then captured
+                pred.forward(data=x[:b])
+        resident = list(pred._jit_cache.values())
+        out["resident_classes"] = len(resident)
+        out["resident_graphs"] = sum(o.graphs for o in resident)
+        out["evictions"] = telemetry.counter(
+            "serving.compile_evictions").value
+        check(out["resident_classes"] == 2 and out["evictions"] == 1,
+              "Predictor LRU: %d classes resident, %d evictions"
+              % (out["resident_classes"], out["evictions"]))
+        if cuda:
+            check(out["resident_graphs"] == 2, "Predictor: %d graphs "
+                  "resident, want 2" % out["resident_graphs"])
+        b0 = batches[0]
+        for _ in range(2):               # the evicted class comes back
+            got = pred.forward(data=x[:b0])[0]
+        out["recaptured_rel_err"] = _max_rel(got, wants[b0])
+        check(out["recaptured_rel_err"] <= DEPLOY_SAME_TOL,
+              "Predictor's recaptured class differs by %.3g"
+              % out["recaptured_rel_err"])
+        b1 = batches[-1]
+        got, counts = _route_launches(kernels, _repeat(
+            lambda: pred.forward(data=x[:b1])[0], forwards))
+        out["rel_err"] = _max_rel(got, wants[b1])
+        check(out["rel_err"] <= DEPLOY_SAME_TOL,
+              "Predictor differs from the live net by %.3g"
+              % out["rel_err"])
+        check(counts["bn_relu_apply"] == sites * forwards,
+              "Predictor: bn_relu_apply %d launches != %d sites x %d "
+              "forwards" % (counts["bn_relu_apply"], sites, forwards))
+    finally:
+        telemetry.reset("serving.")
+        if not was_on:
+            telemetry.disable()
+    launches = {"predictor": counts}
+    del pred
+
+    path = os.path.join(root, "resnet50-nhwc.mxa")
+    t0 = time.perf_counter()
+    mx.predictor.export_compiled(net, path, [tuple(x.shape)])
+    out["mxa_export_s"] = time.perf_counter() - t0
+    out["mxa_bytes"] = os.path.getsize(path)
+    job = {"path": path, "x": os.path.join(root, "mxa-input.npy"),
+           "y": os.path.join(root, "mxa-output.npy"),
+           "want": wants[x.shape[0]].cpu().numpy()}
+    np.save(job["x"], x.cpu().numpy())
+    return out, launches, job
+
+
+def start_compiled_child(job, device, forwards=DEPLOY_FORWARDS):
+    """Serve the ``.mxa`` archive with ``CompiledPredictor`` in a child
+    ``python`` that imports no model code (the one block it builds is
+    the archive's ``SymbolBlock``; it runs while step 4 serves);
+    returns the process."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO_ROOT] + [p for p in env.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    job["t0"] = time.perf_counter()
+    return subprocess.Popen(
+        [sys.executable, "-c", _COMPILED_CHILD, REPO_ROOT, job["path"],
+         job["x"], job["y"], device, str(forwards)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_compiled_child(proc, job, sites, forwards=DEPLOY_FORWARDS):
+    """Wait for the child of :func:`start_compiled_child` and check its
+    logits and launches; returns its numbers and every kernel's
+    launches as the child counted them."""
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out = {"mxa_child_s": time.perf_counter() - job["t0"]}
+    check(proc.returncode == 0, "CompiledPredictor child failed: %s"
+          % stderr[-2000:])
+    child = json.loads(stdout.strip().splitlines()[-1])
+    check(child["blocks"] == ["SymbolBlock"], "the CompiledPredictor "
+          "child built blocks %s, want only the archive's SymbolBlock"
+          % child["blocks"])
+    out["mxa_rel_err"] = _max_rel(np.load(job["y"]), job["want"])
+    check(out["mxa_rel_err"] <= DEPLOY_SAME_TOL,
+          "CompiledPredictor differs from the live net by %.3g"
+          % out["mxa_rel_err"])
+    launches = child["launches"]
+    check(launches["bn_relu_apply"] == sites * forwards,
+          "CompiledPredictor: bn_relu_apply %d launches != %d sites x %d "
+          "forwards" % (launches["bn_relu_apply"], sites, forwards))
+    out["mxa_load_s"], out["mxa_graphs"] = child["load_s"], child["graphs"]
+    return out, launches
+
+
+def deploy_onnx_route(make_nchw, channels_last_files, root, image, buckets,
+                      requests, clients, device, on_onnx):
+    """Step 4: ResNet-50 v1 NCHW exported, converted to ONNX, read back
+    and served from the ONNX file; the channels-last graph does not
+    convert.  ``on_onnx(onnx_file, image)`` is called once the file and
+    the first request's image exist, before the servable registers (it
+    starts step 5 on the host).  Returns the card's logits for that
+    image (step 5's yardstick) and the numbers."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import registry
+    from mxnet_tpu_torch.serving import ModelRegistry
+    net = deploy_net(make_nchw, image, False, device, seed=4)
+    net.hybridize()
+    prefix = os.path.join(root, "resnet50-nchw")
+    sym_file, params_file = net.export(prefix)
+    ops, _ = _graph_ops(sym_file)
+    check(ops["fused_batch_norm_relu"] == 0, "the NCHW graph holds %d "
+          "fused nodes" % ops["fused_batch_norm_relu"])
+    onnx_file = prefix + ".onnx"
+    t0 = time.perf_counter()
+    mx.onnx.export_model(sym_file, params_file,
+                         in_shapes=[(1, 3, image, image)],
+                         in_types=[np.float32], onnx_file_path=onnx_file)
+    out = {"onnx_export_s": time.perf_counter() - t0,
+           "onnx_bytes": os.path.getsize(onnx_file)}
+    meta = mx.onnx.get_model_metadata(onnx_file)
+    check(meta["input_tensor_data"] == [("data", (1, 3, image, image))]
+          and len(meta["output_tensor_data"]) == 1,
+          "ONNX metadata %s" % meta)
+    t0 = time.perf_counter()
+    sym, arg_params, aux_params = mx.onnx.import_model(onnx_file)
+    out["onnx_import_s"] = time.perf_counter() - t0
+    out["onnx_params"] = [len(arg_params), len(aux_params)]
+    rng = np.random.RandomState(21)
+    images = rng.standard_normal(
+        (requests, 3, image, image)).astype(np.float32)
+    on_onnx(onnx_file, images[:1])
+    reg = ModelRegistry()
+    try:
+        t0 = time.perf_counter()
+        sv = reg.register("resnet50-onnx", onnx=onnx_file,
+                          input_shape=(3, image, image), buckets=buckets)
+        out["register_s"] = time.perf_counter() - t0
+        check(sv.source == "onnx", "servable source %r" % sv.source)
+        registry.reset_launches()
+        responses, lat, wall = _serve(sv, images,
+                                      _client_bursts(rng, requests,
+                                                     clients))
+        out["launches"] = {k: registry.launches(k)
+                           for k in registry.list_kernels()}
+        out.update(requests_per_s=requests / wall,
+                   latency_p50_ms=1e3 * float(np.percentile(lat, 50)),
+                   latency_p99_ms=1e3 * float(np.percentile(lat, 99)),
+                   batches=sv.stats()["batches"])
+    finally:
+        reg.shutdown(drain=True)
+    worst = 0.0
+    with torch.no_grad():
+        for img, got in zip(images, responses):
+            want = net(torch.from_numpy(img[None]).to(device))[0]
+            worst = max(worst, _max_rel(got, want))
+        first = net(torch.from_numpy(images[:1]).to(device))
+    out["max_rel_err"] = worst
+    check(worst <= DEPLOY_REL_TOL, "ONNX servable differs from the live "
+          "NCHW net's batch-1 forward by %.3g > %g" % (worst,
+                                                       DEPLOY_REL_TOL))
+    check(sum(out["launches"].values()) == 0, "the NCHW ONNX route "
+          "launched hand kernels: %s" % out["launches"])
+    # the channels-last graph has no ONNX form: the JAX package's
+    # exporter stops at its first channels-last Convolution, and its
+    # fused_batch_norm_relu nodes have no converter either
+    cl_sym, cl_params = channels_last_files
+    raised = {}
+    for what, call in (
+            ("channels_last_graph", lambda: mx.onnx.export_model(
+                cl_sym, cl_params, in_shapes=[(1, image, image, 3)],
+                onnx_file_path=os.path.join(root, "nhwc.onnx"))),
+            ("fused_node", lambda: mx.onnx.export_model(
+                mx.sym.fused_batch_norm_relu(
+                    mx.sym.var("data"), mx.sym.var("gamma"),
+                    mx.sym.var("beta"), mx.sym.var("mean"),
+                    mx.sym.var("var"), axis=3)[0], {},
+                in_shapes=[(1, 4, 4, 8)] + [(8,)] * 4,
+                onnx_file_path=os.path.join(root, "fused.onnx")))):
+        try:
+            call()
+        except mx.MXNetError as e:
+            raised[what] = str(e)
+        else:
+            raise SmokeFailure("ONNX export of the %s did not raise" % what)
+    check("fused_batch_norm_relu" in raised["fused_node"],
+          "the fused node's ONNX error does not name it: %s"
+          % raised["fused_node"])
+    out["raised"] = raised
+    return first, out
+
+
+def start_native_build(root):
+    """Build the C predict runtime and ``examples/cpp_predict/main.cc``
+    against it with ``g++``, in a thread, while the card runs steps
+    1-3; returns the job, whose ``exe`` (or ``error``) the thread
+    sets."""
+    job = {"t0": time.perf_counter()}
+
+    def build():
+        try:
+            from mxnet_tpu_torch import _native
+            check(_native.load_predict() is not None,
+                  "the native predict runtime did not build")
+            so = _native.predict_so_path()
+            exe = os.path.join(root, "cpp_predict")
+            src = os.path.join(REPO_ROOT, "examples", "cpp_predict",
+                               "main.cc")
+            proc = subprocess.run(
+                ["g++", "-O2", "-std=c++17", src, "-o", exe,
+                 "-L%s" % so.parent, "-lmxtpu_predict",
+                 "-Wl,-rpath,%s" % so.parent],
+                capture_output=True, text=True, timeout=300)
+            check(proc.returncode == 0, "cpp_predict build failed: %s"
+                  % proc.stderr[-2000:])
+            job["build_s"] = time.perf_counter() - job["t0"]
+            job["exe"] = exe
+        except BaseException as e:      # raised by the main thread
+            job["error"] = e
+
+    job["thread"] = threading.Thread(target=build, daemon=True)
+    job["thread"].start()
+    return job
+
+
+def start_host_runtimes(build, onnx_file, image_arr, image, procs):
+    """Step 5 started: the C runtime (``NativePredictor``, in a thread:
+    its C call releases the GIL) and the ``cpp_predict`` example (a
+    plain process, added to ``procs``) each run one image on the host,
+    two cores, while the card serves step 4; returns the job."""
+    from mxnet_tpu_torch.predictor import NativePredictor
+    build["thread"].join()
+    if "error" in build:
+        raise build["error"]
+    job = {"build_s": build["build_s"], "t0": time.perf_counter()}
+    job["example"] = subprocess.Popen(
+        [build["exe"], onnx_file, "1", "3", str(image), str(image)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    procs.append(job["example"])
+
+    def native():
+        try:
+            pred = NativePredictor(onnx_file)
+            t1 = time.perf_counter()
+            job["got"] = pred.forward(image_arr)
+            job["host_ms"] = 1e3 * (time.perf_counter() - t1)
+            pred.close()
+        except BaseException as e:      # raised by the main thread
+            job["error"] = e
+
+    job["thread"] = threading.Thread(target=native, daemon=True)
+    job["thread"].start()
+    return job
+
+
+def finish_host_runtimes(job, card_logits):
+    """Step 5 checked: the C runtime's logits against the card's, and
+    the example's output line."""
+    job["thread"].join(timeout=600)
+    stdout, stderr = job["example"].communicate(timeout=600)
+    check(not job["thread"].is_alive(), "the native predictor did not "
+          "finish in 600 s")
+    if "error" in job:
+        raise job["error"]
+    rel = _max_rel(job["got"], card_logits)
+    check(rel <= DEPLOY_REL_TOL, "the native predictor differs from the "
+          "card by %.3g > %g" % (rel, DEPLOY_REL_TOL))
+    check(job["example"].returncode == 0
+          and "output shape: (1, 1000)" in stdout,
+          "cpp_predict: rc %s, stdout %r, stderr %r"
+          % (job["example"].returncode, stdout[-300:], stderr[-300:]))
+    return {"native_rel_err": rel,
+            "native_host_ms_per_image": job["host_ms"],
+            "cpu_model": _cpu_model(), "build_s": job["build_s"],
+            "host_runtimes_s": time.perf_counter() - job["t0"],
+            "cpp_predict_output": stdout.strip().splitlines()[0]}
+
+
+def deploy_phase(make_net=resnet50_nhwc, make_nchw=resnet50_nchw,
+                 image=224, batch=DEPLOY_BATCH, cpu_batch=DEPLOY_CPU_BATCH,
+                 buckets=SERVE_BUCKETS, requests=DEPLOY_REQUESTS,
+                 clients=DEPLOY_CLIENTS, onnx_buckets=DEPLOY_ONNX_BUCKETS,
+                 onnx_requests=DEPLOY_ONNX_REQUESTS, sites=BN_RELU_SITES,
+                 fused_nodes=BN_RELU_SITES,
+                 predictor_batches=DEPLOY_PREDICTOR_BATCHES, device="cuda",
+                 root=DEPLOY_ROOT):
+    """Phase 20: the deployment path (see the module docstring); the
+    files under ``root`` are removed at the end.  ``fused_nodes`` is
+    the exported graph's ``fused_batch_norm_relu`` count, ``sites`` the
+    ``bn_relu_apply`` launches a forward (0 on the CPU, where the plain
+    version counts none).  Returns the numbers and, by route, every
+    kernel's launches."""
+    import torch
+    cuda = device == "cuda"
+    t0 = time.perf_counter()
+    card = gpu_line() if cuda else None
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    procs = []                          # stopped at the end, come what may
+    try:
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        build = start_native_build(root)
+        net = deploy_net(make_net, image, True, device)
+        x = torch.randn((batch, image, image, 3), device=device,
+                        generator=torch.Generator(device=device)
+                        .manual_seed(3))
+        sb, _live, sym_file, params_file, graph, launches = \
+            deploy_graph_route(net, x, root, image, cpu_batch, sites,
+                               device, fused_nodes)
+        print("deploy graph route (ResNet-50 v1 NHWC fp32, b%d): %s"
+              % (batch, json.dumps(dict(graph, card=card))))
+        serving = deploy_registry_route(net, sb, sym_file, params_file,
+                                        image, buckets, requests, clients,
+                                        sites, device)
+        launches["registry_symbol"] = serving["symbol"].pop("launches")
+        launches["registry_block"] = serving["block"].pop("launches")
+        print("deploy registry from the files (%d requests, %d clients): "
+              "%s" % (requests, clients,
+                      json.dumps(dict(serving, card=card))))
+        pred, more, job = deploy_predictor_route(
+            net, sym_file, params_file, x, root, sites, device,
+            batches=predictor_batches)
+        launches.update(more)
+        del sb, net, x
+        release_cuda()
+        # the archive's child (its own process: a python that builds no
+        # block) loads while step 4 runs here; its forwards are counted,
+        # not timed
+        child = start_compiled_child(job, device)
+        procs.append(child)
+        host = []
+        first, onnx = deploy_onnx_route(
+            make_nchw, (sym_file, params_file), root, image, onnx_buckets,
+            onnx_requests, min(clients, 4), device,
+            lambda f, img: host.append(start_host_runtimes(
+                build, f, img, image, procs)))
+        launches["registry_onnx"] = onnx.pop("launches")
+        print("deploy ONNX route (ResNet-50 v1 NCHW fp32; served beside "
+              "the C runtime on two host cores and the .mxa child): %s"
+              % json.dumps(dict(onnx, card=card)))
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+        native = finish_host_runtimes(host[0], first)
+        more, launches["compiled_predictor"] = finish_compiled_child(
+            child, job, sites)
+        pred.update(more)
+        print("deploy Predictor and CompiledPredictor: %s"
+              % json.dumps(dict(pred, card=card)))
+        print("deploy native predictor on the host (one image beside the "
+              "ONNX servable): %s" % json.dumps(dict(native, card=card)))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    stray = {route: {k: n for k, n in counts.items()
+                     if n and k != "bn_relu_apply"}
+             for route, counts in launches.items()}
+    check(not any(stray.values()), "the deployment routes launched other "
+          "kernels: %s" % stray)
+    out = {"graph": graph, "serving": serving, "predictor": pred,
+           "onnx": onnx, "native": native, "launches": launches,
+           "peak_mem_bytes": peak, "phase_s": time.perf_counter() - t0}
+    print("deploy phase: %.1f s, peak memory %s B (%s)"
+          % (out["phase_s"], peak, card))
+    return out
+
+
 def kernel_entry(name, launches, kern, serve_launches=None, **extra):
     """One kernel's entry of the per-kernel JSON line; a kernel of the
     checkpoint-and-serve phase also gives its launches there, and
@@ -8344,6 +9099,11 @@ def main():
     release_cuda()
     with _capture.checking_syncs():
         symbolic = symbolic_phase()
+    # phase 20: the deployment path, one thing at a time, under the
+    # host-read check
+    release_cuda()
+    with _capture.checking_syncs():
+        deploy = deploy_phase()
     for entry in entries:
         name = entry["name"]
         if name in ("bn_relu_apply", "bn_relu_bwd", "paged_attention"):
@@ -8360,6 +9120,9 @@ def main():
         entry["launches_symbolic"] = {
             path: counts[name]
             for path, counts in symbolic["launches"].items()}
+        entry["launches_deploy"] = {
+            route: counts[name]
+            for route, counts in deploy["launches"].items()}
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -75,15 +75,21 @@ It imports neither JAX nor anything of ``mxnet_tpu``.  Ported so far:
   :mod:`.executor` (one CUDA graph a mode), :mod:`.module` (``mx.mod``:
   ``Module``, ``BucketingModule``), :mod:`.model` and :mod:`.callback`
   (checkpoints, ``Speedometer``), :mod:`.name` and ``mx.AttrScope``,
-  and ``gluon.rnn`` over the fused ``RNN`` op.
+  and ``gluon.rnn`` over the fused ``RNN`` op;
+- deployment: ``HybridBlock.export``/``optimize_for`` and
+  ``gluon.SymbolBlock``, :mod:`.onnx` (``mx.onnx``: export, import,
+  metadata), :mod:`.predictor` (``mx.Predictor``, ``export_compiled``,
+  ``mx.CompiledPredictor``, ``NativePredictor`` over the C predict ABI)
+  and ``ModelRegistry.register(symbol=, onnx=)``.
 
 ``import mxnet_tpu_torch as mx`` binds ``mx.parallel``, ``mx.serving``,
 ``mx.kv``/``mx.kvstore``, ``mx.recordio``, ``mx.io``, ``mx.image``,
 ``mx.dataio``, ``mx.sync``, ``mx.telemetry``, ``mx.obs``, ``mx.chaos``,
 ``mx.preemption``, ``mx.profiler``, ``mx.profiling``,
 ``mx.distributed_init``, ``mx.horovod``, ``mx.sym``/``mx.symbol``,
-``mx.mod``, ``mx.model``, ``mx.callback``, ``mx.name``, ``mx.Executor``
-and ``mx.AttrScope`` as the JAX package's
+``mx.mod``, ``mx.model``, ``mx.callback``, ``mx.name``, ``mx.Executor``,
+``mx.AttrScope``, ``mx.onnx``, ``mx.predictor``, ``mx.Predictor`` and
+``mx.CompiledPredictor`` as the JAX package's
 ``__init__`` does (``mxnet_tpu_torch.supervisor`` is imported
 by name, as the JAX package's is).
 
@@ -110,17 +116,20 @@ from . import attribute, callback, executor, model, name
 from . import module as mod
 from . import symbol
 from . import symbol as sym
+from . import onnx, predictor
 from .attribute import AttrScope
 from .executor import Executor
+from .predictor import CompiledPredictor, Predictor
 
 __version__ = "0.1.0"
 
-__all__ = ["AttrScope", "Context", "Executor", "MXNetError", "NDArray",
-           "amp", "attribute", "autograd", "callback", "chaos", "checkpoint",
-           "cpu", "cpu_pinned", "current_context", "dataio",
-           "distributed_init", "executor", "gluon", "horovod", "gpu",
-           "image", "init", "initializer", "io", "kv", "kvstore",
-           "lr_scheduler", "metric", "mod", "model", "name", "nd",
-           "num_gpus", "obs", "optimizer", "parallel", "preemption",
-           "random", "recordio", "resolve_device", "serving", "sym",
-           "symbol", "sync", "telemetry"]
+__all__ = ["AttrScope", "CompiledPredictor", "Context", "Executor",
+           "MXNetError", "NDArray", "Predictor", "amp", "attribute",
+           "autograd", "callback", "chaos", "checkpoint", "cpu",
+           "cpu_pinned", "current_context", "dataio", "distributed_init",
+           "executor", "gluon", "horovod", "gpu", "image", "init",
+           "initializer", "io", "kv", "kvstore", "lr_scheduler", "metric",
+           "mod", "model", "name", "nd", "num_gpus", "obs", "onnx",
+           "optimizer", "parallel", "predictor", "preemption", "random",
+           "recordio", "resolve_device", "serving", "sym", "symbol", "sync",
+           "telemetry"]

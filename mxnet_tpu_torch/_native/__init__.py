@@ -1,16 +1,22 @@
-"""The native recordio engine (counterpart of ``mxnet_tpu/_native``),
+"""The native host runtimes (counterpart of ``mxnet_tpu/_native``),
 compiled on first use.
 
-``recordio_native.cc`` is host code: buffered record framing and a
-thread-pooled batch reader, with a plain C interface loaded through
-:mod:`ctypes`.  At first use it is built with ``g++ -O2 -shared -fPIC``
-into ``build/torch_native/`` of the checkout (or
-``$MXNET_TPU_NATIVE_CACHE``), under an flock and through an atomic
-rename, so that processes starting together neither build it twice nor
-load a half-written library.  Without a toolchain, or after a failed
-build, :func:`load` returns None and :mod:`..recordio` reads and writes
-in Python, byte for byte the same files.  ``MXNET_TPU_NATIVE=0`` forces
-the Python route.
+- ``recordio_native.cc``: buffered record framing and a thread-pooled
+  batch reader.  Without a toolchain, or after a failed build,
+  :func:`load` returns None and :mod:`..recordio` reads and writes in
+  Python, byte for byte the same files.  ``MXNET_TPU_NATIVE=0`` forces
+  the Python route.
+- ``predict_native.cc`` (with the C header ``mxnet_predict.h``): the C
+  predict ABI, an ONNX interpreter for edge deploys with no Python
+  (``MXPredCreate`` ... ``MXPredFree``, ``MXNDList*``).  It is a host
+  runtime by design; :func:`load_predict` returns None without a
+  toolchain, and ``predictor.NativePredictor`` then raises.
+
+Both are host code with a plain C interface loaded through
+:mod:`ctypes`, built with ``g++ -O2 -shared -fPIC`` into
+``build/torch_native/`` of the checkout (or ``$MXNET_TPU_NATIVE_CACHE``),
+under an flock and through an atomic rename, so that processes starting
+together neither build one twice nor load a half-written library.
 """
 from __future__ import annotations
 
@@ -20,7 +26,8 @@ import subprocess
 import warnings
 from pathlib import Path
 
-__all__ = ["available", "load", "so_path"]
+__all__ = ["available", "load", "load_predict", "predict_so_path",
+           "so_path"]
 
 _SRC = Path(__file__).resolve().parent / "recordio_native.cc"
 _OUT = Path(__file__).resolve().parents[2] / "build" / "torch_native"
@@ -39,8 +46,8 @@ def so_path():
     return _cache_dir() / "librecordio_native.so"
 
 
-def _current(so):
-    return so.exists() and so.stat().st_mtime >= _SRC.stat().st_mtime
+def _current(so, src=_SRC):
+    return so.exists() and so.stat().st_mtime >= src.stat().st_mtime
 
 
 def _build(src, out):
@@ -50,7 +57,7 @@ def _build(src, out):
     with open(str(out) + ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
-            if _current(out):       # another process built it meanwhile
+            if _current(out, src):  # another process built it meanwhile
                 return
             tmp = "%s.%d.tmp" % (out, os.getpid())
             proc = subprocess.run(
@@ -123,3 +130,63 @@ def load():
                       "reading records in Python" % e)
         _LIB = None
     return _LIB
+
+
+# ----------------------------------------------------------------------
+# The C predict runtime (predict_native.cc; reference c_predict_api.cc)
+# ----------------------------------------------------------------------
+
+_PRED_SRC = Path(__file__).resolve().parent / "predict_native.cc"
+_PRED_LIB = None
+_PRED_TRIED = False
+
+
+def predict_so_path():
+    """Where the predict runtime is built to (for linking C programs
+    against it, with ``mxnet_predict.h`` beside its source)."""
+    return _cache_dir() / "libmxtpu_predict.so"
+
+
+def load_predict():
+    """The C predict runtime, built first if needed; None when there is
+    no toolchain or the build fails."""
+    global _PRED_LIB, _PRED_TRIED
+    if _PRED_TRIED:
+        return _PRED_LIB
+    _PRED_TRIED = True
+    if os.environ.get("MXNET_TPU_NATIVE", "1") == "0":
+        return None
+    try:
+        so = predict_so_path()
+        if not _current(so, _PRED_SRC):
+            _build(_PRED_SRC, so)
+        lib = ctypes.CDLL(str(so))
+        lib.MXPredGetLastError.restype = ctypes.c_char_p
+        lib.MXPredCreate.restype = ctypes.c_int
+        lib.MXPredCreate.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                     ctypes.POINTER(ctypes.c_void_p)]
+        lib.MXPredCreateFromFile.restype = ctypes.c_int
+        lib.MXPredCreateFromFile.argtypes = [
+            ctypes.c_char_p, ctypes.POINTER(ctypes.c_void_p)]
+        lib.MXPredSetInput.restype = ctypes.c_int
+        lib.MXPredSetInput.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p,
+            ctypes.POINTER(ctypes.c_float),
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int]
+        lib.MXPredForward.restype = ctypes.c_int
+        lib.MXPredForward.argtypes = [ctypes.c_void_p]
+        lib.MXPredGetOutputShape.restype = ctypes.c_int
+        lib.MXPredGetOutputShape.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int)]
+        lib.MXPredGetOutput.restype = ctypes.c_int
+        lib.MXPredGetOutput.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_float),
+            ctypes.c_int64]
+        lib.MXPredFree.argtypes = [ctypes.c_void_p]
+        _PRED_LIB = lib
+    except Exception as e:  # no toolchain or a failed build
+        warnings.warn("mxnet_tpu_torch native predict runtime "
+                      "unavailable: %s" % e)
+        _PRED_LIB = None
+    return _PRED_LIB

@@ -80,6 +80,13 @@ _VARS = [
            "and, on the first non-finite step, recomputes the gradients "
            "from the kept weights to name WHICH parameter went NaN/Inf, "
            "then raises NonFiniteError.  Off: no host read."),
+    EnvVar("MXNET_TPU_SERVING_PREDICTOR_CACHE", int, 8,
+           "LRU bound on mx.Predictor's per-input-shape cache: at most "
+           "this many shape classes keep their captured graph (on the "
+           "card); the least-recently-used one is dropped beyond it, its "
+           "graph and memory pool freed (counted in "
+           "serving.compile_evictions).  Per-predictor override: "
+           "Predictor(jit_cache_size=...)."),
     EnvVar("MXNET_TPU_SERVING_PREFILL_BUCKETS", str, "16,32,64,128",
            "Prompt-length buckets of prefill (batch 1); the largest is "
            "the longest admissible prompt."),

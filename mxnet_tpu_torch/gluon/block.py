@@ -61,6 +61,12 @@ of running statistics, ``cast``) makes the entry capture again.  A
 hybridized child inside a hybridized parent (or a ``TrainStep``, a
 serving pool) runs its plain forward as part of the owner's program.
 
+Called with symbols (``mx.sym.var``), a block builds a graph in place of
+running: a ``HybridBlock`` runs ``hybrid_forward(mx.sym, ...)`` with each
+parameter as its variable, which ``export`` writes as ``-symbol.json``
+beside a ``.params`` file; :class:`SymbolBlock` runs such a graph back as
+a block.
+
 :func:`param_values_from` runs forwards over other tensors than the
 parameters' own, in the calling thread only: a servable reads its
 snapshot of the weights through it while the same block trains in
@@ -85,10 +91,11 @@ from .. import profiling as _profiling
 from ..base import MXNetError
 from ..ndarray import NDArray
 from ..ndarray import ndarray as _nd_mod
+from ..symbol.symbol import Symbol
 from .parameter import (DeferredInitializationError, Parameter,
                         ParameterDict, shape_is_known)
 
-__all__ = ["Block", "HybridBlock", "param_values_from"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "param_values_from"]
 
 _naming = threading.local()
 _bound = threading.local()
@@ -314,6 +321,9 @@ class Block(torch.nn.Module):
     def __call__(self, *args, **kwargs):
         for hook in self._mx_pre_hooks:
             hook(self, args)
+        if any(isinstance(a, Symbol) for a in args):
+            # symbol mode (export): a graph, not a tensor call
+            return self._symbolic_call(*args)
         if not any(isinstance(a, NDArray) for a in args + tuple(
                 kwargs.values())):
             return self._call_tensors(*args, **kwargs)
@@ -326,6 +336,11 @@ class Block(torch.nn.Module):
         """The call on tensors: ``torch.nn.Module``'s, which runs
         ``forward``."""
         return torch.nn.Module.__call__(self, *args, **kwargs)
+
+    def _symbolic_call(self, *args):
+        """The call on symbols: ``forward`` builds the graph (a
+        container's forward calls its children on the symbols)."""
+        return self.forward(*args)
 
     def __repr__(self):
         lines = [type(self).__name__ + "("]
@@ -584,3 +599,110 @@ class HybridBlock(Block):
 
     def hybrid_forward(self, F, *args, **kwargs):
         raise NotImplementedError
+
+    def _symbolic_call(self, *args):
+        """``hybrid_forward(mx.sym, *args, **params)`` with each
+        parameter as its variable (:meth:`Parameter.var`): the graph
+        that ``export`` writes.  It bypasses ``torch.nn.Module``'s call,
+        the graph cache and the profiler's range.  A block that
+        overrides ``forward`` builds the graph in it; a layer whose
+        forward needs a tensor's data or shape raises naming itself."""
+        if type(self).forward is not HybridBlock.forward:
+            return self.forward(*args)
+        from .. import symbol as _sym
+        params = {k: p.var() for k, p in self._reg_params.items()}
+        try:
+            return self.hybrid_forward(_sym, *args, **params)
+        except (AttributeError, TypeError) as e:
+            raise MXNetError("%s: hybrid_forward does not trace to a "
+                             "symbol graph: %s" % (type(self).__name__, e)
+                             ) from e
+
+    def export(self, path, epoch=0):
+        """Write ``path-symbol.json`` (the forward traced with ``F =
+        mx.sym``) and ``path-%04d.params`` (``arg:``/``aux:`` names);
+        returns the two file names."""
+        from ..symbol.export import export_block
+        return export_block(self, path, epoch)
+
+    def optimize_for(self, x, backend=None, **kwargs):
+        """Hybridize and call on ``x`` (the JAX package's: no backend
+        graph pass)."""
+        self.hybridize()
+        return self(x)
+
+
+def _params_on(params, device):
+    """``params`` (a ``.params`` file, or ``{name: NDArray, tensor or
+    array}``) as tensors, each copied once onto ``device``; the names
+    keep their ``arg:``/``aux:`` prefixes (:class:`SymbolBlock` reads
+    them)."""
+    if isinstance(params, str):
+        params = _nd_mod.load_tensors(params)
+    out = {}
+    for k, v in (params or {}).items():
+        v = v._data if isinstance(v, NDArray) else v
+        if not isinstance(v, torch.Tensor):
+            import numpy as np
+            v = torch.from_numpy(np.ascontiguousarray(np.asarray(v)))
+        out[k] = v.detach().to(device)
+    return out
+
+
+class SymbolBlock(HybridBlock):
+    """A loaded symbol graph run as a block (counterpart of the JAX
+    package's ``SymbolBlock``; reference ``gluon.SymbolBlock``).
+
+    ``outputs`` is the graph, ``inputs`` the names (or variables) of the
+    arguments a call binds, in order; ``params`` maps every other
+    argument's name to its value (tensors or NDArrays; a name ``aux:``
+    prefixed, as an exported file writes a running statistic, is a
+    parameter that takes no gradient).  A call walks the graph
+    (``_eval_symbol``) over its arguments and the parameters' tensors;
+    ``hybridize()`` turns on the shape-keyed cache like any
+    ``HybridBlock``: one captured graph a key on the card.  A training
+    call uses the batch's statistics and leaves the running statistics
+    as they are, as the JAX block does.
+    """
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix="", params=None)
+        if isinstance(inputs, (Symbol, str)):
+            inputs = [inputs]
+        object.__setattr__(self, "_outputs", outputs)
+        object.__setattr__(self, "_inputs", [
+            s.name if isinstance(s, Symbol) else str(s) for s in inputs])
+        for key, arr in (params or {}).items():
+            kind, name = key.split(":", 1) if ":" in key else ("", key)
+            data = arr._data if isinstance(arr, NDArray) else arr
+            if not isinstance(data, torch.Tensor):
+                data = torch.as_tensor(data)
+            p = Parameter(name, shape=tuple(data.shape),
+                          dtype=str(data.dtype).replace("torch.", ""),
+                          grad_req="null" if kind == "aux" else "write")
+            p._data = p._wrap(data.detach())
+            self._reg_params[name] = p
+            self._scope_params._params[name] = p
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A ``SymbolBlock`` of ``symbol_file`` and ``param_file`` (an
+        exported pair), its parameters copied once onto ``ctx`` (the
+        current context by default: the card unless a ``with mx.cpu():``
+        is in force)."""
+        from ..context import current_context, resolve_device
+        from ..symbol import load as sym_load
+        device = resolve_device(ctx if ctx is not None
+                                else current_context())
+        return SymbolBlock(sym_load(symbol_file), input_names,
+                           _params_on(param_file, device))
+
+    def forward(self, *args):
+        from ..symbol.symbol import _eval_symbol
+        if any(isinstance(a, Symbol) for a in args):
+            raise MXNetError("SymbolBlock: composing a loaded graph into "
+                             "another symbol graph is not supported")
+        feed = dict(self._param_values(*args))
+        feed.update(zip(self._inputs, args))
+        outs = _eval_symbol(self._outputs, feed)
+        return outs[0] if len(outs) == 1 else outs

@@ -1,6 +1,6 @@
-"""Gluon layers (counterpart of ``mxnet_tpu/gluon/nn``).  ``SymbolBlock``
-is not ported yet."""
-from ..block import Block, HybridBlock
+"""Gluon layers (counterpart of ``mxnet_tpu/gluon/nn``), with
+``SymbolBlock`` (an exported graph run as a block)."""
+from ..block import Block, HybridBlock, SymbolBlock
 from .activations import (ELU, GELU, SELU, Activation, LeakyReLU, PReLU,
                           Swish)
 from .basic_layers import (BatchNorm, Dense, Dropout, Embedding, Flatten,
@@ -24,5 +24,6 @@ __all__ = ["Activation", "AvgPool1D", "AvgPool2D", "AvgPool3D", "BatchNorm",
            "InstanceNorm", "Lambda", "LayerNorm", "LeakyReLU", "MaxPool1D",
            "MaxPool2D", "MaxPool3D", "MultiHeadAttention", "PReLU",
            "PositionwiseFFN", "ReflectionPad2D", "SELU", "Sequential",
+           "SymbolBlock",
            "Swish", "SyncBatchNorm", "TransformerEncoder",
            "TransformerEncoderCell"]

@@ -4,8 +4,6 @@
 (exact, as the JAX package's) and ``Swish``."""
 from __future__ import annotations
 
-import torch
-
 from ..block import HybridBlock
 
 __all__ = ["Activation", "ELU", "GELU", "LeakyReLU", "PReLU", "SELU",
@@ -44,7 +42,7 @@ class PReLU(HybridBlock):
                                          init=alpha_initializer)
 
     def hybrid_forward(self, F, x, alpha):
-        return F.prelu(x, alpha)
+        return F._prelu(x, alpha)
 
 
 class ELU(HybridBlock):
@@ -72,4 +70,4 @@ class Swish(HybridBlock):
         self._beta = beta
 
     def hybrid_forward(self, F, x):
-        return x * torch.sigmoid(self._beta * x)
+        return x * F.sigmoid(self._beta * x)

@@ -11,6 +11,7 @@ import math
 from ... import autograd
 from ... import ops
 from ...base import MXNetError
+from ...symbol.symbol import Symbol
 from ..block import Block, HybridBlock
 from ..parameter import _dtype
 from .activations import Activation
@@ -51,16 +52,24 @@ def _bn_relu_fusion_plan(children, ndim):
     consumed).  The port has no switch for the kernel tier, so the plan
     is always armed; a BatchNorm whose axis is not the input's last
     (``ndim`` axes) stays unpaired and runs BatchNorm then Activation,
-    which is what the fused op computes for it in the JAX package."""
+    which is what the fused op computes for it in the JAX package.
+    ``ndim`` None (a symbol, whose rank is unknown) raises where the
+    pairing depends on it."""
     blocks = list(children)
     plan = []
     i = 0
     while i < len(blocks):
         b = blocks[i]
         nxt = blocks[i + 1] if i + 1 < len(blocks) else None
-        if type(b) in (BatchNorm, SyncBatchNorm) \
-                and b._axis in (-1, ndim - 1) \
-                and type(nxt) is Activation and nxt._act == "relu":
+        pair = type(b) in (BatchNorm, SyncBatchNorm) \
+            and type(nxt) is Activation and nxt._act == "relu"
+        if pair and b._axis != -1 and ndim is None:
+            raise MXNetError(
+                "HybridSequential: the graph pairs BatchNorm(axis=%d) "
+                "with its relu only when that axis is the input's last; "
+                "run the block once at its input shape before export"
+                % b._axis)
+        if pair and b._axis in (-1, (ndim or 0) - 1):
             plan.append((b, True))
             i += 2
             continue
@@ -70,18 +79,24 @@ def _bn_relu_fusion_plan(children, ndim):
 
 
 class HybridSequential(HybridBlock):
-    """Stack of hybrid blocks run in order, BatchNorm+ReLU pairs fused."""
+    """Stack of hybrid blocks run in order, BatchNorm+ReLU pairs fused.
+    The rank of the last tensor it ran on decides the pairs of its
+    symbol graph (``export``), so the graph fuses where the tensor
+    forward does."""
 
     def __init__(self, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
+        object.__setattr__(self, "_ndim", None)
 
     def add(self, *blocks):
         for b in blocks:
             self.add_module(str(len(self._children)), b)
 
     def hybrid_forward(self, F, x):
+        if not isinstance(x, Symbol):
+            object.__setattr__(self, "_ndim", x.dim())
         for b, fused in _bn_relu_fusion_plan(self._children.values(),
-                                             x.dim()):
+                                             self._ndim):
             x = b._forward_fused_relu(x) if fused else b(x)
         return x
 
@@ -166,14 +181,19 @@ class BatchNorm(HybridBlock):
                   self.running_var):
             p.shape = (c,)
 
-    def _op_kwargs(self):
-        return dict(eps=self._eps, momentum=self._momentum,
-                    fix_gamma=not self._scale,
-                    use_global_stats=self._use_global_stats,
-                    axis=self._axis, training=autograd.is_training())
+    def _op_kwargs(self, symbolic=False):
+        kwargs = dict(eps=self._eps, momentum=self._momentum,
+                      fix_gamma=not self._scale,
+                      use_global_stats=self._use_global_stats,
+                      axis=self._axis)
+        if not symbolic:
+            # a graph's node takes the mode of the walk that runs it
+            kwargs["training"] = autograd.is_training()
+        return kwargs
 
     def _rebind_stats(self, new_mean, new_var):
-        if autograd.is_training() and not self._use_global_stats:
+        if autograd.is_training() and not self._use_global_stats \
+                and not isinstance(new_mean, Symbol):
             self.running_mean._update_aux(new_mean)
             self.running_var._update_aux(new_var)
 
@@ -184,14 +204,23 @@ class BatchNorm(HybridBlock):
 
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
         out, new_mean, new_var = F.BatchNorm(
-            x, gamma, beta, running_mean, running_var, **self._op_kwargs())
+            x, gamma, beta, running_mean, running_var,
+            **self._op_kwargs(isinstance(x, Symbol)))
         self._rebind_stats(new_mean, new_var)
         return out
 
     def _forward_fused_relu(self, x):
         """BatchNorm followed by relu through the fused op: the
-        ``HybridSequential`` fusion-site entry.  Same running-statistic
+        ``HybridSequential`` fusion-site entry (in symbol mode, a
+        ``fused_batch_norm_relu`` node).  Same running-statistic
         contract as ``hybrid_forward``."""
+        if isinstance(x, Symbol):
+            from ... import symbol as F
+            p = {k: q.var() for k, q in self._reg_params.items()}
+            out, _mean, _var = F.fused_batch_norm_relu(
+                x, p["gamma"], p["beta"], p["running_mean"],
+                p["running_var"], **self._op_kwargs(symbolic=True))
+            return out
         p = self._param_values(x)
         out, new_mean, new_var = ops.fused_batch_norm_relu(
             x, p["gamma"], p["beta"], p["running_mean"], p["running_var"],
@@ -228,6 +257,9 @@ class Dropout(HybridBlock):
     def hybrid_forward(self, F, x):
         if self._rate <= 0:
             return x
+        if isinstance(x, Symbol):
+            # the node takes the mode of the walk that runs it
+            return F.Dropout(x, p=self._rate, axes=self._axes)
         return F.Dropout(x, p=self._rate, axes=self._axes,
                          training=autograd.is_training())
 

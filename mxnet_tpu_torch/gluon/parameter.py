@@ -214,6 +214,14 @@ class Parameter:
             init, _dev, default_init, generator = self._deferred_init
             self._deferred_init = (init, device, default_init, generator)
 
+    def var(self):
+        """The parameter as a variable of a symbol graph
+        (``mx.sym.var(name, shape=, dtype=)``), as ``export`` writes
+        it."""
+        from ..symbol import var
+        return var(self.name, shape=self.shape,
+                   dtype=str(self.dtype).replace("torch.", ""))
+
     def _reduce(self):
         """The value to save."""
         return self.data()

@@ -129,11 +129,15 @@ def list_kernels() -> List[str]:
 def dispatch(name: str, x, *args, **kwargs):
     """Run kernel ``name`` on ``x`` (and the rest of its arguments):
     its launcher when ``x`` lies on a CUDA device, its plain version
-    when ``x`` lies on the CPU."""
+    when ``x`` lies on the CPU.  On ``meta`` tensors, which hold no
+    data (a symbol graph's shape inference), the plain version gives
+    the output shapes."""
     spec = get(name)
     kind = x.device.type
     if kind == "cuda":
         return spec.launch(x, *args, **kwargs)
+    if kind == "meta":
+        return spec.plain(x, *args, **kwargs)
     if kind == "cpu":
         walk = _walk_of_thread()
         if walk is None:

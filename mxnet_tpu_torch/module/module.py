@@ -189,7 +189,10 @@ class Module(BaseModule):
                     allow_extra=False):
         """Copy ``arg_params``/``aux_params`` into the bound arrays (on
         their device); a parameter they lack runs ``initializer`` with
-        its ``InitDesc``, or raises unless ``allow_missing``."""
+        its ``InitDesc``, or raises unless ``allow_missing``.  A graph
+        argument found only in ``aux_params`` is taken from there: an
+        exported block's running statistics are arguments of its graph
+        and ``aux:`` entries of its ``.params``."""
         if not self.binded:
             raise MXNetError("call bind before init_params")
         if self.params_initialized and not force_init:
@@ -202,6 +205,8 @@ class Module(BaseModule):
                 arr = self._exec.arg_dict[name]._data
                 if arg_params is not None and name in arg_params:
                     arr.copy_(arg_params[name]._data)
+                elif aux_params is not None and name in aux_params:
+                    arr.copy_(aux_params[name]._data)
                 elif arg_params is not None and not allow_missing:
                     raise MXNetError("missing parameter %r (pass "
                                      "allow_missing=True to initialize it)"

@@ -19,10 +19,20 @@ Sources:
   from a manifest-verified
   :class:`~mxnet_tpu_torch.checkpoint.CheckpointManager` step (the
   newest intact one by default) into the block, then served as a block;
+- **symbol and params** (``symbol=``/``params=``): a ``-symbol.json``
+  graph (a path or a Symbol) and its parameters (a ``.params`` path or
+  a dict; the reference's ``arg:``/``aux:`` prefixes accepted) as a
+  :class:`~mxnet_tpu_torch.gluon.SymbolBlock`, served as a block whose
+  snapshot lies on the current context's device (the card unless a
+  ``with mx.cpu():`` is in force); ``input_name=`` picks the batched
+  input when the graph has several;
+- **ONNX** (``onnx=``): ``mx.onnx.import_model``, third-party files
+  included, then served as a graph;
 - ``register_generative(params=)`` or ``(checkpoint=)``: a decoder's
   weights from a dict or from a checkpoint's ``params`` item.
 
-``symbol=`` and ``onnx=`` are not ported yet.
+A graph source's fingerprint digests the graph's JSON and its
+parameters' names, shapes and dtypes in place of a block's structure.
 
 Registration warms every bucket, checks the predicted peak device memory
 of each against the card's (:meth:`ModelRegistry._validate_hbm`, a
@@ -44,6 +54,8 @@ captures its buckets anew (counted as compile-cache misses).
     reg.shutdown(drain=True)
 """
 from __future__ import annotations
+
+import hashlib
 
 import torch
 
@@ -93,12 +105,16 @@ def _structure(block):
     structural path, class and settings, and each parameter's
     structural name, shape and dtype -- nothing that depends on the
     instance's name."""
-    return {"blocks": [[path, type(m).__name__, _config(m)]
-                       for path, m in block.named_modules()],
-            "params": [[k, list(p._data.shape), str(p._data.dtype)]
-                       for k, p in sorted(
-                           block._collect_params_with_prefix().items())
-                       if p._data is not None]}
+    out = {"blocks": [[path, type(m).__name__, _config(m)]
+                      for path, m in block.named_modules()],
+           "params": [[k, list(p._data.shape), str(p._data.dtype)]
+                      for k, p in sorted(
+                          block._collect_params_with_prefix().items())
+                      if p._data is not None]}
+    graph = getattr(block, "_outputs", None)
+    if graph is not None:               # a SymbolBlock: its graph's JSON
+        out["graph"] = hashlib.sha256(graph.tojson().encode()).hexdigest()
+    return out
 
 
 def _manager(checkpoint):
@@ -196,13 +212,15 @@ class ModelRegistry:
                  max_wait_ms=None, max_queue=None, warmup=True):
         """Load a model from one source into a warm servable handle.
 
-        ``block`` is the source (``checkpoint`` composes with it: the
-        newest intact step, or ``step``, is restored into the block
+        Exactly one of ``block``, ``symbol`` (with ``params``) and
+        ``onnx`` is the source (``checkpoint`` composes with ``block``:
+        the newest intact step, or ``step``, is restored into the block
         first).  ``input_shape`` is the per-sample shape (no batch dim)
-        and is required.  The forward runs on the device the block's
-        parameters lie on.  Registration runs every bucket once, so no
-        request pays a first run; re-registering a name drains and
-        replaces the previous servable.
+        and is required.  A block's forward runs on the device its
+        parameters lie on, a graph's on the current context's.
+        Registration runs every bucket once, so no request pays a first
+        run; re-registering a name drains and replaces the previous
+        servable.
         """
         if input_shape is None:
             raise MXNetError("serving.register needs input_shape "
@@ -213,17 +231,24 @@ class ModelRegistry:
         if sum(s is not None for s in (block, symbol, onnx)) != 1:
             raise MXNetError("serving.register needs exactly one of "
                              "block= / symbol= / onnx=")
-        if block is None:
-            raise MXNetError("serving.register: %s= is not yet ported; "
-                             "pass block=" % ("onnx" if onnx is not None
-                                              else "symbol"))
         if checkpoint is not None:
             self._restore_checkpoint(block, checkpoint, step)
             source = "checkpoint"
-        else:
+        elif block is not None:
             source = "block"
+        elif onnx is not None:
+            source = "onnx"
+        else:
+            source = "symbol"
+        device = None
+        if block is None:
+            # a graph source: its SymbolBlock, served on the current
+            # context's device
+            from ..context import current_context
+            block = self._graph_block(symbol, params, onnx, input_name)
+            device = resolve_device(current_context())
         fn, device, snapshot, structure = self._from_block(
-            block, input_shape, dtype)
+            block, input_shape, dtype, device)
         buckets = tuple(buckets) if buckets else _default_buckets()
         pool = BucketExecutorPool(
             fn, input_shape, dtype, buckets, device,
@@ -391,21 +416,23 @@ class ModelRegistry:
         return ckpt
 
     @staticmethod
-    def _from_block(block, input_shape, dtype):
+    def _from_block(block, input_shape, dtype, device=None):
         """``(fn, device, snapshot, structure)`` of a block:
         ``fn(x) -> tuple(outputs)`` runs the block's forward over
-        ``snapshot``, copies of its parameters taken now, on the device
-        they lie on; ``structure`` describes the block for the pool's
-        fingerprint.  Parameters whose shape is still deferred are sized
-        by one probe forward first (outside inference mode, so the new
-        parameters can take gradients later)."""
+        ``snapshot``, copies of its parameters taken now, on ``device``
+        (by default the one they lie on); ``structure`` describes the
+        block for the pool's fingerprint.  Parameters whose shape is
+        still deferred are sized by one probe forward first (outside
+        inference mode, so the new parameters can take gradients
+        later)."""
         from ..gluon.block import param_values_from
         from ..gluon.block import HybridBlock
         if not isinstance(block, HybridBlock):
             raise MXNetError("serving: block= expects a HybridBlock")
         params = list(block._all_params())
-        device = next((p._data.device for p in params
-                       if p._data is not None), None)
+        if device is None:
+            device = next((p._data.device for p in params
+                           if p._data is not None), None)
         if device is None:
             device = next((p._deferred_init[1] for p in params
                            if p._deferred_init is not None), None)
@@ -418,8 +445,8 @@ class ModelRegistry:
             with autograd.pause():
                 block(probe)
         with torch.no_grad():
-            values = {p: p._data.detach().clone() for p in params
-                      if p._data is not None}
+            values = {p: p._data.detach().to(device, copy=True)
+                      for p in params if p._data is not None}
 
         def fn(x):
             with param_values_from(values):
@@ -427,6 +454,47 @@ class ModelRegistry:
             return tuple(out) if isinstance(out, (tuple, list)) else (out,)
 
         return fn, device, list(values.values()), _structure(block)
+
+    @staticmethod
+    def _graph_block(symbol, params, onnx, input_name):
+        """The :class:`~..gluon.SymbolBlock` of a graph source: a
+        ``-symbol.json`` path or a Symbol with its parameters (a
+        ``.params`` path or a dict, ``arg:``/``aux:`` prefixes
+        accepted), or an ONNX file; its one batched input is
+        ``input_name`` or the one argument the parameters leave."""
+        from ..gluon.block import SymbolBlock
+        from ..ndarray import ndarray as _nd
+        from ..symbol import symbol as sym_mod
+        if onnx is not None:
+            from ..onnx import import_model
+            sym, arg_params, aux_params = import_model(onnx)
+            params = dict(arg_params)
+            params.update({"aux:" + k: v for k, v in aux_params.items()})
+        else:
+            sym = sym_mod.load(symbol) if isinstance(symbol, str) \
+                else symbol
+            params = _nd.load_tensors(params) if isinstance(params, str) \
+                else dict(params or {})
+        given = {k.split(":", 1)[-1] for k in params}
+        arg_names = sym.list_arguments()
+        aux_names = sym.list_auxiliary_states()
+        inputs = [n for n in arg_names
+                  if n not in given and n not in aux_names]
+        if input_name is None:
+            if len(inputs) != 1:
+                raise MXNetError(
+                    "serving: graph has inputs %r; pass input_name= to "
+                    "pick the batched one (others must be in params)"
+                    % (inputs,))
+            input_name = inputs[0]
+        elif input_name not in arg_names:
+            raise MXNetError("serving: unknown input %r (arguments: %s)"
+                             % (input_name, arg_names))
+        missing = [n for n in aux_names if n not in given]
+        if missing:
+            raise MXNetError("serving: aux states %r missing from "
+                             "params" % (missing,))
+        return SymbolBlock(sym, [input_name], params)
 
     # -- lookup / client ------------------------------------------------
     def servable(self, name):

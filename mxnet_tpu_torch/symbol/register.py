@@ -3,7 +3,9 @@
 of the port's op table, as ``mx.nd``'s, which makes a graph node in
 place of running the op.  A function takes the op's tensor arguments
 as symbols, positionally or by name (``*data`` for a variadic op), its
-parameters by name, and ``name=``/``attr=``."""
+parameters by name, and ``name=``/``attr=``.  The node's attributes
+keep the JAX package's order, so a graph's ``-symbol.json`` is byte for
+byte the JAX package's."""
 from __future__ import annotations
 
 from ..ops import table
@@ -20,7 +22,11 @@ def _make_function(spec, pyname):
                 if a in kwargs:
                     inputs.append(kwargs.pop(a))
             inputs = [a for a in inputs if a is not None]
-        return _make_node(spec.name, inputs, kwargs, name=name)
+        # the JAX package's attribute order: keywords the op does not
+        # declare, as given, then its parameters in declared order
+        params = {k: v for k, v in kwargs.items() if k not in spec.params}
+        params.update((k, kwargs[k]) for k in spec.params if k in kwargs)
+        return _make_node(spec.name, inputs, params, name=name)
 
     fn.__name__ = fn.__qualname__ = pyname
     fn.__doc__ = spec.fn.__doc__

@@ -260,11 +260,12 @@ def _parse_attr_value(v):
 
 # ops whose further outputs are states: a whole such symbol composed as
 # an input means its first output
-_PRIMARY_FIRST = {"BatchNorm", "RNN"}
+_PRIMARY_FIRST = {"BatchNorm", "RNN", "fused_batch_norm_relu"}
 
 # aux-state arguments: the output index carrying each one's new value,
 # which an executor writes back after a training forward
-_AUX_ARGS = {"BatchNorm": {"moving_mean": 1, "moving_var": 2}}
+_AUX_ARGS = {"BatchNorm": {"moving_mean": 1, "moving_var": 2},
+             "fused_batch_norm_relu": {"moving_mean": 1, "moving_var": 2}}
 
 
 def _skip_auto_var(opname, params, arg_name):
@@ -317,7 +318,7 @@ def _num_outputs(spec, node):
     """How many outputs a node's op gives, from its attributes."""
     if spec.name == "split":
         return int(_parse_attr_value(node.attrs.get("num_outputs", 1)))
-    if spec.name == "BatchNorm":
+    if spec.name in ("BatchNorm", "fused_batch_norm_relu"):
         return 3
     if spec.name == "RNN":
         return 3 if node.attrs.get("mode", "lstm") == "lstm" else 2

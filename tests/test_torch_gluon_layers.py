@@ -247,7 +247,7 @@ def test_layers_compose_and_hybridize_in_a_sequential():
 def test_nn_reexports_match_the_jax_package():
     missing = sorted(n for n in dir(jnn) if not n.startswith("_")
                      and not hasattr(tnn, n))
-    # SymbolBlock waits for the symbol slice (ROADMAP item 10)
-    assert missing == ["SymbolBlock"]
+    assert missing == []
     from mxnet_tpu_torch.gluon import block
     assert tnn.Block is block.Block and tnn.HybridBlock is block.HybridBlock
+    assert tnn.SymbolBlock is block.SymbolBlock

@@ -425,7 +425,7 @@ def test_symbolic_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
 def test_env_registry_defaults_and_typed_reads(monkeypatch):
     from mxnet_tpu import env as jax_env
     from mxnet_tpu_torch import env
-    assert len(env.REGISTRY) == 47
+    assert len(env.REGISTRY) == 48
     for name, var in env.REGISTRY.items():
         assert var.default == jax_env.REGISTRY[name].default, name
         assert var.type is jax_env.REGISTRY[name].type, name

@@ -121,6 +121,82 @@ def test_register_block_numerics_match_the_jax_registry(registry,
                                atol=1e-6)
 
 
+def _exported_convnet(tmp_path):
+    """The JAX convnet with its running statistics and scales off their
+    defaults, the port's with the same weights, and the port's export of
+    it; returns ``(jax net, port net, symbol file, params file)``."""
+    jnet = _convnet(pkg=jgluon)
+    rng = np.random.RandomState(7)
+    for name, p in sorted(jnet.collect_params().items()):
+        a = rng.rand(*p.shape) + 0.5 if name.endswith(("var", "gamma")) \
+            else 0.3 * rng.randn(*p.shape)
+        p.set_data(jmx.nd.array(a.astype(np.float32)))
+    net = _convnet()
+    params_from_numpy(net, _weights(jnet))
+    files = net.export(str(tmp_path / "convnet"))
+    return jnet, net, files[0], files[1]
+
+
+@pytest.mark.parametrize("source", ["symbol", "onnx"])
+def test_register_graph_sources_match_the_jax_registry(registry, jregistry,
+                                                       tmp_path, source):
+    """``register(symbol=, params=)`` and ``register(onnx=)`` on the
+    port's export, against the JAX registry fed the same files: answers
+    within 1e-4 of the largest, and of the net's own forward."""
+    jnet, net, sym_file, params_file = _exported_convnet(tmp_path)
+    if source == "onnx":
+        onnx_file = mx.onnx.export_model(
+            sym_file, params_file, in_shapes=[(1, 3, 8, 8)],
+            onnx_file_path=str(tmp_path / "convnet.onnx"))
+        kw = dict(onnx=onnx_file)
+    else:
+        kw = dict(symbol=sym_file, params=params_file)
+    kw.update(input_shape=(3, 8, 8), buckets=(1, 2), max_wait_ms=1)
+    js = jregistry.register("g", **kw)
+    s = registry.register("g", **kw)
+    assert s.source == js.source == source
+    xs = np.random.RandomState(1).randn(3, 3, 8, 8).astype(np.float32)
+    got = np.stack([f.result(timeout=10) for f in
+                    [s.submit(x) for x in xs]])
+    want = np.stack([js.infer(x, timeout=10) for x in xs])
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() <= 1e-4 * scale
+    assert np.abs(got - _forward(net, xs)).max() <= 1e-4 * scale
+    jout = jnet(jmx.nd.array(xs)).asnumpy()
+    assert np.abs(got - jout).max() <= 1e-4 * scale
+
+
+def test_graph_source_inputs_aux_and_fingerprint(registry, tmp_path):
+    _jnet, net, sym_file, params_file = _exported_convnet(tmp_path)
+    from mxnet_tpu_torch.ndarray.ndarray import load_tensors
+    params = load_tensors(params_file)
+    # a Symbol and a dict with the reference's prefixes, input named
+    sym = mx.sym.load(sym_file)
+    s = registry.register("a", symbol=sym, params=params, input_name="data",
+                          input_shape=(3, 8, 8), buckets=(1,))
+    b = registry.register("b", block=net, input_shape=(3, 8, 8),
+                          buckets=(1,))
+    assert s.fingerprint(1) and s.fingerprint(1) != b.fingerprint(1)
+    again = registry.register("c", symbol=sym_file, params=params_file,
+                              input_shape=(3, 8, 8), buckets=(1,))
+    assert again.fingerprint(1) == s.fingerprint(1)
+    with pytest.raises(MXNetError, match="unknown input"):
+        registry.register("d", symbol=sym, params=params, input_name="x",
+                          input_shape=(3, 8, 8), buckets=(1,))
+    # an aux state the graph marks (``__aux__``) must come with params
+    data = mx.sym.var("data")
+    with mx.AttrScope(__aux__="1"):
+        mean = mx.sym.var("mean")
+    graph = mx.sym.broadcast_sub(data, mean)
+    with pytest.raises(MXNetError, match="aux states"):
+        registry.register("e", symbol=graph, params={},
+                          input_shape=(4,), buckets=(1,))
+    x = np.ones((3, 8, 8), np.float32)
+    np.testing.assert_allclose(s.infer(x, timeout=10),
+                               _forward(net, x[None])[0], rtol=1e-5,
+                               atol=1e-6)
+
+
 @pytest.mark.parametrize("writer", ["port", "jax"])
 def test_register_checkpoint_manifest(registry, jregistry, tmp_path,
                                       writer):
@@ -178,17 +254,25 @@ def test_register_checkpoint_restores_a_deferred_block(registry, tmp_path):
     (dict(input_shape=(8,)), "exactly one"),
     (dict(block="net", onnx="x.onnx", input_shape=(8,)), "exactly one"),
     (dict(checkpoint="/nope", input_shape=(8,)), "needs block"),
-    (dict(symbol="m-symbol.json", input_shape=(8,)), "not yet ported"),
-    (dict(onnx="x.onnx", input_shape=(8,)), "not yet ported"),
+    (dict(symbol="fc", input_shape=(8,)), "pass input_name"),
+    (dict(onnx="garbage", input_shape=(8,)), "onnx"),
     (dict(block="plain", input_shape=(8,)), "HybridBlock"),
 ], ids=["no-input-shape", "no-source", "two-sources", "ckpt-no-block",
         "symbol", "onnx", "not-hybrid"])
-def test_register_validation(registry, kwargs, match):
+def test_register_validation(registry, kwargs, match, tmp_path):
     kwargs = dict(kwargs)
     if kwargs.get("block") == "net":
         kwargs["block"] = _mlp()
     elif kwargs.get("block") == "plain":
         kwargs["block"] = gluon.Block()
+    if kwargs.get("symbol") == "fc":
+        # a graph whose weights are not given: three unbound inputs
+        kwargs["symbol"] = mx.sym.FullyConnected(mx.sym.var("data"),
+                                                 num_hidden=2)
+    if kwargs.get("onnx") == "garbage":
+        bad = tmp_path / "bad.onnx"
+        bad.write_bytes(b"\xff\xff\xff\xff")
+        kwargs["onnx"] = str(bad)
     with pytest.raises(MXNetError, match=match):
         registry.register("a", **kwargs)
 
