@@ -13,6 +13,7 @@ without the whole smoke run.
     cd <checkout> && python3 <repo>/chip_paths.py bertbf16
     cd <checkout> && python3 <repo>/chip_paths.py layernorm
     cd <checkout> && python3 <repo>/chip_paths.py deploy
+    cd <checkout> && python3 <repo>/chip_paths.py contrib
 
 ``decode`` is ``chip_smoke.main_path`` (GPT-2 small decode serving),
 ``mnist`` is ``mnist_main_path`` (the imperative LeNet loop, then 100
@@ -44,12 +45,18 @@ captured-against-eager hold) and ``layernorm`` is
 shares and routes) and ``deploy`` is ``deploy_phase`` (phase 20:
 ResNet-50 exported and run back through ``SymbolBlock``, ``Module``,
 ``mx.Predictor``, the ``.mxa`` archive, the registry's ``symbol=`` and
-``onnx=`` sources and the C predict runtime).  The
+``onnx=`` sources and the C predict runtime) and ``contrib`` is
+``contrib_phase`` (phase 21: the Avazu-scale sparse logistic regression
+through ``row_sparse_pull`` and row-sparse AdaGrad, int8 ResNet-50 by
+``quantize_model`` through ``Module`` and ``SymbolBlock``, and the
+linalg, interleaved-attention, detection and control-flow ops at user
+widths against the CPU).  The
 checkout's own ``chip_smoke`` and package are imported, its kernels
 built, and each path prints its lines as in the smoke run, under the
 same host-read check of every capture -- except ``hotswap``, which runs
 outside it as the smoke run does (its threads read results on the host
-while another captures).  Exits 1 when a path's check fails, 2 without a
+while another captures), and ``contrib``, which enters it itself for
+its inference and op families.  Exits 1 when a path's check fails, 2 without a
 card or on an unknown path.
 """
 from __future__ import annotations
@@ -65,8 +72,10 @@ PATHS = {"decode": "main_path", "mnist": "mnist_main_path",
          "hotswap": ("hotswap_phase", "generative_swap_phase"),
          "ops": "ops_plane_phase", "dist": "dist_phase",
          "symbolic": "symbolic_phase", "bertbf16": "bert_bf16_phase",
-         "layernorm": "layernorm_phase", "deploy": "deploy_phase"}
-UNCHECKED = {"hotswap", "ops", "dist"}  # outside checking_syncs()
+         "layernorm": "layernorm_phase", "deploy": "deploy_phase",
+         "contrib": "contrib_phase"}
+# outside checking_syncs() (contrib enters it for its checked parts)
+UNCHECKED = {"hotswap", "ops", "dist", "contrib"}
 
 
 def main(argv):

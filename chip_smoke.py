@@ -386,6 +386,55 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    while (4) serves.  Each step prints its times, sizes, rates and
    the card's name and power limit; the kernels line carries
    ``launches_deploy`` by route (every kernel but ``bn_relu_apply`` 0).
+21. sparse storage and the contrib op families, after phase 20, seed 0,
+   data made on the host.  (a) outside the host-read check: upstream
+   ``example/sparse/linear_classification`` at Avazu's scale -- 1,000,000
+   hashed features, batch 8,192, 15 ids a row from a Zipf(1.2) draw
+   capped at the feature count, values 1, labels from a planted weight
+   vector -- 100 steps of ``csr_matrix(..., ctx=mx.gpu(0))``,
+   ``row_sparse_pull`` of the batch's unique ids into a dense weight from
+   a ``local`` kvstore under ``AdaGrad(0.1, rescale_grad=1/8192)``,
+   ``sparse.dot`` forward, the logistic gradient by ``sparse.dot(...,
+   transpose_a=True)`` pushed at the batch's ids as a
+   ``RowSparseNDArray``: the log-loss of the last 10 steps under the
+   first 10's; the rows no batch named bitwise their initial value with
+   no history; three steps against a float64 numpy oracle and against
+   the port on the CPU (weights and history within 1e-5), one step of
+   SGD's lazy row update and of its momentum route against the oracle;
+   steps/s, rows and bytes pulled against the table's and the host syncs
+   a step.  (b) upstream ``example/quantization``'s
+   ``imagenet_gen_qsym.py`` -> ``imagenet_inference.py``: ResNet-50 v1
+   NCHW by phase 20's recipe, exported and loaded back,
+   ``quantize_model(calib_mode="naive")`` over 5 batches of 32 with the
+   stem excluded (52 ``quantized_conv``, 1 ``quantized_fully_connected``),
+   then ``mx.mod.Module`` and a hybridized ``SymbolBlock`` at b32 under
+   the host-read check: every int8 site's int32 accumulator on the card
+   bitwise the CPU's on the CPU walk's inputs, the logits of 4 images
+   within 1e-4 of the CPU run's largest or 4x the spread one ulp of the
+   input gives the CPU's own logits, if larger (one ulp before a
+   ``quantize_v2`` may round to the next int8 step, and the card's
+   float32 layers differ from the CPU's by ulps), the SymbolBlock within
+   1e-5 of the Module; ms a batch against the fp32 net's, the int8 logits'
+   error and top-1 agreement against fp32 over 256 images.  (c) under
+   the host-read check, each card result against the port's CPU run
+   within 1e-4 of its largest value: the linalg chain on 64 SPD 256 x 256
+   matrices (and its gradient; within 1e-4 of max(1, the largest value),
+   the log-determinants being near 0; the eigen- and singular values,
+   from cuSOLVER and from LAPACK, within 1e-3, and each device's
+   reconstruction within 1e-3 of its input) with ``moments`` over a
+   (32, 56, 56, 256) activation; BERT-base's interleaved
+   self-attention (seq 512, batch 8, 12 heads; forward and gradient,
+   and against ``flash_attention`` on
+   the same q, k, v outside the counted window) and its encoder-decoder
+   pair at qlen 128; ``box_iou`` of 8 x 6,000 against 8 x 100 boxes and
+   ``box_nms`` of (8, 6,000, 6) proposals at 0.7 (bitwise); ``ROIAlign``
+   with its gradient and ``ROIPooling`` on a (2, 1024, 38, 50) map, 128
+   ROIs an image, 14 x 14, scale 1/16 (the CPU on the first 16 ROIs);
+   ``foreach`` over an ``LSTMCell(650)`` for 35 steps at batch 32,
+   ``while_loop`` (64 steps) and ``cond`` on a device predicate, each
+   hybridized: one captured graph, replayed.  No hand kernel is on
+   these paths: the kernels line carries ``launches_contrib`` by part,
+   all 0.
 
 Every path runs from captured CUDA graphs (``mxnet_tpu_torch._capture``),
 the port's counterpart of the JAX package's compiled programs: one
@@ -406,10 +455,10 @@ BERT-base LAMB (dropout 0.1, batch 8 x seq 512) and ResNet-50 bf16 AMP
 LARS (batch 16), each four calls of one ``TrainStep`` (eager, captured,
 replayed, replayed after ``set_learning_rate``) against four eager
 steps on a copy of the net (losses, updates, the last update, every
-optimizer state).  Phases 1-15, 19 and 20 run under
-``_capture.checking_syncs()``: every capture and replay runs under
-``torch.cuda.set_sync_debug_mode("error")``, so a host read left inside
-a captured region fails it.
+optimizer state).  Phases 1-15, 19 and 20, and phase 21's inference
+and op families, run under ``_capture.checking_syncs()``: every
+capture and replay runs under ``torch.cuda.set_sync_debug_mode(
+"error")``, so a host read left inside a captured region fails it.
 
 The last two lines of standard output are a JSON object of per-kernel
 numbers and ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -9047,6 +9096,762 @@ def deploy_phase(make_net=resnet50_nhwc, make_nchw=resnet50_nchw,
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 21: sparse storage and the contrib op families
+# ---------------------------------------------------------------------
+# upstream example/sparse/linear_classification on Avazu: 1,000,000
+# hashed features, 15 nonzeros a row; ids from a seeded Zipf(1.2)
+SPARSE_FEATURES = 1_000_000
+SPARSE_BATCH = 8192
+SPARSE_NNZ = 15
+SPARSE_ZIPF = 1.2
+SPARSE_STEPS = 100
+SPARSE_LR = 0.1
+SPARSE_ORACLE_STEPS = 3
+SPARSE_ORACLE_TOL = 1e-5
+# example/quantization imagenet_gen_qsym.py -> imagenet_inference.py
+QUANT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "contrib-smoke")
+QUANT_BATCH = 32
+QUANT_CALIB_BATCHES = 5
+QUANT_CPU_IMAGES = 4
+QUANT_TOP1_IMAGES = 256
+QUANT_CONVS = 52                   # ResNet-50 v1's convolutions but the stem
+QUANT_LOGIT_TOL = 1e-4             # of the CPU run's largest logit
+QUANT_FLOOR_FACTOR = 4.0           # x the CPU's one-ulp-input spread
+# (c): the op families at user widths, card against the port's CPU run
+LINALG_BATCH, LINALG_N = 64, 256
+BERT_QKV = (512, 8, 12, 64)        # seq, batch, heads, head dim
+ENCDEC_QLEN = 128
+NMS_SHAPE = (8, 6000, 6)
+ROI_MAP = (2, 1024, 38, 50)
+ROI_PER_IMAGE = 128
+ROI_POOLED = (14, 14)
+ROI_CPU_ROIS = 16                  # the ROIs also run on the CPU
+LSTM_SCAN = (35, 32, 650)          # steps, batch, hidden
+WHILE_ITERS = 64
+CONTRIB_TOL = 1e-4
+LINALG_EIG_TOL = 1e-3
+# the card, then the CPU run it is held against ("cpu", "cpu" rehearses
+# part (c) on the CPU alone)
+CONTRIB_DEVICES = ("cuda", "cpu")
+
+
+def _host_syncs(run):
+    """``run()`` with PyTorch's sync debug mode warning at every call that
+    waits for the card; returns its result and the warnings' count."""
+    import warnings
+    import torch
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def sparse_logreg_data(steps, batch=SPARSE_BATCH, features=SPARSE_FEATURES,
+                       nnz=SPARSE_NNZ, seed=0):
+    """``steps`` CSR batches of ids drawn from Zipf(1.2) (capped at the
+    feature count), values 1, and labels drawn from a planted weight
+    vector; made on the host in bulk.  Each batch is ``(data, indices,
+    indptr, labels, unique ids)``."""
+    rng = np.random.default_rng(seed)
+    planted = rng.standard_normal(features).astype(np.float32) * 0.5
+    ids = np.minimum(rng.zipf(SPARSE_ZIPF, (steps, batch, nnz)) - 1,
+                     features - 1).astype(np.int32)
+    ids.sort(axis=-1)
+    indptr = np.arange(0, batch * nnz + 1, nnz, dtype=np.int32)
+    data = np.ones(batch * nnz, np.float32)
+    z = planted[ids].sum(-1) - 0.25
+    labels = (rng.random((steps, batch)) < 1 / (1 + np.exp(-z))) \
+        .astype(np.float32)
+    return [(data, ids[s].reshape(-1), indptr, labels[s].reshape(-1, 1),
+             np.unique(ids[s])) for s in range(steps)], planted
+
+
+def sparse_logreg_steps(batches, ctx, opt, w0, seed=0):
+    """The training loop of ``example/sparse/linear_classification``
+    through the port's entry points on ``ctx``: a ``local`` kvstore
+    holding the weight table and the bias under ``opt``, each step
+    ``row_sparse_pull`` of the batch's rows into a dense weight, the
+    logistic loss through ``sparse.dot``, the gradient at the batch's ids
+    pushed as a ``RowSparseNDArray`` (the bias's dense).  Returns the
+    store, the per-step log-losses (on the device) and the seconds."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray import sparse
+    feats = w0.shape[0]
+    with ctx:
+        kv = mx.kv.create("local")
+        kv.init("weight", mx.nd.array(w0))
+        kv.init("bias", mx.nd.zeros((1,)))
+        kv.set_optimizer(opt)
+        w = mx.nd.zeros(w0.shape)
+        b = mx.nd.zeros((1,))
+        losses = []
+        t0 = time.perf_counter()
+        for data, idx, indptr, labels, uniq in batches:
+            csr = sparse.csr_matrix((data, idx, indptr),
+                                    shape=(len(labels), feats), ctx=ctx)
+            rows = mx.nd.array(uniq, ctx=ctx)
+            kv.row_sparse_pull("weight", out=w, row_ids=rows)
+            kv.pull("bias", out=b)
+            z = mx.nd.broadcast_add(sparse.dot(csr, w), b)
+            y = mx.nd.array(labels, ctx=ctx)
+            p = mx.nd.sigmoid(z)
+            losses.append(-(y * mx.nd.log(p + 1e-12) + (1 - y)
+                            * mx.nd.log(1 - p + 1e-12)).mean())
+            dy = p - y
+            grad = sparse.dot(csr, dy, transpose_a=True)
+            kv.push("weight", sparse.RowSparseNDArray(
+                grad[rows], rows, w0.shape, ctx=ctx))
+            kv.push("bias", dy.sum(axis=0))
+        mx.nd.waitall()
+    return kv, losses, time.perf_counter() - t0
+
+
+def sparse_logreg_oracle(batches, w0, kind, steps, lr=SPARSE_LR,
+                         rescale=1.0 / SPARSE_BATCH, eps=1e-7, momentum=0.9):
+    """The same updates in float64 numpy: AdaGrad on the live rows
+    (``kind="adagrad"``), lazy SGD (``"sgd"``) or SGD with momentum on
+    the dense gradient (``"momentum"``).  Returns (weight, history)."""
+    w = w0[:, 0].astype(np.float64)
+    h = np.zeros_like(w)
+    b = hb = 0.0
+    for data, idx, indptr, labels, uniq in batches[:steps]:
+        n = len(labels)
+        rows_of = np.repeat(np.arange(n), np.diff(indptr))
+        z = np.bincount(rows_of, weights=data * w[idx], minlength=n) + b
+        dy = 1 / (1 + np.exp(-z)) - labels[:, 0]
+        g = np.bincount(idx, weights=data * dy[rows_of],
+                        minlength=w.shape[0]) * rescale
+        gb = dy.sum() * rescale
+        if kind == "adagrad":
+            h[uniq] += g[uniq] ** 2
+            w[uniq] -= lr * g[uniq] / np.sqrt(h[uniq] + eps)
+            hb += gb * gb
+            b -= lr * gb / np.sqrt(hb + eps)
+        elif kind == "sgd":
+            w[uniq] -= lr * g[uniq]
+            b -= lr * gb
+        else:
+            h = momentum * h - lr * g
+            w += h
+            b -= lr * gb
+    return w, h
+
+
+def _rel(got, want, floor=0.0):
+    """``max |got - want|`` over ``max |want|`` (or ``floor``, if
+    larger)."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max()
+                 / max(np.abs(want).max(), floor, 1e-30))
+
+
+def sparse_logreg_part(steps=SPARSE_STEPS, features=SPARSE_FEATURES,
+                       batch=SPARSE_BATCH):
+    """Part (a): the Avazu-scale sparse logistic regression on the card,
+    then its checks (see the module docstring)."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import registry
+    card = gpu_line()
+    batches, _ = sparse_logreg_data(steps, batch, features)
+    w0 = (np.random.default_rng(1).standard_normal((features, 1))
+          * 0.01).astype(np.float32)
+    gpu = mx.gpu(0)
+
+    def adagrad():
+        return mx.optimizer.AdaGrad(learning_rate=SPARSE_LR,
+                                    rescale_grad=1.0 / batch)
+    sparse_logreg_steps(batches[:2], gpu, adagrad(), w0)       # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    registry.reset_launches()
+    kv, losses, secs = sparse_logreg_steps(batches, gpu, adagrad(), w0)
+    launches = {k: registry.launches(k) for k in registry.list_kernels()}
+    peak = torch.cuda.max_memory_allocated()
+    _, syncs = _host_syncs(lambda: sparse_logreg_steps(
+        batches[:3], gpu, adagrad(), w0))
+    losses = np.array([float(v) for v in losses])
+    check(np.isfinite(losses).all(), "sparse logreg: a loss is not finite")
+    check(losses[-10:].mean() < losses[:10].mean(),
+          "sparse logreg: log-loss %.5f over the last 10 steps, %.5f over "
+          "the first 10" % (losses[-10:].mean(), losses[:10].mean()))
+    w_end = kv._store["weight"].cpu().numpy()
+    h_end = kv._updater.states["weight"].cpu().numpy()
+    named = np.unique(np.concatenate([bt[4] for bt in batches]))
+    cold = np.ones(features, bool)
+    cold[named] = False
+    check((w_end[cold] == w0[cold]).all(),
+          "sparse logreg: a row no batch named moved")
+    check((h_end[cold] == 0).all(),
+          "sparse logreg: a row no batch named has history")
+    # three steps against float64 numpy and against the port on the CPU
+    three = batches[:SPARSE_ORACLE_STEPS]
+    kv_g, _, _ = sparse_logreg_steps(three, gpu, adagrad(), w0)
+    kv_c, _, _ = sparse_logreg_steps(three, mx.cpu(), adagrad(), w0)
+    w_o, h_o = sparse_logreg_oracle(three, w0, "adagrad", len(three))
+    live = np.unique(np.concatenate([bt[4] for bt in three]))
+    got = {"card": (kv_g._store["weight"].cpu().numpy()[:, 0],
+                    kv_g._updater.states["weight"].cpu().numpy()[:, 0]),
+           "cpu": (kv_c._store["weight"].numpy()[:, 0],
+                   kv_c._updater.states["weight"].numpy()[:, 0])}
+    errs = {"adagrad_w_vs_oracle": _rel(got["card"][0][live], w_o[live]),
+            "adagrad_h_vs_oracle": _rel(got["card"][1][live], h_o[live]),
+            "adagrad_w_vs_cpu": _rel(got["card"][0], got["cpu"][0]),
+            "adagrad_h_vs_cpu": _rel(got["card"][1], got["cpu"][1])}
+    for kind, mom in (("sgd", 0.0), ("momentum", 0.9)):
+        opt = mx.optimizer.SGD(learning_rate=SPARSE_LR, momentum=mom,
+                               rescale_grad=1.0 / batch)
+        kv_s, _, _ = sparse_logreg_steps(batches[:1], gpu, opt, w0)
+        w_s, _ = sparse_logreg_oracle(batches, w0, kind, 1)
+        errs["%s_w_vs_oracle" % kind] = _rel(
+            kv_s._store["weight"].cpu().numpy()[:, 0], w_s)
+        if mom:
+            state = kv_s._updater.states["weight"]
+            check(tuple(state.shape) == (features, 1),
+                  "sparse logreg: the momentum route kept no dense state")
+    for name, err in errs.items():
+        check(err <= SPARSE_ORACLE_TOL, "sparse logreg: %s %.3g above %g"
+              % (name, err, SPARSE_ORACLE_TOL))
+    rows = np.array([len(bt[4]) for bt in batches])
+    out = {"steps_per_s": steps / secs, "samples_per_s": steps * batch / secs,
+           "ms_per_step": 1e3 * secs / steps,
+           "rows_pulled_per_step": float(rows.mean()),
+           "bytes_pulled_per_step": float(rows.mean() * 4),
+           "table_bytes": features * 4,
+           "pulled_share_of_table": float(rows.mean() / features),
+           "host_syncs_per_step": syncs / 3.0,
+           "loss_first10": float(losses[:10].mean()),
+           "loss_last10": float(losses[-10:].mean()),
+           "rows_never_named": int(cold.sum()), "errors": errs,
+           "peak_mem_bytes": peak, "card": card}
+    print("contrib (a) sparse logistic regression (%d features, batch %d, "
+          "%d nnz a row, %d steps; AdaGrad through a local kvstore): %s"
+          % (features, batch, SPARSE_NNZ, steps, json.dumps(out)))
+    return out, launches
+
+
+def quant_export(root, image=224, device="cuda"):
+    """ResNet-50 v1 NCHW by phase 20's recipe, hybridized, exported and
+    loaded back as ``(sym, arg_params, aux_params)``."""
+    import mxnet_tpu_torch as mx
+    net = deploy_net(resnet50_nchw, image, False, device)
+    net.hybridize()
+    import torch
+    net(torch.zeros((2, 3, image, image), device=device))
+    with mx.name.NameManager():
+        net.export(os.path.join(root, "resnet50"), 0)
+    sym, arg, aux = mx.model.load_checkpoint(os.path.join(root, "resnet50"),
+                                             0)
+    return net, sym, arg, aux
+
+
+def _quantized_nodes(sym):
+    return [n for n in sym._topo()
+            if n.op in ("quantized_conv", "quantized_fully_connected")]
+
+
+def quant_site_holds(qsym, feeds_cpu, device):
+    """Every int8 op of the graph on the card, fed the CPU walk's own
+    inputs to it: its int32 accumulator and range against the CPU's,
+    bitwise.  Returns the sites held and the card walk's int32 tensors
+    that equal the CPU's (its inputs may round to another int8 step)."""
+    import torch
+    from mxnet_tpu_torch.symbol.symbol import _call_node, _eval_symbol
+    internals = qsym.get_internals()
+    cpu_vals = _eval_symbol(internals, feeds_cpu)
+    index = {(id(n), i): k for k, (n, i) in enumerate(internals._outputs)}
+    sites = 0
+    for node in _quantized_nodes(qsym):
+        args = [cpu_vals[index[(id(s), i)]].to(device)
+                for s, i in node.inputs]
+        out = _call_node(node, args, False, device)
+        for i, o in enumerate(out):
+            want = cpu_vals[index[(id(node), i)]]
+            check(torch.equal(o.cpu(), want),
+                  "int8 ResNet-50: %s output %d on the card differs from "
+                  "the CPU's on the same inputs" % (node.name, i))
+        sites += 1
+    feeds_gpu = {k: v.to(device) for k, v in feeds_cpu.items()}
+    card_vals = _eval_symbol(internals, feeds_gpu)
+    same = total = 0
+    for node in _quantized_nodes(qsym):
+        k = index[(id(node), 0)]
+        total += 1
+        same += bool(torch.equal(card_vals[k].cpu(), cpu_vals[k]))
+    return sites, same, total
+
+
+def quant_part(root=QUANT_ROOT, image=224, batch=QUANT_BATCH,
+               device="cuda"):
+    """Part (b): post-training int8 quantization of ResNet-50 v1 NCHW as
+    ``example/quantization`` runs it (see the module docstring)."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from collections import Counter
+    from mxnet_tpu_torch import _capture, gluon
+    from mxnet_tpu_torch.contrib.quantization import quantize_model
+    from mxnet_tpu_torch.kernels import registry
+    card = gpu_line()
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        net, sym, arg, aux = quant_export(root, image, device)
+        arg = {k: v.as_in_context(mx.gpu(0)) for k, v in arg.items()}
+        aux = {k: v.as_in_context(mx.gpu(0)) for k, v in aux.items()}
+        export_s = time.perf_counter() - t0
+        stem = [n.name for n in sym._topo() if n.op == "Convolution"][0]
+        rng = np.random.default_rng(0)
+        calib = [rng.standard_normal((batch, 3, image, image))
+                 .astype(np.float32) for _ in range(QUANT_CALIB_BATCHES)]
+        t0 = time.perf_counter()
+        with mx.gpu(0):
+            qsym, qarg, qaux = quantize_model(
+                sym, arg, aux, calib_mode="naive", calib_data=calib,
+                excluded_sym_names=[stem])
+        calib_s = time.perf_counter() - t0
+        ops = Counter(n.op for n in qsym._topo() if n.op)
+        check(ops["quantized_conv"] == QUANT_CONVS
+              and ops["quantized_fully_connected"] == 1
+              and ops["Convolution"] == 1,
+              "int8 ResNet-50: the graph holds %s" % dict(ops))
+        registry.reset_launches()
+        with _capture.checking_syncs():
+            mod = mx.mod.Module(qsym, data_names=("data",),
+                                label_names=None, context=mx.gpu(0))
+            mod.bind(data_shapes=[("data", (batch, 3, image, image))],
+                     for_training=False)
+            mod.set_params(qarg, qaux)
+            params = dict(qarg)
+            params.update({"aux:" + k: v for k, v in qaux.items()})
+            sb = gluon.SymbolBlock(qsym, ["data"], params=params)
+            sb.hybridize()
+            xs = [torch.from_numpy(rng.standard_normal(
+                (batch, 3, image, image)).astype(np.float32)).cuda()
+                for _ in range(QUANT_TOP1_IMAGES // batch)]
+
+            def mod_fwd(x):
+                mod.forward(mx.io.DataBatch([mx.nd.NDArray(x)]),
+                            is_train=False)
+                return mod.get_outputs()[0]._data
+
+            with torch.no_grad():
+                for _ in range(3):
+                    mod_fwd(xs[0])
+                    sb(xs[0])
+                int8_ms = time_ms(lambda: mod_fwd(xs[0]), iters=20)
+                sb_ms = time_ms(lambda: sb(xs[0]), iters=20)
+                fp32_ms = time_ms(lambda: net(xs[0]), iters=20)
+                logits = [(mod_fwd(x).clone(), sb(x), net(x)) for x in xs]
+        launches = {k: registry.launches(k)
+                    for k in registry.list_kernels()}
+        peak = torch.cuda.max_memory_allocated()
+        top1 = float(np.mean(np.concatenate(
+            [(q.argmax(1) == f.argmax(1)).cpu().numpy()
+             for q, _, f in logits])))
+        int8_err = max(_rel(q.cpu(), f.cpu()) for q, _, f in logits)
+        sb_err = max(_rel(s.cpu(), q.cpu()) for q, s, _ in logits)
+        # the card against the port's CPU run on the same 4 images
+        x4 = xs[0][:QUANT_CPU_IMAGES].cpu()
+        feeds = {k: v._data.cpu() for k, v in list(qarg.items())
+                 + list(qaux.items())}
+        feeds["data"] = x4
+        from mxnet_tpu_torch.symbol.symbol import _eval_symbol
+        cpu_logits = _eval_symbol(qsym, feeds)[0]
+        card_logits = logits[0][0][:QUANT_CPU_IMAGES].cpu()
+        logit_err = float((card_logits - cpu_logits).abs().max()
+                          / cpu_logits.abs().max())
+        # what one ulp of the input moves the CPU's own int8 logits by
+        nudged = dict(feeds, data=x4 * (1 + 2.0 ** -23))
+        floor = float((_eval_symbol(qsym, nudged)[0] - cpu_logits).abs()
+                      .max() / cpu_logits.abs().max())
+        sites, same, total = quant_site_holds(qsym, feeds, device)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("int8 ResNet-50 card against CPU: logits %.3g of the largest, "
+          "one-ulp input floor %.3g, int32 tensors equal %d of %d, sites "
+          "bitwise on the CPU's inputs %d" % (logit_err, floor, same, total,
+                                               sites))
+    # one ulp anywhere before a quantize_v2 may round an int8 value to
+    # the next step, and 52 sites carry it on: the card's float32 layers
+    # (the stem, BatchNorm, the residual sums) differ from the CPU's by
+    # such ulps, so the logits are held to the CPU's own one-ulp floor
+    limit = max(QUANT_LOGIT_TOL, QUANT_FLOOR_FACTOR * floor)
+    check(logit_err <= limit,
+          "int8 ResNet-50: card logits %.3g of the CPU's largest away "
+          "(limit %.3g)" % (logit_err, limit))
+    check(sb_err <= 1e-5, "int8 ResNet-50: SymbolBlock %.3g from Module"
+          % sb_err)
+    out = {"int8_ms_per_batch": int8_ms, "symbolblock_ms_per_batch": sb_ms,
+           "fp32_ms_per_batch": fp32_ms, "int8_img_per_s":
+           1e3 * batch / int8_ms, "fp32_img_per_s": 1e3 * batch / fp32_ms,
+           "int8_vs_fp32_logit_rel_err": int8_err,
+           "symbolblock_vs_module_rel_err": sb_err,
+           "top1_agreement_int8_fp32": top1,
+           "images": len(xs) * batch, "card_vs_cpu_logit_rel_err": logit_err,
+           "cpu_one_ulp_input_floor": floor,
+           "int8_sites_bitwise_on_cpu_inputs": sites,
+           "int32_tensors_equal_in_whole_card_walk": [same, total],
+           "graph_ops": {k: ops[k] for k in ("quantized_conv",
+                                             "quantized_fully_connected",
+                                             "quantize_v2", "dequantize",
+                                             "Convolution")},
+           "export_s": export_s, "calibration_s": calib_s,
+           "peak_mem_bytes": peak, "card": card}
+    print("contrib (b) int8 ResNet-50 v1 NCHW (naive calibration, %d "
+          "batches of %d, stem excluded; Module and SymbolBlock at b%d): %s"
+          % (QUANT_CALIB_BATCHES, batch, batch, json.dumps(out)))
+    return out, launches
+
+
+def _both_devices(fn):
+    """``fn(device)`` on the card and on the CPU, each a list of
+    tensors; returns the pairs as CPU tensors."""
+    card, cpu = ([t.detach().cpu() for t in fn(d)] for d in CONTRIB_DEVICES)
+    return list(zip(card, cpu))
+
+
+def _card_vs_cpu(label, pairs, tol=CONTRIB_TOL, exact=False, floor=0.0):
+    """Each (card, CPU) pair within ``tol`` of the CPU's largest value,
+    or of ``floor`` if that is larger (or bitwise); returns the largest
+    error."""
+    errs = []
+    for i, (got, want) in enumerate(pairs):
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              "%s[%d]: %s %s against %s %s" % (
+                  label, i, tuple(got.shape), got.dtype, tuple(want.shape),
+                  want.dtype))
+        if exact:
+            check(bool((got == want).all()), "%s[%d]: not bitwise"
+                  % (label, i))
+            errs.append(0.0)
+            continue
+        errs.append(_rel(got.double().numpy(), want.double().numpy(),
+                         floor))
+    bad = [(i, e) for i, e in enumerate(errs) if e > tol]
+    check(not bad, "%s: output (index, error) %s above %g; all %s"
+          % (label, bad, tol, ["%.2g" % e for e in errs]))
+    return max(errs) if errs else 0.0
+
+
+def _card_ms(fn):
+    """Milliseconds of one call after a warm one, the card synced."""
+    import torch
+    sync = torch.cuda.synchronize if CONTRIB_DEVICES[0] == "cuda" \
+        else (lambda: None)
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    fn()
+    sync()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def linalg_family(n=LINALG_N, batch=LINALG_BATCH):
+    """The linalg chain on 64 SPD matrices (scaled to a determinant near
+    1, so ``det`` is finite) and ``moments`` over a ResNet activation."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    rng = np.random.default_rng(2)
+    m = rng.standard_normal((batch, n, n)) / np.sqrt(n)
+    s = m @ np.swapaxes(m, -1, -2) + np.eye(n)
+    s /= np.exp(np.linalg.slogdet(s)[1] / n)[:, None, None]
+    s, m = s.astype(np.float32), m.astype(np.float32)
+    b = rng.standard_normal((batch, n, 16)).astype(np.float32)
+    act = rng.standard_normal((32, 56, 56, 256)).astype(np.float32)
+
+    def chain(device):
+        ctx = mx.gpu(0) if device == "cuda" else mx.cpu()
+        with ctx:
+            S, M, B = mx.nd.array(s), mx.nd.array(m), mx.nd.array(b)
+            S.attach_grad()
+            with autograd.record():
+                L = mx.nd.linalg_potrf(S)
+                y = mx.nd.linalg_sumlogdiag(L).sum() \
+                    + (mx.nd.linalg_inverse(S) * S).sum() * 1e-3
+            y.backward()
+            outs = [L, mx.nd.linalg_potri(L), mx.nd.linalg_trsm(L, B),
+                    mx.nd.linalg_trmm(L, B, rightside=False),
+                    mx.nd.linalg_sumlogdiag(L), mx.nd.linalg_syrk(M),
+                    mx.nd.linalg_gemm(M, M, S, transpose_b=True, alpha=0.5,
+                                      beta=2.0),
+                    mx.nd.linalg_gemm2(M, B, transpose_a=True),
+                    mx.nd.linalg_inverse(S), mx.nd.linalg_det(S)] \
+                + list(mx.nd.linalg_slogdet(S)) \
+                + [mx.nd.linalg_extractdiag(L),
+                   mx.nd.linalg_makediag(mx.nd.linalg_extractdiag(L)),
+                   mx.nd.linalg_extracttrian(L),
+                   mx.nd.linalg_maketrian(mx.nd.linalg_extracttrian(L)),
+                   S.grad]
+            ut, w = mx.nd.linalg_syevd(S)
+            vt, sv, v = mx.nd.linalg_svd(M)
+            recon = [mx.nd.linalg_gemm2(
+                mx.nd.broadcast_mul(ut, mx.nd.expand_dims(w, axis=-1)), ut,
+                transpose_a=True),
+                     mx.nd.linalg_gemm2(
+                mx.nd.broadcast_mul(vt, mx.nd.expand_dims(sv, axis=-1)), v,
+                transpose_a=True)]
+            mean, var = mx.nd.moments(mx.nd.array(act), axes=(0, 1, 2))
+        return [o._data for o in outs + [w, sv] + recon + [mean, var]]
+    t_ms = _card_ms(lambda: chain(CONTRIB_DEVICES[0]))
+    pairs = _both_devices(chain)
+    n_eig = 2           # syevd's eigenvalues, svd's singular values
+    err = _card_vs_cpu("linalg", pairs[:-n_eig - 4] + pairs[-2:], floor=1.0)
+    # the card's eigensolvers (cuSOLVER) and LAPACK agree to ~1e-4 of
+    # the largest eigenvalue in float32: values held to 1e-3 card
+    # against CPU, and each device's reconstruction to 1e-3 of its input
+    eig = _card_vs_cpu("linalg eigen/singular values",
+                       pairs[-n_eig - 4:-4], tol=LINALG_EIG_TOL)
+    inputs = [torch.from_numpy(s), torch.from_numpy(m)]
+    recon = max(_card_vs_cpu("linalg reconstruction", [(r, x), (c, x)],
+                             tol=LINALG_EIG_TOL)
+                for (r, c), x in zip(pairs[-4:-2], inputs))
+    return {"card_ms": t_ms, "max_rel_err": err, "eigen_rel_err": eig,
+            "reconstruction_rel_err": recon, "ops": len(pairs)}
+
+
+def attention_family(seq=BERT_QKV[0], batch=BERT_QKV[1],
+                     heads=BERT_QKV[2], hd=BERT_QKV[3], qlen=ENCDEC_QLEN):
+    """BERT-base's interleaved self-attention (forward and the gradient
+    of the projection) and the encoder-decoder pair; the self-attention
+    also against the port's ``flash_attention`` on the same q, k, v."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    rng = np.random.default_rng(3)
+    qkv = (rng.standard_normal((seq, batch, heads * 3 * hd)) * 0.5) \
+        .astype(np.float32)
+    q_in = rng.standard_normal((qlen, batch, heads * hd)).astype(np.float32)
+    kv_in = (rng.standard_normal((seq, batch, heads * 2 * hd)) * 0.5) \
+        .astype(np.float32)
+    cot = rng.standard_normal((seq, batch, heads * hd)).astype(np.float32)
+
+    def run(device):
+        ctx = mx.gpu(0) if device == "cuda" else mx.cpu()
+        with ctx:
+            x = mx.nd.array(qkv)
+            x.attach_grad()
+            with autograd.record():
+                att = mx.nd.softmax(mx.nd.interleaved_matmul_selfatt_qk(
+                    x, heads=heads), axis=-1)
+                out = mx.nd.interleaved_matmul_selfatt_valatt(
+                    x, att, heads=heads)
+                (out * mx.nd.array(cot)).sum().backward()
+            catt = mx.nd.softmax(mx.nd.interleaved_matmul_encdec_qk(
+                mx.nd.array(q_in), mx.nd.array(kv_in), heads=heads), axis=-1)
+            cout = mx.nd.interleaved_matmul_encdec_valatt(
+                mx.nd.array(kv_in), catt, heads=heads)
+        return [out._data, x.grad._data, cout._data]
+    t_ms = _card_ms(lambda: run(CONTRIB_DEVICES[0]))
+    pairs = _both_devices(run)
+    err = _card_vs_cpu("interleaved attention", pairs)
+    return {"card_ms": t_ms, "max_rel_err": err}, pairs[0][0]
+
+
+def flash_reference(out, seq=BERT_QKV[0], batch=BERT_QKV[1],
+                    heads=BERT_QKV[2], hd=BERT_QKV[3]):
+    """The interleaved self-attention's output against the port's
+    ``flash_attention`` on the same q, k and v (run outside the counted
+    window: it launches the flash kernel)."""
+    import torch
+    from mxnet_tpu_torch import ops
+    rng = np.random.default_rng(3)
+    qkv = (rng.standard_normal((seq, batch, heads * 3 * hd)) * 0.5) \
+        .astype(np.float32)
+    x = torch.from_numpy(qkv).cuda().reshape(seq, batch, heads, 3, hd)
+    q, k, v = (x[:, :, :, i].permute(1, 2, 0, 3).reshape(
+        batch * heads, seq, hd).contiguous() for i in range(3))
+    with torch.no_grad():
+        ref = ops.flash_attention(q, k, v)
+    ref = ref.reshape(batch, heads, seq, hd).permute(2, 0, 1, 3) \
+        .reshape(seq, batch, heads * hd).cpu()
+    err = _rel(out.double().numpy(), ref.double().numpy())
+    check(err <= CONTRIB_TOL, "interleaved attention %.3g from "
+          "flash_attention" % err)
+    return err
+
+
+def detection_family(nms_shape=NMS_SHAPE, fmap=ROI_MAP,
+                     per_image=ROI_PER_IMAGE, pooled=ROI_POOLED,
+                     cpu_rois=ROI_CPU_ROIS):
+    """``box_iou``, ``box_nms`` and the ROI ops at Faster R-CNN's shapes:
+    IoU and NMS card against CPU in full; ``ROIAlign`` (with the gradient
+    of its map) and ``ROIPooling`` timed on every ROI, held against the
+    CPU on the first ``cpu_rois``."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    rng = np.random.default_rng(4)
+    b, n, _ = nms_shape
+    xy = rng.uniform(0, 600, (b, n, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(8, 120, (b, n, 2))], -1)
+    props = np.concatenate([rng.integers(0, 20, (b, n, 1)),
+                            np.round(rng.uniform(0, 1, (b, n, 1)), 3),
+                            boxes], -1).astype(np.float32)
+    gt = boxes[:, :100].astype(np.float32)
+    feat = rng.standard_normal(fmap).astype(np.float32)
+    h, w = fmap[2] * 16, fmap[3] * 16
+    lo = rng.uniform(0, [w - 64, h - 64], (fmap[0] * per_image, 2))
+    rois = np.concatenate([np.repeat(np.arange(fmap[0]), per_image)[:, None],
+                           lo, lo + rng.uniform(32, 256, lo.shape)], 1) \
+        .astype(np.float32)
+    scale = 1.0 / 16
+
+    def boxes_run(device):
+        ctx = mx.gpu(0) if device == "cuda" else mx.cpu()
+        with ctx:
+            return [mx.nd.box_iou(mx.nd.array(boxes.astype(np.float32)),
+                                  mx.nd.array(gt))._data,
+                    mx.nd.box_nms(mx.nd.array(props),
+                                  overlap_thresh=0.7)._data]
+
+    def roi_run(device, r):
+        ctx = mx.gpu(0) if device == "cuda" else mx.cpu()
+        with ctx:
+            x = mx.nd.array(feat)
+            x.attach_grad()
+            with autograd.record():
+                y = mx.nd.ROIAlign(x, mx.nd.array(r), pooled_size=pooled,
+                                   spatial_scale=scale, sample_ratio=2)
+                (y * y).sum().backward()
+            p = mx.nd.ROIPooling(x, mx.nd.array(r), pooled_size=pooled,
+                                 spatial_scale=scale)
+        return [y._data, x.grad._data, p._data]
+    nms_ms = _card_ms(lambda: boxes_run(CONTRIB_DEVICES[0]))
+    box_pairs = _both_devices(boxes_run)
+    _card_vs_cpu("box_iou", box_pairs[:1], tol=1e-6)
+    _card_vs_cpu("box_nms", box_pairs[1:], exact=True)
+    kept = float((box_pairs[1][0][..., 1] > 0).float().mean())
+    roi_ms = _card_ms(lambda: roi_run(CONTRIB_DEVICES[0], rois))
+    pairs = _both_devices(lambda d: roi_run(d, rois[:cpu_rois]))
+    err = _card_vs_cpu("ROIAlign", pairs[:1])
+    grad_err = _rel(pairs[1][0].double().numpy(), pairs[1][1].double().numpy())
+    check(grad_err <= CONTRIB_TOL, "ROIAlign gradient %.3g" % grad_err)
+    _card_vs_cpu("ROIPooling", pairs[2:], exact=True)
+    return {"boxes_card_ms": nms_ms, "nms_kept_share": kept,
+            "roi_card_ms": roi_ms, "rois": len(rois),
+            "roi_align_rel_err": err, "roi_align_grad_rel_err": grad_err}
+
+
+def control_flow_family(shape=LSTM_SCAN, iters=WHILE_ITERS):
+    """``foreach`` over an ``LSTMCell(650)``, ``while_loop`` and ``cond``
+    on a device predicate, each in a hybridized block: three calls on the
+    card (eager, captured, replayed) against the CPU."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+
+    class Scan(gluon.HybridBlock):
+        def __init__(self, hidden, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.cell = gluon.rnn.LSTMCell(hidden, input_size=hidden)
+
+        def hybrid_forward(self, F, x, h, c):
+            outs, (h, c) = F.contrib.foreach(
+                lambda xt, st: self.cell(xt, st), x, [h, c])
+            return outs, h, c
+
+    class Loop(gluon.HybridBlock):
+        def hybrid_forward(self, F, x, limit):
+            outs, (i, y) = F.contrib.while_loop(
+                lambda i, y: (y.sum() < limit).reshape(()),
+                lambda i, y: (y.sum(), (i + 1.0, y * 1.05 + 0.01)),
+                (limit * 0, x), max_iterations=iters)
+            return F.contrib.cond(i > iters / 2, lambda a: a * 2.0,
+                                  lambda a: a - 1.0, [y]), outs
+
+    steps, batch, hidden = shape
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((steps, batch, hidden))
+                         .astype(np.float32))
+    h0 = torch.zeros(batch, hidden)
+    v0 = torch.from_numpy(rng.uniform(0, 1, (batch, 8)).astype(np.float32))
+    out = {}
+    for name, make, args in (
+            ("foreach_lstm", lambda: Scan(hidden, prefix="scan_"),
+             (x, h0, h0)),
+            ("while_loop_cond", lambda: Loop(prefix="loop_"),
+             (v0, torch.tensor(2000.0)))):
+        res = []
+        for device in CONTRIB_DEVICES:
+            net = make()
+            net.initialize(device=device,
+                           generator=torch.Generator().manual_seed(0))
+            net.hybridize()
+            dev_args = [a.to(device) for a in args]
+            with torch.no_grad():
+                calls = [net(*dev_args) for _ in range(3)]
+            if device == "cuda":
+                owner = next(iter(net._graph_owners.values()))
+                check(owner.graphs == 1 and owner.replays >= 1,
+                      "%s: %d graphs, %d replays" % (name, owner.graphs,
+                                                     owner.replays))
+                with torch.no_grad():
+                    out[name + "_replay_ms"] = _card_ms(
+                        lambda: net(*dev_args))
+            res.append([t.cpu() for t in calls[-1]])
+        out[name + "_rel_err"] = _card_vs_cpu(name, list(zip(*res)))
+    return out
+
+
+def contrib_ops_part():
+    """Part (c): the op families at user widths under the host-read
+    check, each card result against the port's CPU run."""
+    import torch
+    from mxnet_tpu_torch import _capture
+    from mxnet_tpu_torch.kernels import registry
+    card = gpu_line()
+    torch.cuda.reset_peak_memory_stats()
+    registry.reset_launches()
+    with _capture.checking_syncs():
+        out = {"linalg": linalg_family()}
+        attn, attn_out = attention_family()
+        out["interleaved_attention"] = attn
+        out["detection"] = detection_family()
+        out["control_flow"] = control_flow_family()
+    launches = {k: registry.launches(k) for k in registry.list_kernels()}
+    out["interleaved_attention"]["vs_flash_attention_rel_err"] = \
+        flash_reference(attn_out)
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    out["card"] = card
+    print("contrib (c) op families at user widths (card against the CPU): "
+          "%s" % json.dumps(out))
+    return out, launches
+
+
+def contrib_phase():
+    """Phase 21: sparse storage and the contrib op families (see the
+    module docstring).  Part (a) and the calibration run outside the
+    host-read check; inference and part (c) inside it.  Returns the
+    numbers and, by part, every kernel's launches (all 0: no hand kernel
+    is on these paths)."""
+    t0 = time.perf_counter()
+    launches = {}
+    sparse, launches["sparse_logreg"] = sparse_logreg_part()
+    release_cuda()
+    quant, launches["int8_resnet50"] = quant_part()
+    release_cuda()
+    ops_, launches["op_families"] = contrib_ops_part()
+    stray = {part: {k: n for k, n in counts.items() if n}
+             for part, counts in launches.items()}
+    check(not any(stray.values()), "phase 21 launched hand kernels: %s"
+          % stray)
+    out = {"sparse": sparse, "quant": quant, "ops": ops_,
+           "launches": launches, "phase_s": time.perf_counter() - t0}
+    print("contrib phase: %.1f s (%s)" % (out["phase_s"], gpu_line()))
+    return out
+
+
 def kernel_entry(name, launches, kern, serve_launches=None, **extra):
     """One kernel's entry of the per-kernel JSON line; a kernel of the
     checkpoint-and-serve phase also gives its launches there, and
@@ -9104,6 +9909,11 @@ def main():
     release_cuda()
     with _capture.checking_syncs():
         deploy = deploy_phase()
+    # phase 21: sparse storage and the contrib op families; its sparse
+    # part and the calibration read ids and statistics on the host (the
+    # JAX package's design), so it enters the host-read check itself
+    release_cuda()
+    contrib = contrib_phase()
     for entry in entries:
         name = entry["name"]
         if name in ("bn_relu_apply", "bn_relu_bwd", "paged_attention"):
@@ -9123,6 +9933,9 @@ def main():
         entry["launches_deploy"] = {
             route: counts[name]
             for route, counts in deploy["launches"].items()}
+        entry["launches_contrib"] = {
+            part: counts[name]
+            for part, counts in contrib["launches"].items()}
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -80,7 +80,13 @@ It imports neither JAX nor anything of ``mxnet_tpu``.  Ported so far:
   ``gluon.SymbolBlock``, :mod:`.onnx` (``mx.onnx``: export, import,
   metadata), :mod:`.predictor` (``mx.Predictor``, ``export_compiled``,
   ``mx.CompiledPredictor``, ``NativePredictor`` over the C predict ABI)
-  and ``ModelRegistry.register(symbol=, onnx=)``.
+  and ``ModelRegistry.register(symbol=, onnx=)``;
+- sparse storage and the contrib op families: ``mx.nd.sparse`` (CSR and
+  row-sparse arrays) with row-sparse kvstore pulls and optimizer
+  updates, the ``linalg_*`` ops, ``mx.nd.contrib``'s control flow
+  (``foreach``, ``while_loop``, ``cond``) and its box, ROI, int8 and
+  interleaved-matmul ops, :mod:`.contrib` (``quantization``: calibrate
+  and rewrite a graph to int8) and ``gluon.contrib.nn``.
 
 ``import mxnet_tpu_torch as mx`` binds ``mx.parallel``, ``mx.serving``,
 ``mx.kv``/``mx.kvstore``, ``mx.recordio``, ``mx.io``, ``mx.image``,
@@ -88,8 +94,9 @@ It imports neither JAX nor anything of ``mxnet_tpu``.  Ported so far:
 ``mx.preemption``, ``mx.profiler``, ``mx.profiling``,
 ``mx.distributed_init``, ``mx.horovod``, ``mx.sym``/``mx.symbol``,
 ``mx.mod``, ``mx.model``, ``mx.callback``, ``mx.name``, ``mx.Executor``,
-``mx.AttrScope``, ``mx.onnx``, ``mx.predictor``, ``mx.Predictor`` and
-``mx.CompiledPredictor`` as the JAX package's
+``mx.AttrScope``, ``mx.onnx``, ``mx.predictor``, ``mx.Predictor``,
+``mx.CompiledPredictor`` and ``mx.contrib`` (``quantization``) as the
+JAX package's
 ``__init__`` does (``mxnet_tpu_torch.supervisor`` is imported
 by name, as the JAX package's is).
 
@@ -120,12 +127,13 @@ from . import onnx, predictor
 from .attribute import AttrScope
 from .executor import Executor
 from .predictor import CompiledPredictor, Predictor
+from . import contrib
 
 __version__ = "0.1.0"
 
 __all__ = ["AttrScope", "CompiledPredictor", "Context", "Executor",
            "MXNetError", "NDArray", "Predictor", "amp", "attribute",
-           "autograd", "callback", "chaos", "checkpoint", "cpu",
+           "autograd", "callback", "chaos", "checkpoint", "contrib", "cpu",
            "cpu_pinned", "current_context", "dataio", "distributed_init",
            "executor", "gluon", "horovod", "gpu", "image", "init",
            "initializer", "io", "kv", "kvstore", "lr_scheduler", "metric",

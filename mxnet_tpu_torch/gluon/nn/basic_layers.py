@@ -266,14 +266,12 @@ class Dropout(HybridBlock):
 
 class Embedding(HybridBlock):
     """Lookup table ``(input_dim, output_dim)``; ids may be float.  Its
-    gradient is dense: ``sparse_grad=True`` (a row-sparse gradient)
-    waits for sparse arrays."""
+    gradient is dense, ``sparse_grad=True`` included, as in the JAX
+    package: the row-sparse win is the kvstore's and the optimizer's
+    (``row_sparse_pull``, ``Optimizer.update_row_sparse``)."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, sparse_grad=False, **kwargs):
-        if sparse_grad:
-            raise MXNetError("Embedding(sparse_grad=True): sparse arrays "
-                             "are not ported yet (ROADMAP Queue 1 item 10)")
         super().__init__(**kwargs)
         with self.name_scope():
             self.weight = self.params.get(

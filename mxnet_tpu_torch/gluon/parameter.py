@@ -37,7 +37,8 @@ __all__ = ["Constant", "DeferredInitializationError", "Parameter",
            "ParameterDict", "shape_is_known"]
 
 _DTYPES = {"float32": torch.float32, "float16": torch.float16,
-           "bfloat16": torch.bfloat16, "float64": torch.float64}
+           "bfloat16": torch.bfloat16, "float64": torch.float64,
+           "int8": torch.int8, "int32": torch.int32, "uint8": torch.uint8}
 
 
 class DeferredInitializationError(MXNetError):
@@ -149,7 +150,8 @@ class Parameter:
         self._finish_init(*self._deferred_init)
 
     def _wrap(self, tensor):
-        if self._grad_req == "null":
+        if self._grad_req == "null" or not tensor.is_floating_point():
+            # an integer tensor (an int8 op's weight) takes no gradient
             return tensor
         p = torch.nn.Parameter(tensor, requires_grad=True)
         p._mx_grad_req = self._grad_req    # read by autograd.backward

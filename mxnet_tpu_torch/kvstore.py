@@ -36,19 +36,32 @@ an update is device math, and ``out`` is written in place (its tensor
 stays the one a parameter, an optimizer or a captured graph holds).
 Values and outputs are NDArrays or tensors.  With telemetry on, each
 verb records the JAX package's ``kvstore.*`` instruments.
-``row_sparse_pull`` is not ported (sparse arrays, ROADMAP item 10).
+
+Row-sparse values (:class:`~mxnet_tpu_torch.ndarray.sparse.
+RowSparseNDArray`) follow the JAX package: a pushed list of them merges
+by the union of their rows and stays sparse, a dense operand makes the
+merge dense; a sparse merge skips compression, and a dist store
+densifies it before the cross-process sum (the ranks' row sets differ).
+With an optimizer, a sparse gradient reaches the updater as it is
+(``Optimizer.update_row_sparse``); without one, ``pull`` densifies what
+``push`` kept, and ``pushpull``/``pushpull_bucket`` return it dense.
+:meth:`KVStore.row_sparse_pull` gathers only the requested rows (their
+ids deduplicated on the host, as the JAX store does).
 """
 from __future__ import annotations
 
 import pickle
 import time
 
+import numpy as np
 import torch
 
 from . import optimizer as opt
 from . import telemetry as _telemetry
 from .base import MXNetError
+from .context import Context
 from .ndarray import NDArray
+from .ndarray import sparse as _sp
 
 __all__ = ["KVStore", "create"]
 
@@ -61,11 +74,33 @@ def _tensor(value):
 
 
 def _value_nbytes(value):
-    """Payload size of a pushed or pulled value, from its metadata."""
+    """Payload size of a pushed or pulled value, from its metadata (a
+    row-sparse value's stored rows and ids)."""
     if isinstance(value, (list, tuple)):
         return sum(_value_nbytes(v) for v in value)
+    if isinstance(value, _sp.RowSparseNDArray):
+        return sum(t.numel() * t.element_size()
+                   for t in (value._rs_data, value._rs_indices))
     t = _tensor(value)
     return t.numel() * t.element_size()
+
+
+def _add(a, b):
+    """Two values summed: row-sparse stays row-sparse (over the union of
+    the rows), a dense operand makes the sum a dense tensor."""
+    if isinstance(a, _sp.RowSparseNDArray) or \
+            isinstance(b, _sp.RowSparseNDArray):
+        s = _sp.elemwise_add(*(v if isinstance(v, _sp.RowSparseNDArray)
+                               else NDArray(_tensor(v)) for v in (a, b)))
+        return s if isinstance(s, _sp.RowSparseNDArray) else s._data
+    return _tensor(a) + _tensor(b)
+
+
+def _dense(merged):
+    """A merge as a tensor (a sparse one densified)."""
+    if isinstance(merged, _sp.BaseSparseNDArray):
+        return merged.todense()._data
+    return merged
 
 
 class _TwoBitCompression:
@@ -127,24 +162,30 @@ class KVStore:
         if key not in self._store:
             self._store[key] = _tensor(value).detach().clone()
 
-    def _merge(self, key, value):
-        """The sum of a pushed value or list of values, compressed when
-        compression is set."""
+    @staticmethod
+    def _merge(value):
+        """The sum of a pushed value or list of values: a tensor, or a
+        ``RowSparseNDArray`` over the union of the rows when every
+        operand is row-sparse."""
         if isinstance(value, (list, tuple)):
-            merged = _tensor(value[0]).detach()
+            merged = value[0]
             for v in value[1:]:
-                merged = merged + _tensor(v).detach()
-        else:
-            merged = _tensor(value).detach()
-        if self._compression is not None:
-            merged = self._compression.compress_decompress(key, merged)
-        return merged
+                merged = _add(merged, v)
+            value = merged
+        if isinstance(value, _sp.BaseSparseNDArray):
+            return value
+        return _tensor(value).detach()
 
     def _reduce(self, key, value):
-        """:meth:`_merge`, then summed across the processes of a dist
-        store."""
-        merged = self._merge(key, value)
+        """:meth:`_merge`, compressed when compression is set (a dense
+        merge only), then summed across the processes of a dist store
+        (a sparse merge densified first)."""
+        merged = self._merge(value)
+        sparse = isinstance(merged, _sp.BaseSparseNDArray)
+        if not sparse and self._compression is not None:
+            merged = self._compression.compress_decompress(key, merged)
         if self._is_dist:
+            merged = _dense(merged)
             from .distributed import host_allreduce, world
             if world()[0] > 1:
                 merged = host_allreduce(merged)
@@ -168,10 +209,10 @@ class KVStore:
         merged = self._reduce(key, value)
         if self._updater is not None:
             self._updater(key, merged, stored)
-        elif key in self._pending:
-            self._pending[key] = self._pending[key] + merged
-        else:
+        elif key not in self._pending:
             self._pending[key] = merged
+        else:
+            self._pending[key] = _add(self._pending[key], merged)
 
     @staticmethod
     def _write(out, src):
@@ -197,7 +238,7 @@ class KVStore:
             _telemetry.hooks.kv_op("pull", _value_nbytes(stored))
         src = stored
         if self._updater is None and key in self._pending:
-            src = self._pending.pop(key)
+            src = _dense(self._pending.pop(key))
         self._write(out, src)
         return out
 
@@ -217,7 +258,7 @@ class KVStore:
             result = self._stored(key)
             self._updater(key, self._reduce(key, value), result)
         else:
-            result = self._reduce(key, value)
+            result = _dense(self._reduce(key, value))
         if t0 is not None:
             _telemetry.hooks.kv_op("pushpull", _value_nbytes(value),
                                    time.perf_counter() - t0)
@@ -241,8 +282,11 @@ class KVStore:
             if self._updater is not None:
                 self.pushpull(key, value, outs[j], priority)
                 continue
+            m = _dense(self._merge(value))
+            if self._compression is not None:
+                m = self._compression.compress_decompress(key, m)
             dense_idx.append(j)
-            merged.append(self._merge(key, value))
+            merged.append(m)
         if not dense_idx:
             return outs
         if self._is_dist:
@@ -258,9 +302,41 @@ class KVStore:
                 time.perf_counter() - t0)
         return outs
 
+    @torch.no_grad()
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
-        raise MXNetError("row_sparse_pull: sparse arrays are not ported "
-                         "yet (ROADMAP Queue 1 item 10)")
+        """Only the rows ``row_ids`` of the stored value (their ids
+        deduplicated): ``out`` a ``RowSparseNDArray`` takes them
+        sparsely, a dense ``out`` takes them at their rows with every
+        other row zero, and with ``out=None`` a ``RowSparseNDArray`` is
+        returned.  Without ``row_ids`` this is :meth:`pull`."""
+        key = self._keyify(key)
+        full = self._stored(key)
+        if row_ids is None:
+            return self.pull(key, out, priority)
+        ids = row_ids._data if isinstance(row_ids, NDArray) else row_ids
+        ids = ids.cpu().numpy() if isinstance(ids, torch.Tensor) \
+            else np.asarray(ids)
+        rows = torch.from_numpy(np.unique(ids.astype(np.int32))) \
+            .to(full.device)
+        picked = full[rows.long()]
+        if _telemetry._ENABLED:
+            _telemetry.hooks.kv_op("pull", picked.numel()
+                                   * picked.element_size())
+        if out is None:
+            return _sp.RowSparseNDArray(picked, rows, full.shape,
+                                        full.dtype,
+                                        Context.of_tensor(full))
+        outs = out if isinstance(out, (list, tuple)) else [out]
+        for o in outs:
+            if isinstance(o, _sp.RowSparseNDArray):
+                o._rs_data = picked.to(o._rs_data.device)
+                o._rs_indices = rows.to(o._rs_indices.device)
+            else:
+                t = _tensor(o)
+                t.zero_()
+                t.index_copy_(0, rows.long().to(t.device),
+                              picked.to(t.device, t.dtype))
+        return out
 
     def set_optimizer(self, optimizer):
         """Update stored values with ``optimizer`` at each push (a copy

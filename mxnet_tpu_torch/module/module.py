@@ -156,7 +156,7 @@ class Module(BaseModule):
                     "module's default bucket must hold every bucket's "
                     "parameters)" % missing)
 
-        def alloc(name, shape, pool):
+        def alloc(name, shape, pool, dtype="float32"):
             if shared is not None and name in pool:
                 arr = pool[name]
                 if tuple(arr.shape) != tuple(shape):
@@ -164,12 +164,14 @@ class Module(BaseModule):
                         "bind: shared array %r is %s, this graph needs %s"
                         % (name, tuple(arr.shape), tuple(shape)))
                 return arr
-            return nd.zeros(shape, ctx=self._context)
+            return nd.zeros(shape, ctx=self._context, dtype=dtype)
 
         params = set(self._param_names)
+        from ..symbol.symbol import _arg_dtypes
         args = {n: alloc(n, s, shared.arg_dict if shared and n in params
-                         else {})
-                for n, s in zip(arg_names, arg_shapes)}
+                         else {}, dt)
+                for n, s, dt in zip(arg_names, arg_shapes,
+                                    _arg_dtypes(self._symbol))}
         args_grad = {n: alloc(n, args[n].shape,
                               shared.grad_dict if shared and n in params
                               else {})

@@ -236,13 +236,14 @@ class NDArray:
 
     def tostype(self, stype):
         if stype != "default":
-            raise MXNetError("sparse storage is not ported yet")
+            raise MXNetError("sparse storage not supported in this build")
         return self
 
     # -- autograd ------------------------------------------------------
     def attach_grad(self, grad_req="write", stype=None):
         """Make this array a leaf of backward with a zero gradient buffer,
-        detached from any graph it was part of."""
+        detached from any graph it was part of (``stype`` is accepted and
+        the buffer dense, as in the JAX package)."""
         if grad_req not in ("write", "add", "null"):
             raise MXNetError("bad grad_req %r" % (grad_req,))
         t = self._data.detach()

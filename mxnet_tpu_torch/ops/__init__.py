@@ -17,7 +17,8 @@ import functools
 
 from .. import amp as _amp
 from ..base import MXNetError
-from . import contrib_ops, random_ops, table, tensor  # noqa: F401
+from . import contrib_ops, linalg, random_ops, table, tensor  # noqa: F401
+from . import control_flow
 from .contrib_ops import CTCLoss, col2im, im2col
 from .nn import (Activation, BatchNorm, BilinearResize2D, Convolution,
                  Deconvolution, Dropout, Embedding, Flatten, FullyConnected,
@@ -89,6 +90,22 @@ for _name, _fn, _args, _aliases, _variadic in (
         ("softmin", softmin, ("data",), (), False)):
     table.register(_name, args=_args, aliases=_aliases,
                    variadic=_variadic)(_fn)
+
+
+class _Contrib:
+    """``F.contrib`` of a ``hybrid_forward`` (the JAX package's ``F`` is
+    ``mx.nd``, whose ``contrib`` this mirrors on tensors): the
+    control-flow constructs and the contrib ops of the table."""
+
+    foreach = staticmethod(control_flow.foreach)
+    while_loop = staticmethod(control_flow.while_loop)
+    cond = staticmethod(control_flow.cond)
+
+    def __getattr__(self, name):
+        return table.lookup(name).fn
+
+
+contrib = _Contrib()
 
 
 def _with_amp_casts(name, fn):

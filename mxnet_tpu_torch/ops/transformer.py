@@ -1,5 +1,12 @@
-"""Flash attention operators (counterpart of the flash half of
-``mxnet_tpu/ops/transformer.py``).
+"""Attention operators (counterpart of ``mxnet_tpu/ops/transformer.py``):
+the four interleaved-projection matmuls and flash attention.
+
+The interleaved ops keep the reference's layout, one projection tensor
+``(seq, batch, heads * k * head_dim)`` with each head's q/k/v (or k/v)
+contiguous; ``*_qk`` scales the scores by ``1 / sqrt(head_dim)`` and
+gives ``(batch * heads, qlen, kvlen)``, ``*_valatt`` gives ``(seq, batch,
+heads * head_dim)``.  They are batched matmuls on views, differentiated
+by torch autograd.
 
 ``flash_attention(q, k, v, causal, scale)`` and
 ``flash_attention_masked(q, k, v, mask, heads, scale)`` over ``(batch *
@@ -22,9 +29,64 @@ import math
 import torch
 
 from ..kernels.registry import dispatch
+from .table import register
 
 __all__ = ["FlashAttention", "attention_reference", "flash_attention",
-           "flash_attention_masked"]
+           "flash_attention_masked", "interleaved_matmul_encdec_qk",
+           "interleaved_matmul_encdec_valatt", "interleaved_matmul_selfatt_qk",
+           "interleaved_matmul_selfatt_valatt"]
+
+
+def _heads_major(x, heads, parts):
+    """``(seq, batch, heads * parts * hd)`` -> ``parts`` tensors of
+    ``(batch * heads, seq, hd)``."""
+    seq, batch, emb = x.shape
+    hd = emb // (parts * heads)
+    x = x.reshape(seq, batch, heads, parts, hd)
+    return [x[:, :, :, i].permute(1, 2, 0, 3).reshape(batch * heads, seq, hd)
+            for i in range(parts)], hd
+
+
+def _seq_major(out, batch, heads):
+    """``(batch * heads, seq, hd)`` -> ``(seq, batch, heads * hd)``."""
+    _, seq, hd = out.shape
+    return out.reshape(batch, heads, seq, hd).permute(2, 0, 1, 3) \
+        .reshape(seq, batch, heads * hd)
+
+
+@register("interleaved_matmul_selfatt_qk", args=("queries_keys_values",))
+def interleaved_matmul_selfatt_qk(queries_keys_values, heads=1):
+    """Scaled scores ``Q K^T / sqrt(hd)`` from an interleaved qkv
+    projection."""
+    (q, k, _), hd = _heads_major(queries_keys_values, heads, 3)
+    return torch.bmm(q, k.transpose(1, 2)) * (1.0 / math.sqrt(hd))
+
+
+@register("interleaved_matmul_selfatt_valatt",
+          args=("queries_keys_values", "attention"))
+def interleaved_matmul_selfatt_valatt(queries_keys_values, attention,
+                                      heads=1):
+    """``attention . V`` back in the sequence-major layout."""
+    (_, _, v), _ = _heads_major(queries_keys_values, heads, 3)
+    return _seq_major(torch.bmm(attention, v),
+                      queries_keys_values.shape[1], heads)
+
+
+@register("interleaved_matmul_encdec_qk", args=("queries", "keys_values"))
+def interleaved_matmul_encdec_qk(queries, keys_values, heads=1):
+    """Cross-attention scores from ``(qlen, batch, embed)`` queries and an
+    interleaved ``(kvlen, batch, 2 * embed)`` key/value projection."""
+    (q,), hd = _heads_major(queries, heads, 1)
+    (k, _), _ = _heads_major(keys_values, heads, 2)
+    return torch.bmm(q, k.transpose(1, 2)) * (1.0 / math.sqrt(hd))
+
+
+@register("interleaved_matmul_encdec_valatt",
+          args=("keys_values", "attention"))
+def interleaved_matmul_encdec_valatt(keys_values, attention, heads=1):
+    """``attention . V`` of the cross attention, ``(qlen, batch, embed)``."""
+    (_, v), _ = _heads_major(keys_values, heads, 2)
+    return _seq_major(torch.bmm(attention, v), keys_values.shape[1], heads)
 
 
 class FlashAttention(torch.autograd.Function):

@@ -88,11 +88,13 @@ class Optimizer:
 
     def _master_copy(self, weight):
         """Whether ``weight`` is updated through an fp32 master copy."""
-        return self.multi_precision and weight.dtype == torch.float16
+        return self.multi_precision and _t(weight).dtype == torch.float16
 
     def create_state_multi_precision(self, index, weight):
         if self._master_copy(weight):
-            w32 = weight.detach().float()
+            w32 = _t(weight).detach().float()
+            if w32 is not weight and not isinstance(weight, torch.Tensor):
+                w32 = type(weight)(w32)
             return (self.create_state(index, w32), w32)
         return self.create_state(index, weight)
 
@@ -163,13 +165,57 @@ class Optimizer:
             kw["clip_gradient"] = self.clip_gradient
         return kw
 
+    def _sparse_grad_prep(self, index, grad, weight_rows, fold_wd=True):
+        """The live rows' gradient, rescaled and clipped; with
+        ``fold_wd`` the rows' weight decay is added (AdaGrad keeps it out
+        of its squared history and passes ``fold_wd=False``)."""
+        g = grad._rs_data * self.rescale_grad
+        if self.clip_gradient is not None and self.clip_gradient > 0:
+            g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
+        if fold_wd:
+            wd = self._get_wd(index)
+            if wd:
+                g = g + wd * weight_rows
+        return g
+
+    @torch.no_grad()
+    def update_row_sparse(self, index, weight, grad, state):
+        """The update from a ``RowSparseNDArray`` gradient.  By default
+        the gradient is densified, which is right for every optimizer;
+        SGD and AdaGrad move only the live rows."""
+        self.update(index, _t(weight), grad.todense()._data, _t(state))
+
+    def update_row_sparse_multi_precision(self, index, weight, grad,
+                                          state):
+        """The sparse update through the fp32 master copy where there is
+        one: that route densifies, so the copy stays in step."""
+        if self._master_copy(_t(weight)):
+            self.update_multi_precision(index, _t(weight),
+                                        grad.todense()._data, _t(state))
+        else:
+            self.update_row_sparse(index, weight, grad, state)
+
+
+def _t(x):
+    """The tensor of an NDArray (a state tuple's entries each), or ``x``
+    as it is."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(_t(v) for v in x)
+    data = getattr(x, "_data", None)
+    return data if isinstance(data, torch.Tensor) else x
+
 
 def create(name, **kwargs):
     return Optimizer.create_optimizer(name, **kwargs)
 
 
 def _zeros(weight, n=1):
-    zs = tuple(torch.zeros_like(weight) for _ in range(n))
+    """``n`` zero states shaped as ``weight``; NDArrays for an NDArray
+    weight."""
+    data = _t(weight)
+    zs = tuple(torch.zeros_like(data) for _ in range(n))
+    if data is not weight:
+        zs = tuple(type(weight)(z) for z in zs)
     return zs if n > 1 else zs[0]
 
 
@@ -186,7 +232,7 @@ class SGD(Optimizer):
 
     def create_state(self, index, weight):
         if self.momentum != 0.0:
-            return torch.zeros_like(weight)
+            return _zeros(weight)
         return None
 
     def _apply(self, index, weight, grad, state):
@@ -211,6 +257,20 @@ class SGD(Optimizer):
             self._apply(index, weight, grad, state)
             return
         self._mp_sgd(weight, grad, state, self._common_kwargs(index))
+
+    @torch.no_grad()
+    def update_row_sparse(self, index, weight, grad, state):
+        """The lazy row update: only the rows the gradient names move.
+        With momentum every row's momentum decays, so it densifies."""
+        if self.momentum != 0.0:
+            return super().update_row_sparse(index, weight, grad, state)
+        weight = _t(weight)
+        self._update_count(index)
+        lr = self._get_lr(index)
+        rows = grad._rs_indices.to(weight.device).long()
+        g = self._sparse_grad_prep(index, grad, weight[rows])
+        weight.index_add_(0, rows, (-lr * g).to(weight.dtype))
+        return None
 
     def _mp_sgd(self, weight, grad, state, kw):
         mom, w32 = state
@@ -322,6 +382,23 @@ class AdaGrad(Optimizer):
         optimizer_ops.adagrad_update(weight, grad, state,
                                      epsilon=self.float_stable_eps,
                                      **self._common_kwargs(index))
+
+    @torch.no_grad()
+    def update_row_sparse(self, index, weight, grad, state):
+        """Only the live rows add to their history and move, by the dense
+        update's math: weight decay out of the history, epsilon inside
+        the square root."""
+        weight, state = _t(weight), _t(state)
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        rows = grad._rs_indices.to(weight.device).long()
+        w_rows = weight[rows]
+        g = self._sparse_grad_prep(index, grad, w_rows, fold_wd=False)
+        h_rows = state[rows] + g * g
+        state.index_copy_(0, rows, h_rows)
+        step = g / torch.sqrt(h_rows + self.float_stable_eps) + wd * w_rows
+        weight.index_add_(0, rows, (-lr * step).to(weight.dtype))
 
 
 @register
@@ -451,8 +528,13 @@ class Updater:
         return self.states[index]
 
     def __call__(self, index, grad, weight):
-        self.optimizer.update_multi_precision(
-            index, weight, grad, self.ensure_state(index, weight))
+        from ..ndarray.sparse import RowSparseNDArray
+        state = self.ensure_state(index, _t(weight))
+        if isinstance(grad, RowSparseNDArray):
+            self.optimizer.update_row_sparse_multi_precision(
+                index, weight, grad, state)
+            return
+        self.optimizer.update_multi_precision(index, weight, grad, state)
 
     def get_states(self, dump_optimizer=False):
         """The states as a pickled blob of host copies, with the

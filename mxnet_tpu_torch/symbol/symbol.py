@@ -174,7 +174,8 @@ class Symbol:
         return _infer_shapes_forward(self, kwargs, partial=True)
 
     def infer_type(self, **kwargs):
-        return ([np.float32] * len(self.list_arguments()),
+        """float32 everywhere but an int8 op's weight and bias (int8)."""
+        return ([np.dtype(d).type for d in _arg_dtypes(self)],
                 [np.float32] * len(self._outputs), [])
 
     # -- execution -----------------------------------------------------
@@ -324,9 +325,19 @@ def _num_outputs(spec, node):
         return 3 if node.attrs.get("mode", "lstm") == "lstm" else 2
     if spec.name == "topk":
         return 2 if node.attrs.get("ret_typ") == "both" else 1
-    if spec.name == "moments":
+    if spec.name in ("linalg_syevd", "linalg_slogdet", "moments"):
         return 2
+    if spec.name == "linalg_svd":
+        return 3
+    if spec.name in _QUANTIZED_OPS:
+        return 3
     return 1
+
+
+# each gives (values, min, max)
+_QUANTIZED_OPS = ("quantize", "quantize_v2", "requantize",
+                  "quantized_fully_connected", "quantized_conv",
+                  "quantized_pooling")
 
 
 def _signature_defaults(spec):
@@ -454,7 +465,51 @@ def _param_shape_rule(opname, params, arg_name, in_shapes):
                     "softmax_cross_entropy"):
         if arg_name == "label":
             return tuple(data)
+    elif opname in ("quantized_conv", "quantized_fully_connected"):
+        return _quantized_param_shape(opname, params, arg_name, in_shapes)
     return None
+
+
+def _quantized_param_shape(opname, params, arg_name, in_shapes):
+    """An int8 op's weight and bias as its float op's (a ``no_bias``
+    node's bias the one-element zero ``quantize_graph`` feeds), each
+    range a scalar."""
+    if arg_name.startswith(("min_", "max_")):
+        return ()
+    if arg_name == "bias" and params.get("no_bias"):
+        return (1,)
+    if opname == "quantized_fully_connected":
+        return _param_shape_rule("FullyConnected", params, arg_name,
+                                 in_shapes)
+    shape = _param_shape_rule("Convolution", params, arg_name, in_shapes)
+    layout = params.get("layout") or ""
+    if arg_name == "weight" and layout.endswith("C"):
+        groups = int(params.get("num_group", 1))
+        shape = shape[:1] + shape[2:] + (int(in_shapes[0][-1]) // groups,)
+    return shape
+
+
+# the arguments that are not float32: the int8 ops' weights and biases
+_ARG_DTYPES = {("quantized_conv", "weight"): "int8",
+               ("quantized_conv", "bias"): "int8",
+               ("quantized_fully_connected", "weight"): "int8",
+               ("quantized_fully_connected", "bias"): "int8"}
+
+
+def _arg_dtypes(sym):
+    """Each argument's dtype name by the ops it feeds: int8 for an int8
+    op's weight or bias, else float32."""
+    dtypes = {}
+    for node in sym._topo():
+        if node.op is None:
+            continue
+        names = table.lookup(node.op).args
+        for i, (src, _) in enumerate(node.inputs):
+            if src.op is None and i < len(names):
+                dt = _ARG_DTYPES.get((node.op, names[i]))
+                if dt is not None:
+                    dtypes[src.name] = dt
+    return [dtypes.get(n, "float32") for n in sym.list_arguments()]
 
 
 def _meta(shape, dtype="float32"):
@@ -497,7 +552,9 @@ def _infer_shapes_forward(sym, known, partial=False):
                     node.op, params,
                     spec.args[i] if i < len(spec.args) else "", in_shapes)
                 if shape is not None:
-                    s = specs[(id(src), oi)] = _meta(shape)
+                    s = specs[(id(src), oi)] = _meta(
+                        shape, _ARG_DTYPES.get((node.op, spec.args[i]),
+                                               "float32"))
                     var_shape[src.name] = shape
             args.append(s)
         if any(a is None for a in args):

@@ -341,13 +341,27 @@ def test_model_zoo_takes_ctx_and_root(tmp_path):
     assert rel(net) == rel(jnet)
 
 
-def test_embedding_takes_sparse_grad():
-    jgluon.nn.Embedding(10, 4, sparse_grad=False)
-    emb = gluon.nn.Embedding(10, 4, sparse_grad=False)
+@pytest.mark.parametrize("sparse_grad", [False, True])
+def test_embedding_takes_sparse_grad(sparse_grad):
+    """Both packages accept ``sparse_grad`` and give the same output and
+    the same dense gradient, repeated ids summed."""
+    ids = np.array([[1.0, 2.0, 1.0]], np.float32)
+    jemb = jgluon.nn.Embedding(10, 4, sparse_grad=sparse_grad)
+    jemb.initialize()
+    emb = gluon.nn.Embedding(10, 4, sparse_grad=sparse_grad)
     emb.initialize(device="cpu")
-    assert tuple(emb(torch.tensor([[1.0, 2.0]])).shape) == (1, 2, 4)
-    with pytest.raises(MXNetError, match="item 10"):
-        gluon.nn.Embedding(10, 4, sparse_grad=True)
+    assert tuple(emb(torch.tensor(ids)).shape) == (1, 3, 4)
+    jemb.weight.set_data(jmx.nd.array(emb.weight.data().asnumpy()))
+    x, jx = tmx.nd.array(ids, ctx=tmx.cpu()), jmx.nd.array(ids)
+    with autograd.record():
+        y = emb(x)
+        (y * y).sum().backward()
+    with jautograd.record():
+        jy = jemb(jx)
+        (jy * jy).sum().backward()
+    np.testing.assert_allclose(y.asnumpy(), jy.asnumpy(), **TOL)
+    np.testing.assert_allclose(emb.weight.grad().asnumpy(),
+                               jemb.weight.grad().asnumpy(), **TOL)
 
 
 def test_mx_binds_parallel_serving_and_kvstore():

@@ -422,6 +422,63 @@ def test_symbolic_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     assert exe.forward()[0].shape == (2, 3)
 
 
+def test_sparse_and_the_contrib_families_load_neither_jax_nor_mxnet_tpu(
+        tmp_path):
+    """``mx.nd.sparse`` with a row-sparse pull and AdaGrad row update,
+    the linalg ops, ``mx.nd.contrib``'s control flow and int8, box and
+    ROI ops, ``mx.contrib.quantization`` over a graph and
+    ``gluon.contrib.nn`` used in a fresh process; the scan above imports
+    each module of ``contrib/`` and ``gluon/contrib/`` too."""
+    names = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
+    assert {"ndarray/sparse.py", "ndarray/contrib.py", "ops/linalg.py",
+            "ops/control_flow.py", "ops/contrib_ops.py",
+            "contrib/__init__.py", "contrib/quantization.py",
+            "gluon/contrib/__init__.py", "gluon/contrib/nn.py"} <= names
+    walked = {p.relative_to(PKG).parts[0] for p in PKG.rglob("*.py")}
+    assert "contrib" in walked
+    code = ("import sys, numpy as np\n"
+            "import mxnet_tpu_torch as mx\n"
+            "from mxnet_tpu_torch.ndarray import sparse\n"
+            "from mxnet_tpu_torch.contrib import quantization\n"
+            "with mx.cpu():\n"
+            "    kv = mx.kv.create('local')\n"
+            "    kv.init('w', mx.nd.ones((10, 2)))\n"
+            "    kv.set_optimizer(mx.optimizer.AdaGrad())\n"
+            "    kv.push('w', sparse.row_sparse_array(\n"
+            "        (np.ones((1, 2), 'f'), np.array([3])), shape=(10, 2)))\n"
+            "    rows = kv.row_sparse_pull('w', row_ids=mx.nd.array([3, 4]))\n"
+            "    assert rows.data.shape == (2, 2)\n"
+            "    csr = sparse.csr_matrix(np.eye(3, dtype='f'))\n"
+            "    sparse.dot(csr, mx.nd.ones((3, 2)), transpose_a=True)\n"
+            "    mx.nd.linalg_potrf(mx.nd.array(np.eye(3) * 2))\n"
+            "    mx.nd.contrib.foreach(lambda x, s: (x + s, s), \n"
+            "                          mx.nd.ones((2, 3)), mx.nd.zeros(3))\n"
+            "    mx.nd.contrib.box_nms(mx.nd.ones((4, 6)))\n"
+            "    net = mx.gluon.contrib.nn.HybridConcurrent(axis=1)\n"
+            "    net.add(mx.gluon.nn.Dense(3),\n"
+            "            mx.gluon.contrib.nn.Identity())\n"
+            "    net.initialize(device='cpu')\n"
+            "    net(mx.nd.ones((2, 4)))\n"
+            "    s = mx.sym.FullyConnected(mx.sym.var('data'), num_hidden=3,\n"
+            "                              name='fc')\n"
+            "    q, qa, _ = quantization.quantize_model(\n"
+            "        s, {'fc_weight': mx.nd.ones((3, 4)),\n"
+            "            'fc_bias': mx.nd.zeros(3)}, {}, calib_mode='naive',\n"
+            "        calib_data=[np.ones((2, 4), 'f')])\n"
+            "    assert 'quantized_fully_connected' in q.tojson()\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "%r))" % (FORBIDDEN,))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(PKG.parent)] + [p for p in env.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(tmp_path))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
 def test_env_registry_defaults_and_typed_reads(monkeypatch):
     from mxnet_tpu import env as jax_env
     from mxnet_tpu_torch import env

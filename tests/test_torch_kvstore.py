@@ -142,11 +142,12 @@ def test_two_bit_compression_keeps_its_residual_over_three_pushes():
     assert np.abs(tout.asnumpy()).sum() > 0
 
 
-def test_multi_process_stores_and_row_sparse_pull_are_refused():
+def test_multi_process_stores_and_row_sparse_pull_match_the_jax_store():
     """The multi-process stores are ported (their cross-process cases
     are in tests/test_torch_kvstore_dist.py); in one process they are a
-    world of one, as the JAX package's are.  row_sparse_pull is not
-    ported."""
+    world of one, as the JAX package's are.  ``row_sparse_pull`` gives
+    the JAX store's rows (deduplicated, in order) into a dense ``out``
+    with every other row zero."""
     for name in ("dist_sync", "dist_device_sync", "dist_async", "dist",
                  "horovod"):
         kv, jstore = tkv.create(name), jkv.create(name)
@@ -158,9 +159,17 @@ def test_multi_process_stores_and_row_sparse_pull_are_refused():
         tkv.create("nope")
     kv = tkv.create("local")
     kv.init(0, _t(np.zeros(3, np.float32)))
-    with pytest.raises(MXNetError, match="item 10"):
-        kv.row_sparse_pull(0, out=_t(np.zeros(3, np.float32)),
-                           row_ids=_t(np.zeros(1, np.float32)))
+    table = np.arange(12, dtype=np.float32).reshape(4, 3) + 1
+    rows = np.array([2, 0, 2], np.float32)
+    kv.init(5, _t(table))
+    jstore = jkv.create("local")
+    jstore.init(5, _j(table))
+    ones = np.ones((4, 3), np.float32)
+    out, jout = _t(ones), _j(ones)
+    kv.row_sparse_pull(5, out=out, row_ids=_t(rows))
+    jstore.row_sparse_pull(5, out=jout, row_ids=_j(rows))
+    np.testing.assert_array_equal(out.asnumpy(), jout.asnumpy())
+    np.testing.assert_array_equal(out.asnumpy()[[1, 3]], 0)
     with pytest.raises(MXNetError, match="not initialized"):
         kv.pull(1, out=_t(np.zeros(3, np.float32)))
     kv.barrier()

@@ -15,6 +15,8 @@ CPU gloo (one ``python`` subprocess a rank, run once for the module):
   running statistics), the two gradients summed in rank order, the same
   SGD update; the ranks' trainable weights stay bitwise equal while
   their running statistics differ;
+- a row-sparse ``pushpull``, an SGD push and ``row_sparse_pull`` over
+  ``dist_sync`` equal the JAX ``"device"`` store fed both ranks' values;
 - ``horovod``'s single-process API equals the JAX package's, and
   ``DistributedTrainer`` on two ranks averages the gradients as the
   JAX one does.
@@ -121,6 +123,22 @@ with mx.cpu():
         oc = torch.zeros(6)
         kvc.pushpull(3, t(value(10 + i, rank, (6,))), out=oc)
         res["compressed%d" % i] = oc.numpy()
+    # row-sparse values: densified before the cross-process sum, then
+    # an SGD push and a row_sparse_pull of the stored table
+    from mxnet_tpu_torch.ndarray import sparse as sp
+    kvs = kvstore.create("dist_sync")
+    kvs.init("emb", torch.zeros((6, 2)))
+    g = sp.RowSparseNDArray(np.full((2, 2), float(rank + 1), np.float32),
+                            np.array([rank, rank + 1]), (6, 2))
+    ors = torch.zeros((6, 2))
+    kvs.pushpull("emb", g, out=ors)
+    res["rs_pushpull"] = ors.numpy().copy()
+    kvs.set_optimizer(mx.optimizer.SGD(learning_rate=1.0))
+    kvs.push("emb", g)
+    picked = kvs.row_sparse_pull(
+        "emb", row_ids=NDArray(t(np.array([2, 1, 2], np.float32))))
+    res["rs_pull_data"] = picked.data.asnumpy()
+    res["rs_pull_rows"] = picked.indices.asnumpy()
     kv.barrier()
 
     net = layers(gluon.nn)
@@ -237,6 +255,39 @@ def test_two_bit_compression_compresses_each_rank_before_the_sum(world):
         for rank in range(2):
             np.testing.assert_array_equal(world[rank]["compressed%d" % i],
                                           want)
+
+
+def _rs_value(rank):
+    from mxnet_tpu.ndarray import sparse as jsp
+    return jsp.RowSparseNDArray(np.full((2, 2), float(rank + 1), np.float32),
+                                np.array([rank, rank + 1]), (6, 2))
+
+
+def test_row_sparse_pushpull_and_pull_equal_the_jax_device_store(world):
+    """``tests/test_distributed.py``'s row-sparse case: each rank's
+    row-sparse value densified and summed across the ranks, then an SGD
+    push and ``row_sparse_pull`` of rows 1 and 2; the reference is the
+    JAX ``"device"`` store fed both ranks' values in one process."""
+    store = jkv.create("device")
+    store.init("emb", _j(np.zeros((6, 2), np.float32)))
+    o = _j(np.zeros((6, 2), np.float32))
+    store.pushpull("emb", [_rs_value(r) for r in range(2)], out=o)
+    store.set_optimizer(jmx.optimizer.SGD(learning_rate=1.0))
+    store.push("emb", [_rs_value(r) for r in range(2)])
+    picked = store.row_sparse_pull("emb", row_ids=_j(np.array([2, 1, 2])))
+    dense = np.zeros((6, 2), np.float32)
+    for r in range(2):
+        dense[r:r + 2] += r + 1
+    for rank in range(2):
+        np.testing.assert_array_equal(world[rank]["rs_pushpull"],
+                                      o.asnumpy())
+        np.testing.assert_array_equal(world[rank]["rs_pushpull"], dense)
+        np.testing.assert_array_equal(world[rank]["rs_pull_rows"],
+                                      picked.indices.asnumpy())
+        np.testing.assert_allclose(world[rank]["rs_pull_data"],
+                                   picked.data.asnumpy(), **TOL)
+        np.testing.assert_allclose(world[rank]["rs_pull_data"],
+                                   -dense[1:3], **TOL)
 
 
 def _tagged(res, tag):

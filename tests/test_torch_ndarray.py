@@ -309,6 +309,29 @@ def _ints(*shape, hi=3, seed=0):
         .astype(np.float32)
 
 
+def _spd(b, n):
+    a = _u(b, n, n)
+    return a @ a.transpose(0, 2, 1) + n * np.eye(n, dtype=np.float32)
+
+
+def _lower(b, n):
+    return np.tril(_u(b, n, n)) + 3 * np.eye(n, dtype=np.float32)
+
+
+def _i8(*shape, seed=0):
+    return np.random.RandomState(seed).randint(-127, 128, shape) \
+        .astype(np.int8)
+
+
+def _boxes(*shape, seed=0):
+    xy = _u(*shape, 2, lo=0.0, hi=6.0, seed=seed)
+    return np.concatenate([xy, xy + _u(*shape, 2, lo=0.5, hi=4.0,
+                                       seed=seed + 1)], axis=-1)
+
+
+_RANGES = [np.float32(v) for v in (-2.0, 1.5, -0.5, 0.75, -1.0, 1.0)]
+_ROIS = np.array([[0, 0, 0, 14, 14], [1, 2, 4, 9, 13], [0, 5, 3, 6, 4]],
+                 np.float32)
 POS = dict(lo=0.5, hi=3.0)
 UNIT = dict(lo=-0.9, hi=0.9)
 HALVES = np.array([[-2.5, -1.5, -0.5, 0.5], [1.5, 2.5, 0.3, -0.7]],
@@ -465,6 +488,59 @@ SPECS = {
                                 _u(2, 5, 4, seed=2),
                                 np.tril(np.ones((1, 5, 5), np.float32))],
                                {"heads": 2}),
+    # the linalg, interleaved-matmul, int8, box and ROI ops
+    "linalg_gemm": ([_u(2, 3, 4), _u(2, 4, 5, seed=1), _u(2, 3, 5, seed=2)],
+                    {"alpha": 2.0, "beta": 0.5}),
+    "linalg_gemm2": ([_u(3, 4), _u(5, 4, seed=1)],
+                     {"transpose_b": True, "alpha": 1.5}),
+    "linalg_potrf": ([_spd(2, 4)], {}),
+    "linalg_potri": ([_lower(2, 4)], {}),
+    "linalg_trsm": ([_lower(2, 4), _u(2, 3, 4, seed=1)],
+                    {"rightside": True, "transpose": True, "alpha": 2.0}),
+    "linalg_trmm": ([_u(2, 4, 4), _u(2, 4, 3, seed=1)],
+                    {"lower": False, "transpose": True}),
+    "linalg_syrk": ([_u(2, 3, 4)], {"transpose": True, "alpha": 0.5}),
+    "linalg_sumlogdiag": ([_spd(2, 4)], {}),
+    "linalg_extractdiag": ([_u(2, 4, 4)], {"offset": 1}),
+    "linalg_makediag": ([_u(2, 3)], {"offset": -1}),
+    "linalg_extracttrian": ([_u(2, 4, 4)], {"offset": -1, "lower": False}),
+    "linalg_maketrian": ([_u(2, 10)], {"lower": False}),
+    "linalg_inverse": ([_spd(2, 4)], {}),
+    "linalg_det": ([_spd(2, 3)], {}),
+    "linalg_slogdet": ([_u(2, 3, 3) + 2 * np.eye(3, dtype=np.float32)], {}),
+    "interleaved_matmul_selfatt_qk": ([_u(5, 2, 24)], {"heads": 2}),
+    "interleaved_matmul_selfatt_valatt": ([_u(5, 2, 24), _u(4, 5, 5)],
+                                          {"heads": 2}),
+    "interleaved_matmul_encdec_qk": ([_u(3, 2, 8), _u(5, 2, 16, seed=1)],
+                                     {"heads": 2}),
+    "interleaved_matmul_encdec_valatt": ([_u(5, 2, 16), _u(4, 3, 5)],
+                                         {"heads": 2}),
+    "quantize_v2": ([_u(3, 4)], {"min_calib_range": -1.5,
+                                 "max_calib_range": 1.2}),
+    "quantize": ([_u(3, 4), np.float32(-1.5), np.float32(1.0)], {}),
+    "dequantize": ([_i8(3, 4), np.float32(-1.5), np.float32(1.0)], {}),
+    "requantize": ([_i8(3, 4).astype(np.int32) * 90, np.float32(-3.0),
+                    np.float32(2.0)], {}),
+    "quantized_fully_connected": (
+        [_i8(3, 8), _i8(4, 8, seed=1), _i8(4, seed=2)] + _RANGES,
+        {"num_hidden": 4, "no_bias": False}),
+    "quantized_conv": (
+        [_i8(2, 3, 5, 5), _i8(4, 3, 3, 3, seed=1), _i8(4, seed=2)]
+        + _RANGES, {"kernel": (3, 3), "pad": (1, 1), "num_filter": 4,
+                    "no_bias": False}),
+    "quantized_pooling": ([_i8(2, 3, 4, 4), np.float32(-1.0),
+                           np.float32(2.0)],
+                          {"kernel": (2, 2), "stride": (2, 2),
+                           "pool_type": "avg"}),
+    "box_iou": ([_boxes(3), _boxes(2, seed=1)], {"format": "corner"}),
+    "box_nms": ([np.concatenate([_ints(2, 6, 1, hi=2), _u(2, 6, 1, lo=0.0,
+                                                       hi=1.0),
+                                 _boxes(2, 6)], axis=-1)],
+                {"overlap_thresh": 0.3, "valid_thresh": 0.1}),
+    "ROIPooling": ([_u(2, 3, 8, 8), _ROIS], {"pooled_size": (2, 3),
+                                             "spatial_scale": 0.5}),
+    "ROIAlign": ([_u(2, 3, 8, 8), _ROIS], {"pooled_size": (3, 2),
+                                           "spatial_scale": 0.5}),
 }
 RANDOM = {
     "_random_uniform": ([], {"low": -1.0, "high": 3.0, "shape": (20000,)}),
@@ -518,9 +594,10 @@ def _inputs(name):
 
 def _jax_op(name, inputs, params):
     """The JAX package's ``mx.nd.<name>`` on ``inputs``; an op whose
-    output shape depends on its data cannot run through that package's
-    eager jit, so its compute function runs directly."""
-    if name in ("boolean_mask",):
+    output shape depends on its data, or (``linalg_maketrian``) on a
+    traced value, cannot run through that package's eager jit, so its
+    compute function runs directly."""
+    if name in ("boolean_mask", "linalg_maketrian"):
         return jmx.nd.NDArray(OP_REGISTRY[name].fcompute(
             *[jnp.asarray(x) for x in inputs], **params))
     return getattr(jmx.nd, name)(*[jmx.nd.array(x) for x in inputs],
@@ -536,9 +613,12 @@ def _outputs(res):
 # JAX ops fail in their own forward (tests/test_torch_nd_layer_ops.py)
 REGRESSION_OUTPUTS = ("LinearRegressionOutput", "LogisticRegressionOutput",
                       "MAERegressionOutput")
+# eigen- and singular vectors are fixed up to a sign each, which LAPACK
+# and XLA choose their own ways: tests/test_torch_linalg.py holds them
+SIGN_FREE = ("linalg_syevd", "linalg_svd")
 TENSOR_OPS = [n for n in table.names()
               if not table.lookup(n).fn.__module__.endswith(".optimizer_ops")
-              and n not in REGRESSION_OUTPUTS]
+              and n not in REGRESSION_OUTPUTS + SIGN_FREE]
 
 
 @pytest.mark.parametrize("name", TENSOR_OPS)
