@@ -14,6 +14,7 @@ without the whole smoke run.
     cd <checkout> && python3 <repo>/chip_paths.py layernorm
     cd <checkout> && python3 <repo>/chip_paths.py deploy
     cd <checkout> && python3 <repo>/chip_paths.py contrib
+    cd <checkout> && python3 <repo>/chip_paths.py numpy
 
 ``decode`` is ``chip_smoke.main_path`` (GPT-2 small decode serving),
 ``mnist`` is ``mnist_main_path`` (the imperative LeNet loop, then 100
@@ -50,7 +51,11 @@ ResNet-50 exported and run back through ``SymbolBlock``, ``Module``,
 through ``row_sparse_pull`` and row-sparse AdaGrad, int8 ResNet-50 by
 ``quantize_model`` through ``Module`` and ``SymbolBlock``, and the
 linalg, interleaved-attention, detection and control-flow ops at user
-widths against the CPU).  The
+widths against the CPU) and ``numpy`` is ``numpy_phase`` (phase 22:
+BERT-base trained from ``mx.np`` arrays under ``npx.set_np()``, through
+``mx.nd`` and inside ``mx.engine.bulk``; every ``mx.np``/``npx`` name at
+user widths against the CPU; ``check_consistency`` and
+``runtime.Features()`` on the card; the host cost of an eager op).  The
 checkout's own ``chip_smoke`` and package are imported, its kernels
 built, and each path prints its lines as in the smoke run, under the
 same host-read check of every capture -- except ``hotswap``, which runs
@@ -73,7 +78,7 @@ PATHS = {"decode": "main_path", "mnist": "mnist_main_path",
          "ops": "ops_plane_phase", "dist": "dist_phase",
          "symbolic": "symbolic_phase", "bertbf16": "bert_bf16_phase",
          "layernorm": "layernorm_phase", "deploy": "deploy_phase",
-         "contrib": "contrib_phase"}
+         "contrib": "contrib_phase", "numpy": "numpy_phase"}
 # outside checking_syncs() (contrib enters it for its checked parts)
 UNCHECKED = {"hotswap", "ops", "dist", "contrib"}
 

@@ -435,6 +435,44 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    hybridized: one captured graph, replayed.  No hand kernel is on
    these paths: the kernels line carries ``launches_contrib`` by part,
    all 0.
+22. the NumPy front end and the engine and runtime helpers, after phase
+   21, seed 0, fp32 with TF32 off.  (a) ``npx.set_np()``, then
+   ``bert_base(vocab_size=30522, max_length=512, dropout=0.1)`` on
+   ``gpu(0)`` (random weights from seed 0), fed ``mx.np`` arrays (ids by
+   ``np.random.randint``, labels and next-sentence labels by
+   ``np.array``, batch 8 x 512), the masked-LM and next-sentence cross
+   entropy written with ``npx.log_softmax``, ``npx.pick`` and
+   ``np.mean``, 4 imperative steps of ``Trainer(..., "adam")`` (lr
+   2e-5): every block output an ``mx.np.ndarray``.  Then the same 4
+   steps from the same weights and ``mx.random.seed`` with
+   ``npx.reset_np()`` through ``mx.nd`` (block outputs plain
+   ``NDArray``s), then the np run again inside ``mx.engine.bulk(64)``;
+   the counters zeroed before the first and read after the third:
+   ``flash_attention_fwd`` = ``flash_attention_bwd`` = 12 x 4 x 3,
+   ``layernorm_fwd`` = 26 x 4 x 3, every other kernel 0.  Every loss
+   finite and the last below the first; the first loss of every run
+   bitwise the same; the losses and final weights of the np and bulk
+   runs bitwise the nd run's when a second nd run (outside the counted
+   window) is bitwise the first, else within 4x the distance of the two
+   nd runs (the flash backward adds dq with fp32 atomics in no fixed
+   order).  It prints each run's step times, then where one more np
+   step's time goes (``torch.profiler``: device time by category, the
+   hand kernels' share, the idle share).  (b) every ``mx.np``
+   function, generated unary name and ``ndarray`` member and every
+   ``npx`` op at user widths ((4,096, 768) fp32; ``dot``/``matmul``/
+   ``tensordot``/``einsum`` (4,096, 768) x (768, 3,072); the MLM logits
+   (4,096, 30,522); a ResNet activation (8, 64, 56, 56)) on the card
+   against the same call under ``with mx.cpu():``: equal result types,
+   dtypes and shapes, sorts, arg-ops, selections and copies bitwise, the
+   rest within 1e-5 of the CPU result's largest magnitude.  (c)
+   ``test_utils.check_consistency`` of ten ops of the table, ``cpu(0)``
+   against ``gpu(0)``, and ``runtime.Features()`` on the card (``CUDA``,
+   ``CUDNN``, ``GPU`` and ``KERNELS`` true, ``TPU``, ``XLA`` and
+   ``PALLAS`` false; its ``repr`` printed).  (d) the sixth deviation's
+   cost: ``host_us`` of a chain of 256 eager ``mx.np`` adds on a (768,)
+   array, microseconds an op, outside and inside
+   ``mx.engine.bulk(256)``.  The kernels line carries
+   ``launches_numpy``, (a)'s counts.
 
 Every path runs from captured CUDA graphs (``mxnet_tpu_torch._capture``),
 the port's counterpart of the JAX package's compiled programs: one
@@ -455,7 +493,7 @@ BERT-base LAMB (dropout 0.1, batch 8 x seq 512) and ResNet-50 bf16 AMP
 LARS (batch 16), each four calls of one ``TrainStep`` (eager, captured,
 replayed, replayed after ``set_learning_rate``) against four eager
 steps on a copy of the net (losses, updates, the last update, every
-optimizer state).  Phases 1-15, 19 and 20, and phase 21's inference
+optimizer state).  Phases 1-15, 19, 20 and 22, and phase 21's inference
 and op families, run under ``_capture.checking_syncs()``: every
 capture and replay runs under ``torch.cuda.set_sync_debug_mode(
 "error")``, so a host read left inside a captured region fails it.
@@ -7828,6 +7866,7 @@ def module_fit_path(ctx=None, root=SYM_ROOT, epochs=MODULE_MNIST_EPOCHS):
     on the CPU from the same weights and batches, less 0.02."""
     import torch
     import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
     from mxnet_tpu_torch.kernels import registry
     ctx = ctx or mx.gpu(0)
     cuda = ctx.device_type == "gpu"
@@ -7989,6 +8028,7 @@ def bucketing_lstm_path(ctx=None, buckets=LSTM_BUCKETS, batch=LSTM_BATCH,
     reading the one set of shared weights."""
     import torch
     import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
     from mxnet_tpu_torch.kernels import registry
     ctx = ctx or mx.gpu(0)
     cuda = ctx.device_type == "gpu"
@@ -9852,6 +9892,613 @@ def contrib_phase():
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 22: the NumPy front end (mx.np, mx.npx), the engine and runtime
+# helpers
+# ---------------------------------------------------------------------
+
+NUMPY_BATCH = 8
+NUMPY_STEPS = 4
+# BERT fine-tuning's learning rate: at pretraining's 1e-4 with no warm-up
+# the loss rose after the second step (11.64 -> 12.77 in four steps)
+NUMPY_ADAM = {"learning_rate": 2e-5}
+NUMPY_BULK = 64
+NUMPY_RUNS = ("np", "nd", "bulk")
+NUMPY_SITES = {"flash_attention_fwd": BERT_LAYERS,
+               "flash_attention_bwd": BERT_LAYERS,
+               # two per encoder cell, the embedding's, the MLM head's
+               "layernorm_fwd": 2 * BERT_LAYERS + 2}
+# a run that differs from the nd run by more than this many times the
+# distance of two nd runs (the flash backward adds dq by fp32 atomics, in
+# no fixed order) has not run the same ops
+NUMPY_FLOOR_FACTOR = 4.0
+NUMPY_WIDTH = (4096, 768)          # BERT-base's rows at 8 x 512, units
+NUMPY_FFN = 3072
+NUMPY_TOL = 1e-5                   # of the CPU result's largest value
+NUMPY_CHAIN = 256                  # eager adds of part (d)
+
+
+def _kind(x):
+    """``"ndarray"`` for an ``mx.np.ndarray``, ``"NDArray"`` otherwise."""
+    import mxnet_tpu_torch as mx
+    return "ndarray" if isinstance(x, mx.np.ndarray) else "NDArray"
+
+
+def numpy_inputs(batch, seq, vocab, seed=0):
+    """Part (a)'s batch, made with ``mx.np`` on the current context:
+    ids by ``np.random.randint``, labels and next-sentence labels by
+    ``np.array`` from a seeded host draw, token types zeros."""
+    import mxnet_tpu_torch as mx
+    mx.np.random.seed(seed)
+    ids = mx.np.random.randint(0, vocab, size=(batch, seq)).astype("float32")
+    rng = np.random.default_rng(seed)
+    labels = mx.np.array(rng.integers(0, vocab, (batch, seq)), "float32")
+    nsp = mx.np.array(rng.integers(0, 2, (batch,)), "float32")
+    return {"ids": ids, "types": mx.np.zeros((batch, seq)),
+            "labels": labels, "nsp": nsp}
+
+
+def _numpy_loss(m, mlm, nsp, labels, nsp_labels):
+    """Masked-LM and next-sentence cross entropy, each the mean over its
+    positions, written in ``m`` (``mx.np``/``npx`` or ``mx.nd``)."""
+    if m == "np":
+        import mxnet_tpu_torch as mx
+        np_, npx = mx.np, mx.npx
+
+        def ce(s, y):
+            return np_.mean(np_.negative(npx.pick(npx.log_softmax(s), y)))
+    else:
+        from mxnet_tpu_torch import nd
+
+        def ce(s, y):
+            return nd.mean(nd.negative(nd.pick(nd.log_softmax(s), y)))
+    return ce(mlm, labels) + ce(nsp, nsp_labels)
+
+
+def _numpy_step(net, trainer, feed, use_np):
+    """One imperative step: forward and loss under ``record()``,
+    ``backward``, ``trainer.step``; the loss and the net's outputs."""
+    from mxnet_tpu_torch import autograd
+    with autograd.record():
+        mlm, nsp = net(feed["ids"], feed["types"])
+        loss = _numpy_loss("np" if use_np else "nd", mlm, nsp,
+                           feed["labels"], feed["nsp"])
+    loss.backward()
+    trainer.step(1)
+    return loss, (mlm, nsp)
+
+
+def numpy_bert_run(net, w0, inputs, mode, steps=NUMPY_STEPS, sync=None,
+                   hyper=NUMPY_ADAM):
+    """``steps`` imperative Adam steps of ``net`` from the weights ``w0``
+    and ``mx.random.seed(0)``: ``mode`` ``"np"`` under ``npx.set_np()``
+    on ``mx.np`` inputs, ``"nd"`` under ``npx.reset_np()`` through
+    ``mx.nd``, ``"bulk"`` the np run inside ``mx.engine.bulk(64)``.
+    Returns the losses, the final weights, the step times and the types
+    of the net's outputs."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    params = list(net.collect_params().values())
+    with torch.no_grad():
+        for p, t in zip(params, w0):
+            p.data()._data.copy_(t)
+    use_np = mode != "nd"
+    if use_np:
+        mx.npx.set_np()
+        feed = inputs
+    else:
+        mx.npx.reset_np()
+        feed = {k: mx.nd.NDArray(v) for k, v in inputs.items()}
+    mx.random.seed(0)
+    trainer = gluon.Trainer(net.collect_params(), "adam", dict(hyper))
+    scope = mx.engine.bulk(NUMPY_BULK) if mode == "bulk" \
+        else contextlib.nullcontext()
+    losses, step_ms, kinds = [], [], []
+    sync = sync or (lambda: None)
+    try:
+        with scope:
+            for _ in range(steps):
+                sync()
+                t0 = time.perf_counter()
+                loss, outs = _numpy_step(net, trainer, feed, use_np)
+                sync()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+                kinds.append([_kind(o) for o in outs])
+                losses.append(float(loss.asnumpy()))
+    finally:
+        mx.npx.reset_np()
+    weights = [p.data()._data.detach().clone() for p in params]
+    return {"losses": losses, "weights": weights, "step_ms": step_ms,
+            "kinds": kinds}
+
+
+def numpy_step_breakdown(net, inputs, step_ms, hyper=NUMPY_ADAM):
+    """Where one np step of part (a) goes: ``train_step_breakdown`` over
+    one more imperative step after a first one that makes Adam's state
+    (both outside the counted window)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    trainer = gluon.Trainer(net.collect_params(), "adam", dict(hyper))
+    mx.npx.set_np()
+    try:
+        _numpy_step(net, trainer, inputs, True)
+        return train_step_breakdown(
+            lambda feed, _: _numpy_step(net, trainer, feed, True), inputs,
+            None, step_ms, hand=("flash_fwd_kernel", "flash_bwd_kernel",
+                                 "layernorm_fwd_kernel"),
+            label="numpy (a) step breakdown")
+    finally:
+        mx.npx.reset_np()
+
+
+def _runs_distance(a, b):
+    """The largest relative loss difference and the norm-wise relative
+    weight difference of two runs."""
+    import torch
+    loss = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], b["losses"]))
+    num = sum(float((x.double() - y.double()).pow(2).sum())
+              for x, y in zip(a["weights"], b["weights"]))
+    den = sum(float(y.double().pow(2).sum()) for y in b["weights"])
+    same = all(torch.equal(x, y) for x, y in zip(a["weights"], b["weights"]))
+    return {"loss_rel_err": loss, "weights_rel_err": (num / den) ** 0.5,
+            "bitwise": same and a["losses"] == b["losses"]}
+
+
+def numpy_bert_path(make_net=bert_base_net, vocab=BERT_VOCAB,
+                    batch=NUMPY_BATCH, seq=BERT_SEQ, steps=NUMPY_STEPS,
+                    sites=NUMPY_SITES, ctx=None, hyper=NUMPY_ADAM):
+    """Part (a): BERT-base (dropout 0.1, fp32) trained from ``mx.np``
+    arrays under ``npx.set_np()`` by ``steps`` imperative Adam steps,
+    then the same steps through ``mx.nd`` and inside ``mx.engine.bulk``
+    from the same weights and seed, then a second nd run outside the
+    counted window for the floor.  Every run's first loss must be
+    bitwise the np run's; the rest bitwise too when the two nd runs are,
+    else within NUMPY_FLOOR_FACTOR x their distance.  The hand kernels
+    launch ``sites`` times a step in each counted run, every other
+    kernel never (``sites={}`` skips the count).  ``hyper`` is Adam's."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.kernels import registry
+    ctx = ctx or mx.gpu(0)
+    cuda = ctx.device_type == "gpu"
+    sync = torch.cuda.synchronize if cuda else None
+    with ctx:
+        net = make_net()
+        net.initialize(device="cuda" if cuda else "cpu",
+                       generator=torch.Generator().manual_seed(0))
+        inputs = numpy_inputs(batch, seq, vocab)
+        with autograd.pause():
+            net(inputs["ids"][:1], inputs["types"][:1])   # sizes deferred
+        w0 = [p.data()._data.detach().clone()
+              for p in net.collect_params().values()]
+        kinds_in = sorted({_kind(v) for v in inputs.values()})
+        registry.reset_launches()
+        runs = {mode: numpy_bert_run(net, w0, inputs, mode, steps, sync,
+                                     hyper)
+                for mode in NUMPY_RUNS}
+        counts = {k: registry.launches(k) for k in registry.list_kernels()}
+        floor_run = numpy_bert_run(net, w0, inputs, "nd", steps, sync,
+                                   hyper)
+        if cuda:
+            breakdown = numpy_step_breakdown(
+                net, inputs, float(np.median(runs["np"]["step_ms"][1:])),
+                hyper)
+    floor = _runs_distance(floor_run, runs["nd"])
+    dist = {mode: _runs_distance(runs[mode], runs["nd"])
+            for mode in ("np", "bulk")}
+    first = {mode: r["losses"][0] for mode, r in runs.items()}
+    out = {"batch": batch, "seq": seq, "steps": steps,
+           "losses": {m: r["losses"] for m, r in runs.items()},
+           "step_ms": {m: r["step_ms"] for m, r in runs.items()},
+           "median_step_ms": {m: float(np.median(r["step_ms"][1:] or
+                                                 r["step_ms"]))
+                              for m, r in runs.items()},
+           "vs_nd": dist, "nd_twice": floor, "launches": counts,
+           "device_idle_share": breakdown["device_idle_share"]
+           if cuda else None, "card": gpu_line() if cuda else None}
+    print("numpy (a) BERT-base from mx.np under npx.set_np(): %s"
+          % json.dumps(out))
+    check(kinds_in == ["ndarray"], "inputs not mx.np arrays: %s" % kinds_in)
+    check(all(k == ["ndarray", "ndarray"] for k in runs["np"]["kinds"]
+              + runs["bulk"]["kinds"]),
+          "set_np block outputs: %s" % runs["np"]["kinds"])
+    check(all(k == ["NDArray", "NDArray"] for k in runs["nd"]["kinds"]),
+          "reset_np block outputs: %s" % runs["nd"]["kinds"])
+    for mode, r in runs.items():
+        check(all(np.isfinite(r["losses"])), "%s losses %s"
+              % (mode, r["losses"]))
+        check(r["losses"][-1] < r["losses"][0], "%s loss did not fall: %s"
+              % (mode, r["losses"]))
+    check(len(set(first.values())) == 1
+          and floor_run["losses"][0] == first["np"],
+          "first losses differ: %s" % first)
+    for mode, d in dist.items():
+        if floor["bitwise"]:
+            check(d["bitwise"], "%s run not bitwise the nd run: %s"
+                  % (mode, d))
+        else:
+            for key in ("loss_rel_err", "weights_rel_err"):
+                check(d[key] <= NUMPY_FLOOR_FACTOR * floor[key],
+                      "%s run: %s %.3g above %g x the nd floor %.3g"
+                      % (mode, key, d[key], NUMPY_FLOOR_FACTOR,
+                         floor[key]))
+    if sites:
+        n = steps * len(NUMPY_RUNS)
+        for name, c in counts.items():
+            want = sites.get(name, 0) * n
+            check(c == want, "%s launches %d != %d" % (name, c, want))
+    del net, runs, floor_run
+    return out
+
+
+def _np_case_inputs(width, ffn, vocab, seed=5):
+    """Host inputs of part (b) at user widths."""
+    rows, units = width
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    # distinct values everywhere: sorts, arg-ops and top-k have no ties
+    perm = (np.stack([rng.permutation(units) for _ in range(rows)])
+            + np.arange(rows)[:, None] * units).astype(f32)
+    odd = rng.standard_normal((rows, units)).astype(f32)
+    odd[::7, ::5] = np.nan
+    odd[1::11, ::3] = np.inf
+    odd[2::13, 1::4] = -np.inf
+    return {
+        "sym": rng.uniform(-1, 1, (rows, units)).astype(f32),
+        "sym2": rng.uniform(-1, 1, (rows, units)).astype(f32),
+        "pos": rng.uniform(0.5, 1.5, (rows, units)).astype(f32),
+        "near1": rng.uniform(0.995, 1.005, (rows, units)).astype(f32),
+        "perm": perm, "odd": odd,
+        "w": (rng.standard_normal((units, ffn)) / np.sqrt(units)).astype(f32),
+        "wt": (rng.standard_normal((ffn, units)) / np.sqrt(units)).astype(f32),
+        "b": rng.standard_normal(ffn).astype(f32),
+        "gamma": rng.uniform(0.5, 1.5, units).astype(f32),
+        "beta": rng.uniform(-0.5, 0.5, units).astype(f32),
+        "logits": rng.standard_normal((rows, vocab)).astype(f32),
+        "labels": rng.integers(0, vocab, rows).astype(f32),
+        "ids": rng.integers(0, vocab, (rows // 64, 64)).astype(f32),
+        "table": rng.standard_normal((vocab, units)).astype(f32),
+        "img": rng.standard_normal((8, 64, 56, 56)).astype(f32),
+        "kern": (rng.standard_normal((64, 64, 3, 3)) / 24).astype(f32),
+        "kb": rng.standard_normal(64).astype(f32),
+        "stats": [rng.standard_normal(64).astype(f32) for _ in range(3)]
+        + [rng.uniform(0.5, 2.0, 64).astype(f32)],
+        "flat": rng.uniform(0.5, 1.5, (64, units)).astype(f32),
+    }
+
+
+def numpy_cases():
+    """Part (b)'s cases: ``{name: (fn(np, npx, arr, X), exact)}``, every
+    ``mx.np`` name (the functions, the generated unary names, the
+    ``ndarray`` members) and every ``npx`` op; ``arr`` makes an
+    ``mx.np`` array of a host input on the current context."""
+    unary = {"abs": "sym", "exp": "sym", "log": "pos", "log2": "pos",
+             "log10": "pos", "sqrt": "pos", "square": "sym", "sin": "sym",
+             "cos": "sym", "tan": "sym", "tanh": "sym", "sign": "sym",
+             "floor": "sym", "ceil": "sym", "isnan": "odd", "isinf": "odd",
+             "isfinite": "odd", "negative": "sym"}
+    exact_unary = {"abs", "sign", "floor", "ceil", "isnan", "isinf",
+                   "isfinite", "negative", "square"}
+    cases = {
+        "array": (lambda np_, npx, arr, X: [np_.array(X["sym"]),
+                                            np_.array(X["perm"], "int32")],
+                  True),
+        "asarray": (lambda np_, npx, arr, X: [np_.asarray(X["sym"])], True),
+        "zeros": (lambda np_, npx, arr, X: [np_.zeros(X["sym"].shape)], True),
+        "ones": (lambda np_, npx, arr, X: [np_.ones(X["sym"].shape)], True),
+        "empty": (lambda np_, npx, arr, X: [np_.zeros(np_.empty(
+            X["sym"].shape).shape)], True),
+        "full": (lambda np_, npx, arr, X: [np_.full(X["sym"].shape, 0.5)],
+                 True),
+        "eye": (lambda np_, npx, arr, X: [np_.eye(X["sym"].shape[1])], True),
+        "arange": (lambda np_, npx, arr, X: [np_.arange(X["sym"].size)],
+                   True),
+        "linspace": (lambda np_, npx, arr, X: [np_.linspace(
+            0, 1, X["sym"].size)], True),
+        "concatenate": (lambda np_, npx, arr, X: [np_.concatenate(
+            [arr(X["sym"]), arr(X["pos"])], axis=1)], True),
+        "stack": (lambda np_, npx, arr, X: [np_.stack(
+            [arr(X["sym"]), arr(X["pos"])])], True),
+        "split": (lambda np_, npx, arr, X: np_.split(arr(X["sym"]), 3,
+                                                     axis=1), True),
+        "dot": (lambda np_, npx, arr, X: [np_.dot(arr(X["sym"]),
+                                                  arr(X["w"]))], False),
+        "matmul": (lambda np_, npx, arr, X: [np_.matmul(arr(X["sym"]),
+                                                        arr(X["w"]))], False),
+        "tensordot": (lambda np_, npx, arr, X: [np_.tensordot(
+            arr(X["sym"]), arr(X["w"]), axes=([1], [0]))], False),
+        "einsum": (lambda np_, npx, arr, X: [np_.einsum(
+            "ij,jk->ik", arr(X["sym"]), arr(X["w"]))], False),
+        "where": (lambda np_, npx, arr, X: [np_.where(
+            arr(X["sym"] > 0), arr(X["sym"]), arr(X["pos"]))], True),
+        "maximum": (lambda np_, npx, arr, X: [
+            np_.maximum(arr(X["sym"]), 0.25),
+            np_.maximum(arr(X["sym"]), arr(X["sym2"]))], True),
+        "minimum": (lambda np_, npx, arr, X: [
+            np_.minimum(arr(X["sym"]), 0.25),
+            np_.minimum(arr(X["sym"]), arr(X["sym2"]))], True),
+        "clip": (lambda np_, npx, arr, X: [np_.clip(arr(X["sym"]), -0.5,
+                                                    0.5)], True),
+        "power": (lambda np_, npx, arr, X: [
+            np_.power(arr(X["pos"]), 3), np_.power(arr(X["pos"]),
+                                                   arr(X["sym"]))], False),
+        "sum": (lambda np_, npx, arr, X: [np_.sum(arr(X["pos"])),
+                                          np_.sum(arr(X["pos"]), axis=1)],
+                False),
+        "mean": (lambda np_, npx, arr, X: [np_.mean(arr(X["pos"])),
+                                           np_.mean(arr(X["pos"]), axis=0)],
+                 False),
+        "var": (lambda np_, npx, arr, X: [np_.var(arr(X["pos"]), axis=1),
+                                          np_.var(arr(X["pos"]), ddof=1)],
+                False),
+        "std": (lambda np_, npx, arr, X: [np_.std(arr(X["pos"]), axis=0),
+                                          np_.std(arr(X["pos"]))], False),
+        "prod": (lambda np_, npx, arr, X: [np_.prod(arr(X["near1"]),
+                                                    axis=1)], False),
+        "max": (lambda np_, npx, arr, X: [np_.max(arr(X["perm"])),
+                                          np_.max(arr(X["perm"]), axis=1)],
+                True),
+        "min": (lambda np_, npx, arr, X: [np_.min(arr(X["perm"])),
+                                          np_.min(arr(X["perm"]), axis=0)],
+                True),
+        "argmax": (lambda np_, npx, arr, X: [
+            np_.argmax(arr(X["perm"])), np_.argmax(arr(X["perm"]), axis=1)],
+            True),
+        "argmin": (lambda np_, npx, arr, X: [
+            np_.argmin(arr(X["perm"])), np_.argmin(arr(X["perm"]), axis=0)],
+            True),
+        "reshape": (lambda np_, npx, arr, X: [np_.reshape(
+            arr(X["sym"]), (-1, 64))], True),
+        "transpose": (lambda np_, npx, arr, X: [np_.transpose(
+            arr(X["sym"]))], True),
+        "expand_dims": (lambda np_, npx, arr, X: [np_.expand_dims(
+            arr(X["sym"]), 1)], True),
+        "squeeze": (lambda np_, npx, arr, X: [np_.squeeze(np_.expand_dims(
+            arr(X["sym"]), 0))], True),
+        "tile": (lambda np_, npx, arr, X: [np_.tile(arr(X["sym"]), (2, 1))],
+                 True),
+        "repeat": (lambda np_, npx, arr, X: [np_.repeat(arr(X["sym"]), 2,
+                                                        axis=1)], True),
+        "flip": (lambda np_, npx, arr, X: [np_.flip(arr(X["sym"])),
+                                           np_.flip(arr(X["sym"]), axis=1)],
+                 True),
+        "cumsum": (lambda np_, npx, arr, X: [
+            np_.cumsum(arr(X["pos"]), axis=1), np_.cumsum(arr(X["flat"]))],
+            False),
+        "sort": (lambda np_, npx, arr, X: [np_.sort(arr(X["perm"])),
+                                           np_.sort(arr(X["perm"]), axis=0)],
+                 True),
+        "argsort": (lambda np_, npx, arr, X: [np_.argsort(arr(X["perm"]))],
+                    True),
+        "take": (lambda np_, npx, arr, X: [
+            np_.take(arr(X["sym"]), arr(X["ids"])),
+            np_.take(arr(X["table"]), arr(X["ids"]), axis=0)], True),
+        "vstack": (lambda np_, npx, arr, X: [np_.vstack(
+            [arr(X["sym"]), arr(X["pos"])])], True),
+        "hstack": (lambda np_, npx, arr, X: [np_.hstack(
+            [arr(X["sym"]), arr(X["pos"])])], True),
+        "dstack": (lambda np_, npx, arr, X: [np_.dstack(
+            [arr(X["sym"]), arr(X["pos"])])], True),
+        "random": (lambda np_, npx, arr, X: [np_.zeros(np_.random.uniform(
+            size=X["sym"].shape).shape)], True),
+        # ndarray members
+        ".T": (lambda np_, npx, arr, X: [arr(X["sym"]).T], True),
+        ".reshape": (lambda np_, npx, arr, X: [arr(X["sym"]).reshape(
+            -1, 256)], True),
+        ".copy": (lambda np_, npx, arr, X: [arr(X["sym"]).copy()], True),
+        ".astype": (lambda np_, npx, arr, X: [arr(X["perm"]).astype(
+            "int32")], True),
+        ".mean": (lambda np_, npx, arr, X: [arr(X["pos"]).mean(axis=1)],
+                  False),
+        ".sum": (lambda np_, npx, arr, X: [arr(X["pos"]).sum(axis=0)],
+                 False),
+        ".max": (lambda np_, npx, arr, X: [arr(X["perm"]).max(axis=1)],
+                 True),
+        ".min": (lambda np_, npx, arr, X: [arr(X["perm"]).min()], True),
+        # npx
+        "npx.relu": (lambda np_, npx, arr, X: [npx.relu(arr(X["sym"]))],
+                     True),
+        "npx.sigmoid": (lambda np_, npx, arr, X: [npx.sigmoid(
+            arr(X["sym"]))], False),
+        "npx.softmax": (lambda np_, npx, arr, X: [npx.softmax(
+            arr(X["sym"]))], False),
+        "npx.log_softmax": (lambda np_, npx, arr, X: [npx.log_softmax(
+            arr(X["logits"]))], False),
+        "npx.activation": (lambda np_, npx, arr, X: [
+            npx.activation(arr(X["sym"]), t)
+            for t in ("relu", "sigmoid", "tanh", "softrelu")], False),
+        "npx.fully_connected": (lambda np_, npx, arr, X: [
+            npx.fully_connected(arr(X["sym"]), arr(X["wt"]), arr(X["b"]),
+                                num_hidden=X["wt"].shape[0])], False),
+        "npx.convolution": (lambda np_, npx, arr, X: [npx.convolution(
+            arr(X["img"]), arr(X["kern"]), arr(X["kb"]), kernel=(3, 3),
+            pad=(1, 1), num_filter=64)], False),
+        "npx.pooling": (lambda np_, npx, arr, X: [
+            npx.pooling(arr(X["img"])),
+            npx.pooling(arr(X["img"]), kernel=(3, 3), stride=(2, 2),
+                        pool_type="avg")], False),
+        "npx.batch_norm": (lambda np_, npx, arr, X: list(npx.batch_norm(
+            arr(X["img"]), *[arr(s) for s in X["stats"]])), False),
+        "npx.layer_norm": (lambda np_, npx, arr, X: [npx.layer_norm(
+            arr(X["sym"]), arr(X["gamma"]), arr(X["beta"]), eps=1e-12)],
+            False),
+        "npx.embedding": (lambda np_, npx, arr, X: [npx.embedding(
+            arr(X["ids"]), arr(X["table"]), input_dim=X["table"].shape[0],
+            output_dim=X["table"].shape[1])], True),
+        "npx.one_hot": (lambda np_, npx, arr, X: [npx.one_hot(
+            arr(X["labels"][:512]), X["logits"].shape[1])], True),
+        "npx.pick": (lambda np_, npx, arr, X: [npx.pick(
+            arr(X["logits"]), arr(X["labels"]))], True),
+        "npx.topk": (lambda np_, npx, arr, X: [
+            npx.topk(arr(X["perm"]), k=5),
+            npx.topk(arr(X["perm"]), k=3, ret_typ="value")], True),
+        "npx.reshape_like": (lambda np_, npx, arr, X: [npx.reshape_like(
+            arr(X["sym"]), np_.zeros((X["sym"].shape[0] // 4,
+                                      X["sym"].shape[1] * 4)))], True),
+    }
+    for name, key in unary.items():
+        cases[name] = (lambda np_, npx, arr, X, _n=name, _k=key:
+                       [getattr(np_, _n)(arr(X[_k]))], name in exact_unary)
+    return cases
+
+
+def numpy_card_vs_cpu(width=NUMPY_WIDTH, ffn=NUMPY_FFN, vocab=BERT_VOCAB,
+                      tol=NUMPY_TOL, ctxs=None):
+    """Part (b): every case of :func:`numpy_cases` on the card against
+    the same call under ``with mx.cpu():`` (``ctxs``, by default
+    ``(gpu(0), cpu())``) -- equal result types, dtypes and shapes; exact
+    cases bitwise, the rest within ``tol`` of the CPU result's largest
+    finite magnitude.  Returns ``{case: error}`` and the largest."""
+    import mxnet_tpu_torch as mx
+    X = _np_case_inputs(width, ffn, vocab)
+    errs = {}
+    for name, (fn, exact) in sorted(numpy_cases().items()):
+        res = []
+        for ctx in ctxs or (mx.gpu(0), mx.cpu()):
+            with ctx:
+                outs = fn(mx.np, mx.npx, mx.np.array, X)
+                res.append([(_kind(o), o.asnumpy()) for o in outs])
+        worst = 0.0
+        for (gk, g), (wk, w) in zip(*res):
+            check(gk == wk, "%s: %s on the card, %s on the CPU"
+                  % (name, gk, wk))
+            check(g.shape == w.shape and g.dtype == w.dtype,
+                  "%s: %s %s against %s %s" % (name, g.shape, g.dtype,
+                                               w.shape, w.dtype))
+            if exact:
+                same = np.array_equal(g, w, equal_nan=g.dtype.kind == "f")
+                check(same, "%s: not bitwise on the card" % name)
+                continue
+            fin = np.isfinite(w)
+            check(np.array_equal(np.isfinite(g), fin),
+                  "%s: finite entries differ" % name)
+            # float32 differences of close values are exact; the masks
+            # keep infinities out without copying the finite entries
+            with np.errstate(invalid="ignore"):
+                diff = np.abs(np.where(fin, g - w, 0)).max()
+            scale = max(float(np.abs(np.where(fin, w, 0)).max()), 1e-30)
+            worst = max(worst, float(diff) / scale)
+        errs[name] = worst
+        check(worst <= tol, "%s: card %.3g from the CPU, above %g"
+              % (name, worst, tol))
+    top = max(errs, key=errs.get)
+    return {"cases": len(errs), "errors": errs, "largest": errs[top],
+            "largest_case": top}
+
+
+CONSISTENCY_OPS = (
+    ("FullyConnected", lambda r: [r.standard_normal((512, 768)),
+                                  r.standard_normal((3072, 768)) / 28,
+                                  r.standard_normal(3072)],
+     {"num_hidden": 3072}),
+    ("Convolution", lambda r: [r.standard_normal((8, 64, 56, 56)),
+                               r.standard_normal((64, 64, 3, 3)) / 24,
+                               r.standard_normal(64)],
+     {"kernel": (3, 3), "pad": (1, 1), "num_filter": 64}),
+    ("Pooling", lambda r: [r.standard_normal((8, 64, 112, 112))],
+     {"kernel": (3, 3), "stride": (2, 2), "pool_type": "max"}),
+    ("softmax", lambda r: [r.standard_normal((512, 30522))], {"axis": -1}),
+    ("log_softmax", lambda r: [r.standard_normal((512, 30522))], {}),
+    ("LayerNorm", lambda r: [r.standard_normal((4096, 768)),
+                             r.uniform(0.5, 1.5, 768),
+                             r.uniform(-0.5, 0.5, 768)], {"eps": 1e-12}),
+    # inputs scaled by fan-in as a layer's are: the check is elementwise,
+    # and at a product's scale of ~30 a near-zero entry's fp32 rounding
+    # (1.3e-5) passes neither its atol nor its rtol
+    ("dot", lambda r: [r.standard_normal((1024, 768)),
+                       r.standard_normal((768, 1024)) / 28], {}),
+    ("exp", lambda r: [r.uniform(-2, 2, (4096, 768))], {}),
+    ("sum", lambda r: [r.uniform(0.5, 1.5, (4096, 768))], {"axis": 1}),
+    ("transpose", lambda r: [r.standard_normal((64, 512, 768))],
+     {"axes": (1, 0, 2)}),
+)
+
+
+def numpy_consistency_and_features():
+    """Part (c): ``test_utils.check_consistency`` of ten ops of the
+    table, ``cpu(0)`` against ``gpu(0)`` (its default list on a machine
+    with a card; the JAX package's tolerances), and
+    ``runtime.Features()`` on the card."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import runtime, test_utils
+    rng = np.random.default_rng(9)
+    check(test_utils.default_context() == mx.gpu(0),
+          "default_context %s" % test_utils.default_context())
+    ran = []
+    for name, make, params in CONSISTENCY_OPS:
+        inputs = [a.astype(np.float32) for a in make(rng)]
+        try:
+            test_utils.check_consistency(name, inputs, params)
+        except AssertionError as e:
+            raise SmokeFailure("check_consistency %s: %s" % (name, e))
+        ran.append(name)
+    feats = runtime.Features()
+    want = {"CUDA": True, "CUDNN": True, "GPU": True, "KERNELS": True,
+            "TPU": False, "XLA": False, "PALLAS": False}
+    got = {k: feats.is_enabled(k) for k in want}
+    check(got == want, "Features on the card: %s" % got)
+    line = repr(feats)
+    print("numpy (c) runtime.Features() on the card: %s" % line)
+    return {"check_consistency": ran, "features": got, "repr": line}
+
+
+def numpy_deviation_cost(chain=NUMPY_CHAIN, size=768):
+    """Part (d): host microseconds an eager ``mx.np`` add, over a chain
+    of ``chain`` adds on a (``size``,) array, outside and inside
+    ``mx.engine.bulk(chain)`` (the sixth deviation: the same launches)."""
+    import mxnet_tpu_torch as mx
+    with mx.gpu(0):
+        a = mx.np.ones(size)
+        b = mx.np.full(size, 1e-3)
+
+    def run():
+        x = a
+        for _ in range(chain):
+            x = x + b
+        return x
+
+    outside = host_us(run, iters=4) / chain
+    with mx.engine.bulk(chain):
+        inside = host_us(run, iters=4) / chain
+        last = run()
+    check(np.array_equal(last.asnumpy(), run().asnumpy()),
+          "a bulk scope changed the chain's result")
+    return {"host_us_per_op": outside, "host_us_per_op_in_bulk": inside,
+            "chain": chain, "size": size}
+
+
+def numpy_phase():
+    """Phase 22: the NumPy front end and the engine and runtime helpers
+    (see the module docstring).  Returns the numbers and part (a)'s
+    launches of every kernel."""
+    import torch
+    t0 = time.perf_counter()
+    card = gpu_line()
+    path = numpy_bert_path()
+    release_cuda()
+    t1 = time.perf_counter()
+    cases = numpy_card_vs_cpu()
+    print("numpy (b) every mx.np/npx name at user widths, card against "
+          "the CPU (%d cases, %.1f s): largest %.3g (%s); %s" % (
+              cases["cases"], time.perf_counter() - t1, cases["largest"],
+              cases["largest_case"], json.dumps(cases["errors"])))
+    release_cuda()
+    consistency = numpy_consistency_and_features()
+    cost = numpy_deviation_cost()
+    print("numpy (d) the sixth deviation (no bulking): %s (%s)"
+          % (json.dumps(cost), card))
+    out = {"path": path, "cases": {k: cases[k] for k in (
+               "cases", "largest", "largest_case")},
+           "consistency": consistency["check_consistency"],
+           "deviation": cost, "launches": path["launches"],
+           "phase_s": time.perf_counter() - t0}
+    torch.cuda.empty_cache()
+    print("numpy phase: %.1f s (%s)" % (out["phase_s"], card))
+    return out
+
+
 def kernel_entry(name, launches, kern, serve_launches=None, **extra):
     """One kernel's entry of the per-kernel JSON line; a kernel of the
     checkpoint-and-serve phase also gives its launches there, and
@@ -9914,6 +10561,11 @@ def main():
     # JAX package's design), so it enters the host-read check itself
     release_cuda()
     contrib = contrib_phase()
+    # phase 22: the NumPy front end and the engine and runtime helpers,
+    # one thing at a time, under the host-read check
+    release_cuda()
+    with _capture.checking_syncs():
+        numpy_ = numpy_phase()
     for entry in entries:
         name = entry["name"]
         if name in ("bn_relu_apply", "bn_relu_bwd", "paged_attention"):
@@ -9936,6 +10588,7 @@ def main():
         entry["launches_contrib"] = {
             part: counts[name]
             for part, counts in contrib["launches"].items()}
+        entry["launches_numpy"] = numpy_["launches"][name]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

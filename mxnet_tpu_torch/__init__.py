@@ -86,7 +86,14 @@ It imports neither JAX nor anything of ``mxnet_tpu``.  Ported so far:
   updates, the ``linalg_*`` ops, ``mx.nd.contrib``'s control flow
   (``foreach``, ``while_loop``, ``cond``) and its box, ROI, int8 and
   interleaved-matmul ops, :mod:`.contrib` (``quantization``: calibrate
-  and rewrite a graph to int8) and ``gluon.contrib.nn``.
+  and rewrite a graph to int8) and ``gluon.contrib.nn``;
+- the NumPy front end and the engine and runtime helpers: :mod:`.numpy`
+  (``mx.np``: ``mx.np.ndarray`` views, NumPy's names and dtypes) and
+  :mod:`.numpy_extension` (``mx.npx``: the layer ops, ``set_np()``,
+  under which Gluon blocks return ``mx.np.ndarray``), :mod:`.engine`
+  (``set_bulk_size``/``bulk``, kept as controls: the port defers no
+  eager op), :mod:`.runtime` (``Features``, ``env_vars``),
+  :mod:`.visualization` (``mx.viz``) and :mod:`.test_utils`.
 
 ``import mxnet_tpu_torch as mx`` binds ``mx.parallel``, ``mx.serving``,
 ``mx.kv``/``mx.kvstore``, ``mx.recordio``, ``mx.io``, ``mx.image``,
@@ -95,8 +102,10 @@ It imports neither JAX nor anything of ``mxnet_tpu``.  Ported so far:
 ``mx.distributed_init``, ``mx.horovod``, ``mx.sym``/``mx.symbol``,
 ``mx.mod``, ``mx.model``, ``mx.callback``, ``mx.name``, ``mx.Executor``,
 ``mx.AttrScope``, ``mx.onnx``, ``mx.predictor``, ``mx.Predictor``,
-``mx.CompiledPredictor`` and ``mx.contrib`` (``quantization``) as the
-JAX package's
+``mx.CompiledPredictor``, ``mx.contrib`` (``quantization``),
+``mx.engine``, ``mx.runtime``, ``mx.env``, ``mx.np``, ``mx.npx``,
+``mx.viz``/``mx.visualization`` and ``mx.test_utils`` as the JAX
+package's
 ``__init__`` does (``mxnet_tpu_torch.supervisor`` is imported
 by name, as the JAX package's is).
 
@@ -128,6 +137,11 @@ from .attribute import AttrScope
 from .executor import Executor
 from .predictor import CompiledPredictor, Predictor
 from . import contrib
+from . import engine, env, runtime, test_utils
+from . import numpy as np
+from . import numpy_extension as npx
+from . import visualization as viz
+visualization = viz
 
 __version__ = "0.1.0"
 
@@ -135,9 +149,10 @@ __all__ = ["AttrScope", "CompiledPredictor", "Context", "Executor",
            "MXNetError", "NDArray", "Predictor", "amp", "attribute",
            "autograd", "callback", "chaos", "checkpoint", "contrib", "cpu",
            "cpu_pinned", "current_context", "dataio", "distributed_init",
-           "executor", "gluon", "horovod", "gpu", "image", "init",
-           "initializer", "io", "kv", "kvstore", "lr_scheduler", "metric",
-           "mod", "model", "name", "nd", "num_gpus", "obs", "onnx",
-           "optimizer", "parallel", "predictor", "preemption", "random",
-           "recordio", "resolve_device", "serving", "sym", "symbol", "sync",
-           "telemetry"]
+           "engine", "env", "executor", "gluon", "horovod", "gpu", "image",
+           "init", "initializer", "io", "kv", "kvstore", "lr_scheduler",
+           "metric", "mod", "model", "name", "nd", "np", "npx", "num_gpus",
+           "obs", "onnx", "optimizer", "parallel", "predictor",
+           "preemption", "random", "recordio", "resolve_device", "runtime",
+           "serving", "sym", "symbol", "sync", "telemetry", "test_utils",
+           "visualization", "viz"]

@@ -20,7 +20,8 @@ from pathlib import Path
 
 from .base import MXNetError
 
-__all__ = ["NVCC_FLAGS", "build_all", "library_names", "load", "sources"]
+__all__ = ["NVCC_FLAGS", "build_all", "built", "library_names", "load",
+           "sources"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -95,6 +96,22 @@ def build_all():
                 raise MXNetError("CUDA kernel build failed:\n"
                                  + "\n".join(failed))
         return targets
+
+
+def built():
+    """Whether every kernel library is built and loads; starts no
+    ``nvcc`` (the ``KERNELS`` row of ``mx.runtime.Features``)."""
+    for name, src in sources().items():
+        if name in _libs:
+            continue
+        target = _target(src)
+        if not target.exists():
+            return False
+        try:
+            ctypes.CDLL(str(target))
+        except OSError:
+            return False
+    return True
 
 
 def load(name):

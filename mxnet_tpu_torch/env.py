@@ -6,9 +6,9 @@ sentinel, the device feed, the executor's graph check, telemetry,
 tracing, chaos, the concurrency sanitizer, the ops plane (profiling, the
 goodput ledger, the leak sentinel, the flight recorder, the obs server
 and the supervisor), the multi-process world (barriers, leases, store
-retries) and the fleet plane. Names, defaults and the boolean convention
-(only ``"0"`` is false) are the JAX package's, so one environment
-configures both.
+retries), the fleet plane and the engine's controls. Names, defaults
+and the boolean convention (only ``"0"`` is false) are the JAX
+package's, so one environment configures both.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from typing import Any, Callable
 
 from .base import MXNetError
 
-__all__ = ["EnvVar", "REGISTRY", "get"]
+__all__ = ["EnvVar", "REGISTRY", "describe", "generate_doc", "get"]
 
 
 @dataclass(frozen=True)
@@ -42,6 +42,21 @@ class EnvVar:
 
 
 _VARS = [
+    EnvVar("MXNET_ENGINE_TYPE", str, "",
+           "'NaiveEngine' makes mx.engine.is_blocking() true (read at "
+           "import).  The port launches every op on the CUDA stream "
+           "asynchronously either way; mx.nd.waitall() and asnumpy() "
+           "are its sync points."),
+    EnvVar("MXNET_TPU_EAGER_BULK", bool, True,
+           "Initial state of mx.engine's bulk size (read at import): on "
+           "unless '0'.  The port defers no eager op and replays no "
+           "region (bulking is its sixth deviation): the state and size "
+           "are kept for mx.engine.set_bulk_size()/bulk(), and results "
+           "are the same either way."),
+    EnvVar("MXNET_TPU_EAGER_BULK_MAX", int, 512,
+           "Initial bulk size of mx.engine (read at import), the value "
+           "set_bulk_size() returns while bulking is on.  The port "
+           "defers no op, so no region is flushed at this size."),
     EnvVar("MXNET_TPU_CKPT_ASYNC", bool, False,
            "'1' makes CheckpointManager saves asynchronous by default: "
            "the state is copied to host memory at save(), then "
@@ -110,7 +125,7 @@ _VARS = [
     EnvVar("MXNET_TPU_GRAPH_CHECK", bool, False,
            "'1' asks every Executor bind/simple_bind for the static "
            "graph check (mxnet_tpu.analysis), which the port does not "
-           "have yet: the bind raises, naming ROADMAP Queue 1 item 10.  "
+           "have yet: the bind raises, naming ROADMAP Queue 1 item 10d.  "
            "Per-bind override: bind(..., check=True)."),
     EnvVar("MXNET_TPU_TELEMETRY", bool, False,
            "'1' enables the runtime telemetry subsystem (telemetry) at "
@@ -316,3 +331,29 @@ def get(name):
     except KeyError:
         raise MXNetError("unregistered env var %r" % name) from None
     return var.read()
+
+
+def describe():
+    """{name: (current value, default, doc)} for every registered
+    variable."""
+    return {v.name: (v.read(), v.default, v.doc) for v in _VARS}
+
+
+def generate_doc(path=None):
+    """The reference page of the variables the port reads, as Markdown;
+    written to ``path`` when one is given (nothing else is written)."""
+    lines = ["# Environment variables",
+             "",
+             "Generated from `mxnet_tpu_torch/env.py` -- the registry the "
+             "port actually reads, so this page cannot go stale.",
+             "",
+             "| Variable | Type | Default | Description |",
+             "|---|---|---|---|"]
+    for v in _VARS:
+        lines.append("| `%s` | %s | `%r` | %s |"
+                     % (v.name, v.type.__name__, v.default, v.doc))
+    text = "\n".join(lines) + "\n"
+    if path:
+        with open(path, "w") as f:
+            f.write(text)
+    return text

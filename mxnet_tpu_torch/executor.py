@@ -74,7 +74,7 @@ class Executor:
             raise MXNetError(
                 "Executor(check=True): the static graph check of "
                 "mxnet_tpu.analysis is not ported yet (ROADMAP Queue 1 "
-                "item 10, the static half of analysis/)")
+                "item 10d, the static half of analysis/)")
         self.outputs = []
         self._owners = {}
         self._pending_grads = None

@@ -25,7 +25,9 @@ naming and parameter management:
 A block takes tensors or NDArrays.  Called with an NDArray among its
 inputs, it runs on their tensors and returns NDArrays, recording for
 backward only inside ``autograd.record()``, as an ``mx.nd`` op does;
-called with tensors, it returns tensors.
+called with tensors, it returns tensors.  Under ``npx.set_np()`` the
+NDArrays it returns (each one of a list or tuple) are ``mx.np.ndarray``
+views, on the eager and the hybridized route alike.
 
 ``save_parameters``/``load_parameters`` write and read MXNet's
 ``.params`` file under structural names (``"0.weight"``).
@@ -85,12 +87,14 @@ import torch
 from .. import _capture
 from .. import amp as _amp
 from .. import autograd
+from .. import numpy_extension as _npx
 from .. import ops as _ops
 from .. import profiler as _profiler
 from .. import profiling as _profiling
 from ..base import MXNetError
 from ..ndarray import NDArray
 from ..ndarray import ndarray as _nd_mod
+from ..numpy import _view
 from ..symbol.symbol import Symbol
 from .parameter import (DeferredInitializationError, Parameter,
                         ParameterDict, shape_is_known)
@@ -330,7 +334,13 @@ class Block(torch.nn.Module):
         args = [_unwrap(a) for a in args]
         kwargs = {k: _unwrap(v) for k, v in kwargs.items()}
         with torch.set_grad_enabled(autograd.is_recording()):
-            return _wrap(self._call_tensors(*args, **kwargs))
+            out = _wrap(self._call_tensors(*args, **kwargs))
+        if _npx.is_np_array():
+            # npx.set_np(): blocks speak mx.np (reference semantics)
+            if isinstance(out, (list, tuple)):
+                return type(out)(_view(o) for o in out)
+            return _view(out)
+        return out
 
     def _call_tensors(self, *args, **kwargs):
         """The call on tensors: ``torch.nn.Module``'s, which runs

@@ -1,9 +1,11 @@
 """``mxnet_tpu_torch.serving`` -- the serving tier on PyTorch
 (counterpart of ``mxnet_tpu/serving``):
 
-- the fixed-shape tier: ``ModelRegistry.register(block=, checkpoint=)``
-  -> :class:`DynamicBatcher` -> :class:`BucketExecutorPool`, one
-  captured CUDA graph per padded batch bucket on the card;
+- the fixed-shape tier: ``ModelRegistry.register(block=, checkpoint=,
+  symbol=, onnx=)`` -> :class:`DynamicBatcher` ->
+  :class:`BucketExecutorPool`, one captured CUDA graph per padded batch
+  bucket on the card (a ``symbol=``/``params=`` pair or an ``onnx=``
+  file is loaded as a ``SymbolBlock``);
 - the generative tier: ``ModelRegistry.register_generative`` /
   ``generate`` over the :mod:`.decode` engine;
 - the always-on loop (``loop.py``): :class:`ContinuousTrainer` publishes
@@ -14,7 +16,6 @@
 The exports are the JAX package's, less its ``CompileCache`` and
 ``stablehlo_fingerprint``: CUDA graphs have no portable serialized form
 to cache, and there is no StableHLO (ROADMAP, port conventions).
-``symbol=`` and ``onnx=`` sources are not ported yet.
 """
 from .batcher import (DynamicBatcher, RequestTimeout, ServableClosed,
                       ServingQueueFull)
