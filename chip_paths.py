@@ -78,7 +78,8 @@ PATHS = {"decode": "main_path", "mnist": "mnist_main_path",
          "ops": "ops_plane_phase", "dist": "dist_phase",
          "symbolic": "symbolic_phase", "bertbf16": "bert_bf16_phase",
          "layernorm": "layernorm_phase", "deploy": "deploy_phase",
-         "contrib": "contrib_phase", "numpy": "numpy_phase"}
+         "contrib": "contrib_phase", "numpy": "numpy_phase",
+         "analysis": "analysis_phase"}
 # outside checking_syncs() (contrib enters it for its checked parts)
 UNCHECKED = {"hotswap", "ops", "dist", "contrib"}
 

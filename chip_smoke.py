@@ -398,8 +398,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    transpose_a=True)`` pushed at the batch's ids as a
    ``RowSparseNDArray``: the log-loss of the last 10 steps under the
    first 10's; the rows no batch named bitwise their initial value with
-   no history; three steps against a float64 numpy oracle and against
-   the port on the CPU (weights and history within 1e-5), one step of
+   no history; three steps against a float64 numpy oracle (weights and
+   history within 1e-5) and against the port on the CPU (within the
+   larger of 1e-5 and 4x the CPU's distance from the same steps with
+   each batch's rows permuted, over 4 permutations: the card sums each
+   id's gradient with fp32 atomics in no fixed order; a control with the
+   most frequent id's gradient dropped from step 2 on the CPU side must
+   fail that limit), one step of
    SGD's lazy row update and of its momentum route against the oracle;
    steps/s, rows and bytes pulled against the table's and the host syncs
    a step.  (b) upstream ``example/quantization``'s
@@ -473,6 +478,31 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    array, microseconds an op, outside and inside
    ``mx.engine.bulk(256)``.  The kernels line carries
    ``launches_numpy``, (a)'s counts.
+23. the static half of ``analysis/``, after phase 22, under the
+   host-read check; (c) starts first, on the host beside the card work.
+   (a) ResNet-50 v1 NHWC fp32 exported by ``HybridBlock.export``
+   (phase 20's graph: 33 ``fused_batch_norm_relu`` nodes), bound at b32
+   on ``mx.gpu(0)`` unchecked, with ``check=True`` and under
+   ``MXNET_TPU_GRAPH_CHECK=1``: no error diagnostic, the check alone
+   (timed) allocates nothing and launches nothing, each checked bind's
+   forward bitwise the unchecked one, ``bn_relu_apply`` = 33 x 4
+   forwards a bind; three broken twins (a duplicate input, a contradicted
+   shape, an unknown op) raise ``GraphCheckError`` naming their rule
+   with no launch and no allocation, by each route.  (b) the AMP LARS
+   step of BASELINE config 5 at b512 walked (its eager warm-up) and
+   captured, then ``perf_audit``, ``numerics_audit`` and
+   ``memory_audit``: their flops, bytes and memory the CostReport's;
+   ``bn_relu_*`` and ``lars_flat`` under their own names; ``convert_share
+   > 0``; the H100's bf16 ridge; ``peak_hbm_bytes`` within 15% of
+   ``torch.cuda.max_memory_allocated`` around the capture; ``diff_audit``
+   of each artifact against itself clean, against a copy with one metric
+   grown a drift naming the step and metric; the top advisories printed.
+   (c) ``python -m mxnet_tpu_torch.analysis --self --json --sarif`` exits
+   0 with no finding (a SARIF 2.1.0 document of the ``mxlint-torch``
+   tool); over a planted file the document lists its nine rules' ids;
+   ``audit_retrace()`` clean; seconds and counts by rule printed.  The
+   kernels line carries ``launches_analysis``: (a)'s forwards and (b)'s
+   walked warm-up.
 
 Every path runs from captured CUDA graphs (``mxnet_tpu_torch._capture``),
 the port's counterpart of the JAX package's compiled programs: one
@@ -9149,6 +9179,15 @@ SPARSE_STEPS = 100
 SPARSE_LR = 0.1
 SPARSE_ORACLE_STEPS = 3
 SPARSE_ORACLE_TOL = 1e-5
+# card-vs-CPU limit of the three AdaGrad steps: the card sums each id's
+# gradient over up to 8,192 rows with fp32 atomics in no fixed order, so
+# it is held to the larger of SPARSE_ORACLE_TOL and SPARSE_FLOOR_FACTOR x
+# the largest distance of the CPU's steps from the same steps with each
+# batch's rows permuted (SPARSE_FLOOR_PERMS permutations, measured in the
+# run: 7.1e-6-1.05e-5 on the history on the CPU); a control with one
+# id's gradient dropped from one step on the CPU side must fail it
+SPARSE_FLOOR_PERMS = 4
+SPARSE_FLOOR_FACTOR = 4.0
 # example/quantization imagenet_gen_qsym.py -> imagenet_inference.py
 QUANT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build", "contrib-smoke")
@@ -9213,14 +9252,29 @@ def sparse_logreg_data(steps, batch=SPARSE_BATCH, features=SPARSE_FEATURES,
              np.unique(ids[s])) for s in range(steps)], planted
 
 
-def sparse_logreg_steps(batches, ctx, opt, w0, seed=0):
+def sparse_logreg_permuted(batches, seed):
+    """``batches`` with each batch's rows (ids and labels) in a seeded
+    random order: the same steps, summed in another order."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for data, idx, indptr, labels, uniq in batches:
+        n = len(labels)
+        p = rng.permutation(n)
+        out.append((data, idx.reshape(n, -1)[p].reshape(-1), indptr,
+                    labels[p], uniq))
+    return out
+
+
+def sparse_logreg_steps(batches, ctx, opt, w0, seed=0, drop=None):
     """The training loop of ``example/sparse/linear_classification``
     through the port's entry points on ``ctx``: a ``local`` kvstore
     holding the weight table and the bias under ``opt``, each step
     ``row_sparse_pull`` of the batch's rows into a dense weight, the
     logistic loss through ``sparse.dot``, the gradient at the batch's ids
-    pushed as a ``RowSparseNDArray`` (the bias's dense).  Returns the
-    store, the per-step log-losses (on the device) and the seconds."""
+    pushed as a ``RowSparseNDArray`` (the bias's dense).  ``drop=(step,
+    id)`` zeroes that id's pushed gradient at that step (a planted
+    fault).  Returns the store, the per-step log-losses (on the device)
+    and the seconds."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ndarray import sparse
     feats = w0.shape[0]
@@ -9233,7 +9287,7 @@ def sparse_logreg_steps(batches, ctx, opt, w0, seed=0):
         b = mx.nd.zeros((1,))
         losses = []
         t0 = time.perf_counter()
-        for data, idx, indptr, labels, uniq in batches:
+        for s, (data, idx, indptr, labels, uniq) in enumerate(batches):
             csr = sparse.csr_matrix((data, idx, indptr),
                                     shape=(len(labels), feats), ctx=ctx)
             rows = mx.nd.array(uniq, ctx=ctx)
@@ -9246,8 +9300,12 @@ def sparse_logreg_steps(batches, ctx, opt, w0, seed=0):
                             * mx.nd.log(1 - p + 1e-12)).mean())
             dy = p - y
             grad = sparse.dot(csr, dy, transpose_a=True)
+            g = grad[rows]
+            if drop is not None and s == drop[0]:
+                g = g * mx.nd.array((uniq != drop[1]).astype(np.float32)
+                                    [:, None], ctx=ctx)
             kv.push("weight", sparse.RowSparseNDArray(
-                grad[rows], rows, w0.shape, ctx=ctx))
+                g, rows, w0.shape, ctx=ctx))
             kv.push("bias", dy.sum(axis=0))
         mx.nd.waitall()
     return kv, losses, time.perf_counter() - t0
@@ -9291,6 +9349,24 @@ def _rel(got, want, floor=0.0):
     want = np.asarray(want, np.float64)
     return float(np.abs(got - want).max()
                  / max(np.abs(want).max(), floor, 1e-30))
+
+
+def sparse_cpu_floor(batches, w0, make_opt, cpu, perms=SPARSE_FLOOR_PERMS):
+    """The CPU steps' own fp32 noise: the largest distance, of the
+    weights and of the history, between the CPU run ``cpu`` (``(w,
+    h)``) and the same steps with each batch's rows permuted, over
+    ``perms`` seeded permutations."""
+    import mxnet_tpu_torch as mx
+    floor = {"w": 0.0, "h": 0.0}
+    for k in range(perms):
+        kv, _, _ = sparse_logreg_steps(
+            sparse_logreg_permuted(batches, seed=k + 1), mx.cpu(),
+            make_opt(), w0)
+        floor["w"] = max(floor["w"], _rel(kv._store["weight"].numpy()[:, 0],
+                                          cpu[0]))
+        floor["h"] = max(floor["h"], _rel(
+            kv._updater.states["weight"].numpy()[:, 0], cpu[1]))
+    return floor
 
 
 def sparse_logreg_part(steps=SPARSE_STEPS, features=SPARSE_FEATURES,
@@ -9345,6 +9421,32 @@ def sparse_logreg_part(steps=SPARSE_STEPS, features=SPARSE_FEATURES,
             "adagrad_h_vs_oracle": _rel(got["card"][1][live], h_o[live]),
             "adagrad_w_vs_cpu": _rel(got["card"][0], got["cpu"][0]),
             "adagrad_h_vs_cpu": _rel(got["card"][1], got["cpu"][1])}
+    floor = sparse_cpu_floor(three, w0, adagrad, got["cpu"])
+    limits = {name: SPARSE_ORACLE_TOL for name in errs}
+    for which in ("w", "h"):
+        limits["adagrad_%s_vs_cpu" % which] = max(
+            SPARSE_ORACLE_TOL, SPARSE_FLOOR_FACTOR * floor[which])
+    # the control: the CPU steps with the batch's most frequent id's
+    # gradient dropped from the second step must fail the limits
+    hot = int(np.bincount(three[1][1]).argmax())
+    kv_x, _, _ = sparse_logreg_steps(three, mx.cpu(), adagrad(), w0,
+                                     drop=(1, hot))
+    control = {"w": _rel(got["card"][0],
+                         kv_x._store["weight"].numpy()[:, 0]),
+               "h": _rel(got["card"][1],
+                         kv_x._updater.states["weight"].numpy()[:, 0])}
+    check(any(control[k] > limits["adagrad_%s_vs_cpu" % k]
+              for k in control),
+          "sparse logreg: the control (id %d's gradient dropped from step "
+          "2 on the CPU) is within the card-vs-CPU limits: %s against %s"
+          % (hot, control, limits))
+    print("contrib (a) card vs CPU: %s" % json.dumps(
+        {"floor_cpu_vs_permuted": floor, "limits": limits,
+         "ratio_to_floor": {k: errs["adagrad_%s_vs_cpu" % k]
+                            / max(floor[k], 1e-30) for k in floor},
+         "control_dropped_id": hot, "control_vs_card": control,
+         "readings": {k: errs[k] for k in errs if k.endswith("_vs_cpu")},
+         "card": card}))
     for kind, mom in (("sgd", 0.0), ("momentum", 0.9)):
         opt = mx.optimizer.SGD(learning_rate=SPARSE_LR, momentum=mom,
                                rescale_grad=1.0 / batch)
@@ -9357,8 +9459,9 @@ def sparse_logreg_part(steps=SPARSE_STEPS, features=SPARSE_FEATURES,
             check(tuple(state.shape) == (features, 1),
                   "sparse logreg: the momentum route kept no dense state")
     for name, err in errs.items():
-        check(err <= SPARSE_ORACLE_TOL, "sparse logreg: %s %.3g above %g"
-              % (name, err, SPARSE_ORACLE_TOL))
+        check(err <= limits.get(name, SPARSE_ORACLE_TOL),
+              "sparse logreg: %s %.3g above %g"
+              % (name, err, limits.get(name, SPARSE_ORACLE_TOL)))
     rows = np.array([len(bt[4]) for bt in batches])
     out = {"steps_per_s": steps / secs, "samples_per_s": steps * batch / secs,
            "ms_per_step": 1e3 * secs / steps,
@@ -9370,6 +9473,7 @@ def sparse_logreg_part(steps=SPARSE_STEPS, features=SPARSE_FEATURES,
            "loss_first10": float(losses[:10].mean()),
            "loss_last10": float(losses[-10:].mean()),
            "rows_never_named": int(cold.sum()), "errors": errs,
+           "limits": limits, "floor_cpu_vs_permuted": floor,
            "peak_mem_bytes": peak, "card": card}
     print("contrib (a) sparse logistic regression (%d features, batch %d, "
           "%d nnz a row, %d steps; AdaGrad through a local kvstore): %s"
@@ -10499,6 +10603,476 @@ def numpy_phase():
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 23: the static half of analysis/ -- the graph check's bind gate,
+# the audits of the walked AMP LARS step, the port linting itself
+# ---------------------------------------------------------------------
+
+ANALYSIS_ROOT = os.path.join(REPO_ROOT, "build", "analysis-smoke")
+ANALYSIS_BATCH = DEPLOY_BATCH      # the gate binds phase 20's graph at b32
+ANALYSIS_FORWARDS = 4              # counted forwards of a bind
+# memory_audit's peak against torch.cuda.max_memory_allocated around the
+# key's capture: the limit phase 16 holds hbm_plan to
+ANALYSIS_PEAK_TOL = 0.15
+ANALYSIS_LINT_TIMEOUT = 300
+ANALYSIS_STEP_LABEL = "train_step:ResNetV1"
+ANALYSIS_KERNELS = ("bn_relu_apply", "bn_relu_bwd", "lars_flat")
+# a file that fires these rules, for the SARIF document's rule list
+ANALYSIS_PLANTED = (
+    "import threading, time\n"
+    "def f(a=[]):\n"
+    "    try:\n"
+    "        return a\n"
+    "    except:\n"
+    "        pass\n"
+    "class M(HybridBlock):\n"
+    "    def hybrid_forward(self, F, x):\n"
+    "        if x.sum() > 0:\n"
+    "            return x.item()\n"
+    "        return x\n"
+    "def save_states(path, blob):\n"
+    "    with open(path, 'wb') as fh:\n"
+    "        fh.write(blob)\n"
+    "def spin(ready, fn):\n"
+    "    threading.Thread(target=fn).start()\n"
+    "    while not ready():\n"
+    "        time.sleep(0.1)\n"
+    "def build(nn):\n"
+    "    return nn.Conv2D(500, 3)\n")
+ANALYSIS_PLANTED_RULES = {"mutable-default", "bare-except", "tracer-branch",
+                          "host-sync", "bare-state-write", "bare-thread",
+                          "sleep-poll", "layout-hostile-conv", "pad-waste"}
+
+
+def analysis_lint_start(root):
+    """Phase 23 (c), host-only, started beside the card work: the port's
+    mxlint over its own tree (``--self --json --sarif``) and over a
+    planted file (``--sarif``, for a document that lists rules).  The
+    processes see no card."""
+    os.makedirs(root, exist_ok=True)
+    planted = os.path.join(root, "planted.py")
+    with open(planted, "w") as f:
+        f.write(ANALYSIS_PLANTED)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO_ROOT] + [p for p in env.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.analysis"]
+    procs = {}
+    for name, args in (("self", ["--self"]), ("planted", [planted])):
+        procs[name] = subprocess.Popen(
+            cmd + args + ["--json", "--sarif",
+                          os.path.join(root, "%s.sarif" % name)],
+            cwd=REPO_ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    return procs, time.perf_counter()
+
+
+def analysis_lint_finish(procs, t0, root):
+    """Phase 23 (c): ``--self`` exits 0 with no finding and a SARIF
+    2.1.0 document of the port's tool; the planted file's document
+    lists its rules' ids, each a rule of the port; ``audit_retrace``
+    clean in this process."""
+    from mxnet_tpu_torch import __version__, analysis
+    res = {}
+    for name, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=ANALYSIS_LINT_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            check(False, "mxlint %s ran past %d s" % (name,
+                                                      ANALYSIS_LINT_TIMEOUT))
+        check(out.strip().startswith("{"), "mxlint %s printed no JSON "
+              "(rc %d): %s" % (name, proc.returncode, err[-2000:]))
+        payload = json.loads(out)
+        with open(os.path.join(root, "%s.sarif" % name)) as f:
+            sarif = json.load(f)
+        res[name] = (proc.returncode, payload, sarif)
+    seconds = time.perf_counter() - t0
+    rc, payload, sarif = res["self"]
+    by_rule = {}
+    for d in payload["diagnostics"]:
+        by_rule[d["rule"]] = by_rule.get(d["rule"], 0) + 1
+    check(rc == 0 and payload["errors"] == 0,
+          "mxlint --self on the port: rc %d, %d error(s): %s"
+          % (rc, payload["errors"], payload["diagnostics"][:3]))
+    tool = sarif["runs"][0]["tool"]["driver"]
+    check(sarif["version"] == "2.1.0" and tool["name"] == "mxlint-torch"
+          and tool["version"] == __version__
+          and sarif["runs"][0]["results"] == [],
+          "mxlint --self SARIF: %s" % json.dumps(sarif)[:500])
+    prc, ppay, psarif = res["planted"]
+    ids = {r["id"] for r in psarif["runs"][0]["tool"]["driver"]["rules"]}
+    check(prc == 1 and ids == ANALYSIS_PLANTED_RULES
+          and ids <= set(analysis.RULES),
+          "mxlint over the planted file: rc %d, SARIF rules %s, want %s"
+          % (prc, sorted(ids), sorted(ANALYSIS_PLANTED_RULES)))
+    t1 = time.perf_counter()
+    retrace = analysis.audit_retrace()
+    retrace_s = time.perf_counter() - t1
+    check(retrace == [], "audit_retrace on the port: %s"
+          % [d.format() for d in retrace])
+    planted_counts = {}
+    for d in ppay["diagnostics"]:
+        planted_counts[d["rule"]] = planted_counts.get(d["rule"], 0) + 1
+    return {"lint_s": seconds, "self_rc": rc,
+            "self_findings_by_rule": by_rule,
+            "self_warnings": payload["warnings"],
+            "sarif_rules_planted": sorted(ids),
+            "planted_findings_by_rule": planted_counts,
+            "retrace_s": retrace_s, "rules_registered": len(analysis.RULES)}
+
+
+def _twins(sym_file):
+    """Three broken twins of the exported graph, each loaded afresh: a
+    BatchNorm+ReLU site's beta renamed to its gamma (a duplicate input),
+    the classifier's weight annotated with a shape its input contradicts,
+    and the first convolution renamed to an op the table lacks."""
+    from mxnet_tpu_torch.symbol import load as sym_load
+    out = {}
+    sym = sym_load(sym_file)
+    site = next(n for n in sym._topo() if n.op == "fused_batch_norm_relu")
+    site.inputs[2][0].name = site.inputs[1][0].name
+    out["duplicate-input"] = sym
+    sym = sym_load(sym_file)
+    fc = next(n for n in sym._topo() if n.op == "FullyConnected")
+    fc.inputs[1][0].attrs["__shape__"] = "(1000, 7)"
+    out["shape-contradiction"] = sym
+    sym = sym_load(sym_file)
+    conv = next(n for n in sym._topo() if n.op == "Convolution")
+    conv.op = "Convolutionn"
+    out["unknown-op"] = sym
+    return out
+
+
+def analysis_gate(root, make_net=resnet50_nhwc, image=224,
+                  batch=ANALYSIS_BATCH, sites=BN_RELU_SITES,
+                  forwards=ANALYSIS_FORWARDS, device="cuda",
+                  fused_nodes=BN_RELU_SITES):
+    """Phase 23 (a): ResNet-50 v1 NHWC fp32 exported by
+    ``HybridBlock.export`` (phase 20's graph), bound at ``batch`` with
+    ``check=True`` and again under ``MXNET_TPU_GRAPH_CHECK=1``: no error
+    diagnostic, the check alone allocates nothing and launches nothing,
+    each checked bind's forward bitwise the unchecked bind's, with
+    ``bn_relu_apply`` = ``sites`` x forwards; three broken twins raise
+    ``GraphCheckError`` naming their rule, with no launch and no
+    allocation, by ``check=True`` and by the variable."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import analysis
+    from mxnet_tpu_torch.kernels import registry
+    cuda = device == "cuda"
+    ctx = mx.gpu(0) if cuda else mx.cpu()
+    kernels = registry.list_kernels()
+
+    def allocated():
+        if not cuda:
+            return 0
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    def launched():
+        return sum(registry.launches(k) for k in kernels)
+
+    net = deploy_net(make_net, image, True, device)
+    x = torch.randn((batch, image, image, 3),
+                    generator=torch.Generator(device=device).manual_seed(7),
+                    device=device)
+    net.hybridize()
+    with torch.no_grad():
+        for _ in range(2):
+            net(x)
+    prefix = os.path.join(root, "resnet50-nhwc")
+    sym_file, _params_file = net.export(prefix)
+    ops, _unfused = _graph_ops(sym_file)
+    check(ops["fused_batch_norm_relu"] == fused_nodes,
+          "exported graph holds %d fused_batch_norm_relu nodes, want %d"
+          % (ops["fused_batch_norm_relu"], fused_nodes))
+    del net
+    gc.collect()
+    if cuda:
+        release_cuda()
+    sym, arg_params, aux_params = mx.model.load_checkpoint(prefix, 0)
+    shapes = {"data": tuple(x.shape)}
+    out = {"batch": batch, "graph_nodes": sum(ops.values())}
+
+    # the check alone
+    registry.reset_launches()
+    mem0 = allocated()
+    t0 = time.perf_counter()
+    diags = analysis.check_symbol(sym, shapes=shapes)
+    out["check_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["check_alloc_delta"] = allocated() - mem0
+    out["check_launches"] = launched()
+    out["diagnostics"] = sorted({d.rule for d in diags})
+    errors = [d.format() for d in diags if d.severity == analysis.ERROR]
+    check(not errors, "graph check of the exported ResNet-50: %s"
+          % errors[:3])
+    check(out["check_alloc_delta"] == 0 and out["check_launches"] == 0,
+          "the graph check allocated %d bytes and launched %d kernels"
+          % (out["check_alloc_delta"], out["check_launches"]))
+
+    def bind(check_arg):
+        args = {k: v.as_in_context(ctx) for k, v in arg_params.items()}
+        args["data"] = mx.nd.NDArray(x)
+        aux = {k: v.as_in_context(ctx) for k, v in aux_params.items()}
+        m0 = allocated()
+        t1 = time.perf_counter()
+        ex = sym.bind(ctx, args, grad_req="null", aux_states=aux,
+                      check=check_arg)
+        bind_ms = 1e3 * (time.perf_counter() - t1)
+        delta = allocated() - m0
+        with torch.no_grad():
+            for _ in range(2):             # eager, capture
+                ex.forward(is_train=False)
+            registry.reset_launches()
+            for _ in range(forwards):
+                got = ex.forward(is_train=False)[0]._data.clone()
+        return got, registry.launches("bn_relu_apply"), bind_ms, delta
+
+    plain, n_plain, _ms, _d = bind(False)
+    routes = {}
+    for route in ("check", "env"):
+        if route == "env":
+            os.environ["MXNET_TPU_GRAPH_CHECK"] = "1"
+        try:
+            got, n, ms, delta = bind(True if route == "check" else None)
+        finally:
+            os.environ.pop("MXNET_TPU_GRAPH_CHECK", None)
+        routes[route] = {"bind_ms": ms, "bind_alloc_delta": delta,
+                         "bn_relu_apply": n,
+                         "bitwise": bool(torch.equal(got, plain))}
+        check(routes[route]["bitwise"], "the %s-checked bind's forward "
+              "differs from the unchecked bind's" % route)
+        check(n == n_plain == sites * forwards,
+              "%s bind: bn_relu_apply %d launches (unchecked %d), want "
+              "%d sites x %d forwards" % (route, n, n_plain, sites,
+                                          forwards))
+        check(delta == 0, "the %s-checked bind allocated %d bytes"
+              % (route, delta))
+    out["routes"] = routes
+    out["bn_relu_apply_launches"] = n_plain + sum(
+        r["bn_relu_apply"] for r in routes.values())
+    del plain
+
+    twins = {}
+    for rule, twin in _twins(sym_file).items():
+        for route in ("check", "env"):
+            registry.reset_launches()
+            m0 = allocated()
+            if route == "env":
+                os.environ["MXNET_TPU_GRAPH_CHECK"] = "1"
+            err = None
+            try:
+                twin.simple_bind(ctx, grad_req="null",
+                                 check=True if route == "check" else None,
+                                 data=shapes["data"])
+            except analysis.GraphCheckError as e:
+                err = e
+            finally:
+                os.environ.pop("MXNET_TPU_GRAPH_CHECK", None)
+            rec = {"raised": err is not None,
+                   "rules": sorted({d.rule for d in err.diagnostics})
+                   if err is not None else [],
+                   "alloc_delta": allocated() - m0,
+                   "launches": launched()}
+            twins["%s/%s" % (rule, route)] = rec
+            check(rec["raised"] and rule in rec["rules"]
+                  and rule in str(err),
+                  "twin %s by %s: %s" % (rule, route, rec))
+            check(rec["alloc_delta"] == 0 and rec["launches"] == 0,
+                  "twin %s by %s allocated %d bytes, launched %d kernels"
+                  % (rule, route, rec["alloc_delta"], rec["launches"]))
+    out["twins"] = twins
+    return out
+
+
+def analysis_audits(make_net=resnet50_nhwc, image=224, batch=LARS_BATCH,
+                    device="cuda", sites=BN_RELU_SITES):
+    """Phase 23 (b): the AMP LARS ResNet-50 step of BASELINE config 5
+    walked (its eager warm-up, as phase 17) and captured, then
+    ``perf_audit``, ``numerics_audit`` and ``memory_audit`` over its
+    CostReport: each audit's numbers are the report's, the hand kernels
+    appear under their own names, the casts give ``convert_share > 0``,
+    the ridge is the H100's bf16 one, the memory peak within
+    ``ANALYSIS_PEAK_TOL`` of ``torch.cuda.max_memory_allocated`` around
+    the capture; ``diff_audit`` of each artifact against itself clean
+    and against a copy with one metric grown past the tolerance a drift
+    naming the step and metric."""
+    import copy as _copy
+    import torch
+    from mxnet_tpu_torch import amp, analysis, profiling
+    from mxnet_tpu_torch.analysis import memory, numerics, perf
+    from mxnet_tpu_torch.kernels import registry
+    from mxnet_tpu_torch.profiling import roofline, store
+    cuda = device == "cuda"
+    profiling.reset()
+    profiling.enable()
+    try:
+        net = make_net()
+        net.initialize(device=device,
+                       generator=torch.Generator().manual_seed(0))
+        step = make_lars_step(net)
+        gen = torch.Generator(device=device).manual_seed(0)
+        x = torch.randn((batch, image, image, 3), generator=gen,
+                        device=device)
+        y = torch.randint(0, net.output._units, (batch,), generator=gen,
+                          device=device).float()
+        registry.reset_launches()
+        with amp.scope("bfloat16"):
+            t0 = time.perf_counter()
+            step(x, y)                       # eager, walked
+            if cuda:
+                torch.cuda.synchronize()
+            walk_s = time.perf_counter() - t0
+            warm = {k: registry.launches(k) for k in registry.list_kernels()}
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            step(x, y)                       # captured
+            if cuda:
+                torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+            capture_peak = torch.cuda.max_memory_allocated() if cuda \
+                else None
+        t0 = time.perf_counter()
+        audits = {"perf": analysis.perf_audit(),
+                  "numerics": analysis.numerics_audit(),
+                  "memory": analysis.memory_audit()}
+        audit_s = time.perf_counter() - t0
+        reps = {rep["label"]: (rep, c) for _k, rep, c in store.audited()}
+    finally:
+        profiling.disable()
+    label = ANALYSIS_STEP_LABEL
+    check(label in reps, "no CostReport for %s: %s" % (label, sorted(reps)))
+    rep, _counters = reps[label]
+    p = audits["perf"]["executables"][label]
+    n = audits["numerics"]["executables"][label]
+    m = audits["memory"]["executables"][label]
+    check(p["metrics"]["flops"] == int(rep["totals"]["flops"])
+          and p["metrics"]["bytes"] == int(rep["totals"]["bytes_accessed"])
+          and n["metrics"]["bytes_total"] == p["metrics"]["bytes"],
+          "the audits' flops/bytes differ from the CostReport's: %s vs %s"
+          % (p["metrics"], rep["totals"]))
+    check(all(m["metrics"][k] == rep["memory"][k] for k in (
+              "argument_bytes", "output_bytes", "temp_bytes",
+              "alias_bytes", "peak_hbm_bytes")),
+          "memory_audit differs from the CostReport: %s vs %s"
+          % (m["metrics"], rep["memory"]))
+    prov = {e["op_name"]: e for e in rep["provenance"] if e.get("kernel")}
+    if sites:
+        for k in ANALYSIS_KERNELS:
+            check(p["kernels"].get(k, 0) == prov.get(k, {}).get("bytes")
+                  and p["kernels"].get(k, 0) > 0,
+                  "%s: %r bytes in the perf audit, provenance %r"
+                  % (k, p["kernels"].get(k), prov.get(k)))
+    check(n["metrics"]["convert_share"] > 0,
+          "no AMP casts in the numerics audit: %s" % n["metrics"])
+    ridge = roofline.device_peaks(dtype="bfloat16")
+    if cuda:
+        check(audits["perf"]["peaks_assumed"] is False
+              and abs(p["metrics"]["ridge_intensity"]
+                      - ridge[0] / ridge[1]) < 1e-2,
+              "the step's ridge %s is not the H100's bf16 %.3f"
+              % (p["metrics"]["ridge_intensity"], ridge[0] / ridge[1]))
+        rel = abs(m["metrics"]["peak_hbm_bytes"] - capture_peak) \
+            / capture_peak
+        check(rel <= ANALYSIS_PEAK_TOL,
+              "memory_audit peak %d is %.3f from the capture's "
+              "max_memory_allocated %d (limit %g)"
+              % (m["metrics"]["peak_hbm_bytes"], rel, capture_peak,
+                 ANALYSIS_PEAK_TOL))
+    else:
+        rel = None
+    grown = {}
+    for name, mod, metric in (("perf", perf, "unfused_elementwise_share"),
+                              ("numerics", numerics, "convert_share"),
+                              ("memory", memory, "peak_hbm_bytes")):
+        art = audits[name]
+        check(mod.diff_audit(art, art) == [],
+              "%s diff_audit of an artifact against itself: %s"
+              % (name, [d.format() for d in mod.diff_audit(art, art)]))
+        big = _copy.deepcopy(art)
+        mets = big["executables"][label]["metrics"]
+        mets[metric] = mets[metric] * 1.5 if metric == "peak_hbm_bytes" \
+            else mets[metric] + 0.05
+        diags = mod.diff_audit(art, big)
+        word = "peak HBM" if metric == "peak_hbm_bytes" else metric
+        check(len(diags) == 1 and diags[0].rule == "%s-drift" % name
+              and diags[0].node == label and word in diags[0].message,
+              "%s diff_audit of a grown %s: %s"
+              % (name, metric, [d.format() for d in diags]))
+        grown[name] = diags[0].rule
+    top = {name: [(a["kind"], a["share"]) for a in art["advisories"][:3]]
+           for name, art in audits.items()}
+    out = {"batch": batch, "walk_s": walk_s, "capture_s": capture_s,
+           "audit_s": audit_s, "label": label,
+           "perf_metrics": p["metrics"], "kernels": p["kernels"],
+           "numerics_metrics": n["metrics"],
+           "memory_metrics": m["metrics"],
+           "capture_max_memory_allocated": capture_peak,
+           "peak_rel_to_capture": rel,
+           "ridge_bf16": audits["perf"]["ridge_intensity"],
+           "ridge_fp32": audits["perf"]["ridge_intensity_fp32"],
+           "top_advisories": top, "drift_rules": grown,
+           "warm_launches": warm}
+    for name, art in audits.items():
+        for a in art["advisories"][:3]:
+            print("analysis (b) %s advisory: %s (share %.4f): %s"
+                  % (name, a["kind"], a["share"], a["message"]))
+    del step, net, x, y
+    profiling.reset()
+    return out
+
+
+def analysis_phase(root=ANALYSIS_ROOT, device="cuda", gate_kwargs=None,
+                   audit_kwargs=None):
+    """Phase 23: (c)'s lint started on the host, (a) the gate and (b)
+    the audits on the card, then (c)'s results; returns the numbers and
+    each kernel's launches over the phase.  ``gate_kwargs`` and
+    ``audit_kwargs`` go to :func:`analysis_gate` and
+    :func:`analysis_audits` (a narrow net on the CPU rehearses it)."""
+    import torch
+    from mxnet_tpu_torch.kernels import registry
+    t_phase = time.perf_counter()
+    card = gpu_line() if device == "cuda" else None
+    shutil.rmtree(root, ignore_errors=True)
+    procs, t_lint = analysis_lint_start(root)
+    launches = {k: 0 for k in registry.list_kernels()}
+    try:
+        gate = analysis_gate(root, device=device, **(gate_kwargs or {}))
+        for k in launches:
+            launches[k] += registry.launches(k)
+        launches["bn_relu_apply"] = gate["bn_relu_apply_launches"]
+        print("analysis (a) graph check at the bind (ResNet-50 v1 NHWC "
+              "fp32 exported, b%d): %s" % (gate["batch"], json.dumps(
+                  dict(gate, card=card))))
+        if device == "cuda":
+            release_cuda()
+        audits = analysis_audits(device=device, **(audit_kwargs or {}))
+        for k, v in audits["warm_launches"].items():
+            launches[k] += v
+        print("analysis (b) audits of the walked AMP LARS step: %s"
+              % json.dumps(dict(audits, card=card)))
+        if device == "cuda":
+            release_cuda()
+        lint = analysis_lint_finish(procs, t_lint, root)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(root, ignore_errors=True)
+    print("analysis (c) the port lints itself: %s"
+          % json.dumps(dict(lint, card=card)))
+    out = {"gate": gate, "audits": audits, "lint": lint,
+           "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    print("analysis phase: %.1f s" % out["phase_s"])
+    return out
+
+
 def kernel_entry(name, launches, kern, serve_launches=None, **extra):
     """One kernel's entry of the per-kernel JSON line; a kernel of the
     checkpoint-and-serve phase also gives its launches there, and
@@ -10566,6 +11140,11 @@ def main():
     release_cuda()
     with _capture.checking_syncs():
         numpy_ = numpy_phase()
+    # phase 23: the static half of analysis/ -- its lint runs on the host
+    # beside the gate and the audits, one thing at a time on the card
+    release_cuda()
+    with _capture.checking_syncs():
+        analysis_ = analysis_phase()
     for entry in entries:
         name = entry["name"]
         if name in ("bn_relu_apply", "bn_relu_bwd", "paged_attention"):
@@ -10589,6 +11168,7 @@ def main():
             part: counts[name]
             for part, counts in contrib["launches"].items()}
         entry["launches_numpy"] = numpy_["launches"][name]
+        entry["launches_analysis"] = analysis_["launches"][name]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -144,7 +144,9 @@ def hotswap_scenario(root, torn=False, seed=0, clients=3,
                 outcomes["completed"] += 1
                 if swap_done.is_set():
                     outcomes["completed_after_swap"] += 1
-            time.sleep(0.002)
+            # the client's pacing between requests, not a wait on a
+            # condition
+            time.sleep(0.002)  # mxlint: disable=sleep-poll
 
     threads = [threading.Thread(target=client, daemon=True)
                for _ in range(clients)]

@@ -163,7 +163,9 @@ class _PinnedRing:
         while ev is not None and not ev.query():
             if stop.is_set():
                 return None
-            time.sleep(_POLL_S)
+            # polled, never waited on: ev.synchronize() is a device sync,
+            # refused while another thread captures a graph
+            time.sleep(_POLL_S)  # mxlint: disable=sleep-poll
         self._events[k] = None
         return k
 

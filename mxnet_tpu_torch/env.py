@@ -123,10 +123,30 @@ _VARS = [
            "prefix argument is given: SIGTERM drains pending work and "
            "writes <prefix>-preempt.params/.states/.meta before exit."),
     EnvVar("MXNET_TPU_GRAPH_CHECK", bool, False,
-           "'1' asks every Executor bind/simple_bind for the static "
-           "graph check (mxnet_tpu.analysis), which the port does not "
-           "have yet: the bind raises, naming ROADMAP Queue 1 item 10d.  "
+           "'1' runs the static graph check (analysis.check_symbol: "
+           "unknown/dangling/duplicate inputs, shapes on meta tensors) "
+           "at every Executor bind/simple_bind, before anything is "
+           "allocated; an error diagnostic raises GraphCheckError.  "
            "Per-bind override: bind(..., check=True)."),
+    EnvVar("MXNET_TPU_PERF_AUDIT_TOL", float, 0.02,
+           "Absolute growth tolerance for the perf auditor's share "
+           "metrics (transpose share, unfused-elementwise share, "
+           "alignment pad waste) when diffing a perf audit against a "
+           "blessed one (python -m mxnet_tpu_torch.analysis --perf-diff "
+           "/ analysis.perf.diff_audit).  A metric grown past baseline + "
+           "tolerance errors naming the step; improvements pass."),
+    EnvVar("MXNET_TPU_NUMERICS_AUDIT_TOL", float, 0.02,
+           "Absolute growth tolerance for the numerics auditor's share "
+           "metrics (half-accumulated product bytes, cast bytes, "
+           "all-half reductions) when diffing against a blessed audit "
+           "(--numerics-diff / analysis.numerics.diff_audit).  A metric "
+           "grown past baseline + tolerance errors naming the step; "
+           "improvements pass."),
+    EnvVar("MXNET_TPU_MEMORY_AUDIT_TOL", float, 0.02,
+           "Relative growth tolerance for peak_hbm_bytes when diffing "
+           "a memory audit against a blessed one (--memory-diff / "
+           "analysis.memory.diff_audit).  A peak grown past baseline x "
+           "(1 + tolerance) errors naming the step; shrinkage passes."),
     EnvVar("MXNET_TPU_TELEMETRY", bool, False,
            "'1' enables the runtime telemetry subsystem (telemetry) at "
            "import: counters/timers/events over serving, decode, "

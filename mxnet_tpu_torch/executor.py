@@ -26,8 +26,10 @@ executor reruns its train program with them (without the aux updates).
 only and eagerly, copying tensors at group boundaries (the reference's
 PlaceDevice; ``example/model-parallel-lstm``).  Training across groups
 is model parallelism, which raises.  ``check=True`` (or
-``MXNET_TPU_GRAPH_CHECK``) asks for the static graph check of the JAX
-package's ``mxnet_tpu.analysis``, not ported yet: it raises.
+``MXNET_TPU_GRAPH_CHECK=1``) runs the static graph check
+(:func:`mxnet_tpu_torch.analysis.assert_graph_ok`, shapes and dtypes on
+``meta`` tensors) over the bound arrays' shapes before anything runs:
+an error diagnostic raises ``GraphCheckError``, with nothing launched.
 """
 from __future__ import annotations
 
@@ -71,10 +73,10 @@ class Executor:
         if check is None:
             check = _env.get("MXNET_TPU_GRAPH_CHECK")
         if check:
-            raise MXNetError(
-                "Executor(check=True): the static graph check of "
-                "mxnet_tpu.analysis is not ported yet (ROADMAP Queue 1 "
-                "item 10d, the static half of analysis/)")
+            from .analysis.graph_check import assert_graph_ok
+            shapes = {k: tuple(v.shape)
+                      for k, v in {**self.arg_dict, **self.aux_dict}.items()}
+            assert_graph_ok(symbol, shapes=shapes or None)
         self.outputs = []
         self._owners = {}
         self._pending_grads = None

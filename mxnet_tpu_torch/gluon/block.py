@@ -104,6 +104,12 @@ __all__ = ["Block", "HybridBlock", "SymbolBlock", "param_values_from"]
 _naming = threading.local()
 _bound = threading.local()
 
+# The fields of a hybridized block's cache key, in order: whether
+# autograd records (training), the AMP policy, each argument's shape and
+# dtype, and the device (one graph owner a device).  Op params are not
+# in it: a captured graph freezes them (analysis.retrace reads this).
+_CACHE_KEY_STATIC = ("training", "amp_policy", "shape", "dtype", "device")
+
 
 @contextlib.contextmanager
 def param_values_from(values):
@@ -532,6 +538,7 @@ class HybridBlock(Block):
             # the first call sizes deferred parameters imperatively
             return self._plain_call(args)
         device = args[0].device
+        # the fields of _CACHE_KEY_STATIC
         key = (autograd.is_training(), _amp.policy_token()) + tuple(
             (tuple(a.shape), _dtype_name(a.dtype)) for a in args) \
             + (str(device),)
@@ -709,7 +716,9 @@ class SymbolBlock(HybridBlock):
 
     def forward(self, *args):
         from ..symbol.symbol import _eval_symbol
-        if any(isinstance(a, Symbol) for a in args):
+        # structural: the arguments' types, not their values
+        sym = any(isinstance(a, Symbol) for a in args)
+        if sym:  # mxlint: disable=tracer-branch
             raise MXNetError("SymbolBlock: composing a loaded graph into "
                              "another symbol graph is not supported")
         feed = dict(self._param_values(*args))

@@ -183,6 +183,8 @@ class TransformerEncoder(HybridBlock):
         x = x + F.slice_axis(position_weight, axis=0, begin=0,
                              end=seq).unsqueeze(0)
         x = self.drop(self.ln(x))
-        for cell in self.cells:
+        # each cell carries distinct weights and a CUDA graph has no
+        # loop: the capture records every layer, once per key
+        for cell in self.cells:  # mxlint: disable=python-loop-unroll
             x = cell(x, mask)
         return x

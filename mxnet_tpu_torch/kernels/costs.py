@@ -17,9 +17,27 @@ reads device memory.
 """
 from __future__ import annotations
 
-__all__ = ["bn_relu_apply_cost", "bn_relu_bwd_cost", "flash_fwd_cost",
+__all__ = ["KERNEL_NUMERICS", "bn_relu_apply_cost", "bn_relu_bwd_cost", "flash_fwd_cost",
            "flash_bwd_cost", "lamb_phase1_cost", "lars_flat_cost",
            "layernorm_cost", "paged_attention_cost"]
+
+
+# The type each kernel accumulates in, whatever it reads and writes, and
+# whether it reduces (a sum over rows, a norm): the numerics audit counts
+# a kernel by these, not by its input dtype.  Every hand kernel holds its
+# sums in fp32: the flash kernels their softmax statistics and products
+# (mma.sync with fp32 accumulators on bf16), paged attention its dot
+# products, LayerNorm its row moments, LARS and LAMB their norms.
+KERNEL_NUMERICS = {
+    "bn_relu_apply": {"accumulates": "float32", "reduces": False},
+    "bn_relu_bwd": {"accumulates": "float32", "reduces": False},
+    "flash_attention_fwd": {"accumulates": "float32", "reduces": True},
+    "flash_attention_bwd": {"accumulates": "float32", "reduces": True},
+    "paged_attention": {"accumulates": "float32", "reduces": True},
+    "layernorm_fwd": {"accumulates": "float32", "reduces": True},
+    "lars_flat": {"accumulates": "float32", "reduces": False},
+    "lamb_phase1": {"accumulates": "float32", "reduces": False},
+}
 
 
 def bn_relu_apply_cost(x2d, scale, offset):

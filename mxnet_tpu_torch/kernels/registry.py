@@ -145,7 +145,8 @@ def dispatch(name: str, x, *args, **kwargs):
         # the walk counts the plain version once, as its kernel
         with walk.suppressed():
             out = spec.plain(x, *args, **kwargs)
-        walk.kernel(spec, spec.cost(x, *args, **kwargs), launched=False)
+        walk.kernel(spec, spec.cost(x, *args, **kwargs), launched=False,
+                    dtype=x.dtype)
         return out
     raise MXNetError("kernel %r: no implementation for device %s"
                      % (name, x.device))
@@ -175,7 +176,8 @@ def count_launch(name: str, dtype=None, variant=None,
     walk = _walk_of_thread()
     if walk is not None:
         args, kwargs = cost_args
-        walk.kernel(spec, spec.cost(*args, **kwargs), launched=True)
+        walk.kernel(spec, spec.cost(*args, **kwargs), launched=True,
+                    dtype=getattr(args[0], "dtype", None) if args else None)
     with _count_lock:
         if _tally is not None:
             import torch

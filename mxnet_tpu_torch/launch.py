@@ -116,7 +116,7 @@ def _wait_all(procs):
             # fail-FAST over N children needs a poll round-robin: a
             # blocking wait on any single child would hide a sibling's
             # death behind it (os.wait reaps relay threads' pipes too)
-            time.sleep(0.1)
+            time.sleep(0.1)  # mxlint: disable=sleep-poll
         return 0
     except KeyboardInterrupt:
         _kill_tree(procs)

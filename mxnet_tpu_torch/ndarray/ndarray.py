@@ -736,7 +736,9 @@ def save(fname, data):
         data = [data[k] for k in names]
     else:
         data, names = list(data), []
-    with open(fname, "wb") as f:
+    # a serialization primitive writing the path its caller staged;
+    # torn-write safety is checkpoint.core.commit's, around it
+    with open(fname, "wb") as f:  # mxlint: disable=bare-state-write
         f.write(struct.pack("<QQQ", _LIST_MAGIC, 0, len(data)))
         for arr in data:
             _save_one(f, arr)

@@ -94,7 +94,8 @@ def register(name, args=("data",), variadic=False, aliases=()):
             if n in _BY_NAME:
                 raise MXNetError("duplicate op name %r" % n)
             _BY_NAME[n] = spec
-        TABLE[name] = spec
+        # keyed by op name (one entry a registration), not by shape
+        TABLE[name] = spec  # mxlint: disable=unbounded-shape-cache
         return fn
     return deco
 

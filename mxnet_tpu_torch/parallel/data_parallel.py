@@ -96,6 +96,15 @@ from ..ndarray import NDArray
 
 __all__ = ["TrainStep"]
 
+# The op params whose per-step values reach a captured step with no new
+# capture: the optimizer reads lr, wd, rescale_grad and the update count
+# t from the step's device scalars tensor (_optimizer_reads), refreshed
+# before each replay; ``scalar`` is the operand of the *_scalar ops,
+# which the eager engine takes per call (it keeps no compile cache).
+# The JAX package's set (its ndarray._DYNAMIC_PARAMS); analysis.retrace
+# and the scalar-recompile rule read it.
+_DYNAMIC_PARAMS = frozenset(("lr", "wd", "rescale_grad", "scalar", "t"))
+
 
 @contextlib.contextmanager
 def _rates_held(opt, idxs):

@@ -139,7 +139,7 @@ class PreemptionHandler:
                 # the lock is re-entered only by the SIGTERM handler on
                 # THIS thread (RLock), never contended across threads,
                 # and the saved state must not advance past the drain
-                waitall()
+                waitall()  # mxlint: disable=blocking-under-lock
                 if self._fallback_saved and not provisional:
                     # re-arm the meta-last atomicity gate before
                     # overwriting a provisional checkpoint: otherwise a

@@ -103,16 +103,43 @@ def _device_of(obj):
     return None
 
 
+def _donatable_bytes(arguments, out, written):
+    """Bytes of the argument tensors a step could hand its results in:
+    those it writes in place (``written``, aliased by construction),
+    plus those not written whose (shape, dtype) matches an output's --
+    the JAX package's donatable arguments."""
+    import torch
+    from .aten import _tensors
+    remaining = {}
+    for o in _tensors(out, []):
+        k = (tuple(o.shape), o.dtype)
+        remaining[k] = remaining.get(k, 0) + 1
+    total, seen = written, set()
+    for t in _tensors(arguments, []):
+        if not isinstance(t, torch.Tensor) or id(t) in seen:
+            continue
+        seen.add(id(t))
+        k = (tuple(t.shape), t.dtype)
+        if remaining.get(k, 0) > 0:
+            remaining[k] -= 1
+            total += t.numel() * t.element_size()
+    return total
+
+
 def capture_jit(label, fn, args=(), key=None, kind="jit",
                 arguments=None, owner=None, device=None, **meta):
     """``fn(*args)``, walked into a CostReport stored under ``key``
     (default ``(label,)``), once per key: a key already reported runs
     ``fn`` unwalked.  ``arguments`` are the program's argument tensors
     (parameters, optimizer state, the batch; default ``args``), whose
-    bytes are the report's argument bytes; ``owner`` the graph owner
-    whose pool the key's capture will take.  On the card the warm-up's
-    peak allocation is the report's peak.  Returns ``fn``'s result."""
+    bytes are the report's argument bytes, and those the run writes in
+    place its alias bytes; ``owner`` the graph owner whose pool the
+    key's capture will take.  On the card the warm-up's peak allocation
+    is the report's peak.  The walk's audit counters are stored beside
+    the report (:func:`.store.audit_counters`).  Returns ``fn``'s
+    result."""
     from . import aten, cost, store
+    from .aten import _tensors
     key = key if key is not None else (label,)
     if store.has(key):
         return fn(*args)
@@ -131,13 +158,16 @@ def capture_jit(label, fn, args=(), key=None, kind="jit",
     if on_card:
         torch.cuda.synchronize(device)
         peak = torch.cuda.max_memory_allocated(device)
+    written = walk.written_bytes(_tensors(arguments, []))
     rep = cost.analyze_walk(walk, label=label, kind=kind,
                             device=device if device is not None else "cpu",
                             argument_bytes=_tensor_bytes(arguments),
                             output_bytes=_tensor_bytes(out),
-                            peak_bytes=peak, **meta)
+                            peak_bytes=peak, alias_bytes=written, **meta)
+    counters = walk.audit_counters()
+    counters["donatable_bytes"] = _donatable_bytes(arguments, out, written)
     dt = time.perf_counter() - t0
-    if store.register(key, rep, owner=owner):
+    if store.register(key, rep, owner=owner, audit=counters):
         from .. import telemetry as _telemetry
         if _telemetry._ENABLED:
             _telemetry.hooks.profiling_capture(

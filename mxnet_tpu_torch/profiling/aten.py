@@ -38,6 +38,14 @@ their cost functions (:mod:`mxnet_tpu_torch.kernels.costs`).  On the
 CPU the kernels' plain versions run as aten ops; the registry runs each
 inside :meth:`Walk.suppressed` and charges it once, as its kernel.
 
+Beside the categories the walk keeps the counters the analysis audits
+read (:meth:`Walk.audit_counters`): the bytes of each layout op, of
+the aten elementwise ops (each its own launch, fused with nothing), the
+matrix products' operand bytes as laid out and padded to the tensor
+cores' 16-byte alignment, the dtype casts, the products and reductions
+that accumulate in half precision, and the argument storages the run
+writes in place.
+
 The dispatch mode is propagated to the autograd engine's threads, so a
 ``backward()`` inside the walk is walked too.  A walk cannot run inside
 a CUDA-graph capture; the port walks a key's eager warm-up, which every
@@ -87,6 +95,17 @@ _ELEMENTWISE = {"native_batch_norm", "native_batch_norm_backward",
                 "clamp", "_foreach_add", "_foreach_mul", "all", "any",
                 "isfinite", "logical_and", "bernoulli_", "uniform_",
                 "normal_", "norm", "linalg_vector_norm", "cumsum"}
+# reductions, beside aten's reduction tag: the norm and softmax passes
+# and the pooling windows (the JAX audit's reduce and reduce-window)
+_REDUCE = {"sum", "mean", "var", "std", "var_mean", "std_mean", "norm",
+           "linalg_vector_norm", "prod", "logsumexp", "cumsum", "_softmax",
+           "_log_softmax", "native_batch_norm", "_native_batch_norm_legit",
+           "_native_batch_norm_legit_functional", "native_layer_norm",
+           "avg_pool2d", "max_pool2d_with_indices",
+           "_adaptive_avg_pool2d"}
+_HALF = (torch.float16, torch.bfloat16)
+# the tensor cores' operand alignment: 16 bytes in the minor dimension
+ALIGN_BYTES = 16
 # no data moves: allocations without a write
 _FREE = {"empty", "empty_like", "empty_strided", "new_empty",
          "new_empty_strided", "_local_scalar_dense", "set_",
@@ -130,6 +149,48 @@ def _tensors(obj, out):
 
 def _nbytes(tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _aligned_bytes(t):
+    """Bytes of ``t`` with its minor dimension padded to
+    :data:`ALIGN_BYTES` (a rank < 2 tensor is not charged padding)."""
+    if t.dim() < 2:
+        return t.numel() * t.element_size()
+    per = max(1, ALIGN_BYTES // t.element_size())
+    minor = -(-max(int(t.shape[-1]), 1) // per) * per
+    return (t.numel() // max(int(t.shape[-1]), 1)) * minor \
+        * t.element_size()
+
+
+def _nchw_activation(tensors):
+    """Whether a convolution's activation (or its gradient) is laid out
+    channels-first: a 4-D tensor of more than one channel and pixel that
+    is not channels-last in memory.  cuDNN's tensor-core convolutions
+    take channels-last operands, so such a convolution pays layout
+    conversions around it."""
+    for t in tensors:
+        if t.dim() == 4 and t.shape[1] > 1 and t.shape[2] * t.shape[3] > 1 \
+                and not t.is_contiguous(
+                    memory_format=torch.channels_last):
+            return True
+    return False
+
+
+def _half_accumulating_product(base, ins):
+    """Whether an aten matrix product on half inputs may accumulate in
+    half: cuBLAS accumulates bf16/fp16 GEMMs in fp32 unless PyTorch's
+    reduced-precision reduction flag for that dtype is on (it lets a
+    split-K GEMM sum its partial products in the input type); cuDNN's
+    convolutions accumulate in fp32."""
+    if base.startswith(("convolution", "_convolution", "cudnn_conv")):
+        return False
+    dts = {t.dtype for t in ins if t.is_floating_point()}
+    m = torch.backends.cuda.matmul
+    if torch.bfloat16 in dts:
+        return bool(m.allow_bf16_reduced_precision_reduction)
+    if torch.float16 in dts:
+        return bool(m.allow_fp16_reduced_precision_reduction)
+    return False
 
 
 _flop_registry = None
@@ -228,6 +289,16 @@ class Walk(TorchDispatchMode):
         self._sequence = hashlib.sha256()
         self._lock = threading.Lock()
         self._suppress = 0
+        self._audit = {
+            "transpose_ops": {}, "unfused_elementwise_bytes": 0,
+            "unfused_elementwise_count": 0, "mxu_actual_bytes": 0,
+            "mxu_padded_bytes": 0, "half_product_flops": 0,
+            "product_flops": 0, "convert_bytes": 0, "convert_ops": {},
+            "mxu_bytes": 0, "half_dot_bytes": 0, "half_dots": {},
+            "reduce_bytes": 0, "half_reduce_bytes": 0,
+            "half_reduces": {}, "kernel_bytes": {}, "conv_bytes": 0,
+            "nchw_conv_bytes": 0}
+        self._written = {}        # storage pointer -> bytes written in place
 
     # -- the registry's interface --------------------------------------
     def __enter__(self):
@@ -256,12 +327,38 @@ class Walk(TorchDispatchMode):
             with self._lock:
                 self._suppress -= 1
 
-    def kernel(self, spec, cost, launched):
+    def kernel(self, spec, cost, launched, dtype=None):
         """Charge one hand-kernel call at ``cost = (flops, bytes)`` to
         its category; ``launched`` says the kernel ran (on the CPU its
-        plain version ran instead)."""
+        plain version ran instead); ``dtype`` is the dtype it ran on,
+        which with the accumulation type recorded beside its cost
+        function (:data:`~..kernels.costs.KERNEL_NUMERICS`) places it
+        in the precision counters."""
+        from ..kernels.costs import KERNEL_NUMERICS
         flops, nbytes = int(cost[0]), int(cost[1])
+        num = KERNEL_NUMERICS.get(spec.name, {})
+        half_in = dtype in _HALF
+        half_acc = half_in and num.get("accumulates") in ("float16",
+                                                           "bfloat16")
         with self._lock:
+            a = self._audit
+            a["kernel_bytes"][spec.name] = \
+                a["kernel_bytes"].get(spec.name, 0) + nbytes
+            if spec.category == "conv_dot":
+                a["mxu_bytes"] += nbytes
+                a["product_flops"] += flops
+                if half_in:
+                    a["half_product_flops"] += flops
+                if half_acc:
+                    a["half_dot_bytes"] += nbytes
+                    a["half_dots"][spec.name] = \
+                        a["half_dots"].get(spec.name, 0) + nbytes
+            if num.get("reduces"):
+                a["reduce_bytes"] += nbytes
+                if half_acc:
+                    a["half_reduce_bytes"] += nbytes
+                    a["half_reduces"][spec.name] = \
+                        a["half_reduces"].get(spec.name, 0) + nbytes
             cat = self.categories[spec.category]
             cat["flops"] += flops
             cat["bytes"] += nbytes
@@ -299,11 +396,15 @@ class Walk(TorchDispatchMode):
                              + outs)
         sig = "%s%s;" % (func.name(), ",".join(
             "%s%s" % (tuple(t.shape), str(t.dtype)[6:]) for t in outs))
+        ins = _tensors(args, []) + _tensors(kwargs, [])
         with self._lock:
             c = self.categories[cat]
             c["flops"] += flops
             c["bytes"] += nbytes
             c["instructions"] += 1
+            if nbytes:
+                self._count_audit(func, base, cat, flops, nbytes, ins, outs)
+            self._count_writes(func, args, kwargs)
             if flops:
                 ent = self._ops.setdefault(base, {
                     "op_name": "aten." + base, "category": cat,
@@ -312,7 +413,85 @@ class Walk(TorchDispatchMode):
             self._sequence.update(sig.encode())
         return out
 
+    def _count_audit(self, func, base, cat, flops, nbytes, ins, outs):
+        a = self._audit
+        name = "aten." + base
+        if cat == "transpose_layout":
+            a["transpose_ops"][name] = \
+                a["transpose_ops"].get(name, 0) + nbytes
+        elif cat == "elementwise_fusion":
+            a["unfused_elementwise_bytes"] += nbytes
+            a["unfused_elementwise_count"] += 1
+        elif cat == "conv_dot":
+            a["mxu_bytes"] += nbytes
+            a["product_flops"] += flops
+            for t in ins + outs:
+                if t.dim() >= 2:
+                    a["mxu_actual_bytes"] += t.numel() * t.element_size()
+                    a["mxu_padded_bytes"] += _aligned_bytes(t)
+            if base.startswith(("convolution", "_convolution")):
+                a["conv_bytes"] += nbytes
+                if _nchw_activation(ins[:2]):
+                    a["nchw_conv_bytes"] += nbytes
+            if any(t.dtype in _HALF for t in ins):
+                a["half_product_flops"] += flops
+                if _half_accumulating_product(base, ins):
+                    a["half_dot_bytes"] += nbytes
+                    a["half_dots"][name] = \
+                        a["half_dots"].get(name, 0) + nbytes
+        if base == "_to_copy" and ins and outs and \
+                ins[0].is_floating_point() and \
+                outs[0].is_floating_point() and \
+                ins[0].dtype != outs[0].dtype:
+            a["convert_bytes"] += nbytes
+            a["convert_ops"][name] = a["convert_ops"].get(name, 0) + nbytes
+        if base in _REDUCE or torch.Tag.reduction in func.tags:
+            a["reduce_bytes"] += nbytes
+            dts = [t.dtype for t in ins + outs if t.is_floating_point()]
+            if dts and all(d in _HALF for d in dts):
+                a["half_reduce_bytes"] += nbytes
+                a["half_reduces"][name] = \
+                    a["half_reduces"].get(name, 0) + nbytes
+
+    def _count_writes(self, func, args, kwargs):
+        """Record the storages an op writes in place (its schema's
+        mutable arguments)."""
+        schema = func._schema
+        if not schema.is_mutable:
+            return
+        for i, arg in enumerate(schema.arguments):
+            if arg.alias_info is None or not arg.alias_info.is_write:
+                continue
+            v = args[i] if i < len(args) else kwargs.get(arg.name)
+            for t in _tensors(v, []):
+                try:
+                    ptr = t.untyped_storage().data_ptr()
+                except RuntimeError:
+                    continue
+                self._written[ptr] = t.untyped_storage().nbytes()
+
     # -- results --------------------------------------------------------
+    def audit_counters(self):
+        """The counters of the analysis audits (a copy)."""
+        import copy
+        with self._lock:
+            return copy.deepcopy(self._audit)
+
+    def written_bytes(self, tensors):
+        """Bytes of the distinct storages among ``tensors`` that the run
+        wrote in place."""
+        seen, total = set(), 0
+        with self._lock:
+            for t in tensors:
+                try:
+                    ptr = t.untyped_storage().data_ptr()
+                except RuntimeError:
+                    continue
+                if ptr in self._written and ptr not in seen:
+                    seen.add(ptr)
+                    total += t.untyped_storage().nbytes()
+        return total
+
     def provenance(self, top=12):
         """The ``top`` flop-charged aten ops, then every hand kernel
         charged (with its calls and launches)."""

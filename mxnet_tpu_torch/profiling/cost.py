@@ -9,7 +9,9 @@ sums are the totals (the JAX package's path for a backend without
 them), so ``sum(categories[*].flops) == totals.flops`` exactly, the
 ``mxprof report`` contract.  ``fingerprint`` digests the walked op
 sequence; ``memory`` holds the step's argument and output bytes and,
-on the card, ``peak_hbm_bytes`` from ``torch.cuda.max_memory_allocated``
+the bytes of the arguments the step writes in place as its
+``alias_bytes`` (the JAX package's donated buffers), and on the card,
+``peak_hbm_bytes`` from ``torch.cuda.max_memory_allocated``
 over the warm-up (at least the arguments plus the graph pool's bytes
 once the key is captured); on the CPU, which has no device allocator,
 the arguments plus the outputs.
@@ -54,7 +56,7 @@ def device_of(device):
 
 def analyze_walk(walk, label="executable", kind="jit", device="cpu",
                  argument_bytes=0, output_bytes=0, peak_bytes=None,
-                 **meta):
+                 alias_bytes=0, **meta):
     """Build a CostReport dict from a finished :class:`~.aten.Walk`."""
     est = walk.categories
     totals = {"flops": float(sum(c["flops"] for c in est.values())),
@@ -75,7 +77,7 @@ def analyze_walk(walk, label="executable", kind="jit", device="cpu",
     memory = {"argument_bytes": argument_bytes,
               "output_bytes": output_bytes,
               "temp_bytes": max(0, peak - argument_bytes - output_bytes),
-              "alias_bytes": 0, "generated_code_bytes": 0,
+              "alias_bytes": int(alias_bytes), "generated_code_bytes": 0,
               "peak_hbm_bytes": peak}
     name, backend = device_of(device)
     return {

@@ -26,18 +26,21 @@ COMBINED_NAME = "report.json"
 _lock = _sync.Lock(name="profiling.store")
 _reports = {}      # key -> CostReport dict
 _owners = {}       # key -> weakref of the report's GraphOwner
+_audits = {}       # key -> the walk's audit counters (profiling.aten)
 _steps = {}        # label -> {"count","total_s","min_s","max_s","items"}
 
 
-def register(key, report, owner=None):
-    """Store ``report`` under ``key`` (the first report of a key
-    wins)."""
+def register(key, report, owner=None, audit=None):
+    """Store ``report`` under ``key`` (the first report of a key wins),
+    with the walk's ``audit`` counters beside it."""
     with _lock:
         if key in _reports:
             return False
         _reports[key] = report
         if owner is not None:
             _owners[key] = weakref.ref(owner)
+        if audit is not None:
+            _audits[key] = audit
     return True
 
 
@@ -109,6 +112,17 @@ def reports():
         reps = [_with_pool(r, _owners.get(k)) for k, r in _reports.items()]
         steps_snapshot = bool(_steps)
     return [(_annotate(r) if steps_snapshot else r) for r in reps]
+
+
+def audited():
+    """``(key, report, audit counters or None)`` of every stored report,
+    annotated and insertion-ordered: what the analysis audits read."""
+    with _lock:
+        items = [(k, _with_pool(r, _owners.get(k)), _audits.get(k))
+                 for k, r in _reports.items()]
+        steps_snapshot = bool(_steps)
+    return [(k, _annotate(r) if steps_snapshot else r, a)
+            for k, r, a in items]
 
 
 def report(key):
@@ -186,4 +200,5 @@ def clear():
     with _lock:
         _reports.clear()
         _owners.clear()
+        _audits.clear()
         _steps.clear()

@@ -207,36 +207,18 @@ class BucketExecutorPool:
         """Predict each bucket's peak device memory: the two smallest
         buckets' warm-up peaks give a const + per-item line, every
         bucket is extrapolated along it, and ``largest_fit_bucket`` is
-        the largest bucket whose prediction fits ``device_hbm_bytes``.
-        The keys are the JAX package's (``analysis.memory.hbm_plan``).
-        Needs a warmed pool on the card."""
+        the largest bucket whose prediction fits ``device_hbm_bytes``
+        (:func:`mxnet_tpu_torch.analysis.memory.hbm_plan`, the JAX
+        package's keys).  Needs a warmed pool on the card."""
+        from ..analysis.memory import hbm_plan
         if len(self._peaks) < 1:
             raise MXNetError("hbm_plan: no warm-up peaks measured (the "
                              "pool warms on the card)")
         b0 = self.buckets[0]
         b1 = self.buckets[1] if len(self.buckets) > 1 else b0
-        peak0, peak1 = self._peaks[b0], self._peaks[b1]
-        per_item = max(0.0, (peak1 - peak0) / float(b1 - b0)) \
-            if b1 != b0 else 0.0
-        const = max(0.0, peak0 - per_item * b0)
-        plan = {"label": "serving:%s" % self._label, "batch_size": b0,
-                "const_bytes": int(const), "per_item_bytes": int(per_item),
-                "measured": {str(b0): peak0, str(b1): peak1},
-                "device_hbm_bytes": device_hbm_bytes, "buckets": [],
-                "largest_fit_batch": None, "largest_fit_bucket": None}
-        if device_hbm_bytes and per_item > 0:
-            plan["largest_fit_batch"] = int(
-                (device_hbm_bytes - const) // per_item) \
-                if device_hbm_bytes > const else 0
-        for b in self.buckets:
-            pred = int(const + per_item * b)
-            fits = (pred <= device_hbm_bytes) if device_hbm_bytes else None
-            plan["buckets"].append({"batch": b,
-                                    "predicted_peak_hbm_bytes": pred,
-                                    "fits": fits})
-            if fits:
-                plan["largest_fit_bucket"] = b
-        return plan
+        return hbm_plan("serving:%s" % self._label, device_hbm_bytes,
+                        buckets=self.buckets, batch_size=b0,
+                        peaks={b: self._peaks[b] for b in (b0, b1)})
 
     def call(self, bucket, x):
         """Run the forward on a batch ``x`` already padded to

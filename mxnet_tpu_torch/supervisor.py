@@ -224,7 +224,7 @@ class Supervisor:
                 break
             # fail-fast over N children needs a poll round-robin: a
             # blocking wait on one child hides a sibling's death
-            time.sleep(0.1)
+            time.sleep(0.1)  # mxlint: disable=sleep-poll
         if first_rc is None:
             return 0, None
         self._kill_tree([p for p in self._procs if p.poll() is None])

@@ -194,9 +194,18 @@ class Symbol:
 
     def simple_bind(self, ctx=None, grad_req="write", check=None, **shapes):
         """Allocate every argument (shapes not given are inferred) and
-        bind."""
+        bind.  ``check=True`` (or ``MXNET_TPU_GRAPH_CHECK=1``) runs the
+        static graph check over the given shapes first, so a broken
+        graph raises ``GraphCheckError`` before anything is
+        allocated."""
+        from .. import env as _env
         from ..executor import Executor
         from ..ndarray import zeros
+        if check is None:
+            check = _env.get("MXNET_TPU_GRAPH_CHECK")
+        if check:
+            from ..analysis.graph_check import assert_graph_ok
+            assert_graph_ok(self, shapes=shapes or None)
         arg_shapes, _, aux_shapes = self.infer_shape(**shapes)
         args = {name: zeros(shape, ctx=ctx)
                 for name, shape in zip(self.list_arguments(), arg_shapes)}
@@ -205,8 +214,9 @@ class Symbol:
         aux = {name: zeros(shape, ctx=ctx)
                for name, shape in zip(self.list_auxiliary_states(),
                                       aux_shapes)}
+        # checked above, over the shapes the allocation follows
         return Executor(self, ctx, args, args_grad, grad_req,
-                        aux_states=aux, check=check)
+                        aux_states=aux, check=False)
 
     # -- serialization (reference: nnvm saveload_json.cc) --------------
     def tojson(self):

@@ -27,10 +27,11 @@ factories here instead of ``threading`` directly::
 Lock *names* are role identities: every ``Instrument._lock`` shares the
 name ``telemetry.instrument``, so the order graph reasons about roles,
 not instances.  Unnamed locks get a ``file:line`` creation-site
-identity.  The JAX package also seeds the graph from its static
-lock-order pass (``analysis/concurrency.py``); the port has no such
-pass yet, so :func:`seed_static_order` records no edge and the graph is
-built from observation alone.
+identity.  :func:`seed_static_order` also seeds the graph with the
+static lock-order pass's edges over the port's own source
+(``analysis/concurrency.py :: static_order_edges``), as the JAX
+package's does, so the first runtime nesting that contradicts the
+code's order raises.
 """
 from __future__ import annotations
 
@@ -77,6 +78,7 @@ _edge_sites = {}                     # (a, b) -> "thread/stack" of first obs
 _held_by_thread = {}                 # thread ident -> shared held list
 _reports = []                        # report-only inversion texts
 _static_seeded = False
+_seeding = False
 
 
 def _watchdog_default():
@@ -159,14 +161,32 @@ def recorded_reports():
 
 
 def seed_static_order():
-    """Fold the static pass's acquisition-order edges into the runtime
-    graph.  The port has no static lock-order pass, so this marks the
-    graph seeded and adds nothing; returns the number of edges added
-    (0).  Idempotent, as the JAX package's is."""
-    global _static_seeded
+    """Fold ``analysis.concurrency``'s static acquisition-order edges
+    (over the port's package source) into the runtime graph; returns
+    the number of edges folded.  Idempotent; best-effort: the sanitizer
+    works from pure observation when the source is unavailable."""
+    global _static_seeded, _seeding
+    if _static_seeded or _seeding:
+        return 0
+    _seeding = True
+    try:
+        from .analysis import concurrency as _conc
+        pkg_dir = os.path.dirname(os.path.abspath(__file__))
+        edges = _conc.static_order_edges([pkg_dir])
+    except (ImportError, OSError, SyntaxError):
+        edges = ()
+    finally:
+        _seeding = False
+    n = 0
     with _meta_lock:
+        for a, b in edges:
+            if a != b:
+                _order.setdefault(a, set()).add(b)
+                _edge_sites.setdefault((a, b), "static analysis "
+                                      "(analysis/concurrency.py)")
+                n += 1
         _static_seeded = True
-    return 0
+    return n
 
 
 # -- held-lock bookkeeping ---------------------------------------------

@@ -223,8 +223,13 @@ def test_simple_bind_and_unknown_input():
     assert exe.grad_dict["fc2_bias"].shape == (4,)
     with pytest.raises(MXNetError, match="unknown input"):
         exe.forward(bogus=tmx.nd.zeros((1,)))
-    with pytest.raises(MXNetError, match="item 10"):
-        t.simple_bind(ctx=tmx.cpu(), check=True, data=(2, 8))
+    # the static graph check: a clean graph binds, a broken one raises
+    # GraphCheckError (an MXNetError) naming its rule
+    checked = t.simple_bind(ctx=tmx.cpu(), check=True, data=(2, 8))
+    assert checked.arg_dict["fc1_weight"].shape == (32, 8)
+    twin = tmx.sym.var("x") + tmx.sym.var("x")
+    with pytest.raises(MXNetError, match="duplicate-input"):
+        twin.simple_bind(ctx=tmx.cpu(), check=True, x=(2, 2))
 
 
 def test_rnn_symbol_names_its_state_cell_by_mode():

@@ -150,6 +150,36 @@ def test_static_seed_is_best_effort_and_idempotent(sync):
         pass
 
 
+def test_seed_static_order_folds_the_port_trees_edges(monkeypatch):
+    """The port's sanitizer seeds its graph from the static pass over its
+    own source, as the JAX package's does: it returns the count folded
+    (the port's tree nests no two inventoried locks today, so 0), and a
+    planted edge of the pass is folded and then raises at the first
+    runtime nesting that contradicts it."""
+    from mxnet_tpu_torch.analysis import concurrency, static_order_edges
+    pkg = os.path.dirname(torch_sync.__file__)
+    torch_sync.reset_state()
+    try:
+        assert torch_sync.seed_static_order() == \
+            len(static_order_edges([pkg]))
+        torch_sync.reset_state()
+        monkeypatch.setattr(concurrency, "static_order_edges",
+                            lambda paths: {("seed.outer", "seed.inner")})
+        torch_sync.enable(seed_static=False)
+        assert torch_sync.seed_static_order() == 1
+        assert torch_sync.seed_static_order() == 0      # idempotent
+        assert "seed.inner" in torch_sync.order_graph()["seed.outer"]
+        outer = torch_sync.Lock(name="seed.outer")
+        inner = torch_sync.Lock(name="seed.inner")
+        with pytest.raises(torch_sync.LockOrderError):
+            with inner:
+                with outer:
+                    pass
+    finally:
+        torch_sync.disable()
+        torch_sync.reset_state()
+
+
 def test_watchdog_fires_on_crossed_lock_deadlock(sync):
     sync.enable(watchdog_s=1.0, seed_static=False)
     sync.configure(raise_on_inversion=False)
