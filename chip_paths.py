@@ -15,6 +15,8 @@ without the whole smoke run.
     cd <checkout> && python3 <repo>/chip_paths.py deploy
     cd <checkout> && python3 <repo>/chip_paths.py contrib
     cd <checkout> && python3 <repo>/chip_paths.py numpy
+    cd <checkout> && python3 <repo>/chip_paths.py mesh
+    cd <checkout> && python3 <repo>/chip_paths.py mesh4
 
 ``decode`` is ``chip_smoke.main_path`` (GPT-2 small decode serving),
 ``mnist`` is ``mnist_main_path`` (the imperative LeNet loop, then 100
@@ -55,7 +57,13 @@ widths against the CPU) and ``numpy`` is ``numpy_phase`` (phase 22:
 BERT-base trained from ``mx.np`` arrays under ``npx.set_np()``, through
 ``mx.nd`` and inside ``mx.engine.bulk``; every ``mx.np``/``npx`` name at
 user widths against the CPU; ``check_consistency`` and
-``runtime.Features()`` on the card; the host cost of an eager op).  The
+``runtime.Features()`` on the card; the host cost of an eager op) and
+``mesh`` is ``mesh_phase`` (phase 24: a child world of one rank on NCCL,
+``launch -n 1``: ResNet-50 ``TrainStep(mesh=)`` over dp, BERT-base
+``tp_mesh``/``shard_tp`` with LAMB, the pipeline, ring attention, MoE
+and a ``restore(sharding=)`` round trip) and ``mesh4`` the same paths at
+four ranks, one card each (``launch -n 4``; it raises with fewer than
+four cards visible), against the single-device steps.  The
 checkout's own ``chip_smoke`` and package are imported, its kernels
 built, and each path prints its lines as in the smoke run, under the
 same host-read check of every capture -- except ``hotswap``, which runs
@@ -79,9 +87,11 @@ PATHS = {"decode": "main_path", "mnist": "mnist_main_path",
          "symbolic": "symbolic_phase", "bertbf16": "bert_bf16_phase",
          "layernorm": "layernorm_phase", "deploy": "deploy_phase",
          "contrib": "contrib_phase", "numpy": "numpy_phase",
-         "analysis": "analysis_phase"}
-# outside checking_syncs() (contrib enters it for its checked parts)
-UNCHECKED = {"hotswap", "ops", "dist", "contrib"}
+         "analysis": "analysis_phase", "mesh": "mesh_phase",
+         "mesh4": "mesh4_phase"}
+# outside checking_syncs() (contrib enters it for its checked parts, the
+# mesh paths' child worlds for their captured steps)
+UNCHECKED = {"hotswap", "ops", "dist", "contrib", "mesh", "mesh4"}
 
 
 def main(argv):

@@ -503,6 +503,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``audit_retrace()`` clean; seconds and counts by rule printed.  The
    kernels line carries ``launches_analysis``: (a)'s forwards and (b)'s
    walked warm-up.
+24. meshes and in-graph collectives, after phase 23, in a child world of
+   one rank started through ``python -m mxnet_tpu_torch.launch -n 1``
+   (NCCL, so this process never joins a world), fp32, TF32 off, cuDNN
+   deterministic, seed 0.  (a) ResNet-50 v1 NHWC at b32, SGD 0.05/0.9,
+   ``TrainStep(mesh=make_mesh({"dp": 1}))``, 4 steps (eager, captured,
+   two replays) under the host-read check: ``bn_relu_*`` 33 x 4; the
+   collectives a replay (counted through the replays) > 0 and equal to
+   the profiling walk's ``collective`` instructions and to the gradient
+   buckets + 2 x the 53 BatchNorm sites; losses, weights and momenta
+   within 1e-6 norm-wise of the same step without a mesh.  (b)
+   ``bert_base(vocab_size=30522, max_length=512, dropout=0,
+   tp_mesh=make_mesh({"tp": 1}))`` with ``shard_tp``, LAMB, 8 x 512, 3
+   captured steps: flash fwd and bwd 12 x 3, ``layernorm_fwd`` 26 x 3,
+   ``lamb_phase1`` 3; held at ``bucketed_holds``' rule against the same
+   model unsharded (its q/k/v tensors, so LAMB's per-tensor trust ratios
+   match), both from the plain BERT's seeded weights; the key bias
+   printed apart.  (c) ``pipeline_apply`` over BERT-base's 12 layers
+   (functional, through the flash and LayerNorm kernels; 2 microbatches
+   of 4 x 512, forward and backward) against the layers in sequence;
+   ``ring_attention`` at (96, 512, 64), full and causal, and
+   ``MixtureOfExperts`` (8 experts, 768/3,072, 8,192 tokens) against
+   their plain math; a ``TensorParallelMLP`` saved and restored with
+   ``restore(sharding=)`` and whole, bitwise.  Each part prints a
+   "mesh (...)" line with its collectives' calls and bytes and a
+   profile (ms a call, device busy, NCCL kernel ms and share); the
+   kernels line carries ``launches_mesh`` by part.  ``chip_paths.py
+   mesh4`` runs the same paths at four ranks, one card each.
 
 Every path runs from captured CUDA graphs (``mxnet_tpu_torch._capture``),
 the port's counterpart of the JAX package's compiled programs: one
@@ -523,8 +550,9 @@ BERT-base LAMB (dropout 0.1, batch 8 x seq 512) and ResNet-50 bf16 AMP
 LARS (batch 16), each four calls of one ``TrainStep`` (eager, captured,
 replayed, replayed after ``set_learning_rate``) against four eager
 steps on a copy of the net (losses, updates, the last update, every
-optimizer state).  Phases 1-15, 19, 20 and 22, and phase 21's inference
-and op families, run under ``_capture.checking_syncs()``: every
+optimizer state).  Phases 1-15, 19, 20, 22 and 23, phase 21's inference
+and op families and phase 24's (a) and (b) (in its child world) run
+under ``_capture.checking_syncs()``: every
 capture and replay runs under ``torch.cuda.set_sync_debug_mode(
 "error")``, so a host read left inside a captured region fails it.
 
@@ -11073,6 +11101,704 @@ def analysis_phase(root=ANALYSIS_ROOT, device="cuda", gate_kwargs=None,
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 24: meshes and in-graph collectives (mxnet_tpu_torch.parallel)
+# ---------------------------------------------------------------------
+
+MESH_ROOT = os.path.join(REPO_ROOT, "build", "mesh-smoke")
+MESH_BATCH = 32                 # (a) ResNet-50 images a rank
+MESH_STEPS = 4                  # (a) eager, captured, two replays
+MESH_BERT_BATCH = 8             # (b) sequences of BERT_SEQ
+MESH_BERT_STEPS = 3             # (b) eager, captured, replayed
+# (a) at one rank, against the same step without a mesh: norm-wise, as
+# the capture holds (cuDNN deterministic; a world of one sums one
+# operand, so the two steps do the same arithmetic)
+MESH_HOLD_LIMIT = 1e-6
+# (a) at four ranks, against the step without a mesh on the global
+# batch: PR 2's rule for this net, max(2e-2, 4 x the floor of the same
+# step on the permuted batch); losses at 1e-5
+MESH_DP_LIMIT = 2e-2
+MESH_DP_FLOOR_FACTOR = 4.0
+MESH_DP_LOSS_LIMIT = 1e-5
+# (b) bucketed_holds' rule: max(1e-5, 4 x the floor of two runs
+# without a mesh); the key third of each qkv bias printed, not held
+MESH_BERT_LIMIT = 1e-5
+MESH_BERT_FLOOR_FACTOR = 4.0
+# (c): pipeline outputs and ring/MoE against their plain math in fp32;
+# the pipeline's gradients carry the flash backward's fp32 atomics
+MESH_PLAIN_LIMIT = 1e-5
+MESH_PIPE_GRAD_LIMIT = 1e-4
+MESH_PIPE_MICRO = 4             # sequences of BERT_SEQ a microbatch
+MESH_PIPE_MICROBATCHES = {1: 2, 4: 8}
+MESH_RING = {1: (BERT_BATCH // 4 * BERT_HEADS, BERT_SEQ, 64),
+             4: (BERT_HEADS, 16384, 64)}
+MESH_MOE = dict(num_experts=8, d_model=768, d_hidden=3072)
+MESH_MOE_TOKENS = 8192
+MESH_KERNELS = ("bn_relu_apply", "bn_relu_bwd", "flash_attention_fwd",
+                "flash_attention_bwd", "layernorm_fwd", "lamb_phase1")
+
+
+def mesh_profile(fn, ranks, allreduce_bytes=None, iters=2):
+    """Where ``fn()``'s device time goes over ``iters`` calls: wall ms a
+    call, device busy ms, the NCCL kernels' ms and share, and the bus
+    rate of the all-reduce kernels over ``allreduce_bytes`` a call
+    (``2 (n - 1) / n`` times the bytes, NCCL's bus-bandwidth
+    convention; 0 at one rank, where the algorithm rate is given)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / iters
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / iters
+    nccl = [e for e in kernels if "nccl" in e.key.lower()]
+    nccl_ms = sum(e.self_device_time_total for e in nccl) / 1e3 / iters
+    ar_ms = sum(e.self_device_time_total for e in nccl
+                if "allreduce" in e.key.lower()) / 1e3 / iters
+    out = {"ms_per_call": 1e3 * wall, "device_busy_ms": busy,
+           "collective_ms": nccl_ms,
+           "collective_share": nccl_ms / busy if busy else 0.0,
+           "nccl_kernels": sorted({e.key[:48] for e in nccl})}
+    if allreduce_bytes:
+        sec = ar_ms / 1e3
+        out["allreduce_ms"] = ar_ms
+        out["allreduce_alg_gb_s"] = allreduce_bytes / sec / 1e9 \
+            if sec else None
+        out["allreduce_bus_gb_s"] = allreduce_bytes * 2 * (ranks - 1) \
+            / ranks / sec / 1e9 if sec else None
+    return out
+
+
+def _single_device(ranks):
+    """The mesh a reference step runs on: None in a world of one (the
+    step without a mesh), else rank 0 alone (every rank makes it)."""
+    from mxnet_tpu_torch.parallel import make_mesh
+    return None if ranks == 1 else make_mesh({"dp": 1}, devices=[0])
+
+
+def _full(t, sharding):
+    """The whole value of ``t``, this rank's shard under ``sharding``
+    (gathered over the mesh; ``t`` itself when replicated)."""
+    import torch
+    from mxnet_tpu_torch.parallel import collectives
+    if sharding is None or sharding.is_replicated:
+        return t.detach()
+    spec = tuple(sharding.spec)
+    dim = next(d for d, a in enumerate(spec) if a is not None)
+    with torch.no_grad():
+        return collectives._gather(t.detach(), sharding.mesh, spec[dim], dim)
+
+
+def mesh_dp_resnet(ranks, rank):
+    """(a) ResNet-50 v1 NHWC fp32 SGD, ``TrainStep(mesh=make_mesh({"dp":
+    ranks}))`` at MESH_BATCH a rank, captured; held against the same
+    step without a mesh on the global batch (on rank 0)."""
+    import torch
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.kernels import registry
+    from mxnet_tpu_torch.parallel import TrainStep, collectives, make_mesh
+    mesh = make_mesh({"dp": ranks})
+    gen = torch.Generator().manual_seed(0)
+    n = MESH_BATCH * ranks
+    x = torch.randn((n, 224, 224, 3), generator=gen)
+    y = torch.randint(0, 1000, (n,), generator=gen).float()
+
+    def run(step_mesh, xb, yb, counting=False):
+        net = resnet50_nhwc()
+        net.initialize(device="cuda",
+                       generator=torch.Generator().manual_seed(0))
+        xb, yb = xb.cuda(), yb.cuda()
+        with autograd.pause():
+            net(xb[:1])                 # sizes deferred parameters
+        tr = gluon.Trainer(net.collect_params(), "sgd", TRAIN_SGD)
+        step = TrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(), tr,
+                         mesh=step_mesh)
+        if counting:
+            registry.reset_launches()
+        losses, t0 = [], None
+        for k in range(MESH_STEPS):
+            if k == 2:
+                torch.cuda.synchronize()
+                collectives.reset_counts()
+                t0 = time.perf_counter()
+            losses.append(step(xb, yb))
+        torch.cuda.synchronize()
+        out = {"losses": [float(v) for v in losses],
+               "wall_s": time.perf_counter() - t0,
+               "weights": [p.data()._data.detach().clone()
+                           for p in net.collect_params().values()],
+               "momenta": [tr._updater.states[i].detach().clone()
+                           for i in sorted(tr._updater.states)]}
+        if counting:
+            out["calls"] = collectives.counts()
+            out["launches"] = {k: registry.launches(k)
+                               for k in ("bn_relu_apply", "bn_relu_bwd")}
+            # a BatchNorm site a running mean
+            out["sites"] = sum(1 for k in net.collect_params()
+                               if k.endswith("running_mean"))
+            out["walk"] = step.cost_report()["categories"]["collective"][
+                "instructions"]
+            out["buckets"] = step._buckets
+            out["capture"] = step.capture_stats()
+            out["profile"] = mesh_profile(
+                lambda: step(xb, yb), ranks,
+                out["calls"]["all_reduce"]["bytes"] / (MESH_STEPS - 2))
+        return out
+
+    sl = slice(rank * MESH_BATCH, (rank + 1) * MESH_BATCH)
+    got = run(mesh, x[sl], y[sl], counting=True)
+    replays = MESH_STEPS - 2
+    per_replay = sum(v["calls"] for v in got["calls"].values()) / replays
+    sites = got["sites"]
+    res = {"ranks": ranks, "batch_a_rank": MESH_BATCH, "steps": MESH_STEPS,
+           "losses": got["losses"],
+           "collectives_a_replay": per_replay,
+           "collectives_walked": got["walk"],
+           "gradient_buckets": got["buckets"], "batchnorm_sites": sites,
+           "calls": got["calls"], "launches": got["launches"],
+           "graphs": got["capture"]["graphs"],
+           "replays": got["capture"]["replays"], "profile": got["profile"],
+           "img_per_s": MESH_BATCH * ranks * replays / got["wall_s"],
+           "ms_per_step": 1e3 * got["wall_s"] / replays}
+    check(per_replay > 0, "mesh (a): no collective in a replay")
+    check(per_replay == got["walk"] == got["buckets"] + 2 * sites,
+          "mesh (a): %s collectives a replay, %s walked, %d buckets + 2 x "
+          "%d BatchNorm sites" % (per_replay, got["walk"], got["buckets"],
+                                  sites))
+    for k, v in got["launches"].items():
+        check(v == BN_RELU_SITES * MESH_STEPS, "mesh (a): %s launches %d "
+              "!= %d x %d" % (k, v, BN_RELU_SITES, MESH_STEPS))
+    ref_mesh = _single_device(ranks)
+    if rank == 0:
+        want = run(ref_mesh, x, y)
+        res["ms_per_step_without_mesh"] = 1e3 * want["wall_s"] / replays
+        res["loss_rel_err"] = max(abs(a - b) / abs(b) for a, b in zip(
+            got["losses"], want["losses"]))
+        res["weights_rel_err"] = _norm_rel(got["weights"], want["weights"])
+        res["momenta_rel_err"] = _norm_rel(got["momenta"], want["momenta"])
+        if ranks == 1:
+            res["limit"] = MESH_HOLD_LIMIT
+            loss_limit = MESH_HOLD_LIMIT
+        else:
+            perm = torch.randperm(x.shape[0], generator=gen)
+            floor = run(ref_mesh, x[perm], y[perm])
+            res["floor"] = _norm_rel(floor["weights"], want["weights"])
+            res["limit"] = max(MESH_DP_LIMIT,
+                               MESH_DP_FLOOR_FACTOR * res["floor"])
+            loss_limit = MESH_DP_LOSS_LIMIT
+        del want
+        check(res["loss_rel_err"] <= loss_limit,
+              "mesh (a): loss off by %.3g" % res["loss_rel_err"])
+        for key in ("weights_rel_err", "momenta_rel_err"):
+            check(res[key] <= res["limit"], "mesh (a): %s %.3g > %g"
+                  % (key, res[key], res["limit"]))
+    return res
+
+
+def _qkv_split(init, units):
+    """``{structural name: value}`` of a tensor-parallel BERT from the
+    plain BERT's ``init``: each fused qkv tensor's thirds."""
+    out = {}
+    for name, t in init.items():
+        if "qkv_" in name:
+            kind = name.rpartition("_")[2]
+            base = name[:-len("qkv_" + kind)]
+            for i, part in enumerate(("query", "key", "value")):
+                out["%s%s_%s" % (base, part, kind)] = \
+                    t[i * units:(i + 1) * units]
+        else:
+            out[name] = t
+    return out
+
+
+def mesh_tp_bert(ranks, rank):
+    """(b) BERT-base, ``tp_mesh=make_mesh({"tp": ranks})`` and
+    ``shard_tp``, LAMB over MESH_BERT_BATCH x BERT_SEQ, captured; held
+    at bucketed_holds' rule against the same model unsharded (tp mode,
+    its q/k/v separate tensors, so LAMB's per-tensor trust ratios are
+    the same ones) on rank 0.  Both start from the plain BERT's seeded
+    weights, each qkv tensor cut in thirds."""
+    import torch
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon.model_zoo import bert_base
+    from mxnet_tpu_torch.kernels import registry
+    from mxnet_tpu_torch.parallel import TrainStep, collectives, make_mesh
+    mesh = make_mesh({"tp": ranks})
+    gen = torch.Generator().manual_seed(6)
+    ids = torch.randint(0, BERT_VOCAB, (MESH_BERT_BATCH, BERT_SEQ),
+                        generator=gen).float().cuda()
+    labels = torch.randint(0, BERT_VOCAB, ids.shape,
+                           generator=gen).float().cuda()
+    plain = bert_base_net(dropout=0.0)
+    plain.initialize(device="cuda", generator=torch.Generator().manual_seed(0))
+    with autograd.pause():
+        plain(ids[:1])
+    init = _qkv_split({k: p.data()._data.detach().clone() for k, p in
+                       plain._collect_params_with_prefix().items()}, 768)
+    del plain
+
+    def tp_net(shard):
+        net = bert_base(vocab_size=BERT_VOCAB, max_length=BERT_SEQ,
+                        dropout=0.0, tp_mesh=mesh)
+        net.initialize(device="cuda")
+        with autograd.pause():
+            net(ids[:1])
+        for k, p in net._collect_params_with_prefix().items():
+            p.set_data(init[k])
+        return net.shard_tp() if shard else net
+
+    def run(net, step_mesh, counting=False):
+        tr = gluon.Trainer(net.collect_params(), "lamb", dict(BERT_LAMB))
+        step = TrainStep(net, make_mlm_loss(BERT_VOCAB), tr, mesh=step_mesh)
+        params = net._collect_params_with_prefix()
+        w0 = {k: _full(p._data, p._sharding).clone()
+              for k, p in params.items()}
+        if counting:
+            registry.reset_launches()
+            collectives.reset_counts()
+        t0 = time.perf_counter()
+        losses = [step(ids, labels) for _ in range(MESH_BERT_STEPS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        calls = collectives.counts()        # the steps' own
+        index = {id(p): i for i, p in enumerate(tr._params)}
+        states = []
+        for k, p in params.items():
+            st = tr._updater.states.get(index[id(p)])
+            if st is not None:
+                # copies: the profile below runs more steps in place
+                states += [_full(t, p._sharding).clone() for t in st]
+        out = {"losses": [float(v) for v in losses],
+               "update": {k: _full(p._data, p._sharding) - w0[k]
+                          for k, p in params.items()},
+               "states": states, "wall_s": wall,
+               "capture": step.capture_stats()}
+        if counting:
+            out["launches"] = {k: registry.launches(k) for k in (
+                "flash_attention_fwd", "flash_attention_bwd",
+                "layernorm_fwd", "lamb_phase1")}
+            out["calls"] = calls
+            out["profile"] = mesh_profile(lambda: step(ids, labels), ranks)
+        return out
+
+    got = run(tp_net(True), mesh, counting=True)
+    release_cuda()
+    launches = got["launches"]
+    res = {"ranks": ranks, "batch": MESH_BERT_BATCH, "seq": BERT_SEQ,
+           "heads_a_rank": BERT_HEADS // ranks, "losses": got["losses"],
+           "launches": launches, "calls": got["calls"],
+           "graphs": got["capture"]["graphs"],
+           "replays": got["capture"]["replays"], "profile": got["profile"],
+           "tokens_per_s": MESH_BERT_BATCH * BERT_SEQ * MESH_BERT_STEPS
+           / got["wall_s"]}
+    want_launches = {"flash_attention_fwd": BERT_LAYERS * MESH_BERT_STEPS,
+                     "flash_attention_bwd": BERT_LAYERS * MESH_BERT_STEPS,
+                     "layernorm_fwd": (2 * BERT_LAYERS + 2)
+                     * MESH_BERT_STEPS,
+                     "lamb_phase1": MESH_BERT_STEPS}
+    check(launches == want_launches, "mesh (b): launches %s != %s"
+          % (launches, want_launches))
+    ref_mesh = _single_device(ranks)
+    if rank == 0:
+        want = run(tp_net(False), ref_mesh)
+        again = run(tp_net(False), ref_mesh)
+
+        def errors(a, b):
+            # the key bias apart: its exact gradient is 0 (softmax
+            # ignores a shift of a row), so LAMB normalizes noise
+            names = sorted(k for k in b["update"]
+                           if not k.endswith("key_bias"))
+            keys = sorted(k for k in b["update"] if k.endswith("key_bias"))
+            return {"loss_rel_err": max(abs(x - y) / abs(y) for x, y in zip(
+                        a["losses"], b["losses"])),
+                    "update_rel_err": _norm_rel(
+                        [a["update"][k] for k in names],
+                        [b["update"][k] for k in names]),
+                    "states_rel_err": _norm_rel(a["states"], b["states"]),
+                    "key_bias_update_rel_err": _norm_rel(
+                        [a["update"][k] for k in keys],
+                        [b["update"][k] for k in keys])}
+        res.update(errors(got, want))
+        res["floor"] = errors(again, want)
+        res["limits"] = {k: max(MESH_BERT_LIMIT,
+                                MESH_BERT_FLOOR_FACTOR * res["floor"][k])
+                         for k in ("loss_rel_err", "update_rel_err",
+                                   "states_rel_err")}
+        for k, limit in res["limits"].items():
+            check(res[k] <= limit, "mesh (b): %s %.3g > %.3g"
+                  % (k, res[k], limit))
+    return res
+
+
+def _bert_layer(p, i, x, heads=BERT_HEADS):
+    """Layer ``i`` of a stage of BERT-base layers (post-LN, the
+    encoder cell's math) through the port's ops: the flash kernels and
+    the LayerNorm kernel on the card."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch import ops
+    b, s, d = x.shape
+    hd = d // heads
+
+    def split(t):
+        return t.reshape(b, s, heads, hd).permute(0, 2, 1, 3) \
+            .reshape(b * heads, s, hd)
+    q, k, v = F.linear(x, p["qkv_w"][i], p["qkv_b"][i]).split(d, dim=-1)
+    ctx = ops.flash_attention(split(q), split(k), split(v))
+    ctx = ctx.reshape(b, heads, s, hd).permute(0, 2, 1, 3).reshape(b, s, d)
+    x = ops.LayerNorm(x + F.linear(ctx, p["out_w"][i], p["out_b"][i]),
+                      p["ln1_g"][i], p["ln1_b"][i])
+    h = F.gelu(F.linear(x, p["ffn1_w"][i], p["ffn1_b"][i]))
+    return ops.LayerNorm(x + F.linear(h, p["ffn2_w"][i], p["ffn2_b"][i]),
+                         p["ln2_g"][i], p["ln2_b"][i])
+
+
+def _bert_layers(gen, n, d=768, hidden=3072):
+    """``n`` layers' weights, stacked on a leading layer axis (CPU)."""
+    import torch
+
+    def w(*shape, scale=0.02):
+        return torch.randn(shape, generator=gen) * scale
+    return {"qkv_w": w(n, 3 * d, d), "qkv_b": w(n, 3 * d),
+            "out_w": w(n, d, d), "out_b": w(n, d),
+            "ln1_g": 1 + w(n, d, scale=0.1), "ln1_b": w(n, d),
+            "ffn1_w": w(n, hidden, d), "ffn1_b": w(n, hidden),
+            "ffn2_w": w(n, d, hidden), "ffn2_b": w(n, d),
+            "ln2_g": 1 + w(n, d, scale=0.1), "ln2_b": w(n, d)}
+
+
+def mesh_pipeline(ranks, rank):
+    """(c) ``pipeline_apply`` over ``{"pp": ranks}``: BERT-base's 12
+    layers, 12 / ranks a stage, microbatches of MESH_PIPE_MICRO x
+    BERT_SEQ, forward and backward of sum(out ** 2), against the layers
+    applied in sequence (each microbatch's backward in turn)."""
+    import torch
+    from mxnet_tpu_torch.parallel import (collectives, make_mesh,
+                                          pipeline_apply,
+                                          shard_stacked_params,
+                                          stack_stage_params)
+    mesh = make_mesh({"pp": ranks})
+    L = BERT_LAYERS // ranks
+    M = MESH_PIPE_MICROBATCHES[ranks]
+    gen = torch.Generator().manual_seed(7)
+    layers = _bert_layers(gen, BERT_LAYERS)
+    xs = torch.randn((M, MESH_PIPE_MICRO, BERT_SEQ, 768), generator=gen) \
+        .cuda()
+    stages = [{k: v[s * L:(s + 1) * L] for k, v in layers.items()}
+              for s in range(ranks)]
+    placed = shard_stacked_params(
+        {k: v.cuda() for k, v in stack_stage_params(stages).items()}, mesh)
+    for leaf in placed.values():
+        leaf.requires_grad_(True)
+
+    def stage_fn(p, x):
+        for i in range(L):
+            x = _bert_layer(p, i, x)
+        return x
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pipeline_apply(stage_fn, placed, xs, mesh)
+    (out ** 2).sum().backward()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # the reference: every layer in sequence, on this rank
+    full = {k: v.cuda().requires_grad_(True) for k, v in layers.items()}
+    want = []
+    for m in range(M):
+        y = xs[m]
+        for i in range(BERT_LAYERS):
+            y = _bert_layer(full, i, y)
+        (y ** 2).sum().backward()
+        want.append(y.detach())
+    want = torch.stack(want)
+    mine = slice(rank * L, (rank + 1) * L)
+    errs = torch.tensor([
+        _norm_rel([out.detach()], [want]),
+        _norm_rel([placed[k].grad[0] for k in sorted(placed)],
+                  [full[k].grad[mine] for k in sorted(placed)])],
+        device="cuda", dtype=torch.float64)
+    collectives.all_reduce_(errs, mesh, "pp", op="max")
+    def fwd_bwd():
+        out = pipeline_apply(stage_fn, placed, xs, mesh)
+        (out ** 2).sum().backward()
+    res = {"ranks": ranks, "layers_a_stage": L, "microbatches": M,
+           "microbatch": [MESH_PIPE_MICRO, BERT_SEQ],
+           "out_rel_err": float(errs[0]), "grad_rel_err": float(errs[1]),
+           "fwd_bwd_ms": 1e3 * wall, "bubble": (ranks - 1) / (M + ranks - 1),
+           "profile": mesh_profile(fwd_bwd, ranks)}
+    check(res["out_rel_err"] <= MESH_PLAIN_LIMIT,
+          "mesh (c) pipeline: outputs off by %.3g" % res["out_rel_err"])
+    check(res["grad_rel_err"] <= MESH_PIPE_GRAD_LIMIT,
+          "mesh (c) pipeline: gradients off by %.3g" % res["grad_rel_err"])
+    return res
+
+
+def _attention_rows(q, k, v, row0, causal):
+    """Plain fp32 attention of the query rows ``q`` (global rows from
+    ``row0``) over all of ``k``/``v``, in query chunks."""
+    import torch
+    outs = []
+    scale = 1.0 / q.shape[-1] ** 0.5
+    cols = torch.arange(k.shape[1], device=q.device)
+    for c in range(0, q.shape[1], 1024):
+        qc = q[:, c:c + 1024]
+        s = torch.bmm(qc, k.transpose(1, 2)) * scale
+        if causal:
+            rows = row0 + c + torch.arange(qc.shape[1], device=q.device)
+            s = s.masked_fill(rows[:, None] < cols[None, :], float("-inf"))
+        outs.append(torch.bmm(torch.softmax(s, dim=-1), v))
+    return torch.cat(outs, dim=1)
+
+
+def mesh_ring(ranks, rank):
+    """(c) ``ring_attention`` over ``{"sp": ranks}`` at BERT-base's
+    heads, against plain attention of this rank's rows."""
+    import torch
+    from mxnet_tpu_torch.parallel import (collectives, make_mesh,
+                                          ring_attention)
+    mesh = make_mesh({"sp": ranks})
+    bh, seq, d = MESH_RING[ranks]
+    gen = torch.Generator().manual_seed(8)
+    q, k, v = (torch.randn((bh, seq, d), generator=gen).cuda()
+               for _ in range(3))
+    n = seq // ranks
+    sl = slice(rank * n, (rank + 1) * n)
+    res = {"ranks": ranks, "bh": bh, "seq": seq, "d": d}
+    for causal in ((False, True) if ranks == 1 else (True,)):
+        got = ring_attention(q[:, sl], k[:, sl], v[:, sl], mesh,
+                             causal=causal)
+        want = _attention_rows(q[:, sl], k, v, rank * n, causal)
+        err = torch.tensor([_norm_rel([got], [want])], device="cuda",
+                           dtype=torch.float64)
+        collectives.all_reduce_(err, mesh, "sp", op="max")
+        res["rel_err_causal" if causal else "rel_err"] = float(err)
+    res["profile"] = mesh_profile(
+        lambda: ring_attention(q[:, sl], k[:, sl], v[:, sl], mesh,
+                               causal=True), ranks)
+    for key in ("rel_err", "rel_err_causal"):
+        if key in res:
+            check(res[key] <= MESH_PLAIN_LIMIT, "mesh (c) ring: %s %.3g"
+                  % (key, res[key]))
+    return res
+
+
+def mesh_moe(ranks, rank):
+    """(c) ``MixtureOfExperts`` (8 experts, 768/3,072) over ``{"ep":
+    ranks}``: tokens replicated at one rank, split over ``ep`` at
+    more, against the layer's unsharded forward on all tokens."""
+    import torch
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.parallel import (MixtureOfExperts, collectives,
+                                          make_mesh, shard_batch)
+    mesh = make_mesh({"ep": ranks})
+    moe = MixtureOfExperts(mesh=mesh, **MESH_MOE)
+    moe.initialize(device="cuda", generator=torch.Generator().manual_seed(9))
+    x = torch.randn((MESH_MOE_TOKENS, 768),
+                    generator=torch.Generator().manual_seed(10)).cuda()
+    with autograd.pause():
+        want = moe(x)
+        moe.shard(mesh)
+        n = MESH_MOE_TOKENS // ranks
+        mine = slice(rank * n, (rank + 1) * n)
+        if ranks == 1:
+            got = moe(x)
+        else:
+            got = moe(shard_batch(x[mine], mesh, axis_name="ep"))
+            got = getattr(got, "_data", got)
+            want = want[mine]
+    err = torch.tensor([_norm_rel([got], [want])], device="cuda",
+                       dtype=torch.float64)
+    collectives.all_reduce_(err, mesh, "ep", op="max")
+    with autograd.pause():
+        xin = x if ranks == 1 else shard_batch(x[mine], mesh, axis_name="ep")
+        prof = mesh_profile(lambda: moe(xin), ranks)
+    res = {"ranks": ranks, "tokens": MESH_MOE_TOKENS,
+           "tokens_split": ranks > 1, "rel_err": float(err),
+           "profile": prof}
+    check(res["rel_err"] <= MESH_PLAIN_LIMIT, "mesh (c) MoE: off by %.3g"
+          % res["rel_err"])
+    return res
+
+
+def mesh_checkpoint(ranks, rank, root):
+    """(c) A ``TensorParallelMLP`` (768 -> 3,072 -> 768) placed over
+    ``{"tp": ranks}``, saved, restored with ``restore(sharding=)`` at
+    ``tp = min(ranks, 2)`` and whole: every shard bitwise."""
+    import torch
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.parallel import (NamedSharding, TensorParallelMLP,
+                                          make_mesh)
+    mesh = make_mesh({"tp": ranks})
+    mlp = TensorParallelMLP(3072, 768, mesh=mesh)
+    mlp.initialize(device="cuda",
+                   generator=torch.Generator().manual_seed(11))
+    with autograd.pause():
+        mlp(torch.zeros((1, 768)).cuda())
+    full = {k: p.data()._data.detach().clone()
+            for k, p in mlp._collect_params_with_prefix().items()}
+    mlp.shard(mesh)
+    specs = {k: p._sharding.spec
+             for k, p in mlp._collect_params_with_prefix().items()}
+    t0 = time.perf_counter()
+    CheckpointManager(root).save_training(1, mlp)
+    save_s = time.perf_counter() - t0
+    tp = min(ranks, 2)
+    back = make_mesh({"dp": ranks // tp, "tp": tp})
+    t0 = time.perf_counter()
+    ckpt = CheckpointManager(root).restore(
+        sharding=lambda item, key, shape: NamedSharding(back, specs[key]))
+    restore_s = time.perf_counter() - t0
+    whole = CheckpointManager(root).restore()
+    ok = all(torch.equal(
+        ckpt.items["params"][k]._data,
+        full[k][NamedSharding(back, specs[k]).local_slices(full[k].shape)])
+        and torch.equal(whole.items["params"][k]._data.cuda(), full[k])
+        for k in full)
+    res = {"saved_at_tp": ranks, "restored_at_tp": tp, "whole": True,
+           "bitwise": bool(ok), "save_s": save_s, "restore_s": restore_s,
+           "bytes": sum(t.numel() * t.element_size() for t in full.values())}
+    check(ok, "mesh (c) checkpoint: a restored shard differs")
+    return res
+
+
+def mesh_worker(out_dir, ranks=1):
+    """Phase 24's child, one rank of a world of ``ranks`` started by
+    ``python -m mxnet_tpu_torch.launch -n ranks``: (a) and (b) under the
+    host-read check, then (c); rank 0 prints the lines and writes
+    ``mesh.json`` under ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _build, _capture
+    from mxnet_tpu_torch.kernels import registry
+    from mxnet_tpu_torch.parallel import make_mesh
+    mx.distributed_init()
+    make_mesh({"dp": ranks})            # the world, NCCL on the cards
+    rank = dist.get_rank()
+    check(dist.get_world_size() == ranks, "mesh: a world of %d, not %d"
+          % (dist.get_world_size(), ranks))
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    _build.build_all()
+    # the ranks start each part together: rank 0's single-device
+    # references end a part, and the next part's collectives (its
+    # meshes' subgroups first) must not wait for it on the cards, where
+    # NCCL's watchdog bounds a wait; a gloo barrier on the host does not
+    import datetime
+    hold = dist.new_group(backend="gloo",
+                          timeout=datetime.timedelta(seconds=1800))
+    card = gpu_line()
+    out = {"card": card, "ranks": ranks, "launches": {}}
+    t0 = time.perf_counter()
+    parts = (("a", "ResNet-50 v1 NHWC fp32 SGD 0.05/0.9, TrainStep over "
+                   "dp=%d" % ranks, mesh_dp_resnet, True),
+             ("b", "BERT-base LAMB, tp=%d, 8 x 512, dropout 0" % ranks,
+              mesh_tp_bert, True),
+             ("pp", "pipeline_apply, pp=%d over 12 layers" % ranks,
+              mesh_pipeline, False),
+             ("sp", "ring_attention, sp=%d" % ranks, mesh_ring, False),
+             ("ep", "MixtureOfExperts, ep=%d" % ranks, mesh_moe, False))
+    for key, what, fn, checked in parts:
+        # every rank says where it is: a hang shows which part held it
+        print("mesh rank %d: part %s" % (rank, key), flush=True)
+        registry.reset_launches()
+        t1 = time.perf_counter()
+        with _capture.checking_syncs() if checked \
+                else contextlib.nullcontext():
+            res = fn(ranks, rank)
+        res["s"] = time.perf_counter() - t1
+        out[key] = res
+        out["launches"][key] = {k: registry.launches(k)
+                                for k in MESH_KERNELS}
+        if rank == 0:
+            print("mesh (%s) %s: %s" % (key, what, json.dumps(
+                dict(res, card=card))), flush=True)
+        release_cuda()
+        dist.barrier(group=hold)
+    res = mesh_checkpoint(ranks, rank, os.path.join(out_dir, "ckpt"))
+    out["ckpt"] = res
+    if rank == 0:
+        print("mesh (ckpt) saved at tp=%d, restored onto a mesh: %s"
+              % (ranks, json.dumps(res)), flush=True)
+    out["phase_s"] = time.perf_counter() - t0
+    if rank == 0:
+        with open(os.path.join(out_dir, "mesh.json"), "w") as f:
+            json.dump(out, f)
+    dist.barrier()
+    return 0
+
+
+def mesh4_phase():
+    """Phase 24 at four ranks, one card each (``chip_paths.py mesh4``;
+    raises with fewer than four cards)."""
+    return mesh_phase(ranks=4, timeout=1200)
+
+
+def mesh_phase(ranks=1, root=MESH_ROOT, timeout=600):
+    """Phase 24: one child world of ``ranks`` (``python -m
+    mxnet_tpu_torch.launch -n ranks``, one card a rank, NCCL), so this
+    process never joins a world; returns its results with each
+    kernel's launches by part."""
+    import torch
+    check(torch.cuda.device_count() >= ranks,
+          "mesh: %d ranks need %d cards, %d visible"
+          % (ranks, ranks, torch.cuda.device_count()))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    code = ("import sys; sys.path.insert(0, %r); import chip_smoke; "
+            "sys.exit(chip_smoke.mesh_worker(%r, %d))"
+            % (REPO_ROOT, root, ranks))
+    env = dict(os.environ)
+    if ranks > 1:
+        # a collective left waiting aborts its rank after 10 minutes
+        # (NCCL's watchdog), inside the phase's own bound
+        env.setdefault("MXNET_TPU_DIST_BARRIER_TIMEOUT_MS", "600000")
+        env.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "1")
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n",
+             str(ranks), sys.executable, "-c", code], cwd=REPO_ROOT,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        try:
+            out, _ = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            # the launcher tears its workers down on SIGINT
+            import signal
+            proc.send_signal(signal.SIGINT)
+            try:
+                out, _ = proc.communicate(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, _ = proc.communicate()
+            check(False, "mesh phase: the world ran past %d s; its last "
+                  "output:\n%s" % (timeout, out[-6000:]))
+        for line in out.splitlines():
+            if line.startswith("[0] mesh ("):
+                print(line[4:], flush=True)
+        check(proc.returncode == 0, "mesh phase: the world exited %d:\n%s"
+              % (proc.returncode, out[-6000:]))
+        with open(os.path.join(root, "mesh.json")) as f:
+            res = json.load(f)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res["wall_s"] = time.perf_counter() - t0
+    print("mesh phase (%d rank%s): %.1f s" % (ranks, "s" * (ranks > 1),
+                                              res["wall_s"]))
+    return res
+
+
 def kernel_entry(name, launches, kern, serve_launches=None, **extra):
     """One kernel's entry of the per-kernel JSON line; a kernel of the
     checkpoint-and-serve phase also gives its launches there, and
@@ -11145,6 +11871,11 @@ def main():
     release_cuda()
     with _capture.checking_syncs():
         analysis_ = analysis_phase()
+    # phase 24: meshes and in-graph collectives -- a child world of one
+    # rank on NCCL (this process joins no world); the child enters the
+    # host-read check itself for its captured steps
+    release_cuda()
+    mesh = mesh_phase()
     for entry in entries:
         name = entry["name"]
         if name in ("bn_relu_apply", "bn_relu_bwd", "paged_attention"):
@@ -11169,6 +11900,10 @@ def main():
             for part, counts in contrib["launches"].items()}
         entry["launches_numpy"] = numpy_["launches"][name]
         entry["launches_analysis"] = analysis_["launches"][name]
+        if name in MESH_KERNELS:
+            entry["launches_mesh"] = {
+                part: counts[name]
+                for part, counts in mesh["launches"].items()}
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

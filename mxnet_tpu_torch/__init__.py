@@ -93,7 +93,14 @@ It imports neither JAX nor anything of ``mxnet_tpu``.  Ported so far:
   under which Gluon blocks return ``mx.np.ndarray``), :mod:`.engine`
   (``set_bulk_size``/``bulk``, kept as controls: the port defers no
   eager op), :mod:`.runtime` (``Features``, ``env_vars``),
-  :mod:`.visualization` (``mx.viz``) and :mod:`.test_utils`.
+  :mod:`.visualization` (``mx.viz``) and :mod:`.test_utils`;
+- meshes and in-graph collectives: :mod:`.parallel` (``make_mesh`` over
+  a world of one process per card, explicit NCCL collectives on a mesh
+  axis, ``TrainStep(mesh=)`` with global-batch BatchNorm statistics,
+  Megatron tensor parallelism with ``bert_base(tp_mesh=)``, the GPipe
+  ``pipeline_apply``, ``ring_attention``, ``MixtureOfExperts``),
+  checkpoints restored onto a mesh, sharded input landing and the
+  sharding sanitizer (:mod:`.analysis.sharding`).
 
 ``import mxnet_tpu_torch as mx`` binds ``mx.parallel``, ``mx.serving``,
 ``mx.kv``/``mx.kvstore``, ``mx.recordio``, ``mx.io``, ``mx.image``,
@@ -142,6 +149,11 @@ from . import numpy as np
 from . import numpy_extension as npx
 from . import visualization as viz
 visualization = viz
+
+# MXNET_TPU_TRANSFER_GUARD=disallow: a host synchronisation on the card
+# inside the step raises (analysis.sharding.install_transfer_guard)
+from .analysis.sharding import install_transfer_guard as _install_guard
+_install_guard()
 
 __version__ = "0.1.0"
 

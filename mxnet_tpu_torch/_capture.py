@@ -215,6 +215,9 @@ class GraphOwner:
         self.build_s = 0.0       # warm-ups and captures, in seconds
         self.pool_bytes = 0
         self.replays = 0
+        # agree(err): called after each capture with its error (None
+        # when it succeeded); a mesh's step raises there for a peer's
+        self.agree = None
 
     @property
     def cuda(self):
@@ -358,6 +361,10 @@ class GraphOwner:
                         graph.capture_end()
                     except Exception as e:  # the body's error comes first
                         err = err or e
+            if self.agree is not None:
+                # the ranks of a mesh agree on the outcome before any
+                # replays: a peer's failure raises here, named
+                self.agree(err)
             if err is not None:
                 raise MXNetError(
                     "%s: CUDA-graph capture of %s failed (no eager "

@@ -26,8 +26,11 @@ behind one pluggable rule framework (:mod:`.core`).
   (``MXNET_TPU_NUMERICS_CHECK=1``) and the leak sentinel
   (``MXNET_TPU_MEMORY_WATCH=1``).
 - :func:`to_sarif` / :func:`write_sarif` -- SARIF 2.1.0 export.
-- the sharding sanitizer's names (:mod:`.sharding`) raise until ROADMAP
-  item 9b brings meshes and in-graph collectives.
+- the sharding sanitizer (:mod:`.sharding`): the mesh-spec and
+  donation rules, the collective contract of each walked step
+  (``collective_contract``/``save_contract``/``diff_contract``, rule
+  ``collective-drift``, ``MXNET_TPU_SHARD_CHECK``) and the transfer
+  guard (``MXNET_TPU_TRANSFER_GUARD``).
 
 CLI: ``python -m mxnet_tpu_torch.analysis`` (``--self`` lints the port's
 tree).  Add a rule with ``@mxnet_tpu_torch.analysis.rule(...)``.

@@ -10,8 +10,8 @@ Incremental mode: ``--changed`` lints only files ``git diff`` names
 (worktree vs HEAD, falling back to the last commit), and ``--baseline
 snapshot.json`` suppresses findings recorded by a previous
 ``--write-baseline`` run, while ``--self`` (the port's package) remains
-the authoritative full gate.  The JAX CLI's ``--collective-diff``
-comes with the sharding sanitizer (ROADMAP item 9b).
+the authoritative full gate.  ``--collective-diff`` diffs two
+collective contracts of walked steps (the sharding sanitizer's gate).
 """
 from __future__ import annotations
 
@@ -65,6 +65,11 @@ def _build_parser():
     ap.add_argument("--retrace", action="store_true",
                     help="audit op-table params against the "
                          "capture keys")
+    ap.add_argument("--collective-diff", nargs=2,
+                    metavar=("BASELINE", "CURRENT"),
+                    help="diff two collective-contract JSONs (written "
+                         "by analysis.sharding.save_contract) and fail "
+                         "on unblessed collectives of a walked step")
     ap.add_argument("--perf-diff", nargs=2,
                     metavar=("BASELINE", "CURRENT"),
                     help="diff two perf-audit JSONs (written by "
@@ -166,7 +171,7 @@ def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
     # importing the passes registers their rules
     from . import (concurrency, graph_check, memory, numerics, perf,
-                   retrace, trace_lint)
+                   retrace, sharding, trace_lint)
 
     if args.list_rules:
         print(_list_rules())
@@ -205,6 +210,10 @@ def main(argv=None) -> int:
             conc_paths = [p for p in SELF_PATHS if os.path.exists(p)]
         diags.extend(concurrency.audit_lock_order(
             conc_paths, ignore=ignore, report_files=report_files))
+        # mesh-axis declarations span files the same way lock-order
+        # edges do: scan the whole tree, report into the scoped set
+        diags.extend(sharding.audit_sharding(
+            conc_paths, ignore=ignore, report_files=report_files))
 
     for gpath in args.graph:
         from ..symbol import load as sym_load
@@ -223,6 +232,18 @@ def main(argv=None) -> int:
 
     if run_retrace:
         diags.extend(d for d in retrace.audit_retrace()
+                     if d.rule not in ignore)
+
+    if args.collective_diff:
+        base_path, cur_path = args.collective_diff
+        try:
+            base = sharding.load_contract(base_path)
+            cur = sharding.load_contract(cur_path)
+        except (OSError, ValueError, KeyError) as e:
+            print("mxlint: cannot read collective contract: %s" % e,
+                  file=sys.stderr)
+            return 2
+        diags.extend(d for d in sharding.diff_contract(base, cur)
                      if d.rule not in ignore)
 
     if args.perf_diff:
@@ -262,7 +283,7 @@ def main(argv=None) -> int:
                      if d.rule not in ignore)
 
     if not paths and not args.graph and not run_retrace \
-            and not args.changed \
+            and not args.changed and not args.collective_diff \
             and not args.perf_diff and not args.numerics_diff \
             and not args.memory_diff:
         _build_parser().print_usage()

@@ -534,13 +534,15 @@ class CheckpointManager:
         None (None if there is none), or exactly ``step`` (raising
         CheckpointError if it fails verification).  Arrays come back as
         NDArrays on the host, a sharded step's reassembled
-        (:func:`.sharded.restore_sharded`).  ``sharding`` (placement
-        onto a mesh) waits for ROADMAP item 9b and raises."""
-        if sharding is not None:
-            raise CheckpointError(
-                "restore(sharding=...): placing a restored step onto a "
-                "mesh waits for the SPMD half of the multi-device slice "
-                "(ROADMAP item 9b)")
+        (:func:`.sharded.restore_sharded`).
+
+        ``sharding`` maps the restored arrays onto the *current* mesh: a
+        callable ``(item, key, shape) -> NamedSharding`` (or None for
+        the host), a ``{(item, key): NamedSharding}`` dict or one
+        :class:`~mxnet_tpu_torch.parallel.NamedSharding` for every
+        array.  Each rank then holds its shard of each full array, on
+        the mesh's device -- how a job resumes on another topology than
+        it saved from (a step saved at ``tp=4`` restored at ``tp=2``)."""
         self.wait_until_finished()
         t0 = time.perf_counter()
         if step is None:
@@ -560,11 +562,14 @@ class CheckpointManager:
         if any(e.get("kind") == "shard"
                for e in manifest["files"].values()):
             from . import sharded
-            items, _nbytes = sharded.restore_sharded(dirpath, manifest)
+            items, _nbytes = sharded.restore_sharded(dirpath, manifest,
+                                                     sharding=sharding)
         else:
             items = {entry.get("item", fname):
                      read_item(dirpath, fname, entry)
                      for fname, entry in sorted(manifest["files"].items())}
+            if sharding is not None:
+                items = _apply_sharding(items, sharding)
         if _telemetry._ENABLED:
             _telemetry.hooks.checkpoint(
                 "restore",
@@ -607,6 +612,45 @@ class CheckpointManager:
 
     def close(self):
         self.wait_until_finished()
+
+
+def _sharding_for(sharding, item, key, shape):
+    if callable(sharding):
+        return sharding(item, key, shape)
+    if isinstance(sharding, dict):
+        return sharding.get((item, key))
+    return sharding
+
+
+def _placed(value, sharding):
+    """This rank's shard of the full array ``value`` under ``sharding``
+    (None: ``value`` as it is), an NDArray on the mesh's device."""
+    from ..ndarray import NDArray
+    from ..parallel.mesh import shard_tensor
+    if sharding is None:
+        return value
+    data = value._data if isinstance(value, NDArray) else value
+    return NDArray(shard_tensor(data.to(sharding.mesh.device), sharding))
+
+
+def _apply_sharding(items, sharding):
+    """Place every array of the dict-valued items onto the mesh."""
+    from ..parallel.mesh import NamedSharding
+    if not (callable(sharding) or isinstance(sharding, (dict,
+                                                        NamedSharding))):
+        raise CheckpointError(
+            "restore(sharding=%r): give a NamedSharding, a {(item, key): "
+            "NamedSharding} dict or a callable (item, key, shape) -> "
+            "NamedSharding" % (sharding,))
+    out = {}
+    for name, value in items.items():
+        if not isinstance(value, dict):
+            out[name] = value
+            continue
+        out[name] = {k: _placed(v, _sharding_for(sharding, name, k,
+                                                 tuple(v.shape)))
+                     for k, v in value.items()}
+    return out
 
 
 def _load_block_params(block, params, ctx=None):

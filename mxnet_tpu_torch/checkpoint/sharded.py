@@ -6,14 +6,16 @@ other's step:
 
 - every process writes ``<item>.shard<rank>.params`` plus a
   ``<item>.shard<rank>.json`` index mapping each stored entry to its
-  ``(key, global_shape, dtype, slices)``.  In the port every parameter
-  is replicated (data parallelism: one full copy a rank), and only the
-  ``replica_id == 0`` copy is stored, rank 0's: the other ranks write
-  empty shard files, which record that they reached the ``written``
-  gate.  So a saved step holds rank 0's BatchNorm running statistics,
-  which differ per rank.  Each file lands through a pid-suffixed temp
-  + rename, so a killed rank leaves ``*.tmp`` crumbs, never a
-  plausible-looking partial shard;
+  ``(key, global_shape, dtype, slices)``.  An array placed on a mesh
+  (:mod:`mxnet_tpu_torch.parallel`: a tensor-parallel shard) is stored
+  by the ranks that hold its ``replica_id == 0`` copy of each shard
+  (coordinate 0 on every mesh axis the array is not split over); any
+  other array is replicated, and only rank 0's copy is stored: the
+  other ranks may write empty shard files, which record that they
+  reached the ``written`` gate.  So a ``dist_sync`` step holds rank 0's
+  BatchNorm running statistics, which differ per rank.  Each file
+  lands through a pid-suffixed temp + rename, so a killed rank leaves
+  ``*.tmp`` crumbs, never a plausible-looking partial shard;
 - all processes rendezvous at three **attributed barriers**
   (:func:`~mxnet_tpu_torch.distributed.barrier`): ``stage`` after the
   staging dir exists, ``written`` after every rank's shards are
@@ -32,8 +34,9 @@ other's step:
 - restore reads every shard file and reassembles each parameter into
   its full array on the host (the port's restored arrays come back on
   the host; ``restore_training`` copies each onto its parameter's
-  device).  Restoring onto a mesh (``sharding=``) waits for the SPMD
-  half of the multi-device slice (ROADMAP item 9b) and raises.
+  device).  With ``sharding=`` each rank places its shard of each
+  reassembled array onto the current mesh, whatever the mesh it was
+  saved from.
 
 Chaos fail points cover every dangerous spot under the JAX names: each
 barrier (``checkpoint.sharded.barrier.<tag>``), the per-rank shard
@@ -52,7 +55,6 @@ import numpy as np
 
 from .. import chaos as _chaos
 from .. import telemetry as _telemetry
-from ..base import MXNetError
 from . import core as _core
 
 __all__ = ["save_sharded", "restore_sharded", "sweep_shared_staging"]
@@ -116,14 +118,26 @@ def sweep_shared_staging(root):
 
 def _local_shards(value, rank):
     """``(global_shape, dtype name, [(index, tensor), ...])`` of what
-    this process stores of one replicated array: the whole array on
-    rank 0 (its ``replica_id == 0`` copy), nothing elsewhere."""
+    this process stores of one array: of an array placed on a mesh, its
+    shard where this rank holds the ``replica_id == 0`` copy of it; of
+    any other (replicated) array, the whole array on rank 0."""
     import torch
     data = getattr(value, "_data", value)
     if not isinstance(data, torch.Tensor):
         data = torch.from_numpy(np.ascontiguousarray(np.asarray(data)))
-    shape = tuple(data.shape)
     name = str(data.dtype).rpartition(".")[2]
+    sh = getattr(data, "_mx_sharding", None)
+    if sh is not None:
+        shape = tuple(data._mx_global_shape)
+        mesh = sh.mesh
+        split = sh.spec.axes()
+        if any(mesh.axis_index(a) for a in mesh.axis_names
+               if a not in split):
+            return shape, name, []
+        index = [[s.start or 0, d if s.stop is None else s.stop]
+                 for s, d in zip(sh.local_slices(shape), shape)]
+        return shape, name, [(index, data.detach().cpu())]
+    shape = tuple(data.shape)
     if rank != 0:
         return shape, name, []
     return shape, name, [([[0, d] for d in shape], data.detach().cpu())]
@@ -305,16 +319,12 @@ def _abort_save(exc, step, staging, nprocs, rank, gate, rank_failure):
 def restore_sharded(dirpath, manifest, sharding=None):
     """Reassemble a sharded step into full arrays, as NDArrays on the
     host (64-bit arrays become 32-bit, as every restore makes them).
-    Returns ``(items, nbytes_read)``.  ``sharding`` (placement onto a
-    mesh) raises: the mesh is the SPMD half of the multi-device slice,
-    ROADMAP item 9b."""
+    Returns ``(items, nbytes_read)``.  ``sharding`` follows
+    :meth:`CheckpointManager.restore`: each rank keeps its shard of
+    each full array under it, on the mesh's device."""
     import torch
     from ..ndarray import ndarray as nd
     from ..ops.table import canonical
-    if sharding is not None:
-        raise MXNetError("restore(sharding=...): placing a restored step "
-                         "onto a mesh waits for the SPMD half of the "
-                         "multi-device slice (ROADMAP item 9b)")
     files = manifest["files"]
     items = {}
     nbytes = 0
@@ -345,4 +355,6 @@ def restore_sharded(dirpath, manifest, sharding=None):
                         full[region].shape)
         items[item] = {key: nd.NDArray(canonical(t))
                        for key, t in sorted(assembled.items())}
+    if sharding is not None:
+        items = _core._apply_sharding(items, sharding)
     return items, nbytes

@@ -31,8 +31,14 @@ one:
 The landing device is ``ctx`` (a context, a ``torch.device`` or its
 name), the card by default; without CUDA that default raises
 :class:`~..base.MXNetError`.  A feed lands on the host only when
-``ctx=mx.cpu()`` asks for it, and then without the ring.  ``mesh=`` and
-``sharding=`` raise until ROADMAP item 9b ports the mesh.  With
+``ctx=mx.cpu()`` asks for it, and then without the ring.  With
+``mesh=`` (batch axis ``batch_axis`` split over ``axis_name``) or
+``sharding=`` (a :class:`~mxnet_tpu_torch.parallel.NamedSharding` for
+every leaf) the feed lands on the mesh's device and each leaf is this
+process's local slice of the global batch
+(:func:`~mxnet_tpu_torch.parallel.stage_process_local`), annotated as
+``TrainStep(mesh=)`` consumes it; the pinned ring and side stream are
+those of a ``ctx`` feed.  With
 telemetry on, the feed writes the JAX package's ``feed.*`` instruments
 (producer busy and bytes a batch, consumer wait, the epoch's overlap
 share), which :meth:`DeviceFeed.stats` and
@@ -79,10 +85,15 @@ def _feed_compact(compact):
     return _env.get("MXNET_TPU_FEED_COMPACT")
 
 
-def _no_mesh(what):
-    raise MXNetError(
-        "%s: mesh=/sharding= landing is not ported yet (ROADMAP item 9b, "
-        "the mesh and SPMD path); pass ctx= for one device" % what)
+def check_placement(what, mesh, sharding):
+    """Raise unless ``mesh`` is a :class:`~..parallel.Mesh` or None and
+    ``sharding`` a :class:`~..parallel.NamedSharding` or None."""
+    from ..parallel.mesh import Mesh, NamedSharding
+    for val, kind in ((mesh, Mesh), (sharding, NamedSharding)):
+        if val is not None and not isinstance(val, kind):
+            raise MXNetError(
+                "%s: mesh= takes a mxnet_tpu_torch.parallel.Mesh and "
+                "sharding= a NamedSharding, got %r" % (what, val))
 
 
 class DeviceBatch:
@@ -196,19 +207,25 @@ class DeviceFeed:
     applies ``transform`` to the data component, and returns a
     :class:`DeviceBatch`.  ``reset()`` restarts the producer (resetting
     a resettable source) for the next epoch; ``close()`` joins the
-    thread.  ``batch_axis`` and ``axis_name`` belong to the mesh route
-    and are accepted for the JAX package's signature.
+    thread.  One of ``ctx``/``mesh``/``sharding`` picks the landing
+    placement; ``batch_axis`` and ``axis_name`` say how ``mesh`` splits
+    each leaf.
     """
 
     def __init__(self, source, ctx=None, mesh=None, sharding=None,
                  transform=None, depth=None, compact=None, batch_axis=0,
                  axis_name="dp"):
-        if mesh is not None or sharding is not None:
-            _no_mesh("DeviceFeed")
         self._source = source
         self._depth = _feed_depth(depth)
         self._compact = _feed_compact(compact)
         self.transform = transform
+        self._mesh = mesh
+        self._sharding = sharding
+        self._batch_axis = batch_axis
+        self._axis_name = axis_name
+        if mesh is not None or sharding is not None:
+            check_placement("DeviceFeed", mesh, sharding)
+            ctx = (sharding.mesh if sharding is not None else mesh).device
         self._device = resolve_device(ctx)
         self._cuda = self._device.type == "cuda"
         self._side = torch.cuda.Stream(self._device) if self._cuda else None
@@ -449,7 +466,21 @@ class DeviceFeed:
         if self.transform is not None:
             arrays[0] = self.transform(
                 arrays[0], _random.generator(arrays[0].device))
+        if self._mesh is not None or self._sharding is not None:
+            arrays = [self._placed(a) for a in arrays]
         return DeviceBatch(arrays, pad=pad, raw=staged)
+
+    def _placed(self, t):
+        """A landed leaf as this process's slice of the global batch."""
+        from ..parallel.mesh import (NamedSharding, PartitionSpec,
+                                     stage_process_local)
+        sh = self._sharding
+        if sh is None:
+            spec = [None] * t.dim()
+            if t.dim():
+                spec[self._batch_axis] = self._axis_name
+            sh = NamedSharding(self._mesh, PartitionSpec(*spec))
+        return stage_process_local(t, sh)
 
     def _finish_epoch(self):
         th, self._thread = self._thread, None

@@ -6,10 +6,15 @@ One call wires a worker into a world from the launcher's environment
 ``MXNET_TPU_PROC_ID``; ``python -m mxnet_tpu_torch.launch`` and the
 :class:`~mxnet_tpu_torch.supervisor.Supervisor` set them):
 :func:`distributed_init` starts a ``TCPStore`` (rank 0 hosts it, as
-process 0 hosts JAX's coordination service) and a gloo process group
-over it, both bounded by ``MXNET_TPU_DIST_BARRIER_TIMEOUT_MS``.
+process 0 hosts JAX's coordination service) and a process group over
+it, both bounded by ``MXNET_TPU_DIST_BARRIER_TIMEOUT_MS``.  The group's
+backend is ``"cpu:gloo,cuda:nccl"`` where NCCL is built (``"gloo"``
+otherwise): a mesh's in-graph collectives
+(:mod:`mxnet_tpu_torch.parallel.collectives`) run on CUDA tensors
+through NCCL, whose communicator is made lazily, at the first CUDA
+collective.
 
-There is one transport.  Collectives (:func:`host_allreduce`,
+The host transport is gloo.  Collectives (:func:`host_allreduce`,
 :func:`host_broadcast` and their ``_bucketed`` forms) are gloo
 all-gathers and broadcasts of host copies: every rank gathers every
 rank's bytes and sums them in rank order, so every rank gets the same
@@ -116,7 +121,7 @@ def distributed_init(coordinator_address=None, num_processes=None,
     """Join the multi-process world from arguments or the launcher's
     environment (MXNET_TPU_COORDINATOR / _NUM_PROCS / _PROC_ID): rank 0
     hosts a ``TCPStore`` at the coordinator's address, every rank
-    connects and joins a gloo process group over it.  Both wait at most
+    connects and joins a gloo+NCCL process group over it.  Both wait at most
     ``MXNET_TPU_DIST_BARRIER_TIMEOUT_MS``.  No-op (returning False)
     when single-process or already initialized."""
     global _world
@@ -137,7 +142,10 @@ def distributed_init(coordinator_address=None, num_processes=None,
         store = dist.TCPStore(host, int(port), num_processes,
                               is_master=process_id == 0, timeout=timeout,
                               wait_for_workers=False)
-        dist.init_process_group("gloo", store=store, rank=process_id,
+        # CPU tensors (the host collectives) on gloo, CUDA tensors (a
+        # mesh's collectives) on NCCL, whose communicator is made at the
+        # first CUDA collective: ranks sharing one card never make one
+        dist.init_process_group(_backend(), store=store, rank=process_id,
                                 world_size=num_processes, timeout=timeout)
     except (RuntimeError, ValueError) as e:
         raise RankFailure(
@@ -148,6 +156,11 @@ def distributed_init(coordinator_address=None, num_processes=None,
                     process_id, timeout)
     atexit.register(_shutdown)
     return True
+
+
+def _backend():
+    import torch.distributed as dist
+    return "cpu:gloo,cuda:nccl" if dist.is_nccl_available() else "gloo"
 
 
 def world():

@@ -3,7 +3,8 @@
 Counterpart of ``mxnet_tpu/env.py``, holding only the variables the port
 reads: checkpoints, serving and the always-on loop, the numerics
 sentinel, the device feed, the executor's graph check, telemetry,
-tracing, chaos, the concurrency sanitizer, the ops plane (profiling, the
+tracing, chaos, the concurrency sanitizer, the sharding sanitizer, the
+ops plane (profiling, the
 goodput ledger, the leak sentinel, the flight recorder, the obs server
 and the supervisor), the multi-process world (barriers, leases, store
 retries), the fleet plane and the engine's controls. Names, defaults
@@ -271,6 +272,25 @@ _VARS = [
            "the combined report.json are written at interpreter exit "
            "(and by mx.profiling.save_reports()); 'mxprof report' and "
            "'mxprof diff' read them."),
+    EnvVar("MXNET_TPU_SHARD_CHECK", bool, False,
+           "'1' arms the sharding sanitizer's compiled layer "
+           "(mxnet_tpu_torch.analysis.sharding): every TrainStep key's "
+           "and hybridized block's warm-up is walked (via the "
+           "mx.profiling capture surface, which this flag also "
+           "enables) so analysis.sharding.collective_contract()/"
+           "save_contract() can give each step's collectives by kind, "
+           "count and bytes, and 'mxlint --collective-diff' can diff "
+           "them against a committed baseline -- failing, with the step "
+           "and collective kind named, when a mismatched PartitionSpec "
+           "turns into extra collective traffic."),
+    EnvVar("MXNET_TPU_TRANSFER_GUARD", str, "",
+           "When set, applied at import to torch's CUDA sync-debug mode "
+           "(torch.cuda.set_sync_debug_mode): one of allow | log | "
+           "disallow | log_explicit | disallow_explicit.  'disallow' "
+           "makes a host synchronisation on the card (a .item(), a copy "
+           "from pageable host memory inside the step) raise instead of "
+           "silently stalling the pipeline; 'log' warns.  Scoped "
+           "version: analysis.sharding.transfer_guard(mode)."),
     EnvVar("MXNET_TPU_OBS_BLACKBOX", str, "",
            "Path of the crash-safe flight recorder (obs.flight).  When "
            "set, an mmap'd ring of the most recent telemetry records "

@@ -202,11 +202,10 @@ class Executor:
         if self._group2ctx:
             if is_train:
                 raise MXNetError(
-                    "group2ctx training is model parallelism, which the "
+                    "group2ctx training is not supported by the "
                     "compatibility path (per-op device placement, forward "
-                    "only) does not do; tensor and pipeline parallelism "
-                    "(mxnet_tpu_torch.parallel) is not ported yet "
-                    "(ROADMAP Queue 1 item 9b)")
+                    "only); use mxnet_tpu_torch.parallel tensor/pipeline "
+                    "parallelism for model-parallel training")
             return self._forward_grouped()
         if is_train:
             outs, grads = self._run("train", self._train_walk)

@@ -38,7 +38,9 @@ def params_from_numpy(net, arrays, prefix=None):
     shape mismatch; a deferred parameter takes the array's shape.
     Structural names (each with a ``.``, or exactly the net's own
     structural names, as a recurrent layer's ``l0_i2h_weight``) are
-    matched by structure."""
+    matched by structure.  A parameter placed on a mesh
+    (:mod:`mxnet_tpu_torch.parallel`) takes this rank's shard of its
+    full array, under its ``PartitionSpec``."""
     structural = net._collect_params_with_prefix()
     if arrays and (all("." in name for name in arrays)
                    or set(arrays) == set(structural)):

@@ -16,8 +16,9 @@ Two routes, as in the JAX package:
   consumer's compute, optionally expanded there by
   ``device_transform``; iteration yields landed NDArrays (a
   :class:`~...dataio.DeviceBatch` when a batch has several parts).
-  ``mesh=`` and ``sharding=`` raise until ROADMAP item 9b ports the
-  mesh.
+  With ``mesh=`` or ``sharding=`` instead, the feed lands each batch on
+  the mesh's device as this process's slice of the global batch
+  (the feed's mesh route).
 
 With telemetry on, each wait for a batch records the JAX package's
 ``data.wait_time`` timer (``hooks.dataloader_wait``).
@@ -84,13 +85,14 @@ class DataLoader:
                  sharding=None, device_transform=None, feed_depth=None):
         self._dataset = dataset
         self._timeout = timeout
-        if mesh is not None or sharding is not None:
-            from ...dataio.feed import _no_mesh
-            _no_mesh("DataLoader")
         self._feed_kw = None
         self._feed = None
-        if ctx is not None:
-            self._feed_kw = dict(ctx=ctx, transform=device_transform,
+        if mesh is not None or sharding is not None:
+            from ...dataio.feed import check_placement
+            check_placement("DataLoader", mesh, sharding)
+        if ctx is not None or mesh is not None or sharding is not None:
+            self._feed_kw = dict(ctx=ctx, mesh=mesh, sharding=sharding,
+                                 transform=device_transform,
                                  depth=feed_depth)
             if batchify_fn is None:
                 batchify_fn = host_batchify_fn

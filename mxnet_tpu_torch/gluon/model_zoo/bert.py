@@ -8,12 +8,13 @@ Parameter names are the JAX package's, so
 BERT across by name.  Without ``valid_mask`` the encoder's attention runs
 the flash kernels unmasked; with it, the masked flash kernels at every
 layer (outside training, or at dropout 0).  ``use_flash=False`` runs
-the plain attention math instead.  Tensor parallelism (``tp_mesh``,
-``shard_tp``) is not ported yet (ROADMAP item 9b).
+the plain attention math instead.  ``tp_mesh`` builds the encoder in
+tensor-parallel mode and ``shard_tp`` places it Megatron-style over the
+mesh's ``tp`` axis (:mod:`mxnet_tpu_torch.gluon.nn.transformer`):
+embeddings, pooler and heads replicated.
 """
 from __future__ import annotations
 
-from ...base import MXNetError
 from ..block import HybridBlock
 from ..nn.basic_layers import Dense, Dropout, Embedding, LayerNorm
 from ..nn.transformer import TransformerEncoder
@@ -32,12 +33,11 @@ class BERTModel(HybridBlock):
     def __init__(self, vocab_size=30522, units=768, hidden_size=3072,
                  num_layers=12, num_heads=12, max_length=512,
                  type_vocab_size=2, dropout=0.1, use_flash=None,
-                 tp_mesh=None, dtype="float32", **kwargs):
+                 tp_mesh=None, tp_axis="tp", dtype="float32", **kwargs):
         super().__init__(**kwargs)
-        if tp_mesh is not None:
-            raise MXNetError("tensor-parallel BERT (tp_mesh) is not ported "
-                             "yet (ROADMAP item 9b)")
         self._units = units
+        self._tp_mesh = tp_mesh
+        self._tp_axis = tp_axis
         with self.name_scope():
             self.word_embed = Embedding(vocab_size, units, dtype=dtype)
             self.token_type_embed = Embedding(type_vocab_size, units,
@@ -45,7 +45,7 @@ class BERTModel(HybridBlock):
             self.encoder = TransformerEncoder(
                 units, hidden_size, num_layers, num_heads,
                 max_length=max_length, dropout=dropout, use_flash=use_flash,
-                dtype=dtype)
+                tp_mode=tp_mesh is not None, dtype=dtype)
             # pooler over [CLS] for next-sentence prediction
             self.pooler = Dense(units, activation="tanh", flatten=False,
                                 in_units=units, dtype=dtype)
@@ -61,8 +61,26 @@ class BERTModel(HybridBlock):
             self.embed_drop = Dropout(dropout)
 
     def shard_tp(self, mesh=None, axis=None):
-        raise MXNetError("tensor-parallel BERT (shard_tp) is not ported "
-                         "yet (ROADMAP item 9b)")
+        """Megatron-shard the encoder over the ``tp`` mesh axis
+        (attention q/k/v column-parallel, out row-parallel, FFN
+        column+row): two all-reduces per layer forward.  Embeddings,
+        pooler and heads stay replicated (rank 0's values).  Call after
+        ``initialize`` (deferred params take the placement when they
+        are materialized)."""
+        mesh = mesh if mesh is not None else self._tp_mesh
+        axis = axis or self._tp_axis
+        if mesh is None:
+            raise ValueError("shard_tp needs a mesh (pass tp_mesh= at "
+                             "construction or mesh= here)")
+        from ...parallel.mesh import PartitionSpec as P
+        from ...parallel.tensor_parallel import place_param
+        self.encoder.shard_tp(mesh, axis)
+        for block in (self.word_embed, self.token_type_embed, self.pooler,
+                      self.nsp_classifier, self.mlm_transform, self.mlm_ln,
+                      self.mlm_decoder):
+            for prm in block.collect_params().values():
+                place_param(prm, mesh, P())
+        return self
 
     def hybrid_forward(self, F, token_ids, token_types=None, valid_mask=None):
         x = self.word_embed(token_ids)

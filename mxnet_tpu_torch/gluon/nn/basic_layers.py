@@ -131,9 +131,17 @@ class Dense(HybridBlock):
 
     def infer_shape(self, x):
         in_units = math.prod(x.shape[1:]) if self._flatten else x.shape[-1]
+        if self.weight._sharding is not None:
+            from ...parallel.tensor_parallel import dense_in_units
+            in_units = dense_in_units(self, in_units)
         self.weight.shape = (self._units, in_units)
 
     def hybrid_forward(self, F, x, weight, bias=None):
+        sh = self.weight._sharding
+        if sh is not None and not sh.is_replicated:
+            # column- or row-parallel over a mesh axis
+            from ...parallel.tensor_parallel import dense_forward
+            return dense_forward(F, self, x, weight, bias)
         out = F.FullyConnected(x, weight, bias, num_hidden=self._units,
                                no_bias=bias is None, flatten=self._flatten)
         if self._act:
@@ -145,6 +153,10 @@ class BatchNorm(HybridBlock):
     """Batch normalization with MXNet's running statistics, which the
     layer updates in place after each training forward (a captured
     graph keeps its running statistics accumulating)."""
+
+    # the batch axis a data-parallel TrainStep sets for its step's
+    # forward (a collectives.BatchSync), else None
+    _batch_sync = None
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
                  scale=True, use_global_stats=False, beta_initializer="zeros",
@@ -189,6 +201,8 @@ class BatchNorm(HybridBlock):
         if not symbolic:
             # a graph's node takes the mode of the walk that runs it
             kwargs["training"] = autograd.is_training()
+            if self._batch_sync is not None:
+                kwargs["sync"] = self._batch_sync
         return kwargs
 
     def _rebind_stats(self, new_mean, new_var):
@@ -230,10 +244,12 @@ class BatchNorm(HybridBlock):
 
 
 class SyncBatchNorm(BatchNorm):
-    """Cross-device BatchNorm (reference: ``contrib.nn.SyncBatchNorm``).
-    In one process it is ``BatchNorm``; ``num_devices`` is kept for the
-    API until the SPMD half of the multi-device slice (ROADMAP item
-    9b)."""
+    """Cross-device synchronized BN (reference:
+    ``contrib.nn.SyncBatchNorm``).  Inside a data-parallel
+    ``TrainStep(mesh=)`` every BatchNorm's batch statistics reduce over
+    the batch axis, as the JAX package's do over a sharded batch axis,
+    so this is the same op; kept as a distinct class for API parity
+    (``num_devices`` is accepted and unused)."""
 
     def __init__(self, in_channels=0, num_devices=None, **kwargs):
         super().__init__(in_channels=in_channels, **kwargs)
@@ -279,6 +295,10 @@ class Embedding(HybridBlock):
                 init=weight_initializer, allow_deferred_init=True)
 
     def hybrid_forward(self, F, x, weight):
+        sh = self.weight._sharding
+        if sh is not None and not sh.is_replicated:
+            from ...parallel.tensor_parallel import embedding_forward
+            return embedding_forward(F, self, x, weight)
         return F.Embedding(x, weight)
 
 

@@ -70,7 +70,16 @@ def _one_ctx(ctx):
 
 
 class Parameter:
-    """A weight or auxiliary tensor of a Block."""
+    """A weight or auxiliary tensor of a Block.
+
+    On a mesh (:mod:`mxnet_tpu_torch.parallel`) ``_sharding`` is its
+    :class:`~mxnet_tpu_torch.parallel.NamedSharding`: the tensor is this
+    rank's shard of the value (the whole value when replicated), the
+    declared ``shape`` the global one.  A full-shaped value given to
+    :meth:`set_data` is cut to the shard."""
+
+    _sharding = None    # NamedSharding on a mesh, else None
+    _placed = False     # the value was placed on the mesh's ranks
 
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
                  lr_mult=1.0, wd_mult=1.0, init=None,
@@ -137,6 +146,11 @@ class Parameter:
         ini = initializer.create(init or self.init or default_init)
         data = torch.empty(self._shape, dtype=self.dtype, device=device)
         ini(self.name, data, generator)
+        if self._sharding is not None:
+            # rank 0's value, then this rank's shard of it
+            from ..parallel.tensor_parallel import place_value
+            data = place_value(data, self._sharding)
+            self._placed = True
         self._data = self._wrap(data)
         self._deferred_init = None
 
@@ -152,9 +166,13 @@ class Parameter:
     def _wrap(self, tensor):
         if self._grad_req == "null" or not tensor.is_floating_point():
             # an integer tensor (an int8 op's weight) takes no gradient
-            return tensor
-        p = torch.nn.Parameter(tensor, requires_grad=True)
-        p._mx_grad_req = self._grad_req    # read by autograd.backward
+            p = tensor
+        else:
+            p = torch.nn.Parameter(tensor, requires_grad=True)
+            p._mx_grad_req = self._grad_req    # read by autograd.backward
+        if self._sharding is not None:
+            p._mx_sharding = self._sharding
+            p._mx_global_shape = self._shape
         return p
 
     # -- access --------------------------------------------------------
@@ -240,6 +258,7 @@ class Parameter:
                 raise MXNetError("parameter %s not initialized" % self.name)
             self.shape = data.shape
             self._finish_deferred_init()
+        data = self._shard_of(data)
         if tuple(data.shape) != tuple(self._data.shape):
             raise MXNetError("set_data: %s has shape %s, got %s"
                              % (self.name, tuple(self._data.shape),
@@ -248,6 +267,16 @@ class Parameter:
             self._data = data.detach().to(self._data.device, self.dtype)
         else:
             self._data.copy_(data)
+
+    def _shard_of(self, data):
+        """This rank's shard of a full-shaped value of a sharded
+        parameter (``data`` itself otherwise)."""
+        sh = self._sharding
+        if sh is None or sh.is_replicated \
+                or tuple(data.shape) != tuple(self._shape) \
+                or tuple(data.shape) == tuple(self._data.shape):
+            return data
+        return data[sh.local_slices(data.shape)]
 
     @torch.no_grad()
     def _update_aux(self, value):
@@ -275,6 +304,9 @@ class Parameter:
         if self._data is not None:
             self.set_data(data)
             return
+        self._shape = tuple(data.shape)
+        if self._sharding is not None and not self._sharding.is_replicated:
+            data = data[self._sharding.local_slices(data.shape)]
         if isinstance(ctx, (list, tuple)):
             ctx = ctx[0]
         if ctx is not None:
@@ -285,7 +317,6 @@ class Parameter:
             device = current_context().torch_device()
         if cast_dtype:
             self.dtype = data.dtype
-        self._shape = tuple(data.shape)
         self._deferred_init = None
         self._data = self._wrap(data.detach().to(device, self.dtype,
                                                  copy=True))

@@ -8,7 +8,8 @@ context.  With ``ctx=`` it returns a :class:`~..dataio.DeviceFeed`: the
 batch stays uint8 through decode, crop and mirror, lands on the card
 through the feed's pinned ring, and the cast and mean/std
 normalization run there (:class:`~..dataio.DeviceTransform`).
-``mesh=`` and ``sharding=`` raise until ROADMAP item 9b ports the mesh.
+``mesh=``/``sharding=`` land each batch as this process's slice of the
+global batch on the mesh's device (the feed's mesh route).
 ``num_parts``/``part_index`` shard the records as in the JAX package.
 """
 from __future__ import annotations
@@ -315,17 +316,17 @@ def ImageRecordIter(path_imgrec=None, data_shape=None, batch_size=128,
     With ``ctx`` the pipeline returns a :class:`~..dataio.DeviceFeed`
     instead of a host prefetcher: decode+crop+mirror stay host-side on
     uint8, the batch ships compact to the card, and the cast and
-    mean/std normalization run there after landing.  ``mesh=`` and
-    ``sharding=`` raise :class:`MXNetError` (ROADMAP item 9b)."""
+    mean/std normalization run there after landing.  ``mesh=`` or
+    ``sharding=`` land it on a mesh's device instead, each batch this
+    process's slice of the global batch (:class:`~..dataio.DeviceFeed`)."""
     from ..image import CastAug, CreateAugmenter, ImageIter
 
-    if mesh is not None or sharding is not None:
-        from ..dataio.feed import _no_mesh
-        _no_mesh("ImageRecordIter")
     aug = CreateAugmenter(data_shape, resize=resize, rand_crop=rand_crop,
                           rand_mirror=rand_mirror)
     if ctx is not None or mesh is not None or sharding is not None:
         from ..dataio import DeviceFeed, DeviceTransform
+        from ..dataio.feed import check_placement
+        check_placement("ImageRecordIter", mesh, sharding)
         aug = [a for a in aug if not isinstance(a, CastAug)]
         inner = ImageIter(batch_size, data_shape, path_imgrec=path_imgrec,
                           aug_list=aug, shuffle=shuffle,

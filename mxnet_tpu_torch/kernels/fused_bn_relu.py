@@ -50,10 +50,14 @@ register_kernel(KernelSpec(
 
 def fused_bn_relu(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
                   momentum=0.9, fix_gamma=True, use_global_stats=False,
-                  axis=-1, training=False):
+                  axis=-1, training=False, sync=None):
     """Fused BatchNorm+ReLU: ``(out, new_moving_mean, new_moving_var)``,
     the contract of the ``BatchNorm`` op plus the relu epilogue.
-    ``axis`` must be the last axis of ``data``."""
+    ``axis`` must be the last axis of ``data``.  ``sync``, the batch
+    axis of a data-parallel step
+    (:class:`mxnet_tpu_torch.parallel.collectives.BatchSync`), makes the
+    training statistics (forward moments, backward sums) the global
+    batch's."""
     if axis not in (-1, data.dim() - 1):
         raise MXNetError("fused_bn_relu is channels-last: axis %d of a "
                          "%d-d input is not the last" % (axis, data.dim()))
@@ -62,6 +66,7 @@ def fused_bn_relu(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
     g = torch.ones_like(gamma) if fix_gamma else gamma
     gf = g.float()
     batch_stats = bool(training) and not use_global_stats
+    sync = sync if batch_stats else None
     with torch.no_grad():
         if batch_stats:
             # shifted one-pass moments: the two reductions are
@@ -71,6 +76,8 @@ def fused_bn_relu(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
             y = x2d.float() - shift[None, :]
             mean_y = y.mean(dim=0)
             m2 = (y * y).mean(dim=0)
+            if sync is not None:
+                mean_y, m2 = sync.moments(mean_y, m2)
             var = torch.clamp_min(m2 - mean_y * mean_y, 0.0)
             mean = mean_y + shift
             # EMA blended in fp32, stored back at the aux dtype
@@ -83,5 +90,5 @@ def fused_bn_relu(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
             var = moving_var.float().clone()
             new_mean, new_var = moving_mean, moving_var
     out2d = BNReluApply.apply(x2d, gf, beta, mean, var, float(eps),
-                              batch_stats)
+                              batch_stats, sync)
     return out2d.reshape(data.shape), new_mean, new_var

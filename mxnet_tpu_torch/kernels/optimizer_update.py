@@ -18,7 +18,11 @@ into one contiguous buffer.
   written into each tensor from views of the flat results.
 
 Per-tensor semantics are those of the per-parameter optimizers
-(``lars_update`` / ``sgd_mom_update``, ``lamb_update_phase1/2``).
+(``lars_update`` / ``sgd_mom_update``, ``lamb_update_phase1/2``).  A
+caller whose tensors are shards of larger parameters passes
+``shard_norms``, a function that makes each tensor's weight and update
+norms the whole parameter's (``TrainStep`` on a tensor-parallel mesh),
+so each shard takes the trust ratio of its whole parameter.
 
 The per-step scalars -- each tensor's lr and wd, ``rescale_grad`` and
 LAMB's bias corrections -- may be given as device tensors (the
@@ -366,7 +370,7 @@ def _keep_if(finite, new, old):
 
 def lars_bucket_update(ws, gs, ms, lrs, wds, skips, momentum=0.9,
                        eta=0.001, epsilon=1e-9, rescale=1.0, clip=None,
-                       finite=None):
+                       finite=None, shard_norms=None):
     """Bucket-flattened LARS over parameter lists (weights, gradients,
     momenta; per-tensor ``lrs``/``wds``, numbers or fp32 ``(P,)``
     tensors; ``skips`` the per-tensor flags of the plain-momentum path;
@@ -374,17 +378,19 @@ def lars_bucket_update(ws, gs, ms, lrs, wds, skips, momentum=0.9,
     new weights and momenta into ``ws`` and ``ms`` in place (the old ones
     where ``finite`` is false) and returns them; when an input requires a
     gradient (grad mode on), returns new lists instead, differentiable
-    w.r.t. every input."""
+    w.r.t. every input.  ``shard_norms(tensors, *norms)``, when given,
+    turns per-tensor norms into those of the whole parameters."""
     if not ws:
         return ws, ms
     diff = _differentiating(ws, gs, ms, lrs, wds, rescale)
     with torch.set_grad_enabled(diff):
         return _lars_bucket(ws, gs, ms, lrs, wds, skips, momentum, eta,
-                            epsilon, rescale, clip, finite, diff)
+                            epsilon, rescale, clip, finite, shard_norms,
+                            diff)
 
 
 def _lars_bucket(ws, gs, ms, lrs, wds, skips, momentum, eta, epsilon,
-                 rescale, clip, finite, diff):
+                 rescale, clip, finite, shard_norms, diff):
     clipv = float(clip) if clip is not None and clip > 0 else 0.0
     new_ws, new_ms = list(ws), list(ms)
     dev0 = ws[0].device
@@ -407,6 +413,8 @@ def _lars_bucket(ws, gs, ms, lrs, wds, skips, momentum, eta, epsilon,
                     gr = torch.clamp(gr, -clipv, clipv)
                 gn.append(l2_norm(gr))
             gn = torch.stack(gn)
+            if shard_norms is not None:
+                wn, gn = shard_norms([ws[idxs[k]] for k in live], wn, gn)
             wd_l = _take(wds, [idxs[k] for k in live])
             trust = torch.where((wn > 0) & (gn > 0),
                                 eta * wn / (gn + wd_l * wn + epsilon), 1.0)
@@ -444,7 +452,8 @@ def lamb_bias_corrections(t, beta1=0.9, beta2=0.999, bias_correction=True):
 def lamb_bucket_update(ws, gs, means, variances, lrs, wds, t, beta1=0.9,
                        beta2=0.999, epsilon=1e-6, bias_correction=True,
                        lower_bound=None, upper_bound=None, rescale=1.0,
-                       clip=None, finite=None, corrections=None):
+                       clip=None, finite=None, corrections=None,
+                       shard_norms=None):
     """Bucket-flattened LAMB over parameter lists (weights, gradients,
     first and second moments; per-tensor ``lrs``/``wds``, numbers or
     fp32 ``(P,)`` tensors; ``t`` the step count for bias correction,
@@ -453,7 +462,8 @@ def lamb_bucket_update(ws, gs, means, variances, lrs, wds, t, beta1=0.9,
     Writes the new weights and moments into ``ws``, ``means`` and
     ``variances`` in place (the old ones where ``finite`` is false) and
     returns them; when an input requires a gradient (grad mode on),
-    returns new lists instead, differentiable w.r.t. every input."""
+    returns new lists instead, differentiable w.r.t. every input.
+    ``shard_norms`` as for :func:`lars_bucket_update`."""
     if not ws:
         return ws, means, variances
     diff = _differentiating(ws, gs, means, variances, lrs, wds, rescale,
@@ -462,12 +472,12 @@ def lamb_bucket_update(ws, gs, means, variances, lrs, wds, t, beta1=0.9,
         return _lamb_bucket(ws, gs, means, variances, lrs, wds, t, beta1,
                             beta2, epsilon, bias_correction, lower_bound,
                             upper_bound, rescale, clip, finite, corrections,
-                            diff)
+                            shard_norms, diff)
 
 
 def _lamb_bucket(ws, gs, means, variances, lrs, wds, t, beta1, beta2,
                  epsilon, bias_correction, lower_bound, upper_bound,
-                 rescale, clip, finite, corrections, diff):
+                 rescale, clip, finite, corrections, shard_norms, diff):
     new = [list(ws), list(means), list(variances)]
     dev0 = ws[0].device
     lrs, wds = _vector(lrs, dev0), _vector(wds, dev0)
@@ -489,6 +499,8 @@ def _lamb_bucket(ws, gs, means, variances, lrs, wds, t, beta1, beta2,
         # per-tensor trust ratio (lamb_update_phase2 semantics)
         r1 = _segment_norms(W, shapes)
         r2 = _segment_norms(gw, shapes)
+        if shard_norms is not None:
+            r1, r2 = shard_norms([ws[i] for i in idxs], r1, r2)
         if lower_bound is not None and lower_bound > 0:
             r1 = torch.clamp_min(r1, lower_bound)
         if upper_bound is not None and upper_bound > 0:
@@ -520,7 +532,7 @@ def bucket_supported(opt) -> bool:
 
 
 @torch.no_grad()
-def bucket_update(opt, items, feed=None, finite=None):
+def bucket_update(opt, items, feed=None, finite=None, shard_norms=None):
     """The bucketed update ``TrainStep`` runs: ``items`` is ``[(index,
     weight, grad, state)]``; ``opt``'s update counts must already have
     advanced for this step.  Updates weights and states in place (under
@@ -532,7 +544,8 @@ def bucket_update(opt, items, feed=None, finite=None):
     ``(1,)``, ``corrections`` LAMB's ``(bc1, bc2)``): the JAX step's
     traced ``lrs, wds, rescale, t``.  Without it they are read from the
     optimizer on the host.  ``finite`` keeps the old weights and states
-    where it is false."""
+    where it is false; ``shard_norms`` as for
+    :func:`lars_bucket_update`."""
     if not bucket_supported(opt):
         raise MXNetError("no bucketed update for %s" % type(opt).__name__)
     from ..optimizer import LARS
@@ -550,7 +563,7 @@ def bucket_update(opt, items, feed=None, finite=None):
             ws, gs, [s for _i, _w, _g, s in items], lrs, wds,
             [opt._skip_lars(i) for i in idxs], momentum=opt.momentum,
             eta=opt.eta, epsilon=opt.epsilon, rescale=rescale,
-            clip=opt.clip_gradient, finite=finite)
+            clip=opt.clip_gradient, finite=finite, shard_norms=shard_norms)
         return
     t = opt._index_update_count[idxs[0]] if idxs else 0
     lamb_bucket_update(
@@ -560,4 +573,5 @@ def bucket_update(opt, items, feed=None, finite=None):
         bias_correction=opt.bias_correction, lower_bound=opt.lower_bound,
         upper_bound=opt.upper_bound, rescale=rescale,
         clip=opt.clip_gradient, finite=finite,
-        corrections=None if feed is None else feed["corrections"])
+        corrections=None if feed is None else feed["corrections"],
+        shard_norms=shard_norms)

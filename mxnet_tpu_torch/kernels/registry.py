@@ -47,6 +47,7 @@ from ..base import MXNetError
 
 __all__ = ["KernelSpec", "register_kernel", "get", "list_kernels",
            "dispatch", "count_launch", "counting_into", "add_launches",
+           "register_counter", "count_captured",
            "launch_dtypes", "launches", "reset_launches"]
 
 
@@ -207,12 +208,41 @@ def counting_into(tally: Counter):
             _tally = None
 
 
+# counters of launches that are not hand kernels (the mesh's
+# collectives): name -> add(detail, n), called at each replay
+_counters = {}
+
+
+def register_counter(name, add) -> None:
+    """Route a captured graph's tally entries ``(name, detail)`` to
+    ``add(detail, n)`` at each replay (``n`` the entry's count)."""
+    _counters[name] = add  # mxlint: disable=unbounded-shape-cache
+
+
+def count_captured(name, detail) -> bool:
+    """Record one launch of ``name`` (a :func:`register_counter` name)
+    into the tally of the graph being captured on this stream; whether
+    it was (False outside a capture: the caller counts it itself)."""
+    with _count_lock:
+        if _tally is None:
+            return False
+        import torch
+        if not torch.cuda.is_current_stream_capturing():
+            return False
+        _tally[(name, detail)] += 1
+        return True
+
+
 def add_launches(tally) -> None:
     """Add a captured graph's tally to the counters: called at each
     replay, which launches every kernel the graph recorded."""
     with _count_lock:
         for (name, dtype), n in tally.items():
-            spec = KERNELS[name]
+            spec = KERNELS.get(name)
+            if spec is None:
+                add = _counters[name]
+                add(dtype, n)
+                continue
             spec.launches += n
             if dtype is not None:
                 spec.dtypes[dtype] += n

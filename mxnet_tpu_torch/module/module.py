@@ -47,10 +47,10 @@ def _one_context(context):
     if isinstance(context, (list, tuple)):
         if len(context) != 1:
             raise MXNetError(
-                "Module(context=%r): one device a module; a module over "
-                "several devices is model or data parallelism across "
-                "cards, not ported yet (ROADMAP Queue 1 item 9b); use "
-                "kvstore='dist_sync' over processes" % (context,))
+                "Module(context=%r): one device a module, as in the JAX "
+                "package; multi-device data parallelism is the "
+                "mxnet_tpu_torch.parallel mesh path (TrainStep(mesh=)), "
+                "or kvstore='dist_sync' over processes" % (context,))
         context = context[0]
     if not isinstance(context, Context):
         raise MXNetError("Module: context must be a Context, got %r"

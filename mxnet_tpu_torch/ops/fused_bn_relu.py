@@ -155,10 +155,15 @@ class BNReluApply(torch.autograd.Function):
     channels-last ``(rows, C)`` view, with the backward of the training
     statistics folded into ``dx`` (port of ``_bn_relu_apply`` and its
     custom VJP).  ``mean``/``var`` are fp32 and detached; ``gamma`` is
-    the effective fp32 scale (ones when ``fix_gamma``)."""
+    the effective fp32 scale (ones when ``fix_gamma``).  ``sync``, the
+    batch axis of a data-parallel step or None: the statistics are the
+    global batch's, so the backward all-reduces its two sums over the
+    axis (``gamma``'s and ``beta``'s gradients stay this rank's, summed
+    with the other gradients)."""
 
     @staticmethod
-    def forward(ctx, x2d, gamma, beta, mean, var, eps, batch_stats):
+    def forward(ctx, x2d, gamma, beta, mean, var, eps, batch_stats,
+                sync=None):
         inv = torch.rsqrt(var + eps)
         scale = gamma * inv
         offset = beta.float() - mean * scale
@@ -166,6 +171,7 @@ class BNReluApply(torch.autograd.Function):
                        offset.contiguous())
         ctx.save_for_backward(x2d, y2d, gamma, mean, inv)
         ctx.batch_stats = batch_stats
+        ctx.sync = sync
         ctx.beta_dtype = beta.dtype
         return y2d
 
@@ -178,7 +184,12 @@ class BNReluApply(torch.autograd.Function):
         sum_dyr = dyr.sum(dim=0)
         sum_dyr_xhat = (dyr * xhat).sum(dim=0)
         m = x2d.shape[0]
-        if ctx.batch_stats:
+        if ctx.batch_stats and ctx.sync is not None:
+            sums = ctx.sync.sum_(torch.cat([sum_dyr, sum_dyr_xhat]))
+            m *= ctx.sync.size
+            c = sum_dyr.shape[0]
+            c1, c2 = sums[:c] / m, sums[c:] / m
+        elif ctx.batch_stats:
             c1, c2 = sum_dyr / m, sum_dyr_xhat / m
         else:
             c1 = c2 = torch.zeros_like(sum_dyr)
@@ -191,4 +202,4 @@ class BNReluApply(torch.autograd.Function):
         dgamma = sum_dyr_xhat if ctx.needs_input_grad[1] else None
         dbeta = sum_dyr.to(ctx.beta_dtype) if ctx.needs_input_grad[2] \
             else None
-        return dx, dgamma, dbeta, None, None, None, None
+        return dx, dgamma, dbeta, None, None, None, None, None

@@ -149,12 +149,15 @@ _POOL = {1: (F.max_pool1d, F.avg_pool1d), 2: (F.max_pool2d, F.avg_pool2d),
 
 def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
               momentum=0.9, fix_gamma=True, use_global_stats=False, axis=1,
-              output_mean_var=False, training=False):
+              output_mean_var=False, training=False, sync=None):
     """Batch normalization with MXNet's statistics; returns ``(out,
     new_moving_mean, new_moving_var)``.  Statistics accumulate in fp32
     whatever the activation dtype.  In training the gradient flows
     through the batch mean and variance (only the moving-mean shift is
-    detached)."""
+    detached).  ``sync``, the batch axis of a data-parallel step
+    (:class:`mxnet_tpu_torch.parallel.collectives.BatchSync`), makes the
+    batch moments the global batch's: all-reduced over the axis, their
+    cotangent too."""
     axis = axis % data.dim()
     g = torch.ones_like(gamma) if fix_gamma else gamma
     reduce_dims = tuple(i for i in range(data.dim()) if i != axis)
@@ -167,6 +170,10 @@ def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
         y = xf - c
         mean_y = y.mean(dim=reduce_dims)
         m2 = (y * y).mean(dim=reduce_dims)
+        if sync is not None:
+            # the global batch's moments: additive across ranks, being
+            # centred on the (replicated) moving mean
+            mean_y, m2 = sync.moments(mean_y, m2, differentiable=True)
         var = torch.clamp_min(m2 - mean_y * mean_y, 0.0)
         mean = mean_y + c.reshape(mean_y.shape)
         with torch.no_grad():
@@ -188,23 +195,26 @@ def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
 
 def fused_batch_norm_relu(data, gamma, beta, moving_mean, moving_var,
                           eps=1e-5, momentum=0.9, fix_gamma=True,
-                          use_global_stats=False, axis=1, training=False):
+                          use_global_stats=False, axis=1, training=False,
+                          sync=None):
     """Fused BatchNorm+ReLU: ``(out, new_moving_mean, new_moving_var)``.
     Over the last axis it runs the kernel tier
     (:func:`mxnet_tpu_torch.kernels.fused_bn_relu.fused_bn_relu`); over
     another axis it is ``relu(BatchNorm(...))`` and launches no kernel,
-    as the JAX op falls back to its reference there."""
+    as the JAX op falls back to its reference there.  ``sync`` as for
+    :func:`BatchNorm`."""
     if axis % data.dim() != data.dim() - 1:
         out, new_mean, new_var = BatchNorm(
             data, gamma, beta, moving_mean, moving_var, eps=eps,
             momentum=momentum, fix_gamma=fix_gamma,
-            use_global_stats=use_global_stats, axis=axis, training=training)
+            use_global_stats=use_global_stats, axis=axis, training=training,
+            sync=sync)
         return torch.relu(out), new_mean, new_var
     from ..kernels.fused_bn_relu import fused_bn_relu
     return fused_bn_relu(data, gamma, beta, moving_mean, moving_var,
                          eps=eps, momentum=momentum, fix_gamma=fix_gamma,
                          use_global_stats=use_global_stats, axis=axis,
-                         training=training)
+                         training=training, sync=sync)
 
 
 _ACTIVATIONS = {

@@ -1,6 +1,7 @@
 """Training steps: forward, loss, backward and the optimizer update of
 every parameter (counterpart of
-``mxnet_tpu/parallel/data_parallel.py :: TrainStep``, ``mesh=None``).
+``mxnet_tpu/parallel/data_parallel.py``: ``TrainStep``,
+``replicate_block``, ``shard_batch``, ``split_and_load``).
 
 ``step = TrainStep(net, loss_fn, trainer)`` then ``loss = step(x, y)``,
 or ``losses = step.run_steps(xs, ys)`` for K steps over batches stacked
@@ -73,6 +74,35 @@ step.  The contract is the JAX step's:
   flops and bytes, walking one eager step then if the key was not
   profiled (its weights, optimizer state and random state restored
   after).
+
+With ``mesh=`` (a :class:`~.mesh.Mesh` with the ``axis_name`` axis,
+``"dp"`` by default; the world's global mesh by default in a world of
+more than one process, as in the JAX package) the step is one program
+of every rank, equal to the single-device step on the *global* batch:
+
+- the parameters are placed on the mesh (:func:`replicate_block`: rank
+  0's values broadcast; parameters already placed by a tensor-parallel
+  layer keep their shard); each rank's batch is its process-local slice
+  of the global batch (:func:`~.mesh.stage_process_local`), and
+  ``batch_size`` and the returned mean loss are the global batch's;
+- inside the step every BatchNorm site all-reduces its forward moments
+  and the two sums of its backward over ``axis_name`` (the step hands
+  each ``BatchNorm`` layer a :class:`~.collectives.BatchSync` for its
+  forward), as the JAX step's batch statistics reduce over the sharded
+  batch axis, running statistics included;
+- the gradients are all-reduced over ``axis_name`` in dtype buckets of
+  at most ``BUCKET_BYTES`` (the local loss sum riding in the first
+  fp32 bucket), before the finite check and the update; where a
+  parameter is sharded over another axis (tensor parallelism) the
+  finite flag is reduced over the mesh too, and a bucketed LAMB or
+  LARS sums the trust-ratio norms of a sharded parameter over its
+  shards (:func:`~.tensor_parallel.shard_summed_norms`);
+- on the card the collectives are NCCL calls recorded into the step's
+  graph with the rest; every rank warms up and captures the same keys
+  in the same order, and after a capture the ranks agree on its outcome
+  over the host transport before the first replay, so a capture that
+  failed on one rank raises :class:`~..distributed.RankFailure` naming
+  it on every rank instead of leaving the others waiting in a replay.
 """
 from __future__ import annotations
 
@@ -93,8 +123,137 @@ from ..base import MXNetError
 from ..kernels.optimizer_update import (bucket_supported, bucket_update,
                                         lamb_bias_corrections)
 from ..ndarray import NDArray
+from . import collectives as _coll
+from .mesh import (Mesh, NamedSharding, PartitionSpec, annotate,
+                   global_mesh, stage_process_local)
+from .tensor_parallel import shard_summed_norms
 
-__all__ = ["TrainStep"]
+__all__ = ["TrainStep", "replicate_block", "shard_batch", "split_and_load"]
+
+# the gradient all-reduce's bucket size (the fp32 bytes of one call)
+BUCKET_BYTES = 25 << 20
+
+
+def _replicated(mesh):
+    return NamedSharding(mesh, PartitionSpec())
+
+
+def _broadcast_param(t, mesh):
+    """Overwrite ``t`` in place with rank 0's value over the mesh."""
+    with torch.no_grad():
+        buf = t.detach()
+        if not buf.is_contiguous():
+            buf = buf.contiguous()
+        _coll.broadcast_(buf, mesh, tuple(mesh.axis_names))
+        if buf.data_ptr() != t.data_ptr():
+            t.detach().copy_(buf)
+
+
+def replicate_block(block_or_params, mesh):
+    """Place every parameter replicated on the mesh: each initialized
+    one takes rank 0's value (one broadcast over the mesh, as the
+    ``Trainer``'s initial broadcast does), a deferred one records the
+    placement and takes it when it is materialized.  A parameter a
+    tensor-parallel layer already sharded keeps its shard.  The
+    reference analog is ``ParameterDict.reset_ctx`` to a list of
+    contexts.  Where the JAX package's partitioner sums a replicated
+    parameter's gradient over a sharded batch in any differentiated
+    program, the port sums it in ``TrainStep``: a ``backward()`` of
+    one's own leaves each rank its batch's gradients (sum them over the
+    batch axis with :func:`~.collectives.all_reduce_`)."""
+    params = block_or_params
+    if hasattr(params, "collect_params"):
+        params = params.collect_params()
+    sh = _replicated(mesh)
+    for p in params.values():
+        have = p._sharding
+        if have is not None and have.mesh is mesh:
+            if not have.is_replicated or p._placed:
+                continue
+        p._sharding = sh
+        if p._data is None:
+            continue
+        _broadcast_param(p._data, mesh)
+        annotate(p._data, sh, p._data.shape)
+        p._placed = True
+    return block_or_params
+
+
+def _block_device(block):
+    """The device of the block's parameters."""
+    for p in block.collect_params().values():
+        if p._data is not None:
+            return p._data.device
+        if p._deferred_init is not None:
+            return p._deferred_init[1]
+    raise MXNetError("TrainStep: initialize the block first")
+
+
+def _blocks(block):
+    """``block`` and every block under it."""
+    out, todo = [], [block]
+    while todo:
+        b = todo.pop()
+        out.append(b)
+        todo.extend(b._children.values())
+    return out
+
+
+def _sharded_over(param, axis):
+    """Whether the parameter is split over the mesh axis ``axis`` (its
+    gradient is then its own shard's, not a partial sum)."""
+    sh = param._sharding
+    return sh is not None and axis in sh.spec.axes()
+
+
+def _batch_sharding(mesh, ndim, batch_axis=0, axis_name="dp"):
+    spec = [None] * ndim
+    spec[batch_axis] = axis_name
+    return NamedSharding(mesh, PartitionSpec(*spec))
+
+
+def shard_batch(data, mesh, batch_axis=0, axis_name="dp"):
+    """This process's LOCAL batch as its slice of the global batch,
+    sharded over the mesh's ``axis_name`` (the JAX package's multi-host
+    contract, :func:`~.mesh.stage_process_local`): an NDArray over the
+    local tensor on the mesh's device, annotated with the sharding and
+    the global shape."""
+    x = data._data if isinstance(data, NDArray) else data
+    if not isinstance(x, torch.Tensor):
+        import numpy as np
+        x = torch.as_tensor(np.asarray(x))
+    sh = _batch_sharding(mesh, x.dim(), batch_axis, axis_name)
+    return NDArray(stage_process_local(x, sh))
+
+
+def split_and_load(data, ctx_list=None, mesh=None, batch_axis=0,
+                   even_split=True):
+    """Reference: ``gluon.utils.split_and_load``.  With ``mesh``, a
+    one-element list holding this process's batch sharded over the
+    mesh (:func:`shard_batch`); with ``ctx_list``, per-context slices
+    (API compatibility)."""
+    if mesh is not None:
+        return [shard_batch(data, mesh, batch_axis)]
+    if not ctx_list:
+        raise MXNetError("split_and_load needs ctx_list or mesh")
+    from ..ndarray import array as nd_array
+    x = data._data if isinstance(data, NDArray) else data
+    if not isinstance(x, torch.Tensor):
+        import numpy as np
+        x = np.asarray(x)
+    n = len(ctx_list)
+    size = x.shape[batch_axis]
+    if even_split and size % n:
+        raise MXNetError("batch size %d not divisible by %d contexts"
+                         % (size, n))
+    step = size // n
+    out = []
+    for i, ctx in enumerate(ctx_list):
+        idx = [slice(None)] * len(x.shape)
+        idx[batch_axis] = slice(i * step, (i + 1) * step if i < n - 1
+                                else size)
+        out.append(nd_array(x[tuple(idx)], ctx=ctx))
+    return out
 
 # The op params whose per-step values reach a captured step with no new
 # capture: the optimizer reads lr, wd, rescale_grad and the update count
@@ -236,16 +395,31 @@ class _StepScalars:
 
 
 class TrainStep:
-    def __init__(self, block, loss_fn, trainer, mesh=None, batch_axis=0):
-        if mesh is not None:
-            raise MXNetError("TrainStep runs on one device: meshes, the "
-                             "SPMD half of the multi-device slice (ROADMAP "
-                             "item 9b), are not ported; multi-process data "
-                             "parallelism is Trainer(kvstore='dist_sync')")
+    def __init__(self, block, loss_fn, trainer, mesh=None, batch_axis=0,
+                 axis_name="dp"):
+        from .. import distributed as _dist
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise MXNetError("TrainStep: mesh must be a "
+                             "mxnet_tpu_torch.parallel.Mesh (make_mesh), "
+                             "got %r" % (mesh,))
+        if mesh is None and _dist.world()[0] > 1:
+            # a multi-process world: ONE program over the global mesh,
+            # gradients all-reduced inside the step (as the JAX step),
+            # on the device the block's parameters live on
+            mesh = global_mesh(device=_block_device(block))
         self._block = block
         self._loss_fn = loss_fn
         self._trainer = trainer
         self._batch_axis = batch_axis
+        self._mesh = mesh
+        self._axis_name = axis_name
+        # the batch axis; a mesh without it (tensor parallelism alone)
+        # gives every rank the whole batch
+        self._dp_axis = axis_name if mesh is not None \
+            and axis_name in mesh.shape else None
+        self._buckets = 0          # gradient buckets of the last step
+        if mesh is not None:
+            replicate_block(block, mesh)
         self._owner = None
         self._scalars = None
         self._finite = None
@@ -267,13 +441,16 @@ class TrainStep:
         return self._owner.stats() if self._owner is not None \
             else {"keys": []}
 
+    @property
+    def _dp(self):
+        """The ranks the batch is split over (1 without a mesh)."""
+        return self._mesh.axis_size(self._dp_axis) \
+            if self._dp_axis is not None else 1
+
     def _device(self):
-        for p in self._block.collect_params().values():
-            if p._data is not None:
-                return p._data.device
-            if p._deferred_init is not None:
-                return p._deferred_init[1]
-        raise MXNetError("TrainStep: initialize the block first")
+        if self._mesh is not None:
+            return self._mesh.device
+        return _block_device(self._block)
 
     def _stage(self, t, device):
         if isinstance(t, NDArray):
@@ -291,6 +468,10 @@ class TrainStep:
                for p in self._block.collect_params().values()):
             with autograd.pause():
                 self._block(first_batch)
+        if self._mesh is not None:
+            # parameters materialized just now, or initialized after the
+            # step was made, take rank 0's value
+            replicate_block(self._block, self._mesh)
         for p in tr._params:
             if p._data is not None and p._data.dtype != p.dtype:
                 p.cast(p.dtype)
@@ -312,7 +493,7 @@ class TrainStep:
         for i in idxs:
             opt._update_count(i)
         bs = batch_size if batch_size is not None \
-            else data.shape[self._batch_axis]
+            else data.shape[self._batch_axis] * self._dp
         opt.rescale_grad = tr._scale / bs / loss_scale
         t = opt._index_update_count[idxs[0]] if idxs else 0
         bcs = lamb_bias_corrections(t, opt.beta1, opt.beta2,
@@ -334,18 +515,37 @@ class TrainStep:
         opt = tr._optimizer
         for _i, p in live:
             p._data.grad = None
-        with autograd.record():
-            loss = self._loss_fn(self._block(data), label)
-        total = loss.sum()
-        (total * sc.loss_scale if scaled else total).backward()
+        with self._batch_synced():
+            with autograd.record():
+                loss = self._loss_fn(self._block(data), label)
+            total = loss.sum()
+            (total * sc.loss_scale if scaled else total).backward()
         grads = [p._data.grad if p._data.grad is not None
                  else torch.zeros_like(p._data) for _i, p in live]
+        if self._dp_axis is None:
+            mean_loss = loss.detach().mean()
+        else:
+            mean_loss = self._all_reduce_grads(
+                [g for g, (_i, p) in zip(grads, live)
+                 if not _sharded_over(p, self._dp_axis)], loss.detach())
         finite = all_finite(grads)
+        sharded = [p._sharding.mesh for _i, p in live
+                   if p._sharding is not None
+                   and not p._sharding.is_replicated]
+        if sharded:
+            # sharded gradients differ across ranks: every rank takes
+            # (or skips) the update together
+            mesh = sharded[0]
+            finite = _coll.all_reduce_(
+                finite.to(torch.float32).reshape(1), mesh,
+                tuple(mesh.axis_names), op="min")[0] > 0
         states = tr._updater.states
         if bucket_supported(opt):
             bucket_update(opt, [(i, p._data, g, states[i])
                                 for (i, p), g in zip(live, grads)],
-                          feed=sc.feed(), finite=finite)
+                          feed=sc.feed(), finite=finite,
+                          shard_norms=shard_summed_norms if sharded
+                          else None)
         else:
             pos = {i: k for k, (i, _p) in enumerate(live)}
             with _optimizer_reads(opt, lambda i: sc.lrs[pos[i]],
@@ -359,7 +559,63 @@ class TrainStep:
                         t.copy_(torch.where(finite, t, o))
         for _i, p in live:
             p._data.grad = None
-        return loss.detach().mean(), finite
+        return mean_loss, finite
+
+    @contextlib.contextmanager
+    def _batch_synced(self):
+        """On a mesh with the batch axis, every ``BatchNorm`` layer of
+        the block reduces its batch statistics over it for the step's
+        forward (and the backward it records)."""
+        if self._dp_axis is None:
+            yield
+            return
+        from ..gluon.nn.basic_layers import BatchNorm
+        sync = _coll.BatchSync(self._mesh, self._dp_axis)
+        layers = [b for b in _blocks(self._block)
+                  if isinstance(b, BatchNorm)]
+        for b in layers:
+            b._batch_sync = sync
+        try:
+            yield
+        finally:
+            for b in layers:
+                b._batch_sync = None
+
+    def _all_reduce_grads(self, grads, loss):
+        """Sum ``grads`` over the batch axis in place, in dtype buckets of
+        at most ``BUCKET_BYTES``; this rank's loss sum rides in the first
+        fp32 bucket.  Returns the global batch's mean loss."""
+        mesh, axis = self._mesh, self._dp_axis
+        loss_sum = loss.float().sum().reshape(1)
+        by_dtype = {}
+        for g in grads:
+            by_dtype.setdefault(g.dtype, []).append(g)
+        rode = False
+        self._buckets = 0
+        for dtype, gs in by_dtype.items():
+            cap = max(1, BUCKET_BYTES // gs[0].element_size())
+            bucket, size = [], 0
+            for g in gs + [None]:
+                if g is not None and (not bucket or size + g.numel() <= cap):
+                    bucket.append(g)
+                    size += g.numel()
+                    continue
+                extra = []
+                if dtype == torch.float32 and not rode:
+                    extra, rode = [loss_sum], True
+                flat = torch.cat([b.reshape(-1) for b in bucket] + extra)
+                _coll.all_reduce_(flat, mesh, axis)
+                self._buckets += 1
+                if extra:
+                    loss_sum = flat[-1:]
+                off = 0
+                for b in bucket:
+                    b.copy_(flat[off:off + b.numel()].view_as(b))
+                    off += b.numel()
+                bucket, size = ([g], g.numel()) if g is not None else ([], 0)
+        if not rode:
+            loss_sum = _coll.all_reduce_(loss_sum, mesh, axis)
+        return loss_sum[0] / (loss.numel() * self._dp)
 
     def _watched(self, live):
         """The tensors a captured step reads that a user may rebind:
@@ -381,6 +637,8 @@ class TrainStep:
             self._owner = _capture.GraphOwner(
                 "TrainStep(%s)" % type(self._block).__name__, data.device,
                 site="train_step")
+            if self._mesh is not None:
+                self._owner.agree = self._agree
         plabel = "%s:%s" % (kind, type(self._block).__name__)
         self._last = (plabel, key, (data.shape, data.dtype, label.shape,
                                     label.dtype, batch_size), live)
@@ -399,12 +657,31 @@ class TrainStep:
             self._profiling_hook(plabel, t0, time.perf_counter() - t0
                                  - (self._owner.build_s - built),
                                  batch_size if batch_size is not None
-                                 else data.shape[self._batch_axis])
+                                 else data.shape[self._batch_axis] * self._dp)
         self._finite, self._finite_host = finite, None
         if scaled:
             self._finite_host = bool(finite)
             scaler.update_scale(not self._finite_host)
         return loss
+
+    def _agree(self, err):
+        """After a capture: every rank of the mesh says whether its own
+        succeeded (one gloo all-gather of a host flag, outside the
+        graph); a peer's failure raises ``RankFailure`` naming it, so no
+        rank replays a graph whose collectives a peer never recorded."""
+        import torch.distributed as dist
+        from ..distributed import RankFailure
+        pg, ranks = self._mesh.group(tuple(self._mesh.axis_names))
+        flag = torch.tensor([0 if err is None else 1], dtype=torch.int32)
+        out = torch.zeros(len(ranks), dtype=torch.int32)
+        dist.all_gather_into_tensor(out, flag, group=pg)
+        bad = [r for r, v in zip(ranks, out.tolist()) if v]
+        if bad and err is None:
+            raise RankFailure(
+                "TrainStep(%s): the CUDA-graph capture of the step failed "
+                "on rank(s) %s; this rank's succeeded, and no rank replays"
+                % (type(self._block).__name__, bad), tag="capture",
+                ranks=bad)
 
     @staticmethod
     def _profiling_hook(label, t0, dispatch_s, items):

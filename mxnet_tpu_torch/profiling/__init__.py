@@ -239,5 +239,9 @@ def report_for(obj, label=None, step_time_s=None, items_per_step=None):
 
 # env arming (read directly, matching the package's != "0" convention;
 # the typed registry view lives in mxnet_tpu_torch/env.py)
-if os.environ.get("MXNET_TPU_PROFILING", "0") != "0":
+# MXNET_TPU_SHARD_CHECK rides the same capture surface: the sharding
+# sanitizer's collective contract (analysis/sharding.py) reads the
+# walked steps from this store, so arming it arms the walk
+if os.environ.get("MXNET_TPU_PROFILING", "0") != "0" or \
+        os.environ.get("MXNET_TPU_SHARD_CHECK", "0") != "0":
     enable()

@@ -112,6 +112,16 @@ _FREE = {"empty", "empty_like", "empty_strided", "new_empty",
          "resize_", "record_stream"}
 
 
+# c10d op names (underscores stripped) -> the JAX package's HLO kinds
+_COLLECTIVE_KINDS = (("allreduce", "all-reduce"),
+                     ("allgather", "all-gather"),
+                     ("reduce_scatter", "reduce-scatter"),
+                     ("alltoall", "all-to-all"),
+                     ("send", "collective-permute"),
+                     ("recv", "collective-permute"),
+                     ("broadcast", "broadcast"))
+
+
 def category_of(op):
     """The category of an aten ``OpOverload`` (or of a bare op name):
     the rules of the JAX package's ``hlo.category_of`` over aten ops."""
@@ -299,6 +309,7 @@ class Walk(TorchDispatchMode):
             "half_reduces": {}, "kernel_bytes": {}, "conv_bytes": 0,
             "nchw_conv_bytes": 0}
         self._written = {}        # storage pointer -> bytes written in place
+        self._collectives = {}    # kind -> {"count", "bytes"}
 
     # -- the registry's interface --------------------------------------
     def __enter__(self):
@@ -405,6 +416,8 @@ class Walk(TorchDispatchMode):
             if nbytes:
                 self._count_audit(func, base, cat, flops, nbytes, ins, outs)
             self._count_writes(func, args, kwargs)
+            if cat == "collective":
+                self._count_collective(base, args)
             if flops:
                 ent = self._ops.setdefault(base, {
                     "op_name": "aten." + base, "category": cat,
@@ -412,6 +425,22 @@ class Walk(TorchDispatchMode):
                 ent["flops"] += flops
             self._sequence.update(sig.encode())
         return out
+
+    def _count_collective(self, base, args):
+        """One c10d call, by the JAX package's HLO kind, with its
+        payload (the tensors of its first argument)."""
+        name = base.strip("_")
+        kind = next((k for prefix, k in _COLLECTIVE_KINDS
+                     if name.startswith(prefix)), name)
+        payload = _nbytes(_tensors(args[:1], []))
+        rec = self._collectives.setdefault(kind, {"count": 0, "bytes": 0})
+        rec["count"] += 1
+        rec["bytes"] += payload
+
+    def collectives(self):
+        """``{kind: {"count", "bytes"}}`` of the c10d calls walked."""
+        with self._lock:
+            return {k: dict(v) for k, v in self._collectives.items()}
 
     def _count_audit(self, func, base, cat, flops, nbytes, ins, outs):
         a = self._audit

@@ -93,6 +93,9 @@ def analyze_walk(walk, label="executable", kind="jit", device="cpu",
         "estimates": {c: {"flops": est[c]["flops"],
                           "bytes": est[c]["bytes"]} for c in CATEGORIES},
         "provenance": walk.provenance(),
+        # the in-graph collectives by kind (analysis.sharding's contract)
+        **({"collectives": walk.collectives()}
+           if walk.collectives() else {}),
         "step": None,
         "roofline": None,
         **({"meta": meta} if meta else {}),

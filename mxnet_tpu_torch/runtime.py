@@ -10,8 +10,9 @@ kernels are built and load (``build/torch_kernels/``) and
 (``build/torch_native/``), neither probe starting a compiler.  The live
 rows (``TELEMETRY``, ``TSAN``, ``PROFILING``, ``CHAOS``, ``NUMERICS``,
 ``MEMORY_WATCH``, ``OBS_TRACE``, ``OBS_GOODPUT``, ``FLEET``) read the
-live state of the port's subsystems; ``SHARD_CHECK`` is false, the port
-having no sharding sanitizer (ROADMAP Queue 1 item 9b).
+live state of the port's subsystems; ``SHARD_CHECK`` whether
+``MXNET_TPU_SHARD_CHECK`` armed the sharding sanitizer's collective
+contract (:mod:`.analysis.sharding`).
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ def _detect():
     import torch
 
     from . import _build, _native, chaos, obs, profiling, sync, telemetry
-    from .analysis import memory, numerics
+    from .analysis import memory, numerics, sharding
     from .obs import fleet
 
     feats = {
@@ -48,7 +49,7 @@ def _detect():
         "TELEMETRY": telemetry.enabled(),
         "TSAN": sync.tsan_enabled(),
         "PROFILING": profiling.enabled(),
-        "SHARD_CHECK": False,
+        "SHARD_CHECK": sharding.shard_check_enabled(),
         "KERNELS": _build.built(),
         "CHAOS": chaos.armed(),
         "NUMERICS": numerics.check_enabled(),

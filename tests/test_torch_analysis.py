@@ -6,9 +6,9 @@
   test_analysis.py``, ``test_perf.py``, ``test_numerics.py``,
   ``test_memory.py``: each fires-and-clean-twin pair and each
   suppression) goes through ``lint_source`` of both packages, which
-  must give the same list of (rule id, line, severity).  The JAX
-  package's sharding rules are left out: the port gets them with its
-  meshes (ROADMAP item 9b) and raises on their names until then.
+  must give the same list of (rule id, line, severity), the sharding
+  sanitizer's rules included (``tests/test_sharding.py``'s sources
+  are in the corpus).
 - **The project rules**: ``lint_paths`` and ``audit_lock_order`` on the
   same ``tmp_path`` trees.
 - **The graph check** on the same symbols: the MLP, the broken ones,
@@ -48,11 +48,10 @@ from mxnet_tpu_torch.base import MXNetError
 
 REPO = Path(__file__).resolve().parent.parent
 CORPUS_FILES = ("test_analysis.py", "test_perf.py", "test_numerics.py",
-                "test_memory.py")
-# the JAX package's sharding sanitizer's per-file rules (ROADMAP 9b)
-SHARDING_RULES = {"mesh-axis-unknown", "shard-map-spec-arity",
-                  "undonated-train-state", "donated-reuse",
-                  "implicit-reshard"}
+                "test_memory.py", "test_sharding.py")
+# the sharding sanitizer's rules: the port has them too, so nothing is
+# dropped from either package's findings
+SHARDING_RULES = set()
 
 
 def _corpus():
@@ -109,10 +108,11 @@ def test_bare_state_write_exemption_agrees(path):
 
 
 def test_rule_registries_agree_but_for_sharding():
+    """The registries are equal, the sharding sanitizer's rules
+    (``collective-drift`` and the static ones) included."""
     jids = {r.id: (r.kind, r.severity) for r in jan.list_rules()}
     tids = {r.id: (r.kind, r.severity) for r in tan.list_rules()}
-    shard = {"collective-drift"} | SHARDING_RULES
-    assert tids == {k: v for k, v in jids.items() if k not in shard}
+    assert tids == jids
 
 
 # ----------------------------------------------------------------------
@@ -419,17 +419,46 @@ def test_audit_artifacts_round_trip_and_default_tolerance(tmp_path,
 
 
 # ----------------------------------------------------------------------
-# the sharding sanitizer's names until item 9b
+# the sharding sanitizer's names: each runs (the rules and the contract
+# against the JAX package's are tests/test_torch_sharding.py's)
 # ----------------------------------------------------------------------
+
+def _sharding_name_runs(name, tmp_path):
+    if name == "audit_sharding":
+        src = tmp_path / "m.py"
+        src.write_text("from jax.sharding import PartitionSpec as P\n"
+                       "spec = P('dq')\n")
+        return [d.rule for d in tan.audit_sharding([str(src)])] == \
+            ["mesh-axis-unknown"]
+    if name == "collective_contract":
+        return tan.collective_contract()["schema"] == \
+            "mxshard.collectives.v1"
+    if name == "collective_profile":
+        rep = {"collectives": {"all-reduce": {"count": 2, "bytes": 8}}}
+        return tan.collective_profile(rep) == rep["collectives"]
+    if name == "diff_contract":
+        return tan.diff_contract({}, {"executables": {}}) == []
+    if name in ("save_contract", "load_contract"):
+        path = str(tmp_path / "c.json")
+        saved = tan.save_contract(path)
+        return tan.load_contract(path) == saved
+    with tan.transfer_guard("allow"):
+        pass
+    with pytest.raises(MXNetError, match="not one of"):
+        with tan.transfer_guard("sometimes"):
+            pass
+    return True
+
 
 @pytest.mark.parametrize("name", ["audit_sharding", "collective_contract",
                                   "collective_profile", "diff_contract",
                                   "load_contract", "save_contract",
                                   "transfer_guard"])
-def test_sharding_names_raise_naming_item_9b(name):
+def test_sharding_names_raise_naming_item_9b(name, tmp_path):
+    """Each of the sanitizer's names runs in the port (they raised
+    before the mesh slice)."""
     assert name in tan.__all__
-    with pytest.raises(MXNetError, match="9b"):
-        getattr(tan, name)()
+    assert _sharding_name_runs(name, tmp_path)
 
 
 def test_the_all_names_are_the_jax_packages():

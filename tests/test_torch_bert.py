@@ -247,7 +247,13 @@ def test_embedding_takes_float_ids_and_scatters_its_gradient():
 
 
 def test_tensor_parallel_bert_is_not_ported():
-    with pytest.raises(MXNetError, match="not ported"):
-        BERTModel(tp_mesh=object(), **NARROW)
-    with pytest.raises(MXNetError, match="not ported"):
+    """Tensor-parallel BERT is ported (tests/
+    test_torch_tensor_parallel.py): ``tp_mesh=`` builds the encoder with
+    separate q/k/v projections, and ``shard_tp`` without a mesh raises
+    as the JAX model's does."""
+    net = BERTModel(tp_mesh=object(), **NARROW)
+    names = set(net._collect_params_with_prefix())
+    assert "encoder.cell0.attention.query_weight" in names
+    assert not any("qkv" in n for n in names)
+    with pytest.raises(ValueError, match="needs a mesh"):
         bert_small(vocab_size=50).shard_tp()

@@ -286,13 +286,15 @@ def test_single_process_world_is_inert(pkg):
 
 
 def test_the_spmd_half_still_raises_naming_item_9b():
+    """The SPMD half is ported (tests/test_torch_mesh.py): a mesh= that
+    is not a Mesh raises, naming what TrainStep takes."""
     from mxnet_tpu_torch import gluon
     from mxnet_tpu_torch.parallel import TrainStep
     with tmx_cpu():
         net = gluon.nn.Dense(2, in_units=2)
         net.initialize(device="cpu")
         tr = gluon.Trainer(net.collect_params(), "sgd")
-        with pytest.raises(MXNetError, match="item 9b"):
+        with pytest.raises(MXNetError, match="parallel.Mesh"):
             TrainStep(net, gluon.loss.L2Loss(), tr, mesh=object())
 
 

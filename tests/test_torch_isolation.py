@@ -482,7 +482,7 @@ def test_sparse_and_the_contrib_families_load_neither_jax_nor_mxnet_tpu(
 def test_env_registry_defaults_and_typed_reads(monkeypatch):
     from mxnet_tpu import env as jax_env
     from mxnet_tpu_torch import env
-    assert len(env.REGISTRY) == 54
+    assert len(env.REGISTRY) == 56   # + the sharding sanitizer's two
     for name, var in env.REGISTRY.items():
         assert var.default == jax_env.REGISTRY[name].default, name
         assert var.type is jax_env.REGISTRY[name].type, name

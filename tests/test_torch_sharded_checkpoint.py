@@ -5,7 +5,8 @@ package's (``tests/test_resilience.py``'s sharded cases):
   cleanly and the manager recovers; a KILL at the merged-manifest
   commit strands a staging directory that the next manager sweeps;
   ``sweep_shared_staging`` follows each staging directory's owner pid;
-  a disarmed fail point costs no visit; ``restore(sharding=)`` raises;
+  a disarmed fail point costs no visit; ``restore(sharding=)`` checks
+its argument;
 - two port ranks on CPU gloo write steps in the JAX package's layout
   (``<item>.shard<rank>.params`` + ``.json``, rank 0 storing the
   replicated arrays), which one JAX process restores with equal arrays;
@@ -140,11 +141,14 @@ def test_disarmed_fail_points_make_zero_visits(tmp_path, monkeypatch):
 
 
 def test_restore_onto_a_mesh_waits_for_item_9b(tmp_path):
+    """Restoring onto a mesh is ported (tests/
+    test_torch_mesh_checkpoint.py); a sharding= that is no
+    NamedSharding, dict or callable raises, naming what it takes."""
     mgr = CheckpointManager(str(tmp_path), sharded=True)
     mgr.save(1, {"params": _params()})
-    with pytest.raises(CheckpointError, match="item 9b"):
+    with pytest.raises(CheckpointError, match="NamedSharding"):
         mgr.restore(sharding=object())
-    with pytest.raises(mx.MXNetError, match="item 9b"):
+    with pytest.raises(mx.MXNetError, match="NamedSharding"):
         sharded.restore_sharded(mgr.step_dir(1), {"files": {}},
                                 sharding=object())
 

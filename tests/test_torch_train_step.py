@@ -171,6 +171,10 @@ def test_nchw_resnet_trains_without_fused_sites():
 def test_train_step_is_single_device():
     net = _port_net()
     tr = gluon.Trainer(net.collect_params(), "sgd", SGD)
-    with pytest.raises(MXNetError, match="one device"):
+    # without a world the step is one device's; a mesh= that is not a
+    # parallel.Mesh raises (the mesh step is tests/test_torch_mesh.py's)
+    assert TrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                     tr)._mesh is None
+    with pytest.raises(MXNetError, match="parallel.Mesh"):
         TrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(), tr,
                   mesh=object())
