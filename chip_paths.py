@@ -17,6 +17,7 @@ without the whole smoke run.
     cd <checkout> && python3 <repo>/chip_paths.py numpy
     cd <checkout> && python3 <repo>/chip_paths.py mesh
     cd <checkout> && python3 <repo>/chip_paths.py mesh4
+    cd <checkout> && python3 <repo>/chip_paths.py nccl4 mesh4
 
 ``decode`` is ``chip_smoke.main_path`` (GPT-2 small decode serving),
 ``mnist`` is ``mnist_main_path`` (the imperative LeNet loop, then 100
@@ -63,7 +64,21 @@ user widths against the CPU; ``check_consistency`` and
 ``tp_mesh``/``shard_tp`` with LAMB, the pipeline, ring attention, MoE
 and a ``restore(sharding=)`` round trip) and ``mesh4`` the same paths at
 four ranks, one card each (``launch -n 4``; it raises with fewer than
-four cards visible), against the single-device steps.  The
+four cards visible), against the single-device steps; its world is
+stopped at ``MESH4_WORLD_S`` (420 s), a waiting collective aborts its
+rank at ``MESH4_COLLECTIVE_MS`` (300 s, NCCL's watchdog) and a rank
+left at a part's barrier raises at ``MESH4_HOLD_MS`` (300 s).  ``nccl4``
+is ``nccl_probe_phase``, the first thing to run on a new four-card
+machine: a world of four (``launch -n 4``, ~1 min, stopped at 180 s)
+in which every rank prints a line a step -- ``distributed_init``,
+``set_device``, an eager all-reduce on the world's NCCL group and on a
+two-rank subgroup, all-gather, broadcast, a send/recv pair, one
+all-reduce captured through ``GraphOwner`` and replayed twice, then an
+exit with that graph still referenced -- under
+``NCCL_DEBUG=INFO`` (the bootstrap interface and each channel's
+transport), with the cards' links, ``/dev/shm`` and the interfaces
+first; its whole output goes to ``build/nccl4.log``.  ``nccl4``
+alone builds no kernel.  The
 checkout's own ``chip_smoke`` and package are imported, its kernels
 built, and each path prints its lines as in the smoke run, under the
 same host-read check of every capture -- except ``hotswap``, which runs
@@ -88,10 +103,12 @@ PATHS = {"decode": "main_path", "mnist": "mnist_main_path",
          "layernorm": "layernorm_phase", "deploy": "deploy_phase",
          "contrib": "contrib_phase", "numpy": "numpy_phase",
          "analysis": "analysis_phase", "mesh": "mesh_phase",
-         "mesh4": "mesh4_phase"}
+         "mesh4": "mesh4_phase", "nccl4": "nccl_probe_phase"}
 # outside checking_syncs() (contrib enters it for its checked parts, the
 # mesh paths' child worlds for their captured steps)
-UNCHECKED = {"hotswap", "ops", "dist", "contrib", "mesh", "mesh4"}
+UNCHECKED = {"hotswap", "ops", "dist", "contrib", "mesh", "mesh4", "nccl4"}
+# paths that run no hand kernel
+NO_BUILD = {"nccl4"}
 
 
 def main(argv):
@@ -111,9 +128,10 @@ def main(argv):
     print(cs.gpu_line(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
-    _build.build_all()
-    print("built in %.1f s" % (time.perf_counter() - t0), flush=True)
+    if not set(names) <= NO_BUILD:
+        t0 = time.perf_counter()
+        _build.build_all()
+        print("built in %.1f s" % (time.perf_counter() - t0), flush=True)
     for name in names:
         t0 = time.perf_counter()
         fns = PATHS[name] if isinstance(PATHS[name], tuple) \

@@ -104,15 +104,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    Dense 128, Dropout 0.5, Dense 10; Xavier, SGD 0.05/0.9, batch 128):
    the synthetic MNIST train set through ``DataLoader`` on the CPU,
    ``as_in_context(mx.gpu())``, ``autograd.record()``,
-   ``loss.backward()``, ``trainer.step`` and ``metric.update``, one
-   epoch of 468 batches, then hybridized two untimed batches (eager,
-   then captured) and 100 timed ones.  Every loss must
-   be finite and the accuracy in [0, 1]; a fresh net must cut the loss
+   ``loss.backward()``, ``trainer.step`` and ``metric.update``, 156
+   batches (a third of the epoch), then hybridized two untimed batches
+   (eager, then captured) and 100 timed ones.  Every loss must be
+   finite and the accuracy in [0, 1]; a fresh net must cut the loss
    of one fixed batch 3x in 60 steps.  It prints samples/s, ms/step,
    the share of wall time waiting on the loader, the device's idle
    share (``torch.profiler`` over 20 more batches) and peak memory.
    Then the same loop through the DataLoader's device-feed route,
-   ``DataLoader(..., ctx=mx.gpu(0))``: one epoch of a fresh net, its
+   ``DataLoader(..., ctx=mx.gpu(0))``: 156 batches of a fresh net, its
    samples/s and the feed's overlap share beside the host route's;
 11. the MNIST oracle: one step of the trained weights at batch 8 with
    dropout off on the card and on the CPU; loss and every update must
@@ -174,9 +174,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    each launches its kernels and matches its plain version, and the
    fused op on an NCHW input launches none.
 
-15. the ImageNet input path (ROADMAP item 6), after DenseNet: 8,192
+15. the ImageNet input path (ROADMAP item 6), after DenseNet: 4,096
    raw 224x224x3 records (``bench.py :: _build_rec(fmt="raw")``'s
-   images from seed 0, labels ``i % 1000``, 1.23 GB) written by the
+   images from seed 0, labels ``i % 1000``, 0.62 GB) written by the
    port's ``recordio`` into a temporary directory under ``build/`` and
    removed at the end; ``mx.io.ImageRecordIter(ctx=mx.gpu(0),
    dtype="bfloat16")`` (batch 512, shuffle, random mirror, ImageNet's
@@ -185,20 +185,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (``make_lars_step``) as ``step(batch)`` after an NHWC transpose on
    the card, at most two steps ahead of it.  The step is warmed and
    captured on a zero batch, timed on a synthetic device batch, then the
-   counters are zeroed and two streamed epochs (32 steps) timed from
+   counters are zeroed and two streamed epochs (16 steps) timed from
    the first record read to the last step's sync: img/s each epoch
    beside the synthetic rate, the overlap share ``1 - consumer_wait /
    producer_busy``, peak memory and reservation; every loss finite and
    the last below the first; ``bn_relu_apply`` and ``bn_relu_bwd``
-   33 x 32 on bf16 rows and ``lars_flat`` 32 on fp32.  Then the card's
+   33 x 16 on bf16 rows and ``lars_flat`` 16 on fp32.  Then the card's
    idle share over six profiled streamed steps, the loader's parts each
    timed alone (``read_batch`` native and Python, ``next_np`` at
    0/1/2/4/8 threads, the pinned copy of a 77 MB batch,
    ``DeviceTransform`` and the transpose), a landed batch against ``DeviceTransform``'s plain
    CPU result on its host batch (1 bf16 ulp), which recordio route
-   ran and which codecs import; with OpenCV or PIL, 2,048 JPEG records
+   ran and which codecs import; with OpenCV or PIL, 1,024 JPEG records
    at 256x256, quality 90, read with ``rand_crop`` at 1/2/4/8 threads
-   and streamed through four steps.  The records were just written; two
+   and streamed through two steps.  The records were just written; two
    sequential passes over the file show whether the checkout's file
    system serves them at the page cache's pace.
 
@@ -1644,6 +1644,7 @@ def bucketed_holds(device="cuda"):
 
 MNIST_BATCH = 128
 MNIST_SGD = {"learning_rate": 0.05, "momentum": 0.9}
+MNIST_EPOCH_BATCHES = 156         # a third of the 468-batch epoch
 MNIST_HYBRID_BATCHES = 100
 MNIST_PROFILED_BATCHES = 20
 # one fixed batch of random labels, trained on alone: a learning net
@@ -1757,12 +1758,13 @@ def mnist_loop(net, trainer, loss_fn, loader, ctx, max_batches=0):
     return losses, step_s, wait_s, split, metric, wall
 
 
-def mnist_main_path(ctx=None, epoch_batches=0,
+def mnist_main_path(ctx=None, epoch_batches=MNIST_EPOCH_BATCHES,
                     hybrid_batches=MNIST_HYBRID_BATCHES,
                     memorise_steps=MNIST_MEMORISE_STEPS,
                     profiled=MNIST_PROFILED_BATCHES):
-    """One epoch of the example's loop unhybridized (468 batches of
-    128), then ``hybrid_batches`` hybridized, on ``ctx`` (the card by
+    """``epoch_batches`` of the example's loop unhybridized (0: the
+    whole epoch, 468 batches of 128), then ``hybrid_batches``
+    hybridized, on ``ctx`` (the card by
     default); every loss must be finite and the accuracy in [0, 1].
     Then ``profiled`` more batches under ``torch.profiler`` give the
     device time a step, and a fresh net memorises one fixed batch.
@@ -3326,10 +3328,12 @@ def bert_bf16_phase(shapes=BERT_BF16_SHAPES):
                       for p in net.collect_params().values()}
             prefix = net.prefix
         del net, step, ids, labels
+        phase_done("bert_bf16:%s" % key)
     release_cuda()
     out["oracle"] = bert_bf16_oracle(arrays, prefix)
     del arrays
     release_cuda()
+    phase_done("bert_bf16:oracle")
     out["hold"] = bert_bf16_hold()
     release_cuda()
     return out
@@ -3850,6 +3854,7 @@ def bert_pretrain_phase():
     prefix = net.prefix
     del net, trainer, inputs
     release_cuda()
+    phase_done("pretrain:main")
     oracle = bert_pretrain_oracle(arrays, prefix)
     release_cuda()
     return {"main": stats, "breakdown": bd, "oracle": oracle}
@@ -5312,16 +5317,21 @@ def densenet_phase():
         bd["device_idle_share"], 1)
     del step, x, y
     release_cuda()
+    phase_done("densenet:main")
     oracle = train_oracle(net, make_net=densenet121_nhwc,
                           label="DenseNet-121 oracle (card vs CPU)",
                           floor_factor=DENSENET_FLOOR_FACTOR)
     del net
     release_cuda()
+    phase_done("densenet:oracle")
     loop = densenet_imperative_path()
     release_cuda()
+    phase_done("densenet:loop")
     kernels = densenet_kernel_checks()
     release_cuda()
+    phase_done("densenet:kernels")
     zoo = zoo_sweep()
+    phase_done("densenet:zoo")
     routes = nd_kernel_routes()
     release_cuda()
     return {"main": train, "breakdown": bd, "capture": capture,
@@ -5335,7 +5345,7 @@ def densenet_phase():
 
 # bench.py :: _build_rec's synthetic records: raw 224x224x3 crops of
 # 256x256 natural-like images (seed 0), label i % 1000
-INPUT_RECORDS = 8192
+INPUT_RECORDS = 4096
 INPUT_IMAGE = 224
 INPUT_SOURCE = 256
 INPUT_BATCH = 512                  # BASELINE config 5's batch
@@ -5350,10 +5360,9 @@ INPUT_STD = (58.393, 57.12, 57.375)         # and std, RGB
 INPUT_IN_FLIGHT = 2
 INPUT_SYNTH_STEPS = 8
 INPUT_PROFILED_STEPS = 6
-JPEG_RECORDS = 2048
+JPEG_RECORDS = 1024
 JPEG_QUALITY = 90
 JPEG_THREAD_SWEEP = (1, 2, 4, 8)
-JPEG_STEPS = 4
 INPUT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build")
 
@@ -5735,6 +5744,7 @@ def imagenet_input_phase(make_net=resnet50_nhwc, records=INPUT_RECORDS,
         rec = make_records(os.path.join(tmp, "raw"), records, crop=image,
                            hw=source)
         write_s = time.perf_counter() - t0
+        phase_done("imagenet_input:write")
         net = make_net()
         net.initialize(device=device,
                        generator=torch.Generator().manual_seed(0))
@@ -5832,6 +5842,7 @@ def imagenet_input_phase(make_net=resnet50_nhwc, records=INPUT_RECORDS,
                            {"img_per_s": stats["window_img_per_s"]},
                            out["idle"]["device_idle_share"], 1)
         feed.close()
+        phase_done("imagenet_input:streamed")
         out["parts"] = input_parts(rec, batch, image, threads, sweep,
                                    sweep_batches, cuda)
         print("ImageNet input parts (each alone; records just "
@@ -5840,6 +5851,7 @@ def imagenet_input_phase(make_net=resnet50_nhwc, records=INPUT_RECORDS,
         out["landed"] = landed_batch_check(rec, batch, image, threads, ctx)
         print("ImageNet input landed batch vs host batch: %s"
               % json.dumps(out["landed"]))
+        phase_done("imagenet_input:parts")
         if codecs["cv2"] or codecs["PIL"]:
             out["jpeg"] = jpeg_path(tmp, step, batch, image, jpeg_records,
                                     jpeg_sweep, ctx, source)
@@ -5856,13 +5868,15 @@ def imagenet_input_phase(make_net=resnet50_nhwc, records=INPUT_RECORDS,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def mnist_feed_path(host_stats=None, ctx=None):
+def mnist_feed_path(host_stats=None, ctx=None,
+                    batches=MNIST_EPOCH_BATCHES):
     """The MNIST loop of ``mnist_main_path`` through the DataLoader's
     device-feed route: ``DataLoader(..., ctx=mx.gpu(0))`` lands each
-    batch on the card (no ``as_in_context`` copy left in the loop), one
-    epoch of a fresh net, unhybridized.  Prints samples/s and the feed's
-    overlap share beside the host route's epoch from ``host_stats``, and
-    the loader's own pace over one more epoch with no training."""
+    batch on the card (no ``as_in_context`` copy left in the loop),
+    ``batches`` of a fresh net, unhybridized.  Prints samples/s and the
+    feed's overlap share beside the host route's from ``host_stats``,
+    and the loader's own pace over as many more batches with no
+    training."""
     import mxnet_tpu_torch as mx
     ctx = mx.gpu(0) if ctx is None else ctx
     np.random.seed(0)
@@ -5873,9 +5887,9 @@ def mnist_feed_path(host_stats=None, ctx=None):
         batch_size=MNIST_BATCH, shuffle=True, last_batch="discard", ctx=ctx)
     net, trainer, loss_fn = mnist_setup(ctx)
     losses, step_s, wait_s, split, metric, wall = mnist_loop(
-        net, trainer, loss_fn, loader, ctx)
+        net, trainer, loss_fn, loader, ctx, batches)
     n = len(losses)
-    check(n == 60000 // MNIST_BATCH and all(np.isfinite(losses)),
+    check(n == batches and all(np.isfinite(losses)),
           "MNIST feed route: %d batches, losses %s" % (n, losses[-3:]))
     feed = loader._feed
     # the loader alone, no training: the producer's own pace
@@ -5883,6 +5897,8 @@ def mnist_feed_path(host_stats=None, ctx=None):
     alone = 0
     for data, _label in loader:
         alone += 1
+        if alone == batches:
+            break
     alone_s = time.perf_counter() - t0
     check(data._data.device == ctx.torch_device(),
           "MNIST feed route landed on %s" % data._data.device)
@@ -11197,7 +11213,7 @@ def _full(t, sharding):
         return collectives._gather(t.detach(), sharding.mesh, spec[dim], dim)
 
 
-def mesh_dp_resnet(ranks, rank):
+def mesh_dp_resnet(ranks, rank, res=None):
     """(a) ResNet-50 v1 NHWC fp32 SGD, ``TrainStep(mesh=make_mesh({"dp":
     ranks}))`` at MESH_BATCH a rank, captured; held against the same
     step without a mesh on the global batch (on rank 0)."""
@@ -11211,20 +11227,22 @@ def mesh_dp_resnet(ranks, rank):
     x = torch.randn((n, 224, 224, 3), generator=gen)
     y = torch.randint(0, 1000, (n,), generator=gen).float()
 
-    def run(step_mesh, xb, yb, counting=False):
+    def run(step_mesh, xb, yb, counting=False, steps=MESH_STEPS):
         net = resnet50_nhwc()
         net.initialize(device="cuda",
                        generator=torch.Generator().manual_seed(0))
         xb, yb = xb.cuda(), yb.cuda()
         with autograd.pause():
             net(xb[:1])                 # sizes deferred parameters
+        w0 = [p.data()._data.detach().clone()
+              for p in net.collect_params().values()]
         tr = gluon.Trainer(net.collect_params(), "sgd", TRAIN_SGD)
         step = TrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(), tr,
                          mesh=step_mesh)
         if counting:
             registry.reset_launches()
-        losses, t0 = [], None
-        for k in range(MESH_STEPS):
+        losses, t0 = [], time.perf_counter()
+        for k in range(steps):
             if k == 2:
                 torch.cuda.synchronize()
                 collectives.reset_counts()
@@ -11233,6 +11251,9 @@ def mesh_dp_resnet(ranks, rank):
         torch.cuda.synchronize()
         out = {"losses": [float(v) for v in losses],
                "wall_s": time.perf_counter() - t0,
+               "updates": [p.data()._data.detach() - w
+                           for p, w in zip(net.collect_params().values(),
+                                           w0)],
                "weights": [p.data()._data.detach().clone()
                            for p in net.collect_params().values()],
                "momenta": [tr._updater.states[i].detach().clone()
@@ -11258,16 +11279,19 @@ def mesh_dp_resnet(ranks, rank):
     replays = MESH_STEPS - 2
     per_replay = sum(v["calls"] for v in got["calls"].values()) / replays
     sites = got["sites"]
-    res = {"ranks": ranks, "batch_a_rank": MESH_BATCH, "steps": MESH_STEPS,
-           "losses": got["losses"],
-           "collectives_a_replay": per_replay,
-           "collectives_walked": got["walk"],
-           "gradient_buckets": got["buckets"], "batchnorm_sites": sites,
-           "calls": got["calls"], "launches": got["launches"],
-           "graphs": got["capture"]["graphs"],
-           "replays": got["capture"]["replays"], "profile": got["profile"],
-           "img_per_s": MESH_BATCH * ranks * replays / got["wall_s"],
-           "ms_per_step": 1e3 * got["wall_s"] / replays}
+    res = {} if res is None else res
+    res.update({"ranks": ranks, "batch_a_rank": MESH_BATCH,
+                "steps": MESH_STEPS,
+                "losses": got["losses"],
+                "collectives_a_replay": per_replay,
+                "collectives_walked": got["walk"],
+                "gradient_buckets": got["buckets"], "batchnorm_sites": sites,
+                "calls": got["calls"], "launches": got["launches"],
+                "graphs": got["capture"]["graphs"],
+                "replays": got["capture"]["replays"],
+                "profile": got["profile"],
+                "img_per_s": MESH_BATCH * ranks * replays / got["wall_s"],
+                "ms_per_step": 1e3 * got["wall_s"] / replays})
     check(per_replay > 0, "mesh (a): no collective in a replay")
     check(per_replay == got["walk"] == got["buckets"] + 2 * sites,
           "mesh (a): %s collectives a replay, %s walked, %d buckets + 2 x "
@@ -11277,6 +11301,30 @@ def mesh_dp_resnet(ranks, rank):
         check(v == BN_RELU_SITES * MESH_STEPS, "mesh (a): %s launches %d "
               "!= %d x %d" % (k, v, BN_RELU_SITES, MESH_STEPS))
     ref_mesh = _single_device(ranks)
+    if ranks > 1:
+        # one step from the same weights, the training oracle's rule:
+        # the loss at 1e-5, the update and the momenta each within
+        # max(2e-2, 4 x its own permuted floor); the trajectory below
+        # holds four steps
+        one = run(mesh, x[sl], y[sl], steps=1)
+        if rank == 0:
+            perm = torch.randperm(x.shape[0],
+                                  generator=torch.Generator().manual_seed(1))
+            one_want = run(ref_mesh, x, y, steps=1)
+            one_perm = run(ref_mesh, x[perm], y[perm], steps=1)
+            step1 = {"loss_rel_err": abs(one["losses"][0]
+                                         - one_want["losses"][0])
+                     / abs(one_want["losses"][0])}
+            for key in ("updates", "momenta"):
+                err = _norm_rel(one[key], one_want[key])
+                floor = _norm_rel(one_perm[key], one_want[key])
+                step1[key] = {"rel_err": err, "floor": floor, "limit": max(
+                    MESH_DP_LIMIT, MESH_DP_FLOOR_FACTOR * floor)}
+            res["one_step"] = step1
+            print("mesh (a) one step from the same weights: %s"
+                  % json.dumps(step1), flush=True)
+            del one_want, one_perm
+        del one
     if rank == 0:
         want = run(ref_mesh, x, y)
         res["ms_per_step_without_mesh"] = 1e3 * want["wall_s"] / replays
@@ -11294,7 +11342,28 @@ def mesh_dp_resnet(ranks, rank):
             res["limit"] = max(MESH_DP_LIMIT,
                                MESH_DP_FLOOR_FACTOR * res["floor"])
             loss_limit = MESH_DP_LOSS_LIMIT
+            res["losses_permuted"] = floor["losses"]
+            res["momenta_floor"] = _norm_rel(floor["momenta"],
+                                             want["momenta"])
+            res["loss_floor"] = max(abs(a - b) / abs(b) for a, b in zip(
+                floor["losses"], want["losses"]))
+        res["losses_without_mesh"] = want["losses"]
         del want
+        print("mesh (a) against the step without a mesh: %s" % json.dumps(
+            {k: res.get(k) for k in (
+                "losses", "losses_without_mesh", "losses_permuted",
+                "loss_rel_err", "loss_floor", "weights_rel_err",
+                "momenta_rel_err", "floor", "momenta_floor", "limit")}),
+            flush=True)
+        step1 = res.get("one_step")
+        if step1 is not None:
+            check(step1["loss_rel_err"] <= MESH_DP_LOSS_LIMIT,
+                  "mesh (a): one step's loss off by %.3g"
+                  % step1["loss_rel_err"])
+            for key in ("updates", "momenta"):
+                check(step1[key]["rel_err"] <= step1[key]["limit"],
+                      "mesh (a): one step's %s %.3g > %.3g"
+                      % (key, step1[key]["rel_err"], step1[key]["limit"]))
         check(res["loss_rel_err"] <= loss_limit,
               "mesh (a): loss off by %.3g" % res["loss_rel_err"])
         for key in ("weights_rel_err", "momenta_rel_err"):
@@ -11319,7 +11388,7 @@ def _qkv_split(init, units):
     return out
 
 
-def mesh_tp_bert(ranks, rank):
+def mesh_tp_bert(ranks, rank, res=None):
     """(b) BERT-base, ``tp_mesh=make_mesh({"tp": ranks})`` and
     ``shard_tp``, LAMB over MESH_BERT_BATCH x BERT_SEQ, captured; held
     at bucketed_holds' rule against the same model unsharded (tp mode,
@@ -11392,13 +11461,15 @@ def mesh_tp_bert(ranks, rank):
     got = run(tp_net(True), mesh, counting=True)
     release_cuda()
     launches = got["launches"]
-    res = {"ranks": ranks, "batch": MESH_BERT_BATCH, "seq": BERT_SEQ,
-           "heads_a_rank": BERT_HEADS // ranks, "losses": got["losses"],
-           "launches": launches, "calls": got["calls"],
-           "graphs": got["capture"]["graphs"],
-           "replays": got["capture"]["replays"], "profile": got["profile"],
-           "tokens_per_s": MESH_BERT_BATCH * BERT_SEQ * MESH_BERT_STEPS
-           / got["wall_s"]}
+    res = {} if res is None else res
+    res.update({"ranks": ranks, "batch": MESH_BERT_BATCH, "seq": BERT_SEQ,
+                "heads_a_rank": BERT_HEADS // ranks, "losses": got["losses"],
+                "launches": launches, "calls": got["calls"],
+                "graphs": got["capture"]["graphs"],
+                "replays": got["capture"]["replays"],
+                "profile": got["profile"],
+                "tokens_per_s": MESH_BERT_BATCH * BERT_SEQ * MESH_BERT_STEPS
+                / got["wall_s"]})
     want_launches = {"flash_attention_fwd": BERT_LAYERS * MESH_BERT_STEPS,
                      "flash_attention_bwd": BERT_LAYERS * MESH_BERT_STEPS,
                      "layernorm_fwd": (2 * BERT_LAYERS + 2)
@@ -11432,6 +11503,10 @@ def mesh_tp_bert(ranks, rank):
                                 MESH_BERT_FLOOR_FACTOR * res["floor"][k])
                          for k in ("loss_rel_err", "update_rel_err",
                                    "states_rel_err")}
+        print("mesh (b) against the model unsharded: %s" % json.dumps(
+            {k: res[k] for k in ("loss_rel_err", "update_rel_err",
+                                 "states_rel_err", "key_bias_update_rel_err",
+                                 "floor", "limits")}), flush=True)
         for k, limit in res["limits"].items():
             check(res[k] <= limit, "mesh (b): %s %.3g > %.3g"
                   % (k, res[k], limit))
@@ -11474,7 +11549,7 @@ def _bert_layers(gen, n, d=768, hidden=3072):
             "ln2_g": 1 + w(n, d, scale=0.1), "ln2_b": w(n, d)}
 
 
-def mesh_pipeline(ranks, rank):
+def mesh_pipeline(ranks, rank, res=None):
     """(c) ``pipeline_apply`` over ``{"pp": ranks}``: BERT-base's 12
     layers, 12 / ranks a stage, microbatches of MESH_PIPE_MICRO x
     BERT_SEQ, forward and backward of sum(out ** 2), against the layers
@@ -11528,11 +11603,13 @@ def mesh_pipeline(ranks, rank):
     def fwd_bwd():
         out = pipeline_apply(stage_fn, placed, xs, mesh)
         (out ** 2).sum().backward()
-    res = {"ranks": ranks, "layers_a_stage": L, "microbatches": M,
-           "microbatch": [MESH_PIPE_MICRO, BERT_SEQ],
-           "out_rel_err": float(errs[0]), "grad_rel_err": float(errs[1]),
-           "fwd_bwd_ms": 1e3 * wall, "bubble": (ranks - 1) / (M + ranks - 1),
-           "profile": mesh_profile(fwd_bwd, ranks)}
+    res = {} if res is None else res
+    res.update({"ranks": ranks, "layers_a_stage": L, "microbatches": M,
+                "microbatch": [MESH_PIPE_MICRO, BERT_SEQ],
+                "out_rel_err": float(errs[0]), "grad_rel_err": float(errs[1]),
+                "fwd_bwd_ms": 1e3 * wall,
+                "bubble": (ranks - 1) / (M + ranks - 1),
+                "profile": mesh_profile(fwd_bwd, ranks)})
     check(res["out_rel_err"] <= MESH_PLAIN_LIMIT,
           "mesh (c) pipeline: outputs off by %.3g" % res["out_rel_err"])
     check(res["grad_rel_err"] <= MESH_PIPE_GRAD_LIMIT,
@@ -11557,7 +11634,7 @@ def _attention_rows(q, k, v, row0, causal):
     return torch.cat(outs, dim=1)
 
 
-def mesh_ring(ranks, rank):
+def mesh_ring(ranks, rank, res=None):
     """(c) ``ring_attention`` over ``{"sp": ranks}`` at BERT-base's
     heads, against plain attention of this rank's rows."""
     import torch
@@ -11570,7 +11647,8 @@ def mesh_ring(ranks, rank):
                for _ in range(3))
     n = seq // ranks
     sl = slice(rank * n, (rank + 1) * n)
-    res = {"ranks": ranks, "bh": bh, "seq": seq, "d": d}
+    res = {} if res is None else res
+    res.update({"ranks": ranks, "bh": bh, "seq": seq, "d": d})
     for causal in ((False, True) if ranks == 1 else (True,)):
         got = ring_attention(q[:, sl], k[:, sl], v[:, sl], mesh,
                              causal=causal)
@@ -11589,7 +11667,7 @@ def mesh_ring(ranks, rank):
     return res
 
 
-def mesh_moe(ranks, rank):
+def mesh_moe(ranks, rank, res=None):
     """(c) ``MixtureOfExperts`` (8 experts, 768/3,072) over ``{"ep":
     ranks}``: tokens replicated at one rank, split over ``ep`` at
     more, against the layer's unsharded forward on all tokens."""
@@ -11619,9 +11697,10 @@ def mesh_moe(ranks, rank):
     with autograd.pause():
         xin = x if ranks == 1 else shard_batch(x[mine], mesh, axis_name="ep")
         prof = mesh_profile(lambda: moe(xin), ranks)
-    res = {"ranks": ranks, "tokens": MESH_MOE_TOKENS,
-           "tokens_split": ranks > 1, "rel_err": float(err),
-           "profile": prof}
+    res = {} if res is None else res
+    res.update({"ranks": ranks, "tokens": MESH_MOE_TOKENS,
+                "tokens_split": ranks > 1, "rel_err": float(err),
+                "profile": prof})
     check(res["rel_err"] <= MESH_PLAIN_LIMIT, "mesh (c) MoE: off by %.3g"
           % res["rel_err"])
     return res
@@ -11669,34 +11748,322 @@ def mesh_checkpoint(ranks, rank, root):
     return res
 
 
-def mesh_worker(out_dir, ranks=1):
+def run_world(code, ranks, timeout, env=None, grace=30, echo=None,
+              log=None):
+    """Run ``python -c code`` as a world of ``ranks`` processes
+    (``python -m mxnet_tpu_torch.launch -n ranks``) and return its
+    output's lines.  Each line of the launcher's output (``[rank] ...``)
+    is passed to ``echo`` (by default printed, flushed) as it arrives
+    and appended to the file ``log``, so a world cut at a bound has
+    shown each rank's last line.  At ``timeout`` seconds the world is
+    stopped -- SIGINT to the launcher, which tears its workers down,
+    then a kill of the launcher and its workers after ``grace``
+    seconds -- and :class:`SmokeFailure` names each rank's last line.
+    Before that each worker is sent SIGUSR1, on which a worker that
+    called :func:`dump_stacks_on_signal` prints its threads' Python
+    stacks (one that did not ends there).  A world that exits nonzero
+    fails with its tail."""
+    import signal
+    echo = echo or (lambda line: print(line, end="", flush=True))
+    lines, last = [], {}
+    sink = open(log, "a") if log else None
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n", str(ranks),
+         sys.executable, "-c", code], cwd=REPO_ROOT,
+        env=dict(os.environ, **(env or {})), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, errors="replace")
+
+    def relay():
+        for line in proc.stdout:
+            echo(line)
+            lines.append(line)
+            if sink is not None:
+                sink.write(line)
+                sink.flush()
+            if line.startswith("[") and "] " in line:
+                last[line[1:line.index("]")]] = line.rstrip("\n")
+    reader = threading.Thread(target=relay, daemon=True)
+    reader.start()
+    cut, named = False, last
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        cut = True
+        named = dict(last)      # before the stacks, each rank's own
+        for pid in _children(proc):
+            try:
+                os.kill(pid, signal.SIGUSR1)
+            except ProcessLookupError:
+                pass
+        time.sleep(3)           # the dumps reach the relay
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=grace)
+        except subprocess.TimeoutExpired:
+            _kill_with_children(proc)
+    reader.join(timeout=grace)
+    if sink is not None:
+        sink.close()
+    lasts = "\n".join("  rank %s: %s" % (r, named[r])
+                      for r in sorted(named, key=lambda r: (len(r), r)))
+    check(not cut, "world of %d ran past its %d s bound and was stopped; "
+          "each rank's last line:\n%s" % (ranks, timeout, lasts or
+                                          "  (none)"))
+    check(proc.returncode == 0, "world of %d exited %d; each rank's last "
+          "line:\n%s\nits last output:\n%s" % (
+              ranks, proc.returncode, lasts or "  (none)",
+              "".join(lines[-60:])))
+    return lines
+
+
+def _children(proc):
+    """The pids of ``proc``'s children (the launcher's workers)."""
+    try:
+        with open("/proc/%d/task/%d/children" % (proc.pid, proc.pid)) as f:
+            return [int(k) for k in f.read().split()]
+    except OSError:
+        return []
+
+
+def dump_stacks_on_signal():
+    """On SIGUSR1, print every thread's Python stack to stderr (a
+    world's worker: :func:`run_world` sends it at the bound)."""
+    import faulthandler
+    import signal
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
+
+
+def _kill_with_children(proc):
+    """SIGKILL ``proc`` and the process groups of its children (the
+    launcher starts each worker in a session of its own)."""
+    import signal
+    for pid in _children(proc):
+        try:
+            os.killpg(pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            pass
+    proc.kill()
+    proc.wait()
+
+
+# ---------------------------------------------------------------------
+# the NCCL probe of a world of four cards (chip_paths.py nccl4)
+# ---------------------------------------------------------------------
+
+NCCL_PROBE_LOG = os.path.join(REPO_ROOT, "build", "nccl4.log")
+NCCL_PROBE_ELEMS = 1 << 22         # 16 MiB of fp32 a collective
+_PROBE_KEPT = []                   # the probe's graph, alive to exit
+
+
+def _machine_lines():
+    """What NCCL's transports depend on here: the cards' links, the size
+    of ``/dev/shm`` and the network interfaces (each only read)."""
+    import socket
+    out = []
+    try:
+        topo = subprocess.run(["nvidia-smi", "topo", "-m"],
+                              capture_output=True, text=True,
+                              timeout=60).stdout
+        out += ["topo: " + line for line in topo.rstrip().splitlines()]
+    except (OSError, subprocess.SubprocessError) as e:
+        out.append("topo: nvidia-smi topo -m failed: %s" % e)
+    try:
+        st = os.statvfs("/dev/shm")
+        out.append("/dev/shm: %.1f GiB, %.1f GiB free"
+                   % (st.f_blocks * st.f_frsize / 2 ** 30,
+                      st.f_bavail * st.f_frsize / 2 ** 30))
+    except OSError as e:
+        out.append("/dev/shm: %s" % e)
+    out.append("interfaces: %s" % ", ".join(
+        name for _i, name in socket.if_nameindex()))
+    return out
+
+
+def nccl_probe_worker(ranks):
+    """One rank of the probe world: each step of NCCL across the cards
+    in turn, a line a step (``nccl4 rank r: <step>``), each result
+    checked: ``distributed_init``, ``torch.cuda.set_device``, an eager
+    all-reduce on the world's NCCL group and one on a two-rank subgroup,
+    all-gather, broadcast, a send/recv pair, then one all-reduce
+    captured through ``_capture.GraphOwner`` (its eager warm-up first)
+    and replayed twice; the process then exits with that graph still
+    referenced, as a script's captured step is (the world's teardown
+    frees it before it destroys the process groups)."""
+    import torch
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _capture
+    from mxnet_tpu_torch.parallel import collectives, make_mesh
+    dump_stacks_on_signal()
+    rank = int(os.environ.get("MXNET_TPU_PROC_ID", "0"))
+    t0 = time.perf_counter()
+
+    def say(step, **facts):
+        print("nccl4 rank %d: %s at %.2f s%s" % (
+            rank, step, time.perf_counter() - t0,
+            " " + json.dumps(facts) if facts else ""), flush=True)
+    say("start", cards=torch.cuda.device_count(),
+        nccl=str(torch.cuda.nccl.version()),
+        torch=torch.__version__,
+        settings={k: v for k, v in sorted(os.environ.items())
+                  if k.startswith(("NCCL_", "TORCH_NCCL_"))})
+    mx.distributed_init()
+    check(dist.get_world_size() == ranks, "nccl4: a world of %d, not %d"
+          % (dist.get_world_size(), ranks))
+    say("distributed_init", backend=str(dist.get_backend_config()),
+        cuda_initialized=torch.cuda.is_initialized())
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    dev = torch.device("cuda", torch.cuda.current_device())
+    say("set_device", device=str(dev))
+    n = NCCL_PROBE_ELEMS
+
+    def timed(step, fn, want):
+        t = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize(dev)
+        ms = 1e3 * (time.perf_counter() - t)
+        check(torch.equal(got, want), "nccl4 rank %d: %s gave %s, not %s"
+              % (rank, step, got.flatten()[:4].tolist(),
+                 want.flatten()[:4].tolist()))
+        say(step, ms=round(ms, 3))
+
+    def full(v, m=n):
+        return torch.full((m,), float(v), device=dev)
+
+    def all_reduce(group=None):
+        t = full(rank + 1)
+        dist.all_reduce(t, group=group)
+        return t
+    timed("all_reduce world", all_reduce, full(ranks * (ranks + 1) // 2))
+    pairs = [dist.new_group([2 * i, 2 * i + 1]) for i in range(ranks // 2)]
+    i = rank // 2
+    timed("all_reduce pair %d,%d" % (2 * i, 2 * i + 1),
+          lambda: all_reduce(pairs[i]), full(4 * i + 3))
+
+    def gather():
+        out = torch.empty(ranks * n, device=dev)
+        dist.all_gather_into_tensor(out, full(rank + 1))
+        return out
+    timed("all_gather", gather, torch.arange(
+        1, ranks + 1, device=dev, dtype=torch.float32).repeat_interleave(n))
+
+    def bcast():
+        t = full(rank + 1)
+        dist.broadcast(t, src=ranks - 1)
+        return t
+    timed("broadcast", bcast, full(ranks))
+
+    def send_recv():
+        # ranks 2i and 2i+1 swap one tensor each way
+        peer = rank ^ 1
+        t, r = full(rank + 1), torch.empty(n, device=dev)
+        for op in dist.batch_isend_irecv([dist.P2POp(dist.isend, t, peer),
+                                          dist.P2POp(dist.irecv, r, peer)]):
+            op.wait()
+        return r
+    timed("send/recv with rank %d" % (rank ^ 1), send_recv, full((rank ^ 1)
+                                                                + 1))
+    # the port's all-reduce over a mesh of the world, as a captured
+    # step issues it
+    mesh = make_mesh({"dp": ranks})
+    owner = _capture.GraphOwner("nccl4", dev)
+    src, buf = full(rank + 1), torch.empty(n, device=dev)
+
+    def body():
+        buf.copy_(src)
+        return collectives.all_reduce_(buf, mesh, "dp")
+    owner.warm(body)
+    torch.cuda.synchronize(dev)
+    say("captured all_reduce: warm-up")
+    graph, out = owner.capture(body, "all_reduce")
+    say("captured all_reduce: captured")
+    want = full(ranks * (ranks + 1) // 2)
+    for k in (1, 2):
+        buf.zero_()
+        timed("captured all_reduce: replay %d" % k,
+              lambda: (graph.replay(), out)[1], want)
+    _PROBE_KEPT.append(graph)
+    dist.barrier()
+    say("done")
+    return 0
+
+
+def nccl_probe_phase(ranks=4, timeout=180):
+    """``chip_paths.py nccl4``: a world of ``ranks`` on one card each
+    (``launch -n ranks``), bounded at ``timeout`` s, through
+    :func:`nccl_probe_worker` with ``NCCL_DEBUG=INFO`` (which names the
+    bootstrap interface and each channel's transport); a collective
+    left waiting aborts its rank after 60 s (NCCL's watchdog).  The
+    whole output goes to ``build/nccl4.log``.  Raises with fewer
+    than ``ranks`` cards."""
+    import torch
+    check(torch.cuda.device_count() >= ranks,
+          "nccl4: %d ranks need %d cards, %d visible"
+          % (ranks, ranks, torch.cuda.device_count()))
+    log = NCCL_PROBE_LOG
+    os.makedirs(os.path.dirname(log), exist_ok=True)
+    machine = ["nccl4 machine: " + line for line in _machine_lines()]
+    with open(log, "w") as f:
+        f.write("".join(line + "\n" for line in machine))
+    env = {"NCCL_DEBUG": os.environ.get("NCCL_DEBUG", "INFO"),
+           "MXNET_TPU_DIST_BARRIER_TIMEOUT_MS": "60000",
+           "TORCH_NCCL_ASYNC_ERROR_HANDLING": "1"}
+    t0 = time.perf_counter()
+    lines = run_world(
+        "import sys; sys.path.insert(0, %r); import chip_smoke; "
+        "sys.exit(chip_smoke.nccl_probe_worker(%d))" % (REPO_ROOT, ranks),
+        ranks, timeout, env=env, log=log)
+    done = sum(1 for line in lines if ": done at " in line)
+    check(done == ranks, "nccl4: %d of %d ranks finished" % (done, ranks))
+    # what NCCL chose, from its INFO lines: the bootstrap interface, the
+    # network plugin and each channel's transport
+    import collections
+    import re
+    seen = collections.Counter()
+    for line in lines:
+        for pat in (r"Bootstrap: Using (\S+)", r"Using network (\S+)",
+                    r" via (\S+)", r"(NVLS multicast support is \w+)"):
+            m = re.search(pat, line)
+            if m:
+                seen[m.group(0).strip()] += 1
+    for line in machine:
+        print(line, flush=True)
+    print("nccl4 transports (NCCL INFO lines, over all ranks): %s"
+          % json.dumps(dict(seen.most_common())), flush=True)
+    print("nccl4: %d ranks through every step in %.1f s"
+          % (ranks, time.perf_counter() - t0), flush=True)
+    return {"ranks": ranks, "s": time.perf_counter() - t0,
+            "transports": dict(seen)}
+
+
+def mesh_worker(out_dir, ranks=1, hold_ms=None):
     """Phase 24's child, one rank of a world of ``ranks`` started by
     ``python -m mxnet_tpu_torch.launch -n ranks``: (a) and (b) under the
     host-read check, then (c); rank 0 prints the lines and writes
-    ``mesh.json`` under ``out_dir``."""
+    ``mesh.json`` under ``out_dir``.  Every rank prints the part it
+    enters, and the ranks meet at an attributed barrier after each part
+    (bounded by ``hold_ms``, by default the world's barrier bound)."""
     import torch
     import torch.distributed as dist
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import _build, _capture
     from mxnet_tpu_torch.kernels import registry
     from mxnet_tpu_torch.parallel import make_mesh
+    dump_stacks_on_signal()
     mx.distributed_init()
     make_mesh({"dp": ranks})            # the world, NCCL on the cards
     rank = dist.get_rank()
     check(dist.get_world_size() == ranks, "mesh: a world of %d, not %d"
           % (dist.get_world_size(), ranks))
+    # whether joining the world and making a mesh made a CUDA context
+    # (on card 0) before this rank chose its card
+    print("mesh rank %d: world joined, CUDA initialized %s" % (
+        rank, torch.cuda.is_initialized()), flush=True)
     torch.cuda.set_device(rank % torch.cuda.device_count())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     _build.build_all()
-    # the ranks start each part together: rank 0's single-device
-    # references end a part, and the next part's collectives (its
-    # meshes' subgroups first) must not wait for it on the cards, where
-    # NCCL's watchdog bounds a wait; a gloo barrier on the host does not
-    import datetime
-    hold = dist.new_group(backend="gloo",
-                          timeout=datetime.timedelta(seconds=1800))
     card = gpu_line()
     out = {"card": card, "ranks": ranks, "launches": {}}
     t0 = time.perf_counter()
@@ -11708,14 +12075,33 @@ def mesh_worker(out_dir, ranks=1):
               mesh_pipeline, False),
              ("sp", "ring_attention, sp=%d" % ranks, mesh_ring, False),
              ("ep", "MixtureOfExperts, ep=%d" % ranks, mesh_moe, False))
+    failed = []
     for key, what, fn, checked in parts:
         # every rank says where it is: a hang shows which part held it
         print("mesh rank %d: part %s" % (rank, key), flush=True)
         registry.reset_launches()
         t1 = time.perf_counter()
-        with _capture.checking_syncs() if checked \
-                else contextlib.nullcontext():
-            res = fn(ranks, rank)
+        res = {}
+        try:
+            with _capture.checking_syncs() if checked \
+                    else contextlib.nullcontext():
+                fn(ranks, rank, res)
+        except SmokeFailure as e:
+            # a check failed after the part's collectives: the world
+            # goes on to the next part (its numbers printed), and the
+            # phase fails at the end
+            print("mesh (%s) FAILED on rank %d: %s" % (key, rank, e),
+                  flush=True)
+            failed.append("(%s) %s" % (key, e))
+            res["failed"] = str(e)
+        except BaseException:
+            # the peers are told at the part's barrier (or lose rank 0's
+            # store) and the launcher tears the world down
+            import traceback
+            traceback.print_exc()
+            mx.distributed.post_abort("mesh part %s" % key,
+                                      "rank %d raised" % rank)
+            mx.distributed.failfast_exit(1)
         res["s"] = time.perf_counter() - t1
         out[key] = res
         out["launches"][key] = {k: registry.launches(k)
@@ -11724,8 +12110,17 @@ def mesh_worker(out_dir, ranks=1):
             print("mesh (%s) %s: %s" % (key, what, json.dumps(
                 dict(res, card=card))), flush=True)
         release_cuda()
-        dist.barrier(group=hold)
-    res = mesh_checkpoint(ranks, rank, os.path.join(out_dir, "ckpt"))
+        # the ranks start each part together: rank 0's single-device
+        # references end a part, and the next part's collectives must
+        # not wait for it on the cards; a rank left waiting on a dead or
+        # stuck peer raises BarrierTimeout naming it
+        mx.distributed.barrier("mesh part %s" % key, timeout_ms=hold_ms)
+    print("mesh rank %d: part ckpt" % rank, flush=True)
+    try:
+        res = mesh_checkpoint(ranks, rank, os.path.join(out_dir, "ckpt"))
+    except SmokeFailure as e:
+        failed.append("(ckpt) %s" % e)
+        res = {"failed": str(e)}
     out["ckpt"] = res
     if rank == 0:
         print("mesh (ckpt) saved at tp=%d, restored onto a mesh: %s"
@@ -11734,61 +12129,64 @@ def mesh_worker(out_dir, ranks=1):
     if rank == 0:
         with open(os.path.join(out_dir, "mesh.json"), "w") as f:
             json.dump(out, f)
-    dist.barrier()
+    mx.distributed.barrier("mesh done", timeout_ms=hold_ms)
+    print("mesh rank %d: done" % rank, flush=True)
+    if failed:
+        print("mesh rank %d: FAILED: %s" % (rank, "; ".join(failed)),
+              flush=True)
+        return 1
     return 0
+
+
+# the four-card world's bounds: the world is stopped at MESH4_WORLD_S; a
+# collective left waiting aborts its rank at MESH4_COLLECTIVE_MS (NCCL's
+# watchdog) and a rank left at a part's barrier raises at MESH4_HOLD_MS,
+# both inside the world's bound
+MESH4_WORLD_S = 420
+MESH4_COLLECTIVE_MS = 300000
+MESH4_HOLD_MS = 300000
 
 
 def mesh4_phase():
     """Phase 24 at four ranks, one card each (``chip_paths.py mesh4``;
-    raises with fewer than four cards)."""
-    return mesh_phase(ranks=4, timeout=1200)
+    raises with fewer than four cards; run ``nccl4`` first on a new
+    machine): the world is stopped at MESH4_WORLD_S (420 s), a waiting
+    collective aborts at MESH4_COLLECTIVE_MS (300 s), a rank left at a
+    part's barrier raises at MESH4_HOLD_MS (300 s)."""
+    return mesh_phase(ranks=4, timeout=MESH4_WORLD_S)
 
 
 def mesh_phase(ranks=1, root=MESH_ROOT, timeout=600):
     """Phase 24: one child world of ``ranks`` (``python -m
     mxnet_tpu_torch.launch -n ranks``, one card a rank, NCCL), so this
-    process never joins a world; returns its results with each
-    kernel's launches by part."""
+    process never joins a world, run by :func:`run_world` (its lines
+    relayed as they come, the world stopped at ``timeout`` s); returns
+    its results with each kernel's launches by part."""
     import torch
     check(torch.cuda.device_count() >= ranks,
           "mesh: %d ranks need %d cards, %d visible"
           % (ranks, ranks, torch.cuda.device_count()))
+    if ranks > 1:
+        cards = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip().splitlines()
+        for i, line in enumerate(cards):
+            print("mesh card %d: %s" % (i, line), flush=True)
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
+    hold = MESH4_HOLD_MS if ranks > 1 else None
     code = ("import sys; sys.path.insert(0, %r); import chip_smoke; "
-            "sys.exit(chip_smoke.mesh_worker(%r, %d))"
-            % (REPO_ROOT, root, ranks))
-    env = dict(os.environ)
+            "sys.exit(chip_smoke.mesh_worker(%r, %d, %r))"
+            % (REPO_ROOT, root, ranks, hold))
+    env = {}
     if ranks > 1:
-        # a collective left waiting aborts its rank after 10 minutes
-        # (NCCL's watchdog), inside the phase's own bound
-        env.setdefault("MXNET_TPU_DIST_BARRIER_TIMEOUT_MS", "600000")
-        env.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "1")
+        env = {"MXNET_TPU_DIST_BARRIER_TIMEOUT_MS": str(MESH4_COLLECTIVE_MS),
+               "TORCH_NCCL_ASYNC_ERROR_HANDLING": "1",
+               "NCCL_DEBUG": os.environ.get("NCCL_DEBUG", "WARN")}
     t0 = time.perf_counter()
     try:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n",
-             str(ranks), sys.executable, "-c", code], cwd=REPO_ROOT,
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
-        try:
-            out, _ = proc.communicate(timeout=timeout)
-        except subprocess.TimeoutExpired:
-            # the launcher tears its workers down on SIGINT
-            import signal
-            proc.send_signal(signal.SIGINT)
-            try:
-                out, _ = proc.communicate(timeout=30)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                out, _ = proc.communicate()
-            check(False, "mesh phase: the world ran past %d s; its last "
-                  "output:\n%s" % (timeout, out[-6000:]))
-        for line in out.splitlines():
-            if line.startswith("[0] mesh ("):
-                print(line[4:], flush=True)
-        check(proc.returncode == 0, "mesh phase: the world exited %d:\n%s"
-              % (proc.returncode, out[-6000:]))
+        run_world(code, ranks, timeout, env=env)
         with open(os.path.join(root, "mesh.json")) as f:
             res = json.load(f)
     finally:
@@ -11797,6 +12195,22 @@ def mesh_phase(ranks=1, root=MESH_ROOT, timeout=600):
     print("mesh phase (%d rank%s): %.1f s" % (ranks, "s" * (ranks > 1),
                                               res["wall_s"]))
     return res
+
+
+PHASE_S = {}                    # seconds of each phase of the run
+_PHASE_T0 = [None]
+
+
+def phase_done(name):
+    """Close the phase that began at the previous call (or at the run's
+    start): print and keep its seconds.  Outside a whole run (a path
+    alone, a rehearsal) it does nothing."""
+    if _PHASE_T0[0] is None:
+        return
+    now = time.perf_counter()
+    PHASE_S[name] = round(now - _PHASE_T0[0], 1)
+    _PHASE_T0[0] = now
+    print("phase %s: %.1f s" % (name, PHASE_S[name]), flush=True)
 
 
 def kernel_entry(name, launches, kern, serve_launches=None, **extra):
@@ -11824,6 +12238,7 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from mxnet_tpu_torch import _capture
+    _PHASE_T0[0] = run_t0 = time.perf_counter()
     # every capture and replay of phases 1-15 under
     # torch.cuda.set_sync_debug_mode("error"): a host read left inside a
     # captured region fails the run
@@ -11836,46 +12251,56 @@ def main():
     print("hot-swap phases: outside the sync check (three threads use "
           "the card at once)")
     hot = hotswap_phase()
+    phase_done("hotswap")
     release_cuda()
     gen = generative_swap_phase()
+    phase_done("generative_swap")
     # phase 17: the ops plane observing ResNet-50 training (its
     # supervised worker and obs server are other processes and threads)
     release_cuda()
     ops = ops_plane_phase()
+    phase_done("ops_plane")
     # phase 18: two ranks train through dist_sync under the supervisor
     # (other processes on this card), watched by a fleet monitor here
     release_cuda()
     dist = dist_phase()
+    phase_done("dist")
     # phase 19: the symbolic API and the recurrent nets, one thing at a
     # time again, so under the host-read check
     release_cuda()
     with _capture.checking_syncs():
         symbolic = symbolic_phase()
+    phase_done("symbolic")
     # phase 20: the deployment path, one thing at a time, under the
     # host-read check
     release_cuda()
     with _capture.checking_syncs():
         deploy = deploy_phase()
+    phase_done("deploy")
     # phase 21: sparse storage and the contrib op families; its sparse
     # part and the calibration read ids and statistics on the host (the
     # JAX package's design), so it enters the host-read check itself
     release_cuda()
     contrib = contrib_phase()
+    phase_done("contrib")
     # phase 22: the NumPy front end and the engine and runtime helpers,
     # one thing at a time, under the host-read check
     release_cuda()
     with _capture.checking_syncs():
         numpy_ = numpy_phase()
+    phase_done("numpy")
     # phase 23: the static half of analysis/ -- its lint runs on the host
     # beside the gate and the audits, one thing at a time on the card
     release_cuda()
     with _capture.checking_syncs():
         analysis_ = analysis_phase()
+    phase_done("analysis")
     # phase 24: meshes and in-graph collectives -- a child world of one
     # rank on NCCL (this process joins no world); the child enters the
     # host-read check itself for its captured steps
     release_cuda()
     mesh = mesh_phase()
+    phase_done("mesh")
     for entry in entries:
         name = entry["name"]
         if name in ("bn_relu_apply", "bn_relu_bwd", "paged_attention"):
@@ -11904,6 +12329,8 @@ def main():
             entry["launches_mesh"] = {
                 part: counts[name]
                 for part, counts in mesh["launches"].items()}
+    print("phase seconds: %s" % json.dumps(
+        dict(PHASE_S, whole=round(time.perf_counter() - run_t0, 1))))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -11922,22 +12349,30 @@ def drive():
     libs = _build.build_all()
     print("built %s in %.1f s" % (", ".join(sorted(libs)),
                                   time.perf_counter() - t0))
+    phase_done("build")
     decode, scale = main_path()
+    phase_done("decode")
     net, step, (x, y), train = train_main_path()
+    phase_done("train")
     ckpt_root = checkpoint_phase(net, step, x, y)
+    phase_done("checkpoint")
     bd = train_step_breakdown(step, x, y, train["ms_per_step"])
     capture_report("ResNet-50 fp32 SGD TrainStep", step.capture_stats(),
                    {"ms_per_step": train["ms_per_step"],
                     "img_per_s": train["img_per_s"]},
                    bd["device_idle_share"], 1)
     del step, x, y
+    phase_done("train_breakdown")
     train_oracle(net)
     del net
     torch.cuda.empty_cache()
+    phase_done("train_oracle")
     capture_holds()
     torch.cuda.empty_cache()
+    phase_done("capture_holds")
     bucketed_holds()
     torch.cuda.empty_cache()
+    phase_done("bucketed_holds")
     net, step, (ids, labels), bert = bert_main_path()
     bd = train_step_breakdown(step, ids, labels, bert["ms_per_step"],
                               hand=BERT_KERNELS, label="BERT step breakdown")
@@ -11948,9 +12383,11 @@ def drive():
     sizes = [p.data().size for p in net.collect_params().values()]
     del step, ids, labels
     torch.cuda.empty_cache()
+    phase_done("bert")
     bert_oracle(net)
     del net
     torch.cuda.empty_cache()
+    phase_done("bert_oracle")
     net, step, (x, y), lars = amp_lars_main_path()
     bd = train_step_breakdown(amp_step(step), x, y, lars["ms_per_step"],
                               hand=LARS_KERNELS,
@@ -11967,18 +12404,28 @@ def drive():
                   if p.grad_req != "null"]
     del step, x, y, live
     torch.cuda.empty_cache()
+    phase_done("amp_lars")
     amp_lars_oracle(net)
     del net
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("amp_lars_oracle")
     bert_bf16 = bert_bf16_phase()
+    phase_done("bert_bf16:hold")
     pretrain = bert_pretrain_phase()
-    mnist_feed_path(mnist_main_path())
+    phase_done("pretrain:oracle")
+    mnist_stats = mnist_main_path()
+    phase_done("mnist")
+    mnist_feed_path(mnist_stats)
+    phase_done("mnist_feed")
     mnist_oracle()
+    phase_done("mnist_oracle")
     dense = densenet_phase()
     release_cuda()
+    phase_done("densenet:routes")
     imagenet = imagenet_input_phase()
     release_cuda()
+    phase_done("imagenet_input:jpeg")
     attn = kernel_phase(scale)
     bn = bn_relu_kernel_phase()
     flash = flash_kernel_phase(BERT_BATCH * BERT_HEADS, BERT_SEQ, 64)
@@ -11988,9 +12435,12 @@ def drive():
     bf16_k = bert_bf16_kernel_phase()
     pretrain_k = bert_pretrain_kernel_phase()
     torch.cuda.empty_cache()
+    phase_done("kernels")
     serve = serve_phase(ckpt_root)
+    phase_done("serve")
     decode_ckpt = decode_checkpoint_phase()
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    phase_done("decode_checkpoint")
     counts = bert["launches"]
 
     def bf16_path(name):

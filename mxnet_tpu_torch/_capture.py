@@ -68,6 +68,7 @@ import contextlib
 import gc
 import threading
 import time
+import weakref
 from collections import Counter
 
 import torch
@@ -78,9 +79,13 @@ from . import telemetry as _telemetry
 from .base import MXNetError
 from .kernels import registry
 
-__all__ = ["Graph", "GraphOwner", "checking_syncs", "in_body"]
+__all__ = ["Graph", "GraphOwner", "checking_syncs", "in_body",
+           "release_collective_graphs"]
 
 _local = threading.local()
+# the live graphs that recorded a mesh's collectives (NCCL kernels of a
+# process group): a world's teardown frees them first
+_collective_graphs = weakref.WeakSet()
 _capture_lock = threading.RLock()
 _sync_lock = threading.Lock()
 _checks = {"syncs": 0}
@@ -90,6 +95,23 @@ def in_body():
     """Whether this thread is running an owner's warmed or captured
     body."""
     return getattr(_local, "depth", 0) > 0
+
+
+def release_collective_graphs():
+    """Free every live graph that recorded a mesh's collectives
+    (``CUDAGraph.reset``), after the card has finished their replays:
+    :mod:`mxnet_tpu_torch.distributed` calls it as the world shuts down,
+    before its process groups are destroyed.  A rank of a four-card
+    world whose captured step was still referenced at interpreter exit
+    never exited (NVIDIA H100, NCCL 2.28.9); with its graphs freed first,
+    the world exits.  Returns how many graphs it freed."""
+    graphs = list(_collective_graphs)
+    if graphs:
+        torch.cuda.synchronize()
+        for g in graphs:
+            g.reset()
+    _collective_graphs.clear()
+    return len(graphs)
 
 
 @contextlib.contextmanager
@@ -361,6 +383,9 @@ class GraphOwner:
                         graph.capture_end()
                     except Exception as e:  # the body's error comes first
                         err = err or e
+            if any(name not in registry.KERNELS for name, _d in tally):
+                # a collective (a registered counter, not a hand kernel)
+                _collective_graphs.add(graph)
             if self.agree is not None:
                 # the ranks of a mesh agree on the outcome before any
                 # replays: a peer's failure raises here, named

@@ -179,7 +179,8 @@ def _shutdown():
     """Leave the world at interpreter exit: ranks > 0 post a departure
     key; rank 0, which hosts the store, waits for every departure (at
     most the barrier bound) so no peer loses the store mid-call, then
-    the process group is torn down."""
+    the graphs that recorded collectives are freed and the process
+    group is torn down."""
     global _world
     w = _world
     if w is None:
@@ -194,6 +195,14 @@ def _shutdown():
     except Exception:       # exiting: a dead peer must not hang or raise
         pass
     _world = None
+    try:
+        # a live CUDA graph that recorded NCCL collectives keeps the
+        # process from exiting once its groups are torn down: free the
+        # graphs first
+        from . import _capture
+        _capture.release_collective_graphs()
+    except Exception:
+        pass
     try:
         import torch.distributed as dist
         dist.destroy_process_group()

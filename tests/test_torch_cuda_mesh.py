@@ -15,6 +15,7 @@ import os
 import socket
 import subprocess
 import sys
+import time
 
 import pytest
 import torch
@@ -132,6 +133,7 @@ xb = torch.randn((32, 8, 8, 3), generator=gen).cuda()
 yb = torch.randint(0, 10, (32,), generator=gen).float().cuda()
 mine = slice(rank * 8, (rank + 1) * 8)
 net_m, step_m, loss_m, calls = train(mesh, xb[mine], yb[mine])
+print("FOUR rank %d: dp step" % rank, flush=True)
 w_m = [p.data()._data for p in net_m.collect_params().values()]
 assert calls["all_reduce"]["calls"] / 2 == step_m._buckets + 2 * 2
 if rank == 0:
@@ -139,6 +141,7 @@ if rank == 0:
     w_p = [p.data()._data for p in net_p.collect_params().values()]
     assert max(abs(a - b) / abs(b) for a, b in zip(loss_m, loss_p)) <= 1e-5
     assert norm_rel(w_m, w_p) <= 2e-2, norm_rel(w_m, w_p)
+print("FOUR rank %d: against one card" % rank, flush=True)
 
 # tensor parallelism over four cards: the MLP's forward
 tp = make_mesh({"tp": 4})
@@ -155,7 +158,10 @@ print("FOUR_OK", rank, flush=True)
 """
 
 
-def _world(tmp_path, script, n):
+def _world(tmp_path, script, n, timeout=180):
+    """Run ``script`` as a world of ``n`` ranks; every rank is killed
+    once ``timeout`` seconds have passed.  Returns each rank's exit code
+    and output."""
     path = tmp_path / "worker.py"
     path.write_text(script)
     s = socket.socket()
@@ -173,11 +179,13 @@ def _world(tmp_path, script, n):
             [sys.executable, "-u", str(path)], env=env, cwd=REPO,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     outs = []
+    deadline = time.time() + timeout
     for p in procs:
         try:
-            text, _ = p.communicate(timeout=600)
+            text, _ = p.communicate(timeout=max(1, deadline - time.time()))
         except subprocess.TimeoutExpired:
-            p.kill()
+            for q in procs:
+                q.kill()
             text, _ = p.communicate()
         outs.append((p.returncode, text))
     return outs
@@ -200,5 +208,7 @@ def test_a_world_of_four_ranks(card, tmp_path):
         pytest.skip("needs four cards, %d visible"
                     % torch.cuda.device_count())
     outs = _world(tmp_path, _FOUR, 4)
+    report = "\n".join("rank %d exit %s:\n%s" % (r, rc, text[-3000:])
+                       for r, (rc, text) in enumerate(outs))
     for r, (rc, text) in enumerate(outs):
-        assert rc == 0 and "FOUR_OK %d" % r in text, text[-4000:]
+        assert rc == 0 and "FOUR_OK %d" % r in text, report
