@@ -64,7 +64,11 @@ user widths against the CPU; ``check_consistency`` and
 ``tp_mesh``/``shard_tp`` with LAMB, the pipeline, ring attention, MoE
 and a ``restore(sharding=)`` round trip) and ``mesh4`` the same paths at
 four ranks, one card each (``launch -n 4``; it raises with fewer than
-four cards visible), against the single-device steps; its world is
+four cards visible), against the single-device steps -- (a) with two
+planted faults as its controls (``chip_smoke.planted_fault``: BatchNorm
+statistics left per rank, and the smallest gradient bucket left out of
+the all-reduce), each of which must fail a check the real dp=4 step
+passes (``chip_smoke.mesh_dp_rule``); its world is
 stopped at ``MESH4_WORLD_S`` (420 s), a waiting collective aborts its
 rank at ``MESH4_COLLECTIVE_MS`` (300 s, NCCL's watchdog) and a rank
 left at a part's barrier raises at ``MESH4_HOLD_MS`` (300 s).  ``nccl4``

@@ -529,7 +529,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    "mesh (...)" line with its collectives' calls and bytes and a
    profile (ms a call, device busy, NCCL kernel ms and share); the
    kernels line carries ``launches_mesh`` by part.  ``chip_paths.py
-   mesh4`` runs the same paths at four ranks, one card each.
+   mesh4`` runs the same paths at four ranks, one card each, (a)
+   against the b128 step on rank 0 by :func:`mesh_dp_rule`, with two
+   planted faults (:func:`planted_fault`) that must each fail it.
+
+The ImageNet records of phase 15 are written from the run's start in a
+CPU-only worker process (:class:`HostWorker`, on the upper half of the
+cpus); the input phase waits for them before its window.  A worker that
+raises, dies or misses its bound fails the run, naming the job.
 
 Every path runs from captured CUDA graphs (``mxnet_tpu_torch._capture``),
 the port's counterpart of the JAX package's compiled programs: one
@@ -3231,7 +3238,7 @@ def bert_bf16_oracle(arrays, prefix, vocab=BERT_VOCAB,
         "fp32_card_grad_worst_param": f_name,
         "factor": AMP_ORACLE_FACTOR, "placement_factor":
         BF16_PLACEMENT_FACTOR, "floor_cap": AMP_FLOOR_CAP,
-        "card": gpu_line()})
+        "card": gpu_line() if device != "cpu" else None})
     print("BERT bf16 Adam oracle (card vs CPU): %s" % json.dumps(out))
     check(np.isfinite(loss["card"]), "BERT bf16 oracle: the card's loss is "
           "not finite")
@@ -5433,6 +5440,28 @@ def make_records(prefix, n, fmt="raw", hw=INPUT_SOURCE, crop=INPUT_IMAGE,
     return prefix + ".rec"
 
 
+def write_input_records(root, records=INPUT_RECORDS, image=INPUT_IMAGE,
+                        source=INPUT_SOURCE, jpeg_records=JPEG_RECORDS):
+    """The ImageNet input phase's records under ``root``: ``records`` raw
+    ``image``-square crops and, where a codec imports, ``jpeg_records``
+    JPEGs of the ``source``-square images: ``{"raw", "raw_s", "jpg",
+    "jpg_s"}`` (paths, seconds; ``jpg`` None without a codec).  Host
+    work alone: the run writes them in the host worker from its
+    start."""
+    codecs = codec_versions()
+    t0 = time.perf_counter()
+    out = {"raw": make_records(os.path.join(root, "raw"), records,
+                               crop=image, hw=source)}
+    out["raw_s"] = time.perf_counter() - t0
+    out["jpg"] = out["jpg_s"] = None
+    if codecs["cv2"] or codecs["PIL"]:
+        t0 = time.perf_counter()
+        out["jpg"] = make_records(os.path.join(root, "jpg"), jpeg_records,
+                                  fmt="jpg", hw=source)
+        out["jpg_s"] = time.perf_counter() - t0
+    return out
+
+
 def input_iter_kw(batch, image, threads, **extra):
     """``mx.io.ImageRecordIter``'s arguments on this path."""
     kw = dict(data_shape=(3, image, image), batch_size=batch, shuffle=True,
@@ -5657,18 +5686,15 @@ def landed_batch_check(rec, batch, image, threads, ctx, seed=3):
     return out
 
 
-def jpeg_path(root, step, batch, image, records, sweep, ctx,
-              source=INPUT_SOURCE):
-    """JPEG records (``source``-square, quality 90) read through the same
-    iterator with ``rand_crop=True``: host img/s at each thread count of
-    ``sweep``, then one streamed pass of ``steps`` steps into ``step``."""
+def jpeg_path(rec, write_s, step, batch, image, records, sweep, ctx):
+    """The ``records`` JPEG records at ``rec`` (``source``-square, quality
+    90, written in ``write_s``) read through the same iterator with
+    ``rand_crop=True``: host img/s at each thread count of ``sweep``,
+    then one streamed pass of ``steps`` steps into ``step``."""
     import torch
     import mxnet_tpu_torch as mx
     cuda = ctx.device_type == "gpu"
-    t0 = time.perf_counter()
-    rec = make_records(os.path.join(root, "jpg"), records, fmt="jpg",
-                       hw=source)
-    out = {"records": records, "write_s": time.perf_counter() - t0,
+    out = {"records": records, "write_s": write_s,
            "file_bytes": os.path.getsize(rec)}
     rates = {}
     timed = min(INPUT_SWEEP_BATCHES, records // batch) - 1
@@ -5705,7 +5731,8 @@ def imagenet_input_phase(make_net=resnet50_nhwc, records=INPUT_RECORDS,
                          sweep_batches=INPUT_SWEEP_BATCHES,
                          jpeg_records=JPEG_RECORDS,
                          jpeg_sweep=JPEG_THREAD_SWEEP, source=INPUT_SOURCE,
-                         sites=BN_RELU_SITES, ctx=None, root=INPUT_ROOT):
+                         sites=BN_RELU_SITES, ctx=None, root=INPUT_ROOT,
+                         written=None):
     """ResNet-50 v1 NHWC under bf16 AMP with bucketed LARS trained from
     a ``.rec``: ``records`` raw records written by the port's
     ``recordio`` into a temporary directory (removed at the end), read
@@ -5720,7 +5747,10 @@ def imagenet_input_phase(make_net=resnet50_nhwc, records=INPUT_RECORDS,
     idle share over a profiled stretch, the loader's parts, a landed
     batch against its host batch, and the JPEG path where a codec
     imports.  With ``sites=0`` the launch checks are
-    skipped (the CPU rehearsal)."""
+    skipped (the CPU rehearsal).  ``written``, when given, returns
+    ``(directory, write_input_records's value)`` for records written
+    elsewhere (the host worker), waiting for them; the phase removes
+    the directory at its end."""
     import tempfile
     import torch
     import mxnet_tpu_torch as mx
@@ -5737,14 +5767,19 @@ def imagenet_input_phase(make_net=resnet50_nhwc, records=INPUT_RECORDS,
         {"codecs": codecs, "recordio_route": route,
          "native_library": str(_native.so_path()) if native else None,
          "cpu_count": os.cpu_count()}))
-    os.makedirs(root, exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="imagenet-input-", dir=root)
+    tmp = None
+    if written is None:
+        os.makedirs(root, exist_ok=True)
+        tmp = tempfile.mkdtemp(prefix="imagenet-input-", dir=root)
+        here = tmp
+        written = lambda: (here, write_input_records(
+            here, records, image, source, jpeg_records))
     try:
         t0 = time.perf_counter()
-        rec = make_records(os.path.join(tmp, "raw"), records, crop=image,
-                           hw=source)
-        write_s = time.perf_counter() - t0
-        phase_done("imagenet_input:write")
+        tmp, files = written()
+        wait_s = time.perf_counter() - t0
+        rec, write_s = files["raw"], files["raw_s"]
+        phase_done("imagenet_input:records")
         net = make_net()
         net.initialize(device=device,
                        generator=torch.Generator().manual_seed(0))
@@ -5816,7 +5851,8 @@ def imagenet_input_phase(make_net=resnet50_nhwc, records=INPUT_RECORDS,
         synth_rate = batch * INPUT_SYNTH_STEPS / synth_s
         rates = [batch * n / s for n, s in zip(steps, epochs_s)]
         stats = {"records": records, "record_bytes": os.path.getsize(rec),
-                 "write_s": write_s, "batch": batch, "epochs": epochs,
+                 "write_s": write_s, "records_wait_s": wait_s,
+                 "batch": batch, "epochs": epochs,
                  "steps": n_steps, "preprocess_threads": threads,
                  "recordio_route": route, "warmup_s": warm_s,
                  "epoch_s": epochs_s, "epoch_img_per_s": rates,
@@ -5852,9 +5888,10 @@ def imagenet_input_phase(make_net=resnet50_nhwc, records=INPUT_RECORDS,
         print("ImageNet input landed batch vs host batch: %s"
               % json.dumps(out["landed"]))
         phase_done("imagenet_input:parts")
-        if codecs["cv2"] or codecs["PIL"]:
-            out["jpeg"] = jpeg_path(tmp, step, batch, image, jpeg_records,
-                                    jpeg_sweep, ctx, source)
+        if files["jpg"] is not None:
+            out["jpeg"] = jpeg_path(files["jpg"], files["jpg_s"], step,
+                                    batch, image, jpeg_records, jpeg_sweep,
+                                    ctx)
             print("ImageNet input JPEG (256-square, quality 90, "
                   "rand_crop): %s" % json.dumps(dict(
                       out["jpeg"], card=gpu_line() if cuda else None)))
@@ -5865,7 +5902,8 @@ def imagenet_input_phase(make_net=resnet50_nhwc, records=INPUT_RECORDS,
         del step, net
         return out
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
 
 
 def mnist_feed_path(host_stats=None, ctx=None,
@@ -11131,11 +11169,35 @@ MESH_BERT_STEPS = 3             # (b) eager, captured, replayed
 # operand, so the two steps do the same arithmetic)
 MESH_HOLD_LIMIT = 1e-6
 # (a) at four ranks, against the step without a mesh on the global
-# batch: PR 2's rule for this net, max(2e-2, 4 x the floor of the same
-# step on the permuted batch); losses at 1e-5
+# batch (rank 0 alone), each quantity at the larger of its fixed limit
+# and MESH_DP_FLOOR_FACTOR x its own distance in that step run on the
+# permuted batch.  One step from the same weights: the loss at 1e-5
+# (fixed), the update and the momenta at 2e-2 (the training oracle's), the
+# BatchNorm running means and variances at 1e-4 (the training oracle's)
+# -- after one step they read global-batch BatchNorm directly: a rank's
+# own 32 images move them by sampling error, a correct step only by
+# fp32 order.  Four steps: the losses step by step (1e-5), the weights
+# without the running statistics and the momenta (2e-2), the running
+# statistics (1e-4), each floor the largest over MESH_DP_PERMUTATIONS
+# permuted batches; four steps at lr 0.05 carry fp32 order into every
+# quantity, so one of these is held only where a planted fault
+# (MESH_DP_CONTROLS, :func:`planted_fault`) moves it past its limit,
+# and printed otherwise.  After the four steps every rank's weights,
+# running statistics and momenta are bitwise rank 0's (the all-reduce
+# gives every rank the same sums).  The real step passes every held
+# check; each control fails at least one
 MESH_DP_LIMIT = 2e-2
 MESH_DP_FLOOR_FACTOR = 4.0
 MESH_DP_LOSS_LIMIT = 1e-5
+MESH_DP_STAT_LIMIT = ORACLE_LIMITS["running_stat_rel_err"]
+MESH_DP_CONTROLS = ("batchnorm_per_rank", "bucket_unsummed")
+MESH_DP_ONE_STEP = ("loss", "updates", "momenta", "running_mean",
+                    "running_var")
+MESH_DP_TRAJECTORY = ("weights", "momenta", "running_mean", "running_var")
+# permuted batches of the reference's trajectory: its floor is the
+# largest distance among them (a loss is one number, and 4x one draw of
+# its noise fails a draw of the same noise one time in six)
+MESH_DP_PERMUTATIONS = 4
 # (b) bucketed_holds' rule: max(1e-5, 4 x the floor of two runs
 # without a mesh); the key third of each qkv bias printed, not held
 MESH_BERT_LIMIT = 1e-5
@@ -11193,11 +11255,12 @@ def mesh_profile(fn, ranks, allreduce_bytes=None, iters=2):
     return out
 
 
-def _single_device(ranks):
+def _single_device(ranks, device=None):
     """The mesh a reference step runs on: None in a world of one (the
     step without a mesh), else rank 0 alone (every rank makes it)."""
     from mxnet_tpu_torch.parallel import make_mesh
-    return None if ranks == 1 else make_mesh({"dp": 1}, devices=[0])
+    return None if ranks == 1 else make_mesh({"dp": 1}, devices=[0],
+                                             device=device)
 
 
 def _full(t, sharding):
@@ -11213,162 +11276,354 @@ def _full(t, sharding):
         return collectives._gather(t.detach(), sharding.mesh, spec[dim], dim)
 
 
-def mesh_dp_resnet(ranks, rank, res=None):
-    """(a) ResNet-50 v1 NHWC fp32 SGD, ``TrainStep(mesh=make_mesh({"dp":
-    ranks}))`` at MESH_BATCH a rank, captured; held against the same
-    step without a mesh on the global batch (on rank 0)."""
+@contextlib.contextmanager
+def planted_fault(kind):
+    """A data-parallel fault patched into ``TrainStep`` for the scope,
+    one of MESH_DP_CONTROLS: ``"batchnorm_per_rank"`` hands no
+    BatchNorm site the step's batch axis, so each rank normalizes by its
+    own slice's statistics; ``"bucket_unsummed"`` leaves the smallest
+    fp32 gradient bucket out of the all-reduce, so its gradients are
+    this rank's alone.  (a)'s controls: a rule that passes them has no
+    teeth."""
+    import torch
+    from mxnet_tpu_torch.parallel import collectives
+    from mxnet_tpu_torch.parallel.data_parallel import TrainStep
+    if kind == "batchnorm_per_rank":
+        name = "_batch_synced"
+
+        def patched(self):
+            return contextlib.nullcontext()
+    elif kind == "bucket_unsummed":
+        name = "_all_reduce_grads"
+        reduce_grads = TrainStep._all_reduce_grads
+
+        def patched(self, grads, loss):
+            real = collectives.all_reduce_
+            sizes = []
+
+            def sizing(t, *args, **kwargs):
+                # the bucket layout: the step's own bucketing, every
+                # reduce an identity (the gradients are written back
+                # unchanged)
+                sizes.append(t.numel() if t.dtype == torch.float32
+                             else float("inf"))
+                return t
+
+            calls = [0]
+
+            def skipping(t, *args, **kwargs):
+                calls[0] += 1
+                if calls[0] - 1 == skip:
+                    return t
+                return real(t, *args, **kwargs)
+
+            collectives.all_reduce_ = sizing
+            try:
+                reduce_grads(self, grads, loss)
+            finally:
+                collectives.all_reduce_ = real
+            skip = sizes.index(min(sizes))
+            collectives.all_reduce_ = skipping
+            try:
+                return reduce_grads(self, grads, loss)
+            finally:
+                collectives.all_reduce_ = real
+    else:
+        raise ValueError("planted_fault: unknown fault %r" % kind)
+    original = getattr(TrainStep, name)
+    setattr(TrainStep, name, patched)
+    try:
+        yield
+    finally:
+        setattr(TrainStep, name, original)
+
+
+def mesh_dp_run(make_net, step_mesh, xb, yb, steps=MESH_STEPS,
+                device="cuda", first=False, counting=False):
+    """``steps`` calls of ``TrainStep(mesh=step_mesh)`` (SGD, TRAIN_SGD)
+    on ``(xb, yb)`` from ``make_net()`` initialized from seed 0:
+    ``(out, step)``, ``out`` the losses and, after the last step (and
+    with ``first`` after step 1 under ``"first"``), the updates of every
+    parameter, the weights without the BatchNorm running statistics,
+    the running means, the running variances and the momenta; the wall
+    seconds of the replays after the capture (the collective counts
+    zeroed before them).  With ``counting`` the kernels' launch counts are
+    zeroed just before the first step."""
     import torch
     from mxnet_tpu_torch import autograd, gluon
     from mxnet_tpu_torch.kernels import registry
-    from mxnet_tpu_torch.parallel import TrainStep, collectives, make_mesh
+    from mxnet_tpu_torch.parallel import TrainStep, collectives
+    net = make_net()
+    net.initialize(device=device,
+                   generator=torch.Generator().manual_seed(0))
+    xb, yb = torch.as_tensor(xb).to(device), torch.as_tensor(yb).to(device)
+    with autograd.pause():
+        net(xb[:1])                     # sizes deferred parameters
+    params = list(net.collect_params().items())
+    w0 = [p.data()._data.detach().clone() for _k, p in params]
+    tr = gluon.Trainer(net.collect_params(), "sgd", TRAIN_SGD)
+    step = TrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(), tr,
+                     mesh=step_mesh)
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    def state(losses):
+        data = [(k, p.data()._data.detach()) for k, p in params]
+        return {"losses": [float(v) for v in losses],
+                "updates": [t - w for (_k, t), w in zip(data, w0)],
+                "weights": [t.clone() for (k, t), (_k, p) in zip(data,
+                                                                 params)
+                            if p.grad_req != "null"],
+                "running_mean": [t.clone() for k, t in data
+                                 if k.endswith("running_mean")],
+                "running_var": [t.clone() for k, t in data
+                                if k.endswith("running_var")],
+                "momenta": [tr._updater.states[i].detach().clone()
+                            for i in sorted(tr._updater.states)]}
+
+    if counting:
+        registry.reset_launches()
+    losses, t0, after_first = [], time.perf_counter(), None
+    for k in range(steps):
+        if k == 2:
+            sync()
+            collectives.reset_counts()
+            t0 = time.perf_counter()
+        losses.append(step(xb, yb))
+        if first and k == 0:
+            after_first = state(losses)
+    sync()
+    out = dict(state(losses), wall_s=time.perf_counter() - t0)
+    if after_first is not None:
+        out["first"] = after_first
+    return out, step
+
+
+def mesh_dp_replicas(state, ranks):
+    """How many ranks hold another state than rank 0 after a data-
+    parallel run (:func:`mesh_dp_run`'s ``state``: every weight, running
+    statistic and momentum): each rank's sha256 of their bytes, gathered
+    by a host all-reduce of one row a rank.  A step whose every gradient
+    and moment is summed over the ranks keeps the replicas bitwise
+    equal."""
+    import torch
+    import torch.distributed as dist
+    from mxnet_tpu_torch import distributed
+    h = hashlib.sha256()
+    for key in ("weights", "running_mean", "running_var", "momenta"):
+        for t in state[key]:
+            h.update(t.detach().cpu().contiguous().view(-1)
+                     .view(torch.uint8).numpy().tobytes())
+    rows = torch.zeros((ranks, 32), dtype=torch.int64)
+    rows[dist.get_rank()] = torch.frombuffer(bytearray(h.digest()),
+                                             dtype=torch.uint8).long()
+    rows = distributed.host_allreduce(rows)
+    return int(sum(not torch.equal(r, rows[0]) for r in rows[1:]))
+
+
+def mesh_dp_distances(run, want, perms):
+    """Each quantity of ``run`` (:func:`mesh_dp_run`'s) against
+    ``want``'s, the step without a mesh on the global batch, beside the
+    largest distance of that step run on each permuted batch of
+    ``perms``: ``{quantity: [distance, floor]}``, the losses step by
+    step, the rest norm-wise relative."""
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    out = {}
+    for k, b in enumerate(want["losses"]):
+        out["loss_step%d" % (k + 1)] = [
+            rel(run["losses"][k], b),
+            max(rel(p["losses"][k], b) for p in perms)]
+    for key in ("updates", "weights", "momenta", "running_mean",
+                "running_var"):
+        out[key] = [_norm_rel(run[key], want[key]),
+                    max(_norm_rel(p[key], want[key]) for p in perms)]
+    return out
+
+
+def mesh_dp_limit(quantity, floor):
+    """(a)'s limit of ``quantity`` at its own permuted ``floor``."""
+    fixed = MESH_DP_LOSS_LIMIT if quantity.startswith("loss") \
+        else MESH_DP_STAT_LIMIT if quantity.startswith("running") \
+        else MESH_DP_LIMIT
+    return max(fixed, MESH_DP_FLOOR_FACTOR * floor)
+
+
+def mesh_dp_rule(runs, refs):
+    """(a)'s rule at dp > 1.  ``runs`` maps ``"real"`` and each control
+    of MESH_DP_CONTROLS to ``{"one": its state after one step from the
+    same weights, "four": after the four steps, "replicas": the ranks
+    whose state then differs from rank 0's}``; ``refs`` maps ``"one"``
+    and ``"four"`` to ``(want, [permuted, ...])``, the step without a
+    mesh on the global batch and on permuted batches.  Returns
+    ``{"one_step": {...}, "trajectory": {...}, "replicas": {...}}``,
+    each ``{quantity: {"floor", "limit", "held", "real", <control>...}}``
+    (distances): every one-step quantity of MESH_DP_ONE_STEP is held,
+    the loss at its fixed 1e-5; a trajectory quantity is held where some
+    control's distance passes its limit; the replicas are held equal."""
+    table = {}
+    for when, names in (("one", MESH_DP_ONE_STEP), ("four", None)):
+        want, perms = refs[when]
+        dists = {who: mesh_dp_distances(r[when], want, perms)
+                 for who, r in runs.items()}
+        if names is not None:
+            for d in dists.values():
+                d["loss"] = d.pop("loss_step1")
+        rows = {}
+        for q, (_d, floor) in dists["real"].items():
+            if q not in (names or MESH_DP_TRAJECTORY) \
+                    and not q.startswith("loss_step"):
+                continue
+            limit = MESH_DP_LOSS_LIMIT if q == "loss" \
+                else mesh_dp_limit(q, floor)
+            row = {"floor": floor, "limit": limit}
+            row.update({who: d[q][0] for who, d in dists.items()})
+            row["held"] = names is not None or any(
+                row[c] > limit for c in runs if c != "real")
+            rows[q] = row
+        table["one_step" if names is not None else "trajectory"] = rows
+    row = {"floor": 0, "limit": 0, "held": True}
+    row.update({who: r["replicas"] for who, r in runs.items()})
+    table["replicas"] = {"ranks_differing": row}
+    return table
+
+
+def mesh_dp_failures(table):
+    """``{run: [held quantities it fails]}`` of :func:`mesh_dp_rule`'s
+    table, for the real step and each control."""
+    whos = [k for k in next(iter(table["one_step"].values()))
+            if k not in ("floor", "limit", "held")]
+    return {who: ["%s %s" % (when, q) for when, rows in table.items()
+                  for q, row in rows.items()
+                  if row["held"] and row[who] > row["limit"]]
+            for who in whos}
+
+
+def mesh_dp_resnet(ranks, rank, res=None):
+    """(a) ResNet-50 v1 NHWC fp32 SGD, ``TrainStep(mesh=make_mesh({"dp":
+    ranks}))`` at MESH_BATCH a rank, captured; held against the same
+    step without a mesh on the global batch (on rank 0).  At one rank
+    the two are the same arithmetic (MESH_HOLD_LIMIT); at more,
+    :func:`mesh_dp_rule`, shown to have teeth by the two planted faults
+    of MESH_DP_CONTROLS, each run through the same steps, each of which
+    must fail a held check."""
+    import torch
+    from mxnet_tpu_torch.kernels import registry
+    from mxnet_tpu_torch.parallel import collectives, make_mesh
     mesh = make_mesh({"dp": ranks})
     gen = torch.Generator().manual_seed(0)
     n = MESH_BATCH * ranks
     x = torch.randn((n, 224, 224, 3), generator=gen)
     y = torch.randint(0, 1000, (n,), generator=gen).float()
 
-    def run(step_mesh, xb, yb, counting=False, steps=MESH_STEPS):
-        net = resnet50_nhwc()
-        net.initialize(device="cuda",
-                       generator=torch.Generator().manual_seed(0))
-        xb, yb = xb.cuda(), yb.cuda()
-        with autograd.pause():
-            net(xb[:1])                 # sizes deferred parameters
-        w0 = [p.data()._data.detach().clone()
-              for p in net.collect_params().values()]
-        tr = gluon.Trainer(net.collect_params(), "sgd", TRAIN_SGD)
-        step = TrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(), tr,
-                         mesh=step_mesh)
-        if counting:
-            registry.reset_launches()
-        losses, t0 = [], time.perf_counter()
-        for k in range(steps):
-            if k == 2:
-                torch.cuda.synchronize()
-                collectives.reset_counts()
-                t0 = time.perf_counter()
-            losses.append(step(xb, yb))
-        torch.cuda.synchronize()
-        out = {"losses": [float(v) for v in losses],
-               "wall_s": time.perf_counter() - t0,
-               "updates": [p.data()._data.detach() - w
-                           for p, w in zip(net.collect_params().values(),
-                                           w0)],
-               "weights": [p.data()._data.detach().clone()
-                           for p in net.collect_params().values()],
-               "momenta": [tr._updater.states[i].detach().clone()
-                           for i in sorted(tr._updater.states)]}
-        if counting:
-            out["calls"] = collectives.counts()
-            out["launches"] = {k: registry.launches(k)
-                               for k in ("bn_relu_apply", "bn_relu_bwd")}
-            # a BatchNorm site a running mean
-            out["sites"] = sum(1 for k in net.collect_params()
-                               if k.endswith("running_mean"))
-            out["walk"] = step.cost_report()["categories"]["collective"][
-                "instructions"]
-            out["buckets"] = step._buckets
-            out["capture"] = step.capture_stats()
-            out["profile"] = mesh_profile(
-                lambda: step(xb, yb), ranks,
-                out["calls"]["all_reduce"]["bytes"] / (MESH_STEPS - 2))
-        return out
+    def run(step_mesh, xb, yb, **kw):
+        return mesh_dp_run(resnet50_nhwc, step_mesh, xb, yb, **kw)[0]
 
     sl = slice(rank * MESH_BATCH, (rank + 1) * MESH_BATCH)
-    got = run(mesh, x[sl], y[sl], counting=True)
+    got, step = mesh_dp_run(resnet50_nhwc, mesh, x[sl], y[sl],
+                            counting=True)
+    got["calls"] = collectives.counts()
+    got["launches"] = {k: registry.launches(k)
+                       for k in ("bn_relu_apply", "bn_relu_bwd")}
+    sites = len(got["running_mean"])    # a BatchNorm site a running mean
+    walk = step.cost_report()["categories"]["collective"]["instructions"]
+    capture = step.capture_stats()
+    xg, yg = x[sl].cuda(), y[sl].cuda()
+    profile = mesh_profile(
+        lambda: step(xg, yg), ranks,
+        got["calls"]["all_reduce"]["bytes"] / (MESH_STEPS - 2))
+    buckets = step._buckets
+    del step, xg, yg
     replays = MESH_STEPS - 2
     per_replay = sum(v["calls"] for v in got["calls"].values()) / replays
-    sites = got["sites"]
     res = {} if res is None else res
     res.update({"ranks": ranks, "batch_a_rank": MESH_BATCH,
                 "steps": MESH_STEPS,
                 "losses": got["losses"],
                 "collectives_a_replay": per_replay,
-                "collectives_walked": got["walk"],
-                "gradient_buckets": got["buckets"], "batchnorm_sites": sites,
+                "collectives_walked": walk,
+                "gradient_buckets": buckets, "batchnorm_sites": sites,
                 "calls": got["calls"], "launches": got["launches"],
-                "graphs": got["capture"]["graphs"],
-                "replays": got["capture"]["replays"],
-                "profile": got["profile"],
+                "graphs": capture["graphs"], "replays": capture["replays"],
+                "profile": profile,
                 "img_per_s": MESH_BATCH * ranks * replays / got["wall_s"],
                 "ms_per_step": 1e3 * got["wall_s"] / replays})
     check(per_replay > 0, "mesh (a): no collective in a replay")
-    check(per_replay == got["walk"] == got["buckets"] + 2 * sites,
+    check(per_replay == walk == buckets + 2 * sites,
           "mesh (a): %s collectives a replay, %s walked, %d buckets + 2 x "
-          "%d BatchNorm sites" % (per_replay, got["walk"], got["buckets"],
-                                  sites))
+          "%d BatchNorm sites" % (per_replay, walk, buckets, sites))
     for k, v in got["launches"].items():
         check(v == BN_RELU_SITES * MESH_STEPS, "mesh (a): %s launches %d "
               "!= %d x %d" % (k, v, BN_RELU_SITES, MESH_STEPS))
     ref_mesh = _single_device(ranks)
-    if ranks > 1:
-        # one step from the same weights, the training oracle's rule:
-        # the loss at 1e-5, the update and the momenta each within
-        # max(2e-2, 4 x its own permuted floor); the trajectory below
-        # holds four steps
-        one = run(mesh, x[sl], y[sl], steps=1)
-        if rank == 0:
-            perm = torch.randperm(x.shape[0],
-                                  generator=torch.Generator().manual_seed(1))
-            one_want = run(ref_mesh, x, y, steps=1)
-            one_perm = run(ref_mesh, x[perm], y[perm], steps=1)
-            step1 = {"loss_rel_err": abs(one["losses"][0]
-                                         - one_want["losses"][0])
-                     / abs(one_want["losses"][0])}
-            for key in ("updates", "momenta"):
-                err = _norm_rel(one[key], one_want[key])
-                floor = _norm_rel(one_perm[key], one_want[key])
-                step1[key] = {"rel_err": err, "floor": floor, "limit": max(
-                    MESH_DP_LIMIT, MESH_DP_FLOOR_FACTOR * floor)}
-            res["one_step"] = step1
-            print("mesh (a) one step from the same weights: %s"
-                  % json.dumps(step1), flush=True)
-            del one_want, one_perm
-        del one
-    if rank == 0:
+    if ranks == 1:
         want = run(ref_mesh, x, y)
         res["ms_per_step_without_mesh"] = 1e3 * want["wall_s"] / replays
+        res["losses_without_mesh"] = want["losses"]
         res["loss_rel_err"] = max(abs(a - b) / abs(b) for a, b in zip(
             got["losses"], want["losses"]))
-        res["weights_rel_err"] = _norm_rel(got["weights"], want["weights"])
-        res["momenta_rel_err"] = _norm_rel(got["momenta"], want["momenta"])
-        if ranks == 1:
-            res["limit"] = MESH_HOLD_LIMIT
-            loss_limit = MESH_HOLD_LIMIT
-        else:
-            perm = torch.randperm(x.shape[0], generator=gen)
-            floor = run(ref_mesh, x[perm], y[perm])
-            res["floor"] = _norm_rel(floor["weights"], want["weights"])
-            res["limit"] = max(MESH_DP_LIMIT,
-                               MESH_DP_FLOOR_FACTOR * res["floor"])
-            loss_limit = MESH_DP_LOSS_LIMIT
-            res["losses_permuted"] = floor["losses"]
-            res["momenta_floor"] = _norm_rel(floor["momenta"],
-                                             want["momenta"])
-            res["loss_floor"] = max(abs(a - b) / abs(b) for a, b in zip(
-                floor["losses"], want["losses"]))
-        res["losses_without_mesh"] = want["losses"]
-        del want
+        for key in ("weights", "momenta", "running_mean", "running_var"):
+            res["%s_rel_err" % key] = _norm_rel(got[key], want[key])
+        res["limit"] = MESH_HOLD_LIMIT
         print("mesh (a) against the step without a mesh: %s" % json.dumps(
-            {k: res.get(k) for k in (
-                "losses", "losses_without_mesh", "losses_permuted",
-                "loss_rel_err", "loss_floor", "weights_rel_err",
-                "momenta_rel_err", "floor", "momenta_floor", "limit")}),
-            flush=True)
-        step1 = res.get("one_step")
-        if step1 is not None:
-            check(step1["loss_rel_err"] <= MESH_DP_LOSS_LIMIT,
-                  "mesh (a): one step's loss off by %.3g"
-                  % step1["loss_rel_err"])
-            for key in ("updates", "momenta"):
-                check(step1[key]["rel_err"] <= step1[key]["limit"],
-                      "mesh (a): one step's %s %.3g > %.3g"
-                      % (key, step1[key]["rel_err"], step1[key]["limit"]))
-        check(res["loss_rel_err"] <= loss_limit,
-              "mesh (a): loss off by %.3g" % res["loss_rel_err"])
-        for key in ("weights_rel_err", "momenta_rel_err"):
-            check(res[key] <= res["limit"], "mesh (a): %s %.3g > %g"
-                  % (key, res[key], res["limit"]))
+            {k: res[k] for k in (
+                "losses", "losses_without_mesh", "loss_rel_err",
+                "weights_rel_err", "momenta_rel_err", "running_mean_rel_err",
+                "running_var_rel_err", "limit")}), flush=True)
+        for key in ("loss", "weights", "momenta", "running_mean",
+                    "running_var"):
+            check(res["%s_rel_err" % key] <= MESH_HOLD_LIMIT,
+                  "mesh (a): %s off by %.3g" % (key,
+                                                res["%s_rel_err" % key]))
+        return res
+    # every rank runs the collective steps first -- one step from the
+    # same weights, then each planted fault through the four steps --
+    # and rank 0 its references after them
+    runs = {"real": {"one": run(mesh, x[sl], y[sl], steps=1),
+                     "four": got, "replicas": mesh_dp_replicas(got, ranks)}}
+    for kind in MESH_DP_CONTROLS:
+        with planted_fault(kind):
+            four = run(mesh, x[sl], y[sl], first=True)
+        runs[kind] = {"one": four.pop("first"), "four": four,
+                      "replicas": mesh_dp_replicas(four, ranks)}
+        if rank != 0:
+            del runs[kind]
+    if rank != 0:
+        return res
+    perm1 = torch.randperm(n, generator=torch.Generator().manual_seed(1))
+    perms = [torch.randperm(n, generator=gen)] + [
+        torch.randperm(n, generator=torch.Generator().manual_seed(100 + k))
+        for k in range(MESH_DP_PERMUTATIONS - 1)]
+    refs = {"one": (run(ref_mesh, x, y, steps=1),
+                    [run(ref_mesh, x[perm1], y[perm1], steps=1)])}
+    want = run(ref_mesh, x, y)
+    refs["four"] = (want, [run(ref_mesh, x[p], y[p]) for p in perms])
+    table = mesh_dp_rule(runs, refs)
+    fails = mesh_dp_failures(table)
+    res.update({"ms_per_step_without_mesh": 1e3 * want["wall_s"] / replays,
+                "losses_without_mesh": want["losses"],
+                "losses_permuted": [p["losses"] for p in refs["four"][1]],
+                "controls": {c: runs[c]["four"]["losses"]
+                             for c in MESH_DP_CONTROLS},
+                "rule": table, "failed_checks": fails})
+    del runs, refs, want
+    for when, rows in table.items():
+        what = "ranks whose weights, running statistics and momenta " \
+            "differ from rank 0's after the four steps" \
+            if when == "replicas" else "distance from the step without " \
+            "a mesh"
+        print("mesh (a) %s (%s, of the real step and of each planted "
+              "fault; floor; limit; held): %s"
+              % (when.replace("_", " "), what, json.dumps(rows)), flush=True)
+    print("mesh (a) held checks failed: %s" % json.dumps(fails), flush=True)
+    check(not fails["real"], "mesh (a): the dp step fails %s"
+          % ", ".join(fails["real"]))
+    for kind in MESH_DP_CONTROLS:
+        check(fails[kind], "mesh (a): the planted fault %s passes every "
+              "held check: the rule has no teeth there" % kind)
     return res
 
 
@@ -12050,6 +12305,12 @@ def mesh_worker(out_dir, ranks=1, hold_ms=None):
     from mxnet_tpu_torch.kernels import registry
     from mxnet_tpu_torch.parallel import make_mesh
     dump_stacks_on_signal()
+    t_world = float(os.environ.get("CHIP_SMOKE_WORLD_T0", time.time()))
+
+    def since():
+        """Seconds since the parent started the world."""
+        return time.time() - t_world
+
     mx.distributed_init()
     make_mesh({"dp": ranks})            # the world, NCCL on the cards
     rank = dist.get_rank()
@@ -12057,8 +12318,8 @@ def mesh_worker(out_dir, ranks=1, hold_ms=None):
           % (dist.get_world_size(), ranks))
     # whether joining the world and making a mesh made a CUDA context
     # (on card 0) before this rank chose its card
-    print("mesh rank %d: world joined, CUDA initialized %s" % (
-        rank, torch.cuda.is_initialized()), flush=True)
+    print("mesh rank %d: world joined at %.1f s, CUDA initialized %s" % (
+        rank, since(), torch.cuda.is_initialized()), flush=True)
     torch.cuda.set_device(rank % torch.cuda.device_count())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -12078,7 +12339,8 @@ def mesh_worker(out_dir, ranks=1, hold_ms=None):
     failed = []
     for key, what, fn, checked in parts:
         # every rank says where it is: a hang shows which part held it
-        print("mesh rank %d: part %s" % (rank, key), flush=True)
+        print("mesh rank %d: part %s at %.1f s" % (rank, key, since()),
+              flush=True)
         registry.reset_launches()
         t1 = time.perf_counter()
         res = {}
@@ -12115,7 +12377,7 @@ def mesh_worker(out_dir, ranks=1, hold_ms=None):
         # not wait for it on the cards; a rank left waiting on a dead or
         # stuck peer raises BarrierTimeout naming it
         mx.distributed.barrier("mesh part %s" % key, timeout_ms=hold_ms)
-    print("mesh rank %d: part ckpt" % rank, flush=True)
+    print("mesh rank %d: part ckpt at %.1f s" % (rank, since()), flush=True)
     try:
         res = mesh_checkpoint(ranks, rank, os.path.join(out_dir, "ckpt"))
     except SmokeFailure as e:
@@ -12130,7 +12392,7 @@ def mesh_worker(out_dir, ranks=1, hold_ms=None):
         with open(os.path.join(out_dir, "mesh.json"), "w") as f:
             json.dump(out, f)
     mx.distributed.barrier("mesh done", timeout_ms=hold_ms)
-    print("mesh rank %d: done" % rank, flush=True)
+    print("mesh rank %d: done at %.1f s" % (rank, since()), flush=True)
     if failed:
         print("mesh rank %d: FAILED: %s" % (rank, "; ".join(failed)),
               flush=True)
@@ -12179,9 +12441,10 @@ def mesh_phase(ranks=1, root=MESH_ROOT, timeout=600):
     code = ("import sys; sys.path.insert(0, %r); import chip_smoke; "
             "sys.exit(chip_smoke.mesh_worker(%r, %d, %r))"
             % (REPO_ROOT, root, ranks, hold))
-    env = {}
+    env = {"CHIP_SMOKE_WORLD_T0": repr(time.time())}
     if ranks > 1:
-        env = {"MXNET_TPU_DIST_BARRIER_TIMEOUT_MS": str(MESH4_COLLECTIVE_MS),
+        env = {**env,
+               "MXNET_TPU_DIST_BARRIER_TIMEOUT_MS": str(MESH4_COLLECTIVE_MS),
                "TORCH_NCCL_ASYNC_ERROR_HANDLING": "1",
                "NCCL_DEBUG": os.environ.get("NCCL_DEBUG", "WARN")}
     t0 = time.perf_counter()
@@ -12195,6 +12458,156 @@ def mesh_phase(ranks=1, root=MESH_ROOT, timeout=600):
     print("mesh phase (%d rank%s): %.1f s" % (ranks, "s" * (ranks > 1),
                                               res["wall_s"]))
     return res
+
+
+# ---------------------------------------------------------------------
+# the host worker: host work that reads no tensor of the card (the
+# ImageNet records' write), in one CPU-only process beside the card
+# ---------------------------------------------------------------------
+
+# a job of the worker must come back within this many seconds of its
+# start (its submission, or the end of the job before it: the worker
+# runs one at a time, in order)
+HOST_JOB_S = 600
+
+
+def _host_worker_main(conn, cpus, threads):
+    """The worker process: on ``cpus`` with ``threads`` torch threads,
+    no card visible, it runs each job ``(name, fn, kwargs)`` it receives
+    and sends back ``(name, busy seconds, "ok", fn(**kwargs))`` or
+    ``(name, busy seconds, "error", the traceback)``, until None."""
+    import traceback
+    os.sched_setaffinity(0, cpus)
+    os.nice(10)             # where it shares a cpu, the card's phases first
+    import torch
+    torch.set_num_threads(threads)
+    while True:
+        job = conn.recv()
+        if job is None:
+            return
+        name, fn, kwargs = job
+        t0 = time.perf_counter()
+        try:
+            out = ("ok", fn(**kwargs))
+        except BaseException:
+            out = ("error", traceback.format_exc())
+        conn.send((name, time.perf_counter() - t0) + out)
+
+
+def host_worker_cpus():
+    """The worker's cpus: the upper half of this process's (at least
+    one); the lower half stays free of it for the host-bound phases
+    (decode, serving, the input producer)."""
+    cpus = sorted(os.sched_getaffinity(0))
+    return cpus[len(cpus) - max(1, len(cpus) // 2):]
+
+
+class HostWorker:
+    """One ``spawn``ed CPU-only process (``CUDA_VISIBLE_DEVICES=""``),
+    pinned to ``cpus`` with ``threads`` torch threads, that runs jobs --
+    a function (by reference) and its keyword arguments, small in and
+    out -- one after another in the order they are submitted, while the
+    caller goes on with the card.  ``submit`` returns at once;
+    ``result`` waits for a job's value.  A job that raised, a worker that
+    died and a job not back within ``job_s`` of its start raise
+    :class:`SmokeFailure` naming the job."""
+
+    def __init__(self, cpus, threads, job_s=HOST_JOB_S):
+        import multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self._conn, child = ctx.Pipe()
+        saved = os.environ.get("CUDA_VISIBLE_DEVICES")
+        os.environ["CUDA_VISIBLE_DEVICES"] = ""
+        try:
+            self.proc = ctx.Process(target=_host_worker_main,
+                                    args=(child, list(cpus), threads),
+                                    name="host-worker", daemon=True)
+            self.proc.start()
+        finally:
+            if saved is None:
+                del os.environ["CUDA_VISIBLE_DEVICES"]
+            else:
+                os.environ["CUDA_VISIBLE_DEVICES"] = saved
+        child.close()
+        self.cpus, self.threads, self.job_s = list(cpus), threads, job_s
+        self.busy_s, self.waited_s = {}, 0.0
+        self._submitted = {}            # name -> when, in order
+        self._back = {}                 # name -> (when, status, value)
+
+    def submit(self, name, fn, kwargs):
+        """Queue ``fn(**kwargs)`` as job ``name``."""
+        check(name not in self._submitted,
+              "host worker: a second job named %s" % name)
+        self._submitted[name] = time.perf_counter()
+        self._conn.send((name, fn, kwargs))
+
+    def _receive(self, timeout):
+        """Take one job's result if it comes within ``timeout``."""
+        if self._conn.poll(timeout):
+            name, busy, status, value = self._conn.recv()
+            self.busy_s[name] = round(busy, 1)
+            self._back[name] = (time.perf_counter(), status, value)
+
+    def result(self, name):
+        """Job ``name``'s value, waiting for it (and for the jobs before
+        it) within each one's bound."""
+        check(name in self._submitted, "host worker: no job named %s"
+              % name)
+        t0 = time.perf_counter()
+        order, start = list(self._submitted), None
+        try:
+            for job in order[:order.index(name) + 1]:
+                start = self._submitted[job] if start is None \
+                    else max(self._submitted[job], start)
+                while job not in self._back:
+                    left = start + self.job_s - time.perf_counter()
+                    if left <= 0:
+                        raise SmokeFailure(
+                            "host worker: %s not back within %d s of its "
+                            "start" % (job, self.job_s))
+                    try:
+                        self._receive(min(left, 1.0))
+                    except (EOFError, OSError) as e:
+                        raise SmokeFailure(
+                            "host worker: lost before %s came back (%s; "
+                            "exit code %s)" % (job, type(e).__name__,
+                                               self.proc.exitcode))
+                    if job not in self._back and not self.proc.is_alive():
+                        self._receive(0)        # a last result in flight
+                        if job not in self._back:
+                            raise SmokeFailure(
+                                "host worker: lost before %s came back "
+                                "(exit code %s)" % (job, self.proc.exitcode))
+                start = self._back[job][0]
+        finally:
+            self.waited_s += time.perf_counter() - t0
+        _at, status, value = self._back[name]
+        if status != "ok":
+            raise SmokeFailure("host worker: %s raised:\n%s" % (name, value))
+        return value
+
+    def stats(self):
+        """The worker's busy seconds by job and in all, and the main
+        process's seconds waiting on it."""
+        return {"busy": dict(self.busy_s),
+                "busy_total": round(sum(self.busy_s.values()), 1),
+                "main_waited": round(self.waited_s, 1),
+                "cpus": [self.cpus[0], self.cpus[-1]],
+                "threads": self.threads}
+
+    def close(self):
+        """Stop the worker: None to end its loop when every job is back
+        (a kill after 10 s), a kill at once when one is not."""
+        if all(name in self._back for name in self._submitted):
+            try:
+                self._conn.send(None)
+            except OSError:
+                pass
+            self.proc.join(10)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join(10)
+        self._conn.close()
 
 
 PHASE_S = {}                    # seconds of each phase of the run
@@ -12233,17 +12646,45 @@ def kernel_entry(name, launches, kern, serve_launches=None, **extra):
 
 
 def main():
+    import tempfile
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    from mxnet_tpu_torch import _capture
     _PHASE_T0[0] = run_t0 = time.perf_counter()
+    # the ImageNet records are host work that reads no tensor of the
+    # card: a CPU-only worker writes them from the start, beside the
+    # build and the first phases
+    cpus = host_worker_cpus()
+    worker = HostWorker(cpus, len(cpus))
+    print("host worker: pid %d on cpus %d-%d with %d torch threads; the "
+          "main process on all %d with %d (os.cpu_count() %s)"
+          % (worker.proc.pid, cpus[0], cpus[-1], len(cpus),
+             len(os.sched_getaffinity(0)), torch.get_num_threads(),
+             os.cpu_count()), flush=True)
+    os.makedirs(INPUT_ROOT, exist_ok=True)
+    records = tempfile.mkdtemp(prefix="imagenet-input-", dir=INPUT_ROOT)
+    worker.submit("imagenet records", write_input_records,
+                  {"root": records})
+    try:
+        return whole_run(
+            run_t0, worker,
+            lambda: (records, worker.result("imagenet records")))
+    finally:
+        worker.close()
+        shutil.rmtree(records, ignore_errors=True)
+
+
+def whole_run(run_t0, worker, written):
+    """Every phase, the records written by ``worker`` (``written`` waits
+    for them)."""
+    import torch
+    from mxnet_tpu_torch import _capture
     # every capture and replay of phases 1-15 under
     # torch.cuda.set_sync_debug_mode("error"): a host read left inside a
     # captured region fails the run
     with _capture.checking_syncs():
-        entries = drive()
+        entries = drive(written)
     # phase 16 captures a servable while another replays and reads its
     # logits on the host and a trainer runs: the process-wide check is
     # for runs that do one thing at a time, so it runs outside it
@@ -12329,6 +12770,7 @@ def main():
             entry["launches_mesh"] = {
                 part: counts[name]
                 for part, counts in mesh["launches"].items()}
+    PHASE_S["host_worker"] = worker.stats()
     print("phase seconds: %s" % json.dumps(
         dict(PHASE_S, whole=round(time.perf_counter() - run_t0, 1))))
     print(json.dumps({"kernels": entries}))
@@ -12338,8 +12780,10 @@ def main():
     return 0
 
 
-def drive():
-    """Phases 1-15; returns the per-kernel entries of the JSON line."""
+def drive(written=None):
+    """Phases 1-15; returns the per-kernel entries of the JSON line.
+    ``written`` is the ImageNet input phase's (its records written in
+    the host worker)."""
     import torch
     from mxnet_tpu_torch import _build
     print(gpu_line())
@@ -12423,7 +12867,7 @@ def drive():
     dense = densenet_phase()
     release_cuda()
     phase_done("densenet:routes")
-    imagenet = imagenet_input_phase()
+    imagenet = imagenet_input_phase(written=written)
     release_cuda()
     phase_done("imagenet_input:jpeg")
     attn = kernel_phase(scale)

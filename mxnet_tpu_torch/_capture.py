@@ -114,6 +114,16 @@ def release_collective_graphs():
     return len(graphs)
 
 
+def synchronize(device=None):
+    """``torch.cuda.synchronize(device)`` once no other thread of this
+    process is capturing a graph: a device-wide wait on a capturing
+    stream fails the wait and the capture, so it takes the capture lock
+    first (a capture holds it; the always-on loop's trainer publishes
+    while its watcher captures a servable)."""
+    with _capture_lock:
+        torch.cuda.synchronize(device)
+
+
 @contextlib.contextmanager
 def body_scope():
     _local.depth = getattr(_local, "depth", 0) + 1
@@ -360,10 +370,12 @@ class GraphOwner:
                                                            self.device))
         t0 = time.perf_counter()
         # as torch.cuda.graph does: what the eager warm-up left cached
-        # goes back to the card, so the graph's pool can take it
-        torch.cuda.synchronize(self.device)
-        gc.collect()
-        torch.cuda.empty_cache()
+        # goes back to the card, so the graph's pool can take it (under
+        # the capture lock: neither waits on another thread's capture)
+        with _capture_lock:
+            torch.cuda.synchronize(self.device)
+            gc.collect()
+            torch.cuda.empty_cache()
         with _capture_lock, self._on_side_stream():
             reserved = torch.cuda.memory_reserved(self.device)
             graph = torch.cuda.CUDAGraph()

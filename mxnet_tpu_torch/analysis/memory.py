@@ -78,8 +78,8 @@ from .perf import _chain, _is_train_loop, _own_loops
 __all__ = [
     "AUDIT_SCHEMA", "THRESHOLDS",
     "memory_audit", "save_audit", "load_audit", "diff_audit", "hbm_plan",
-    "watch_enabled", "live_census", "walk_buckets", "LeakSentinel",
-    "sentinel", "reset_watch", "pin_action", "pinned_count", "unpin_all",
+    "device_hbm_bytes", "watch_enabled", "live_census", "walk_buckets",
+    "LeakSentinel", "sentinel", "reset_watch", "pin_action", "pinned_count", "unpin_all",
     "status_row",
 ]
 
@@ -950,6 +950,14 @@ def hbm_plan(label, device_hbm_bytes=None, buckets=None, batch_size=None,
         if fits:
             plan["largest_fit_bucket"] = int(b)
     return plan
+
+
+def device_hbm_bytes() -> Optional[int]:
+    """Device memory of the first card in bytes; None without CUDA (the
+    CPU) -- callers skip the memory validation then."""
+    if not torch.cuda.is_available():
+        return None
+    return int(torch.cuda.get_device_properties(0).total_memory)
 
 
 # ======================================================================

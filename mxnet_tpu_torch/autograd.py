@@ -240,6 +240,11 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     return outs[0] if single else outs
 
 
+def get_symbol(x):
+    raise MXNetError("autograd.get_symbol is not supported: use "
+                     "HybridBlock.export / Symbol tracing instead")
+
+
 class _FunctionBridge(torch.autograd.Function):
     """Runs a user :class:`Function`'s forward and backward on NDArrays
     inside one ``torch.autograd.Function``."""

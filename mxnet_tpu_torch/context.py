@@ -22,7 +22,7 @@ import torch
 from .base import MXNetError
 
 __all__ = ["Context", "cpu", "cpu_pinned", "current_context", "gpu",
-           "num_gpus", "resolve_device"]
+           "gpu_memory_info", "num_gpus", "resolve_device"]
 
 _DEVTYPE_NAMES = {1: "cpu", 2: "gpu", 3: "cpu_pinned"}
 _DEVTYPE_IDS = {v: k for k, v in _DEVTYPE_NAMES.items()}
@@ -105,6 +105,15 @@ def gpu(device_id=0):
 
 def num_gpus():
     return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def gpu_memory_info(device_id=0):
+    """``(free, total)`` bytes of card ``device_id``
+    (``torch.cuda.mem_get_info``); raises :class:`MXNetError` without
+    CUDA."""
+    if not torch.cuda.is_available():
+        raise MXNetError("gpu_memory_info: CUDA is not available")
+    return tuple(torch.cuda.mem_get_info(device_id))
 
 
 def scoped_context():

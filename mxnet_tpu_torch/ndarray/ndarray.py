@@ -52,9 +52,10 @@ def waitall():
     """Block until all work queued on the card has finished (the wait is
     the ``dispatch.host_sync_time`` timer's, the goodput ledger's
     host_sync category, while telemetry is on)."""
+    from .. import _capture
     t0 = time.perf_counter() if _telemetry._ENABLED else None
     if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
+        _capture.synchronize()
     if t0 is not None:
         _telemetry.hooks.host_sync("waitall", time.perf_counter() - t0)
 
@@ -188,9 +189,10 @@ class NDArray:
         return self.shape[0]
 
     def wait_to_read(self):
+        from .. import _capture
         t0 = time.perf_counter() if _telemetry._ENABLED else None
         if self._data.is_cuda:
-            torch.cuda.synchronize(self._data.device)
+            _capture.synchronize(self._data.device)
         if t0 is not None:
             _telemetry.hooks.host_sync("wait_to_read",
                                        time.perf_counter() - t0)

@@ -179,11 +179,11 @@ class BucketExecutorPool:
                     # the capture's peak, after the eager run made the
                     # libraries' one-time workspaces: the bucket's own
                     # working set
-                    torch.cuda.synchronize(self.device)
+                    _capture.synchronize(self.device)
                     torch.cuda.reset_peak_memory_stats(self.device)
                     before = torch.cuda.memory_allocated(self.device)
                     self._run(b, zeros)
-                    torch.cuda.synchronize(self.device)
+                    _capture.synchronize(self.device)
                     self._peaks[b] = self._param_bytes + (
                         torch.cuda.max_memory_allocated(self.device)
                         - before)
@@ -191,7 +191,7 @@ class BucketExecutorPool:
                 if self._compile_cache and _telemetry._ENABLED:
                     _telemetry.hooks.serving_compile_cache(False)
             if cuda:
-                torch.cuda.synchronize(self.device)
+                _capture.synchronize(self.device)
         dt = time.perf_counter() - t0
         if _telemetry._ENABLED:
             _telemetry.hooks.serving_warmup(self._label, dt,

@@ -1080,3 +1080,37 @@ def instrument_index_md():
                      % (ii.name, ii.kind, ii.subsystem, ii.since,
                         ii.doc))
     return "\n".join(lines) + "\n"
+
+
+_INDEX_BEGIN = "<!-- instrument-index:begin (generated; do not edit" \
+    " -- python -c 'from mxnet_tpu_torch.telemetry import hooks; " \
+    "hooks.update_observability_doc(PATH)') -->"
+_INDEX_END = "<!-- instrument-index:end -->"
+
+
+def update_observability_doc(path=None):
+    """Regenerate the instrument index (:func:`instrument_index_md`)
+    between the markers of the observability doc at ``path`` and return
+    the new text.  The port keeps no observability doc of its own, so
+    without ``path`` -- or when ``path`` does not exist or lacks the
+    markers -- it raises :class:`MXNetError` naming the doc."""
+    import os
+    from ..base import MXNetError
+    if path is None or not os.path.exists(path):
+        raise MXNetError(
+            "update_observability_doc: no observability doc %s: the port "
+            "keeps none of its own; pass the path of a doc with the "
+            "instrument-index markers" % (path or "(none given)"))
+    with open(path) as f:
+        text = f.read()
+    try:
+        head, rest = text.split(_INDEX_BEGIN, 1)
+        _old, tail = rest.split(_INDEX_END, 1)
+    except ValueError:
+        raise MXNetError("update_observability_doc: observability doc %s "
+                         "is missing the instrument-index markers" % path)
+    new = (head + _INDEX_BEGIN + "\n" + instrument_index_md()
+           + _INDEX_END + tail)
+    with open(path, "w") as f:
+        f.write(new)
+    return new

@@ -34,6 +34,9 @@ from mxnet_tpu.parallel import (TrainStep as JTrainStep,
                                 shard_batch as jshard_batch)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+import chip_smoke as cs  # noqa: E402
+
 RANKS = 4
 TOL = dict(rtol=2e-4, atol=1e-5)
 
@@ -482,3 +485,97 @@ def test_feed_and_loader_land_the_local_slice(world):
             arrays["feed_local"], world["inp"]["x16"][r * 4:(r + 1) * 4])
         assert vals["feed_global"] == [[16, 4], [16]]
         assert vals["loader_global"] == [[16, 4], [16]]
+
+
+# (a)'s rule of chip_smoke.py's mesh phase at dp=4 on a narrow
+# BatchNorm conv net: the real step, then each planted fault, against the
+# global batch's step without a mesh on rank 0
+_RULE_WORKER = WORKER_HEAD + r"""
+import chip_smoke as cs
+from mxnet_tpu_torch.parallel import make_mesh
+
+
+def narrow():
+    net = gluon.nn.HybridSequential()
+    net.add(gluon.nn.Conv2D(8, 3, padding=1, use_bias=False),
+            gluon.nn.BatchNorm(), gluon.nn.Activation("relu"),
+            gluon.nn.Conv2D(16, 3, strides=2, padding=1, use_bias=False),
+            gluon.nn.BatchNorm(), gluon.nn.Activation("relu"),
+            gluon.nn.GlobalAvgPool2D(), gluon.nn.Dense(10))
+    return net
+
+
+def run(step_mesh, xb, yb, **kw):
+    return cs.mesh_dp_run(narrow, step_mesh, xb, yb, device="cpu", **kw)[0]
+
+
+with mx.cpu():
+    mesh = make_mesh({"dp": 4}, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((32, 3, 8, 8), generator=gen)
+    y = torch.randint(0, 10, (32,), generator=gen).float()
+    sl = slice(rank * 8, (rank + 1) * 8)
+    ref = cs._single_device(4, device="cpu")
+    four = run(mesh, x[sl], y[sl])
+    runs = {"real": {"one": run(mesh, x[sl], y[sl], steps=1), "four": four,
+                     "replicas": cs.mesh_dp_replicas(four, 4)}}
+    for kind in cs.MESH_DP_CONTROLS:
+        with cs.planted_fault(kind):
+            four = run(mesh, x[sl], y[sl], first=True)
+        runs[kind] = {"one": four.pop("first"), "four": four,
+                      "replicas": cs.mesh_dp_replicas(four, 4)}
+    if rank == 0:
+        perm1 = torch.randperm(32, generator=torch.Generator().manual_seed(1))
+        perms = [torch.randperm(32, generator=torch.Generator().manual_seed(k))
+                 for k in range(2, 2 + cs.MESH_DP_PERMUTATIONS)]
+        refs = {"one": (run(ref, x, y, steps=1),
+                        [run(ref, x[perm1], y[perm1], steps=1)]),
+                "four": (run(ref, x, y), [run(ref, x[p], y[p]) for p in perms])}
+        values["rule"] = cs.mesh_dp_rule(runs, refs)
+        values["fails"] = cs.mesh_dp_failures(values["rule"])
+finish()
+"""
+
+
+@pytest.fixture(scope="module")
+def rule_world(tmp_path_factory):
+    """The rule's 4-rank world, once: rank 0's table and failures."""
+    tmp = tmp_path_factory.mktemp("mesh_rule")
+    np.savez(str(tmp / "inputs.npz"), none=np.zeros(1))
+    spawn_world(tmp, _RULE_WORKER, timeout=120)
+    return load_ranks(tmp)[0][1]
+
+
+def test_dp_rule_passes_the_real_step(rule_world):
+    assert rule_world["fails"]["real"] == []
+    one = rule_world["rule"]["one_step"]
+    assert sorted(one) == sorted(["loss", "updates", "momenta",
+                                  "running_mean", "running_var"])
+    assert all(row["held"] for row in one.values())
+    assert one["loss"]["limit"] == 1e-5
+
+
+def test_dp_rule_fails_per_rank_batchnorm_on_running_statistics(rule_world):
+    fails = rule_world["fails"]["batchnorm_per_rank"]
+    assert any("running_mean" in f or "running_var" in f for f in fails)
+    assert "one_step running_mean" in fails
+
+
+def test_dp_rule_fails_an_unsummed_bucket_on_the_update(rule_world):
+    fails = rule_world["fails"]["bucket_unsummed"]
+    assert "one_step updates" in fails
+    assert "replicas ranks_differing" in fails
+
+
+def test_dp_rule_holds_the_replicas_bitwise_equal(rule_world):
+    row = rule_world["rule"]["replicas"]["ranks_differing"]
+    assert row["held"] and row["limit"] == 0
+    assert row["real"] == 0
+    assert row["batchnorm_per_rank"] == 3 and row["bucket_unsummed"] == 3
+
+
+def test_dp_rule_holds_a_trajectory_quantity_only_with_teeth(rule_world):
+    controls = [k for k in rule_world["fails"] if k != "real"]
+    for q, row in rule_world["rule"]["trajectory"].items():
+        assert row["limit"] >= row["floor"] * cs.MESH_DP_FLOOR_FACTOR
+        assert row["held"] == any(row[c] > row["limit"] for c in controls)

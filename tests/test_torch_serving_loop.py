@@ -518,3 +518,36 @@ def test_unported_switches_raise(monkeypatch, tmp_path):
                           on_publish_error="ignore")
     with pytest.raises(mx.MXNetError, match="publish_every"):
         ContinuousTrainer(*fx, str(tmp_path / "ck"), publish_every=0)
+
+
+def test_a_publish_never_waits_on_the_card_during_a_capture(monkeypatch):
+    """A trainer's publish waits on the card (``waitall``) while a
+    watcher may be capturing a servable on another thread: a device-wide
+    wait on a capturing stream fails both, so the wait takes the capture
+    lock and runs only after the capture."""
+    from mxnet_tpu_torch import _capture
+    events = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda device=None: events.append("synchronize"))
+    captured, holding = threading.Event(), threading.Event()
+
+    def capture():
+        with _capture._capture_lock:
+            holding.set()
+            captured.wait(JOIN_S)
+            events.append("capture end")
+
+    t = threading.Thread(target=capture)
+    t.start()
+    assert holding.wait(JOIN_S)
+    waiter = threading.Thread(target=mx.nd.waitall)
+    waiter.start()
+    waiter.join(0.2)
+    assert waiter.is_alive() and events == []
+    captured.set()
+    waiter.join(JOIN_S)
+    t.join(JOIN_S)
+    assert not waiter.is_alive() and not t.is_alive()
+    assert events == ["capture end", "synchronize"]
