@@ -16,6 +16,7 @@ without the whole smoke run.
     cd <checkout> && python3 <repo>/chip_paths.py contrib
     cd <checkout> && python3 <repo>/chip_paths.py numpy
     cd <checkout> && python3 <repo>/chip_paths.py mesh
+    cd <checkout> && python3 <repo>/chip_paths.py surface
     cd <checkout> && python3 <repo>/chip_paths.py mesh4
     cd <checkout> && python3 <repo>/chip_paths.py nccl4 mesh4
 
@@ -59,6 +60,10 @@ BERT-base trained from ``mx.np`` arrays under ``npx.set_np()``, through
 ``mx.nd`` and inside ``mx.engine.bulk``; every ``mx.np``/``npx`` name at
 user widths against the CPU; ``check_consistency`` and
 ``runtime.Features()`` on the card; the host cost of an eager op) and
+``surface`` is ``surface_phase`` (phase 25: ResNet-50 and BERT-base
+as pure functions through ``HybridBlock.functionalize`` against the
+nets, a copy's recorded backward and a captured graph of the eval
+function; ``memory_info``, ``empty_cache`` and ``hbm_plan(fn=)``) and
 ``mesh`` is ``mesh_phase`` (phase 24: a child world of one rank on NCCL,
 ``launch -n 1``: ResNet-50 ``TrainStep(mesh=)`` over dp, BERT-base
 ``tp_mesh``/``shard_tp`` with LAMB, the pipeline, ring attention, MoE
@@ -107,6 +112,7 @@ PATHS = {"decode": "main_path", "mnist": "mnist_main_path",
          "layernorm": "layernorm_phase", "deploy": "deploy_phase",
          "contrib": "contrib_phase", "numpy": "numpy_phase",
          "analysis": "analysis_phase", "mesh": "mesh_phase",
+         "surface": "surface_phase",
          "mesh4": "mesh4_phase", "nccl4": "nccl_probe_phase"}
 # outside checking_syncs() (contrib enters it for its checked parts, the
 # mesh paths' child worlds for their captured steps)

@@ -532,6 +532,31 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    mesh4`` runs the same paths at four ranks, one card each, (a)
    against the b128 step on rank 0 by :func:`mesh_dp_rule`, with two
    planted faults (:func:`planted_fault`) that must each fail it.
+25. the surface, after phase 24, under the host-read check, cuDNN
+   deterministic: the networks as pure functions of their parameters
+   (``HybridBlock.functionalize``).  (a) ResNet-50 v1 NHWC fp32 at b32,
+   hybridized: the eval ``pure_fn`` bitwise ``net(x)`` (its eager call
+   and a replay of its graph), ``bn_relu_apply`` 33; one training-mode
+   ``pure_fn`` and ``torch.autograd.grad`` over its parameter values:
+   the aux bitwise the running statistics one eager training forward of
+   a copy of the net writes, the gradients within
+   ``SURFACE_GRAD_LIMIT`` norm-wise of that copy's ``autograd.record()``
+   backward, ``bn_relu_apply`` and ``bn_relu_bwd`` 33 each, and every
+   parameter of the net bitwise as it was.  (b) The eval ``pure_fn``
+   captured into one CUDA graph (``_capture.GraphOwner``) and replayed 3
+   times, each replay bitwise the eager ``pure_fn``, ``bn_relu_apply``
+   33 x 4 counted through the replays.  (c) ``bert_base(vocab_size=
+   30522, max_length=512, dropout=0.1)`` at 8 x 128: the eval
+   ``pure_fn`` bitwise ``net(ids)``, ``flash_attention_fwd`` 12 and
+   ``layernorm_fwd`` 26; one training call (dropout drawn from a
+   seeded ``torch.Generator``) and ``grad``: flash fwd and bwd 12 each.
+   (d) ``mx.gpu(0).memory_info()`` is the allocator's bytes and the
+   card's total, ``empty_cache()`` lowers the reserved bytes after a
+   1 GiB temporary is freed, and ``analysis.hbm_plan(fn=, args=)`` on
+   (a)'s eval forward at b32 (probe 4x, b128) predicts the peak at b64
+   within ``SURFACE_HBM_LIMIT`` of the peak measured there.  It prints
+   "surface (...)" lines and its seconds; the kernels line carries
+   ``launches_surface`` by part.
 
 The ImageNet records of phase 15 are written from the run's start in a
 CPU-only worker process (:class:`HostWorker`, on the upper half of the
@@ -12742,6 +12767,12 @@ def whole_run(run_t0, worker, written):
     release_cuda()
     mesh = mesh_phase()
     phase_done("mesh")
+    # phase 25: the networks as pure functions, one thing at a time,
+    # under the host-read check
+    release_cuda()
+    with _capture.checking_syncs():
+        surface = surface_phase()
+    phase_done("surface")
     for entry in entries:
         name = entry["name"]
         if name in ("bn_relu_apply", "bn_relu_bwd", "paged_attention"):
@@ -12770,6 +12801,10 @@ def whole_run(run_t0, worker, written):
             entry["launches_mesh"] = {
                 part: counts[name]
                 for part, counts in mesh["launches"].items()}
+        if name in SURFACE_KERNELS:
+            entry["launches_surface"] = {
+                part: counts[name]
+                for part, counts in surface["launches"].items()}
     PHASE_S["host_worker"] = worker.stats()
     print("phase seconds: %s" % json.dumps(
         dict(PHASE_S, whole=round(time.perf_counter() - run_t0, 1))))
@@ -12952,6 +12987,291 @@ def drive(written=None):
         kernel_entry("lamb_phase1", counts["lamb_phase1"], lamb),
         kernel_entry("lars_flat", lars["launches"]["lars_flat"], lars_k,
                      **input_path("lars_flat"))]
+
+
+# ---------------------------------------------------------------------
+# phase 25: the surface -- the networks as pure functions
+# (HybridBlock.functionalize), the context's memory calls, hbm_plan(fn=)
+# ---------------------------------------------------------------------
+
+SURFACE_BATCH = 32                  # (a), (b): ResNet-50 images
+SURFACE_BERT = (8, 128)             # (c): sequences x tokens
+SURFACE_REPLAYS = 3                 # (b)
+# (a): the functional gradients against the copy's recorded backward,
+# norm-wise over all parameters: the same kernels on the same inputs
+# (cuDNN deterministic), so only the order autograd sums a gradient's
+# contributions in may differ
+SURFACE_GRAD_LIMIT = 1e-5
+# (d): the predicted peak at b64 against the measured one; the line
+# through b32 and b128 misses by what the allocator rounds and what
+# cuDNN's workspace adds at each batch
+SURFACE_HBM_LIMIT = 0.25
+SURFACE_KERNELS = ("bn_relu_apply", "bn_relu_bwd", "flash_attention_fwd",
+                   "flash_attention_bwd", "layernorm_fwd")
+
+
+def _surface_counts():
+    from mxnet_tpu_torch.kernels import registry
+    return {k: registry.launches(k) for k in SURFACE_KERNELS}
+
+
+def _bitwise(got, want):
+    """Whether two tensors, or two sequences of tensors, are equal bit
+    for bit."""
+    import torch
+    got = [got] if isinstance(got, torch.Tensor) else list(got)
+    want = [want] if isinstance(want, torch.Tensor) else list(want)
+    return len(got) == len(want) and all(
+        a.shape == b.shape and torch.equal(a, b) for a, b in zip(got, want))
+
+
+def surface_resnet(make_net=resnet50_nhwc, batch=SURFACE_BATCH, image=224,
+                   sites=BN_RELU_SITES, device="cuda"):
+    """(a) and (b): ResNet-50 through ``functionalize`` against the net
+    itself and a copy trained eagerly; returns the numbers, the eval
+    ``pure_fn`` with its parameter values and input, and the launches
+    of each part."""
+    import torch
+    from mxnet_tpu_torch import _capture, autograd, gluon
+    from mxnet_tpu_torch.kernels import registry
+    net = make_net()
+    net.initialize(device=device, generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=device).manual_seed(25)
+    x = torch.randn((batch, image, image, 3), generator=gen, device=device)
+    y = torch.randint(0, net.output._units, (batch,), generator=gen,
+                      device=device).float()
+    net.hybridize()
+    with torch.no_grad():
+        net(x)                          # sizes the deferred parameters
+        eager = net(x)                  # the key's eager call
+        net(x)                          # captures
+        replay = net(x)
+    launches = {}
+    pure, names, pmap = net.functionalize(training=False)
+    pvals = {n: pmap[n]._data.detach() for n in names}
+    registry.reset_launches()
+    with torch.no_grad():
+        out = pure(pvals, [x])[0][0]
+    launches["eval"] = _surface_counts()
+    check(_bitwise(out, eager) and _bitwise(out, replay),
+          "surface (a): the eval pure_fn is not bitwise net(x)")
+    cuda = device == "cuda"     # the CPU runs the plain versions
+    check(not cuda or launches["eval"]["bn_relu_apply"] == sites,
+          "surface (a): eval bn_relu_apply %d != %d"
+          % (launches["eval"]["bn_relu_apply"], sites))
+
+    # a copy trained eagerly: one recorded forward and backward
+    ref = make_net()
+    ref.initialize(device=device, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        ref(x[:1])
+    mine = net._collect_params_with_prefix()
+    theirs = ref._collect_params_with_prefix()
+    for k, p in mine.items():
+        theirs[k].set_data(p._data.detach().clone())
+    before = {k: p._data.detach().clone() for k, p in mine.items()}
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    with autograd.record():
+        rloss = loss_fn(ref(x), y).sum()
+    rloss.backward()
+    train, names, pmap = net.functionalize(training=True)
+    structural = {p.name: k for k, p in mine.items()}
+    tvals = {n: pmap[n]._data.detach().clone().requires_grad_(
+        pmap[n].grad_req != "null") for n in names}
+    wrt = [n for n in names if tvals[n].requires_grad]
+    registry.reset_launches()
+    outs, aux = train(tvals, [x])
+    loss = loss_fn(outs[0], y).sum()
+    grads = torch.autograd.grad(loss, [tvals[n] for n in wrt])
+    launches["train"] = _surface_counts()
+    grad_err, worst, worst_name = rel_errors(
+        {structural[n]: g for n, g in zip(wrt, grads)},
+        {structural[n]: theirs[structural[n]]._data.grad for n in wrt})
+    stats = {structural[n]: v for n, v in aux.items()}
+    check(sorted(stats) == sorted(k for k in theirs if k.endswith(
+        ("running_mean", "running_var"))),
+          "surface (a): aux names %d, running statistics %d"
+          % (len(stats), sum(1 for k in theirs if k.endswith(
+              ("running_mean", "running_var")))))
+    aux_ok = all(torch.equal(v, theirs[k]._data) for k, v in stats.items())
+    unchanged = all(torch.equal(p._data, before[k])
+                    for k, p in mine.items())
+    check(aux_ok, "surface (a): aux differs from the copy's running "
+          "statistics")
+    loss, rloss = float(loss.detach()), float(rloss.detach())
+    check(loss == rloss, "surface (a): loss %r != the copy's %r"
+          % (loss, rloss))
+    check(grad_err <= SURFACE_GRAD_LIMIT, "surface (a): gradients %.3g "
+          "from the copy's (worst %.3g at %s)" % (grad_err, worst,
+                                                    worst_name))
+    check(unchanged, "surface (a): a training pure_fn wrote a parameter")
+    check(not cuda or launches["train"]["bn_relu_apply"] == sites
+          and launches["train"]["bn_relu_bwd"] == sites,
+          "surface (a): training launches %s != %d each"
+          % (launches["train"], sites))
+    del ref, theirs, grads, outs, tvals
+
+    # (b) the eval pure_fn captured into one graph and replayed
+    owner = _capture.GraphOwner("surface pure_fn", x.device)
+
+    def fn(xb):
+        with torch.no_grad():
+            return pure(pvals, [xb])[0][0]
+
+    registry.reset_launches()
+    calls = [owner.run("eval", fn, [x], watched=list(pvals.values()))
+             for _ in range(1 + SURFACE_REPLAYS)]
+    launches["captured"] = _surface_counts()
+    stats_b = owner.stats()
+    check(not cuda or (stats_b["graphs"], stats_b["replays"])
+          == (1, SURFACE_REPLAYS),
+          "surface (b): %d graphs, %d replays" % (stats_b["graphs"],
+                                                 stats_b["replays"]))
+    check(all(_bitwise(c, out) for c in calls),
+          "surface (b): a replay is not bitwise the eager pure_fn")
+    check(not cuda or launches["captured"]["bn_relu_apply"]
+          == sites * (1 + SURFACE_REPLAYS),
+          "surface (b): bn_relu_apply %d != %d x %d"
+          % (launches["captured"]["bn_relu_apply"], sites,
+             1 + SURFACE_REPLAYS))
+    nums = {"batch": batch, "eval_bitwise": True, "aux_bitwise": aux_ok,
+            "loss": loss, "grad_rel_err": grad_err,
+            "grad_rel_err_worst": worst, "worst_at": worst_name,
+            "params_unchanged": unchanged, "graphs": stats_b["graphs"],
+            "replays": stats_b["replays"],
+            "capture_s": stats_b["capture_s"]}
+    return nums, (pure, pvals, x), launches
+
+
+def surface_bert(make_net=bert_base_net, vocab=BERT_VOCAB,
+                 layers=BERT_LAYERS, shape=SURFACE_BERT, device="cuda"):
+    """(c): BERT-base through ``functionalize``: eval bitwise the net,
+    then one training call and its gradients."""
+    import torch
+    from mxnet_tpu_torch.kernels import registry
+    net = make_net()
+    net.initialize(device=device, generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=device).manual_seed(25)
+    ids = torch.randint(0, vocab, shape, generator=gen, device=device).float()
+    net.hybridize()
+    with torch.no_grad():
+        net(ids)                        # sizes the deferred parameters
+        eager = net(ids)
+        net(ids)
+        replay = net(ids)
+    launches = {}
+    pure, names, pmap = net.functionalize(training=False)
+    pvals = {n: pmap[n]._data.detach() for n in names}
+    registry.reset_launches()
+    with torch.no_grad():
+        outs, aux = pure(pvals, [ids])
+    launches["eval"] = _surface_counts()
+    check(_bitwise(outs, eager) and _bitwise(outs, replay),
+          "surface (c): the eval pure_fn is not bitwise net(ids)")
+    cuda = device == "cuda"     # the CPU runs the plain versions
+    check(not cuda or launches["eval"]["flash_attention_fwd"] == layers
+          and launches["eval"]["layernorm_fwd"] == 2 * layers + 2,
+          "surface (c): eval launches %s" % launches["eval"])
+    train, names, pmap = net.functionalize(training=True)
+    tvals = {n: pmap[n]._data.detach().clone().requires_grad_(
+        pmap[n].grad_req != "null") for n in names}
+    wrt = [n for n in names if tvals[n].requires_grad]
+    rng = torch.Generator(device=device).manual_seed(7)
+    registry.reset_launches()
+    outs, aux = train(tvals, [ids], rng)
+    # the MLM logits' loss: the pooler, the NSP head and the token-type
+    # table take no gradient from it
+    grads = torch.autograd.grad(outs[0].float().square().mean(),
+                                [tvals[n] for n in wrt], allow_unused=True)
+    launches["train"] = _surface_counts()
+    reached = [g for g in grads if g is not None]
+    finite = all(bool(torch.isfinite(g).all()) for g in reached)
+    check(finite and reached, "surface (c): no gradient or a non-finite "
+          "one")
+    check(not cuda or launches["train"]["flash_attention_fwd"] == layers
+          and launches["train"]["flash_attention_bwd"] == layers,
+          "surface (c): training launches %s" % launches["train"])
+    return {"shape": list(shape), "eval_bitwise": True,
+            "grads_finite": finite, "params": len(wrt),
+            "params_reached": len(reached)}, launches
+
+
+def surface_memory(eval_fn, batch=SURFACE_BATCH, device="cuda"):
+    """(d): the context's memory calls and ``hbm_plan(fn=, args=)``."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.analysis import memory
+    pure, pvals, x = eval_fn
+    ctx = mx.gpu(0)
+    used, limit = ctx.memory_info()
+    want = (torch.cuda.memory_allocated(0),
+            torch.cuda.get_device_properties(0).total_memory)
+    check((used, limit) == want, "surface (d): memory_info %s != %s"
+          % ((used, limit), want))
+    big = torch.empty(1 << 30, dtype=torch.uint8, device=device)
+    del big
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved(0)
+    ctx.empty_cache()
+    after = torch.cuda.memory_reserved(0)
+    check(after < reserved, "surface (d): empty_cache left %d of %d "
+          "reserved bytes" % (after, reserved))
+
+    def fn(xb):
+        with torch.no_grad():
+            return pure(pvals, [xb])[0][0]
+
+    plan = memory.hbm_plan("surface:resnet50_eval", fn=fn, args=(x,),
+                           buckets=(2 * batch,), probe_factor=4)
+    predicted = plan["buckets"][0]["predicted_peak_hbm_bytes"]
+    x2 = x[torch.arange(2 * batch, device=x.device) % batch]
+    measured = memory._measured_peak(fn, (x2,))
+    miss = abs(predicted - measured) / measured
+    check(miss <= SURFACE_HBM_LIMIT, "surface (d): hbm_plan predicted %d "
+          "bytes at b%d, measured %d (%.3f off)"
+          % (predicted, 2 * batch, measured, miss))
+    return {"memory_info": [used, limit], "reserved_before": reserved,
+            "reserved_after": after, "plan_measured": plan["measured"],
+            "per_item_bytes": plan["per_item_bytes"],
+            "predicted_b%d" % (2 * batch): predicted,
+            "measured_b%d" % (2 * batch): measured, "miss": miss}
+
+
+def surface_phase(device="cuda", resnet_kwargs=None, bert_kwargs=None):
+    """Phase 25: (a) and (b) on ResNet-50, (c) on BERT-base, (d) the
+    memory calls, cuDNN deterministic; returns the numbers and each
+    kernel's launches by part."""
+    import torch
+    t_phase = time.perf_counter()
+    card = gpu_line() if device == "cuda" else None
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        resnet, eval_fn, launches = surface_resnet(
+            device=device, **(resnet_kwargs or {}))
+        print("surface (a)+(b) ResNet-50 v1 NHWC fp32 through "
+              "functionalize: %s" % json.dumps(dict(resnet, card=card)),
+              flush=True)
+        mem = surface_memory(eval_fn, device=device) \
+            if device == "cuda" else None
+        print("surface (d) memory_info, empty_cache, hbm_plan(fn=): %s"
+              % json.dumps(dict(mem or {}, card=card)), flush=True)
+        del eval_fn
+        if device == "cuda":
+            release_cuda()
+        bert, bert_launches = surface_bert(device=device,
+                                           **(bert_kwargs or {}))
+        print("surface (c) BERT-base through functionalize: %s"
+              % json.dumps(dict(bert, card=card)), flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    launches = {"resnet_" + k: v for k, v in launches.items()}
+    launches.update({"bert_" + k: v for k, v in bert_launches.items()})
+    out = {"resnet": resnet, "bert": bert, "memory": mem,
+           "launches": launches, "phase_s": time.perf_counter() - t_phase}
+    print("surface launches by part: %s" % json.dumps(launches))
+    print("surface phase: %.1f s" % out["phase_s"])
+    return out
 
 
 if __name__ == "__main__":

@@ -274,6 +274,10 @@ class GraphOwner:
         """The keys run so far, in the order of their first call."""
         return list(self._seen)
 
+    def captured_keys(self):
+        """The keys whose graph is captured."""
+        return list(self._entries)
+
     def is_new(self, key):
         """Whether ``key`` has not been run yet."""
         return key not in self._seen

@@ -70,6 +70,7 @@ from typing import Dict, List, Optional
 import torch
 
 from .. import env as _env
+from ..base import MXNetError
 from ._ast_util import (_call_name, _file_defs_and_assigns, _has_donation,
                         _is_jit_call)
 from .core import Diagnostic, rule
@@ -907,24 +908,88 @@ def _rule_memory_drift(baseline, current):
 # hbm_plan: batch-bucket peak-memory extrapolation
 # ----------------------------------------------------------------------
 
+def _tensor_leaves(args):
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            yield a
+        elif isinstance(a, (list, tuple)):
+            yield from _tensor_leaves(a)
+
+
+def _with_batch(args, b0, b1):
+    """``args`` with every tensor whose leading dimension is ``b0``
+    grown (or cut) to ``b1`` rows, its rows taken in turn."""
+    def grow(a):
+        if isinstance(a, torch.Tensor) and a.dim() and a.shape[0] == b0:
+            return a[torch.arange(b1, device=a.device) % b0]
+        if isinstance(a, (list, tuple)):
+            return type(a)(grow(x) for x in a)
+        return a
+    return [grow(a) for a in args]
+
+
+def _measured_peak(fn, args) -> int:
+    """The peak allocated bytes of a warm run of ``fn(*args)`` on the
+    card: one run first, then the run measured after the peak's
+    reset."""
+    fn(*args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn(*args)
+    torch.cuda.synchronize()
+    return int(torch.cuda.max_memory_allocated())
+
+
 def hbm_plan(label, device_hbm_bytes=None, buckets=None, batch_size=None,
-             peaks=None) -> Dict:
+             fn=None, args=None, probe_factor=2, peaks=None) -> Dict:
     """Extrapolate peak device memory across batch buckets -- linear in
     the batch-carried bytes, constant in the parameters -- and answer
     "what is the largest bucket that fits ``device_hbm_bytes``".
 
-    Two measured peaks anchor the line: ``peaks`` (``{batch: peak
-    bytes}``, e.g. a bucket pool's warm-up peaks on the card);
-    ``batch_size`` (default the smallest batch) and the next batch
-    measured are taken, one batch giving a flat line.
+    Two measured peaks anchor the line, given as ``peaks`` (``{batch:
+    peak bytes}``, e.g. a bucket pool's warm-up peaks on the card) or
+    measured here, on the card, by running ``fn(*args)`` (the JAX
+    package's form): ``torch.cuda.max_memory_allocated`` over a warm
+    run at the arguments' batch (``batch_size``, by default the most
+    frequent leading dimension of the tensors in ``args``) and one at
+    ``probe_factor`` times it.  Give ``peaks`` or ``fn``, not both.
+    From ``peaks``, ``batch_size`` (default the smallest batch) and the
+    next batch measured are taken, one batch giving a flat line.
 
     Returns the JAX package's keys: ``{"label", "batch_size",
     "const_bytes", "per_item_bytes", "measured", "buckets",
     "largest_fit_batch", "largest_fit_bucket", "device_hbm_bytes"}``;
-    raises ``ValueError`` without measured peaks."""
+    raises ``ValueError`` without peaks or a batch, and
+    ``MXNetError`` for ``fn`` on tensors off the card."""
+    if fn is not None:
+        if peaks:
+            raise MXNetError("hbm_plan: give peaks= or fn=, not both")
+        leaves = list(_tensor_leaves(args or ()))
+        if not any(t.is_cuda for t in leaves):
+            raise MXNetError("hbm_plan: the peaks of fn= are the card's "
+                             "allocator's; %r has no argument on a CUDA "
+                             "device" % (label,))
+        if batch_size is None:
+            counts = {}
+            for t in leaves:
+                if t.dim():
+                    counts[int(t.shape[0])] = counts.get(int(t.shape[0]),
+                                                         0) + 1
+            batch_size = max(counts, key=counts.get) if counts else None
+        if not batch_size or not any(t.dim() and t.shape[0] == batch_size
+                                     for t in leaves):
+            raise ValueError("hbm_plan: no argument of %r carries batch "
+                             "dim %r" % (label, batch_size))
+        b0 = int(batch_size)
+        b1 = max(1, b0 * int(probe_factor))
+        if b1 == b0:
+            b1 = b0 + 1
+        peaks = {b0: _measured_peak(fn, args),
+                 b1: _measured_peak(fn, _with_batch(args, b0, b1))}
     if not peaks:
         raise ValueError("hbm_plan: %r has no measured peaks (pass "
-                         "peaks=, a warmed bucket pool's)" % (label,))
+                         "peaks=, a warmed bucket pool's, or fn=/args= "
+                         "on the card)" % (label,))
     batches = sorted(int(b) for b in peaks)
     b0 = int(batch_size) if batch_size else batches[0]
     b1 = next((b for b in batches if b != b0), b0)

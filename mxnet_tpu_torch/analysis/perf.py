@@ -421,19 +421,14 @@ THRESHOLDS = {
     "membound_ridge_factor": 8.0,
 }
 
-# the port's kernel row remedying each advisory kind (PERF.md section 6)
-_KERNEL_REMEDIES = {
-    "unfused-elementwise": "kernel rows 2-3 (bn_relu_apply/bn_relu_bwd, "
-                           "csrc/fused_bn_relu.cu) fuse BatchNorm+ReLU; "
-                           "row 8 (layernorm_fwd) fuses LayerNorm",
-    "memory-bound": "kernel row 4 (lars_flat) / row 7 (lamb_phase1) "
-                    "update every parameter in one flat launch",
-}
-
-
 def _kernel_remedy(kind: str) -> Optional[str]:
-    """The port's kernel row remedying an advisory kind, or None."""
-    return _KERNEL_REMEDIES.get(kind)
+    """The hand kernels remedying an advisory kind (each registered
+    ``KernelSpec`` names its ``remedies``), or None."""
+    from ..kernels import registry
+    specs = [registry.get(n) for n in registry.list_kernels()]
+    names = ["%s (%s)" % (s.name, s.source) for s in specs
+             if kind in s.remedies]
+    return "hand kernels " + ", ".join(names) if names else None
 
 
 def _merge_counters(agg: Dict, cur: Dict):

@@ -31,13 +31,14 @@ def dtype_groups(arrays: Sequence[Any]) -> List[Tuple[Any, List[int]]]:
     return [(dt, groups[dt]) for dt in order]
 
 
-def flatten_group(arrays: Sequence[torch.Tensor],
-                  idxs: Sequence[int]) -> torch.Tensor:
+def flatten_group(arrays: Sequence[torch.Tensor], idxs: Sequence[int],
+                  xp=torch) -> torch.Tensor:
     """One contiguous 1-D buffer holding ``arrays[i]`` flattened for every
-    ``i`` in ``idxs``, concatenated in order.  A single-element group
-    skips the concat (a view when the tensor is contiguous)."""
+    ``i`` in ``idxs``, concatenated in order by ``xp`` (``torch`` for
+    tensors, ``numpy`` for arrays).  A single-element group skips the
+    concat (a view when the tensor is contiguous)."""
     flat = [arrays[i].reshape(-1) for i in idxs]
-    return torch.cat(flat) if len(flat) > 1 else flat[0]
+    return xp.concatenate(flat) if len(flat) > 1 else flat[0]
 
 
 def split_group(buf: torch.Tensor,

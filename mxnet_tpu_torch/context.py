@@ -2,7 +2,9 @@
 ``mxnet_tpu/context.py``).
 
 A :class:`Context` names a device: ``cpu()``, ``cpu_pinned()`` (host
-memory the card reads by DMA) or ``gpu(i)`` (CUDA device ``i``).
+memory the card reads by DMA), ``Context("cpu_shared")`` (host memory,
+as the CPU) or ``gpu(i)`` (CUDA device ``i``).  :attr:`DeviceType`
+holds the reference's type ids.
 ``with ctx:`` pushes it on a thread-local stack that
 :func:`current_context` reads.
 
@@ -21,10 +23,19 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "cpu_pinned", "current_context", "gpu",
-           "gpu_memory_info", "num_gpus", "resolve_device"]
+__all__ = ["Context", "DeviceType", "cpu", "cpu_pinned", "current_context",
+           "gpu", "gpu_memory_info", "num_gpus", "resolve_device"]
 
-_DEVTYPE_NAMES = {1: "cpu", 2: "gpu", 3: "cpu_pinned"}
+
+class DeviceType:
+    """The reference's device type ids (``Context.device_typeid``)."""
+    kCPU = 1
+    kGPU = 2
+    kCPUPinned = 3
+    kCPUShared = 5
+
+
+_DEVTYPE_NAMES = {1: "cpu", 2: "gpu", 3: "cpu_pinned", 5: "cpu_shared"}
 _DEVTYPE_IDS = {v: k for k, v in _DEVTYPE_NAMES.items()}
 
 
@@ -89,6 +100,25 @@ class Context:
 
     def __exit__(self, *exc):
         Context._default_ctx.stack.pop()
+
+    def empty_cache(self):
+        """Release the caching allocator's unused blocks on this card
+        (``torch.cuda.empty_cache``); a no-op for a host context."""
+        if self.device_typeid == 2:
+            with torch.cuda.device(self.torch_device()):
+                torch.cuda.empty_cache()
+
+    def memory_info(self):
+        """``(bytes_in_use, bytes_limit)`` of this device: on a card the
+        caching allocator's bytes in use (``torch.cuda.memory_allocated``)
+        and the card's total memory; ``(0, 0)`` for a host context,
+        which keeps no such statistics (as the JAX package gives for a
+        backend without them)."""
+        if self.device_typeid != 2:
+            return (0, 0)
+        dev = self.torch_device()
+        return (int(torch.cuda.memory_allocated(dev)),
+                int(torch.cuda.get_device_properties(dev).total_memory))
 
 
 def cpu(device_id=0):

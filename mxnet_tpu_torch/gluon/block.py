@@ -72,7 +72,8 @@ a block.
 :func:`param_values_from` runs forwards over other tensors than the
 parameters' own, in the calling thread only: a servable reads its
 snapshot of the weights through it while the same block trains in
-another thread (the JAX package's pure function over a parameter dict).
+another thread.  :meth:`HybridBlock.functionalize` builds on it the JAX
+package's pure function over a parameter dict.
 """
 from __future__ import annotations
 
@@ -91,13 +92,14 @@ from .. import numpy_extension as _npx
 from .. import ops as _ops
 from .. import profiler as _profiler
 from .. import profiling as _profiling
+from .. import random as _random
 from ..base import MXNetError
 from ..ndarray import NDArray
 from ..ndarray import ndarray as _nd_mod
 from ..numpy import _view
 from ..symbol.symbol import Symbol
 from .parameter import (DeferredInitializationError, Parameter,
-                        ParameterDict, shape_is_known)
+                        ParameterDict, aux_into, shape_is_known)
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock", "param_values_from"]
 
@@ -647,6 +649,49 @@ class HybridBlock(Block):
         graph pass)."""
         self.hybridize()
         return self(x)
+
+    def functionalize(self, training=True):
+        """The block's forward as a pure function of its parameters'
+        values (the JAX package's ``functionalize``): returns
+        ``(pure_fn, param_names, params)``, the names of the initialized
+        parameters and ``{name: Parameter}``.
+
+        ``pure_fn(pvals, ivals, rng=None) -> (outs, aux)`` runs the
+        forward, in training mode when ``training``, on the tensors
+        ``ivals`` with ``pvals[name]`` in place of each of those
+        parameters.  ``outs`` is a tuple of tensors; ``aux`` maps a
+        parameter's name to the value the call computed for it
+        (``BatchNorm``'s running statistics in training).  No
+        parameter's tensor is written.  Dropout draws from ``rng``, a
+        ``torch.Generator`` on the inputs' device, where the JAX
+        package takes a key (``None``: the device's own generator,
+        which a CUDA-graph capture registers).  Hybridized blocks inside
+        run their forward as code, on the kernels ``block(x)`` runs.
+        Autograd differentiates ``outs`` with respect to the tensors of
+        ``pvals`` that require a gradient, and :mod:`.._capture` can
+        capture the call."""
+        params = [p for p in self._all_params() if p._data is not None]
+        pmap = {p.name: p for p in params}
+        block = self
+
+        def pure_fn(pvals, ivals, rng=None):
+            values = {p: _unwrap(pvals[name]) for name, p in pmap.items()}
+            aux = {}
+
+            def sink(p, value):
+                # later reads in the call see the new value, as the JAX
+                # trace's do
+                aux[p.name] = values[p] = value
+
+            mode = autograd.train_mode() if training \
+                else autograd.predict_mode()
+            with param_values_from(values), aux_into(sink), \
+                    _random.drawing_from(rng), mode, _capture.body_scope():
+                outs = block._plain_call([_unwrap(v) for v in ivals])
+            outs = [outs] if isinstance(outs, torch.Tensor) else outs
+            return tuple(outs), aux
+
+        return pure_fn, [p.name for p in params], pmap
 
 
 def _params_on(params, device):

@@ -2,6 +2,7 @@
 nets and BERT."""
 from . import bert, vision
 from .bert import BERTModel, bert_base, bert_small, get_bert
+from .vision import get_model
 
 __all__ = ["BERTModel", "bert", "bert_base", "bert_small", "get_bert",
-           "vision"]
+           "get_model", "vision"]

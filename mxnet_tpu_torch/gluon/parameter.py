@@ -22,6 +22,8 @@ given value.  :meth:`ParameterDict.save` and
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from collections import OrderedDict
 
 import numpy as np
@@ -39,6 +41,23 @@ __all__ = ["Constant", "DeferredInitializationError", "Parameter",
 _DTYPES = {"float32": torch.float32, "float16": torch.float16,
            "bfloat16": torch.bfloat16, "float64": torch.float64,
            "int8": torch.int8, "int32": torch.int32, "uint8": torch.uint8}
+
+
+_aux_local = threading.local()
+
+
+@contextlib.contextmanager
+def aux_into(sink):
+    """Within the scope, in this thread, a layer's auxiliary update
+    (:meth:`Parameter._update_aux`) calls ``sink(param, value)`` in
+    place of writing the parameter: ``HybridBlock.functionalize``
+    returns the updates where the JAX package's trace collects them."""
+    prev = getattr(_aux_local, "sink", None)
+    _aux_local.sink = sink
+    try:
+        yield
+    finally:
+        _aux_local.sink = prev
 
 
 class DeferredInitializationError(MXNetError):
@@ -83,7 +102,10 @@ class Parameter:
 
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
                  lr_mult=1.0, wd_mult=1.0, init=None,
-                 allow_deferred_init=False, differentiable=True):
+                 allow_deferred_init=False, differentiable=True,
+                 stype="default", grad_stype="default"):
+        # ``stype``/``grad_stype`` are accepted and unused, as in the JAX
+        # package: a parameter and its gradient are dense tensors
         self.name = name
         self._grad_req = grad_req if differentiable else "null"
         if isinstance(shape, int):
@@ -283,7 +305,13 @@ class Parameter:
         """Write a layer's new auxiliary value (``BatchNorm``'s running
         statistics) into the parameter's tensor in place, at its dtype:
         a CUDA graph that captured the layer keeps reading and updating
-        the same tensor.  A user's :meth:`set_data` still rebinds."""
+        the same tensor.  A user's :meth:`set_data` still rebinds.
+        Inside :func:`aux_into` the value goes to that scope's dict and
+        the parameter's tensor is left as it is."""
+        sink = getattr(_aux_local, "sink", None)
+        if sink is not None:
+            sink(self, value.detach())
+            return
         rebind = self._data is None \
             or tuple(value.shape) != tuple(self._data.shape) \
             or (self._data.is_inference()

@@ -35,6 +35,7 @@ register_kernel(KernelSpec(
     replaces="mxnet_tpu/kernels/fused_bn_relu.py:57 bn_relu_apply_pallas",
     cost=bn_relu_apply_cost,
     category="elementwise_fusion",
+    remedies=("unfused-elementwise",),
 ))
 
 register_kernel(KernelSpec(
@@ -45,6 +46,7 @@ register_kernel(KernelSpec(
     replaces="mxnet_tpu/kernels/fused_bn_relu.py:93 bn_relu_bwd_pallas",
     cost=bn_relu_bwd_cost,
     category="elementwise_fusion",
+    remedies=("unfused-elementwise",),
 ))
 
 

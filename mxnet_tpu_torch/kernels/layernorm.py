@@ -121,4 +121,5 @@ register_kernel(KernelSpec(
     replaces="mxnet_tpu/ops/pallas/layernorm.py:38 layernorm_fwd_pallas",
     cost=layernorm_cost,
     category="elementwise_fusion",
+    remedies=("unfused-elementwise",),
 ))

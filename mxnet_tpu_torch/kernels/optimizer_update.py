@@ -193,6 +193,7 @@ register_kernel(KernelSpec(
     replaces="mxnet_tpu/kernels/optimizer_update.py:258 lamb_phase1_pallas",
     cost=lamb_phase1_cost,
     category="elementwise_fusion",
+    remedies=("memory-bound",),
 ))
 
 
@@ -249,6 +250,7 @@ register_kernel(KernelSpec(
     replaces="mxnet_tpu/kernels/optimizer_update.py:114 lars_flat_pallas",
     cost=lars_flat_cost,
     category="elementwise_fusion",
+    remedies=("memory-bound",),
 ))
 
 

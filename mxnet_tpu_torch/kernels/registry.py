@@ -38,16 +38,18 @@ kernels that ran.
 from __future__ import annotations
 
 import contextlib
+import inspect
 import threading
 from collections import Counter
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional, Tuple
 
 from ..base import MXNetError
 
 __all__ = ["KernelSpec", "register_kernel", "get", "list_kernels",
-           "dispatch", "count_launch", "counting_into", "add_launches",
-           "register_counter", "count_captured",
+           "describe", "remedy_for", "dispatch", "count_launch",
+           "counting_into", "add_launches", "register_counter",
+           "count_captured",
            "launch_dtypes", "launches", "reset_launches"]
 
 
@@ -71,8 +73,19 @@ class KernelSpec:
     category: str
     launches: int = 0
     dtypes: Counter = field(default_factory=Counter)
+    # the JAX KernelSpec's descriptive fields: a description (by
+    # default the first paragraph of the launcher's docstring), the
+    # report categories whose traffic the kernel removes, the perf-audit
+    # advisory kinds it remedies (:func:`remedy_for`) and extras
+    doc: str = ""
+    categories: Tuple[str, ...] = ()
+    remedies: Tuple[str, ...] = ()
+    extra: Dict = field(default_factory=dict)
 
     def __post_init__(self):
+        if not self.doc:
+            self.doc = " ".join((inspect.getdoc(self.launch) or "")
+                                .split("\n\n")[0].split())
         if not callable(self.cost):
             raise MXNetError("kernel %r registered without a cost "
                              "function" % self.name)
@@ -125,6 +138,39 @@ def get(name: str) -> KernelSpec:
 def list_kernels() -> List[str]:
     _ensure_registered()
     return sorted(KERNELS)
+
+
+def _qualname(fn):
+    return "%s.%s" % (fn.__module__, getattr(fn, "__qualname__", fn))
+
+
+def describe() -> Dict[str, Dict]:
+    """``{name: {doc, source, replaces, plain, cost, category,
+    categories, remedies}}`` of every registered kernel: its kernel
+    source, its plain version and cost function (by qualified name) and
+    its report categories.  There is no mode and no choice to report:
+    the tensor's device picks the kernel (:func:`dispatch`)."""
+    _ensure_registered()
+    return {name: {"doc": spec.doc, "source": spec.source,
+                   "replaces": spec.replaces,
+                   "plain": _qualname(spec.plain),
+                   "cost": _qualname(spec.cost),
+                   "category": spec.category,
+                   "categories": list(spec.categories),
+                   "remedies": list(spec.remedies)}
+            for name, spec in sorted(KERNELS.items())}
+
+
+def remedy_for(kind: str) -> Optional[str]:
+    """The registered kernel remedying a perf-audit advisory ``kind``
+    (``"unfused-elementwise"`` -> ``"kernels.bn_relu_apply"``), the
+    first by name of those whose ``remedies`` name it; None when no
+    kernel covers it."""
+    _ensure_registered()
+    for name in sorted(KERNELS):
+        if kind in KERNELS[name].remedies:
+            return "kernels." + name
+    return None
 
 
 def dispatch(name: str, x, *args, **kwargs):

@@ -38,9 +38,9 @@ from ..base import MXNetError
 from ..context import Context, current_context
 from ..ops.table import OpSpec, canonical, lookup, torch_dtype
 
-__all__ = ["NDArray", "arange", "array", "concatenate", "empty", "full",
-           "invoke", "load", "moveaxis", "ones", "onehot_encode", "save",
-           "waitall", "zeros"]
+__all__ = ["NDArray", "arange", "array", "concat", "concatenate", "empty",
+           "full", "invoke", "load", "moveaxis", "ones", "onehot_encode",
+           "save", "transpose", "waitall", "zeros"]
 
 _NP_DTYPES = {torch.float32: np.float32, torch.float16: np.float16,
               torch.float64: np.float64, torch.int32: np.int32,
@@ -581,12 +581,14 @@ def _wrap(raw):
 
 def invoke(op, tensor_args, kwargs, out=None):
     """Run one op of the table eagerly on NDArrays (reference:
-    ``Imperative::Invoke``).  ``op`` is an op name, alias or spec.
+    ``Imperative::Invoke``).  ``op`` is an op name, alias, spec or
+    :class:`~mxnet_tpu_torch.ops.registry.Op`.
     Operands that are not NDArrays (numpy arrays, scalars) are placed
     with the NDArray operands; an op that makes a tensor from none runs
     on ``ctx``, by default the current context.  Outside
     ``autograd.record()`` nothing is recorded for backward."""
-    spec = op if isinstance(op, OpSpec) else lookup(op)
+    spec = op if isinstance(op, OpSpec) else \
+        lookup(op) if isinstance(op, str) else op.spec
     if _telemetry._ENABLED:
         _telemetry.hooks.op_dispatch(spec.name)
     params = dict(kwargs)
@@ -672,8 +674,16 @@ def onehot_encode(indices, out):
     return invoke("one_hot", [indices], {"depth": out.shape[-1]}, out=out)
 
 
+def concat(*data, dim=1):
+    return invoke("Concat", list(data), {"dim": dim})
+
+
 def concatenate(arrays, axis=0):
     return invoke("Concat", list(arrays), {"dim": axis})
+
+
+def transpose(data, axes=None):
+    return invoke("transpose", [data], {"axes": axes})
 
 
 # ----------------------------------------------------------------------

@@ -28,6 +28,8 @@ def _make_function(spec, pyname):
     fn.__name__ = fn.__qualname__ = pyname
     fn.__doc__ = spec.fn.__doc__
     fn.__module__ = "mxnet_tpu_torch.ndarray"
+    fn.__signature__ = table.call_signature(
+        spec, ("out", "name") + (("ctx",) if spec.creates else ()), True)
     return fn
 
 

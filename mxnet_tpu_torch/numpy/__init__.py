@@ -21,8 +21,11 @@ from __future__ import annotations
 import numpy as _onp
 
 from ..base import MXNetError
+# current_context is in the namespace as in the JAX package's mx.np
+from ..context import current_context  # noqa: F401
 from ..ndarray import NDArray
 from ..ndarray import ndarray as _nd_mod
+from ..ops.registry import get_op
 
 __all__ = ["ndarray", "array", "asarray", "zeros", "ones", "empty",
            "full", "eye",
@@ -111,7 +114,7 @@ def _views(x):
 
 
 def _call(opname, tensor_args, **params):
-    return _views(_nd_mod.invoke(opname, tensor_args, params))
+    return _views(_nd_mod.invoke(get_op(opname), tensor_args, params))
 
 
 def _shape(shape):

@@ -10,8 +10,12 @@ the plain ``BatchNorm`` op, unfused, as in the JAX package.
 """
 from __future__ import annotations
 
+# NDArray and np_array are in the namespace as in the JAX package's npx
+from ..ndarray import NDArray  # noqa: F401
 from ..ndarray import ndarray as _nd_mod
 from ..numpy import _view, _views
+from ..numpy import array as np_array  # noqa: F401
+from ..ops.registry import get_op
 
 _np_active = False
 
@@ -38,7 +42,7 @@ def is_np_shape():
 
 
 def _call(opname, tensor_args, **params):
-    return _views(_nd_mod.invoke(opname, tensor_args, params))
+    return _views(_nd_mod.invoke(get_op(opname), tensor_args, params))
 
 
 def relu(data):

@@ -30,6 +30,7 @@ from .nn import (Activation, BatchNorm, BilinearResize2D, Convolution,
                  softmax_cross_entropy, softmin)
 from .optimizer_ops import (lamb_update_phase1, lamb_update_phase2,
                             lars_update, sgd_mom_update, sgd_update)
+from .registry import OP_REGISTRY, Op, OpParam, get_op, list_ops, register
 from .transformer import (attention_reference, flash_attention,
                           flash_attention_masked)
 
@@ -37,14 +38,15 @@ __all__ = ["Activation", "BatchNorm", "BilinearResize2D", "CTCLoss",
            "Convolution", "Deconvolution", "Dropout", "Embedding", "Flatten",
            "FullyConnected", "GroupNorm", "InstanceNorm", "LayerNorm",
            "LeakyReLU", "LinearRegressionOutput", "LogisticRegressionOutput",
-           "MAERegressionOutput", "MakeLoss", "Pooling", "RNN",
-           "SoftmaxOutput",
+           "MAERegressionOutput", "MakeLoss", "OP_REGISTRY", "Op", "OpParam",
+           "Pooling", "RNN", "SoftmaxOutput",
            "UpSampling", "attention_reference", "col2im", "flash_attention",
-           "flash_attention_masked", "fused_batch_norm_relu", "im2col",
-           "lamb_update_phase1", "lamb_update_phase2", "lars_update",
-           "log_softmax", "moments", "pick", "prelu", "sgd_mom_update",
-           "sgd_update", "slice_axis", "smooth_l1", "softmax",
-           "softmax_cross_entropy", "softmin", "table"]
+           "flash_attention_masked", "fused_batch_norm_relu", "get_op",
+           "im2col", "lamb_update_phase1", "lamb_update_phase2",
+           "lars_update", "list_ops", "log_softmax", "moments", "pick",
+           "prelu", "register", "sgd_mom_update", "sgd_update", "slice_axis",
+           "smooth_l1", "softmax", "softmax_cross_entropy", "softmin",
+           "table"]
 
 _BN_ARGS = ("data", "gamma", "beta", "moving_mean", "moving_var")
 # the layer ops of mx.nd, under the JAX package's names and arguments

@@ -22,15 +22,15 @@ from __future__ import annotations
 
 import inspect
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..base import MXNetError
 
-__all__ = ["OpSpec", "TABLE", "canonical", "lookup", "names", "register",
-           "torch_dtype"]
+__all__ = ["OpSpec", "TABLE", "call_signature", "canonical", "lookup",
+           "names", "register", "torch_dtype"]
 
 _DTYPES = {
     "float32": torch.float32, "float16": torch.float16,
@@ -70,6 +70,12 @@ class OpSpec:
     aliases: Tuple[str, ...] = ()
     params: Tuple[str, ...] = field(default=())
     creates: bool = False     # takes ``device``: makes a tensor from none
+    # the JAX registry's flags, kept for ``ops.registry.Op``: the leading
+    # outputs that are differentiable (None: all), and whether the op
+    # draws random numbers (from the device's generator here; the JAX
+    # package threads a key to such an op)
+    num_diff_outputs: Optional[int] = None
+    stateful_rng: bool = False
 
     def __repr__(self):
         return "OpSpec(%s)" % self.name
@@ -79,7 +85,8 @@ TABLE: Dict[str, OpSpec] = {}
 _BY_NAME: Dict[str, OpSpec] = {}
 
 
-def register(name, args=("data",), variadic=False, aliases=()):
+def register(name, args=("data",), variadic=False, aliases=(),
+             num_diff_outputs=None, stateful_rng=False):
     """Decorator entering ``fn`` into the table as op ``name``."""
     def deco(fn):
         sig = inspect.signature(fn)
@@ -89,7 +96,8 @@ def register(name, args=("data",), variadic=False, aliases=()):
                            and p.name not in args))
         creates = "device" in params
         spec = OpSpec(name, fn, tuple(args), variadic, tuple(aliases),
-                      tuple(p for p in params if p != "device"), creates)
+                      tuple(p for p in params if p != "device"), creates,
+                      num_diff_outputs, stateful_rng)
         for n in (name,) + spec.aliases:
             if n in _BY_NAME:
                 raise MXNetError("duplicate op name %r" % n)
@@ -111,3 +119,26 @@ def lookup(name):
 def names():
     """Every op name and alias in the table."""
     return sorted(_BY_NAME)
+
+
+def call_signature(spec, trailing, positional_params):
+    """The signature of a generated ``mx.nd``/``mx.sym`` function of
+    ``spec``: its tensor arguments (``*data`` when variadic), its
+    parameters with the defaults of ``spec.fn`` (positional after the
+    tensors where ``positional_params``), then the keyword-only
+    ``trailing`` names, each defaulting to None."""
+    Param = inspect.Parameter
+    defaults = {n: p.default for n, p in
+                inspect.signature(spec.fn).parameters.items()}
+    if spec.variadic:
+        out = [Param("data", Param.VAR_POSITIONAL)]
+    else:
+        out = [Param(a, Param.POSITIONAL_OR_KEYWORD, default=None)
+               for a in spec.args]
+    kind = Param.POSITIONAL_OR_KEYWORD \
+        if positional_params and not spec.variadic else Param.KEYWORD_ONLY
+    for n in spec.params:
+        d = defaults.get(n, Param.empty)
+        out.append(Param(n, kind, default=None if d is Param.empty else d))
+    out += [Param(n, Param.KEYWORD_ONLY, default=None) for n in trailing]
+    return inspect.Signature(out)

@@ -396,7 +396,10 @@ class _StepScalars:
 
 class TrainStep:
     def __init__(self, block, loss_fn, trainer, mesh=None, batch_axis=0,
-                 axis_name="dp"):
+                 axis_name="dp", donate=True):
+        """``donate`` is the JAX package's donation of the step's input
+        buffers; it changes nothing here: the captured step already
+        updates the parameters and optimizer state in place."""
         from .. import distributed as _dist
         if mesh is not None and not isinstance(mesh, Mesh):
             raise MXNetError("TrainStep: mesh must be a "

@@ -191,17 +191,23 @@ class DecodeEngine:
     kv_dtype : cache dtype, ``"float32"`` or ``"bfloat16"``
     device : where the cache lives and the model runs (CUDA unless
         ``"cpu"``)
+    compile_cache : count each warmed prefill and decode bucket as a
+        compile-cache miss (``ModelRegistry(compile_cache=)``)
+    cache : the JAX package's compile cache; any value but None turns
+        ``compile_cache`` on (a CUDA graph has no portable serialized
+        form to keep)
     """
 
     def __init__(self, model, params, prefill_buckets=None,
                  decode_buckets=None, block_size=None, num_blocks=None,
                  max_queue=None, label="generative", kv_dtype="float32",
-                 device=None):
+                 device=None, compile_cache=False, cache=None):
         from ... import env as _env
         self.model = model
         self.params = params
         self.device = resolve_device(device)
         self._label = label
+        self._compile_cache = bool(compile_cache) or cache is not None
         if prefill_buckets is None:
             prefill_buckets = _env_buckets(
                 "MXNET_TPU_SERVING_PREFILL_BUCKETS")
@@ -343,6 +349,8 @@ class DecodeEngine:
             for b in buckets:
                 self._fingerprints[(kind, b)] = self._digest(kind,
                                                              shapes(b))
+                if self._compile_cache and _telemetry._ENABLED:
+                    _telemetry.hooks.serving_compile_cache(False)
         dt = time.perf_counter() - t0
         if _telemetry._ENABLED:
             _telemetry.hooks.serving_warmup(

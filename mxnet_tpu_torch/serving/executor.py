@@ -49,6 +49,7 @@ from .. import _build, _capture
 from .. import autograd
 from .. import telemetry as _telemetry
 from ..base import MXNetError
+from ..context import resolve_device
 
 __all__ = ["BucketExecutorPool", "device_hbm_bytes"]
 
@@ -73,7 +74,8 @@ class BucketExecutorPool:
     dtype : input dtype
     buckets : batch-size buckets; requests pad to the smallest bucket
         that fits
-    device : the ``torch.device`` the forward runs on
+    device : the ``torch.device`` the forward runs on (the card unless
+        ``"cpu"``)
     watch : callable returning the tensors ``fn`` reads that may be
         rebound (the block's parameters); a rebound one makes its
         bucket's graph capture again
@@ -83,11 +85,38 @@ class BucketExecutorPool:
     param_bytes : the bytes of the parameters ``fn`` reads
         (:meth:`hbm_plan`'s constant)
     compile_cache : count each warmed bucket as a compile-cache miss
+    pure_fn, params : the JAX package's form, in place of ``fn``:
+        ``pure_fn(params, x) -> tuple(tensors)`` over ``params``
+        (``{name: tensor}``), which are then what ``watch``,
+        ``structure`` and ``param_bytes`` default to
+    cache : the JAX package's compile cache; any value but None turns
+        ``compile_cache`` on (there is no cache to keep: a CUDA graph
+        has no portable serialized form)
     """
 
-    def __init__(self, fn, input_shape, dtype, buckets, device,
-                 watch=None, label="servable", structure=None,
-                 param_bytes=0, compile_cache=False):
+    def __init__(self, fn=None, input_shape=None, dtype="float32",
+                 buckets=None, device=None, watch=None, label="servable",
+                 structure=None, param_bytes=0, compile_cache=False, *,
+                 pure_fn=None, params=None, cache=None):
+        if (fn is None) == (pure_fn is None):
+            raise MXNetError("BucketExecutorPool: give fn or pure_fn "
+                             "(with params), not both")
+        if input_shape is None or buckets is None:
+            raise MXNetError("BucketExecutorPool: input_shape and "
+                             "buckets are required")
+        if pure_fn is not None:
+            params = dict(params or {})
+
+            def fn(x):
+                return tuple(pure_fn(params, x))
+
+            tensors = tuple(params.values())
+            watch = watch or (lambda: tensors)
+            if structure is None:
+                structure = {"params": [[k, list(v.shape), str(v.dtype)]
+                                        for k, v in sorted(params.items())]}
+            param_bytes = param_bytes or sum(
+                t.numel() * t.element_size() for t in tensors)
         self._fn = fn
         self.input_shape = tuple(int(s) for s in input_shape)
         self.dtype = np.dtype(dtype)
@@ -95,15 +124,15 @@ class BucketExecutorPool:
         if not self.buckets or self.buckets[0] < 1:
             raise MXNetError("serving: buckets must be positive ints, "
                              "got %r" % (buckets,))
-        self.device = device
+        self.device = resolve_device(device)
         self._watch = watch or (lambda: ())
         self._num_outputs = None
-        self._owner = _capture.GraphOwner("BucketExecutorPool", device)
+        self._owner = _capture.GraphOwner("BucketExecutorPool", self.device)
         self._lock = threading.Lock()
         self._label = label
         self._structure = structure
         self._param_bytes = int(param_bytes)
-        self._compile_cache = bool(compile_cache)
+        self._compile_cache = bool(compile_cache) or cache is not None
         self._fingerprints = {}   # bucket -> digest
         self._peaks = {}          # bucket -> warm-up peak bytes (card)
 
@@ -121,6 +150,14 @@ class BucketExecutorPool:
 
     def warm_buckets(self):
         return sorted(self._owner.keys())
+
+    def compiled_buckets(self):
+        """The buckets built so far, sorted: on the card those whose
+        graph is captured, on the CPU those run once (each one's entry
+        is its eager call)."""
+        if self._owner.cuda:
+            return sorted(self._owner.captured_keys())
+        return self.warm_buckets()
 
     def fingerprint(self, bucket):
         """The digest of what ``bucket``'s graph computes, or None for a

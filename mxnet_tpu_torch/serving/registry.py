@@ -358,7 +358,8 @@ class ModelRegistry:
                               block_size=block_size,
                               num_blocks=num_blocks,
                               max_queue=max_queue, label=name,
-                              kv_dtype=kv_dtype, device=dev)
+                              kv_dtype=kv_dtype, device=dev,
+                              compile_cache=self._compile_cache)
         if warmup:
             sp = _obs.begin_span("serving.register.warm", model=name) \
                 if _obs._TRACE_ENABLED else None

@@ -31,6 +31,7 @@ def _make_function(spec, pyname):
     fn.__name__ = fn.__qualname__ = pyname
     fn.__doc__ = spec.fn.__doc__
     fn.__module__ = "mxnet_tpu_torch.symbol"
+    fn.__signature__ = table.call_signature(spec, ("name", "attr"), False)
     return fn
 
 

@@ -101,6 +101,20 @@ with mx.cpu():
     arrays["moe_gx"] = xg.grad.numpy()
     for k, p in moe._collect_params_with_prefix().items():
         arrays["moe_g." + k] = p._data.grad.numpy()
+    # the same forward and gradients through the port's pure function
+    pure, pnames, pmap = moe.functionalize(training=False)
+    pvals = {n: pmap[n]._data.detach().clone().requires_grad_()
+             for n in pnames}
+    xf = xm.clone().requires_grad_(True)
+    out = pure(pvals, [xf])[0][0]
+    arrays["moe_fn_out"] = out.detach().numpy()
+    fn_grads = torch.autograd.grad((out ** 2).sum(),
+                                   [xf] + [pvals[n] for n in pnames])
+    arrays["moe_fn_gx"] = fn_grads[0].numpy()
+    structural = {p.name: k for k, p in
+                  moe._collect_params_with_prefix().items()}
+    for n, g in zip(pnames, fn_grads[1:]):
+        arrays["moe_fn_g." + structural[n]] = g.numpy()
     values["ep_index"] = emesh.axis_index("ep")
 
     drop = MixtureOfExperts(num_experts=2, d_model=4, d_hidden=8,
@@ -297,6 +311,26 @@ def test_moe_grads_match_jax(world):
                                    ref["moe_gp"]["gate"], **TOL)
     for name in ("w_up", "w_down"):
         got = np.concatenate([ranks[r][0]["moe_g." + name] for r in order])
+        np.testing.assert_allclose(got, ref["moe_gp"][name], err_msg=name,
+                                   **TOL)
+
+
+def test_moe_functionalize_matches_the_jax_one(world):
+    """The port's ``functionalize`` beside the JAX one: its pure
+    function's output and gradients (inputs and every parameter's
+    shard) against the JAX ``pure_fn``'s and ``jax.grad``'s."""
+    ranks, ref = world["ranks"], world["ref"]
+    order = sorted(range(4), key=lambda r: ranks[r][1]["ep_index"])
+    for arrays, _vals in ranks:
+        np.testing.assert_allclose(arrays["moe_fn_out"], ref["moe_out"],
+                                   rtol=2e-4, atol=1e-5)
+        np.testing.assert_allclose(arrays["moe_fn_gx"], ref["moe_gx"],
+                                   **TOL)
+        np.testing.assert_allclose(arrays["moe_fn_g.gate"],
+                                   ref["moe_gp"]["gate"], **TOL)
+    for name in ("w_up", "w_down"):
+        got = np.concatenate([ranks[r][0]["moe_fn_g." + name]
+                              for r in order])
         np.testing.assert_allclose(got, ref["moe_gp"][name], err_msg=name,
                                    **TOL)
 

@@ -76,6 +76,11 @@ with mx.cpu():
     x = inp["mlp_x"][dpi * 4:(dpi + 1) * 4]
     with autograd.pause():
         arrays["mlp_out"] = mlp(torch.from_numpy(x)).detach().numpy()
+    # the same forward as the port's pure function of its shards
+    pure, pnames, pmap = mlp.functionalize(training=False)
+    with torch.no_grad():
+        arrays["mlp_fn_out"] = pure({n: pmap[n]._data for n in pnames},
+                                    [torch.from_numpy(x)])[0][0].numpy()
 
     gmlp = TensorParallelMLP(48, 16, mesh=mesh)
     gmlp.initialize(ctx=mx.cpu())
@@ -92,6 +97,17 @@ with mx.cpu():
         # the batch is split over dp: sum the ranks' partial gradients
         collectives.all_reduce_(p._data.grad, mesh, "dp")
     shards(gmlp, "gmlp.")
+    # the same gradients through the port's pure function
+    pure, pnames, pmap = gmlp.functionalize(training=False)
+    pvals = {n: pmap[n]._data.detach().clone().requires_grad_()
+             for n in pnames}
+    fn_grads = torch.autograd.grad(
+        (pure(pvals, [x])[0][0] ** 2).sum(), [pvals[n] for n in pnames])
+    structural = {p.name: k for k, p in
+                  gmlp._collect_params_with_prefix().items()}
+    for n, g in zip(pnames, fn_grads):
+        collectives.all_reduce_(g, mesh, "dp")
+        arrays["gmlp_fn.grad." + structural[n]] = g.numpy().copy()
 
     # shard_block_tp's rules on a {"tp": 4} mesh
     tmesh = make_mesh({"tp": 4}, device="cpu")
@@ -318,6 +334,14 @@ def test_tp_mlp_matches_the_jax_partitioned_forward(world):
                                atol=2e-5)
 
 
+def test_tp_mlp_functionalize_matches_the_jax_one(world):
+    """The port's ``functionalize`` beside the JAX one: the pure function
+    of the shards gives the JAX ``pure_fn``'s partitioned forward."""
+    got = _dp_rows(world["ranks"], "mlp_fn_out")
+    np.testing.assert_allclose(got, world["ref"]["mlp_out"], rtol=2e-5,
+                               atol=2e-5)
+
+
 MLP_SPECS = {"up.weight": ["tp", None], "up.bias": ["tp"],
              "down.weight": [None, "tp"], "down.bias": []}
 
@@ -326,6 +350,17 @@ MLP_SPECS = {"up.weight": ["tp", None], "up.bias": ["tp"],
 def test_tp_grad_matches_the_jax_partitioned_grad(world, name):
     ranks = world["ranks"]
     got = _assemble(ranks, "gmlp.grad." + name, MLP_SPECS[name],
+                    _tp_index(ranks))
+    np.testing.assert_allclose(got, world["ref"]["gmlp_grads"][name],
+                               rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("name", sorted(MLP_SPECS))
+def test_tp_functionalize_grad_matches_the_jax_one(world, name):
+    """``torch.autograd.grad`` through the port's ``pure_fn`` against
+    ``jax.grad`` through the JAX one, shard by shard."""
+    ranks = world["ranks"]
+    got = _assemble(ranks, "gmlp_fn.grad." + name, MLP_SPECS[name],
                     _tp_index(ranks))
     np.testing.assert_allclose(got, world["ref"]["gmlp_grads"][name],
                                rtol=2e-4, atol=2e-5)
